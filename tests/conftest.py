@@ -35,6 +35,8 @@ _SLOW_FILES = {
 def pytest_configure(config):
     config.addinivalue_line('markers', 'fast: quick-gate subset (<5 min)')
     config.addinivalue_line('markers', 'slow: whole-model/mesh suites')
+    config.addinivalue_line('markers', 'gpu: needs a CUDA card; skips '
+                            'without one')
 
 
 def pytest_collection_modifyitems(config, items):
