@@ -1,19 +1,24 @@
 #!/usr/bin/env python3
-"""Chip smoke for paddle_tpu_torch: decode serving on one CUDA card.
+"""Chip smoke for paddle_tpu_torch: decode serving and Transformer
+training on one CUDA card.
 
     python3 chip_smoke.py                  # on a machine with one H100
-    python3 chip_smoke.py --cpu-rehearsal  # phases 4-5 on the host, tiny LM
+    python3 chip_smoke.py --cpu-rehearsal  # phases 4-8 on the host, tiny
 
 Phases (any fault exits non-zero; no phase is skipped over):
 
 1. Device: name, count, nvidia-smi's name and power limit, TF32 flags
    (both set off: fp32 matmuls run in full fp32).
-2. Build: both CUDA kernels from paddle_tpu_torch/csrc with one nvcc call;
-   build time and ptxas's registers / shared memory per kernel.
-3. Kernel vs plain version on the card at the main path's shapes, fp32
+2. Build: every CUDA kernel from paddle_tpu_torch/csrc with one nvcc
+   call; build time and ptxas's registers / shared memory per kernel.
+3. Kernel vs plain version on the card at the main paths' shapes, fp32
    and bf16, with the stated tolerance; device times of the kernel, the
    plain version and a library yardstick (CUDA-graph replay, CUDA
    events) beside each kernel's bound, and the kernel's eager time.
+   Layer norm (K1), paged attention (K4), flash attention forward (K2)
+   and backward (K3) at the training shapes: B=64 H=8 T=64 D=64 bf16
+   non-causal and causal, B=8 H=8 T=512 causal with kv_len 256-512 and
+   one row at 1, and B=64 T=64 fp32.
 4. Engine: DecodeEngine at the documented serving configuration
    (docs/serving.md: vocab 32000, 12 layers, 8 heads, d_model 512,
    d_inner 2048; max_batch 16, block 32, 4096 pages, 64 pages a
@@ -26,11 +31,28 @@ Phases (any fault exits non-zero; no phase is skipped over):
    decode step of the run.
 5. Card vs CPU: the same port on CPUPlace() (plain versions), 2 prompts x
    16 greedy tokens, must give the card's token streams.
+6. Training: bench.py's bench_transformer through the port's user API
+   (transformer_base at vocab 32000, 6+6 layers, d_model 512, dropout
+   and label smoothing 0.1; Adam(1e-4).minimize; amp 'bf16';
+   Executor(CUDAPlace(0)).run) on make_fake_batch(64, 64, 64, ...): 3
+   warm-up and 20 timed steps. ms a step, tokens/s, MFU against 989
+   TFLOP/s, the first and last loss (finite, falling), peak memory, and
+   the launch counts of the timed steps (K2, both K3 kernels 18 a step,
+   K1 30 a step).
+7. Masked training: 3 + 10 steps at bench_transformer_masked's shape
+   (batch 8, seq 512, src_length uniform in [256, 512], lbl_weight
+   masking the same positions): padded and real tokens/s.
+8. Training card vs CPU: the same Program at batch 2 x seq 64, fp32,
+   dropout 0, no amp; 3 Adam steps on CUDAPlace(0) and on CPUPlace()
+   from the same weights: each loss within 1e-4 relative, every
+   parameter within 2*lr*steps.
 
 The last line is {"ok": true, "device": {...}}; before it come one JSON
 line with every kernel's numbers and nvidia-smi's name and power limit.
---cpu-rehearsal runs phases 4-5 at the tests' tiny LM with the plain
-versions and never prints that last line.
+--cpu-rehearsal runs phases 4-8 at tiny sizes with the plain versions
+(phase 8 then compares the host with itself) and never prints that last
+line. --profile adds, after every other phase, a torch.profiler
+breakdown of decode steps and of training steps.
 """
 
 import argparse
@@ -48,6 +70,8 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM peaks (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+BF16_FLOPS = 989e12
+VOCAB = 32000
 
 
 def fail(msg):
@@ -111,10 +135,31 @@ def device_ms(torch, fn, iters=100):
     return ms
 
 
-def bound_ms(n_bytes, n_ops):
+def bound_ms(n_bytes, n_ops, peak_ops=FP32_FLOPS):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / FP32_FLOPS * 1e3
+    t_ops = n_ops / peak_ops * 1e3
     return max(t_bytes, t_ops), 'bytes' if t_bytes >= t_ops else 'operations'
+
+
+def reset_launches():
+    """Every kernel wrapper's launch count to 0."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.kernels.layer_norm import fused_layer_norm
+    from paddle_tpu_torch.ops.kernels.paged_attention import paged_attention
+    for fn in (fused_layer_norm, paged_attention, fa.flash_fwd_cuda,
+               fa.flash_bwd_dkv_cuda, fa.flash_bwd_dq_cuda):
+        fn.launches = 0
+
+
+def read_launches():
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.kernels.layer_norm import fused_layer_norm
+    from paddle_tpu_torch.ops.kernels.paged_attention import paged_attention
+    return {'layer_norm': fused_layer_norm.launches,
+            'paged_attention': paged_attention.launches,
+            'flash_attention_fwd': fa.flash_fwd_cuda.launches,
+            'flash_attention_bwd_dkv': fa.flash_bwd_dkv_cuda.launches,
+            'flash_attention_bwd_dq': fa.flash_bwd_dq_cuda.launches}
 
 
 # ------------------------------------------------------------ phase 1
@@ -149,8 +194,12 @@ def phase_build():
     for line in res.log.splitlines():
         if 'ptxas info' in line and ('Compiling' in line or 'Used' in line):
             print('  ' + line.strip())
+    lib = build.library()
     print('  paged_attention dynamic shared memory at bs=32, D=Dv=64: %d B'
-          % build.library().ptt_paged_attention_smem_bytes(32, 64, 64))
+          % lib.ptt_paged_attention_smem_bytes(32, 64, 64))
+    print('  flash attention dynamic shared memory at D=64: forward %d B, '
+          'dK/dV %d B, dQ %d B' % tuple(lib.ptt_flash_smem_bytes(i, 64)
+                                        for i in range(3)))
     return res
 
 
@@ -268,6 +317,147 @@ def _paged_case(torch, card, label, q, kp, vp, tables, lens):
                 bound_by=by, library_ms=lib, eager_ms=eager)
 
 
+def _live_pairs(b, tq, tk, lens, causal):
+    """(query, key) pairs that attend, summed over the batch (per head)."""
+    rows = np.arange(tq)[:, None]
+    cols = np.arange(tk)[None, :]
+    live = 0
+    for i in range(b):
+        m = cols < (tk if lens is None else int(lens[i]))
+        if causal:
+            m = m & (cols <= rows)
+        live += int(np.broadcast_to(m, (tq, tk)).sum())
+    return live
+
+
+def _flash_case(torch, card, label, b, h, t, d, dtype, causal, lens, gen):
+    """K2 and K3 against their plain versions on one input; returns the
+    numbers of each (forward, backward)."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.kernels import flash_attention as K
+    dev = torch.device('cuda', 0)
+    q, k, v, do = (torch.randn(b, h, t, d, generator=gen, device=dev)
+                   .to(dtype) for _ in range(4))
+    kv = None if lens is None else torch.tensor(lens, device=dev)
+    out, lse = K.flash_attention_fwd(q, k, v, kv, causal)
+    ref_out, ref_lse = K.flash_attention_reference_fwd(q, k, v, kv, causal)
+    grads = K.flash_attention_bwd(q, k, v, out, lse, do, kv, causal)
+    ref_grads = K.flash_attention_reference_bwd(q, k, v, out, lse, do, kv,
+                                                causal)
+    torch.cuda.synchronize()
+    if dtype == torch.float32:
+        tol = ('fp32: |kernel - plain| <= 1e-5 * max(1, max|plain|) (the '
+               'same sums in another order)')
+    else:
+        tol = ('bf16: |kernel - plain| <= 1e-2 * max|plain| + 1e-2 * '
+               '|plain| (outputs rounded to bf16; p rounded per tile '
+               'against the running max, in the plain version against the '
+               'row max)')
+
+    def err_ok(got, want):
+        g, w = got.float(), want.float()
+        top = float(w.abs().max())
+        diff = (g - w).abs()
+        if dtype == torch.float32:
+            ok = float(diff.max()) <= 1e-5 * max(top, 1.0)
+        else:
+            ok = bool((diff <= 1e-2 * top + 1e-2 * w.abs()).all())
+        return float(diff.max()), ok
+
+    fwd_err, fwd_ok = err_ok(out, ref_out)
+    lse_err = float((lse - ref_lse).abs().max())
+    fwd_ok = fwd_ok and lse_err <= 1e-4
+    bwd = [err_ok(g, w) for g, w in zip(grads, ref_grads)]
+    bwd_err = max(e for e, _ in bwd)
+    bwd_ok = all(ok for _, ok in bwd)
+
+    item = q.element_size()
+    n = b * h * t * d * item
+    live = _live_pairs(b, t, t, lens, causal) * h
+    peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
+    fwd_bound = bound_ms(4 * n + b * h * t * 4, 4 * live * d, peak)
+    bwd_bound = bound_ms(8 * n + b * h * t * 4, 2.5 * 4 * live * d, peak)
+
+    fwd = lambda: K.flash_attention_fwd(q, k, v, kv, causal)  # noqa: E731
+    bwd_fn = lambda: K.flash_attention_bwd(  # noqa: E731
+        q, k, v, out, lse, do, kv, causal)
+    times = dict(
+        fwd_ms=device_ms(torch, fwd, iters=50),
+        fwd_eager=eager_ms(torch, fwd, iters=50),
+        fwd_plain=device_ms(torch, lambda: K.flash_attention_reference_fwd(
+            q, k, v, kv, causal), iters=10),
+        bwd_ms=device_ms(torch, bwd_fn, iters=50),
+        bwd_eager=eager_ms(torch, bwd_fn, iters=50),
+        bwd_plain=device_ms(torch, lambda: K.flash_attention_reference_bwd(
+            q, k, v, out, lse, do, kv, causal), iters=10))
+    # yardstick: SDPA forward (graph replay) and its autograd backward
+    # (eager, CUDA events), on the same inputs and mask
+    if kv is None:
+        mask = None
+    else:
+        mask = (torch.arange(t, device=dev)[None, :] < kv[:, None])
+        mask = mask[:, None, None, :]
+        if causal:
+            mask = mask & torch.ones(t, t, dtype=torch.bool,
+                                     device=dev).tril()
+    sdpa_causal = causal and mask is None
+    times['fwd_lib'] = device_ms(torch, lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, is_causal=sdpa_causal), iters=50)
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    lib_out = F.scaled_dot_product_attention(*leaves, attn_mask=mask,
+                                             is_causal=sdpa_causal)
+    times['bwd_lib'] = eager_ms(torch, lambda: torch.autograd.grad(
+        lib_out, leaves, do, retain_graph=True), iters=50)
+    del lib_out, leaves
+    print('%s: forward max_abs_err %.3g (lse %.3g), backward max_abs_err '
+          '%.3g (%s) %s; device ms: forward kernel %.5f, plain %.5f, '
+          'SDPA %.5f, bound %.6f (%s); backward kernels %.5f, plain %.5f, '
+          'SDPA autograd backward (eager) %.5f, bound %.6f (%s); eager ms: '
+          'forward %.5f, backward %.5f [%s]'
+          % (label, fwd_err, lse_err, bwd_err, tol,
+             'ok' if fwd_ok and bwd_ok else 'MISMATCH', times['fwd_ms'],
+             times['fwd_plain'], times['fwd_lib'], fwd_bound[0],
+             fwd_bound[1], times['bwd_ms'], times['bwd_plain'],
+             times['bwd_lib'], bwd_bound[0], bwd_bound[1],
+             times['fwd_eager'], times['bwd_eager'], card))
+    require(fwd_ok, '%s: K2 disagrees with its plain version' % label)
+    require(bwd_ok, '%s: K3 disagrees with its plain version' % label)
+    fwd_rec = dict(max_abs_err=max(fwd_err, lse_err), ms=times['fwd_ms'],
+                   plain_ms=times['fwd_plain'], bound_ms=fwd_bound[0],
+                   bound_by=fwd_bound[1], library_ms=times['fwd_lib'],
+                   eager_ms=times['fwd_eager'])
+    bwd_rec = dict(max_abs_err=bwd_err, ms=times['bwd_ms'],
+                   plain_ms=times['bwd_plain'], bound_ms=bwd_bound[0],
+                   bound_by=bwd_bound[1], library_ms=times['bwd_lib'],
+                   eager_ms=times['bwd_eager'])
+    return fwd_rec, bwd_rec
+
+
+def phase_flash_kernels(torch, card):
+    gen = torch.Generator(device='cuda').manual_seed(1)
+    rng = np.random.RandomState(0)
+    masked = rng.randint(256, 513, 8)
+    masked[-1] = 1
+    cases = [
+        ('flash_attention B=64 H=8 T=64 D=64 bf16 encoder (non-causal, '
+         'kv_len full)', 64, torch.bfloat16, False, [64] * 64),
+        ('flash_attention B=64 H=8 T=64 D=64 bf16 decoder (causal)', 64,
+         torch.bfloat16, True, None),
+        ('flash_attention B=8 H=8 T=512 D=64 bf16 causal, kv_len %d-%d '
+         'and one row at 1' % (masked[:-1].min(), masked[:-1].max()), 8,
+         torch.bfloat16, True, masked.tolist()),
+        ('flash_attention B=64 H=8 T=64 D=64 float32 encoder', 64,
+         torch.float32, False, [64] * 64),
+    ]
+    res = []
+    for label, b, dtype, causal, lens in cases:
+        t = 512 if b == 8 else 64
+        res.append(_flash_case(torch, card, label, b, 8, t, 64, dtype,
+                               causal, lens, gen))
+        torch.cuda.empty_cache()
+    return res[0]
+
+
 def phase_kernels(torch, card):
     gen = torch.Generator(device='cuda').manual_seed(0)
     ln = {}
@@ -322,14 +512,10 @@ def _pct(xs, q):
     return float(np.percentile(np.asarray(xs), q)) if xs else float('nan')
 
 
-def _profile_decode(torch, eng, spec, card, steps=20):
-    """--profile: decode steps with every batch slot busy (lengths from
-    300), run on this thread through the engine's decode program once the
-    engine is shut down. Prints the wall time per step without the
-    profiler, then, under torch.profiler, device busy time and share,
-    device time by kernel and host time by op, per step."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def _decode_job(eng, spec, steps=20):
+    """--profile job: a decode step with every batch slot busy (lengths
+    from 300), run on this thread through the shut-down engine's decode
+    program. Returns (label, step, steps, release)."""
     mb, pps, bs = eng.max_batch, eng.pages_per_seq, eng.block_size
     rng = np.random.RandomState(7)
     need = -(-(300 + 2 * steps + 8) // bs)
@@ -345,46 +531,86 @@ def _profile_decode(torch, eng, spec, card, steps=20):
         state['tokens'] = nxt.astype('int64')
         state['lens'] = state['lens'] + 1
 
-    for _ in range(3):
-        step()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        step()
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    def release():
+        for i in range(mb):
+            eng.pool.free(tables[i, :need].tolist())
+        require(eng.free_pages() == eng.num_blocks,
+                'pages leaked after the decode profile')
+
+    return ('%d decode steps x %d rows (lengths 300..%d)'
+            % (steps, mb, 300 + 3 + 2 * steps), step, steps, release)
+
+
+def _family(name):
+    low = name.lower()
+    if 'ptt::flash' in low:
+        return 'flash attention (K2, K3)'
+    if 'ptt::paged' in low:
+        return 'paged attention (K4)'
+    if 'ptt::ln_' in low:
+        return 'layer norm (K1)'
+    if any(w in low for w in ('gemm', 'xmma', 'nvjet', 'cutlass')):
+        return 'matmul (cuBLAS)'
+    if 'copy' in low or 'cast' in low:
+        return 'copies and casts'
+    return 'other elementwise / reductions'
+
+
+def profile_steps(torch, card, jobs):
+    """--profile: for each job (label, step, steps, release), the wall
+    time a step without the profiler — every job's before any profiler
+    starts, because CUPTI stays attached to the process afterwards and
+    slows what follows — then, under torch.profiler, the device busy
+    time and share, device time by kernel family and by kernel, and host
+    time by op, a step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    walls = []
+    for _, step, steps, _ in jobs:
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         for _ in range(steps):
             step()
         torch.cuda.synchronize()
-    kernels, host = {}, {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            c, t = kernels.get(e.name, (0, 0.0))
-            kernels[e.name] = (c + 1, t + e.time_range.end -
-                               e.time_range.start)
-    for a in prof.key_averages():
-        if a.device_type == DeviceType.CPU and a.self_cpu_time_total > 0:
-            host[a.key] = (a.count, a.self_cpu_time_total)
-    busy_ms = sum(t for _, t in kernels.values()) / steps / 1e3
-    print('profile: %d decode steps x %d rows (lengths 300..%d): wall '
-          '%.3f ms/step (no profiler), device busy %.3f ms/step, busy '
-          'share %.3f [%s]' % (steps, mb, 300 + 2 * steps + 3, wall_ms,
-                               busy_ms, busy_ms / wall_ms, card))
-    for name, (c, t) in sorted(kernels.items(),
-                               key=lambda kv: -kv[1][1])[:10]:
-        print('  device %9.1f us/step %6.1f launches/step  %s'
-              % (t / steps, c / steps, name[:90]))
-    for name, (c, t) in sorted(host.items(), key=lambda kv: -kv[1][1])[:12]:
-        print('  host   %9.1f us/step %6.1f calls/step     %s'
-              % (t / steps, c / steps, name[:90]))
-    for i in range(mb):
-        eng.pool.free(tables[i, :need].tolist())
+        walls.append((time.perf_counter() - t0) * 1e3 / steps)
+    for (label, step, steps, release), wall_ms in zip(jobs, walls):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                step()
+            torch.cuda.synchronize()
+        kernels, host, families = {}, {}, {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                t = e.time_range.end - e.time_range.start
+                for table, key in ((kernels, e.name),
+                                   (families, _family(e.name))):
+                    c, total = table.get(key, (0, 0.0))
+                    table[key] = (c + 1, total + t)
+        for a in prof.key_averages():
+            if a.device_type == DeviceType.CPU and a.self_cpu_time_total > 0:
+                host[a.key] = (a.count, a.self_cpu_time_total)
+        busy_ms = sum(t for _, t in kernels.values()) / steps / 1e3
+        print('profile: %s: wall %.3f ms/step (no profiler), device busy '
+              '%.3f ms/step, busy share %.3f [%s]'
+              % (label, wall_ms, busy_ms, busy_ms / wall_ms, card))
+        for title, table, n in (('family', families, 8),
+                                ('device', kernels, 12)):
+            for name, (c, t) in sorted(table.items(),
+                                       key=lambda kv: -kv[1][1])[:n]:
+                print('  %s %9.1f us/step %7.1f launches/step  %s'
+                      % (title, t / steps, c / steps, name[:90]))
+        for name, (c, t) in sorted(host.items(),
+                                   key=lambda kv: -kv[1][1])[:12]:
+            print('  host   %9.1f us/step %7.1f calls/step     %s'
+                  % (t / steps, c / steps, name[:90]))
+        if release is not None:
+            release()
 
 
-def phase_engine(torch, spec, engine_kw, reqs, place, card, on_card,
-                 profile=False):
+def phase_engine(torch, spec, engine_kw, reqs, place, card, on_card):
     from paddle_tpu_torch.ops.kernels.layer_norm import fused_layer_norm
     from paddle_tpu_torch.ops.kernels.paged_attention import paged_attention
     from paddle_tpu_torch.serving.decode import DecodeEngine, random_weights
@@ -434,8 +660,7 @@ def phase_engine(torch, spec, engine_kw, reqs, place, card, on_card,
                 errors.append(repr(e))
 
     # the main path's run: every launch counter starts at 0 here
-    fused_layer_norm.launches = 0
-    paged_attention.launches = 0
+    reset_launches()
     pre0, dec0 = eng.prefills, eng.decode_steps
     t_run = time.perf_counter()
     threads = [threading.Thread(target=client, args=(k,))
@@ -494,10 +719,8 @@ def phase_engine(torch, spec, engine_kw, reqs, place, card, on_card,
                 % (i, alone[:8], results[i][:8]))
     print('4 greedy streams re-run alone equal their concurrent runs')
     eng.shutdown()
-    if profile:
-        _profile_decode(torch, eng, spec, card)
     require(eng.free_pages() == eng.num_blocks, 'pages leaked after rerun')
-    return results, launches
+    return results, launches, eng
 
 
 # ------------------------------------------------------------ phase 5
@@ -527,15 +750,194 @@ def phase_cpu_compare(spec, reqs, results, block_size, n_new):
           % (len(pick), n_new, time.perf_counter() - t0))
 
 
+# ------------------------------------------------------- phases 6-8
+def _build_train(pt, vocab, seq, dropout, amp, lr=1e-4, **dims):
+    """bench_transformer's graph through the port's user API, on the
+    default programs: transformer_base + Adam(lr).minimize, amp set on
+    the main program."""
+    from paddle_tpu_torch.models import transformer as T
+    pt.reset_default_programs()
+    avg_cost, _ = T.transformer_base(
+        src_vocab_size=vocab, trg_vocab_size=vocab, src_seq_len=seq,
+        trg_seq_len=seq, max_length=max(256, seq), dropout_rate=dropout,
+        **dims)
+    pt.optimizer.Adam(learning_rate=lr).minimize(avg_cost)
+    pt.default_main_program().amp = amp
+    return avg_cost
+
+
+def _train_steps(torch, exe, feed, avg_cost, n, on_card):
+    """n steps; returns (seconds, losses as floats)."""
+    if on_card:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = [exe.run(feed=feed, fetch_list=[avg_cost], return_numpy=False)[0]
+           for _ in range(n)]
+    if on_card:
+        torch.cuda.synchronize()
+    return time.perf_counter() - t0, [float(v.float()) for v in out]
+
+
+def phase_train(torch, pt, place, card, on_card, batch, seq, vocab, dims,
+                warmup=3, steps=20):
+    """Phase 6: bench_transformer through the port; returns the launch
+    counts of the timed steps and a --profile job of 5 more steps."""
+    from paddle_tpu_torch.models import transformer as T
+    t0 = time.perf_counter()
+    avg_cost = _build_train(pt, vocab, seq, 0.1, 'bf16', **dims)
+    n_params = sum(int(np.prod(p.shape))
+                   for p in pt.default_main_program().all_parameters())
+    exe = pt.Executor(place)
+    scope = pt.Scope()
+    program = pt.default_main_program()
+    with pt.scope_guard(scope):
+        exe.run(pt.default_startup_program())
+        feed = {n: torch.as_tensor(v).to(exe.device) for n, v in
+                T.make_fake_batch(batch, seq, seq, vocab, vocab,
+                                  seed=0).items()}
+        base = 0
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        t1 = time.perf_counter()
+        _, first = _train_steps(torch, exe, feed, avg_cost, warmup, on_card)
+        reset_launches()
+        secs, losses = _train_steps(torch, exe, feed, avg_cost, steps,
+                                    on_card)
+        launches = read_launches()
+
+    def profile_step():
+        with pt.scope_guard(scope):
+            exe.run(program, feed=feed, fetch_list=[avg_cost],
+                    return_numpy=False)
+
+    losses = first + losses
+    ms = secs * 1e3 / steps
+    tok_s = batch * seq / secs * steps
+    flops = T.train_step_flops(batch, seq, seq, vocab,
+                               n_layer=dims.get('n_layer', 6),
+                               n_head=dims.get('n_head', 8),
+                               d_key=dims.get('d_key', 64),
+                               d_model=dims.get('d_model', 512),
+                               d_inner=dims.get('d_inner', 2048))
+    layers = dims.get('n_layer', 6)
+    want = {'flash_attention_fwd': 3 * layers * steps,
+            'flash_attention_bwd_dkv': 3 * layers * steps,
+            'flash_attention_bwd_dq': 3 * layers * steps,
+            'layer_norm': 5 * layers * steps}
+    print('train: transformer_base vocab %d, %d params, batch %d x seq %d, '
+          'amp bf16, dropout 0.1, Adam(1e-4); build + startup %.2f s; '
+          'place %r' % (vocab, n_params, batch, seq, t1 - t0, place))
+    print('train: %d timed steps after %d warm-up: %.3f ms/step, %.1f '
+          'tokens/s, analytic %.4g TFLOP/step, MFU %.4f of %g TFLOP/s; loss '
+          'first %.5f last %.5f [%s]'
+          % (steps, warmup, ms, tok_s, flops / 1e12,
+             flops / (ms / 1e3) / BF16_FLOPS, BF16_FLOPS / 1e12, losses[0],
+             losses[-1], card))
+    print('train: launches in the %d timed steps: %s (want %s: per layer '
+          'and step, 3 of each flash kernel and 5 layer norms)'
+          % (steps, {k: launches[k] for k in want}, want))
+    require(np.isfinite(losses).all(), 'training loss not finite: %s'
+            % losses)
+    require(losses[-1] < losses[0], 'training loss did not fall: %s'
+            % losses)
+    if on_card:
+        peak = torch.cuda.max_memory_allocated()
+        print('train: max_memory_allocated %.3f GB, %.3f GB above what was '
+              'allocated before the first step [%s]'
+              % (peak / 1e9, (peak - base) / 1e9, card))
+        require(all(launches[k] == n for k, n in want.items()),
+                'training launch counts %s, want %s' % (launches, want))
+    return launches, ('5 training steps', profile_step, 5, None)
+
+
+def phase_train_masked(torch, pt, place, card, on_card, batch, seq, vocab,
+                       dims, warmup=3, steps=10):
+    """Phase 7: bench_transformer_masked's shape; returns the launch
+    counts of the timed steps."""
+    from paddle_tpu_torch.models import transformer as T
+    avg_cost = _build_train(pt, vocab, seq, 0.1, 'bf16', **dims)
+    rng = np.random.RandomState(0)
+    feed = T.make_fake_batch(batch, seq, seq, vocab, vocab)
+    lens = rng.randint(seq // 2, seq + 1, (batch,)).astype('int64')
+    feed['src_length'] = lens
+    feed['lbl_weight'] = (np.arange(seq)[None, :] <
+                          lens[:, None]).astype('float32')
+    exe = pt.Executor(place)
+    with pt.scope_guard(pt.Scope()):
+        exe.run(pt.default_startup_program())
+        feed = {n: torch.as_tensor(v).to(exe.device) for n, v in feed.items()}
+        _, first = _train_steps(torch, exe, feed, avg_cost, warmup, on_card)
+        reset_launches()
+        secs, losses = _train_steps(torch, exe, feed, avg_cost, steps,
+                                    on_card)
+        launches = read_launches()
+    losses = first + losses
+    print('train masked: batch %d x seq %d, src_length %d-%d (mean %.1f), '
+          '%d timed steps: %.3f ms/step, padded %.1f tokens/s, real %.1f '
+          'tokens/s; loss first %.5f last %.5f [%s]'
+          % (batch, seq, lens.min(), lens.max(), lens.mean(), steps,
+             secs * 1e3 / steps, batch * seq * steps / secs,
+             float(lens.sum()) * steps / secs, losses[0], losses[-1], card))
+    require(np.isfinite(losses).all(), 'masked loss not finite: %s' % losses)
+    if on_card:
+        layers = dims.get('n_layer', 6)
+        require(launches['flash_attention_fwd'] == 3 * layers * steps and
+                launches['flash_attention_bwd_dq'] == 3 * layers * steps and
+                launches['layer_norm'] == 5 * layers * steps,
+                'masked training launch counts %s' % launches)
+    return launches
+
+
+def phase_train_compare(torch, pt, places, vocab, dims, lr=1e-4, steps=3):
+    """Phase 8: the same Program, fp32, no dropout, no amp, 3 Adam steps
+    from the same weights on each place."""
+    from paddle_tpu_torch.models import transformer as T
+    from paddle_tpu_torch.weights import load_into_scope
+    t0 = time.perf_counter()
+    avg_cost = _build_train(pt, vocab, 64, 0.0, None, lr=lr, **dims)
+    main = pt.default_main_program()
+    host = pt.Scope()
+    with pt.scope_guard(host):
+        pt.Executor(pt.CPUPlace()).run(pt.default_startup_program())
+    weights = {n: host.numpy(n) for n in host.keys()}
+    feed = T.make_fake_batch(2, 64, 64, vocab, vocab, seed=0)
+    losses, scopes = [], []
+    for place in places:
+        scope = pt.Scope()
+        load_into_scope(weights, scope, place)
+        exe = pt.Executor(place)
+        with pt.scope_guard(scope):
+            losses.append([float(exe.run(main, feed=feed,
+                                         fetch_list=[avg_cost])[0])
+                           for _ in range(steps)])
+        scopes.append(scope)
+    names = [p.name for p in main.all_parameters() if p.trainable]
+    gap = max(float(np.max(np.abs(scopes[0].numpy(n) - scopes[1].numpy(n))))
+              for n in names)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(*losses))
+    print('train %r vs %r: batch 2 x seq 64, fp32, dropout 0, %d Adam steps '
+          'from the same weights: losses %s vs %s (max rel %.3g, limit '
+          '1e-4); max |param gap| %.3g over %d params (limit 2*lr*steps = '
+          '%.3g) (%.1f s)'
+          % (places[0], places[1], steps, ['%.6f' % v for v in losses[0]],
+             ['%.6f' % v for v in losses[1]], rel, gap, len(names),
+             2 * lr * steps, time.perf_counter() - t0))
+    require(rel <= 1e-4, 'training losses differ across places')
+    require(gap <= 2 * lr * steps, 'parameters differ across places')
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--cpu-rehearsal', action='store_true',
                     help='run phases 4-5 on the host at the tests\' tiny '
                          'LM with the plain versions')
     ap.add_argument('--profile', action='store_true',
-                    help='after the engine run, profile 20 decode steps '
-                         'with every slot busy (torch.profiler) and print '
-                         'where the time goes')
+                    help='after every other phase, profile 20 decode '
+                         'steps with every slot busy and 5 training '
+                         'steps (torch.profiler) and print where the '
+                         'time goes')
     args = ap.parse_args()
     t_start = time.perf_counter()
     import torch
@@ -550,35 +952,75 @@ def main():
         spec = LMSpec(vocab_size=60, n_layer=2, n_head=2, d_key=8,
                       d_value=8, d_model=16, d_inner=32)
         reqs = _requests(spec, 32, 1, 9, 6)
-        results, _ = phase_engine(
+        results, _, _ = phase_engine(
             torch, spec, dict(max_batch=4, block_size=4, num_blocks=64,
                               pages_per_seq=4),
             reqs, pt.CPUPlace(), 'host CPU, rehearsal', False)
         phase_cpu_compare(spec, reqs, results, 4, 4)
+        tiny = dict(n_layer=2, n_head=2, d_key=8, d_value=8, d_model=16,
+                    d_inner=32)
+        phase_train(torch, pt, pt.CPUPlace(), 'host CPU, rehearsal', False,
+                    4, 8, 64, tiny, steps=6)
+        phase_train_masked(torch, pt, pt.CPUPlace(), 'host CPU, rehearsal',
+                           False, 4, 16, 64, tiny, steps=3)
+        phase_train_compare(torch, pt, (pt.CPUPlace(), pt.CPUPlace()), 64,
+                            tiny)
         print('cpu rehearsal ok in %.1f s' % (time.perf_counter() - t_start))
         return
 
     name, count, card = phase_device(torch)
     phase_build()
     ln, pa = phase_kernels(torch, card)
+    fa_fwd, fa_bwd = phase_flash_kernels(torch, card)
     spec = LMSpec(vocab_size=32000, n_layer=12, n_head=8, d_key=64,
                   d_value=64, d_model=512, d_inner=2048)
     reqs = _requests(spec, 32, 64, 512, 64)
-    results, launches = phase_engine(
+    results, launches, eng = phase_engine(
         torch, spec, dict(max_batch=16, block_size=32, num_blocks=4096,
                           pages_per_seq=64),
-        reqs, pt.CUDAPlace(0), card, True, profile=args.profile)
+        reqs, pt.CUDAPlace(0), card, True)
     phase_cpu_compare(spec, reqs, results, 32, 16)
+    # the engine (and its 6.4 GB of arenas) stays only for --profile
+    decode_job = _decode_job(eng, spec) if args.profile else None
+    del eng
+    torch.cuda.empty_cache()
+    base = dict(n_layer=6, n_head=8, d_key=64, d_value=64, d_model=512,
+                d_inner=2048)
+    train, train_job = phase_train(torch, pt, pt.CUDAPlace(0), card, True,
+                                   64, 64, VOCAB, base)
+    torch.cuda.empty_cache()
+    masked = phase_train_masked(torch, pt, pt.CUDAPlace(0), card, True, 8,
+                                512, VOCAB, base)
+    torch.cuda.empty_cache()
+    phase_train_compare(torch, pt, (pt.CUDAPlace(0), pt.CPUPlace()), VOCAB,
+                        base)
+    if args.profile:
+        profile_steps(torch, card, [decode_job, train_job])
+
+    # launches: the sum over the main paths' runs (the engine run, the
+    # timed training steps, the timed masked training steps), each read
+    # after its counts were set to 0
+    def runs(key):
+        return launches.get(key, 0) + train[key] + masked[key]
 
     kernels = [
         dict(name='layer_norm', route='cuda',
              source='paddle_tpu_torch/csrc/layer_norm.cu',
              replaces='paddle_tpu/ops/pallas/layer_norm.py:23',
-             launches=launches['layer_norm'], **ln),
+             launches=runs('layer_norm'), **ln),
         dict(name='paged_attention', route='cuda',
              source='paddle_tpu_torch/csrc/paged_attention.cu',
              replaces='paddle_tpu/ops/pallas/paged_attention.py:86',
-             launches=launches['paged_attention'], **pa),
+             launches=runs('paged_attention'), **pa),
+        dict(name='flash_attention_fwd', route='cuda',
+             source='paddle_tpu_torch/csrc/flash_attention.cu',
+             replaces='paddle_tpu/ops/pallas/flash_attention.py:141',
+             launches=runs('flash_attention_fwd'), **fa_fwd),
+        dict(name='flash_attention_bwd', route='cuda',
+             source='paddle_tpu_torch/csrc/flash_attention.cu',
+             replaces='paddle_tpu/ops/pallas/flash_attention.py:278',
+             launches=min(runs('flash_attention_bwd_dkv'),
+                          runs('flash_attention_bwd_dq')), **fa_bwd),
     ]
     print('total %.1f s' % (time.perf_counter() - t_start))
     print(json.dumps({'kernels': kernels}))

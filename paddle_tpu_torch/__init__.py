@@ -10,16 +10,18 @@ Entry points run on ``CUDAPlace(0)`` unless the caller passes a place;
 ``CPUPlace()`` runs everything on the host with the plain versions.
 """
 
-from . import initializer, layers
+from . import initializer, layers, optimizer
 from .core.executor import Executor
 from .core.place import CPUPlace, CUDAPlace
 from .core.program import (Program, default_main_program,
                            default_startup_program, program_guard,
                            reset_default_programs)
 from .core.scope import Scope, global_scope, scope_guard
+from .memory_optimize import memory_optimize
 from .param_attr import ParamAttr
 
-__all__ = ['initializer', 'layers', 'Executor', 'CPUPlace', 'CUDAPlace',
-           'Program', 'default_main_program', 'default_startup_program',
-           'program_guard', 'reset_default_programs', 'Scope',
-           'global_scope', 'scope_guard', 'ParamAttr']
+__all__ = ['initializer', 'layers', 'optimizer', 'Executor', 'CPUPlace',
+           'CUDAPlace', 'Program', 'default_main_program',
+           'default_startup_program', 'program_guard',
+           'reset_default_programs', 'Scope', 'global_scope', 'scope_guard',
+           'ParamAttr', 'memory_optimize']

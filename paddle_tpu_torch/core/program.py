@@ -46,7 +46,9 @@ class Variable(object):
 
 
 class Parameter(Variable):
-    """A trainable persistable Variable (reference: framework.py Parameter)."""
+    """A trainable persistable Variable (reference: framework.py Parameter).
+    The optimizer reads ``trainable``, ``optimize_attr`` (the learning-rate
+    multiplier), ``regularizer`` and ``gradient_clip_attr``."""
 
     def __init__(self, block, name, shape, dtype, **kwargs):
         super(Parameter, self).__init__(
@@ -174,6 +176,10 @@ class Program(object):
         # the startup Program holding this program's param-init ops
         # (recorded by LayerHelper.create_parameter)
         self._startup_ref = None
+        # mixed precision: None (fp32) or 'bf16' — matmul-class ops cast
+        # their inputs to bfloat16 while parameters, gradients, optimizer
+        # state and loss-class ops stay fp32 (registry.AMP_*)
+        self.amp = None
 
     def _bump_version(self):
         self._version += 1

@@ -13,13 +13,17 @@ import torch
 
 def tensor_to_numpy(value):
     """Host numpy copy of a tensor; bfloat16 (which numpy lacks) widens to
-    float32."""
+    float32. Always a copy: the optimizer ops update scope tensors in
+    place, and an array sharing a CPU tensor's memory would change with
+    them."""
     if not isinstance(value, torch.Tensor):
         import numpy as np
         return np.asarray(value)
     value = value.detach()
     if value.dtype == torch.bfloat16:
         value = value.float()
+    elif value.device.type == 'cpu':
+        value = value.clone()
     return value.cpu().numpy()
 
 

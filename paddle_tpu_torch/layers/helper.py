@@ -5,6 +5,7 @@ appends ops to the current main program block.
 """
 
 from ..core import unique_name
+from ..core.dtypes import canonical_dtype
 from ..core.program import default_main_program, default_startup_program
 from ..initializer import Constant, Xavier
 from ..param_attr import ParamAttr
@@ -39,6 +40,30 @@ class LayerHelper(object):
     def append_op(self, *args, **kwargs):
         return self.block.append_op(*args, **kwargs)
 
+    def multiple_input(self, input_param_name='input'):
+        inputs = self.kwargs.get(input_param_name, [])
+        if not isinstance(inputs, (list, tuple)):
+            inputs = [inputs]
+        return list(inputs)
+
+    @property
+    def param_attr(self):
+        return ParamAttr.to_attr(self.kwargs.get('param_attr', None))
+
+    @property
+    def bias_attr(self):
+        return ParamAttr.to_attr(self.kwargs.get('bias_attr', None))
+
+    def input_dtype(self, input_param_name='input'):
+        dtype = None
+        for v in self.multiple_input(input_param_name):
+            if dtype is None:
+                dtype = v.dtype
+            elif canonical_dtype(dtype) != canonical_dtype(v.dtype):
+                raise ValueError('mixed input dtypes: %s vs %s' %
+                                 (dtype, v.dtype))
+        return dtype
+
     def create_parameter(self, attr, shape, dtype, is_bias=False,
                          default_initializer=None):
         if attr is False:
@@ -68,3 +93,32 @@ class LayerHelper(object):
         return self.block.create_var(
             name=unique_name.generate('.'.join([self.name, 'tmp'])),
             dtype=dtype)
+
+    def append_bias_op(self, input_var, size, axis=1):
+        """input + bias (a new [size] parameter from bias_attr), or input
+        itself when bias_attr is False."""
+        bias_attr = self.bias_attr
+        if bias_attr is False:
+            return input_var
+        b = self.create_parameter(attr=bias_attr, shape=size,
+                                  dtype=input_var.dtype, is_bias=True)
+        tmp = self.create_variable_for_type_inference(input_var.dtype)
+        tmp.shape = input_var.shape
+        self.append_op(type='elementwise_add',
+                       inputs={'X': [input_var], 'Y': [b]},
+                       outputs={'Out': [tmp]}, attrs={'axis': axis})
+        return tmp
+
+    def append_activation(self, input_var):
+        act = self.kwargs.get('act', None)
+        if act is None:
+            return input_var
+        if isinstance(act, str):
+            act = {'type': act}
+        act = dict(act)
+        act_type = act.pop('type')
+        tmp = self.create_variable_for_type_inference(dtype=input_var.dtype)
+        tmp.shape = input_var.shape
+        self.append_op(type=act_type, inputs={'X': [input_var]},
+                       outputs={'Out': [tmp]}, attrs=act)
+        return tmp

@@ -3,6 +3,8 @@
 from ..core.dtypes import canonical_dtype
 from .helper import LayerHelper
 
+__all__ = ['data']
+
 
 def data(name, shape, dtype='float32', lod_level=0, append_batch_size=True,
          stop_gradient=True):

@@ -20,7 +20,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, 'csrc')
 BUILD_DIR = os.path.join(_PKG, '_build')
-SOURCES = ('layer_norm.cu', 'paged_attention.cu')
+SOURCES = ('layer_norm.cu', 'paged_attention.cu', 'flash_attention.cu')
 HEADERS = ('common.cuh',)
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
@@ -105,6 +105,15 @@ def library():
             lib.ptt_paged_attention.restype = i
             lib.ptt_paged_attention_smem_bytes.argtypes = [i, i, i]
             lib.ptt_paged_attention_smem_bytes.restype = i
+            dims = [i, i, i, i, i, i, f, i, p]   # b h tq tk d causal scale
+            lib.ptt_flash_fwd.argtypes = [p] * 7 + dims
+            lib.ptt_flash_fwd.restype = i
+            lib.ptt_flash_bwd_dkv.argtypes = [p] * 10 + dims
+            lib.ptt_flash_bwd_dkv.restype = i
+            lib.ptt_flash_bwd_dq.argtypes = [p] * 9 + dims
+            lib.ptt_flash_bwd_dq.restype = i
+            lib.ptt_flash_smem_bytes.argtypes = [i, i]
+            lib.ptt_flash_smem_bytes.restype = i
             _loaded['lib'] = lib
         return lib
 

@@ -5,6 +5,12 @@ PyTorch version ``_ln_reference``.
 ``fused_layer_norm`` launches the kernel for CUDA tensors and takes the
 plain version only for CPU tensors; on a CUDA tensor it launches or
 raises. ``fused_layer_norm.launches`` counts kernel launches.
+
+It is differentiable: ``_LayerNorm`` is a torch.autograd.Function whose
+forward is the kernel and whose backward is the gradient of
+``_ln_reference``, rematerialised in plain PyTorch — what the JAX package's
+custom_vjp does (paddle_tpu/ops/pallas/layer_norm.py ``_ln_vjp_bwd``); the
+TPU has no backward kernel for K1 either.
 """
 
 import torch
@@ -52,22 +58,41 @@ def _ln_cuda(x2, gamma, beta, eps):
     return y
 
 
+def _ln_forward(x2, gamma, beta, eps):
+    if x2.device.type == 'cpu':
+        return _ln_reference(x2, gamma, beta, eps)
+    return _ln_cuda(x2, gamma, beta, eps)
+
+
+class _LayerNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x2, gamma, beta, eps):
+        ctx.save_for_backward(x2, gamma, beta)
+        ctx.eps = eps
+        return _ln_forward(x2, gamma, beta, eps)
+
+    @staticmethod
+    def backward(ctx, gy):
+        saved = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            y = _ln_reference(*saved, ctx.eps)
+            grads = torch.autograd.grad(y, saved, gy)
+        return tuple(g if need else None for g, need in
+                     zip(grads, ctx.needs_input_grad[:3])) + (None,)
+
+
 def fused_layer_norm(x, gamma, beta, eps=1e-5, begin_norm_axis=-1):
     """Normalize over the trailing dims from begin_norm_axis; gamma/beta
-    are flat over the normalized extent."""
+    are flat over the normalized extent. Differentiable in x, gamma and
+    beta."""
     shape = x.shape
     if begin_norm_axis < 0:
         begin_norm_axis = x.dim() + begin_norm_axis
     d = 1
     for s in shape[begin_norm_axis:]:
         d *= s
-    x2 = x.reshape(-1, d)
-    gamma = gamma.reshape(d)
-    beta = beta.reshape(d)
-    if x2.device.type == 'cpu':
-        y = _ln_reference(x2, gamma, beta, eps)
-    else:
-        y = _ln_cuda(x2, gamma, beta, eps)
+    x2 = x.reshape(-1, d).contiguous()
+    y = _LayerNorm.apply(x2, gamma.reshape(d), beta.reshape(d), float(eps))
     return y.reshape(shape)
 
 

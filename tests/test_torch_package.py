@@ -1,7 +1,8 @@
 """Package rules of the port: importing every module of paddle_tpu_torch
-loads neither jax nor paddle_tpu, and with no place given the entry
-points want a CUDA device — without one they raise instead of falling
-back to the host."""
+loads neither jax nor paddle_tpu, no module calls PyTorch's fused
+attention (the flash kernels are the port's own), and with no place
+given the entry points want a CUDA device — without one they raise
+instead of falling back to the host."""
 
 import os
 import subprocess
@@ -38,6 +39,24 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
     r = subprocess.run([sys.executable, '-c', _IMPORT_ALL], cwd=REPO,
                        env=env, capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_no_module_calls_library_attention():
+    """scaled_dot_product_attention is a yardstick in chip_smoke.py only;
+    no module of the port calls it (or torch.compile)."""
+    pkg = os.path.join(REPO, 'paddle_tpu_torch')
+    hits = []
+    for root, _, files in os.walk(pkg):
+        for name in files:
+            if name.endswith('.py'):
+                path = os.path.join(root, name)
+                with open(path) as f:
+                    text = f.read()
+                for word in ('scaled_dot_product_attention',
+                             'torch.compile'):
+                    if word in text:
+                        hits.append((os.path.relpath(path, REPO), word))
+    assert not hits, hits
 
 
 def _no_card():
