@@ -1,14 +1,14 @@
 #!/usr/bin/env python3
-"""Chip smoke for paddle_tpu_torch: decode serving and Transformer
-training on one CUDA card.
+"""Chip smoke for paddle_tpu_torch: decode serving, Transformer training
+and ResNet-50 training on one CUDA card.
 
     python3 chip_smoke.py                  # on a machine with one H100
-    python3 chip_smoke.py --cpu-rehearsal  # phases 4-8 on the host, tiny
+    python3 chip_smoke.py --cpu-rehearsal  # phases 4-10 on the host, tiny
 
 Phases (any fault exits non-zero; no phase is skipped over):
 
 1. Device: name, count, nvidia-smi's name and power limit, TF32 flags
-   (both set off: fp32 matmuls run in full fp32).
+   (both set off: fp32 matmuls and convolutions run in full fp32).
 2. Build: every CUDA kernel from paddle_tpu_torch/csrc with one nvcc
    call; build time and ptxas's registers / shared memory per kernel.
 3. Kernel vs plain version on the card at the main paths' shapes, fp32
@@ -18,7 +18,9 @@ Phases (any fault exits non-zero; no phase is skipped over):
    Layer norm (K1), paged attention (K4), flash attention forward (K2)
    and backward (K3) at the training shapes: B=64 H=8 T=64 D=64 bf16
    non-causal and causal, B=8 H=8 T=512 causal with kv_len 256-512 and
-   one row at 1, and B=64 T=64 fp32.
+   one row at 1, and B=64 T=64 fp32; batch norm (K5) at ResNet-50's
+   stem, stage-2 and stage-4 shapes in bf16 NHWC, an NCHW, an fp32 and an
+   odd shape, and its backward against autograd of the plain version.
 4. Engine: DecodeEngine at the documented serving configuration
    (docs/serving.md: vocab 32000, 12 layers, 8 heads, d_model 512,
    d_inner 2048; max_batch 16, block 32, 4096 pages, 64 pages a
@@ -46,13 +48,25 @@ Phases (any fault exits non-zero; no phase is skipped over):
    dropout 0, no amp; 3 Adam steps on CUDAPlace(0) and on CPUPlace()
    from the same weights: each loss within 1e-4 relative, every
    parameter within 2*lr*steps.
+9. ResNet-50 training: bench.py's bench_resnet50 through the port's user
+   API (resnet50_with_loss, NHWC; Momentum(0.1, 0.9).minimize; amp
+   'bf16'; Executor(CUDAPlace(0)).run) at batch 64 x 3 x 224 x 224,
+   1000 classes, on bench.py's RandomState(0) feed: 3 warm-up and 20
+   timed steps. ms a step, images/s, MFU of the conv and fc FLOPs, the
+   first and last loss (finite, falling), peak memory, K5 launches (53
+   a step), every running mean and variance moved and finite.
+10. ResNet card vs CPU: ResNet-50 at 32x32, batch 8, 10 classes, NCHW,
+   fp32, Momentum(0.01), 3 steps from the same weights on each place:
+   the first loss within 1e-3 relative, the running statistics and
+   gradients of the first step within stated bounds, later losses
+   printed beside the host's own spread.
 
 The last line is {"ok": true, "device": {...}}; before it come one JSON
 line with every kernel's numbers and nvidia-smi's name and power limit.
---cpu-rehearsal runs phases 4-8 at tiny sizes with the plain versions
-(phase 8 then compares the host with itself) and never prints that last
-line. --profile adds, after every other phase, a torch.profiler
-breakdown of decode steps and of training steps.
+--cpu-rehearsal runs phases 4-10 at tiny sizes with the plain versions
+(phases 8 and 10 then compare the host with itself) and never prints
+that last line. --profile adds, after every other phase, a torch.profiler
+breakdown of decode steps, Transformer and ResNet-50 training steps.
 """
 
 import argparse
@@ -141,25 +155,28 @@ def bound_ms(n_bytes, n_ops, peak_ops=FP32_FLOPS):
     return max(t_bytes, t_ops), 'bytes' if t_bytes >= t_ops else 'operations'
 
 
-def reset_launches():
-    """Every kernel wrapper's launch count to 0."""
+def _counted():
+    """{name: the kernel wrapper that counts its launches}."""
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.kernels.batch_norm import fused_batch_norm_train
     from paddle_tpu_torch.ops.kernels.layer_norm import fused_layer_norm
     from paddle_tpu_torch.ops.kernels.paged_attention import paged_attention
-    for fn in (fused_layer_norm, paged_attention, fa.flash_fwd_cuda,
-               fa.flash_bwd_dkv_cuda, fa.flash_bwd_dq_cuda):
+    return {'layer_norm': fused_layer_norm,
+            'paged_attention': paged_attention,
+            'flash_attention_fwd': fa.flash_fwd_cuda,
+            'flash_attention_bwd_dkv': fa.flash_bwd_dkv_cuda,
+            'flash_attention_bwd_dq': fa.flash_bwd_dq_cuda,
+            'batch_norm': fused_batch_norm_train}
+
+
+def reset_launches():
+    """Every kernel wrapper's launch count to 0."""
+    for fn in _counted().values():
         fn.launches = 0
 
 
 def read_launches():
-    from paddle_tpu_torch.ops.kernels import flash_attention as fa
-    from paddle_tpu_torch.ops.kernels.layer_norm import fused_layer_norm
-    from paddle_tpu_torch.ops.kernels.paged_attention import paged_attention
-    return {'layer_norm': fused_layer_norm.launches,
-            'paged_attention': paged_attention.launches,
-            'flash_attention_fwd': fa.flash_fwd_cuda.launches,
-            'flash_attention_bwd_dkv': fa.flash_bwd_dkv_cuda.launches,
-            'flash_attention_bwd_dq': fa.flash_bwd_dq_cuda.launches}
+    return {name: fn.launches for name, fn in _counted().items()}
 
 
 # ------------------------------------------------------------ phase 1
@@ -493,6 +510,137 @@ def phase_kernels(torch, card):
     return ln[(16, 512, torch.float32)], pa['engine']
 
 
+def _bn_case(torch, card, label, x, layout, gen):
+    """K5 against its plain version on x: errors of y, mean and var, the
+    kernel's device and eager times, its bound, the plain version's time
+    and one F.batch_norm call's on the same tensor (never called by the
+    port)."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.kernels import batch_norm as K
+    c = x.shape[1] if layout == 'NCHW' else x.shape[-1]
+    dev = x.device
+    g = 0.5 + torch.rand(c, generator=gen, device=dev)
+    b = torch.randn(c, generator=gen, device=dev)
+    x4 = x.permute(0, 3, 1, 2) if layout == 'NHWC' else x
+    x3 = x4.reshape(x4.shape[0], c, -1) if x.dim() == 4 else x.unsqueeze(-1)
+
+    def kernel():
+        return K.fused_batch_norm_train(x, g, b, 1e-5, layout=layout)
+
+    y, m, v = kernel()
+    ry, rm, rv = K._bn_reference(x3, g, b, 1e-5)
+    torch.cuda.synchronize()
+    y4 = y.permute(0, 3, 1, 2) if layout == 'NHWC' else y
+    y3 = y4.reshape(ry.shape) if x.dim() == 4 else y.unsqueeze(-1)
+    err_y = float((y3.float() - ry.float()).abs().max())
+    err_m = float((m - rm).abs().max())
+    err_v = float((v - rv).abs().max())
+    stats_ok = bool(((m - rm).abs() <= 1e-5 + 1e-5 * rm.abs()).all()) and \
+        bool(((v - rv).abs() <= 1e-5 + 1e-4 * rv.abs()).all())
+    if x.dtype == torch.float32:
+        tol = ('fp32: y within 1e-4 + 1e-4*|plain|, mean 1e-5 and var 1e-4 '
+               'relative (+1e-5)')
+        ok = bool(((y3 - ry).abs() <= 1e-4 + 1e-4 * ry.abs()).all())
+    else:
+        tol = ('bf16: y within one bf16 ulp each of |x*a|, |b| and |y| (a, '
+               'b from statistics 1e-6 apart may round to the neighbouring '
+               'bf16 value); mean 1e-5, var 1e-4 relative (+1e-5)')
+        a = g * torch.rsqrt(rv + 1e-5)
+        bound = (bf16_ulp_t(torch, (x3.float() * a[:, None]).abs()) +
+                 bf16_ulp_t(torch, (b - rm * a)[:, None].abs()) +
+                 bf16_ulp_t(torch, ry.float().abs()))
+        ok = bool(((y3.double() - ry.double()).abs() <= bound).all())
+        del a, bound
+    del ry, y3, y4
+    ok = ok and stats_ok and \
+        [st for st, n in zip(y.stride(), y.shape) if n > 1] == \
+        [st for st, n in zip(x.stride(), x.shape) if n > 1]
+    n = x.numel()
+    item = x.element_size()
+    lo, by = bound_ms(2 * n * item + 4 * c * 4, 6 * n)
+    ms = device_ms(torch, kernel, iters=20)
+    eager = eager_ms(torch, kernel, iters=20)
+    plain = device_ms(torch, lambda: K._bn_reference(x3, g, b, 1e-5),
+                      iters=5)
+    xl = x4 if x.dim() == 4 else x
+    lib = device_ms(torch, lambda: F.batch_norm(xl, None, None, g, b,
+                                                training=True, eps=1e-5),
+                    iters=20)
+    print('%s: max_abs_err y %.3g, mean %.3g, var %.3g (%s) %s; device ms: '
+          'kernel %.5f, plain %.5f, F.batch_norm %.5f, bound %.6f (%s); '
+          'kernel eager %.5f ms [%s]'
+          % (label, err_y, err_m, err_v, tol, 'ok' if ok else 'MISMATCH', ms,
+             plain, lib, lo, by, eager, card))
+    require(ok, '%s disagrees with its plain version' % label)
+    return dict(max_abs_err=max(err_y, err_m, err_v), ms=ms, plain_ms=plain,
+                bound_ms=lo, bound_by=by, library_ms=lib, eager_ms=eager)
+
+
+def bf16_ulp_t(torch, a):
+    """One bf16 ulp (8 significant bits) at |a|, elementwise, float64."""
+    a = a.double().clamp_min(2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(a)) - 7)
+
+
+def _bn_grad_check(torch, card, gen):
+    """K5's autograd backward (closed form) against autograd through the
+    plain version, fp32, at a stage-1 shape: 1e-4."""
+    from paddle_tpu_torch.ops.kernels import batch_norm as K
+    dev = torch.device('cuda', 0)
+    x = torch.randn(16, 56, 56, 64, generator=gen, device=dev)
+    s = 0.5 + torch.rand(64, generator=gen, device=dev)
+    b = torch.randn(64, generator=gen, device=dev)
+    gy = torch.randn(x.shape, generator=gen, device=dev)
+    leaves = [t.clone().requires_grad_() for t in (x, s, b)]
+    y, _, _ = K.fused_batch_norm_train(*leaves, 1e-5, layout='NHWC')
+    got = torch.autograd.grad(y, leaves, gy)
+    ref = [t.clone().requires_grad_() for t in (x, s, b)]
+    ry, _, _ = K._bn_reference(ref[0].permute(0, 3, 1, 2).reshape(16, 64, -1),
+                               ref[1], ref[2], 1e-5)
+    want = torch.autograd.grad(ry, ref,
+                               gy.permute(0, 3, 1, 2).reshape(16, 64, -1))
+    errs = [float((a - w).abs().max()) for a, w in zip(got, want)]
+    ok = all(bool(((a - w).abs() <= 1e-4 + 1e-4 * w.abs()).all())
+             for a, w in zip(got, want))
+    print('batch_norm backward [16, 56, 56, 64] fp32 NHWC vs autograd of the '
+          'plain version: max_abs_err dx %.3g, dscale %.3g, dbias %.3g '
+          '(1e-4 + 1e-4*|plain|) %s [%s]'
+          % (errs[0], errs[1], errs[2], 'ok' if ok else 'MISMATCH', card))
+    require(ok, 'batch_norm backward disagrees with autograd of the plain '
+            'version')
+
+
+def phase_bn_kernels(torch, card):
+    """K5 at ResNet-50's shapes (batch 64, 224x224: the stem, stage 2's and
+    stage 4's widest), NCHW, fp32 and an odd shape; returns the stem's
+    numbers."""
+    gen = torch.Generator(device='cuda').manual_seed(3)
+    dev = torch.device('cuda', 0)
+    cases = [
+        ('batch_norm [802816, 64] bf16 NHWC (stem)', (64, 112, 112, 64),
+         torch.bfloat16, 'NHWC'),
+        ('batch_norm [50176, 512] bf16 NHWC', (64, 28, 28, 512),
+         torch.bfloat16, 'NHWC'),
+        ('batch_norm [3136, 2048] bf16 NHWC', (64, 7, 7, 2048),
+         torch.bfloat16, 'NHWC'),
+        ('batch_norm [64, 128, 28, 28] bf16 NCHW', (64, 128, 28, 28),
+         torch.bfloat16, 'NCHW'),
+        ('batch_norm [200704, 256] fp32 NHWC', (64, 56, 56, 256),
+         torch.float32, 'NHWC'),
+        ('batch_norm [1003, 100] fp32 (odd shape)', (1003, 100),
+         torch.float32, 'NC'),
+    ]
+    res = []
+    for label, shape, dtype, layout in cases:
+        x = (1.0 + 2.0 * torch.randn(shape, generator=gen, device=dev)) \
+            .to(dtype)
+        res.append(_bn_case(torch, card, label, x, layout, gen))
+        del x
+        torch.cuda.empty_cache()
+    _bn_grad_check(torch, card, gen)
+    return res[0]
+
+
 # ------------------------------------------------------------ phase 4
 def _requests(spec, n, plen_lo, plen_hi, max_new, seed=1234):
     rng = np.random.RandomState(seed)
@@ -549,11 +697,23 @@ def _family(name):
         return 'paged attention (K4)'
     if 'ptt::ln_' in low:
         return 'layer norm (K1)'
+    if 'ptt::bn_' in low:
+        return 'batch norm (K5)'
+    if any(w in low for w in ('fprop', 'dgrad', 'wgrad', 'conv', 'cudnn',
+                              'implicit')):
+        return 'convolution (cuDNN)'
     if any(w in low for w in ('gemm', 'xmma', 'nvjet', 'cutlass')):
         return 'matmul (cuBLAS)'
     if 'copy' in low or 'cast' in low:
         return 'copies and casts'
     return 'other elementwise / reductions'
+
+
+# the executor's record_function ranges of a training step: on the device
+# timeline each is one annotation span, which is not a kernel
+SECTIONS = ('forward', 'optimizer')
+# autograd nodes whose device time (their kernels') the profile reports
+NODES = ('_BatchNormTrainBackward',)
 
 
 def profile_steps(torch, card, jobs):
@@ -582,21 +742,48 @@ def profile_steps(torch, card, jobs):
                 step()
             torch.cuda.synchronize()
         kernels, host, families = {}, {}, {}
+        spans, timed = {}, []
         for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                t = e.time_range.end - e.time_range.start
-                for table, key in ((kernels, e.name),
-                                   (families, _family(e.name))):
-                    c, total = table.get(key, (0, 0.0))
-                    table[key] = (c + 1, total + t)
+            if e.device_type != DeviceType.CUDA:
+                continue
+            if e.name in SECTIONS:
+                spans.setdefault(e.name, []).append(
+                    (e.time_range.start, e.time_range.end))
+                continue
+            t = e.time_range.end - e.time_range.start
+            timed.append((e.time_range.start, t))
+            for table, key in ((kernels, e.name),
+                               (families, _family(e.name))):
+                c, total = table.get(key, (0, 0.0))
+                table[key] = (c + 1, total + t)
+        busy = sum(t for _, t in timed)
+        # a kernel belongs to the section whose span holds its start; the
+        # backward is what no span holds
+        sections = {k: sum(t for s0, t in timed
+                           if any(a <= s0 < b for a, b in spans[k]))
+                    for k in SECTIONS if k in spans}
+        if sections:
+            sections['backward'] = busy - sum(sections.values())
         for a in prof.key_averages():
             if a.device_type == DeviceType.CPU and a.self_cpu_time_total > 0:
                 host[a.key] = (a.count, a.self_cpu_time_total)
-        busy_ms = sum(t for _, t in kernels.values()) / steps / 1e3
+            if a.key in NODES:
+                sections[a.key] = a.device_time_total
+        busy_ms = busy / steps / 1e3
+        launches = sum(c for k, (c, _) in host.items()
+                       if k.startswith('cudaLaunchKernel'))
+        copies = sum(c for k, (c, _) in kernels.items()
+                     if 'direct_copy' in k)
         print('profile: %s: wall %.3f ms/step (no profiler), device busy '
-              '%.3f ms/step, busy share %.3f [%s]'
-              % (label, wall_ms, busy_ms, busy_ms / wall_ms, card))
-        for title, table, n in (('family', families, 8),
+              '%.3f ms/step, busy share %.3f; %.1f kernel launches/step, '
+              '%.1f of them direct_copy [%s]'
+              % (label, wall_ms, busy_ms, busy_ms / wall_ms,
+                 launches / steps, copies / steps, card))
+        if sections:
+            print('  device time by section (us/step): %s'
+                  % ', '.join('%s %.1f' % (k, t / steps)
+                              for k, t in sections.items()))
+        for title, table, n in (('family', families, 9),
                                 ('device', kernels, 12)):
             for name, (c, t) in sorted(table.items(),
                                        key=lambda kv: -kv[1][1])[:n]:
@@ -928,16 +1115,192 @@ def phase_train_compare(torch, pt, places, vocab, dims, lr=1e-4, steps=3):
     require(gap <= 2 * lr * steps, 'parameters differ across places')
 
 
+# ------------------------------------------------------- phases 9-10
+def _build_resnet(pt, image, class_dim, layout, amp, lr, small=False):
+    """ResNet-50 (or, for the rehearsal, the tests' small bottleneck net)
+    through the port's user API on the default programs:
+    resnet50_with_loss + Momentum(lr, 0.9).minimize, amp on the main
+    program."""
+    from paddle_tpu_torch.models import resnet as R
+    pt.reset_default_programs()
+    if small:
+        img = pt.layers.data(name='image', shape=[3, image, image],
+                             dtype='float32')
+        label = pt.layers.data(name='label', shape=[1], dtype='int64')
+        h = pt.layers.transpose(img, [0, 2, 3, 1]) if layout == 'NHWC' \
+            else img
+        h = R.conv_bn_layer(h, 16, 3, 1, 1, data_format=layout)
+        h = pt.layers.pool2d(h, pool_size=3, pool_type='max', pool_stride=2,
+                             pool_padding=1, data_format=layout)
+        h = R.layer_warp(R.bottleneck, h, 8, 2, 1, data_format=layout)
+        h = R.layer_warp(R.bottleneck, h, 16, 2, 2, data_format=layout)
+        h = pt.layers.pool2d(h, pool_type='avg', global_pooling=True,
+                             data_format=layout)
+        avg_cost = pt.layers.mean(pt.layers.cross_entropy(
+            pt.layers.fc(h, size=class_dim, act='softmax'), label))
+    else:
+        _, avg_cost, _ = R.resnet50_with_loss(
+            image_shape=(3, image, image), class_dim=class_dim,
+            data_format=layout)
+    pt.optimizer.Momentum(learning_rate=lr, momentum=0.9).minimize(avg_cost)
+    pt.default_main_program().amp = amp
+    return avg_cost
+
+
+def _running_stats(program):
+    return [v.name for v in program.list_vars() if v.persistable and
+            (v.name.endswith('.mean') or v.name.endswith('.variance'))]
+
+
+def phase_resnet(torch, pt, place, card, on_card, batch, image, class_dim,
+                 small=False, warmup=3, steps=20):
+    """Phase 9: bench.py's bench_resnet50 through the port (batch 64,
+    224x224, 1000 classes, NHWC, Momentum(0.1, 0.9), amp bf16); returns
+    the launch counts of the timed steps and a --profile job of 5 more
+    steps."""
+    from paddle_tpu_torch.models import resnet as R
+    t0 = time.perf_counter()
+    avg_cost = _build_resnet(pt, image, class_dim, 'NHWC', 'bf16', 0.1,
+                             small=small)
+    program = pt.default_main_program()
+    n_params = sum(int(np.prod(p.shape)) for p in program.all_parameters())
+    n_bn = sum(op.type == 'batch_norm' for op in program.global_block().ops)
+    flops = 3 * 2 * R.forward_macs_per_image(program) * batch
+    stats = _running_stats(program)
+    exe = pt.Executor(place)
+    scope = pt.Scope()
+    with pt.scope_guard(scope):
+        exe.run(pt.default_startup_program())
+        before = {n: scope.numpy(n) for n in stats}
+        feed = {n: torch.as_tensor(v).to(exe.device) for n, v in
+                R.make_fake_batch(batch, image, class_dim, seed=0).items()}
+        base = 0
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        t1 = time.perf_counter()
+        _, first = _train_steps(torch, exe, feed, avg_cost, warmup, on_card)
+        reset_launches()
+        secs, losses = _train_steps(torch, exe, feed, avg_cost, steps,
+                                    on_card)
+        launches = read_launches()
+        after = {n: scope.numpy(n) for n in stats}
+
+    def profile_step():
+        with pt.scope_guard(scope):
+            exe.run(program, feed=feed, fetch_list=[avg_cost],
+                    return_numpy=False)
+
+    losses = first + losses
+    ms = secs * 1e3 / steps
+    moved = sum(not np.array_equal(before[n], after[n]) for n in stats)
+    finite = all(np.isfinite(after[n]).all() for n in stats)
+    print('resnet: %s, batch %d x 3 x %d x %d, %d classes, NHWC, amp bf16, '
+          'Momentum(0.1, 0.9); %d params, %d batch norms; build + startup '
+          '%.2f s; place %r; torch.backends.cudnn.benchmark=%s'
+          % ('small bottleneck net' if small else 'ResNet-50', batch, image,
+             image, class_dim, n_params, n_bn, t1 - t0, place,
+             torch.backends.cudnn.benchmark))
+    print('resnet: %d timed steps after %d warm-up: %.3f ms/step, %.1f '
+          'images/s, %.4g TFLOP/step (conv + fc, 3x forward), MFU %.4f of %g '
+          'TFLOP/s; loss first %.5f last %.5f; %d of %d running statistics '
+          'moved, all finite: %s [%s]'
+          % (steps, warmup, ms, batch * steps / secs, flops / 1e12,
+             flops / (ms / 1e3) / BF16_FLOPS, BF16_FLOPS / 1e12, losses[0],
+             losses[-1], moved, len(stats), finite, card))
+    print('resnet: batch_norm launches in the %d timed steps: %d (want %d = '
+          '%d a step)' % (steps, launches['batch_norm'], n_bn * steps, n_bn))
+    require(np.isfinite(losses).all(), 'resnet loss not finite: %s' % losses)
+    require(losses[-1] < losses[0], 'resnet loss did not fall: %s' % losses)
+    require(finite and moved == len(stats),
+            'running statistics: %d of %d moved, finite %s'
+            % (moved, len(stats), finite))
+    if on_card:
+        peak = torch.cuda.max_memory_allocated()
+        print('resnet: max_memory_allocated %.3f GB, %.3f GB above what was '
+              'allocated before the first step [%s]'
+              % (peak / 1e9, (peak - base) / 1e9, card))
+        require(launches['batch_norm'] == n_bn * steps,
+                'resnet batch_norm launches %d, want %d'
+                % (launches['batch_norm'], n_bn * steps))
+    return launches, ('5 ResNet-50 training steps', profile_step, 5, None)
+
+
+def phase_resnet_compare(torch, pt, places, lr=0.01, steps=3):
+    """Phase 10: ResNet-50 at 32x32, batch 8, 10 classes, NCHW, fp32,
+    Momentum(lr) for 3 steps from the same startup weights on each place.
+    The first step is the one a tolerance can hold: its loss within 1e-3
+    relative, the running statistics it leaves within 1e-3 of their
+    largest entry, its gradient (the velocity after one step) within
+    0.25 of its largest entry. Later steps are printed beside the host's
+    own spread (the same steps on the host with the images scaled by
+    1 + 2^-23): one training step of this net turns rounding into
+    percent-level changes of the next loss."""
+    from paddle_tpu_torch.models import resnet as R
+    from paddle_tpu_torch.weights import load_into_scope
+    t0 = time.perf_counter()
+    avg_cost = _build_resnet(pt, 32, 10, 'NCHW', None, lr)
+    main = pt.default_main_program()
+    stats = _running_stats(main)
+    params = [p.name for p in main.all_parameters()]
+    host = pt.Scope()
+    with pt.scope_guard(host):
+        pt.Executor(pt.CPUPlace()).run(pt.default_startup_program())
+    weights = {n: host.numpy(n) for n in host.keys()}
+    feed = R.make_fake_batch(8, 32, 10, seed=0)
+    nudged = dict(feed, image=feed['image'] * np.float32(1 + 2.0 ** -23))
+    runs = []
+    for place, f in ((places[0], feed), (places[1], feed),
+                     (pt.CPUPlace(), nudged)):
+        scope = pt.Scope()
+        load_into_scope(weights, scope, place)
+        exe = pt.Executor(place)
+        losses, first = [], None
+        with pt.scope_guard(scope):
+            for _ in range(steps):
+                losses.append(exe.run(main, feed=f,
+                                      fetch_list=[avg_cost])[0].item())
+                if first is None:
+                    first = {n: scope.numpy(n) for n in
+                             stats + [p + '_velocity_acc' for p in params]}
+        runs.append((losses, first))
+    (la, fa), (lb, fb), (lc, _) = runs
+
+    def worst(names):
+        return max(float(np.abs(fa[n] - fb[n]).max() /
+                         max(np.abs(fb[n]).max(), 1e-30)) for n in names)
+
+    rel = [abs(a - b) / abs(b) for a, b in zip(la, lb)]
+    own = [abs(c - b) / abs(b) for b, c in zip(lb, lc)]
+    stats_gap = worst(stats)
+    grad_gap = worst([p + '_velocity_acc' for p in params])
+    print('resnet %r vs %r: ResNet-50 32x32, batch 8, 10 classes, NCHW, '
+          'fp32, Momentum(%g), %d steps from the same weights: losses %s vs '
+          '%s; relative gaps %s (first step limit 1e-3); the host with its '
+          'images scaled by 1 + 2^-23: %s; after the first step, running '
+          'statistics within %.3g (limit 1e-3) and gradients within %.3g '
+          '(limit 0.25) of their largest entry (%.1f s)'
+          % (places[0], places[1], lr, steps, ['%.6f' % v for v in la],
+             ['%.6f' % v for v in lb], ['%.3g' % v for v in rel],
+             ['%.3g' % v for v in own], stats_gap, grad_gap,
+             time.perf_counter() - t0))
+    require(rel[0] <= 1e-3, 'resnet first-step losses differ across places')
+    require(np.isfinite(la + lb).all(), 'resnet losses not finite')
+    require(stats_gap <= 1e-3, 'running statistics differ across places')
+    require(grad_gap <= 0.25, 'first-step gradients differ across places')
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--cpu-rehearsal', action='store_true',
-                    help='run phases 4-5 on the host at the tests\' tiny '
-                         'LM with the plain versions')
+                    help='run phases 4-10 on the host at tiny sizes with '
+                         'the plain versions')
     ap.add_argument('--profile', action='store_true',
                     help='after every other phase, profile 20 decode '
-                         'steps with every slot busy and 5 training '
-                         'steps (torch.profiler) and print where the '
-                         'time goes')
+                         'steps with every slot busy, 5 Transformer and 5 '
+                         'ResNet-50 training steps (torch.profiler) and '
+                         'print where the time goes')
     args = ap.parse_args()
     t_start = time.perf_counter()
     import torch
@@ -965,6 +1328,9 @@ def main():
                            False, 4, 16, 64, tiny, steps=3)
         phase_train_compare(torch, pt, (pt.CPUPlace(), pt.CPUPlace()), 64,
                             tiny)
+        phase_resnet(torch, pt, pt.CPUPlace(), 'host CPU, rehearsal', False,
+                     8, 16, 10, small=True, steps=6)
+        phase_resnet_compare(torch, pt, (pt.CPUPlace(), pt.CPUPlace()))
         print('cpu rehearsal ok in %.1f s' % (time.perf_counter() - t_start))
         return
 
@@ -972,6 +1338,7 @@ def main():
     phase_build()
     ln, pa = phase_kernels(torch, card)
     fa_fwd, fa_bwd = phase_flash_kernels(torch, card)
+    bn = phase_bn_kernels(torch, card)
     spec = LMSpec(vocab_size=32000, n_layer=12, n_head=8, d_key=64,
                   d_value=64, d_model=512, d_inner=2048)
     reqs = _requests(spec, 32, 64, 512, 64)
@@ -994,14 +1361,19 @@ def main():
     torch.cuda.empty_cache()
     phase_train_compare(torch, pt, (pt.CUDAPlace(0), pt.CPUPlace()), VOCAB,
                         base)
+    torch.cuda.empty_cache()
+    resnet, resnet_job = phase_resnet(torch, pt, pt.CUDAPlace(0), card, True,
+                                      64, 224, 1000)
+    torch.cuda.empty_cache()
+    phase_resnet_compare(torch, pt, (pt.CUDAPlace(0), pt.CPUPlace()))
     if args.profile:
-        profile_steps(torch, card, [decode_job, train_job])
+        profile_steps(torch, card, [decode_job, train_job, resnet_job])
 
     # launches: the sum over the main paths' runs (the engine run, the
-    # timed training steps, the timed masked training steps), each read
-    # after its counts were set to 0
+    # timed Transformer, masked Transformer and ResNet-50 training steps),
+    # each read after its counts were set to 0
     def runs(key):
-        return launches.get(key, 0) + train[key] + masked[key]
+        return sum(r.get(key, 0) for r in (launches, train, masked, resnet))
 
     kernels = [
         dict(name='layer_norm', route='cuda',
@@ -1021,6 +1393,10 @@ def main():
              replaces='paddle_tpu/ops/pallas/flash_attention.py:278',
              launches=min(runs('flash_attention_bwd_dkv'),
                           runs('flash_attention_bwd_dq')), **fa_bwd),
+        dict(name='batch_norm', route='cuda',
+             source='paddle_tpu_torch/csrc/batch_norm.cu',
+             replaces='paddle_tpu/ops/pallas/batch_norm.py:52',
+             launches=runs('batch_norm'), **bn),
     ]
     print('total %.1f s' % (time.perf_counter() - t_start))
     print(json.dumps({'kernels': kernels}))

@@ -231,12 +231,16 @@ class Executor(object):
         grad_names = marker.attrs['grad_names']
         loss_name = marker.attrs['loss_name']
         stored = {n: env[n] for n in param_names}
+        # the forward and the update are named for torch.profiler (one range
+        # each a step): the device time by section reads them; the backward
+        # runs on autograd's device thread, outside any range of this one
         with torch.enable_grad():
             leaves = []
             for n in param_names:
                 env[n] = stored[n].detach().requires_grad_()
                 leaves.append(env[n])
-            run_ops(plan.ops[:plan.marker], 0)
+            with torch.profiler.record_function('forward'):
+                run_ops(plan.ops[:plan.marker], 0)
             loss = env[loss_name]
             grads = [None] * len(leaves)
             if loss.requires_grad:
@@ -250,5 +254,5 @@ class Executor(object):
         env.update(stored)
         for pn, gn, g in zip(param_names, grad_names, grads):
             env[gn] = torch.zeros_like(stored[pn]) if g is None else g
-        with torch.no_grad():
+        with torch.no_grad(), torch.profiler.record_function('optimizer'):
             run_ops(plan.ops[plan.marker + 1:], plan.marker + 1)

@@ -1,7 +1,8 @@
 """The layers the port's model code uses (a subset of paddle_tpu.layers, at
-the same names, slots and attributes): data and parameters, and the
+the same names, slots and attributes): data and parameters, the
 Transformer training graph's fc, embedding, layer_norm, dropout, losses,
-reductions, elementwise and reshaping layers."""
+reductions, elementwise and reshaping layers, and ResNet's conv2d,
+pool2d, batch_norm, cross_entropy, accuracy, topk and transpose."""
 
 from . import helper  # noqa: F401
 from .io import *  # noqa: F401,F403

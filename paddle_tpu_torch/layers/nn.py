@@ -1,13 +1,15 @@
-"""Neural-net layers the training path builds (reference: paddle_tpu
-layers/nn.py; python/paddle/fluid/layers/nn.py). Same ops, slots and
-attributes as the JAX package's layer functions."""
+"""Neural-net layers the training paths build (reference: paddle_tpu
+layers/nn.py; python/paddle/fluid/layers/nn.py). Same ops, slots,
+attributes, parameter names, shapes and initializers as the JAX package's
+layer functions."""
 
-from ..initializer import Constant
+from ..initializer import Constant, Normal
 from .helper import LayerHelper
 
-__all__ = ['fc', 'embedding', 'layer_norm', 'dropout',
+__all__ = ['fc', 'embedding', 'conv2d', 'pool2d', 'batch_norm',
+           'layer_norm', 'dropout', 'cross_entropy',
            'label_smoothed_cross_entropy', 'softmax_with_cross_entropy',
-           'reduce_sum']
+           'accuracy', 'topk', 'reduce_sum', 'transpose']
 
 
 def _prod(xs):
@@ -77,6 +79,123 @@ def embedding(input, size, is_sparse=False, is_distributed=False,
     return out
 
 
+def _pair(v):
+    return list(v) if isinstance(v, (list, tuple)) else [v, v]
+
+
+def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=None, param_attr=None, bias_attr=None, use_cudnn=True,
+           use_mkldnn=False, act=None, name=None, data_format='NCHW'):
+    """2-D convolution (conv2d op). data_format='NHWC' keeps the
+    activations channels-last in the IR; the filter parameter stays OIHW
+    either way, initialised N(0, sqrt(2 / (fh·fw·C_in)))."""
+    helper = LayerHelper('conv2d', **locals())
+    dtype = input.dtype
+    groups = groups or 1
+    nhwc = data_format == 'NHWC'
+    num_channels = input.shape[3] if nhwc else input.shape[1]
+    fh, fw = _pair(filter_size)
+    sh, sw = _pair(stride)
+    ph, pw = _pair(padding)
+    dh, dw = _pair(dilation)
+    filter_shape = [num_filters, num_channels // groups, fh, fw]
+    std = (2.0 / (fh * fw * num_channels)) ** 0.5
+    w = helper.create_parameter(attr=helper.param_attr, shape=filter_shape,
+                                dtype=dtype,
+                                default_initializer=Normal(0.0, std))
+    pre_bias = helper.create_variable_for_type_inference(dtype)
+    if nhwc:
+        n, h, w_in, c = input.shape
+    else:
+        n, c, h, w_in = input.shape
+    oh = (h + 2 * ph - (dh * (fh - 1) + 1)) // sh + 1 if h and h > 0 else h
+    ow = (w_in + 2 * pw - (dw * (fw - 1) + 1)) // sw + 1 \
+        if w_in and w_in > 0 else w_in
+    pre_bias.shape = (n, oh, ow, num_filters) if nhwc \
+        else (n, num_filters, oh, ow)
+    helper.append_op(
+        type='conv2d', inputs={'Input': [input], 'Filter': [w]},
+        outputs={'Output': [pre_bias]},
+        attrs={'strides': [sh, sw], 'paddings': [ph, pw],
+               'dilations': [dh, dw], 'groups': groups,
+               'data_format': data_format})
+    pre_act = helper.append_bias_op(pre_bias, [num_filters],
+                                    axis=3 if nhwc else 1)
+    return helper.append_activation(pre_act)
+
+
+def pool2d(input, pool_size=-1, pool_type='max', pool_stride=1,
+           pool_padding=0, global_pooling=False, use_cudnn=True,
+           ceil_mode=False, use_mkldnn=False, name=None, exclusive=True,
+           data_format='NCHW'):
+    helper = LayerHelper('pool2d', **locals())
+    kh, kw = _pair(pool_size)
+    sh, sw = _pair(pool_stride)
+    ph, pw = _pair(pool_padding)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    nhwc = data_format == 'NHWC'
+    if nhwc:
+        n, h, w, c = input.shape
+    else:
+        n, c, h, w = input.shape
+    if global_pooling:
+        out.shape = (n, 1, 1, c) if nhwc else (n, c, 1, 1)
+    else:
+        rnd = (lambda a, b: -(-a // b)) if ceil_mode else (lambda a, b: a // b)
+        oh = rnd(h + 2 * ph - kh, sh) + 1 if h and h > 0 else -1
+        ow = rnd(w + 2 * pw - kw, sw) + 1 if w and w > 0 else -1
+        out.shape = (n, oh, ow, c) if nhwc else (n, c, oh, ow)
+    helper.append_op(
+        type='pool2d', inputs={'X': [input]}, outputs={'Out': [out]},
+        attrs={'pooling_type': pool_type, 'ksize': [kh, kw],
+               'strides': [sh, sw], 'paddings': [ph, pw],
+               'global_pooling': global_pooling, 'ceil_mode': ceil_mode,
+               'exclusive': exclusive, 'data_format': data_format})
+    return out
+
+
+def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
+               param_attr=None, bias_attr=None, data_layout='NCHW',
+               in_place=False, use_mkldnn=False, name=None,
+               moving_mean_name=None, moving_variance_name=None,
+               do_model_average_for_mean_and_var=False):
+    """Batch normalization (batch_norm op). The running mean and variance
+    are persistable, non-trainable vars set to 0 and 1 by the startup
+    program; the op moves them in training."""
+    helper = LayerHelper('batch_norm', **locals())
+    dtype = input.dtype
+    c = input.shape[1] if data_layout == 'NCHW' else input.shape[-1]
+    scale = helper.create_parameter(attr=helper.param_attr, shape=[c],
+                                    dtype=dtype,
+                                    default_initializer=Constant(1.0))
+    bias = helper.create_parameter(attr=helper.bias_attr, shape=[c],
+                                   dtype=dtype, is_bias=True)
+    block = helper.main_program.global_block()
+    mean = block.create_var(name=moving_mean_name or helper.name + '.mean',
+                            shape=(c,), dtype=dtype, persistable=True)
+    mean.stop_gradient = True
+    variance = block.create_var(
+        name=moving_variance_name or helper.name + '.variance', shape=(c,),
+        dtype=dtype, persistable=True)
+    variance.stop_gradient = True
+    Constant(0.0)(mean)
+    Constant(1.0)(variance)
+
+    saved_mean = helper.create_variable_for_type_inference(dtype)
+    saved_var = helper.create_variable_for_type_inference(dtype)
+    out = helper.create_variable_for_type_inference(dtype)
+    out.shape = input.shape
+    helper.append_op(
+        type='batch_norm',
+        inputs={'X': [input], 'Scale': [scale], 'Bias': [bias],
+                'Mean': [mean], 'Variance': [variance]},
+        outputs={'Y': [out], 'MeanOut': [mean], 'VarianceOut': [variance],
+                 'SavedMean': [saved_mean], 'SavedVariance': [saved_var]},
+        attrs={'momentum': momentum, 'epsilon': epsilon, 'is_test': is_test,
+               'data_layout': data_layout})
+    return helper.append_activation(out)
+
+
 def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
                epsilon=1e-5, param_attr=None, bias_attr=None, act=None,
                name=None):
@@ -117,6 +236,18 @@ def dropout(x, dropout_prob, is_test=False, seed=None, name=None,
         attrs={'dropout_prob': dropout_prob, 'is_test': is_test,
                'seed': seed if seed is not None else 0,
                'dropout_implementation': dropout_implementation})
+    return out
+
+
+def cross_entropy(input, label, soft_label=False, ignore_index=-100):
+    helper = LayerHelper('cross_entropy')
+    out = helper.create_variable_for_type_inference(input.dtype)
+    if input.shape is not None:
+        out.shape = tuple(input.shape[:-1]) + (1,)
+    helper.append_op(type='cross_entropy',
+                     inputs={'X': [input], 'Label': [label]},
+                     outputs={'Y': [out]},
+                     attrs={'soft_label': soft_label})
     return out
 
 
@@ -171,4 +302,48 @@ def reduce_sum(input, dim=None, keep_dim=False, name=None):
                      outputs={'Out': [out]},
                      attrs={'dim': list(dims), 'keep_dim': keep_dim,
                             'reduce_all': reduce_all})
+    return out
+
+
+def accuracy(input, label, k=1, correct=None, total=None):
+    """Classification accuracy: top_k, then the accuracy op."""
+    helper = LayerHelper('accuracy')
+    values, indices = topk(input, k=k)
+    acc = helper.create_variable_for_type_inference('float32')
+    acc.shape = (1,)
+    if correct is None:
+        correct = helper.create_variable_for_type_inference('int32')
+    if total is None:
+        total = helper.create_variable_for_type_inference('int32')
+    correct.shape = (1,)
+    total.shape = (1,)
+    helper.append_op(type='accuracy',
+                     inputs={'Out': [values], 'Indices': [indices],
+                             'Label': [label]},
+                     outputs={'Accuracy': [acc], 'Correct': [correct],
+                              'Total': [total]})
+    return acc
+
+
+def topk(input, k=1, name=None):
+    helper = LayerHelper('top_k', name=name)
+    values = helper.create_variable_for_type_inference(input.dtype)
+    indices = helper.create_variable_for_type_inference('int64')
+    if input.shape is not None:
+        s = tuple(input.shape[:-1]) + (k,)
+        values.shape = s
+        indices.shape = s
+    helper.append_op(type='top_k', inputs={'X': [input]},
+                     outputs={'Out': [values], 'Indices': [indices]},
+                     attrs={'k': k})
+    return values, indices
+
+
+def transpose(x, perm, name=None):
+    helper = LayerHelper('transpose', name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    if x.shape is not None:
+        out.shape = tuple(x.shape[p] for p in perm)
+    helper.append_op(type='transpose', inputs={'X': [x]},
+                     outputs={'Out': [out]}, attrs={'axis': list(perm)})
     return out

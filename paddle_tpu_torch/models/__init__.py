@@ -1,2 +1,2 @@
-"""Model builders. This slice carries the pieces of models/transformer.py
-that the decode LM uses."""
+"""Model builders: the Transformer (training graph and the decode LM's
+pieces, models/transformer.py) and the ResNet family (models/resnet.py)."""

@@ -1,8 +1,9 @@
 """Op lowerings. Importing this package registers every op the port runs:
-the startup ops, the paged decode ops and the training path's ops."""
+the startup ops, the paged decode ops and the training paths' ops."""
 
 from . import activation_ops  # noqa: F401
 from . import attention_ops  # noqa: F401
+from . import conv_ops  # noqa: F401
 from . import math_ops  # noqa: F401
 from . import nn_ops  # noqa: F401
 from . import norm_ops  # noqa: F401

@@ -20,7 +20,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, 'csrc')
 BUILD_DIR = os.path.join(_PKG, '_build')
-SOURCES = ('layer_norm.cu', 'paged_attention.cu', 'flash_attention.cu')
+SOURCES = ('layer_norm.cu', 'paged_attention.cu', 'flash_attention.cu',
+           'batch_norm.cu')
 HEADERS = ('common.cuh',)
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
@@ -114,6 +115,12 @@ def library():
             lib.ptt_flash_bwd_dq.restype = i
             lib.ptt_flash_smem_bytes.argtypes = [i, i]
             lib.ptt_flash_smem_bytes.restype = i
+            ll = ctypes.c_longlong
+            lib.ptt_batch_norm_workspace.argtypes = [p, p, ll, i, ll, i, i]
+            lib.ptt_batch_norm_workspace.restype = ll
+            lib.ptt_batch_norm_train.argtypes = [p] * 7 + [ll, ll, i, ll, i,
+                                                           f, i, p]
+            lib.ptt_batch_norm_train.restype = i
             _loaded['lib'] = lib
         return lib
 

@@ -1,6 +1,8 @@
-"""NN ops the training path runs: embedding lookup, dropout and the two
-softmax cross-entropy losses (reference: paddle_tpu ops/nn_ops.py; fluid's
-lookup_table_op, dropout_op, softmax_with_cross_entropy_op)."""
+"""NN ops the training paths run: embedding lookup, dropout, the two
+softmax cross-entropy losses, cross_entropy over probabilities and
+accuracy (reference: paddle_tpu ops/nn_ops.py; fluid's lookup_table_op,
+dropout_op, softmax_with_cross_entropy_op, cross_entropy_op,
+accuracy_op)."""
 
 import torch
 
@@ -125,3 +127,35 @@ def _softmax_xent(ctx):
         ctx.set_output('Softmax', torch.softmax(logits.float(), dim=-1)
                        .to(logits.dtype))
     ctx.set_output('Loss', loss)
+
+
+@register('cross_entropy')
+def _cross_entropy(ctx):
+    """-log(p[label] + 1e-8) over probabilities X; soft labels give
+    -Σ label·log(X + 1e-8) (cross_entropy_op.cc)."""
+    x = ctx.input('X')
+    label = ctx.input('Label')
+    eps = 1e-8
+    if ctx.attr('soft_label', False):
+        loss = -(label * torch.log(x + eps)).sum(dim=-1, keepdim=True)
+    else:
+        if label.dim() == x.dim() and label.shape[-1] == 1:
+            label = label.squeeze(-1)
+        loss = -torch.log(x.gather(-1, label.long().unsqueeze(-1)) + eps)
+    ctx.set_output('Y', loss)
+
+
+@register('accuracy')
+def _accuracy(ctx):
+    """The share of rows whose top-k indices hold the label
+    (accuracy_op.cc), with the int32 Correct and Total counts."""
+    indices = ctx.input('Indices')
+    label = ctx.input('Label')
+    if not (label.dim() == 2 and label.shape[-1] == 1):
+        label = label.unsqueeze(-1)
+    correct = (indices == label).any(dim=-1)
+    ctx.set_output('Accuracy', correct.float().mean().reshape(1))
+    ctx.set_output('Correct', correct.sum(dtype=torch.int32).reshape(1))
+    ctx.set_output('Total', torch.tensor([indices.shape[0]],
+                                         dtype=torch.int32,
+                                         device=indices.device))

@@ -1,5 +1,6 @@
-"""Optimizer update ops: sgd, adam (dense) and adam_beta_pow_update
-(reference: paddle_tpu ops/optimizer_ops.py; fluid's sgd_op, adam_op).
+"""Optimizer update ops: sgd, momentum and adam (dense) and
+adam_beta_pow_update (reference: paddle_tpu ops/optimizer_ops.py; fluid's
+sgd_op, momentum_op, adam_op).
 
 The executor runs them under ``torch.no_grad()`` after the gradients
 exist. Each updates its Param and accumulators in place (ParamOut and the
@@ -28,6 +29,23 @@ def _inplace(ctx, in_slot, out_slot):
 def _sgd(ctx):
     p = _inplace(ctx, 'Param', 'ParamOut')
     p.sub_((_lr(ctx) * ctx.input('Grad')).to(p.dtype))
+    ctx.set_output('ParamOut', p)
+
+
+@register('momentum')
+def _momentum(ctx):
+    """v = mu·v + g; p -= lr·v, or with use_nesterov p -= (g + mu·v)·lr."""
+    g = ctx.input('Grad')
+    p = _inplace(ctx, 'Param', 'ParamOut')
+    v = _inplace(ctx, 'Velocity', 'VelocityOut')
+    mu = ctx.attr('mu', 0.9)
+    v.mul_(mu).add_(g)
+    if ctx.attr('use_nesterov', False):
+        step = (g + mu * v) * _lr(ctx)
+    else:
+        step = _lr(ctx) * v
+    p.sub_(step.to(p.dtype))
+    ctx.set_output('VelocityOut', v)
     ctx.set_output('ParamOut', p)
 
 

@@ -1,5 +1,5 @@
 """Tensor ops (reference: paddle_tpu ops/tensor_ops.py): the startup
-fills, and sum, reshape, slice, unsqueeze and cast."""
+fills, and sum, reshape, slice, unsqueeze, cast, transpose and top_k."""
 
 import numpy as np
 import torch
@@ -67,3 +67,18 @@ def _unsqueeze(ctx):
 def _cast(ctx):
     ctx.set_output('Out', ctx.input('X').to(
         to_torch_dtype(ctx.attr('out_dtype'))))
+
+
+@register('transpose')
+def _transpose(ctx):
+    """A view: the ops that read it take its strides as they are."""
+    ctx.set_output('Out', ctx.input('X').permute(*ctx.attr('axis')))
+
+
+@register('top_k')
+def _top_k(ctx):
+    """Values and indices of the k largest along the last axis, in
+    descending order; the indices are int64, as the IR declares them."""
+    values, indices = torch.topk(ctx.input('X'), ctx.attr('k', 1), dim=-1)
+    ctx.set_output('Out', values)
+    ctx.set_output('Indices', indices)

@@ -1,5 +1,5 @@
 """Optimizers (reference: paddle_tpu optimizer.py;
-python/paddle/fluid/optimizer.py): Optimizer, SGD and Adam.
+python/paddle/fluid/optimizer.py): Optimizer, SGD, Momentum and Adam.
 
 minimize() appends the backward marker, then one update op per
 parameter; the Executor runs the update ops in place after the
@@ -14,7 +14,8 @@ from .core.program import (Variable, default_main_program,
 from .initializer import Constant
 from .layers.helper import LayerHelper
 
-__all__ = ['SGD', 'Adam', 'SGDOptimizer', 'AdamOptimizer', 'Optimizer']
+__all__ = ['SGD', 'Momentum', 'Adam', 'SGDOptimizer', 'MomentumOptimizer',
+           'AdamOptimizer', 'Optimizer']
 
 
 def append_gradient_clip_ops(param_grads):
@@ -154,6 +155,39 @@ class SGDOptimizer(Optimizer):
             outputs={'ParamOut': [param]})
 
 
+class MomentumOptimizer(Optimizer):
+    _velocity_acc_str = 'velocity'
+
+    def __init__(self, learning_rate, momentum, use_nesterov=False,
+                 lazy_mode=False, **kwargs):
+        """Dense momentum, one velocity accumulator a parameter set to 0 by
+        the startup program. ``lazy_mode`` (the JAX package's row-sparse
+        update) is not ported and raises."""
+        if lazy_mode:
+            raise NotImplementedError(
+                'MomentumOptimizer(lazy_mode=True) needs row-sparse '
+                'gradients, which paddle_tpu_torch does not port')
+        super(MomentumOptimizer, self).__init__(learning_rate, **kwargs)
+        self._momentum = momentum
+        self._use_nesterov = use_nesterov
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator(self._velocity_acc_str, p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        param, grad = param_and_grad
+        velocity = self._get_accumulator(self._velocity_acc_str, param)
+        return block.append_op(
+            type='momentum',
+            inputs={'Param': [param], 'Grad': [grad],
+                    'Velocity': [velocity],
+                    'LearningRate': [self._create_param_lr(param_and_grad)]},
+            outputs={'ParamOut': [param], 'VelocityOut': [velocity]},
+            attrs={'mu': self._momentum,
+                   'use_nesterov': self._use_nesterov})
+
+
 class AdamOptimizer(Optimizer):
     _moment1_acc_str = 'moment1'
     _moment2_acc_str = 'moment2'
@@ -214,4 +248,5 @@ class AdamOptimizer(Optimizer):
 
 
 SGD = SGDOptimizer
+Momentum = MomentumOptimizer
 Adam = AdamOptimizer

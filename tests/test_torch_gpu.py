@@ -1,7 +1,7 @@
 """The port on a CUDA card: each kernel against its plain version, the
-decode engine on the card against the same engine on the host, and one
-training step of a small Transformer on the card against the same step
-on the host.
+decode engine on the card against the same engine on the host, one
+training step of a small Transformer and of a small ResNet on the card
+against the same step on the host.
 
 Marked ``gpu``; each test decides inside itself whether a card exists and
 skips without one. This file imports no jax, so it also runs on a machine
@@ -16,6 +16,7 @@ import pytest
 import torch
 
 import paddle_tpu_torch as pt
+from paddle_tpu_torch.ops.kernels import batch_norm as tbn
 from paddle_tpu_torch.ops.kernels import flash_attention as tfa
 from paddle_tpu_torch.ops.kernels import layer_norm as tln
 from paddle_tpu_torch.ops.kernels import paged_attention as tpa
@@ -253,3 +254,159 @@ def test_training_step_on_card_equals_host(cuda):
         if p.trainable:
             gap = np.abs(scopes[0].numpy(p.name) - scopes[1].numpy(p.name))
             assert gap.max() <= 2 * 1e-3 * 2, p.name
+
+
+def _bf16_ulp(x):
+    """One bf16 ulp (8 significant bits) at |x|, elementwise."""
+    a = x.abs().double().clamp_min(2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(a)) - 7)
+
+
+def _bn_check(x, layout, gen):
+    """K5 against its plain version on x: mean 1e-5 and var 1e-4 relative
+    (fp32 sums in another order); y fp32 1e-4; y bf16 within one bf16 ulp
+    each of x·a, b and y (a and b, computed from statistics 1e-6 apart,
+    may round to the neighbouring bf16 value)."""
+    c = x.shape[1] if layout == 'NCHW' else x.shape[-1]
+    s = 0.5 + torch.rand(c, generator=gen, device=x.device)
+    b = torch.randn(c, generator=gen, device=x.device)
+    before = tbn.fused_batch_norm_train.launches
+    y, m, v = tbn.fused_batch_norm_train(x, s, b, 1e-5, layout=layout)
+    assert tbn.fused_batch_norm_train.launches == before + 1
+    x4 = x.permute(0, 3, 1, 2) if layout == 'NHWC' else x
+    x3 = x4.reshape(x4.shape[0], c, -1) if x.dim() == 4 else x.unsqueeze(-1)
+    ry, rm, rv = tbn._bn_reference(x3, s, b, 1e-5)
+    torch.cuda.synchronize()
+    assert y.dtype == x.dtype and y.shape == x.shape
+    assert [st for st, n in zip(y.stride(), y.shape) if n > 1] == \
+        [st for st, n in zip(x.stride(), x.shape) if n > 1]
+    torch.testing.assert_close(m, rm, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(v, rv, rtol=1e-4, atol=1e-5)
+    y4 = y.permute(0, 3, 1, 2) if layout == 'NHWC' else y
+    y3 = y4.reshape(ry.shape) if x.dim() == 4 else y.unsqueeze(-1)
+    if x.dtype == torch.float32:
+        torch.testing.assert_close(y3, ry, rtol=1e-4, atol=1e-4)
+        return
+    a = s * torch.rsqrt(rv + 1e-5)
+    xa = (x3.float() * a[:, None]).abs()
+    bb = (b - rm * a)[:, None].abs()
+    tol = _bf16_ulp(xa) + _bf16_ulp(bb) + _bf16_ulp(ry.float())
+    assert bool(((y3.double() - ry.double()).abs() <= tol).all())
+
+
+# (layout, shape, dtype): ResNet-50's stem at batch 64, an NCHW shape of
+# the network, and shapes off every fast path (odd C, planes of 49 and 9
+# elements, C = 1, one row)
+BN_CASES = [
+    ('NHWC', (64, 112, 112, 64), torch.bfloat16),
+    ('NCHW', (64, 128, 28, 28), torch.bfloat16),
+    ('NHWC', (64, 7, 7, 2048), torch.bfloat16),
+    ('NHWC', (8, 56, 56, 256), torch.float32),
+    ('NC', (1003, 100), torch.float32),
+    ('NCHW', (8, 2048, 7, 7), torch.float32),
+    ('NCHW', (3, 5, 3, 3), torch.bfloat16),
+    ('NHWC', (2, 3, 3, 1), torch.float32),
+    ('NC', (1, 7), torch.float32),
+]
+
+
+@pytest.mark.parametrize('case', BN_CASES)
+def test_batch_norm_kernel_matches_plain(cuda, case):
+    layout, shape, dtype = case
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x = (1.0 + 2.0 * torch.randn(shape, generator=gen, device=cuda)).to(dtype)
+    _bn_check(x, layout, gen)
+
+
+def test_batch_norm_kernel_takes_channels_last_nchw_and_offsets(cuda):
+    """An NCHW tensor with channels-last strides takes the rows order; a
+    view at an odd element offset takes the one-element path."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    x = torch.randn(4, 64, 10, 10, generator=gen, device=cuda) \
+        .to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    _bn_check(x, 'NCHW', gen)
+    flat = torch.randn(1 + 32 * 24, generator=gen, device=cuda)
+    _bn_check(flat[1:].view(32, 24), 'NC', gen)
+
+
+def test_batch_norm_gradient_matches_autograd_of_plain(cuda):
+    """The closed-form backward against autograd through the plain
+    version, fp32: 1e-4."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    x = torch.randn(16, 9, 9, 32, generator=gen, device=cuda)
+    s = 0.5 + torch.rand(32, generator=gen, device=cuda)
+    b = torch.randn(32, generator=gen, device=cuda)
+    gy = torch.randn(x.shape, generator=gen, device=cuda)
+    leaves = [t.clone().requires_grad_() for t in (x, s, b)]
+    y, _, _ = tbn.fused_batch_norm_train(*leaves, 1e-5, layout='NHWC')
+    got = torch.autograd.grad(y, leaves, gy)
+    ref_leaves = [t.clone().requires_grad_() for t in (x, s, b)]
+    x3 = ref_leaves[0].permute(0, 3, 1, 2).reshape(16, 32, 81)
+    ry, _, _ = tbn._bn_reference(x3, ref_leaves[1], ref_leaves[2], 1e-5)
+    want = torch.autograd.grad(ry, ref_leaves,
+                               gy.permute(0, 3, 1, 2).reshape(16, 32, 81))
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+
+
+def test_batch_norm_wrapper_rejects_bad_inputs(cuda):
+    x = torch.zeros(4, 8, 3, 3, device=cuda)
+    s = torch.ones(8, device=cuda)
+    with pytest.raises(TypeError):
+        tbn.fused_batch_norm_train(x.half(), s, s, 1e-5, layout='NCHW')
+    with pytest.raises(ValueError):
+        tbn.fused_batch_norm_train(x, s.double(), s, 1e-5, layout='NCHW')
+    with pytest.raises(ValueError):
+        tbn.fused_batch_norm_train(x, s[:4], s[:4], 1e-5, layout='NCHW')
+    with pytest.raises(ValueError):           # channels not dense
+        tbn.fused_batch_norm_train(x[:, ::2], s[:4], s[:4], 1e-5,
+                                   layout='NCHW')
+
+
+def test_resnet_training_step_on_card_equals_host(cuda):
+    """Two Momentum steps of a small bottleneck ResNet (fp32, NHWC and
+    NCHW) from the same weights on the card and on the host: losses to
+    1e-4 relative, parameters and running statistics within 1e-4; every
+    batch norm of the card's steps ran K5."""
+    from paddle_tpu_torch.models import resnet as R
+    from paddle_tpu_torch.weights import load_into_scope
+    feed = R.make_fake_batch(8, 16, 10, seed=3)
+    for layout in ('NHWC', 'NCHW'):
+        pt.reset_default_programs()
+        img = pt.layers.data(name='image', shape=[3, 16, 16],
+                             dtype='float32')
+        label = pt.layers.data(name='label', shape=[1], dtype='int64')
+        h = pt.layers.transpose(img, [0, 2, 3, 1]) if layout == 'NHWC' \
+            else img
+        h = R.conv_bn_layer(h, 16, 3, 1, 1, data_format=layout)
+        h = pt.layers.pool2d(h, pool_size=3, pool_type='max', pool_stride=2,
+                             pool_padding=1, data_format=layout)
+        h = R.layer_warp(R.bottleneck, h, 8, 2, 2, data_format=layout)
+        h = pt.layers.pool2d(h, pool_type='avg', global_pooling=True,
+                             data_format=layout)
+        avg = pt.layers.mean(pt.layers.cross_entropy(
+            pt.layers.fc(h, size=10, act='softmax'), label))
+        pt.optimizer.Momentum(learning_rate=0.01, momentum=0.9) \
+            .minimize(avg)
+        main = pt.default_main_program()
+        host = pt.Scope()
+        with pt.scope_guard(host):
+            pt.Executor(pt.CPUPlace()).run(pt.default_startup_program())
+        weights = {n: host.numpy(n) for n in host.keys()}
+        losses, scopes = [], []
+        for place in (pt.CUDAPlace(0), pt.CPUPlace()):
+            scope = pt.Scope()
+            load_into_scope(weights, scope, place)
+            before = tbn.fused_batch_norm_train.launches
+            with pt.scope_guard(scope):
+                exe = pt.Executor(place)
+                losses.append([exe.run(main, feed=feed,
+                                       fetch_list=[avg])[0].item()
+                               for _ in range(2)])
+            if isinstance(place, pt.CUDAPlace):
+                assert tbn.fused_batch_norm_train.launches == before + 2 * 8
+            scopes.append(scope)
+        np.testing.assert_allclose(losses[0], losses[1], rtol=1e-4)
+        for n in weights:
+            gap = np.abs(scopes[0].numpy(n) - scopes[1].numpy(n))
+            assert gap.max() <= 1e-4, n

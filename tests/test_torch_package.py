@@ -1,6 +1,7 @@
 """Package rules of the port: importing every module of paddle_tpu_torch
 loads neither jax nor paddle_tpu, no module calls PyTorch's fused
-attention (the flash kernels are the port's own), and with no place
+attention or batch norm (the flash and batch-norm kernels are the port's
+own), and with no place
 given the entry points want a CUDA device — without one they raise
 instead of falling back to the host."""
 
@@ -42,8 +43,9 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
 
 
 def test_no_module_calls_library_attention():
-    """scaled_dot_product_attention is a yardstick in chip_smoke.py only;
-    no module of the port calls it (or torch.compile)."""
+    """scaled_dot_product_attention and F.batch_norm are yardsticks in
+    chip_smoke.py only; no module of the port calls them, PyTorch's other
+    batch-norm entry points or torch.compile."""
     pkg = os.path.join(REPO, 'paddle_tpu_torch')
     hits = []
     for root, _, files in os.walk(pkg):
@@ -53,7 +55,9 @@ def test_no_module_calls_library_attention():
                 with open(path) as f:
                     text = f.read()
                 for word in ('scaled_dot_product_attention',
-                             'torch.compile'):
+                             'torch.compile', 'F.batch_norm',
+                             'functional.batch_norm', 'torch.batch_norm',
+                             'native_batch_norm', 'nn.BatchNorm'):
                     if word in text:
                         hits.append((os.path.relpath(path, REPO), word))
     assert not hits, hits
