@@ -15,10 +15,19 @@ Phases (any fault exits non-zero; no phase is skipped over):
    and bf16, with the stated tolerance; device times of the kernel, the
    plain version and a library yardstick (CUDA-graph replay, CUDA
    events) beside each kernel's bound, and the kernel's eager time.
-   Layer norm (K1), paged attention (K4), flash attention forward (K2)
-   and backward (K3) at the training shapes: B=64 H=8 T=64 D=64 bf16
+   Layer norm (K1); paged attention (K4) against both its plain versions
+   (one-pass softmax; per-chunk partials merged in split order) at the
+   decode shapes (16 rows, lengths 1..2048 with empty slots; every row at
+   2,048 tokens: every split live; the engine's range 64..576) and the
+   prefill's broadcast table at 128 and 512 rows, fp32 and bf16, and a
+   row-independence check: one row in a 16-row batch, alone and inside a
+   128-row broadcast call gives the same bits; flash attention forward
+   (K2, against the whole-row and the 64-key tiled plain versions, each
+   case run twice, the launch-variant counters read) and backward (K3) at
+   the training shapes: B=64 H=8 T=64 D=64 bf16
    non-causal and causal, B=8 H=8 T=512 causal with kv_len 256-512 and
-   one row at 1, and B=64 T=64 fp32; batch norm (K5) at ResNet-50's
+   one row at 1, B=4 H=4 T=200 D=128 bf16 and B=64 T=64 fp32 (the SIMT
+   forward); batch norm (K5) at ResNet-50's
    stem, stage-2 and stage-4 shapes in bf16 NHWC, an NCHW, an fp32 and an
    odd shape, and its backward against autograd of the plain version.
 4. Engine: DecodeEngine at the documented serving configuration
@@ -40,7 +49,8 @@ Phases (any fault exits non-zero; no phase is skipped over):
    warm-up and 20 timed steps. ms a step, tokens/s, MFU against 989
    TFLOP/s, the first and last loss (finite, falling), peak memory, and
    the launch counts of the timed steps (K2, both K3 kernels 18 a step,
-   K1 30 a step).
+   K1 30 a step; all 18 forward launches through the tensor-core
+   kernel).
 7. Masked training: 3 + 10 steps at bench_transformer_masked's shape
    (batch 8, seq 512, src_length uniform in [256, 512], lbl_weight
    masking the same positions): padded and real tokens/s.
@@ -67,6 +77,9 @@ line with every kernel's numbers and nvidia-smi's name and power limit.
 (phases 8 and 10 then compare the host with itself) and never prints
 that last line. --profile adds, after every other phase, a torch.profiler
 breakdown of decode steps, Transformer and ResNet-50 training steps.
+--kernels-only stops after phase 3 (no verdict line); with --port-from DIR
+it imports paddle_tpu_torch from another checkout of this repository, so
+one call can time an earlier commit's kernels at today's shapes.
 """
 
 import argparse
@@ -86,6 +99,11 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 BF16_FLOPS = 989e12
 VOCAB = 32000
+# set by --port-from: the port under test is an earlier checkout, whose
+# kernels are timed at today's shapes; checks of what only today's port has
+# (the second plain versions, K2's variant counters, K4's row independence)
+# are then left out, and no verdict is printed
+EARLIER = False
 
 
 def fail(msg):
@@ -170,13 +188,19 @@ def _counted():
 
 
 def reset_launches():
-    """Every kernel wrapper's launch count to 0."""
+    """Every kernel wrapper's launch count to 0 (K2's two variants too)."""
     for fn in _counted().values():
         fn.launches = 0
+    fwd = _counted()['flash_attention_fwd']
+    fwd.launches_mma = fwd.launches_simt = 0
 
 
 def read_launches():
-    return {name: fn.launches for name, fn in _counted().items()}
+    res = {name: fn.launches for name, fn in _counted().items()}
+    fwd = _counted()['flash_attention_fwd']
+    res['flash_attention_fwd_mma'] = fwd.launches_mma
+    res['flash_attention_fwd_simt'] = fwd.launches_simt
+    return res
 
 
 # ------------------------------------------------------------ phase 1
@@ -202,7 +226,10 @@ def phase_device(torch):
 
 
 # ------------------------------------------------------------ phase 2
-def phase_build():
+def phase_build(expect=('paged_split_kernel', 'paged_merge_kernel',
+                        'flash_fwd_mma_kernel')):
+    """Build, print ptxas's numbers, and fail unless its log shows the
+    kernels named in ``expect``."""
     from paddle_tpu_torch.ops.kernels import build
     res = build.build()
     print('build: %.2f s (nvcc, one call, %s) -> %s'
@@ -212,11 +239,12 @@ def phase_build():
         if 'ptxas info' in line and ('Compiling' in line or 'Used' in line):
             print('  ' + line.strip())
     lib = build.library()
-    print('  paged_attention dynamic shared memory at bs=32, D=Dv=64: %d B'
-          % lib.ptt_paged_attention_smem_bytes(32, 64, 64))
-    print('  flash attention dynamic shared memory at D=64: forward %d B, '
-          'dK/dV %d B, dQ %d B' % tuple(lib.ptt_flash_smem_bytes(i, 64)
-                                        for i in range(3)))
+    for kernel in expect:
+        require(kernel in res.log, 'ptxas\'s log does not show %s' % kernel)
+    if expect:
+        print('  flash attention dynamic shared memory at D=64: tensor-core '
+              'forward %d B, SIMT forward %d B, dK/dV %d B, dQ %d B'
+              % tuple(lib.ptt_flash_smem_bytes(i, 64) for i in (3, 0, 1, 2)))
     return res
 
 
@@ -280,22 +308,38 @@ def _paged_inputs(torch, gen, n, lens, dtype, broadcast, h=8, d=64, bs=32,
     return q, kp, vp, tables, seq_lens
 
 
-def _paged_case(torch, card, label, q, kp, vp, tables, lens):
+def _paged_case(torch, card, label, q, kp, vp, tables, lens, heavy=False):
+    """K4 against both its plain versions on one input, and its times.
+    ``heavy`` (the 512-row prefill: the plain versions gather GBs) cuts
+    the plain version's and the yardstick's timed calls to 5."""
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.kernels import paged_attention as K
     out = K.paged_attention(q, kp, vp, tables, lens)
-    ref = K.paged_attention_reference(q, kp, vp, tables, lens)
+    refs = [K.paged_attention_reference(q, kp, vp, tables, lens).float()]
+    if not EARLIER:
+        refs.append(K.paged_attention_split_reference(q, kp, vp, tables,
+                                                      lens))
     torch.cuda.synchronize()
-    of, rf = out.float().cpu().numpy(), ref.float().cpu().numpy()
-    err = float(np.max(np.abs(of - rf)))
+    of = out.float().cpu().numpy()
+    live = (lens > 0).cpu().numpy()    # an empty slot gives 0, no average
+    require(np.all(of[~live] == 0), '%s: an empty row is not 0' % label)
     if kp.dtype == torch.float32:
         tol = 'fp32: |kernel - plain| <= 5e-5'
-        ok = err <= 5e-5
     else:
         tol = ('bf16: |kernel - plain| <= 2e-2 + 2e-2*|plain| (plain '
                'output rounded to bf16, 2^-7 at the top of a binade, and '
                'p rounded to bf16 at different points)')
-        ok = np.all(np.abs(of - rf) <= 2e-2 + 2e-2 * np.abs(rf))
+    errs, ok = [], True
+    for ref in refs:
+        rf = ref.cpu().numpy()
+        gap = np.abs(of - rf)[live]
+        errs.append(float(gap.max()))
+        if kp.dtype == torch.float32:
+            ok = ok and errs[-1] <= 5e-5
+        else:
+            ok = ok and bool(np.all(gap <= 2e-2 + 2e-2 * np.abs(rf[live])))
+    del refs
+    err = max(errs)
     nb, h, bs, d = kp.shape
     n, p = tables.shape
     lens_h = lens.cpu().numpy().astype(np.int64)
@@ -313,8 +357,9 @@ def _paged_case(torch, card, label, q, kp, vp, tables, lens):
                                                     lens))
     eager = eager_ms(torch, lambda: K.paged_attention(q, kp, vp, tables,
                                                       lens))
+    few = 5 if heavy else 20
     plain = device_ms(torch, lambda: K.paged_attention_reference(
-        q, kp, vp, tables, lens), iters=20)
+        q, kp, vp, tables, lens), iters=few)
     # yardstick: SDPA over K/V already gathered (the gather is not timed)
     idx = tables.long().clamp(0, nb - 1)
     kg = kp[idx].permute(0, 2, 1, 3, 4).reshape(n, h, p * bs, d)
@@ -323,15 +368,55 @@ def _paged_case(torch, card, label, q, kp, vp, tables, lens):
             lens[:, None])[:, None, None, :]
     qd = q[:, :, None, :].to(kp.dtype)
     lib = device_ms(torch, lambda: F.scaled_dot_product_attention(
-        qd, kg, vg, attn_mask=mask), iters=20)
+        qd, kg, vg, attn_mask=mask), iters=few)
     del kg, vg
-    print('%s: max_abs_err %.3g (%s) %s; device ms: kernel %.5f, plain '
-          '%.5f, SDPA(gathered) %.5f, bound %.6f (%s); kernel eager %.5f ms '
-          '[%s]' % (label, err, tol, 'ok' if ok else 'MISMATCH', ms, plain,
-                    lib, lo, by, eager, card))
+    print('%s: max_abs_err %s vs the one-pass and the split plain version '
+          '(%s) %s; device ms: kernel %.5f, plain %.5f, SDPA(gathered) '
+          '%.5f, bound %.6f (%s); kernel eager %.5f ms [%s]'
+          % (label, ' / '.join('%.3g' % e for e in errs), tol,
+             'ok' if ok else 'MISMATCH', ms, plain, lib, lo, by, eager,
+             card))
     require(ok, '%s disagrees with its plain version' % label)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=lo,
                 bound_by=by, library_ms=lib, eager_ms=eager)
+
+
+def _paged_row_independence(torch, card, gen):
+    """A row's output must be a pure function of its q, pages and length:
+    the same row in a 16-row decode batch, alone in a 1-row call and
+    inside a 128-row broadcast-table call, bit for bit, fp32 and bf16
+    (the engine's concurrent-equals-alone and preempt-and-recompute
+    invariants rest on it)."""
+    from paddle_tpu_torch.ops.kernels import paged_attention as K
+    dev = torch.device('cuda', 0)
+    lens16 = [1, 33, 300, 2048, 257, 256, 576, 1000, 64, 65, 2047, 31, 512,
+              700, 1500, 2]
+    for dtype in (torch.float32, torch.bfloat16):
+        q, kp, vp, tables, lens = _paged_inputs(torch, gen, 16, lens16,
+                                                dtype, False)
+        full = K.paged_attention(q, kp, vp, tables, lens)
+        for i in (1, 2, 3, 4, 9, 13):
+            alone = K.paged_attention(q[i:i + 1], kp, vp, tables[i:i + 1],
+                                      lens[i:i + 1])
+            qs = torch.randn(128, 8, 64, generator=gen, device=dev)
+            qs[77] = q[i]
+            ls = torch.randint(1, 2049, (128,), generator=gen,
+                               device=dev).to(torch.int32)
+            ls[77] = lens[i]
+            row = tables[i].clone()
+            row[row >= kp.shape[0]] = 5   # other rows read past this one
+            many = K.paged_attention(qs, kp, vp, row.expand(128, 64), ls)
+            torch.cuda.synchronize()
+            require(torch.equal(alone[0], full[i]) and
+                    torch.equal(many[77], full[i]),
+                    'paged_attention %s: row %d (length %d) differs between '
+                    'a 16-row batch, a 1-row call and a 128-row broadcast '
+                    'call' % (str(dtype)[6:], i, lens16[i]))
+        del q, kp, vp
+        torch.cuda.empty_cache()
+    print('paged_attention row independence: 6 rows x 2 dtypes bit-equal in '
+          'a 16-row batch, alone and inside a 128-row broadcast-table call '
+          '[%s]' % card)
 
 
 def _live_pairs(b, tq, tk, lens, causal):
@@ -356,8 +441,28 @@ def _flash_case(torch, card, label, b, h, t, d, dtype, causal, lens, gen):
     q, k, v, do = (torch.randn(b, h, t, d, generator=gen, device=dev)
                    .to(dtype) for _ in range(4))
     kv = None if lens is None else torch.tensor(lens, device=dev)
+    fwd_count = K.flash_fwd_cuda
+    variant = 'that checkout\'s'
+    if not EARLIER:
+        before = (fwd_count.launches_mma, fwd_count.launches_simt)
     out, lse = K.flash_attention_fwd(q, k, v, kv, causal)
+    # a second run must give the same bits: a copy that was not waited for
+    # shows as rare wrong values, not as a fault
+    out2, lse2 = K.flash_attention_fwd(q, k, v, kv, causal)
+    torch.cuda.synchronize()
+    require(torch.equal(out, out2) and torch.equal(lse, lse2),
+            '%s: two runs of K2 differ' % label)
+    del out2, lse2
+    if not EARLIER:
+        moved = (fwd_count.launches_mma - before[0],
+                 fwd_count.launches_simt - before[1])
+        variant = 'tensor-core' if dtype == torch.bfloat16 else 'SIMT'
+        require(moved == ((2, 0) if dtype == torch.bfloat16 else (0, 2)),
+                '%s: K2 launched (tensor-core, SIMT) = %s, want the %s '
+                'kernel twice' % (label, moved, variant))
     ref_out, ref_lse = K.flash_attention_reference_fwd(q, k, v, kv, causal)
+    til_out, til_lse = (ref_out, ref_lse) if EARLIER else \
+        K.flash_attention_tiled_reference_fwd(q, k, v, kv, causal)
     grads = K.flash_attention_bwd(q, k, v, out, lse, do, kv, causal)
     ref_grads = K.flash_attention_reference_bwd(q, k, v, out, lse, do, kv,
                                                 causal)
@@ -382,8 +487,11 @@ def _flash_case(torch, card, label, b, h, t, d, dtype, causal, lens, gen):
         return float(diff.max()), ok
 
     fwd_err, fwd_ok = err_ok(out, ref_out)
-    lse_err = float((lse - ref_lse).abs().max())
-    fwd_ok = fwd_ok and lse_err <= 1e-4
+    til_err, til_ok = err_ok(out, til_out)
+    lse_err = max(float((lse - ref_lse).abs().max()),
+                  float((lse - til_lse).abs().max()))
+    fwd_ok = fwd_ok and til_ok and lse_err <= 1e-4
+    del til_out, til_lse
     bwd = [err_ok(g, w) for g, w in zip(grads, ref_grads)]
     bwd_err = max(e for e, _ in bwd)
     bwd_ok = all(ok for _, ok in bwd)
@@ -426,12 +534,13 @@ def _flash_case(torch, card, label, b, h, t, d, dtype, causal, lens, gen):
     times['bwd_lib'] = eager_ms(torch, lambda: torch.autograd.grad(
         lib_out, leaves, do, retain_graph=True), iters=50)
     del lib_out, leaves
-    print('%s: forward max_abs_err %.3g (lse %.3g), backward max_abs_err '
-          '%.3g (%s) %s; device ms: forward kernel %.5f, plain %.5f, '
-          'SDPA %.5f, bound %.6f (%s); backward kernels %.5f, plain %.5f, '
-          'SDPA autograd backward (eager) %.5f, bound %.6f (%s); eager ms: '
-          'forward %.5f, backward %.5f [%s]'
-          % (label, fwd_err, lse_err, bwd_err, tol,
+    print('%s: forward (%s kernel) max_abs_err %.3g vs the whole-row and '
+          '%.3g vs the tiled plain version (lse %.3g, limit 1e-4), backward '
+          'max_abs_err %.3g (%s) %s; device ms: forward kernel %.5f, plain '
+          '%.5f, SDPA %.5f, bound %.6f (%s); backward kernels %.5f, plain '
+          '%.5f, SDPA autograd backward (eager) %.5f, bound %.6f (%s); '
+          'eager ms: forward %.5f, backward %.5f [%s]'
+          % (label, variant, fwd_err, til_err, lse_err, bwd_err, tol,
              'ok' if fwd_ok and bwd_ok else 'MISMATCH', times['fwd_ms'],
              times['fwd_plain'], times['fwd_lib'], fwd_bound[0],
              fwd_bound[1], times['bwd_ms'], times['bwd_plain'],
@@ -439,7 +548,8 @@ def _flash_case(torch, card, label, b, h, t, d, dtype, causal, lens, gen):
              times['fwd_eager'], times['bwd_eager'], card))
     require(fwd_ok, '%s: K2 disagrees with its plain version' % label)
     require(bwd_ok, '%s: K3 disagrees with its plain version' % label)
-    fwd_rec = dict(max_abs_err=max(fwd_err, lse_err), ms=times['fwd_ms'],
+    fwd_rec = dict(max_abs_err=max(fwd_err, til_err, lse_err),
+                   ms=times['fwd_ms'],
                    plain_ms=times['fwd_plain'], bound_ms=fwd_bound[0],
                    bound_by=fwd_bound[1], library_ms=times['fwd_lib'],
                    eager_ms=times['fwd_eager'])
@@ -457,19 +567,21 @@ def phase_flash_kernels(torch, card):
     masked[-1] = 1
     cases = [
         ('flash_attention B=64 H=8 T=64 D=64 bf16 encoder (non-causal, '
-         'kv_len full)', 64, torch.bfloat16, False, [64] * 64),
-        ('flash_attention B=64 H=8 T=64 D=64 bf16 decoder (causal)', 64,
-         torch.bfloat16, True, None),
+         'kv_len full)', 64, 8, 64, 64, torch.bfloat16, False, [64] * 64),
+        ('flash_attention B=64 H=8 T=64 D=64 bf16 decoder (causal)', 64, 8,
+         64, 64, torch.bfloat16, True, None),
         ('flash_attention B=8 H=8 T=512 D=64 bf16 causal, kv_len %d-%d '
-         'and one row at 1' % (masked[:-1].min(), masked[:-1].max()), 8,
-         torch.bfloat16, True, masked.tolist()),
-        ('flash_attention B=64 H=8 T=64 D=64 float32 encoder', 64,
+         'and one row at 1' % (masked[:-1].min(), masked[:-1].max()), 8, 8,
+         512, 64, torch.bfloat16, True, masked.tolist()),
+        ('flash_attention B=4 H=4 T=200 D=128 bf16 (non-causal, kv_len '
+         '200, 131, 64, 1)', 4, 4, 200, 128, torch.bfloat16, False,
+         [200, 131, 64, 1]),
+        ('flash_attention B=64 H=8 T=64 D=64 float32 encoder', 64, 8, 64, 64,
          torch.float32, False, [64] * 64),
     ]
     res = []
-    for label, b, dtype, causal, lens in cases:
-        t = 512 if b == 8 else 64
-        res.append(_flash_case(torch, card, label, b, 8, t, 64, dtype,
+    for label, b, h, t, d, dtype, causal, lens in cases:
+        res.append(_flash_case(torch, card, label, b, h, t, d, dtype,
                                causal, lens, gen))
         torch.cuda.empty_cache()
     return res[0]
@@ -485,18 +597,30 @@ def phase_kernels(torch, card):
                    2048, 1, 1, 1]
     pa = {}
     for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
         args = _paged_inputs(torch, gen, 16, decode_lens, dtype, False,
                              empty=(13, 14, 15))
         pa[('decode', dtype)] = _paged_case(
             torch, card, 'paged_attention decode N=16 H=8 D=64 bs=32 P=64 '
-            'NB=4096 lens 1..2048 + 3 empty rows %s' % str(dtype)[6:],
-            *args)
+            'NB=4096 lens 1..2048 + 3 empty rows %s' % name, *args)
+        del args
+        args = _paged_inputs(torch, gen, 16, [2048] * 16, dtype, False)
+        pa[('full', dtype)] = _paged_case(
+            torch, card, 'paged_attention decode N=16, every row at 2048 '
+            'tokens (every split live) %s' % name, *args)
         del args
         args = _paged_inputs(torch, gen, 128, list(range(1, 129)), dtype,
                              True)
         pa[('prefill', dtype)] = _paged_case(
             torch, card, 'paged_attention prefill N=128 broadcast table '
-            'lens 1..128 %s' % str(dtype)[6:], *args)
+            'lens 1..128 %s' % name, *args)
+        del args
+        torch.cuda.empty_cache()
+        args = _paged_inputs(torch, gen, 512, list(range(1, 513)), dtype,
+                             True)
+        pa[('prefill512', dtype)] = _paged_case(
+            torch, card, 'paged_attention prefill N=512 broadcast table '
+            'lens 1..512 %s' % name, *args, heavy=True)
         del args
         torch.cuda.empty_cache()
     # the engine run's own decode shape: 16 live rows, lengths across the
@@ -507,6 +631,9 @@ def phase_kernels(torch, card):
         torch, card, 'paged_attention decode N=16 lens 64..576 (the engine '
         'run\'s range) float32', *args)
     del args
+    torch.cuda.empty_cache()
+    if not EARLIER:
+        _paged_row_independence(torch, card, gen)
     return ln[(16, 512, torch.float32)], pa['engine']
 
 
@@ -1010,6 +1137,8 @@ def phase_train(torch, pt, place, card, on_card, batch, seq, vocab, dims,
                                d_inner=dims.get('d_inner', 2048))
     layers = dims.get('n_layer', 6)
     want = {'flash_attention_fwd': 3 * layers * steps,
+            'flash_attention_fwd_mma': 3 * layers * steps,
+            'flash_attention_fwd_simt': 0,
             'flash_attention_bwd_dkv': 3 * layers * steps,
             'flash_attention_bwd_dq': 3 * layers * steps,
             'layer_norm': 5 * layers * steps}
@@ -1023,7 +1152,8 @@ def phase_train(torch, pt, place, card, on_card, batch, seq, vocab, dims,
              flops / (ms / 1e3) / BF16_FLOPS, BF16_FLOPS / 1e12, losses[0],
              losses[-1], card))
     print('train: launches in the %d timed steps: %s (want %s: per layer '
-          'and step, 3 of each flash kernel and 5 layer norms)'
+          'and step, 3 of each flash kernel, every forward through the '
+          'tensor-core kernel, and 5 layer norms)'
           % (steps, {k: launches[k] for k in want}, want))
     require(np.isfinite(losses).all(), 'training loss not finite: %s'
             % losses)
@@ -1071,6 +1201,7 @@ def phase_train_masked(torch, pt, place, card, on_card, batch, seq, vocab,
     if on_card:
         layers = dims.get('n_layer', 6)
         require(launches['flash_attention_fwd'] == 3 * layers * steps and
+                launches['flash_attention_fwd_mma'] == 3 * layers * steps and
                 launches['flash_attention_bwd_dq'] == 3 * layers * steps and
                 launches['layer_norm'] == 5 * layers * steps,
                 'masked training launch counts %s' % launches)
@@ -1301,13 +1432,24 @@ def main():
                          'steps with every slot busy, 5 Transformer and 5 '
                          'ResNet-50 training steps (torch.profiler) and '
                          'print where the time goes')
+    ap.add_argument('--kernels-only', action='store_true',
+                    help='stop after phase 3 (kernels against their plain '
+                         'versions, and their times); prints no verdict')
+    ap.add_argument('--port-from', metavar='DIR',
+                    help='with --kernels-only: import paddle_tpu_torch from '
+                         'DIR, an earlier checkout of this repository, to '
+                         'time its kernels at today\'s shapes')
     args = ap.parse_args()
     t_start = time.perf_counter()
     import torch
     if not args.cpu_rehearsal and not torch.cuda.is_available():
         fail('torch.cuda.is_available() is false: this smoke needs a CUDA '
              'card (use --cpu-rehearsal on the host)')
-    sys.path.insert(0, REPO)
+    if args.port_from and not args.kernels_only:
+        fail('--port-from needs --kernels-only')
+    global EARLIER
+    EARLIER = bool(args.port_from)
+    sys.path.insert(0, os.path.abspath(args.port_from) if EARLIER else REPO)
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.serving.decode import LMSpec
 
@@ -1335,9 +1477,15 @@ def main():
         return
 
     name, count, card = phase_device(torch)
-    phase_build()
+    phase_build(expect=()) if EARLIER else phase_build()
     ln, pa = phase_kernels(torch, card)
     fa_fwd, fa_bwd = phase_flash_kernels(torch, card)
+    if args.kernels_only:
+        print('kernels only (%s): K1, K4, K2 and K3 agree with their plain '
+              'versions; no verdict. total %.1f s'
+              % ('the port of %s' % args.port_from if EARLIER else
+                 'this checkout', time.perf_counter() - t_start))
+        return
     bn = phase_bn_kernels(torch, card)
     spec = LMSpec(vocab_size=32000, n_layer=12, n_head=8, d_key=64,
                   d_value=64, d_model=512, d_inner=2048)
@@ -1383,11 +1531,12 @@ def main():
         dict(name='paged_attention', route='cuda',
              source='paddle_tpu_torch/csrc/paged_attention.cu',
              replaces='paddle_tpu/ops/pallas/paged_attention.py:86',
-             launches=runs('paged_attention'), **pa),
+             launches=runs('paged_attention'), previous_ms=0.0651, **pa),
         dict(name='flash_attention_fwd', route='cuda',
              source='paddle_tpu_torch/csrc/flash_attention.cu',
              replaces='paddle_tpu/ops/pallas/flash_attention.py:141',
-             launches=runs('flash_attention_fwd'), **fa_fwd),
+             launches=runs('flash_attention_fwd'), previous_ms=0.0428,
+             **fa_fwd),
         dict(name='flash_attention_bwd', route='cuda',
              source='paddle_tpu_torch/csrc/flash_attention.cu',
              replaces='paddle_tpu/ops/pallas/flash_attention.py:278',

@@ -25,45 +25,57 @@
 // A row with no live key gives out 0 and lse -1e30, as the Pallas kernel
 // does (its denominator 0 becomes 1).
 //
-// Bound on an H100: at the training shapes (T = 64 or 512, D = 64) the work,
-// 4*Tq*Tk*D flops per head forward and 2.5 times that backward, is bound by
-// the tensor cores' rate when done in bf16; this first version runs every
-// product in fp32 on the CUDA cores (67 TFLOP/s peak), so it sits far above
-// that bound. Design: one 256-thread block (a 16 x 16 grid of threads) per
-// (b*h, 64-row tile); q, k, v, dO tiles are staged in shared memory as fp32
-// (rows padded by one float against bank conflicts); each thread owns a
-// 4 x 4 block of the 64 x 64 score tile (rows ty + 16i, columns tx + 16j)
-// and 4 x ceil(D/16) output accumulators in registers; row maxima and sums
-// are shuffle reductions over the 16 threads that share a row. Tensors are
+// Bound on an H100: at the training shapes (T = 64 or 512, D = 64) the
+// forward is bound by bytes (q, k, v read and out written once: 16.8 MB,
+// 5 us at B = 64, H = 8, T = 64), with the tensor cores' time for its
+// 4*Tq*Tk*D flops per head close behind at T = 512; the backward does 2.5
+// times the flops.
+//
+// Two forward kernels, chosen in launch_fwd from dtype, D, strides and base
+// pointers alone (ptt_flash_fwd_variant tells which):
+//
+// * flash_fwd_mma_kernel, bf16 with D a multiple of 16 up to 128 and every
+//   stride and base pointer a multiple of 8 elements: the training path.
+//   One 4-warp block per (b*h, 64-row tile); a warp owns 16 query rows. The
+//   Q tile and the K and V tiles stay bf16 in shared memory, copied with
+//   16-byte cp.async into rows padded by 16 bytes (flash_tiles.cuh), rows
+//   past the end zero-filled by the copy itself; K/V have two stages, so
+//   tile j + 1 loads while tile j is multiplied, and Q, K0 and V0 are all in
+//   flight at once. Both products run on the tensor cores as
+//   mma.sync.m16n8k16 (bf16 in, fp32 accumulate) from ldmatrix fragments,
+//   V through ldmatrix.trans. mma.sync was taken over wgmma: at T = 64..512
+//   and D = 64 the work is bound by bytes, which mma.sync reaches, and its
+//   fragments let one warp keep its 16 rows' scores in registers. The S
+//   fragment is scaled, masked and exponentiated in registers (in the log2
+//   domain with ex2.approx; a tile no mask touches skips the mask), row max
+//   and sum are shuffles over the 4 lanes of a row, and packing the fragment
+//   to bf16 as the A operand of p . v is the reference's p.astype(v.dtype);
+//   p never touches shared memory. The output tile is staged through the
+//   warp's own Q rows and stored as 16-byte rows.
+// * flash_fwd_kernel (SIMT, fp32 products on the CUDA cores): fp32 inputs
+//   (the parity path: TF32 would not hold 1e-4 against the host) and any
+//   bf16 input the tensor-core kernel's loads do not allow (odd head dims,
+//   misaligned views). One 256-thread block (16 x 16) per (b*h, 64-row
+//   tile); q, k, v tiles staged in shared memory as fp32; each thread owns a
+//   4 x 4 block of the 64 x 64 score tile and 4 x ceil(D/16) output
+//   accumulators; p goes through shared memory.
+//
+// The backward kernels (SIMT, as the second forward kernel) stage q, k, v
+// and dO as fp32 tiles and run every product on the CUDA cores. Tensors are
 // addressed through (b, h, t) strides with D contiguous, so the head-split
 // views of [B, T, H*D] activations need no copy.
 //
-// Left for later: mma.sync / wgmma on bf16 tiles, TMA loads into a ring of
-// shared-memory stages, keeping p in registers, and splitting long rows.
+// Still left: the backward on the tensor cores (mma.sync on bf16 tiles from
+// flash_tiles.cuh's loads and fragments, p and ds in registers), TMA loads,
+// and splitting long rows.
 
-#include "common.cuh"
+#include "flash_tiles.cuh"
 
 namespace ptt {
 
-constexpr int kFlashThreads = 256;  // 16 x 16
-constexpr int kTile = 64;           // query rows and key columns per tile
-constexpr int kLdP = kTile + 1;     // row stride of the p / ds tiles
-constexpr float kMasked = -1e30f;
-
-// [B, H, T, D] addressed through strides (elements); D is contiguous
-struct View {
-  long long sb, sh, st;
-};
-
-struct Dims {
-  int b, h, tq, tk, d, causal;
-  float scale;
-};
-
-__device__ __forceinline__ long long offset(const View& v, int bi, int hi,
-                                            int t) {
-  return bi * v.sb + hi * v.sh + t * v.st;
-}
+constexpr int kFlashThreads = 256;  // 16 x 16, the SIMT kernels
+constexpr int kMmaThreads = 128;    // 4 warps x 16 query rows
+constexpr int kLdP = kTile + 1;     // row stride of the SIMT p / ds tiles
 
 // rows [t0, t0 + kTile) of one (b, h) slice into dst[kTile][ld] as fp32;
 // rows at or past t_end are zero
@@ -91,19 +103,226 @@ __device__ __forceinline__ float row_sum(float v) {
   return v;
 }
 
-__device__ __forceinline__ int key_limit(const Dims& s, const int* kv_len,
-                                         int bi) {
-  int lim = s.tk;
-  if (kv_len != nullptr) lim = min(lim, max(kv_len[bi], 0));
-  return lim;
+// --------------------------------------- forward, bf16 on the tensor cores
+// smem (bf16, rows tile_ld(d) apart): Q [64], K [2][64], V [2][64]
+// DB: 16-wide blocks of the head dim the registers hold (d <= 16 * DB)
+template <int DB>
+__global__ void __launch_bounds__(kMmaThreads)
+    flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                         const __nv_bfloat16* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v,
+                         __nv_bfloat16* __restrict__ o,
+                         float* __restrict__ lse,
+                         const int* __restrict__ kv_len, View vq, View vk,
+                         View vv, View vo, Dims s) {
+  extern __shared__ __align__(16) unsigned char smem_mma[];
+  const int d = s.d;
+  const int ld = tile_ld(d);
+  const int nd = d / 16;
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_mma);
+  __nv_bfloat16* ks = qs + kTile * ld;      // two stages
+  __nv_bfloat16* vs = ks + 2 * kTile * ld;  // two stages
+  const int bh = blockIdx.x;
+  const int bi = bh / s.h;
+  const int hi = bh - bi * s.h;
+  const int q0 = blockIdx.y * kTile;
+  const int q_end = min(q0 + kTile, s.tq);
+  const int k_lim = key_limit(s, kv_len, bi);
+  const int k_end = s.causal ? min(k_lim, q_end) : k_lim;
+  const int ntiles = (k_end + kTile - 1) / kTile;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int gid = lane >> 2;  // row of the fragment (and gid + 8)
+  const int tig = lane & 3;   // column pair of the fragment
+  const int wrow = warp * 16;  // this warp's rows of the tile
+  const int rows[2] = {q0 + wrow + gid, q0 + wrow + gid + 8};
+  // keys [0, lims[hf]) are live for row rows[hf]
+  int lims[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf)
+    lims[hf] = rows[hf] >= s.tq ? 0
+               : s.causal       ? min(k_lim, rows[hf] + 1)
+                                : k_lim;
+  const float scale2 = s.scale * 1.4426950408889634f;  // log2(e)
+
+  float m[2] = {kMasked, kMasked};  // running max, log2 domain
+  float l[2] = {0.f, 0.f};
+  float oacc[2 * DB][4];
+#pragma unroll
+  for (int i = 0; i < 2 * DB; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) oacc[i][e] = 0.f;
+
+  if (ntiles > 0) {
+    const __nv_bfloat16* qsl = q + offset(vq, bi, hi, 0);
+    const __nv_bfloat16* ksl = k + offset(vk, bi, hi, 0);
+    const __nv_bfloat16* vsl = v + offset(vv, bi, hi, 0);
+    load_tile_async(qs, ld, qsl, vq.st, q0, s.tq, d, kMmaThreads);
+    load_tile_async(ks, ld, ksl, vk.st, 0, s.tk, d, kMmaThreads);
+    load_tile_async(vs, ld, vsl, vv.st, 0, s.tk, d, kMmaThreads);
+    cp_async_commit();
+    unsigned qf[DB][4];  // this warp's Q rows as A fragments, per 16 of d
+    for (int j = 0; j < ntiles; ++j) {
+      const int k0 = j * kTile;
+      if (j + 1 < ntiles) {
+        // the other stage was consumed before the barrier that ended the
+        // last iteration
+        const int st = (j + 1) & 1;
+        load_tile_async(ks + st * kTile * ld, ld, ksl, vk.st, k0 + kTile,
+                        s.tk, d, kMmaThreads);
+        load_tile_async(vs + st * kTile * ld, ld, vsl, vv.st, k0 + kTile,
+                        s.tk, d, kMmaThreads);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();  // every thread's copies of tile j have landed
+      if (j == 0) {
+#pragma unroll
+        for (int kb = 0; kb < DB; ++kb)
+          if (kb < nd)
+            ldmatrix_x4(qf[kb], qs + (wrow + (lane & 7) + ((lane >> 3) & 1) * 8) * ld +
+                                    kb * 16 + (lane >> 4) * 8);
+      }
+      const __nv_bfloat16* kt = ks + (j & 1) * kTile * ld;
+      const __nv_bfloat16* vt = vs + (j & 1) * kTile * ld;
+
+      // s = q . k^T: 16 rows x 64 keys a warp, 8 blocks of 8 keys
+      float sacc[8][4];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sacc[i][e] = 0.f;
+#pragma unroll
+      for (int kb = 0; kb < DB; ++kb) {
+        if (kb < nd) {
+#pragma unroll
+          for (int np = 0; np < 4; ++np) {
+            // blocks: (keys 16 np.., d lo), (same keys, d hi),
+            // (keys 16 np + 8.., d lo), (those keys, d hi)
+            unsigned bf[4];
+            ldmatrix_x4(bf, kt + (np * 16 + (lane & 7) + (lane >> 4) * 8) * ld +
+                                kb * 16 + ((lane >> 3) & 1) * 8);
+            mma_bf16(sacc[2 * np], qf[kb], bf[0], bf[1]);
+            mma_bf16(sacc[2 * np + 1], qf[kb], bf[2], bf[3]);
+          }
+        }
+      }
+
+      // scale, mask, online softmax: all in the fragment's registers, in
+      // the log2 domain (t = s * scale * log2(e), p = 2^(t - m)). A tile
+      // that no mask touches for this warp's rows skips the mask.
+      const bool full = k0 + kTile <= k_lim && q0 + wrow + 16 <= s.tq &&
+                        (!s.causal || k0 + kTile - 1 <= q0 + wrow);
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int lim = lims[hf];
+        float mx = kMasked;
+#pragma unroll
+        for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = k0 + nb * 8 + tig * 2 + e;
+            const float tv = full || col < lim
+                                 ? sacc[nb][hf * 2 + e] * scale2
+                                 : kMasked;
+            sacc[nb][hf * 2 + e] = tv;
+            mx = fmaxf(mx, tv);
+          }
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[hf], mx);
+        const float alpha = fast_exp2(m[hf] - m_new);
+        float rs = 0.f;
+#pragma unroll
+        for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = k0 + nb * 8 + tig * 2 + e;
+            const float pr = full || col < lim
+                                 ? fast_exp2(sacc[nb][hf * 2 + e] - m_new)
+                                 : 0.f;
+            rs += pr;
+            sacc[nb][hf * 2 + e] = pr;
+          }
+        rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+        rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+        l[hf] = alpha * l[hf] + rs;
+        m[hf] = m_new;
+#pragma unroll
+        for (int i = 0; i < 2 * DB; ++i) {
+          oacc[i][hf * 2] *= alpha;
+          oacc[i][hf * 2 + 1] *= alpha;
+        }
+      }
+
+      // out += p . v, p packed to bf16 as the A operand; key blocks with
+      // no live key of this tile are left out
+      const int kn = min(kTile, k_end - k0);
+#pragma unroll
+      for (int kb = 0; kb < 4; ++kb) {
+        if (kb * 16 < kn) {
+          unsigned pf[4];
+          pf[0] = pack_bf16(sacc[2 * kb][0], sacc[2 * kb][1]);
+          pf[1] = pack_bf16(sacc[2 * kb][2], sacc[2 * kb][3]);
+          pf[2] = pack_bf16(sacc[2 * kb + 1][0], sacc[2 * kb + 1][1]);
+          pf[3] = pack_bf16(sacc[2 * kb + 1][2], sacc[2 * kb + 1][3]);
+#pragma unroll
+          for (int dp = 0; dp < DB; ++dp) {
+            if (dp < nd) {
+              // transposed blocks: (keys lo, d 16 dp..), (keys hi, same d),
+              // (keys lo, d 16 dp + 8..), (keys hi, that d)
+              unsigned bf[4];
+              ldmatrix_x4_trans(
+                  bf, vt + (kb * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld +
+                          dp * 16 + (lane >> 4) * 8);
+              mma_bf16(oacc[2 * dp], pf, bf[0], bf[1]);
+              mma_bf16(oacc[2 * dp + 1], pf, bf[2], bf[3]);
+            }
+          }
+        }
+      }
+      __syncthreads();  // this stage may be overwritten two tiles on
+    }
+  }
+
+  // out = acc / l through this warp's own Q rows (their fragments are in
+  // registers), then 16-byte row stores
+  float denom[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) denom[hf] = l[hf] == 0.f ? 1.f : l[hf];
+#pragma unroll
+  for (int i = 0; i < 2 * DB; ++i) {
+    if (i < 2 * nd) {
+      const int col = i * 8 + tig * 2;
+      *reinterpret_cast<unsigned*>(qs + (wrow + gid) * ld + col) =
+          pack_bf16(oacc[i][0] / denom[0], oacc[i][1] / denom[0]);
+      *reinterpret_cast<unsigned*>(qs + (wrow + gid + 8) * ld + col) =
+          pack_bf16(oacc[i][2] / denom[1], oacc[i][3] / denom[1]);
+    }
+  }
+  __syncwarp();
+  const int chunks = d / 8;
+  for (int i = lane; i < 16 * chunks; i += 32) {
+    const int r = i / chunks;
+    const int c = i - r * chunks;
+    const int row = q0 + wrow + r;
+    if (row < s.tq)
+      *reinterpret_cast<uint4*>(o + offset(vo, bi, hi, row) + c * 8) =
+          *reinterpret_cast<const uint4*>(qs + (wrow + r) * ld + c * 8);
+  }
+  if (tig == 0) {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+      if (rows[hf] < s.tq)
+        lse[(long long)bh * s.tq + rows[hf]] =
+            l[hf] == 0.f ? kMasked
+                         : m[hf] * 0.6931471805599453f + logf(l[hf]);
+  }
 }
 
-__device__ __forceinline__ bool live(const Dims& s, int row, int col,
-                                     int k_lim) {
-  return row < s.tq && col < k_lim && (!s.causal || col <= row);
-}
-
-// ------------------------------------------------------------- forward
+// ------------------------------------------- forward, SIMT (fp32 products)
 // smem: Q [64][d+1], K [64][d+1], V [64][d], P [64][65]
 template <typename T, int NJ>
 __global__ void __launch_bounds__(kFlashThreads)
@@ -498,6 +717,46 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
+// The tensor-core forward takes bf16 with a head dim that is a multiple of
+// 16 up to 128 and, for its 16-byte copies and stores, strides and base
+// pointers (q, k, v, out) that are multiples of 8 elements.
+inline bool use_mma(int dtype, int d, const long long* strides,
+                    const void* q, const void* k, const void* v,
+                    const void* o) {
+  if (dtype != kBFloat16 || d < 16 || d > 128 || d % 16 != 0) return false;
+  for (int i = 0; i < 12; ++i)
+    if (strides[i] % 8 != 0) return false;
+  const void* ptrs[4] = {q, k, v, o};
+  for (const void* ptr : ptrs)
+    if (reinterpret_cast<size_t>(ptr) % 16 != 0) return false;
+  return true;
+}
+
+inline size_t mma_smem(int d) {
+  return sizeof(__nv_bfloat16) * (size_t)(5 * kTile * tile_ld(d));
+}
+
+template <int DB>
+cudaError_t launch_fwd_mma(const void* q, const void* k, const void* v,
+                           void* o, void* lse, const void* kv_len,
+                           const long long* strides, const Dims& s,
+                           cudaStream_t stream) {
+  static bool done = false;
+  auto kernel = flash_fwd_mma_kernel<DB>;
+  cudaError_t err = allow_smem(kernel, mma_smem(16 * DB), &done);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(s.b * s.h, (s.tq + kTile - 1) / kTile);
+  if (grid.x == 0 || grid.y == 0) return cudaSuccess;
+  kernel<<<grid, kMmaThreads, mma_smem(s.d), stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+      static_cast<float*>(lse), static_cast<const int*>(kv_len),
+      view_at(strides, 0), view_at(strides, 1), view_at(strides, 2),
+      view_at(strides, 3), s);
+  return cudaGetLastError();
+}
+
 template <typename T, int NJ>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
@@ -576,7 +835,23 @@ extern "C" int ptt_flash_fwd(const void* q, const void* k, const void* v,
                              int tk, int d, int causal, float scale,
                              int dtype, void* stream) {
   const ptt::Dims s{b, h, tq, tk, d, causal, scale};
+  if (ptt::valid(s, dtype) && ptt::use_mma(dtype, d, strides, q, k, v, o)) {
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    return (int)(d <= 64 ? ptt::launch_fwd_mma<4>(q, k, v, o, lse, kv_len,
+                                                  strides, s, st)
+                         : ptt::launch_fwd_mma<8>(q, k, v, o, lse, kv_len,
+                                                  strides, s, st));
+  }
   PTT_DISPATCH(launch_fwd, q, k, v, o, lse, kv_len, strides);
+}
+
+// Which forward kernel ptt_flash_fwd launches for these arguments: 1 the
+// tensor-core kernel, 0 the SIMT kernel. `strides` holds q, k, v and out.
+extern "C" int ptt_flash_fwd_variant(const void* q, const void* k,
+                                     const void* v, const void* o,
+                                     const long long* strides, int d,
+                                     int dtype) {
+  return ptt::use_mma(dtype, d, strides, q, k, v, o) ? 1 : 0;
 }
 
 extern "C" int ptt_flash_bwd_dkv(const void* q, const void* k, const void* v,
@@ -601,9 +876,10 @@ extern "C" int ptt_flash_bwd_dq(const void* q, const void* k, const void* v,
   PTT_DISPATCH(launch_dq, q, k, v, dout, lse, delta, kv_len, dq, strides);
 }
 
-// dynamic shared memory, bytes, of kernel 0 (forward), 1 (dK/dV) or 2 (dQ)
-// at head dim d
+// dynamic shared memory, bytes, of kernel 0 (SIMT forward), 1 (dK/dV),
+// 2 (dQ) or 3 (tensor-core forward) at head dim d
 extern "C" int ptt_flash_smem_bytes(int kernel, int d) {
+  if (kernel == 3) return static_cast<int>(ptt::mma_smem(d));
   if (kernel == 0) return static_cast<int>(ptt::fwd_smem(d));
   if (kernel == 1) return static_cast<int>(ptt::dkv_smem(d));
   return static_cast<int>(ptt::dq_smem(d));

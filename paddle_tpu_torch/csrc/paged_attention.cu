@@ -7,140 +7,393 @@
 // Bound on an H100: bytes. Each live K/V element is read once and used for
 // two flops (one multiply-add against q or p), so the kernel sits far below
 // the card's compute roof. At the decode shape (16 rows, 8 heads, head dim
-// 64, fp32 pages, 576 live tokens a row) one call must read
-// 16*8*576*128*4 B = 37.7 MB, about 11 us at 3.35 TB/s.
+// 64, fp32 pages, 64..576 live tokens a row) one call must read ~21 MB,
+// about 6.5 us at 3.35 TB/s. What decides its time is therefore how many
+// 16-byte loads the whole card keeps in flight, and that no long row runs
+// as one serial chain.
 //
-// Design: one 128-thread block per (row, head); grid (H, N). The block
-// reads its own length and table row (the row stride may be 0, so the
-// prefill's one table broadcast to all S rows needs no copy), clamps each
-// table entry to [0, NB-1] as the reference does, and walks pages
-// 0 .. min(ceil(len/bs), P)-1 only: pages at or past len are never read.
-// Each page's bs x D K tile (rows padded by one float against bank
-// conflicts) and bs x Dv V tile are staged in shared memory as fp32; thread
-// j < bs scores key j, and the block runs the fp32 online softmax of the
-// Pallas kernel: masked columns get -1e9, p = exp(s - m) is rounded to the
-// page dtype before p.v (the reference's p.astype(v.dtype)), the running
-// sum and the accumulator stay fp32, and a row that read no page divides
-// by 1. The output is fp32 (q's dtype). Scale is applied to q, as in
-// paged_attention_reference.
+// Design (two kernels on the caller's stream):
 //
-// Left for later: overlapping the next page's load with this page's math
-// (cp.async or TMA with an mbarrier ring), 16-byte vector loads, splitting
-// a long row across blocks (a second reduction pass), several heads per
-// block to share the table walk, and wgmma for the prefill's many rows.
+// 1. paged_split_kernel, grid (H, N, Z), 4 warps a block. Block z of
+//    (row, head) takes the fixed chunk of kChunkTokens = 256 tokens
+//    (chunk_pages(bs) pages: 8 at bs 32) that starts at page z * chunk; a
+//    block whose chunk starts at or past ceil(len / bs) exits at once and
+//    writes nothing. The chunk is a constant of the kernel, never a function
+//    of N, H or the grid, so a row's result is a pure function of its q,
+//    pages and length: the same bits in a 16-row decode step and in a
+//    512-row prefill bucket.
+//    Inside a block a warp owns a page at a time (pages first + warp,
+//    + 4, ...); there is no block-wide barrier in the page loop. A key row
+//    of D elements is split over `lanes` = pow2ceil(max(D, Dv) * itemsize /
+//    16) lanes, 16 bytes each, so one 16-byte load of a warp covers
+//    32 / lanes keys (bf16, D = 64: 8 lanes a key, 4 keys; fp32: 16 lanes,
+//    2 keys). A page is walked in tiles of kTileLoads = 8 such loads. The
+//    partial dot products are finished with __shfl_xor_sync over the lanes
+//    of a key, the tile's max and sum over the key groups the same way; each
+//    warp keeps its running m, l and its 16-byte slice of acc in registers.
+//    Loads in flight: plain unrolled 16-byte register loads (ld.global.nc),
+//    started a tile ahead: the next tile's K loads go out as soon as this
+//    tile's scores are done and its V loads right after this tile's p.v, so
+//    each warp always has 4-8 KB on the way while it does its math, and the
+//    16 warps an SM holds at ~120 registers a thread cover the rest of the
+//    latency (16 loads a tile left room for 12 warps and was slower at
+//    every shape). Registers were taken over a cp.async ring because a warp
+//    touches every loaded byte exactly once, from one lane: shared memory
+//    would only add a store, a load and a wait per element. Each warp reads
+//    its own table entries, clamped to [0, NB-1] (a row stride of 0 serves
+//    the prefill's one broadcast table); pages at or past len are never
+//    read, nor are the keys of the last page past len.
+//    The warps of a block merge once, at the end, through shared memory, in
+//    warp order, and the block writes its partial (acc[Dv], m, l) in fp32
+//    to workspace[row, head, z, :].
+// 2. paged_merge_kernel, grid (H, N): works out the number of live splits
+//    from len itself, reads only those, combines them in split order
+//    (M = max m_z; l = sum l_z exp(m_z - M); acc likewise) and writes
+//    acc / l (l = 0 -> 1: a row with no live split gives 0) as fp32.
+//    A second kernel rather than "last block merges": no counter to keep
+//    zero, no fence, valid under CUDA-graph replay as it stands.
+//
+// Numerics are the Pallas kernel's: scale applied to q; masked columns at
+// -1e9 with p = 0; fp32 m, l and acc; p rounded to the page dtype before
+// p.v; fp32 output. No atomics on floats anywhere.
+//
+// Still left: several heads a block to share the table walk, the tensor
+// cores for the prefill's many rows against one table, and fusing the merge
+// into the split kernel's tail for rows with a single live split.
 
 #include "common.cuh"
 
 namespace ptt {
 
-constexpr int kPagedThreads = 128;
+constexpr int kPagedWarps = 4;
+constexpr int kPagedThreads = 32 * kPagedWarps;
+constexpr int kChunkTokens = 256;  // tokens a split block covers
+constexpr int kTileLoads = 8;      // 16-byte loads of a lane per K or V tile
+constexpr int kMaxDv = 128;
+constexpr float kPagedMasked = -1e9f;
+
+__host__ __device__ inline int chunk_pages(int bs) {
+  const int c = kChunkTokens / bs;
+  return c < 1 ? 1 : c;
+}
+
+// the 16 bytes one lane loads, as fp32 values
+template <typename T>
+struct Vec16;
+template <>
+struct Vec16<float> {
+  static constexpr int E = 4;
+  static __device__ __forceinline__ void unpack(const uint4& u, float* f) {
+    f[0] = __uint_as_float(u.x);
+    f[1] = __uint_as_float(u.y);
+    f[2] = __uint_as_float(u.z);
+    f[3] = __uint_as_float(u.w);
+  }
+};
+template <>
+struct Vec16<__nv_bfloat16> {
+  static constexpr int E = 8;
+  // a bf16 is the top half of the fp32 of the same value
+  static __device__ __forceinline__ void unpack(const uint4& u, float* f) {
+    f[0] = __uint_as_float(u.x << 16);
+    f[1] = __uint_as_float(u.x & 0xffff0000u);
+    f[2] = __uint_as_float(u.y << 16);
+    f[3] = __uint_as_float(u.y & 0xffff0000u);
+    f[4] = __uint_as_float(u.z << 16);
+    f[5] = __uint_as_float(u.z & 0xffff0000u);
+    f[6] = __uint_as_float(u.w << 16);
+    f[7] = __uint_as_float(u.w & 0xffff0000u);
+  }
+};
+
+// One tile of one page into registers: load i covers keys off + i * kpi + g
+// (g the lane's key group), elements [j * E, j * E + E) of each. Keys at or
+// past `live` (the page's live keys) and lanes past the row's width load
+// nothing and hold zeros.
+template <typename T>
+__device__ __forceinline__ void load_tile_regs(uint4 (&buf)[kTileLoads],
+                                               const T* __restrict__ page,
+                                               int width, int off, int live,
+                                               int kpi, int g, int j) {
+  constexpr int E = Vec16<T>::E;
+  const bool lane_on = j * E < width;
+#pragma unroll
+  for (int i = 0; i < kTileLoads; ++i) {
+    const int key = off + i * kpi + g;
+    if (lane_on && key < live) {
+      buf[i] = __ldg(reinterpret_cast<const uint4*>(
+          page + (size_t)key * width + j * E));
+    } else {
+      buf[i] = make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+}
 
 template <typename T>
 __global__ void __launch_bounds__(kPagedThreads)
-    paged_attention_kernel(const float* __restrict__ q,
-                           const T* __restrict__ k_pages,
-                           const T* __restrict__ v_pages,
-                           const int* __restrict__ tables,
-                           long long table_stride,
-                           const int* __restrict__ lens,
-                           float* __restrict__ out, int h, int nb, int bs,
-                           int d, int dv, int p, float scale) {
-  extern __shared__ float smem[];
+    paged_split_kernel(const float* __restrict__ q,
+                       const T* __restrict__ k_pages,
+                       const T* __restrict__ v_pages,
+                       const int* __restrict__ tables, long long table_stride,
+                       const int* __restrict__ lens, float* __restrict__ ws,
+                       int h, int nb, int bs, int d, int dv, int p, int lanes,
+                       float scale) {
+  constexpr int E = Vec16<T>::E;
+  __shared__ float sm_m[kPagedWarps];
+  __shared__ float sm_l[kPagedWarps];
+  __shared__ float sm_acc[kPagedWarps][kMaxDv];
   const int head = blockIdx.x;
   const int row = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int ks_stride = d + 1;
-  float* qs = smem;                 // [d]
-  float* ks = qs + d;               // [bs, d + 1]
-  float* vs = ks + bs * ks_stride;  // [bs, dv]
-  float* ps = vs + bs * dv;         // [bs]
-
-  const size_t qrow = (size_t)row * h + head;
-  for (int i = tid; i < d; i += kPagedThreads) qs[i] = q[qrow * d + i] * scale;
-
+  const int z = blockIdx.z;
   const int len = lens[row];
   int npages = len > 0 ? (len + bs - 1) / bs : 0;
   if (npages > p) npages = p;
+  const int cpages = chunk_pages(bs);
+  const int first = z * cpages;
+  if (first >= npages) return;  // dead split: nothing written, nothing read
+  const int last = min(first + cpages, npages);
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane / lanes;        // key group of this lane
+  const int j = lane & (lanes - 1);  // 16-byte slice of the key row
+  const int kpi = 32 / lanes;        // keys one warp-wide load covers
+  const int tk = kTileLoads * kpi;   // keys a tile covers
+  const int tpp = (bs + tk - 1) / tk;
+
+  // this warp's pages are my_first, my_first + kPagedWarps, ... < last;
+  // its items are their tiles in order, up to the last live key
+  const int my_first = first + warp;
+  const int my_pages =
+      my_first < last ? (last - my_first + kPagedWarps - 1) / kPagedWarps : 0;
+  int n_items = 0;
+  if (my_pages > 0) {
+    const int pl = my_first + (my_pages - 1) * kPagedWarps;
+    const int live = min(bs, len - pl * bs);
+    n_items = (my_pages - 1) * tpp + (live + tk - 1) / tk;
+  }
+
+  const size_t qrow = (size_t)row * h + head;
+  float qs[E];
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const int c = j * E + e;
+    qs[e] = c < d ? q[qrow * d + c] * scale : 0.f;
+  }
   const int* trow = tables + (size_t)row * table_stride;
 
-  float m = -1e9f;  // running max
-  float l = 0.f;    // running sum of exp
-  float acc = 0.f;  // output element tid (tid < dv)
-  for (int pi = 0; pi < npages; ++pi) {
-    int phys = trow[pi];
+  float m = kPagedMasked;  // running max
+  float l = 0.f;           // running sum of exp
+  float acc[E];            // this lane's slice of the output, its key group
+#pragma unroll
+  for (int e = 0; e < E; ++e) acc[e] = 0.f;
+
+  uint4 kbuf[kTileLoads], vbuf[kTileLoads];
+  int page = my_first;
+  int tile = 0;  // tile of the page
+  int phys = 0;
+  if (n_items > 0) {
+    phys = trow[page];
     phys = phys < 0 ? 0 : (phys > nb - 1 ? nb - 1 : phys);
-    const size_t tile = ((size_t)phys * h + head) * bs;
-    const T* kt = k_pages + tile * d;
-    const T* vt = v_pages + tile * dv;
-    __syncthreads();  // last page's tiles and ps consumed; qs visible
-    for (int i = tid; i < bs * d; i += kPagedThreads)
-      ks[(i / d) * ks_stride + i % d] = to_f32(kt[i]);
-    for (int i = tid; i < bs * dv; i += kPagedThreads) vs[i] = to_f32(vt[i]);
-    __syncthreads();
-    if (tid < bs) {
-      const float* kr = ks + tid * ks_stride;
-      float s = 0.f;
-      for (int c = 0; c < d; ++c) s += qs[c] * kr[c];
-      ps[tid] = pi * bs + tid < len ? s : -1e9f;
-    }
-    __syncthreads();
-    float mcur = -1e9f;
-    for (int j = 0; j < bs; ++j) mcur = fmaxf(mcur, ps[j]);
-    const float mnext = fmaxf(m, mcur);
-    const float alpha = expf(m - mnext);
-    __syncthreads();  // every thread has read the raw scores
-    if (tid < bs) ps[tid] = expf(ps[tid] - mnext);
-    __syncthreads();
-    float lcur = 0.f;
-    float pv = 0.f;
-    for (int j = 0; j < bs; ++j) {
-      lcur += ps[j];
-      if (tid < dv) pv += round_as<T>(ps[j]) * vs[j * dv + tid];
-    }
-    l = alpha * l + lcur;
-    acc = acc * alpha + pv;
-    m = mnext;
+    const size_t base = ((size_t)phys * h + head) * bs;
+    const int live = min(bs, len - page * bs);
+    load_tile_regs<T>(kbuf, k_pages + base * d, d, 0, live, kpi, g, j);
+    load_tile_regs<T>(vbuf, v_pages + base * dv, dv, 0, live, kpi, g, j);
   }
-  if (tid < dv) out[qrow * dv + tid] = acc / (l == 0.f ? 1.f : l);
+  for (int t = 0; t < n_items; ++t) {
+    const int off = tile * tk;
+    const int live = min(bs, len - page * bs);
+    // the next item, and its table entry, before this tile's math
+    const bool more = t + 1 < n_items;
+    int npage = page, ntile = tile + 1, nphys = phys;
+    if (ntile == tpp) {
+      ntile = 0;
+      npage = page + kPagedWarps;
+      if (more) {
+        nphys = trow[npage];
+        nphys = nphys < 0 ? 0 : (nphys > nb - 1 ? nb - 1 : nphys);
+      }
+    }
+    const size_t nbase = ((size_t)nphys * h + head) * bs;
+    const int nlive = min(bs, len - npage * bs);
+
+    // scores of this tile: the lanes of a key finish its dot product
+    float sc[kTileLoads];
+    float mx = kPagedMasked;
+#pragma unroll
+    for (int i = 0; i < kTileLoads; ++i) {
+      float kf[E];
+      Vec16<T>::unpack(kbuf[i], kf);
+      float s = 0.f;
+#pragma unroll
+      for (int e = 0; e < E; ++e) s = fmaf(qs[e], kf[e], s);
+      for (int o = lanes >> 1; o > 0; o >>= 1)
+        s += __shfl_xor_sync(0xffffffffu, s, o);
+      sc[i] = off + i * kpi + g < live ? s : kPagedMasked;
+      mx = fmaxf(mx, sc[i]);
+    }
+    if (more)
+      load_tile_regs<T>(kbuf, k_pages + nbase * d, d, ntile * tk, nlive, kpi,
+                        g, j);
+    for (int o = 16; o >= lanes; o >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    const float mnext = fmaxf(m, mx);
+    const float alpha = expf(m - mnext);
+    float lsum = 0.f;
+#pragma unroll
+    for (int i = 0; i < kTileLoads; ++i) {
+      const float pr =
+          off + i * kpi + g < live ? expf(sc[i] - mnext) : 0.f;
+      lsum += pr;
+      sc[i] = round_as<T>(pr);
+    }
+    // every lane of a key holds its p: count each key once
+    for (int o = 16; o >= lanes; o >>= 1)
+      lsum += __shfl_xor_sync(0xffffffffu, lsum, o);
+    l = alpha * l + lsum;
+    m = mnext;
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[e] *= alpha;
+#pragma unroll
+    for (int i = 0; i < kTileLoads; ++i) {
+      float vf[E];
+      Vec16<T>::unpack(vbuf[i], vf);
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc[e] = fmaf(sc[i], vf[e], acc[e]);
+    }
+    if (more)
+      load_tile_regs<T>(vbuf, v_pages + nbase * dv, dv, ntile * tk, nlive,
+                        kpi, g, j);
+    page = npage;
+    tile = ntile;
+    phys = nphys;
+  }
+
+  // the key groups of a warp each hold a part of acc: add them up
+#pragma unroll
+  for (int e = 0; e < E; ++e)
+    for (int o = 16; o >= lanes; o >>= 1)
+      acc[e] += __shfl_xor_sync(0xffffffffu, acc[e], o);
+  if (lane == 0) {
+    sm_m[warp] = m;
+    sm_l[warp] = l;
+  }
+  if (g == 0) {
+#pragma unroll
+    for (int e = 0; e < E; ++e)
+      if (j * E + e < dv) sm_acc[warp][j * E + e] = acc[e];
+  }
+  __syncthreads();
+
+  // the block's partial, warps merged in warp order (a warp that had no
+  // page holds m = -1e9, l = 0 and weighs exp(-1e9 - M) = 0)
+  const int tid = threadIdx.x;
+  if (tid < dv) {
+    float mm = sm_m[0];
+#pragma unroll
+    for (int w = 1; w < kPagedWarps; ++w) mm = fmaxf(mm, sm_m[w]);
+    float ll = 0.f, aa = 0.f;
+#pragma unroll
+    for (int w = 0; w < kPagedWarps; ++w) {
+      const float f = expf(sm_m[w] - mm);
+      ll += sm_l[w] * f;
+      aa += sm_acc[w][tid] * f;
+    }
+    float* part = ws + ((qrow * gridDim.z) + z) * (size_t)(dv + 2);
+    part[tid] = aa;
+    if (tid == 0) {
+      part[dv] = mm;
+      part[dv + 1] = ll;
+    }
+  }
+}
+
+__global__ void paged_merge_kernel(const float* __restrict__ ws,
+                                   const int* __restrict__ lens,
+                                   float* __restrict__ out, int h, int bs,
+                                   int dv, int p, int nz) {
+  const int head = blockIdx.x;
+  const int row = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int len = lens[row];
+  int npages = len > 0 ? (len + bs - 1) / bs : 0;
+  if (npages > p) npages = p;
+  const int cpages = chunk_pages(bs);
+  const int nlive = min(nz, (npages + cpages - 1) / cpages);
+  const size_t qrow = (size_t)row * h + head;
+  const float* part = ws + qrow * nz * (size_t)(dv + 2);
+  float mm = kPagedMasked;
+  for (int z = 0; z < nlive; ++z)
+    mm = fmaxf(mm, part[(size_t)z * (dv + 2) + dv]);
+  float ll = 0.f, aa = 0.f;
+  for (int z = 0; z < nlive; ++z) {
+    const float* pz = part + (size_t)z * (dv + 2);
+    const float f = expf(pz[dv] - mm);
+    ll += pz[dv + 1] * f;
+    if (tid < dv) aa += pz[tid] * f;
+  }
+  if (tid < dv) out[qrow * dv + tid] = aa / (ll == 0.f ? 1.f : ll);
+}
+
+inline int pow2_ceil(int v) {
+  int r = 1;
+  while (r < v) r <<= 1;
+  return r;
 }
 
 }  // namespace ptt
 
 // q: [n, h, d] fp32; k_pages: [nb, h, bs, d], v_pages: [nb, h, bs, dv], fp32
-// (dtype 0) or bf16 (dtype 1); tables: int32, row r at tables +
-// r * table_stride, p entries; lens: [n] int32; out: [n, h, dv] fp32. The
-// caller guarantees bs <= 128, dv <= 128 and the shared-memory size
-// ptt_paged_attention_smem_bytes() <= 48 KB. Returns cudaGetLastError().
-extern "C" int ptt_paged_attention_smem_bytes(int bs, int d, int dv) {
-  return static_cast<int>(sizeof(float)) * (d + bs * (d + 1) + bs * dv + bs);
-}
-
+// (dtype 0) or bf16 (dtype 1), 16-byte aligned, d and dv rows a multiple of
+// 16 bytes and at most 512 bytes; tables: int32, row r at tables +
+// r * table_stride, p entries; lens: [n] int32; workspace: fp32
+// [n, h, nz, dv + 2] with nz = ceil(p / chunk_pages(bs)) (the wrapper sizes
+// it with the same constant; another nz is refused), never read where not
+// written; out: [n, h, dv] fp32. The caller guarantees dv <= 128 and
+// n <= 65535. Returns cudaGetLastError(), or cudaErrorInvalidValue for
+// what the kernel does not take.
 extern "C" int ptt_paged_attention(const void* q, const void* k_pages,
                                    const void* v_pages, const void* tables,
                                    long long table_stride, const void* lens,
-                                   void* out, int n, int h, int nb, int bs,
-                                   int d, int dv, int p, float scale,
-                                   int dtype, void* stream) {
+                                   void* workspace, void* out, int n, int h,
+                                   int nb, int bs, int d, int dv, int p,
+                                   int nz, float scale, int dtype,
+                                   void* stream) {
+  if (dtype != ptt::kFloat32 && dtype != ptt::kBFloat16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int item = dtype == ptt::kFloat32 ? 4 : 2;
+  const int wide = (d > dv ? d : dv) * item;
+  if (n < 1 || h < 1 || nb < 1 || bs < 1 || d < 1 || dv < 1 || p < 1 ||
+      dv > ptt::kMaxDv || n > 65535 || (d * item) % 16 != 0 ||
+      (dv * item) % 16 != 0 || wide > 512 ||
+      reinterpret_cast<size_t>(k_pages) % 16 != 0 ||
+      reinterpret_cast<size_t>(v_pages) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int cpages = ptt::chunk_pages(bs);
+  if (nz != (p + cpages - 1) / cpages || nz > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int lanes = ptt::pow2_ceil(wide / 16);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(h, n);
-  const size_t smem = ptt_paged_attention_smem_bytes(bs, d, dv);
+  const dim3 grid(h, n, nz);
   const float* qf = static_cast<const float*>(q);
   const int* tb = static_cast<const int*>(tables);
   const int* ln = static_cast<const int*>(lens);
-  float* o = static_cast<float*>(out);
+  float* ws = static_cast<float*>(workspace);
   if (dtype == ptt::kFloat32) {
-    ptt::paged_attention_kernel<float><<<grid, ptt::kPagedThreads, smem, s>>>(
+    ptt::paged_split_kernel<float><<<grid, ptt::kPagedThreads, 0, s>>>(
         qf, static_cast<const float*>(k_pages),
-        static_cast<const float*>(v_pages), tb, table_stride, ln, o, h, nb, bs,
-        d, dv, p, scale);
-  } else if (dtype == ptt::kBFloat16) {
-    ptt::paged_attention_kernel<__nv_bfloat16>
-        <<<grid, ptt::kPagedThreads, smem, s>>>(
+        static_cast<const float*>(v_pages), tb, table_stride, ln, ws, h, nb,
+        bs, d, dv, p, lanes, scale);
+  } else {
+    ptt::paged_split_kernel<__nv_bfloat16>
+        <<<grid, ptt::kPagedThreads, 0, s>>>(
             qf, static_cast<const __nv_bfloat16*>(k_pages),
             static_cast<const __nv_bfloat16*>(v_pages), tb, table_stride, ln,
-            o, h, nb, bs, d, dv, p, scale);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+            ws, h, nb, bs, d, dv, p, lanes, scale);
   }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ptt::paged_merge_kernel<<<dim3(h, n), 32 * ((dv + 31) / 32), 0, s>>>(
+      ws, ln, static_cast<float*>(out), h, bs, dv, p, nz);
   return static_cast<int>(cudaGetLastError());
 }

@@ -22,7 +22,7 @@ CSRC = os.path.join(_PKG, 'csrc')
 BUILD_DIR = os.path.join(_PKG, '_build')
 SOURCES = ('layer_norm.cu', 'paged_attention.cu', 'flash_attention.cu',
            'batch_norm.cu')
-HEADERS = ('common.cuh',)
+HEADERS = ('common.cuh', 'flash_tiles.cuh')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
@@ -101,14 +101,14 @@ def library():
             lib.ptt_layer_norm.argtypes = [p, p, p, p, i, i, f, i, p]
             lib.ptt_layer_norm.restype = i
             lib.ptt_paged_attention.argtypes = [
-                p, p, p, p, ctypes.c_longlong, p, p,
-                i, i, i, i, i, i, i, f, i, p]
+                p, p, p, p, ctypes.c_longlong, p, p, p,
+                i, i, i, i, i, i, i, i, f, i, p]
             lib.ptt_paged_attention.restype = i
-            lib.ptt_paged_attention_smem_bytes.argtypes = [i, i, i]
-            lib.ptt_paged_attention_smem_bytes.restype = i
             dims = [i, i, i, i, i, i, f, i, p]   # b h tq tk d causal scale
             lib.ptt_flash_fwd.argtypes = [p] * 7 + dims
             lib.ptt_flash_fwd.restype = i
+            lib.ptt_flash_fwd_variant.argtypes = [p] * 5 + [i, i]
+            lib.ptt_flash_fwd_variant.restype = i
             lib.ptt_flash_bwd_dkv.argtypes = [p] * 10 + dims
             lib.ptt_flash_bwd_dkv.restype = i
             lib.ptt_flash_bwd_dq.argtypes = [p] * 9 + dims

@@ -17,6 +17,15 @@ forward launches K2 and its backward launches both K3 kernels, or raises;
 only a CPU tensor takes the plain versions. ``flash_fwd_cuda.launches``,
 ``flash_bwd_dkv_cuda.launches`` and ``flash_bwd_dq_cuda.launches`` count
 kernel launches.
+
+K2 is two hand-written kernels: the tensor-core kernel (bf16, head dim a
+multiple of 16 up to 128, strides and base pointers multiples of 8
+elements: the training path) and the SIMT kernel (fp32, and every other
+bf16 input). The launcher in the source chooses from dtype, head dim,
+strides and pointers alone; ``flash_fwd_cuda.launches_mma`` and
+``flash_fwd_cuda.launches_simt`` count each variant.
+``flash_attention_tiled_reference_fwd`` is a second plain version that
+follows the tensor-core kernel's order of operations.
 """
 
 import ctypes
@@ -97,6 +106,40 @@ def flash_attention_reference_fwd(q, k, v, kv_len=None, causal=False,
     return out.to(q.dtype), (m + torch.log(denom)).squeeze(-1)
 
 
+def flash_attention_tiled_reference_fwd(q, k, v, kv_len=None, causal=False,
+                                        scale=None, tile=64):
+    """Plain version of K2 in the tensor-core kernel's order of
+    operations, for tests and the chip smoke: keys in tiles of 64, an
+    online softmax with fp32 m, l and acc, and p rounded to v's dtype
+    tile by tile against the running max (the kernel's packing of the
+    score fragment). Masked entries get p = 0 explicitly, so a tile with
+    no live key changes nothing and need not be skipped here. Returns
+    (out in q's dtype, lse [B, H, Tq] fp32)."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    b, h, tq, d = q.shape
+    tk = k.shape[2]
+    live_all = _live(tq, tk, kv_len, causal, q.device)
+    zero = torch.zeros((), device=q.device)
+    qf = q.float()
+    m = torch.full((b, h, tq), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros(b, h, tq, dtype=torch.float32, device=q.device)
+    acc = torch.zeros(b, h, tq, d, dtype=torch.float32, device=q.device)
+    for k0 in range(0, tk, tile):
+        live = live_all[..., k0:k0 + tile]
+        s = torch.matmul(qf, k[:, :, k0:k0 + tile].float()
+                         .transpose(-1, -2)) * scale
+        s = s.masked_fill(~live, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.where(live, torch.exp(s - m_new[..., None]), zero)
+        l = alpha * l + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.matmul(
+            p.to(v.dtype).float(), v[:, :, k0:k0 + tile].float())
+        m = m_new
+    denom = torch.where(l == 0, torch.ones((), device=q.device), l)
+    return (acc / denom[..., None]).to(q.dtype), m + torch.log(denom)
+
+
 def flash_attention_reference_bwd(q, k, v, o, lse, do, kv_len=None,
                                   causal=False, scale=None):
     """Plain version of K3: (dq, dk, dv) in the inputs' dtype. p is
@@ -150,13 +193,23 @@ def _dims(q, k, causal, scale):
 
 
 def flash_fwd_cuda(q, k, v, kv_len, causal, scale):
-    """Launch K2: (out, lse [B, H, Tq] fp32)."""
+    """Launch K2: (out, lse [B, H, Tq] fp32). Which of its two kernels
+    ran is the source's own choice, read back for the variant counters."""
     o = torch.empty_like(q)
-    b, h, tq, _ = q.shape
+    b, h, tq, d = q.shape
     lse = torch.empty(b, h, tq, dtype=torch.float32, device=q.device)
-    _call(build.library().ptt_flash_fwd, 'ptt_flash_fwd', q, k, v, o, lse,
-          _lens(kv_len), _strides(q, k, v, o), *_dims(q, k, causal, scale))
+    lib = build.library()
+    strides = _strides(q, k, v, o)
+    _call(lib.ptt_flash_fwd, 'ptt_flash_fwd', q, k, v, o, lse,
+          _lens(kv_len), strides, *_dims(q, k, causal, scale))
     flash_fwd_cuda.launches += 1
+    if b * h * tq > 0:
+        if lib.ptt_flash_fwd_variant(q.data_ptr(), k.data_ptr(),
+                                     v.data_ptr(), o.data_ptr(), strides, d,
+                                     build.dtype_code(q.dtype)):
+            flash_fwd_cuda.launches_mma += 1
+        else:
+            flash_fwd_cuda.launches_simt += 1
     return o, lse
 
 
@@ -182,6 +235,8 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, delta, kv_len, causal, scale):
 
 
 flash_fwd_cuda.launches = 0
+flash_fwd_cuda.launches_mma = 0      # the tensor-core kernel
+flash_fwd_cuda.launches_simt = 0     # the SIMT kernel
 flash_bwd_dkv_cuda.launches = 0
 flash_bwd_dq_cuda.launches = 0
 

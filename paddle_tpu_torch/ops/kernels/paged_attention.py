@@ -1,6 +1,7 @@
-"""Ragged paged attention: the CUDA kernel ``csrc/paged_attention.cu`` (K4,
-replacing ``_paged_kernel`` of paddle_tpu/ops/pallas/paged_attention.py)
-and its plain PyTorch version ``paged_attention_reference``.
+"""Ragged paged attention: the CUDA kernels of ``csrc/paged_attention.cu``
+(K4, replacing ``_paged_kernel`` of
+paddle_tpu/ops/pallas/paged_attention.py) and their plain PyTorch versions
+``paged_attention_reference`` and ``paged_attention_split_reference``.
 
 Layouts (the JAX package's):
     q            [B, H, D]      one query token per row, float32
@@ -8,9 +9,15 @@ Layouts (the JAX package's):
     block_tables [B, P] int32   physical page ids; >= NB means "no page"
     seq_lens     [B]  int32     live tokens (this token included)
 
-``paged_attention`` launches the kernel for CUDA tensors and takes the
+The kernel splits a row over blocks: each takes a fixed chunk of
+``CHUNK_TOKENS`` tokens and leaves a partial (acc, m, l) in a workspace
+that a merge kernel combines in split order. The chunk is a constant, so a
+row's result is a pure function of its q, pages and length, whatever batch
+it is part of.
+
+``paged_attention`` launches the kernels for CUDA tensors and takes the
 plain version only for CPU tensors; on a CUDA tensor it launches or
-raises. ``paged_attention.launches`` counts kernel launches.
+raises. ``paged_attention.launches`` counts calls that launched.
 """
 
 import torch
@@ -18,7 +25,13 @@ import torch
 from . import build
 
 _NEG_INF = -1e9
-_MAX_SMEM = 48 * 1024
+# tokens one split block of the kernel covers (kChunkTokens of the source)
+CHUNK_TOKENS = 256
+
+
+def chunk_pages(block_size):
+    """Pages of one split chunk at this block size (at least one)."""
+    return max(1, CHUNK_TOKENS // block_size)
 
 
 def paged_attention_reference(q, k_pages, v_pages, block_tables, seq_lens,
@@ -50,7 +63,62 @@ def paged_attention_reference(q, k_pages, v_pages, block_tables, seq_lens,
     return torch.einsum('bhk,bhkd->bhd', w.to(v.dtype), v)
 
 
-def _paged_cuda(q, k_pages, v_pages, block_tables, seq_lens, scale):
+def paged_attention_split_reference(q, k_pages, v_pages, block_tables,
+                                    seq_lens, sm_scale=None):
+    """Plain version in the kernel's order of operations, for tests and
+    the chip smoke: each chunk of ``chunk_pages(bs)`` pages gives a partial
+    (m, l, acc) in fp32 (scale applied to q, masked columns at -1e9 with
+    p = 0, p rounded to the page dtype before p.v); the partials of the
+    chunks that start below ceil(len / bs) pages are combined in split
+    order and divided by l (1 where l is 0: a row with no live chunk gives
+    0). Dot products are elementwise products summed per row, so a row's
+    bits do not depend on the rows around it. Returns [B, H, Dv] fp32."""
+    nb, h, bs, d = k_pages.shape
+    dv = v_pages.shape[-1]
+    b, p = block_tables.shape
+    scale = sm_scale if sm_scale is not None else d ** -0.5
+    cp = chunk_pages(bs)
+    nz = -(-p // cp)
+    ct = cp * bs
+    tables = block_tables.long().clamp(0, nb - 1)
+    if nz * cp > p:          # pad the table to whole chunks (never live)
+        pad = tables.new_zeros(b, nz * cp - p)
+        tables = torch.cat([tables, pad], dim=1)
+    # [B, Z*cp, H, bs, D] -> [B, H, Z, ct, D]
+    k = k_pages[tables].permute(0, 2, 1, 3, 4).reshape(b, h, nz, ct, d)
+    v = v_pages[tables].permute(0, 2, 1, 3, 4).reshape(b, h, nz, ct, dv)
+    lens = seq_lens.reshape(b, 1, 1, 1).long().clamp(max=p * bs)
+    qs = (q.float() * scale)[:, :, None, None, :]
+    s = (qs * k.float()).sum(dim=-1)                      # [B, H, Z, ct]
+    pos = torch.arange(nz * ct, device=q.device).reshape(1, 1, nz, ct)
+    live = pos < lens
+    neg = torch.full((), _NEG_INF, dtype=torch.float32, device=q.device)
+    zero = torch.zeros((), dtype=torch.float32, device=q.device)
+    s = torch.where(live, s, neg)
+    m = s.amax(dim=-1)                                    # [B, H, Z]
+    pr = torch.where(live, torch.exp(s - m[..., None]), zero)
+    l = pr.sum(dim=-1)
+    acc = (pr.to(v.dtype).float()[..., None] * v.float()).sum(dim=-2)
+    # chunk z is live where it starts below the row's page count
+    npages = -(-lens.reshape(b) // bs)
+    alive = (torch.arange(nz, device=q.device)[None, :] * cp <
+             npages[:, None])[:, None, :].expand(b, h, nz)
+    top = torch.where(alive, m, neg).amax(dim=-1)         # [B, H]
+    l_sum = torch.zeros(b, h, dtype=torch.float32, device=q.device)
+    out = torch.zeros(b, h, dv, dtype=torch.float32, device=q.device)
+    for z in range(nz):                                   # split order
+        f = torch.where(alive[..., z], torch.exp(m[..., z] - top), zero)
+        l_sum = l_sum + l[..., z] * f
+        out = out + torch.where(alive[..., z, None],
+                                acc[:, :, z] * f[..., None], zero)
+    return out / torch.where(l_sum == 0, torch.ones_like(l_sum),
+                             l_sum)[..., None]
+
+
+def _paged_cuda(q, k_pages, v_pages, block_tables, seq_lens, scale,
+                workspace=None):
+    """Launch K4. ``workspace`` (tests only) replaces the fp32
+    [n, h, splits, dv + 2] scratch the call would allocate."""
     nb, h, bs, d = k_pages.shape
     dv = v_pages.shape[-1]
     n, p = block_tables.shape
@@ -76,23 +144,39 @@ def _paged_cuda(q, k_pages, v_pages, block_tables, seq_lens, scale):
         if t.device != dev:
             raise ValueError('paged_attention kernel: all inputs must be '
                              'on %s, got %s' % (dev, t.device))
-    if bs > 128 or dv > 128 or n > 65535:
-        raise ValueError('paged_attention kernel: needs block size <= 128, '
-                         'value head dim <= 128 and <= 65535 rows')
-    lib = build.library()
-    if lib.ptt_paged_attention_smem_bytes(bs, d, dv) > _MAX_SMEM:
-        raise ValueError('paged_attention kernel: a %d x %d page tile does '
-                         'not fit the 48 KB of shared memory' % (bs, d))
+    if dv > 128 or n > 65535:
+        raise ValueError('paged_attention kernel: needs value head dim '
+                         '<= 128 and <= 65535 rows')
+    code = build.dtype_code(k_pages.dtype)
+    item = k_pages.element_size()
+    if (d * item) % 16 or (dv * item) % 16 or max(d, dv) * item > 512 or \
+            k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
+        raise ValueError('paged_attention kernel: its 16-byte loads need '
+                         'key and value rows that are a multiple of 16 '
+                         'bytes, at most 512 bytes, in 16-byte aligned '
+                         'arenas; got D %d, Dv %d of %s'
+                         % (d, dv, k_pages.dtype))
     out = torch.empty((n, h, dv), dtype=torch.float32, device=dev)
-    if n == 0 or h == 0:
-        return out
+    if n == 0 or h == 0 or p == 0:
+        return out.zero_()
+    lib = build.library()
+    nz = -(-p // chunk_pages(bs))   # the launcher refuses another count
+    if workspace is None:
+        workspace = torch.empty((n, h, nz, dv + 2), dtype=torch.float32,
+                                device=dev)
+    elif workspace.dtype != torch.float32 or workspace.device != dev or \
+            tuple(workspace.shape) != (n, h, nz, dv + 2) or \
+            not workspace.is_contiguous():
+        raise ValueError('paged_attention kernel: workspace must be a '
+                         'contiguous float32 [%d, %d, %d, %d] tensor'
+                         % (n, h, nz, dv + 2))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.ptt_paged_attention(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             block_tables.data_ptr(), block_tables.stride(0),
-            seq_lens.data_ptr(), out.data_ptr(), n, h, nb, bs, d, dv, p,
-            float(scale), build.dtype_code(k_pages.dtype), stream)
+            seq_lens.data_ptr(), workspace.data_ptr(), out.data_ptr(), n, h,
+            nb, bs, d, dv, p, nz, float(scale), code, stream)
     build.check(rc, 'ptt_paged_attention')
     paged_attention.launches += 1
     return out

@@ -205,3 +205,56 @@ def test_layer_norm_function_matches_jax_vjp(dtype):
         else:
             np.testing.assert_allclose(gv, wv, rtol=1e-4,
                                        atol=1e-4 * np.abs(wv).max())
+
+
+# ---- the tiled version: 64-key tiles, online softmax, p rounded per tile
+# (B, H, T, D, causal, kv_len): one tile with a tail, exactly one tile,
+# several tiles with a tail
+TILED_CASES = CASES + [(2, 2, 64, 16, True, False),
+                       (2, 1, 200, 32, False, True)]
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('case', TILED_CASES)
+def test_tiled_version_matches_pallas_interpret_and_plain(case, dtype):
+    """flash_attention_tiled_reference_fwd (the tensor-core kernel's order
+    of operations) against the JAX package's forward kernel in interpret
+    mode and against the port's whole-row plain version: fp32 1e-5; bf16
+    1e-2 of the largest value plus 1e-2 relative (p rounded per tile
+    against the running max); lse within 1e-5 of the plain version's."""
+    b, h, t, d, causal, kv = case
+    q, k, v, _, lens = _inputs(b, h, t, d, kv, seed=3)
+    jq, jk, jv = (jnp.asarray(a).astype(dtype) for a in (q, k, v))
+    jlens = None if lens is None else jnp.asarray(lens)
+    want = np.asarray(jfa.flash_attention(jq, jk, jv, causal=causal,
+                                          kv_len=jlens).astype(jnp.float32))
+    tdt = getattr(torch, dtype)
+    tq, tk, tv = (torch.tensor(_round(a, dtype)).to(tdt) for a in (q, k, v))
+    tlens = None if lens is None else torch.tensor(lens)
+    out, lse = tfa.flash_attention_tiled_reference_fwd(tq, tk, tv, tlens,
+                                                       causal)
+    ref_out, ref_lse = tfa.flash_attention_reference_fwd(tq, tk, tv, tlens,
+                                                         causal)
+    assert out.dtype == tdt and lse.dtype == torch.float32
+    got = out.float().numpy()
+    assert np.all(np.abs(got - want) <= _tol(dtype, want))
+    plain = ref_out.float().numpy()
+    assert np.all(np.abs(got - plain) <= _tol(dtype, plain))
+    np.testing.assert_allclose(lse.numpy(), ref_lse.numpy(), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_tiled_version_rows_without_a_live_key():
+    """kv_len 0 gives out 0 and lse -1e30 tile after tile, as the kernels
+    do; a tile size that does not divide T changes nothing beyond
+    rounding."""
+    q, k, v, _, _ = _inputs(3, 2, 150, 8, False, seed=6)
+    lens = torch.tensor([150, 70, 0])
+    tq, tk, tv = (torch.tensor(a) for a in (q, k, v))
+    out, lse = tfa.flash_attention_tiled_reference_fwd(tq, tk, tv, lens)
+    assert np.all(out[2].numpy() == 0) and np.all(lse[2].numpy() == -1e30)
+    other, lse2 = tfa.flash_attention_tiled_reference_fwd(tq, tk, tv, lens,
+                                                          tile=32)
+    np.testing.assert_allclose(out.numpy(), other.numpy(), rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(lse.numpy(), lse2.numpy(), rtol=1e-6)

@@ -82,6 +82,137 @@ def test_paged_attention_kernel_matches_plain(cuda, dtype, broadcast):
     torch.testing.assert_close(out, ref, rtol=tol, atol=tol)
 
 
+def _paged_args(cuda, dtype, lens, broadcast=False, nb=192, h=4, bs=32,
+                d=64, dv=None, p=16, seed=2, empty=()):
+    """Pages, a query per row and tables whose entries past a row's pages
+    are >= NB (never to be read)."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    dv = d if dv is None else dv
+    n = len(lens)
+    kp = torch.randn(nb, h, bs, d, generator=gen, device=cuda).to(dtype)
+    vp = torch.randn(nb, h, bs, dv, generator=gen, device=cuda).to(dtype)
+    q = torch.randn(n, h, d, generator=gen, device=cuda)
+    perm = torch.randperm(nb, generator=gen, device=cuda).to(torch.int32)
+    if broadcast:
+        row = perm[:p].clone()
+        row[-(-max(lens) // bs):] = nb
+        tables = row.expand(n, p)
+    else:
+        assert n * p <= nb
+        tables = perm[:n * p].reshape(n, p).clone()
+        for i, ln in enumerate(lens):
+            tables[i, -(-ln // bs):] = nb + 3
+        for i in empty:
+            tables[i] = nb
+    return q, kp, vp, tables, torch.tensor(lens, dtype=torch.int32,
+                                           device=cuda)
+
+
+def _paged_check(args, dtype):
+    """The kernel against both plain versions: the one-pass softmax (its
+    output rounded to the page dtype) and the split version that follows
+    the kernel's order (fp32 output). fp32 5e-5; bf16 2e-2 + 2e-2*|plain|
+    (p rounded to bf16 at different points)."""
+    before = tpa.paged_attention.launches
+    out = tpa.paged_attention(*args)
+    assert tpa.paged_attention.launches == before + 1
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32 and bool(torch.isfinite(out).all())
+    lens = args[-1]
+    for ref in (tpa.paged_attention_reference(*args).float(),
+                tpa.paged_attention_split_reference(*args)):
+        ref = torch.where((lens > 0)[:, None, None], ref,
+                          torch.zeros_like(ref))   # empty rows give 0
+        if dtype == torch.float32:
+            assert float((out - ref).abs().max()) <= 5e-5
+        else:
+            assert bool(((out - ref).abs() <= 2e-2 + 2e-2 * ref.abs()).all())
+    return out
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_paged_attention_all_splits_live_and_chunk_boundaries(cuda, dtype):
+    """Rows that fill every split (P * bs tokens), rows that end on, one
+    before and one past a 256-token chunk boundary, a one-token row and
+    an empty slot."""
+    lens = [512, 512, 255, 256, 257, 511, 1, 33, 1]
+    args = _paged_args(cuda, dtype, lens, empty=(8,))
+    args[-1][8] = 0
+    _paged_check(args, dtype)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_paged_attention_prefill_512_rows_broadcast_table(cuda, dtype):
+    """The largest prefill bucket: 512 rows against one table row (stride
+    0), lengths 1..512; most splits are dead. The workspace is pre-filled
+    with NaN: the merge must never touch a partial no block wrote."""
+    args = _paged_args(cuda, dtype, list(range(1, 513)), broadcast=True,
+                       h=8, p=64, nb=128)
+    assert args[3].stride(0) == 0
+    out = _paged_check(args, dtype)
+    nz = -(-64 // tpa.chunk_pages(32))
+    ws = torch.full((512, 8, nz, 64 + 2), float('nan'), device=cuda)
+    again = tpa._paged_cuda(*args, 64 ** -0.5, workspace=ws)
+    torch.cuda.synchronize()
+    assert torch.equal(again, out)
+    assert bool(torch.isnan(ws[0, :, 1:]).all())     # dead splits untouched
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_paged_attention_rows_do_not_depend_on_the_batch(cuda, dtype):
+    """The same (q row, pages, table row, length) in a 16-row decode
+    batch, alone, and inside a 128-row broadcast-table call: bit-equal
+    output rows."""
+    lens = [1, 40, 300, 512, 257, 256, 64, 31] * 2
+    q, kp, vp, tables, sl = _paged_args(cuda, dtype, lens, nb=512, p=16)
+    full = tpa.paged_attention(q, kp, vp, tables, sl)
+    for i in (1, 2, 3, 4):
+        alone = tpa.paged_attention(q[i:i + 1], kp, vp, tables[i:i + 1],
+                                    sl[i:i + 1])
+        assert torch.equal(alone[0], full[i])
+        qs = torch.randn(128, *q.shape[1:], device=cuda)
+        qs[77] = q[i]
+        ls = torch.randint(1, 513, (128,), dtype=torch.int32, device=cuda)
+        ls[77] = sl[i]
+        # the row's table, with real pages wherever another row may read
+        row = tables[i].clone()
+        row[row >= kp.shape[0]] = 5
+        many = tpa.paged_attention(qs, kp, vp, row.expand(128, 16), ls)
+        assert torch.equal(many[77], full[i])
+
+
+# (dtype, D, Dv, bs, P): a key row on 32 lanes, on 1 lane, D != Dv, pages
+# of several tiles, a page size that is no power of two, a chunk of one page
+PAGED_SHAPES = [
+    (torch.float32, 128, 128, 16, 8), (torch.bfloat16, 8, 8, 32, 8),
+    (torch.bfloat16, 64, 32, 32, 8), (torch.float32, 32, 64, 16, 8),
+    (torch.float32, 64, 64, 128, 4), (torch.bfloat16, 64, 64, 48, 8),
+    (torch.bfloat16, 128, 128, 128, 3), (torch.float32, 16, 16, 512, 2),
+]
+
+
+@pytest.mark.parametrize('case', PAGED_SHAPES)
+def test_paged_attention_kernel_shapes(cuda, case):
+    dtype, d, dv, bs, p = case
+    top = p * bs
+    lens = [1, bs - 1, bs, bs + 1, top, top - 1, max(1, top // 2), 1]
+    args = _paged_args(cuda, dtype, lens, nb=8 * p, h=2, bs=bs, d=d, dv=dv,
+                       p=p, empty=(7,))
+    args[-1][7] = 0
+    _paged_check(args, dtype)
+
+
+def test_paged_attention_wrapper_names_what_its_loads_need(cuda):
+    """Key rows that are no multiple of 16 bytes raise with the reason;
+    nothing falls back to the plain version."""
+    args = _paged_args(cuda, torch.bfloat16, [5, 9], nb=8, h=1, bs=8, d=12,
+                       p=2)
+    before = tpa.paged_attention.launches
+    with pytest.raises(ValueError, match='16'):
+        tpa.paged_attention(*args)
+    assert tpa.paged_attention.launches == before
+
+
 def test_paged_attention_wrapper_rejects_bad_inputs(cuda):
     q = torch.zeros(2, 1, 8, device=cuda)
     pages = torch.zeros(4, 1, 4, 8, device=cuda)
@@ -175,6 +306,65 @@ def test_flash_kernels_match_plain(cuda, case):
     for g, w in zip(got, want):
         assert g.dtype == dtype
         _close(g, w, dtype)
+
+
+@pytest.mark.parametrize('case', [
+    (4, 2, 64, 16, False, 'full'), (64, 8, 64, 64, True, 'full'),
+    (2, 3, 200, 64, True, 'uniform'), (2, 2, 130, 128, False, 'uniform'),
+    (2, 2, 70, 48, True, 'uniform'), (1, 1, 1, 32, False, 'full'),
+])
+def test_flash_forward_bf16_runs_on_the_tensor_cores(cuda, case):
+    """bf16 with a head dim that is a multiple of 16 takes the tensor-core
+    kernel (its counter moves, the SIMT one does not) and agrees with both
+    plain versions: the whole-row softmax and the 64-key tiled one that
+    rounds p as the kernel does; twice, for a copy that was not waited
+    for would show as rare wrong values."""
+    b, h, t, d, causal, kv = case
+    q, k, v, _, lens = _flash_inputs(cuda, b, h, t, d, torch.bfloat16, kv,
+                                     seed=4)
+    ref_out, ref_lse = tfa.flash_attention_reference_fwd(q, k, v, lens,
+                                                         causal)
+    til_out, til_lse = tfa.flash_attention_tiled_reference_fwd(q, k, v, lens,
+                                                               causal)
+    outs = []
+    for _ in range(2):
+        n_mma = tfa.flash_fwd_cuda.launches_mma
+        n_simt = tfa.flash_fwd_cuda.launches_simt
+        out, lse = tfa.flash_attention_fwd(q, k, v, lens, causal)
+        torch.cuda.synchronize()
+        assert tfa.flash_fwd_cuda.launches_mma == n_mma + 1
+        assert tfa.flash_fwd_cuda.launches_simt == n_simt
+        _close(out, ref_out, torch.bfloat16)
+        _close(out, til_out, torch.bfloat16)
+        torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(lse, til_lse, rtol=1e-5, atol=1e-5)
+        outs.append(out)
+    assert torch.equal(outs[0], outs[1])
+
+
+def test_flash_forward_other_inputs_take_the_simt_kernel(cuda):
+    """fp32, a bf16 head dim that is no multiple of 16, and a bf16 view
+    that starts one element into its storage (its 16-byte loads would be
+    misaligned) go to the SIMT kernel, and are right there."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    flat = torch.randn(3, 1 + 2 * 2 * 70 * 64, generator=gen, device=cuda) \
+        .to(torch.bfloat16)
+    shifted = [flat[i, 1:].view(2, 2, 70, 64) for i in range(3)]
+    odd = [torch.randn(2, 2, 70, 40, generator=gen, device=cuda)
+           .to(torch.bfloat16) for _ in range(3)]
+    fp32 = [torch.randn(2, 2, 70, 64, generator=gen, device=cuda)
+            for _ in range(3)]
+    for q, k, v in (shifted, odd, fp32):
+        n_mma = tfa.flash_fwd_cuda.launches_mma
+        n_simt = tfa.flash_fwd_cuda.launches_simt
+        out, lse = tfa.flash_attention_fwd(q, k, v, None, True)
+        torch.cuda.synchronize()
+        assert tfa.flash_fwd_cuda.launches_mma == n_mma
+        assert tfa.flash_fwd_cuda.launches_simt == n_simt + 1
+        ref_out, ref_lse = tfa.flash_attention_reference_fwd(q, k, v, None,
+                                                             True)
+        _close(out, ref_out, q.dtype)
+        torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-5)
 
 
 def test_flash_kernels_take_head_split_views(cuda):

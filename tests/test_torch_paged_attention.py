@@ -123,3 +123,123 @@ def test_bf16_plain_matches_reference_to_one_ulp():
     a = np.maximum(np.abs(want.astype(np.float64)), 2.0 ** -126)
     ulp = 2.0 ** (np.floor(np.log2(a)) - 7)
     assert np.all(np.abs(got - want) <= ulp + 1e-6)
+
+
+# ---- the split version: per-chunk partials merged in split order -------
+# lengths: one token, around a page edge, exactly one 256-token chunk, one
+# past it, every split live (P * bs), a ragged middle, and an empty slot
+SPLIT_LENS = (1, 31, 32, 33, 256, 257, 2048, 700, 0)
+
+
+def _split_case(seed=11, lens=SPLIT_LENS, h=2, nb=96, bs=32, p=64, d=16,
+                broadcast=False):
+    rng = np.random.RandomState(seed)
+    b = len(lens)
+    k_pages = rng.randn(nb, h, bs, d).astype('float32')
+    v_pages = rng.randn(nb, h, bs, d).astype('float32')
+    q = rng.randn(b, h, d).astype('float32')
+    if broadcast:
+        tables = np.broadcast_to(rng.randint(0, nb, p), (b, p))
+    else:
+        tables = rng.randint(0, nb, (b, p))
+    tables = np.ascontiguousarray(tables, np.int32)
+    lens = np.asarray(lens, np.int32)
+    for i, n in enumerate(lens):        # "no page" past the owned pages
+        if not broadcast:
+            tables[i, (int(n) + bs - 1) // bs:] = nb + 1
+    return q, k_pages, v_pages, tables, lens
+
+
+def _split(q, kp, vp, tables, lens, dtype=torch.float32, expand=False):
+    t = torch.tensor(tables)
+    if expand:
+        t = t[:1].expand(tables.shape[0], tables.shape[1])
+    out = tpa.paged_attention_split_reference(
+        torch.tensor(q), torch.tensor(kp).to(dtype),
+        torch.tensor(vp).to(dtype), t, torch.tensor(lens))
+    assert out.dtype == torch.float32
+    return out.numpy()
+
+
+def test_chunk_is_a_constant_of_the_block_size():
+    """256 tokens a split whatever the batch: 8 pages at block 32, one
+    page once a block holds 256 tokens or more."""
+    assert tpa.CHUNK_TOKENS == 256
+    assert [tpa.chunk_pages(bs) for bs in (8, 32, 48, 128, 256, 512)] == \
+        [32, 8, 5, 2, 1, 1]
+
+
+@pytest.mark.parametrize('impl', ['reference', 'pallas_interpret'])
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+def test_split_version_matches_jax(impl, dtype):
+    """The split version against the JAX package on lengths 1, 31, 32,
+    33, a chunk boundary, 2,048 and an empty slot. fp32: the same sums in
+    another order, 1e-5. bf16: p is rounded per chunk against the chunk's
+    max (the reference rounds normalised weights and its output), so the
+    bounds of the chip smoke: 2e-2 + 2e-2 * |want|. The empty slot gives
+    0 (the JAX reference averages every gathered column there; the decode
+    ops never ask for it)."""
+    q, kp, vp, tables, lens = _split_case()
+    jdt = getattr(jnp, dtype)
+    kb = jnp.asarray(kp).astype(jdt)
+    vb = jnp.asarray(vp).astype(jdt)
+    args = [jnp.asarray(q), kb, vb, jnp.asarray(tables), jnp.asarray(lens)]
+    if impl == 'pallas_interpret':
+        want = jpa._paged_pallas(*args, kp.shape[-1] ** -0.5)
+    else:
+        want = jpa.paged_attention_reference(*args)
+    want = np.asarray(want.astype(jnp.float32))
+    got = _split(q, np.asarray(kb.astype(jnp.float32)),
+                 np.asarray(vb.astype(jnp.float32)), tables, lens,
+                 dtype=getattr(torch, dtype))
+    live = lens > 0
+    assert np.all(got[~live] == 0)
+    if dtype == 'float32':
+        np.testing.assert_allclose(got[live], want[live], rtol=1e-5,
+                                   atol=1e-5)
+    else:
+        gap = np.abs(got[live] - want[live])
+        assert np.all(gap <= 2e-2 + 2e-2 * np.abs(want[live])), gap.max()
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('broadcast', [False, True])
+def test_split_version_matches_plain_version(dtype, broadcast):
+    """Both plain versions of the port on the same inputs, the broadcast
+    prefill table (stride 0) included: fp32 1e-5; bf16 2e-2 + 2e-2 *
+    |plain| (the one-pass version rounds its output to bf16)."""
+    lens = SPLIT_LENS[:-1] if broadcast else SPLIT_LENS
+    q, kp, vp, tables, lens = _split_case(seed=12, lens=lens,
+                                          broadcast=broadcast)
+    got = _split(q, kp, vp, tables, lens, dtype, expand=broadcast)
+    want = _port(q, kp, vp, tables, lens, dtype, expand=broadcast)
+    live = lens > 0
+    if dtype == torch.float32:
+        np.testing.assert_allclose(got[live], want[live], rtol=1e-5,
+                                   atol=1e-5)
+    else:
+        gap = np.abs(got[live] - want[live])
+        assert np.all(gap <= 2e-2 + 2e-2 * np.abs(want[live])), gap.max()
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_split_version_rows_do_not_depend_on_the_batch(dtype):
+    """A row's output is a pure function of its q, pages and length: the
+    same row alone, in the 9-row batch and inside a 40-row call against
+    its own table gives the same bits (the engine's concurrent-equals-
+    alone and preempt-and-recompute invariants rest on this)."""
+    q, kp, vp, tables, lens = _split_case(seed=13)
+    full = _split(q, kp, vp, tables, lens, dtype)
+    rng = np.random.RandomState(3)
+    for i in (0, 4, 5, 6, 7):
+        alone = _split(q[i:i + 1], kp, vp, tables[i:i + 1], lens[i:i + 1],
+                       dtype)
+        np.testing.assert_array_equal(alone[0], full[i])
+        qs = rng.randn(40, *q.shape[1:]).astype('float32')
+        ls = rng.randint(1, 2049, 40).astype('int32')
+        qs[17], ls[17] = q[i], lens[i]
+        row = np.where(tables[i] >= kp.shape[0], 3, tables[i]) \
+            .astype('int32')
+        many = _split(qs, kp, vp, np.broadcast_to(row, (40, row.size)).copy(),
+                      ls, dtype, expand=True)
+        np.testing.assert_array_equal(many[17], full[i])
