@@ -77,9 +77,8 @@ line with every kernel's numbers and nvidia-smi's name and power limit.
 (phases 8 and 10 then compare the host with itself) and never prints
 that last line. --profile adds, after every other phase, a torch.profiler
 breakdown of decode steps, Transformer and ResNet-50 training steps.
---kernels-only stops after phase 3 (no verdict line); with --port-from DIR
-it imports paddle_tpu_torch from another checkout of this repository, so
-one call can time an earlier commit's kernels at today's shapes.
+--kernels-only stops after phase 3 (no verdict line). kernel_times.py
+times K4 and K2 of any checkout of this repository at phase 3's shapes.
 """
 
 import argparse
@@ -99,11 +98,6 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 BF16_FLOPS = 989e12
 VOCAB = 32000
-# set by --port-from: the port under test is an earlier checkout, whose
-# kernels are timed at today's shapes; checks of what only today's port has
-# (the second plain versions, K2's variant counters, K4's row independence)
-# are then left out, and no verdict is printed
-EARLIER = False
 
 
 def fail(msg):
@@ -226,10 +220,9 @@ def phase_device(torch):
 
 
 # ------------------------------------------------------------ phase 2
-def phase_build(expect=('paged_split_kernel', 'paged_merge_kernel',
-                        'flash_fwd_mma_kernel')):
+def phase_build():
     """Build, print ptxas's numbers, and fail unless its log shows the
-    kernels named in ``expect``."""
+    split-KV and the tensor-core kernels."""
     from paddle_tpu_torch.ops.kernels import build
     res = build.build()
     print('build: %.2f s (nvcc, one call, %s) -> %s'
@@ -239,12 +232,12 @@ def phase_build(expect=('paged_split_kernel', 'paged_merge_kernel',
         if 'ptxas info' in line and ('Compiling' in line or 'Used' in line):
             print('  ' + line.strip())
     lib = build.library()
-    for kernel in expect:
+    for kernel in ('paged_split_kernel', 'paged_merge_kernel',
+                   'flash_fwd_mma_kernel'):
         require(kernel in res.log, 'ptxas\'s log does not show %s' % kernel)
-    if expect:
-        print('  flash attention dynamic shared memory at D=64: tensor-core '
-              'forward %d B, SIMT forward %d B, dK/dV %d B, dQ %d B'
-              % tuple(lib.ptt_flash_smem_bytes(i, 64) for i in (3, 0, 1, 2)))
+    print('  flash attention dynamic shared memory at D=64: tensor-core '
+          'forward %d B, SIMT forward %d B, dK/dV %d B, dQ %d B'
+          % tuple(lib.ptt_flash_smem_bytes(i, 64) for i in (3, 0, 1, 2)))
     return res
 
 
@@ -315,10 +308,8 @@ def _paged_case(torch, card, label, q, kp, vp, tables, lens, heavy=False):
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.kernels import paged_attention as K
     out = K.paged_attention(q, kp, vp, tables, lens)
-    refs = [K.paged_attention_reference(q, kp, vp, tables, lens).float()]
-    if not EARLIER:
-        refs.append(K.paged_attention_split_reference(q, kp, vp, tables,
-                                                      lens))
+    refs = [K.paged_attention_reference(q, kp, vp, tables, lens).float(),
+            K.paged_attention_split_reference(q, kp, vp, tables, lens)]
     torch.cuda.synchronize()
     of = out.float().cpu().numpy()
     live = (lens > 0).cpu().numpy()    # an empty slot gives 0, no average
@@ -442,9 +433,7 @@ def _flash_case(torch, card, label, b, h, t, d, dtype, causal, lens, gen):
                    .to(dtype) for _ in range(4))
     kv = None if lens is None else torch.tensor(lens, device=dev)
     fwd_count = K.flash_fwd_cuda
-    variant = 'that checkout\'s'
-    if not EARLIER:
-        before = (fwd_count.launches_mma, fwd_count.launches_simt)
+    before = (fwd_count.launches_mma, fwd_count.launches_simt)
     out, lse = K.flash_attention_fwd(q, k, v, kv, causal)
     # a second run must give the same bits: a copy that was not waited for
     # shows as rare wrong values, not as a fault
@@ -453,16 +442,15 @@ def _flash_case(torch, card, label, b, h, t, d, dtype, causal, lens, gen):
     require(torch.equal(out, out2) and torch.equal(lse, lse2),
             '%s: two runs of K2 differ' % label)
     del out2, lse2
-    if not EARLIER:
-        moved = (fwd_count.launches_mma - before[0],
-                 fwd_count.launches_simt - before[1])
-        variant = 'tensor-core' if dtype == torch.bfloat16 else 'SIMT'
-        require(moved == ((2, 0) if dtype == torch.bfloat16 else (0, 2)),
-                '%s: K2 launched (tensor-core, SIMT) = %s, want the %s '
-                'kernel twice' % (label, moved, variant))
+    moved = (fwd_count.launches_mma - before[0],
+             fwd_count.launches_simt - before[1])
+    variant = 'tensor-core' if dtype == torch.bfloat16 else 'SIMT'
+    require(moved == ((2, 0) if dtype == torch.bfloat16 else (0, 2)),
+            '%s: K2 launched (tensor-core, SIMT) = %s, want the %s kernel '
+            'twice' % (label, moved, variant))
     ref_out, ref_lse = K.flash_attention_reference_fwd(q, k, v, kv, causal)
-    til_out, til_lse = (ref_out, ref_lse) if EARLIER else \
-        K.flash_attention_tiled_reference_fwd(q, k, v, kv, causal)
+    til_out, til_lse = K.flash_attention_tiled_reference_fwd(q, k, v, kv,
+                                                             causal)
     grads = K.flash_attention_bwd(q, k, v, out, lse, do, kv, causal)
     ref_grads = K.flash_attention_reference_bwd(q, k, v, out, lse, do, kv,
                                                 causal)
@@ -560,12 +548,13 @@ def _flash_case(torch, card, label, b, h, t, d, dtype, causal, lens, gen):
     return fwd_rec, bwd_rec
 
 
-def phase_flash_kernels(torch, card):
-    gen = torch.Generator(device='cuda').manual_seed(1)
+def flash_shapes(torch):
+    """Phase 3's flash-attention cases: (label, B, H, T, D, dtype, causal,
+    kv_len or None). The first is the kernels line's."""
     rng = np.random.RandomState(0)
     masked = rng.randint(256, 513, 8)
     masked[-1] = 1
-    cases = [
+    return [
         ('flash_attention B=64 H=8 T=64 D=64 bf16 encoder (non-causal, '
          'kv_len full)', 64, 8, 64, 64, torch.bfloat16, False, [64] * 64),
         ('flash_attention B=64 H=8 T=64 D=64 bf16 decoder (causal)', 64, 8,
@@ -579,12 +568,45 @@ def phase_flash_kernels(torch, card):
         ('flash_attention B=64 H=8 T=64 D=64 float32 encoder', 64, 8, 64, 64,
          torch.float32, False, [64] * 64),
     ]
+
+
+def phase_flash_kernels(torch, card):
+    gen = torch.Generator(device='cuda').manual_seed(1)
     res = []
-    for label, b, h, t, d, dtype, causal, lens in cases:
+    for label, b, h, t, d, dtype, causal, lens in flash_shapes(torch):
         res.append(_flash_case(torch, card, label, b, h, t, d, dtype,
                                causal, lens, gen))
         torch.cuda.empty_cache()
     return res[0]
+
+
+def paged_shapes(torch):
+    """Phase 3's paged-attention cases: (key, label, page dtype, rows,
+    lengths, broadcast table, empty rows). 'engine' is the kernels line's."""
+    decode_lens = [1, 2, 31, 32, 33, 64, 65, 200, 576, 1000, 1500, 2047,
+                   2048, 1, 1, 1]
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        cases += [
+            ('decode ' + name, 'paged_attention decode N=16 H=8 D=64 bs=32 '
+             'P=64 NB=4096 lens 1..2048 + 3 empty rows ' + name, dtype, 16,
+             decode_lens, False, (13, 14, 15)),
+            ('full ' + name, 'paged_attention decode N=16, every row at 2048 '
+             'tokens (every split live) ' + name, dtype, 16, [2048] * 16,
+             False, ()),
+            ('prefill ' + name, 'paged_attention prefill N=128 broadcast '
+             'table lens 1..128 ' + name, dtype, 128, list(range(1, 129)),
+             True, ()),
+            ('prefill512 ' + name, 'paged_attention prefill N=512 broadcast '
+             'table lens 1..512 ' + name, dtype, 512, list(range(1, 513)),
+             True, ())]
+    # the engine run's own decode shape: 16 live rows, lengths across the
+    # range its requests reach (prompts 64-512 plus up to 64 new tokens)
+    cases.append(('engine', 'paged_attention decode N=16 lens 64..576 (the '
+                  'engine run\'s range) float32', torch.float32, 16,
+                  np.linspace(64, 576, 16).astype(int).tolist(), False, ()))
+    return cases
 
 
 def phase_kernels(torch, card):
@@ -593,47 +615,14 @@ def phase_kernels(torch, card):
     for n, d in ((16, 512), (512, 512), (64, 2048)):
         for dtype in (torch.float32, torch.bfloat16):
             ln[(n, d, dtype)] = _ln_case(torch, card, n, d, dtype, gen)
-    decode_lens = [1, 2, 31, 32, 33, 64, 65, 200, 576, 1000, 1500, 2047,
-                   2048, 1, 1, 1]
     pa = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        name = str(dtype)[6:]
-        args = _paged_inputs(torch, gen, 16, decode_lens, dtype, False,
-                             empty=(13, 14, 15))
-        pa[('decode', dtype)] = _paged_case(
-            torch, card, 'paged_attention decode N=16 H=8 D=64 bs=32 P=64 '
-            'NB=4096 lens 1..2048 + 3 empty rows %s' % name, *args)
-        del args
-        args = _paged_inputs(torch, gen, 16, [2048] * 16, dtype, False)
-        pa[('full', dtype)] = _paged_case(
-            torch, card, 'paged_attention decode N=16, every row at 2048 '
-            'tokens (every split live) %s' % name, *args)
-        del args
-        args = _paged_inputs(torch, gen, 128, list(range(1, 129)), dtype,
-                             True)
-        pa[('prefill', dtype)] = _paged_case(
-            torch, card, 'paged_attention prefill N=128 broadcast table '
-            'lens 1..128 %s' % name, *args)
+    for key, label, dtype, n, lens, broadcast, empty in paged_shapes(torch):
+        args = _paged_inputs(torch, gen, n, lens, dtype, broadcast,
+                             empty=empty)
+        pa[key] = _paged_case(torch, card, label, *args, heavy=n >= 512)
         del args
         torch.cuda.empty_cache()
-        args = _paged_inputs(torch, gen, 512, list(range(1, 513)), dtype,
-                             True)
-        pa[('prefill512', dtype)] = _paged_case(
-            torch, card, 'paged_attention prefill N=512 broadcast table '
-            'lens 1..512 %s' % name, *args, heavy=True)
-        del args
-        torch.cuda.empty_cache()
-    # the engine run's own decode shape: 16 live rows, lengths across the
-    # range its requests reach (prompts 64-512 plus up to 64 new tokens)
-    engine_lens = np.linspace(64, 576, 16).astype(int).tolist()
-    args = _paged_inputs(torch, gen, 16, engine_lens, torch.float32, False)
-    pa['engine'] = _paged_case(
-        torch, card, 'paged_attention decode N=16 lens 64..576 (the engine '
-        'run\'s range) float32', *args)
-    del args
-    torch.cuda.empty_cache()
-    if not EARLIER:
-        _paged_row_independence(torch, card, gen)
+    _paged_row_independence(torch, card, gen)
     return ln[(16, 512, torch.float32)], pa['engine']
 
 
@@ -1435,21 +1424,13 @@ def main():
     ap.add_argument('--kernels-only', action='store_true',
                     help='stop after phase 3 (kernels against their plain '
                          'versions, and their times); prints no verdict')
-    ap.add_argument('--port-from', metavar='DIR',
-                    help='with --kernels-only: import paddle_tpu_torch from '
-                         'DIR, an earlier checkout of this repository, to '
-                         'time its kernels at today\'s shapes')
     args = ap.parse_args()
     t_start = time.perf_counter()
     import torch
     if not args.cpu_rehearsal and not torch.cuda.is_available():
         fail('torch.cuda.is_available() is false: this smoke needs a CUDA '
              'card (use --cpu-rehearsal on the host)')
-    if args.port_from and not args.kernels_only:
-        fail('--port-from needs --kernels-only')
-    global EARLIER
-    EARLIER = bool(args.port_from)
-    sys.path.insert(0, os.path.abspath(args.port_from) if EARLIER else REPO)
+    sys.path.insert(0, REPO)
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.serving.decode import LMSpec
 
@@ -1477,14 +1458,13 @@ def main():
         return
 
     name, count, card = phase_device(torch)
-    phase_build(expect=()) if EARLIER else phase_build()
+    phase_build()
     ln, pa = phase_kernels(torch, card)
     fa_fwd, fa_bwd = phase_flash_kernels(torch, card)
     if args.kernels_only:
-        print('kernels only (%s): K1, K4, K2 and K3 agree with their plain '
+        print('kernels only: K1, K4, K2 and K3 agree with their plain '
               'versions; no verdict. total %.1f s'
-              % ('the port of %s' % args.port_from if EARLIER else
-                 'this checkout', time.perf_counter() - t_start))
+              % (time.perf_counter() - t_start))
         return
     bn = phase_bn_kernels(torch, card)
     spec = LMSpec(vocab_size=32000, n_layer=12, n_head=8, d_key=64,
@@ -1531,12 +1511,11 @@ def main():
         dict(name='paged_attention', route='cuda',
              source='paddle_tpu_torch/csrc/paged_attention.cu',
              replaces='paddle_tpu/ops/pallas/paged_attention.py:86',
-             launches=runs('paged_attention'), previous_ms=0.0651, **pa),
+             launches=runs('paged_attention'), **pa),
         dict(name='flash_attention_fwd', route='cuda',
              source='paddle_tpu_torch/csrc/flash_attention.cu',
              replaces='paddle_tpu/ops/pallas/flash_attention.py:141',
-             launches=runs('flash_attention_fwd'), previous_ms=0.0428,
-             **fa_fwd),
+             launches=runs('flash_attention_fwd'), **fa_fwd),
         dict(name='flash_attention_bwd', route='cuda',
              source='paddle_tpu_torch/csrc/flash_attention.cu',
              replaces='paddle_tpu/ops/pallas/flash_attention.py:278',

@@ -32,7 +32,8 @@
 // times the flops.
 //
 // Two forward kernels, chosen in launch_fwd from dtype, D, strides and base
-// pointers alone (ptt_flash_fwd_variant tells which):
+// pointers alone (each writes its code to ptt_flash_fwd's `launched` where it
+// launches, and nowhere else):
 //
 // * flash_fwd_mma_kernel, bf16 with D a multiple of 16 up to 128 and every
 //   stride and base pointer a multiple of 8 elements: the training path.
@@ -698,11 +699,16 @@ cudaError_t allow_smem(K kernel, size_t bytes, bool* done) {
   return err;
 }
 
+// What a forward launcher writes to `launched`: the kernel it put on the
+// stream. Nothing is written where nothing is launched (an empty grid).
+constexpr int kLaunchedSimt = 1;
+constexpr int kLaunchedMma = 2;
+
 template <typename T, int NJ>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
                        void* lse, const void* kv_len,
-                       const long long* strides, const Dims& s,
-                       cudaStream_t stream) {
+                       const long long* strides, int* launched,
+                       const Dims& s, cudaStream_t stream) {
   static bool done = false;
   auto kernel = flash_fwd_kernel<T, NJ>;
   cudaError_t err = allow_smem(kernel, fwd_smem(16 * NJ), &done);
@@ -714,6 +720,7 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
       static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
       static_cast<const int*>(kv_len), view_at(strides, 0),
       view_at(strides, 1), view_at(strides, 2), view_at(strides, 3), s);
+  *launched = kLaunchedSimt;
   return cudaGetLastError();
 }
 
@@ -739,8 +746,8 @@ inline size_t mma_smem(int d) {
 template <int DB>
 cudaError_t launch_fwd_mma(const void* q, const void* k, const void* v,
                            void* o, void* lse, const void* kv_len,
-                           const long long* strides, const Dims& s,
-                           cudaStream_t stream) {
+                           const long long* strides, int* launched,
+                           const Dims& s, cudaStream_t stream) {
   static bool done = false;
   auto kernel = flash_fwd_mma_kernel<DB>;
   cudaError_t err = allow_smem(kernel, mma_smem(16 * DB), &done);
@@ -754,6 +761,7 @@ cudaError_t launch_fwd_mma(const void* q, const void* k, const void* v,
       static_cast<float*>(lse), static_cast<const int*>(kv_len),
       view_at(strides, 0), view_at(strides, 1), view_at(strides, 2),
       view_at(strides, 3), s);
+  *launched = kLaunchedMma;
   return cudaGetLastError();
 }
 
@@ -815,6 +823,9 @@ inline bool valid(const Dims& s, int dtype) {
 // [B*H, Tq] contiguous fp32; kv_len is [B] int32 or null; dtype 0 is fp32,
 // 1 is bf16 (all of q, k, v, dO and the outputs); D <= 128; causal needs
 // Tq == Tk. Each returns the CUDA error of its launch (cudaGetLastError()).
+// ptt_flash_fwd also sets *launched to the forward kernel it launched: 0 none
+// (an empty grid or an error before the launch), 1 the SIMT kernel, 2 the
+// tensor-core kernel.
 #define PTT_DISPATCH(LAUNCH, ...)                                         \
   do {                                                                    \
     if (!ptt::valid(s, dtype)) return (int)cudaErrorInvalidValue;         \
@@ -833,25 +844,17 @@ extern "C" int ptt_flash_fwd(const void* q, const void* k, const void* v,
                              void* o, void* lse, const void* kv_len,
                              const long long* strides, int b, int h, int tq,
                              int tk, int d, int causal, float scale,
-                             int dtype, void* stream) {
+                             int dtype, int* launched, void* stream) {
   const ptt::Dims s{b, h, tq, tk, d, causal, scale};
+  *launched = 0;
   if (ptt::valid(s, dtype) && ptt::use_mma(dtype, d, strides, q, k, v, o)) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     return (int)(d <= 64 ? ptt::launch_fwd_mma<4>(q, k, v, o, lse, kv_len,
-                                                  strides, s, st)
+                                                  strides, launched, s, st)
                          : ptt::launch_fwd_mma<8>(q, k, v, o, lse, kv_len,
-                                                  strides, s, st));
+                                                  strides, launched, s, st));
   }
-  PTT_DISPATCH(launch_fwd, q, k, v, o, lse, kv_len, strides);
-}
-
-// Which forward kernel ptt_flash_fwd launches for these arguments: 1 the
-// tensor-core kernel, 0 the SIMT kernel. `strides` holds q, k, v and out.
-extern "C" int ptt_flash_fwd_variant(const void* q, const void* k,
-                                     const void* v, const void* o,
-                                     const long long* strides, int d,
-                                     int dtype) {
-  return ptt::use_mma(dtype, d, strides, q, k, v, o) ? 1 : 0;
+  PTT_DISPATCH(launch_fwd, q, k, v, o, lse, kv_len, strides, launched);
 }
 
 extern "C" int ptt_flash_bwd_dkv(const void* q, const void* k, const void* v,

@@ -105,10 +105,10 @@ def library():
                 i, i, i, i, i, i, i, i, f, i, p]
             lib.ptt_paged_attention.restype = i
             dims = [i, i, i, i, i, i, f, i, p]   # b h tq tk d causal scale
-            lib.ptt_flash_fwd.argtypes = [p] * 7 + dims
+            # ... dtype, then the launched kernel's code (out), then stream
+            lib.ptt_flash_fwd.argtypes = (
+                [p] * 7 + dims[:-1] + [ctypes.POINTER(i), p])
             lib.ptt_flash_fwd.restype = i
-            lib.ptt_flash_fwd_variant.argtypes = [p] * 5 + [i, i]
-            lib.ptt_flash_fwd_variant.restype = i
             lib.ptt_flash_bwd_dkv.argtypes = [p] * 10 + dims
             lib.ptt_flash_bwd_dkv.restype = i
             lib.ptt_flash_bwd_dq.argtypes = [p] * 9 + dims

@@ -192,24 +192,26 @@ def _dims(q, k, causal, scale):
             build.dtype_code(q.dtype)]
 
 
+# ptt_flash_fwd's report of the kernel it launched (0: none, an empty grid)
+_LAUNCHED_SIMT, _LAUNCHED_MMA = 1, 2
+
+
 def flash_fwd_cuda(q, k, v, kv_len, causal, scale):
     """Launch K2: (out, lse [B, H, Tq] fp32). Which of its two kernels
-    ran is the source's own choice, read back for the variant counters."""
+    ran is the launcher's own choice; it reports the kernel it launched and
+    the variant counters count from that report."""
     o = torch.empty_like(q)
-    b, h, tq, d = q.shape
+    b, h, tq, _ = q.shape
     lse = torch.empty(b, h, tq, dtype=torch.float32, device=q.device)
-    lib = build.library()
-    strides = _strides(q, k, v, o)
-    _call(lib.ptt_flash_fwd, 'ptt_flash_fwd', q, k, v, o, lse,
-          _lens(kv_len), strides, *_dims(q, k, causal, scale))
+    launched = ctypes.c_int(0)
+    _call(build.library().ptt_flash_fwd, 'ptt_flash_fwd', q, k, v, o, lse,
+          _lens(kv_len), _strides(q, k, v, o), *_dims(q, k, causal, scale),
+          ctypes.byref(launched))
     flash_fwd_cuda.launches += 1
-    if b * h * tq > 0:
-        if lib.ptt_flash_fwd_variant(q.data_ptr(), k.data_ptr(),
-                                     v.data_ptr(), o.data_ptr(), strides, d,
-                                     build.dtype_code(q.dtype)):
-            flash_fwd_cuda.launches_mma += 1
-        else:
-            flash_fwd_cuda.launches_simt += 1
+    if launched.value == _LAUNCHED_MMA:
+        flash_fwd_cuda.launches_mma += 1
+    elif launched.value == _LAUNCHED_SIMT:
+        flash_fwd_cuda.launches_simt += 1
     return o, lse
 
 
