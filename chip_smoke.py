@@ -23,13 +23,18 @@ Phases (any fault exits non-zero; no phase is skipped over):
    row-independence check: one row in a 16-row batch, alone and inside a
    128-row broadcast call gives the same bits; flash attention forward
    (K2, against the whole-row and the 64-key tiled plain versions, each
-   case run twice, the launch-variant counters read) and backward (K3) at
-   the training shapes: B=64 H=8 T=64 D=64 bf16
+   case run twice, the launch-variant counters read) and backward (K3:
+   its tensor-core pair and, on copies one element into their storage,
+   its SIMT pair, each run twice for equal bits, the variant counters
+   read; SDPA's backward timed by graph replay beside it) at the
+   training shapes: B=64 H=8 T=64 D=64 bf16
    non-causal and causal, B=8 H=8 T=512 causal with kv_len 256-512 and
    one row at 1, B=4 H=4 T=200 D=128 bf16 and B=64 T=64 fp32 (the SIMT
-   forward); batch norm (K5) at ResNet-50's
-   stem, stage-2 and stage-4 shapes in bf16 NHWC, an NCHW, an fp32 and an
-   odd shape, and its backward against autograd of the plain version.
+   kernels); batch norm (K5, one launch a call, run twice for equal bits)
+   at ResNet-50's stem, stage-1, stage-2 and stage-4 shapes in bf16 NHWC,
+   two NCHW shapes, an fp32 and an odd shape, each staged on chip or read
+   twice as its plan says (both happen in both orders), and its backward
+   against autograd of the plain version.
 4. Engine: DecodeEngine at the documented serving configuration
    (docs/serving.md: vocab 32000, 12 layers, 8 heads, d_model 512,
    d_inner 2048; max_batch 16, block 32, 4096 pages, 64 pages a
@@ -49,8 +54,7 @@ Phases (any fault exits non-zero; no phase is skipped over):
    warm-up and 20 timed steps. ms a step, tokens/s, MFU against 989
    TFLOP/s, the first and last loss (finite, falling), peak memory, and
    the launch counts of the timed steps (K2, both K3 kernels 18 a step,
-   K1 30 a step; all 18 forward launches through the tensor-core
-   kernel).
+   K1 30 a step; every flash launch through its tensor-core variant).
 7. Masked training: 3 + 10 steps at bench_transformer_masked's shape
    (batch 8, seq 512, src_length uniform in [256, 512], lbl_weight
    masking the same positions): padded and real tokens/s.
@@ -78,7 +82,8 @@ line with every kernel's numbers and nvidia-smi's name and power limit.
 that last line. --profile adds, after every other phase, a torch.profiler
 breakdown of decode steps, Transformer and ResNet-50 training steps.
 --kernels-only stops after phase 3 (no verdict line). kernel_times.py
-times K4 and K2 of any checkout of this repository at phase 3's shapes.
+times K4, K2, K3 and K5 of any checkout of this repository at phase 3's
+shapes.
 """
 
 import argparse
@@ -181,19 +186,27 @@ def _counted():
             'batch_norm': fused_batch_norm_train}
 
 
+# the wrappers that also count each of their two variants
+VARIANTS = ('flash_attention_fwd', 'flash_attention_bwd_dkv',
+            'flash_attention_bwd_dq')
+
+
 def reset_launches():
-    """Every kernel wrapper's launch count to 0 (K2's two variants too)."""
-    for fn in _counted().values():
+    """Every kernel wrapper's launch count to 0 (the flash kernels'
+    tensor-core and SIMT variants too)."""
+    counted = _counted()
+    for fn in counted.values():
         fn.launches = 0
-    fwd = _counted()['flash_attention_fwd']
-    fwd.launches_mma = fwd.launches_simt = 0
+    for name in VARIANTS:
+        counted[name].launches_mma = counted[name].launches_simt = 0
 
 
 def read_launches():
-    res = {name: fn.launches for name, fn in _counted().items()}
-    fwd = _counted()['flash_attention_fwd']
-    res['flash_attention_fwd_mma'] = fwd.launches_mma
-    res['flash_attention_fwd_simt'] = fwd.launches_simt
+    counted = _counted()
+    res = {name: fn.launches for name, fn in counted.items()}
+    for name in VARIANTS:
+        res[name + '_mma'] = counted[name].launches_mma
+        res[name + '_simt'] = counted[name].launches_simt
     return res
 
 
@@ -231,13 +244,17 @@ def phase_build():
     for line in res.log.splitlines():
         if 'ptxas info' in line and ('Compiling' in line or 'Used' in line):
             print('  ' + line.strip())
+        elif 'spill' in line:   # the stack frame and spills of the above
+            print('    ' + line.strip())
     lib = build.library()
     for kernel in ('paged_split_kernel', 'paged_merge_kernel',
-                   'flash_fwd_mma_kernel'):
+                   'flash_fwd_mma_kernel', 'flash_bwd_dkv_mma_kernel',
+                   'flash_bwd_dq_mma_kernel', 'bn_train_kernel'):
         require(kernel in res.log, 'ptxas\'s log does not show %s' % kernel)
     print('  flash attention dynamic shared memory at D=64: tensor-core '
-          'forward %d B, SIMT forward %d B, dK/dV %d B, dQ %d B'
-          % tuple(lib.ptt_flash_smem_bytes(i, 64) for i in (3, 0, 1, 2)))
+          'forward %d B, SIMT forward %d B, SIMT dK/dV %d B, SIMT dQ %d B, '
+          'tensor-core backward %d B'
+          % tuple(lib.ptt_flash_smem_bytes(i, 64) for i in (3, 0, 1, 2, 4)))
     return res
 
 
@@ -451,9 +468,36 @@ def _flash_case(torch, card, label, b, h, t, d, dtype, causal, lens, gen):
     ref_out, ref_lse = K.flash_attention_reference_fwd(q, k, v, kv, causal)
     til_out, til_lse = K.flash_attention_tiled_reference_fwd(q, k, v, kv,
                                                              causal)
+    # K3 twice on its own variant (the same bits), and for bf16 the SIMT
+    # pair too, on copies that start one element into their storage
+    variant_bwd = 'mma' if dtype == torch.bfloat16 else 'simt'
+    before = _bwd_counts(K)
     grads = K.flash_attention_bwd(q, k, v, out, lse, do, kv, causal)
+    grads2 = K.flash_attention_bwd(q, k, v, out, lse, do, kv, causal)
+    torch.cuda.synchronize()
+    require(all(torch.equal(a, b) for a, b in zip(grads, grads2)),
+            '%s: two runs of K3 differ' % label)
+    require(_bwd_moved(K, before) == variant_bwd,
+            '%s: K3 launched %s, want the %s pair twice'
+            % (label, _bwd_moved(K, before), variant_bwd))
+    del grads2
     ref_grads = K.flash_attention_reference_bwd(q, k, v, out, lse, do, kv,
                                                 causal)
+    simt_grads = None
+    if dtype == torch.bfloat16:
+        shifted = [_shifted(torch, x) for x in (q, k, v, out, do)]
+        before = _bwd_counts(K)
+        simt_grads = K.flash_attention_bwd(*shifted[:4], lse, shifted[4], kv,
+                                           causal)
+        again = K.flash_attention_bwd(*shifted[:4], lse, shifted[4], kv,
+                                      causal)
+        torch.cuda.synchronize()
+        require(all(torch.equal(a, b) for a, b in zip(simt_grads, again)),
+                '%s: two runs of the SIMT K3 pair differ' % label)
+        require(_bwd_moved(K, before) == 'simt',
+                '%s: K3 on misaligned copies launched %s, want the SIMT '
+                'pair twice' % (label, _bwd_moved(K, before)))
+        del shifted, again
     torch.cuda.synchronize()
     if dtype == torch.float32:
         tol = ('fp32: |kernel - plain| <= 1e-5 * max(1, max|plain|) (the '
@@ -483,6 +527,13 @@ def _flash_case(torch, card, label, b, h, t, d, dtype, causal, lens, gen):
     bwd = [err_ok(g, w) for g, w in zip(grads, ref_grads)]
     bwd_err = max(e for e, _ in bwd)
     bwd_ok = all(ok for _, ok in bwd)
+    simt_note = ''
+    if simt_grads is not None:
+        simt = [err_ok(g, w) for g, w in zip(simt_grads, ref_grads)]
+        simt_err = max(e for e, _ in simt)
+        bwd_ok = bwd_ok and all(ok for _, ok in simt)
+        simt_note = ', SIMT pair %.3g' % simt_err
+        del simt_grads
 
     item = q.element_size()
     n = b * h * t * d * item
@@ -503,37 +554,27 @@ def _flash_case(torch, card, label, b, h, t, d, dtype, causal, lens, gen):
         bwd_eager=eager_ms(torch, bwd_fn, iters=50),
         bwd_plain=device_ms(torch, lambda: K.flash_attention_reference_bwd(
             q, k, v, out, lse, do, kv, causal), iters=10))
-    # yardstick: SDPA forward (graph replay) and its autograd backward
-    # (eager, CUDA events), on the same inputs and mask
-    if kv is None:
-        mask = None
-    else:
-        mask = (torch.arange(t, device=dev)[None, :] < kv[:, None])
-        mask = mask[:, None, None, :]
-        if causal:
-            mask = mask & torch.ones(t, t, dtype=torch.bool,
-                                     device=dev).tril()
+    # yardstick: SDPA forward and its autograd backward (graph replay, as
+    # the kernels; the backward also eager), on the same inputs and mask
+    mask = sdpa_mask(torch, t, kv, causal)
     sdpa_causal = causal and mask is None
     times['fwd_lib'] = device_ms(torch, lambda: F.scaled_dot_product_attention(
         q, k, v, attn_mask=mask, is_causal=sdpa_causal), iters=50)
-    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
-    lib_out = F.scaled_dot_product_attention(*leaves, attn_mask=mask,
-                                             is_causal=sdpa_causal)
-    times['bwd_lib'] = eager_ms(torch, lambda: torch.autograd.grad(
-        lib_out, leaves, do, retain_graph=True), iters=50)
-    del lib_out, leaves
+    times['bwd_lib'], backend, times['bwd_lib_eager'] = sdpa_bwd_ms(
+        torch, q, k, v, do, mask, sdpa_causal)
     print('%s: forward (%s kernel) max_abs_err %.3g vs the whole-row and '
           '%.3g vs the tiled plain version (lse %.3g, limit 1e-4), backward '
-          'max_abs_err %.3g (%s) %s; device ms: forward kernel %.5f, plain '
-          '%.5f, SDPA %.5f, bound %.6f (%s); backward kernels %.5f, plain '
-          '%.5f, SDPA autograd backward (eager) %.5f, bound %.6f (%s); '
-          'eager ms: forward %.5f, backward %.5f [%s]'
-          % (label, variant, fwd_err, til_err, lse_err, bwd_err, tol,
-             'ok' if fwd_ok and bwd_ok else 'MISMATCH', times['fwd_ms'],
-             times['fwd_plain'], times['fwd_lib'], fwd_bound[0],
-             fwd_bound[1], times['bwd_ms'], times['bwd_plain'],
-             times['bwd_lib'], bwd_bound[0], bwd_bound[1],
-             times['fwd_eager'], times['bwd_eager'], card))
+          '(%s pair) max_abs_err %.3g%s (%s) %s; device ms: forward kernel '
+          '%.5f, plain %.5f, SDPA %.5f, bound %.6f (%s); backward kernels '
+          '%.5f, plain %.5f, SDPA backward %.5f (%s; eager %.5f), bound '
+          '%.6f (%s); eager ms: forward %.5f, backward %.5f [%s]'
+          % (label, variant, fwd_err, til_err, lse_err,
+             'tensor-core' if variant_bwd == 'mma' else 'SIMT', bwd_err,
+             simt_note, tol, 'ok' if fwd_ok and bwd_ok else 'MISMATCH',
+             times['fwd_ms'], times['fwd_plain'], times['fwd_lib'],
+             fwd_bound[0], fwd_bound[1], times['bwd_ms'], times['bwd_plain'],
+             times['bwd_lib'], backend, times['bwd_lib_eager'], bwd_bound[0],
+             bwd_bound[1], times['fwd_eager'], times['bwd_eager'], card))
     require(fwd_ok, '%s: K2 disagrees with its plain version' % label)
     require(bwd_ok, '%s: K3 disagrees with its plain version' % label)
     fwd_rec = dict(max_abs_err=max(fwd_err, til_err, lse_err),
@@ -544,8 +585,79 @@ def _flash_case(torch, card, label, b, h, t, d, dtype, causal, lens, gen):
     bwd_rec = dict(max_abs_err=bwd_err, ms=times['bwd_ms'],
                    plain_ms=times['bwd_plain'], bound_ms=bwd_bound[0],
                    bound_by=bwd_bound[1], library_ms=times['bwd_lib'],
-                   eager_ms=times['bwd_eager'])
+                   eager_ms=times['bwd_eager'], library=backend,
+                   library_eager_ms=times['bwd_lib_eager'])
     return fwd_rec, bwd_rec
+
+
+def _bwd_counts(K):
+    return [(w.launches_mma, w.launches_simt)
+            for w in (K.flash_bwd_dq_cuda, K.flash_bwd_dkv_cuda)]
+
+
+def _bwd_moved(K, before):
+    """'mma' or 'simt' when each K3 kernel launched twice since ``before``,
+    both on that variant; else the counts' moves."""
+    moved = [(m - m0, n - n0)
+             for (m, n), (m0, n0) in zip(_bwd_counts(K), before)]
+    return {(2, 0): 'mma', (0, 2): 'simt'}.get(moved[0], moved) \
+        if moved[0] == moved[1] else moved
+
+
+def _shifted(torch, x):
+    """A copy of x that starts one element into its storage: its 16-byte
+    loads would be misaligned, so the flash launchers take the SIMT
+    kernels."""
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    view = flat[1:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+def sdpa_mask(torch, t, kv, causal):
+    """SDPA's boolean mask for the flash cases' kv_len (and causal band),
+    or None where ``is_causal`` alone says it."""
+    if kv is None:
+        return None
+    mask = (torch.arange(t, device=kv.device)[None, :] <
+            kv[:, None])[:, None, None, :]
+    if causal:
+        mask = mask & torch.ones(t, t, dtype=torch.bool,
+                                 device=kv.device).tril()
+    return mask
+
+
+def sdpa_bwd_ms(torch, q, k, v, do, mask, is_causal, iters=50):
+    """SDPA's backward on these inputs: (device ms a call by CUDA-graph
+    replay, as the kernels are timed, the backend's autograd node, eager
+    ms). The forward runs once outside the graph, on the stream that then
+    captures ``iters`` calls of torch.autograd.grad of its output (autograd
+    runs a backward on its forward's stream)."""
+    import torch.nn.functional as F
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        out = F.scaled_dot_product_attention(*leaves, attn_mask=mask,
+                                             is_causal=is_causal)
+
+        def grad():
+            return torch.autograd.grad(out, leaves, do, retain_graph=True)
+
+        for _ in range(3):
+            grad()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            for _ in range(iters):
+                grad()
+    torch.cuda.current_stream().wait_stream(side)
+    graph.replay()
+    torch.cuda.synchronize()
+    ms = _events_ms(torch, graph.replay, iters)
+    del graph
+    eager = eager_ms(torch, grad, iters=iters)
+    backend = out.grad_fn.name()
+    return ms, backend, eager
 
 
 def flash_shapes(torch):
@@ -643,7 +755,17 @@ def _bn_case(torch, card, label, x, layout, gen):
     def kernel():
         return K.fused_batch_norm_train(x, g, b, 1e-5, layout=layout)
 
+    plan = K.launch_plan(x3)
+    before = K.fused_batch_norm_train.launches
     y, m, v = kernel()
+    again = kernel()
+    torch.cuda.synchronize()
+    require(K.fused_batch_norm_train.launches == before + 2,
+            '%s: %d launches for 2 calls'
+            % (label, K.fused_batch_norm_train.launches - before))
+    require(all(torch.equal(a, r) for a, r in zip((y, m, v), again)),
+            '%s: two runs of K5 differ' % label)
+    del again
     ry, rm, rv = K._bn_reference(x3, g, b, 1e-5)
     torch.cuda.synchronize()
     y4 = y.permute(0, 3, 1, 2) if layout == 'NHWC' else y
@@ -682,14 +804,19 @@ def _bn_case(torch, card, label, x, layout, gen):
     lib = device_ms(torch, lambda: F.batch_norm(xl, None, None, g, b,
                                                 training=True, eps=1e-5),
                     iters=20)
-    print('%s: max_abs_err y %.3g, mean %.3g, var %.3g (%s) %s; device ms: '
-          'kernel %.5f, plain %.5f, F.batch_norm %.5f, bound %.6f (%s); '
-          'kernel eager %.5f ms [%s]'
-          % (label, err_y, err_m, err_v, tol, 'ok' if ok else 'MISMATCH', ms,
-             plain, lib, lo, by, eager, card))
+    print('%s: max_abs_err y %.3g, mean %.3g, var %.3g (%s) %s; one launch '
+          'of %d blocks (the card holds %d), x %s, two runs bit-equal; '
+          'device ms: kernel %.5f, plain %.5f, F.batch_norm %.5f, bound %.6f '
+          '(%s); kernel eager %.5f ms [%s]'
+          % (label, err_y, err_m, err_v, tol, 'ok' if ok else 'MISMATCH',
+             plan['blocks'], plan['card_blocks'],
+             'staged on chip (read once)' if plan['on_chip']
+             else 'read twice (off chip)', ms, plain, lib, lo, by, eager,
+             card))
     require(ok, '%s disagrees with its plain version' % label)
     return dict(max_abs_err=max(err_y, err_m, err_v), ms=ms, plain_ms=plain,
-                bound_ms=lo, bound_by=by, library_ms=lib, eager_ms=eager)
+                bound_ms=lo, bound_by=by, library_ms=lib, eager_ms=eager,
+                on_chip=bool(plan['on_chip']))
 
 
 def bf16_ulp_t(torch, a):
@@ -727,34 +854,47 @@ def _bn_grad_check(torch, card, gen):
 
 
 def phase_bn_kernels(torch, card):
-    """K5 at ResNet-50's shapes (batch 64, 224x224: the stem, stage 2's and
-    stage 4's widest), NCHW, fp32 and an odd shape; returns the stem's
-    numbers."""
+    """K5 at ResNet-50's shapes (batch 64, 224x224: the stem, stage 1's
+    64-channel, stage 2's and stage 4's widest), NCHW, fp32 and an odd
+    shape, each staged on chip or read twice as its plan says (checked:
+    both happen in both orders); returns the stem's numbers."""
     gen = torch.Generator(device='cuda').manual_seed(3)
     dev = torch.device('cuda', 0)
-    cases = [
-        ('batch_norm [802816, 64] bf16 NHWC (stem)', (64, 112, 112, 64),
-         torch.bfloat16, 'NHWC'),
-        ('batch_norm [50176, 512] bf16 NHWC', (64, 28, 28, 512),
-         torch.bfloat16, 'NHWC'),
-        ('batch_norm [3136, 2048] bf16 NHWC', (64, 7, 7, 2048),
-         torch.bfloat16, 'NHWC'),
-        ('batch_norm [64, 128, 28, 28] bf16 NCHW', (64, 128, 28, 28),
-         torch.bfloat16, 'NCHW'),
-        ('batch_norm [200704, 256] fp32 NHWC', (64, 56, 56, 256),
-         torch.float32, 'NHWC'),
-        ('batch_norm [1003, 100] fp32 (odd shape)', (1003, 100),
-         torch.float32, 'NC'),
-    ]
     res = []
-    for label, shape, dtype, layout in cases:
+    for label, shape, dtype, layout, on_chip in bn_shapes(torch):
         x = (1.0 + 2.0 * torch.randn(shape, generator=gen, device=dev)) \
             .to(dtype)
         res.append(_bn_case(torch, card, label, x, layout, gen))
+        staged = res[-1].pop('on_chip')
+        require(staged == on_chip, '%s: x staged on chip is %s, want %s'
+                % (label, staged, on_chip))
         del x
         torch.cuda.empty_cache()
     _bn_grad_check(torch, card, gen)
     return res[0]
+
+
+def bn_shapes(torch):
+    """Phase 3's batch-norm cases: (label, shape, dtype, layout, x staged
+    on chip). The first is the kernels line's."""
+    return [
+        ('batch_norm [802816, 64] bf16 NHWC (stem)', (64, 112, 112, 64),
+         torch.bfloat16, 'NHWC', False),
+        ('batch_norm [200704, 64] bf16 NHWC', (64, 56, 56, 64),
+         torch.bfloat16, 'NHWC', True),
+        ('batch_norm [50176, 512] bf16 NHWC', (64, 28, 28, 512),
+         torch.bfloat16, 'NHWC', False),
+        ('batch_norm [3136, 2048] bf16 NHWC', (64, 7, 7, 2048),
+         torch.bfloat16, 'NHWC', True),
+        ('batch_norm [64, 128, 28, 28] bf16 NCHW', (64, 128, 28, 28),
+         torch.bfloat16, 'NCHW', True),
+        ('batch_norm [64, 256, 56, 56] bf16 NCHW', (64, 256, 56, 56),
+         torch.bfloat16, 'NCHW', False),
+        ('batch_norm [200704, 256] fp32 NHWC', (64, 56, 56, 256),
+         torch.float32, 'NHWC', False),
+        ('batch_norm [1003, 100] fp32 (odd shape)', (1003, 100),
+         torch.float32, 'NC', True),
+    ]
 
 
 # ------------------------------------------------------------ phase 4
@@ -1081,6 +1221,17 @@ def _train_steps(torch, exe, feed, avg_cost, n, on_card):
     return time.perf_counter() - t0, [float(v.float()) for v in out]
 
 
+def flash_want(layers, steps):
+    """The flash kernels' launches in ``steps`` Transformer training steps:
+    3 attentions a layer, each one forward and one of each backward kernel,
+    all on their tensor-core variants."""
+    n = 3 * layers * steps
+    want = {}
+    for name in VARIANTS:
+        want.update({name: n, name + '_mma': n, name + '_simt': 0})
+    return want
+
+
 def phase_train(torch, pt, place, card, on_card, batch, seq, vocab, dims,
                 warmup=3, steps=20):
     """Phase 6: bench_transformer through the port; returns the launch
@@ -1125,12 +1276,8 @@ def phase_train(torch, pt, place, card, on_card, batch, seq, vocab, dims,
                                d_model=dims.get('d_model', 512),
                                d_inner=dims.get('d_inner', 2048))
     layers = dims.get('n_layer', 6)
-    want = {'flash_attention_fwd': 3 * layers * steps,
-            'flash_attention_fwd_mma': 3 * layers * steps,
-            'flash_attention_fwd_simt': 0,
-            'flash_attention_bwd_dkv': 3 * layers * steps,
-            'flash_attention_bwd_dq': 3 * layers * steps,
-            'layer_norm': 5 * layers * steps}
+    want = flash_want(layers, steps)
+    want['layer_norm'] = 5 * layers * steps
     print('train: transformer_base vocab %d, %d params, batch %d x seq %d, '
           'amp bf16, dropout 0.1, Adam(1e-4); build + startup %.2f s; '
           'place %r' % (vocab, n_params, batch, seq, t1 - t0, place))
@@ -1141,8 +1288,8 @@ def phase_train(torch, pt, place, card, on_card, batch, seq, vocab, dims,
              flops / (ms / 1e3) / BF16_FLOPS, BF16_FLOPS / 1e12, losses[0],
              losses[-1], card))
     print('train: launches in the %d timed steps: %s (want %s: per layer '
-          'and step, 3 of each flash kernel, every forward through the '
-          'tensor-core kernel, and 5 layer norms)'
+          'and step, 3 of each flash kernel, every one through its '
+          'tensor-core variant, and 5 layer norms)'
           % (steps, {k: launches[k] for k in want}, want))
     require(np.isfinite(losses).all(), 'training loss not finite: %s'
             % losses)
@@ -1189,11 +1336,11 @@ def phase_train_masked(torch, pt, place, card, on_card, batch, seq, vocab,
     require(np.isfinite(losses).all(), 'masked loss not finite: %s' % losses)
     if on_card:
         layers = dims.get('n_layer', 6)
-        require(launches['flash_attention_fwd'] == 3 * layers * steps and
-                launches['flash_attention_fwd_mma'] == 3 * layers * steps and
-                launches['flash_attention_bwd_dq'] == 3 * layers * steps and
-                launches['layer_norm'] == 5 * layers * steps,
-                'masked training launch counts %s' % launches)
+        want = flash_want(layers, steps)
+        want['layer_norm'] = 5 * layers * steps
+        require(all(launches[k] == n for k, n in want.items()),
+                'masked training launch counts %s, want %s'
+                % (launches, want))
     return launches
 
 
@@ -1461,12 +1608,12 @@ def main():
     phase_build()
     ln, pa = phase_kernels(torch, card)
     fa_fwd, fa_bwd = phase_flash_kernels(torch, card)
+    bn = phase_bn_kernels(torch, card)
     if args.kernels_only:
-        print('kernels only: K1, K4, K2 and K3 agree with their plain '
+        print('kernels only: K1, K4, K2, K3 and K5 agree with their plain '
               'versions; no verdict. total %.1f s'
               % (time.perf_counter() - t_start))
         return
-    bn = phase_bn_kernels(torch, card)
     spec = LMSpec(vocab_size=32000, n_layer=12, n_head=8, d_key=64,
                   d_value=64, d_model=512, d_inner=2048)
     reqs = _requests(spec, 32, 64, 512, 64)

@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
-"""Device times of paged attention (K4) and the flash-attention forward (K2)
-of one checkout of this repository, at chip_smoke.py's phase-3 shapes.
+"""Device times of paged attention (K4), the flash-attention forward (K2)
+and backward (K3) and the training batch norm (K5) of one checkout of this
+repository, at chip_smoke.py's phase-3 shapes, and SDPA's backward beside
+K3 (the same inputs and mask, whatever the checkout).
 
     python3 kernel_times.py [DIR]    # on a machine with one CUDA card
 
@@ -32,6 +34,7 @@ def main():
     if not torch.cuda.is_available():
         smoke.fail('torch.cuda.is_available() is false: kernel_times.py '
                    'needs a CUDA card')
+    from paddle_tpu_torch.ops.kernels import batch_norm as bn
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
     from paddle_tpu_torch.ops.kernels import paged_attention as pa
     smoke.require(os.path.dirname(os.path.dirname(os.path.dirname(
@@ -57,14 +60,40 @@ def main():
 
     gen = torch.Generator(device='cuda').manual_seed(1)
     for label, b, h, t, d, dtype, causal, lens in smoke.flash_shapes(torch):
-        q, k, v = (torch.randn(b, h, t, d, generator=gen, device=dev)
-                   .to(dtype) for _ in range(3))
+        q, k, v, do = (torch.randn(b, h, t, d, generator=gen, device=dev)
+                       .to(dtype) for _ in range(4))
         kv = None if lens is None else torch.tensor(lens, device=dev)
         ms[label] = smoke.device_ms(
             torch, lambda: fa.flash_attention_fwd(q, k, v, kv, causal),
             iters=50)
-        print('%s: forward kernel %.5f ms [%s]' % (label, ms[label], card))
-        del q, k, v
+        out, lse = fa.flash_attention_fwd(q, k, v, kv, causal)
+        key = label + ' backward'
+        ms[key] = smoke.device_ms(
+            torch, lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, kv,
+                                                  causal), iters=50)
+        mask = smoke.sdpa_mask(torch, t, kv, causal)
+        sdpa, backend, _ = smoke.sdpa_bwd_ms(torch, q, k, v, do, mask,
+                                             causal and mask is None)
+        ms[key + ' SDPA'] = sdpa
+        print('%s: forward kernel %.5f ms, backward kernels %.5f ms, SDPA '
+              'backward (%s) %.5f ms [%s]'
+              % (label, ms[label], ms[key], backend, sdpa, card))
+        del q, k, v, do, out, lse
+        torch.cuda.empty_cache()
+
+    gen = torch.Generator(device='cuda').manual_seed(3)
+    for label, shape, dtype, layout, _ in smoke.bn_shapes(torch):
+        x = (1.0 + 2.0 * torch.randn(shape, generator=gen, device=dev)) \
+            .to(dtype)
+        c = x.shape[1] if layout == 'NCHW' else x.shape[-1]
+        g = 0.5 + torch.rand(c, generator=gen, device=dev)
+        b = torch.randn(c, generator=gen, device=dev)
+        ms[label] = smoke.device_ms(
+            torch, lambda: bn.fused_batch_norm_train(x, g, b, 1e-5,
+                                                     layout=layout),
+            iters=20)
+        print('%s: kernel %.5f ms [%s]' % (label, ms[label], card))
+        del x
         torch.cuda.empty_cache()
 
     print(card)

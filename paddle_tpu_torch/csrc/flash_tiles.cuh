@@ -1,7 +1,7 @@
 // Tile geometry, masks, asynchronous tile loads and tensor-core fragment
 // helpers shared by the flash-attention kernels (flash_attention.cu): the
-// bf16 forward uses all of them; the backward kernels share the geometry
-// and masks today and are to take the loads and fragments next.
+// bf16 tensor-core forward and both tensor-core backward kernels use all of
+// them; the SIMT kernels share the geometry and masks.
 #pragma once
 
 #include "common.cuh"
@@ -10,6 +10,7 @@ namespace ptt {
 
 constexpr int kTile = 64;  // query rows and key columns per tile
 constexpr float kMasked = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;  // scores in the log2 domain
 
 // [B, H, T, D] addressed through strides (elements); D is contiguous
 struct View {
@@ -139,6 +140,74 @@ __device__ __forceinline__ float fast_exp2(float x) {
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// ldmatrix row addresses into a bf16 tile `t` (rows `ld` apart) for lane
+// `lane`. a_rows: the A operand of rows r0..r0 + 15, columns c0..c0 + 15.
+__device__ __forceinline__ const __nv_bfloat16* a_rows(
+    const __nv_bfloat16* t, int ld, int r0, int c0, int lane) {
+  return t + (r0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld + c0 +
+         (lane >> 4) * 8;
+}
+// b_rows: the B operands of a product whose n index runs down the rows
+// (n0..n0 + 15; registers 0, 1 for n0.., 2, 3 for n0 + 8..), k over the
+// columns c0..c0 + 15
+__device__ __forceinline__ const __nv_bfloat16* b_rows(
+    const __nv_bfloat16* t, int ld, int n0, int c0, int lane) {
+  return t + (n0 + (lane & 7) + (lane >> 4) * 8) * ld + c0 +
+         ((lane >> 3) & 1) * 8;
+}
+// b_trans (for ldmatrix.trans): the B operands of a product whose k index
+// runs down the rows (k0..k0 + 15), n over the columns c0..c0 + 15
+// (registers 0, 1 for c0.., 2, 3 for c0 + 8..)
+__device__ __forceinline__ const __nv_bfloat16* b_trans(
+    const __nv_bfloat16* t, int ld, int k0, int c0, int lane) {
+  return a_rows(t, ld, k0, c0, lane);
+}
+
+// Two neighbouring C blocks (16 x 8 each, fp32) as the bf16 A operand
+// (16 x 16) of the next product: the reference's rounding to the input dtype
+__device__ __forceinline__ void pack_a(unsigned (&a)[4], const float (&lo)[4],
+                                       const float (&hi)[4]) {
+  a[0] = pack_bf16(lo[0], lo[1]);
+  a[1] = pack_bf16(lo[2], lo[3]);
+  a[2] = pack_bf16(hi[0], hi[1]);
+  a[3] = pack_bf16(hi[2], hi[3]);
+}
+
+// A warp's 16 rows of fp32 accumulators (16 x d, C blocks of 8 columns) to
+// bf16 rows t0 + wrow.. of `out`, through the warp's own rows [wrow,
+// wrow + 16) of the staging tile `st` (no other warp reads them) and 16-byte
+// stores; rows at or past t_end are not stored
+template <int DB>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* st, int ld,
+                                           const float (&acc)[2 * DB][4],
+                                           int wrow, __nv_bfloat16* out,
+                                           const View& v, int bi, int hi,
+                                           int t0, int t_end, int d,
+                                           int lane) {
+  const int gid = lane >> 2;
+  const int tig = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 2 * DB; ++i) {
+    if (i < d / 8) {
+      const int col = i * 8 + tig * 2;
+      *reinterpret_cast<unsigned*>(st + (wrow + gid) * ld + col) =
+          pack_bf16(acc[i][0], acc[i][1]);
+      *reinterpret_cast<unsigned*>(st + (wrow + gid + 8) * ld + col) =
+          pack_bf16(acc[i][2], acc[i][3]);
+    }
+  }
+  __syncwarp();
+  const int chunks = d / 8;
+  for (int i = lane; i < 16 * chunks; i += 32) {
+    const int r = i / chunks;
+    const int c = i - r * chunks;
+    const int t = t0 + wrow + r;
+    if (t < t_end)
+      *reinterpret_cast<uint4*>(out + offset(v, bi, hi, t) + c * 8) =
+          *reinterpret_cast<const uint4*>(st + (wrow + r) * ld + c * 8);
+  }
 }
 
 }  // namespace ptt

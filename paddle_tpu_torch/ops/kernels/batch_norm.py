@@ -4,8 +4,11 @@ plain PyTorch version ``_bn_reference``.
 
 ``fused_batch_norm_train`` launches the kernel for CUDA tensors and takes
 the plain version only for CPU tensors; on a CUDA tensor it launches or
-raises. ``fused_batch_norm_train.launches`` counts kernel launches (each
-launch is the kernel's three passes).
+raises (also when the card refuses the kernel's cooperative launch).
+``fused_batch_norm_train.launches`` counts kernel launches: one a call, a
+single cooperative kernel that computes the statistics, waits on a
+grid-wide barrier and normalizes, reading x from device memory once where
+it fits the blocks' shared memory.
 
 Both work on the [N, C, S] view of the activation (S = H·W, or 1 for
 [N, C]), so NHWC and NCHW reach the kernel without a transpose; y keeps
@@ -15,6 +18,8 @@ closed form of the JAX package's ``_bn_vjp_bwd`` in fp32 PyTorch (the TPU
 has no backward kernel for K5 either); mean and var are not
 differentiable (they feed the detached running statistics).
 """
+
+import ctypes
 
 import torch
 
@@ -74,20 +79,43 @@ def _bn_cuda(x3, scale, bias, eps):
     y = torch.empty_like(x3)     # x's strides: the same order
     mean = torch.empty(c, dtype=torch.float32, device=x3.device)
     var = torch.empty_like(mean)
-    lib = build.library()
-    code = build.dtype_code(x3.dtype)
-    floats = lib.ptt_batch_norm_workspace(x3.data_ptr(), y.data_ptr(), n, c,
-                                          s, int(rows), code)
+    floats = _workspace(x3, y)
     work = torch.empty(floats, dtype=torch.float32, device=x3.device)
     with torch.cuda.device(x3.device):
         stream = torch.cuda.current_stream(x3.device).cuda_stream
-        rc = lib.ptt_batch_norm_train(
+        rc = build.library().ptt_batch_norm_train(
             x3.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
             mean.data_ptr(), var.data_ptr(), work.data_ptr(), floats, n, c,
-            s, int(rows), float(eps), code, stream)
+            s, int(rows), float(eps), build.dtype_code(x3.dtype), stream)
     build.check(rc, 'ptt_batch_norm_train')
     fused_batch_norm_train.launches += 1
     return y, mean, var
+
+
+def _workspace(x3, y, plan=None):
+    """fp32 floats of workspace the kernel needs for x3 -> y on x3's card
+    (the launch's split written to ``plan``, a ctypes int[6], if given);
+    raises when the card cannot launch the kernel cooperatively."""
+    n, c, s = x3.shape
+    with torch.cuda.device(x3.device):
+        floats = build.library().ptt_batch_norm_workspace(
+            x3.data_ptr(), y.data_ptr(), n, c, s, int(_channels_last(x3)),
+            build.dtype_code(x3.dtype), plan)
+    if floats < 0:
+        raise RuntimeError('batch_norm kernel: the device cannot launch it '
+                           'cooperatively')
+    return floats
+
+
+def launch_plan(x3):
+    """How the kernel splits the CUDA tensor x3 ([N, C, S] view) on its
+    card: {'vec', 'chunks', 'items', 'blocks', 'on_chip', 'card_blocks'}
+    (on_chip: x is staged in shared memory and read from device memory
+    once), for an output allocated as the wrapper allocates it."""
+    plan = (ctypes.c_int * 6)()
+    _workspace(x3, torch.empty_like(x3), plan)
+    return dict(zip(('vec', 'chunks', 'items', 'blocks', 'on_chip',
+                     'card_blocks'), plan))
 
 
 def _bn_forward(x3, scale, bias, eps):

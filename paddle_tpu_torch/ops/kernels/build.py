@@ -109,14 +109,17 @@ def library():
             lib.ptt_flash_fwd.argtypes = (
                 [p] * 7 + dims[:-1] + [ctypes.POINTER(i), p])
             lib.ptt_flash_fwd.restype = i
-            lib.ptt_flash_bwd_dkv.argtypes = [p] * 10 + dims
+            lib.ptt_flash_bwd_dkv.argtypes = (
+                [p] * 10 + dims[:-1] + [ctypes.POINTER(i), p])
             lib.ptt_flash_bwd_dkv.restype = i
-            lib.ptt_flash_bwd_dq.argtypes = [p] * 9 + dims
+            lib.ptt_flash_bwd_dq.argtypes = (
+                [p] * 10 + dims[:-1] + [ctypes.POINTER(i), p])
             lib.ptt_flash_bwd_dq.restype = i
             lib.ptt_flash_smem_bytes.argtypes = [i, i]
             lib.ptt_flash_smem_bytes.restype = i
             ll = ctypes.c_longlong
-            lib.ptt_batch_norm_workspace.argtypes = [p, p, ll, i, ll, i, i]
+            lib.ptt_batch_norm_workspace.argtypes = [p, p, ll, i, ll, i, i,
+                                                     p]
             lib.ptt_batch_norm_workspace.restype = ll
             lib.ptt_batch_norm_train.argtypes = [p] * 7 + [ll, ll, i, ll, i,
                                                            f, i, p]

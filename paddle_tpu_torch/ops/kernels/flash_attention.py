@@ -18,14 +18,20 @@ only a CPU tensor takes the plain versions. ``flash_fwd_cuda.launches``,
 ``flash_bwd_dkv_cuda.launches`` and ``flash_bwd_dq_cuda.launches`` count
 kernel launches.
 
-K2 is two hand-written kernels: the tensor-core kernel (bf16, head dim a
-multiple of 16 up to 128, strides and base pointers multiples of 8
-elements: the training path) and the SIMT kernel (fp32, and every other
-bf16 input). The launcher in the source chooses from dtype, head dim,
-strides and pointers alone; ``flash_fwd_cuda.launches_mma`` and
-``flash_fwd_cuda.launches_simt`` count each variant.
+K2 and each K3 kernel come in two hand-written variants: a tensor-core
+kernel (bf16, head dim a multiple of 16 up to 128, strides and base
+pointers multiples of 8 elements: the training path) and a SIMT kernel
+(fp32, and every other bf16 input). The launcher in the source chooses from
+dtype, head dim, strides and pointers alone and reports the kernel it
+launched; ``launches_mma`` and ``launches_simt`` on each of the three
+wrappers count from that report.
 ``flash_attention_tiled_reference_fwd`` is a second plain version that
-follows the tensor-core kernel's order of operations.
+follows the tensor-core forward's order of operations.
+
+delta = rowsum(dO * O) of the backward is computed inside K3's dQ kernel
+(in fp32, for the rows it owns) and written to a [B*H, Tq] buffer that the
+dK/dV kernel, launched after it on the same stream, reads: no torch kernel
+computes it.
 """
 
 import ctypes
@@ -192,55 +198,58 @@ def _dims(q, k, causal, scale):
             build.dtype_code(q.dtype)]
 
 
-# ptt_flash_fwd's report of the kernel it launched (0: none, an empty grid)
+# the launchers' report of the kernel they launched (0: none, an empty grid)
 _LAUNCHED_SIMT, _LAUNCHED_MMA = 1, 2
 
 
+def _launch(wrapper, entry, name, *args):
+    """Call a launcher that reports the kernel it launched and count the
+    launch on ``wrapper`` from that report."""
+    launched = ctypes.c_int(0)
+    _call(entry, name, *args, ctypes.byref(launched))
+    wrapper.launches += 1
+    if launched.value == _LAUNCHED_MMA:
+        wrapper.launches_mma += 1
+    elif launched.value == _LAUNCHED_SIMT:
+        wrapper.launches_simt += 1
+
+
 def flash_fwd_cuda(q, k, v, kv_len, causal, scale):
-    """Launch K2: (out, lse [B, H, Tq] fp32). Which of its two kernels
-    ran is the launcher's own choice; it reports the kernel it launched and
-    the variant counters count from that report."""
+    """Launch K2: (out, lse [B, H, Tq] fp32)."""
     o = torch.empty_like(q)
     b, h, tq, _ = q.shape
     lse = torch.empty(b, h, tq, dtype=torch.float32, device=q.device)
-    launched = ctypes.c_int(0)
-    _call(build.library().ptt_flash_fwd, 'ptt_flash_fwd', q, k, v, o, lse,
-          _lens(kv_len), _strides(q, k, v, o), *_dims(q, k, causal, scale),
-          ctypes.byref(launched))
-    flash_fwd_cuda.launches += 1
-    if launched.value == _LAUNCHED_MMA:
-        flash_fwd_cuda.launches_mma += 1
-    elif launched.value == _LAUNCHED_SIMT:
-        flash_fwd_cuda.launches_simt += 1
+    _launch(flash_fwd_cuda, build.library().ptt_flash_fwd, 'ptt_flash_fwd',
+            q, k, v, o, lse, _lens(kv_len), _strides(q, k, v, o),
+            *_dims(q, k, causal, scale))
     return o, lse
 
 
-def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, kv_len, causal, scale):
-    """Launch K3's dK/dV kernel."""
-    dk = torch.empty_like(k)
-    dv = torch.empty_like(v)
-    _call(build.library().ptt_flash_bwd_dkv, 'ptt_flash_bwd_dkv', q, k, v,
-          do, lse, delta, _lens(kv_len), dk, dv,
-          _strides(q, k, v, do, dk, dv), *_dims(q, k, causal, scale))
-    flash_bwd_dkv_cuda.launches += 1
-    return dk, dv
-
-
-def flash_bwd_dq_cuda(q, k, v, do, lse, delta, kv_len, causal, scale):
-    """Launch K3's dQ kernel."""
+def flash_bwd_dq_cuda(q, k, v, do, o, lse, delta, kv_len, causal, scale):
+    """Launch K3's dQ kernel; it also writes delta = rowsum(dO * O) (fp32
+    [B, H, Tq]) into ``delta`` for the dK/dV kernel."""
     dq = torch.empty_like(q)
-    _call(build.library().ptt_flash_bwd_dq, 'ptt_flash_bwd_dq', q, k, v, do,
-          lse, delta, _lens(kv_len), dq, _strides(q, k, v, do, dq),
-          *_dims(q, k, causal, scale))
-    flash_bwd_dq_cuda.launches += 1
+    _launch(flash_bwd_dq_cuda, build.library().ptt_flash_bwd_dq,
+            'ptt_flash_bwd_dq', q, k, v, do, o, lse, delta, _lens(kv_len),
+            dq, _strides(q, k, v, do, o, dq), *_dims(q, k, causal, scale))
     return dq
 
 
-flash_fwd_cuda.launches = 0
-flash_fwd_cuda.launches_mma = 0      # the tensor-core kernel
-flash_fwd_cuda.launches_simt = 0     # the SIMT kernel
-flash_bwd_dkv_cuda.launches = 0
-flash_bwd_dq_cuda.launches = 0
+def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, kv_len, causal, scale):
+    """Launch K3's dK/dV kernel; ``delta`` is what the dQ kernel wrote."""
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    _launch(flash_bwd_dkv_cuda, build.library().ptt_flash_bwd_dkv,
+            'ptt_flash_bwd_dkv', q, k, v, do, lse, delta, _lens(kv_len), dk,
+            dv, _strides(q, k, v, do, dk, dv), *_dims(q, k, causal, scale))
+    return dk, dv
+
+
+for _wrapper in (flash_fwd_cuda, flash_bwd_dq_cuda, flash_bwd_dkv_cuda):
+    _wrapper.launches = 0
+    _wrapper.launches_mma = 0      # the tensor-core kernel
+    _wrapper.launches_simt = 0     # the SIMT kernel
+del _wrapper
 
 
 # ------------------------------------------------------------- dispatch
@@ -255,9 +264,9 @@ def flash_attention_fwd(q, k, v, kv_len=None, causal=False, scale=None):
 
 def flash_attention_bwd(q, k, v, o, lse, do, kv_len=None, causal=False,
                         scale=None):
-    """(dq, dk, dv): both K3 kernels on a CUDA tensor, the plain version
-    on a CPU one. delta = rowsum(dO * O) is taken here in fp32, outside
-    the kernels, as the reference takes it."""
+    """(dq, dk, dv): both K3 kernels on a CUDA tensor (dQ first: it
+    computes delta = rowsum(dO * O) for the dK/dV kernel), the plain
+    version on a CPU one."""
     _check(q, k, v, kv_len, causal)
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     if q.device.type == 'cpu':
@@ -266,13 +275,18 @@ def flash_attention_bwd(q, k, v, o, lse, do, kv_len=None, causal=False,
     if do.dtype != q.dtype or do.shape != q.shape:
         raise ValueError('flash_attention backward: dO must match q, got %s '
                          '%s' % (do.dtype, tuple(do.shape)))
+    if o.dtype != q.dtype or o.shape != q.shape:
+        raise ValueError('flash_attention backward: O must match q, got %s '
+                         '%s' % (o.dtype, tuple(o.shape)))
     if do.stride(3) != 1:
         do = do.contiguous()
-    delta = (do.float() * o.float()).sum(dim=-1).contiguous()
+    if o.stride(3) != 1:
+        o = o.contiguous()
     lse = lse.contiguous()
+    delta = torch.empty(lse.shape, dtype=torch.float32, device=q.device)
+    dq = flash_bwd_dq_cuda(q, k, v, do, o, lse, delta, kv_len, causal, scale)
     dk, dv = flash_bwd_dkv_cuda(q, k, v, do, lse, delta, kv_len, causal,
                                 scale)
-    dq = flash_bwd_dq_cuda(q, k, v, do, lse, delta, kv_len, causal, scale)
     return dq, dk, dv
 
 

@@ -228,3 +228,61 @@ def test_batch_norm_op_matches_jax_default_path(monkeypatch, amp):
     tol = 1e-3 if amp else 1e-4
     for (g, _), (r, _) in zip(got[1:], ref[1:]):
         np.testing.assert_allclose(g, r, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+def test_plain_matches_pallas_at_2048_channels(dtype):
+    """C = 2048 (ResNet-50's stage-4 width: one launch with x staged on
+    chip on the card) against the JAX package's Pallas kernel in
+    interpret mode: mean rtol 1e-5, var rtol 1e-4 atol 1e-5; y fp32 1e-4,
+    bf16 one bf16 ulp (the same rounding points on both sides)."""
+    x, scale, bias, _ = _inputs((2, 2, 2, 2048), 2048, seed=31)
+    jx = jnp.asarray(x).astype(dtype)
+    jy, jm, jv = jbn.fused_batch_norm_train(jx, jnp.asarray(scale),
+                                           jnp.asarray(bias), 1e-5,
+                                           layout='NHWC')
+    tdt = getattr(torch, dtype)
+    tx = torch.tensor(np.asarray(jx.astype(jnp.float32))).to(tdt)
+    ty, tm, tv = tbn.fused_batch_norm_train(tx, torch.tensor(scale),
+                                            torch.tensor(bias), 1e-5,
+                                            layout='NHWC')
+    np.testing.assert_allclose(tm.numpy(), np.asarray(jm), rtol=1e-5)
+    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), rtol=1e-4,
+                               atol=1e-5)
+    y32 = np.asarray(jy.astype(jnp.float32))
+    if dtype == 'float32':
+        np.testing.assert_allclose(ty.numpy(), y32, rtol=1e-4, atol=1e-4)
+    else:
+        assert _within_ulp(ty.float().numpy(), y32)
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+def test_plain_matches_jax_reference_at_an_odd_row_count(dtype):
+    """An odd row count (3 x 37 x 11 = 1221 rows, which the Pallas kernel
+    refuses: it needs rows % 8 == 0) against the JAX package's jnp
+    reference of the same kernel (_bn_reference): statistics as above; y
+    fp32 1e-4; bf16 within one bf16 ulp each of x*a, b and y (the jnp
+    reference rounds y once in fp32, the port at the Pallas kernel's
+    points)."""
+    x, scale, bias, _ = _inputs((3, 37, 11, 96), 96, seed=32)
+    jx = jnp.asarray(x).astype(dtype)
+    jy, jm, jv = jbn._bn_reference(jx.reshape(-1, 96), jnp.asarray(scale),
+                                   jnp.asarray(bias), 1e-5)
+    tdt = getattr(torch, dtype)
+    tx = torch.tensor(np.asarray(jx.astype(jnp.float32))).to(tdt)
+    ty, tm, tv = tbn.fused_batch_norm_train(tx, torch.tensor(scale),
+                                            torch.tensor(bias), 1e-5,
+                                            layout='NHWC')
+    np.testing.assert_allclose(tm.numpy(), np.asarray(jm), rtol=1e-5)
+    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), rtol=1e-4,
+                               atol=1e-5)
+    y32 = np.asarray(jy.astype(jnp.float32)).reshape(x.shape)
+    got = ty.float().numpy()
+    if dtype == 'float32':
+        np.testing.assert_allclose(got, y32, rtol=1e-4, atol=1e-4)
+    else:
+        xf = np.asarray(jx.astype(jnp.float32), np.float64)
+        a = scale / np.sqrt(np.asarray(jv, np.float64) + 1e-5)
+        b = bias - np.asarray(jm, np.float64) * a
+        tol = _bf16_ulp(xf * a) + _bf16_ulp(b) + _bf16_ulp(y32)
+        assert np.all(np.abs(got - y32) <= tol)

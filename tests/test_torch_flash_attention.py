@@ -258,3 +258,43 @@ def test_tiled_version_rows_without_a_live_key():
     np.testing.assert_allclose(out.numpy(), other.numpy(), rtol=1e-5,
                                atol=1e-6)
     np.testing.assert_allclose(lse.numpy(), lse2.numpy(), rtol=1e-6)
+
+
+# ---- the backward at the shapes K3's tensor-core pair takes: head dims
+# 16, 32 and 64 (multiples of 16), T = 200 (three full 64-row tiles and a
+# tail of 8), and a row whose kv_len is 1
+BWD_TC_CASES = [(2, 1, 200, 16, False, True), (2, 1, 200, 32, True, True),
+                (2, 1, 200, 64, True, True), (2, 1, 200, 64, False, False)]
+
+
+@pytest.mark.parametrize('case', BWD_TC_CASES)
+def test_backward_plain_matches_pallas_at_tensor_core_shapes(case):
+    """flash_attention_reference_bwd (bf16 inputs) against jax.vjp of the
+    JAX package's flash attention, its Pallas backward kernels in
+    interpret mode: 1e-2 of the largest value plus 1e-2 relative (dq, dk,
+    dv rounded to bf16; p and ds rounded to bf16 on both sides from scores
+    summed in another order). delta = rowsum(dO * O) is formed from the
+    forward's own output on each side."""
+    b, h, t, d, causal, kv = case
+    q, k, v, do, lens = _inputs(b, h, t, d, kv, seed=21)
+    dtype = 'bfloat16'
+    jq, jk, jv, jdo = (jnp.asarray(a).astype(dtype) for a in (q, k, v, do))
+    jlens = None if lens is None else jnp.asarray(lens)
+    _, vjp = jax.vjp(lambda a, b_, c: jfa.flash_attention(
+        a, b_, c, causal=causal, kv_len=jlens), jq, jk, jv)
+    want = [np.asarray(x.astype(jnp.float32)) for x in vjp(jdo)]
+    tq, tk, tv, tdo = (torch.tensor(_round(a, dtype)).to(torch.bfloat16)
+                       for a in (q, k, v, do))
+    tlens = None if lens is None else torch.tensor(lens)
+    o, lse = tfa.flash_attention_reference_fwd(tq, tk, tv, tlens, causal)
+    got = tfa.flash_attention_reference_bwd(tq, tk, tv, o, lse, tdo, tlens,
+                                            causal)
+    for g, w in zip(got, want):
+        g = g.float().numpy()
+        assert np.all(np.abs(g - w) <= _tol(dtype, w)), np.abs(g - w).max()
+    if lens is not None:
+        # the kv_len-1 row attends to key 0 only: every later key of that
+        # example gets no gradient
+        assert lens[-1] == 1
+        assert np.all(got[1][-1, :, 1:].float().numpy() == 0)
+        assert np.all(got[2][-1, :, 1:].float().numpy() == 0)

@@ -600,3 +600,187 @@ def test_resnet_training_step_on_card_equals_host(cuda):
         for n in weights:
             gap = np.abs(scopes[0].numpy(n) - scopes[1].numpy(n))
             assert gap.max() <= 1e-4, n
+
+
+# ---- K3's two variants: the tensor-core pair (bf16, aligned) and the SIMT
+# pair. chip_smoke.py's five flash cases: (B, H, T, D, dtype, causal, kv_len
+# spec), kv 'one' being the masked case's lengths with the last row at 1
+BWD_CASES = [
+    (64, 8, 64, 64, torch.bfloat16, False, 'full'),
+    (64, 8, 64, 64, torch.bfloat16, True, 'full'),
+    (8, 8, 512, 64, torch.bfloat16, True, 'uniform'),
+    (4, 4, 200, 128, torch.bfloat16, False, 'uniform'),
+    (64, 8, 64, 64, torch.float32, False, 'full'),
+]
+
+
+def _bwd_counts():
+    return tuple((w.launches, w.launches_mma, w.launches_simt)
+                 for w in (tfa.flash_bwd_dq_cuda, tfa.flash_bwd_dkv_cuda))
+
+
+def _bwd_variant(before):
+    """'mma' or 'simt' when both K3 kernels launched once since ``before``
+    and on the same variant, else the counter moves."""
+    moved = [tuple(a - b for a, b in zip(now, was))
+             for now, was in zip(_bwd_counts(), before)]
+    if moved == [(1, 1, 0)] * 2:
+        return 'mma'
+    if moved == [(1, 0, 1)] * 2:
+        return 'simt'
+    return moved
+
+
+@pytest.mark.parametrize('case', BWD_CASES)
+def test_flash_backward_pair_matches_plain_and_repeats(cuda, case):
+    """Both K3 kernels against flash_attention_reference_bwd (bf16: 1e-2 of
+    the largest value plus 1e-2 relative; fp32: 1e-5), bf16 on the
+    tensor-core pair and fp32 on the SIMT pair, and a second run giving the
+    same bits (no atomics; a copy not waited for would show here)."""
+    b, h, t, d, dtype, causal, kv = case
+    q, k, v, do, lens = _flash_inputs(cuda, b, h, t, d, dtype, kv, seed=11)
+    out, lse = tfa.flash_attention_fwd(q, k, v, lens, causal)
+    want = tfa.flash_attention_reference_bwd(q, k, v, out, lse, do, lens,
+                                             causal)
+    runs = []
+    for _ in range(2):
+        before = _bwd_counts()
+        runs.append(tfa.flash_attention_bwd(q, k, v, out, lse, do, lens,
+                                            causal))
+        torch.cuda.synchronize()
+        assert _bwd_variant(before) == (
+            'mma' if dtype == torch.bfloat16 else 'simt')
+    for g, w in zip(runs[0], want):
+        assert g.dtype == dtype
+        _close(g, w, dtype)
+    for g0, g1 in zip(*runs):
+        assert torch.equal(g0, g1)
+
+
+@pytest.mark.parametrize('case', [
+    (2, 3, 200, 64, True, 'uniform'), (3, 2, 200, 16, False, 'uniform'),
+    (2, 2, 130, 32, True, 'full'), (1, 2, 65, 64, True, 'full'),
+    (2, 2, 70, 48, False, 'uniform'),
+])
+def test_flash_backward_tensor_cores_at_tails_and_short_rows(cuda, case):
+    """T not a multiple of the 64-row tile (65: a tail of one row), head
+    dims 16..64 and rows with kv_len 1, on the tensor-core pair."""
+    b, h, t, d, causal, kv = case
+    q, k, v, do, lens = _flash_inputs(cuda, b, h, t, d, torch.bfloat16, kv,
+                                      seed=12)
+    out, lse = tfa.flash_attention_fwd(q, k, v, lens, causal)
+    before = _bwd_counts()
+    got = tfa.flash_attention_bwd(q, k, v, out, lse, do, lens, causal)
+    torch.cuda.synchronize()
+    assert _bwd_variant(before) == 'mma'
+    want = tfa.flash_attention_reference_bwd(q, k, v, out, lse, do, lens,
+                                             causal)
+    for g, w in zip(got, want):
+        _close(g, w, torch.bfloat16)
+
+
+def test_flash_backward_other_inputs_take_the_simt_pair(cuda):
+    """fp32, a bf16 head dim that is no multiple of 16 and a bf16 view one
+    element into its storage go to the SIMT pair, and are right there."""
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    flat = torch.randn(4, 1 + 2 * 2 * 70 * 64, generator=gen, device=cuda) \
+        .to(torch.bfloat16)
+    shifted = [flat[i, 1:].view(2, 2, 70, 64) for i in range(4)]
+    odd = [torch.randn(2, 2, 70, 40, generator=gen, device=cuda)
+           .to(torch.bfloat16) for _ in range(4)]
+    fp32 = [torch.randn(2, 2, 70, 64, generator=gen, device=cuda)
+            for _ in range(4)]
+    for q, k, v, do in (shifted, odd, fp32):
+        out, lse = tfa.flash_attention_fwd(q, k, v, None, True)
+        before = _bwd_counts()
+        got = tfa.flash_attention_bwd(q, k, v, out, lse, do, None, True)
+        torch.cuda.synchronize()
+        assert _bwd_variant(before) == 'simt'
+        want = tfa.flash_attention_reference_bwd(q, k, v, out, lse, do, None,
+                                                 True)
+        for g, w in zip(got, want):
+            _close(g, w, q.dtype)
+
+
+def test_flash_backward_head_split_views_on_the_tensor_cores(cuda):
+    """[B, H, T, D] views of [B, T, H*D] activations (the model's layout)
+    take the tensor-core pair and give the bits of contiguous copies."""
+    b, h, t, d = 4, 8, 128, 64
+    gen = torch.Generator(device=cuda).manual_seed(14)
+    q, k, v, do = (torch.randn(b, t, h * d, generator=gen, device=cuda)
+                   .to(torch.bfloat16).reshape(b, t, h, d).transpose(1, 2)
+                   for _ in range(4))
+    lens = torch.tensor([128, 100, 65, 1], device=cuda)
+    out, lse = tfa.flash_attention_fwd(q, k, v, lens, False)
+    before = _bwd_counts()
+    grads = tfa.flash_attention_bwd(q, k, v, out, lse, do, lens, False)
+    assert _bwd_variant(before) == 'mma'
+    assert all(g.stride() == x.stride() for g, x in zip(grads, (q, k, v)))
+    refs = tfa.flash_attention_bwd(q.contiguous(), k.contiguous(),
+                                   v.contiguous(), out.contiguous(), lse,
+                                   do.contiguous(), lens, False)
+    for g, r in zip(grads, refs):
+        torch.testing.assert_close(g, r, rtol=0, atol=0)
+
+
+# ---- K5's single cooperative launch: (layout, shape, dtype, on chip): x
+# staged in shared memory (read once) or walked twice, in both orders
+BN_ONE_LAUNCH_CASES = [
+    ('NHWC', (64, 7, 7, 2048), torch.bfloat16, True),
+    ('NHWC', (64, 56, 56, 64), torch.bfloat16, True),
+    ('NHWC', (64, 112, 112, 64), torch.bfloat16, False),
+    ('NCHW', (64, 128, 28, 28), torch.bfloat16, True),
+    ('NCHW', (64, 256, 56, 56), torch.bfloat16, False),
+    ('NCHW', (8, 2048, 7, 7), torch.float32, True),
+    ('NC', (1003, 100), torch.float32, True),
+    ('NHWC', (3, 37, 11, 2048), torch.bfloat16, True),
+]
+
+
+@pytest.mark.parametrize('case', BN_ONE_LAUNCH_CASES)
+def test_batch_norm_one_launch_on_and_off_chip_repeats(cuda, case):
+    """One launch a call, staged on chip where the plan says it fits,
+    within the plain version's tolerances, and the same bits twice."""
+    layout, shape, dtype, on_chip = case
+    gen = torch.Generator(device=cuda).manual_seed(15)
+    x = (1.0 + 2.0 * torch.randn(shape, generator=gen, device=cuda)).to(dtype)
+    c = shape[1] if layout == 'NCHW' else shape[-1]
+    x4 = x.permute(0, 3, 1, 2) if layout == 'NHWC' else x
+    x3 = x4.reshape(x4.shape[0], c, -1) if x.dim() == 4 else x.unsqueeze(-1)
+    plan = tbn.launch_plan(x3)
+    assert bool(plan['on_chip']) == on_chip
+    assert plan['blocks'] <= plan['card_blocks']
+    _bn_check(x, layout, gen)
+    s = 0.5 + torch.rand(c, generator=gen, device=cuda)
+    b = torch.randn(c, generator=gen, device=cuda)
+    runs = []
+    for _ in range(2):
+        before = tbn.fused_batch_norm_train.launches
+        runs.append(tbn.fused_batch_norm_train(x, s, b, 1e-5, layout=layout))
+        assert tbn.fused_batch_norm_train.launches == before + 1
+    torch.cuda.synchronize()
+    for r0, r1 in zip(*runs):
+        assert torch.equal(r0, r1)
+
+
+def test_batch_norm_cooperative_launch_captures_into_a_graph(cuda):
+    """The cooperative launch records into a CUDA graph (chip_smoke.py
+    times kernels by graph replay) and the replay gives the eager bits."""
+    gen = torch.Generator(device=cuda).manual_seed(16)
+    x = torch.randn(64, 14, 14, 1024, generator=gen, device=cuda) \
+        .to(torch.bfloat16)
+    s = 0.5 + torch.rand(1024, generator=gen, device=cuda)
+    b = torch.randn(1024, generator=gen, device=cuda)
+    want = tbn.fused_batch_norm_train(x, s, b, 1e-5)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tbn.fused_batch_norm_train(x, s, b, 1e-5)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = tbn.fused_batch_norm_train(x, s, b, 1e-5)
+    graph.replay()
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
