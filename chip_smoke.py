@@ -9,19 +9,25 @@ Phases (any fault exits non-zero; no phase is skipped over):
 
 1. Device: name, count, nvidia-smi's name and power limit, TF32 flags
    (both set off: fp32 matmuls and convolutions run in full fp32).
-2. Build: every CUDA kernel from paddle_tpu_torch/csrc with one nvcc
-   call; build time and ptxas's registers / shared memory per kernel.
+2. Build: every CUDA kernel from paddle_tpu_torch/csrc, one nvcc a
+   source, all started together, then a link; build time and ptxas's
+   registers / shared memory / spills per kernel.
 3. Kernel vs plain version on the card at the main paths' shapes, fp32
    and bf16, with the stated tolerance; device times of the kernel, the
    plain version and a library yardstick (CUDA-graph replay, CUDA
    events) beside each kernel's bound, and the kernel's eager time.
-   Layer norm (K1); paged attention (K4) against both its plain versions
+   Layer norm (K1) and its two backward kernels (against autograd of the
+   plain forward, twice for equal bits, beside F.layer_norm's backward),
+   at [4096, 512] (the Transformer's) among others; paged attention (K4)
+   against both its plain versions
    (one-pass softmax; per-chunk partials merged in split order) at the
    decode shapes (16 rows, lengths 1..2048 with empty slots; every row at
    2,048 tokens: every split live; the engine's range 64..576) and the
    prefill's broadcast table at 128 and 512 rows, fp32 and bf16, and a
    row-independence check: one row in a 16-row batch, alone and inside a
-   128-row broadcast call gives the same bits; flash attention forward
+   128-row broadcast call gives the same bits, and its any-width kernel
+   at bf16 d_key 36, fp32 d_key 30 and D = Dv = 192; flash attention
+   forward
    (K2, against the whole-row and the 64-key tiled plain versions, each
    case run twice, the launch-variant counters read) and backward (K3:
    its tensor-core pair and, on copies one element into their storage,
@@ -30,11 +36,15 @@ Phases (any fault exits non-zero; no phase is skipped over):
    training shapes: B=64 H=8 T=64 D=64 bf16
    non-causal and causal, B=8 H=8 T=512 causal with kv_len 256-512 and
    one row at 1, B=4 H=4 T=200 D=128 bf16 and B=64 T=64 fp32 (the SIMT
-   kernels); batch norm (K5, one launch a call, run twice for equal bits)
+   kernels), and the inputs of the JAX op's default path: causal Tq=256
+   Tk=512 and Tq=512 Tk=256 (bottom-right), kv_len-0 rows, D=256 bf16 and
+   D=192 fp32; batch norm (K5, one launch a call, run twice for equal bits)
    at ResNet-50's stem, stage-1, stage-2 and stage-4 shapes in bf16 NHWC,
    two NCHW shapes, an fp32 and an odd shape, each staged on chip or read
    twice as its plan says (both happen in both orders), and its backward
-   against autograd of the plain version.
+   kernel at each shape (one launch, twice for equal bits, against
+   batch_norm_reference_bwd, beside F.batch_norm's backward) and through
+   autograd against autograd of the plain version.
 4. Engine: DecodeEngine at the documented serving configuration
    (docs/serving.md: vocab 32000, 12 layers, 8 heads, d_model 512,
    d_inner 2048; max_batch 16, block 32, 4096 pages, 64 pages a
@@ -54,7 +64,8 @@ Phases (any fault exits non-zero; no phase is skipped over):
    warm-up and 20 timed steps. ms a step, tokens/s, MFU against 989
    TFLOP/s, the first and last loss (finite, falling), peak memory, and
    the launch counts of the timed steps (K2, both K3 kernels 18 a step,
-   K1 30 a step; every flash launch through its tensor-core variant).
+   K1 30 a step and its backward 60; every flash launch through its
+   tensor-core variant).
 7. Masked training: 3 + 10 steps at bench_transformer_masked's shape
    (batch 8, seq 512, src_length uniform in [256, 512], lbl_weight
    masking the same positions): padded and real tokens/s.
@@ -67,8 +78,9 @@ Phases (any fault exits non-zero; no phase is skipped over):
    'bf16'; Executor(CUDAPlace(0)).run) at batch 64 x 3 x 224 x 224,
    1000 classes, on bench.py's RandomState(0) feed: 3 warm-up and 20
    timed steps. ms a step, images/s, MFU of the conv and fc FLOPs, the
-   first and last loss (finite, falling), peak memory, K5 launches (53
-   a step), every running mean and variance moved and finite.
+   first and last loss (finite, falling), peak memory, K5 launches and
+   its backward's (53 a step each), every running mean and variance
+   moved and finite.
 10. ResNet card vs CPU: ResNet-50 at 32x32, batch 8, 10 classes, NCHW,
    fp32, Momentum(0.01), 3 steps from the same weights on each place:
    the first loss within 1e-3 relative, the running statistics and
@@ -82,8 +94,8 @@ line with every kernel's numbers and nvidia-smi's name and power limit.
 that last line. --profile adds, after every other phase, a torch.profiler
 breakdown of decode steps, Transformer and ResNet-50 training steps.
 --kernels-only stops after phase 3 (no verdict line). kernel_times.py
-times K4, K2, K3 and K5 of any checkout of this repository at phase 3's
-shapes.
+times K1, K4, K2, K3 and K5 and the backward kernels of any checkout of
+this repository at phase 3's shapes.
 """
 
 import argparse
@@ -172,42 +184,43 @@ def bound_ms(n_bytes, n_ops, peak_ops=FP32_FLOPS):
     return max(t_bytes, t_ops), 'bytes' if t_bytes >= t_ops else 'operations'
 
 
-def _counted():
-    """{name: the kernel wrapper that counts its launches}."""
-    from paddle_tpu_torch.ops.kernels import flash_attention as fa
-    from paddle_tpu_torch.ops.kernels.batch_norm import fused_batch_norm_train
-    from paddle_tpu_torch.ops.kernels.layer_norm import fused_layer_norm
-    from paddle_tpu_torch.ops.kernels.paged_attention import paged_attention
-    return {'layer_norm': fused_layer_norm,
-            'paged_attention': paged_attention,
-            'flash_attention_fwd': fa.flash_fwd_cuda,
-            'flash_attention_bwd_dkv': fa.flash_bwd_dkv_cuda,
-            'flash_attention_bwd_dq': fa.flash_bwd_dq_cuda,
-            'batch_norm': fused_batch_norm_train}
-
-
-# the wrappers that also count each of their two variants
+# the flash wrappers, which also count each of their two variants
 VARIANTS = ('flash_attention_fwd', 'flash_attention_bwd_dkv',
             'flash_attention_bwd_dq')
 
 
+def _counters():
+    """[(name, wrapper, attribute)]: every launch count the smoke reads
+    (each wrapper adds one where it launches its kernel), and the batch
+    norm backward's copies of a gradient into x's layout."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.kernels.batch_norm import fused_batch_norm_train
+    from paddle_tpu_torch.ops.kernels.layer_norm import fused_layer_norm
+    from paddle_tpu_torch.ops.kernels.paged_attention import paged_attention
+    res = [('layer_norm', fused_layer_norm, 'launches'),
+           ('layer_norm_bwd', fused_layer_norm, 'bwd_launches'),
+           ('paged_attention', paged_attention, 'launches'),
+           ('paged_attention_v16', paged_attention, 'launches_v16'),
+           ('paged_attention_any', paged_attention, 'launches_any'),
+           ('batch_norm', fused_batch_norm_train, 'launches'),
+           ('batch_norm_bwd', fused_batch_norm_train, 'bwd_launches'),
+           ('batch_norm_bwd_gy_copies', fused_batch_norm_train,
+            'bwd_gy_copies')]
+    for name, fn in zip(VARIANTS, (fa.flash_fwd_cuda, fa.flash_bwd_dkv_cuda,
+                                   fa.flash_bwd_dq_cuda)):
+        res += [(name, fn, 'launches'), (name + '_mma', fn, 'launches_mma'),
+                (name + '_simt', fn, 'launches_simt')]
+    return res
+
+
 def reset_launches():
-    """Every kernel wrapper's launch count to 0 (the flash kernels'
-    tensor-core and SIMT variants too)."""
-    counted = _counted()
-    for fn in counted.values():
-        fn.launches = 0
-    for name in VARIANTS:
-        counted[name].launches_mma = counted[name].launches_simt = 0
+    """Every kernel wrapper's launch counts to 0."""
+    for _, fn, attr in _counters():
+        setattr(fn, attr, 0)
 
 
 def read_launches():
-    counted = _counted()
-    res = {name: fn.launches for name, fn in counted.items()}
-    for name in VARIANTS:
-        res[name + '_mma'] = counted[name].launches_mma
-        res[name + '_simt'] = counted[name].launches_simt
-    return res
+    return {name: getattr(fn, attr) for name, fn, attr in _counters()}
 
 
 # ------------------------------------------------------------ phase 1
@@ -238,9 +251,9 @@ def phase_build():
     split-KV and the tensor-core kernels."""
     from paddle_tpu_torch.ops.kernels import build
     res = build.build()
-    print('build: %.2f s (nvcc, one call, %s) -> %s'
-          % (res.seconds, ' '.join(build.SOURCES),
-             os.path.relpath(res.path, REPO)))
+    print('build: %.2f s (one nvcc a source, all started together, then a '
+          'link: %s) -> %s' % (res.seconds, ' '.join(build.SOURCES),
+                               os.path.relpath(res.path, REPO)))
     for line in res.log.splitlines():
         if 'ptxas info' in line and ('Compiling' in line or 'Used' in line):
             print('  ' + line.strip())
@@ -248,8 +261,10 @@ def phase_build():
             print('    ' + line.strip())
     lib = build.library()
     for kernel in ('paged_split_kernel', 'paged_merge_kernel',
-                   'flash_fwd_mma_kernel', 'flash_bwd_dkv_mma_kernel',
-                   'flash_bwd_dq_mma_kernel', 'bn_train_kernel'):
+                   'paged_split_any_kernel', 'flash_fwd_mma_kernel',
+                   'flash_bwd_dkv_mma_kernel', 'flash_bwd_dq_mma_kernel',
+                   'bn_train_kernel', 'bn_bwd_kernel', 'ln_warp_kernel',
+                   'ln_bwd_rows_kernel', 'ln_bwd_cols_kernel'):
         require(kernel in res.log, 'ptxas\'s log does not show %s' % kernel)
     print('  flash attention dynamic shared memory at D=64: tensor-core '
           'forward %d B, SIMT forward %d B, SIMT dK/dV %d B, SIMT dQ %d B, '
@@ -296,11 +311,115 @@ def _ln_case(torch, card, n, d, dtype, gen):
                 bound_by=by, library_ms=lib, eager_ms=eager)
 
 
-def _paged_inputs(torch, gen, n, lens, dtype, broadcast, h=8, d=64, bs=32,
-                  p=64, nb=4096, empty=()):
+def grad_ms(torch, fn, inputs, grad_out, iters=50):
+    """The backward of ``fn(*inputs)`` under autograd: (device ms a call by
+    CUDA-graph replay, the autograd node that ran it, eager ms). The forward
+    runs once outside the graph, on the stream that then captures ``iters``
+    calls of torch.autograd.grad of its output (autograd runs a backward on
+    its forward's stream)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        leaves = [x.detach().clone().requires_grad_() for x in inputs]
+        out = fn(*leaves)
+
+        def grad():
+            return torch.autograd.grad(out, leaves, grad_out,
+                                       retain_graph=True)
+
+        for _ in range(3):
+            grad()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            for _ in range(iters):
+                grad()
+    torch.cuda.current_stream().wait_stream(side)
+    graph.replay()
+    torch.cuda.synchronize()
+    ms = _events_ms(torch, graph.replay, iters)
+    del graph
+    eager = eager_ms(torch, grad, iters=iters)
+    return ms, out.grad_fn.name(), eager
+
+
+GRAD_TOL = ('dx: bf16 within 1 bf16 ulp of max(|kernel|, |plain|) + 1e-6 '
+            'max|dx|, fp32 max-norm relative 1e-5; parameter gradients '
+            'max-norm relative 1e-5')
+
+
+def grads_ok(torch, got, want, dtype):
+    """(max abs errors, ok) of a backward kernel's outputs against its plain
+    version's: dx in x's dtype first, then fp32 parameter gradients. bf16
+    dx: within one bf16 ulp of max(|kernel|, |plain|), plus 1e-6 of the
+    largest |dx| (fp32 sums taken in another order where dx cancels to
+    near 0); fp32 dx and every parameter gradient: max-norm relative 1e-5
+    (|kernel - plain| <= 1e-5 * max|plain|)."""
+    errs, ok = [], True
+    for i, (g, w) in enumerate(zip(got, want)):
+        g, w = g.float(), w.float()
+        diff = (g - w).abs()
+        top = float(w.abs().max())
+        errs.append(float(diff.max()))
+        if i == 0 and dtype == torch.bfloat16:
+            ok = ok and bool((diff <= bf16_ulp_t(torch, torch.maximum(
+                g.abs(), w.abs())) + 1e-6 * top).all())
+        else:
+            ok = ok and errs[-1] <= 1e-5 * top
+    return errs, ok
+
+
+def _ln_bwd_case(torch, card, n, d, dtype, gen):
+    """K1's backward kernels (row kernel + column sum) against
+    layer_norm_reference_bwd (autograd through the plain forward), two
+    runs for equal bits, and their times beside F.layer_norm's autograd
+    backward."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.kernels import layer_norm as K
     dev = torch.device('cuda', 0)
+    x = torch.randn(n, d, generator=gen, device=dev).to(dtype)
+    g = 1.0 + 0.1 * torch.randn(d, generator=gen, device=dev)
+    b = 0.1 * torch.randn(d, generator=gen, device=dev)
+    gy = torch.randn(n, d, generator=gen, device=dev).to(dtype)
+    before = K.fused_layer_norm.bwd_launches
+    got = K._ln_bwd_cuda(x, g, gy, 1e-5)
+    again = K._ln_bwd_cuda(x, g, gy, 1e-5)
+    torch.cuda.synchronize()
+    require(K.fused_layer_norm.bwd_launches == before + 4,
+            'layer_norm backward: %d launches for 2 calls, want 4'
+            % (K.fused_layer_norm.bwd_launches - before))
+    require(all(torch.equal(a, r) for a, r in zip(got, again)),
+            'layer_norm backward [%d, %d]: two runs differ' % (n, d))
+    want = K.layer_norm_reference_bwd(x, g, b, gy, 1e-5)
+    errs, ok = grads_ok(torch, got, want, dtype)
+    item = x.element_size()
+    lo, by = bound_ms(3 * n * d * item + 3 * d * 4, 12 * n * d)
+    bwd = lambda: K._ln_bwd_cuda(x, g, gy, 1e-5)  # noqa: E731
+    ms = device_ms(torch, bwd)
+    eager = eager_ms(torch, bwd)
+    plain = device_ms(torch, lambda: K.layer_norm_reference_bwd(
+        x, g, b, gy, 1e-5), iters=20)
+    lib, node, lib_eager = grad_ms(
+        torch, lambda a, w, c: F.layer_norm(a, (d,), w, c, 1e-5),
+        (x, g.to(dtype), b.to(dtype)), gy)
+    label = 'layer_norm backward [%d, %d] %s' % (n, d, str(dtype)[6:])
+    print('%s: max_abs_err dx %.3g, dgamma %.3g, dbeta %.3g (%s) %s; two '
+          'launches a call, two runs bit-equal; device ms: kernels %.5f, '
+          'plain %.5f, F.layer_norm backward %.5f (%s; eager %.5f), bound '
+          '%.6f (%s); kernels eager %.5f ms [%s]'
+          % (label, errs[0], errs[1], errs[2], GRAD_TOL,
+             'ok' if ok else 'MISMATCH', ms, plain, lib, node, lib_eager, lo,
+             by, eager, card))
+    require(ok, '%s disagrees with its plain version' % label)
+    return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain, bound_ms=lo,
+                bound_by=by, library_ms=lib, eager_ms=eager)
+
+
+def _paged_inputs(torch, gen, n, lens, dtype, broadcast, h=8, d=64, bs=32,
+                  p=64, nb=4096, empty=(), dv=None):
+    dev = torch.device('cuda', 0)
+    dv = d if dv is None else dv
     kp = torch.randn(nb, h, bs, d, generator=gen, device=dev).to(dtype)
-    vp = torch.randn(nb, h, bs, d, generator=gen, device=dev).to(dtype)
+    vp = torch.randn(nb, h, bs, dv, generator=gen, device=dev).to(dtype)
     q = torch.randn(n, h, d, generator=gen, device=dev)
     perm = torch.randperm(nb, generator=gen, device=dev).to(torch.int32)
     if broadcast:
@@ -357,9 +476,10 @@ def _paged_case(torch, card, label, q, kp, vp, tables, lens, heavy=False):
     for i in range(n):
         pages.update(np.clip(tab_h[i, :npages[i]], 0, nb - 1).tolist())
     item = kp.element_size()
-    n_bytes = (len(pages) * h * bs * 2 * d * item + 2 * n * h * d * 4 +
+    dv = vp.shape[-1]
+    n_bytes = (len(pages) * h * bs * (d + dv) * item + n * h * (d + dv) * 4 +
                int(npages.sum()) * 4 + n * 4)
-    n_ops = int(lens_h.sum()) * h * (4 * d + 5)
+    n_ops = int(lens_h.sum()) * h * (2 * d + 2 * dv + 5)
     lo, by = bound_ms(n_bytes, n_ops)
     ms = device_ms(torch, lambda: K.paged_attention(q, kp, vp, tables,
                                                     lens))
@@ -371,7 +491,7 @@ def _paged_case(torch, card, label, q, kp, vp, tables, lens, heavy=False):
     # yardstick: SDPA over K/V already gathered (the gather is not timed)
     idx = tables.long().clamp(0, nb - 1)
     kg = kp[idx].permute(0, 2, 1, 3, 4).reshape(n, h, p * bs, d)
-    vg = vp[idx].permute(0, 2, 1, 3, 4).reshape(n, h, p * bs, d)
+    vg = vp[idx].permute(0, 2, 1, 3, 4).reshape(n, h, p * bs, dv)
     mask = (torch.arange(p * bs, device=q.device)[None, :] <
             lens[:, None])[:, None, None, :]
     qd = q[:, :, None, :].to(kp.dtype)
@@ -428,26 +548,31 @@ def _paged_row_independence(torch, card, gen):
 
 
 def _live_pairs(b, tq, tk, lens, causal):
-    """(query, key) pairs that attend, summed over the batch (per head)."""
+    """(query, key) pairs that attend, summed over the batch (per head;
+    the causal band aligned bottom-right)."""
     rows = np.arange(tq)[:, None]
     cols = np.arange(tk)[None, :]
     live = 0
     for i in range(b):
         m = cols < (tk if lens is None else int(lens[i]))
         if causal:
-            m = m & (cols <= rows)
+            m = m & (cols <= rows + tk - tq)
         live += int(np.broadcast_to(m, (tq, tk)).sum())
     return live
 
 
-def _flash_case(torch, card, label, b, h, t, d, dtype, causal, lens, gen):
-    """K2 and K3 against their plain versions on one input; returns the
-    numbers of each (forward, backward)."""
+def _flash_case(torch, card, label, b, h, t, d, dtype, causal, lens, gen,
+                tk=None):
+    """K2 and K3 against their plain versions on one input (Tq = t, Tk =
+    tk, default t); returns the numbers of each (forward, backward)."""
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.kernels import flash_attention as K
     dev = torch.device('cuda', 0)
-    q, k, v, do = (torch.randn(b, h, t, d, generator=gen, device=dev)
-                   .to(dtype) for _ in range(4))
+    tk = t if tk is None else tk
+    q, do = (torch.randn(b, h, t, d, generator=gen, device=dev).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(b, h, tk, d, generator=gen, device=dev).to(dtype)
+            for _ in range(2))
     kv = None if lens is None else torch.tensor(lens, device=dev)
     fwd_count = K.flash_fwd_cuda
     before = (fwd_count.launches_mma, fwd_count.launches_simt)
@@ -461,8 +586,11 @@ def _flash_case(torch, card, label, b, h, t, d, dtype, causal, lens, gen):
     del out2, lse2
     moved = (fwd_count.launches_mma - before[0],
              fwd_count.launches_simt - before[1])
-    variant = 'tensor-core' if dtype == torch.bfloat16 else 'SIMT'
-    require(moved == ((2, 0) if dtype == torch.bfloat16 else (0, 2)),
+    # the launchers' choice: bf16 with a head dim that is a multiple of 16
+    # up to 128 on the tensor cores, everything else SIMT
+    mma = dtype == torch.bfloat16 and d % 16 == 0 and d <= 128
+    variant = 'tensor-core' if mma else 'SIMT'
+    require(moved == ((2, 0) if mma else (0, 2)),
             '%s: K2 launched (tensor-core, SIMT) = %s, want the %s kernel '
             'twice' % (label, moved, variant))
     ref_out, ref_lse = K.flash_attention_reference_fwd(q, k, v, kv, causal)
@@ -470,7 +598,7 @@ def _flash_case(torch, card, label, b, h, t, d, dtype, causal, lens, gen):
                                                              causal)
     # K3 twice on its own variant (the same bits), and for bf16 the SIMT
     # pair too, on copies that start one element into their storage
-    variant_bwd = 'mma' if dtype == torch.bfloat16 else 'simt'
+    variant_bwd = 'mma' if mma else 'simt'
     before = _bwd_counts(K)
     grads = K.flash_attention_bwd(q, k, v, out, lse, do, kv, causal)
     grads2 = K.flash_attention_bwd(q, k, v, out, lse, do, kv, causal)
@@ -484,7 +612,7 @@ def _flash_case(torch, card, label, b, h, t, d, dtype, causal, lens, gen):
     ref_grads = K.flash_attention_reference_bwd(q, k, v, out, lse, do, kv,
                                                 causal)
     simt_grads = None
-    if dtype == torch.bfloat16:
+    if mma:
         shifted = [_shifted(torch, x) for x in (q, k, v, out, do)]
         before = _bwd_counts(K)
         simt_grads = K.flash_attention_bwd(*shifted[:4], lse, shifted[4], kv,
@@ -536,11 +664,13 @@ def _flash_case(torch, card, label, b, h, t, d, dtype, causal, lens, gen):
         del simt_grads
 
     item = q.element_size()
-    n = b * h * t * d * item
-    live = _live_pairs(b, t, t, lens, causal) * h
-    peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
-    fwd_bound = bound_ms(4 * n + b * h * t * 4, 4 * live * d, peak)
-    bwd_bound = bound_ms(8 * n + b * h * t * 4, 2.5 * 4 * live * d, peak)
+    nq, nk = b * h * t * d * item, b * h * tk * d * item
+    live = _live_pairs(b, t, tk, lens, causal) * h
+    peak = BF16_FLOPS if mma else FP32_FLOPS
+    fwd_bound = bound_ms(2 * nq + 2 * nk + b * h * t * 4, 4 * live * d,
+                         peak)
+    bwd_bound = bound_ms(4 * nq + 4 * nk + b * h * t * 4,
+                         2.5 * 4 * live * d, peak)
 
     fwd = lambda: K.flash_attention_fwd(q, k, v, kv, causal)  # noqa: E731
     bwd_fn = lambda: K.flash_attention_bwd(  # noqa: E731
@@ -556,7 +686,7 @@ def _flash_case(torch, card, label, b, h, t, d, dtype, causal, lens, gen):
             q, k, v, out, lse, do, kv, causal), iters=10))
     # yardstick: SDPA forward and its autograd backward (graph replay, as
     # the kernels; the backward also eager), on the same inputs and mask
-    mask = sdpa_mask(torch, t, kv, causal)
+    mask = sdpa_mask(torch, t, kv, causal, tk)
     sdpa_causal = causal and mask is None
     times['fwd_lib'] = device_ms(torch, lambda: F.scaled_dot_product_attention(
         q, k, v, attn_mask=mask, is_causal=sdpa_causal), iters=50)
@@ -614,50 +744,33 @@ def _shifted(torch, x):
     return view
 
 
-def sdpa_mask(torch, t, kv, causal):
-    """SDPA's boolean mask for the flash cases' kv_len (and causal band),
-    or None where ``is_causal`` alone says it."""
-    if kv is None:
+def sdpa_mask(torch, t, kv, causal, tk=None):
+    """SDPA's boolean mask for the flash cases' kv_len and causal band
+    (aligned bottom-right, as the port's), or None where ``is_causal``
+    alone says it (Tq = Tk, no kv_len). A row with no live key gives NaN
+    there: SDPA is a yardstick of time only."""
+    tk = t if tk is None else tk
+    if kv is None and (not causal or tk == t):
         return None
-    mask = (torch.arange(t, device=kv.device)[None, :] <
-            kv[:, None])[:, None, None, :]
+    dev = kv.device if kv is not None else 'cuda'
+    mask = torch.ones(1, 1, t, tk, dtype=torch.bool, device=dev)
+    if kv is not None:
+        mask = mask & (torch.arange(tk, device=dev)[None, :] <
+                       kv[:, None])[:, None, None, :]
     if causal:
-        mask = mask & torch.ones(t, t, dtype=torch.bool,
-                                 device=kv.device).tril()
+        mask = mask & torch.ones(t, tk, dtype=torch.bool,
+                                 device=dev).tril(tk - t)
     return mask
 
 
 def sdpa_bwd_ms(torch, q, k, v, do, mask, is_causal, iters=50):
     """SDPA's backward on these inputs: (device ms a call by CUDA-graph
     replay, as the kernels are timed, the backend's autograd node, eager
-    ms). The forward runs once outside the graph, on the stream that then
-    captures ``iters`` calls of torch.autograd.grad of its output (autograd
-    runs a backward on its forward's stream)."""
+    ms), by grad_ms."""
     import torch.nn.functional as F
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
-        out = F.scaled_dot_product_attention(*leaves, attn_mask=mask,
-                                             is_causal=is_causal)
-
-        def grad():
-            return torch.autograd.grad(out, leaves, do, retain_graph=True)
-
-        for _ in range(3):
-            grad()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=side):
-            for _ in range(iters):
-                grad()
-    torch.cuda.current_stream().wait_stream(side)
-    graph.replay()
-    torch.cuda.synchronize()
-    ms = _events_ms(torch, graph.replay, iters)
-    del graph
-    eager = eager_ms(torch, grad, iters=iters)
-    backend = out.grad_fn.name()
-    return ms, backend, eager
+    return grad_ms(torch, lambda a, b, c: F.scaled_dot_product_attention(
+        a, b, c, attn_mask=mask, is_causal=is_causal), (q, k, v), do,
+        iters=iters)
 
 
 def flash_shapes(torch):
@@ -682,12 +795,38 @@ def flash_shapes(torch):
     ]
 
 
+def flash_fault_shapes(torch):
+    """Phase 3's cases of the inputs the JAX op's default path takes:
+    (label, B, H, Tq, Tk, D, dtype, causal, kv_len or None)."""
+    return [
+        ('flash_attention B=8 H=8 Tq=256 Tk=512 D=64 bf16 causal '
+         '(bottom-right: a chunk of queries after a 256-token prefix)', 8, 8,
+         256, 512, 64, torch.bfloat16, True, None),
+        ('flash_attention B=8 H=8 Tq=512 Tk=256 D=64 bf16 causal (the first '
+         '256 rows see no key)', 8, 8, 512, 256, 64, torch.bfloat16, True,
+         None),
+        ('flash_attention B=8 H=8 T=512 D=64 bf16, kv_len 512, 300 and two '
+         'rows at 0', 8, 8, 512, 512, 64, torch.bfloat16, False,
+         [512, 300, 0, 512, 0, 512, 512, 512]),
+        ('flash_attention B=4 H=8 T=512 D=256 bf16 causal (SIMT, query '
+         'tiles of 32 in the backward)', 4, 8, 512, 512, 256,
+         torch.bfloat16, True, None),
+        ('flash_attention B=4 H=4 T=200 D=192 float32 kv_len 200, 131, 0, '
+         '1', 4, 4, 200, 200, 192, torch.float32, False, [200, 131, 0, 1]),
+    ]
+
+
 def phase_flash_kernels(torch, card):
     gen = torch.Generator(device='cuda').manual_seed(1)
     res = []
     for label, b, h, t, d, dtype, causal, lens in flash_shapes(torch):
         res.append(_flash_case(torch, card, label, b, h, t, d, dtype,
                                causal, lens, gen))
+        torch.cuda.empty_cache()
+    for label, b, h, tq, tk, d, dtype, causal, lens in \
+            flash_fault_shapes(torch):
+        _flash_case(torch, card, label, b, h, tq, d, dtype, causal, lens,
+                    gen, tk=tk)
         torch.cuda.empty_cache()
     return res[0]
 
@@ -721,12 +860,37 @@ def paged_shapes(torch):
     return cases
 
 
+def paged_any_shapes(torch):
+    """Phase 3's cases of K4's any-width variant: (label, page dtype, D,
+    Dv), each at the decode shape (16 rows, lengths 1..2048, 3 empty)."""
+    return [
+        ('paged_attention any-width, bf16 d_key 36 (72-byte rows)',
+         torch.bfloat16, 36, 36),
+        ('paged_attention any-width, fp32 d_key 30 (120-byte rows)',
+         torch.float32, 30, 30),
+        ('paged_attention any-width, fp32 D = Dv = 192 (768-byte rows)',
+         torch.float32, 192, 192),
+    ]
+
+
+def ln_shapes(torch):
+    """Phase 3's layer-norm cases: (rows, d). [16, 512] is decode's (the
+    kernels line's forward), [4096, 512] the Transformer training step's
+    (the kernels line's backward, fp32: AMP keeps layer_norm fp32)."""
+    return [(16, 512), (512, 512), (64, 2048), (4096, 512)]
+
+
 def phase_kernels(torch, card):
     gen = torch.Generator(device='cuda').manual_seed(0)
     ln = {}
-    for n, d in ((16, 512), (512, 512), (64, 2048)):
+    for n, d in ln_shapes(torch):
         for dtype in (torch.float32, torch.bfloat16):
             ln[(n, d, dtype)] = _ln_case(torch, card, n, d, dtype, gen)
+    ln_bwd = {}
+    for n, d in ((4096, 512), (16, 512), (64, 2048)):
+        for dtype in (torch.float32, torch.bfloat16):
+            ln_bwd[(n, d, dtype)] = _ln_bwd_case(torch, card, n, d, dtype,
+                                                 gen)
     pa = {}
     for key, label, dtype, n, lens, broadcast, empty in paged_shapes(torch):
         args = _paged_inputs(torch, gen, n, lens, dtype, broadcast,
@@ -734,8 +898,20 @@ def phase_kernels(torch, card):
         pa[key] = _paged_case(torch, card, label, *args, heavy=n >= 512)
         del args
         torch.cuda.empty_cache()
+    from paddle_tpu_torch.ops.kernels import paged_attention as K
+    decode_lens = paged_shapes(torch)[0][4]
+    for label, dtype, d, dv in paged_any_shapes(torch):
+        args = _paged_inputs(torch, gen, 16, decode_lens, dtype, False,
+                             d=d, dv=dv, empty=(13, 14, 15))
+        before = K.paged_attention.launches_any
+        _paged_case(torch, card, label, *args)
+        require(K.paged_attention.launches_any > before,
+                '%s: the any-width kernel did not run' % label)
+        del args
+        torch.cuda.empty_cache()
     _paged_row_independence(torch, card, gen)
-    return ln[(16, 512, torch.float32)], pa['engine']
+    return (ln[(16, 512, torch.float32)], ln_bwd[(4096, 512, torch.float32)],
+            pa['engine'])
 
 
 def _bn_case(torch, card, label, x, layout, gen):
@@ -814,9 +990,66 @@ def _bn_case(torch, card, label, x, layout, gen):
              else 'read twice (off chip)', ms, plain, lib, lo, by, eager,
              card))
     require(ok, '%s disagrees with its plain version' % label)
-    return dict(max_abs_err=max(err_y, err_m, err_v), ms=ms, plain_ms=plain,
-                bound_ms=lo, bound_by=by, library_ms=lib, eager_ms=eager,
-                on_chip=bool(plan['on_chip']))
+    fwd = dict(max_abs_err=max(err_y, err_m, err_v), ms=ms, plain_ms=plain,
+               bound_ms=lo, bound_by=by, library_ms=lib, eager_ms=eager,
+               on_chip=bool(plan['on_chip']))
+    return fwd, _bn_bwd_case(torch, card, label, x, x3, layout, g, b, gen)
+
+
+def _bn_bwd_case(torch, card, label, x, x3, layout, g, b, gen):
+    """K5's backward kernel against batch_norm_reference_bwd on x (the
+    forward's saved statistics, a gradient in x's layout), twice for equal
+    bits, one launch a call, and its times beside F.batch_norm's autograd
+    backward."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.kernels import batch_norm as K
+    _, m, v = K._bn_cuda(x3, g, b, 1e-5)
+    gy = torch.randn(x.shape, generator=gen, device=x.device).to(x.dtype)
+    g4 = gy.permute(0, 3, 1, 2) if layout == 'NHWC' else gy
+    g3 = g4.reshape(x3.shape) if x.dim() == 4 else gy.unsqueeze(-1)
+    plan = K.launch_plan(x3, backward=True)
+    before = (K.fused_batch_norm_train.bwd_launches,
+              K.fused_batch_norm_train.bwd_gy_copies)
+    got = K._bn_bwd_cuda(x3, g3, g, m, v, 1e-5)
+    again = K._bn_bwd_cuda(x3, g3, g, m, v, 1e-5)
+    torch.cuda.synchronize()
+    require((K.fused_batch_norm_train.bwd_launches,
+             K.fused_batch_norm_train.bwd_gy_copies) ==
+            (before[0] + 2, before[1]),
+            '%s backward: want 2 launches and no gradient copy for 2 calls'
+            % label)
+    require(all(torch.equal(a, r) for a, r in zip(got, again)),
+            '%s backward: two runs differ' % label)
+    del again
+    want = K.batch_norm_reference_bwd(x3, g3, g, m, v, 1e-5)
+    errs, ok = grads_ok(torch, got, want, x.dtype)
+    del want, got
+    n, c = x.numel(), g.shape[0]
+    item = x.element_size()
+    lo, by = bound_ms(3 * n * item + 5 * c * 4, 11 * n)
+    bwd = lambda: K._bn_bwd_cuda(x3, g3, g, m, v, 1e-5)  # noqa: E731
+    ms = device_ms(torch, bwd, iters=20)
+    eager = eager_ms(torch, bwd, iters=20)
+    plain = device_ms(torch, lambda: K.batch_norm_reference_bwd(
+        x3, g3, g, m, v, 1e-5), iters=5)
+    xl = x.permute(0, 3, 1, 2) if layout == 'NHWC' else x
+    gl = gy.permute(0, 3, 1, 2) if layout == 'NHWC' else gy
+    lib, node, lib_eager = grad_ms(
+        torch, lambda a, w, c_: F.batch_norm(a, None, None, w, c_,
+                                             training=True, eps=1e-5),
+        (xl, g, b), gl, iters=20)
+    print('%s backward: max_abs_err dx %.3g, dscale %.3g, dbias %.3g (%s) '
+          '%s; one launch a call, x and gy %s, two runs bit-equal; device '
+          'ms: kernel %.5f, plain %.5f, F.batch_norm backward %.5f (%s; '
+          'eager %.5f), bound %.6f (%s); kernel eager %.5f ms [%s]'
+          % (label, errs[0], errs[1], errs[2], GRAD_TOL,
+             'ok' if ok else 'MISMATCH',
+             'staged on chip (read once)' if plan['on_chip']
+             else 'staged as far as they fit, the rest read twice', ms,
+             plain, lib, node, lib_eager, lo, by, eager, card))
+    require(ok, '%s backward disagrees with its plain version' % label)
+    return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain, bound_ms=lo,
+                bound_by=by, library_ms=lib, eager_ms=eager)
 
 
 def bf16_ulp_t(torch, a):
@@ -826,8 +1059,8 @@ def bf16_ulp_t(torch, a):
 
 
 def _bn_grad_check(torch, card, gen):
-    """K5's autograd backward (closed form) against autograd through the
-    plain version, fp32, at a stage-1 shape: 1e-4."""
+    """K5's autograd Function (the backward kernel) against autograd
+    through the plain forward, fp32, at a stage-1 shape: 1e-4."""
     from paddle_tpu_torch.ops.kernels import batch_norm as K
     dev = torch.device('cuda', 0)
     x = torch.randn(16, 56, 56, 64, generator=gen, device=dev)
@@ -857,7 +1090,8 @@ def phase_bn_kernels(torch, card):
     """K5 at ResNet-50's shapes (batch 64, 224x224: the stem, stage 1's
     64-channel, stage 2's and stage 4's widest), NCHW, fp32 and an odd
     shape, each staged on chip or read twice as its plan says (checked:
-    both happen in both orders); returns the stem's numbers."""
+    both happen in both orders), and the backward kernel at each; returns
+    the stem's numbers (forward, backward)."""
     gen = torch.Generator(device='cuda').manual_seed(3)
     dev = torch.device('cuda', 0)
     res = []
@@ -865,7 +1099,7 @@ def phase_bn_kernels(torch, card):
         x = (1.0 + 2.0 * torch.randn(shape, generator=gen, device=dev)) \
             .to(dtype)
         res.append(_bn_case(torch, card, label, x, layout, gen))
-        staged = res[-1].pop('on_chip')
+        staged = res[-1][0].pop('on_chip')
         require(staged == on_chip, '%s: x staged on chip is %s, want %s'
                 % (label, staged, on_chip))
         del x
@@ -951,8 +1185,12 @@ def _family(name):
         return 'flash attention (K2, K3)'
     if 'ptt::paged' in low:
         return 'paged attention (K4)'
+    if 'ptt::ln_bwd' in low:
+        return 'layer norm backward (K1 backward)'
     if 'ptt::ln_' in low:
         return 'layer norm (K1)'
+    if 'ptt::bn_bwd' in low:
+        return 'batch norm backward (K5 backward)'
     if 'ptt::bn_' in low:
         return 'batch norm (K5)'
     if any(w in low for w in ('fprop', 'dgrad', 'wgrad', 'conv', 'cudnn',
@@ -969,7 +1207,7 @@ def _family(name):
 # timeline each is one annotation span, which is not a kernel
 SECTIONS = ('forward', 'optimizer')
 # autograd nodes whose device time (their kernels') the profile reports
-NODES = ('_BatchNormTrainBackward',)
+NODES = ('_BatchNormTrainBackward', '_LayerNormBackward')
 
 
 def profile_steps(torch, card, jobs):
@@ -1278,6 +1516,7 @@ def phase_train(torch, pt, place, card, on_card, batch, seq, vocab, dims,
     layers = dims.get('n_layer', 6)
     want = flash_want(layers, steps)
     want['layer_norm'] = 5 * layers * steps
+    want['layer_norm_bwd'] = 2 * 5 * layers * steps
     print('train: transformer_base vocab %d, %d params, batch %d x seq %d, '
           'amp bf16, dropout 0.1, Adam(1e-4); build + startup %.2f s; '
           'place %r' % (vocab, n_params, batch, seq, t1 - t0, place))
@@ -1289,8 +1528,8 @@ def phase_train(torch, pt, place, card, on_card, batch, seq, vocab, dims,
              losses[-1], card))
     print('train: launches in the %d timed steps: %s (want %s: per layer '
           'and step, 3 of each flash kernel, every one through its '
-          'tensor-core variant, and 5 layer norms)'
-          % (steps, {k: launches[k] for k in want}, want))
+          'tensor-core variant, 5 layer norms and their backward, 2 kernels '
+          'each)' % (steps, {k: launches[k] for k in want}, want))
     require(np.isfinite(losses).all(), 'training loss not finite: %s'
             % losses)
     require(losses[-1] < losses[0], 'training loss did not fall: %s'
@@ -1338,6 +1577,7 @@ def phase_train_masked(torch, pt, place, card, on_card, batch, seq, vocab,
         layers = dims.get('n_layer', 6)
         want = flash_want(layers, steps)
         want['layer_norm'] = 5 * layers * steps
+        want['layer_norm_bwd'] = 2 * 5 * layers * steps
         require(all(launches[k] == n for k, n in want.items()),
                 'masked training launch counts %s, want %s'
                 % (launches, want))
@@ -1476,8 +1716,11 @@ def phase_resnet(torch, pt, place, card, on_card, batch, image, class_dim,
           % (steps, warmup, ms, batch * steps / secs, flops / 1e12,
              flops / (ms / 1e3) / BF16_FLOPS, BF16_FLOPS / 1e12, losses[0],
              losses[-1], moved, len(stats), finite, card))
-    print('resnet: batch_norm launches in the %d timed steps: %d (want %d = '
-          '%d a step)' % (steps, launches['batch_norm'], n_bn * steps, n_bn))
+    print('resnet: batch_norm launches in the %d timed steps: forward %d, '
+          'backward %d (want %d each = %d a step); gradients copied into '
+          'x\'s layout first: %d'
+          % (steps, launches['batch_norm'], launches['batch_norm_bwd'],
+             n_bn * steps, n_bn, launches['batch_norm_bwd_gy_copies']))
     require(np.isfinite(losses).all(), 'resnet loss not finite: %s' % losses)
     require(losses[-1] < losses[0], 'resnet loss did not fall: %s' % losses)
     require(finite and moved == len(stats),
@@ -1488,9 +1731,11 @@ def phase_resnet(torch, pt, place, card, on_card, batch, image, class_dim,
         print('resnet: max_memory_allocated %.3f GB, %.3f GB above what was '
               'allocated before the first step [%s]'
               % (peak / 1e9, (peak - base) / 1e9, card))
-        require(launches['batch_norm'] == n_bn * steps,
-                'resnet batch_norm launches %d, want %d'
-                % (launches['batch_norm'], n_bn * steps))
+        require(launches['batch_norm'] == n_bn * steps and
+                launches['batch_norm_bwd'] == n_bn * steps,
+                'resnet batch_norm launches %d forward, %d backward, want %d'
+                % (launches['batch_norm'], launches['batch_norm_bwd'],
+                   n_bn * steps))
     return launches, ('5 ResNet-50 training steps', profile_step, 5, None)
 
 
@@ -1606,13 +1851,13 @@ def main():
 
     name, count, card = phase_device(torch)
     phase_build()
-    ln, pa = phase_kernels(torch, card)
+    ln, ln_bwd, pa = phase_kernels(torch, card)
     fa_fwd, fa_bwd = phase_flash_kernels(torch, card)
-    bn = phase_bn_kernels(torch, card)
+    bn, bn_bwd = phase_bn_kernels(torch, card)
     if args.kernels_only:
-        print('kernels only: K1, K4, K2, K3 and K5 agree with their plain '
-              'versions; no verdict. total %.1f s'
-              % (time.perf_counter() - t_start))
+        print('kernels only: K1, K4, K2, K3 and K5 and the K1 and K5 '
+              'backward kernels agree with their plain versions; no '
+              'verdict. total %.1f s' % (time.perf_counter() - t_start))
         return
     spec = LMSpec(vocab_size=32000, n_layer=12, n_head=8, d_key=64,
                   d_value=64, d_model=512, d_inner=2048)
@@ -1655,6 +1900,10 @@ def main():
              source='paddle_tpu_torch/csrc/layer_norm.cu',
              replaces='paddle_tpu/ops/pallas/layer_norm.py:23',
              launches=runs('layer_norm'), **ln),
+        dict(name='layer_norm_bwd', route='cuda',
+             source='paddle_tpu_torch/csrc/layer_norm.cu',
+             replaces='paddle_tpu/ops/pallas/layer_norm.py:91',
+             launches=runs('layer_norm_bwd'), **ln_bwd),
         dict(name='paged_attention', route='cuda',
              source='paddle_tpu_torch/csrc/paged_attention.cu',
              replaces='paddle_tpu/ops/pallas/paged_attention.py:86',
@@ -1672,6 +1921,10 @@ def main():
              source='paddle_tpu_torch/csrc/batch_norm.cu',
              replaces='paddle_tpu/ops/pallas/batch_norm.py:52',
              launches=runs('batch_norm'), **bn),
+        dict(name='batch_norm_bwd', route='cuda',
+             source='paddle_tpu_torch/csrc/batch_norm.cu',
+             replaces='paddle_tpu/ops/pallas/batch_norm.py:159',
+             launches=runs('batch_norm_bwd'), **bn_bwd),
     ]
     print('total %.1f s' % (time.perf_counter() - t_start))
     print(json.dumps({'kernels': kernels}))

@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""Device times of paged attention (K4), the flash-attention forward (K2)
-and backward (K3) and the training batch norm (K5) of one checkout of this
-repository, at chip_smoke.py's phase-3 shapes, and SDPA's backward beside
-K3 (the same inputs and mask, whatever the checkout).
+"""Device times of the layer norm (K1) and its backward, paged attention
+(K4), the flash-attention forward (K2) and backward (K3) and the training
+batch norm (K5) and its backward of one checkout of this repository, at
+chip_smoke.py's phase-3 shapes, and SDPA's backward beside K3 (the same
+inputs and mask, whatever the checkout). A kernel the checkout does not
+have (a backward kernel before it was written) is reported as such.
 
     python3 kernel_times.py [DIR]    # on a machine with one CUDA card
 
@@ -36,6 +38,7 @@ def main():
                    'needs a CUDA card')
     from paddle_tpu_torch.ops.kernels import batch_norm as bn
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.kernels import layer_norm as ln
     from paddle_tpu_torch.ops.kernels import paged_attention as pa
     smoke.require(os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.dirname(os.path.abspath(pa.__file__))))) == port,
@@ -47,6 +50,25 @@ def main():
     dev = torch.device('cuda', 0)
     ms = {}
 
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    for n, d in smoke.ln_shapes(torch):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn(n, d, generator=gen, device=dev).to(dtype)
+            g = 1.0 + 0.1 * torch.randn(d, generator=gen, device=dev)
+            b = 0.1 * torch.randn(d, generator=gen, device=dev)
+            gy = torch.randn(n, d, generator=gen, device=dev).to(dtype)
+            label = 'layer_norm [%d, %d] %s' % (n, d, str(dtype)[6:])
+            ms[label] = smoke.device_ms(
+                torch, lambda: ln.fused_layer_norm(x, g, b, eps=1e-5))
+            key = label + ' backward'
+            if hasattr(ln, '_ln_bwd_cuda'):
+                ms[key] = smoke.device_ms(
+                    torch, lambda: ln._ln_bwd_cuda(x, g, gy, 1e-5))
+                note = 'backward kernels %.5f ms' % ms[key]
+            else:
+                note = 'no backward kernel in this checkout'
+            print('%s: kernel %.5f ms, %s [%s]' % (label, ms[label], note,
+                                                   card))
     gen = torch.Generator(device='cuda').manual_seed(0)
     for _, label, dtype, n, lens, broadcast, empty in smoke.paged_shapes(
             torch):
@@ -92,7 +114,22 @@ def main():
             torch, lambda: bn.fused_batch_norm_train(x, g, b, 1e-5,
                                                      layout=layout),
             iters=20)
-        print('%s: kernel %.5f ms [%s]' % (label, ms[label], card))
+        note = 'no backward kernel in this checkout'
+        if hasattr(bn, '_bn_bwd_cuda'):
+            x4 = x.permute(0, 3, 1, 2) if layout == 'NHWC' else x
+            x3 = x4.reshape(x4.shape[0], c, -1) if x.dim() == 4 \
+                else x.unsqueeze(-1)
+            _, m, v = bn._bn_cuda(x3, g, b, 1e-5)
+            gy = torch.randn(x.shape, generator=gen, device=dev).to(dtype)
+            g4 = gy.permute(0, 3, 1, 2) if layout == 'NHWC' else gy
+            g3 = g4.reshape(x3.shape) if x.dim() == 4 else gy.unsqueeze(-1)
+            key = label + ' backward'
+            ms[key] = smoke.device_ms(
+                torch, lambda: bn._bn_bwd_cuda(x3, g3, g, m, v, 1e-5),
+                iters=20)
+            note = 'backward kernel %.5f ms' % ms[key]
+            del x3, x4, gy, g3, g4
+        print('%s: kernel %.5f ms, %s [%s]' % (label, ms[label], note, card))
         del x
         torch.cuda.empty_cache()
 

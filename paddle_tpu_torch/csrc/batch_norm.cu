@@ -1,11 +1,13 @@
-// Training batch-norm forward: per-channel fp32 mean and biased variance
-// over every element of the channel, then y = x * a + b with
-// a = gamma * rsqrt(var + eps) and b = beta - mean * a.
+// Training batch norm: the forward (per-channel fp32 mean and biased
+// variance over every element of the channel, then y = x * a + b with
+// a = gamma * rsqrt(var + eps) and b = beta - mean * a) and its backward.
 //
-// Replaces the TPU kernel _bn_kernel / _fused_bn_fwd in
-// paddle_tpu/ops/pallas/batch_norm.py (K5). The backward is the closed
-// form of _bn_vjp_bwd in PyTorch (ops/kernels/batch_norm.py), as the TPU
-// has no backward kernel either.
+// bn_train_kernel replaces the TPU kernel _bn_kernel / _fused_bn_fwd in
+// paddle_tpu/ops/pallas/batch_norm.py (K5); bn_bwd_kernel replaces the
+// backward half of its custom_vjp, _bn_vjp_bwd (batch_norm.py:159): dbias =
+// sum gy, dscale = sum gy * xhat, dx = gamma * inv * (gy - dbias / n - xhat
+// * dscale / n) with xhat = (x - mean) * inv, inv = rsqrt(var + eps), in
+// fp32 from the forward's saved mean and var; dx in x's dtype.
 //
 // Bound on an H100: bytes. The function reads x once and writes y once
 // (about 6 flops an element), far below the card's balance point. At
@@ -50,6 +52,20 @@
 // Any N*S >= 1 and any C (the Pallas kernel wants rows % 8 == 0 and C < 128
 // or a multiple of 128): 16-byte vectors where the contiguous axis and
 // the pointers allow them, one element a thread otherwise.
+//
+// The backward (bn_bwd_kernel) has the same structure and split: phase 1
+// sums gy and gy * xhat per item into the [chunks, C] partials, the grid
+// barrier, phase 3 re-adds them in the same fixed order (every block and
+// every run gets the same dscale and dbias), phase 4 writes dx = k * (gy -
+// dbias / n) - k * inv * (dscale / n) * (x - mean), k = gamma * inv. It
+// reads x and gy (both in x's order; the wrapper copies a gy of another
+// layout once) and writes dx: 3 elements of traffic an element, 4.07 GB
+// (>= 1.21 ms at 3.35 TB/s) over ResNet-50's 53 calls in bf16, where the
+// plain closed form takes about a dozen fp32 passes. Phase 1 stages the
+// head of each block's work, as much of x and gy as half the staging area
+// each holds (all of it where it fits: then both are read from device
+// memory once); phase 4 walks backwards, so it starts on the tail that L2
+// still holds and ends on the head it staged.
 
 #include <cooperative_groups.h>
 #include <stdint.h>
@@ -69,6 +85,12 @@ constexpr size_t kBnRedFloats = (size_t)kBnWarps * kBnMaxTile;
 constexpr size_t kBnSmemBytes = 231424;
 constexpr size_t kBnStageBytes =
     kBnSmemBytes - sizeof(float) * (kBnRedFloats + 2 * kBnMaxTile);
+// the backward: four per-channel coefficients, then x's and gy's staging
+// areas, half of the rest each
+constexpr int kBnBwdCoefs = 4;
+constexpr size_t kBnBwdStageBytes =
+    (kBnSmemBytes - sizeof(float) * (kBnRedFloats + kBnBwdCoefs * kBnMaxTile)) /
+    2 / 16 * 16;
 
 template <typename T, int VEC>
 struct alignas(sizeof(T) * VEC) Pack {
@@ -107,13 +129,17 @@ __host__ __device__ inline long long ceil_div(long long a, long long b) {
   return (a + b - 1) / b;
 }
 
+// g: a third tensor walked alongside x (the backward's gy), or null;
+// stage_bytes: what a block may stage of x
 static BnPlan bn_plan(const void* x, const void* y, long long n, int c,
                       long long s, int channels_last, int elem_bytes,
-                      int blocks) {
+                      int blocks, const void* g = nullptr,
+                      size_t stage_bytes = kBnStageBytes) {
   BnPlan p;
   const int wide = 16 / elem_bytes;
   const bool aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                       reinterpret_cast<uintptr_t>(y) % 16 == 0;
+                       reinterpret_cast<uintptr_t>(y) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(g) % 16 == 0;
   long long elems;  // x's elements in the largest item
   if (channels_last) {
     const long long rows = n * s;
@@ -147,7 +173,7 @@ static BnPlan bn_plan(const void* x, const void* y, long long n, int c,
   }
   p.grid = p.items < blocks ? p.items : blocks;
   const long long per_block = ceil_div(p.items, p.grid);
-  p.on_chip = per_block * elems * elem_bytes <= (long long)kBnStageBytes;
+  p.on_chip = per_block * elems * elem_bytes <= (long long)stage_bytes;
   return p;
 }
 
@@ -188,36 +214,81 @@ __device__ __forceinline__ float bn_block_sum(float v, float* red) {
   return t;
 }
 
+// The block's sums s and q of one item (channel group g, chunk chunk_i)
+// into the partials psum and psq [chunks, C]: ROWS, one per channel of
+// the tile; planes, one for channel g. Every thread calls it.
+template <int VEC, bool ROWS>
+__device__ __forceinline__ void bn_item_partials(
+    float (&s)[VEC], float (&q)[VEC], float* red, int tx_n, int tx, int g,
+    int c, long long chunk_i, float* psum, float* psq) {
+  if (ROWS) {
+    const int width = tx_n * VEC;
+    const float ts = bn_tile_sum<VEC>(s, red, tx_n, tx);
+    const float tq = bn_tile_sum<VEC>(q, red, tx_n, tx);
+    const int ch = g * width + (int)threadIdx.x;
+    if ((int)threadIdx.x < width && ch < c) {
+      psum[chunk_i * c + ch] = ts;
+      psq[chunk_i * c + ch] = tq;
+    }
+  } else {
+    float ss = 0.f, qq = 0.f;
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) {
+      ss += s[j];
+      qq += q[j];
+    }
+    const float ts = bn_block_sum(ss, red);
+    const float tq = bn_block_sum(qq, red);
+    if (threadIdx.x == 0) {
+      psum[chunk_i * c + g] = ts;
+      psq[chunk_i * c + g] = tq;
+    }
+  }
+}
+
 // ------------------------------------------------------------- phase 3
 // The statistics of channels [c0, c0 + width) from every chunk's partial:
 // lane l (of L) adds chunks l, l + L, ... in ascending order, then thread
 // j < width adds the lanes in order and writes a, b to ab[j], ab[kBnMaxTile
 // + j]; the item of chunk 0 also writes mean and var. The same order in
 // every block.
-__device__ __forceinline__ void bn_finalize(const BnArgs& a, int c0,
-                                            int width, bool first,
-                                            float* red, float* ab) {
+// The re-add itself: thread j < width (channel c0 + j < C) gets the totals
+// of psum and psq in s and q and true; every thread calls it.
+__device__ __forceinline__ bool bn_partials(const float* psum,
+                                            const float* psq, int chunks,
+                                            int cc, int c0, int width,
+                                            float* red, float& s, float& q) {
   const int lanes = min(kBnThreads / width, kBnLanes);
   const int j = threadIdx.x % width;
   const int l = threadIdx.x / width;
   const int c = c0 + j;
   if (l < lanes) {
-    float s = 0.f, q = 0.f;
-    if (c < a.c)
-      for (int k = l; k < a.p.chunks; k += lanes) {
-        s += a.psum[(long long)k * a.c + c];
-        q += a.psq[(long long)k * a.c + c];
+    float ps = 0.f, pq = 0.f;
+    if (c < cc)
+      for (int k = l; k < chunks; k += lanes) {
+        ps += psum[(long long)k * cc + c];
+        pq += psq[(long long)k * cc + c];
       }
-    red[l * width + j] = s;
-    red[(lanes + l) * width + j] = q;
+    red[l * width + j] = ps;
+    red[(lanes + l) * width + j] = pq;
   }
   __syncthreads();
-  if ((int)threadIdx.x < width && c < a.c) {
-    float s = 0.f, q = 0.f;
-    for (int k = 0; k < lanes; ++k) {
-      s += red[k * width + j];
-      q += red[(lanes + k) * width + j];
-    }
+  s = q = 0.f;
+  if ((int)threadIdx.x >= width || c >= cc) return false;
+  for (int k = 0; k < lanes; ++k) {
+    s += red[k * width + j];
+    q += red[(lanes + k) * width + j];
+  }
+  return true;
+}
+
+__device__ __forceinline__ void bn_finalize(const BnArgs& a, int c0,
+                                            int width, bool first,
+                                            float* red, float* ab) {
+  const int j = threadIdx.x % width;
+  const int c = c0 + j;
+  float s, q;
+  if (bn_partials(a.psum, a.psq, a.p.chunks, a.c, c0, width, red, s, q)) {
     const float count = (float)(a.n * a.s);
     const float m = __fdiv_rn(s, count);
     const float v =
@@ -367,29 +438,8 @@ __global__ void __launch_bounds__(kBnThreads, 1)
         }
       }
     }
-    const long long chunk_i = it / groups;
-    if (ROWS) {
-      const float ts = bn_tile_sum<VEC>(s, red, tx_n, tx);
-      const float tq = bn_tile_sum<VEC>(q, red, tx_n, tx);
-      const int ch = g * width + (int)threadIdx.x;
-      if ((int)threadIdx.x < width && ch < c) {
-        a.psum[chunk_i * c + ch] = ts;
-        a.psq[chunk_i * c + ch] = tq;
-      }
-    } else {
-      float ss = 0.f, qq = 0.f;
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) {
-        ss += s[j];
-        qq += q[j];
-      }
-      const float ts = bn_block_sum(ss, red);
-      const float tq = bn_block_sum(qq, red);
-      if (threadIdx.x == 0) {
-        a.psum[chunk_i * c + g] = ts;
-        a.psq[chunk_i * c + g] = tq;
-      }
-    }
+    bn_item_partials<VEC, ROWS>(s, q, red, tx_n, tx, g, c, it / groups,
+                                a.psum, a.psq);
     off += (e1 - e0) * row_elems;
   }
 
@@ -444,16 +494,214 @@ __global__ void __launch_bounds__(kBnThreads, 1)
   }
 }
 
+
+// ------------------------------------------------------------ backward
+struct BnBwdArgs {
+  const void* x;
+  const void* gy;  // in x's order
+  void* dx;        // in x's order
+  const float* gamma;
+  const float* mean;
+  const float* var;
+  float* dscale;
+  float* dbias;
+  float* psum;  // [chunks, C]: sum gy
+  float* psq;   // [chunks, C]: sum gy * xhat
+  long long n, s;
+  int c;
+  float eps;
+  BnPlan p;
+};
+
+// Phase 3 of the backward: dbias and dscale of channels [c0, c0 + width)
+// from the partials in the forward's fixed order, and for channel c0 + j
+// the coefficients of dx = k * (gy - dbias / n) - kq * (x - mean):
+// coef[0][j] = k = gamma * inv, coef[1][j] = dbias / n, coef[2][j] = mean,
+// coef[3][j] = kq = k * inv * (dscale / n) (rows of kBnMaxTile floats).
+// The item of chunk 0 writes dscale and dbias.
+__device__ __forceinline__ void bn_bwd_finalize(const BnBwdArgs& a, int c0,
+                                                int width, bool first,
+                                                float* red, float* coef) {
+  const int j = threadIdx.x % width;
+  const int c = c0 + j;
+  float s, q;
+  if (bn_partials(a.psum, a.psq, a.p.chunks, a.c, c0, width, red, s, q)) {
+    const float count = (float)(a.n * a.s);
+    const float inv = rsqrtf(a.var[c] + a.eps);
+    const float k = a.gamma[c] * inv;
+    coef[j] = k;
+    coef[kBnMaxTile + j] = s / count;
+    coef[2 * kBnMaxTile + j] = a.mean[c];
+    coef[3 * kBnMaxTile + j] = k * inv * (q / count);
+    if (first) {
+      a.dbias[c] = s;
+      a.dscale[c] = q;
+    }
+  }
+  __syncthreads();
+}
+
+// vectors of x and of gy a thread of the backward has in flight at once:
+// the forward's bytes in flight (8 of x alone spilled at the 128-register
+// cap of a 512-thread block)
+constexpr int kBnBwdBatch = 4;
+
+// The backward, one cooperative kernel: the forward's items, walk and
+// barrier, over x and gy together in batches of kBnBwdBatch vectors each.
+template <typename T, int VEC, bool ROWS>
+__global__ void __launch_bounds__(kBnThreads, 1)
+    bn_bwd_kernel(const BnBwdArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_bn[];
+  using P = Pack<T, VEC>;
+  float* red = reinterpret_cast<float*>(smem_bn);
+  float* coef = red + kBnRedFloats;
+  T* stage_x = reinterpret_cast<T*>(coef + kBnBwdCoefs * kBnMaxTile);
+  // elements of x (and of gy) a block stages: its work's head
+  constexpr long long cap = kBnBwdStageBytes / sizeof(T);
+  T* stage_g = stage_x + cap;
+  const BnPlan& p = a.p;
+  const T* x = static_cast<const T*>(a.x);
+  const T* gy = static_cast<const T*>(a.gy);
+  T* dx = static_cast<T*>(a.dx);
+  const int c = a.c;
+  const long long rows = a.n * a.s;
+  const long long per_plane = a.s / VEC;
+  const long long total = a.n * per_plane;
+  const int tx_n = ROWS ? p.tx : 1;
+  const int tx = ROWS ? (int)threadIdx.x % tx_n : 0;
+  const int ty = ROWS ? (int)threadIdx.x / tx_n : (int)threadIdx.x;
+  const int ty_n = kBnThreads / tx_n;
+  const int width = ROWS ? tx_n * VEC : 1;
+  const int groups = ROWS ? p.ctiles : c;
+  const int row_elems = ROWS ? width : VEC;
+
+  auto range = [&](int it, long long& e0, long long& e1) {
+    e0 = (long long)(it / groups) * p.chunk;
+    const long long end = ROWS ? rows : total;
+    e1 = e0 + p.chunk < end ? e0 + p.chunk : end;
+  };
+
+  // ---- phase 1: partial sums of gy and gy * xhat, the head of x and gy
+  // staged
+  long long off = 0;
+  for (int it = blockIdx.x; it < p.items; it += gridDim.x) {
+    const int g = it % groups;
+    const int c0 = (g * tx_n + tx) * VEC;
+    long long e0, e1;
+    range(it, e0, e1);
+    float mu[VEC], iv[VEC], s[VEC], q[VEC];
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) {
+      const int ch = ROWS ? c0 + j : g;
+      mu[j] = ch < c ? a.mean[ch] : 0.f;
+      iv[j] = ch < c ? rsqrtf(a.var[ch] + a.eps) : 0.f;
+      s[j] = q[j] = 0.f;
+    }
+    if (!ROWS || c0 < c) {
+      BnWalk<VEC, ROWS> w(e0 + ty, ty_n, per_plane);
+      while (w.e < e1) {
+        P xv[kBnBwdBatch], gv[kBnBwdBatch];
+        long long rel[kBnBwdBatch];
+#pragma unroll
+        for (int u = 0; u < kBnBwdBatch; ++u) {
+          rel[u] = w.e - e0;
+          if (w.e < e1) {
+            const long long at = w.at(c, g, a.s, c0);
+            xv[u] = *reinterpret_cast<const P*>(x + at);
+            gv[u] = *reinterpret_cast<const P*>(gy + at);
+            w.next(ty_n);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kBnBwdBatch; ++u) {
+          if (e0 + rel[u] < e1) {
+            const long long st = off + rel[u] * row_elems + tx * VEC;
+            if (st + VEC <= cap) {
+              *reinterpret_cast<P*>(stage_x + st) = xv[u];
+              *reinterpret_cast<P*>(stage_g + st) = gv[u];
+            }
+#pragma unroll
+            for (int j = 0; j < VEC; ++j) {
+              const float gf = to_f32(gv[u].v[j]);
+              s[j] += gf;
+              q[j] += gf * ((to_f32(xv[u].v[j]) - mu[j]) * iv[j]);
+            }
+          }
+        }
+      }
+    }
+    bn_item_partials<VEC, ROWS>(s, q, red, tx_n, tx, g, c, it / groups,
+                                a.psum, a.psq);
+    off += (e1 - e0) * row_elems;
+  }
+
+  cooperative_groups::this_grid().sync();  // every partial written
+
+  // ---- phases 3 and 4: dx, the block's items in reverse order, each
+  // walked from its end
+  const int mine = (p.items - (int)blockIdx.x + (int)gridDim.x - 1) /
+                   (int)gridDim.x;
+  for (int m = mine - 1; m >= 0; --m) {
+    const int it = (int)blockIdx.x + m * (int)gridDim.x;
+    const int g = it % groups;
+    const int c0 = (g * tx_n + tx) * VEC;
+    long long e0, e1;
+    range(it, e0, e1);
+    off -= (e1 - e0) * row_elems;
+    bn_bwd_finalize(a, g * width, width, it < groups, red, coef);
+    if (ROWS && c0 >= c) continue;
+    float fk[VEC], fb[VEC], fm[VEC], fq[VEC];
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) {
+      const int t = ROWS ? tx * VEC + j : 0;
+      fk[j] = coef[t];
+      fb[j] = coef[kBnMaxTile + t];
+      fm[j] = coef[2 * kBnMaxTile + t];
+      fq[j] = coef[3 * kBnMaxTile + t];
+    }
+    BnWalk<VEC, ROWS> w(e1 - 1 - ty, ty_n, per_plane);
+    while (w.e >= e0) {
+      P xv[kBnBwdBatch], gv[kBnBwdBatch];
+      long long at[kBnBwdBatch];
+#pragma unroll
+      for (int u = 0; u < kBnBwdBatch; ++u) {
+        at[u] = -1;
+        if (w.e >= e0) {
+          at[u] = w.at(c, g, a.s, c0);
+          const long long st = off + (w.e - e0) * row_elems + tx * VEC;
+          if (st + VEC <= cap) {
+            xv[u] = *reinterpret_cast<const P*>(stage_x + st);
+            gv[u] = *reinterpret_cast<const P*>(stage_g + st);
+          } else {
+            xv[u] = *reinterpret_cast<const P*>(x + at[u]);
+            gv[u] = *reinterpret_cast<const P*>(gy + at[u]);
+          }
+          w.prev(ty_n);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kBnBwdBatch; ++u) {
+        if (at[u] >= 0) {
+          P out;
+#pragma unroll
+          for (int j = 0; j < VEC; ++j)
+            out.v[j] = from_f32<T>(fk[j] * (to_f32(gv[u].v[j]) - fb[j]) -
+                                   fq[j] * (to_f32(xv[u].v[j]) - fm[j]));
+          *reinterpret_cast<P*>(dx + at[u]) = out;
+        }
+      }
+    }
+  }
+}
+
 // Blocks of one kernel instantiation the card holds at once (its occupancy
 // at the full shared-memory request times the SMs); 0 when the device
 // cannot launch it cooperatively. Sets the shared-memory attribute the
-// first time (before any graph capture).
-template <typename T, int VEC, bool ROWS>
-int bn_blocks(cudaError_t* err) {
-  static int blocks = -1;
-  if (blocks >= 0) return blocks;
+// first time (before any graph capture); `cache` keeps the answer.
+template <typename K>
+int coop_blocks(K kernel, int* cache, cudaError_t* err) {
+  if (*cache >= 0) return *cache;
   int dev = 0, sms = 0, coop = 0, occ = 0;
-  auto kernel = bn_train_kernel<T, VEC, ROWS>;
   *err = cudaGetDevice(&dev);
   if (*err == cudaSuccess)
     *err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -471,8 +719,20 @@ int bn_blocks(cudaError_t* err) {
     *err = cudaErrorCooperativeLaunchTooLarge;
     return 0;
   }
-  blocks = occ * sms;
-  return blocks;
+  *cache = occ * sms;
+  return *cache;
+}
+
+template <typename T, int VEC, bool ROWS>
+int bn_blocks(cudaError_t* err) {
+  static int blocks = -1;
+  return coop_blocks(bn_train_kernel<T, VEC, ROWS>, &blocks, err);
+}
+
+template <typename T, int VEC, bool ROWS>
+int bn_bwd_blocks(cudaError_t* err) {
+  static int blocks = -1;
+  return coop_blocks(bn_bwd_kernel<T, VEC, ROWS>, &blocks, err);
 }
 
 template <typename T, int VEC, bool ROWS>
@@ -501,6 +761,59 @@ cudaError_t run_bn(BnArgs a, long long work_floats, int elem_bytes,
       dim3(a.p.grid), dim3(kBnThreads), args, kBnSmemBytes, stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+template <typename T, int VEC, bool ROWS>
+cudaError_t run_bn_bwd(BnBwdArgs a, long long work_floats, int elem_bytes,
+                       int channels_last, cudaStream_t stream,
+                       long long* floats_out, int* plan_out) {
+  cudaError_t err = cudaSuccess;
+  const int blocks = bn_bwd_blocks<T, VEC, ROWS>(&err);
+  if (blocks == 0) return err;
+  a.p = bn_plan(a.x, a.dx, a.n, a.c, a.s, channels_last, elem_bytes, blocks,
+                a.gy, kBnBwdStageBytes);
+  const long long need = 2LL * a.p.chunks * a.c;
+  if (floats_out != nullptr) {  // workspace query: no launch
+    *floats_out = need;
+    if (plan_out != nullptr) {
+      const int plan[6] = {a.p.vec,   a.p.chunks, a.p.items,
+                           a.p.grid,  a.p.on_chip, blocks};
+      for (int i = 0; i < 6; ++i) plan_out[i] = plan[i];
+    }
+    return cudaSuccess;
+  }
+  if (work_floats < need) return cudaErrorInvalidValue;
+  a.psq = a.psum + (long long)a.p.chunks * a.c;
+  void* args[] = {&a};
+  err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(bn_bwd_kernel<T, VEC, ROWS>),
+      dim3(a.p.grid), dim3(kBnThreads), args, kBnSmemBytes, stream);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+inline cudaError_t bn_bwd_dispatch(BnBwdArgs a, long long work_floats,
+                                   int dtype, int channels_last,
+                                   cudaStream_t stream, long long* floats_out,
+                                   int* plan_out) {
+  const int elem = dtype == kBFloat16 ? 2 : 4;
+  const int vec = bn_plan(a.x, a.dx, a.n, a.c, a.s, channels_last, elem, 1,
+                          a.gy, kBnBwdStageBytes)
+                      .vec;
+  using B = __nv_bfloat16;
+#define PTT_BN_BWD(T, VEC)                                                  \
+  return channels_last                                                     \
+             ? run_bn_bwd<T, VEC, true>(a, work_floats, elem, 1, stream,   \
+                                        floats_out, plan_out)              \
+             : run_bn_bwd<T, VEC, false>(a, work_floats, elem, 0, stream,  \
+                                         floats_out, plan_out)
+  if (dtype == kFloat32) {
+    if (vec == 1) PTT_BN_BWD(float, 1);
+    PTT_BN_BWD(float, 4);
+  }
+  if (vec == 1) PTT_BN_BWD(B, 1);
+  PTT_BN_BWD(B, 8);
+#undef PTT_BN_BWD
 }
 
 // The instantiation for this dtype, vector width and order; with
@@ -553,20 +866,36 @@ inline BnArgs bn_args(const void* x, const void* gamma, const void* beta,
 // [chunks, C]); -1 when the device cannot run the kernel. With `plan` set,
 // also writes the launch's split there: vector width, chunks, work items,
 // blocks, x staged on chip (1) or not (0), blocks the card holds.
+// gy: null for the forward; for the backward, the gradient walked beside x
+// (y is then dx).
 extern "C" long long ptt_batch_norm_workspace(const void* x, const void* y,
-                                              long long n, int c, long long s,
+                                              const void* gy, long long n,
+                                              int c, long long s,
                                               int channels_last, int dtype,
                                               int* plan) {
   long long floats = -1;
   if (n < 1 || c < 1 || s < 1 ||
       (dtype != ptt::kFloat32 && dtype != ptt::kBFloat16))
     return -1;
-  const ptt::BnArgs a = ptt::bn_args(x, nullptr, nullptr, const_cast<void*>(y),
-                                     nullptr, nullptr, nullptr, n, c, s, 0.f);
-  if (ptt::bn_dispatch(a, 0, dtype, channels_last, nullptr, &floats,
-                       plan) != cudaSuccess)
-    return -1;
-  return floats;
+  cudaError_t err;
+  if (gy == nullptr) {
+    const ptt::BnArgs a =
+        ptt::bn_args(x, nullptr, nullptr, const_cast<void*>(y), nullptr,
+                     nullptr, nullptr, n, c, s, 0.f);
+    err = ptt::bn_dispatch(a, 0, dtype, channels_last, nullptr, &floats,
+                           plan);
+  } else {
+    ptt::BnBwdArgs a = {};
+    a.x = x;
+    a.gy = gy;
+    a.dx = const_cast<void*>(y);
+    a.n = n;
+    a.s = s;
+    a.c = c;
+    err = ptt::bn_bwd_dispatch(a, 0, dtype, channels_last, nullptr, &floats,
+                               plan);
+  }
+  return err == cudaSuccess ? floats : -1;
 }
 
 // x, y: the [n, c, s] activation and its output, dense in the order given
@@ -589,4 +918,39 @@ extern "C" int ptt_batch_norm_train(const void* x, const void* gamma,
                                            channels_last,
                                            static_cast<cudaStream_t>(stream),
                                            nullptr, nullptr));
+}
+
+// The backward: x, gy, dx the [n, c, s] activation, its gradient and the
+// gradient of x, all dense in the order channels_last gives, fp32 (dtype 0)
+// or bf16 (dtype 1); gamma, mean, var: [c] fp32 (the forward's scale and
+// saved statistics); dscale, dbias: [c] fp32 outputs; work:
+// ptt_batch_norm_workspace(x, dx, gy, ...) fp32 floats. One cooperative
+// launch; returns its error, then cudaGetLastError().
+extern "C" int ptt_batch_norm_bwd(const void* x, const void* gy,
+                                  const void* gamma, const void* mean,
+                                  const void* var, void* dx, void* dscale,
+                                  void* dbias, void* work,
+                                  long long work_floats, long long n, int c,
+                                  long long s, int channels_last, float eps,
+                                  int dtype, void* stream) {
+  if (n < 1 || c < 1 || s < 1 ||
+      (dtype != ptt::kFloat32 && dtype != ptt::kBFloat16))
+    return static_cast<int>(cudaErrorInvalidValue);
+  ptt::BnBwdArgs a = {};
+  a.x = x;
+  a.gy = gy;
+  a.dx = dx;
+  a.gamma = static_cast<const float*>(gamma);
+  a.mean = static_cast<const float*>(mean);
+  a.var = static_cast<const float*>(var);
+  a.dscale = static_cast<float*>(dscale);
+  a.dbias = static_cast<float*>(dbias);
+  a.psum = static_cast<float*>(work);
+  a.n = n;
+  a.s = s;
+  a.c = c;
+  a.eps = eps;
+  return static_cast<int>(ptt::bn_bwd_dispatch(
+      a, work_floats, dtype, channels_last,
+      static_cast<cudaStream_t>(stream), nullptr, nullptr));
 }

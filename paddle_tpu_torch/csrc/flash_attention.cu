@@ -7,7 +7,8 @@
 //
 // What they compute (the Pallas kernels' function, not their blocking):
 // s = (q . k^T) * scale with fp32 accumulation over inputs of the tensors'
-// dtype; causal (col <= row, aligned top-left) and per-example kv_len
+// dtype; causal (col <= row + Tk - Tq, aligned bottom-right as the
+// reference's tril(.., tk - tq), so any Tq and Tk) and per-example kv_len
 // (col < kv_len[b]) masks; online softmax with fp32 m and l; p rounded to
 // v's dtype before p . v; out in q's dtype and lse = m + log(l) in fp32. The
 // backward recomputes p = exp(s - lse), takes delta = rowsum(dO * O) in
@@ -24,8 +25,12 @@
 // give p = exp(-1e30 - lse) = 1 on a row whose lse is itself -1e30. Inside a
 // tile that runs, masked entries get p = 0 explicitly. Any Tq and Tk work:
 // rows and columns past the end of a tail tile are zero-filled and masked.
-// A row with no live key gives out 0 and lse -1e30, as the Pallas kernel
-// does (its denominator 0 becomes 1).
+// A row with no live key (kv_len 0, or the first Tq - Tk rows under the
+// causal mask) gives what the reference's reference_attention gives, the
+// softmax of an all -1e9 row: out = mean of V over all Tk keys (written by
+// the forward kernels after their key loop) and lse = -1e9 + log(Tk); in
+// the backward it adds dO / Tk to every key's dV (the dK/dV kernels, after
+// their query loop) and nothing to dQ or dK.
 //
 // Bound on an H100: at the training shapes (T = 64 or 512, D = 64) the
 // forward is bound by bytes (q, k, v read and out written once: 16.8 MB,
@@ -74,9 +79,12 @@
 //   flash_bwd_dq_kernel; fp32 products on the CUDA cores): fp32 inputs (the
 //   parity path: TF32 would not hold 1e-4 against the host) and any bf16
 //   input the tensor-core kernels' loads do not allow (odd head dims,
-//   misaligned views). One 256-thread block (16 x 16) per (b*h, 64-row
-//   tile); tiles staged in shared memory as fp32; each thread owns a 4 x 4
-//   block of the 64 x 64 score tile; p and ds go through shared memory.
+//   misaligned views), and every head dim up to 256 (kMaxHeadDim). One
+//   256-thread block (16 x 16) per (b*h, 64-row tile); tiles staged in
+//   shared memory as fp32; each thread owns a 4 x 4 block of the 64 x 64
+//   score tile; p and ds go through shared memory. Above D = 128 the two
+//   backward kernels walk query tiles of 32 rows (2 x 4 a thread), so that
+//   fp32 tiles of 256 columns fit a block's 227 KB.
 //
 // Tensors are addressed through (b, h, t) strides with D contiguous, so the
 // head-split views of [B, T, H*D] activations need no copy.
@@ -91,13 +99,14 @@ constexpr int kFlashThreads = 256;  // 16 x 16, the SIMT kernels
 constexpr int kMmaThreads = 128;    // 4 warps x 16 query rows
 constexpr int kLdP = kTile + 1;     // row stride of the SIMT p / ds tiles
 
-// rows [t0, t0 + kTile) of one (b, h) slice into dst[kTile][ld] as fp32;
+// rows [t0, t0 + rows) of one (b, h) slice into dst[rows][ld] as fp32;
 // rows at or past t_end are zero
 template <typename T>
 __device__ __forceinline__ void load_tile(float* dst, int ld, const T* src,
                                           const View& v, int bi, int hi,
-                                          int t0, int t_end, int d) {
-  for (int i = threadIdx.x; i < kTile * d; i += kFlashThreads) {
+                                          int t0, int t_end, int d,
+                                          int rows = kTile) {
+  for (int i = threadIdx.x; i < rows * d; i += kFlashThreads) {
     const int r = i / d;
     const int c = i - r * d;
     const int t = t0 + r;
@@ -142,7 +151,8 @@ __global__ void __launch_bounds__(kMmaThreads)
   const int q0 = blockIdx.y * kTile;
   const int q_end = min(q0 + kTile, s.tq);
   const int k_lim = key_limit(s, kv_len, bi);
-  const int k_end = s.causal ? min(k_lim, q_end) : k_lim;
+  const int off = s.tk - s.tq;  // the causal band's bottom-right offset
+  const int k_end = s.causal ? min(k_lim, max(q_end + off, 0)) : k_lim;
   const int ntiles = (k_end + kTile - 1) / kTile;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -153,10 +163,7 @@ __global__ void __launch_bounds__(kMmaThreads)
   // keys [0, lims[hf]) are live for row rows[hf]
   int lims[2];
 #pragma unroll
-  for (int hf = 0; hf < 2; ++hf)
-    lims[hf] = rows[hf] >= s.tq ? 0
-               : s.causal       ? min(k_lim, rows[hf] + 1)
-                                : k_lim;
+  for (int hf = 0; hf < 2; ++hf) lims[hf] = row_limit(s, k_lim, rows[hf]);
   const float scale2 = s.scale * kLog2e;
 
   float m[2] = {kMasked, kMasked};  // running max, log2 domain
@@ -226,7 +233,7 @@ __global__ void __launch_bounds__(kMmaThreads)
       // the log2 domain (t = s * scale * log2(e), p = 2^(t - m)). A tile
       // that no mask touches for this warp's rows skips the mask.
       const bool full = k0 + kTile <= k_lim && q0 + wrow + 16 <= s.tq &&
-                        (!s.causal || k0 + kTile - 1 <= q0 + wrow);
+                        (!s.causal || k0 + kTile - 1 <= q0 + wrow + off);
 #pragma unroll
       for (int hf = 0; hf < 2; ++hf) {
         const int lim = lims[hf];
@@ -294,6 +301,25 @@ __global__ void __launch_bounds__(kMmaThreads)
     }
   }
 
+  // rows with no live key (l = 0) take the mean of V over all Tk keys,
+  // through the K stages, free now (the loop ended on a barrier)
+  const int ndead = dead_rows(s, k_lim);
+  if (q0 < ndead) {
+    float* mv = reinterpret_cast<float*>(ks);
+    sum_rows(mv, v + offset(vv, bi, hi, 0), vv.st, s.tk,
+             s.tk > 0 ? 1.f / s.tk : 0.f, d, kMmaThreads);
+    __syncthreads();
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+      if (rows[hf] < ndead)
+#pragma unroll
+        for (int i = 0; i < 2 * DB; ++i)
+          if (i < d / 8) {
+            oacc[i][hf * 2] = mv[i * 8 + tig * 2];
+            oacc[i][hf * 2 + 1] = mv[i * 8 + tig * 2 + 1];
+          }
+  }
+
   // out = acc / l through this warp's own Q rows (their fragments are in
   // registers), then 16-byte row stores
   float denom[2];
@@ -309,7 +335,7 @@ __global__ void __launch_bounds__(kMmaThreads)
     for (int hf = 0; hf < 2; ++hf)
       if (rows[hf] < s.tq)
         lse[(long long)bh * s.tq + rows[hf]] =
-            l[hf] == 0.f ? kMasked
+            l[hf] == 0.f ? dead_lse(s)
                          : m[hf] * 0.6931471805599453f + logf(l[hf]);
   }
 }
@@ -335,7 +361,8 @@ __global__ void __launch_bounds__(kFlashThreads)
   const int q0 = blockIdx.y * kTile;
   const int q_end = min(q0 + kTile, s.tq);
   const int k_lim = key_limit(s, kv_len, bi);
-  const int k_end = s.causal ? min(k_lim, q_end) : k_lim;
+  const int k_end =
+      s.causal ? min(k_lim, max(q_end + s.tk - s.tq, 0)) : k_lim;
   const int ty = threadIdx.x / 16;
   const int tx = threadIdx.x % 16;
 
@@ -413,6 +440,24 @@ __global__ void __launch_bounds__(kFlashThreads)
     }
   }
 
+  // rows with no live key (l = 0) take the mean of V over all Tk keys,
+  // through the K tile, free once every thread is past the loop
+  const int ndead = dead_rows(s, k_lim);
+  if (q0 < ndead) {
+    __syncthreads();
+    sum_rows(ks, v + offset(vv, bi, hi, 0), vv.st, s.tk,
+             s.tk > 0 ? 1.f / s.tk : 0.f, d, kFlashThreads);
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (q0 + ty + 16 * i < ndead)
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          const int c = tx + 16 * j;
+          acc[i][j] = c < d ? ks[c] : 0.f;
+        }
+  }
+
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = q0 + ty + 16 * i;
@@ -424,15 +469,18 @@ __global__ void __launch_bounds__(kFlashThreads)
       const int c = tx + 16 * j;
       if (c < d) orow[c] = from_f32<T>(acc[i][j] / denom);
     }
-    if (tx == 0) lse[(long long)bh * s.tq + r] = m[i] + logf(denom);
+    if (tx == 0)
+      lse[(long long)bh * s.tq + r] =
+          l[i] == 0.f ? dead_lse(s) : m[i] + logf(denom);
   }
 }
 
 // ------------------------------------------- backward, shared tile math
-// For the q tile at q0 and the k tile at k0 (staged in qs/dos and ks/vs),
-// writes round(p) into ps (when ps != nullptr) and round(ds) into dss,
-// [64 q rows][65]. lse_s / delta_s hold the tile's 64 rows.
-template <typename T>
+// For the q tile at q0 (16 * QI rows) and the k tile at k0 (staged in
+// qs/dos and ks/vs), writes round(p) into ps (when ps != nullptr) and
+// round(ds) into dss, [16 * QI q rows][65]. lse_s / delta_s hold the tile's
+// rows.
+template <typename T, int QI>
 __device__ __forceinline__ void bwd_tile(const float* qs, const float* dos,
                                          const float* ks, const float* vs,
                                          const float* lse_s,
@@ -441,15 +489,15 @@ __device__ __forceinline__ void bwd_tile(const float* qs, const float* dos,
                                          int k0, int k_lim, int ld) {
   const int ty = threadIdx.x / 16;
   const int tx = threadIdx.x % 16;
-  float sc[4][4], dp[4][4];
+  float sc[QI][4], dp[QI][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < QI; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) sc[i][j] = dp[i][j] = 0.f;
   for (int c = 0; c < s.d; ++c) {
-    float qv[4], dv[4], kv[4], vv[4];
+    float qv[QI], dv[QI], kv[4], vv[4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < QI; ++i) {
       qv[i] = qs[(ty + 16 * i) * ld + c];
       dv[i] = dos[(ty + 16 * i) * ld + c];
     }
@@ -459,7 +507,7 @@ __device__ __forceinline__ void bwd_tile(const float* qs, const float* dos,
       vv[j] = vs[(tx + 16 * j) * ld + c];
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < QI; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         sc[i][j] = fmaf(qv[i], kv[j], sc[i][j]);
@@ -467,7 +515,7 @@ __device__ __forceinline__ void bwd_tile(const float* qs, const float* dos,
       }
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < QI; ++i) {
     const int r = ty + 16 * i;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
@@ -482,15 +530,17 @@ __device__ __forceinline__ void bwd_tile(const float* qs, const float* dos,
 }
 
 __device__ __forceinline__ void load_rows(float* dst, const float* src,
-                                          long long base, int t0, int t_end) {
-  for (int i = threadIdx.x; i < kTile; i += kFlashThreads)
+                                          long long base, int t0, int t_end,
+                                          int rows) {
+  for (int i = threadIdx.x; i < rows; i += kFlashThreads)
     dst[i] = t0 + i < t_end ? src[base + t0 + i] : 0.f;
 }
 
 // ----------------------------------------------------- backward: dK, dV
-// One block per (b*h, 64-key tile), summing over the query tiles.
-// smem: Q, dO, K, V [64][d+1]; P, dS [64][65]; lse, delta [64]
-template <typename T, int NJ>
+// One block per (b*h, 64-key tile), summing over the query tiles of QT =
+// 16 * QI rows (32 above D = 128, for shared memory).
+// smem: Q, dO [QT][d+1]; K, V [64][d+1]; P, dS [QT][65]; lse, delta [QT]
+template <typename T, int NJ, int QI>
 __global__ void __launch_bounds__(kFlashThreads)
     flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const T* __restrict__ dout,
@@ -499,17 +549,18 @@ __global__ void __launch_bounds__(kFlashThreads)
                          const int* __restrict__ kv_len, T* __restrict__ dk,
                          T* __restrict__ dv, View vq, View vk, View vv,
                          View vdo, View vdk, View vdv, Dims s) {
+  constexpr int QT = 16 * QI;
   extern __shared__ float smem[];
   const int d = s.d;
   const int ld = d + 1;
   float* qs = smem;
-  float* dos = qs + kTile * ld;
-  float* ks = dos + kTile * ld;
+  float* dos = qs + QT * ld;
+  float* ks = dos + QT * ld;
   float* vs = ks + kTile * ld;
   float* ps = vs + kTile * ld;
-  float* dss = ps + kTile * kLdP;
-  float* lse_s = dss + kTile * kLdP;
-  float* delta_s = lse_s + kTile;
+  float* dss = ps + QT * kLdP;
+  float* lse_s = dss + QT * kLdP;
+  float* delta_s = lse_s + QT;
   const int bh = blockIdx.x;
   const int bi = bh / s.h;
   const int hi = bh - bi * s.h;
@@ -528,18 +579,19 @@ __global__ void __launch_bounds__(kFlashThreads)
   if (k0 < k_lim) {
     load_tile(ks, ld, k, vk, bi, hi, k0, s.tk, d);
     load_tile(vs, ld, v, vv, bi, hi, k0, s.tk, d);
-    // causal (Tq == Tk): query tiles ending before k0 have no live pair
-    for (int q0 = s.causal ? k0 : 0; q0 < s.tq; q0 += kTile) {
+    // causal: query rows below k0 - (Tk - Tq) have no live pair
+    for (int q0 = s.causal ? max(k0 - (s.tk - s.tq), 0) : 0; q0 < s.tq;
+         q0 += QT) {
       __syncthreads();  // k, v staged; last tile's q, dO, p, ds consumed
-      load_tile(qs, ld, q, vq, bi, hi, q0, s.tq, d);
-      load_tile(dos, ld, dout, vdo, bi, hi, q0, s.tq, d);
-      load_rows(lse_s, lse, row_base, q0, s.tq);
-      load_rows(delta_s, delta, row_base, q0, s.tq);
+      load_tile(qs, ld, q, vq, bi, hi, q0, s.tq, d, QT);
+      load_tile(dos, ld, dout, vdo, bi, hi, q0, s.tq, d, QT);
+      load_rows(lse_s, lse, row_base, q0, s.tq, QT);
+      load_rows(delta_s, delta, row_base, q0, s.tq, QT);
       __syncthreads();
-      bwd_tile<T>(qs, dos, ks, vs, lse_s, delta_s, ps, dss, s, q0, k0, k_lim,
-                  ld);
+      bwd_tile<T, QI>(qs, dos, ks, vs, lse_s, delta_s, ps, dss, s, q0, k0,
+                      k_lim, ld);
       __syncthreads();
-      const int rn = min(kTile, s.tq - q0);
+      const int rn = min(QT, s.tq - q0);
       for (int r = 0; r < rn; ++r) {
         float dor[NJ], qr[NJ];
 #pragma unroll
@@ -562,6 +614,23 @@ __global__ void __launch_bounds__(kFlashThreads)
     }
   }
 
+  // rows with no live key add dO / Tk to every key's dV (p rounded as the
+  // live p is), through the Q tile, free once every thread is past the loop
+  const int ndead = dead_rows(s, k_lim);
+  if (ndead > 0) {
+    __syncthreads();
+    sum_rows(qs, dout + offset(vdo, bi, hi, 0), vdo.st, ndead,
+             round_as<T>(1.f / s.tk), d, kFlashThreads);
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int c = tx + 16 * j;
+        if (c < d) adv[i][j] += qs[c];
+      }
+  }
+
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int kr = k0 + ty + 16 * i;
@@ -580,11 +649,12 @@ __global__ void __launch_bounds__(kFlashThreads)
 }
 
 // ---------------------------------------------------------- backward: dQ
-// One block per (b*h, 64-query tile), summing over the key tiles. Computes
-// delta = rowsum(dO * O) of its rows first and writes it out for the dK/dV
-// kernel, which runs after it on the same stream.
-// smem: Q, dO, K, V [64][d+1]; dS [64][65]; lse, delta [64]
-template <typename T, int NJ>
+// One block per (b*h, query tile of QT = 16 * QI rows: 32 above D = 128,
+// for shared memory), summing over the key tiles. Computes delta =
+// rowsum(dO * O) of its rows first and writes it out for the dK/dV kernel,
+// which runs after it on the same stream.
+// smem: Q, dO [QT][d+1]; K, V [64][d+1]; dS [QT][65]; lse, delta [QT]
+template <typename T, int NJ, int QI>
 __global__ void __launch_bounds__(kFlashThreads)
     flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const T* __restrict__ dout,
@@ -594,34 +664,36 @@ __global__ void __launch_bounds__(kFlashThreads)
                         const int* __restrict__ kv_len, T* __restrict__ dq,
                         View vq, View vk, View vv, View vdo, View vo,
                         View vdq, Dims s) {
+  constexpr int QT = 16 * QI;
   extern __shared__ float smem[];
   const int d = s.d;
   const int ld = d + 1;
   float* qs = smem;
-  float* dos = qs + kTile * ld;
-  float* ks = dos + kTile * ld;
+  float* dos = qs + QT * ld;
+  float* ks = dos + QT * ld;
   float* vs = ks + kTile * ld;
   float* dss = vs + kTile * ld;
-  float* lse_s = dss + kTile * kLdP;
-  float* delta_s = lse_s + kTile;
+  float* lse_s = dss + QT * kLdP;
+  float* delta_s = lse_s + QT;
   const int bh = blockIdx.x;
   const int bi = bh / s.h;
   const int hi = bh - bi * s.h;
-  const int q0 = blockIdx.y * kTile;
-  const int q_end = min(q0 + kTile, s.tq);
+  const int q0 = blockIdx.y * QT;
+  const int q_end = min(q0 + QT, s.tq);
   const int k_lim = key_limit(s, kv_len, bi);
-  const int k_end = s.causal ? min(k_lim, q_end) : k_lim;
+  const int k_end =
+      s.causal ? min(k_lim, max(q_end + s.tk - s.tq, 0)) : k_lim;
   const int ty = threadIdx.x / 16;
   const int tx = threadIdx.x % 16;
   const long long row_base = (long long)bh * s.tq;
 
-  load_tile(qs, ld, q, vq, bi, hi, q0, s.tq, d);
-  load_tile(dos, ld, dout, vdo, bi, hi, q0, s.tq, d);
-  load_rows(lse_s, lse, row_base, q0, s.tq);
+  load_tile(qs, ld, q, vq, bi, hi, q0, s.tq, d, QT);
+  load_tile(dos, ld, dout, vdo, bi, hi, q0, s.tq, d, QT);
+  load_rows(lse_s, lse, row_base, q0, s.tq, QT);
   __syncthreads();  // dO staged
   // delta of row r: the 16 threads of the row each sum every 16th column
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < QI; ++i) {
     const int r = ty + 16 * i;
     float part = 0.f;
     if (q0 + r < s.tq) {
@@ -635,9 +707,9 @@ __global__ void __launch_bounds__(kFlashThreads)
       if (q0 + r < s.tq) delta[row_base + q0 + r] = total;
     }
   }
-  float adq[4][NJ];
+  float adq[QI][NJ];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < QI; ++i)
 #pragma unroll
     for (int j = 0; j < NJ; ++j) adq[i][j] = 0.f;
 
@@ -646,8 +718,8 @@ __global__ void __launch_bounds__(kFlashThreads)
     load_tile(ks, ld, k, vk, bi, hi, k0, s.tk, d);
     load_tile(vs, ld, v, vv, bi, hi, k0, s.tk, d);
     __syncthreads();
-    bwd_tile<T>(qs, dos, ks, vs, lse_s, delta_s, nullptr, dss, s, q0, k0,
-                k_lim, ld);
+    bwd_tile<T, QI>(qs, dos, ks, vs, lse_s, delta_s, nullptr, dss, s, q0, k0,
+                    k_lim, ld);
     __syncthreads();
     const int kn = min(kTile, k_end - k0);
     for (int kc = 0; kc < kn; ++kc) {
@@ -658,7 +730,7 @@ __global__ void __launch_bounds__(kFlashThreads)
         kr[j] = c < d ? ks[kc * ld + c] : 0.f;
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < QI; ++i) {
         const float ds = dss[(ty + 16 * i) * kLdP + kc];
 #pragma unroll
         for (int j = 0; j < NJ; ++j) adq[i][j] = fmaf(ds, kr[j], adq[i][j]);
@@ -667,7 +739,7 @@ __global__ void __launch_bounds__(kFlashThreads)
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < QI; ++i) {
     const int r = q0 + ty + 16 * i;
     if (r >= s.tq) continue;
     T* qrow = dq + offset(vdq, bi, hi, r);
@@ -713,8 +785,9 @@ __global__ void __launch_bounds__(kMmaThreads, DB == 4 ? 4 : 1)
   const int hi = bh - bi * s.h;
   const int k0 = blockIdx.y * kTile;
   const int k_lim = key_limit(s, kv_len, bi);
-  // causal (Tq == Tk): query tiles ending before k0 have no live pair
-  const int q_first = s.causal ? k0 : 0;
+  const int off = s.tk - s.tq;  // the causal band's bottom-right offset
+  // causal: query rows below k0 - off have no live pair
+  const int q_first = s.causal ? max(k0 - off, 0) : 0;
   const int ntiles =
       k0 < k_lim && q_first < s.tq ? (s.tq - q_first + kTile - 1) / kTile : 0;
   const int warp = threadIdx.x >> 5;
@@ -774,7 +847,7 @@ __global__ void __launch_bounds__(kMmaThreads, DB == 4 ? 4 : 1)
 
       // a tile-wide condition: no mask touches this warp's key rows
       const bool full = k0 + wrow + 16 <= k_lim && q0 + kTile <= s.tq &&
-                        (!s.causal || k0 + wrow + 15 <= q0);
+                        (!s.causal || k0 + wrow + 15 <= q0 + off);
       // the tile's queries in two halves of 32, so the score fragments of
       // one half (32 registers each for s and dp) live beside dK and dV
 #pragma unroll
@@ -818,7 +891,7 @@ __global__ void __launch_bounds__(kMmaThreads, DB == 4 ? 4 : 1)
             const int c = qb + nb * 8 + tig * 2 + (e & 1);
             const int row = krows[e >> 1];
             const bool on = full || (q0 + c < s.tq && row < k_lim &&
-                                     (!s.causal || row <= q0 + c));
+                                     (!s.causal || row <= q0 + c + off));
             const float p =
                 on ? fast_exp2(sacc[nb][e] * scale2 - lt[c]) : 0.f;
             sacc[nb][e] = p;
@@ -854,8 +927,24 @@ __global__ void __launch_bounds__(kMmaThreads, DB == 4 ? 4 : 1)
     }
   }
 
+  // rows with no live key add dO / Tk to every key's dV (p rounded to
+  // bf16 as the live p is), through the Q stages, free now (the loop ended
+  // on a barrier)
+  const int ndead = dead_rows(s, k_lim);
+  if (ndead > 0) {
+    float* dsum = reinterpret_cast<float*>(qs);
+    sum_rows(dsum, dout + offset(vdo, bi, hi, 0), vdo.st, ndead,
+             round_as<__nv_bfloat16>(1.f / s.tk), d, kMmaThreads);
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 2 * DB; ++i)
+      if (i < d / 8)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dva[i][e] += dsum[i * 8 + tig * 2 + (e & 1)];
+  }
+
   // dK through the warp's own K rows, dV through its V rows (a block past
-  // kv_len writes zeros)
+  // kv_len writes zeros, or the dead rows' share)
   store_rows<DB>(ks, ld, dka, wrow, dk, vdk, bi, hi, k0, s.tk, d, lane);
   store_rows<DB>(vs, ld, dva, wrow, dv, vdv, bi, hi, k0, s.tk, d, lane);
 }
@@ -891,7 +980,8 @@ __global__ void __launch_bounds__(kMmaThreads, DB == 4 ? 4 : 1)
   const int q0 = blockIdx.y * kTile;
   const int q_end = min(q0 + kTile, s.tq);
   const int k_lim = key_limit(s, kv_len, bi);
-  const int k_end = s.causal ? min(k_lim, q_end) : k_lim;
+  const int off = s.tk - s.tq;  // the causal band's bottom-right offset
+  const int k_end = s.causal ? min(k_lim, max(q_end + off, 0)) : k_lim;
   const int ntiles = (k_end + kTile - 1) / kTile;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -904,9 +994,7 @@ __global__ void __launch_bounds__(kMmaThreads, DB == 4 ? 4 : 1)
   const long long row_base = (long long)bh * s.tq;
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
-    lims[hf] = rows[hf] >= s.tq ? 0
-               : s.causal       ? min(k_lim, rows[hf] + 1)
-                                : k_lim;
+    lims[hf] = row_limit(s, k_lim, rows[hf]);
     lse2[hf] = rows[hf] < s.tq ? lse[row_base + rows[hf]] * kLog2e : 0.f;
   }
   const float scale2 = s.scale * kLog2e;
@@ -1015,7 +1103,7 @@ __global__ void __launch_bounds__(kMmaThreads, DB == 4 ? 4 : 1)
     // ds = p (dp - delta) scale into pacc, p = exp(s scale - lse), 0 where
     // masked; a tile no mask touches for this warp's rows skips the mask
     const bool full = k0 + kTile <= k_lim && q0 + wrow + 16 <= s.tq &&
-                      (!s.causal || k0 + kTile - 1 <= q0 + wrow);
+                      (!s.causal || k0 + kTile - 1 <= q0 + wrow + off);
 #pragma unroll
     for (int nb = 0; nb < 8; ++nb)
 #pragma unroll
@@ -1058,13 +1146,17 @@ inline size_t fwd_smem(int d) {
   return sizeof(float) * (size_t)(2 * kTile * (d + 1) + kTile * d +
                                   kTile * kLdP);
 }
+// the SIMT backward kernels walk query tiles of 32 rows above D = 128
+inline int bwd_qtile(int d) { return d > 128 ? 32 : kTile; }
 inline size_t dkv_smem(int d) {
-  return sizeof(float) *
-         (size_t)(4 * kTile * (d + 1) + 2 * kTile * kLdP + 2 * kTile);
+  const int qt = bwd_qtile(d);
+  return sizeof(float) * (size_t)(2 * (qt + kTile) * (d + 1) +
+                                  2 * qt * kLdP + 2 * qt);
 }
 inline size_t dq_smem(int d) {
+  const int qt = bwd_qtile(d);
   return sizeof(float) *
-         (size_t)(4 * kTile * (d + 1) + kTile * kLdP + 2 * kTile);
+         (size_t)(2 * (qt + kTile) * (d + 1) + qt * kLdP + 2 * qt);
 }
 
 inline View view_at(const long long* strides, int i) {
@@ -1088,7 +1180,7 @@ cudaError_t allow_smem(K kernel, size_t bytes, bool* done) {
 constexpr int kLaunchedSimt = 1;
 constexpr int kLaunchedMma = 2;
 
-template <typename T, int NJ>
+template <typename T, int NJ, int QI>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
                        void* lse, const void* kv_len,
                        const long long* strides, int* launched,
@@ -1155,14 +1247,14 @@ cudaError_t launch_fwd_mma(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <typename T, int NJ>
+template <typename T, int NJ, int QI>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
                        const void* kv_len, void* dk, void* dv,
                        const long long* strides, int* launched,
                        const Dims& s, cudaStream_t stream) {
   static bool done = false;
-  auto kernel = flash_bwd_dkv_kernel<T, NJ>;
+  auto kernel = flash_bwd_dkv_kernel<T, NJ, QI>;
   cudaError_t err = allow_smem(kernel, dkv_smem(16 * NJ), &done);
   if (err != cudaSuccess) return err;
   const dim3 grid(s.b * s.h, (s.tk + kTile - 1) / kTile);
@@ -1179,17 +1271,17 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <typename T, int NJ>
+template <typename T, int NJ, int QI>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const void* o, const void* lse,
                       void* delta, const void* kv_len, void* dq,
                       const long long* strides, int* launched, const Dims& s,
                       cudaStream_t stream) {
   static bool done = false;
-  auto kernel = flash_bwd_dq_kernel<T, NJ>;
+  auto kernel = flash_bwd_dq_kernel<T, NJ, QI>;
   cudaError_t err = allow_smem(kernel, dq_smem(16 * NJ), &done);
   if (err != cudaSuccess) return err;
-  const dim3 grid(s.b * s.h, (s.tq + kTile - 1) / kTile);
+  const dim3 grid(s.b * s.h, (s.tq + 16 * QI - 1) / (16 * QI));
   if (grid.x == 0 || grid.y == 0) return cudaSuccess;
   kernel<<<grid, kFlashThreads, dq_smem(s.d), stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
@@ -1253,10 +1345,12 @@ cudaError_t launch_dq_mma(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// the largest head dim of the SIMT kernels (the tensor-core ones: 128)
+constexpr int kMaxHeadDim = 256;
+
 inline bool valid(const Dims& s, int dtype) {
-  return s.d >= 1 && s.d <= 128 && s.b >= 0 && s.h >= 1 && s.tq >= 0 &&
-         s.tk >= 0 && (dtype == kFloat32 || dtype == kBFloat16) &&
-         (!s.causal || s.tq == s.tk);
+  return s.d >= 1 && s.d <= kMaxHeadDim && s.b >= 0 && s.h >= 1 &&
+         s.tq >= 0 && s.tk >= 0 && (dtype == kFloat32 || dtype == kBFloat16);
 }
 
 }  // namespace ptt
@@ -1266,23 +1360,24 @@ inline bool valid(const Dims& s, int dtype) {
 // `strides` (three per tensor, in the order the tensors are passed); lse
 // and delta are [B*H, Tq] contiguous fp32; kv_len is [B] int32 or null;
 // dtype 0 is fp32, 1 is bf16 (all of q, k, v, dO, O and the outputs);
-// D <= 128; causal needs Tq == Tk. Each returns the CUDA error of its
+// D <= 256; any Tq and Tk, causal aligned bottom-right. Each returns the CUDA error of its
 // launch (cudaGetLastError()) and sets *launched to the kernel it launched:
 // 0 none (an empty grid or an error before the launch), 1 the SIMT kernel,
 // 2 the tensor-core kernel. ptt_flash_bwd_dq writes delta = rowsum(dO * O)
 // (fp32); ptt_flash_bwd_dkv reads it, so it is launched after dQ on the
 // same stream.
+// (16-column groups of the head dim a thread holds, and query rows / 16 of
+// the backward's tile: 32 rows above D = 128, for shared memory)
+#define PTT_DISPATCH_T(T, LAUNCH, ...)                             \
+  (s.d <= 64    ? ptt::LAUNCH<T, 4, 4>(__VA_ARGS__, s, st)         \
+   : s.d <= 128 ? ptt::LAUNCH<T, 8, 4>(__VA_ARGS__, s, st)         \
+                : ptt::LAUNCH<T, 16, 2>(__VA_ARGS__, s, st))
 #define PTT_DISPATCH(LAUNCH, ...)                                         \
   do {                                                                    \
     cudaStream_t st = static_cast<cudaStream_t>(stream);                  \
-    cudaError_t err;                                                      \
-    if (dtype == ptt::kFloat32)                                           \
-      err = s.d <= 64 ? ptt::LAUNCH<float, 4>(__VA_ARGS__, s, st)         \
-                      : ptt::LAUNCH<float, 8>(__VA_ARGS__, s, st);        \
-    else                                                                  \
-      err = s.d <= 64 ? ptt::LAUNCH<__nv_bfloat16, 4>(__VA_ARGS__, s, st) \
-                      : ptt::LAUNCH<__nv_bfloat16, 8>(__VA_ARGS__, s, st); \
-    return (int)err;                                                      \
+    return (int)(dtype == ptt::kFloat32                                   \
+                     ? PTT_DISPATCH_T(float, LAUNCH, __VA_ARGS__)         \
+                     : PTT_DISPATCH_T(__nv_bfloat16, LAUNCH, __VA_ARGS__)); \
   } while (0)
 
 // the same for the tensor-core kernels, templated on the head dim's blocks

@@ -34,9 +34,47 @@ __device__ __forceinline__ int key_limit(const Dims& s, const int* kv_len,
   return lim;
 }
 
+// The causal mask is aligned bottom-right, as the reference's tril(.., tk -
+// tq): key col is live for query row when col <= row + tk - tq.
 __device__ __forceinline__ bool live(const Dims& s, int row, int col,
                                      int k_lim) {
-  return row < s.tq && col < k_lim && (!s.causal || col <= row);
+  return row < s.tq && col < k_lim && (!s.causal || col <= row + s.tk - s.tq);
+}
+
+// keys [0, row_limit) are live for query row `row` (0 past Tq)
+__device__ __forceinline__ int row_limit(const Dims& s, int k_lim, int row) {
+  if (row >= s.tq) return 0;
+  return s.causal ? min(k_lim, max(row + 1 + s.tk - s.tq, 0)) : k_lim;
+}
+
+// Rows with no live key are a prefix of the rows: all of them where kv_len
+// is 0, else the first Tq - Tk under the causal mask. The reference gives
+// such a row the softmax of an all-masked row (-1e9 everywhere): the mean
+// of V over all Tk keys, lse = -1e9 + log(Tk); its gradient is dO / Tk to
+// every key's dV and nothing to dQ or dK.
+__device__ __forceinline__ int dead_rows(const Dims& s, int k_lim) {
+  if (k_lim == 0) return s.tq;
+  return s.causal ? min(max(s.tq - s.tk, 0), s.tq) : 0;
+}
+
+constexpr float kDeadLogit = -1e9f;  // the reference's masked logit
+
+__device__ __forceinline__ float dead_lse(const Dims& s) {
+  return s.tk > 0 ? kDeadLogit + logf((float)s.tk) : kMasked;
+}
+
+// dst[c] = w * sum of rows [0, n) of column c of one (b, h) slice (`slice`
+// at its row 0, rows `st` elements apart), c < d, in fp32 and row order;
+// the block's `threads` threads take a column each
+template <typename T>
+__device__ __forceinline__ void sum_rows(float* dst, const T* slice,
+                                         long long st, int n, float w, int d,
+                                         int threads) {
+  for (int c = threadIdx.x; c < d; c += threads) {
+    float acc = 0.f;
+    for (int t = 0; t < n; ++t) acc += to_f32(slice[t * st + c]);
+    dst[c] = acc * w;
+  }
 }
 
 // ---------------------------------------------- bf16 tiles in shared memory

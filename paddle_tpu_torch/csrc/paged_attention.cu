@@ -53,6 +53,20 @@
 //    A second kernel rather than "last block merges": no counter to keep
 //    zero, no fence, valid under CUDA-graph replay as it stands.
 //
+// 3. paged_split_any_kernel, the same split (and the same merge kernel) for
+//    the rows the 16-byte loads cannot take: key or value rows that are not
+//    a multiple of 16 bytes (a bf16 arena with d_key 36, an fp32 one with
+//    d_key 30), rows wider than 512 bytes, and Dv up to 256 (kMaxAnyDim;
+//    so is D). A warp still owns a page at a time, but takes one key at a
+//    time with all 32 lanes: lane j loads elements [(32 i + j) E, +E) of
+//    the row for i = 0, 1, ..., with the widest load (8, 4 or 2 bytes, E
+//    elements) that divides both row widths and both arenas' alignment.
+//    Keys go in tiles of 8 for the online softmax; no load is started
+//    ahead. It reads the same bytes as the 16-byte kernel and keeps the
+//    fixed 256-token chunk, so a row's bits still do not depend on its
+//    batch. Speed was not its aim: shapes that reach it are off every
+//    main path.
+//
 // Numerics are the Pallas kernel's: scale applied to q; masked columns at
 // -1e9 with p = 0; fp32 m, l and acc; p rounded to the page dtype before
 // p.v; fp32 output. No atomics on floats anywhere.
@@ -69,7 +83,9 @@ constexpr int kPagedWarps = 4;
 constexpr int kPagedThreads = 32 * kPagedWarps;
 constexpr int kChunkTokens = 256;  // tokens a split block covers
 constexpr int kTileLoads = 8;      // 16-byte loads of a lane per K or V tile
-constexpr int kMaxDv = 128;
+constexpr int kMaxDv = 128;      // the 16-byte kernel
+constexpr int kMaxAnyDim = 256;  // the any-width kernel, D and Dv
+constexpr int kAnyKeys = 8;      // keys of one softmax tile there
 constexpr float kPagedMasked = -1e9f;
 
 __host__ __device__ inline int chunk_pages(int bs) {
@@ -308,6 +324,157 @@ __global__ void __launch_bounds__(kPagedThreads)
   }
 }
 
+// ---------------------------------------------- rows of any width
+// One load of U (8, 4 or 2 bytes) as E fp32 values
+template <typename T, typename U>
+__device__ __forceinline__ void unpack_any(const U& u, float* f) {
+  constexpr int E = sizeof(U) / sizeof(T);
+  const T* e = reinterpret_cast<const T*>(&u);
+#pragma unroll
+  for (int i = 0; i < E; ++i) f[i] = to_f32(e[i]);
+}
+
+template <typename T, typename U>
+__global__ void __launch_bounds__(kPagedThreads)
+    paged_split_any_kernel(const float* __restrict__ q,
+                           const T* __restrict__ k_pages,
+                           const T* __restrict__ v_pages,
+                           const int* __restrict__ tables,
+                           long long table_stride,
+                           const int* __restrict__ lens,
+                           float* __restrict__ ws, int h, int nb, int bs,
+                           int d, int dv, int p, float scale) {
+  constexpr int E = sizeof(U) / sizeof(T);       // elements a load
+  constexpr int NC = kMaxAnyDim / (32 * E);      // loads a lane, at most
+  __shared__ float sm_m[kPagedWarps];
+  __shared__ float sm_l[kPagedWarps];
+  __shared__ float sm_acc[kPagedWarps][kMaxAnyDim];
+  const int head = blockIdx.x;
+  const int row = blockIdx.y;
+  const int z = blockIdx.z;
+  const int len = lens[row];
+  int npages = len > 0 ? (len + bs - 1) / bs : 0;
+  if (npages > p) npages = p;
+  const int cpages = chunk_pages(bs);
+  const int first = z * cpages;
+  if (first >= npages) return;  // dead split: nothing written, nothing read
+  const int last = min(first + cpages, npages);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+
+  // lane's elements: (32 ch + lane) E + e, ch < NC
+  const size_t qrow = (size_t)row * h + head;
+  float qs[NC][E], acc[NC][E];
+#pragma unroll
+  for (int ch = 0; ch < NC; ++ch)
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const int c = (32 * ch + lane) * E + e;
+      qs[ch][e] = c < d ? q[qrow * d + c] * scale : 0.f;
+      acc[ch][e] = 0.f;
+    }
+  const int* trow = tables + (size_t)row * table_stride;
+  float m = kPagedMasked;
+  float l = 0.f;
+  for (int page = first + warp; page < last; page += kPagedWarps) {
+    int phys = trow[page];
+    phys = phys < 0 ? 0 : (phys > nb - 1 ? nb - 1 : phys);
+    const size_t base = ((size_t)phys * h + head) * bs;
+    const int live = min(bs, len - page * bs);
+    for (int k0 = 0; k0 < live; k0 += kAnyKeys) {
+      float sc[kAnyKeys];
+      float mx = kPagedMasked;
+#pragma unroll
+      for (int i = 0; i < kAnyKeys; ++i) {
+        const int key = k0 + i;  // the same for the whole warp
+        float sv = 0.f;
+        if (key < live) {
+          const T* kr = k_pages + (base + key) * d;
+#pragma unroll
+          for (int ch = 0; ch < NC; ++ch) {
+            const int c0 = (32 * ch + lane) * E;
+            if (c0 < d) {
+              float kf[E];
+              unpack_any<T, U>(__ldg(reinterpret_cast<const U*>(kr + c0)),
+                               kf);
+#pragma unroll
+              for (int e = 0; e < E; ++e) sv = fmaf(qs[ch][e], kf[e], sv);
+            }
+          }
+        }
+        sv = warp_sum(sv);
+        sc[i] = key < live ? sv : kPagedMasked;
+        mx = fmaxf(mx, sc[i]);
+      }
+      const float mnext = fmaxf(m, mx);
+      const float alpha = expf(m - mnext);
+      float lsum = 0.f;
+#pragma unroll
+      for (int i = 0; i < kAnyKeys; ++i) {
+        const float pr = k0 + i < live ? expf(sc[i] - mnext) : 0.f;
+        lsum += pr;
+        sc[i] = round_as<T>(pr);
+      }
+      l = alpha * l + lsum;
+      m = mnext;
+#pragma unroll
+      for (int ch = 0; ch < NC; ++ch)
+#pragma unroll
+        for (int e = 0; e < E; ++e) acc[ch][e] *= alpha;
+#pragma unroll
+      for (int i = 0; i < kAnyKeys; ++i) {
+        if (k0 + i < live) {
+          const T* vr = v_pages + (base + k0 + i) * dv;
+#pragma unroll
+          for (int ch = 0; ch < NC; ++ch) {
+            const int c0 = (32 * ch + lane) * E;
+            if (c0 < dv) {
+              float vf[E];
+              unpack_any<T, U>(__ldg(reinterpret_cast<const U*>(vr + c0)),
+                               vf);
+#pragma unroll
+              for (int e = 0; e < E; ++e)
+                acc[ch][e] = fmaf(sc[i], vf[e], acc[ch][e]);
+            }
+          }
+        }
+      }
+    }
+  }
+  if (lane == 0) {
+    sm_m[warp] = m;
+    sm_l[warp] = l;
+  }
+#pragma unroll
+  for (int ch = 0; ch < NC; ++ch)
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const int c = (32 * ch + lane) * E + e;
+      if (c < dv) sm_acc[warp][c] = acc[ch][e];
+    }
+  __syncthreads();
+
+  // the block's partial, warps merged in warp order, as the 16-byte kernel
+  float mm = sm_m[0];
+#pragma unroll
+  for (int w = 1; w < kPagedWarps; ++w) mm = fmaxf(mm, sm_m[w]);
+  float* part = ws + ((qrow * gridDim.z) + z) * (size_t)(dv + 2);
+  for (int c = threadIdx.x; c < dv; c += kPagedThreads) {
+    float aa = 0.f;
+#pragma unroll
+    for (int w = 0; w < kPagedWarps; ++w)
+      aa += sm_acc[w][c] * expf(sm_m[w] - mm);
+    part[c] = aa;
+  }
+  if (threadIdx.x == 0) {
+    float ll = 0.f;
+#pragma unroll
+    for (int w = 0; w < kPagedWarps; ++w) ll += sm_l[w] * expf(sm_m[w] - mm);
+    part[dv] = mm;
+    part[dv + 1] = ll;
+  }
+}
+
 __global__ void paged_merge_kernel(const float* __restrict__ ws,
                                    const int* __restrict__ lens,
                                    float* __restrict__ out, int h, int bs,
@@ -341,45 +508,86 @@ inline int pow2_ceil(int v) {
   return r;
 }
 
+// the widest load, in bytes (8, 4 or 2, at least one element), that divides
+// both row widths and both arenas' addresses
+inline int any_load_bytes(int d, int dv, int item, const void* kp,
+                          const void* vp) {
+  const size_t a = reinterpret_cast<size_t>(kp) |
+                   reinterpret_cast<size_t>(vp);
+  for (int w = 8; w > item; w >>= 1)
+    if ((d * item) % w == 0 && (dv * item) % w == 0 && a % w == 0) return w;
+  return item;
+}
+
+template <typename T, typename U>
+void launch_any(const float* q, const void* kp, const void* vp,
+                const int* tables, long long table_stride, const int* lens,
+                float* ws, int n, int h, int nb, int bs, int d, int dv,
+                int p, int nz, float scale, cudaStream_t s) {
+  paged_split_any_kernel<T, U><<<dim3(h, n, nz), kPagedThreads, 0, s>>>(
+      q, static_cast<const T*>(kp), static_cast<const T*>(vp), tables,
+      table_stride, lens, ws, h, nb, bs, d, dv, p, scale);
+}
+
 }  // namespace ptt
 
 // q: [n, h, d] fp32; k_pages: [nb, h, bs, d], v_pages: [nb, h, bs, dv], fp32
-// (dtype 0) or bf16 (dtype 1), 16-byte aligned, d and dv rows a multiple of
-// 16 bytes and at most 512 bytes; tables: int32, row r at tables +
-// r * table_stride, p entries; lens: [n] int32; workspace: fp32
+// (dtype 0) or bf16 (dtype 1), d and dv at most 256; tables: int32, row r
+// at tables + r * table_stride, p entries; lens: [n] int32; workspace: fp32
 // [n, h, nz, dv + 2] with nz = ceil(p / chunk_pages(bs)) (the wrapper sizes
 // it with the same constant; another nz is refused), never read where not
-// written; out: [n, h, dv] fp32. The caller guarantees dv <= 128 and
-// n <= 65535. Returns cudaGetLastError(), or cudaErrorInvalidValue for
-// what the kernel does not take.
+// written; out: [n, h, dv] fp32; n <= 65535. The 16-byte kernel takes rows
+// that are multiples of 16 bytes, at most 512 bytes, dv <= 128, in 16-byte
+// aligned arenas; every other row takes the any-width kernel. Sets
+// *launched to 1 (16-byte split kernel) or 2 (any-width split kernel), and
+// 0 where nothing was launched. Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for what no kernel takes.
 extern "C" int ptt_paged_attention(const void* q, const void* k_pages,
                                    const void* v_pages, const void* tables,
                                    long long table_stride, const void* lens,
                                    void* workspace, void* out, int n, int h,
                                    int nb, int bs, int d, int dv, int p,
                                    int nz, float scale, int dtype,
-                                   void* stream) {
+                                   int* launched, void* stream) {
+  *launched = 0;
   if (dtype != ptt::kFloat32 && dtype != ptt::kBFloat16)
     return static_cast<int>(cudaErrorInvalidValue);
   const int item = dtype == ptt::kFloat32 ? 4 : 2;
   const int wide = (d > dv ? d : dv) * item;
   if (n < 1 || h < 1 || nb < 1 || bs < 1 || d < 1 || dv < 1 || p < 1 ||
-      dv > ptt::kMaxDv || n > 65535 || (d * item) % 16 != 0 ||
-      (dv * item) % 16 != 0 || wide > 512 ||
-      reinterpret_cast<size_t>(k_pages) % 16 != 0 ||
-      reinterpret_cast<size_t>(v_pages) % 16 != 0)
+      d > ptt::kMaxAnyDim || dv > ptt::kMaxAnyDim || n > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const int cpages = ptt::chunk_pages(bs);
   if (nz != (p + cpages - 1) / cpages || nz > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int lanes = ptt::pow2_ceil(wide / 16);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid(h, n, nz);
   const float* qf = static_cast<const float*>(q);
   const int* tb = static_cast<const int*>(tables);
   const int* ln = static_cast<const int*>(lens);
   float* ws = static_cast<float*>(workspace);
-  if (dtype == ptt::kFloat32) {
+  const bool v16 = dv <= ptt::kMaxDv && (d * item) % 16 == 0 &&
+                   (dv * item) % 16 == 0 && wide <= 512 &&
+                   reinterpret_cast<size_t>(k_pages) % 16 == 0 &&
+                   reinterpret_cast<size_t>(v_pages) % 16 == 0;
+  const int lanes = ptt::pow2_ceil(wide / 16);  // the 16-byte kernel's
+  if (!v16) {
+    const int w = ptt::any_load_bytes(d, dv, item, k_pages, v_pages);
+    using B = __nv_bfloat16;
+#define PTT_ANY(T, U)                                                      \
+  ptt::launch_any<T, U>(qf, k_pages, v_pages, tb, table_stride, ln, ws, n, \
+                        h, nb, bs, d, dv, p, nz, scale, s)
+    if (dtype == ptt::kFloat32) {
+      if (w == 8) PTT_ANY(float, uint2);
+      else PTT_ANY(float, unsigned);
+    } else {
+      if (w == 8) PTT_ANY(B, uint2);
+      else if (w == 4) PTT_ANY(B, unsigned);
+      else PTT_ANY(B, unsigned short);
+    }
+#undef PTT_ANY
+    *launched = 2;
+  } else if (dtype == ptt::kFloat32) {
     ptt::paged_split_kernel<float><<<grid, ptt::kPagedThreads, 0, s>>>(
         qf, static_cast<const float*>(k_pages),
         static_cast<const float*>(v_pages), tb, table_stride, ln, ws, h, nb,
@@ -391,6 +599,7 @@ extern "C" int ptt_paged_attention(const void* q, const void* k_pages,
             static_cast<const __nv_bfloat16*>(v_pages), tb, table_stride, ln,
             ws, h, nb, bs, d, dv, p, lanes, scale);
   }
+  if (v16) *launched = 1;
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   ptt::paged_merge_kernel<<<dim3(h, n), 32 * ((dv + 31) / 32), 0, s>>>(

@@ -5,8 +5,11 @@ Inputs are the head-merged projections [B, T, H*D]; masking comes from the
 ``causal`` attr and an optional per-example ``KeyLength`` vector. The heads
 are split as strided views, and the whole q·kᵀ → mask → softmax → ·v chain
 is the flash attention Function (K2 forward, K3 backward on the card; the
-plain versions on the host). The ring-attention (sequence-parallel) path of
-the JAX package is not ported.
+plain versions on the host), with the semantics of the JAX op's default
+path, ``reference_attention``: any Tq and Tk, the causal mask aligned
+bottom-right, a row with no live key the mean of V, head dims up to 256.
+The ring-attention (sequence-parallel) path of the JAX package is not
+ported.
 """
 
 import torch
@@ -52,20 +55,33 @@ def reference_attention(q, k, v, causal=False, key_length=None,
     return out
 
 
-@register('fused_attention')
-def _fused_attention(ctx):
-    q = _split_heads(ctx.input('Q'), ctx.attr('n_head', 1))
-    k = _split_heads(ctx.input('K'), ctx.attr('n_head', 1))
-    v = _split_heads(ctx.input('V'), ctx.attr('n_head', 1))
-    key_length = ctx.input('KeyLength').reshape(-1) \
-        if ctx.has_input('KeyLength') else None
-    out = _merge_heads(flash_attention(q, k, v,
-                                       causal=ctx.attr('causal', False),
+def fused_attention(q3, k3, v3, n_head, causal=False, key_length=None,
+                    query_length=None):
+    """q3 [B, Tq, H*D], k3 and v3 [B, Tk, H*D] -> [B, Tq, H*D] through
+    the flash attention Function, differentiable in q3, k3 and v3 (the
+    JAX package's fused_attention without its ring path and dropout)."""
+    q, k, v = (_split_heads(x, n_head) for x in (q3, k3, v3))
+    if key_length is not None:
+        key_length = key_length.reshape(-1)
+    out = _merge_heads(flash_attention(q, k, v, causal=causal,
                                        kv_len=key_length))
-    if ctx.has_input('QueryLength'):
-        ql = ctx.input('QueryLength').reshape(-1, 1)
+    if query_length is not None:
+        ql = query_length.reshape(-1, 1)
         qmask = torch.arange(out.shape[1], device=out.device)[None, :] < ql
         out = out * qmask.unsqueeze(-1).to(out.dtype)
+    return out
+
+
+@register('fused_attention')
+def _fused_attention(ctx):
+    def optional(slot):
+        return ctx.input(slot) if ctx.has_input(slot) else None
+
+    out = fused_attention(ctx.input('Q'), ctx.input('K'), ctx.input('V'),
+                          ctx.attr('n_head', 1),
+                          causal=ctx.attr('causal', False),
+                          key_length=optional('KeyLength'),
+                          query_length=optional('QueryLength'))
     rate = ctx.attr('dropout_rate', 0.0)
     if rate and not ctx.is_test:
         # dropout on the attention output, as the reference op does

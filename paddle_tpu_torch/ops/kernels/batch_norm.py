@@ -1,6 +1,7 @@
-"""Training batch norm: the CUDA kernel ``csrc/batch_norm.cu`` (K5,
-replacing ``_bn_kernel`` of paddle_tpu/ops/pallas/batch_norm.py) and its
-plain PyTorch version ``_bn_reference``.
+"""Training batch norm: the CUDA kernels of ``csrc/batch_norm.cu`` — K5,
+replacing ``_bn_kernel`` of paddle_tpu/ops/pallas/batch_norm.py, and its
+backward, replacing the custom_vjp's ``_bn_vjp_bwd`` there — beside their
+plain PyTorch versions ``_bn_reference`` and ``batch_norm_reference_bwd``.
 
 ``fused_batch_norm_train`` launches the kernel for CUDA tensors and takes
 the plain version only for CPU tensors; on a CUDA tensor it launches or
@@ -13,10 +14,14 @@ it fits the blocks' shared memory.
 Both work on the [N, C, S] view of the activation (S = H·W, or 1 for
 [N, C]), so NHWC and NCHW reach the kernel without a transpose; y keeps
 x's memory layout. It is differentiable in x, scale and bias:
-``_BatchNormTrain`` is a torch.autograd.Function whose backward is the
-closed form of the JAX package's ``_bn_vjp_bwd`` in fp32 PyTorch (the TPU
-has no backward kernel for K5 either); mean and var are not
-differentiable (they feed the detached running statistics).
+``_BatchNormTrain`` is a torch.autograd.Function whose backward launches
+the backward kernel on a CUDA tensor (one cooperative launch a call, counted
+by ``fused_batch_norm_train.bwd_launches``: the deterministic [chunks, C]
+partials of dbias and dscale, a grid barrier, dx) and takes
+``batch_norm_reference_bwd`` only for a CPU tensor. A gradient whose
+layout is not x's is copied into x's layout once first
+(``fused_batch_norm_train.bwd_gy_copies`` counts those). mean and var are
+not differentiable (they feed the detached running statistics).
 """
 
 import ctypes
@@ -92,30 +97,84 @@ def _bn_cuda(x3, scale, bias, eps):
     return y, mean, var
 
 
-def _workspace(x3, y, plan=None):
-    """fp32 floats of workspace the kernel needs for x3 -> y on x3's card
+def _workspace(x3, y, plan=None, gy=None):
+    """fp32 floats of workspace the forward kernel needs for x3 -> y on
+    x3's card, or with ``gy`` the backward kernel for (x3, gy) -> dx = y
     (the launch's split written to ``plan``, a ctypes int[6], if given);
     raises when the card cannot launch the kernel cooperatively."""
     n, c, s = x3.shape
     with torch.cuda.device(x3.device):
         floats = build.library().ptt_batch_norm_workspace(
-            x3.data_ptr(), y.data_ptr(), n, c, s, int(_channels_last(x3)),
-            build.dtype_code(x3.dtype), plan)
+            x3.data_ptr(), y.data_ptr(),
+            None if gy is None else gy.data_ptr(), n, c, s,
+            int(_channels_last(x3)), build.dtype_code(x3.dtype), plan)
     if floats < 0:
         raise RuntimeError('batch_norm kernel: the device cannot launch it '
                            'cooperatively')
     return floats
 
 
-def launch_plan(x3):
-    """How the kernel splits the CUDA tensor x3 ([N, C, S] view) on its
-    card: {'vec', 'chunks', 'items', 'blocks', 'on_chip', 'card_blocks'}
-    (on_chip: x is staged in shared memory and read from device memory
-    once), for an output allocated as the wrapper allocates it."""
+def launch_plan(x3, backward=False):
+    """How the forward kernel (or with ``backward`` the backward kernel,
+    for a gradient in x's layout) splits the CUDA tensor x3 ([N, C, S]
+    view) on its card: {'vec', 'chunks', 'items', 'blocks', 'on_chip',
+    'card_blocks'} (on_chip: x, and gy, are staged in shared memory and
+    read from device memory once), for outputs allocated as the wrappers
+    allocate them."""
     plan = (ctypes.c_int * 6)()
-    _workspace(x3, torch.empty_like(x3), plan)
+    out = torch.empty_like(x3)
+    _workspace(x3, out, plan, gy=torch.empty_like(x3) if backward else None)
     return dict(zip(('vec', 'chunks', 'items', 'blocks', 'on_chip',
                      'card_blocks'), plan))
+
+
+def batch_norm_reference_bwd(x3, gy, scale, mean, var, eps):
+    """Plain version of the backward kernel, the closed form of the JAX
+    package's _bn_vjp_bwd over the [N, C, S] view, in fp32: dbias = Σ gy,
+    dscale = Σ gy·x̂, dx = γ·inv·(gy − dbias/n − x̂·dscale/n). Returns (dx
+    in x's dtype, dscale and dbias in scale's dtype)."""
+    n = x3.shape[0] * x3.shape[2]
+    inv = torch.rsqrt(var + eps)[:, None]
+    gyf = gy.float()
+    xhat = (x3.float() - mean[:, None]) * inv
+    dbias = gyf.sum(dim=(0, 2))
+    dscale = (gyf * xhat).sum(dim=(0, 2))
+    dx = (scale.float()[:, None] * inv) * (
+        gyf - dbias[:, None] / n - xhat * (dscale[:, None] / n))
+    return (dx.to(x3.dtype), dscale.to(scale.dtype), dbias.to(scale.dtype))
+
+
+def _bn_bwd_cuda(x3, gy, scale, mean, var, eps):
+    """Launch the backward kernel: (dx in x's layout and dtype, dscale,
+    dbias fp32 [C])."""
+    n, c, s = x3.shape
+    if gy.dtype != x3.dtype or gy.shape != x3.shape or \
+            gy.device != x3.device:
+        raise ValueError('batch_norm backward kernel: gy must match x, got '
+                         '%s %s on %s' % (gy.dtype, tuple(gy.shape),
+                                         gy.device))
+    if scale.dtype != torch.float32:
+        raise ValueError('batch_norm backward kernel: scale must be float32')
+    if gy.stride() != x3.stride():
+        # the kernel walks gy in x's order: one counted copy into it
+        gy = torch.empty_like(x3).copy_(gy)
+        fused_batch_norm_train.bwd_gy_copies += 1
+    dx = torch.empty_like(x3)
+    dscale = torch.empty(c, dtype=torch.float32, device=x3.device)
+    dbias = torch.empty_like(dscale)
+    floats = _workspace(x3, dx, gy=gy)
+    work = torch.empty(floats, dtype=torch.float32, device=x3.device)
+    with torch.cuda.device(x3.device):
+        stream = torch.cuda.current_stream(x3.device).cuda_stream
+        rc = build.library().ptt_batch_norm_bwd(
+            x3.data_ptr(), gy.data_ptr(), scale.data_ptr(), mean.data_ptr(),
+            var.data_ptr(), dx.data_ptr(), dscale.data_ptr(),
+            dbias.data_ptr(), work.data_ptr(), floats, n, c, s,
+            int(_channels_last(x3)), float(eps), build.dtype_code(x3.dtype),
+            stream)
+    build.check(rc, 'ptt_batch_norm_bwd')
+    fused_batch_norm_train.bwd_launches += 1
+    return dx, dscale, dbias
 
 
 def _bn_forward(x3, scale, bias, eps):
@@ -135,19 +194,15 @@ class _BatchNormTrain(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gy, _gmean, _gvar):
-        """dbias = Σ gy, dscale = Σ gy·x̂, dx = γ·inv·(gy − dbias/n −
-        x̂·dscale/n), in fp32 (_bn_vjp_bwd)."""
+        """_bn_vjp_bwd: the backward kernel on a CUDA tensor, the plain
+        version on a CPU one."""
         x3, scale, mean, var = ctx.saved_tensors
-        n = x3.shape[0] * x3.shape[2]
-        inv = torch.rsqrt(var + ctx.eps)[:, None]
-        gyf = gy.float()
-        xhat = (x3.float() - mean[:, None]) * inv
-        dbias = gyf.sum(dim=(0, 2))
-        dscale = (gyf * xhat).sum(dim=(0, 2))
-        dx = (scale.float()[:, None] * inv) * (
-            gyf - dbias[:, None] / n - xhat * (dscale[:, None] / n))
-        return (dx.to(x3.dtype), dscale.to(scale.dtype),
-                dbias.to(scale.dtype), None)
+        if x3.device.type == 'cpu':
+            grads = batch_norm_reference_bwd(x3, gy, scale, mean, var,
+                                             ctx.eps)
+        else:
+            grads = _bn_bwd_cuda(x3, gy, scale, mean, var, ctx.eps)
+        return grads + (None,)
 
 
 def fused_batch_norm_train(x, scale, bias, eps, layout='NHWC'):
@@ -168,3 +223,5 @@ def fused_batch_norm_train(x, scale, bias, eps, layout='NHWC'):
 
 
 fused_batch_norm_train.launches = 0
+fused_batch_norm_train.bwd_launches = 0    # the backward kernel
+fused_batch_norm_train.bwd_gy_copies = 0   # gradients copied to x's layout

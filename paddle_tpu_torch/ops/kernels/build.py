@@ -1,6 +1,7 @@
 """Builds and loads the port's CUDA kernels.
 
-All sources under ``paddle_tpu_torch/csrc/`` compile with ONE ``nvcc`` call
+Each source under ``paddle_tpu_torch/csrc/`` compiles with its own ``nvcc``
+process, all started together, and one more ``nvcc`` call links the objects
 into one shared library with a plain C interface, loaded with ctypes. The
 build runs at first use, into ``paddle_tpu_torch/_build/`` (listed in
 .gitignore), and is keyed by a hash of the sources and flags, so a later
@@ -24,7 +25,7 @@ SOURCES = ('layer_norm.cu', 'paged_attention.cu', 'flash_attention.cu',
            'batch_norm.cu')
 HEADERS = ('common.cuh', 'flash_tiles.cuh')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+              '-O3', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
 
 class BuildResult(object):
@@ -76,15 +77,39 @@ def build():
                 log = f.read()
         return BuildResult(lib, 0.0, log)
     tmp = '%s.%d.tmp' % (lib, os.getpid())
-    cmd = [_nvcc()] + list(NVCC_FLAGS) + ['-o', tmp] + \
-        [os.path.join(CSRC, s) for s in SOURCES]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    objs, procs = [], []
+    for src in SOURCES:
+        obj = '%s.%s.o' % (tmp, src)
+        cmd = [nvcc] + list(NVCC_FLAGS) + ['-c', '-o', obj,
+                                           os.path.join(CSRC, src)]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    logs, failed = [], []
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        logs.append(out)
+        if proc.returncode != 0:
+            failed.append('nvcc failed (rc %d): %s\n%s'
+                          % (proc.returncode, ' '.join(cmd), out))
+    if not failed:
+        cmd = [nvcc, '-gencode', 'arch=compute_90a,code=sm_90a', '-shared',
+               '-o', tmp] + objs
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        logs.append(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append('nvcc link failed (rc %d): %s\n%s'
+                          % (proc.returncode, ' '.join(cmd), logs[-1]))
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError('nvcc failed (rc %d): %s\n%s'
-                           % (proc.returncode, ' '.join(cmd), log))
+    log = ''.join(logs)
+    if failed:
+        raise RuntimeError('\n'.join(failed))
     with open(log_path, 'w') as f:
         f.write(log)
     os.replace(tmp, lib)
@@ -100,9 +125,13 @@ def library():
             p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
             lib.ptt_layer_norm.argtypes = [p, p, p, p, i, i, f, i, p]
             lib.ptt_layer_norm.restype = i
+            lib.ptt_layer_norm_bwd_workspace.argtypes = [i, i]
+            lib.ptt_layer_norm_bwd_workspace.restype = ctypes.c_longlong
+            lib.ptt_layer_norm_bwd.argtypes = [p] * 7 + [i, i, f, i, p]
+            lib.ptt_layer_norm_bwd.restype = i
             lib.ptt_paged_attention.argtypes = [
                 p, p, p, p, ctypes.c_longlong, p, p, p,
-                i, i, i, i, i, i, i, i, f, i, p]
+                i, i, i, i, i, i, i, i, f, i, ctypes.POINTER(i), p]
             lib.ptt_paged_attention.restype = i
             dims = [i, i, i, i, i, i, f, i, p]   # b h tq tk d causal scale
             # ... dtype, then the launched kernel's code (out), then stream
@@ -118,12 +147,15 @@ def library():
             lib.ptt_flash_smem_bytes.argtypes = [i, i]
             lib.ptt_flash_smem_bytes.restype = i
             ll = ctypes.c_longlong
-            lib.ptt_batch_norm_workspace.argtypes = [p, p, ll, i, ll, i, i,
-                                                     p]
+            lib.ptt_batch_norm_workspace.argtypes = [p, p, p, ll, i, ll, i,
+                                                     i, p]
             lib.ptt_batch_norm_workspace.restype = ll
             lib.ptt_batch_norm_train.argtypes = [p] * 7 + [ll, ll, i, ll, i,
                                                            f, i, p]
             lib.ptt_batch_norm_train.restype = i
+            lib.ptt_batch_norm_bwd.argtypes = [p] * 9 + [ll, ll, i, ll, i,
+                                                         f, i, p]
+            lib.ptt_batch_norm_bwd.restype = i
             _loaded['lib'] = lib
         return lib
 

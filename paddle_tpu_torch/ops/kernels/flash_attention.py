@@ -6,11 +6,14 @@ kernels (replacing ``_bwd_dkv_kernel`` and ``_bwd_dq_kernel`` /
 ``flash_attention_reference_fwd`` and ``flash_attention_reference_bwd``.
 
 Layout is the JAX package's: q, k, v are [B, H, T, D] (any strides with D
-contiguous, so head-split views need no copy) and ``kv_len`` is [B]. The
-causal mask is aligned top-left (key col <= query row), so causal needs
-Tq == Tk. A row with no live key gives out 0 and lse -1e30, as the kernels
-do (the reference ``reference_attention`` would give the mean of V there;
-the model never sends kv_len 0).
+contiguous, so head-split views need no copy, D <= 256) and ``kv_len`` is
+[B]. The semantics are those of the JAX op's default path,
+``reference_attention``: the causal mask is aligned bottom-right (key col
+<= query row + Tk - Tq), so any Tq and Tk; a row with no live key (kv_len
+0, or the first Tq - Tk rows under the causal mask) gets the softmax of an
+all -1e9 row, the mean of V over all Tk keys, with lse -1e9 + log(Tk), and
+in the backward dO / Tk to every key's dV and nothing to dQ or dK. The
+kernels compute those rows themselves.
 
 ``flash_attention`` is the autograd entry point. On a CUDA tensor its
 forward launches K2 and its backward launches both K3 kernels, or raises;
@@ -21,9 +24,9 @@ kernel launches.
 K2 and each K3 kernel come in two hand-written variants: a tensor-core
 kernel (bf16, head dim a multiple of 16 up to 128, strides and base
 pointers multiples of 8 elements: the training path) and a SIMT kernel
-(fp32, and every other bf16 input). The launcher in the source chooses from
-dtype, head dim, strides and pointers alone and reports the kernel it
-launched; ``launches_mma`` and ``launches_simt`` on each of the three
+(fp32, every other bf16 input, and head dims above 128). The launcher in
+the source chooses from dtype, head dim, strides and pointers alone and
+reports the kernel it launched; ``launches_mma`` and ``launches_simt`` on each of the three
 wrappers count from that report.
 ``flash_attention_tiled_reference_fwd`` is a second plain version that
 follows the tensor-core forward's order of operations.
@@ -35,28 +38,30 @@ computes it.
 """
 
 import ctypes
+import math
 
 import torch
 
 from . import build
 
 NEG_INF = -1e30
-MAX_HEAD_DIM = 128
+DEAD_LOGIT = -1e9       # the reference's masked logit
+MAX_HEAD_DIM = 256      # the SIMT kernels' limit (kMaxHeadDim)
 
 
-def _check(q, k, v, kv_len, causal):
+def _check(q, k, v, kv_len):
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError('flash_attention: q, k, v must be [B, H, T, D], '
                          'got %s %s %s' % (tuple(q.shape), tuple(k.shape),
                                            tuple(v.shape)))
-    b, h, tq, d = q.shape
+    b, h, _, d = q.shape
     if k.shape != v.shape or k.shape[:2] != (b, h) or k.shape[3] != d:
         raise ValueError('flash_attention: k and v must be [%d, %d, Tk, %d] '
                          'alike, got %s %s' % (b, h, d, tuple(k.shape),
                                                tuple(v.shape)))
     if d > MAX_HEAD_DIM:
-        raise ValueError('flash_attention: head dim %d > %d'
-                         % (d, MAX_HEAD_DIM))
+        raise ValueError('flash_attention: head dim %d > %d, the largest '
+                         'the kernels take' % (d, MAX_HEAD_DIM))
     if q.dtype not in (torch.float32, torch.bfloat16) or \
             k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError('flash_attention: q, k, v must all be float32 or '
@@ -65,20 +70,18 @@ def _check(q, k, v, kv_len, causal):
     if k.device != q.device or v.device != q.device or \
             (kv_len is not None and kv_len.device != q.device):
         raise ValueError('flash_attention: inputs on different devices')
-    if causal and tq != k.shape[2]:
-        raise ValueError('flash_attention: causal needs Tq == Tk (the mask '
-                         'is aligned top-left), got %d and %d'
-                         % (tq, k.shape[2]))
     if kv_len is not None and tuple(kv_len.shape) != (b,):
         raise ValueError('flash_attention: kv_len must be [%d], got %s'
                          % (b, tuple(kv_len.shape)))
 
 
 def _live(tq, tk, kv_len, causal, device):
-    """[B or 1, 1, Tq, Tk] bool: the (query, key) pairs that attend."""
+    """[B or 1, 1, Tq, Tk] bool: the (query, key) pairs that attend (the
+    causal band aligned bottom-right)."""
     cols = torch.arange(tk, device=device)
     if causal:
-        live = cols[None, :] <= torch.arange(tq, device=device)[:, None]
+        live = cols[None, :] <= \
+            torch.arange(tq, device=device)[:, None] + (tk - tq)
     else:
         live = torch.ones(tq, tk, dtype=torch.bool, device=device)
     live = live[None, None]
@@ -97,6 +100,20 @@ def _scores(q, k, scale, kv_len, causal):
     return s.masked_fill(~live, NEG_INF), live
 
 
+def _dead_rows(out, lse, v, live):
+    """(out, lse) with the rows that have no live key set as the reference
+    sets them: out the mean of V over all Tk keys, lse -1e9 + log(Tk)."""
+    tk = v.shape[2]
+    if tk == 0:
+        return out, lse
+    dead = ~live.any(dim=-1)                              # [B or 1, 1, Tq]
+    mean = (v.float().sum(dim=2, keepdim=True) * (1.0 / tk)).to(out.dtype)
+    out = torch.where(dead[..., None], mean, out)
+    lse = torch.where(dead, torch.full((), DEAD_LOGIT + math.log(tk),
+                                       device=lse.device), lse)
+    return out, lse
+
+
 def flash_attention_reference_fwd(q, k, v, kv_len=None, causal=False,
                                   scale=None):
     """Plain version of K2: (out [B, H, Tq, D] in q's dtype, lse
@@ -109,7 +126,8 @@ def flash_attention_reference_fwd(q, k, v, kv_len=None, causal=False,
     denom = p.sum(dim=-1, keepdim=True)
     denom = torch.where(denom == 0, torch.ones((), device=q.device), denom)
     out = torch.matmul(p.to(v.dtype).float(), v.float()) / denom
-    return out.to(q.dtype), (m + torch.log(denom)).squeeze(-1)
+    return _dead_rows(out.to(q.dtype), (m + torch.log(denom)).squeeze(-1),
+                      v, live)
 
 
 def flash_attention_tiled_reference_fwd(q, k, v, kv_len=None, causal=False,
@@ -143,7 +161,8 @@ def flash_attention_tiled_reference_fwd(q, k, v, kv_len=None, causal=False,
             p.to(v.dtype).float(), v[:, :, k0:k0 + tile].float())
         m = m_new
     denom = torch.where(l == 0, torch.ones((), device=q.device), l)
-    return (acc / denom[..., None]).to(q.dtype), m + torch.log(denom)
+    return _dead_rows((acc / denom[..., None]).to(q.dtype),
+                      m + torch.log(denom), v, live_all)
 
 
 def flash_attention_reference_bwd(q, k, v, o, lse, do, kv_len=None,
@@ -151,7 +170,8 @@ def flash_attention_reference_bwd(q, k, v, o, lse, do, kv_len=None,
     """Plain version of K3: (dq, dk, dv) in the inputs' dtype. p is
     recomputed from lse, delta = rowsum(dO * O) in fp32, ds = p * (dp -
     delta) * scale, and p and ds are rounded to the input dtype before the
-    dV, dK and dQ products."""
+    dV, dK and dQ products. A row with no live key has p = 1 / Tk on every
+    key in the dV product and ds = 0."""
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     s, live = _scores(q, k, scale, kv_len, causal)
     p = torch.where(live, torch.exp(s - lse.float().unsqueeze(-1)),
@@ -160,6 +180,10 @@ def flash_attention_reference_bwd(q, k, v, o, lse, do, kv_len=None,
     dp = torch.matmul(dof, v.float().transpose(-1, -2))
     delta = (dof * o.float()).sum(dim=-1, keepdim=True)
     ds = p * (dp - delta) * scale
+    if k.shape[2]:
+        dead = ~live.any(dim=-1, keepdim=True)
+        p = torch.where(dead, torch.full((), 1.0 / k.shape[2],
+                                         device=q.device), p)
     dv = torch.matmul(p.to(do.dtype).float().transpose(-1, -2), dof)
     dk = torch.matmul(ds.to(q.dtype).float().transpose(-1, -2), q.float())
     dq = torch.matmul(ds.to(k.dtype).float(), k.float())
@@ -255,7 +279,7 @@ del _wrapper
 # ------------------------------------------------------------- dispatch
 def flash_attention_fwd(q, k, v, kv_len=None, causal=False, scale=None):
     """(out, lse): K2 on a CUDA tensor, the plain version on a CPU one."""
-    _check(q, k, v, kv_len, causal)
+    _check(q, k, v, kv_len)
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     if q.device.type == 'cpu':
         return flash_attention_reference_fwd(q, k, v, kv_len, causal, scale)
@@ -267,7 +291,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, kv_len=None, causal=False,
     """(dq, dk, dv): both K3 kernels on a CUDA tensor (dQ first: it
     computes delta = rowsum(dO * O) for the dK/dV kernel), the plain
     version on a CPU one."""
-    _check(q, k, v, kv_len, causal)
+    _check(q, k, v, kv_len)
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     if q.device.type == 'cpu':
         return flash_attention_reference_bwd(q, k, v, o, lse, do, kv_len,

@@ -1,16 +1,16 @@
-"""Fused layer norm: the CUDA kernel ``csrc/layer_norm.cu`` (K1, replacing
-``_ln_kernel`` of paddle_tpu/ops/pallas/layer_norm.py) and its plain
-PyTorch version ``_ln_reference``.
+"""Fused layer norm: the CUDA kernels of ``csrc/layer_norm.cu`` — K1,
+replacing ``_ln_kernel`` of paddle_tpu/ops/pallas/layer_norm.py, and its
+backward, replacing the custom_vjp's ``_ln_vjp_bwd`` there — beside their
+plain PyTorch versions ``_ln_reference`` and ``layer_norm_reference_bwd``.
 
-``fused_layer_norm`` launches the kernel for CUDA tensors and takes the
-plain version only for CPU tensors; on a CUDA tensor it launches or
-raises. ``fused_layer_norm.launches`` counts kernel launches.
-
-It is differentiable: ``_LayerNorm`` is a torch.autograd.Function whose
-forward is the kernel and whose backward is the gradient of
-``_ln_reference``, rematerialised in plain PyTorch — what the JAX package's
-custom_vjp does (paddle_tpu/ops/pallas/layer_norm.py ``_ln_vjp_bwd``); the
-TPU has no backward kernel for K1 either.
+``fused_layer_norm`` launches the kernels for CUDA tensors and takes the
+plain versions only for CPU tensors; on a CUDA tensor it launches or
+raises. It is differentiable: ``_LayerNorm`` is a torch.autograd.Function
+whose forward is K1 and whose backward is two kernels (a row kernel for dx
+and fixed-order per-block partials of dgamma and dbeta, then a column kernel
+that adds the partials). ``fused_layer_norm.launches`` counts forward
+launches, ``fused_layer_norm.bwd_launches`` backward kernel launches (two a
+call).
 """
 
 import torch
@@ -64,6 +64,44 @@ def _ln_forward(x2, gamma, beta, eps):
     return _ln_cuda(x2, gamma, beta, eps)
 
 
+def layer_norm_reference_bwd(x2, gamma, beta, gy, eps):
+    """Plain version of the backward kernels: the JAX package's
+    _ln_vjp_bwd, the gradient of _ln_reference rematerialised under
+    autograd. Returns (dx in x's dtype, dgamma, dbeta)."""
+    saved = [t.detach().requires_grad_() for t in (x2, gamma, beta)]
+    with torch.enable_grad():
+        y = _ln_reference(*saved, eps)
+        return torch.autograd.grad(y, saved, gy)
+
+
+def _ln_bwd_cuda(x2, gamma, gy, eps):
+    """Launch the backward kernels: (dx, dgamma, dbeta fp32)."""
+    n, d = x2.shape
+    if gy.dtype != x2.dtype or gy.shape != x2.shape or \
+            gy.device != x2.device:
+        raise ValueError('layer_norm backward kernel: gy must match x, got '
+                         '%s %s on %s' % (gy.dtype, tuple(gy.shape),
+                                         gy.device))
+    gy = gy.contiguous()
+    dx = torch.empty_like(x2)
+    dgamma = torch.empty(d, dtype=torch.float32, device=x2.device)
+    dbeta = torch.empty_like(dgamma)
+    if n == 0:
+        return dx, dgamma.zero_(), dbeta.zero_()
+    lib = build.library()
+    floats = lib.ptt_layer_norm_bwd_workspace(n, d)
+    work = torch.empty(floats, dtype=torch.float32, device=x2.device)
+    with torch.cuda.device(x2.device):
+        stream = torch.cuda.current_stream(x2.device).cuda_stream
+        rc = lib.ptt_layer_norm_bwd(
+            x2.data_ptr(), gy.data_ptr(), gamma.data_ptr(), dx.data_ptr(),
+            dgamma.data_ptr(), dbeta.data_ptr(), work.data_ptr(), n, d,
+            float(eps), build.dtype_code(x2.dtype), stream)
+    build.check(rc, 'ptt_layer_norm_bwd')
+    fused_layer_norm.bwd_launches += 2   # the row and the column kernel
+    return dx, dgamma, dbeta
+
+
 class _LayerNorm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x2, gamma, beta, eps):
@@ -73,10 +111,13 @@ class _LayerNorm(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gy):
-        saved = [t.detach().requires_grad_() for t in ctx.saved_tensors]
-        with torch.enable_grad():
-            y = _ln_reference(*saved, ctx.eps)
-            grads = torch.autograd.grad(y, saved, gy)
+        """_ln_vjp_bwd: the backward kernels on a CUDA tensor, the plain
+        version on a CPU one."""
+        x2, gamma, beta = ctx.saved_tensors
+        if x2.device.type == 'cpu':
+            grads = layer_norm_reference_bwd(x2, gamma, beta, gy, ctx.eps)
+        else:
+            grads = _ln_bwd_cuda(x2, gamma, gy, ctx.eps)
         return tuple(g if need else None for g, need in
                      zip(grads, ctx.needs_input_grad[:3])) + (None,)
 
@@ -97,3 +138,4 @@ def fused_layer_norm(x, gamma, beta, eps=1e-5, begin_norm_axis=-1):
 
 
 fused_layer_norm.launches = 0
+fused_layer_norm.bwd_launches = 0   # the backward's kernels, two a call

@@ -15,10 +15,20 @@ that a merge kernel combines in split order. The chunk is a constant, so a
 row's result is a pure function of its q, pages and length, whatever batch
 it is part of.
 
+The split kernel comes in two hand-written variants: one with 16-byte
+loads (key and value rows that are multiples of 16 bytes, at most 512
+bytes, Dv <= 128, 16-byte aligned arenas: the decode path) and one for
+rows of any width up to 256 elements (a bf16 arena with d_key 36, an fp32
+one with d_key 30, Dv 192), with the widest load (8, 4 or 2 bytes) that
+divides the rows. The launcher chooses and reports which it launched.
+
 ``paged_attention`` launches the kernels for CUDA tensors and takes the
 plain version only for CPU tensors; on a CUDA tensor it launches or
-raises. ``paged_attention.launches`` counts calls that launched.
+raises. ``paged_attention.launches`` counts calls that launched,
+``launches_v16`` and ``launches_any`` each variant.
 """
+
+import ctypes
 
 import torch
 
@@ -27,6 +37,9 @@ from . import build
 _NEG_INF = -1e9
 # tokens one split block of the kernel covers (kChunkTokens of the source)
 CHUNK_TOKENS = 256
+# the widest key or value row (elements) a kernel takes (kMaxAnyDim)
+MAX_HEAD_DIM = 256
+_LAUNCHED_V16, _LAUNCHED_ANY = 1, 2
 
 
 def chunk_pages(block_size):
@@ -144,18 +157,11 @@ def _paged_cuda(q, k_pages, v_pages, block_tables, seq_lens, scale,
         if t.device != dev:
             raise ValueError('paged_attention kernel: all inputs must be '
                              'on %s, got %s' % (dev, t.device))
-    if dv > 128 or n > 65535:
-        raise ValueError('paged_attention kernel: needs value head dim '
-                         '<= 128 and <= 65535 rows')
+    if max(d, dv) > MAX_HEAD_DIM or n > 65535:
+        raise ValueError('paged_attention kernel: needs key and value head '
+                         'dims <= %d and <= 65535 rows; got D %d, Dv %d, %d '
+                         'rows' % (MAX_HEAD_DIM, d, dv, n))
     code = build.dtype_code(k_pages.dtype)
-    item = k_pages.element_size()
-    if (d * item) % 16 or (dv * item) % 16 or max(d, dv) * item > 512 or \
-            k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
-        raise ValueError('paged_attention kernel: its 16-byte loads need '
-                         'key and value rows that are a multiple of 16 '
-                         'bytes, at most 512 bytes, in 16-byte aligned '
-                         'arenas; got D %d, Dv %d of %s'
-                         % (d, dv, k_pages.dtype))
     out = torch.empty((n, h, dv), dtype=torch.float32, device=dev)
     if n == 0 or h == 0 or p == 0:
         return out.zero_()
@@ -170,15 +176,21 @@ def _paged_cuda(q, k_pages, v_pages, block_tables, seq_lens, scale,
         raise ValueError('paged_attention kernel: workspace must be a '
                          'contiguous float32 [%d, %d, %d, %d] tensor'
                          % (n, h, nz, dv + 2))
+    launched = ctypes.c_int(0)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.ptt_paged_attention(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             block_tables.data_ptr(), block_tables.stride(0),
             seq_lens.data_ptr(), workspace.data_ptr(), out.data_ptr(), n, h,
-            nb, bs, d, dv, p, nz, float(scale), code, stream)
+            nb, bs, d, dv, p, nz, float(scale), code,
+            ctypes.byref(launched), stream)
     build.check(rc, 'ptt_paged_attention')
     paged_attention.launches += 1
+    if launched.value == _LAUNCHED_V16:
+        paged_attention.launches_v16 += 1
+    elif launched.value == _LAUNCHED_ANY:
+        paged_attention.launches_any += 1
     return out
 
 
@@ -199,3 +211,5 @@ def paged_attention(q, k_pages, v_pages, block_tables, seq_lens,
 
 
 paged_attention.launches = 0
+paged_attention.launches_v16 = 0   # the 16-byte split kernel
+paged_attention.launches_any = 0   # the any-width split kernel

@@ -286,3 +286,54 @@ def test_plain_matches_jax_reference_at_an_odd_row_count(dtype):
         b = bias - np.asarray(jm, np.float64) * a
         tol = _bf16_ulp(xf * a) + _bf16_ulp(b) + _bf16_ulp(y32)
         assert np.all(np.abs(got - y32) <= tol)
+
+
+@pytest.mark.parametrize('layout,shape', [('NHWC', (4, 6, 6, 64)),
+                                          ('NCHW', (4, 32, 6, 6))])
+def test_reference_bwd_matches_jax_vjp(layout, shape):
+    """batch_norm_reference_bwd, the plain version of the backward kernel,
+    against jax.vjp of the JAX package's fused_batch_norm_train (its Pallas
+    forward in interpret mode, its custom_vjp backward _bn_vjp_bwd), fed
+    the JAX forward's own mean and var, fp32, in both layouts: the same
+    fp32 sums in another order, 1e-5."""
+    c = _channels(layout, shape)
+    x, scale, bias, gy = _inputs(shape, c, seed=3 + c)
+
+    def jfn(a, s, b):
+        return jbn.fused_batch_norm_train(a, s, b, 1e-5, layout=layout)
+
+    (_, jm, jv), vjp = jax.vjp(jfn, jnp.asarray(x), jnp.asarray(scale),
+                               jnp.asarray(bias))
+    want = vjp((jnp.asarray(gy), jnp.zeros_like(jm), jnp.zeros_like(jv)))
+
+    def view(a):
+        t = torch.tensor(a)
+        t4 = t.permute(0, 3, 1, 2) if layout == 'NHWC' else t
+        return t4.reshape(shape[0], c, -1)
+    dx3, ds, db = tbn.batch_norm_reference_bwd(
+        view(x), view(gy), torch.tensor(scale),
+        torch.tensor(np.asarray(jm)), torch.tensor(np.asarray(jv)), 1e-5)
+    dx4 = dx3.reshape((shape[0], c) + shape[1:3] if layout == 'NHWC'
+                      else shape)
+    dx = dx4.permute(0, 2, 3, 1) if layout == 'NHWC' else dx4
+    for got, w, name in ((dx, want[0], 'dx'), (ds, want[1], 'dscale'),
+                         (db, want[2], 'dbias')):
+        np.testing.assert_allclose(got.numpy(), np.asarray(w), rtol=1e-5,
+                                   atol=1e-5, err_msg=name)
+
+
+def test_autograd_backward_on_cpu_takes_the_plain_version():
+    """On a CPU tensor the Function's backward is batch_norm_reference_bwd
+    (bit for bit) and launches nothing."""
+    x, scale, bias, gy = _inputs((4, 6, 6, 8), 8, seed=9)
+    leaves = [torch.tensor(a, requires_grad=True) for a in (x, scale, bias)]
+    before = tbn.fused_batch_norm_train.bwd_launches
+    y, m, v = tbn.fused_batch_norm_train(*leaves, 1e-5, layout='NHWC')
+    got = torch.autograd.grad(y, leaves, torch.tensor(gy))
+    assert tbn.fused_batch_norm_train.bwd_launches == before
+    x3 = torch.tensor(x).permute(0, 3, 1, 2).reshape(4, 8, 36)
+    g3 = torch.tensor(gy).permute(0, 3, 1, 2).reshape(4, 8, 36)
+    want = tbn.batch_norm_reference_bwd(x3, g3, torch.tensor(scale), m, v,
+                                        1e-5)
+    assert torch.equal(got[0].permute(0, 3, 1, 2).reshape(4, 8, 36), want[0])
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])

@@ -82,8 +82,8 @@ def test_plain_and_function_match_pallas_interpret(case, dtype):
     for g, w in zip(got, want):
         assert np.all(np.abs(g - w) <= _tol(dtype, w)), np.abs(g - w).max()
     if dtype == 'float32':
-        # the port's composed reference_attention agrees (Tq == Tk, so
-        # its bottom-right causal band is the kernels' top-left one)
+        # the port's composed reference_attention agrees (both align the
+        # causal band bottom-right)
         ref = reference_attention(tq, tk, tv, causal=causal,
                                   key_length=tlens)
         np.testing.assert_allclose(ref.numpy(), got[0], rtol=1e-5,
@@ -101,9 +101,9 @@ def test_plain_and_function_match_pallas_interpret(case, dtype):
 
 def test_lse_and_short_rows():
     """lse is the log-sum-exp of the live scores; a row with kv_len 1
-    attends to key 0 only; a row with kv_len 0 gives out 0 and lse -1e30
-    (the Pallas kernel's rule, where reference_attention would give the
-    mean of V)."""
+    attends to key 0 only; a row with kv_len 0 gives what the JAX op's
+    default path (reference_attention) gives: the mean of V over all keys,
+    with lse -1e9 + log(Tk)."""
     q, k, v, _, _ = _inputs(3, 1, 8, 4, False, seed=5)
     lens = torch.tensor([8, 1, 0])
     o, lse = tfa.flash_attention_reference_fwd(
@@ -114,14 +114,27 @@ def test_lse_and_short_rows():
     np.testing.assert_allclose(o[1].numpy(),
                                np.broadcast_to(v[1, :, :1], (1, 8, 4)),
                                rtol=1e-6)
-    assert np.all(o[2].numpy() == 0) and np.all(lse[2].numpy() == -1e30)
+    np.testing.assert_allclose(o[2].numpy(),
+                               np.broadcast_to(v[2].mean(1, keepdims=True),
+                                               (1, 8, 4)), rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(lse[2].numpy(), -1e9 + np.log(8), rtol=1e-7)
 
 
 def test_causal_needs_equal_lengths():
-    x = torch.zeros(1, 1, 4, 8)
-    with pytest.raises(ValueError):
-        tfa.flash_attention(x, torch.zeros(1, 1, 6, 8),
-                            torch.zeros(1, 1, 6, 8), causal=True)
+    """Causal with Tq != Tk is aligned bottom-right (query row i sees keys
+    up to i + Tk - Tq), as reference_attention's tril(.., tk - tq); only a
+    head dim above 256 is refused."""
+    q, k, v, _, _ = _inputs(1, 2, 6, 8, False, seed=9)
+    out = tfa.flash_attention(torch.tensor(q[:, :, :4]), torch.tensor(k),
+                              torch.tensor(v), causal=True)
+    want = reference_attention(torch.tensor(q[:, :, :4]), torch.tensor(k),
+                               torch.tensor(v), causal=True)
+    np.testing.assert_allclose(out.numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-6)
+    x = torch.zeros(1, 1, 4, 264)
+    with pytest.raises(ValueError, match='256'):
+        tfa.flash_attention(x, x, x, causal=True)
 
 
 def _attention_program(pkg, b, t, hd, n_head, causal, with_len):
@@ -245,14 +258,18 @@ def test_tiled_version_matches_pallas_interpret_and_plain(case, dtype):
 
 
 def test_tiled_version_rows_without_a_live_key():
-    """kv_len 0 gives out 0 and lse -1e30 tile after tile, as the kernels
-    do; a tile size that does not divide T changes nothing beyond
-    rounding."""
+    """kv_len 0 gives the mean of V and lse -1e9 + log(Tk), as the kernels
+    and reference_attention do; a tile size that does not divide T changes
+    nothing beyond rounding."""
     q, k, v, _, _ = _inputs(3, 2, 150, 8, False, seed=6)
     lens = torch.tensor([150, 70, 0])
     tq, tk, tv = (torch.tensor(a) for a in (q, k, v))
     out, lse = tfa.flash_attention_tiled_reference_fwd(tq, tk, tv, lens)
-    assert np.all(out[2].numpy() == 0) and np.all(lse[2].numpy() == -1e30)
+    np.testing.assert_allclose(out[2].numpy(),
+                               np.broadcast_to(v[2].mean(1, keepdims=True),
+                                               (2, 150, 8)), rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(lse[2].numpy(), -1e9 + np.log(150), rtol=1e-7)
     other, lse2 = tfa.flash_attention_tiled_reference_fwd(tq, tk, tv, lens,
                                                           tile=32)
     np.testing.assert_allclose(out.numpy(), other.numpy(), rtol=1e-5,

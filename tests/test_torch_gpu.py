@@ -203,12 +203,18 @@ def test_paged_attention_kernel_shapes(cuda, case):
 
 
 def test_paged_attention_wrapper_names_what_its_loads_need(cuda):
-    """Key rows that are no multiple of 16 bytes raise with the reason;
-    nothing falls back to the plain version."""
+    """Key rows that are no multiple of 16 bytes take the any-width kernel
+    (its narrower loads); only rows wider than 256 elements raise, with the
+    reason, and nothing falls back to the plain version."""
     args = _paged_args(cuda, torch.bfloat16, [5, 9], nb=8, h=1, bs=8, d=12,
                        p=2)
+    before = tpa.paged_attention.launches_any
+    _paged_check(args, torch.bfloat16)
+    assert tpa.paged_attention.launches_any == before + 1
+    args = _paged_args(cuda, torch.bfloat16, [5, 9], nb=8, h=1, bs=8, d=264,
+                       p=2)
     before = tpa.paged_attention.launches
-    with pytest.raises(ValueError, match='16'):
+    with pytest.raises(ValueError, match='256'):
         tpa.paged_attention(*args)
     assert tpa.paged_attention.launches == before
 
@@ -397,10 +403,8 @@ def test_flash_wrapper_rejects_bad_inputs(cuda):
         tfa.flash_attention_fwd(q, q.bfloat16(), q)
     with pytest.raises(ValueError):
         tfa.flash_attention_fwd(q, q.cpu(), q)
-    with pytest.raises(ValueError):
-        tfa.flash_attention_fwd(q, q[:, :, :4], q[:, :, :4], causal=True)
-    wide = torch.zeros(1, 1, 8, 192, device=cuda)
-    with pytest.raises(ValueError):
+    wide = torch.zeros(1, 1, 8, 264, device=cuda)   # the one refusal: D>256
+    with pytest.raises(ValueError, match='256'):
         tfa.flash_attention_fwd(wide, wide, wide)
     with pytest.raises(ValueError):
         tfa.flash_attention_fwd(q[..., ::2], q[..., ::2], q[..., ::2])
@@ -784,3 +788,220 @@ def test_batch_norm_cooperative_launch_captures_into_a_graph(cuda):
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+# ---- the inputs the JAX op's default path takes: causal with Tq != Tk
+# (aligned bottom-right), rows with no live key (the mean of V), head dims
+# above 128 (the SIMT kernels, query tiles of 32 in the backward)
+FAULT_CASES = [
+    # (B, H, Tq, Tk, D, dtype, causal, kv_len or None)
+    (2, 2, 48, 64, 64, torch.bfloat16, True, None),
+    (2, 2, 64, 48, 64, torch.bfloat16, True, None),
+    (2, 2, 130, 70, 32, torch.float32, True, [70, 30]),
+    (3, 2, 100, 100, 64, torch.bfloat16, False, [100, 0, 7]),
+    (3, 2, 100, 100, 16, torch.float32, True, [0, 100, 50]),
+    (2, 2, 150, 150, 192, torch.float32, False, [150, 80]),
+    (2, 2, 150, 120, 192, torch.bfloat16, True, None),
+    (2, 2, 77, 77, 256, torch.float32, True, [77, 0]),
+    (1, 2, 200, 260, 256, torch.bfloat16, True, None),
+]
+
+
+@pytest.mark.parametrize('case', FAULT_CASES)
+def test_flash_kernels_take_every_input_of_the_default_path(cuda, case):
+    """K2 and K3 against their plain versions (fp32: 1e-5 of the largest
+    value; bf16: 1e-2 of it + 1e-2 relative), two backward runs bit-equal,
+    the variant the launcher chose; a row with no live key gives the mean
+    of V and lse -1e9 + log(Tk), and no gradient to q."""
+    b, h, tq, tk, d, dtype, causal, lens = case
+    gen = torch.Generator(device=cuda).manual_seed(31)
+    q, do = (torch.randn(b, h, tq, d, generator=gen, device=cuda).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(b, h, tk, d, generator=gen, device=cuda).to(dtype)
+            for _ in range(2))
+    kv = None if lens is None else torch.tensor(lens, device=cuda)
+    mma = dtype == torch.bfloat16 and d % 16 == 0 and d <= 128
+    before = (tfa.flash_fwd_cuda.launches_mma,
+              tfa.flash_fwd_cuda.launches_simt)
+    out, lse = tfa.flash_attention_fwd(q, k, v, kv, causal)
+    moved = (tfa.flash_fwd_cuda.launches_mma - before[0],
+             tfa.flash_fwd_cuda.launches_simt - before[1])
+    assert moved == ((1, 0) if mma else (0, 1))
+    grads = tfa.flash_attention_bwd(q, k, v, out, lse, do, kv, causal)
+    again = tfa.flash_attention_bwd(q, k, v, out, lse, do, kv, causal)
+    torch.cuda.synchronize()
+    for g, a in zip(grads, again):
+        assert torch.equal(g, a)
+    ref_out, ref_lse = tfa.flash_attention_reference_fwd(q, k, v, kv, causal)
+    refs = tfa.flash_attention_reference_bwd(q, k, v, out, lse, do, kv,
+                                             causal)
+    for got, want in [(out, ref_out)] + list(zip(grads, refs)):
+        got, want = got.float(), want.float()
+        top = float(want.abs().max())
+        if dtype == torch.float32:
+            assert float((got - want).abs().max()) <= 1e-5 * max(top, 1.0)
+        else:
+            assert bool(((got - want).abs() <=
+                         1e-2 * top + 1e-2 * want.abs()).all())
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-4)
+    live = tfa._live(tq, tk, kv, causal, cuda)
+    dead = ~live.any(dim=-1).expand(b, h, tq)
+    if bool(dead.any()):
+        mean = v.float().mean(dim=2, keepdim=True).expand(b, h, tq, d)
+        got = out.float()[dead]
+        want = mean.to(dtype).float()[dead]
+        assert bool(((got - want).abs() <= 1e-5 + 1e-2 *
+                     want.abs() * (dtype == torch.bfloat16)).all())
+        assert bool((lse[dead] == float(np.float32(-1e9 + np.log(tk)))).all())
+        assert bool((grads[0][dead] == 0).all())
+
+
+@pytest.mark.parametrize('case', [
+    (torch.bfloat16, 36, 36, 0), (torch.float32, 30, 30, 0),
+    (torch.float32, 64, 192, 0), (torch.bfloat16, 192, 192, 0),
+    (torch.bfloat16, 256, 256, 0), (torch.bfloat16, 64, 64, 1),
+    (torch.float32, 40, 18, 0)])
+def test_paged_attention_any_width_variant(cuda, case):
+    """Rows the 16-byte kernel cannot load (no multiple of 16 bytes, wider
+    than 512 bytes, Dv above 128, or an arena one element off 16-byte
+    alignment) run on the any-width kernel, agree with both plain versions,
+    and a row gives the same bits alone and inside its batch."""
+    dtype, d, dv, shift = case
+    lens = [1, 31, 32, 33, 300, 600, 2, 1]
+    args = list(_paged_args(cuda, dtype, lens, nb=192, h=2, bs=32, d=d,
+                            dv=dv, p=20, empty=(7,)))
+    args[-1][7] = 0
+    if shift:
+        for i in (1, 2):
+            flat = torch.empty(args[i].numel() + 1, dtype=dtype, device=cuda)
+            view = flat[1:].view(args[i].shape)
+            view.copy_(args[i])
+            args[i] = view
+    before = tpa.paged_attention.launches_any
+    out = _paged_check(tuple(args), dtype)
+    assert tpa.paged_attention.launches_any == before + 1
+    q, kp, vp, tables, sl = args
+    alone = tpa.paged_attention(q[4:5], kp, vp, tables[4:5], sl[4:5])
+    torch.cuda.synchronize()
+    assert torch.equal(alone[0], out[4])
+
+
+def _grads_close(got, want, dtype):
+    """dx: bf16 within one bf16 ulp of max(|kernel|, |plain|) plus 1e-6 of
+    the largest |dx| (fp32 sums in another order where dx cancels), fp32
+    max-norm relative 1e-5; parameter gradients max-norm relative 1e-5."""
+    for i, (g, w) in enumerate(zip(got, want)):
+        g, w = g.float(), w.float()
+        top = float(w.abs().max())
+        diff = (g - w).abs()
+        if i == 0 and dtype == torch.bfloat16:
+            ulp = _bf16_ulp(torch.maximum(g.abs(), w.abs()))
+            assert bool((diff <= ulp + 1e-6 * top).all()), i
+        else:
+            assert float(diff.max()) <= 1e-5 * top, (i, float(diff.max()),
+                                                     top)
+
+
+def _bn_bwd_inputs(cuda, layout, shape, dtype, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x = (1.0 + 2.0 * torch.randn(shape, generator=gen, device=cuda)).to(dtype)
+    c = shape[1] if layout == 'NCHW' else shape[-1]
+    s = 0.5 + torch.rand(c, generator=gen, device=cuda)
+    b = torch.randn(c, generator=gen, device=cuda)
+    gy = torch.randn(shape, generator=gen, device=cuda).to(dtype)
+
+    def view(t):
+        t4 = t.permute(0, 3, 1, 2) if layout == 'NHWC' else t
+        return t4.reshape(t4.shape[0], c, -1) if t.dim() == 4 \
+            else t.unsqueeze(-1)
+    x3, g3 = view(x), view(gy)
+    _, m, v = tbn._bn_cuda(x3, s, b, 1e-5)
+    return x3, g3, s, m, v
+
+
+@pytest.mark.parametrize('case', BN_CASES + BN_ONE_LAUNCH_CASES)
+def test_batch_norm_backward_kernel_matches_plain_and_repeats(cuda, case):
+    """The backward kernel against batch_norm_reference_bwd (_grads_close),
+    one launch a call, no copy of a gradient already in x's layout, and
+    the same bits twice."""
+    layout, shape, dtype = case[:3]
+    x3, g3, s, m, v = _bn_bwd_inputs(cuda, layout, shape, dtype, 41)
+    before = (tbn.fused_batch_norm_train.bwd_launches,
+              tbn.fused_batch_norm_train.bwd_gy_copies)
+    got = tbn._bn_bwd_cuda(x3, g3, s, m, v, 1e-5)
+    again = tbn._bn_bwd_cuda(x3, g3, s, m, v, 1e-5)
+    torch.cuda.synchronize()
+    assert (tbn.fused_batch_norm_train.bwd_launches,
+            tbn.fused_batch_norm_train.bwd_gy_copies) == \
+        (before[0] + 2, before[1])
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+    assert got[0].stride() == x3.stride()
+    _grads_close(got, tbn.batch_norm_reference_bwd(x3, g3, s, m, v, 1e-5),
+                 dtype)
+
+
+def test_batch_norm_backward_copies_a_gradient_of_another_layout(cuda):
+    """A gradient in NCHW order for an NHWC activation is copied into x's
+    layout once (counted), and the result is the same."""
+    x3, g3, s, m, v = _bn_bwd_inputs(cuda, 'NHWC', (4, 6, 6, 32),
+                                     torch.float32, 42)
+    other = g3.contiguous()          # planes order, x3 is rows order
+    assert other.stride() != x3.stride()
+    before = tbn.fused_batch_norm_train.bwd_gy_copies
+    got = tbn._bn_bwd_cuda(x3, other, s, m, v, 1e-5)
+    assert tbn.fused_batch_norm_train.bwd_gy_copies == before + 1
+    want = tbn._bn_bwd_cuda(x3, g3, s, m, v, 1e-5)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_batch_norm_backward_captures_into_a_graph(cuda):
+    """The backward's cooperative launch records into a CUDA graph and the
+    replay gives the eager bits."""
+    x3, g3, s, m, v = _bn_bwd_inputs(cuda, 'NHWC', (64, 14, 14, 1024),
+                                     torch.bfloat16, 43)
+    want = tbn._bn_bwd_cuda(x3, g3, s, m, v, 1e-5)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tbn._bn_bwd_cuda(x3, g3, s, m, v, 1e-5)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = tbn._bn_bwd_cuda(x3, g3, s, m, v, 1e-5)
+    graph.replay()
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize('shape', [(4096, 512), (16, 512), (5, 100),
+                                   (3, 2048), (7, 3000), (33, 1000)])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_layer_norm_backward_kernels_match_plain_and_repeat(cuda, shape,
+                                                            dtype):
+    """Both backward kernels (row, column sum) against
+    layer_norm_reference_bwd (_grads_close), two launches a call, the same
+    bits twice, and autograd through fused_layer_norm launches them."""
+    n, d = shape
+    gen = torch.Generator(device=cuda).manual_seed(44)
+    x = torch.randn(n, d, generator=gen, device=cuda).to(dtype)
+    g = 1.0 + 0.1 * torch.randn(d, generator=gen, device=cuda)
+    b = 0.1 * torch.randn(d, generator=gen, device=cuda)
+    gy = torch.randn(n, d, generator=gen, device=cuda).to(dtype)
+    before = tln.fused_layer_norm.bwd_launches
+    got = tln._ln_bwd_cuda(x, g, gy, 1e-5)
+    again = tln._ln_bwd_cuda(x, g, gy, 1e-5)
+    torch.cuda.synchronize()
+    assert tln.fused_layer_norm.bwd_launches == before + 4
+    for a, r in zip(got, again):
+        assert torch.equal(a, r)
+    _grads_close(got, tln.layer_norm_reference_bwd(x, g, b, gy, 1e-5), dtype)
+    leaves = [t.clone().requires_grad_() for t in (x, g, b)]
+    y = tln.fused_layer_norm(*leaves, eps=1e-5)
+    auto = torch.autograd.grad(y, leaves, gy)
+    assert tln.fused_layer_norm.bwd_launches == before + 6
+    for a, r in zip(auto, got):
+        assert torch.equal(a, r)

@@ -91,3 +91,40 @@ def test_cpu_tensors_take_the_plain_version():
     tln.fused_layer_norm(torch.from_numpy(x), torch.from_numpy(g),
                          torch.from_numpy(b))
     assert tln.fused_layer_norm.launches == before
+
+
+@pytest.mark.parametrize('shape', SHAPES + [(7, 1000)])
+def test_reference_bwd_matches_jax_vjp(shape):
+    """layer_norm_reference_bwd, the plain version of the backward kernels,
+    against jax.vjp of the JAX package's fused_layer_norm (its custom_vjp
+    backward _ln_vjp_bwd), fp32: 1e-5."""
+    import jax
+    n, d = shape
+    x, g, b = _inputs(n, d, seed=4)
+    gy = np.random.RandomState(5).randn(n, d).astype('float32')
+    _, vjp = jax.vjp(lambda a, w, c: jln.fused_layer_norm(a, w, c, 1e-5),
+                     jnp.asarray(x), jnp.asarray(g), jnp.asarray(b))
+    want = vjp(jnp.asarray(gy))
+    got = tln.layer_norm_reference_bwd(torch.tensor(x), torch.tensor(g),
+                                       torch.tensor(b), torch.tensor(gy),
+                                       1e-5)
+    for t, w, name in zip(got, want, ('dx', 'dgamma', 'dbeta')):
+        np.testing.assert_allclose(t.numpy(), np.asarray(w), rtol=1e-5,
+                                   atol=1e-5, err_msg=name)
+
+
+def test_autograd_backward_on_cpu_takes_the_plain_version():
+    """On a CPU tensor the Function's backward is layer_norm_reference_bwd
+    and launches nothing."""
+    x, g, b = _inputs(6, 32, seed=6)
+    gy = torch.tensor(np.random.RandomState(7).randn(6, 32)
+                      .astype('float32'))
+    leaves = [torch.tensor(a, requires_grad=True) for a in (x, g, b)]
+    before = tln.fused_layer_norm.bwd_launches
+    y = tln.fused_layer_norm(*leaves, eps=1e-5)
+    got = torch.autograd.grad(y, leaves, gy)
+    assert tln.fused_layer_norm.bwd_launches == before
+    want = tln.layer_norm_reference_bwd(torch.tensor(x), torch.tensor(g),
+                                        torch.tensor(b), gy, 1e-5)
+    for t, w in zip(got, want):
+        assert torch.equal(t, w)

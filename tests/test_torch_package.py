@@ -42,6 +42,27 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+@pytest.mark.parametrize('script', ['chip_smoke.py', 'kernel_times.py'])
+def test_chip_scripts_import_no_jax_and_no_reference(script):
+    """The chip scripts run where there is no jax: every import statement
+    in them (read with ast, not run) names neither jax nor paddle_tpu."""
+    import ast
+    with open(os.path.join(REPO, script)) as f:
+        tree = ast.parse(f.read())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.append(node.module)
+    assert names, script
+    bad = [n for n in names if n.split('.')[0] in ('jax', 'jaxlib',
+                                                   'paddle_tpu')]
+    assert not bad, bad
+    assert any(n.startswith('paddle_tpu_torch') for n in names) or \
+        script == 'kernel_times.py'
+
+
 def test_no_module_calls_library_attention():
     """scaled_dot_product_attention and F.batch_norm are yardsticks in
     chip_smoke.py only; no module of the port calls them, PyTorch's other

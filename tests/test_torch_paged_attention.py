@@ -243,3 +243,52 @@ def test_split_version_rows_do_not_depend_on_the_batch(dtype):
         many = _split(qs, kp, vp, np.broadcast_to(row, (40, row.size)).copy(),
                       ls, dtype, expand=True)
         np.testing.assert_array_equal(many[17], full[i])
+
+
+# rows the 16-byte kernel cannot load, which the JAX package sends to its
+# gather path: (page dtype, D, Dv)
+ANY_WIDTH = [('bfloat16', 36, 36), ('float32', 30, 30),
+             ('float32', 64, 192), ('bfloat16', 192, 192)]
+
+
+@pytest.mark.parametrize('case', ANY_WIDTH)
+def test_plain_versions_match_jax_gather_path_at_any_width(monkeypatch,
+                                                           case):
+    """Both plain versions of the port (the any-width kernel's) against
+    the JAX package's paged_attention on its default, gather path (Pallas
+    off), at a bf16 d_key of 36, an fp32 d_key of 30 and Dv 192. fp32: the
+    same sums in another order, 1e-5; bf16: 2e-2 + 2e-2 * |want| (p
+    rounded to bf16 at other points), the one-pass version to 1e-5 of the
+    reference's own rounding. The empty slot gives 0."""
+    monkeypatch.delenv('PADDLE_TPU_PAGED_PALLAS', raising=False)
+    monkeypatch.delenv('PADDLE_TPU_USE_PALLAS', raising=False)
+    dtype, d, dv = case
+    rng = np.random.RandomState(d + dv)
+    nb, h, bs, p = 40, 2, 8, 8
+    kp = rng.randn(nb, h, bs, d).astype('float32')
+    vp = rng.randn(nb, h, bs, dv).astype('float32')
+    q = rng.randn(5, h, d).astype('float32')
+    tables = rng.permutation(nb)[:5 * p].reshape(5, p).astype('int32')
+    lens = np.array([1, 9, 33, 64, 0], 'int32')
+    jdt = getattr(jnp, dtype)
+    kb, vb = jnp.asarray(kp).astype(jdt), jnp.asarray(vp).astype(jdt)
+    want = np.asarray(jpa.paged_attention(
+        jnp.asarray(q), kb, vb, jnp.asarray(tables), jnp.asarray(lens))
+        .astype(jnp.float32))
+    assert want.shape == (5, h, dv)
+    tdt = getattr(torch, dtype)
+    args = (torch.tensor(q),
+            torch.tensor(np.asarray(kb.astype(jnp.float32))).to(tdt),
+            torch.tensor(np.asarray(vb.astype(jnp.float32))).to(tdt),
+            torch.tensor(tables), torch.tensor(lens))
+    one = tpa.paged_attention(*args).float().numpy()
+    split = tpa.paged_attention_split_reference(*args).numpy()
+    live = lens > 0
+    assert np.all(split[~live] == 0)
+    np.testing.assert_allclose(one, want, rtol=1e-5, atol=1e-5)
+    if dtype == 'float32':
+        np.testing.assert_allclose(split[live], want[live], rtol=1e-5,
+                                   atol=1e-5)
+    else:
+        gap = np.abs(split[live] - want[live])
+        assert np.all(gap <= 2e-2 + 2e-2 * np.abs(want[live])), gap.max()
