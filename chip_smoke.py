@@ -44,7 +44,13 @@ Phases (any fault exits non-zero; no phase is skipped over):
    twice as its plan says (both happen in both orders), and its backward
    kernel at each shape (one launch, twice for equal bits, against
    batch_norm_reference_bwd, beside F.batch_norm's backward) and through
-   autograd against autograd of the plain version.
+   autograd against autograd of the plain version. K4's quantized variant
+   (int8 and e4m3 pages with fp32 row scales) at the engine shape, with
+   every row at 2,048 tokens, at the verify shape (64 rows: 16 sequences
+   x k+1 = 4) and on the any-width kernel (d_key 8), against both plain
+   versions within 1e-5 of the largest value; fp32 K4 at the verify
+   shape; and the LM's row tiles: torch.matmul's rows at M = 16, 64, 512
+   compared (printed), paged_decode_ops._mm's bit-equal at every M.
 4. Engine: DecodeEngine at the documented serving configuration
    (docs/serving.md: vocab 32000, 12 layers, 8 heads, d_model 512,
    d_inner 2048; max_batch 16, block 32, 4096 pages, 64 pages a
@@ -57,6 +63,20 @@ Phases (any fault exits non-zero; no phase is skipped over):
    decode step of the run.
 5. Card vs CPU: the same port on CPUPlace() (plain versions), 2 prompts x
    16 greedy tokens, must give the card's token streams.
+5a. Decode extras at the same width: 32 requests from 16 clients, each
+   sharing a 256-token system prompt (8 full pages) with probability 0.95
+   followed by 16-256 random tokens, else a cold 64-512-token prompt; 64
+   new tokens, 28 greedy and 4 at temperature 0.7. Served by the plain
+   engine and by one with prefix_cache=True and spec_k=3: every stream
+   equal between the two, cache hits and accepted drafts > 0, the pool
+   back at num_blocks after shutdown, layer norm and paged attention at
+   2*L and L launches per prefill, decode and verify step; tokens/s, TTFT
+   and inter-token gaps of both, hit rate, prefill tokens skipped, mean
+   accepted length.
+5b. Quantized arenas: the same traffic at int8, then fp8 (cache and
+   spec_k=3 on): the phase-4 checks, every paged-attention launch on the
+   quantized variant, and the same engine on CPUPlace() equal to the card
+   (2 prompts x 16 greedy tokens); kv bytes a token and tokens/s.
 6. Training: bench.py's bench_transformer through the port's user API
    (transformer_base at vocab 32000, 6+6 layers, d_model 512, dropout
    and label smoothing 0.1; Adam(1e-4).minimize; amp 'bf16';
@@ -92,7 +112,8 @@ line with every kernel's numbers and nvidia-smi's name and power limit.
 --cpu-rehearsal runs phases 4-10 at tiny sizes with the plain versions
 (phases 8 and 10 then compare the host with itself) and never prints
 that last line. --profile adds, after every other phase, a torch.profiler
-breakdown of decode steps, Transformer and ResNet-50 training steps.
+breakdown of decode steps (fp32 and int8 arenas), verify steps (k = 3),
+Transformer and ResNet-50 training steps.
 --kernels-only stops after phase 3 (no verdict line). kernel_times.py
 times K1, K4, K2, K3 and K5 and the backward kernels of any checkout of
 this repository at phase 3's shapes.
@@ -202,6 +223,7 @@ def _counters():
            ('paged_attention', paged_attention, 'launches'),
            ('paged_attention_v16', paged_attention, 'launches_v16'),
            ('paged_attention_any', paged_attention, 'launches_any'),
+           ('paged_attention_q8', paged_attention, 'launches_q8'),
            ('batch_norm', fused_batch_norm_train, 'launches'),
            ('batch_norm_bwd', fused_batch_norm_train, 'bwd_launches'),
            ('batch_norm_bwd_gy_copies', fused_batch_norm_train,
@@ -415,12 +437,19 @@ def _ln_bwd_case(torch, card, n, d, dtype, gen):
 
 
 def _paged_inputs(torch, gen, n, lens, dtype, broadcast, h=8, d=64, bs=32,
-                  p=64, nb=4096, empty=(), dv=None):
+                  p=64, nb=4096, empty=(), dv=None, verify=0):
+    """K4's inputs on the card. ``dtype`` 'int8' or 'float8_e4m3fn' gives
+    pages quantized row by row and their scales (returned after the
+    lengths). ``verify`` = k + 1 repeats each of the ``n`` sequences'
+    table k + 1 times at lengths len .. len + k: the verify step's rows."""
+    from paddle_tpu_torch.quant.core import quantize_rows
     dev = torch.device('cuda', 0)
     dv = d if dv is None else dv
-    kp = torch.randn(nb, h, bs, d, generator=gen, device=dev).to(dtype)
-    vp = torch.randn(nb, h, bs, dv, generator=gen, device=dev).to(dtype)
-    q = torch.randn(n, h, d, generator=gen, device=dev)
+    quant = isinstance(dtype, str)
+    pdt = torch.float32 if quant else dtype
+    kp = torch.randn(nb, h, bs, d, generator=gen, device=dev).to(pdt)
+    vp = torch.randn(nb, h, bs, dv, generator=gen, device=dev).to(pdt)
+    q = torch.randn(n * max(verify, 1), h, d, generator=gen, device=dev)
     perm = torch.randperm(nb, generator=gen, device=dev).to(torch.int32)
     if broadcast:
         row = perm[:p].clone()
@@ -428,29 +457,46 @@ def _paged_inputs(torch, gen, n, lens, dtype, broadcast, h=8, d=64, bs=32,
         row[owned:] = nb          # "no page" past the owned pages
         tables = row.expand(n, p)
     else:
+        top = [ln + max(verify - 1, 0) for ln in lens]
         tables = perm[:n * p].reshape(n, p).clone()
-        for i, ln in enumerate(lens):
+        for i, ln in enumerate(top):
             tables[i, -(-ln // bs):] = nb + 7
         for i in empty:
             tables[i] = nb        # empty decode slot: all entries >= NB
+    if verify:
+        tables = tables.repeat_interleave(verify, dim=0)
+        lens = [ln + j for ln in lens for j in range(verify)]
     seq_lens = torch.tensor(lens, dtype=torch.int32, device=dev)
-    return q, kp, vp, tables, seq_lens
+    if not quant:
+        return q, kp, vp, tables, seq_lens
+    kq, ks = quantize_rows(kp, dtype)
+    vq, vs = quantize_rows(vp, dtype)
+    del kp, vp
+    return q, kq, vq, tables, seq_lens, ks, vs
 
 
-def _paged_case(torch, card, label, q, kp, vp, tables, lens, heavy=False):
+def _paged_case(torch, card, label, q, kp, vp, tables, lens, ks=None,
+                vs=None, heavy=False):
     """K4 against both its plain versions on one input, and its times.
-    ``heavy`` (the 512-row prefill: the plain versions gather GBs) cuts
-    the plain version's and the yardstick's timed calls to 5."""
+    ``ks``/``vs`` are the row scales of int8 / e4m3 pages. ``heavy`` (the
+    512-row prefill: the plain versions gather GBs) cuts the plain
+    version's and the yardstick's timed calls to 5."""
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.kernels import paged_attention as K
-    out = K.paged_attention(q, kp, vp, tables, lens)
-    refs = [K.paged_attention_reference(q, kp, vp, tables, lens).float(),
-            K.paged_attention_split_reference(q, kp, vp, tables, lens)]
+    kw = {} if ks is None else dict(k_scales=ks, v_scales=vs)
+    out = K.paged_attention(q, kp, vp, tables, lens, **kw)
+    refs = [K.paged_attention_reference(q, kp, vp, tables, lens,
+                                        **kw).float(),
+            K.paged_attention_split_reference(q, kp, vp, tables, lens,
+                                              **kw)]
     torch.cuda.synchronize()
     of = out.float().cpu().numpy()
     live = (lens > 0).cpu().numpy()    # an empty slot gives 0, no average
     require(np.all(of[~live] == 0), '%s: an empty row is not 0' % label)
-    if kp.dtype == torch.float32:
+    if ks is not None:
+        tol = ('quantized: |kernel - plain| <= 1e-5 * max|plain| (the same '
+               'dequantized operands, summed in another order)')
+    elif kp.dtype == torch.float32:
         tol = 'fp32: |kernel - plain| <= 5e-5'
     else:
         tol = ('bf16: |kernel - plain| <= 2e-2 + 2e-2*|plain| (plain '
@@ -461,7 +507,9 @@ def _paged_case(torch, card, label, q, kp, vp, tables, lens, heavy=False):
         rf = ref.cpu().numpy()
         gap = np.abs(of - rf)[live]
         errs.append(float(gap.max()))
-        if kp.dtype == torch.float32:
+        if ks is not None:
+            ok = ok and errs[-1] <= 1e-5 * float(np.abs(rf[live]).max())
+        elif kp.dtype == torch.float32:
             ok = ok and errs[-1] <= 5e-5
         else:
             ok = ok and bool(np.all(gap <= 2e-2 + 2e-2 * np.abs(rf[live])))
@@ -477,33 +525,40 @@ def _paged_case(torch, card, label, q, kp, vp, tables, lens, heavy=False):
         pages.update(np.clip(tab_h[i, :npages[i]], 0, nb - 1).tolist())
     item = kp.element_size()
     dv = vp.shape[-1]
-    n_bytes = (len(pages) * h * bs * (d + dv) * item + n * h * (d + dv) * 4 +
-               int(npages.sum()) * 4 + n * 4)
+    # the pages the rows touch (their K and V rows and, quantized, their
+    # row scales), q, the output, the table entries read and the lengths
+    n_bytes = (len(pages) * h * bs * ((d + dv) * item +
+                                      (8 if ks is not None else 0)) +
+               n * h * (d + dv) * 4 + int(npages.sum()) * 4 + n * 4)
     n_ops = int(lens_h.sum()) * h * (2 * d + 2 * dv + 5)
     lo, by = bound_ms(n_bytes, n_ops)
     ms = device_ms(torch, lambda: K.paged_attention(q, kp, vp, tables,
-                                                    lens))
+                                                    lens, **kw))
     eager = eager_ms(torch, lambda: K.paged_attention(q, kp, vp, tables,
-                                                      lens))
+                                                      lens, **kw))
     few = 5 if heavy else 20
     plain = device_ms(torch, lambda: K.paged_attention_reference(
-        q, kp, vp, tables, lens), iters=few)
-    # yardstick: SDPA over K/V already gathered (the gather is not timed)
-    idx = tables.long().clamp(0, nb - 1)
-    kg = kp[idx].permute(0, 2, 1, 3, 4).reshape(n, h, p * bs, d)
-    vg = vp[idx].permute(0, 2, 1, 3, 4).reshape(n, h, p * bs, dv)
-    mask = (torch.arange(p * bs, device=q.device)[None, :] <
-            lens[:, None])[:, None, None, :]
-    qd = q[:, :, None, :].to(kp.dtype)
-    lib = device_ms(torch, lambda: F.scaled_dot_product_attention(
-        qd, kg, vg, attn_mask=mask), iters=few)
-    del kg, vg
+        q, kp, vp, tables, lens, **kw), iters=few)
+    lib = None      # quantized pages: no single PyTorch call
+    if ks is None:
+        # yardstick: SDPA over K/V already gathered (the gather is not
+        # timed)
+        idx = tables.long().clamp(0, nb - 1)
+        kg = kp[idx].permute(0, 2, 1, 3, 4).reshape(n, h, p * bs, d)
+        vg = vp[idx].permute(0, 2, 1, 3, 4).reshape(n, h, p * bs, dv)
+        mask = (torch.arange(p * bs, device=q.device)[None, :] <
+                lens[:, None])[:, None, None, :]
+        qd = q[:, :, None, :].to(kp.dtype)
+        lib = device_ms(torch, lambda: F.scaled_dot_product_attention(
+            qd, kg, vg, attn_mask=mask), iters=few)
+        del kg, vg
     print('%s: max_abs_err %s vs the one-pass and the split plain version '
           '(%s) %s; device ms: kernel %.5f, plain %.5f, SDPA(gathered) '
-          '%.5f, bound %.6f (%s); kernel eager %.5f ms [%s]'
+          '%s, bound %.6f (%s); kernel eager %.5f ms [%s]'
           % (label, ' / '.join('%.3g' % e for e in errs), tol,
-             'ok' if ok else 'MISMATCH', ms, plain, lib, lo, by, eager,
-             card))
+             'ok' if ok else 'MISMATCH', ms, plain,
+             'none (no single PyTorch call)' if lib is None else
+             '%.5f' % lib, lo, by, eager, card))
     require(ok, '%s disagrees with its plain version' % label)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=lo,
                 bound_by=by, library_ms=lib, eager_ms=eager)
@@ -545,6 +600,37 @@ def _paged_row_independence(torch, card, gen):
     print('paged_attention row independence: 6 rows x 2 dtypes bit-equal in '
           'a 16-row batch, alone and inside a 128-row broadcast-table call '
           '[%s]' % card)
+
+
+def _row_tile_check(torch, card, gen):
+    """The LM's products run in fixed ROW_TILE-row tiles
+    (paged_decode_ops._mm) because cuBLAS picks its fp32 algorithm by the
+    row count: rows of torch.matmul at M = 16, 64 and 512 are compared
+    (printed), and _mm's rows must be bit-equal at every M, so a
+    sequence's stream does not depend on the batch, a cache hit or
+    speculation."""
+    from paddle_tpu_torch.ops.paged_decode_ops import ROW_TILE, _mm
+    dev = torch.device('cuda', 0)
+    h = torch.randn(512, 512, generator=gen, device=dev)
+    differ = []
+    for k, n in ((512, 512), (512, 2048), (2048, 512), (512, 32000)):
+        x = h if k == 512 else torch.randn(512, k, generator=gen,
+                                           device=dev)
+        w = torch.randn(k, n, generator=gen, device=dev) / k ** 0.5
+        plain = {m: x[:m] @ w for m in (16, 64, 512)}
+        differ.append('[%d, %d] %s' % (k, n, not (
+            torch.equal(plain[16], plain[64][:16]) and
+            torch.equal(plain[64], plain[512][:64]))))
+        tiled = _mm(x, w)
+        for m in (ROW_TILE, 2 * ROW_TILE):
+            require(torch.equal(_mm(x[:m], w), tiled[:m]),
+                    'row tiles: _mm rows at M=%d differ from M=512' % m)
+        pad = torch.cat([x[:16], x.new_zeros(ROW_TILE - 16, k)])
+        require(torch.equal(_mm(pad, w)[:16], tiled[:16]),
+                'row tiles: a padded 16-row call differs from M=512')
+    print('row tiles: torch.matmul rows differ between M = 16, 64, 512: '
+          '%s; _mm (%d-row tiles) rows bit-equal at every M [%s]'
+          % (', '.join(differ), ROW_TILE, card))
 
 
 def _live_pairs(b, tq, tk, lens, causal):
@@ -860,6 +946,23 @@ def paged_shapes(torch):
     return cases
 
 
+def paged_q8_shapes():
+    """Phase 3's cases of K4's quantized variant, each at int8 and e4m3:
+    (key, label, rows, lengths, d_key, k + 1 rows a sequence). 'engine' is
+    the kernels line's."""
+    engine_lens = np.linspace(64, 576, 16).astype(int).tolist()
+    return [
+        ('engine', 'decode N=16 lens 64..576 (the engine run\'s range)', 16,
+         engine_lens, 64, 0),
+        ('full', 'decode N=16, every row at 2048 tokens', 16, [2048] * 16,
+         64, 0),
+        ('verify', 'verify N=64 (16 sequences x k+1 = 4 rows, lens '
+         '64..579, tables repeated a row)', 16, engine_lens, 64, 4),
+        ('any', 'any-width kernel, d_key 8 (8-byte rows), N=16 lens '
+         '64..576', 16, engine_lens, 8, 0),
+    ]
+
+
 def paged_any_shapes(torch):
     """Phase 3's cases of K4's any-width variant: (label, page dtype, D,
     Dv), each at the decode shape (16 rows, lengths 1..2048, 3 empty)."""
@@ -909,9 +1012,34 @@ def phase_kernels(torch, card):
                 '%s: the any-width kernel did not run' % label)
         del args
         torch.cuda.empty_cache()
+    args = _paged_inputs(torch, gen, 16, paged_shapes(torch)[-1][4],
+                         torch.float32, False, verify=4)
+    pa['verify'] = _paged_case(torch, card, 'paged_attention verify N=64 '
+                               '(16 sequences x k+1 = 4 rows, lens 64..579) '
+                               'float32', *args)
+    del args
+    q8 = {}
+    for kv_dtype in ('int8', 'float8_e4m3fn'):
+        for key, label, n, lens, d, verify in paged_q8_shapes():
+            args = _paged_inputs(torch, gen, n, lens, kv_dtype, False, d=d,
+                                 verify=verify)
+            before = (K.paged_attention.launches_q8,
+                      K.paged_attention.launches_v16)
+            q8[(kv_dtype, key)] = _paged_case(
+                torch, card, 'paged_attention %s %s' % (kv_dtype, label),
+                *args)
+            require(K.paged_attention.launches_q8 > before[0] and
+                    (K.paged_attention.launches_v16 > before[1]) ==
+                    (key != 'any'),
+                    '%s %s: not the quantized %s kernel' %
+                    (kv_dtype, key, 'any-width' if key == 'any'
+                     else '16-byte'))
+            del args
+            torch.cuda.empty_cache()
     _paged_row_independence(torch, card, gen)
+    _row_tile_check(torch, card, gen)
     return (ln[(16, 512, torch.float32)], ln_bwd[(4096, 512, torch.float32)],
-            pa['engine'])
+            pa['engine'], q8)
 
 
 def _bn_case(torch, card, label, x, layout, gen):
@@ -1150,22 +1278,30 @@ def _pct(xs, q):
     return float(np.percentile(np.asarray(xs), q)) if xs else float('nan')
 
 
-def _decode_job(eng, spec, steps=20):
-    """--profile job: a decode step with every batch slot busy (lengths
-    from 300), run on this thread through the shut-down engine's decode
-    program. Returns (label, step, steps, release)."""
+def _decode_job(eng, spec, steps=20, k=0):
+    """--profile job: a decode step (``k`` = 0) or a verify step of k + 1
+    tokens a row with every batch slot busy (lengths from 300), run on this
+    thread through the shut-down engine's programs. Returns (label, step,
+    steps, release)."""
     mb, pps, bs = eng.max_batch, eng.pages_per_seq, eng.block_size
     rng = np.random.RandomState(7)
-    need = -(-(300 + 2 * steps + 8) // bs)
+    need = -(-(300 + 2 * steps + k + 8) // bs)
     tables = np.full((mb, pps), eng.num_blocks, 'int32')
     for i in range(mb):
         tables[i, :need] = eng.pool.alloc(need)
     state = {'tokens': rng.randint(0, spec.vocab_size, mb).astype('int64'),
              'lens': np.full((mb,), 300, 'int32')}
+    drafts = rng.randint(0, spec.vocab_size, (mb, k)).astype('int64')
     zf, zi = np.zeros((mb,), 'float32'), np.zeros((mb,), 'int32')
 
     def step():
-        nxt = eng._run_decode(state['tokens'], state['lens'], tables, zf, zi)
+        if k:
+            tokens = np.concatenate([state['tokens'][:, None], drafts], 1)
+            nxt = eng._run_verify(tokens, state['lens'], tables, zf, zi)
+            nxt = nxt[:, 0]
+        else:
+            nxt = eng._run_decode(state['tokens'], state['lens'], tables,
+                                  zf, zi)
         state['tokens'] = nxt.astype('int64')
         state['lens'] = state['lens'] + 1
 
@@ -1175,8 +1311,11 @@ def _decode_job(eng, spec, steps=20):
         require(eng.free_pages() == eng.num_blocks,
                 'pages leaked after the decode profile')
 
-    return ('%d decode steps x %d rows (lengths 300..%d)'
-            % (steps, mb, 300 + 3 + 2 * steps), step, steps, release)
+    what = 'verify steps (k+1 = %d tokens a row)' % (k + 1) if k else \
+        'decode steps'
+    return ('%d %s x %d rows, %s arenas (lengths 300..%d)'
+            % (steps, what, mb, eng.kv_dtype, 300 + 3 + 2 * steps), step,
+            steps, release)
 
 
 def _family(name):
@@ -1291,23 +1430,41 @@ def profile_steps(torch, card, jobs):
             release()
 
 
-def phase_engine(torch, spec, engine_kw, reqs, place, card, on_card):
-    from paddle_tpu_torch.ops.kernels.layer_norm import fused_layer_norm
-    from paddle_tpu_torch.ops.kernels.paged_attention import paged_attention
-    from paddle_tpu_torch.serving.decode import DecodeEngine, random_weights
+_WEIGHTS = {}
+
+
+def lm_weights(spec):
+    """random_weights(spec, seed 0), made once a spec and shared by every
+    engine of the run."""
+    from paddle_tpu_torch.serving.decode import random_weights
+    key = tuple(sorted(vars(spec).items()))
+    if key not in _WEIGHTS:
+        _WEIGHTS[key] = random_weights(spec, seed=0)
+    return _WEIGHTS[key]
+
+
+def phase_engine(torch, spec, engine_kw, reqs, place, card, on_card,
+                 label='engine', alone=4):
+    """One engine run: build, warmup, ``reqs`` from 16 submitter threads
+    with every launch count at 0 just before; checks and prints; then
+    ``alone`` greedy streams re-run alone. Returns (results, launches,
+    engine, stats)."""
+    from paddle_tpu_torch.serving.decode import DecodeEngine
     t0 = time.perf_counter()
-    weights = random_weights(spec, seed=0)
-    eng = DecodeEngine(spec, place=place, weights=weights, **engine_kw)
+    eng = DecodeEngine(spec, place=place, weights=lm_weights(spec),
+                       **engine_kw)
     t1 = time.perf_counter()
     n_shapes = eng.warmup()
     if on_card:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     t2 = time.perf_counter()
-    print('engine: built + weights %.2f s, warmup %.2f s (%d shapes), '
-          'kv %d B/token, %d pages x %d, place %r'
-          % (t1 - t0, t2 - t1, n_shapes, eng.kv_bytes_per_token,
-             eng.num_blocks, eng.block_size, eng.place))
+    print('%s: built + weights %.2f s, warmup %.2f s (%d shapes), '
+          'kv %s %d B/token, %d pages x %d, prefix cache %s, spec_k %d, '
+          'place %r' % (label, t1 - t0, t2 - t1, n_shapes, eng.kv_dtype,
+                        eng.kv_bytes_per_token, eng.num_blocks,
+                        eng.block_size, eng.prefix_cache is not None,
+                        eng.spec_k, eng.place))
     eng.start()
 
     n_threads = 16
@@ -1342,7 +1499,7 @@ def phase_engine(torch, spec, engine_kw, reqs, place, card, on_card):
 
     # the main path's run: every launch counter starts at 0 here
     reset_launches()
-    pre0, dec0 = eng.prefills, eng.decode_steps
+    steps0 = (eng.prefills, eng.decode_steps, eng.verify_steps)
     t_run = time.perf_counter()
     threads = [threading.Thread(target=client, args=(k,))
                for k in range(n_threads)]
@@ -1351,63 +1508,172 @@ def phase_engine(torch, spec, engine_kw, reqs, place, card, on_card):
     for t in threads:
         t.join(600)
     require(not any(t.is_alive() for t in threads),
-            'submitter threads still running after 600 s')
-    require(eng.drain(60), 'engine did not drain')
+            '%s: submitter threads still running after 600 s' % label)
+    require(eng.drain(60), '%s: engine did not drain' % label)
     wall = time.perf_counter() - t_run
-    launches = {'layer_norm': fused_layer_norm.launches,
-                'paged_attention': paged_attention.launches}
-    runs = (eng.prefills - pre0) + (eng.decode_steps - dec0)
-    require(not errors, 'client errors: %s' % errors[:3])
+    launches = read_launches()
+    steps = [b - a for a, b in zip(steps0, (eng.prefills, eng.decode_steps,
+                                            eng.verify_steps))]
+    runs = sum(steps)
+    require(not errors, '%s: client errors: %s' % (label, errors[:3]))
     require(all(r is not None and len(r) == q['max_new_tokens']
                 for r, q in zip(results, reqs)),
-            'a stream did not complete with max_new_tokens tokens')
+            '%s: a stream did not complete with max_new_tokens tokens'
+            % label)
     require(all(r == 'max_tokens' for r in reasons),
-            'finish reasons %s' % sorted(set(map(str, reasons))))
-    require(eng.free_pages() == eng.num_blocks,
-            'pages not reclaimed after drain: %d of %d free'
-            % (eng.free_pages(), eng.num_blocks))
+            '%s: finish reasons %s' % (label, sorted(set(map(str, reasons)))))
+    cache = eng.prefix_cache
+    held = cache.cached_pages() if cache is not None else 0
+    require(eng.free_pages() + held == eng.num_blocks,
+            '%s: pages not reclaimed after drain: %d free + %d cached of %d'
+            % (label, eng.free_pages(), held, eng.num_blocks))
     n_tok = sum(len(r) for r in results)
     layers = spec.n_layer
-    print('engine run: %d requests, %d tokens in %.3f s: %.1f tokens/s; '
+    stats = dict(tokens_per_s=n_tok / wall, ttft_p50_ms=1e3 * _pct(ttft, 50),
+                 itl_p50_ms=1e3 * _pct(gaps, 50),
+                 itl_p99_ms=1e3 * _pct(gaps, 99), steps=steps)
+    print('%s run: %d requests, %d tokens in %.3f s: %.1f tokens/s; '
           'TTFT p50 %.1f ms; inter-token p50 %.2f ms p99 %.2f ms; '
-          '%d prefills + %d decode steps; %d preemptions [%s]'
-          % (len(reqs), n_tok, wall, n_tok / wall, 1e3 * _pct(ttft, 50),
-             1e3 * _pct(gaps, 50), 1e3 * _pct(gaps, 99),
-             eng.prefills - pre0, eng.decode_steps - dec0,
-             eng.preemptions, card))
+          '%d prefills + %d decode steps + %d verify steps; %d preemptions; '
+          'resident peak %d [%s]'
+          % (label, len(reqs), n_tok, wall, stats['tokens_per_s'],
+             stats['ttft_p50_ms'], stats['itl_p50_ms'], stats['itl_p99_ms'],
+             steps[0], steps[1], steps[2], eng.preemptions,
+             eng.resident_seqs_peak, card))
+    if cache is not None:
+        prompt_tokens = sum(len(q['prompt_ids']) for q in reqs)
+        stats.update(hit_rate=cache.hit_rate(), hits=cache.hits,
+                     tokens_skipped=cache.tokens_reused)
+        print('%s prefix cache: hit rate %.3f (%d hits, %d misses), %d '
+              'prefill tokens skipped of %d prompt tokens, %d pages cached, '
+              '%d evictions' % (label, cache.hit_rate(), cache.hits,
+                                cache.misses, cache.tokens_reused,
+                                prompt_tokens, held, cache.evictions))
+    if eng.spec_k:
+        stats.update(accepted=eng.spec_accepted, spec_rows=eng.spec_rows,
+                     mean_accepted=eng.spec_accepted / max(eng.spec_rows, 1))
+        print('%s speculation: k %d, %d verify steps, %d rows verified, %d '
+              'drafts proposed, %d accepted, mean accepted length %.3f'
+              % (label, eng.spec_k, steps[2], eng.spec_rows,
+                 eng.spec_drafted, eng.spec_accepted,
+                 stats['mean_accepted']))
+    q8 = launches['paged_attention_q8']
     print('launches in the run: layer_norm %d (= 2*%d*%d runs: %s), '
-          'paged_attention %d (= %d*%d runs: %s)'
+          'paged_attention %d (= %d*%d runs: %s), quantized %d'
           % (launches['layer_norm'], layers, runs,
              launches['layer_norm'] == 2 * layers * runs,
              launches['paged_attention'], layers, runs,
-             launches['paged_attention'] == layers * runs))
+             launches['paged_attention'] == layers * runs, q8))
     if on_card:
         print('max_memory_allocated: %.3f GB [%s]'
               % (torch.cuda.max_memory_allocated() / 1e9, card))
         require(launches['layer_norm'] > 0 and
                 launches['paged_attention'] > 0,
-                'a kernel of the path was never launched: %s' % launches)
+                '%s: a kernel of the path was never launched: %s'
+                % (label, launches))
         require(launches['layer_norm'] == 2 * layers * runs and
                 launches['paged_attention'] == layers * runs,
-                'launch counts %s do not match %d prefills + decode steps'
-                % (launches, runs))
+                '%s: launch counts %s do not match %d prefills + decode '
+                'and verify steps' % (label, launches, runs))
+        quantized = eng.kv_dtype in ('int8', 'float8_e4m3fn')
+        require(q8 == (layers * runs if quantized else 0),
+                '%s: %d quantized paged-attention launches, want %d'
+                % (label, q8, layers * runs if quantized else 0))
 
     greedy = [i for i, q in enumerate(reqs) if q['temperature'] == 0.0]
-    for i in greedy[:4]:
-        alone = eng.generate(timeout=120, **reqs[i])
-        require(alone == results[i],
-                'request %d: alone %s != concurrent %s'
-                % (i, alone[:8], results[i][:8]))
-    print('4 greedy streams re-run alone equal their concurrent runs')
+    for i in greedy[:alone]:
+        got = eng.generate(timeout=120, **reqs[i])
+        require(got == results[i],
+                '%s: request %d: alone %s != concurrent %s'
+                % (label, i, got[:8], results[i][:8]))
+    if alone:
+        print('%s: %d greedy streams re-run alone equal their concurrent '
+              'runs' % (label, alone))
     eng.shutdown()
-    require(eng.free_pages() == eng.num_blocks, 'pages leaked after rerun')
-    return results, launches, eng
+    require(eng.free_pages() == eng.num_blocks,
+            '%s: pages leaked after shutdown' % label)
+    return results, launches, eng, stats
+
+
+def _shared_requests(spec, n, sys_len, suffix, cold, max_new, seed=4321):
+    """The prefix cache's traffic: each request shares one ``sys_len``-token
+    system prompt followed by a random suffix of ``suffix`` = (lo, hi)
+    tokens, with probability 0.95; the others are cold prompts of ``cold``
+    = (lo, hi) tokens. One in 8 samples at temperature 0.7."""
+    rng = np.random.RandomState(seed)
+    system = rng.randint(0, spec.vocab_size, sys_len).tolist()
+    reqs, n_shared = [], 0
+    for i in range(n):
+        if rng.rand() < 0.95:
+            n_shared += 1
+            tail = rng.randint(0, spec.vocab_size,
+                               int(rng.randint(suffix[0], suffix[1] + 1)))
+            prompt = system + tail.tolist()
+        else:
+            prompt = rng.randint(0, spec.vocab_size,
+                                 int(rng.randint(cold[0], cold[1] + 1))) \
+                .tolist()
+        reqs.append(dict(prompt_ids=prompt, max_new_tokens=max_new,
+                         temperature=0.7 if i % 8 == 7 else 0.0,
+                         seed=2000 + i))
+    print('shared-prefix traffic: %d of %d requests share the %d-token '
+          'system prompt' % (n_shared, n, sys_len))
+    return reqs
+
+
+def phase_extras(torch, spec, engine_kw, reqs, place, card, on_card):
+    """The decode extras at the same width: shared-prefix traffic served
+    by the plain engine, then with prefix_cache=True and spec_k=3; every
+    stream must be equal between the two, the cache must hit and drafts
+    be accepted. Returns both runs' launch counts, the second run's
+    engine and its stats."""
+    plain, first, eng, base = phase_engine(torch, spec, engine_kw, reqs,
+                                           place, card, on_card,
+                                           label='extras plain', alone=0)
+    del eng
+    got, launches, eng, stats = phase_engine(
+        torch, spec, dict(engine_kw, prefix_cache=True, spec_k=3), reqs,
+        place, card, on_card, label='extras cache+spec', alone=0)
+    diff = [i for i, (a, b) in enumerate(zip(plain, got)) if a != b]
+    require(not diff, 'extras: streams %s differ with the prefix cache and '
+            'speculation on (first: %s vs %s)'
+            % (diff[:5], got[diff[0]][:8] if diff else None,
+               plain[diff[0]][:8] if diff else None))
+    require(stats['hits'] > 0, 'extras: the prefix cache never hit')
+    require(stats['accepted'] > 0, 'extras: no draft was accepted')
+    print('extras: %d streams equal with and without cache + speculation; '
+          'tokens/s %.1f -> %.1f, TTFT p50 %.1f -> %.1f ms, inter-token '
+          'p50 %.2f -> %.2f ms, p99 %.2f -> %.2f ms [%s]'
+          % (len(got), base['tokens_per_s'], stats['tokens_per_s'],
+             base['ttft_p50_ms'], stats['ttft_p50_ms'], base['itl_p50_ms'],
+             stats['itl_p50_ms'], base['itl_p99_ms'], stats['itl_p99_ms'],
+             card))
+    return [first, launches], eng, stats
+
+
+def phase_quantized(torch, spec, engine_kw, reqs, place, card, on_card,
+                    kv_dtype, n_new):
+    """The same traffic at quantized arenas, with the prefix cache and
+    spec_k=3: the run's checks (4 greedy streams alone equal their
+    concurrent runs, every K4 launch on the quantized variant), then the
+    same engine on the host equal to the card. Returns (launches, engine,
+    stats)."""
+    kw = dict(engine_kw, prefix_cache=True, spec_k=3, kv_dtype=kv_dtype)
+    results, launches, eng, stats = phase_engine(
+        torch, spec, kw, reqs, place, card, on_card,
+        label='quantized %s' % kv_dtype)
+    print('quantized %s: kv %d B/token, %.1f tokens/s [%s]'
+          % (kv_dtype, eng.kv_bytes_per_token, stats['tokens_per_s'], card))
+    phase_cpu_compare(spec, reqs, results, engine_kw['block_size'], n_new,
+                      dict(prefix_cache=True, spec_k=3, kv_dtype=kv_dtype))
+    return launches, eng, stats
 
 
 # ------------------------------------------------------------ phase 5
-def phase_cpu_compare(spec, reqs, results, block_size, n_new):
+def phase_cpu_compare(spec, reqs, results, block_size, n_new,
+                      engine_kw=None):
     import paddle_tpu_torch as pt
-    from paddle_tpu_torch.serving.decode import DecodeEngine, random_weights
+    from paddle_tpu_torch.serving.decode import DecodeEngine
     greedy = [i for i, q in enumerate(reqs) if q['temperature'] == 0.0]
     pick = sorted(greedy, key=lambda i: len(reqs[i]['prompt_ids']))[:2]
     longest = max(len(reqs[i]['prompt_ids']) for i in pick) + n_new
@@ -1416,7 +1682,7 @@ def phase_cpu_compare(spec, reqs, results, block_size, n_new):
     eng = DecodeEngine(spec, max_batch=2, block_size=block_size,
                        num_blocks=4 * pages, pages_per_seq=pages,
                        place=pt.CPUPlace(),
-                       weights=random_weights(spec, seed=0))
+                       weights=lm_weights(spec), **(engine_kw or {}))
     eng.start()
     streams = [eng.submit(reqs[i]['prompt_ids'], max_new_tokens=n_new)
                for i in pick]
@@ -1426,9 +1692,10 @@ def phase_cpu_compare(spec, reqs, results, block_size, n_new):
         require(g == results[i][:n_new],
                 'request %d: CPU %s != first run %s'
                 % (i, g, results[i][:n_new]))
-    print('CPUPlace engine (plain versions): %d prompts x %d greedy tokens '
-          'equal the first run\'s streams (%.1f s)'
-          % (len(pick), n_new, time.perf_counter() - t0))
+    print('CPUPlace engine (plain versions, %s): %d prompts x %d greedy '
+          'tokens equal the card run\'s streams (%.1f s)'
+          % (engine_kw or 'plain', len(pick), n_new,
+             time.perf_counter() - t0))
 
 
 # ------------------------------------------------------- phases 6-8
@@ -1810,9 +2077,10 @@ def main():
                          'the plain versions')
     ap.add_argument('--profile', action='store_true',
                     help='after every other phase, profile 20 decode '
-                         'steps with every slot busy, 5 Transformer and 5 '
-                         'ResNet-50 training steps (torch.profiler) and '
-                         'print where the time goes')
+                         'steps with every slot busy (fp32 and int8 '
+                         'arenas), 20 verify steps (k = 3), 5 Transformer '
+                         'and 5 ResNet-50 training steps (torch.profiler) '
+                         'and print where the time goes')
     ap.add_argument('--kernels-only', action='store_true',
                     help='stop after phase 3 (kernels against their plain '
                          'versions, and their times); prints no verdict')
@@ -1830,11 +2098,19 @@ def main():
         spec = LMSpec(vocab_size=60, n_layer=2, n_head=2, d_key=8,
                       d_value=8, d_model=16, d_inner=32)
         reqs = _requests(spec, 32, 1, 9, 6)
-        results, _, _ = phase_engine(
+        host = 'host CPU, rehearsal'
+        results, _, _, _ = phase_engine(
             torch, spec, dict(max_batch=4, block_size=4, num_blocks=64,
                               pages_per_seq=4),
-            reqs, pt.CPUPlace(), 'host CPU, rehearsal', False)
+            reqs, pt.CPUPlace(), host, False)
         phase_cpu_compare(spec, reqs, results, 4, 4)
+        geom = dict(max_batch=4, block_size=4, num_blocks=96,
+                    pages_per_seq=16)
+        shared = _shared_requests(spec, 32, 32, (4, 16), (8, 32), 6)
+        phase_extras(torch, spec, geom, shared, pt.CPUPlace(), host, False)
+        for kv_dtype in ('int8', 'float8_e4m3fn'):
+            phase_quantized(torch, spec, geom, shared, pt.CPUPlace(), host,
+                            False, kv_dtype, 4)
         tiny = dict(n_layer=2, n_head=2, d_key=8, d_value=8, d_model=16,
                     d_inner=32)
         phase_train(torch, pt, pt.CPUPlace(), 'host CPU, rehearsal', False,
@@ -1849,28 +2125,55 @@ def main():
         print('cpu rehearsal ok in %.1f s' % (time.perf_counter() - t_start))
         return
 
+    def done(phase):
+        print('phase %s done at %.1f s' % (phase, time.perf_counter() -
+                                           t_start))
+
     name, count, card = phase_device(torch)
     phase_build()
-    ln, ln_bwd, pa = phase_kernels(torch, card)
+    done('2 (build)')
+    ln, ln_bwd, pa, q8 = phase_kernels(torch, card)
+    done('3 (K1, K4)')
     fa_fwd, fa_bwd = phase_flash_kernels(torch, card)
     bn, bn_bwd = phase_bn_kernels(torch, card)
+    done('3 (K2, K3, K5)')
     if args.kernels_only:
-        print('kernels only: K1, K4, K2, K3 and K5 and the K1 and K5 '
-              'backward kernels agree with their plain versions; no '
-              'verdict. total %.1f s' % (time.perf_counter() - t_start))
+        print('kernels only: K1, K4 (and its quantized variant), K2, K3 and '
+              'K5 and the K1 and K5 backward kernels agree with their plain '
+              'versions; no verdict. total %.1f s'
+              % (time.perf_counter() - t_start))
         return
     spec = LMSpec(vocab_size=32000, n_layer=12, n_head=8, d_key=64,
                   d_value=64, d_model=512, d_inner=2048)
+    geom = dict(max_batch=16, block_size=32, num_blocks=4096,
+                pages_per_seq=64)
     reqs = _requests(spec, 32, 64, 512, 64)
-    results, launches, eng = phase_engine(
-        torch, spec, dict(max_batch=16, block_size=32, num_blocks=4096,
-                          pages_per_seq=64),
-        reqs, pt.CUDAPlace(0), card, True)
+    results, launches, eng, _ = phase_engine(torch, spec, geom, reqs,
+                                             pt.CUDAPlace(0), card, True)
     phase_cpu_compare(spec, reqs, results, 32, 16)
-    # the engine (and its 6.4 GB of arenas) stays only for --profile
-    decode_job = _decode_job(eng, spec) if args.profile else None
+    done('4-5 (engine, card vs host)')
+    # each engine (fp32: 6.4 GB of arenas) stays only for --profile
+    jobs = [_decode_job(eng, spec)] if args.profile else []
     del eng
     torch.cuda.empty_cache()
+    shared = _shared_requests(spec, 32, 256, (16, 256), (64, 512), 64)
+    extras, eng, _ = phase_extras(torch, spec, geom, shared,
+                                  pt.CUDAPlace(0), card, True)
+    if args.profile:
+        jobs.append(_decode_job(eng, spec, k=3))
+    del eng
+    torch.cuda.empty_cache()
+    done('5a (extras)')
+    quant = {}
+    for kv_dtype in ('int8', 'float8_e4m3fn'):
+        quant[kv_dtype], eng, _ = phase_quantized(
+            torch, spec, geom, shared, pt.CUDAPlace(0), card, True, kv_dtype,
+            16)
+        if args.profile and kv_dtype == 'int8':
+            jobs.append(_decode_job(eng, spec))
+        del eng
+        torch.cuda.empty_cache()
+    done('5b (int8, fp8)')
     base = dict(n_layer=6, n_head=8, d_key=64, d_value=64, d_model=512,
                 d_inner=2048)
     train, train_job = phase_train(torch, pt, pt.CUDAPlace(0), card, True,
@@ -1886,14 +2189,19 @@ def main():
                                       64, 224, 1000)
     torch.cuda.empty_cache()
     phase_resnet_compare(torch, pt, (pt.CUDAPlace(0), pt.CPUPlace()))
+    done('6-10 (training)')
     if args.profile:
-        profile_steps(torch, card, [decode_job, train_job, resnet_job])
+        profile_steps(torch, card, jobs + [train_job, resnet_job])
 
-    # launches: the sum over the main paths' runs (the engine run, the
-    # timed Transformer, masked Transformer and ResNet-50 training steps),
-    # each read after its counts were set to 0
+    # launches: the sum over the main paths' runs (the engine runs: plain,
+    # extras plain and with cache + speculation, int8 and fp8; the timed
+    # Transformer, masked Transformer and ResNet-50 training steps), each
+    # read after its counts were set to 0
+    main_runs = [launches] + extras + list(quant.values()) + \
+        [train, masked, resnet]
+
     def runs(key):
-        return sum(r.get(key, 0) for r in (launches, train, masked, resnet))
+        return sum(r.get(key, 0) for r in main_runs)
 
     kernels = [
         dict(name='layer_norm', route='cuda',
@@ -1907,7 +2215,18 @@ def main():
         dict(name='paged_attention', route='cuda',
              source='paddle_tpu_torch/csrc/paged_attention.cu',
              replaces='paddle_tpu/ops/pallas/paged_attention.py:86',
-             launches=runs('paged_attention'), **pa),
+             launches=runs('paged_attention') - runs('paged_attention_q8'),
+             **pa),
+        dict(name='paged_attention_int8', route='cuda',
+             source='paddle_tpu_torch/csrc/paged_attention.cu',
+             replaces='paddle_tpu/ops/pallas/paged_attention.py:50',
+             launches=quant['int8']['paged_attention_q8'],
+             **q8[('int8', 'engine')]),
+        dict(name='paged_attention_fp8', route='cuda',
+             source='paddle_tpu_torch/csrc/paged_attention.cu',
+             replaces='paddle_tpu/ops/pallas/paged_attention.py:50',
+             launches=quant['float8_e4m3fn']['paged_attention_q8'],
+             **q8[('float8_e4m3fn', 'engine')]),
         dict(name='flash_attention_fwd', route='cuda',
              source='paddle_tpu_torch/csrc/flash_attention.cu',
              replaces='paddle_tpu/ops/pallas/flash_attention.py:141',

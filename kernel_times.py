@@ -1,18 +1,25 @@
 #!/usr/bin/env python3
 """Device times of the layer norm (K1) and its backward, paged attention
-(K4), the flash-attention forward (K2) and backward (K3) and the training
+(K4, and its quantized variant at int8 and e4m3), the flash-attention
+forward (K2) and backward (K3) and the training
 batch norm (K5) and its backward of one checkout of this repository, at
 chip_smoke.py's phase-3 shapes, and SDPA's backward beside K3 (the same
 inputs and mask, whatever the checkout). A kernel the checkout does not
 have (a backward kernel before it was written) is reported as such.
 
-    python3 kernel_times.py [DIR]    # on a machine with one CUDA card
+    python3 kernel_times.py [DIR]           # on a machine with one CUDA card
+    python3 kernel_times.py [DIR] --decode  # the decode step instead
 
 DIR (default: this checkout) holds the ``paddle_tpu_torch`` package to
 time; the shapes, the inputs and the timer (CUDA-graph replay, CUDA events)
 are this checkout's chip_smoke.py's. To compare two commits, unpack the
 earlier one (``git archive <commit> | tar -x -C DIR``) and run both back to
 back on the same card, each twice: earlier, this, this, earlier.
+
+With --decode, it builds DIR's DecodeEngine at chip_smoke.py's full width
+(fp32 arenas) and profiles 20 decode steps with every slot busy, as
+chip_smoke.py --profile does (wall, device busy, launches a step), in
+place of the kernel cases.
 
 Nothing is checked here: chip_smoke.py holds each kernel against its plain
 versions. Prints one line a case, then nvidia-smi's name and power limit,
@@ -27,8 +34,22 @@ import sys
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
+def decode_step(torch, smoke, card):
+    """Profile DIR's decode step at chip_smoke.py's engine width."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.serving.decode import DecodeEngine, LMSpec
+    spec = LMSpec(vocab_size=32000, n_layer=12, n_head=8, d_key=64,
+                  d_value=64, d_model=512, d_inner=2048)
+    eng = DecodeEngine(spec, max_batch=16, block_size=32, num_blocks=4096,
+                       pages_per_seq=64, place=pt.CUDAPlace(0),
+                       weights=smoke.lm_weights(spec))
+    eng.warmup()
+    smoke.profile_steps(torch, card, [smoke._decode_job(eng, spec)])
+
+
 def main():
-    port = os.path.abspath(sys.argv[1]) if len(sys.argv) > 1 else REPO
+    args = [a for a in sys.argv[1:] if a != '--decode']
+    port = os.path.abspath(args[0]) if args else REPO
     sys.path.insert(0, REPO)
     import chip_smoke as smoke
     sys.path.insert(0, port)
@@ -47,6 +68,10 @@ def main():
         ['nvidia-smi', '--query-gpu=name,power.limit',
          '--format=csv,noheader'], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()[0].strip()
+    if '--decode' in sys.argv:
+        decode_step(torch, smoke, card)
+        print(card)
+        return
     dev = torch.device('cuda', 0)
     ms = {}
 
@@ -79,6 +104,27 @@ def main():
         print('%s: kernel %.5f ms [%s]' % (label, ms[label], card))
         del args
         torch.cuda.empty_cache()
+    engine_lens = smoke.paged_shapes(torch)[-1][4]
+    args = smoke._paged_inputs(torch, gen, 16, engine_lens, torch.float32,
+                               False, verify=4)
+    label = 'paged_attention verify N=64 float32'
+    ms[label] = smoke.device_ms(torch, lambda: pa.paged_attention(*args))
+    print('%s: kernel %.5f ms [%s]' % (label, ms[label], card))
+    del args
+    if hasattr(pa.paged_attention, 'launches_q8'):
+        for kv_dtype in ('int8', 'float8_e4m3fn'):
+            for _, what, n, lens, d, verify in smoke.paged_q8_shapes():
+                q, kq, vq, t, sl, ks, vs = smoke._paged_inputs(
+                    torch, gen, n, lens, kv_dtype, False, d=d, verify=verify)
+                label = 'paged_attention %s %s' % (kv_dtype, what)
+                ms[label] = smoke.device_ms(
+                    torch, lambda: pa.paged_attention(
+                        q, kq, vq, t, sl, k_scales=ks, v_scales=vs))
+                print('%s: kernel %.5f ms [%s]' % (label, ms[label], card))
+                del q, kq, vq, t, sl, ks, vs
+                torch.cuda.empty_cache()
+    else:
+        print('paged_attention: no quantized variant in this checkout')
 
     gen = torch.Generator(device='cuda').manual_seed(1)
     for label, b, h, t, d, dtype, causal, lens in smoke.flash_shapes(torch):

@@ -9,6 +9,8 @@ namespace ptt {
 // dtype codes passed through the plain C interface
 constexpr int kFloat32 = 0;
 constexpr int kBFloat16 = 1;
+constexpr int kInt8 = 2;          // quantized KV pages (paged attention)
+constexpr int kFloat8E4M3 = 3;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {

@@ -59,21 +59,42 @@
 //    d_key 30), rows wider than 512 bytes, and Dv up to 256 (kMaxAnyDim;
 //    so is D). A warp still owns a page at a time, but takes one key at a
 //    time with all 32 lanes: lane j loads elements [(32 i + j) E, +E) of
-//    the row for i = 0, 1, ..., with the widest load (8, 4 or 2 bytes, E
-//    elements) that divides both row widths and both arenas' alignment.
+//    the row for i = 0, 1, ..., with the widest load (8, 4, 2 or, for
+//    one-byte pages, 1 byte: E elements) that divides both row widths and
+//    both arenas' alignment.
 //    Keys go in tiles of 8 for the online softmax; no load is started
 //    ahead. It reads the same bytes as the 16-byte kernel and keeps the
 //    fixed 256-token chunk, so a row's bits still do not depend on its
 //    batch. Speed was not its aim: shapes that reach it are off every
 //    main path.
 //
+// 4. Quantized arenas (int8, or e4m3 fp8): both split kernels also take a
+//    storage type of one byte, with the per-row fp32 scale arenas
+//    [NB, H, bs] indexed (phys * H + head) * bs + slot. Its reference is the
+//    gather path paged_attention_reference of the same file (the Pallas
+//    kernel never sees int8 or fp8 pages): there every K and V element is
+//    dequantized to fp32 (float(v) * scale[row]) before the attention math.
+//    Here the same product is taken in registers as each 16 bytes (16
+//    elements) arrive, so the bytes read stay one a element: at the
+//    engine's shape (d 64) a key row is 64 bytes plus its 4-byte scale,
+//    against 256 bytes at fp32. An int8 row is read as int8_t, an e4m3 row
+//    as __nv_fp8_e4m3 (through f16, exact). p is not rounded: the reference
+//    dequantizes to fp32 first, so its p.v is fp32 throughout. The 16-byte
+//    kernel's tile of 8 loads then spans 64 keys, so a 32-token page fills
+//    half of it; the loads past the page are skipped.
+//
 // Numerics are the Pallas kernel's: scale applied to q; masked columns at
 // -1e9 with p = 0; fp32 m, l and acc; p rounded to the page dtype before
-// p.v; fp32 output. No atomics on floats anywhere.
+// p.v (not for quantized pages, as above); fp32 output. No atomics on floats
+// anywhere.
 //
 // Still left: several heads a block to share the table walk, the tensor
 // cores for the prefill's many rows against one table, and fusing the merge
 // into the split kernel's tail for rows with a single live split.
+
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
+#include <stdint.h>
 
 #include "common.cuh"
 
@@ -122,13 +143,87 @@ struct Vec16<__nv_bfloat16> {
   }
 };
 
+// one byte a element: 16 int8 values, sign-extended
+template <>
+struct Vec16<int8_t> {
+  static constexpr int E = 16;
+  static __device__ __forceinline__ void unpack(const uint4& u, float* f) {
+    const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+        f[4 * k + b] = static_cast<float>(
+            static_cast<int>(w[k] << (24 - 8 * b)) >> 24);
+  }
+};
+
+// two e4m3 values (low byte first) as fp32, through f16: both exact
+__device__ __forceinline__ float2 fp8x2_to_float2(unsigned v) {
+  const __half2_raw r = __nv_cvt_fp8x2_to_halfraw2(
+      static_cast<__nv_fp8x2_storage_t>(v & 0xffffu), __NV_E4M3);
+  return __half22float2(__half2(r));
+}
+
+template <>
+struct Vec16<__nv_fp8_e4m3> {
+  static constexpr int E = 16;
+  static __device__ __forceinline__ void unpack(const uint4& u, float* f) {
+    const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float2 lo = fp8x2_to_float2(w[k]);
+      const float2 hi = fp8x2_to_float2(w[k] >> 16);
+      f[4 * k] = lo.x;
+      f[4 * k + 1] = lo.y;
+      f[4 * k + 2] = hi.x;
+      f[4 * k + 3] = hi.y;
+    }
+  }
+};
+
+__device__ __forceinline__ float to_f32(int8_t v) {
+  return static_cast<float>(v);
+}
+__device__ __forceinline__ float to_f32(__nv_fp8_e4m3 v) {
+  return static_cast<float>(v);
+}
+
+// a one-byte storage type carries a per-row fp32 scale beside its pages
+template <typename T>
+struct Quantized {
+  static constexpr bool value = false;
+};
+template <>
+struct Quantized<int8_t> {
+  static constexpr bool value = true;
+};
+template <>
+struct Quantized<__nv_fp8_e4m3> {
+  static constexpr bool value = true;
+};
+
+// p as p.v takes it: rounded to the page dtype, or fp32 for quantized pages
+template <typename T>
+__device__ __forceinline__ float round_p(float v) {
+  if constexpr (Quantized<T>::value) {
+    return v;
+  } else {
+    return round_as<T>(v);
+  }
+}
+
 // One tile of one page into registers: load i covers keys off + i * kpi + g
 // (g the lane's key group), elements [j * E, j * E + E) of each. Keys at or
 // past `live` (the page's live keys) and lanes past the row's width load
 // nothing and hold zeros.
+// For quantized pages `scl` holds the key's row scales: scl[i] is the scale
+// of load i's key (0 past `live`).
 template <typename T>
 __device__ __forceinline__ void load_tile_regs(uint4 (&buf)[kTileLoads],
+                                               float (&scl)[kTileLoads],
                                                const T* __restrict__ page,
+                                               const float* __restrict__ rs,
                                                int width, int off, int live,
                                                int kpi, int g, int j) {
   constexpr int E = Vec16<T>::E;
@@ -142,6 +237,8 @@ __device__ __forceinline__ void load_tile_regs(uint4 (&buf)[kTileLoads],
     } else {
       buf[i] = make_uint4(0u, 0u, 0u, 0u);
     }
+    if constexpr (Quantized<T>::value)
+      scl[i] = key < live ? __ldg(rs + key) : 0.f;
   }
 }
 
@@ -150,11 +247,14 @@ __global__ void __launch_bounds__(kPagedThreads)
     paged_split_kernel(const float* __restrict__ q,
                        const T* __restrict__ k_pages,
                        const T* __restrict__ v_pages,
+                       const float* __restrict__ k_scales,
+                       const float* __restrict__ v_scales,
                        const int* __restrict__ tables, long long table_stride,
                        const int* __restrict__ lens, float* __restrict__ ws,
                        int h, int nb, int bs, int d, int dv, int p, int lanes,
                        float scale) {
   constexpr int E = Vec16<T>::E;
+  constexpr bool Q = Quantized<T>::value;
   __shared__ float sm_m[kPagedWarps];
   __shared__ float sm_l[kPagedWarps];
   __shared__ float sm_acc[kPagedWarps][kMaxDv];
@@ -205,6 +305,7 @@ __global__ void __launch_bounds__(kPagedThreads)
   for (int e = 0; e < E; ++e) acc[e] = 0.f;
 
   uint4 kbuf[kTileLoads], vbuf[kTileLoads];
+  float ksc[kTileLoads], vsc[kTileLoads];  // row scales (quantized pages)
   int page = my_first;
   int tile = 0;  // tile of the page
   int phys = 0;
@@ -213,8 +314,10 @@ __global__ void __launch_bounds__(kPagedThreads)
     phys = phys < 0 ? 0 : (phys > nb - 1 ? nb - 1 : phys);
     const size_t base = ((size_t)phys * h + head) * bs;
     const int live = min(bs, len - page * bs);
-    load_tile_regs<T>(kbuf, k_pages + base * d, d, 0, live, kpi, g, j);
-    load_tile_regs<T>(vbuf, v_pages + base * dv, dv, 0, live, kpi, g, j);
+    load_tile_regs<T>(kbuf, ksc, k_pages + base * d, Q ? k_scales + base : 0,
+                      d, 0, live, kpi, g, j);
+    load_tile_regs<T>(vbuf, vsc, v_pages + base * dv,
+                      Q ? v_scales + base : 0, dv, 0, live, kpi, g, j);
   }
   for (int t = 0; t < n_items; ++t) {
     const int off = tile * tk;
@@ -240,6 +343,10 @@ __global__ void __launch_bounds__(kPagedThreads)
     for (int i = 0; i < kTileLoads; ++i) {
       float kf[E];
       Vec16<T>::unpack(kbuf[i], kf);
+      if constexpr (Q) {
+#pragma unroll
+        for (int e = 0; e < E; ++e) kf[e] = __fmul_rn(kf[e], ksc[i]);
+      }
       float s = 0.f;
 #pragma unroll
       for (int e = 0; e < E; ++e) s = fmaf(qs[e], kf[e], s);
@@ -249,7 +356,8 @@ __global__ void __launch_bounds__(kPagedThreads)
       mx = fmaxf(mx, sc[i]);
     }
     if (more)
-      load_tile_regs<T>(kbuf, k_pages + nbase * d, d, ntile * tk, nlive, kpi,
+      load_tile_regs<T>(kbuf, ksc, k_pages + nbase * d,
+                        Q ? k_scales + nbase : 0, d, ntile * tk, nlive, kpi,
                         g, j);
     for (int o = 16; o >= lanes; o >>= 1)
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
@@ -261,7 +369,7 @@ __global__ void __launch_bounds__(kPagedThreads)
       const float pr =
           off + i * kpi + g < live ? expf(sc[i] - mnext) : 0.f;
       lsum += pr;
-      sc[i] = round_as<T>(pr);
+      sc[i] = round_p<T>(pr);
     }
     // every lane of a key holds its p: count each key once
     for (int o = 16; o >= lanes; o >>= 1)
@@ -274,12 +382,17 @@ __global__ void __launch_bounds__(kPagedThreads)
     for (int i = 0; i < kTileLoads; ++i) {
       float vf[E];
       Vec16<T>::unpack(vbuf[i], vf);
+      if constexpr (Q) {
+#pragma unroll
+        for (int e = 0; e < E; ++e) vf[e] = __fmul_rn(vf[e], vsc[i]);
+      }
 #pragma unroll
       for (int e = 0; e < E; ++e) acc[e] = fmaf(sc[i], vf[e], acc[e]);
     }
     if (more)
-      load_tile_regs<T>(vbuf, v_pages + nbase * dv, dv, ntile * tk, nlive,
-                        kpi, g, j);
+      load_tile_regs<T>(vbuf, vsc, v_pages + nbase * dv,
+                        Q ? v_scales + nbase : 0, dv, ntile * tk, nlive, kpi,
+                        g, j);
     page = npage;
     tile = ntile;
     phys = nphys;
@@ -325,7 +438,7 @@ __global__ void __launch_bounds__(kPagedThreads)
 }
 
 // ---------------------------------------------- rows of any width
-// One load of U (8, 4 or 2 bytes) as E fp32 values
+// One load of U (8, 4, 2 or 1 bytes) as E fp32 values
 template <typename T, typename U>
 __device__ __forceinline__ void unpack_any(const U& u, float* f) {
   constexpr int E = sizeof(U) / sizeof(T);
@@ -339,6 +452,8 @@ __global__ void __launch_bounds__(kPagedThreads)
     paged_split_any_kernel(const float* __restrict__ q,
                            const T* __restrict__ k_pages,
                            const T* __restrict__ v_pages,
+                           const float* __restrict__ k_scales,
+                           const float* __restrict__ v_scales,
                            const int* __restrict__ tables,
                            long long table_stride,
                            const int* __restrict__ lens,
@@ -346,6 +461,7 @@ __global__ void __launch_bounds__(kPagedThreads)
                            int d, int dv, int p, float scale) {
   constexpr int E = sizeof(U) / sizeof(T);       // elements a load
   constexpr int NC = kMaxAnyDim / (32 * E);      // loads a lane, at most
+  constexpr bool Q = Quantized<T>::value;
   __shared__ float sm_m[kPagedWarps];
   __shared__ float sm_l[kPagedWarps];
   __shared__ float sm_acc[kPagedWarps][kMaxAnyDim];
@@ -390,6 +506,7 @@ __global__ void __launch_bounds__(kPagedThreads)
         float sv = 0.f;
         if (key < live) {
           const T* kr = k_pages + (base + key) * d;
+          const float ks = Q ? __ldg(k_scales + base + key) : 1.f;
 #pragma unroll
           for (int ch = 0; ch < NC; ++ch) {
             const int c0 = (32 * ch + lane) * E;
@@ -397,6 +514,10 @@ __global__ void __launch_bounds__(kPagedThreads)
               float kf[E];
               unpack_any<T, U>(__ldg(reinterpret_cast<const U*>(kr + c0)),
                                kf);
+              if constexpr (Q) {
+#pragma unroll
+                for (int e = 0; e < E; ++e) kf[e] = __fmul_rn(kf[e], ks);
+              }
 #pragma unroll
               for (int e = 0; e < E; ++e) sv = fmaf(qs[ch][e], kf[e], sv);
             }
@@ -413,7 +534,7 @@ __global__ void __launch_bounds__(kPagedThreads)
       for (int i = 0; i < kAnyKeys; ++i) {
         const float pr = k0 + i < live ? expf(sc[i] - mnext) : 0.f;
         lsum += pr;
-        sc[i] = round_as<T>(pr);
+        sc[i] = round_p<T>(pr);
       }
       l = alpha * l + lsum;
       m = mnext;
@@ -425,6 +546,7 @@ __global__ void __launch_bounds__(kPagedThreads)
       for (int i = 0; i < kAnyKeys; ++i) {
         if (k0 + i < live) {
           const T* vr = v_pages + (base + k0 + i) * dv;
+          const float vs = Q ? __ldg(v_scales + base + k0 + i) : 1.f;
 #pragma unroll
           for (int ch = 0; ch < NC; ++ch) {
             const int c0 = (32 * ch + lane) * E;
@@ -432,6 +554,10 @@ __global__ void __launch_bounds__(kPagedThreads)
               float vf[E];
               unpack_any<T, U>(__ldg(reinterpret_cast<const U*>(vr + c0)),
                                vf);
+              if constexpr (Q) {
+#pragma unroll
+                for (int e = 0; e < E; ++e) vf[e] = __fmul_rn(vf[e], vs);
+              }
 #pragma unroll
               for (int e = 0; e < E; ++e)
                 acc[ch][e] = fmaf(sc[i], vf[e], acc[ch][e]);
@@ -521,48 +647,93 @@ inline int any_load_bytes(int d, int dv, int item, const void* kp,
 
 template <typename T, typename U>
 void launch_any(const float* q, const void* kp, const void* vp,
-                const int* tables, long long table_stride, const int* lens,
-                float* ws, int n, int h, int nb, int bs, int d, int dv,
-                int p, int nz, float scale, cudaStream_t s) {
+                const float* ks, const float* vs, const int* tables,
+                long long table_stride, const int* lens, float* ws, int n,
+                int h, int nb, int bs, int d, int dv, int p, int nz,
+                float scale, cudaStream_t s) {
   paged_split_any_kernel<T, U><<<dim3(h, n, nz), kPagedThreads, 0, s>>>(
-      q, static_cast<const T*>(kp), static_cast<const T*>(vp), tables,
-      table_stride, lens, ws, h, nb, bs, d, dv, p, scale);
+      q, static_cast<const T*>(kp), static_cast<const T*>(vp), ks, vs,
+      tables, table_stride, lens, ws, h, nb, bs, d, dv, p, scale);
+}
+
+// the any-width kernel of storage type T at the widest load of w bytes
+template <typename T>
+void launch_any_width(int w, const float* q, const void* kp, const void* vp,
+                      const float* ks, const float* vs, const int* tables,
+                      long long table_stride, const int* lens, float* ws,
+                      int n, int h, int nb, int bs, int d, int dv, int p,
+                      int nz, float scale, cudaStream_t s) {
+#define PTT_ANY(U)                                                          \
+  launch_any<T, U>(q, kp, vp, ks, vs, tables, table_stride, lens, ws, n, h, \
+                   nb, bs, d, dv, p, nz, scale, s)
+  // a load of U holds whole elements: no U narrower than T is instantiated
+  if (w == 8) {
+    PTT_ANY(uint2);
+  } else if constexpr (sizeof(T) == 4) {
+    PTT_ANY(unsigned);
+  } else if (w == 4) {
+    PTT_ANY(unsigned);
+  } else if constexpr (sizeof(T) == 2) {
+    PTT_ANY(unsigned short);
+  } else if (w == 2) {
+    PTT_ANY(unsigned short);
+  } else {
+    PTT_ANY(unsigned char);
+  }
+#undef PTT_ANY
+}
+
+template <typename T>
+void launch_v16(const float* q, const void* kp, const void* vp,
+                const float* ks, const float* vs, const int* tables,
+                long long table_stride, const int* lens, float* ws, int n,
+                int h, int nb, int bs, int d, int dv, int p, int nz,
+                int lanes, float scale, cudaStream_t s) {
+  paged_split_kernel<T><<<dim3(h, n, nz), kPagedThreads, 0, s>>>(
+      q, static_cast<const T*>(kp), static_cast<const T*>(vp), ks, vs,
+      tables, table_stride, lens, ws, h, nb, bs, d, dv, p, lanes, scale);
 }
 
 }  // namespace ptt
 
 // q: [n, h, d] fp32; k_pages: [nb, h, bs, d], v_pages: [nb, h, bs, dv], fp32
-// (dtype 0) or bf16 (dtype 1), d and dv at most 256; tables: int32, row r
-// at tables + r * table_stride, p entries; lens: [n] int32; workspace: fp32
+// (dtype 0), bf16 (1), int8 (2) or e4m3 fp8 (3), d and dv at most 256; for
+// int8 and fp8, k_scales and v_scales: fp32 [nb, h, bs], one scale a stored
+// row (ignored for fp32 and bf16); tables: int32, row r at tables + r *
+// table_stride, p entries; lens: [n] int32; workspace: fp32
 // [n, h, nz, dv + 2] with nz = ceil(p / chunk_pages(bs)) (the wrapper sizes
 // it with the same constant; another nz is refused), never read where not
 // written; out: [n, h, dv] fp32; n <= 65535. The 16-byte kernel takes rows
 // that are multiples of 16 bytes, at most 512 bytes, dv <= 128, in 16-byte
 // aligned arenas; every other row takes the any-width kernel. Sets
-// *launched to 1 (16-byte split kernel) or 2 (any-width split kernel), and
-// 0 where nothing was launched. Returns cudaGetLastError(), or
-// cudaErrorInvalidValue for what no kernel takes.
+// *launched to 1 (16-byte split kernel) or 2 (any-width split kernel), plus
+// 2 for quantized pages (3, 4), and 0 where nothing was launched. Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for what no kernel takes.
 extern "C" int ptt_paged_attention(const void* q, const void* k_pages,
-                                   const void* v_pages, const void* tables,
+                                   const void* v_pages, const void* k_scales,
+                                   const void* v_scales, const void* tables,
                                    long long table_stride, const void* lens,
                                    void* workspace, void* out, int n, int h,
                                    int nb, int bs, int d, int dv, int p,
                                    int nz, float scale, int dtype,
                                    int* launched, void* stream) {
   *launched = 0;
-  if (dtype != ptt::kFloat32 && dtype != ptt::kBFloat16)
+  if (dtype < ptt::kFloat32 || dtype > ptt::kFloat8E4M3)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int item = dtype == ptt::kFloat32 ? 4 : 2;
+  const bool quant = dtype == ptt::kInt8 || dtype == ptt::kFloat8E4M3;
+  const int item = dtype == ptt::kFloat32 ? 4 : (quant ? 1 : 2);
   const int wide = (d > dv ? d : dv) * item;
   if (n < 1 || h < 1 || nb < 1 || bs < 1 || d < 1 || dv < 1 || p < 1 ||
-      d > ptt::kMaxAnyDim || dv > ptt::kMaxAnyDim || n > 65535)
+      d > ptt::kMaxAnyDim || dv > ptt::kMaxAnyDim || n > 65535 ||
+      (quant && (k_scales == nullptr || v_scales == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   const int cpages = ptt::chunk_pages(bs);
   if (nz != (p + cpages - 1) / cpages || nz > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(h, n, nz);
   const float* qf = static_cast<const float*>(q);
+  const float* ks = static_cast<const float*>(k_scales);
+  const float* vs = static_cast<const float*>(v_scales);
   const int* tb = static_cast<const int*>(tables);
   const int* ln = static_cast<const int*>(lens);
   float* ws = static_cast<float*>(workspace);
@@ -571,35 +742,30 @@ extern "C" int ptt_paged_attention(const void* q, const void* k_pages,
                    reinterpret_cast<size_t>(k_pages) % 16 == 0 &&
                    reinterpret_cast<size_t>(v_pages) % 16 == 0;
   const int lanes = ptt::pow2_ceil(wide / 16);  // the 16-byte kernel's
+  using B = __nv_bfloat16;
+  using F8 = __nv_fp8_e4m3;
   if (!v16) {
     const int w = ptt::any_load_bytes(d, dv, item, k_pages, v_pages);
-    using B = __nv_bfloat16;
-#define PTT_ANY(T, U)                                                      \
-  ptt::launch_any<T, U>(qf, k_pages, v_pages, tb, table_stride, ln, ws, n, \
-                        h, nb, bs, d, dv, p, nz, scale, s)
-    if (dtype == ptt::kFloat32) {
-      if (w == 8) PTT_ANY(float, uint2);
-      else PTT_ANY(float, unsigned);
-    } else {
-      if (w == 8) PTT_ANY(B, uint2);
-      else if (w == 4) PTT_ANY(B, unsigned);
-      else PTT_ANY(B, unsigned short);
-    }
+#define PTT_ANY(T)                                                        \
+  ptt::launch_any_width<T>(w, qf, k_pages, v_pages, ks, vs, tb,           \
+                           table_stride, ln, ws, n, h, nb, bs, d, dv, p,  \
+                           nz, scale, s)
+    if (dtype == ptt::kFloat32) PTT_ANY(float);
+    else if (dtype == ptt::kBFloat16) PTT_ANY(B);
+    else if (dtype == ptt::kInt8) PTT_ANY(int8_t);
+    else PTT_ANY(F8);
 #undef PTT_ANY
-    *launched = 2;
-  } else if (dtype == ptt::kFloat32) {
-    ptt::paged_split_kernel<float><<<grid, ptt::kPagedThreads, 0, s>>>(
-        qf, static_cast<const float*>(k_pages),
-        static_cast<const float*>(v_pages), tb, table_stride, ln, ws, h, nb,
-        bs, d, dv, p, lanes, scale);
   } else {
-    ptt::paged_split_kernel<__nv_bfloat16>
-        <<<grid, ptt::kPagedThreads, 0, s>>>(
-            qf, static_cast<const __nv_bfloat16*>(k_pages),
-            static_cast<const __nv_bfloat16*>(v_pages), tb, table_stride, ln,
-            ws, h, nb, bs, d, dv, p, lanes, scale);
+#define PTT_V16(T)                                                         \
+  ptt::launch_v16<T>(qf, k_pages, v_pages, ks, vs, tb, table_stride, ln,  \
+                     ws, n, h, nb, bs, d, dv, p, nz, lanes, scale, s)
+    if (dtype == ptt::kFloat32) PTT_V16(float);
+    else if (dtype == ptt::kBFloat16) PTT_V16(B);
+    else if (dtype == ptt::kInt8) PTT_V16(int8_t);
+    else PTT_V16(F8);
+#undef PTT_V16
   }
-  if (v16) *launched = 1;
+  *launched = (v16 ? 1 : 2) + (quant ? 2 : 0);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   ptt::paged_merge_kernel<<<dim3(h, n), 32 * ((dv + 31) / 32), 0, s>>>(

@@ -130,7 +130,7 @@ def library():
             lib.ptt_layer_norm_bwd.argtypes = [p] * 7 + [i, i, f, i, p]
             lib.ptt_layer_norm_bwd.restype = i
             lib.ptt_paged_attention.argtypes = [
-                p, p, p, p, ctypes.c_longlong, p, p, p,
+                p, p, p, p, p, p, ctypes.c_longlong, p, p, p,
                 i, i, i, i, i, i, i, i, f, i, ctypes.POINTER(i), p]
             lib.ptt_paged_attention.restype = i
             dims = [i, i, i, i, i, i, f, i, p]   # b h tq tk d causal scale
@@ -166,9 +166,15 @@ def check(rc, what):
         raise RuntimeError('%s: CUDA error %d at launch' % (what, rc))
 
 
-def dtype_code(dtype):
+def dtype_code(dtype, quantized=False):
+    """The C interface's code of a storage dtype: float32 0, bfloat16 1
+    and, where ``quantized`` (paged attention's KV pages), int8 2 and
+    float8_e4m3fn 3."""
     import torch
     codes = {torch.float32: 0, torch.bfloat16: 1}
+    if quantized:
+        codes.update({torch.int8: 2, torch.float8_e4m3fn: 3})
     if dtype not in codes:
-        raise TypeError('kernel takes float32 or bfloat16, got %s' % dtype)
+        raise TypeError('kernel takes %s, got %s'
+                        % (' or '.join(str(d)[6:] for d in codes), dtype))
     return codes[dtype]

@@ -1,13 +1,17 @@
 """Ragged paged attention: the CUDA kernels of ``csrc/paged_attention.cu``
 (K4, replacing ``_paged_kernel`` of
-paddle_tpu/ops/pallas/paged_attention.py) and their plain PyTorch versions
-``paged_attention_reference`` and ``paged_attention_split_reference``.
+paddle_tpu/ops/pallas/paged_attention.py, and, for quantized pages, the
+dequantizing gather path ``paged_attention_reference`` of the same file)
+and their plain PyTorch versions ``paged_attention_reference`` and
+``paged_attention_split_reference``.
 
 Layouts (the JAX package's):
     q            [B, H, D]      one query token per row, float32
     k/v_pages    [NB, H, bs, D] the pooled page arena of one layer
     block_tables [B, P] int32   physical page ids; >= NB means "no page"
     seq_lens     [B]  int32     live tokens (this token included)
+    k/v_scales   [NB, H, bs]    fp32, one scale a stored row: int8 and
+                                float8_e4m3fn pages only
 
 The kernel splits a row over blocks: each takes a fixed chunk of
 ``CHUNK_TOKENS`` tokens and leaves a partial (acc, m, l) in a workspace
@@ -19,19 +23,24 @@ The split kernel comes in two hand-written variants: one with 16-byte
 loads (key and value rows that are multiples of 16 bytes, at most 512
 bytes, Dv <= 128, 16-byte aligned arenas: the decode path) and one for
 rows of any width up to 256 elements (a bf16 arena with d_key 36, an fp32
-one with d_key 30, Dv 192), with the widest load (8, 4 or 2 bytes) that
-divides the rows. The launcher chooses and reports which it launched.
+one with d_key 30, Dv 192, an int8 one with d_key 8), with the widest load
+(8, 4, 2 or 1 bytes) that divides the rows. Both take fp32, bf16, int8 and
+e4m3 pages; a quantized page is dequantized in registers (float(v) *
+scale[row]), its p.v in fp32. The launcher chooses and reports which it
+launched.
 
 ``paged_attention`` launches the kernels for CUDA tensors and takes the
 plain version only for CPU tensors; on a CUDA tensor it launches or
 raises. ``paged_attention.launches`` counts calls that launched,
-``launches_v16`` and ``launches_any`` each variant.
+``launches_v16`` and ``launches_any`` each variant and ``launches_q8``
+those on quantized pages.
 """
 
 import ctypes
 
 import torch
 
+from ...quant.core import kv_quantized
 from . import build
 
 _NEG_INF = -1e9
@@ -39,7 +48,9 @@ _NEG_INF = -1e9
 CHUNK_TOKENS = 256
 # the widest key or value row (elements) a kernel takes (kMaxAnyDim)
 MAX_HEAD_DIM = 256
-_LAUNCHED_V16, _LAUNCHED_ANY = 1, 2
+# the launcher's report: 1 the 16-byte kernel, 2 the any-width one, +2 for
+# quantized pages
+_LAUNCHED_V16, _LAUNCHED_ANY, _LAUNCHED_Q8 = 1, 2, 2
 
 
 def chunk_pages(block_size):
@@ -47,23 +58,45 @@ def chunk_pages(block_size):
     return max(1, CHUNK_TOKENS // block_size)
 
 
+def _quantized(pages):
+    return kv_quantized(str(pages.dtype)[6:])
+
+
+def _gather(pages, tables):
+    """pages[tables]; one-byte pages are gathered as bytes (the same bits)."""
+    if _quantized(pages):
+        return pages.view(torch.uint8)[tables].view(pages.dtype)
+    return pages[tables]
+
+
+def _gather_rows(pages, scales, tables, b, h, n_keys, width):
+    """[B, H, n_keys, width] rows of ``tables``' pages, dequantized to
+    fp32 (``float(v) * scale[row]``) when ``scales`` is given."""
+    rows = _gather(pages, tables).permute(0, 2, 1, 3, 4) \
+        .reshape(b, h, n_keys, width)
+    if scales is None:
+        return rows
+    s = scales[tables].permute(0, 2, 1, 3).reshape(b, h, n_keys)
+    return rows.float() * s[..., None]
+
+
 def paged_attention_reference(q, k_pages, v_pages, block_tables, seq_lens,
-                              sm_scale=None):
+                              sm_scale=None, k_scales=None, v_scales=None):
     """Plain version, a straight translation of the reference's gather
     path: gather each row's pages through its (clipped) table into
-    [B, H, P*bs, D], mask columns >= seq_len with -1e9, fp32 softmax, and
-    the weights rounded to the page dtype before w.v. Returns [B, H, Dv]
-    in the page dtype. (A row with seq_len 0 averages every gathered
-    column here, where the kernel returns 0; the decode ops never ask for
-    length 0.)"""
+    [B, H, P*bs, D] (dequantized to fp32 through the scale arenas when
+    they are given), mask columns >= seq_len with -1e9, fp32 softmax, and
+    the weights rounded to the page dtype (fp32 after dequantization)
+    before w.v. Returns [B, H, Dv] in that dtype. (A row with seq_len 0
+    averages every gathered column here, where the kernel returns 0; the
+    decode ops never ask for length 0.)"""
     nb, h, bs, d = k_pages.shape
     b, p = block_tables.shape
+    dv = v_pages.shape[-1]
     scale = sm_scale if sm_scale is not None else d ** -0.5
     tables = block_tables.long().clamp(0, nb - 1)
-    # [B, P, H, bs, D] -> [B, H, P*bs, D]
-    k = k_pages[tables].permute(0, 2, 1, 3, 4).reshape(b, h, p * bs, d)
-    v = v_pages[tables].permute(0, 2, 1, 3, 4) \
-        .reshape(b, h, p * bs, v_pages.shape[-1])
+    k = _gather_rows(k_pages, k_scales, tables, b, h, p * bs, d)
+    v = _gather_rows(v_pages, v_scales, tables, b, h, p * bs, dv)
     qs = q * scale
     ct = torch.promote_types(qs.dtype, k.dtype)
     logits = torch.einsum('bhd,bhkd->bhk', qs.to(ct), k.to(ct))
@@ -77,15 +110,18 @@ def paged_attention_reference(q, k_pages, v_pages, block_tables, seq_lens,
 
 
 def paged_attention_split_reference(q, k_pages, v_pages, block_tables,
-                                    seq_lens, sm_scale=None):
+                                    seq_lens, sm_scale=None, k_scales=None,
+                                    v_scales=None):
     """Plain version in the kernel's order of operations, for tests and
     the chip smoke: each chunk of ``chunk_pages(bs)`` pages gives a partial
     (m, l, acc) in fp32 (scale applied to q, masked columns at -1e9 with
-    p = 0, p rounded to the page dtype before p.v); the partials of the
-    chunks that start below ceil(len / bs) pages are combined in split
-    order and divided by l (1 where l is 0: a row with no live chunk gives
-    0). Dot products are elementwise products summed per row, so a row's
-    bits do not depend on the rows around it. Returns [B, H, Dv] fp32."""
+    p = 0, p rounded to the page dtype before p.v; quantized pages are
+    dequantized first, float(v) * scale[row], and keep p in fp32); the
+    partials of the chunks that start below ceil(len / bs) pages are
+    combined in split order and divided by l (1 where l is 0: a row with
+    no live chunk gives 0). Dot products are elementwise products summed
+    per row, so a row's bits do not depend on the rows around it. Returns
+    [B, H, Dv] fp32."""
     nb, h, bs, d = k_pages.shape
     dv = v_pages.shape[-1]
     b, p = block_tables.shape
@@ -98,8 +134,10 @@ def paged_attention_split_reference(q, k_pages, v_pages, block_tables,
         pad = tables.new_zeros(b, nz * cp - p)
         tables = torch.cat([tables, pad], dim=1)
     # [B, Z*cp, H, bs, D] -> [B, H, Z, ct, D]
-    k = k_pages[tables].permute(0, 2, 1, 3, 4).reshape(b, h, nz, ct, d)
-    v = v_pages[tables].permute(0, 2, 1, 3, 4).reshape(b, h, nz, ct, dv)
+    k = _gather_rows(k_pages, k_scales, tables, b, h, nz * ct, d) \
+        .reshape(b, h, nz, ct, d)
+    v = _gather_rows(v_pages, v_scales, tables, b, h, nz * ct, dv) \
+        .reshape(b, h, nz, ct, dv)
     lens = seq_lens.reshape(b, 1, 1, 1).long().clamp(max=p * bs)
     qs = (q.float() * scale)[:, :, None, None, :]
     s = (qs * k.float()).sum(dim=-1)                      # [B, H, Z, ct]
@@ -129,7 +167,7 @@ def paged_attention_split_reference(q, k_pages, v_pages, block_tables,
 
 
 def _paged_cuda(q, k_pages, v_pages, block_tables, seq_lens, scale,
-                workspace=None):
+                workspace=None, k_scales=None, v_scales=None):
     """Launch K4. ``workspace`` (tests only) replaces the fp32
     [n, h, splits, dv + 2] scratch the call would allocate."""
     nb, h, bs, d = k_pages.shape
@@ -153,7 +191,22 @@ def _paged_cuda(q, k_pages, v_pages, block_tables, seq_lens, scale,
             not seq_lens.is_contiguous():
         raise ValueError('paged_attention kernel: seq_lens must be a '
                          'contiguous int32 [%d] tensor' % n)
-    for t in (k_pages, v_pages, block_tables, seq_lens):
+    quantized = _quantized(k_pages)
+    if quantized != (k_scales is not None) or \
+            (k_scales is None) != (v_scales is None):
+        raise ValueError('paged_attention kernel: int8 and float8_e4m3fn '
+                         'pages take k_scales and v_scales, other pages '
+                         'none; got %s pages with%s scales'
+                         % (k_pages.dtype, '' if k_scales is not None
+                            else 'out'))
+    scales = (k_scales, v_scales) if quantized else ()
+    for t in scales:
+        if t.dtype != torch.float32 or tuple(t.shape) != (nb, h, bs) or \
+                not t.is_contiguous():
+            raise ValueError('paged_attention kernel: scales must be '
+                             'contiguous float32 [%d, %d, %d] tensors'
+                             % (nb, h, bs))
+    for t in (k_pages, v_pages, block_tables, seq_lens) + scales:
         if t.device != dev:
             raise ValueError('paged_attention kernel: all inputs must be '
                              'on %s, got %s' % (dev, t.device))
@@ -161,7 +214,7 @@ def _paged_cuda(q, k_pages, v_pages, block_tables, seq_lens, scale,
         raise ValueError('paged_attention kernel: needs key and value head '
                          'dims <= %d and <= 65535 rows; got D %d, Dv %d, %d '
                          'rows' % (MAX_HEAD_DIM, d, dv, n))
-    code = build.dtype_code(k_pages.dtype)
+    code = build.dtype_code(k_pages.dtype, quantized=True)
     out = torch.empty((n, h, dv), dtype=torch.float32, device=dev)
     if n == 0 or h == 0 or p == 0:
         return out.zero_()
@@ -181,35 +234,47 @@ def _paged_cuda(q, k_pages, v_pages, block_tables, seq_lens, scale,
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.ptt_paged_attention(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            k_scales.data_ptr() if quantized else None,
+            v_scales.data_ptr() if quantized else None,
             block_tables.data_ptr(), block_tables.stride(0),
             seq_lens.data_ptr(), workspace.data_ptr(), out.data_ptr(), n, h,
             nb, bs, d, dv, p, nz, float(scale), code,
             ctypes.byref(launched), stream)
     build.check(rc, 'ptt_paged_attention')
     paged_attention.launches += 1
-    if launched.value == _LAUNCHED_V16:
+    variant = launched.value
+    if variant > _LAUNCHED_ANY:
+        paged_attention.launches_q8 += 1
+        variant -= _LAUNCHED_Q8
+    if variant == _LAUNCHED_V16:
         paged_attention.launches_v16 += 1
-    elif launched.value == _LAUNCHED_ANY:
+    elif variant == _LAUNCHED_ANY:
         paged_attention.launches_any += 1
     return out
 
 
 def paged_attention(q, k_pages, v_pages, block_tables, seq_lens,
-                    sm_scale=None):
+                    sm_scale=None, k_scales=None, v_scales=None):
     """Ragged paged attention: one query per row against its paged KV
     cache. q [B, H, D]; pages [NB, H, bs, D*]; block_tables [B, P] int32
     (entries >= NB mean "no page" and are never read; a broadcast table
-    with row stride 0 is taken as it is); seq_lens [B] int32. Returns
-    [B, H, Dv]: float32 from the kernel, the page dtype from the plain
-    version."""
+    with row stride 0 is taken as it is); seq_lens [B] int32; int8 and
+    float8_e4m3fn pages come with their fp32 row scales
+    ``k_scales``/``v_scales`` [NB, H, bs]. Returns [B, H, Dv]: float32
+    from the kernel, the page dtype (fp32 for quantized pages) from the
+    plain version."""
     d = k_pages.shape[-1]
     scale = sm_scale if sm_scale is not None else d ** -0.5
     if q.device.type == 'cpu':
         return paged_attention_reference(q, k_pages, v_pages, block_tables,
-                                         seq_lens, sm_scale=scale)
-    return _paged_cuda(q, k_pages, v_pages, block_tables, seq_lens, scale)
+                                         seq_lens, sm_scale=scale,
+                                         k_scales=k_scales,
+                                         v_scales=v_scales)
+    return _paged_cuda(q, k_pages, v_pages, block_tables, seq_lens, scale,
+                       k_scales=k_scales, v_scales=v_scales)
 
 
 paged_attention.launches = 0
 paged_attention.launches_v16 = 0   # the 16-byte split kernel
 paged_attention.launches_any = 0   # the any-width split kernel
+paged_attention.launches_q8 = 0    # either, on int8 or fp8 pages

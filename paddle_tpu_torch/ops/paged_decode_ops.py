@@ -1,24 +1,41 @@
 """Paged incremental-decode ops for the decode-serving engine (reference:
 paddle_tpu ops/paged_decode_ops.py).
 
-Two IR ops over a decoder-only (GPT-block) transformer whose KV cache
+Three IR ops over a decoder-only (GPT-block) transformer whose KV cache
 lives in a paged pool ([L, NB, H, bs, d] arenas):
 
 - ``paged_prefill`` — extend a sequence whose first ``Cached`` tokens
-  already have KV by a padded suffix [1, S]: write each suffix
-  position's K/V into the sequence's pages through its block table,
-  attend each suffix query at its own absolute length (one ragged
-  paged-attention pass over S rows), and emit the next token.
+  already have KV (a prefix-cache hit; 0 on a miss) by a padded suffix
+  [1, S]: write each suffix position's K/V into the sequence's pages
+  through its block table, attend each suffix query at its own absolute
+  length (one ragged paged-attention pass over S rows), and emit the next
+  token.
 - ``paged_decode_step`` — one token for every slot of the fixed-size
   decode batch [B]: append each row's K/V at its own position, ragged
   paged attention at per-row lengths, then greedy or temperature
   sampling per row. Empty slots feed all-NB tables, so their writes
   are dropped.
+- ``paged_spec_verify`` — speculative-decoding verification: score k+1
+  tokens (the pending token and k drafts) for every slot of [B] in one
+  ragged pass over B*(k+1) single-token rows; row (b, j) sits at position
+  lens[b]+j and attends at length lens[b]+j+1. Writes K/V for all k+1
+  positions; the engine's acceptance rule decides how many become real
+  (the rest lie above the advanced cache_len and are overwritten).
 
-Both go through ``_extend_rows``, which per layer runs the paged
+All three go through ``_extend_rows``, which per layer runs the paged
 attention kernel once and the layer-norm kernel twice. Every per-row
-computation is independent of the other rows, so a sequence's stream
-does not depend on what else is in the batch.
+computation is independent of the other rows, so a sequence's stream does
+not depend on what else is in the batch, on a cache hit, or on
+speculation. The matrix products keep that too: they run in fixed tiles
+of ``ROW_TILE`` rows (``_mm``), because cuBLAS chooses its fp32 algorithm
+(its split-K) by the row count, and a row's bits then change with the
+batch (chip_smoke.py phase 3 shows it on the card).
+
+Quantized arenas (int8 / fp8, with fp32 scale arenas [L, NB, H, bs]): each
+written K/V row is quantized on its own (quant.core.quantize_rows, one
+scale a (token, head) row) and the paged attention kernel dequantizes in
+registers through the same tables, so every invariant above holds at the
+quantized dtypes too.
 
 Sampling: the token at position i is greedy at temp == 0, else the
 Gumbel-max draw argmax(logits / temp - log(E)) with E ~ Exp(1) from a
@@ -31,11 +48,14 @@ import numpy as np
 import torch
 
 from ..core.registry import register
+from ..quant.core import kv_quantized, quantize_rows
 from .kernels.layer_norm import fused_layer_norm
 from .kernels.paged_attention import paged_attention
 from .transformer_ops import ENC_SLOTS, _slot_to_input
 
 LM_SLOTS = ENC_SLOTS   # decoder-only block reuses the encoder slot layout
+# rows of every matrix product of the LM: one GEMM shape for every call
+ROW_TILE = 64
 
 
 def _split_heads(x, n_head):
@@ -48,9 +68,29 @@ def _ln(h, p, slot):
                             begin_norm_axis=-1)
 
 
+def _pad_rows(x, rows):
+    """``x`` [n, ...] with zero rows appended up to ``rows``."""
+    if x.shape[0] == rows:
+        return x
+    return torch.cat([x, x.new_zeros((rows - x.shape[0],) + x.shape[1:])])
+
+
+def _mm(x, w):
+    """``x @ w`` as products of ROW_TILE rows each (x's rows a multiple
+    of it), so a row's bits depend only on the row and ``w``: every call
+    of a given ``w`` is the same GEMM shape."""
+    m = x.shape[0]
+    if m == ROW_TILE:
+        return x @ w
+    out = x.new_empty((m, w.shape[1]))
+    for i in range(0, m, ROW_TILE):
+        torch.matmul(x[i:i + ROW_TILE], w, out=out[i:i + ROW_TILE])
+    return out
+
+
 def _ffn(h, p):
-    return torch.relu(h @ p['ffn_w1'] + p['ffn_b1']) @ p['ffn_w2'] + \
-        p['ffn_b2']
+    return _mm(torch.relu(_mm(h, p['ffn_w1']) + p['ffn_b1']),
+               p['ffn_w2']) + p['ffn_b2']
 
 
 def _sample_key(seed, pos):
@@ -83,9 +123,6 @@ def _sample_tokens(logits, seeds, positions, temps):
 
 
 def _lm_inputs(ctx):
-    if ctx.has_input('KScale'):
-        raise NotImplementedError(
-            'quantized (int8/fp8) KV arenas belong to a later port slice')
     emb = ctx.input('Emb')
     pos_enc = ctx.input('PosEnc')
     wout = ctx.input('OutProj')
@@ -93,25 +130,44 @@ def _lm_inputs(ctx):
               for s in LM_SLOTS}
     kc = ctx.input('KCache')            # [L, NB, H, bs, dk]
     vc = ctx.input('VCache')
-    return emb, pos_enc, wout, params, kc, vc
+    ks = ctx.input('KScale') if ctx.has_input('KScale') else None
+    vs = ctx.input('VScale') if ctx.has_input('VScale') else None
+    return emb, pos_enc, wout, params, kc, vc, ks, vs
+
+
+def _as_bytes(arena):
+    """One-byte arenas are written through a uint8 view (the same bits)."""
+    return arena.view(torch.uint8) if arena.element_size() == 1 else arena
 
 
 def _extend_rows(emb, pos_enc, wout, params, kcs, vcs, n_head,
-                 tokens, pos, live, tables, out_rows=None):
-    """Shared core of prefill and decode: write N new tokens' K/V at
-    absolute positions ``pos`` through per-row block ``tables`` [N, P],
-    attend each row at its own ragged length (``pos + 1``), and return
-    fp32 logits for ``h[out_rows]`` (all rows when None). Rows that are
-    not ``live``, sit past the table's capacity, or hit a table entry
-    outside [0, NB) write nothing (padded tails / empty batch slots).
+                 tokens, pos, live, tables, kscales=None, vscales=None,
+                 out_rows=None):
+    """Shared core of the three ops: write N new tokens' K/V at absolute
+    positions ``pos`` through per-row block ``tables`` [N, P], attend each
+    row at its own ragged length (``pos + 1``), and return fp32 logits for
+    ``h[out_rows]`` (all rows when None). Rows that are not ``live``, sit
+    past the table's capacity, or hit a table entry outside [0, NB) write
+    nothing (padded tails / empty batch slots).
 
-    The arenas ``kcs``/``vcs`` are the scope's tensors and are updated IN
-    PLACE: the reference rebuilds them functionally and relies on buffer
-    donation; a functional update here would copy the whole arena (6.4 GB
-    at full width, fp32) on every layer of every step."""
+    Quantized arenas (``kscales``/``vscales`` [L, NB, H, bs] given): each
+    new K/V row is quantized on its own (one fp32 scale a (token, head)
+    row) and written with its scale; the attention dequantizes through the
+    same tables.
+
+    The arenas are the scope's tensors and are updated IN PLACE: the
+    reference rebuilds them functionally and relies on buffer donation; a
+    functional update here would copy the whole arena (6.4 GB at full
+    width, fp32) on every layer of every step. So a page that another
+    sequence shares (a published prefix-cache page) must never be a
+    target: the engine writes only positions at or past a sequence's
+    cached span, which lie in its own pages."""
     n_layer, nb, _, bs, _ = kcs.shape
     d_model = emb.shape[-1]
     n, p_cap = tables.shape
+    kv_q = str(kcs.dtype)[6:]
+    quantized = kv_quantized(kv_q)
+    m = -(-n // ROW_TILE) * ROW_TILE         # rows of every product
 
     logical = torch.clamp(pos // bs, 0, p_cap - 1)
     phys = torch.gather(tables, 1, logical[:, None].long())[:, 0]
@@ -128,53 +184,71 @@ def _extend_rows(emb, pos_enc, wout, params, kcs, vcs, n_head,
         pos_enc[pos.long().clamp(0, pos_enc.shape[0] - 1)]
     att_lens = (pos + 1).to(torch.int32)
 
-    h = x
+    h = _pad_rows(x, m)
     for layer in range(n_layer):
         p = {s: params[s][layer] for s in LM_SLOTS}
         kc, vc = kcs[layer], vcs[layer]          # views into the arenas
-        k_new = _split_heads(h @ p['slf_k'], n_head)       # [N, H, dk]
-        v_new = _split_heads(h @ p['slf_v'], n_head)
-        kc[w_phys, :, w_off] = k_new[rows].to(kc.dtype)
-        vc[w_phys, :, w_off] = v_new[rows].to(vc.dtype)
-        q = _split_heads(h @ p['slf_q'], n_head)
-        attn = paged_attention(q, kc, vc, tables, att_lens)
-        h = _ln(h + attn.reshape(n, -1).to(h.dtype) @ p['slf_o'], p, 'ln1')
+        k_new = _split_heads(_mm(h, p['slf_k'])[:n], n_head)   # [N, H, dk]
+        v_new = _split_heads(_mm(h, p['slf_v'])[:n], n_head)
+        ksc = vsc = None
+        if quantized:
+            ksc, vsc = kscales[layer], vscales[layer]
+            for arena, scales, new in ((kc, ksc, k_new), (vc, vsc, v_new)):
+                q8, s8 = quantize_rows(new[rows], kv_q)
+                _as_bytes(arena)[w_phys, :, w_off] = _as_bytes(q8)
+                scales[w_phys, :, w_off] = s8
+        else:
+            kc[w_phys, :, w_off] = k_new[rows].to(kc.dtype)
+            vc[w_phys, :, w_off] = v_new[rows].to(vc.dtype)
+        q = _split_heads(_mm(h, p['slf_q'])[:n], n_head)
+        attn = paged_attention(q, kc, vc, tables, att_lens,
+                               k_scales=ksc, v_scales=vsc)
+        attn = _pad_rows(attn.reshape(n, -1).to(h.dtype), m)
+        h = _ln(h + _mm(attn, p['slf_o']), p, 'ln1')
         h = _ln(h + _ffn(h, p), p, 'ln2')
-    if out_rows is not None:
-        h = h[out_rows]
-    return (h @ wout).float()
+    if out_rows is None:
+        return _mm(h, wout)[:n].float()
+    last = h[out_rows]
+    return _mm(_pad_rows(last, ROW_TILE), wout)[:last.shape[0]].float()
 
 
-def _set_arena_outputs(ctx, kcs, vcs):
+def _set_arena_outputs(ctx, kcs, vcs, kss, vss):
     ctx.set_output('KCacheOut', kcs)
     ctx.set_output('VCacheOut', vcs)
+    if kss is not None:
+        ctx.set_output('KScaleOut', kss)
+        ctx.set_output('VScaleOut', vss)
 
 
-@register('paged_decode_step')
-def _paged_decode_step(ctx):
-    emb, pos_enc, wout, params, kcs, vcs = _lm_inputs(ctx)
-    n_head = ctx.attr('n_head', 1)
-
-    tokens = ctx.input('Tokens').reshape(-1)                       # [B]
+def _batch_inputs(ctx):
+    tokens = ctx.input('Tokens')
     lens = ctx.input('SeqLens').reshape(-1).to(torch.int32)        # [B]
     tables = ctx.input('BlockTables').to(torch.int32)              # [B, P]
     temps = ctx.input('Temps').reshape(-1).float()
     seeds = ctx.input('Seeds').reshape(-1)
+    return tokens, lens, tables, temps, seeds
+
+
+@register('paged_decode_step')
+def _paged_decode_step(ctx):
+    emb, pos_enc, wout, params, kcs, vcs, kss, vss = _lm_inputs(ctx)
+    n_head = ctx.attr('n_head', 1)
+    tokens, lens, tables, temps, seeds = _batch_inputs(ctx)
 
     # one new token per row at position lens (empty slots feed all-NB
     # tables, so every write of theirs is dropped)
     live = torch.ones_like(lens, dtype=torch.bool)
     logits = _extend_rows(emb, pos_enc, wout, params, kcs, vcs, n_head,
-                          tokens, lens, live, tables)
+                          tokens.reshape(-1), lens, live, tables, kss, vss)
     nxt = _sample_tokens(logits, seeds, lens + 1, temps)
     ctx.set_output('NextTokens', nxt.to(ctx.out_dtype('NextTokens',
                                                       'int64')))
-    _set_arena_outputs(ctx, kcs, vcs)
+    _set_arena_outputs(ctx, kcs, vcs, kss, vss)
 
 
 @register('paged_prefill')
 def _paged_prefill(ctx):
-    emb, pos_enc, wout, params, kcs, vcs = _lm_inputs(ctx)
+    emb, pos_enc, wout, params, kcs, vcs, kss, vss = _lm_inputs(ctx)
     n_head = ctx.attr('n_head', 1)
 
     ids = ctx.input('Ids').reshape(-1)                      # [S] (padded)
@@ -186,17 +260,42 @@ def _paged_prefill(ctx):
     s = ids.shape[0]
 
     # suffix position t lives at absolute position cached + t; its query
-    # attends to everything at or below it through the table. The S rows
-    # share one table row: a stride-0 view, never a copy.
+    # attends to everything at or below it through the table: the cached
+    # pages and this run's own earlier writes. The S rows share one table
+    # row: a stride-0 view, never a copy.
     t_idx = torch.arange(s, dtype=torch.int32, device=ids.device)
     pos = cached + t_idx
     tables = table.expand(s, table.shape[0])
     last = max(length - 1, 0)
     logits = _extend_rows(emb, pos_enc, wout, params, kcs, vcs, n_head,
-                          ids, pos, t_idx < length, tables,
+                          ids, pos, t_idx < length, tables, kss, vss,
                           out_rows=slice(last, last + 1))
     nxt = _sample_tokens(logits, seed, torch.tensor([cached + length]),
                          temp)
     ctx.set_output('NextToken',
                    nxt.reshape(1).to(ctx.out_dtype('NextToken', 'int64')))
-    _set_arena_outputs(ctx, kcs, vcs)
+    _set_arena_outputs(ctx, kcs, vcs, kss, vss)
+
+
+@register('paged_spec_verify')
+def _paged_spec_verify(ctx):
+    emb, pos_enc, wout, params, kcs, vcs, kss, vss = _lm_inputs(ctx)
+    n_head = ctx.attr('n_head', 1)
+    tokens, lens, tables, temps, seeds = _batch_inputs(ctx)   # tokens [B, K1]
+    b, k1 = tokens.shape
+
+    # B*K1 single-token rows: row (b, j) holds the j-th speculative token
+    # at position lens[b] + j and attends at its own length (empty slots
+    # ride along as in the decode step: all-NB tables drop every write)
+    j = torch.arange(k1, dtype=torch.int32, device=lens.device)
+    pos = (lens[:, None] + j[None, :]).reshape(-1)              # [B*K1]
+    tables_rep = tables.repeat_interleave(k1, dim=0)           # [B*K1, P]
+    live = torch.ones_like(pos, dtype=torch.bool)
+    logits = _extend_rows(emb, pos_enc, wout, params, kcs, vcs, n_head,
+                          tokens.reshape(-1), pos, live, tables_rep, kss,
+                          vss)
+    nxt = _sample_tokens(logits, seeds.repeat_interleave(k1), pos + 1,
+                         temps.repeat_interleave(k1))
+    ctx.set_output('NextTokens', nxt.reshape(b, k1).to(
+        ctx.out_dtype('NextTokens', 'int64')))
+    _set_arena_outputs(ctx, kcs, vcs, kss, vss)

@@ -1,4 +1,5 @@
-"""Serving: the continuous-batching decode engine (``serving.decode``)."""
+"""Serving: the continuous-batching decode engine (``serving.decode``) and
+the priority classes it schedules by (``serving.tenancy``)."""
 
 from .engine import EngineClosedError, QueueFullError
 

@@ -15,6 +15,12 @@ LIFO so recently touched pages are reused first.
 Exhaustion is a normal state, not an error: ``alloc`` returns None and the
 continuous-batching scheduler reacts by preempting a victim sequence
 (freeing its pages, requeueing it) — see scheduler.py.
+
+Cache integration: the global prefix cache (prefix_cache.py) parks frozen
+pages at refcount 1 so later requests can map them instead of prefilling
+again. Those pages are reclaimable, not free: ``alloc`` asks the installed
+``set_reclaimer`` callback to evict some back into the free list before it
+reports exhaustion, so the cache never starves admission.
 """
 
 import threading
@@ -51,6 +57,14 @@ class KVPool(object):
         self._mu = threading.Lock()
         self._free = list(range(self.num_blocks - 1, -1, -1))
         self._refs = [0] * self.num_blocks
+        self._reclaimer = None
+
+    def set_reclaimer(self, fn):
+        """Install ``fn(n) -> freed_count``, asked by ``alloc`` when fewer
+        than ``n`` pages are free. The prefix cache installs its evictor
+        here; ``fn`` is called OUTSIDE the pool lock (it frees pages
+        through ``free``, which takes it)."""
+        self._reclaimer = fn
 
     def free_blocks(self):
         with self._mu:
@@ -61,18 +75,26 @@ class KVPool(object):
         return max(0, (int(n_tokens) + self.block_size - 1)
                    // self.block_size)
 
+    def refcount(self, page_id):
+        with self._mu:
+            return self._refs[page_id]
+
     def alloc(self, n):
         """Claim ``n`` pages (refcount 1 each). Returns the page-id list,
-        or None when fewer than ``n`` are free — the caller decides
-        whether that means preempt, wait, or reject."""
+        or None when fewer than ``n`` are free and the reclaimer (if any)
+        cannot evict enough — the caller decides whether that means
+        preempt, wait, or reject."""
         n = int(n)
-        with self._mu:
-            if n > len(self._free):
+        while True:
+            with self._mu:
+                if n <= len(self._free):
+                    ids = [self._free.pop() for _ in range(n)]
+                    for i in ids:
+                        self._refs[i] = 1
+                    return ids
+                short = n - len(self._free)
+            if self._reclaimer is None or self._reclaimer(short) <= 0:
                 return None
-            ids = [self._free.pop() for _ in range(n)]
-            for i in ids:
-                self._refs[i] = 1
-            return ids
 
     def grow(self, table, n_tokens):
         """Ensure ``table`` covers ``n_tokens`` positions, allocating
@@ -113,9 +135,10 @@ class KVPool(object):
     def fork(self, table, frozen_tokens=None):
         """A new BlockTable sharing ``table``'s pages. ``frozen_tokens``
         caps sharing at the last *full* page boundary below it: a page
-        still being appended to must never be shared. With
-        ``frozen_tokens=None`` every page is shared and the CALLER
-        promises the donor is frozen."""
+        still being appended to (the donor's partial last page) must never
+        be shared, or the donor's next write would land inside the child's
+        view. With ``frozen_tokens=None`` every page is shared and the
+        CALLER promises the donor is frozen."""
         ids = table.block_ids
         if frozen_tokens is not None:
             ids = ids[:int(frozen_tokens) // self.block_size]

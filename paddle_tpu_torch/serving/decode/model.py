@@ -7,12 +7,16 @@ sharing one parameter namespace (prefix ``lm_``):
 - **startup** — initializes the stacked GPT-block weights
   (models.transformer._stacked_layer_params layout, ENC_SLOTS), token
   embedding, sinusoid position table, output projection, and the two
-  zeroed KV page arenas ``[L, NB, H, bs, d]``. The arenas are
-  persistable scope state that the decode ops update in place.
+  zeroed KV page arenas ``[L, NB, H, bs, d]``; quantized (int8 / fp8)
+  arenas also get fp32 scale arenas ``[L, NB, H, bs]``, one scale a
+  stored row. The arenas are persistable scope state that the decode ops
+  update in place.
 - **prefill** — the ``paged_prefill`` op over feeds (ids [1, S], len,
-  cached-prefix length, block table row, temp, seed); S is the prompt
-  bucket.
+  cached-prefix length, block table row, temp, seed); S is the bucket of
+  the uncached suffix.
 - **decode** — the ``paged_decode_step`` op over fixed [max_batch] feeds.
+- **verify** (only when ``spec_k > 0``) — the ``paged_spec_verify`` op
+  over fixed [max_batch, spec_k+1] feeds (k a static attr).
 
 Parameter names are the reference's, so its weights load as they are.
 """
@@ -32,7 +36,8 @@ from ...param_attr import ParamAttr
 from ...quant.core import kv_itemsize, kv_quantized, resolve_kv_dtype
 
 __all__ = ['LMSpec', 'DecodePrograms', 'build_lm_programs',
-           'kv_bytes_per_token', 'random_weights']
+           'kv_bytes_per_token', 'arena_bytes', 'kv_page_bytes',
+           'num_blocks_for_budget', 'random_weights']
 
 
 class LMSpec(object):
@@ -52,8 +57,9 @@ class LMSpec(object):
 
 DecodePrograms = collections.namedtuple(
     'DecodePrograms',
-    ['startup', 'prefill', 'decode', 'prefill_fetch', 'decode_fetch',
-     'param_names', 'arena_names', 'capacity', 'kv_dtype'])
+    ['startup', 'prefill', 'decode', 'verify', 'prefill_fetch',
+     'decode_fetch', 'verify_fetch', 'param_names', 'arena_names',
+     'capacity', 'kv_dtype'])
 
 
 def kv_bytes_per_token(spec, kv_dtype='float32'):
@@ -67,11 +73,23 @@ def kv_bytes_per_token(spec, kv_dtype='float32'):
     return b
 
 
-def _check_kv_dtype(kv_dtype):
-    if kv_quantized(kv_dtype):
-        raise NotImplementedError(
-            'kv_dtype %r: quantized KV arenas belong to a later port '
-            'slice (the decode extras); use fp32 or bf16' % kv_dtype)
+def arena_bytes(spec, num_blocks, block_size, kv_dtype='float32'):
+    """Total bytes of the K/V (+ scale) arenas."""
+    return kv_bytes_per_token(spec, kv_dtype) * int(num_blocks) * \
+        int(block_size)
+
+
+def kv_page_bytes(spec, block_size, kv_dtype='float32'):
+    """Bytes one FULL page costs: its K/V rows at the arena dtype plus,
+    for quantized arenas, its per-row fp32 scales."""
+    return kv_bytes_per_token(spec, kv_dtype) * int(block_size)
+
+
+def num_blocks_for_budget(budget_bytes, spec, block_size,
+                          kv_dtype='float32'):
+    """Pages an arena byte budget buys at ``kv_dtype``."""
+    return max(1, int(budget_bytes) // kv_page_bytes(spec, block_size,
+                                                     kv_dtype))
 
 
 def _lm_params(spec, capacity):
@@ -100,7 +118,10 @@ def _lm_params(spec, capacity):
 
 
 def _arenas(spec, num_blocks, block_size, kv_dtype='float32'):
-    """Zeroed K/V page arenas at ``kv_dtype``."""
+    """Zeroed K/V page arenas at ``kv_dtype``; quantized dtypes also get
+    per-(page, head, slot) fp32 scale arenas, so a page's stored bits are
+    a pure function of the tokens written into it and prefix-cache sharing
+    carries the scales along (same physical page index)."""
     shapes = {
         'lm_kcache': [spec.n_layer, num_blocks, spec.n_head, block_size,
                       spec.d_key],
@@ -113,84 +134,126 @@ def _arenas(spec, num_blocks, block_size, kv_dtype='float32'):
             shape=shape, dtype=kv_dtype, name=name,
             attr=ParamAttr(name=name, initializer=Constant(0.0),
                            trainable=False))
-    return out['lm_kcache'], out['lm_vcache']
+    ks = vs = None
+    if kv_quantized(kv_dtype):
+        sshape = [spec.n_layer, num_blocks, spec.n_head, block_size]
+        ks, vs = [layers.create_parameter(
+            shape=sshape, dtype='float32', name=name,
+            attr=ParamAttr(name=name, initializer=Constant(1.0),
+                           trainable=False))
+            for name in ('lm_kscale', 'lm_vscale')]
+    return out['lm_kcache'], out['lm_vcache'], ks, vs
 
 
-def _common_inputs(stacked, emb, pos, wout, kc, vc):
+def _common_inputs(stacked, emb, pos, wout, kc, vc, ks=None, vs=None):
     inputs = {'Emb': [emb], 'PosEnc': [pos], 'OutProj': [wout],
               'KCache': [kc], 'VCache': [vc]}
+    if ks is not None:
+        inputs['KScale'] = [ks]
+        inputs['VScale'] = [vs]
     for slot, param in stacked.items():
         inputs[_slot_to_input(slot)] = [param]
     return inputs
 
 
+def _arena_outputs(kc, vc, ks=None, vs=None):
+    outputs = {'KCacheOut': [kc], 'VCacheOut': [vc]}
+    if ks is not None:
+        outputs['KScaleOut'] = [ks]
+        outputs['VScaleOut'] = [vs]
+    return outputs
+
+
+def _step_op(op_type, feeds, spec, block_size, kv_dtype, num_blocks,
+             capacity, out_shape, attrs=None):
+    """Declare the shared parameters and arenas in the current program and
+    append one ``op_type`` op over them and ``feeds`` ({slot: var});
+    returns its next-token output's name."""
+    stacked, emb, pos, wout = _lm_params(spec, capacity)
+    kc, vc, ks, vs = _arenas(spec, num_blocks, block_size, kv_dtype)
+    helper = LayerHelper(op_type, name=op_type)
+    nxt = helper.create_variable_for_type_inference('int64')
+    nxt.shape = out_shape
+    inputs = _common_inputs(stacked, emb, pos, wout, kc, vc, ks, vs)
+    inputs.update({slot: [var] for slot, var in feeds.items()})
+    out_slot = 'NextToken' if op_type == 'paged_prefill' else 'NextTokens'
+    outputs = dict(_arena_outputs(kc, vc, ks, vs), **{out_slot: [nxt]})
+    helper.append_op(type=op_type, inputs=inputs, outputs=outputs,
+                     attrs=dict({'n_head': spec.n_head,
+                                 'block_size': int(block_size)},
+                                **(attrs or {})))
+    return nxt.name, stacked, ks
+
+
 def build_lm_programs(spec, max_batch, block_size, num_blocks,
-                      pages_per_seq, kv_dtype='float32'):
+                      pages_per_seq, spec_k=0, kv_dtype='float32'):
     """Returns DecodePrograms. ``capacity`` (= pages_per_seq *
     block_size) bounds prompt_len + max_new_tokens per sequence.
-    ``kv_dtype`` (fp32 default / bf16) sets the arena storage dtype."""
+    ``spec_k > 0`` also builds the speculative-decoding verify Program
+    ([max_batch, spec_k+1] feeds). ``kv_dtype`` (fp32 default / bf16 /
+    int8 / fp8) sets the arena storage dtype; quantized arenas carry fp32
+    scale arenas beside them."""
     kv_dtype = resolve_kv_dtype(kv_dtype)
-    _check_kv_dtype(kv_dtype)
     capacity = int(pages_per_seq) * int(block_size)
+    spec_k = int(spec_k)
+    geom = dict(spec=spec, block_size=block_size, kv_dtype=kv_dtype,
+                num_blocks=num_blocks, capacity=capacity)
     startup = Program()
     prefill_prog = Program()
     decode_prog = Program()
 
     with program_guard(prefill_prog, startup):
-        stacked, emb, pos, wout = _lm_params(spec, capacity)
-        kc, vc = _arenas(spec, num_blocks, block_size, kv_dtype)
-        ids = layers.data(name='pf_ids', shape=[-1], dtype='int64')
-        length = layers.data(name='pf_len', shape=[], dtype='int32')
-        cached = layers.data(name='pf_cached', shape=[], dtype='int32')
-        table = layers.data(name='pf_table', shape=[pages_per_seq],
-                            dtype='int32')
-        temp = layers.data(name='pf_temp', shape=[], dtype='float32')
-        seed = layers.data(name='pf_seed', shape=[], dtype='int32')
-        helper = LayerHelper('paged_prefill', name='paged_prefill')
-        nxt = helper.create_variable_for_type_inference('int64')
-        nxt.shape = (1,)
-        inputs = _common_inputs(stacked, emb, pos, wout, kc, vc)
-        inputs.update({'Ids': [ids], 'Len': [length], 'Cached': [cached],
-                       'BlockTable': [table], 'Temp': [temp],
-                       'Seed': [seed]})
-        helper.append_op(type='paged_prefill', inputs=inputs,
-                         outputs={'KCacheOut': [kc], 'VCacheOut': [vc],
-                                  'NextToken': [nxt]},
-                         attrs={'n_head': spec.n_head,
-                                'block_size': int(block_size)})
-        prefill_fetch = nxt.name
+        feeds = {
+            'Ids': layers.data(name='pf_ids', shape=[-1], dtype='int64'),
+            'Len': layers.data(name='pf_len', shape=[], dtype='int32'),
+            'Cached': layers.data(name='pf_cached', shape=[],
+                                  dtype='int32'),
+            'BlockTable': layers.data(name='pf_table',
+                                      shape=[pages_per_seq], dtype='int32'),
+            'Temp': layers.data(name='pf_temp', shape=[], dtype='float32'),
+            'Seed': layers.data(name='pf_seed', shape=[], dtype='int32')}
+        prefill_fetch, stacked, ks = _step_op('paged_prefill', feeds,
+                                              out_shape=(1,), **geom)
+
+    def batch_feeds(prefix, token_shape):
+        return {
+            'Tokens': layers.data(name=prefix + '_tokens',
+                                  shape=token_shape, dtype='int64'),
+            'SeqLens': layers.data(name=prefix + '_lens', shape=[],
+                                   dtype='int32'),
+            'BlockTables': layers.data(name=prefix + '_tables',
+                                       shape=[pages_per_seq],
+                                       dtype='int32'),
+            'Temps': layers.data(name=prefix + '_temps', shape=[],
+                                 dtype='float32'),
+            'Seeds': layers.data(name=prefix + '_seeds', shape=[],
+                                 dtype='int32')}
 
     with program_guard(decode_prog, startup):
-        stacked, emb, pos, wout = _lm_params(spec, capacity)
-        kc, vc = _arenas(spec, num_blocks, block_size, kv_dtype)
-        tokens = layers.data(name='dec_tokens', shape=[], dtype='int64')
-        lens = layers.data(name='dec_lens', shape=[], dtype='int32')
-        tables = layers.data(name='dec_tables', shape=[pages_per_seq],
-                             dtype='int32')
-        temps = layers.data(name='dec_temps', shape=[], dtype='float32')
-        seeds = layers.data(name='dec_seeds', shape=[], dtype='int32')
-        helper = LayerHelper('paged_decode_step', name='paged_decode_step')
-        nxt = helper.create_variable_for_type_inference('int64')
-        nxt.shape = (max_batch,)
-        inputs = _common_inputs(stacked, emb, pos, wout, kc, vc)
-        inputs.update({'Tokens': [tokens], 'SeqLens': [lens],
-                       'BlockTables': [tables], 'Temps': [temps],
-                       'Seeds': [seeds]})
-        helper.append_op(type='paged_decode_step', inputs=inputs,
-                         outputs={'KCacheOut': [kc], 'VCacheOut': [vc],
-                                  'NextTokens': [nxt]},
-                         attrs={'n_head': spec.n_head,
-                                'block_size': int(block_size)})
-        decode_fetch = nxt.name
+        decode_fetch, _, _ = _step_op('paged_decode_step',
+                                      batch_feeds('dec', []),
+                                      out_shape=(max_batch,), **geom)
+
+    verify_prog, verify_fetch = None, None
+    if spec_k > 0:
+        verify_prog = Program()
+        with program_guard(verify_prog, startup):
+            verify_fetch, _, _ = _step_op(
+                'paged_spec_verify', batch_feeds('sv', [spec_k + 1]),
+                out_shape=(max_batch, spec_k + 1), attrs={'k': spec_k},
+                **geom)
 
     param_names = sorted(
         {'lm_emb', 'lm_pos_enc', 'lm_out_proj.w'} |
         {p.name for p in stacked.values()})
+    arena_names = ('lm_kcache', 'lm_vcache')
+    if ks is not None:
+        arena_names += ('lm_kscale', 'lm_vscale')
     return DecodePrograms(
         startup=startup, prefill=prefill_prog, decode=decode_prog,
-        prefill_fetch=prefill_fetch, decode_fetch=decode_fetch,
-        param_names=param_names,
-        arena_names=('lm_kcache', 'lm_vcache'),
+        verify=verify_prog, prefill_fetch=prefill_fetch,
+        decode_fetch=decode_fetch, verify_fetch=verify_fetch,
+        param_names=param_names, arena_names=arena_names,
         capacity=capacity, kv_dtype=kv_dtype)
 
 

@@ -1,6 +1,5 @@
 """Continuous-batching scheduler for autoregressive decode (reference:
-paddle_tpu serving/decode/scheduler.py; every request here is of the
-'standard' class: FIFO admission, youngest-first preemption).
+paddle_tpu serving/decode/scheduler.py).
 
 State machine per request (a ``Sequence``)::
 
@@ -12,12 +11,17 @@ The running set occupies at most ``max_batch`` slots of the fixed-shape
 decode step; sequences join the running batch the moment a slot and
 enough KV pages are free and leave it the moment they finish.
 
-Pool exhaustion preempts the youngest running sequence (the one that
-loses the least progress), releases its pages, and requeues it at the
-front of the waiting line with ``prompt + generated-so-far`` as its new
-prefill prefix (recompute-style preemption: already-streamed tokens are
-never re-streamed). The scheduler is driven by the engine's single
-worker thread; only the waiting queue is touched from submit() threads.
+Admission is highest priority class first (serving.tenancy; FIFO within a
+class). With a prefix cache, admission first maps the prompt's cached
+pages into the block table, and rolls the match back when the pool cannot
+supply the rest. Pool exhaustion preempts the lowest-class, youngest
+running sequence (the one that loses the least progress), releases its
+pages, and requeues it at the front of the waiting line with ``prompt +
+generated-so-far`` as its new prefill prefix (recompute-style preemption:
+already-streamed tokens are never re-streamed). The cache is the pool's
+reclaimer, so every growth evicts reclaimable cached pages before anyone
+is preempted. The scheduler is driven by the engine's single worker
+thread; only the waiting queue is touched from submit() threads.
 
 ``cache_len`` counts KV entries materialized on the device. After
 prefilling a prefix of length p the cache holds p entries and the sampled
@@ -31,6 +35,7 @@ import threading
 
 from concurrent.futures import Future
 
+from ..tenancy import priority_rank
 from .kv_pool import BlockTable
 
 __all__ = ['Sequence', 'GenerationStream', 'Scheduler',
@@ -92,10 +97,11 @@ class Sequence(object):
 
     __slots__ = ('request_id', 'prompt', 'max_new_tokens', 'temperature',
                  'seed', 'eos_id', 'table', 'generated', 'state', 'stream',
-                 'cache_len', 'pending_token')
+                 'cache_len', 'pending_token', 'cached_len',
+                 'published_pages', 'tenant', 'priority', 'prio_rank')
 
     def __init__(self, request_id, prompt, max_new_tokens, temperature,
-                 seed, eos_id):
+                 seed, eos_id, tenant=None, priority=None):
         self.request_id = request_id
         self.prompt = [int(t) for t in prompt]
         self.max_new_tokens = int(max_new_tokens)
@@ -108,6 +114,12 @@ class Sequence(object):
         self.stream = GenerationStream(request_id, len(self.prompt))
         self.cache_len = 0
         self.pending_token = None
+        self.cached_len = 0        # prefix-cache hit span (this prefill)
+        self.published_pages = 0   # full pages already offered to the cache
+        # scheduling class (serving.tenancy): None lands on 'standard'
+        self.tenant = tenant
+        self.priority = priority
+        self.prio_rank = priority_rank(priority)
 
     def prefix(self):
         """Tokens whose KV must exist before the next decode step —
@@ -126,14 +138,17 @@ class Sequence(object):
 class Scheduler(object):
     """Owns the waiting queue, the running set, and the page budget.
     All mutation happens on the engine worker thread except ``add``
-    (submit path)."""
+    (submit path). ``cache`` is the prefix cache (prefix_cache.py), or
+    None."""
 
-    def __init__(self, pool, max_batch):
+    def __init__(self, pool, max_batch, cache=None):
         self.pool = pool
         self.max_batch = int(max_batch)
+        self.cache = cache
         self.waiting = collections.deque()
         self.running = []          # admission order (oldest first)
         self.preemptions = 0
+        self.peak_running = 0      # most sequences ever running at once
         self._mu = threading.Lock()
 
     def add(self, seq):
@@ -145,37 +160,69 @@ class Scheduler(object):
             return len(self.waiting), len(self.running)
 
     def pop_admittable(self):
-        """Admit the next waiting sequence if a batch slot is free and the
-        pool covers its prefill prefix plus one decode write. Returns the
-        Sequence (pages allocated, state RUNNING) or None."""
+        """Admit the next waiting sequence, highest class first, if a
+        batch slot is free and the pool covers its prefill prefix plus one
+        decode write. A prefix-cache hit maps the shared pages first, so
+        only the uncached suffix needs fresh pages. Returns the Sequence
+        (pages allocated, state RUNNING) or None."""
         with self._mu:
             if len(self.running) >= self.max_batch or not self.waiting:
                 return None
-            seq = self.waiting[0]
-            if not self.pool.grow(seq.table, len(seq.prefix()) + 1):
+            idx, best = 0, self.waiting[0].prio_rank
+            if best > 0:
+                for i, s in enumerate(self.waiting):
+                    if s.prio_rank < best:
+                        idx, best = i, s.prio_rank
+                        if best == 0:
+                            break
+            seq = self.waiting[idx]
+            prefix = seq.prefix()
+            if self.cache is not None and not seq.table.block_ids:
+                seq.cached_len = self.cache.match(prefix, seq.table)
+                seq.published_pages = seq.cached_len // self.pool.block_size
+            if not self.pool.grow(seq.table, len(prefix) + 1):
+                if seq.cached_len:
+                    # roll the match back: pinned cache pages would block
+                    # the very evictions admission waits on
+                    self.cache.unmatch(seq.table, seq.cached_len)
+                    seq.cached_len = 0
+                    seq.published_pages = 0
                 return None
-            self.waiting.popleft()
+            del self.waiting[idx]
             seq.state = RUNNING
             self.running.append(seq)
+            self.peak_running = max(self.peak_running, len(self.running))
         return seq
 
     def ensure_growth(self, seq, need_tokens=None):
-        """Make sure ``seq`` owns the pages its next decode write lands in
-        (``need_tokens`` positions, default one write), preempting the
-        youngest running sequence on exhaustion. False when ``seq``
-        itself was preempted (caller must drop it from this step)."""
+        """Make sure ``seq`` owns the pages its next writes land in
+        (``need_tokens`` positions: one decode write by default, cache_len
+        + k + 1 for a speculative step), preempting victims on exhaustion
+        once the cache's evictor has nothing left to give. False when
+        ``seq`` itself was preempted (caller must drop it from this
+        step)."""
         if need_tokens is None:
             need_tokens = seq.cache_len + 1
         while not self.pool.grow(seq.table, need_tokens):
-            victim = self.running[-1]
+            victim = self._pick_victim()
             self.preempt(victim)
             if victim is seq:
                 return False
         return True
 
+    def _pick_victim(self):
+        """The lowest priority class, youngest within it."""
+        worst = max(seq.prio_rank for seq in self.running)
+        for seq in reversed(self.running):
+            if seq.prio_rank == worst:
+                return seq
+        return self.running[-1]
+
     def preempt(self, seq):
         """Release pages, requeue at the FRONT with prompt+generated as
-        the new prefill prefix. Already-streamed tokens stay streamed."""
+        the new prefill prefix. Already-streamed tokens stay streamed.
+        Shared cached pages lose this sequence's reference; the re-prefill
+        matches whatever is still cached."""
         with self._mu:
             self.running.remove(seq)
             self.waiting.appendleft(seq)
@@ -183,6 +230,8 @@ class Scheduler(object):
         seq.state = WAITING
         seq.cache_len = 0
         seq.pending_token = None
+        seq.cached_len = 0
+        seq.published_pages = 0
         self.preemptions += 1
 
     def finish(self, seq, reason):

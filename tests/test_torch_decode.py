@@ -387,11 +387,3 @@ def test_shutdown_without_drain_fails_pending():
         stream.result(timeout=5)
     assert stream.finish_reason == 'error'
     assert eng.pool.free_blocks() == eng.pool.num_blocks
-
-
-@pytest.mark.parametrize('kw', [dict(prefix_cache=True), dict(spec_k=2),
-                                dict(kv_dtype='int8'),
-                                dict(kv_dtype='fp8')])
-def test_later_slice_features_raise(kw):
-    with pytest.raises(NotImplementedError):
-        _engine(**kw)

@@ -1005,3 +1005,112 @@ def test_layer_norm_backward_kernels_match_plain_and_repeat(cuda, shape,
     assert tln.fused_layer_norm.bwd_launches == before + 6
     for a, r in zip(auto, got):
         assert torch.equal(a, r)
+
+
+def _q8_args(cuda, kv_dtype, lens, d, h=2, bs=32, p=20, nb=192, seed=5,
+             n_rows=None):
+    """int8 or e4m3 pages quantized row by row, their scales, and the rest
+    of _paged_args' inputs."""
+    from paddle_tpu_torch.quant.core import quantize_rows
+    q, kf, vf, tables, sl = _paged_args(cuda, torch.float32, lens, nb=nb,
+                                        h=h, bs=bs, d=d, p=p, seed=seed)
+    kq, ks = quantize_rows(kf * 3, kv_dtype)
+    vq, vs = quantize_rows(vf, kv_dtype)
+    return q, kq, vq, tables, sl, ks, vs
+
+
+# (storage, d_key): 64 takes the 16-byte kernel, 8 and 36 the any-width one
+@pytest.mark.parametrize('case', [('int8', 64), ('float8_e4m3fn', 64),
+                                  ('int8', 8), ('float8_e4m3fn', 8),
+                                  ('int8', 36)])
+def test_paged_attention_quantized_variant(cuda, case):
+    """The quantized variant against its split plain version (the same
+    dequantized operands, summed in another order: fp32 output within
+    1e-5 of its largest value) and the one-pass plain version, twice for
+    equal bits, counted by launches_q8 and the variant it took."""
+    kv_dtype, d = case
+    lens = [1, 31, 32, 33, 300, 600, 2, 0]
+    q, kq, vq, tables, sl, ks, vs = _q8_args(cuda, kv_dtype, lens, d)
+    tables[7] = kq.shape[0]
+    kw = dict(k_scales=ks, v_scales=vs)
+    before = dict(q8=tpa.paged_attention.launches_q8,
+                  v16=tpa.paged_attention.launches_v16)
+    out = tpa.paged_attention(q, kq, vq, tables, sl, **kw)
+    again = tpa.paged_attention(q, kq, vq, tables, sl, **kw)
+    torch.cuda.synchronize()
+    assert tpa.paged_attention.launches_q8 == before['q8'] + 2
+    assert tpa.paged_attention.launches_v16 - before['v16'] == \
+        (2 if d == 64 else 0)
+    assert torch.equal(out, again)
+    assert bool((out[7] == 0).all())            # the empty slot
+    for ref in (tpa.paged_attention_split_reference(q, kq, vq, tables, sl,
+                                                    **kw),
+                tpa.paged_attention_reference(q, kq, vq, tables, sl,
+                                              **kw)):
+        top = float(ref[:7].abs().max())
+        assert float((out[:7] - ref[:7]).abs().max()) <= 1e-5 * top
+
+
+@pytest.mark.parametrize('kv_dtype', ['int8', 'float8_e4m3fn'])
+def test_paged_attention_quantized_rows_do_not_depend_on_the_batch(
+        cuda, kv_dtype):
+    """A row of a 16-row decode batch gives the same bits alone and as
+    one row of a 64-row verify call (16 sequences x k+1 = 4 rows, the
+    tables repeated per row)."""
+    lens = [1, 40, 300, 512, 257, 256, 64, 31] * 2
+    q, kq, vq, tables, sl, ks, vs = _q8_args(cuda, kv_dtype, lens, 64,
+                                             h=4, p=16, nb=512)
+    kw = dict(k_scales=ks, v_scales=vs)
+    full = tpa.paged_attention(q, kq, vq, tables, sl, **kw)
+    rep = tables.repeat_interleave(4, dim=0)
+    for i in (1, 2, 3, 4):
+        alone = tpa.paged_attention(q[i:i + 1], kq, vq, tables[i:i + 1],
+                                    sl[i:i + 1], **kw)
+        qs = torch.randn(64, *q.shape[1:], device=cuda)
+        ls = (sl.repeat_interleave(4) +
+              torch.arange(4, device=cuda, dtype=torch.int32).repeat(16))
+        ls = ls.clamp(max=512).to(torch.int32)
+        qs[4 * i], ls[4 * i] = q[i], sl[i]
+        many = tpa.paged_attention(qs, kq, vq, rep, ls, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(alone[0], full[i])
+        assert torch.equal(many[4 * i], full[i])
+
+
+def test_paged_attention_quantized_wrapper_wants_its_scales(cuda):
+    q, kq, vq, tables, sl, ks, vs = _q8_args(cuda, 'int8', [5, 9], 64)
+    before = tpa.paged_attention.launches
+    with pytest.raises(ValueError, match='scales'):
+        tpa.paged_attention(q, kq, vq, tables, sl)           # no scales
+    with pytest.raises(ValueError, match='scales'):
+        tpa.paged_attention(q, kq.float(), vq.float(), tables, sl,
+                            k_scales=ks, v_scales=vs)       # fp32 pages
+    with pytest.raises(ValueError, match='scales'):
+        tpa.paged_attention(q, kq, vq, tables, sl, k_scales=ks[:, :1],
+                            v_scales=vs)
+    assert tpa.paged_attention.launches == before
+
+
+def test_engine_extras_on_card_equal_host(cuda):
+    """Prefix cache, spec_k=2 and int8 arenas together: the card's greedy
+    streams equal the host's, and the pool drains on both."""
+    spec = LMSpec(vocab_size=64, n_layer=2, n_head=2, d_key=16, d_value=16,
+                  d_model=32, d_inner=64)
+    geom = dict(max_batch=4, block_size=8, num_blocks=32, pages_per_seq=4)
+    weights = random_weights(spec, seed=2)
+    rng = np.random.RandomState(0)
+    shared = rng.randint(0, 64, 12).tolist()
+    prompts = [shared + rng.randint(0, 64, int(rng.randint(1, 6))).tolist()
+               for _ in range(6)]
+    out = {}
+    for place in (pt.CUDAPlace(0), pt.CPUPlace()):
+        eng = DecodeEngine(spec, place=place, weights=weights,
+                           prefix_cache=True, spec_k=2, kv_dtype='int8',
+                           **geom)
+        eng.start()
+        streams = [eng.submit(pr, max_new_tokens=8) for pr in prompts]
+        out[type(place).__name__] = [s.result(timeout=120)
+                                     for s in streams]
+        eng.shutdown()
+        assert eng.free_pages() == eng.num_blocks
+    assert out['CUDAPlace'] == out['CPUPlace']

@@ -292,3 +292,80 @@ def test_plain_versions_match_jax_gather_path_at_any_width(monkeypatch,
     else:
         gap = np.abs(split[live] - want[live])
         assert np.all(gap <= 2e-2 + 2e-2 * np.abs(want[live])), gap.max()
+
+
+# ---- quantized pages: int8 / e4m3 rows with one fp32 scale a row --------
+QDTYPES = ['int8', 'float8_e4m3fn']
+
+
+@pytest.mark.parametrize('kv_dtype', QDTYPES)
+@pytest.mark.parametrize('version', ['one_pass', 'split'])
+def test_quantized_plain_versions_match_jax_gather_path(kv_dtype, version):
+    """int8 and e4m3 pages quantized by the JAX package's quantize_rows,
+    their scales beside them: both plain versions of the port (the
+    quantized kernel's) against the JAX paged_attention_reference(...,
+    k_scales, v_scales), which dequantizes to fp32 before the attention.
+    Every operand is then the same fp32 value on both sides, summed in
+    another order: within 1e-5 of the largest value. An empty slot gives
+    0 in the split version (the JAX reference averages there)."""
+    from paddle_tpu.quant import core as jq
+    rng = np.random.RandomState(21)
+    nb, h, bs, d, p = 48, 2, 8, 8, 8
+    kf = (rng.randn(nb, h, bs, d) * 3).astype('float32')
+    vf = rng.randn(nb, h, bs, d).astype('float32')
+    q = rng.randn(6, h, d).astype('float32')
+    tables = rng.permutation(nb)[:6 * p].reshape(6, p).astype('int32')
+    lens = np.array([1, 7, 8, 9, 64, 0], 'int32')
+    tables[2, 1:] = nb + 5                # "no page" past the owned one
+    kq, ks = jq.quantize_rows(jnp.asarray(kf), kv_dtype)
+    vq, vs = jq.quantize_rows(jnp.asarray(vf), kv_dtype)
+    want = np.asarray(jpa.paged_attention_reference(
+        jnp.asarray(q), kq, vq, jnp.asarray(tables), jnp.asarray(lens),
+        k_scales=ks, v_scales=vs))
+    tdt = getattr(torch, kv_dtype)
+
+    def port_pages(a):
+        raw = np.asarray(a).view(np.uint8) if kv_dtype != 'int8' \
+            else np.asarray(a)
+        return torch.tensor(raw).view(tdt)
+
+    fn = tpa.paged_attention if version == 'one_pass' else \
+        tpa.paged_attention_split_reference
+    got = fn(torch.tensor(q), port_pages(kq), port_pages(vq),
+             torch.tensor(tables), torch.tensor(lens),
+             k_scales=torch.tensor(np.asarray(ks)),
+             v_scales=torch.tensor(np.asarray(vs))).numpy()
+    assert got.dtype == np.float32
+    live = lens > 0
+    if version == 'split':
+        assert np.all(got[~live] == 0)
+    else:
+        live[:] = True
+    top = float(np.abs(want[live]).max())
+    assert float(np.abs(got[live] - want[live]).max()) <= 1e-5 * top
+
+
+def test_quantized_split_version_rows_do_not_depend_on_the_batch():
+    """The quantized kernel's order of operations keeps a row's bits
+    whatever its batch: one row alone and inside a 24-row call."""
+    from paddle_tpu_torch.quant.core import quantize_rows
+    q, kp, vp, tables, lens = _split_case(seed=14)
+    kq, ks = quantize_rows(torch.tensor(kp), 'int8')
+    vq, vs = quantize_rows(torch.tensor(vp), 'int8')
+    kw = dict(k_scales=ks, v_scales=vs)
+    full = tpa.paged_attention_split_reference(
+        torch.tensor(q), kq, vq, torch.tensor(tables), torch.tensor(lens),
+        **kw)
+    for i in (1, 4, 6):
+        alone = tpa.paged_attention_split_reference(
+            torch.tensor(q[i:i + 1]), kq, vq, torch.tensor(tables[i:i + 1]),
+            torch.tensor(lens[i:i + 1]), **kw)
+        assert torch.equal(alone[0], full[i])
+        qs = torch.randn(24, *q.shape[1:])
+        ls = torch.randint(1, 2049, (24,), dtype=torch.int32)
+        qs[5], ls[5] = torch.tensor(q[i]), int(lens[i])
+        row = torch.tensor(np.where(tables[i] >= kp.shape[0], 3,
+                                    tables[i]).astype('int32'))
+        many = tpa.paged_attention_split_reference(
+            qs, kq, vq, row.expand(24, row.numel()), ls, **kw)
+        assert torch.equal(many[5], full[i])
