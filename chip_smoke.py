@@ -3,7 +3,11 @@
 and ResNet-50 training on one CUDA card.
 
     python3 chip_smoke.py                  # on a machine with one H100
-    python3 chip_smoke.py --cpu-rehearsal  # phases 4-10 on the host, tiny
+    python3 chip_smoke.py --cpu-rehearsal  # phases 4-11 on the host, tiny
+
+Every path runs through the executor's CUDA graphs (one a key, captured on
+its second call; core/executor.py), and phase 11 holds each against the
+same path run eagerly (use_program_cache=False).
 
 Phases (any fault exits non-zero; no phase is skipped over):
 
@@ -51,12 +55,21 @@ Phases (any fault exits non-zero; no phase is skipped over):
    versions within 1e-5 of the largest value; fp32 K4 at the verify
    shape; and the LM's row tiles: torch.matmul's rows at M = 16, 64, 512
    compared (printed), paged_decode_ops._mm's bit-equal at every M.
+   Head dims above 256: K2 and K3 at D = 320 (the wide SIMT kernels, fp32
+   causal and bf16 with kv_len-0 rows) and K4's any-width kernel at
+   D = Dv = 320 (fp32, bf16). The captured step's kernels, bit for bit
+   with their plain versions: the KV write at a decode step's rows (16,
+   13 kept) into fp32, bf16, int8 and e4m3 arenas, and the keep mask at
+   the Transformer's dropout shapes.
 4. Engine: DecodeEngine at the documented serving configuration
    (docs/serving.md: vocab 32000, 12 layers, 8 heads, d_model 512,
    d_inner 2048; max_batch 16, block 32, 4096 pages, 64 pages a
    sequence; fp32 arena; random_weights(seed 0)). warmup(), start(), 32
    requests from 16 submitter threads (prompts 64-512 tokens, 64 new
-   tokens, 28 greedy and 4 at temperature 0.7). Checks every stream
+   tokens, 28 greedy and 4 at temperature 0.7). warmup() captures one
+   graph a shape (12 prompt buckets and the decode step; the verify step
+   with speculation); each then runs as a replay, and serving captures
+   nothing. Checks every stream
    completes, 4 greedy streams re-run alone equal their concurrent
    runs, pages return after drain, and the kernels' launch counters
    grew by 2*L (layer norm) and L (paged attention) per prefill and
@@ -106,14 +119,29 @@ Phases (any fault exits non-zero; no phase is skipped over):
    the first loss within 1e-3 relative, the running statistics and
    gradients of the first step within stated bounds, later losses
    printed beside the host's own spread.
+11. Captured against eager, in this call: (a) bench_transformer's
+   width, eager (use_program_cache=False) then captured, 3 + 20 steps
+   each on one scope: ms a step, tokens/s, MFU; then phase 8's program
+   with dropout 0.1: 3 captured steps equal 3 eager steps, and
+   run_steps(3) 3 run calls, bit for bit in the losses and every scope
+   variable, every scope tensor at its address. (b) bench_resnet50's
+   width the same way (images/s); then phase 10's program, the first step
+   from the same state captured against eager (and run_steps(1)), with
+   cuDNN's default backward algorithms (printed beside two eager runs'
+   own gap) and with torch.backends.cudnn.deterministic (within 1e-6).
+   (c) phase 4's and phase 5b's int8 traffic through an eager engine:
+   all 32 streams (greedy and sampled) equal the captured runs'; tokens/s,
+   TTFT and inter-token gaps of both.
 
 The last line is {"ok": true, "device": {...}}; before it come one JSON
 line with every kernel's numbers and nvidia-smi's name and power limit.
---cpu-rehearsal runs phases 4-10 at tiny sizes with the plain versions
-(phases 8 and 10 then compare the host with itself) and never prints
+--cpu-rehearsal runs phases 4-11 at tiny sizes with the plain versions
+(phases 8, 10 and 11 then compare the host with itself) and never prints
 that last line. --profile adds, after every other phase, a torch.profiler
-breakdown of decode steps (fp32 and int8 arenas), verify steps (k = 3),
-Transformer and ResNet-50 training steps.
+breakdown of decode steps (fp32 and int8 arenas, captured and eager),
+verify steps (k = 3), Transformer and ResNet-50 training steps (captured
+and eager): wall, device busy time and share, host launches (kernels and
+graphs) a step.
 --kernels-only stops after phase 3 (no verdict line). kernel_times.py
 times K1, K4, K2, K3 and K5 and the backward kernels of any checkout of
 this repository at phase 3's shapes.
@@ -212,27 +240,11 @@ VARIANTS = ('flash_attention_fwd', 'flash_attention_bwd_dkv',
 
 def _counters():
     """[(name, wrapper, attribute)]: every launch count the smoke reads
-    (each wrapper adds one where it launches its kernel), and the batch
-    norm backward's copies of a gradient into x's layout."""
-    from paddle_tpu_torch.ops.kernels import flash_attention as fa
-    from paddle_tpu_torch.ops.kernels.batch_norm import fused_batch_norm_train
-    from paddle_tpu_torch.ops.kernels.layer_norm import fused_layer_norm
-    from paddle_tpu_torch.ops.kernels.paged_attention import paged_attention
-    res = [('layer_norm', fused_layer_norm, 'launches'),
-           ('layer_norm_bwd', fused_layer_norm, 'bwd_launches'),
-           ('paged_attention', paged_attention, 'launches'),
-           ('paged_attention_v16', paged_attention, 'launches_v16'),
-           ('paged_attention_any', paged_attention, 'launches_any'),
-           ('paged_attention_q8', paged_attention, 'launches_q8'),
-           ('batch_norm', fused_batch_norm_train, 'launches'),
-           ('batch_norm_bwd', fused_batch_norm_train, 'bwd_launches'),
-           ('batch_norm_bwd_gy_copies', fused_batch_norm_train,
-            'bwd_gy_copies')]
-    for name, fn in zip(VARIANTS, (fa.flash_fwd_cuda, fa.flash_bwd_dkv_cuda,
-                                   fa.flash_bwd_dq_cuda)):
-        res += [(name, fn, 'launches'), (name + '_mma', fn, 'launches_mma'),
-                (name + '_simt', fn, 'launches_simt')]
-    return res
+    (each wrapper adds one where it launches its kernel; the executor adds
+    a captured graph's at each replay), and the batch norm backward's
+    copies of a gradient into x's layout."""
+    from paddle_tpu_torch.ops.kernels import launch_counters
+    return launch_counters()
 
 
 def reset_launches():
@@ -285,8 +297,11 @@ def phase_build():
     for kernel in ('paged_split_kernel', 'paged_merge_kernel',
                    'paged_split_any_kernel', 'flash_fwd_mma_kernel',
                    'flash_bwd_dkv_mma_kernel', 'flash_bwd_dq_mma_kernel',
-                   'bn_train_kernel', 'bn_bwd_kernel', 'ln_warp_kernel',
-                   'ln_bwd_rows_kernel', 'ln_bwd_cols_kernel'):
+                   'flash_fwd_wide_kernel', 'flash_bwd_dkv_wide_kernel',
+                   'flash_bwd_dq_wide_kernel', 'bn_train_kernel',
+                   'bn_bwd_kernel', 'ln_warp_kernel', 'ln_bwd_rows_kernel',
+                   'ln_bwd_cols_kernel', 'kv_write_kernel',
+                   'keep_mask_kernel'):
         require(kernel in res.log, 'ptxas\'s log does not show %s' % kernel)
     print('  flash attention dynamic shared memory at D=64: tensor-core '
           'forward %d B, SIMT forward %d B, SIMT dK/dV %d B, SIMT dQ %d B, '
@@ -899,6 +914,12 @@ def flash_fault_shapes(torch):
          torch.bfloat16, True, None),
         ('flash_attention B=4 H=4 T=200 D=192 float32 kv_len 200, 131, 0, '
          '1', 4, 4, 200, 200, 192, torch.float32, False, [200, 131, 0, 1]),
+        ('flash_attention B=4 H=4 T=256 D=320 float32 causal (the wide SIMT '
+         'kernels: 128-column chunks of the head dim)', 4, 4, 256, 256, 320,
+         torch.float32, True, None),
+        ('flash_attention B=4 H=4 T=200 D=320 bf16 kv_len 200, 131, 0, 1 '
+         '(wide SIMT)', 4, 4, 200, 200, 320, torch.bfloat16, False,
+         [200, 131, 0, 1]),
     ]
 
 
@@ -973,6 +994,10 @@ def paged_any_shapes(torch):
          torch.float32, 30, 30),
         ('paged_attention any-width, fp32 D = Dv = 192 (768-byte rows)',
          torch.float32, 192, 192),
+        ('paged_attention any-width, fp32 D = Dv = 320 (1280-byte rows, '
+         'two 256-column chunks)', torch.float32, 320, 320),
+        ('paged_attention any-width, bf16 D = Dv = 320', torch.bfloat16, 320,
+         320),
     ]
 
 
@@ -1214,6 +1239,125 @@ def _bn_grad_check(torch, card, gen):
             'version')
 
 
+def _kv_write_case(torch, card, label, kv_dtype, gen, n=16, h=8, d=64,
+                   nb=4096, bs=32):
+    """The KV-write kernel against its plain version, bit for bit, at a
+    decode step's rows (16 rows, 13 kept, 3 dropped through entries past
+    the pool), and its times."""
+    from paddle_tpu_torch.ops.kernels import kv_write as K
+    dev = torch.device('cuda', 0)
+    dtype = getattr(torch, kv_dtype)
+    quant = kv_dtype in ('int8', 'float8_e4m3fn')
+    k_new = 3 * torch.randn(n, h, d, generator=gen, device=dev)
+    v_new = torch.randn(n, h, d, generator=gen, device=dev)
+    slots = torch.randperm(nb * bs, generator=gen, device=dev)[:n]
+    phys = (slots // bs).to(torch.int32)
+    off = (slots % bs).to(torch.int32)
+    phys[-3:] = nb
+    keep = phys < nb
+    if quant:
+        ka = torch.zeros(nb, h, bs, d, dtype=torch.uint8,
+                         device=dev).view(dtype)
+        scales = [torch.zeros(nb, h, bs, device=dev) for _ in range(2)]
+    else:
+        ka = torch.zeros(nb, h, bs, d, dtype=dtype, device=dev)
+        scales = [None, None]
+    va = torch.zeros_like(ka)
+    outs = []
+    for fn in (K.kv_write_reference, K.kv_write):
+        bufs = [ka.clone(), va.clone()] + \
+            [x.clone() if x is not None else None for x in scales]
+        fn(k_new, v_new, bufs[0], bufs[1], phys, off, keep, *bufs[2:])
+        outs.append(bufs)
+    torch.cuda.synchronize()
+
+    def raw(t):
+        return t.view(torch.uint8) if t.element_size() == 1 else t
+    ok = all(torch.equal(raw(a), raw(b)) for a, b in zip(*outs)
+             if a is not None)
+    err = max(float((a.float() - b.float()).abs().max())
+              for a, b in zip(*outs) if a is not None)
+    del outs
+    kept = int(keep.sum())
+    item = ka.element_size()
+    n_bytes = kept * h * 2 * d * (4 + item) + (kept * h * 2 * 4 if quant
+                                               else 0) + n * 9
+    lo, by = bound_ms(n_bytes, kept * h * 2 * d * (3 if quant else 1))
+    bufs = [ka, va] + scales
+
+    def kernel():
+        K.kv_write(k_new, v_new, bufs[0], bufs[1], phys, off, keep,
+                   *bufs[2:])
+    ms = device_ms(torch, kernel)
+    eager = eager_ms(torch, kernel)
+    # the plain version picks the kept rows with torch.nonzero, a host
+    # read: it cannot be captured, so it is timed eagerly (CUDA events
+    # over back-to-back calls)
+    plain = eager_ms(torch, lambda: K.kv_write_reference(
+        k_new, v_new, bufs[0], bufs[1], phys, off, keep, *bufs[2:]),
+        iters=50)
+    print('kv_write %s: %d rows (%d kept) x H=%d x D=%d, %s arenas [%d, %d, '
+          '%d, %d]: bit for bit with its plain version (quantize_rows and '
+          'the masked scatter) %s, max_abs_err %.3g; device ms: kernel %.5f, '
+          'plain %.5f (eager: a host read), bound %.6f (%s); kernel eager '
+          '%.5f ms; no single PyTorch call writes both arenas with the drop '
+          '[%s]' % (label, n, kept, h, d, kv_dtype, nb, h, bs, d,
+                    'ok' if ok else 'MISMATCH', err, ms, plain, lo, by,
+                    eager, card))
+    require(ok, 'kv_write %s disagrees with its plain version' % label)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=lo,
+                bound_by=by, library_ms=None, eager_ms=eager)
+
+
+def _keep_mask_case(torch, card, shape, dtype):
+    """The keep-mask kernel against its plain version, bit for bit, at a
+    dropout of the Transformer's training step, and its times."""
+    from paddle_tpu_torch.ops.kernels import random_bits as K
+    dev = torch.device('cuda', 0)
+    step = torch.tensor(7, dtype=torch.int64, device=dev)
+    got = K.keep_mask(shape, 0.9, 0x1234567, step, dev, dtype)
+    want = K.keep_mask_reference(shape, 0.9, 0x1234567, step, dev, dtype)
+    torch.cuda.synchronize()
+    ok = torch.equal(got, want)
+    share = float(got.float().mean())
+    n = got.numel()
+    lo, by = bound_ms(n * got.element_size() + 8, 12 * n)
+    ms = device_ms(torch, lambda: K.keep_mask(shape, 0.9, 0x1234567, step,
+                                              dev, dtype))
+    eager = eager_ms(torch, lambda: K.keep_mask(shape, 0.9, 0x1234567, step,
+                                                dev, dtype))
+    plain = device_ms(torch, lambda: K.keep_mask_reference(
+        shape, 0.9, 0x1234567, step, dev, dtype), iters=20)
+    label = 'keep_mask %s %s' % (list(shape), str(dtype)[6:])
+    print('%s: bit for bit with its plain version %s (kept share %.5f at '
+          'keep 0.9); device ms: kernel %.5f, plain %.5f, bound %.6f (%s); '
+          'kernel eager %.5f ms; no single PyTorch call draws these bits '
+          '[%s]' % (label, 'ok' if ok else 'MISMATCH', share, ms, plain, lo,
+                    by, eager, card))
+    require(ok, '%s disagrees with its plain version' % label)
+    require(abs(share - 0.9) < 2e-3, '%s keeps %.4f, want ~0.9'
+            % (label, share))
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=lo,
+                bound_by=by, library_ms=None, eager_ms=eager)
+
+
+def phase_step_kernels(torch, card):
+    """The captured step's kernels: the KV write at the engine's decode
+    rows (fp32, bf16, int8 and e4m3 arenas) and the keep mask at the
+    Transformer's dropout shapes; returns the kernels line's (fp32 KV
+    write, the FFN's bf16 mask)."""
+    gen = torch.Generator(device='cuda').manual_seed(5)
+    kv = {}
+    for kv_dtype in ('float32', 'bfloat16', 'int8', 'float8_e4m3fn'):
+        kv[kv_dtype] = _kv_write_case(torch, card, 'decode step', kv_dtype,
+                                      gen)
+        torch.cuda.empty_cache()
+    _keep_mask_case(torch, card, (64, 64, 512), torch.bfloat16)
+    mask = _keep_mask_case(torch, card, (64, 64, 2048), torch.bfloat16)
+    _keep_mask_case(torch, card, (64, 64, 512), torch.bool)
+    return kv['float32'], mask
+
+
 def phase_bn_kernels(torch, card):
     """K5 at ResNet-50's shapes (batch 64, 224x224: the stem, stage 1's
     64-channel, stage 2's and stage 4's widest), NCHW, fp32 and an odd
@@ -1278,11 +1422,11 @@ def _pct(xs, q):
     return float(np.percentile(np.asarray(xs), q)) if xs else float('nan')
 
 
-def _decode_job(eng, spec, steps=20, k=0):
+def _decode_job(eng, spec, steps=20, k=0, mode='captured'):
     """--profile job: a decode step (``k`` = 0) or a verify step of k + 1
     tokens a row with every batch slot busy (lengths from 300), run on this
-    thread through the shut-down engine's programs. Returns (label, step,
-    steps, release)."""
+    thread through the shut-down engine's programs (``mode``: how that
+    engine runs them). Returns (label, step, steps, release)."""
     mb, pps, bs = eng.max_batch, eng.pages_per_seq, eng.block_size
     rng = np.random.RandomState(7)
     need = -(-(300 + 2 * steps + k + 8) // bs)
@@ -1313,9 +1457,9 @@ def _decode_job(eng, spec, steps=20, k=0):
 
     what = 'verify steps (k+1 = %d tokens a row)' % (k + 1) if k else \
         'decode steps'
-    return ('%d %s x %d rows, %s arenas (lengths 300..%d)'
-            % (steps, what, mb, eng.kv_dtype, 300 + 3 + 2 * steps), step,
-            steps, release)
+    return ('%d %s x %d rows, %s arenas (lengths 300..%d), %s'
+            % (steps, what, mb, eng.kv_dtype, 300 + 3 + 2 * steps, mode),
+            step, steps, release)
 
 
 def _family(name):
@@ -1403,15 +1547,21 @@ def profile_steps(torch, card, jobs):
             if a.key in NODES:
                 sections[a.key] = a.device_time_total
         busy_ms = busy / steps / 1e3
+        # host launches: kernels (plain and cooperative) and CUDA graphs
         launches = sum(c for k, (c, _) in host.items()
-                       if k.startswith('cudaLaunchKernel'))
+                       if k.startswith('cudaLaunchKernel') or
+                       k.startswith('cudaLaunchCooperativeKernel'))
+        graphs = sum(c for k, (c, _) in host.items()
+                     if k.startswith('cudaGraphLaunch'))
         copies = sum(c for k, (c, _) in kernels.items()
                      if 'direct_copy' in k)
         print('profile: %s: wall %.3f ms/step (no profiler), device busy '
-              '%.3f ms/step, busy share %.3f; %.1f kernel launches/step, '
-              '%.1f of them direct_copy [%s]'
+              '%.3f ms/step, busy share %.3f; host launches/step: %.1f '
+              'kernels + %.1f graphs; device kernels/step %.1f, %.1f of them '
+              'direct_copy [%s]'
               % (label, wall_ms, busy_ms, busy_ms / wall_ms,
-                 launches / steps, copies / steps, card))
+                 launches / steps, graphs / steps, len(timed) / steps,
+                 copies / steps, card))
         if sections:
             print('  device time by section (us/step): %s'
                   % ', '.join('%s %.1f' % (k, t / steps)
@@ -1443,28 +1593,75 @@ def lm_weights(spec):
     return _WEIGHTS[key]
 
 
+def eager_engine(eng):
+    """An engine whose programs run eagerly: its executor's run with
+    use_program_cache=False (the comparison of phase 11)."""
+    import functools
+    eng._exe.run = functools.partial(type(eng._exe).run, eng._exe,
+                                     use_program_cache=False)
+    return eng
+
+
+def _check_replays(eng, label):
+    """After warmup, every shape the engine serves (each prompt bucket,
+    the decode step and, with speculation, the verify step) runs as a
+    replay of its graph: last_captured, and no capture."""
+    nb, mb, pps = eng.num_blocks, eng.max_batch, eng.pages_per_seq
+    captures = eng.captures
+    idle = (np.zeros((mb,), 'int32'), np.full((mb, pps), nb, 'int32'),
+            np.zeros((mb,), 'float32'), np.zeros((mb,), 'int32'))
+    runs = [('prefill %d' % b, lambda b=b: eng._run_prefill(
+        np.zeros((1, b), 'int64'), 1, 0, np.full((1, pps), nb, 'int32'),
+        0.0, 0)) for b in eng.prompt_buckets]
+    runs.append(('decode', lambda: eng._run_decode(
+        np.zeros((mb,), 'int64'), *idle)))
+    if eng.spec_k:
+        runs.append(('verify', lambda: eng._run_verify(
+            np.zeros((mb, eng.spec_k + 1), 'int64'), *idle)))
+    for what, run in runs:
+        run()
+        require(eng._exe.last_captured, '%s: the %s step after warmup ran '
+                'eagerly' % (label, what))
+    require(eng.captures == captures, '%s: a step after warmup captured'
+            % label)
+    print('%s: after warmup, %d shapes (%s) each ran as a replay of its '
+          'graph' % (label, len(runs), ', '.join(w for w, _ in runs)))
+
+
 def phase_engine(torch, spec, engine_kw, reqs, place, card, on_card,
-                 label='engine', alone=4):
+                 label='engine', alone=4, eager=False):
     """One engine run: build, warmup, ``reqs`` from 16 submitter threads
     with every launch count at 0 just before; checks and prints; then
-    ``alone`` greedy streams re-run alone. Returns (results, launches,
-    engine, stats)."""
+    ``alone`` greedy streams re-run alone. On the card the engine's steps
+    are CUDA graphs that warmup() captured, one a shape, and the run
+    captures nothing more; ``eager`` runs every step eagerly instead.
+    Returns (results, launches, engine, stats)."""
     from paddle_tpu_torch.serving.decode import DecodeEngine
     t0 = time.perf_counter()
     eng = DecodeEngine(spec, place=place, weights=lm_weights(spec),
                        **engine_kw)
+    if eager:
+        eager_engine(eng)
     t1 = time.perf_counter()
     n_shapes = eng.warmup()
+    captured = on_card and not eager
+    captures = eng.captures
     if on_card:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     t2 = time.perf_counter()
-    print('%s: built + weights %.2f s, warmup %.2f s (%d shapes), '
-          'kv %s %d B/token, %d pages x %d, prefix cache %s, spec_k %d, '
-          'place %r' % (label, t1 - t0, t2 - t1, n_shapes, eng.kv_dtype,
-                        eng.kv_bytes_per_token, eng.num_blocks,
-                        eng.block_size, eng.prefix_cache is not None,
-                        eng.spec_k, eng.place))
+    print('%s: built + weights %.2f s, warmup %.2f s (%d shapes, %d CUDA '
+          'graphs captured), kv %s %d B/token, %d pages x %d, prefix cache '
+          '%s, spec_k %d, place %r, %s' % (
+              label, t1 - t0, t2 - t1, n_shapes, captures, eng.kv_dtype,
+              eng.kv_bytes_per_token, eng.num_blocks, eng.block_size,
+              eng.prefix_cache is not None, eng.spec_k, eng.place,
+              'captured' if captured else 'eager'))
+    require(captures == (n_shapes if captured else 0),
+            '%s: warmup captured %d graphs for %d shapes'
+            % (label, captures, n_shapes))
+    if captured:
+        _check_replays(eng, label)
     eng.start()
 
     n_threads = 16
@@ -1516,6 +1713,8 @@ def phase_engine(torch, spec, engine_kw, reqs, place, card, on_card,
                                             eng.verify_steps))]
     runs = sum(steps)
     require(not errors, '%s: client errors: %s' % (label, errors[:3]))
+    require(eng.captures == captures, '%s: %d captures during serving'
+            % (label, eng.captures - captures))
     require(all(r is not None and len(r) == q['max_new_tokens']
                 for r, q in zip(results, reqs)),
             '%s: a stream did not complete with max_new_tokens tokens'
@@ -1589,6 +1788,8 @@ def phase_engine(torch, spec, engine_kw, reqs, place, card, on_card,
     if alone:
         print('%s: %d greedy streams re-run alone equal their concurrent '
               'runs' % (label, alone))
+    require(eng.captures == captures, '%s: %d captures after warmup'
+            % (label, eng.captures - captures))
     eng.shutdown()
     require(eng.free_pages() == eng.num_blocks,
             '%s: pages leaked after shutdown' % label)
@@ -1657,7 +1858,7 @@ def phase_quantized(torch, spec, engine_kw, reqs, place, card, on_card,
     spec_k=3: the run's checks (4 greedy streams alone equal their
     concurrent runs, every K4 launch on the quantized variant), then the
     same engine on the host equal to the card. Returns (launches, engine,
-    stats)."""
+    stats, results)."""
     kw = dict(engine_kw, prefix_cache=True, spec_k=3, kv_dtype=kv_dtype)
     results, launches, eng, stats = phase_engine(
         torch, spec, kw, reqs, place, card, on_card,
@@ -1666,7 +1867,7 @@ def phase_quantized(torch, spec, engine_kw, reqs, place, card, on_card,
           % (kv_dtype, eng.kv_bytes_per_token, stats['tokens_per_s'], card))
     phase_cpu_compare(spec, reqs, results, engine_kw['block_size'], n_new,
                       dict(prefix_cache=True, spec_k=3, kv_dtype=kv_dtype))
-    return launches, eng, stats
+    return launches, eng, stats, results
 
 
 # ------------------------------------------------------------ phase 5
@@ -2070,10 +2271,258 @@ def phase_resnet_compare(torch, pt, places, lr=0.01, steps=3):
     require(grad_gap <= 0.25, 'first-step gradients differ across places')
 
 
+# ------------------------------------------------------------ phase 11
+def _snapshot(scope):
+    return {n: scope.find(n).detach().clone() for n in scope.keys()}
+
+
+def _restore(scope, snap):
+    """Every scope tensor takes its snapshot in place: the graphs captured
+    over them stay valid."""
+    for n, t in snap.items():
+        scope.find(n).copy_(t)
+
+
+def _mode_steps(torch, pt, exe, program, scope, feed, fetch, cache, warmup,
+                steps, on_card):
+    """``warmup`` then ``steps`` timed steps in one mode (cache: captured,
+    else use_program_cache=False); returns (seconds, losses)."""
+    def run(n):
+        return [exe.run(program, feed=feed, fetch_list=[fetch],
+                        return_numpy=False, use_program_cache=cache)[0]
+                for _ in range(n)]
+    with pt.scope_guard(scope):
+        first = run(warmup)
+        if on_card:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run(steps)
+        if on_card:
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    if on_card:
+        require(exe.last_captured == cache, 'the %s steps ran %s' % (
+            'captured' if cache else 'eager',
+            'captured' if exe.last_captured else 'eagerly'))
+    return secs, [float(v.float()) for v in first + out]
+
+
+def _eager_vs_captured(torch, pt, place, card, on_card, program, fetch,
+                       feed, label, unit, units, flops, warmup, steps):
+    """The same training program eagerly (use_program_cache=False) and as
+    a CUDA graph, one after the other on one scope: ms a step, units/s and
+    MFU of each. Returns (rows, --profile jobs)."""
+    exe = pt.Executor(place)
+    scope = pt.Scope()
+    with pt.scope_guard(scope):
+        exe.run(pt.default_startup_program())
+    feed = {n: torch.as_tensor(v).to(exe.device) for n, v in feed.items()}
+    rows, jobs = {}, []
+    for mode, cache in (('eager', False), ('captured', True)):
+        secs, losses = _mode_steps(torch, pt, exe, program, scope, feed,
+                                   fetch, cache, warmup, steps, on_card)
+        require(np.isfinite(losses).all(), '%s %s: loss not finite'
+                % (label, mode))
+        ms = secs * 1e3 / steps
+        rows[mode] = dict(ms=ms, per_s=units * steps / secs,
+                          mfu=flops / (ms / 1e3) / BF16_FLOPS)
+
+        def job_step(cache=cache):
+            with pt.scope_guard(scope):
+                exe.run(program, feed=feed, fetch_list=[fetch],
+                        return_numpy=False, use_program_cache=cache)
+        jobs.append(('5 %s steps, %s' % (label, mode), job_step, 5, None))
+    e, c = rows['eager'], rows['captured']
+    print('phase 11 %s: eager %.3f ms/step, %.1f %s/s, MFU %.4f; captured '
+          '%.3f ms/step, %.1f %s/s, MFU %.4f (%d timed steps each after %d '
+          'warm-up; %d CUDA graph captured) [%s]'
+          % (label, e['ms'], e['per_s'], unit, e['mfu'], c['ms'],
+             c['per_s'], unit, c['mfu'], steps, warmup, exe.captures, card))
+    if on_card:
+        require(exe.captures == 1, '%s: %d captures, want 1'
+                % (label, exe.captures))
+    return rows, jobs
+
+
+def _three_ways(torch, pt, place, program, fetch, weights, feed, steps=3,
+                modes=('captured', 'eager', 'run_steps')):
+    """The same ``steps`` steps from the same state three ways: replays of
+    a captured graph, eager runs (use_program_cache=False) and one
+    run_steps call. Each executor first runs two steps (the eager warm-up
+    and the capture) and then takes its state back, so all three are at
+    the same step index. Returns {mode: (losses, {var: numpy},
+    addresses kept)}."""
+    from paddle_tpu_torch.weights import load_into_scope
+    res = {}
+    for mode in modes:
+        scope = pt.Scope()
+        load_into_scope(weights, scope, place)
+        exe = pt.Executor(place)
+        cache = mode != 'eager'
+        snap = _snapshot(scope)
+        with pt.scope_guard(scope):
+            for _ in range(2):
+                exe.run(program, feed=feed, fetch_list=[fetch],
+                        use_program_cache=cache)
+            _restore(scope, snap)
+            ptrs = {n: scope.find(n).data_ptr() for n in scope.keys()}
+            if mode == 'run_steps':
+                losses = exe.run_steps(steps, program, feed=feed,
+                                       fetch_list=[fetch])[0].reshape(-1)
+            else:
+                losses = np.array([
+                    exe.run(program, feed=feed, fetch_list=[fetch],
+                            use_program_cache=cache)[0].reshape(())
+                    for _ in range(steps)])
+        kept = ptrs == {n: scope.find(n).data_ptr() for n in scope.keys()}
+        res[mode] = (losses, {n: scope.numpy(n) for n in scope.keys()}, kept)
+        del exe, scope
+    return res
+
+
+def phase_captured_train(torch, pt, place, card, on_card, batch, seq, vocab,
+                         dims, cmp_batch=2, warmup=3, steps=20):
+    """Phase 11a: bench_transformer eager against captured, then phase 8's
+    program at fp32 with dropout 0.1: 3 captured steps equal 3 eager steps
+    and run_steps(3) equals 3 run calls, bit for bit in the losses and
+    every scope variable. Returns the --profile jobs."""
+    from paddle_tpu_torch.models import transformer as T
+    avg_cost = _build_train(pt, vocab, seq, 0.1, 'bf16', **dims)
+    flops = T.train_step_flops(batch, seq, seq, vocab,
+                               n_layer=dims.get('n_layer', 6),
+                               n_head=dims.get('n_head', 8),
+                               d_key=dims.get('d_key', 64),
+                               d_model=dims.get('d_model', 512),
+                               d_inner=dims.get('d_inner', 2048))
+    _, jobs = _eager_vs_captured(
+        torch, pt, place, card, on_card, pt.default_main_program(), avg_cost,
+        T.make_fake_batch(batch, seq, seq, vocab, vocab, seed=0),
+        'Transformer-base', 'tokens', batch * seq, flops, warmup, steps)
+    avg_cost = _build_train(pt, vocab, seq, 0.1, None, **dims)
+    host = pt.Scope()
+    with pt.scope_guard(host):
+        pt.Executor(pt.CPUPlace()).run(pt.default_startup_program())
+    weights = {n: host.numpy(n) for n in host.keys()}
+    res = _three_ways(torch, pt, place, pt.default_main_program(), avg_cost,
+                      weights, T.make_fake_batch(cmp_batch, seq, seq, vocab,
+                                                 vocab, seed=0))
+    base_losses, base_vars, _ = res['captured']
+    verdict = {}
+    for mode in ('eager', 'run_steps'):
+        losses, vars_, _ = res[mode]
+        verdict[mode] = bool(np.array_equal(losses, base_losses)) and all(
+            np.array_equal(vars_[n], v) for n, v in base_vars.items())
+    kept = all(r[2] for r in res.values())
+    print('phase 11 Transformer compare (batch %d x seq %d, fp32, dropout '
+          '0.1, Adam): losses captured %s, eager %s, run_steps %s; captured '
+          '== eager bit for bit (losses and %d scope variables): %s; '
+          'run_steps(3) == 3 run calls: %s; every scope tensor kept its '
+          'address: %s [%s]'
+          % (cmp_batch, seq, ['%.7f' % v for v in base_losses],
+             ['%.7f' % v for v in res['eager'][0]],
+             ['%.7f' % v for v in res['run_steps'][0]], len(base_vars),
+             verdict['eager'], verdict['run_steps'], kept, card))
+    require(np.isfinite(base_losses).all(), 'compare losses not finite')
+    require(verdict['eager'], 'captured Transformer steps differ from eager')
+    require(verdict['run_steps'], 'run_steps(3) differs from 3 run calls')
+    require(kept, 'a scope tensor changed its address')
+    return jobs
+
+
+def phase_captured_resnet(torch, pt, place, card, on_card, batch, image,
+                          class_dim, small=False, warmup=3, steps=20):
+    """Phase 11b: bench_resnet50 eager against captured, then phase 10's
+    program (32x32, batch 8, NCHW, fp32): the first step captured against
+    eager within 1e-6 relative (loss; every scope variable against its
+    largest entry), and whether two eager runs repeat their bits. Returns
+    the --profile jobs."""
+    from paddle_tpu_torch.models import resnet as R
+    avg_cost = _build_resnet(pt, image, class_dim, 'NHWC', 'bf16', 0.1,
+                             small=small)
+    program = pt.default_main_program()
+    flops = 3 * 2 * R.forward_macs_per_image(program) * batch
+    _, jobs = _eager_vs_captured(
+        torch, pt, place, card, on_card, program, avg_cost,
+        R.make_fake_batch(batch, image, class_dim, seed=0), 'ResNet-50',
+        'images', batch, flops, warmup, steps)
+    avg_cost = _build_resnet(pt, 32, 10, 'NCHW', None, 0.01)
+    host = pt.Scope()
+    with pt.scope_guard(host):
+        pt.Executor(pt.CPUPlace()).run(pt.default_startup_program())
+    weights = {n: host.numpy(n) for n in host.keys()}
+    feed = R.make_fake_batch(8, 32, 10, seed=0)
+
+    def gap(a, b):
+        """The larger of the losses' relative gap and every scope
+        variable's largest gap against its largest entry."""
+        rel = float(np.max(np.abs(a[0] - b[0]) / np.abs(b[0])))
+        return max([rel] + [float(np.abs(a[1][n] - v).max()) /
+                            max(float(np.abs(v).max()), 1e-30)
+                            for n, v in b[1].items()])
+
+    # cuDNN's default backward algorithms need not repeat their bits from
+    # run to run: the comparison runs twice, with its default algorithms
+    # and with torch.backends.cudnn.deterministic, each time against two
+    # eager runs
+    found = {}
+    for deterministic in (False, True):
+        torch.backends.cudnn.deterministic = deterministic
+        try:
+            res = _three_ways(torch, pt, place, pt.default_main_program(),
+                              avg_cost, weights, feed, steps=1)
+            again = _three_ways(torch, pt, place, pt.default_main_program(),
+                                avg_cost, weights, feed, steps=1,
+                                modes=('eager',))['eager']
+        finally:
+            torch.backends.cudnn.deterministic = False
+        base = res['eager']
+        found[deterministic] = (gap(res['captured'], base),
+                                gap(res['run_steps'], base),
+                                gap(again, base))
+    for deterministic, (cap, rsteps, eager) in found.items():
+        print('phase 11 ResNet-50 compare (32x32, batch 8, NCHW, fp32, '
+              'Momentum(0.01), cudnn.deterministic=%s), the first step from '
+              'the same state: captured vs eager within %.3g relative (limit '
+              '1e-6), run_steps(1) vs eager %.3g; two eager runs within %.3g '
+              '(bit-equal: %s) [%s]' % (deterministic, cap, rsteps, eager,
+                                        eager == 0.0, card))
+    cap, rsteps, _ = found[True]
+    require(cap <= 1e-6 and rsteps <= 1e-6,
+            'captured ResNet-50 step differs from eager')
+    return jobs
+
+
+def phase_captured_engine(torch, spec, engine_kw, reqs, card, on_card,
+                          captured, label, kv_dtype=None):
+    """Phase 11c: the same traffic through an eager engine
+    (use_program_cache=False): every stream equal to the captured run's,
+    and both runs' tokens/s, TTFT and inter-token gaps. ``captured`` is
+    that run's (results, stats). Returns the eager engine."""
+    import paddle_tpu_torch as pt
+    kw = dict(engine_kw)
+    if kv_dtype is not None:
+        kw.update(prefix_cache=True, spec_k=3, kv_dtype=kv_dtype)
+    results, _, eng, stats = phase_engine(
+        torch, spec, kw, reqs, pt.CUDAPlace(0) if on_card else pt.CPUPlace(),
+        card, on_card, label=label + ' eager', alone=0, eager=True)
+    got, base = captured
+    diff = [i for i, (a, b) in enumerate(zip(got, results)) if a != b]
+    print('phase 11 %s: %d streams (greedy and sampled) equal eager and '
+          'captured: %s; tokens/s %.1f eager, %.1f captured; TTFT p50 %.1f, '
+          '%.1f ms; inter-token p50 %.2f, %.2f ms; p99 %.2f, %.2f ms [%s]'
+          % (label, len(got), not diff, stats['tokens_per_s'],
+             base['tokens_per_s'], stats['ttft_p50_ms'], base['ttft_p50_ms'],
+             stats['itl_p50_ms'], base['itl_p50_ms'], stats['itl_p99_ms'],
+             base['itl_p99_ms'], card))
+    require(not diff, '%s: streams %s differ between eager and captured'
+            % (label, diff[:5]))
+    return eng
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--cpu-rehearsal', action='store_true',
-                    help='run phases 4-10 on the host at tiny sizes with '
+                    help='run phases 4-11 on the host at tiny sizes with '
                          'the plain versions')
     ap.add_argument('--profile', action='store_true',
                     help='after every other phase, profile 20 decode '
@@ -2099,7 +2548,7 @@ def main():
                       d_value=8, d_model=16, d_inner=32)
         reqs = _requests(spec, 32, 1, 9, 6)
         host = 'host CPU, rehearsal'
-        results, _, _, _ = phase_engine(
+        results, _, _, stats4 = phase_engine(
             torch, spec, dict(max_batch=4, block_size=4, num_blocks=64,
                               pages_per_seq=4),
             reqs, pt.CPUPlace(), host, False)
@@ -2108,20 +2557,33 @@ def main():
                     pages_per_seq=16)
         shared = _shared_requests(spec, 32, 32, (4, 16), (8, 32), 6)
         phase_extras(torch, spec, geom, shared, pt.CPUPlace(), host, False)
+        quant = {}
         for kv_dtype in ('int8', 'float8_e4m3fn'):
-            phase_quantized(torch, spec, geom, shared, pt.CPUPlace(), host,
-                            False, kv_dtype, 4)
+            quant[kv_dtype] = phase_quantized(
+                torch, spec, geom, shared, pt.CPUPlace(), host, False,
+                kv_dtype, 4)
         tiny = dict(n_layer=2, n_head=2, d_key=8, d_value=8, d_model=16,
                     d_inner=32)
-        phase_train(torch, pt, pt.CPUPlace(), 'host CPU, rehearsal', False,
-                    4, 8, 64, tiny, steps=6)
-        phase_train_masked(torch, pt, pt.CPUPlace(), 'host CPU, rehearsal',
-                           False, 4, 16, 64, tiny, steps=3)
+        phase_train(torch, pt, pt.CPUPlace(), host, False, 4, 8, 64, tiny,
+                    steps=20)
+        phase_train_masked(torch, pt, pt.CPUPlace(), host, False, 4, 16, 64,
+                           tiny, steps=3)
         phase_train_compare(torch, pt, (pt.CPUPlace(), pt.CPUPlace()), 64,
                             tiny)
-        phase_resnet(torch, pt, pt.CPUPlace(), 'host CPU, rehearsal', False,
-                     8, 16, 10, small=True, steps=6)
+        phase_resnet(torch, pt, pt.CPUPlace(), host, False, 8, 16, 10,
+                     small=True, steps=6)
         phase_resnet_compare(torch, pt, (pt.CPUPlace(), pt.CPUPlace()))
+        phase_captured_train(torch, pt, pt.CPUPlace(), host, False, 4, 8,
+                             64, tiny, steps=3)
+        phase_captured_resnet(torch, pt, pt.CPUPlace(), host, False, 8, 16,
+                              10, small=True, steps=3)
+        small = dict(max_batch=4, block_size=4, num_blocks=64,
+                     pages_per_seq=4)
+        phase_captured_engine(torch, spec, small, reqs, host, False,
+                              (results, stats4), 'engine')
+        got, st = quant['int8'][3], quant['int8'][2]
+        phase_captured_engine(torch, spec, geom, shared, host, False,
+                              (got, st), 'int8 engine', kv_dtype='int8')
         print('cpu rehearsal ok in %.1f s' % (time.perf_counter() - t_start))
         return
 
@@ -2136,7 +2598,8 @@ def main():
     done('3 (K1, K4)')
     fa_fwd, fa_bwd = phase_flash_kernels(torch, card)
     bn, bn_bwd = phase_bn_kernels(torch, card)
-    done('3 (K2, K3, K5)')
+    kvw, mask = phase_step_kernels(torch, card)
+    done('3 (K2, K3, K5, KV write, keep mask)')
     if args.kernels_only:
         print('kernels only: K1, K4 (and its quantized variant), K2, K3 and '
               'K5 and the K1 and K5 backward kernels agree with their plain '
@@ -2148,8 +2611,8 @@ def main():
     geom = dict(max_batch=16, block_size=32, num_blocks=4096,
                 pages_per_seq=64)
     reqs = _requests(spec, 32, 64, 512, 64)
-    results, launches, eng, _ = phase_engine(torch, spec, geom, reqs,
-                                             pt.CUDAPlace(0), card, True)
+    results, launches, eng, stats4 = phase_engine(torch, spec, geom, reqs,
+                                                  pt.CUDAPlace(0), card, True)
     phase_cpu_compare(spec, reqs, results, 32, 16)
     done('4-5 (engine, card vs host)')
     # each engine (fp32: 6.4 GB of arenas) stays only for --profile
@@ -2164,11 +2627,12 @@ def main():
     del eng
     torch.cuda.empty_cache()
     done('5a (extras)')
-    quant = {}
+    quant, quant_runs = {}, {}
     for kv_dtype in ('int8', 'float8_e4m3fn'):
-        quant[kv_dtype], eng, _ = phase_quantized(
+        quant[kv_dtype], eng, stats, got = phase_quantized(
             torch, spec, geom, shared, pt.CUDAPlace(0), card, True, kv_dtype,
             16)
+        quant_runs[kv_dtype] = (got, stats)
         if args.profile and kv_dtype == 'int8':
             jobs.append(_decode_job(eng, spec))
         del eng
@@ -2176,8 +2640,10 @@ def main():
     done('5b (int8, fp8)')
     base = dict(n_layer=6, n_head=8, d_key=64, d_value=64, d_model=512,
                 d_inner=2048)
+    # a --profile job keeps its executor (and graph) alive to the end
     train, train_job = phase_train(torch, pt, pt.CUDAPlace(0), card, True,
                                    64, 64, VOCAB, base)
+    train_job = train_job if args.profile else None
     torch.cuda.empty_cache()
     masked = phase_train_masked(torch, pt, pt.CUDAPlace(0), card, True, 8,
                                 512, VOCAB, base)
@@ -2187,11 +2653,38 @@ def main():
     torch.cuda.empty_cache()
     resnet, resnet_job = phase_resnet(torch, pt, pt.CUDAPlace(0), card, True,
                                       64, 224, 1000)
+    resnet_job = resnet_job if args.profile else None
     torch.cuda.empty_cache()
     phase_resnet_compare(torch, pt, (pt.CUDAPlace(0), pt.CPUPlace()))
+    torch.cuda.empty_cache()
     done('6-10 (training)')
+    # phase 11: captured against eager (use_program_cache=False) on each
+    # path, in this call
+    train_jobs = phase_captured_train(torch, pt, pt.CUDAPlace(0), card, True,
+                                      64, 64, VOCAB, base)
+    train_jobs = train_jobs if args.profile else []
+    torch.cuda.empty_cache()
+    resnet_jobs = phase_captured_resnet(torch, pt, pt.CUDAPlace(0), card,
+                                        True, 64, 224, 1000)
+    resnet_jobs = resnet_jobs if args.profile else []
+    torch.cuda.empty_cache()
+    eng = phase_captured_engine(torch, spec, geom, reqs, card, True,
+                                (results, stats4), 'engine')
     if args.profile:
-        profile_steps(torch, card, jobs + [train_job, resnet_job])
+        jobs.append(_decode_job(eng, spec, mode='eager'))
+    del eng
+    torch.cuda.empty_cache()
+    eng = phase_captured_engine(torch, spec, geom, shared, card, True,
+                                quant_runs['int8'], 'int8 engine',
+                                kv_dtype='int8')
+    if args.profile:
+        jobs.append(_decode_job(eng, spec, mode='eager'))
+    del eng
+    torch.cuda.empty_cache()
+    done('11 (captured against eager)')
+    if args.profile:
+        profile_steps(torch, card, jobs + [train_job, resnet_job] +
+                      train_jobs + resnet_jobs)
 
     # launches: the sum over the main paths' runs (the engine runs: plain,
     # extras plain and with cache + speculation, int8 and fp8; the timed
@@ -2244,6 +2737,14 @@ def main():
              source='paddle_tpu_torch/csrc/batch_norm.cu',
              replaces='paddle_tpu/ops/pallas/batch_norm.py:159',
              launches=runs('batch_norm_bwd'), **bn_bwd),
+        dict(name='kv_write', route='cuda',
+             source='paddle_tpu_torch/csrc/kv_write.cu',
+             replaces='paddle_tpu/ops/paged_decode_ops.py:90',
+             launches=runs('kv_write'), **kvw),
+        dict(name='keep_mask', route='cuda',
+             source='paddle_tpu_torch/csrc/random_bits.cu',
+             replaces='paddle_tpu/ops/nn_ops.py:163',
+             launches=runs('keep_mask'), **mask),
     ]
     print('total %.1f s' % (time.perf_counter() - t_start))
     print(json.dumps({'kernels': kernels}))

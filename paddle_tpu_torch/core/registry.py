@@ -3,8 +3,13 @@
 Reference analog: paddle/fluid/framework/op_registry.h (REGISTER_OP_KERNEL).
 Each op type registers ONE lowering: a function that reads torch tensors
 from the context's environment and writes its outputs back. The Executor
-calls the lowerings of a Program's ops one after another, eagerly; in a
-training step it runs the forward ops with autograd recording.
+calls the lowerings of a Program's ops one after another; in a training
+step it runs the forward ops with autograd recording. On a CUDA place it
+captures a plan's ops into a CUDA graph (core/executor.py), so a lowering
+may not read a tensor's value on the host, copy from pageable host memory
+or key its work on a Python value that changes from step to step. The ops
+that must (``register(..., host_bound=True)``: the startup ops that draw
+initial values on the host) keep every plan that holds them eager.
 """
 
 import numpy as np
@@ -13,13 +18,18 @@ import torch
 from .dtypes import to_torch_dtype
 
 OP_LOWERINGS = {}
+# op types whose lowering works on the host (drawn initial values): a plan
+# that holds one is never captured into a CUDA graph
+HOST_BOUND = set()
 
 
-def register(op_type):
+def register(op_type, host_bound=False):
     def deco(fn):
         if op_type in OP_LOWERINGS:
             raise ValueError('duplicate lowering for op %r' % op_type)
         OP_LOWERINGS[op_type] = fn
+        if host_bound:
+            HOST_BOUND.add(op_type)
         return fn
     return deco
 
@@ -65,6 +75,31 @@ def _mix(*words):
         [int(w) & 0xffffffff for w in words]).generate_state(1)[0])
 
 
+# The counter-based hash behind the per-step noise (dropout masks, decode
+# sampling): a 32-bit mixer (two multiply-xorshift rounds) evaluated the
+# same way on Python ints, on int64 tensors (values kept in [0, 2^32), each
+# product below 2^63) and in the CUDA kernels (csrc/random_bits.cu, on
+# uint32), so the three give the same bits.
+MASK32 = 0xffffffff
+_MUL1 = 0x21f0aaad
+_MUL2 = 0x735a2d97
+
+
+def mix32(x):
+    """The mixer on a Python int or an int64 tensor of values in
+    [0, 2^32)."""
+    x = x ^ (x >> 16)
+    x = (x * _MUL1) & MASK32
+    x = x ^ (x >> 15)
+    x = (x * _MUL2) & MASK32
+    return x ^ (x >> 15)
+
+
+def op_key(seed, op_index):
+    """The 32-bit key of one op of a program: mix32 over (seed, op)."""
+    return mix32(mix32(int(seed) & MASK32) ^ (int(op_index) & MASK32))
+
+
 class LoweringContext(object):
     """Execution context handed to each op lowering.
 
@@ -73,7 +108,9 @@ class LoweringContext(object):
     block    : Block for var metadata lookups
     device   : torch.device every output lives on
     seed     : the program's random seed
-    step     : this executor's run count (dropout masks differ per step)
+    step     : this executor's run count, a 0-dim int64 tensor on the
+               device (dropout masks differ per step; a captured graph
+               reads it at replay)
     is_test  : the op's own is_test attr
     amp      : None or 'bf16' — input() casts per the policy above
     reads    : names read by a later op or fetched (None: all of them)
@@ -87,7 +124,7 @@ class LoweringContext(object):
         self.op_index = op_index
         self.device = device
         self.seed = int(seed)
-        self.step = int(step)
+        self.step = step
         self.is_test = is_test
         self.amp = amp
         self._reads = reads
@@ -159,10 +196,9 @@ class LoweringContext(object):
         g.manual_seed(int(seed) if seed else _mix(self.seed, self.op_index))
         return g
 
-    def step_generator(self):
-        """A torch.Generator on the op's device for per-step noise
-        (dropout), keyed by (program seed, step, op index): every step
-        and every op draws its own mask, reproducibly."""
-        g = torch.Generator(device=self.device)
-        g.manual_seed(_mix(self.seed, self.step, self.op_index))
-        return g
+    def step_tensor(self):
+        """The step as a 0-dim int64 tensor on the op's device."""
+        step = self.step
+        if not isinstance(step, torch.Tensor):
+            step = torch.tensor(int(step), dtype=torch.int64)
+        return step.to(self.device)

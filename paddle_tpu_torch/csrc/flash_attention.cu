@@ -89,6 +89,12 @@
 // Tensors are addressed through (b, h, t) strides with D contiguous, so the
 // head-split views of [B, T, H*D] activations need no copy.
 //
+// * the wide SIMT kernels (flash_fwd_wide_kernel, flash_bwd_dkv_wide_kernel,
+//   flash_bwd_dq_wide_kernel) for every head dim above 256: the same tiles
+//   and numerics, the head dim walked in chunks of 128 columns (scores
+//   summed over the chunks before the softmax; each block writes one
+//   128-column chunk of the output and recomputes the scores for it).
+//
 // Still left: TMA loads, and splitting long rows.
 
 #include "flash_tiles.cuh"
@@ -476,6 +482,33 @@ __global__ void __launch_bounds__(kFlashThreads)
 }
 
 // ------------------------------------------- backward, shared tile math
+// From the unscaled scores sc = q . k and dp = dO . v of a tile, writes
+// round(p) into ps (when ps != nullptr) and round(ds) into dss,
+// [16 * QI q rows][65].
+template <typename T, int QI>
+__device__ __forceinline__ void bwd_finish(const float (&sc)[QI][4],
+                                           const float (&dp)[QI][4],
+                                           const float* lse_s,
+                                           const float* delta_s, float* ps,
+                                           float* dss, const Dims& s, int q0,
+                                           int k0, int k_lim) {
+  const int ty = threadIdx.x / 16;
+  const int tx = threadIdx.x % 16;
+#pragma unroll
+  for (int i = 0; i < QI; ++i) {
+    const int r = ty + 16 * i;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int kc = tx + 16 * j;
+      const bool on = live(s, q0 + r, k0 + kc, k_lim);
+      const float p = on ? expf(sc[i][j] * s.scale - lse_s[r]) : 0.f;
+      const float ds = p * (dp[i][j] - delta_s[r]) * s.scale;
+      if (ps != nullptr) ps[r * kLdP + kc] = round_as<T>(p);
+      dss[r * kLdP + kc] = round_as<T>(ds);
+    }
+  }
+}
+
 // For the q tile at q0 (16 * QI rows) and the k tile at k0 (staged in
 // qs/dos and ks/vs), writes round(p) into ps (when ps != nullptr) and
 // round(ds) into dss, [16 * QI q rows][65]. lse_s / delta_s hold the tile's
@@ -514,19 +547,7 @@ __device__ __forceinline__ void bwd_tile(const float* qs, const float* dos,
         dp[i][j] = fmaf(dv[i], vv[j], dp[i][j]);
       }
   }
-#pragma unroll
-  for (int i = 0; i < QI; ++i) {
-    const int r = ty + 16 * i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int kc = tx + 16 * j;
-      const bool on = live(s, q0 + r, k0 + kc, k_lim);
-      const float p = on ? expf(sc[i][j] * s.scale - lse_s[r]) : 0.f;
-      const float ds = p * (dp[i][j] - delta_s[r]) * s.scale;
-      if (ps != nullptr) ps[r * kLdP + kc] = round_as<T>(p);
-      dss[r * kLdP + kc] = round_as<T>(ds);
-    }
-  }
+  bwd_finish<T, QI>(sc, dp, lse_s, delta_s, ps, dss, s, q0, k0, k_lim);
 }
 
 __device__ __forceinline__ void load_rows(float* dst, const float* src,
@@ -747,6 +768,401 @@ __global__ void __launch_bounds__(kFlashThreads)
     for (int j = 0; j < NJ; ++j) {
       const int c = tx + 16 * j;
       if (c < d) qrow[c] = from_f32<T>(adq[i][j]);
+    }
+  }
+}
+
+// --------------------------------------- head dims above 256 (SIMT, wide)
+// The SIMT kernels above hold a whole head-dim row of every tile in shared
+// memory, which at fp32 fits up to D = 256. Above that, the wide kernels
+// walk the head dim in chunks of kWideCols columns: q . k^T (and dO . v^T)
+// of a tile is accumulated over the chunks, column by column in order,
+// before the softmax, and the output columns are split over blockIdx.z, a
+// chunk of kWideCols a block. Each block of a (b*h, tile) recomputes the
+// tile's scores for its own output chunk: D / kWideCols times the score
+// work, for tiles of at most (kWideCols + 1) * 4 bytes a row.
+constexpr int kWideCols = 128;
+constexpr int kWideNJ = kWideCols / 16;
+constexpr int kWideLd = kWideCols + 1;
+
+// sc[i][j] += q . k over every chunk of the head dim for the query rows
+// ty + 16 i of the qs tile and the keys tx + 16 j of the ks tile (and, with
+// DP, dp += dO . v through dos and vs), staging each chunk in shared memory
+// first. Rows past t_end load as zeros.
+template <typename T, int QI, bool DP>
+__device__ __forceinline__ void wide_scores(
+    float (&sc)[QI][4], float (&dp)[QI][4], float* qs, float* dos, float* ks,
+    float* vs, const T* q, const T* dout, const T* k, const T* v,
+    const View& vq, const View& vdo, const View& vk, const View& vv, int bi,
+    int hi, int q0, int k0, const Dims& s) {
+  const int ty = threadIdx.x / 16;
+  const int tx = threadIdx.x % 16;
+#pragma unroll
+  for (int i = 0; i < QI; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) sc[i][j] = dp[i][j] = 0.f;
+  for (int c0 = 0; c0 < s.d; c0 += kWideCols) {
+    const int dc = min(kWideCols, s.d - c0);
+    __syncthreads();  // the last chunk (or tile) consumed
+    load_tile(qs, kWideLd, q + c0, vq, bi, hi, q0, s.tq, dc, 16 * QI);
+    load_tile(ks, kWideLd, k + c0, vk, bi, hi, k0, s.tk, dc);
+    if constexpr (DP) {
+      load_tile(dos, kWideLd, dout + c0, vdo, bi, hi, q0, s.tq, dc, 16 * QI);
+      load_tile(vs, kWideLd, v + c0, vv, bi, hi, k0, s.tk, dc);
+    }
+    __syncthreads();
+    for (int c = 0; c < dc; ++c) {
+      float qv[QI], dv[QI], kv[4], vv4[4];
+#pragma unroll
+      for (int i = 0; i < QI; ++i) {
+        qv[i] = qs[(ty + 16 * i) * kWideLd + c];
+        if constexpr (DP) dv[i] = dos[(ty + 16 * i) * kWideLd + c];
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        kv[j] = ks[(tx + 16 * j) * kWideLd + c];
+        if constexpr (DP) vv4[j] = vs[(tx + 16 * j) * kWideLd + c];
+      }
+#pragma unroll
+      for (int i = 0; i < QI; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          sc[i][j] = fmaf(qv[i], kv[j], sc[i][j]);
+          if constexpr (DP) dp[i][j] = fmaf(dv[i], vv4[j], dp[i][j]);
+        }
+    }
+  }
+}
+
+// forward: grid (B*H, q tiles, D chunks)
+// smem: Q, K [64][kWideLd] (a chunk of columns), V [64][kWideCols] (the
+// block's output chunk), P [64][65]
+template <typename T>
+__global__ void __launch_bounds__(kFlashThreads)
+    flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, T* __restrict__ o,
+                          float* __restrict__ lse,
+                          const int* __restrict__ kv_len, View vq, View vk,
+                          View vv, View vo, Dims s) {
+  extern __shared__ float smem[];
+  float* qs = smem;
+  float* ks = qs + kTile * kWideLd;
+  float* vs = ks + kTile * kWideLd;
+  float* ps = vs + kTile * kWideCols;
+  const int bh = blockIdx.x;
+  const int bi = bh / s.h;
+  const int hi = bh - bi * s.h;
+  const int q0 = blockIdx.y * kTile;
+  const int q_end = min(q0 + kTile, s.tq);
+  const int c_out = blockIdx.z * kWideCols;
+  const int w_out = min(kWideCols, s.d - c_out);
+  const int k_lim = key_limit(s, kv_len, bi);
+  const int k_end =
+      s.causal ? min(k_lim, max(q_end + s.tk - s.tq, 0)) : k_lim;
+  const int ty = threadIdx.x / 16;
+  const int tx = threadIdx.x % 16;
+
+  float m[4], l[4], acc[4][kWideNJ];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = kMasked;
+    l[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < kWideNJ; ++j) acc[i][j] = 0.f;
+  }
+
+  for (int k0 = 0; k0 < k_end; k0 += kTile) {
+    float sc[4][4], unused[4][4];
+    wide_scores<T, 4, false>(sc, unused, qs, nullptr, ks, nullptr, q,
+                             nullptr, k, nullptr, vq, vq, vk, vk, bi, hi, q0,
+                             k0, s);
+    // the chunk loop's barrier covers the last p . v's reads of V and P
+    load_tile(vs, kWideCols, v + c_out, vv, bi, hi, k0, s.tk, w_out);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = ty + 16 * i;
+      bool on[4];
+      float mx = kMasked;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        on[j] = live(s, q0 + r, k0 + tx + 16 * j, k_lim);
+        sc[i][j] = on[j] ? sc[i][j] * s.scale : kMasked;
+        mx = fmaxf(mx, sc[i][j]);
+      }
+      const float m_new = fmaxf(m[i], row_max(mx));
+      const float alpha = expf(m[i] - m_new);
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = on[j] ? expf(sc[i][j] - m_new) : 0.f;
+        rs += p;
+        ps[r * kLdP + tx + 16 * j] = round_as<T>(p);
+      }
+      l[i] = alpha * l[i] + row_sum(rs);
+      m[i] = m_new;
+#pragma unroll
+      for (int j = 0; j < kWideNJ; ++j) acc[i][j] *= alpha;
+    }
+    __syncthreads();
+    const int kn = min(kTile, k_end - k0);
+    for (int kk = 0; kk < kn; ++kk) {
+      float vr[kWideNJ];
+#pragma unroll
+      for (int j = 0; j < kWideNJ; ++j) {
+        const int c = tx + 16 * j;
+        vr[j] = c < w_out ? vs[kk * kWideCols + c] : 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float p = ps[(ty + 16 * i) * kLdP + kk];
+#pragma unroll
+        for (int j = 0; j < kWideNJ; ++j) acc[i][j] = fmaf(p, vr[j], acc[i][j]);
+      }
+    }
+  }
+
+  // rows with no live key: the mean of V's chunk columns over all Tk keys
+  const int ndead = dead_rows(s, k_lim);
+  if (q0 < ndead) {
+    __syncthreads();
+    sum_rows(ks, v + offset(vv, bi, hi, 0) + c_out, vv.st, s.tk,
+             s.tk > 0 ? 1.f / s.tk : 0.f, w_out, kFlashThreads);
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (q0 + ty + 16 * i < ndead)
+#pragma unroll
+        for (int j = 0; j < kWideNJ; ++j) {
+          const int c = tx + 16 * j;
+          acc[i][j] = c < w_out ? ks[c] : 0.f;
+        }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = q0 + ty + 16 * i;
+    if (r >= s.tq) continue;
+    const float denom = l[i] == 0.f ? 1.f : l[i];
+    T* orow = o + offset(vo, bi, hi, r) + c_out;
+#pragma unroll
+    for (int j = 0; j < kWideNJ; ++j) {
+      const int c = tx + 16 * j;
+      if (c < w_out) orow[c] = from_f32<T>(acc[i][j] / denom);
+    }
+    if (tx == 0 && blockIdx.z == 0)
+      lse[(long long)bh * s.tq + r] =
+          l[i] == 0.f ? dead_lse(s) : m[i] + logf(denom);
+  }
+}
+
+// dK, dV: grid (B*H, key tiles, D chunks), summing over query tiles of 64
+// smem: Q, dO [64][kWideLd]; K, V [64][kWideLd]; P, dS [64][65]; lse,
+// delta [64]
+template <typename T>
+__global__ void __launch_bounds__(kFlashThreads)
+    flash_bwd_dkv_wide_kernel(const T* __restrict__ q,
+                              const T* __restrict__ k,
+                              const T* __restrict__ v,
+                              const T* __restrict__ dout,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ delta,
+                              const int* __restrict__ kv_len,
+                              T* __restrict__ dk, T* __restrict__ dv,
+                              View vq, View vk, View vv, View vdo, View vdk,
+                              View vdv, Dims s) {
+  extern __shared__ float smem[];
+  float* qs = smem;
+  float* dos = qs + kTile * kWideLd;
+  float* ks = dos + kTile * kWideLd;
+  float* vs = ks + kTile * kWideLd;
+  float* ps = vs + kTile * kWideLd;
+  float* dss = ps + kTile * kLdP;
+  float* lse_s = dss + kTile * kLdP;
+  float* delta_s = lse_s + kTile;
+  const int bh = blockIdx.x;
+  const int bi = bh / s.h;
+  const int hi = bh - bi * s.h;
+  const int k0 = blockIdx.y * kTile;
+  const int c_out = blockIdx.z * kWideCols;
+  const int w_out = min(kWideCols, s.d - c_out);
+  const int k_lim = key_limit(s, kv_len, bi);
+  const int ty = threadIdx.x / 16;
+  const int tx = threadIdx.x % 16;
+  const long long row_base = (long long)bh * s.tq;
+
+  float adk[4][kWideNJ], adv[4][kWideNJ];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < kWideNJ; ++j) adk[i][j] = adv[i][j] = 0.f;
+
+  if (k0 < k_lim) {
+    for (int q0 = s.causal ? max(k0 - (s.tk - s.tq), 0) : 0; q0 < s.tq;
+         q0 += kTile) {
+      // the last tile's lse, delta, p and ds were read before the barriers
+      // that came after them
+      load_rows(lse_s, lse, row_base, q0, s.tq, kTile);
+      load_rows(delta_s, delta, row_base, q0, s.tq, kTile);
+      float sc[4][4], dp[4][4];
+      wide_scores<T, 4, true>(sc, dp, qs, dos, ks, vs, q, dout, k, v, vq, vdo,
+                              vk, vv, bi, hi, q0, k0, s);
+      bwd_finish<T, 4>(sc, dp, lse_s, delta_s, ps, dss, s, q0, k0, k_lim);
+      __syncthreads();  // p, ds written; the score chunks consumed
+      load_tile(qs, kWideLd, q + c_out, vq, bi, hi, q0, s.tq, w_out);
+      load_tile(dos, kWideLd, dout + c_out, vdo, bi, hi, q0, s.tq, w_out);
+      __syncthreads();
+      const int rn = min(kTile, s.tq - q0);
+      for (int r = 0; r < rn; ++r) {
+        float dor[kWideNJ], qr[kWideNJ];
+#pragma unroll
+        for (int j = 0; j < kWideNJ; ++j) {
+          const int c = tx + 16 * j;
+          dor[j] = c < w_out ? dos[r * kWideLd + c] : 0.f;
+          qr[j] = c < w_out ? qs[r * kWideLd + c] : 0.f;
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float p = ps[r * kLdP + ty + 16 * i];
+          const float ds = dss[r * kLdP + ty + 16 * i];
+#pragma unroll
+          for (int j = 0; j < kWideNJ; ++j) {
+            adv[i][j] = fmaf(p, dor[j], adv[i][j]);
+            adk[i][j] = fmaf(ds, qr[j], adk[i][j]);
+          }
+        }
+      }
+      __syncthreads();  // before the next tile's lse, delta and chunks
+    }
+  }
+
+  const int ndead = dead_rows(s, k_lim);
+  if (ndead > 0) {
+    __syncthreads();
+    sum_rows(qs, dout + offset(vdo, bi, hi, 0) + c_out, vdo.st, ndead,
+             round_as<T>(1.f / s.tk), w_out, kFlashThreads);
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < kWideNJ; ++j) {
+        const int c = tx + 16 * j;
+        if (c < w_out) adv[i][j] += qs[c];
+      }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int kr = k0 + ty + 16 * i;
+    if (kr >= s.tk) continue;
+    T* krow = dk + offset(vdk, bi, hi, kr) + c_out;
+    T* vrow = dv + offset(vdv, bi, hi, kr) + c_out;
+#pragma unroll
+    for (int j = 0; j < kWideNJ; ++j) {
+      const int c = tx + 16 * j;
+      if (c < w_out) {
+        krow[c] = from_f32<T>(adk[i][j]);
+        vrow[c] = from_f32<T>(adv[i][j]);
+      }
+    }
+  }
+}
+
+// dQ: grid (B*H, query tiles of 64, D chunks), summing over key tiles.
+// Block z == 0 writes delta = rowsum(dO * O) of its rows for the dK/dV
+// kernel (every z computes it, reading dO and O from device memory).
+// smem: Q, dO [64][kWideLd]; K, V [64][kWideLd]; dS [64][65]; lse, delta
+// [64]
+template <typename T>
+__global__ void __launch_bounds__(kFlashThreads)
+    flash_bwd_dq_wide_kernel(const T* __restrict__ q,
+                             const T* __restrict__ k,
+                             const T* __restrict__ v,
+                             const T* __restrict__ dout,
+                             const T* __restrict__ o,
+                             const float* __restrict__ lse,
+                             float* __restrict__ delta,
+                             const int* __restrict__ kv_len,
+                             T* __restrict__ dq, View vq, View vk, View vv,
+                             View vdo, View vo, View vdq, Dims s) {
+  extern __shared__ float smem[];
+  float* qs = smem;
+  float* dos = qs + kTile * kWideLd;
+  float* ks = dos + kTile * kWideLd;
+  float* vs = ks + kTile * kWideLd;
+  float* dss = vs + kTile * kWideLd;
+  float* lse_s = dss + kTile * kLdP;
+  float* delta_s = lse_s + kTile;
+  const int bh = blockIdx.x;
+  const int bi = bh / s.h;
+  const int hi = bh - bi * s.h;
+  const int q0 = blockIdx.y * kTile;
+  const int q_end = min(q0 + kTile, s.tq);
+  const int c_out = blockIdx.z * kWideCols;
+  const int w_out = min(kWideCols, s.d - c_out);
+  const int k_lim = key_limit(s, kv_len, bi);
+  const int k_end =
+      s.causal ? min(k_lim, max(q_end + s.tk - s.tq, 0)) : k_lim;
+  const int ty = threadIdx.x / 16;
+  const int tx = threadIdx.x % 16;
+  const long long row_base = (long long)bh * s.tq;
+
+  load_rows(lse_s, lse, row_base, q0, s.tq, kTile);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = ty + 16 * i;
+    float part = 0.f;
+    if (q0 + r < s.tq) {
+      const T* orow = o + offset(vo, bi, hi, q0 + r);
+      const T* drow = dout + offset(vdo, bi, hi, q0 + r);
+      for (int c = tx; c < s.d; c += 16)
+        part += to_f32(drow[c]) * to_f32(orow[c]);
+    }
+    const float total = row_sum(part);
+    if (tx == 0) {
+      delta_s[r] = total;
+      if (q0 + r < s.tq && blockIdx.z == 0) delta[row_base + q0 + r] = total;
+    }
+  }
+  float adq[4][kWideNJ];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < kWideNJ; ++j) adq[i][j] = 0.f;
+
+  for (int k0 = 0; k0 < k_end; k0 += kTile) {
+    float sc[4][4], dp[4][4];
+    wide_scores<T, 4, true>(sc, dp, qs, dos, ks, vs, q, dout, k, v, vq, vdo,
+                            vk, vv, bi, hi, q0, k0, s);
+    bwd_finish<T, 4>(sc, dp, lse_s, delta_s, nullptr, dss, s, q0, k0, k_lim);
+    __syncthreads();  // ds written; the score chunks consumed
+    load_tile(ks, kWideLd, k + c_out, vk, bi, hi, k0, s.tk, w_out);
+    __syncthreads();
+    const int kn = min(kTile, k_end - k0);
+    for (int kc = 0; kc < kn; ++kc) {
+      float kr[kWideNJ];
+#pragma unroll
+      for (int j = 0; j < kWideNJ; ++j) {
+        const int c = tx + 16 * j;
+        kr[j] = c < w_out ? ks[kc * kWideLd + c] : 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float ds = dss[(ty + 16 * i) * kLdP + kc];
+#pragma unroll
+        for (int j = 0; j < kWideNJ; ++j) adq[i][j] = fmaf(ds, kr[j], adq[i][j]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = q0 + ty + 16 * i;
+    if (r >= s.tq) continue;
+    T* qrow = dq + offset(vdq, bi, hi, r) + c_out;
+#pragma unroll
+    for (int j = 0; j < kWideNJ; ++j) {
+      const int c = tx + 16 * j;
+      if (c < w_out) qrow[c] = from_f32<T>(adq[i][j]);
     }
   }
 }
@@ -1345,12 +1761,99 @@ cudaError_t launch_dq_mma(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// the largest head dim of the SIMT kernels (the tensor-core ones: 128)
+// the largest head dim of the SIMT kernels (the tensor-core ones: 128);
+// the wide kernels take every head dim above it
 constexpr int kMaxHeadDim = 256;
 
+inline size_t fwd_wide_smem() {
+  return sizeof(float) *
+         (size_t)(2 * kTile * kWideLd + kTile * kWideCols + kTile * kLdP);
+}
+inline size_t dkv_wide_smem() {
+  return sizeof(float) *
+         (size_t)(4 * kTile * kWideLd + 2 * kTile * kLdP + 2 * kTile);
+}
+inline size_t dq_wide_smem() {
+  return sizeof(float) *
+         (size_t)(4 * kTile * kWideLd + kTile * kLdP + 2 * kTile);
+}
+
+inline dim3 wide_grid(const Dims& s, int t) {
+  return dim3(s.b * s.h, (t + kTile - 1) / kTile,
+              (s.d + kWideCols - 1) / kWideCols);
+}
+
+template <typename T>
+cudaError_t launch_fwd_wide(const void* q, const void* k, const void* v,
+                            void* o, void* lse, const void* kv_len,
+                            const long long* strides, int* launched,
+                            const Dims& s, cudaStream_t stream) {
+  static bool done = false;
+  auto kernel = flash_fwd_wide_kernel<T>;
+  cudaError_t err = allow_smem(kernel, fwd_wide_smem(), &done);
+  if (err != cudaSuccess) return err;
+  const dim3 grid = wide_grid(s, s.tq);
+  if (grid.x == 0 || grid.y == 0) return cudaSuccess;
+  kernel<<<grid, kFlashThreads, fwd_wide_smem(), stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
+      static_cast<const int*>(kv_len), view_at(strides, 0),
+      view_at(strides, 1), view_at(strides, 2), view_at(strides, 3), s);
+  *launched = kLaunchedSimt;
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_dkv_wide(const void* q, const void* k, const void* v,
+                            const void* dout, const void* lse,
+                            const void* delta, const void* kv_len, void* dk,
+                            void* dv, const long long* strides, int* launched,
+                            const Dims& s, cudaStream_t stream) {
+  static bool done = false;
+  auto kernel = flash_bwd_dkv_wide_kernel<T>;
+  cudaError_t err = allow_smem(kernel, dkv_wide_smem(), &done);
+  if (err != cudaSuccess) return err;
+  const dim3 grid = wide_grid(s, s.tk);
+  if (grid.x == 0 || grid.y == 0) return cudaSuccess;
+  kernel<<<grid, kFlashThreads, dkv_wide_smem(), stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<const int*>(kv_len), static_cast<T*>(dk),
+      static_cast<T*>(dv), view_at(strides, 0), view_at(strides, 1),
+      view_at(strides, 2), view_at(strides, 3), view_at(strides, 4),
+      view_at(strides, 5), s);
+  *launched = kLaunchedSimt;
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_dq_wide(const void* q, const void* k, const void* v,
+                           const void* dout, const void* o, const void* lse,
+                           void* delta, const void* kv_len, void* dq,
+                           const long long* strides, int* launched,
+                           const Dims& s, cudaStream_t stream) {
+  static bool done = false;
+  auto kernel = flash_bwd_dq_wide_kernel<T>;
+  cudaError_t err = allow_smem(kernel, dq_wide_smem(), &done);
+  if (err != cudaSuccess) return err;
+  const dim3 grid = wide_grid(s, s.tq);
+  if (grid.x == 0 || grid.y == 0) return cudaSuccess;
+  kernel<<<grid, kFlashThreads, dq_wide_smem(), stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const T*>(o), static_cast<const float*>(lse),
+      static_cast<float*>(delta), static_cast<const int*>(kv_len),
+      static_cast<T*>(dq), view_at(strides, 0), view_at(strides, 1),
+      view_at(strides, 2), view_at(strides, 3), view_at(strides, 4),
+      view_at(strides, 5), s);
+  *launched = kLaunchedSimt;
+  return cudaGetLastError();
+}
+
 inline bool valid(const Dims& s, int dtype) {
-  return s.d >= 1 && s.d <= kMaxHeadDim && s.b >= 0 && s.h >= 1 &&
-         s.tq >= 0 && s.tk >= 0 && (dtype == kFloat32 || dtype == kBFloat16);
+  return s.d >= 1 && s.b >= 0 && s.h >= 1 && s.tq >= 0 && s.tk >= 0 &&
+         (dtype == kFloat32 || dtype == kBFloat16);
 }
 
 }  // namespace ptt
@@ -1360,7 +1863,8 @@ inline bool valid(const Dims& s, int dtype) {
 // `strides` (three per tensor, in the order the tensors are passed); lse
 // and delta are [B*H, Tq] contiguous fp32; kv_len is [B] int32 or null;
 // dtype 0 is fp32, 1 is bf16 (all of q, k, v, dO, O and the outputs);
-// D <= 256; any Tq and Tk, causal aligned bottom-right. Each returns the CUDA error of its
+// any D (above 256 the wide kernels); any Tq and Tk, causal aligned
+// bottom-right. Each returns the CUDA error of its
 // launch (cudaGetLastError()) and sets *launched to the kernel it launched:
 // 0 none (an empty grid or an error before the launch), 1 the SIMT kernel,
 // 2 the tensor-core kernel. ptt_flash_bwd_dq writes delta = rowsum(dO * O)
@@ -1375,6 +1879,11 @@ inline bool valid(const Dims& s, int dtype) {
 #define PTT_DISPATCH(LAUNCH, ...)                                         \
   do {                                                                    \
     cudaStream_t st = static_cast<cudaStream_t>(stream);                  \
+    if (s.d > ptt::kMaxHeadDim)                                           \
+      return (int)(dtype == ptt::kFloat32                                 \
+                       ? ptt::LAUNCH##_wide<float>(__VA_ARGS__, s, st)    \
+                       : ptt::LAUNCH##_wide<__nv_bfloat16>(__VA_ARGS__, s, \
+                                                           st));          \
     return (int)(dtype == ptt::kFloat32                                   \
                      ? PTT_DISPATCH_T(float, LAUNCH, __VA_ARGS__)         \
                      : PTT_DISPATCH_T(__nv_bfloat16, LAUNCH, __VA_ARGS__)); \

@@ -56,8 +56,13 @@
 // 3. paged_split_any_kernel, the same split (and the same merge kernel) for
 //    the rows the 16-byte loads cannot take: key or value rows that are not
 //    a multiple of 16 bytes (a bf16 arena with d_key 36, an fp32 one with
-//    d_key 30), rows wider than 512 bytes, and Dv up to 256 (kMaxAnyDim;
-//    so is D). A warp still owns a page at a time, but takes one key at a
+//    d_key 30), rows wider than 512 bytes, and Dv above 128. Rows of any
+//    width: a key row is walked in chunks of kMaxAnyDim = 256 columns (q of
+//    the first chunk held in registers, of the others read again from
+//    device memory), and above 256 value columns each split is taken by
+//    ceil(Dv / 256) blocks, one for each 256-column chunk of the output
+//    (every one of them computes the same scores, m and l; the first
+//    writes m and l). A warp still owns a page at a time, but takes one key at a
 //    time with all 32 lanes: lane j loads elements [(32 i + j) E, +E) of
 //    the row for i = 0, 1, ..., with the widest load (8, 4, 2 or, for
 //    one-byte pages, 1 byte: E elements) that divides both row widths and
@@ -458,7 +463,7 @@ __global__ void __launch_bounds__(kPagedThreads)
                            long long table_stride,
                            const int* __restrict__ lens,
                            float* __restrict__ ws, int h, int nb, int bs,
-                           int d, int dv, int p, float scale) {
+                           int d, int dv, int p, int ndc, float scale) {
   constexpr int E = sizeof(U) / sizeof(T);       // elements a load
   constexpr int NC = kMaxAnyDim / (32 * E);      // loads a lane, at most
   constexpr bool Q = Quantized<T>::value;
@@ -467,7 +472,10 @@ __global__ void __launch_bounds__(kPagedThreads)
   __shared__ float sm_acc[kPagedWarps][kMaxAnyDim];
   const int head = blockIdx.x;
   const int row = blockIdx.y;
-  const int z = blockIdx.z;
+  // blockIdx.z: the split, and the block's chunk of kMaxAnyDim value columns
+  const int z = blockIdx.z / ndc;
+  const int dv0 = (blockIdx.z - z * ndc) * kMaxAnyDim;
+  const int dvc = min(kMaxAnyDim, dv - dv0);
   const int len = lens[row];
   int npages = len > 0 ? (len + bs - 1) / bs : 0;
   if (npages > p) npages = p;
@@ -507,19 +515,27 @@ __global__ void __launch_bounds__(kPagedThreads)
         if (key < live) {
           const T* kr = k_pages + (base + key) * d;
           const float ks = Q ? __ldg(k_scales + base + key) : 1.f;
+          // the key row in chunks of kMaxAnyDim columns: q of the first
+          // from registers, of the others from device memory
+          for (int cb = 0; cb < d; cb += kMaxAnyDim) {
 #pragma unroll
-          for (int ch = 0; ch < NC; ++ch) {
-            const int c0 = (32 * ch + lane) * E;
-            if (c0 < d) {
-              float kf[E];
-              unpack_any<T, U>(__ldg(reinterpret_cast<const U*>(kr + c0)),
-                               kf);
-              if constexpr (Q) {
+            for (int ch = 0; ch < NC; ++ch) {
+              const int c0 = cb + (32 * ch + lane) * E;
+              if (c0 < d) {
+                float kf[E];
+                unpack_any<T, U>(__ldg(reinterpret_cast<const U*>(kr + c0)),
+                                 kf);
+                if constexpr (Q) {
 #pragma unroll
-                for (int e = 0; e < E; ++e) kf[e] = __fmul_rn(kf[e], ks);
+                  for (int e = 0; e < E; ++e) kf[e] = __fmul_rn(kf[e], ks);
+                }
+#pragma unroll
+                for (int e = 0; e < E; ++e) {
+                  const float qv =
+                      cb == 0 ? qs[ch][e] : q[qrow * d + c0 + e] * scale;
+                  sv = fmaf(qv, kf[e], sv);
+                }
               }
-#pragma unroll
-              for (int e = 0; e < E; ++e) sv = fmaf(qs[ch][e], kf[e], sv);
             }
           }
         }
@@ -545,12 +561,12 @@ __global__ void __launch_bounds__(kPagedThreads)
 #pragma unroll
       for (int i = 0; i < kAnyKeys; ++i) {
         if (k0 + i < live) {
-          const T* vr = v_pages + (base + k0 + i) * dv;
+          const T* vr = v_pages + (base + k0 + i) * dv + dv0;
           const float vs = Q ? __ldg(v_scales + base + k0 + i) : 1.f;
 #pragma unroll
           for (int ch = 0; ch < NC; ++ch) {
             const int c0 = (32 * ch + lane) * E;
-            if (c0 < dv) {
+            if (c0 < dvc) {
               float vf[E];
               unpack_any<T, U>(__ldg(reinterpret_cast<const U*>(vr + c0)),
                                vf);
@@ -576,7 +592,7 @@ __global__ void __launch_bounds__(kPagedThreads)
 #pragma unroll
     for (int e = 0; e < E; ++e) {
       const int c = (32 * ch + lane) * E + e;
-      if (c < dv) sm_acc[warp][c] = acc[ch][e];
+      if (c < dvc) sm_acc[warp][c] = acc[ch][e];
     }
   __syncthreads();
 
@@ -584,15 +600,15 @@ __global__ void __launch_bounds__(kPagedThreads)
   float mm = sm_m[0];
 #pragma unroll
   for (int w = 1; w < kPagedWarps; ++w) mm = fmaxf(mm, sm_m[w]);
-  float* part = ws + ((qrow * gridDim.z) + z) * (size_t)(dv + 2);
-  for (int c = threadIdx.x; c < dv; c += kPagedThreads) {
+  float* part = ws + ((qrow * (gridDim.z / ndc)) + z) * (size_t)(dv + 2);
+  for (int c = threadIdx.x; c < dvc; c += kPagedThreads) {
     float aa = 0.f;
 #pragma unroll
     for (int w = 0; w < kPagedWarps; ++w)
       aa += sm_acc[w][c] * expf(sm_m[w] - mm);
-    part[c] = aa;
+    part[dv0 + c] = aa;
   }
-  if (threadIdx.x == 0) {
+  if (threadIdx.x == 0 && dv0 == 0) {
     float ll = 0.f;
 #pragma unroll
     for (int w = 0; w < kPagedWarps; ++w) ll += sm_l[w] * expf(sm_m[w] - mm);
@@ -618,14 +634,19 @@ __global__ void paged_merge_kernel(const float* __restrict__ ws,
   float mm = kPagedMasked;
   for (int z = 0; z < nlive; ++z)
     mm = fmaxf(mm, part[(size_t)z * (dv + 2) + dv]);
-  float ll = 0.f, aa = 0.f;
+  float ll = 0.f;
   for (int z = 0; z < nlive; ++z) {
     const float* pz = part + (size_t)z * (dv + 2);
-    const float f = expf(pz[dv] - mm);
-    ll += pz[dv + 1] * f;
-    if (tid < dv) aa += pz[tid] * f;
+    ll += pz[dv + 1] * expf(pz[dv] - mm);
   }
-  if (tid < dv) out[qrow * dv + tid] = aa / (ll == 0.f ? 1.f : ll);
+  for (int c = tid; c < dv; c += blockDim.x) {
+    float aa = 0.f;
+    for (int z = 0; z < nlive; ++z) {
+      const float* pz = part + (size_t)z * (dv + 2);
+      aa += pz[c] * expf(pz[dv] - mm);
+    }
+    out[qrow * dv + c] = aa / (ll == 0.f ? 1.f : ll);
+  }
 }
 
 inline int pow2_ceil(int v) {
@@ -651,9 +672,11 @@ void launch_any(const float* q, const void* kp, const void* vp,
                 long long table_stride, const int* lens, float* ws, int n,
                 int h, int nb, int bs, int d, int dv, int p, int nz,
                 float scale, cudaStream_t s) {
-  paged_split_any_kernel<T, U><<<dim3(h, n, nz), kPagedThreads, 0, s>>>(
-      q, static_cast<const T*>(kp), static_cast<const T*>(vp), ks, vs,
-      tables, table_stride, lens, ws, h, nb, bs, d, dv, p, scale);
+  const int ndc = (dv + kMaxAnyDim - 1) / kMaxAnyDim;
+  paged_split_any_kernel<T, U>
+      <<<dim3(h, n, nz * ndc), kPagedThreads, 0, s>>>(
+          q, static_cast<const T*>(kp), static_cast<const T*>(vp), ks, vs,
+          tables, table_stride, lens, ws, h, nb, bs, d, dv, p, ndc, scale);
 }
 
 // the any-width kernel of storage type T at the widest load of w bytes
@@ -697,7 +720,7 @@ void launch_v16(const float* q, const void* kp, const void* vp,
 }  // namespace ptt
 
 // q: [n, h, d] fp32; k_pages: [nb, h, bs, d], v_pages: [nb, h, bs, dv], fp32
-// (dtype 0), bf16 (1), int8 (2) or e4m3 fp8 (3), d and dv at most 256; for
+// (dtype 0), bf16 (1), int8 (2) or e4m3 fp8 (3), any d and dv; for
 // int8 and fp8, k_scales and v_scales: fp32 [nb, h, bs], one scale a stored
 // row (ignored for fp32 and bf16); tables: int32, row r at tables + r *
 // table_stride, p entries; lens: [n] int32; workspace: fp32
@@ -724,11 +747,11 @@ extern "C" int ptt_paged_attention(const void* q, const void* k_pages,
   const int item = dtype == ptt::kFloat32 ? 4 : (quant ? 1 : 2);
   const int wide = (d > dv ? d : dv) * item;
   if (n < 1 || h < 1 || nb < 1 || bs < 1 || d < 1 || dv < 1 || p < 1 ||
-      d > ptt::kMaxAnyDim || dv > ptt::kMaxAnyDim || n > 65535 ||
-      (quant && (k_scales == nullptr || v_scales == nullptr)))
+      n > 65535 || (quant && (k_scales == nullptr || v_scales == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   const int cpages = ptt::chunk_pages(bs);
-  if (nz != (p + cpages - 1) / cpages || nz > 65535)
+  const int ndc = (dv + ptt::kMaxAnyDim - 1) / ptt::kMaxAnyDim;
+  if (nz != (p + cpages - 1) / cpages || (long long)nz * ndc > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* qf = static_cast<const float*>(q);
@@ -768,7 +791,8 @@ extern "C" int ptt_paged_attention(const void* q, const void* k_pages,
   *launched = (v16 ? 1 : 2) + (quant ? 2 : 0);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  ptt::paged_merge_kernel<<<dim3(h, n), 32 * ((dv + 31) / 32), 0, s>>>(
+  const int merge_threads = dv < 256 ? 32 * ((dv + 31) / 32) : 256;
+  ptt::paged_merge_kernel<<<dim3(h, n), merge_threads, 0, s>>>(
       ws, ln, static_cast<float*>(out), h, bs, dv, p, nz);
   return static_cast<int>(cudaGetLastError());
 }

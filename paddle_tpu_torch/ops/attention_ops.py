@@ -7,7 +7,7 @@ are split as strided views, and the whole q·kᵀ → mask → softmax → ·v c
 is the flash attention Function (K2 forward, K3 backward on the card; the
 plain versions on the host), with the semantics of the JAX op's default
 path, ``reference_attention``: any Tq and Tk, the causal mask aligned
-bottom-right, a row with no live key the mean of V, head dims up to 256.
+bottom-right, a row with no live key the mean of V, any head dim.
 The ring-attention (sequence-parallel) path of the JAX package is not
 ported.
 """

@@ -1,3 +1,35 @@
 """Hand-written CUDA kernels for Hopper (sources in ``paddle_tpu_torch/csrc``),
 each beside its plain PyTorch version. Counterpart of paddle_tpu's
 ``ops/pallas/``."""
+
+
+def launch_counters():
+    """[(name, wrapper, attribute)]: every kernel launch count of the port
+    (each wrapper adds one where it launches its kernel, and nowhere else),
+    and the batch norm backward's count of gradients copied into x's
+    layout. The executor moves them by a captured graph's launches at each
+    replay; chip_smoke.py reads them."""
+    from . import flash_attention as fa
+    from .batch_norm import fused_batch_norm_train
+    from .kv_write import kv_write
+    from .layer_norm import fused_layer_norm
+    from .paged_attention import paged_attention
+    from .random_bits import keep_mask
+    res = [('layer_norm', fused_layer_norm, 'launches'),
+           ('layer_norm_bwd', fused_layer_norm, 'bwd_launches'),
+           ('paged_attention', paged_attention, 'launches'),
+           ('paged_attention_v16', paged_attention, 'launches_v16'),
+           ('paged_attention_any', paged_attention, 'launches_any'),
+           ('paged_attention_q8', paged_attention, 'launches_q8'),
+           ('batch_norm', fused_batch_norm_train, 'launches'),
+           ('batch_norm_bwd', fused_batch_norm_train, 'bwd_launches'),
+           ('batch_norm_bwd_gy_copies', fused_batch_norm_train,
+            'bwd_gy_copies'),
+           ('kv_write', kv_write, 'launches'),
+           ('keep_mask', keep_mask, 'launches')]
+    for name, fn in (('flash_attention_fwd', fa.flash_fwd_cuda),
+                     ('flash_attention_bwd_dkv', fa.flash_bwd_dkv_cuda),
+                     ('flash_attention_bwd_dq', fa.flash_bwd_dq_cuda)):
+        res += [(name, fn, 'launches'), (name + '_mma', fn, 'launches_mma'),
+                (name + '_simt', fn, 'launches_simt')]
+    return res

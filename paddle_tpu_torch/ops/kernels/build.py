@@ -22,7 +22,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.dirname(
 CSRC = os.path.join(_PKG, 'csrc')
 BUILD_DIR = os.path.join(_PKG, '_build')
 SOURCES = ('layer_norm.cu', 'paged_attention.cu', 'flash_attention.cu',
-           'batch_norm.cu')
+           'batch_norm.cu', 'kv_write.cu', 'random_bits.cu')
 HEADERS = ('common.cuh', 'flash_tiles.cuh')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
@@ -156,6 +156,12 @@ def library():
             lib.ptt_batch_norm_bwd.argtypes = [p] * 9 + [ll, ll, i, ll, i,
                                                          f, i, p]
             lib.ptt_batch_norm_bwd.restype = i
+            lib.ptt_kv_write.argtypes = [p, p, i, p, p, p, p, i, p, p, p, i,
+                                         i, i, i, i, p]
+            lib.ptt_kv_write.restype = i
+            lib.ptt_keep_mask.argtypes = [p, ll, i, ctypes.c_uint, p,
+                                          ctypes.c_ulonglong, p]
+            lib.ptt_keep_mask.restype = i
             _loaded['lib'] = lib
         return lib
 

@@ -6,7 +6,7 @@ kernels (replacing ``_bwd_dkv_kernel`` and ``_bwd_dq_kernel`` /
 ``flash_attention_reference_fwd`` and ``flash_attention_reference_bwd``.
 
 Layout is the JAX package's: q, k, v are [B, H, T, D] (any strides with D
-contiguous, so head-split views need no copy, D <= 256) and ``kv_len`` is
+contiguous, so head-split views need no copy, any D) and ``kv_len`` is
 [B]. The semantics are those of the JAX op's default path,
 ``reference_attention``: the causal mask is aligned bottom-right (key col
 <= query row + Tk - Tq), so any Tq and Tk; a row with no live key (kv_len
@@ -24,7 +24,8 @@ kernel launches.
 K2 and each K3 kernel come in two hand-written variants: a tensor-core
 kernel (bf16, head dim a multiple of 16 up to 128, strides and base
 pointers multiples of 8 elements: the training path) and a SIMT kernel
-(fp32, every other bf16 input, and head dims above 128). The launcher in
+(fp32, every other bf16 input, and head dims above 128; above 256 its
+wide form walks the head dim in 128-column chunks). The launcher in
 the source chooses from dtype, head dim, strides and pointers alone and
 reports the kernel it launched; ``launches_mma`` and ``launches_simt`` on each of the three
 wrappers count from that report.
@@ -46,7 +47,6 @@ from . import build
 
 NEG_INF = -1e30
 DEAD_LOGIT = -1e9       # the reference's masked logit
-MAX_HEAD_DIM = 256      # the SIMT kernels' limit (kMaxHeadDim)
 
 
 def _check(q, k, v, kv_len):
@@ -59,9 +59,6 @@ def _check(q, k, v, kv_len):
         raise ValueError('flash_attention: k and v must be [%d, %d, Tk, %d] '
                          'alike, got %s %s' % (b, h, d, tuple(k.shape),
                                                tuple(v.shape)))
-    if d > MAX_HEAD_DIM:
-        raise ValueError('flash_attention: head dim %d > %d, the largest '
-                         'the kernels take' % (d, MAX_HEAD_DIM))
     if q.dtype not in (torch.float32, torch.bfloat16) or \
             k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError('flash_attention: q, k, v must all be float32 or '

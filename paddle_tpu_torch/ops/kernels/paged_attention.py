@@ -22,8 +22,9 @@ it is part of.
 The split kernel comes in two hand-written variants: one with 16-byte
 loads (key and value rows that are multiples of 16 bytes, at most 512
 bytes, Dv <= 128, 16-byte aligned arenas: the decode path) and one for
-rows of any width up to 256 elements (a bf16 arena with d_key 36, an fp32
-one with d_key 30, Dv 192, an int8 one with d_key 8), with the widest load
+rows of any width (a bf16 arena with d_key 36, an fp32 one with d_key 30,
+Dv 192, an int8 one with d_key 8; above 256 columns in chunks of 256,
+each value chunk its own block), with the widest load
 (8, 4, 2 or 1 bytes) that divides the rows. Both take fp32, bf16, int8 and
 e4m3 pages; a quantized page is dequantized in registers (float(v) *
 scale[row]), its p.v in fp32. The launcher chooses and reports which it
@@ -46,8 +47,6 @@ from . import build
 _NEG_INF = -1e9
 # tokens one split block of the kernel covers (kChunkTokens of the source)
 CHUNK_TOKENS = 256
-# the widest key or value row (elements) a kernel takes (kMaxAnyDim)
-MAX_HEAD_DIM = 256
 # the launcher's report: 1 the 16-byte kernel, 2 the any-width one, +2 for
 # quantized pages
 _LAUNCHED_V16, _LAUNCHED_ANY, _LAUNCHED_Q8 = 1, 2, 2
@@ -210,10 +209,9 @@ def _paged_cuda(q, k_pages, v_pages, block_tables, seq_lens, scale,
         if t.device != dev:
             raise ValueError('paged_attention kernel: all inputs must be '
                              'on %s, got %s' % (dev, t.device))
-    if max(d, dv) > MAX_HEAD_DIM or n > 65535:
-        raise ValueError('paged_attention kernel: needs key and value head '
-                         'dims <= %d and <= 65535 rows; got D %d, Dv %d, %d '
-                         'rows' % (MAX_HEAD_DIM, d, dv, n))
+    if n > 65535:
+        raise ValueError('paged_attention kernel: needs <= 65535 rows, got '
+                         '%d' % n)
     code = build.dtype_code(k_pages.dtype, quantized=True)
     out = torch.empty((n, h, dv), dtype=torch.float32, device=dev)
     if n == 0 or h == 0 or p == 0:

@@ -6,7 +6,8 @@ accuracy_op)."""
 
 import torch
 
-from ..core.registry import register
+from ..core.registry import op_key, register
+from .kernels import random_bits
 
 
 @register('lookup_table')
@@ -25,10 +26,12 @@ def _lookup_table(ctx):
     ctx.set_output('Out', out)
 
 
-def keep_mask(ctx, shape, keep, device):
-    """Bernoulli(keep) bool mask from the op's per-step generator."""
-    u = torch.rand(shape, generator=ctx.step_generator(), device=device)
-    return u < keep
+def keep_mask(ctx, shape, keep, device, dtype=torch.bool):
+    """Bernoulli(keep) mask in ``dtype``, a pure function of (program
+    seed, step, op index, element index): the counter-based bits of
+    kernels/random_bits.py, the step read on the device."""
+    return random_bits.keep_mask(shape, keep, op_key(ctx.seed, ctx.op_index),
+                                 ctx.step_tensor(), device, dtype)
 
 
 @register('dropout')
@@ -44,7 +47,7 @@ def _dropout(ctx):
         out = x * (1.0 - p) if impl == 'downgrade_in_infer' else x
         mask = torch.ones_like(x)
     else:
-        mask = keep_mask(ctx, x.shape, 1.0 - p, x.device).to(x.dtype)
+        mask = keep_mask(ctx, x.shape, 1.0 - p, x.device, x.dtype)
         out = x * mask
         if impl == 'upscale_in_train' and p < 1.0:
             out = out / (1.0 - p)
@@ -156,6 +159,7 @@ def _accuracy(ctx):
     correct = (indices == label).any(dim=-1)
     ctx.set_output('Accuracy', correct.float().mean().reshape(1))
     ctx.set_output('Correct', correct.sum(dtype=torch.int32).reshape(1))
-    ctx.set_output('Total', torch.tensor([indices.shape[0]],
-                                         dtype=torch.int32,
-                                         device=indices.device))
+    # a fill on the device: no host-to-device copy, so a graph can hold it
+    ctx.set_output('Total', torch.full((1,), indices.shape[0],
+                                       dtype=torch.int32,
+                                       device=indices.device))

@@ -12,8 +12,8 @@ from .kernels.layer_norm import fused_layer_norm
 def _batch_norm(ctx):
     """Training: every shape goes through K5's autograd Function (kernel
     forward on the card); the running statistics move by ``momentum`` in
-    fp32. is_test: the running statistics in plain torch, as the JAX
-    package does. Under bf16 AMP the op reads its raw bf16 X (ctx.input
+    fp32, in place. is_test: the running statistics in plain torch, as the
+    JAX package does. Under bf16 AMP the op reads its raw bf16 X (ctx.input
     would up-cast it: batch_norm is blacklisted) and normalizes in bf16,
     y = x·a + b with a and b rounded to bf16, as the JAX package does."""
     raw_x = ctx.env[ctx.op.input('X')]
@@ -29,10 +29,20 @@ def _batch_norm(ctx):
     if not (ctx.attr('is_test', False) or ctx.is_test):
         out, use_mean, use_var = fused_batch_norm_train(
             x, scale, bias, eps, layout=layout if x.dim() == 4 else 'NC')
-        ctx.set_output('MeanOut', (momentum * mean + (1.0 - momentum) *
-                                   use_mean).detach())
-        ctx.set_output('VarianceOut', (momentum * variance + (1.0 - momentum)
-                                       * use_var).detach())
+        # the running statistics move in place where MeanOut / VarianceOut
+        # name the Mean / Variance vars (the layer's layout): the scope's
+        # tensors keep their address, as a captured graph needs
+        for in_slot, out_slot, run, cur in (('Mean', 'MeanOut', mean,
+                                             use_mean),
+                                            ('Variance', 'VarianceOut',
+                                             variance, use_var)):
+            a, b = momentum * run, (1.0 - momentum) * cur.detach()
+            if ctx.op.output(out_slot) == ctx.op.input(in_slot) and \
+                    torch.result_type(a, b) == run.dtype:
+                new = torch.add(a, b, out=run)
+            else:
+                new = a + b
+            ctx.set_output(out_slot, new)
         ctx.set_output('SavedMean', use_mean.detach())
         ctx.set_output('SavedVariance', use_var.detach())
         ctx.set_output('Y', out)

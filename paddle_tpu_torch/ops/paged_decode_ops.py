@@ -38,19 +38,27 @@ registers through the same tables, so every invariant above holds at the
 quantized dtypes too.
 
 Sampling: the token at position i is greedy at temp == 0, else the
-Gumbel-max draw argmax(logits / temp - log(E)) with E ~ Exp(1) from a
-torch.Generator seeded by (seed, i). A stream thus depends only on
-(seed, positions), as in the reference, but the bits differ from
-jax.random's: the two packages agree at temperature 0 only.
+Gumbel-max draw argmax(logits / temp - log(E)) with E ~ Exp(1) from the
+counter-based bits of (seed, i, vocab index) (kernels/random_bits.py
+``gumbel_noise``), computed on the device for every row. A stream thus
+depends only on (seed, positions), as in the reference, but the bits differ
+from jax.random's: the two packages agree at temperature 0 only.
+
+Nothing here reads a device value on the host or copies from the host, so
+the executor can capture each op in a CUDA graph: the rows that write
+their K/V are chosen on the device (the KV-write kernel drops the others),
+the prefill's length and cached span stay device tensors, and its last
+row is picked with a device index.
 """
 
-import numpy as np
 import torch
 
 from ..core.registry import register
-from ..quant.core import kv_quantized, quantize_rows
+from ..quant.core import kv_quantized
+from .kernels.kv_write import kv_write
 from .kernels.layer_norm import fused_layer_norm
 from .kernels.paged_attention import paged_attention
+from .kernels.random_bits import gumbel_noise
 from .transformer_ops import ENC_SLOTS, _slot_to_input
 
 LM_SLOTS = ENC_SLOTS   # decoder-only block reuses the encoder slot layout
@@ -93,33 +101,18 @@ def _ffn(h, p):
                p['ffn_w2']) + p['ffn_b2']
 
 
-def _sample_key(seed, pos):
-    # torch's CPU generator seeds its mt19937 from the low 32 bits only, so
-    # (seed, pos) is mixed into 32 bits rather than packed side by side
-    return int(np.random.SeedSequence(
-        [int(seed) & 0xffffffff, int(pos) & 0xffffffff]).generate_state(1)[0])
-
-
 def _sample_tokens(logits, seeds, positions, temps):
     """logits [N, V] fp32 -> int64 tokens [N]. Rows with temp == 0 are
-    greedy (first maximum, as jnp.argmax); the others draw with a
-    generator keyed on (seed, position)."""
-    out = torch.argmax(logits, dim=-1)
-    temps_h = temps.reshape(-1).tolist()
-    if not any(t > 0.0 for t in temps_h):
-        return out
-    seeds_h = seeds.reshape(-1).tolist()
-    pos_h = positions.reshape(-1).tolist()
-    vocab = logits.shape[-1]
-    for i, t in enumerate(temps_h):
-        if t <= 0.0:
-            continue
-        g = torch.Generator(device='cpu')
-        g.manual_seed(_sample_key(seeds_h[i], pos_h[i]))
-        noise = -torch.empty(vocab).exponential_(generator=g).log_()
-        out[i] = torch.argmax(logits[i] / max(t, 1e-6) +
-                              noise.to(logits.device))
-    return out
+    greedy (first maximum, as jnp.argmax); the others take the Gumbel-max
+    draw keyed on (seed, position). Every row is computed (no host read of
+    the temperatures), each from its own row alone."""
+    greedy = torch.argmax(logits, dim=-1)
+    temps = temps.reshape(-1)
+    noise = gumbel_noise(seeds.reshape(-1), positions.reshape(-1),
+                         logits.shape[-1])
+    drawn = torch.argmax(logits / torch.clamp(temps, min=1e-6)[:, None] +
+                         noise, dim=-1)
+    return torch.where(temps > 0.0, drawn, greedy)
 
 
 def _lm_inputs(ctx):
@@ -135,25 +128,21 @@ def _lm_inputs(ctx):
     return emb, pos_enc, wout, params, kc, vc, ks, vs
 
 
-def _as_bytes(arena):
-    """One-byte arenas are written through a uint8 view (the same bits)."""
-    return arena.view(torch.uint8) if arena.element_size() == 1 else arena
-
-
 def _extend_rows(emb, pos_enc, wout, params, kcs, vcs, n_head,
                  tokens, pos, live, tables, kscales=None, vscales=None,
                  out_rows=None):
     """Shared core of the three ops: write N new tokens' K/V at absolute
     positions ``pos`` through per-row block ``tables`` [N, P], attend each
     row at its own ragged length (``pos + 1``), and return fp32 logits for
-    ``h[out_rows]`` (all rows when None). Rows that are not ``live``, sit
-    past the table's capacity, or hit a table entry outside [0, NB) write
-    nothing (padded tails / empty batch slots).
+    ``h[out_rows]`` (all rows when None; else ``out_rows`` is a [1] device
+    index). Rows that are not ``live``, sit past the table's capacity, or
+    hit a table entry outside [0, NB) write nothing (padded tails / empty
+    batch slots).
 
     Quantized arenas (``kscales``/``vscales`` [L, NB, H, bs] given): each
     new K/V row is quantized on its own (one fp32 scale a (token, head)
-    row) and written with its scale; the attention dequantizes through the
-    same tables.
+    row) and written with its scale, in the same KV-write launch; the
+    attention dequantizes through the same tables.
 
     The arenas are the scope's tensors and are updated IN PLACE: the
     reference rebuilds them functionally and relies on buffer donation; a
@@ -170,14 +159,14 @@ def _extend_rows(emb, pos_enc, wout, params, kcs, vcs, n_head,
     m = -(-n // ROW_TILE) * ROW_TILE         # rows of every product
 
     logical = torch.clamp(pos // bs, 0, p_cap - 1)
-    phys = torch.gather(tables, 1, logical[:, None].long())[:, 0]
-    # the reference's scatter mode='drop': an out-of-range index in a CUDA
-    # index_put_ is a device-side assert, so the rows that may write are
-    # chosen once here (phys and off are the same for every layer)
-    keep = (pos < p_cap * bs) & live & (phys >= 0) & (phys < nb)
-    rows = torch.nonzero(keep)[:, 0]
-    w_phys = phys[rows].long()
-    w_off = (pos[rows] % bs).long()
+    phys = torch.gather(tables, 1, logical[:, None].long())[:, 0] \
+        .to(torch.int32).contiguous()
+    # the reference's scatter mode='drop', decided on the device: a row
+    # writes only inside its table's capacity, when live, through a table
+    # entry inside the pool (phys, off and keep are the same every layer)
+    keep = ((pos < p_cap * bs) & live & (phys >= 0) & (phys < nb)) \
+        .contiguous()
+    off = (pos % bs).to(torch.int32).contiguous()
 
     tok = tokens.long().clamp(0, emb.shape[0] - 1)
     x = emb[tok] * (d_model ** 0.5) + \
@@ -193,13 +182,7 @@ def _extend_rows(emb, pos_enc, wout, params, kcs, vcs, n_head,
         ksc = vsc = None
         if quantized:
             ksc, vsc = kscales[layer], vscales[layer]
-            for arena, scales, new in ((kc, ksc, k_new), (vc, vsc, v_new)):
-                q8, s8 = quantize_rows(new[rows], kv_q)
-                _as_bytes(arena)[w_phys, :, w_off] = _as_bytes(q8)
-                scales[w_phys, :, w_off] = s8
-        else:
-            kc[w_phys, :, w_off] = k_new[rows].to(kc.dtype)
-            vc[w_phys, :, w_off] = v_new[rows].to(vc.dtype)
+        kv_write(k_new, v_new, kc, vc, phys, off, keep, ksc, vsc)
         q = _split_heads(_mm(h, p['slf_q'])[:n], n_head)
         attn = paged_attention(q, kc, vc, tables, att_lens,
                                k_scales=ksc, v_scales=vsc)
@@ -208,7 +191,7 @@ def _extend_rows(emb, pos_enc, wout, params, kcs, vcs, n_head,
         h = _ln(h + _ffn(h, p), p, 'ln2')
     if out_rows is None:
         return _mm(h, wout)[:n].float()
-    last = h[out_rows]
+    last = h.index_select(0, out_rows)
     return _mm(_pad_rows(last, ROW_TILE), wout)[:last.shape[0]].float()
 
 
@@ -252,8 +235,9 @@ def _paged_prefill(ctx):
     n_head = ctx.attr('n_head', 1)
 
     ids = ctx.input('Ids').reshape(-1)                      # [S] (padded)
-    length = int(ctx.input('Len').reshape(-1)[0])
-    cached = int(ctx.input('Cached').reshape(-1)[0])
+    # [1] device tensors, never read on the host
+    length = ctx.input('Len').reshape(1).to(torch.int32)
+    cached = ctx.input('Cached').reshape(1).to(torch.int32)
     table = ctx.input('BlockTable').to(torch.int32).reshape(-1)   # [P]
     temp = ctx.input('Temp').reshape(1).float()
     seed = ctx.input('Seed').reshape(1)
@@ -266,12 +250,11 @@ def _paged_prefill(ctx):
     t_idx = torch.arange(s, dtype=torch.int32, device=ids.device)
     pos = cached + t_idx
     tables = table.expand(s, table.shape[0])
-    last = max(length - 1, 0)
+    last = torch.clamp(length - 1, min=0).long()
     logits = _extend_rows(emb, pos_enc, wout, params, kcs, vcs, n_head,
                           ids, pos, t_idx < length, tables, kss, vss,
-                          out_rows=slice(last, last + 1))
-    nxt = _sample_tokens(logits, seed, torch.tensor([cached + length]),
-                         temp)
+                          out_rows=last)
+    nxt = _sample_tokens(logits, seed, cached + length, temp)
     ctx.set_output('NextToken',
                    nxt.reshape(1).to(ctx.out_dtype('NextToken', 'int64')))
     _set_arena_outputs(ctx, kcs, vcs, kss, vss)
@@ -287,15 +270,17 @@ def _paged_spec_verify(ctx):
     # B*K1 single-token rows: row (b, j) holds the j-th speculative token
     # at position lens[b] + j and attends at its own length (empty slots
     # ride along as in the decode step: all-NB tables drop every write)
+    def rep(x):          # [B, ...] -> [B*K1, ...], each row K1 times
+        return x[:, None].expand((b, k1) + tuple(x.shape[1:])) \
+            .reshape((b * k1,) + tuple(x.shape[1:]))
+
     j = torch.arange(k1, dtype=torch.int32, device=lens.device)
     pos = (lens[:, None] + j[None, :]).reshape(-1)              # [B*K1]
-    tables_rep = tables.repeat_interleave(k1, dim=0)           # [B*K1, P]
     live = torch.ones_like(pos, dtype=torch.bool)
     logits = _extend_rows(emb, pos_enc, wout, params, kcs, vcs, n_head,
-                          tokens.reshape(-1), pos, live, tables_rep, kss,
+                          tokens.reshape(-1), pos, live, rep(tables), kss,
                           vss)
-    nxt = _sample_tokens(logits, seeds.repeat_interleave(k1), pos + 1,
-                         temps.repeat_interleave(k1))
+    nxt = _sample_tokens(logits, rep(seeds), pos + 1, rep(temps))
     ctx.set_output('NextTokens', nxt.reshape(b, k1).to(
         ctx.out_dtype('NextTokens', 'int64')))
     _set_arena_outputs(ctx, kcs, vcs, kss, vss)

@@ -4,7 +4,8 @@ Values are drawn in fp32 on the host from the op's seeded torch.Generator
 (LoweringContext.generator) and then moved to the device, so a program's
 initial parameters do not depend on the place. They differ from the JAX
 package's draws by design: tests that compare the two packages copy
-parameters across instead.
+parameters across instead. Both ops are host-bound (registry.HOST_BOUND):
+a plan that holds one runs eagerly, never as a CUDA graph.
 """
 
 import torch
@@ -16,7 +17,7 @@ def _shape_from(ctx):
     return [int(s) for s in ctx.attr('shape')]
 
 
-@register('uniform_random')
+@register('uniform_random', host_bound=True)
 def _uniform_random(ctx):
     lo = ctx.attr('min', -1.0)
     hi = ctx.attr('max', 1.0)
@@ -26,7 +27,7 @@ def _uniform_random(ctx):
                                  dtype=ctx.out_dtype('Out')))
 
 
-@register('gaussian_random')
+@register('gaussian_random', host_bound=True)
 def _gaussian_random(ctx):
     mean = ctx.attr('mean', 0.0)
     std = ctx.attr('std', 1.0)

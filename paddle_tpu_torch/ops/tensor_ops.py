@@ -18,12 +18,20 @@ def _fill_constant(ctx):
 
 @register('assign_value')
 def _assign_value(ctx):
-    values = np.asarray(ctx.attr('values'))
-    shape = ctx.attr('shape', None)
-    if shape:
-        values = values.reshape(shape)
-    ctx.set_output('Out', torch.as_tensor(values).to(
-        device=ctx.device, dtype=ctx.out_dtype('Out')))
+    """The op's values moved to the device once (the op keeps that tensor)
+    and copied on the device at every run, so a captured graph holds no
+    host-to-device copy."""
+    dtype = ctx.out_dtype('Out')
+    cache = ctx.op.__dict__.setdefault('_device_values', {})
+    key = (str(ctx.device), dtype)
+    if key not in cache:
+        values = np.asarray(ctx.attr('values'))
+        shape = ctx.attr('shape', None)
+        if shape:
+            values = values.reshape(shape)
+        cache[key] = torch.as_tensor(values).to(device=ctx.device,
+                                                dtype=dtype)
+    ctx.set_output('Out', cache[key].clone())
 
 
 @register('sum')

@@ -63,17 +63,21 @@ def kv_quantized(kv_dtype):
 def quantize_rows(x, kv_dtype):
     """Quantize ``[..., D]`` rows independently: one fp32 scale per
     leading index. Returns ``(q, scales)``: q int8 (round half to even,
-    clamped to +-127) or float8_e4m3fn, scales fp32 ``[...]``. The
-    division is a true division, as the reference's, so both give the
-    same bits."""
+    clamped to +-127) or float8_e4m3fn, scales fp32 ``[...]``. Both
+    divisions are true divisions, as the reference's, so both give the
+    same bits (and so does the KV-write kernel, ops/kernels/kv_write.py)."""
     x = x.float()
     amax = torch.clamp(x.abs().amax(dim=-1), min=_EPS)
+    # amax / qmax over a 0-dim tensor: torch divides a CUDA tensor by a
+    # Python scalar as a product with its reciprocal, which rounds
+    # otherwise than the division the reference (and the KV-write kernel)
+    # takes
     if kv_dtype == 'int8':
-        s = amax / QMAX_INT8
+        s = amax / amax.new_full((), QMAX_INT8)
         q = torch.clamp(torch.round(x / s[..., None]),
                         -QMAX_INT8, QMAX_INT8).to(torch.int8)
     elif kv_dtype == 'float8_e4m3fn':
-        s = amax / QMAX_FP8
+        s = amax / amax.new_full((), QMAX_FP8)
         q = (x / s[..., None]).to(torch.float8_e4m3fn)
     else:
         raise ValueError('quantize_rows: %r is not a quantized kv dtype'

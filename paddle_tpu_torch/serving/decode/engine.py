@@ -34,7 +34,10 @@ stream is the one it gets alone: continuous batching, prefix caching and
 speculation change how fast the tokens come, never which.
 
 The engine runs on ``CUDAPlace(0)`` unless ``place`` says otherwise; with
-no CUDA device and no place it raises.
+no CUDA device and no place it raises. On the card each program shape runs
+as a CUDA graph (core/executor.py): ``warmup()`` captures every shape live
+traffic can produce, so serving captures nothing more (``captures`` stays
+where warm-up left it) until ``scope.set`` installs a new tensor.
 """
 
 import itertools
@@ -43,7 +46,7 @@ import time
 
 import numpy as np
 
-from ...core.executor import Executor
+from ...core.executor import WARMUP_RUNS, Executor
 from ...core.scope import Scope, scope_guard
 from ...quant.core import resolve_kv_dtype
 from ...weights import from_numpy
@@ -143,13 +146,20 @@ class DecodeEngine(object):
     def load_weights(self, weights):
         """Install a {param name: array} dict (names per
         model.DecodePrograms.param_names), e.g. the JAX package's
-        ``export_weights()`` or ``random_weights``."""
+        ``export_weights()`` or ``random_weights``, copied into the
+        parameters the scope already holds."""
         unknown = sorted(set(weights) - set(self._progs.param_names))
         if unknown:
             raise ValueError('unknown param names %s (expected a subset '
                              'of %s)' % (unknown, self._progs.param_names))
         for name, t in from_numpy(weights, self.place).items():
-            self._scope.set(name, t)
+            cur = self._scope.find(name)
+            if cur is not None and cur.shape == t.shape and \
+                    cur.dtype == t.dtype:
+                # into the tensor the captured graphs read: they stay valid
+                cur.copy_(t)
+            else:
+                self._scope.set(name, t)
 
     def export_weights(self):
         return {n: self._scope.numpy(n) for n in self._progs.param_names}
@@ -223,6 +233,12 @@ class DecodeEngine(object):
     def free_pages(self):
         return self.pool.free_blocks()
 
+    @property
+    def captures(self):
+        """CUDA graphs captured by the engine's executor so far: constant
+        from the end of warmup() to shutdown (0 on the CPU place)."""
+        return self._exe.captures
+
     # ---------------------------------------------------------- lifecycle
     def ready(self):
         return bool(self._started and self._warmed and not self._closed
@@ -242,25 +258,27 @@ class DecodeEngine(object):
         return self
 
     def warmup(self):
-        """Run every shape live traffic can produce once: one prefill per
-        prompt bucket, the decode step and, with speculation on, the
-        verify step, so allocator pools and library handles exist before
-        the first request. Warmup feeds point every block-table entry past
-        the pool (all writes drop), so the arenas are untouched. Returns
-        the number of shapes run."""
+        """Run every shape live traffic can produce: one prefill per prompt
+        bucket, the decode step and, with speculation on, the verify step,
+        each until the executor has captured it (its eager warm-up runs,
+        then the capture), so graphs, allocator pools and library handles
+        exist before the first request. Warmup feeds point every
+        block-table entry past the pool (all writes drop), so the arenas
+        are untouched. Returns the number of shapes run."""
         nb = self.num_blocks
         mb, pps = self.max_batch, self.pages_per_seq
-        for b in self.prompt_buckets:
-            self._run_prefill(np.zeros((1, b), 'int64'), 1, 0,
-                              np.full((1, pps), nb, 'int32'), 0.0, 0)
         idle = (np.zeros((mb,), 'int32'), np.full((mb, pps), nb, 'int32'),
                 np.zeros((mb,), 'float32'), np.zeros((mb,), 'int32'))
-        self._run_decode(np.zeros((mb,), 'int64'), *idle)
-        self.warmup_signatures = len(self.prompt_buckets) + 1
-        if self.spec_k > 0:
-            self._run_verify(np.zeros((mb, self.spec_k + 1), 'int64'),
-                             *idle)
-            self.warmup_signatures += 1
+        for _ in range(WARMUP_RUNS + 1):
+            for b in self.prompt_buckets:
+                self._run_prefill(np.zeros((1, b), 'int64'), 1, 0,
+                                  np.full((1, pps), nb, 'int32'), 0.0, 0)
+            self._run_decode(np.zeros((mb,), 'int64'), *idle)
+            if self.spec_k > 0:
+                self._run_verify(np.zeros((mb, self.spec_k + 1), 'int64'),
+                                 *idle)
+        self.warmup_signatures = len(self.prompt_buckets) + 1 + \
+            (self.spec_k > 0)
         self._warmed = True
         return self.warmup_signatures
 

@@ -7,7 +7,8 @@ on the same numpy inputs, fp32, 1e-5:
 * causal with Tq != Tk (the mask aligned bottom-right, tril(.., tk - tq));
 * rows with no live key (kv_len 0, and the first Tq - Tk rows under the
   causal mask): the mean of V, dO / Tk to every key's dV;
-* head dims above 128 (192 and 256).
+* head dims above 128 (192 and 256) and above 256 (320, the wide
+  kernels' head dim walked in chunks).
 """
 
 import numpy as np
@@ -40,6 +41,8 @@ CASES = [
     ('a kv_len-0 row, causal', 2, 24, 24, 2, 16, True, [0, 24]),
     ('head dim 192', 2, 20, 20, 2, 192, False, [20, 11]),
     ('head dim 256, causal', 2, 20, 20, 1, 256, True, None),
+    ('head dim 320', 2, 20, 24, 2, 320, False, [24, 9]),
+    ('head dim 320, causal Tq 24 > Tk 20', 2, 24, 20, 1, 320, True, None),
 ]
 
 
@@ -119,6 +122,10 @@ def test_fused_attention_gradients_match_jax_default_path(case):
 
 
 def test_head_dim_above_256_is_the_one_refusal():
-    x = torch.zeros(1, 4, 2 * 264)
-    with pytest.raises(ValueError, match='256'):
-        tops.fused_attention(x, x, x, 2)
+    """Head dims above 256 were the port's one refusal; the port now
+    computes them as the JAX op does (head dim 264, 1e-5)."""
+    q, k, v, _ = _inputs(1, 4, 4, 2 * 264, 13)
+    got = tops.fused_attention(*(torch.tensor(x) for x in (q, k, v)), 2)
+    want = jops.fused_attention(*(jnp.asarray(x) for x in (q, k, v)), 2)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)

@@ -567,3 +567,98 @@ def test_greedy_streams_equal_reference_engine_with_extras(kv_dtype):
     got = _run(_engine(kv_dtype=kv_dtype, prefix_cache=True, spec_k=2),
                reqs)
     assert got == want
+
+
+def test_sampled_token_does_not_depend_on_the_row_place():
+    """A row's sampled token depends on its logits, seed, position and
+    temperature only: the same rows in another order and inside a larger
+    batch give the same tokens, temperature-0 rows stay the first maximum,
+    and another position draws another token somewhere."""
+    from paddle_tpu_torch.ops.paged_decode_ops import _sample_tokens
+    rng = np.random.RandomState(9)
+    n, v = 8, 60
+    logits = torch.tensor(rng.randn(n, v).astype('float32'))
+    seeds = torch.tensor(rng.randint(0, 1 << 30, n), dtype=torch.int32)
+    pos = torch.tensor(rng.randint(1, 500, n), dtype=torch.int32)
+    temps = torch.tensor([0.0, 0.7, 1.0, 0.0, 0.5, 2.0, 0.9, 0.0])
+    base = _sample_tokens(logits, seeds, pos, temps)
+    perm = torch.tensor(rng.permutation(n))
+    moved = _sample_tokens(logits[perm], seeds[perm], pos[perm], temps[perm])
+    assert torch.equal(moved, base[perm])
+    big = _sample_tokens(torch.cat([logits, logits]),
+                         torch.cat([seeds, seeds]), torch.cat([pos, pos]),
+                         torch.cat([temps, temps]))
+    assert torch.equal(big[:n], base) and torch.equal(big[n:], base)
+    greedy = temps == 0
+    assert torch.equal(base[greedy], torch.argmax(logits[greedy], dim=-1))
+    later = _sample_tokens(logits.repeat(16, 1), seeds.repeat(16),
+                           pos.repeat(16) + torch.arange(16).repeat_interleave(
+                               n).to(torch.int32), temps.repeat(16))
+    assert not torch.equal(later.reshape(16, n)[:, 1],
+                           base[1].expand(16))
+
+
+def _old_scatter(k_new, v_new, ka, va, ks, vs, phys, off, keep, kv_dtype):
+    """The writes before the KV-write kernel, one kept row at a time:
+    quantize_rows per row (quantized arenas) and a plain assignment."""
+    for i in range(keep.shape[0]):
+        if not bool(keep[i]):
+            continue
+        p, o = int(phys[i]), int(off[i])
+        for arena, scales, new in ((ka, ks, k_new), (va, vs, v_new)):
+            if scales is None:
+                arena[p, :, o] = new[i].to(arena.dtype)
+            else:
+                q8, s8 = tq.quantize_rows(new[i:i + 1], kv_dtype)
+                arena.view(torch.uint8)[p, :, o] = q8[0].view(torch.uint8)
+                scales[p, :, o] = s8[0]
+
+
+@pytest.mark.parametrize('kv_dtype', ['float32', 'bfloat16', 'int8',
+                                      'float8_e4m3fn'])
+def test_kv_write_plain_drops_rows_and_equals_old_scatter(kv_dtype):
+    """The KV write's plain version (the CPU path) writes the kept rows as
+    the row-by-row scatter with quantize_rows does, bit for bit (arenas
+    and scales), and leaves every slot of a dropped row (past the pool,
+    not live) as it was."""
+    from paddle_tpu_torch.ops.kernels.kv_write import kv_write
+    rng = np.random.RandomState(10)
+    nb, h, bs, d, dv, n = 6, 2, 4, 12, 8, 9
+    k_new = torch.tensor(3 * rng.randn(n, h, d).astype('float32'))
+    v_new = torch.tensor(rng.randn(n, h, dv).astype('float32'))
+    k_new[4] = 0
+    slots = rng.permutation(nb * bs)[:n]
+    phys = torch.tensor(slots // bs, dtype=torch.int32)
+    off = torch.tensor(slots % bs, dtype=torch.int32)
+    keep = torch.tensor(rng.rand(n) < 0.6)
+    keep[4] = True
+    phys[2], keep[2] = nb, False
+    quant = tq.kv_quantized(kv_dtype)
+    dtype = getattr(torch, kv_dtype)
+
+    def arena(width):
+        raw = torch.tensor(rng.randint(0, 255, (nb, h, bs, width)),
+                           dtype=torch.uint8)
+        return raw.view(dtype) if quant else raw.to(dtype)
+
+    ka, va = arena(d), arena(dv)
+    scales = [torch.tensor(rng.randn(nb, h, bs).astype('float32'))
+              for _ in range(2)] if quant else [None, None]
+    got = [ka.clone(), va.clone()] + [s.clone() if quant else None
+                                      for s in scales]
+    want = [ka.clone(), va.clone()] + [s.clone() if quant else None
+                                       for s in scales]
+    kv_write(k_new, v_new, got[0], got[1], phys, off, keep, got[2], got[3])
+    _old_scatter(k_new, v_new, *want, phys, off, keep, kv_dtype)
+    for a, b in zip(got, want):
+        if a is not None:
+            assert torch.equal(a.view(torch.uint8) if quant and a.dim() == 4
+                               else a, b.view(torch.uint8)
+                               if quant and b.dim() == 4 else b)
+    for i in np.flatnonzero(~keep.numpy()):
+        p, o = int(phys[i]), int(off[i])
+        if p >= nb:
+            continue
+        for a, orig in ((got[0], ka), (got[1], va)):
+            raw = (lambda t: t.view(torch.uint8) if quant else t)
+            assert torch.equal(raw(a)[p, :, o], raw(orig)[p, :, o])

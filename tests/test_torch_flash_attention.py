@@ -123,8 +123,8 @@ def test_lse_and_short_rows():
 
 def test_causal_needs_equal_lengths():
     """Causal with Tq != Tk is aligned bottom-right (query row i sees keys
-    up to i + Tk - Tq), as reference_attention's tril(.., tk - tq); only a
-    head dim above 256 is refused."""
+    up to i + Tk - Tq), as reference_attention's tril(.., tk - tq); a head
+    dim above 256, once refused, is taken too."""
     q, k, v, _, _ = _inputs(1, 2, 6, 8, False, seed=9)
     out = tfa.flash_attention(torch.tensor(q[:, :, :4]), torch.tensor(k),
                               torch.tensor(v), causal=True)
@@ -132,9 +132,13 @@ def test_causal_needs_equal_lengths():
                                torch.tensor(v), causal=True)
     np.testing.assert_allclose(out.numpy(), want.numpy(), rtol=1e-5,
                                atol=1e-6)
-    x = torch.zeros(1, 1, 4, 264)
-    with pytest.raises(ValueError, match='256'):
-        tfa.flash_attention(x, x, x, causal=True)
+    q, k, v, _, _ = _inputs(1, 1, 6, 264, False, seed=10)
+    out = tfa.flash_attention(torch.tensor(q[:, :, :4]), torch.tensor(k),
+                              torch.tensor(v), causal=True)
+    want = reference_attention(torch.tensor(q[:, :, :4]), torch.tensor(k),
+                               torch.tensor(v), causal=True)
+    np.testing.assert_allclose(out.numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-6)
 
 
 def _attention_program(pkg, b, t, hd, n_head, causal, with_len):

@@ -63,6 +63,19 @@ def test_fp32_ragged_page_crossing(impl):
 
 
 @pytest.mark.parametrize('impl', ['reference', 'pallas_interpret'])
+def test_head_dim_320(impl):
+    """Key and value head dims of 320 (above the 256 the any-width kernel
+    once stopped at), ragged lengths and a sentinel entry, fp32: the same
+    bound as the other fp32 cases."""
+    q, kp, vp, tables, lens = _case(d=320, seed=9, lens=(3, 17, 32, 1))
+    tables = tables.copy()
+    tables[3, 1:] = kp.shape[0]
+    np.testing.assert_allclose(_port(q, kp, vp, tables, lens),
+                               _jax(impl, q, kp, vp, tables, lens),
+                               rtol=2e-5, atol=2e-6)
+
+
+@pytest.mark.parametrize('impl', ['reference', 'pallas_interpret'])
 def test_broadcast_prefill_table(impl):
     """Prefill rows share one table row (lengths cached+1 .. cached+S);
     the port takes it as a stride-0 view."""
