@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Chip smoke for paddle_tpu_torch: decode serving, Transformer training
-and ResNet-50 training on one CUDA card.
+"""Chip smoke for paddle_tpu_torch: decode serving, Transformer training,
+ResNet-50 training and NMT inference on one CUDA card.
 
     python3 chip_smoke.py                  # on a machine with one H100
     python3 chip_smoke.py --cpu-rehearsal  # phases 4-11 on the host, tiny
@@ -60,7 +60,11 @@ Phases (any fault exits non-zero; no phase is skipped over):
    D = Dv = 320 (fp32, bf16). The captured step's kernels, bit for bit
    with their plain versions: the KV write at a decode step's rows (16,
    13 kept) into fp32, bf16, int8 and e4m3 arenas, and the keep mask at
-   the Transformer's dropout shapes.
+   the Transformer's dropout shapes. K2 at the NMT decode's shapes (phase
+   12's unrolled decoder: B = 64 x beam 4 = 256, H = 8, D = 64, on
+   head-split views): causal Tq = Tk = t and cross-attention Tq = t
+   against Tk = 64 with kv_len 16-64, t in {1, 7, 16, 31}, fp32 and bf16,
+   against both plain versions, beside SDPA and the bound.
 4. Engine: DecodeEngine at the documented serving configuration
    (docs/serving.md: vocab 32000, 12 layers, 8 heads, d_model 512,
    d_inner 2048; max_batch 16, block 32, 4096 pages, 64 pages a
@@ -99,6 +103,13 @@ Phases (any fault exits non-zero; no phase is skipped over):
    the launch counts of the timed steps (K2, both K3 kernels 18 a step,
    K1 30 a step and its backward 60; every flash launch through its
    tensor-core variant).
+6b. The same training with transformer_base(..., scan_layers=True) (one
+   transformer_layer_stack op a side): ms a step, tokens/s, MFU beside
+   phase 6's, the same launch counts. Then phase 8's program with
+   scan_layers from phase 8's unrolled weights stacked by
+   stack_trained_weights: 3 Adam steps within 1e-5 relative of the
+   unrolled program's; at dropout 0.1, 3 captured steps equal 3 eager
+   steps bit for bit.
 7. Masked training: 3 + 10 steps at bench_transformer_masked's shape
    (batch 8, seq 512, src_length uniform in [256, 512], lbl_weight
    masking the same positions): padded and real tokens/s.
@@ -133,15 +144,31 @@ Phases (any fault exits non-zero; no phase is skipped over):
    all 32 streams (greedy and sampled) equal the captured runs'; tokens/s,
    TTFT and inter-token gaps of both.
 
+12. NMT inference: Transformer-base at bench width (6 + 6 layers, d_model
+   512, vocab 32000 both sides) from the port's seeded startup, the
+   decoder stacked by stack_trained_weights on the card; 64 sentences x
+   src 64, src_length uniform in [16, 64], bos 0, eos 1. Greedy and beam
+   4 through transformer_greedy_infer / transformer_beam_infer at 114
+   positions (input + 50; incremental) and at 32 (incremental and
+   unrolled, the unrolled graphs' cut), fp32 (TF32 off) then bf16 AMP,
+   every call captured: ms a batch, tokens/s, sentences/s, peak memory,
+   the exact K2 and K1 launches a call. Checks: incremental equals
+   unrolled at 32 positions (fp32; a stream may differ only where it
+   first diverges at a near tie of the unrolled run, at most 2), the
+   114-position graphs captured equal eager bit for bit and a second
+   batch of other sentences captures nothing, and the card equals the
+   CPU place (incremental, fp32, 2 sentences, 16 positions).
+
 The last line is {"ok": true, "device": {...}}; before it come one JSON
 line with every kernel's numbers and nvidia-smi's name and power limit.
---cpu-rehearsal runs phases 4-11 at tiny sizes with the plain versions
+--cpu-rehearsal runs phases 4-12 at tiny sizes with the plain versions
 (phases 8, 10 and 11 then compare the host with itself) and never prints
 that last line. --profile adds, after every other phase, a torch.profiler
 breakdown of decode steps (fp32 and int8 arenas, captured and eager),
-verify steps (k = 3), Transformer and ResNet-50 training steps (captured
-and eager): wall, device busy time and share, host launches (kernels and
-graphs) a step.
+verify steps (k = 3), Transformer (unrolled and scan_layers) and
+ResNet-50 training steps (captured and eager): wall, device busy time and
+share, host launches (kernels and graphs) a step; then phase 12's calls
+(captured; eager at fp32 for the one-query attention's spans) by family.
 --kernels-only stops after phase 3 (no verdict line). kernel_times.py
 times K1, K4, K2, K3 and K5 and the backward kernels of any checkout of
 this repository at phase 3's shapes.
@@ -662,18 +689,38 @@ def _live_pairs(b, tq, tk, lens, causal):
     return live
 
 
+def _key_reads(b, tk, lens):
+    """(K rows, V rows) the forward must read, summed over the batch: the
+    keys below each row's kv_len (every key without kv_len: the causal
+    band's last row sees them all), and all of V for a row with no live
+    key (its output is mean(V))."""
+    if lens is None:
+        return b * tk, b * tk
+    live = [min(int(n), tk) for n in lens]
+    return sum(live), sum(n if n else tk for n in live)
+
+
 def _flash_case(torch, card, label, b, h, t, d, dtype, causal, lens, gen,
-                tk=None):
-    """K2 and K3 against their plain versions on one input (Tq = t, Tk =
-    tk, default t); returns the numbers of each (forward, backward)."""
+                tk=None, backward=True, strided=False):
+    """K2 and, with ``backward``, K3 against their plain versions on one
+    input (Tq = t, Tk = tk, default t; with ``strided``, q/k/v are
+    head-split views of [B, T, H*D] projections, as the fused_attention op
+    hands them over); returns the numbers of each (forward, backward or
+    None)."""
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.kernels import flash_attention as K
     dev = torch.device('cuda', 0)
     tk = t if tk is None else tk
-    q, do = (torch.randn(b, h, t, d, generator=gen, device=dev).to(dtype)
-             for _ in range(2))
-    k, v = (torch.randn(b, h, tk, d, generator=gen, device=dev).to(dtype)
-            for _ in range(2))
+
+    def draw(n):
+        if strided:
+            x = torch.randn(b, n, h * d, generator=gen, device=dev).to(dtype)
+            return x.view(b, n, h, d).transpose(1, 2)
+        return torch.randn(b, h, n, d, generator=gen, device=dev).to(dtype)
+
+    q = draw(t)
+    do = draw(t) if backward else None
+    k, v = draw(tk), draw(tk)
     kv = None if lens is None else torch.tensor(lens, device=dev)
     fwd_count = K.flash_fwd_cuda
     before = (fwd_count.launches_mma, fwd_count.launches_simt)
@@ -697,37 +744,39 @@ def _flash_case(torch, card, label, b, h, t, d, dtype, causal, lens, gen,
     ref_out, ref_lse = K.flash_attention_reference_fwd(q, k, v, kv, causal)
     til_out, til_lse = K.flash_attention_tiled_reference_fwd(q, k, v, kv,
                                                              causal)
-    # K3 twice on its own variant (the same bits), and for bf16 the SIMT
-    # pair too, on copies that start one element into their storage
-    variant_bwd = 'mma' if mma else 'simt'
-    before = _bwd_counts(K)
-    grads = K.flash_attention_bwd(q, k, v, out, lse, do, kv, causal)
-    grads2 = K.flash_attention_bwd(q, k, v, out, lse, do, kv, causal)
-    torch.cuda.synchronize()
-    require(all(torch.equal(a, b) for a, b in zip(grads, grads2)),
-            '%s: two runs of K3 differ' % label)
-    require(_bwd_moved(K, before) == variant_bwd,
-            '%s: K3 launched %s, want the %s pair twice'
-            % (label, _bwd_moved(K, before), variant_bwd))
-    del grads2
-    ref_grads = K.flash_attention_reference_bwd(q, k, v, out, lse, do, kv,
-                                                causal)
-    simt_grads = None
-    if mma:
-        shifted = [_shifted(torch, x) for x in (q, k, v, out, do)]
+    if backward:
+        # K3 twice on its own variant (the same bits), and for bf16 the
+        # SIMT pair too, on copies that start one element into their storage
+        variant_bwd = 'mma' if mma else 'simt'
         before = _bwd_counts(K)
-        simt_grads = K.flash_attention_bwd(*shifted[:4], lse, shifted[4], kv,
-                                           causal)
-        again = K.flash_attention_bwd(*shifted[:4], lse, shifted[4], kv,
-                                      causal)
+        grads = K.flash_attention_bwd(q, k, v, out, lse, do, kv, causal)
+        grads2 = K.flash_attention_bwd(q, k, v, out, lse, do, kv, causal)
         torch.cuda.synchronize()
-        require(all(torch.equal(a, b) for a, b in zip(simt_grads, again)),
-                '%s: two runs of the SIMT K3 pair differ' % label)
-        require(_bwd_moved(K, before) == 'simt',
-                '%s: K3 on misaligned copies launched %s, want the SIMT '
-                'pair twice' % (label, _bwd_moved(K, before)))
-        del shifted, again
-    torch.cuda.synchronize()
+        require(all(torch.equal(a, b) for a, b in zip(grads, grads2)),
+                '%s: two runs of K3 differ' % label)
+        require(_bwd_moved(K, before) == variant_bwd,
+                '%s: K3 launched %s, want the %s pair twice'
+                % (label, _bwd_moved(K, before), variant_bwd))
+        del grads2
+        ref_grads = K.flash_attention_reference_bwd(q, k, v, out, lse, do,
+                                                    kv, causal)
+        simt_grads = None
+        if mma:
+            shifted = [_shifted(torch, x) for x in (q, k, v, out, do)]
+            before = _bwd_counts(K)
+            simt_grads = K.flash_attention_bwd(*shifted[:4], lse, shifted[4],
+                                               kv, causal)
+            again = K.flash_attention_bwd(*shifted[:4], lse, shifted[4], kv,
+                                          causal)
+            torch.cuda.synchronize()
+            require(all(torch.equal(a, b)
+                        for a, b in zip(simt_grads, again)),
+                    '%s: two runs of the SIMT K3 pair differ' % label)
+            require(_bwd_moved(K, before) == 'simt',
+                    '%s: K3 on misaligned copies launched %s, want the SIMT '
+                    'pair twice' % (label, _bwd_moved(K, before)))
+            del shifted, again
+        torch.cuda.synchronize()
     if dtype == torch.float32:
         tol = ('fp32: |kernel - plain| <= 1e-5 * max(1, max|plain|) (the '
                'same sums in another order)')
@@ -753,66 +802,83 @@ def _flash_case(torch, card, label, b, h, t, d, dtype, causal, lens, gen,
                   float((lse - til_lse).abs().max()))
     fwd_ok = fwd_ok and til_ok and lse_err <= 1e-4
     del til_out, til_lse
-    bwd = [err_ok(g, w) for g, w in zip(grads, ref_grads)]
-    bwd_err = max(e for e, _ in bwd)
-    bwd_ok = all(ok for _, ok in bwd)
-    simt_note = ''
-    if simt_grads is not None:
-        simt = [err_ok(g, w) for g, w in zip(simt_grads, ref_grads)]
-        simt_err = max(e for e, _ in simt)
-        bwd_ok = bwd_ok and all(ok for _, ok in simt)
-        simt_note = ', SIMT pair %.3g' % simt_err
-        del simt_grads
+    if backward:
+        bwd = [err_ok(g, w) for g, w in zip(grads, ref_grads)]
+        bwd_err = max(e for e, _ in bwd)
+        bwd_ok = all(ok for _, ok in bwd)
+        simt_note = ''
+        if simt_grads is not None:
+            simt = [err_ok(g, w) for g, w in zip(simt_grads, ref_grads)]
+            simt_err = max(e for e, _ in simt)
+            bwd_ok = bwd_ok and all(ok for _, ok in simt)
+            simt_note = ', SIMT pair %.3g' % simt_err
+            del simt_grads
 
+    # bytes: Q read and O written, K and V read over the keys the function
+    # needs, lse written (the backward: Q, O, dO read, dQ written, K and V
+    # read over the live keys, dK and dV written in full)
     item = q.element_size()
-    nq, nk = b * h * t * d * item, b * h * tk * d * item
+    row = h * d * item
+    nq, nk = b * t * row, b * tk * row
+    k_rows, v_rows = _key_reads(b, tk, lens)
     live = _live_pairs(b, t, tk, lens, causal) * h
     peak = BF16_FLOPS if mma else FP32_FLOPS
-    fwd_bound = bound_ms(2 * nq + 2 * nk + b * h * t * 4, 4 * live * d,
-                         peak)
-    bwd_bound = bound_ms(4 * nq + 4 * nk + b * h * t * 4,
-                         2.5 * 4 * live * d, peak)
+    fwd_bound = bound_ms(2 * nq + (k_rows + v_rows) * row + b * h * t * 4,
+                         4 * live * d, peak)
 
     fwd = lambda: K.flash_attention_fwd(q, k, v, kv, causal)  # noqa: E731
-    bwd_fn = lambda: K.flash_attention_bwd(  # noqa: E731
-        q, k, v, out, lse, do, kv, causal)
     times = dict(
         fwd_ms=device_ms(torch, fwd, iters=50),
         fwd_eager=eager_ms(torch, fwd, iters=50),
         fwd_plain=device_ms(torch, lambda: K.flash_attention_reference_fwd(
-            q, k, v, kv, causal), iters=10),
-        bwd_ms=device_ms(torch, bwd_fn, iters=50),
-        bwd_eager=eager_ms(torch, bwd_fn, iters=50),
-        bwd_plain=device_ms(torch, lambda: K.flash_attention_reference_bwd(
-            q, k, v, out, lse, do, kv, causal), iters=10))
+            q, k, v, kv, causal), iters=10))
     # yardstick: SDPA forward and its autograd backward (graph replay, as
     # the kernels; the backward also eager), on the same inputs and mask
     mask = sdpa_mask(torch, t, kv, causal, tk)
     sdpa_causal = causal and mask is None
     times['fwd_lib'] = device_ms(torch, lambda: F.scaled_dot_product_attention(
         q, k, v, attn_mask=mask, is_causal=sdpa_causal), iters=50)
-    times['bwd_lib'], backend, times['bwd_lib_eager'] = sdpa_bwd_ms(
-        torch, q, k, v, do, mask, sdpa_causal)
-    print('%s: forward (%s kernel) max_abs_err %.3g vs the whole-row and '
-          '%.3g vs the tiled plain version (lse %.3g, limit 1e-4), backward '
-          '(%s pair) max_abs_err %.3g%s (%s) %s; device ms: forward kernel '
-          '%.5f, plain %.5f, SDPA %.5f, bound %.6f (%s); backward kernels '
-          '%.5f, plain %.5f, SDPA backward %.5f (%s; eager %.5f), bound '
-          '%.6f (%s); eager ms: forward %.5f, backward %.5f [%s]'
-          % (label, variant, fwd_err, til_err, lse_err,
-             'tensor-core' if variant_bwd == 'mma' else 'SIMT', bwd_err,
-             simt_note, tol, 'ok' if fwd_ok and bwd_ok else 'MISMATCH',
-             times['fwd_ms'], times['fwd_plain'], times['fwd_lib'],
-             fwd_bound[0], fwd_bound[1], times['bwd_ms'], times['bwd_plain'],
-             times['bwd_lib'], backend, times['bwd_lib_eager'], bwd_bound[0],
-             bwd_bound[1], times['fwd_eager'], times['bwd_eager'], card))
-    require(fwd_ok, '%s: K2 disagrees with its plain version' % label)
-    require(bwd_ok, '%s: K3 disagrees with its plain version' % label)
     fwd_rec = dict(max_abs_err=max(fwd_err, til_err, lse_err),
                    ms=times['fwd_ms'],
                    plain_ms=times['fwd_plain'], bound_ms=fwd_bound[0],
                    bound_by=fwd_bound[1], library_ms=times['fwd_lib'],
                    eager_ms=times['fwd_eager'])
+    fwd_note = ('%s: forward (%s kernel) max_abs_err %.3g vs the whole-row '
+                'and %.3g vs the tiled plain version (lse %.3g, limit 1e-4)'
+                % (label, variant, fwd_err, til_err, lse_err))
+    fwd_times = ('forward kernel %.5f, plain %.5f, SDPA %.5f, bound %.6f '
+                 '(%s)' % (times['fwd_ms'], times['fwd_plain'],
+                           times['fwd_lib'], fwd_bound[0], fwd_bound[1]))
+    if not backward:
+        print('%s (%s) %s; device ms: %s; eager ms: forward %.5f [%s]'
+              % (fwd_note, tol, 'ok' if fwd_ok else 'MISMATCH', fwd_times,
+                 times['fwd_eager'], card))
+        require(fwd_ok, '%s: K2 disagrees with its plain version' % label)
+        return fwd_rec, None
+
+    bwd_bound = bound_ms(4 * nq + 2 * k_rows * row + 2 * nk + b * h * t * 4,
+                         2.5 * 4 * live * d, peak)
+    bwd_fn = lambda: K.flash_attention_bwd(  # noqa: E731
+        q, k, v, out, lse, do, kv, causal)
+    times.update(
+        bwd_ms=device_ms(torch, bwd_fn, iters=50),
+        bwd_eager=eager_ms(torch, bwd_fn, iters=50),
+        bwd_plain=device_ms(torch, lambda: K.flash_attention_reference_bwd(
+            q, k, v, out, lse, do, kv, causal), iters=10))
+    times['bwd_lib'], backend, times['bwd_lib_eager'] = sdpa_bwd_ms(
+        torch, q, k, v, do, mask, sdpa_causal)
+    print('%s, backward (%s pair) max_abs_err %.3g%s (%s) %s; device ms: %s; '
+          'backward kernels %.5f, plain %.5f, SDPA backward %.5f (%s; eager '
+          '%.5f), bound %.6f (%s); eager ms: forward %.5f, backward %.5f '
+          '[%s]'
+          % (fwd_note, 'tensor-core' if variant_bwd == 'mma' else 'SIMT',
+             bwd_err, simt_note, tol,
+             'ok' if fwd_ok and bwd_ok else 'MISMATCH', fwd_times,
+             times['bwd_ms'], times['bwd_plain'], times['bwd_lib'], backend,
+             times['bwd_lib_eager'], bwd_bound[0], bwd_bound[1],
+             times['fwd_eager'], times['bwd_eager'], card))
+    require(fwd_ok, '%s: K2 disagrees with its plain version' % label)
+    require(bwd_ok, '%s: K3 disagrees with its plain version' % label)
     bwd_rec = dict(max_abs_err=bwd_err, ms=times['bwd_ms'],
                    plain_ms=times['bwd_plain'], bound_ms=bwd_bound[0],
                    bound_by=bwd_bound[1], library_ms=times['bwd_lib'],
@@ -923,6 +989,28 @@ def flash_fault_shapes(torch):
     ]
 
 
+def decode_flash_shapes(torch):
+    """Phase 3's K2 cases at the NMT decode's shapes (phase 12: 64
+    sentences x beam 4 = 256 rows, 8 heads of 64): the unrolled decoder's
+    causal self-attention over a prefix of t tokens and its
+    cross-attention of t queries against the 64 encoder positions with
+    kv_len 16-64, fp32 and bf16. (label, B, H, Tq, Tk, D, dtype, causal,
+    kv_len or None)."""
+    lens = np.random.RandomState(2).randint(16, 65, 256).tolist()
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace('torch.', '')
+        for t in (1, 7, 16, 31):
+            cases.append(('flash_attention decode B=256 H=8 D=64 %s causal '
+                          'Tq=Tk=%d' % (name, t), 256, 8, t, t, 64, dtype,
+                          True, None))
+            cases.append(('flash_attention decode B=256 H=8 D=64 %s cross '
+                          'Tq=%d Tk=64 kv_len %d-%d' % (name, t, min(lens),
+                                                        max(lens)),
+                          256, 8, t, 64, 64, dtype, False, lens))
+    return cases
+
+
 def phase_flash_kernels(torch, card):
     gen = torch.Generator(device='cuda').manual_seed(1)
     res = []
@@ -935,6 +1023,11 @@ def phase_flash_kernels(torch, card):
         _flash_case(torch, card, label, b, h, tq, d, dtype, causal, lens,
                     gen, tk=tk)
         torch.cuda.empty_cache()
+    for label, b, h, tq, tk, d, dtype, causal, lens in \
+            decode_flash_shapes(torch):
+        _flash_case(torch, card, label, b, h, tq, d, dtype, causal, lens,
+                    gen, tk=tk, backward=False, strided=True)
+    torch.cuda.empty_cache()
     return res[0]
 
 
@@ -1479,16 +1572,20 @@ def _family(name):
     if any(w in low for w in ('fprop', 'dgrad', 'wgrad', 'conv', 'cudnn',
                               'implicit')):
         return 'convolution (cuDNN)'
-    if any(w in low for w in ('gemm', 'xmma', 'nvjet', 'cutlass')):
+    if any(w in low for w in ('gemm', 'gemv', 'xmma', 'nvjet', 'cutlass')):
         return 'matmul (cuBLAS)'
+    if any(w in low for w in ('topk', 'sort', 'radix', 'kthvalue')):
+        return 'top-k and sort'
     if 'copy' in low or 'cast' in low:
         return 'copies and casts'
     return 'other elementwise / reductions'
 
 
-# the executor's record_function ranges of a training step: on the device
-# timeline each is one annotation span, which is not a kernel
-SECTIONS = ('forward', 'optimizer')
+# record_function ranges: the executor's two of a training step, and the
+# incremental decode's one-query attention (ops/transformer_ops.py). On
+# the device timeline of an eager run each is one annotation span, which
+# is not a kernel; a graph replay has none
+SECTIONS = ('forward', 'optimizer', 'one_query_attention')
 # autograd nodes whose device time (their kernels') the profile reports
 NODES = ('_BatchNormTrainBackward', '_LayerNormBackward')
 
@@ -1539,7 +1636,7 @@ def profile_steps(torch, card, jobs):
         sections = {k: sum(t for s0, t in timed
                            if any(a <= s0 < b for a, b in spans[k]))
                     for k in SECTIONS if k in spans}
-        if sections:
+        if 'forward' in sections:
             sections['backward'] = busy - sum(sections.values())
         for a in prof.key_averages():
             if a.device_type == DeviceType.CPU and a.self_cpu_time_total > 0:
@@ -1939,9 +2036,10 @@ def flash_want(layers, steps):
 
 
 def phase_train(torch, pt, place, card, on_card, batch, seq, vocab, dims,
-                warmup=3, steps=20):
-    """Phase 6: bench_transformer through the port; returns the launch
-    counts of the timed steps and a --profile job of 5 more steps."""
+                warmup=3, steps=20, label='train'):
+    """Phase 6 (and 6b, with scan_layers in ``dims``): bench_transformer
+    through the port; returns the launch counts of the timed steps, a
+    --profile job of 5 more steps and (ms a step, tokens/s, MFU)."""
     from paddle_tpu_torch.models import transformer as T
     t0 = time.perf_counter()
     avg_cost = _build_train(pt, vocab, seq, 0.1, 'bf16', **dims)
@@ -1985,31 +2083,34 @@ def phase_train(torch, pt, place, card, on_card, batch, seq, vocab, dims,
     want = flash_want(layers, steps)
     want['layer_norm'] = 5 * layers * steps
     want['layer_norm_bwd'] = 2 * 5 * layers * steps
-    print('train: transformer_base vocab %d, %d params, batch %d x seq %d, '
-          'amp bf16, dropout 0.1, Adam(1e-4); build + startup %.2f s; '
-          'place %r' % (vocab, n_params, batch, seq, t1 - t0, place))
-    print('train: %d timed steps after %d warm-up: %.3f ms/step, %.1f '
+    mfu = flops / (ms / 1e3) / BF16_FLOPS
+    print('%s: transformer_base vocab %d, %d params, batch %d x seq %d, '
+          'amp bf16, dropout 0.1, Adam(1e-4), scan_layers %s; build + '
+          'startup %.2f s; place %r' % (label, vocab, n_params, batch, seq,
+                                        bool(dims.get('scan_layers')),
+                                        t1 - t0, place))
+    print('%s: %d timed steps after %d warm-up: %.3f ms/step, %.1f '
           'tokens/s, analytic %.4g TFLOP/step, MFU %.4f of %g TFLOP/s; loss '
           'first %.5f last %.5f [%s]'
-          % (steps, warmup, ms, tok_s, flops / 1e12,
-             flops / (ms / 1e3) / BF16_FLOPS, BF16_FLOPS / 1e12, losses[0],
-             losses[-1], card))
-    print('train: launches in the %d timed steps: %s (want %s: per layer '
+          % (label, steps, warmup, ms, tok_s, flops / 1e12, mfu,
+             BF16_FLOPS / 1e12, losses[0], losses[-1], card))
+    print('%s: launches in the %d timed steps: %s (want %s: per layer '
           'and step, 3 of each flash kernel, every one through its '
           'tensor-core variant, 5 layer norms and their backward, 2 kernels '
-          'each)' % (steps, {k: launches[k] for k in want}, want))
+          'each)' % (label, steps, {k: launches[k] for k in want}, want))
     require(np.isfinite(losses).all(), 'training loss not finite: %s'
             % losses)
     require(losses[-1] < losses[0], 'training loss did not fall: %s'
             % losses)
     if on_card:
         peak = torch.cuda.max_memory_allocated()
-        print('train: max_memory_allocated %.3f GB, %.3f GB above what was '
+        print('%s: max_memory_allocated %.3f GB, %.3f GB above what was '
               'allocated before the first step [%s]'
-              % (peak / 1e9, (peak - base) / 1e9, card))
+              % (label, peak / 1e9, (peak - base) / 1e9, card))
         require(all(launches[k] == n for k, n in want.items()),
-                'training launch counts %s, want %s' % (launches, want))
-    return launches, ('5 training steps', profile_step, 5, None)
+                '%s launch counts %s, want %s' % (label, launches, want))
+    return launches, ('5 %s steps' % label, profile_step, 5, None), \
+        (ms, tok_s, mfu)
 
 
 def phase_train_masked(torch, pt, place, card, on_card, batch, seq, vocab,
@@ -2088,6 +2189,66 @@ def phase_train_compare(torch, pt, places, vocab, dims, lr=1e-4, steps=3):
              2 * lr * steps, time.perf_counter() - t0))
     require(rel <= 1e-4, 'training losses differ across places')
     require(gap <= 2 * lr * steps, 'parameters differ across places')
+
+
+def phase_scan_compare(torch, pt, place, card, vocab, dims, lr=1e-4,
+                       steps=3):
+    """Phase 6b's second half: phase 8's program (batch 2 x seq 64, fp32,
+    no amp) with scan_layers=True from phase 8's unrolled weights stacked
+    by stack_trained_weights: 3 Adam steps within 1e-5 relative of the
+    unrolled program's; then at dropout 0.1, 3 captured steps equal 3
+    eager steps bit for bit (losses and every scope variable)."""
+    from paddle_tpu_torch.models import transformer as T
+    from paddle_tpu_torch.weights import load_into_scope
+    t0 = time.perf_counter()
+    progs = {}
+    for scan in (True, False):
+        avg = _build_train(pt, vocab, 64, 0.0, None, lr=lr, scan_layers=scan,
+                           **dims)
+        progs[scan] = (pt.default_main_program(), avg,
+                       pt.default_startup_program())
+    host = pt.Scope()
+    with pt.scope_guard(host):
+        hexe = pt.Executor(pt.CPUPlace())
+        # the scan program's own state (the stacked names' moments), then
+        # the unrolled weights, stacked
+        hexe.run(progs[True][2])
+        hexe.run(progs[False][2])
+    names = T.stack_trained_weights(host, dims.get('n_layer', 6))
+    weights = {n: host.numpy(n) for n in host.keys()}
+    feed = T.make_fake_batch(2, 64, 64, vocab, vocab, seed=0)
+    losses = {}
+    for scan, (main, avg, _) in progs.items():
+        scope = pt.Scope()
+        load_into_scope(weights, scope, place)
+        exe = pt.Executor(place)
+        with pt.scope_guard(scope):
+            losses[scan] = [float(exe.run(main, feed=feed,
+                                          fetch_list=[avg])[0])
+                            for _ in range(steps)]
+        del exe, scope
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses[True],
+                                                  losses[False]))
+    avg = _build_train(pt, vocab, 64, 0.1, None, lr=lr, scan_layers=True,
+                       **dims)
+    res = _three_ways(torch, pt, place, pt.default_main_program(), avg,
+                      weights, feed, modes=('captured', 'eager'))
+    same = bool(np.array_equal(res['captured'][0], res['eager'][0])) and \
+        all(np.array_equal(res['eager'][1][n], v)
+            for n, v in res['captured'][1].items())
+    print('phase 6b compare: batch 2 x seq 64, fp32, dropout 0, %d Adam '
+          'steps from the same weights (%d stacked by stack_trained_weights):'
+          ' scan_layers losses %s, unrolled %s (max rel %.3g, limit 1e-5); '
+          'dropout 0.1: captured %s, eager %s, bit for bit in the losses and '
+          '%d scope variables: %s (%.1f s) [%s]'
+          % (steps, len(names), ['%.7f' % v for v in losses[True]],
+             ['%.7f' % v for v in losses[False]], rel,
+             ['%.7f' % v for v in res['captured'][0]],
+             ['%.7f' % v for v in res['eager'][0]], len(res['captured'][1]),
+             same, time.perf_counter() - t0, card))
+    require(np.isfinite(losses[True]).all(), 'scan_layers losses not finite')
+    require(rel <= 1e-5, 'scan_layers losses differ from the unrolled ones')
+    require(same, 'captured scan_layers steps differ from eager')
 
 
 # ------------------------------------------------------- phases 9-10
@@ -2519,10 +2680,365 @@ def phase_captured_engine(torch, spec, engine_kw, reqs, card, on_card,
     return eng
 
 
+# ------------------------------------------------------------ phase 12
+# a stream may differ between two runs only where it first diverges at a
+# near tie of the reference run: top-two gap <= NEAR_TIE * max |value|;
+# more than NEAR_TIE_STREAMS such streams fail
+NEAR_TIE = 1e-5
+NEAR_TIE_STREAMS = 2
+
+
+def _nmt_program(pt, kind, incremental, t_out, src_seq, vocab, dims, beam):
+    """One inference graph on a fresh Program: (program, fetches); beam
+    also fetches each step's selection ([T - 1, B, beam] ids and parents:
+    the beam_search_decode op's inputs, or the transformer_beam_decode
+    op's outputs of those names)."""
+    from paddle_tpu_torch.models import transformer as T
+    main = pt.Program()
+    with pt.program_guard(main, pt.Program()):
+        kw = dict(max_out_len=t_out, src_seq_len=src_seq, bos_id=0,
+                  eos_id=1, incremental=incremental, scan_layers=False,
+                  **dims)
+        if kind == 'greedy':
+            return main, [T.transformer_greedy_infer(vocab, vocab, **kw)[0]]
+        fetch = list(T.transformer_beam_infer(vocab, vocab, beam_size=beam,
+                                              **kw)[0])
+    op = [o for o in main.global_block().ops
+          if o.type in ('beam_search_decode', 'transformer_beam_decode')][0]
+    slots = op.output if incremental else op.input
+    return main, fetch + [slots('StepIds'), slots('StepParents')]
+
+
+def _nmt_weights(pt, vocab, src_seq, dims):
+    """The port's seeded startup of the unrolled graphs' parameters, drawn
+    on the host: {name: array}."""
+    from paddle_tpu_torch.models import transformer as T
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        T.transformer_greedy_infer(vocab, vocab, max_out_len=2,
+                                   src_seq_len=src_seq, scan_layers=False,
+                                   **dims)
+    host = pt.Scope()
+    with pt.scope_guard(host):
+        pt.Executor(pt.CPUPlace()).run(startup)
+    return {n: host.numpy(n) for n in host.keys()}
+
+
+def _nmt_scope(pt, weights, place, n_layer):
+    """The weights on ``place``, the decoder's also stacked by
+    stack_trained_weights (on that device) for the incremental graphs."""
+    from paddle_tpu_torch.models import transformer as T
+    from paddle_tpu_torch.weights import load_into_scope
+    scope = pt.Scope()
+    load_into_scope(weights, scope, place)
+    return scope, T.stack_trained_weights(scope, n_layer)
+
+
+def _nmt_feed(batch, src_seq, vocab, seed):
+    """src_word uniform in [2, vocab), src_length uniform in [16, S]
+    (seeded); bos 0 and eos 1 are never source tokens."""
+    rng = np.random.RandomState(seed)
+    return {'src_word': rng.randint(2, vocab, (batch, src_seq))
+            .astype('int64'),
+            'src_length': rng.randint(min(16, src_seq), src_seq + 1, batch)
+            .astype('int64')}
+
+
+def _nmt_run(pt, exe, scope, prog, fetch, feed, cache=True, numpy=False):
+    with pt.scope_guard(scope):
+        return exe.run(prog, feed=feed, fetch_list=fetch,
+                       return_numpy=numpy, use_program_cache=cache)
+
+
+def nmt_want(n_layer, t_out, incremental):
+    """The launches of one decode call, from the code: K2 for each
+    encoder layer's self-attention and, on the unrolled path, each
+    decoder layer's two attentions at each of the t_out - 1 positions (the
+    incremental path's one-query attention is plain torch); K1 twice an
+    encoder layer and three times a decoder layer at each position; no
+    backward kernel and no dropout mask."""
+    return {'flash_attention_fwd': n_layer + (
+        0 if incremental else 2 * n_layer * (t_out - 1)),
+        'layer_norm': 2 * n_layer + 3 * n_layer * (t_out - 1),
+        'flash_attention_bwd_dq': 0, 'flash_attention_bwd_dkv': 0,
+        'layer_norm_bwd': 0, 'keep_mask': 0}
+
+
+def _nmt_time(torch, pt, exe, scope, prog, fetch, feed, on_card, warmup=3,
+              calls=10):
+    """``warmup`` calls (on the card: the eager run, the capture, a replay)
+    and ``calls`` timed ones on the host clock. Returns (ms a call, the
+    last call's fetches, the launches of the timed calls, peak bytes above
+    what was allocated before the first call)."""
+    base = 0
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    for _ in range(warmup):
+        _nmt_run(pt, exe, scope, prog, fetch, feed)
+    if on_card:
+        torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        out = _nmt_run(pt, exe, scope, prog, fetch, feed)
+    if on_card:
+        torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / calls
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() - base if on_card else 0
+    return ms, [o.cpu() for o in out], launches, peak
+
+
+def _top_gap(vals, k):
+    """The smallest gap between adjacent values among the k largest of
+    the 1-D ``vals``, relative to the largest |value| among them."""
+    top = np.sort(np.asarray(vals, np.float64))[::-1][:k]
+    return float(np.min(top[:-1] - top[1:])) / max(float(np.abs(top).max()),
+                                                   1e-30)
+
+
+def _nmt_gap(pt, exe, scope, prog, feed, kind, beam, stream, pos):
+    """The reference run's near-tie measure where ``stream`` first
+    diverges, from an eager run of the unrolled ``prog``: greedy, the
+    top-two gap of the logits that chose position ``pos``; beam, at the
+    first step ``pos`` whose selection (ids or parents) differs for the
+    sentence, the smallest top-(beam + 1) gap over the step's logits rows
+    of the sentence and over its candidate totals (pre_scores + candidate
+    log-probabilities)."""
+    ops = prog.global_block().ops
+    if kind == 'greedy':
+        x = [op.input('X') for op in ops if op.type == 'argmax'][pos - 1]
+        logits, = _nmt_run(pt, exe, scope, prog, [x], feed, cache=False,
+                           numpy=True)
+        return _top_gap(logits[stream], 2)
+    b = stream[0]
+    x = [op.input('X') for op in ops if op.type == 'log_softmax'][pos]
+    bs = [op for op in ops if op.type == 'beam_search'][pos]
+    logits, pre, cand = _nmt_run(
+        pt, exe, scope, prog, [x, bs.input('pre_scores'), bs.input('scores')],
+        feed, cache=False, numpy=True)
+    gaps = [_top_gap(logits[b * beam + j], beam + 1) for j in range(beam)]
+    totals = (pre[b][:, None].astype(np.float32) + cand[b]).reshape(-1)
+    totals = totals[totals > -1e29]
+    if totals.size > 1:
+        gaps.append(_top_gap(totals, beam + 1))
+    return min(gaps)
+
+
+def _nmt_match(label, kind, got, want, gap_of, n_streams, card):
+    """Hold ``got`` (ids; for beam also scores, step ids and step
+    parents) to ``want``: every stream equal but at most NEAR_TIE_STREAMS
+    that first diverge at a near tie of the reference run (``gap_of(stream,
+    pos)``: greedy at the first differing position, beam at the first step
+    whose selection differs for the sentence: a later step's parent
+    rewrites earlier positions of a backtracked sentence); beam scores
+    within 1e-4 relative for every sentence whose beams all match."""
+    a, b = got[0].numpy(), want[0].numpy()
+    diff = a != b
+    if kind == 'greedy':
+        streams = [(int(r), int(np.argmax(diff[r])))
+                   for r in np.where(diff.any(axis=1))[0]]
+        at = [(a[s][p], b[s][p]) for s, p in streams]
+    else:
+        split = ((got[2].numpy() != want[2].numpy()) |
+                 (got[3].numpy() != want[3].numpy())).any(axis=2)
+        streams = [((int(i), int(j)), int(np.argmax(split[:, i])))
+                   for i, j in zip(*np.where(diff.any(axis=2)))]
+        at = [tuple('ids %s, parents %s' % (o[2].numpy()[p, s[0]],
+                                             o[3].numpy()[p, s[0]])
+                    for o in (got, want)) for s, p in streams]
+    ties = []
+    for (stream, pos), (x, y) in zip(streams, at):
+        gap = gap_of(stream, pos)
+        ties.append(gap <= NEAR_TIE)
+        print('%s: stream %s first diverges at %s %d (%s vs %s); the '
+              'reference run\'s top-two gap there is %.3g of the largest '
+              '|value| (a near tie at <= %g): %s'
+              % (label, stream, 'position' if kind == 'greedy' else 'step',
+                 pos, x, y, gap, NEAR_TIE,
+                 'near tie' if ties[-1] else 'NOT a near tie'))
+    rel = 0.0
+    if kind == 'beam':
+        same = ~diff.any(axis=(1, 2))
+        sa, sb = got[1].numpy()[same], want[1].numpy()[same]
+        rel = float(np.max(np.abs(sa - sb) / np.maximum(np.abs(sb), 1e-30))) \
+            if sa.size else 0.0
+    print('%s: %d of %d streams differ, each at a near tie: %s; %sequal '
+          'otherwise [%s]' % (label, len(streams), n_streams, all(ties),
+                              'beam scores of the matching sentences within '
+                              '%.3g relative (limit 1e-4); ' % rel
+                              if kind == 'beam' else '', card))
+    require(all(ties) and len(streams) <= NEAR_TIE_STREAMS,
+            '%s: ids differ beyond near ties' % label)
+    require(rel <= 1e-4, '%s: beam scores differ' % label)
+
+
+def phase_nmt(torch, pt, place, card, on_card, vocab, dims, batch=64,
+              src_seq=64, beam=4, t_inc=114, t_unr=32, calls=10,
+              host_place=None, host_batch=2, host_t=16, profile=False):
+    """Phase 12: Transformer-base NMT inference through the port's entry
+    points (transformer_greedy_infer / transformer_beam_infer,
+    Executor(place).run captured) from the port's seeded startup, the
+    decoder stacked by stack_trained_weights. Greedy and beam at
+    t_inc positions (incremental) and at t_unr (incremental and unrolled),
+    fp32 (TF32 off) then bf16 AMP: ms a batch, tokens/s, peak memory and
+    the exact launches a call. Checks: incremental equals unrolled at
+    t_unr (fp32), captured equals eager bit for bit and a second batch of
+    other sentences captures nothing (the t_inc graphs), and the card
+    equals ``host_place`` (incremental, fp32, host_batch sentences,
+    host_t positions). Returns (the timed calls' launches, --profile
+    jobs)."""
+    t0 = time.perf_counter()
+    n_layer = dims['n_layer']
+    weights = _nmt_weights(pt, vocab, src_seq, dims)
+    scope, stacked = _nmt_scope(pt, weights, place, n_layer)
+    feed = _nmt_feed(batch, src_seq, vocab, seed=0)
+    feed2 = _nmt_feed(batch, src_seq, vocab, seed=1)
+    print('phase 12: Transformer-base NMT inference, vocab %d, %d + %d '
+          'layers, d_model %d, %d heads, d_inner %d; %d sentences x src %d '
+          '(src_length %d-%d), bos 0, eos 1, beam %d; %d layer parameters '
+          'stacked by stack_trained_weights on %r; setup %.1f s'
+          % (vocab, n_layer, n_layer, dims['d_model'], dims['n_head'],
+             dims['d_inner'], batch, src_seq, feed['src_length'].min(),
+             feed['src_length'].max(), beam, len(stacked), place,
+             time.perf_counter() - t0))
+    total, jobs, ms_of = {}, [], {}
+    for amp in (None, 'bf16'):
+        exe = pt.Executor(place)
+        prec = 'bf16' if amp else 'fp32'
+        kept = {}
+        for kind in ('greedy', 'beam'):
+            for incremental, t_out in ((True, t_inc), (True, t_unr),
+                                       (False, t_unr)):
+                prog, fetch = _nmt_program(pt, kind, incremental, t_out,
+                                           src_seq, vocab, dims, beam)
+                prog.amp = amp
+                mode = 'incremental' if incremental else 'unrolled'
+                label = 'phase 12 %s %s %s T=%d' % (kind, mode, prec, t_out)
+                ms, out, launches, peak = _nmt_time(
+                    torch, pt, exe, scope, prog, fetch, feed, on_card,
+                    calls=calls)
+                ms_of[kind, mode, prec, t_out] = ms
+                for k, v in launches.items():
+                    total[k] = total.get(k, 0) + v
+                want = nmt_want(n_layer, t_out, incremental)
+                got = {k: launches[k] / calls for k in want}
+                tokens = batch * (t_out - 1)
+                print('%s: %.3f ms/batch, %.1f tokens/s%s, peak memory %.3f '
+                      'GB above the weights and earlier graphs; launches a '
+                      'call %s (want %s) [%s]'
+                      % (label, ms, tokens / ms * 1e3,
+                         ', %.1f sentences/s' % (batch / ms * 1e3)
+                         if kind == 'beam' else '', peak / 1e9, got, want,
+                         card))
+                ids = out[0]
+                require(tuple(ids.shape) == ((batch, t_out) if kind ==
+                                             'greedy' else
+                                             (batch, beam, t_out - 1)),
+                        '%s: ids of shape %s' % (label, tuple(ids.shape)))
+                require(bool(((ids >= 0) & (ids < vocab)).all()),
+                        '%s: ids out of the vocabulary' % label)
+                if kind == 'beam':
+                    require(bool(torch.isfinite(out[1]).all()),
+                            '%s: scores not finite' % label)
+                if on_card:
+                    require(got == want, '%s: launches %s, want %s'
+                            % (label, got, want))
+                if t_out == t_unr:
+                    kept[kind, incremental] = (out, prog)
+                if t_out != t_inc:
+                    continue
+                eager = _nmt_run(pt, exe, scope, prog, fetch, feed,
+                                 cache=False)
+                same = all(torch.equal(a, e.cpu()) for a, e in zip(out, eager))
+                _nmt_run(pt, exe, scope, prog, fetch, feed2)
+                miss, captured = exe.last_cache_miss, exe.last_captured
+                print('%s: captured == eager bit for bit: %s; a second batch '
+                      'of other sentences: cache miss %s, captured %s'
+                      % (label, same, miss, captured))
+                require(same, '%s: captured differs from eager' % label)
+                require(not miss and (captured or not on_card),
+                        '%s: the second batch was not a replay' % label)
+                if profile:
+                    # eager (one call, fp32 only: the profiler slows its
+                    # ~30 k launches) for the one-query attention's spans
+                    for cache in (True, False) if amp is None else (True,):
+                        jobs.append((
+                            '1 %s call, %s' % (label, 'captured' if cache
+                                                else 'eager'),
+                            lambda p=prog, f=fetch, c=cache, e=exe: _nmt_run(
+                                pt, e, scope, p, f, feed, cache=c),
+                            3 if cache else 1, None))
+            if profile:
+                jobs.append(('1 phase 12 %s unrolled %s T=%d call, captured'
+                             % (kind, prec, t_unr),
+                             lambda p=prog, f=fetch, e=exe: _nmt_run(
+                                 pt, e, scope, p, f, feed), 3, None))
+        for kind in ('greedy', 'beam'):
+            print('phase 12 %s %s: incremental %.3f ms, unrolled %.3f ms at '
+                  '%d positions: incremental %.2fx faster [%s]'
+                  % (kind, prec, ms_of[kind, 'incremental', prec, t_unr],
+                     ms_of[kind, 'unrolled', prec, t_unr], t_unr,
+                     ms_of[kind, 'unrolled', prec, t_unr] /
+                     ms_of[kind, 'incremental', prec, t_unr], card))
+        if amp is None:
+            for kind in ('greedy', 'beam'):
+                (inc, _), (unr, uprog) = kept[kind, True], kept[kind, False]
+                _nmt_match(
+                    'phase 12 %s incremental vs unrolled, fp32, T=%d'
+                    % (kind, t_unr), kind, inc, unr,
+                    lambda stream, pos, k=kind, u=uprog: _nmt_gap(
+                        pt, exe, scope, u, feed, k, beam, stream, pos),
+                    batch * (1 if kind == 'greedy' else beam), card)
+        del kept
+        if not profile:
+            del exe
+        if on_card:
+            torch.cuda.empty_cache()
+    if host_place is not None:
+        _nmt_vs_host(torch, pt, place, host_place, card, vocab, dims,
+                     weights, src_seq, beam, host_batch, host_t)
+    print('phase 12 done in %.1f s' % (time.perf_counter() - t0))
+    return total, jobs
+
+
+def _nmt_vs_host(torch, pt, place, host_place, card, vocab, dims, weights,
+                 src_seq, beam, batch, t_out):
+    """Incremental greedy and beam, fp32, on ``place`` (a replay on the
+    card) against ``host_place``: ids equal but for near ties (read from
+    the host's unrolled graph), beam scores within 1e-4 relative."""
+    feed = _nmt_feed(batch, src_seq, vocab, seed=2)
+    out = {}
+    scopes = {}
+    for where in (place, host_place):
+        scope, _ = _nmt_scope(pt, weights, where, dims['n_layer'])
+        scopes[str(where)] = scope
+        exe = pt.Executor(where)
+        for kind in ('greedy', 'beam'):
+            prog, fetch = _nmt_program(pt, kind, True, t_out, src_seq, vocab,
+                                       dims, beam)
+            for _ in range(3):
+                res = _nmt_run(pt, exe, scope, prog, fetch, feed)
+            out[str(where), kind] = [r.cpu() for r in res]
+    hexe = pt.Executor(host_place)
+    hscope = scopes[str(host_place)]
+    for kind in ('greedy', 'beam'):
+        uprog, _ = _nmt_program(pt, kind, False, t_out, src_seq, vocab, dims,
+                                beam)
+        _nmt_match('phase 12 %s %r vs %r, fp32, %d sentences, T=%d'
+                   % (kind, place, host_place, batch, t_out), kind,
+                   out[str(place), kind], out[str(host_place), kind],
+                   lambda stream, pos, k=kind, u=uprog: _nmt_gap(
+                       pt, hexe, hscope, u, feed, k, beam, stream, pos),
+                   batch * (1 if kind == 'greedy' else beam), card)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--cpu-rehearsal', action='store_true',
-                    help='run phases 4-11 on the host at tiny sizes with '
+                    help='run phases 4-12 on the host at tiny sizes with '
                          'the plain versions')
     ap.add_argument('--profile', action='store_true',
                     help='after every other phase, profile 20 decode '
@@ -2566,6 +3082,10 @@ def main():
                     d_inner=32)
         phase_train(torch, pt, pt.CPUPlace(), host, False, 4, 8, 64, tiny,
                     steps=20)
+        phase_train(torch, pt, pt.CPUPlace(), host, False, 4, 8, 64,
+                    dict(tiny, scan_layers=True), steps=20,
+                    label='train scan_layers')
+        phase_scan_compare(torch, pt, pt.CPUPlace(), host, 64, tiny)
         phase_train_masked(torch, pt, pt.CPUPlace(), host, False, 4, 16, 64,
                            tiny, steps=3)
         phase_train_compare(torch, pt, (pt.CPUPlace(), pt.CPUPlace()), 64,
@@ -2584,6 +3104,9 @@ def main():
         got, st = quant['int8'][3], quant['int8'][2]
         phase_captured_engine(torch, spec, geom, shared, host, False,
                               (got, st), 'int8 engine', kv_dtype='int8')
+        phase_nmt(torch, pt, pt.CPUPlace(), host, False, 64, tiny, batch=4,
+                  src_seq=20, beam=3, t_inc=10, t_unr=6, calls=2,
+                  host_place=pt.CPUPlace(), host_t=5)
         print('cpu rehearsal ok in %.1f s' % (time.perf_counter() - t_start))
         return
 
@@ -2641,10 +3164,22 @@ def main():
     base = dict(n_layer=6, n_head=8, d_key=64, d_value=64, d_model=512,
                 d_inner=2048)
     # a --profile job keeps its executor (and graph) alive to the end
-    train, train_job = phase_train(torch, pt, pt.CUDAPlace(0), card, True,
-                                   64, 64, VOCAB, base)
+    train, train_job, unrolled = phase_train(torch, pt, pt.CUDAPlace(0), card,
+                                             True, 64, 64, VOCAB, base)
     train_job = train_job if args.profile else None
     torch.cuda.empty_cache()
+    # phase 6b: the same training with scan_layers, then its compare
+    scan_train, scan_job, scanned = phase_train(
+        torch, pt, pt.CUDAPlace(0), card, True, 64, 64, VOCAB,
+        dict(base, scan_layers=True), label='train scan_layers')
+    scan_job = scan_job if args.profile else None
+    print('phase 6b: scan_layers %.3f ms/step, %.1f tokens/s, MFU %.4f; '
+          'unrolled (phase 6) %.3f ms/step, %.1f tokens/s, MFU %.4f [%s]'
+          % (scanned + unrolled + (card,)))
+    torch.cuda.empty_cache()
+    phase_scan_compare(torch, pt, pt.CUDAPlace(0), card, VOCAB, base)
+    torch.cuda.empty_cache()
+    done('6, 6b (training, scan_layers)')
     masked = phase_train_masked(torch, pt, pt.CUDAPlace(0), card, True, 8,
                                 512, VOCAB, base)
     torch.cuda.empty_cache()
@@ -2683,15 +3218,27 @@ def main():
     torch.cuda.empty_cache()
     done('11 (captured against eager)')
     if args.profile:
-        profile_steps(torch, card, jobs + [train_job, resnet_job] +
+        # the other paths' profiles first: then their engines and graphs
+        # go, and phase 12 (profiled after it, with CUPTI attached since
+        # this first profile) has the card's memory
+        profile_steps(torch, card, jobs + [train_job, scan_job, resnet_job] +
                       train_jobs + resnet_jobs)
+        del jobs, train_job, scan_job, resnet_job, train_jobs, resnet_jobs
+        torch.cuda.empty_cache()
+    nmt, nmt_jobs = phase_nmt(torch, pt, pt.CUDAPlace(0), card, True, VOCAB,
+                              base, host_place=pt.CPUPlace(),
+                              profile=args.profile)
+    done('12 (NMT inference)')
+    if args.profile:
+        profile_steps(torch, card, nmt_jobs)
 
     # launches: the sum over the main paths' runs (the engine runs: plain,
     # extras plain and with cache + speculation, int8 and fp8; the timed
-    # Transformer, masked Transformer and ResNet-50 training steps), each
-    # read after its counts were set to 0
+    # Transformer (unrolled and scan_layers), masked Transformer and
+    # ResNet-50 training steps; phase 12's timed decode calls), each read
+    # after its counts were set to 0
     main_runs = [launches] + extras + list(quant.values()) + \
-        [train, masked, resnet]
+        [train, scan_train, masked, resnet, nmt]
 
     def runs(key):
         return sum(r.get(key, 0) for r in main_runs)

@@ -191,8 +191,10 @@ class _Plan(object):
     """What one (program, feeds, fetches) runs: the kept ops, the
     feeds they need, the scope's inputs and outputs, the backward
     marker's index (None for no training section), the names any kept op
-    reads or the caller fetches, and the names the ops after the marker
-    read."""
+    reads or the caller fetches, and for each op the values no later op
+    reads (``frees``: the step drops them from its environment after that
+    op, so a step holds only its live values; autograd keeps what the
+    backward saved)."""
 
     def __init__(self, block, ops, feed_names, fetch_names):
         self.ops = ops
@@ -213,10 +215,24 @@ class _Plan(object):
                 'Program.' % len(markers))
         self.marker = markers[0] if markers else None
         self.reads = consumed | set(fetch_names)
-        self.after_reads = set(fetch_names) | set(self.scope_out)
+        keep = set(fetch_names) | set(self.scope_out)
+        last = {}
+        for i, op in enumerate(ops):
+            for name in op.output_names() + op.input_names():
+                last[name] = i
+        # the scope's inputs, and the loss, live to the end of the forward:
+        # in a training step that is the marker, whose frees the step
+        # releases after the backward
+        end = len(ops) if self.marker is None else self.marker
+        held = set(self.scope_in)
         if self.marker is not None:
-            for op in ops[self.marker + 1:]:
-                self.after_reads.update(op.input_names())
+            held.add(ops[self.marker].attrs['loss_name'])
+        for name in held:
+            last[name] = max(last.get(name, end), end)
+        self.frees = {}
+        for name, i in last.items():
+            if name not in keep:
+                self.frees.setdefault(i, []).append(name)
 
 
 class Executor(object):
@@ -541,6 +557,8 @@ class Executor(object):
             for i, op in enumerate(ops):
                 self._run_op(env, op, block, start + i, seed, step,
                              program.amp, plan.reads)
+                for name in plan.frees.get(start + i, ()):
+                    env.pop(name, None)
 
         if plan.marker is None:
             with torch.no_grad():
@@ -624,9 +642,8 @@ class Executor(object):
                                             allow_unused=True)
         # the forward's values that nothing after the marker reads go now,
         # with the autograd graph they held
-        for n in list(env):
-            if n not in plan.after_reads:
-                del env[n]
+        for n in plan.frees.get(plan.marker, ()):
+            env.pop(n, None)
         env.update(stored)
         for pn, gn, g in zip(param_names, grad_names, grads):
             env[gn] = torch.zeros_like(stored[pn]) if g is None else g

@@ -9,7 +9,7 @@ from .helper import LayerHelper
 __all__ = ['fc', 'embedding', 'conv2d', 'pool2d', 'batch_norm',
            'layer_norm', 'dropout', 'cross_entropy',
            'label_smoothed_cross_entropy', 'softmax_with_cross_entropy',
-           'accuracy', 'topk', 'reduce_sum', 'transpose']
+           'accuracy', 'topk', 'reduce_sum', 'transpose', 'one_hot']
 
 
 def _prod(xs):
@@ -346,4 +346,15 @@ def transpose(x, perm, name=None):
         out.shape = tuple(x.shape[p] for p in perm)
     helper.append_op(type='transpose', inputs={'X': [x]},
                      outputs={'Out': [out]}, attrs={'axis': list(perm)})
+    return out
+
+
+def one_hot(input, depth):
+    helper = LayerHelper('one_hot')
+    out = helper.create_variable_for_type_inference('float32')
+    if input.shape is not None:
+        base = input.shape[:-1] if input.shape[-1] == 1 else input.shape
+        out.shape = tuple(base) + (depth,)
+    helper.append_op(type='one_hot', inputs={'X': [input]},
+                     outputs={'Out': [out]}, attrs={'depth': depth})
     return out

@@ -1,11 +1,11 @@
 """Thin layers over one op each (reference: paddle_tpu layers/ops.py;
-fluid/layers/ops.py): elementwise add, mul and div, reshape, scale and
-mean."""
+fluid/layers/ops.py): elementwise add, sub, mul and div, reshape, scale,
+mean and cumsum."""
 
 from .helper import LayerHelper
 
-__all__ = ['elementwise_add', 'elementwise_mul', 'elementwise_div',
-           'reshape', 'scale', 'mean']
+__all__ = ['elementwise_add', 'elementwise_sub', 'elementwise_mul',
+           'elementwise_div', 'reshape', 'scale', 'mean', 'cumsum']
 
 
 def _single_op(op_type, x, attrs=None):
@@ -32,6 +32,10 @@ def _maybe_act(out, act):
 
 def elementwise_add(x, y, axis=-1, act=None, name=None):
     return _maybe_act(_binary_op('elementwise_add', x, y, axis), act)
+
+
+def elementwise_sub(x, y, axis=-1, act=None, name=None):
+    return _maybe_act(_binary_op('elementwise_sub', x, y, axis), act)
 
 
 def elementwise_mul(x, y, axis=-1, act=None, name=None):
@@ -81,3 +85,8 @@ def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None,
     out = _single_op('scale', x, {'scale': float(scale), 'bias': float(bias),
                                   'bias_after_scale': bias_after_scale})
     return _maybe_act(out, act)
+
+
+def cumsum(x, axis=-1, exclusive=False, reverse=False):
+    return _single_op('cumsum', x, {'axis': axis, 'exclusive': exclusive,
+                                    'reverse': reverse})

@@ -1,6 +1,8 @@
-"""Math ops the training path runs: mul, matmul, elementwise, scale,
-reduce_sum, mean (reference: paddle_tpu ops/math_ops.py; fluid's
-mul_op, matmul_op, elementwise_*_op, scale_op, reduce_op, mean_op).
+"""Math ops the training and inference paths run: mul, matmul,
+elementwise, scale, reduce_sum, mean and the comparisons equal and
+less_than (reference: paddle_tpu ops/math_ops.py; fluid's mul_op,
+matmul_op, elementwise_*_op, scale_op, reduce_op, mean_op,
+compare_op).
 
 A plain matrix product goes to ``torch.matmul``, as the JAX package leaves
 it to XLA.
@@ -111,3 +113,13 @@ def _scale(ctx):
     else:
         out = (x + bias) * scale
     ctx.set_output('Out', out.to(x.dtype))
+
+
+def _register_compare(name, fn):
+    @register(name)
+    def _op(ctx, fn=fn):
+        ctx.set_output('Out', fn(ctx.input('X'), ctx.input('Y')))
+
+
+_register_compare('less_than', torch.lt)
+_register_compare('equal', torch.eq)

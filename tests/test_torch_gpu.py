@@ -1,7 +1,8 @@
 """The port on a CUDA card: each kernel against its plain version, the
 decode engine on the card against the same engine on the host, one
 training step of a small Transformer and of a small ResNet on the card
-against the same step on the host.
+against the same step on the host, and the NMT inference graphs (greedy
+and beam, unrolled and incremental) on the card against the host.
 
 Marked ``gpu``; each test decides inside itself whether a card exists and
 skips without one. This file imports no jax, so it also runs on a machine
@@ -1211,13 +1212,14 @@ def _restore(scope, snap):
         scope.find(n).copy_(t)
 
 
-def _small_transformer(dropout):
+def _small_transformer(dropout, scan_layers=False):
     from paddle_tpu_torch.models import transformer as T
     pt.reset_default_programs()
     avg_cost, _ = T.transformer_base(
         src_vocab_size=96, trg_vocab_size=96, src_seq_len=24,
         trg_seq_len=24, n_layer=2, n_head=4, d_key=16, d_value=16,
-        d_model=64, d_inner=128, dropout_rate=dropout)
+        d_model=64, d_inner=128, dropout_rate=dropout,
+        scan_layers=scan_layers)
     pt.optimizer.Adam(learning_rate=1e-3).minimize(avg_cost)
     return avg_cost, T.make_fake_batch(3, 24, 24, 96, 96, seed=2)
 
@@ -1386,3 +1388,194 @@ def test_captured_engine_streams_equal_eager_and_capture_once(cuda):
     assert again == want[0]
     eng.shutdown()
     assert eng.free_pages() == eng.num_blocks
+
+
+# ---- NMT inference, the stacked Transformer and top_k's ties
+
+NMT = dict(n_layer=2, n_head=4, d_key=16, d_value=16, d_model=64,
+           d_inner=128)
+NMT_VOCAB, NMT_SRC, NMT_BEAM = 96, 12, 3
+
+
+def _nmt_weights():
+    """The port's startup of the unrolled inference graph's parameters,
+    drawn on the host."""
+    from paddle_tpu_torch.models import transformer as T
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        T.transformer_greedy_infer(NMT_VOCAB, NMT_VOCAB, max_out_len=2,
+                                   src_seq_len=NMT_SRC, **NMT)
+    host = pt.Scope()
+    with pt.scope_guard(host):
+        pt.Executor(pt.CPUPlace()).run(startup)
+    return {n: host.numpy(n) for n in host.keys()}
+
+
+def _nmt_program(kind, incremental, t_out=9):
+    from paddle_tpu_torch.models import transformer as T
+    main = pt.Program()
+    with pt.program_guard(main, pt.Program()):
+        kw = dict(max_out_len=t_out, src_seq_len=NMT_SRC,
+                  incremental=incremental, **NMT)
+        if kind == 'greedy':
+            fetch = [T.transformer_greedy_infer(NMT_VOCAB, NMT_VOCAB,
+                                                **kw)[0]]
+        else:
+            fetch = list(T.transformer_beam_infer(
+                NMT_VOCAB, NMT_VOCAB, beam_size=NMT_BEAM, **kw)[0])
+    return main, fetch
+
+
+def _nmt_scope(weights, place):
+    from paddle_tpu_torch.models import transformer as T
+    from paddle_tpu_torch.weights import load_into_scope
+    scope = pt.Scope()
+    load_into_scope(weights, scope, place)
+    T.stack_trained_weights(scope, NMT['n_layer'])
+    return scope
+
+
+def _nmt_feed(seed=0, batch=5):
+    rng = np.random.RandomState(seed)
+    return {'src_word': rng.randint(2, NMT_VOCAB, (batch, NMT_SRC))
+            .astype('int64'),
+            'src_length': rng.randint(3, NMT_SRC + 1, batch).astype('int64')}
+
+
+@pytest.mark.parametrize('incremental', [False, True])
+@pytest.mark.parametrize('kind', ['greedy', 'beam'])
+def test_nmt_decode_on_card_equals_host(cuda, kind, incremental):
+    """Greedy and beam (fp32) on the card equal the host: the same ids,
+    beam scores within 1e-4 relative. The card's replay equals its eager
+    run bit for bit, and launches K2 and K1 exactly as many times as the
+    code says."""
+    weights = _nmt_weights()
+    feed = _nmt_feed()
+    prog, fetch = _nmt_program(kind, incremental)
+    out = {}
+    for place in (pt.CUDAPlace(0), pt.CPUPlace()):
+        scope = _nmt_scope(weights, place)
+        exe = pt.Executor(place)
+        with pt.scope_guard(scope):
+            for _ in range(2):
+                exe.run(prog, feed=feed, fetch_list=fetch)
+            fa, ln = tfa.flash_fwd_cuda.launches, tln.fused_layer_norm.launches
+            out[type(place).__name__] = exe.run(prog, feed=feed,
+                                                fetch_list=fetch)
+            launched = (tfa.flash_fwd_cuda.launches - fa,
+                        tln.fused_layer_norm.launches - ln)
+            if isinstance(place, pt.CUDAPlace):
+                assert exe.last_captured
+                eager = exe.run(prog, feed=feed, fetch_list=fetch,
+                                use_program_cache=False)
+                for a, b in zip(out['CUDAPlace'], eager):
+                    np.testing.assert_array_equal(a, b)
+                layers, t = NMT['n_layer'], 9
+                assert launched == (
+                    layers + (0 if incremental else 2 * layers * (t - 1)),
+                    2 * layers + 3 * layers * (t - 1))
+    card, host = out['CUDAPlace'], out['CPUPlace']
+    np.testing.assert_array_equal(card[0], host[0])
+    if kind == 'beam':
+        np.testing.assert_allclose(card[1], host[1], rtol=1e-4)
+
+
+def test_nmt_recaptures_after_stack_trained_weights(cuda):
+    """A second stack_trained_weights installs new tensors: the next call
+    captures its graph again (the replay's address check) and reads
+    them."""
+    from paddle_tpu_torch.models import transformer as T
+    weights = _nmt_weights()
+    feed = _nmt_feed()
+    prog, fetch = _nmt_program('greedy', True)
+    scope = _nmt_scope(weights, pt.CUDAPlace(0))
+    exe = pt.Executor(pt.CUDAPlace(0))
+    with pt.scope_guard(scope):
+        runs = [exe.run(prog, feed=feed, fetch_list=fetch)[0]
+                for _ in range(3)]
+        assert exe.captures == 1 and not exe.last_cache_miss
+        T.stack_trained_weights(scope, NMT['n_layer'])
+        again = exe.run(prog, feed=feed, fetch_list=fetch)[0]
+        assert exe.last_cache_miss and exe.last_captured
+        assert exe.captures == 2
+        # the new tensors are what the graph reads: zeroing the output
+        # projection's stacked FFN changes the ids
+        scope.find('dec_stack_ffn_2.w').zero_()
+        changed = exe.run(prog, feed=feed, fetch_list=fetch)[0]
+        assert not exe.last_cache_miss
+    np.testing.assert_array_equal(again, runs[-1])
+    assert not np.array_equal(changed, again)
+
+
+def test_scan_layers_run_steps_equals_run_calls(cuda):
+    """transformer(scan_layers=True) at fp32 with dropout 0.1: three
+    captured steps equal three eager steps, and run_steps(3) three run
+    calls, bit for bit in the losses and every scope variable."""
+    avg_cost, feed = _small_transformer(0.1, scan_layers=True)
+    res = _three_ways(cuda, avg_cost, feed)
+    base_losses, base_vars = res['captured']
+    assert np.isfinite(base_losses).all()
+    for mode in ('eager', 'run_steps'):
+        losses, vars_ = res[mode]
+        np.testing.assert_array_equal(losses, base_losses, err_msg=mode)
+        for n, v in base_vars.items():
+            np.testing.assert_array_equal(vars_[n], v, err_msg=n)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_top_k_ties_on_the_card(cuda, dtype):
+    """top_k on CUDA tensors returns lax.top_k's order: larger first, the
+    lower index first on a tie (numpy's stable sort of the negated
+    values), as on the host."""
+    from paddle_tpu_torch.ops.tensor_ops import top_k
+    every7 = np.zeros((1, 300), np.float32)
+    every7[0, ::7] = 1.0
+    one_live = np.full((1, 64), -1e30, np.float32)
+    one_live[0, 3] = 0.5
+    rng = np.random.RandomState(0)
+    logits = torch.from_numpy(rng.randn(256, 32000).astype(np.float32) * 3)
+    logits = logits.to(torch.bfloat16).float().numpy()   # many ties
+    for rows, k in ((every7, 5), (one_live, 4), (logits, 4)):
+        x = torch.from_numpy(rows).to(dtype)
+        vals, idx = top_k(x.to(cuda), k)
+        want = np.argsort(-x.float().numpy(), axis=-1, kind='stable')[:, :k]
+        np.testing.assert_array_equal(idx.cpu().numpy(), want)
+        np.testing.assert_array_equal(idx.cpu().numpy(),
+                                      top_k(x, k)[1].numpy())
+        assert vals.dtype == dtype
+    assert top_k(torch.from_numpy(every7).to(cuda), 5)[1].tolist() == \
+        [[0, 7, 14, 21, 28]]
+
+
+DECODE_FLASH = [(t, causal, dtype) for t in (1, 7, 16, 31)
+                for causal in (True, False)
+                for dtype in (torch.float32, torch.bfloat16)]
+
+
+@pytest.mark.parametrize('case', DECODE_FLASH)
+def test_flash_forward_at_the_decode_shapes(cuda, case):
+    """K2 at the unrolled decoder's shapes on head-split views: causal
+    self-attention over a prefix of t tokens (Tq = Tk = t) and
+    cross-attention of t queries against 64 keys with kv_len 16-64,
+    against both plain versions."""
+    t, causal, dtype = case
+    b, h, d = 32, 8, 64
+    tk = t if causal else 64
+    gen = torch.Generator(device=cuda).manual_seed(t)
+
+    def heads(n):
+        x = torch.randn(b, n, h * d, generator=gen, device=cuda).to(dtype)
+        return x.view(b, n, h, d).transpose(1, 2)
+
+    q, k, v = heads(t), heads(tk), heads(tk)
+    lens = None if causal else torch.randint(16, 65, (b,), generator=gen,
+                                             device=cuda)
+    before = tfa.flash_fwd_cuda.launches
+    out, lse = tfa.flash_attention_fwd(q, k, v, lens, causal)
+    assert tfa.flash_fwd_cuda.launches == before + 1
+    for ref in (tfa.flash_attention_reference_fwd,
+                tfa.flash_attention_tiled_reference_fwd):
+        want, want_lse = ref(q, k, v, lens, causal)
+        torch.cuda.synchronize()
+        _close(out, want, dtype)
+        torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-4)
