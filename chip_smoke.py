@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Chip smoke for paddle_tpu_torch: decode serving, Transformer training,
-ResNet-50 training and NMT inference on one CUDA card.
+ResNet-50 training, NMT inference and the training lifecycle (Trainer,
+checkpoints and resume, inference-model export) on one CUDA card.
 
     python3 chip_smoke.py                  # on a machine with one H100
-    python3 chip_smoke.py --cpu-rehearsal  # phases 4-11 on the host, tiny
+    python3 chip_smoke.py --cpu-rehearsal  # phases 4-13 on the host, tiny
 
 Every path runs through the executor's CUDA graphs (one a key, captured on
 its second call; core/executor.py), and phase 11 holds each against the
@@ -158,12 +159,38 @@ Phases (any fault exits non-zero; no phase is skipped over):
    114-position graphs captured equal eager bit for bit and a second
    batch of other sentences captures nothing, and the card equals the
    CPU place (incremental, fp32, 2 sentences, 16 positions).
+13. The training lifecycle (checkpoints written under the checkout in a
+   temporary chip_smoke_ckpt.* directory, removed at the end).
+   (a) bench.py's bench_pipeline_ablation through the port's
+   Trainer.train: transformer_base at vocab 32000 (dropout 0.1),
+   Adam(1e-4), amp bf16, 2 epochs of make_fake_batch(64, 64, 64, 32000,
+   32000, seed=i) for i < 20, epoch 1 timed, at pipeline_depth 1, 2 and 4
+   (host_prefetch 2 above 1): tokens/s a depth, the timed steps' launches
+   (K2 and each K3 kernel 18 a step, K1 30 and its backward 60), and the
+   final persistables and every loss of depths 2 and 4 equal depth 1's
+   bit for bit. (b) At the same width, noam_decay(512, 4000), Adam(0.9,
+   0.98, 1e-9), GradientClipByGlobalNorm(1.0), dropout 0.1,
+   CheckpointConfig(save_every_steps=5): 10 steps; io.load_checkpoint of
+   step 5 into that run's live executor, then one step, replays (no
+   capture) and gives step 6's loss; a fresh Trainer on a fresh scope and
+   executor resumes from step 5 and trains to 10: losses 6-10 and every
+   persistable equal the uninterrupted run's bit for bit; the
+   checkpoint's bytes, a sync and an async save's seconds. (c)
+   save_inference_model of phase 12's incremental greedy program (T =
+   114), load_inference_model in a fresh executor and scope: 64 sentences
+   translate token for token as the in-memory program. (d) Card against
+   host (TF32 off), 3 steps from the same weights: fit_a_line with SGD +
+   L2Decay(1e-4) + exponential_decay, and a 2-layer Transformer at
+   d_model 64 with noam + a global-norm clip + L1Decay(1e-4): each loss
+   within 1e-5 relative.
 
 The last line is {"ok": true, "device": {...}}; before it come one JSON
-line with every kernel's numbers and nvidia-smi's name and power limit.
---cpu-rehearsal runs phases 4-12 at tiny sizes with the plain versions
-(phases 8, 10 and 11 then compare the host with itself) and never prints
-that last line. --profile adds, after every other phase, a torch.profiler
+line with every kernel's numbers (and phase 13's under "lifecycle":
+tokens/s a depth, launches a step, checkpoint bytes, save, restore and
+export seconds) and nvidia-smi's name and power limit.
+--cpu-rehearsal runs phases 4-13 at tiny sizes with the plain versions
+(phases 8, 10, 11 and 13d then compare the host with itself) and never
+prints that last line. --profile adds, after every other phase, a torch.profiler
 breakdown of decode steps (fp32 and int8 arenas, captured and eager),
 verify steps (k = 3), Transformer (unrolled and scan_layers) and
 ResNet-50 training steps (captured and eager): wall, device busy time and
@@ -177,8 +204,10 @@ this repository at phase 3's shapes.
 import argparse
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -3035,10 +3064,415 @@ def _nmt_vs_host(torch, pt, place, host_place, card, vocab, dims, weights,
                    batch * (1 if kind == 'greedy' else beam), card)
 
 
+# ------------------------------------------------------------ phase 13
+def _host_copy(torch, scope, names):
+    """{name: CPU copy} of scope tensors (for bit-for-bit compares)."""
+    return {n: scope.find(n).detach().to('cpu', copy=True) for n in names}
+
+
+def _same_bits(torch, got, want):
+    """Names whose tensors differ in any bit (NaN payloads included)."""
+    def raw(t):
+        return t.reshape(-1).view(torch.uint8)
+    return [n for n, w in want.items()
+            if got[n].dtype != w.dtype or got[n].shape != w.shape or
+            not torch.equal(raw(got[n]), raw(w))]
+
+
+def _persistable_names(program):
+    return [v.name for v in program.list_vars()
+            if v.persistable and not v.is_data]
+
+
+def _bench_reader(batch, seq, vocab, n, seed0=0):
+    """bench_pipeline_ablation's reader: make_fake_batch(seed=i)."""
+    from paddle_tpu_torch.models import transformer as T
+
+    def reader():
+        for i in range(n):
+            yield T.make_fake_batch(batch, seq, seq, vocab, vocab,
+                                    seed=seed0 + i)
+    return reader
+
+
+def _sync(torch, on_card):
+    if on_card:
+        torch.cuda.synchronize()
+
+
+def phase_trainer(torch, pt, place, card, on_card, batch, seq, vocab, dims,
+                  steps=20, depths=(1, 2, 4)):
+    """Phase 13a: bench.py's bench_pipeline_ablation through the port's
+    Trainer.train: transformer_base (dropout 0.1) with Adam(1e-4), amp
+    bf16, 2 epochs of ``steps`` make_fake_batch feeds, epoch 1 timed, at
+    each pipeline depth (host_prefetch 2 above depth 1). Checks the timed
+    launches (K2 and each K3 kernel 3 a layer and step, K1 5 and its
+    backward 10) and that every depth ends on depth 1's parameters and
+    losses, bit for bit. Returns (the depth-1 timed launches, {depth:
+    tokens/s}, {kernel: launches a step})."""
+    from paddle_tpu_torch.models import transformer as T
+    layers = dims.get('n_layer', 6)
+    reader = _bench_reader(batch, seq, vocab, steps)
+    tok_s, first, first_launches = {}, None, None
+
+    def train_func():
+        avg_cost, _ = T.transformer_base(
+            src_vocab_size=vocab, trg_vocab_size=vocab, src_seq_len=seq,
+            trg_seq_len=seq, max_length=max(256, seq), **dims)
+        return [avg_cost]
+
+    for d in depths:
+        t0 = time.perf_counter()
+        pt.reset_default_programs()
+        state, losses = {}, []
+
+        def handler(e):
+            if isinstance(e, pt.BeginEpochEvent) and e.epoch == 1:
+                _sync(torch, on_card)
+                reset_launches()
+                state['t0'] = time.perf_counter()
+            elif isinstance(e, pt.EndEpochEvent) and e.epoch == 1:
+                _sync(torch, on_card)
+                state['t1'] = time.perf_counter()
+                state['launches'] = read_launches()
+            elif isinstance(e, pt.EndStepEvent):
+                losses.append(np.asarray(e.metrics[0]).copy())
+
+        scope = pt.Scope()
+        with pt.scope_guard(scope):
+            trainer = pt.Trainer(
+                train_func=train_func,
+                optimizer_func=lambda: pt.optimizer.Adam(learning_rate=1e-4),
+                place=place)
+            trainer.program.amp = 'bf16'
+            trainer.train(num_epochs=2, event_handler=handler, reader=reader,
+                          pipeline_depth=d,
+                          host_prefetch=2 if d > 1 else 0)
+            params = _host_copy(torch, scope, _persistable_names(
+                trainer.program))
+        secs = state['t1'] - state['t0']
+        tok_s[d] = batch * seq * steps / secs
+        launches = state['launches']
+        want = flash_want(layers, steps)
+        want['layer_norm'] = 5 * layers * steps
+        want['layer_norm_bwd'] = 2 * 5 * layers * steps
+        per_step = {k: launches[k] / steps for k in want
+                    if not k.endswith('_simt') and not k.endswith('_mma')}
+        print('phase 13a Trainer.train depth %d (host_prefetch %d): epoch 1 '
+              '%d steps in %.3f s: %.3f ms/step, %.1f tokens/s; launches a '
+              'step %s; %.1f s with startup and epoch 0 [%s]'
+              % (d, 2 if d > 1 else 0, steps, secs, secs * 1e3 / steps,
+                 tok_s[d], per_step, time.perf_counter() - t0, card))
+        require(len(losses) == 2 * steps and
+                all(np.isfinite(v).all() for v in losses),
+                'phase 13a depth %d: %d losses, not all finite'
+                % (d, len(losses)))
+        if on_card:
+            require(all(launches[k] == n for k, n in want.items()),
+                    'phase 13a depth %d launches %s, want %s'
+                    % (d, {k: launches[k] for k in want}, want))
+        if first is None:
+            first, first_losses, first_launches = params, losses, launches
+        else:
+            bad = _same_bits(torch, params, first)
+            same_losses = all(np.array_equal(a, b)
+                              for a, b in zip(losses, first_losses))
+            print('phase 13a depth %d vs depth 1: %d persistables, %d '
+                  'differ; %d losses, equal bit for bit: %s'
+                  % (d, len(first), len(bad), len(losses), same_losses))
+            require(not bad and same_losses,
+                    'phase 13a: depth %d ends elsewhere than depth 1 (%s)'
+                    % (d, bad[:5]))
+        del trainer, scope, params
+        if on_card:
+            torch.cuda.empty_cache()
+    print('phase 13a tokens/s by depth: %s; depth 2 / depth 1 %.3f, depth 4 '
+          '/ depth 1 %.3f [%s]'
+          % ({d: round(v, 1) for d, v in tok_s.items()}, tok_s[2] / tok_s[1],
+             tok_s[4] / tok_s[1], card))
+    per_step = {k: first_launches[k] / steps for k in
+                ('flash_attention_fwd', 'flash_attention_bwd_dkv',
+                 'flash_attention_bwd_dq', 'layer_norm', 'layer_norm_bwd')}
+    return first_launches, tok_s, per_step
+
+
+def _lifecycle_trainer(pt, place, root, resume, batch, seq, vocab, dims,
+                       every):
+    """13b's Trainer: transformer_base at dropout 0.1, amp bf16, noam(512,
+    4000), Adam(0.9, 0.98, 1e-9), GradientClipByGlobalNorm(1.0),
+    CheckpointConfig(save_every_steps=every)."""
+    from paddle_tpu_torch.models import transformer as T
+    pt.reset_default_programs()
+
+    def train_func():
+        avg_cost, _ = T.transformer_base(
+            src_vocab_size=vocab, trg_vocab_size=vocab, src_seq_len=seq,
+            trg_seq_len=seq, max_length=max(256, seq), dropout_rate=0.1,
+            **dims)
+        pt.clip.set_gradient_clip(pt.clip.GradientClipByGlobalNorm(1.0))
+        return [avg_cost]
+
+    trainer = pt.Trainer(
+        train_func=train_func,
+        optimizer_func=lambda: pt.optimizer.Adam(
+            learning_rate=pt.learning_rate_decay.noam_decay(
+                dims.get('d_model', 512), 4000),
+            beta1=0.9, beta2=0.98, epsilon=1e-9),
+        place=place, checkpoint_config=pt.CheckpointConfig(
+            root, save_every_steps=every, resume=resume))
+    trainer.program.amp = 'bf16'
+    return trainer
+
+
+def phase_lifecycle(torch, pt, place, card, on_card, batch, seq, vocab,
+                    dims, work, steps=10, every=5):
+    """Phase 13b: the training lifecycle at 13a's width: ``steps`` steps
+    with checkpoints every ``every``; a fresh Trainer on a fresh scope and
+    executor resumes from step ``every``'s checkpoint and trains to
+    ``steps``: its losses and every persistable equal the uninterrupted
+    run's bit for bit; io.load_checkpoint of step ``every`` into the first
+    run's live executor, then one step, replays (no capture) and gives
+    that step's loss; a sync and an async save timed. Returns {metric:
+    value} for the JSON line."""
+    from paddle_tpu_torch import io
+    t0 = time.perf_counter()
+    reader = lambda: pt.reader.checkpointable(  # noqa: E731
+        _bench_reader(batch, seq, vocab, steps, seed0=100))
+    run1 = os.path.join(work, 'run1')
+    out = {}
+
+    def log_to(log):
+        return lambda e: log.append(np.asarray(e.metrics[0]).copy()) \
+            if isinstance(e, pt.EndStepEvent) else None
+
+    losses = []
+    scope1 = pt.Scope()
+    with pt.scope_guard(scope1):
+        t1 = _lifecycle_trainer(pt, place, run1, False, batch, seq, vocab,
+                                dims, every)
+        t1.train(num_epochs=1, event_handler=log_to(losses),
+                 reader=reader())
+        names = _persistable_names(t1.program)
+        want = _host_copy(torch, scope1, names)
+    require(len(losses) == steps and all(np.isfinite(v).all()
+                                         for v in losses),
+            'phase 13b: losses %s' % losses)
+    mgr = pt.fault.CheckpointManager(pt.CheckpointConfig(run1))
+    step_dir = mgr.step_dir(every)
+    require(os.path.isdir(step_dir), 'phase 13b: no checkpoint at step %d'
+            % every)
+    # the restore into the live executor: a replay, and step every+1's loss
+    exe1 = t1.exe
+    captures = exe1.captures
+    feed = _bench_reader(batch, seq, vocab, steps, seed0=100)
+    feeds = list(feed())
+    with pt.scope_guard(scope1):
+        tr = time.perf_counter()
+        got_step = io.load_checkpoint(exe1, step_dir, t1.program)
+        restore_s = time.perf_counter() - tr
+        exe1.set_step(every + 1)
+        loss = exe1.run(t1.program, feed=feeds[every],
+                        fetch_list=t1.fetches)[0]
+        replayed = exe1.last_captured and exe1.captures == captures
+    print('phase 13b restore of step %d into the live executor in %.3f s, '
+          'then one step: replayed %s (captures %d -> %d), loss %r vs the '
+          'run\'s step %d %r [%s]'
+          % (got_step, restore_s, replayed, captures, exe1.captures,
+             float(loss), every + 1, float(losses[every]), card))
+    require(got_step == every, 'phase 13b: restored step %r' % got_step)
+    require(replayed or not on_card,
+            'phase 13b: the step after a restore captured again')
+    require(np.array_equal(loss, losses[every]),
+            'phase 13b: the step after the restore differs from the run')
+    del t1, exe1, scope1
+    if on_card:
+        torch.cuda.empty_cache()
+    # a fresh Trainer resumes from step `every`
+    run2 = os.path.join(work, 'run2')
+    os.makedirs(run2)
+    shutil.copytree(step_dir, os.path.join(run2, os.path.basename(step_dir)))
+    shutil.rmtree(run1)
+    got = []
+    scope2 = pt.Scope()
+    with pt.scope_guard(scope2):
+        t2 = _lifecycle_trainer(pt, place, run2, True, batch, seq, vocab,
+                                dims, every)
+        t2.train(num_epochs=1, event_handler=log_to(got), reader=reader())
+        have = _host_copy(torch, scope2, names)
+    bad = _same_bits(torch, have, want)
+    same = len(got) == steps - every and all(
+        np.array_equal(a, b) for a, b in zip(got, losses[every:]))
+    print('phase 13b: noam(%d, 4000), Adam(0.9, 0.98, 1e-9), global-norm '
+          'clip 1.0, dropout 0.1, amp bf16, checkpoints every %d steps; '
+          'losses %s; resumed from step %d on a fresh Trainer, scope and '
+          'executor: losses %d-%d equal bit for bit %s, %d persistables, '
+          '%d differ [%s]'
+          % (dims.get('d_model', 512), every,
+             ['%.5f' % float(v) for v in losses], every, every + 1, steps,
+             same, len(want), len(bad), card))
+    require(same, 'phase 13b: resumed losses differ: %s vs %s'
+            % (got, losses[every:]))
+    require(not bad, 'phase 13b: resumed persistables differ: %s' % bad[:5])
+    # the checkpoint's size and the saves' seconds, from the resumed scope
+    with pt.scope_guard(scope2):
+        d = os.path.join(work, 'sync')
+        ts = time.perf_counter()
+        io.save_checkpoint(t2.exe, d, t2.program, step=steps)
+        sync_s = time.perf_counter() - ts
+        n_bytes = sum(os.path.getsize(os.path.join(d, f))
+                      for f in os.listdir(d))
+        shutil.rmtree(d)
+        d = os.path.join(work, 'async')
+        ts = time.perf_counter()
+        h = io.save_checkpoint(t2.exe, d, t2.program, step=steps,
+                               async_save=True)
+        async_return_s = time.perf_counter() - ts
+        h.result()
+        async_s = time.perf_counter() - ts
+        io.verify_checkpoint(d)
+        shutil.rmtree(d)
+    out.update(checkpoint_bytes=n_bytes, save_sync_s=sync_s,
+               save_async_return_s=async_return_s,
+               save_async_done_s=async_s, restore_s=restore_s)
+    print('phase 13b checkpoint: %d persistables, %d bytes; save %.3f s '
+          'sync; async returns after %.3f s (the host copy), written after '
+          '%.3f s; restore %.3f s; phase %.1f s [%s]'
+          % (len(want), n_bytes, sync_s, async_return_s, async_s, restore_s,
+             time.perf_counter() - t0, card))
+    del t2, scope2
+    shutil.rmtree(run2)
+    return out
+
+
+def phase_export(torch, pt, place, card, on_card, vocab, dims, work,
+                 batch=64, src_seq=64, t_out=114):
+    """Phase 13c: save_inference_model of phase 12's incremental greedy
+    program (weights stacked by stack_trained_weights), then
+    load_inference_model in a fresh executor and scope: the loaded
+    program translates ``batch`` sentences token for token as the
+    in-memory one. Returns {metric: value}."""
+    from paddle_tpu_torch import io
+    t0 = time.perf_counter()
+    weights = _nmt_weights(pt, vocab, src_seq, dims)
+    scope, _ = _nmt_scope(pt, weights, place, dims['n_layer'])
+    prog, fetch = _nmt_program(pt, 'greedy', True, t_out, src_seq, vocab,
+                               dims, 0)
+    feed = _nmt_feed(batch, src_seq, vocab, seed=0)
+    exe = pt.Executor(place)
+    want = _nmt_run(pt, exe, scope, prog, fetch, feed, numpy=True)[0]
+    d = os.path.join(work, 'nmt_greedy')
+    ts = time.perf_counter()
+    with pt.scope_guard(scope):
+        io.save_inference_model(d, ['src_word', 'src_length'], fetch, exe,
+                                prog)
+    save_s = time.perf_counter() - ts
+    n_bytes = sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+    del scope, exe
+    exe2, scope2 = pt.Executor(place), pt.Scope()
+    ts = time.perf_counter()
+    with pt.scope_guard(scope2):
+        prog2, feeds, fetch2 = io.load_inference_model(d, exe2)
+    load_s = time.perf_counter() - ts
+    got = None
+    for _ in range(2):      # the eager warm-up, then the captured call
+        got = _nmt_run(pt, exe2, scope2, prog2, fetch2,
+                       {n: feed[n] for n in feeds}, numpy=True)[0]
+    same = np.array_equal(got, want)
+    print('phase 13c: save_inference_model of the incremental greedy '
+          'program (T=%d, %d ops, %d persistables) %d bytes in %.3f s; '
+          'load_inference_model in a fresh executor and scope %.3f s; %d '
+          'sentences token for token equal to the in-memory program: %s '
+          '(captured %s); phase %.1f s [%s]'
+          % (t_out, len(prog2.global_block().ops),
+             len(_persistable_names(prog2)), n_bytes, save_s, load_s, batch,
+             same, exe2.last_captured, time.perf_counter() - t0, card))
+    require(tuple(got.shape) == (batch, t_out), 'phase 13c: ids of shape %s'
+            % (got.shape,))
+    require(same, 'phase 13c: the loaded program translates otherwise')
+    shutil.rmtree(d)
+    del scope2, exe2
+    if on_card:
+        torch.cuda.empty_cache()
+    return dict(export_bytes=n_bytes, export_save_s=save_s,
+                export_load_s=load_s)
+
+
+def _compare_places(torch, pt, places, build, feed, steps=3):
+    """``steps`` steps of the program ``build()`` makes, from the host
+    startup's weights, on each place: the losses of each place."""
+    from paddle_tpu_torch.weights import load_into_scope
+    pt.reset_default_programs()
+    loss = build()
+    host = pt.Scope()
+    with pt.scope_guard(host):
+        pt.Executor(pt.CPUPlace()).run(pt.default_startup_program())
+    weights = {n: host.numpy(n) for n in host.keys()}
+    out = []
+    for place in places:
+        scope, exe = pt.Scope(), pt.Executor(place)
+        load_into_scope(weights, scope, place)
+        with pt.scope_guard(scope):
+            out.append([float(np.asarray(exe.run(
+                feed=feed, fetch_list=[loss])[0]).reshape(()))
+                for _ in range(steps)])
+    return out
+
+
+def phase_lifecycle_vs_host(torch, pt, places, card, steps=3):
+    """Phase 13d: card against host (TF32 off) for 3 steps from the same
+    weights: fit_a_line with SGD + L2Decay(1e-4) + exponential_decay, and
+    a 2-layer Transformer at d_model 64 with noam + a global-norm clip +
+    L1Decay: each loss within 1e-5 relative."""
+    from paddle_tpu_torch.models import transformer as T
+    rng = np.random.RandomState(0)
+    xs = rng.randn(64, 13).astype('float32')
+    line_feed = {'x': xs, 'y': (xs @ rng.randn(13, 1).astype('float32') +
+                                0.5).astype('float32')}
+
+    def fit_a_line():
+        x = pt.layers.data(name='x', shape=[13], dtype='float32')
+        y = pt.layers.data(name='y', shape=[1], dtype='float32')
+        pred = pt.layers.fc(input=x, size=1)
+        loss = pt.layers.mean(pt.layers.square_error_cost(pred, y))
+        pt.optimizer.SGD(
+            learning_rate=pt.learning_rate_decay.exponential_decay(
+                0.05, 2, 0.9),
+            regularization=pt.regularizer.L2Decay(1e-4)).minimize(loss)
+        return loss
+
+    def transformer():
+        avg_cost, _ = T.transformer_base(
+            src_vocab_size=1000, trg_vocab_size=1000, src_seq_len=32,
+            trg_seq_len=32, n_layer=2, n_head=4, d_key=16, d_value=16,
+            d_model=64, d_inner=256, dropout_rate=0.0)
+        pt.clip.set_gradient_clip(pt.clip.GradientClipByGlobalNorm(1.0))
+        pt.optimizer.Adam(
+            learning_rate=pt.learning_rate_decay.noam_decay(64, 4),
+            beta1=0.9, beta2=0.98, epsilon=1e-9,
+            regularization=pt.regularizer.L1Decay(1e-4)).minimize(avg_cost)
+        return avg_cost
+
+    for label, build, feed in (
+            ('fit_a_line, SGD + L2Decay(1e-4) + exponential_decay',
+             fit_a_line, line_feed),
+            ('2-layer Transformer d_model 64, noam + global-norm clip 1.0 + '
+             'L1Decay(1e-4)', transformer,
+             T.make_fake_batch(8, 32, 32, 1000, 1000, seed=3))):
+        a, b = _compare_places(torch, pt, places, build, feed, steps)
+        rel = max(abs(x - y) / abs(y) for x, y in zip(a, b))
+        print('phase 13d %s, %d steps, %r vs %r: losses %s vs %s, max rel '
+              '%.3g (limit 1e-5) [%s]'
+              % (label, steps, places[0], places[1],
+                 ['%.7f' % v for v in a], ['%.7f' % v for v in b], rel,
+                 card))
+        require(np.isfinite(a).all() and rel <= 1e-5,
+                'phase 13d %s: card and host differ' % label)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--cpu-rehearsal', action='store_true',
-                    help='run phases 4-12 on the host at tiny sizes with '
+                    help='run phases 4-13 on the host at tiny sizes with '
                          'the plain versions')
     ap.add_argument('--profile', action='store_true',
                     help='after every other phase, profile 20 decode '
@@ -3107,6 +3541,18 @@ def main():
         phase_nmt(torch, pt, pt.CPUPlace(), host, False, 64, tiny, batch=4,
                   src_seq=20, beam=3, t_inc=10, t_unr=6, calls=2,
                   host_place=pt.CPUPlace(), host_t=5)
+        work = tempfile.mkdtemp(prefix='chip_smoke_ckpt.', dir=REPO)
+        try:
+            phase_trainer(torch, pt, pt.CPUPlace(), host, False, 4, 8, 64,
+                          tiny, steps=4)
+            phase_lifecycle(torch, pt, pt.CPUPlace(), host, False, 4, 8, 64,
+                            tiny, work, steps=4, every=2)
+            phase_export(torch, pt, pt.CPUPlace(), host, False, 64, tiny,
+                         work, batch=4, src_seq=20, t_out=10)
+            phase_lifecycle_vs_host(torch, pt, (pt.CPUPlace(),
+                                                pt.CPUPlace()), host)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
         print('cpu rehearsal ok in %.1f s' % (time.perf_counter() - t_start))
         return
 
@@ -3231,14 +3677,37 @@ def main():
     done('12 (NMT inference)')
     if args.profile:
         profile_steps(torch, card, nmt_jobs)
+    del nmt_jobs
+    torch.cuda.empty_cache()
+    # phase 13: the training lifecycle (checkpoints under the checkout,
+    # removed at the end)
+    work = tempfile.mkdtemp(prefix='chip_smoke_ckpt.', dir=REPO)
+    try:
+        trainer, tok_s, per_step = phase_trainer(
+            torch, pt, pt.CUDAPlace(0), card, True, 64, 64, VOCAB, base)
+        torch.cuda.empty_cache()
+        lifecycle = phase_lifecycle(torch, pt, pt.CUDAPlace(0), card, True,
+                                    64, 64, VOCAB, base, work)
+        torch.cuda.empty_cache()
+        lifecycle.update(phase_export(torch, pt, pt.CUDAPlace(0), card,
+                                      True, VOCAB, base, work))
+        torch.cuda.empty_cache()
+        phase_lifecycle_vs_host(torch, pt, (pt.CUDAPlace(0),
+                                            pt.CPUPlace()), card)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    lifecycle.update(tokens_per_s={str(d): v for d, v in tok_s.items()},
+                     launches_per_step=per_step)
+    done('13 (training lifecycle)')
 
     # launches: the sum over the main paths' runs (the engine runs: plain,
     # extras plain and with cache + speculation, int8 and fp8; the timed
     # Transformer (unrolled and scan_layers), masked Transformer and
-    # ResNet-50 training steps; phase 12's timed decode calls), each read
-    # after its counts were set to 0
+    # ResNet-50 training steps; phase 12's timed decode calls; phase 13a's
+    # timed Trainer epoch at depth 1), each read after its counts were set
+    # to 0
     main_runs = [launches] + extras + list(quant.values()) + \
-        [train, scan_train, masked, resnet, nmt]
+        [train, scan_train, masked, resnet, nmt, trainer]
 
     def runs(key):
         return sum(r.get(key, 0) for r in main_runs)
@@ -3294,7 +3763,7 @@ def main():
              launches=runs('keep_mask'), **mask),
     ]
     print('total %.1f s' % (time.perf_counter() - t_start))
-    print(json.dumps({'kernels': kernels}))
+    print(json.dumps({'kernels': kernels, 'lifecycle': lifecycle}))
     print(card)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu',
                                              'kind': name,

@@ -6,22 +6,32 @@ counterpart; the TPU's Pallas kernels become hand-written CUDA kernels in
 ``csrc/`` (bound in ``ops/kernels/``), each beside its plain PyTorch
 version. This package imports torch and never jax or paddle_tpu.
 
-Entry points run on ``CUDAPlace(0)`` unless the caller passes a place;
-``CPUPlace()`` runs everything on the host with the plain versions.
+Entry points (Executor, Trainer, DecodeEngine) run on ``CUDAPlace(0)``
+unless the caller passes a place; ``CPUPlace()`` runs everything on the
+host with the plain versions. Files written by ``io`` (persistables,
+checkpoints, inference models) use the JAX package's format.
 """
 
-from . import initializer, layers, optimizer
+from . import (clip, fault, initializer, io, layers, learning_rate_decay,
+               optimizer, reader, regularizer, trainer)
 from .core.executor import Executor
 from .core.place import CPUPlace, CUDAPlace
 from .core.program import (Program, default_main_program,
                            default_startup_program, program_guard,
                            reset_default_programs)
 from .core.scope import Scope, global_scope, scope_guard
+from .data_feeder import DataFeeder
+from .fault import CheckpointConfig
 from .memory_optimize import memory_optimize
 from .param_attr import ParamAttr
+from .trainer import (BeginEpochEvent, BeginStepEvent, EndEpochEvent,
+                      EndStepEvent, Trainer)
 
-__all__ = ['initializer', 'layers', 'optimizer', 'Executor', 'CPUPlace',
-           'CUDAPlace', 'Program', 'default_main_program',
-           'default_startup_program', 'program_guard',
-           'reset_default_programs', 'Scope', 'global_scope', 'scope_guard',
-           'ParamAttr', 'memory_optimize']
+__all__ = ['clip', 'fault', 'initializer', 'io', 'layers',
+           'learning_rate_decay', 'optimizer', 'reader', 'regularizer',
+           'trainer', 'Executor', 'CPUPlace', 'CUDAPlace', 'Program',
+           'default_main_program', 'default_startup_program',
+           'program_guard', 'reset_default_programs', 'Scope',
+           'global_scope', 'scope_guard', 'DataFeeder', 'CheckpointConfig',
+           'ParamAttr', 'memory_optimize', 'Trainer', 'BeginEpochEvent',
+           'EndEpochEvent', 'BeginStepEvent', 'EndStepEvent']

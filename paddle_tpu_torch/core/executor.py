@@ -40,7 +40,14 @@ tensors, ``torch.autograd.grad`` of the summed loss gives every ``p@GRAD``
 (zero where the loss does not reach a parameter, as jax.value_and_grad
 gives), and the ops after it run under ``torch.no_grad()`` once the
 gradients exist, so no tensor saved for the backward aliases a parameter
-being updated. Everything else runs under ``torch.no_grad()``.
+being updated. Everything else runs under ``torch.no_grad()``. In the
+forward, a var with an ``error_clip`` (clip.ErrorClipByValue) is wrapped
+in an identity whose backward clamps its gradient, as the reference's
+custom_vjp does.
+
+``set_step`` fills the step index in place: a resumed Trainer sets it
+where its checkpoint left off, so the captured graphs, which read that
+tensor, draw the uninterrupted run's masks.
 """
 
 import threading
@@ -49,6 +56,7 @@ import time
 import numpy as np
 import torch
 
+from ..clip import ErrorClipByValue, error_clip_grad
 from .dtypes import to_torch_dtype
 from .place import CUDAPlace
 from .program import Variable, default_main_program
@@ -83,6 +91,28 @@ def _analyze(block, ops, feed_names):
             if var is not None and var.persistable and name not in scope_out:
                 scope_out.append(name)
     return scope_in, scope_out
+
+
+def collect_error_clips(block, ops):
+    """{var name: (lo, hi)} for every op output carrying an error_clip
+    (reference: paddle_tpu core/executor.py collect_error_clips). Only
+    ErrorClipByValue maps onto the cotangent clamp."""
+    clips = {}
+    for op in ops:
+        for n in op.output_names():
+            if n in clips:
+                continue
+            v = block._find_var_recursive(n)
+            ec = getattr(v, 'error_clip', None) if v is not None else None
+            if ec is None:
+                continue
+            if not isinstance(ec, ErrorClipByValue):
+                raise NotImplementedError(
+                    'error_clip on %r: only ErrorClipByValue is '
+                    'supported by the cotangent-clamp lowering (got %s)'
+                    % (n, type(ec).__name__))
+            clips[n] = (float(ec.min), float(ec.max))
+    return clips
 
 
 def _prune_ops(block, ops, fetch_names):
@@ -123,9 +153,12 @@ class StepHandle(object):
 
     ``run(..., return_handle=True)`` returns once the step is enqueued.
     ``resolve()`` waits for it and returns the fetches as numpy arrays
-    (idempotent: the device tensors are dropped on the first call);
-    ``ready()`` asks without waiting. On the card both read a CUDA event
-    recorded after the dispatch; on the CPU a handle is ready at once.
+    (idempotent: the tensors are dropped on the first call); ``ready()``
+    asks without waiting. On the card the fetches are pinned host tensors
+    whose copies are enqueued behind the step, and both read a CUDA event
+    recorded after those copies, so a handle waits for its own dispatch
+    only, never for younger ones (the Trainer's pipeline keeps several in
+    flight); on the CPU a handle is ready at once.
     ``dispatched_at`` is the host clock (time.perf_counter) at enqueue."""
 
     __slots__ = ('fetches', 'steps', 'dispatched_at', 'cache_miss',
@@ -214,6 +247,8 @@ class _Plan(object):
                 'append_backward calls); build each loss in its own '
                 'Program.' % len(markers))
         self.marker = markers[0] if markers else None
+        self.error_clips = collect_error_clips(
+            block, ops if self.marker is None else ops[:self.marker])
         self.reads = consumed | set(fetch_names)
         keep = set(fetch_names) | set(self.scope_out)
         last = {}
@@ -270,6 +305,14 @@ class Executor(object):
         run, a host-bound plan, the CPU place or use_program_cache=False."""
         return getattr(self._tls, 'last_captured', False)
 
+    def set_step(self, step):
+        """Set the step index (it keys each step's dropout masks) to
+        ``step``, in place: the captured graphs read this tensor. The
+        startup program's run takes index 0, so training step k (from 0)
+        runs at k + 1; a resumed trainer sets its next step's index."""
+        with self._lock:
+            self._step_tensor().fill_(int(step))
+
     def close(self):
         """Drop every captured graph (and its pool) and plan."""
         with self._lock:
@@ -323,7 +366,8 @@ class Executor(object):
             fetches, missed, captured = self._dispatch(
                 program, block, plan, key, feeds, fetch_names, scope,
                 use_program_cache)
-            event = self._event() if return_handle else None
+            if return_handle:
+                fetches, event = self._copy_out(fetches)
         self._tls.last_cache_miss = missed
         self._tls.last_captured = captured
         if return_handle:
@@ -380,7 +424,8 @@ class Executor(object):
                            for v in fetches]
                     for o, v in zip(out, fetches):
                         o[0].copy_(v)
-            event = self._event() if return_handle else None
+            if return_handle:
+                out, event = self._copy_out(out)
         self._tls.last_cache_miss = missed_any
         self._tls.last_captured = captured
         if return_handle:
@@ -404,12 +449,22 @@ class Executor(object):
         return (id(program), program._version, program.amp, sig,
                 tuple(fetch_names))
 
-    def _event(self):
+    def _copy_out(self, fetches):
+        """A handle's fetches: on the card, pinned host copies enqueued
+        behind the step (non-blocking) and an event recorded after them,
+        so that resolving the handle waits for this step only, not for
+        the steps dispatched after it (a blocking copy would wait for the
+        whole stream); on the CPU the fetches as they are."""
         if self.device.type != 'cuda':
-            return None
+            return fetches, None
+        host = []
+        for v in fetches:
+            h = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+            h.copy_(v, non_blocking=True)
+            host.append(h)
         event = torch.cuda.Event()
         event.record(torch.cuda.current_stream(self.device))
-        return event
+        return host, event
 
     def _step_tensor(self):
         if self._step is None:
@@ -553,10 +608,19 @@ class Executor(object):
                     'startup program first.' % name)
             env[name] = value
 
+        clips = plan.error_clips
+
         def run_ops(ops, start):
             for i, op in enumerate(ops):
                 self._run_op(env, op, block, start + i, seed, step,
                              program.amp, plan.reads)
+                if clips and torch.is_grad_enabled():
+                    # the reference's error clip: the gradient flowing
+                    # back through the var is clamped
+                    for name in op.output_names():
+                        if name in clips and name in env:
+                            env[name] = error_clip_grad(env[name],
+                                                        *clips[name])
                 for name in plan.frees.get(start + i, ()):
                     env.pop(name, None)
 

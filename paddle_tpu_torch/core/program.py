@@ -24,7 +24,7 @@ class Variable(object):
 
     def __init__(self, block, name, shape=None, dtype='float32', lod_level=0,
                  persistable=False, stop_gradient=False, is_data=False,
-                 trainable=False):
+                 trainable=False, error_clip=None):
         self.block = block
         self.name = name
         self.shape = tuple(shape) if shape is not None else None
@@ -34,6 +34,21 @@ class Variable(object):
         self.stop_gradient = stop_gradient
         self.is_data = is_data
         self.trainable = trainable
+        self._error_clip = error_clip
+
+    @property
+    def error_clip(self):
+        """An ``ErrorClipByValue`` clamping the gradient that flows back
+        through this var (the executor applies it), or None."""
+        return self._error_clip
+
+    @error_clip.setter
+    def error_clip(self, value):
+        # the executor keys its plans and graphs on the program version: a
+        # clip set after a run must not be ignored by them
+        self._error_clip = value
+        if self.block is not None and self.block.program is not None:
+            self.block.program._bump_version()
 
     @property
     def program(self):
@@ -211,6 +226,63 @@ class Program(object):
     @random_seed.setter
     def random_seed(self, seed):
         self._seed = seed
+
+    def clone(self, for_test=False):
+        """A copy of the program (reference: paddle_tpu core/program.py
+        Program.clone). ``for_test=True`` drops the backward marker and
+        every op after it (the backward and the update) and sets is_test
+        on the ops that have it, dropout and batch_norm among them."""
+        p = Program()
+        p._seed = self._seed
+        for i, b in enumerate(self.blocks):
+            nb = p.blocks[0] if i == 0 else Block(p, i, b.parent_idx)
+            if i:
+                p.blocks.append(nb)
+            for name, v in b.vars.items():
+                if isinstance(v, Parameter):
+                    nv = Parameter(nb, name, v.shape, v.dtype,
+                                   trainable=v.trainable,
+                                   optimize_attr=dict(v.optimize_attr),
+                                   regularizer=v.regularizer,
+                                   gradient_clip_attr=v.gradient_clip_attr,
+                                   initializer=v.initializer)
+                    nv.stop_gradient = v.stop_gradient
+                else:
+                    nv = Variable(nb, name, shape=v.shape, dtype=v.dtype,
+                                  lod_level=v.lod_level,
+                                  persistable=v.persistable,
+                                  stop_gradient=v.stop_gradient,
+                                  is_data=v.is_data, trainable=v.trainable)
+                nv._error_clip = v._error_clip
+                nb.vars[name] = nv
+            for op in b.ops:
+                if for_test and op.type == 'backward_marker':
+                    break   # everything after the backward trains
+                attrs = dict(op.attrs)
+                if for_test and ('is_test' in attrs or
+                                 op.type in ('dropout', 'batch_norm')):
+                    attrs['is_test'] = True
+                nb.append_op(op.type, op.inputs, op.outputs, attrs)
+        p.current_block_idx = 0
+        return p
+
+    def prune(self, targets):
+        """A clone keeping only the ops the target vars need (reference:
+        paddle_tpu core/program.py Program.prune; framework/prune.cc)."""
+        target_names = set(t.name if isinstance(t, Variable) else t
+                           for t in targets)
+        p = self.clone()
+        b = p.global_block()
+        needed = set(target_names)
+        kept = []
+        for op in reversed(b.ops):
+            if set(op.output_names()) & needed or \
+                    op.type == 'backward_marker':
+                kept.append(op)
+                needed.update(op.input_names())
+        b.ops = list(reversed(kept))
+        p._bump_version()
+        return p
 
     def to_string(self, throw_on_error=False):
         lines = []

@@ -153,15 +153,22 @@ class LoweringContext(object):
         names = self.op.inputs.get(slot, [])
         return bool(names) and names[0] in self.env
 
-    def set_output(self, slot, value):
-        name = self.op.output(slot)
-        if name is None:
-            return
+    def _set(self, name, value):
         var = self.block._find_var_recursive(name)
         if var is not None and var.stop_gradient and \
                 isinstance(value, torch.Tensor):
             value = value.detach()
         self.env[name] = value
+
+    def set_output(self, slot, value):
+        name = self.op.output(slot)
+        if name is not None:
+            self._set(name, value)
+
+    def set_output_list(self, slot, values):
+        """One value for each var of the slot, in order."""
+        for name, value in zip(self.op.outputs.get(slot, []), values):
+            self._set(name, value)
 
     def output_read(self, slot):
         """Whether anything reads this output slot: a later op, a fetch,

@@ -9,7 +9,8 @@ from .helper import LayerHelper
 __all__ = ['fc', 'embedding', 'conv2d', 'pool2d', 'batch_norm',
            'layer_norm', 'dropout', 'cross_entropy',
            'label_smoothed_cross_entropy', 'softmax_with_cross_entropy',
-           'accuracy', 'topk', 'reduce_sum', 'transpose', 'one_hot']
+           'accuracy', 'topk', 'reduce_sum', 'transpose', 'one_hot',
+           'square_error_cost', 'autoincreased_step_counter']
 
 
 def _prod(xs):
@@ -358,3 +359,31 @@ def one_hot(input, depth):
     helper.append_op(type='one_hot', inputs={'X': [input]},
                      outputs={'Out': [out]}, attrs={'depth': depth})
     return out
+
+
+def square_error_cost(input, label):
+    helper = LayerHelper('square_error_cost')
+    out = helper.create_variable_for_type_inference(input.dtype)
+    out.shape = input.shape
+    helper.append_op(type='square_error_cost',
+                     inputs={'X': [input], 'Y': [label]},
+                     outputs={'Out': [out]})
+    return out
+
+
+def autoincreased_step_counter(counter_name=None, begin=1, step=1):
+    """Persistable int64 counter, incremented once a run of its program
+    (reference: paddle_tpu layers/nn.py autoincreased_step_counter): the
+    startup sets it to begin - step, so the first run reads begin."""
+    helper = LayerHelper('global_step_counter')
+    name = counter_name or '@STEP_COUNTER@'
+    block = helper.main_program.global_block()
+    if block.has_var(name):
+        return block.var(name)
+    counter = block.create_var(name=name, dtype='int64', shape=(1,),
+                               persistable=True)
+    counter.stop_gradient = True
+    Constant(float(begin - step))(counter)
+    block.append_op(type='increment', inputs={'X': [counter]},
+                    outputs={'Out': [counter]}, attrs={'step': float(step)})
+    return counter

@@ -1,11 +1,12 @@
 """Thin layers over one op each (reference: paddle_tpu layers/ops.py;
 fluid/layers/ops.py): elementwise add, sub, mul and div, reshape, scale,
-mean and cumsum."""
+mean, cumsum, clip and clip_by_norm."""
 
 from .helper import LayerHelper
 
 __all__ = ['elementwise_add', 'elementwise_sub', 'elementwise_mul',
-           'elementwise_div', 'reshape', 'scale', 'mean', 'cumsum']
+           'elementwise_div', 'reshape', 'scale', 'mean', 'cumsum', 'clip',
+           'clip_by_norm']
 
 
 def _single_op(op_type, x, attrs=None):
@@ -90,3 +91,11 @@ def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None,
 def cumsum(x, axis=-1, exclusive=False, reverse=False):
     return _single_op('cumsum', x, {'axis': axis, 'exclusive': exclusive,
                                     'reverse': reverse})
+
+
+def clip(x, min, max, name=None):
+    return _single_op('clip', x, {'min': float(min), 'max': float(max)})
+
+
+def clip_by_norm(x, max_norm, name=None):
+    return _single_op('clip_by_norm', x, {'max_norm': float(max_norm)})

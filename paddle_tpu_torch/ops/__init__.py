@@ -6,6 +6,7 @@ from . import activation_ops  # noqa: F401
 from . import attention_ops  # noqa: F401
 from . import conv_ops  # noqa: F401
 from . import decode_ops  # noqa: F401
+from . import lr_ops  # noqa: F401
 from . import math_ops  # noqa: F401
 from . import misc_ops  # noqa: F401
 from . import nn_ops  # noqa: F401

@@ -1,8 +1,8 @@
 """NN ops the training paths run: embedding lookup, dropout, the two
-softmax cross-entropy losses, cross_entropy over probabilities and
-accuracy (reference: paddle_tpu ops/nn_ops.py; fluid's lookup_table_op,
-dropout_op, softmax_with_cross_entropy_op, cross_entropy_op,
-accuracy_op)."""
+softmax cross-entropy losses, cross_entropy over probabilities, accuracy
+and square_error_cost (reference: paddle_tpu ops/nn_ops.py; fluid's
+lookup_table_op, dropout_op, softmax_with_cross_entropy_op,
+cross_entropy_op, accuracy_op, square_error_cost)."""
 
 import torch
 
@@ -163,3 +163,9 @@ def _accuracy(ctx):
     ctx.set_output('Total', torch.full((1,), indices.shape[0],
                                        dtype=torch.int32,
                                        device=indices.device))
+
+
+@register('square_error_cost')
+def _square_error_cost(ctx):
+    """(x - y)², element by element (fit_a_line's loss)."""
+    ctx.set_output('Out', torch.square(ctx.input('X') - ctx.input('Y')))

@@ -1,6 +1,7 @@
 """Tensor ops (reference: paddle_tpu ops/tensor_ops.py): the startup
 fills, fill_constant_batch_size_like, sum, concat, reshape, slice,
-unsqueeze, cast, transpose, one_hot, top_k, cumsum, expand and stack."""
+unsqueeze, cast, transpose, one_hot, top_k, cumsum, expand, stack,
+increment and the clips (clip, clip_by_norm, global_norm_clip)."""
 
 import numpy as np
 import torch
@@ -158,3 +159,54 @@ def _expand(ctx):
 def _stack(ctx):
     ctx.set_output('Out', torch.stack(ctx.input_list('X'),
                                       dim=ctx.attr('axis', 0)))
+
+
+@register('increment')
+def _increment(ctx):
+    """x + step in x's dtype (the LR schedule's step counter)."""
+    x = ctx.input('X')
+    step = ctx.attr('step', 1.0)
+    if not x.dtype.is_floating_point:
+        step = int(step)
+    ctx.set_output('Out', x + step)
+
+
+@register('clip')
+def _clip(ctx):
+    ctx.set_output('Out', torch.clamp(ctx.input('X'), ctx.attr('min'),
+                                      ctx.attr('max')))
+
+
+@register('clip_by_norm')
+def _clip_by_norm(ctx):
+    """x · max_norm / ‖x‖ where ‖x‖ > max_norm, else x (a select on the
+    device, no host branch)."""
+    x = ctx.input('X')
+    max_norm = ctx.attr('max_norm')
+    norm = torch.sqrt(torch.sum(torch.square(x)))
+    scale = torch.where(norm > max_norm,
+                        max_norm / torch.clamp(norm, min=1e-12),
+                        torch.ones_like(norm))
+    ctx.set_output('Out', x * scale.to(x.dtype))
+
+
+def global_norm_scale(grads, max_norm):
+    """min(1, max_norm / max(‖grads‖, 1e-12)) as an fp32 0-dim tensor:
+    each gradient's norm in fp32 (one multi-tensor launch), their squares
+    summed in the order of the list."""
+    norms = torch._foreach_norm([g.float() for g in grads])
+    total = torch.zeros((), dtype=torch.float32, device=grads[0].device)
+    for n in norms:
+        total = total + torch.square(n)
+    norm = torch.sqrt(total)
+    return torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
+
+
+@register('global_norm_clip')
+def _global_norm_clip(ctx):
+    """Every gradient scaled by one global-norm factor (reference: one
+    fused op where fluid's clip.py chains square and sum ops a
+    gradient)."""
+    grads = ctx.input_list('X')
+    scale = global_norm_scale(grads, ctx.attr('max_global_norm'))
+    ctx.set_output_list('Out', [g * scale.to(g.dtype) for g in grads])

@@ -1,43 +1,27 @@
 """Optimizers (reference: paddle_tpu optimizer.py;
 python/paddle/fluid/optimizer.py): Optimizer, SGD, Momentum and Adam.
 
-minimize() appends the backward marker, then one update op per
-parameter; the Executor runs the update ops in place after the
-gradients exist. Gradient clipping and regularization are not ported: a
-parameter or optimizer that sets either raises NotImplementedError.
+minimize() appends, in the reference's order, the backward marker, the
+gradient clips (clip.py: a parameter's ``gradient_clip_attr`` or the
+program's ``set_gradient_clip``), the regularizers (regularizer.py: a
+parameter's ``regularizer`` or the optimizer's ``regularization``) and
+one update op per parameter; the Executor runs the ops after the marker
+in place once the gradients exist. The learning rate is a float or a
+Variable (a learning_rate_decay schedule), read as a device tensor.
+Row-sparse updates (``lazy_mode``) are not ported and raise.
 """
 
+from .clip import append_gradient_clip_ops
 from .core import unique_name
 from .core.backward import append_backward
 from .core.program import (Variable, default_main_program,
                            default_startup_program, program_guard)
 from .initializer import Constant
 from .layers.helper import LayerHelper
+from .regularizer import append_regularization_ops
 
 __all__ = ['SGD', 'Momentum', 'Adam', 'SGDOptimizer', 'MomentumOptimizer',
            'AdamOptimizer', 'Optimizer']
-
-
-def append_gradient_clip_ops(param_grads):
-    """Pass-through while no gradient clip is set."""
-    program_clip = getattr(default_main_program(), '_gradient_clip_attr',
-                           None)
-    for p, _ in param_grads:
-        if getattr(p, 'gradient_clip_attr', None) or program_clip:
-            raise NotImplementedError(
-                'gradient clipping is not ported to paddle_tpu_torch '
-                '(parameter %r)' % p.name)
-    return param_grads
-
-
-def append_regularization_ops(param_grads, regularization=None):
-    """Pass-through while no regularizer is set."""
-    for p, _ in param_grads:
-        if getattr(p, 'regularizer', None) or regularization:
-            raise NotImplementedError(
-                'weight regularization is not ported to paddle_tpu_torch '
-                '(parameter %r)' % p.name)
-    return param_grads
 
 
 class Optimizer(object):

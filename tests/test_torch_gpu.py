@@ -1,8 +1,11 @@
 """The port on a CUDA card: each kernel against its plain version, the
 decode engine on the card against the same engine on the host, one
 training step of a small Transformer and of a small ResNet on the card
-against the same step on the host, and the NMT inference graphs (greedy
-and beam, unrolled and incremental) on the card against the host.
+against the same step on the host, the NMT inference graphs (greedy
+and beam, unrolled and incremental) on the card against the host, and
+the training lifecycle: a captured step with an LR schedule, a
+global-norm clip and L2 decay against eager, a checkpoint restored into
+a live executor (a replay), and a Trainer's resume, bit for bit.
 
 Marked ``gpu``; each test decides inside itself whether a card exists and
 skips without one. This file imports no jax, so it also runs on a machine
@@ -1579,3 +1582,123 @@ def test_flash_forward_at_the_decode_shapes(cuda, case):
         torch.cuda.synchronize()
         _close(out, want, dtype)
         torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-4)
+
+
+# ---- the training lifecycle: schedules, clips, regularizers, restores
+
+def _lifecycle_net(dropout):
+    """_small_transformer's model with a global-norm clip set on the
+    program: (loss, feed)."""
+    from paddle_tpu_torch.models import transformer as T
+    avg_cost, _ = T.transformer_base(
+        src_vocab_size=96, trg_vocab_size=96, src_seq_len=24,
+        trg_seq_len=24, n_layer=2, n_head=4, d_key=16, d_value=16,
+        d_model=64, d_inner=128, dropout_rate=dropout)
+    pt.clip.set_gradient_clip(pt.clip.GradientClipByGlobalNorm(0.5))
+    return avg_cost, T.make_fake_batch(3, 24, 24, 96, 96, seed=2)
+
+
+def _lifecycle_optimizer():
+    """Adam on noam with L2 decay."""
+    return pt.optimizer.Adam(
+        learning_rate=pt.learning_rate_decay.noam_decay(64, 4),
+        beta1=0.9, beta2=0.98, epsilon=1e-9,
+        regularization=pt.regularizer.L2Decay(1e-4))
+
+
+def _lifecycle_transformer(dropout):
+    """noam, a global-norm clip and L2 decay on _small_transformer's
+    model, every op of them inside the captured step."""
+    pt.reset_default_programs()
+    avg_cost, feed = _lifecycle_net(dropout)
+    _lifecycle_optimizer().minimize(avg_cost)
+    return avg_cost, feed
+
+
+def test_captured_lifecycle_step_equals_eager_bit_for_bit(cuda):
+    """noam (its step counter and lr_decay on the device), a global-norm
+    clip and L2 decay at dropout 0.1: three captured steps equal three
+    eager steps and run_steps(3), bit for bit in the losses and every
+    scope variable (the counter included)."""
+    avg_cost, feed = _lifecycle_transformer(0.1)
+    res = _three_ways(cuda, avg_cost, feed)
+    base_losses, base_vars = res['captured']
+    assert np.isfinite(base_losses).all()
+    assert '@LR_DECAY_COUNTER@' in base_vars
+    for mode in ('eager', 'run_steps'):
+        losses, vars_ = res[mode]
+        np.testing.assert_array_equal(losses, base_losses, err_msg=mode)
+        for n, v in base_vars.items():
+            np.testing.assert_array_equal(vars_[n], v, err_msg=n)
+
+
+def test_checkpoint_restore_into_a_live_executor_replays(cuda, tmp_path):
+    """After io.load_checkpoint into the scope of an executor that has
+    captured the step, the next step replays the same graph (no capture)
+    and gives the loss the step after the save gave (dropout 0)."""
+    from paddle_tpu_torch import io
+    avg_cost, feed = _lifecycle_transformer(0.0)
+    exe = pt.Executor(pt.CUDAPlace(0))
+    d = str(tmp_path / 'ckpt')
+    with pt.scope_guard(pt.Scope()):
+        exe.run(pt.default_startup_program())
+        for _ in range(3):
+            exe.run(feed=feed, fetch_list=[avg_cost])
+        assert exe.last_captured and exe.captures == 1
+        io.save_checkpoint(exe, d, step=3)
+        after = [exe.run(feed=feed, fetch_list=[avg_cost])[0]
+                 for _ in range(2)]
+        assert io.load_checkpoint(exe, d) == 3
+        again = exe.run(feed=feed, fetch_list=[avg_cost])[0]
+        assert exe.last_captured and exe.captures == 1
+    np.testing.assert_array_equal(again, after[0])
+    assert not np.array_equal(after[0], after[1])
+
+
+def test_trainer_resume_on_the_card_is_bit_exact(cuda, tmp_path,
+                                                 place=None):
+    """A Trainer on the card at dropout 0.1 (checkpoints every 2 steps):
+    a fresh Trainer resuming from step 2 in a fresh scope gives losses
+    3-5 and every persistable of the uninterrupted run, bit for bit."""
+    import os
+    import shutil
+    from paddle_tpu_torch.fault import CheckpointConfig
+    from paddle_tpu_torch.models import transformer as T
+    from paddle_tpu_torch.reader import checkpointable
+
+    place = place or pt.CUDAPlace(0)
+
+    def reader():
+        for i in range(5):
+            yield T.make_fake_batch(3, 24, 24, 96, 96, seed=i)
+
+    def run(root, resume):
+        log = []
+        with pt.scope_guard(pt.Scope()):
+            trainer = pt.Trainer(
+                train_func=lambda: [_lifecycle_net(0.1)[0]],
+                optimizer_func=_lifecycle_optimizer,
+                place=place, checkpoint_config=CheckpointConfig(
+                    root, save_every_steps=2, resume=resume,
+                    epoch_end=False))
+            trainer.train(1, log.append, reader=checkpointable(reader))
+            state = {v.name: pt.global_scope().numpy(v.name)
+                     for v in trainer.program.list_vars()
+                     if v.persistable and not v.is_data}
+        return [e.metrics[0] for e in log
+                if isinstance(e, pt.EndStepEvent)], state
+
+    pt.reset_default_programs()
+    whole = str(tmp_path / 'whole')
+    losses, state = run(whole, False)
+    resumed = str(tmp_path / 'resumed')
+    os.makedirs(resumed)
+    shutil.copytree(os.path.join(whole, 'step_00000002'),
+                    os.path.join(resumed, 'step_00000002'))
+    pt.reset_default_programs()
+    got, got_state = run(resumed, True)
+    assert len(got) == 3
+    for a, b in zip(got, losses[2:]):
+        np.testing.assert_array_equal(a, b)
+    for n, v in state.items():
+        np.testing.assert_array_equal(got_state[n], v, err_msg=n)

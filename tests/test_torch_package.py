@@ -103,6 +103,26 @@ def test_default_place_raises_without_a_card():
                      pages_per_seq=2)
 
 
+def test_trainer_default_place_raises_without_a_card():
+    """Trainer(...) with no place runs on CUDAPlace(0): without a card it
+    raises (after building its program) instead of training on the
+    host."""
+    _no_card()
+
+    def train_func():
+        x = pt.layers.data(name='x', shape=[4], dtype='float32')
+        y = pt.layers.data(name='y', shape=[1], dtype='float32')
+        return [pt.layers.mean(pt.layers.square_error_cost(
+            pt.layers.fc(input=x, size=1), y))]
+
+    pt.reset_default_programs()
+    with pytest.raises(RuntimeError, match='CUDA'):
+        pt.Trainer(train_func,
+                   lambda: pt.optimizer.SGD(learning_rate=0.1))
+    ops = [o.type for o in pt.default_main_program().global_block().ops]
+    assert 'square_error_cost' in ops and 'sgd' in ops
+
+
 def test_cpu_place_runs_on_the_host():
     exe = pt.Executor(pt.CPUPlace())
     assert exe.device == torch.device('cpu')
