@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Chip smoke for paddle_tpu_torch: decode serving, Transformer training,
-ResNet-50 training, NMT inference and the training lifecycle (Trainer,
-checkpoints and resume, inference-model export) on one CUDA card.
+ResNet-50 training, NMT inference, the training lifecycle (Trainer,
+checkpoints and resume, inference-model export) and disaggregated decode
+serving (the KV page handoff, PhaseRouter) on one CUDA card.
 
     python3 chip_smoke.py                  # on a machine with one H100
-    python3 chip_smoke.py --cpu-rehearsal  # phases 4-13 on the host, tiny
+    python3 chip_smoke.py --cpu-rehearsal  # phases 4-14 on the host, tiny
 
 Every path runs through the executor's CUDA graphs (one a key, captured on
 its second call; core/executor.py), and phase 11 holds each against the
@@ -183,12 +184,36 @@ Phases (any fault exits non-zero; no phase is skipped over):
    L2Decay(1e-4) + exponential_decay, and a 2-layer Transformer at
    d_model 64 with noam + a global-norm clip + L1Decay(1e-4): each loss
    within 1e-5 relative.
+14. Disaggregated serving at the decode configuration of phase 4 with
+   prefix_cache=True, with observe on. 48 requests drawn by
+   serving.loadgen.phase_mix (35 % prompts of 448-512 tokens with 4-8 new
+   tokens, the rest 16-64 tokens with 48-64 new; 60 % starting with one
+   256-token system prompt; 12 at temperature 0.7): one plain engine's
+   streams, then legs of three engines each, one after the other, three
+   times in turn: PhaseRouter(1 prefill, 2 decode) and
+   PhaseRouter(colocated=True), driven by loadgen.closed_loop from 16
+   clients with every launch count at 0 just before. Checks: every stream
+   of every leg equals the plain
+   engine's; no capture and no executor cache miss after warmup on any
+   engine; pages deduplicated across the hop; every pool drained; 2 L
+   layer-norm and L paged-attention launches a prefill or step of the
+   three engines, every decode replica stepping. Prints tokens/s, TTFT
+   and inter-token p50 / p99 of every leg and their median and spread;
+   handoffs, pages exported, installed and deduped, bytes a handoff and a
+   page, export, install and hop ms p50 / p99, GB/s over the hop, and the
+   export and install seconds split into the wait for the arena lock and
+   the copies under it. Then the KV packet round trip at
+   fp32, bf16, int8 and fp8 arenas (export, to_bytes, from_bytes,
+   install into a fresh engine, read_pages: bit for bit, scales
+   included) and read_pages / write_pages of the longest prompt's fp32
+   pages timed beside their bound.
 
 The last line is {"ok": true, "device": {...}}; before it come one JSON
 line with every kernel's numbers (and phase 13's under "lifecycle":
 tokens/s a depth, launches a step, checkpoint bytes, save, restore and
-export seconds) and nvidia-smi's name and power limit.
---cpu-rehearsal runs phases 4-13 at tiny sizes with the plain versions
+export seconds; phase 14's under "disagg") and nvidia-smi's name and
+power limit.
+--cpu-rehearsal runs phases 4-14 at tiny sizes with the plain versions
 (phases 8, 10, 11 and 13d then compare the host with itself) and never
 prints that last line. --profile adds, after every other phase, a torch.profiler
 breakdown of decode steps (fp32 and int8 arenas, captured and eager),
@@ -3469,10 +3494,442 @@ def phase_lifecycle_vs_host(torch, pt, places, card, steps=3):
                 'phase 13d %s: card and host differ' % label)
 
 
+# ------------------------------------------------------------ phase 14
+# H100 SXM host link: PCIe Gen5 x16, 128 GB/s both ways (NVIDIA data
+# sheet), 64 GB/s each way
+HOST_LINK_BYTES_PER_S = 64e9
+
+
+def _disagg_requests(spec, n, sys_len, long_prompt, short_prompt, seed=1414):
+    """Phase 14's traffic: ``loadgen.phase_mix`` shapes (35 % long prompts
+    with 4-8 new tokens, the rest short prompts with 48-64), 60 % of the
+    prompts starting with one shared ``sys_len``-token system prompt (the
+    total length kept, at least one token after it, as bench_disagg
+    builds them); one request in 4 samples at temperature 0.7, each with
+    its own seed."""
+    from paddle_tpu_torch.serving import loadgen
+    rng = np.random.RandomState(seed)
+    system = rng.randint(0, spec.vocab_size, sys_len).tolist()
+    reqs = []
+    for i in range(n):
+        plen, max_new = loadgen.phase_mix(
+            rng, long_prompt_frac=0.35, short_prompt=short_prompt,
+            long_prompt=long_prompt, short_new=(4, 8), long_new=(48, 64))
+        if rng.rand() < 0.6:
+            prompt = system + rng.randint(
+                0, spec.vocab_size, max(1, plen - sys_len)).tolist()
+        else:
+            prompt = rng.randint(0, spec.vocab_size, plen).tolist()
+        reqs.append(dict(prompt_ids=prompt, max_new_tokens=max_new,
+                         temperature=0.7 if i % 4 == 3 else 0.0,
+                         seed=3000 + i))
+    n_long = sum(len(r['prompt_ids']) >= long_prompt[0] for r in reqs)
+    n_sys = sum(r['prompt_ids'][:sys_len] == system for r in reqs)
+    print('phase 14 traffic: %d requests, %d long prompts (%d-%d tokens), '
+          '%d sharing the %d-token system prompt, %d sampled; %d prompt and '
+          '%d new tokens' % (n, n_long, long_prompt[0], long_prompt[1],
+                             n_sys, sys_len, n // 4,
+                             sum(len(r['prompt_ids']) for r in reqs),
+                             sum(r['max_new_tokens'] for r in reqs)))
+    return reqs
+
+
+def _counter(snap, name):
+    return sum(v for k, v in snap['counters'].items()
+               if k == name or k.startswith(name + '{'))
+
+
+def _hist(snap, name):
+    return snap['histograms'].get(name) or {}
+
+
+def _serve_plain(spec, geom, reqs, place):
+    """The reference streams: one plain engine (no prefix cache) serving
+    every request at once."""
+    from paddle_tpu_torch.serving.decode import DecodeEngine
+    eng = DecodeEngine(spec, place=place, weights=lm_weights(spec),
+                       max_queue_depth=len(reqs), **geom)
+    eng.warmup()
+    eng.start()
+    streams = [eng.submit(**r) for r in reqs]
+    out = [s.result(timeout=600) for s in streams]
+    eng.shutdown()
+    require(eng.free_pages() == eng.num_blocks,
+            'phase 14 plain engine: pages leaked')
+    return out
+
+
+def _disagg_leg(torch, spec, geom, reqs, want, place, card, on_card,
+                disagg, clients=16):
+    """One leg: three engines with prefix_cache=True behind a PhaseRouter
+    (1 prefill + 2 decode, or colocated over 3), ``reqs`` through
+    loadgen.closed_loop from ``clients`` clients with every launch count at
+    0 just before. Checks every stream against ``want``, no capture and no
+    executor cache miss after warmup on any engine, the launches (2 L K1
+    and L K4 a prefill or step of every engine; every decode replica ran
+    steps) and the pools drained. Returns (launches, stats)."""
+    from paddle_tpu_torch import observe
+    from paddle_tpu_torch.serving import PhaseRouter, loadgen
+    from paddle_tpu_torch.serving.decode import DecodeEngine
+    tag = 'disagg' if disagg else 'colocated'
+    t0 = time.perf_counter()
+    engines = [DecodeEngine(spec, place=place, weights=lm_weights(spec),
+                            prefix_cache=True, name='%s%d' % (tag, i),
+                            max_queue_depth=len(reqs), **geom)
+               for i in range(3)]
+    for e in engines:
+        e.warmup()
+    captures = [e.captures for e in engines]
+    if on_card:
+        require(all(c == e.warmup_signatures
+                    for c, e in zip(captures, engines)),
+                'phase 14 %s: warmup captured %s graphs for %d shapes'
+                % (tag, captures, engines[0].warmup_signatures))
+    for e in engines:
+        e.start()
+    pre, dec = (engines[:1], engines[1:]) if disagg else ([], engines)
+    router = PhaseRouter(pre, dec, route=tag, colocated=not disagg)
+    t_ready = time.perf_counter() - t0
+
+    results = [None] * len(reqs)
+    ttft, gaps, errors = [], [], []
+    mu = threading.Lock()
+    order = iter(range(len(reqs)))
+
+    def do_request(rng):
+        with mu:
+            i = next(order)
+        r = reqs[i]
+        try:
+            t_sub = time.perf_counter()
+            stream = router.submit(r['prompt_ids'],
+                                   max_new_tokens=r['max_new_tokens'],
+                                   temperature=r['temperature'],
+                                   seed=r['seed'], session=i % 8)
+            toks, last, first, local = [], None, None, []
+            for tok in stream:
+                now = time.perf_counter()
+                if first is None:
+                    first = now
+                else:
+                    local.append(now - last)
+                last = now
+                toks.append(tok)
+            results[i] = toks
+            with mu:
+                ttft.append(first - t_sub)
+                gaps.extend(local)
+            return len(toks)
+        except Exception as e:  # reported and failed below
+            with mu:
+                errors.append('request %d: %r' % (i, e))
+            raise
+
+    steps0 = [(e.prefills, e.decode_steps) for e in engines]
+    observe.reset()     # the histograms hold this leg's traffic alone
+    snap0 = observe.snapshot()
+    stats = loadgen.Stats()
+    reset_launches()
+    t_run = time.perf_counter()
+    loadgen.closed_loop(do_request, stats, t_run + 900, clients,
+                        requests=len(reqs))
+    wall = time.perf_counter() - t_run
+    launches = read_launches()
+    snap1 = observe.snapshot()
+    steps = [(e.prefills - a, e.decode_steps - b)
+             for e, (a, b) in zip(engines, steps0)]
+    runs = sum(a + b for a, b in steps)
+    router.close(shutdown_replicas=True)
+    require(not errors and stats.errors == 0 and stats.rejected == 0,
+            'phase 14 %s: %d errors, %d rejected: %s'
+            % (tag, stats.errors, stats.rejected, errors[:3]))
+    diff = [i for i, (a, b) in enumerate(zip(results, want)) if a != b]
+    require(not diff, 'phase 14 %s: streams %s differ from the plain '
+            'engine\'s (first: %s vs %s)'
+            % (tag, diff[:5], results[diff[0]][:8] if diff else None,
+               want[diff[0]][:8] if diff else None))
+    require([e.captures for e in engines] == captures,
+            'phase 14 %s: captures %s after warmup, %s before'
+            % (tag, [e.captures for e in engines], captures))
+    misses = _counter(snap1, 'executor.cache_miss_total') - \
+        _counter(snap0, 'executor.cache_miss_total')
+    require(misses == 0, 'phase 14 %s: %d executor cache misses after '
+            'warmup' % (tag, misses))
+    for e in engines:
+        require(e.free_pages() == e.num_blocks,
+                'phase 14 %s: %s holds %d of %d pages after shutdown'
+                % (tag, e.name, e.num_blocks - e.free_pages(),
+                   e.num_blocks))
+    for e, (_, n_dec) in zip(engines, steps):
+        if e in dec:
+            require(n_dec > 0, 'phase 14 %s: decode replica %s ran no '
+                    'decode step' % (tag, e.name))
+    layers = spec.n_layer
+    if on_card:
+        require(launches['layer_norm'] == 2 * layers * runs and
+                launches['paged_attention'] == layers * runs,
+                'phase 14 %s: launches %s do not match %d prefills and '
+                'steps of the three engines' % (tag, launches, runs))
+    n_tok = sum(len(r) for r in results)
+    stats_out = dict(
+        tokens_per_s=n_tok / wall, wall_s=wall, ready_s=t_ready,
+        ttft_p50_ms=1e3 * _pct(ttft, 50), ttft_p99_ms=1e3 * _pct(ttft, 99),
+        itl_p50_ms=1e3 * _pct(gaps, 50), itl_p99_ms=1e3 * _pct(gaps, 99),
+        steps=steps, misses=misses)
+    print('phase 14 %s (%s): %d requests from %d clients, %d tokens in '
+          '%.3f s: %.1f tokens/s; TTFT p50 %.1f ms p99 %.1f ms; inter-token '
+          'p50 %.2f ms p99 %.2f ms; (prefills, decode steps) by engine %s; '
+          'launches layer_norm %d = 2*%d*%d, paged_attention %d = %d*%d; '
+          'built and warmed in %.1f s [%s]'
+          % (tag, 'PhaseRouter(1 prefill, 2 decode)' if disagg else
+             'PhaseRouter(colocated=True) over 3', len(reqs), clients, n_tok,
+             wall, stats_out['tokens_per_s'], stats_out['ttft_p50_ms'],
+             stats_out['ttft_p99_ms'], stats_out['itl_p50_ms'],
+             stats_out['itl_p99_ms'], steps, launches['layer_norm'], layers,
+             runs, launches['paged_attention'], layers, runs, t_ready, card))
+    if disagg:
+        d = {k: _counter(snap1, k) - _counter(snap0, k) for k in (
+            'handoff.count_total', 'handoff.bytes_total',
+            'handoff.pages_exported_total', 'handoff.pages_installed_total',
+            'handoff.pages_deduped_total', 'handoff.pages_dropped_total',
+            'handoff.empty_exports_total')}
+        require(d['handoff.count_total'] > 0, 'phase 14: no handoff')
+        require(d['handoff.pages_deduped_total'] > 0,
+                'phase 14: no page deduplicated across the hop')
+        ex, ins, hop = (_hist(snap1, 'handoff.export_seconds'),
+                        _hist(snap1, 'handoff.install_seconds'),
+                        _hist(snap1, 'handoff.seconds'))
+        n = d['handoff.count_total']
+        stats_out.update(
+            handoffs=n, pages_exported=d['handoff.pages_exported_total'],
+            pages_installed=d['handoff.pages_installed_total'],
+            pages_deduped=d['handoff.pages_deduped_total'],
+            pages_dropped=d['handoff.pages_dropped_total'],
+            empty_exports=d['handoff.empty_exports_total'],
+            bytes_per_handoff=d['handoff.bytes_total'] / n,
+            bytes_per_page=d['handoff.bytes_total'] /
+            d['handoff.pages_exported_total'],
+            export_ms_p50=1e3 * ex['p50'], export_ms_p99=1e3 * ex['p99'],
+            install_ms_p50=1e3 * ins['p50'], install_ms_p99=1e3 * ins['p99'],
+            hop_ms_p50=1e3 * hop['p50'], hop_ms_p99=1e3 * hop['p99'],
+            wire_gb_per_s=d['handoff.bytes_total'] / hop['sum'] / 1e9)
+        # the export and install seconds split into the wait for the arena
+        # lock and the copies under it (DecodeEngine read/write_pages)
+        split = {}
+        for op, whole in (('read', ex), ('write', ins)):
+            wait = _hist(snap1, 'decode.arena_wait_seconds{op=%s}' % op)
+            copy = _hist(snap1, 'decode.page_copy_seconds{op=%s}' % op)
+            split[op] = dict(
+                n=wait.get('count', 0), wait_ms_p50=1e3 * wait['p50'],
+                wait_ms_p99=1e3 * wait['p99'], copy_ms_p50=1e3 * copy['p50'],
+                copy_ms_p99=1e3 * copy['p99'],
+                whole_ms_sum=1e3 * whole['sum'],
+                wait_ms_sum=1e3 * wait['sum'], copy_ms_sum=1e3 * copy['sum'])
+            split[op]['rest_ms_sum'] = (split[op]['whole_ms_sum'] -
+                                        split[op]['wait_ms_sum'] -
+                                        split[op]['copy_ms_sum'])
+        stats_out['split'] = split
+        print('phase 14 handoff: %d hops (%d prompts under a page), pages '
+              'exported %d, installed %d, deduped %d, dropped %d; %.0f B a '
+              'handoff, %.0f B a page (%s); export p50 %.3f ms p99 %.3f ms, '
+              'install p50 %.3f ms p99 %.3f ms, whole hop p50 %.3f ms p99 '
+              '%.3f ms; %.3f GB/s over the hop [%s]'
+              % (n, d['handoff.empty_exports_total'],
+                 stats_out['pages_exported'], stats_out['pages_installed'],
+                 stats_out['pages_deduped'], stats_out['pages_dropped'],
+                 stats_out['bytes_per_handoff'], stats_out['bytes_per_page'],
+                 engines[0].kv_dtype, stats_out['export_ms_p50'],
+                 stats_out['export_ms_p99'], stats_out['install_ms_p50'],
+                 stats_out['install_ms_p99'], stats_out['hop_ms_p50'],
+                 stats_out['hop_ms_p99'], stats_out['wire_gb_per_s'], card))
+        for op, what in (('read', 'export'), ('write', 'install')):
+            sp = split[op]
+            print('phase 14 %s split (%d page %ss): arena-lock wait p50 %.3f '
+                  'ms p99 %.3f ms, copies under the lock p50 %.3f ms p99 '
+                  '%.3f ms; summed over the leg: %s %.3f ms = wait %.3f + '
+                  'copies %.3f + the rest %.3f [%s]'
+                  % (what, sp['n'], op, sp['wait_ms_p50'], sp['wait_ms_p99'],
+                     sp['copy_ms_p50'], sp['copy_ms_p99'], what,
+                     sp['whole_ms_sum'], sp['wait_ms_sum'],
+                     sp['copy_ms_sum'], sp['rest_ms_sum'], card))
+    del engines, pre, dec, router
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    return launches, stats_out
+
+
+def _equal_bits(torch, a, b):
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+def _packet_roundtrip(torch, spec, geom, prompt, place, card, on_card):
+    """Export, to_bytes, from_bytes, install into a fresh engine, then
+    read_pages: bit for bit at fp32, bf16, int8 and fp8 arenas (scales
+    included), the wire bytes those of the shapes. At fp32, read_pages and
+    write_pages of the prompt's pages timed (host clock, each call ends in
+    a synchronize) beside their bound. Returns {dtype: numbers}."""
+    from paddle_tpu_torch.serving import KVPacket, handoff
+    from paddle_tpu_torch.serving.decode import DecodeEngine, kv_page_bytes
+    out = {}
+    for kv_dtype in ('float32', 'bfloat16', 'int8', 'float8_e4m3fn'):
+        src, dst = [DecodeEngine(spec, place=place, weights=lm_weights(spec),
+                                 prefix_cache=True, kv_dtype=kv_dtype,
+                                 **geom) for _ in range(2)]
+        src.start()
+        src.generate(prompt, max_new_tokens=1, timeout=300)
+        pkt = handoff.export_packet(src, prompt)
+        wire = pkt.to_bytes()
+        back = KVPacket.from_bytes(wire)
+        covered, installed, dedup = handoff.install_packet(dst, back)
+        n_pages = len(prompt) // geom['block_size']
+        require((covered, installed, dedup) ==
+                (n_pages * geom['block_size'], n_pages, 0),
+                'phase 14 round trip %s: install gave %s'
+                % (kv_dtype, (covered, installed, dedup)))
+        ids, _ = dst.prefix_cache.acquire(prompt)
+        got = dst.read_pages(ids)
+        bad = [n for n, t in pkt.arrays.items()
+               if not _equal_bits(torch, got[n], t) or
+               not _equal_bits(torch, back.arrays[n], t)]
+        require(not bad, 'phase 14 round trip %s: arenas %s differ from the '
+                'exported packet' % (kv_dtype, bad))
+        page = kv_page_bytes(spec, geom['block_size'], kv_dtype)
+        require(pkt.wire_bytes() == page * n_pages,
+                'phase 14 round trip %s: %d wire bytes, the shapes give %d'
+                % (kv_dtype, pkt.wire_bytes(), page * n_pages))
+        rec = dict(pages=n_pages, arenas=sorted(pkt.arrays),
+                   bytes=pkt.wire_bytes(), bytes_per_page=page,
+                   packet_bytes=len(wire))
+        if kv_dtype == 'float32' and on_card:
+            free = dst.pool.alloc(n_pages)
+            reps = 20
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                dst.read_pages(ids)
+            read_ms = (time.perf_counter() - t0) / reps * 1e3
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                dst.write_pages(free, got)
+            write_ms = (time.perf_counter() - t0) / reps * 1e3
+            back2 = dst.read_pages(free)
+            require(all(_equal_bits(torch, back2[n], got[n]) for n in got),
+                    'phase 14: write_pages then read_pages lost bits')
+            dst.pool.free(free)
+            n_bytes = pkt.wire_bytes()
+            # the gather reads and writes the pages on the card, and the
+            # host link carries them once
+            hbm_ms = 2 * n_bytes / HBM_BYTES_PER_S * 1e3
+            link_ms = n_bytes / HOST_LINK_BYTES_PER_S * 1e3
+            rec.update(read_ms=read_ms, write_ms=write_ms,
+                       bound_ms=max(hbm_ms, link_ms),
+                       bound_by='host link' if link_ms >= hbm_ms else 'bytes',
+                       hbm_ms=hbm_ms, link_ms=link_ms)
+            print('phase 14 page copies, %d fp32 pages (%d B): read_pages '
+                  '%.4f ms, write_pages %.4f ms; bound %.4f ms (%d B over '
+                  'the host link at 64 GB/s; twice over HBM %.4f ms) [%s]'
+                  % (n_pages, n_bytes, read_ms, write_ms, rec['bound_ms'],
+                     n_bytes, hbm_ms, card))
+        dst.pool.free(ids)
+        src.shutdown()
+        dst.shutdown()
+        require(src.free_pages() == src.num_blocks and
+                dst.free_pages() == dst.num_blocks,
+                'phase 14 round trip %s: pages leaked' % kv_dtype)
+        out[kv_dtype] = rec
+        print('phase 14 round trip %s: %d pages, arenas %s, %d payload bytes '
+              '(%d a page), %d on the wire; export, to_bytes, from_bytes, '
+              'install, read_pages bit for bit [%s]'
+              % (kv_dtype, n_pages, ', '.join(rec['arenas']), rec['bytes'],
+                 page, len(wire), card))
+        del src, dst
+        if on_card:
+            torch.cuda.empty_cache()
+    ratio = out['float32']['bytes_per_page'] / out['int8']['bytes_per_page']
+    print('phase 14 bytes a page: fp32 %d, bf16 %d, int8 %d, fp8 %d (fp32 / '
+          'int8 %.2fx)' % (out['float32']['bytes_per_page'],
+                           out['bfloat16']['bytes_per_page'],
+                           out['int8']['bytes_per_page'],
+                           out['float8_e4m3fn']['bytes_per_page'], ratio))
+    return out
+
+
+def _spread(legs, key):
+    """'median [min-max]' of ``key`` over repeated legs."""
+    xs = sorted(leg[key] for leg in legs)
+    return '%.2f [%.2f-%.2f]' % (xs[len(xs) // 2], xs[0], xs[-1])
+
+
+def phase_disagg(torch, spec, geom, place, card, on_card, n=48,
+                 sys_len=256, long_prompt=(448, 512), short_prompt=(16, 64),
+                 clients=16, repeats=1):
+    """Phase 14: disaggregated serving. The plain engine's streams, then
+    ``repeats`` times the disaggregated and the colocated leg in turn
+    (each shut down before the next; every check holds on every leg),
+    then the packet round trip at four arena dtypes. Returns (the legs'
+    launch counts, the numbers: a list of legs a mode)."""
+    from paddle_tpu_torch import observe
+    t0 = time.perf_counter()
+    reqs = _disagg_requests(spec, n, sys_len, long_prompt, short_prompt)
+    want = _serve_plain(spec, geom, reqs, place)
+    if on_card:
+        torch.cuda.empty_cache()
+    print('phase 14 plain engine: %d streams in %.1f s'
+          % (len(want), time.perf_counter() - t0))
+    observe.reset()
+    observe.enable()
+    leg_launches, dis, col = [], [], []
+    try:
+        for _ in range(repeats):
+            for disagg, legs in ((True, dis), (False, col)):
+                got, stats = _disagg_leg(torch, spec, geom, reqs, want,
+                                         place, card, on_card, disagg,
+                                         clients)
+                leg_launches.append(got)
+                legs.append(stats)
+    finally:
+        observe.disable()
+        observe.reset()
+    for tag, legs in (('disaggregated', dis), ('colocated', col)):
+        print('phase 14 %s over %d legs, median [min-max]: %s tokens/s, '
+              'TTFT p50 %s ms, p99 %s ms, inter-token p50 %s ms, p99 %s ms '
+              '(a leg\'s TTFT p99 lies between its two largest of %d '
+              'samples) [%s]'
+              % (tag, len(legs), _spread(legs, 'tokens_per_s'),
+                 _spread(legs, 'ttft_p50_ms'), _spread(legs, 'ttft_p99_ms'),
+                 _spread(legs, 'itl_p50_ms'), _spread(legs, 'itl_p99_ms'),
+                 len(reqs), card))
+    print('phase 14 hop over %d legs, median [min-max]: export p50 %s ms, '
+          'install p50 %s ms, hop p50 %s ms, hop p99 %s ms, %s GB/s [%s]'
+          % (len(dis), _spread(dis, 'export_ms_p50'),
+             _spread(dis, 'install_ms_p50'), _spread(dis, 'hop_ms_p50'),
+             _spread(dis, 'hop_ms_p99'), _spread(dis, 'wire_gb_per_s'), card))
+    for op in ('read', 'write'):
+        sp = [leg['split'][op] for leg in dis]
+        print('phase 14 %s split over %d legs, median [min-max], ms summed '
+              'over a leg: whole %s = arena-lock wait %s + copies %s + the '
+              'rest %s [%s]'
+              % (op, len(sp), _spread(sp, 'whole_ms_sum'),
+                 _spread(sp, 'wait_ms_sum'), _spread(sp, 'copy_ms_sum'),
+                 _spread(sp, 'rest_ms_sum'), card))
+    print('phase 14 legs: every stream of all %d legs equals the plain '
+          'engine\'s [%s]' % (len(dis) + len(col), card))
+    # the round trip's prompt: the longest request's, its full pages
+    prompt = max((r['prompt_ids'] for r in reqs), key=len)
+    rt_geom = dict(geom, num_blocks=max(64, 4 * geom['pages_per_seq']))
+    rt = _packet_roundtrip(torch, spec, rt_geom, prompt, place, card,
+                           on_card)
+    secs = time.perf_counter() - t0
+    print('phase 14 done in %.1f s' % secs)
+    return leg_launches, dict(
+        disaggregated=dis, colocated=col, round_trip=rt, seconds=secs)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--cpu-rehearsal', action='store_true',
-                    help='run phases 4-13 on the host at tiny sizes with '
+                    help='run phases 4-14 on the host at tiny sizes with '
                          'the plain versions')
     ap.add_argument('--profile', action='store_true',
                     help='after every other phase, profile 20 decode '
@@ -3553,6 +4010,10 @@ def main():
                                                 pt.CPUPlace()), host)
         finally:
             shutil.rmtree(work, ignore_errors=True)
+        phase_disagg(torch, spec, dict(max_batch=4, block_size=4,
+                                       num_blocks=512, pages_per_seq=32),
+                     pt.CPUPlace(), host, False, sys_len=8,
+                     long_prompt=(40, 48), short_prompt=(4, 12))
         print('cpu rehearsal ok in %.1f s' % (time.perf_counter() - t_start))
         return
 
@@ -3699,15 +4160,20 @@ def main():
     lifecycle.update(tokens_per_s={str(d): v for d, v in tok_s.items()},
                      launches_per_step=per_step)
     done('13 (training lifecycle)')
+    # phase 14: disaggregated serving at the decode configuration
+    disagg_runs, disagg = phase_disagg(torch, spec, geom, pt.CUDAPlace(0),
+                                       card, True, repeats=3)
+    torch.cuda.empty_cache()
+    done('14 (disaggregated serving)')
 
     # launches: the sum over the main paths' runs (the engine runs: plain,
     # extras plain and with cache + speculation, int8 and fp8; the timed
     # Transformer (unrolled and scan_layers), masked Transformer and
     # ResNet-50 training steps; phase 12's timed decode calls; phase 13a's
-    # timed Trainer epoch at depth 1), each read after its counts were set
-    # to 0
+    # timed Trainer epoch at depth 1; phase 14's six legs), each read after
+    # its counts were set to 0
     main_runs = [launches] + extras + list(quant.values()) + \
-        [train, scan_train, masked, resnet, nmt, trainer]
+        [train, scan_train, masked, resnet, nmt, trainer] + disagg_runs
 
     def runs(key):
         return sum(r.get(key, 0) for r in main_runs)
@@ -3763,7 +4229,8 @@ def main():
              launches=runs('keep_mask'), **mask),
     ]
     print('total %.1f s' % (time.perf_counter() - t_start))
-    print(json.dumps({'kernels': kernels, 'lifecycle': lifecycle}))
+    print(json.dumps({'kernels': kernels, 'lifecycle': lifecycle,
+                      'disagg': disagg}))
     print(card)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu',
                                              'kind': name,

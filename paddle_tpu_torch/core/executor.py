@@ -45,6 +45,12 @@ forward, a var with an ``error_clip`` (clip.ErrorClipByValue) is wrapped
 in an identity whose backward clamps its gradient, as the reference's
 custom_vjp does.
 
+With ``observe`` on, every call counts ``executor.cache_miss_total`` (a key
+seen for the first time, or a graph (re)captured: on the card a capture
+counts as the miss) or ``executor.cache_hit_total``, labelled by ``kind``
+(``single`` for run, ``multi`` for run_steps) and the key's id, as the
+reference's executor counts its compiles.
+
 ``set_step`` fills the step index in place: a resumed Trainer sets it
 where its checkpoint left off, so the captured graphs, which read that
 tensor, draw the uninterrupted run's masks.
@@ -56,6 +62,7 @@ import time
 import numpy as np
 import torch
 
+from .. import observe as _obs
 from ..clip import ErrorClipByValue, error_clip_grad
 from .dtypes import to_torch_dtype
 from .place import CUDAPlace
@@ -132,6 +139,13 @@ def _prune_ops(block, ops, fetch_names):
                 needed.add(op.attrs['loss_name'])
     kept.reverse()
     return kept
+
+
+def _count_lookup(kind, key, missed):
+    if _obs.enabled():
+        _obs.inc('executor.cache_miss_total' if missed
+                 else 'executor.cache_hit_total', kind=kind,
+                 key=_obs.key_id(key))
 
 
 def _detached(value):
@@ -368,6 +382,7 @@ class Executor(object):
                 use_program_cache)
             if return_handle:
                 fetches, event = self._copy_out(fetches)
+        _count_lookup('single', key, missed)
         self._tls.last_cache_miss = missed
         self._tls.last_captured = captured
         if return_handle:
@@ -426,6 +441,7 @@ class Executor(object):
                         o[0].copy_(v)
             if return_handle:
                 out, event = self._copy_out(out)
+        _count_lookup('multi', key, missed_any)
         self._tls.last_cache_miss = missed_any
         self._tls.last_captured = captured
         if return_handle:

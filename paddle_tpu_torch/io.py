@@ -71,26 +71,59 @@ def _is_persistable(var):
     return bool(getattr(var, 'persistable', False)) and not var.is_data
 
 
+# The dtypes numpy lacks, kept as their raw bits under the JAX package's
+# names: name -> (torch dtype, torch integer view, numpy integer view), the
+# views of the same item size. Files, handoff packets and the engine's page
+# copies all read this one table.
+_RAW_BITS = {
+    'bfloat16': (torch.bfloat16, torch.int16, np.uint16),
+    'float8_e4m3fn': (torch.float8_e4m3fn, torch.uint8, np.uint8),
+}
+_RAW_BY_TORCH = {tdt: (name, view, npview)
+                 for name, (tdt, view, npview) in _RAW_BITS.items()}
+
+
+def raw_bits(t):
+    """``t`` viewed as integers of its item size when numpy lacks its
+    dtype, else ``t`` itself: a copy of these bits is exact."""
+    raw = _RAW_BY_TORCH.get(t.dtype)
+    return t if raw is None else t.view(raw[1])
+
+
+def stored_numpy_dtype(dtype_name):
+    """The numpy dtype a value stored under ``dtype_name`` is read as (the
+    raw view for the dtypes numpy lacks); TypeError for an unknown name."""
+    raw = _RAW_BITS.get(dtype_name)
+    return np.dtype(raw[2] if raw else dtype_name)
+
+
 def _to_numpy(value):
-    """(host array, dtype name) of a scope value, always a copy; bfloat16
-    (which numpy lacks) as its uint16 view."""
+    """(host array, dtype name) of a scope value, always a copy; the dtypes
+    numpy lacks as their raw bits under the JAX package's name (bfloat16
+    as uint16, float8_e4m3fn as uint8)."""
     if not isinstance(value, torch.Tensor):
         arr = np.array(value)
         return arr, arr.dtype.name
     t = value.detach()
     t = t.clone() if t.device.type == 'cpu' else t.cpu()
-    if t.dtype == torch.bfloat16:
-        return t.view(torch.int16).numpy().view(np.uint16), 'bfloat16'
+    raw = _RAW_BY_TORCH.get(t.dtype)
+    if raw is not None:
+        name, view, npview = raw
+        return t.view(view).numpy().view(npview), name
     arr = t.numpy()
     return arr, arr.dtype.name
 
 
 def _from_numpy(arr, dtype_name):
-    """A CPU tensor of the array's stored dtype."""
+    """A CPU tensor of the array's stored dtype; bfloat16 and
+    float8_e4m3fn from their raw bits (any array of their item size: the
+    JAX package's npz holds float8 as a one-byte void type)."""
     arr = np.ascontiguousarray(arr)
-    if dtype_name == 'bfloat16':
-        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
-    return torch.from_numpy(arr)
+    raw = _RAW_BITS.get(dtype_name)
+    if raw is None:
+        return torch.from_numpy(arr)
+    tdt = raw[0]
+    return torch.from_numpy(arr.view('<i%d' % tdt.itemsize)).view(tdt)
 
 
 def _restore_into(scope, name, value, device, dtype=None):

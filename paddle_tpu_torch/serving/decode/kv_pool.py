@@ -21,11 +21,24 @@ pages at refcount 1 so later requests can map them instead of prefilling
 again. Those pages are reclaimable, not free: ``alloc`` asks the installed
 ``set_reclaimer`` callback to evict some back into the free list before it
 reports exhaustion, so the cache never starves admission.
+
+Allocator pressure is observable (``observe``): free pages, occupancy,
+the largest contiguous free run and the fragmentation gauges, and the
+``decode.alloc_stall_seconds`` histogram, a sample for every alloc that
+found a shortfall.
 """
 
 import threading
+import time
+
+from ... import observe as _obs
 
 __all__ = ['KVPool', 'BlockTable']
+
+# The fragmentation gauges need a sort over the free list, so _publish
+# refreshes them only every Nth alloc/free; direct largest_free_run() /
+# fragmentation() reads always recompute (and publish) them.
+_FRAG_PUBLISH_EVERY = 64
 
 
 class BlockTable(object):
@@ -58,6 +71,8 @@ class KVPool(object):
         self._free = list(range(self.num_blocks - 1, -1, -1))
         self._refs = [0] * self.num_blocks
         self._reclaimer = None
+        self._frag_seq = 0
+        self._publish()
 
     def set_reclaimer(self, fn):
         """Install ``fn(n) -> freed_count``, asked by ``alloc`` when fewer
@@ -66,9 +81,67 @@ class KVPool(object):
         through ``free``, which takes it)."""
         self._reclaimer = fn
 
+    # ------------------------------------------------------------ stats
     def free_blocks(self):
         with self._mu:
             return len(self._free)
+
+    def used_blocks(self):
+        with self._mu:
+            return self.num_blocks - len(self._free)
+
+    def occupancy(self):
+        with self._mu:
+            return 1.0 - len(self._free) / float(self.num_blocks)
+
+    def largest_free_run(self):
+        """Length of the longest run of CONTIGUOUS free page ids. Pages
+        are position-independent through block tables, so allocations
+        succeed anyway, but a high free count beside a short run shows
+        allocator churn. Reading it refreshes the gauges."""
+        with self._mu:
+            run = self._largest_run_locked()
+            self._publish_frag_locked(run)
+            return run
+
+    def _largest_run_locked(self):
+        if not self._free:
+            return 0
+        ids = sorted(self._free)
+        best = run = 1
+        for prev, cur in zip(ids, ids[1:]):
+            run = run + 1 if cur == prev + 1 else 1
+            best = max(best, run)
+        return best
+
+    def fragmentation(self):
+        """1 - largest_free_run / free pages (0.0: one contiguous run or
+        no free page). Refreshes the gauges like largest_free_run."""
+        with self._mu:
+            free = len(self._free)
+            run = self._largest_run_locked()
+            self._publish_frag_locked(run)
+            return 1.0 - run / float(free) if free else 0.0
+
+    def _publish_frag_locked(self, run):
+        if _obs.enabled():
+            free = len(self._free)
+            _obs.set_gauge('decode.kv_largest_free_run', run)
+            _obs.set_gauge('decode.kv_fragmentation',
+                           1.0 - run / float(free) if free else 0.0)
+
+    def _publish(self):
+        if _obs.enabled():
+            free = len(self._free)
+            _obs.set_gauge('decode.kv_blocks_free', free)
+            _obs.set_gauge('decode.kv_free_pages', free)
+            _obs.set_gauge('decode.kv_blocks_total', self.num_blocks)
+            _obs.set_gauge('decode.kv_block_occupancy',
+                           1.0 - free / float(self.num_blocks))
+            # the largest run is a sort: every Nth publish only
+            self._frag_seq += 1
+            if self._frag_seq % _FRAG_PUBLISH_EVERY == 1:
+                self._publish_frag_locked(self._largest_run_locked())
 
     def blocks_for(self, n_tokens):
         """Pages needed to hold n_tokens positions."""
@@ -83,18 +156,30 @@ class KVPool(object):
         """Claim ``n`` pages (refcount 1 each). Returns the page-id list,
         or None when fewer than ``n`` are free and the reclaimer (if any)
         cannot evict enough — the caller decides whether that means
-        preempt, wait, or reject."""
+        preempt, wait, or reject. An alloc that found a shortfall records
+        the time from it to the answer in ``decode.alloc_stall_seconds``."""
         n = int(n)
+        t0 = None
         while True:
             with self._mu:
                 if n <= len(self._free):
                     ids = [self._free.pop() for _ in range(n)]
                     for i in ids:
                         self._refs[i] = 1
+                    self._publish()
+                    self._record_stall(t0)
                     return ids
                 short = n - len(self._free)
+            if t0 is None:
+                t0 = time.perf_counter()
             if self._reclaimer is None or self._reclaimer(short) <= 0:
+                self._record_stall(t0)
                 return None
+
+    def _record_stall(self, t0):
+        if t0 is not None and _obs.enabled():
+            _obs.record('decode.alloc_stall_seconds',
+                        time.perf_counter() - t0)
 
     def grow(self, table, n_tokens):
         """Ensure ``table`` covers ``n_tokens`` positions, allocating
@@ -126,6 +211,7 @@ class KVPool(object):
                 self._refs[i] -= 1
                 if self._refs[i] == 0:
                     self._free.append(i)
+            self._publish()
 
     def release(self, table):
         """Free a sequence's whole table."""

@@ -46,7 +46,8 @@ import itertools
 import os
 import threading
 
-from ..tenancy import priority_rank
+from ... import observe as _obs
+from ..tenancy import PRIORITIES, priority_rank
 
 __all__ = ['PrefixCache', 'prefix_cache_enabled']
 
@@ -109,6 +110,10 @@ class PrefixCache(object):
             n = self.hits + self.misses
             return self.hits / float(n) if n else 0.0
 
+    def _publish_gauges(self):
+        if _obs.enabled():
+            _obs.set_gauge('decode.prefix_cache_pages', self._pages)
+
     # ------------------------------------------------------------- match
     def _walk(self, tokens, max_pages):
         """Page ids of the cached chain that covers ``tokens``' first
@@ -144,7 +149,13 @@ class PrefixCache(object):
                 self.tokens_reused += len(matched) * self.block_size
             else:
                 self.misses += 1
-        return len(matched) * self.block_size
+        n = len(matched) * self.block_size
+        if _obs.enabled():
+            _obs.inc('decode.prefix_cache_lookups_total',
+                     outcome='hit' if matched else 'miss')
+            if n:
+                _obs.inc('decode.prefix_tokens_reused_total', n)
+        return n
 
     def acquire(self, tokens):
         """Pin the longest cached chain over ``tokens``' FULL pages (all of
@@ -199,6 +210,9 @@ class PrefixCache(object):
                     child.tenant = tenant or 'default'
                 child.last_used = tick
                 node = child
+            self._publish_gauges()
+        if added and _obs.enabled():
+            _obs.inc('decode.prefix_pages_published_total', added)
         return added
 
     # ------------------------------------------------------------- evict
@@ -224,22 +238,33 @@ class PrefixCache(object):
         self._pages -= 1
         self.evictions += 1
         self.pool.free([node.page_id])
+        return node.tenant, node.prio
 
     def reclaim(self, n):
         """Evict up to ``n`` refcount-1 cached pages back to the pool's
         free list; returns how many were freed. The pool calls it (outside
         its lock) before it reports exhaustion."""
         freed = 0
+        evicted = {}                 # (tenant, priority rank) -> pages
         with self._mu:
             while freed < n:
                 leaves = self._evictable_leaves()
                 if not leaves:
                     break
                 for node in leaves:
-                    self._drop(node)
+                    k = self._drop(node)
+                    evicted[k] = evicted.get(k, 0) + 1
                     freed += 1
                     if freed >= n:
                         break
+            self._publish_gauges()
+        if freed and _obs.enabled():
+            _obs.inc('decode.prefix_evictions_total', freed)
+            for (tenant, rank), pages in evicted.items():
+                _obs.inc('tenant.evicted_pages', pages, tenant=tenant,
+                         priority=PRIORITIES[rank])
+            _obs.flight_event('prefix_cache_evict', pages=freed,
+                              cached_pages=self._pages)
         return freed
 
     def clear(self):
@@ -257,3 +282,4 @@ class PrefixCache(object):
                 self.pool.free([node.page_id])
             self._root.children.clear()
             self._pages = 0
+            self._publish_gauges()

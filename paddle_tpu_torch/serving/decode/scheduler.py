@@ -32,9 +32,11 @@ consumes it).
 import collections
 import queue as _queue
 import threading
+import time
 
 from concurrent.futures import Future
 
+from ... import observe as _obs
 from ..tenancy import priority_rank
 from .kv_pool import BlockTable
 
@@ -96,12 +98,14 @@ class Sequence(object):
     """One in-flight generation request."""
 
     __slots__ = ('request_id', 'prompt', 'max_new_tokens', 'temperature',
-                 'seed', 'eos_id', 'table', 'generated', 'state', 'stream',
-                 'cache_len', 'pending_token', 'cached_len',
-                 'published_pages', 'tenant', 'priority', 'prio_rank')
+                 'seed', 'eos_id', 'table', 'generated', 'streamed',
+                 'state', 'stream', 'cache_len', 'pending_token',
+                 't_submit', 't_admit', 't_first_token', 't_last_token',
+                 'preemptions', 'cached_len', 'published_pages', 'ctx',
+                 'tenant', 'priority', 'prio_rank')
 
     def __init__(self, request_id, prompt, max_new_tokens, temperature,
-                 seed, eos_id, tenant=None, priority=None):
+                 seed, eos_id, ctx=None, tenant=None, priority=None):
         self.request_id = request_id
         self.prompt = [int(t) for t in prompt]
         self.max_new_tokens = int(max_new_tokens)
@@ -110,12 +114,19 @@ class Sequence(object):
         self.eos_id = eos_id
         self.table = BlockTable()
         self.generated = []
+        self.streamed = 0
         self.state = WAITING
         self.stream = GenerationStream(request_id, len(self.prompt))
         self.cache_len = 0
         self.pending_token = None
+        self.t_submit = time.perf_counter()
+        self.t_admit = None
+        self.t_first_token = None
+        self.t_last_token = None
+        self.preemptions = 0
         self.cached_len = 0        # prefix-cache hit span (this prefill)
         self.published_pages = 0   # full pages already offered to the cache
+        self.ctx = ctx      # reqtrace.RequestContext (trace correlation)
         # scheduling class (serving.tenancy): None lands on 'standard'
         self.tenant = tenant
         self.priority = priority
@@ -154,10 +165,23 @@ class Scheduler(object):
     def add(self, seq):
         with self._mu:
             self.waiting.append(seq)
+        self._publish()
 
     def counts(self):
         with self._mu:
             return len(self.waiting), len(self.running)
+
+    def free_slots(self):
+        """Batch slots not occupied: with the pool's free pages, what the
+        phase router ranks decode replicas by."""
+        with self._mu:
+            return max(0, self.max_batch - len(self.running))
+
+    def _publish(self):
+        if _obs.enabled():
+            w, r = self.counts()
+            _obs.set_gauge('decode.waiting_seqs', w)
+            _obs.set_gauge('decode.running_seqs', r)
 
     def pop_admittable(self):
         """Admit the next waiting sequence, highest class first, if a
@@ -187,11 +211,18 @@ class Scheduler(object):
                     self.cache.unmatch(seq.table, seq.cached_len)
                     seq.cached_len = 0
                     seq.published_pages = 0
+                _obs.inc('decode.admission_blocked_total')
                 return None
             del self.waiting[idx]
+            seq.t_admit = time.perf_counter()
             seq.state = RUNNING
             self.running.append(seq)
-            self.peak_running = max(self.peak_running, len(self.running))
+            if len(self.running) > self.peak_running:
+                self.peak_running = len(self.running)
+                if _obs.enabled():
+                    _obs.set_gauge('decode.running_seqs_peak',
+                                   self.peak_running)
+        self._publish()
         return seq
 
     def ensure_growth(self, seq, need_tokens=None):
@@ -204,6 +235,12 @@ class Scheduler(object):
         if need_tokens is None:
             need_tokens = seq.cache_len + 1
         while not self.pool.grow(seq.table, need_tokens):
+            _obs.inc('decode.pool_exhausted_total')
+            _obs.flight_event('decode_pool_exhausted',
+                              request_id=seq.request_id,
+                              free_blocks=self.pool.free_blocks(),
+                              running=len(self.running),
+                              waiting=len(self.waiting))
             victim = self._pick_victim()
             self.preempt(victim)
             if victim is seq:
@@ -232,14 +269,26 @@ class Scheduler(object):
         seq.pending_token = None
         seq.cached_len = 0
         seq.published_pages = 0
+        seq.preemptions += 1
         self.preemptions += 1
+        _obs.inc('decode.preemptions_total')
+        _obs.inc('tenant.preempted', tenant=seq.tenant or 'default',
+                 priority=seq.priority or 'standard')
+        _obs.flight_event('decode_preempt', request_id=seq.request_id,
+                          generated=len(seq.generated),
+                          freed_blocks=self.pool.free_blocks())
+        if seq.ctx is not None:
+            seq.ctx.event('preempt', generated=len(seq.generated))
+        self._publish()
 
     def finish(self, seq, reason):
         with self._mu:
             self.running.remove(seq)
         self.pool.release(seq.table)
         seq.state = FINISHED
+        _obs.inc('decode.finished_total', reason=reason)
         seq.stream._finish(reason, seq.generated)
+        self._publish()
 
     def fail_all(self, exc):
         """Worker-death path: every in-flight and queued request gets the
@@ -254,4 +303,5 @@ class Scheduler(object):
                 self.pool.release(seq.table)
             seq.state = FINISHED
             seq.stream._fail(exc)
+        self._publish()
         return len(seqs)

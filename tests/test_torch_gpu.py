@@ -1702,3 +1702,46 @@ def test_trainer_resume_on_the_card_is_bit_exact(cuda, tmp_path,
         np.testing.assert_array_equal(a, b)
     for n, v in state.items():
         np.testing.assert_array_equal(got_state[n], v, err_msg=n)
+
+
+# ------------------------------------------- disaggregated serving (PR 11)
+@pytest.mark.parametrize('kv_dtype', ['float32', 'bfloat16', 'int8', 'fp8'])
+def test_kv_packet_round_trip_on_the_card(cuda, kv_dtype):
+    """The KV handoff on the card: export, to_bytes, from_bytes, install
+    into a fresh engine, read_pages bit for bit (scales included); the
+    installs write the arena tensors in place (no capture after warmup),
+    and the receiving engine decodes the stream of one engine on the host
+    with the same arena dtype."""
+    from paddle_tpu_torch.serving import KVPacket, handoff
+    spec = LMSpec(vocab_size=64, n_layer=2, n_head=2, d_key=16, d_value=16,
+                  d_model=32, d_inner=64)
+    geom = dict(max_batch=4, block_size=8, num_blocks=32, pages_per_seq=4,
+                weights=random_weights(spec, seed=2), prefix_cache=True,
+                kv_dtype=kv_dtype)
+    prompt = np.random.RandomState(1).randint(0, 64, 21).tolist()
+    src = DecodeEngine(spec, place=pt.CUDAPlace(0), **geom)
+    dst = DecodeEngine(spec, place=pt.CUDAPlace(0), **geom)
+    host = DecodeEngine(spec, place=pt.CPUPlace(), **geom)
+    for eng in (src, dst, host):
+        eng.warmup()
+        eng.start()
+    captures = dst.captures
+    src.generate(prompt, max_new_tokens=1, timeout=120)
+    pkt = handoff.export_packet(src, prompt)
+    back = KVPacket.from_bytes(pkt.to_bytes())
+    assert handoff.install_packet(dst, back) == (16, 2, 0)
+    ids, _ = dst.prefix_cache.acquire(prompt)
+    got = dst.read_pages(ids)
+    dst.pool.free(ids)
+    for name, t in pkt.arrays.items():
+        assert t.device.type == 'cpu'
+        assert torch.equal(got[name].view(torch.uint8),
+                           t.view(torch.uint8)), name
+        assert torch.equal(back.arrays[name].view(torch.uint8),
+                           t.view(torch.uint8)), name
+    want = host.generate(prompt, max_new_tokens=8, timeout=120)
+    assert dst.generate(prompt, max_new_tokens=8, timeout=120) == want
+    assert dst.captures == captures
+    for eng in (src, dst, host):
+        eng.shutdown()
+        assert eng.free_pages() == eng.num_blocks

@@ -42,6 +42,32 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+# the disaggregated-serving slice's modules: each is in the walk above and
+# names neither jax nor paddle_tpu in any import
+SLICE_MODULES = ['observe', 'observe.registry', 'observe.flight',
+                 'observe.spans', 'observe.reqtrace', 'serving.handoff',
+                 'serving.loadgen', 'serving.router', 'serving.decode.engine',
+                 'serving.decode.kv_pool']
+
+
+@pytest.mark.parametrize('module', SLICE_MODULES)
+def test_slice_modules_import_no_jax_and_no_reference(module):
+    import ast
+    import importlib
+    mod = importlib.import_module('paddle_tpu_torch.' + module)
+    with open(mod.__file__) as f:
+        tree = ast.parse(f.read())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names.append('.' * node.level + (node.module or ''))
+    bad = [n for n in names if n.split('.')[0] in ('jax', 'jaxlib',
+                                                   'paddle_tpu')]
+    assert not bad, bad
+
+
 @pytest.mark.parametrize('script', ['chip_smoke.py', 'kernel_times.py'])
 def test_chip_scripts_import_no_jax_and_no_reference(script):
     """The chip scripts run where there is no jax: every import statement
