@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Chip smoke for paddle_tpu_torch: decode serving, Transformer training,
 ResNet-50 training, NMT inference, the training lifecycle (Trainer,
-checkpoints and resume, inference-model export) and disaggregated decode
-serving (the KV page handoff, PhaseRouter) on one CUDA card.
+checkpoints and resume, inference-model export), disaggregated decode
+serving (the KV page handoff, PhaseRouter) and Wide&Deep CTR training
+with row-sparse embedding gradients on one CUDA card.
 
     python3 chip_smoke.py                  # on a machine with one H100
-    python3 chip_smoke.py --cpu-rehearsal  # phases 4-14 on the host, tiny
+    python3 chip_smoke.py --cpu-rehearsal  # phases 4-15 on the host, tiny
 
 Every path runs through the executor's CUDA graphs (one a key, captured on
 its second call; core/executor.py), and phase 11 holds each against the
@@ -66,7 +67,11 @@ Phases (any fault exits non-zero; no phase is skipped over):
    12's unrolled decoder: B = 64 x beam 4 = 256, H = 8, D = 64, on
    head-split views): causal Tq = Tk = t and cross-attention Tq = t
    against Tk = 64 with kv_len 16-64, t in {1, 7, 16, 31}, fp32 and bf16,
-   against both plain versions, beside SDPA and the bound.
+   against both plain versions, beside SDPA and the bound. The
+   row-sparse update (sparse_rows) at Wide&Deep's width: one table of
+   1,000,000 rows, 4,096 ids from a Zipf(1.1) law, dim 16 and dim 1, for
+   SGD, Adagrad, lazy Momentum and lazy Adam, bit for bit with its plain
+   version; index_add_ (one atomic scatter-add) beside SGD's.
 4. Engine: DecodeEngine at the documented serving configuration
    (docs/serving.md: vocab 32000, 12 layers, 8 heads, d_model 512,
    d_inner 2048; max_batch 16, block 32, 4096 pages, 64 pages a
@@ -208,19 +213,43 @@ Phases (any fault exits non-zero; no phase is skipped over):
    included) and read_pages / write_pages of the longest prompt's fp32
    pages timed beside their bound.
 
+15. Wide&Deep CTR training (models/wide_deep.py) in the Criteo schema:
+   26 sparse slots and 13 dense features, 1,000,000 rows a slot in the
+   deep (dim 16) and the wide (dim 1) tables, hidden (64, 32), batch
+   4,096, fp32, ids from a Zipf(1.1) law folded onto each table. One
+   captured leg each under SGD(0.1), Adagrad(0.05), Adam(1e-3,
+   lazy_mode=True) and Momentum(0.1, 0.9, lazy_mode=True), 3 warm-up
+   and 20 timed steps with every launch count at 0 before: ms a step,
+   examples/s, one eager step's peak memory above the resident state
+   (checked under one deep table's bytes, 64 MB: no table-sized
+   gradient) and the leg's, sparse_rows launches a step (checked: 52).
+   Checks: all 52 tables row-sparse, rows never fed unchanged bit for
+   bit, a second run from the same state and 3 captured against 3 eager
+   steps bit for bit. Then SGD again with every table's sparse_grad off
+   (dense gradients, the path before row-sparse gradients): ms a step
+   and peak memory. Then, at 4 slots x 1,000 rows and batch 256, 3 steps
+   from the same weights: each optimizer card against host (losses rtol
+   1e-5; persistables rtol 1e-5 and atol 1e-6, or 1e-3 x lr for Adagrad
+   and Adam, whose normalised first step lr * g / (|g| + eps) amplifies a
+   near-zero gradient entry's summation-order error by up to lr / eps),
+   sparse against dense SGD on the
+   card, and the recommender at its defaults (emb 32, fc 200, cos_sim)
+   card against host.
+
 The last line is {"ok": true, "device": {...}}; before it come one JSON
 line with every kernel's numbers (and phase 13's under "lifecycle":
 tokens/s a depth, launches a step, checkpoint bytes, save, restore and
-export seconds; phase 14's under "disagg") and nvidia-smi's name and
-power limit.
---cpu-rehearsal runs phases 4-14 at tiny sizes with the plain versions
-(phases 8, 10, 11 and 13d then compare the host with itself) and never
-prints that last line. --profile adds, after every other phase, a torch.profiler
+export seconds; phase 14's under "disagg"; phase 15's under "ctr") and
+nvidia-smi's name and power limit.
+--cpu-rehearsal runs phases 4-15 at tiny sizes with the plain versions
+(phases 8, 10, 11, 13d and 15 then compare the host with itself) and
+never prints that last line. --profile adds, after every other phase, a torch.profiler
 breakdown of decode steps (fp32 and int8 arenas, captured and eager),
 verify steps (k = 3), Transformer (unrolled and scan_layers) and
 ResNet-50 training steps (captured and eager): wall, device busy time and
 share, host launches (kernels and graphs) a step; then phase 12's calls
-(captured; eager at fp32 for the one-query attention's spans) by family.
+(captured; eager at fp32 for the one-query attention's spans) by family;
+then phase 15's Wide&Deep SGD step, row-sparse and dense (captured).
 --kernels-only stops after phase 3 (no verdict line). kernel_times.py
 times K1, K4, K2, K3 and K5 and the backward kernels of any checkout of
 this repository at phase 3's shapes.
@@ -382,7 +411,7 @@ def phase_build():
                    'flash_bwd_dq_wide_kernel', 'bn_train_kernel',
                    'bn_bwd_kernel', 'ln_warp_kernel', 'ln_bwd_rows_kernel',
                    'ln_bwd_cols_kernel', 'kv_write_kernel',
-                   'keep_mask_kernel'):
+                   'keep_mask_kernel', 'sparse_rows_kernel'):
         require(kernel in res.log, 'ptxas\'s log does not show %s' % kernel)
     print('  flash attention dynamic shared memory at D=64: tensor-core '
           'forward %d B, SIMT forward %d B, SIMT dK/dV %d B, SIMT dQ %d B, '
@@ -1505,6 +1534,103 @@ def phase_step_kernels(torch, card):
     return kv['float32'], mask
 
 
+# ------------------------------------------------------ phase 3: sparse_rows
+CTR_SLOTS = 26
+CTR_ROWS = 1000000
+CTR_BATCH = 4096
+CTR_DIMS = (16, 1)        # the deep tables' width, the wide tables'
+SPARSE_KINDS = ('sgd', 'adagrad', 'momentum', 'adam')
+
+
+def zipf_ids(rng, shape, rows, a=1.1):
+    """Ids drawn from a Zipf(a) law folded onto ``rows`` table rows: CTR
+    traffic's heavy head (the top id is ~9 % of a slot's ids at a = 1.1),
+    so a batch repeats ids."""
+    return ((rng.zipf(a, shape) - 1) % rows).astype('int64')
+
+
+def _sparse_case(torch, card, kind, dim, gen, rng, rows=CTR_ROWS,
+                 n=CTR_BATCH):
+    """The sparse_rows kernel against sparse_rows_reference, bit for bit,
+    at one full-width table's step (Zipf ids), and its times beside its
+    bound; for sgd also index_add_ (the same update as one atomic
+    scatter-add) as the library call."""
+    from paddle_tpu_torch.ops.kernels import sparse_rows as S
+    dev = torch.device('cuda', 0)
+    flat = torch.from_numpy(zipf_ids(rng, n, rows)).to(dev)
+    grad = torch.randn(n, dim, generator=gen, device=dev)
+    table = torch.randn(rows, dim, generator=gen, device=dev)
+    state = [torch.rand(rows, dim, generator=gen, device=dev)
+             for _ in range(S.N_STATE[kind])]
+    lr = torch.tensor([0.05], device=dev)
+    pows = (torch.tensor([0.9 ** 5], device=dev),
+            torch.tensor([0.999 ** 5], device=dev)) if kind == 'adam' else ()
+    sids, order = S.sort_ids(flat)
+    outs = []
+    for fn in (S.sparse_rows_reference, S.sparse_rows):
+        t, st = table.clone(), [s.clone() for s in state]
+        fn(kind, t, grad, sids, order, lr, st, pows)
+        outs.append([t] + st)
+    # the plain version on the host too: every operation correctly
+    # rounded on both sides, so the same bits
+    t, st = table.cpu(), [s.cpu() for s in state]
+    S.sparse_rows_reference(kind, t, grad.cpu(), sids.cpu(), order.cpu(),
+                            lr.cpu(), st, tuple(p.cpu() for p in pows))
+    torch.cuda.synchronize()
+    ok = all(torch.equal(a, b) for a, b in zip(*outs))
+    host_ok = all(torch.equal(a.cpu(), b) for a, b in zip(outs[1], [t] + st))
+    err = max(float((a - b).abs().max()) for a, b in zip(*outs))
+    del outs, t, st
+    uniq = int(torch.unique(flat).numel())
+    longest = int(torch.bincount(flat).max())
+    # each input read once, each output written once: the sorted ids and
+    # the order, the rows, and the touched rows of the table and of each
+    # accumulator read and written
+    n_bytes = 16 * n + 4 * n * dim + 2 * 4 * uniq * dim * (1 + len(state))
+    n_ops = n * dim * 3 + uniq * dim * 12
+    lo, by = bound_ms(n_bytes, n_ops)
+    args = (kind, table, grad, sids, order, lr, state, pows)
+    ms = device_ms(torch, lambda: S.sparse_rows(*args))
+    eager = eager_ms(torch, lambda: S.sparse_rows(*args))
+    # the plain version finds each run's length with a host read: timed
+    # eagerly
+    plain = eager_ms(torch, lambda: S.sparse_rows_reference(*args), iters=3,
+                     warmup=1)
+    lib = None
+    if kind == 'sgd':
+        lib = device_ms(torch, lambda: table.index_add_(0, flat, grad,
+                                                        alpha=-0.05))
+    print('sparse_rows %s dim %d: table [%d, %d] fp32, %d ids (%d distinct, '
+          'longest run %d): bit for bit with its plain version %s, '
+          'max_abs_err %.3g; device ms: kernel %.5f, plain %.5f (eager: host '
+          'reads), bound %.6f (%s), %s; kernel eager %.5f ms; the plain '
+          'version on the host: bit for bit %s [%s]'
+          % (kind, dim, rows, dim, n, uniq, longest,
+             'ok' if ok else 'MISMATCH', err, ms, plain, lo, by,
+             'index_add_ %.5f' % lib if lib is not None else
+             'no single PyTorch call', eager,
+             'ok' if host_ok else 'MISMATCH', card))
+    require(ok and host_ok, 'sparse_rows %s dim %d disagrees with its '
+            'plain version' % (kind, dim))
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=lo,
+                bound_by=by, library_ms=lib, eager_ms=eager)
+
+
+def phase_sparse_kernels(torch, card):
+    """The row-sparse update kernel at Wide&Deep's full width (one table of
+    1,000,000 rows, 4,096 Zipf ids) for each optimizer at dim 16 and dim 1;
+    returns {(kind, dim): numbers}, the kernels line's entry under
+    ('sgd', 16)."""
+    gen = torch.Generator(device='cuda').manual_seed(15)
+    rng = np.random.RandomState(15)
+    res = {}
+    for dim in CTR_DIMS:
+        for kind in SPARSE_KINDS:
+            res[(kind, dim)] = _sparse_case(torch, card, kind, dim, gen, rng)
+            torch.cuda.empty_cache()
+    return res
+
+
 def phase_bn_kernels(torch, card):
     """K5 at ResNet-50's shapes (batch 64, 224x224: the stem, stage 1's
     64-channel, stage 2's and stage 4's widest), NCHW, fp32 and an odd
@@ -1623,6 +1749,8 @@ def _family(name):
         return 'batch norm backward (K5 backward)'
     if 'ptt::bn_' in low:
         return 'batch norm (K5)'
+    if 'ptt::sparse_rows' in low:
+        return 'row-sparse update (sparse_rows)'
     if any(w in low for w in ('fprop', 'dgrad', 'wgrad', 'conv', 'cudnn',
                               'implicit')):
         return 'convolution (cuDNN)'
@@ -3926,6 +4054,312 @@ def phase_disagg(torch, spec, geom, place, card, on_card, n=48,
         disaggregated=dis, colocated=col, round_trip=rt, seconds=secs)
 
 
+# ------------------------------------------------------------ phase 15
+# (leg, optimizer, atol of the card against the host): Adagrad's and
+# Adam's first step on an entry is lr * g / (|g| + eps), whose slope in g
+# near g = 0 is lr / eps, so a gradient entry's summation-order error
+# (cuBLAS against the host's BLAS, ~1e-10 on entries ~1e-5) moves it by
+# up to ~1e-4 x lr a step: 1e-3 x lr over 3 steps
+CTR_OPTS = (
+    ('sgd', lambda pt: pt.optimizer.SGD(0.1), 1e-6),
+    ('adagrad', lambda pt: pt.optimizer.Adagrad(0.05), 1e-3 * 0.05),
+    ('adam', lambda pt: pt.optimizer.Adam(1e-3, lazy_mode=True),
+     1e-3 * 1e-3),
+    ('momentum', lambda pt: pt.optimizer.Momentum(0.1, 0.9, lazy_mode=True),
+     1e-6),
+)
+
+
+def _ctr_program(pt, slots, rows, opt, sparse=True):
+    """Wide&Deep in the Criteo schema (``slots`` sparse slots of ``rows``
+    rows, dim 16 deep and dim 1 wide tables, hidden (64, 32), 13 dense
+    features) under ``opt``; ``sparse=False`` turns every table's
+    sparse_grad off (the dense gradient path)."""
+    from paddle_tpu_torch.models import wide_deep as W
+    pt.reset_default_programs()
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed = 15
+    with pt.program_guard(main, startup):
+        _, cost, _, _ = W.build(num_slots=slots, vocab_size=rows)
+        if not sparse:
+            for p in main.all_parameters():
+                p.sparse_grad = False
+        opt(pt).minimize(cost)
+    return main, startup, cost
+
+
+def ctr_feeds(n, slots, rows, batch, seed):
+    """``n`` Wide&Deep batches: each slot's ids from a Zipf(1.1) law
+    folded onto its table, 13 dense features, a click label."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        f = {'C%d' % i: zipf_ids(rng, (batch, 1), rows)
+             for i in range(slots)}
+        f['dense'] = rng.rand(batch, 13).astype('float32')
+        f['label'] = rng.randint(0, 2, (batch, 1)).astype('int64')
+        out.append(f)
+    return out
+
+
+def _ctr_steps(pt, exe, main, cost, feeds, n, cache=True):
+    """``n`` steps cycling through ``feeds``; the losses as device
+    tensors."""
+    return [exe.run(main, feed=feeds[i % len(feeds)], fetch_list=[cost],
+                    return_numpy=False, use_program_cache=cache)[0]
+            for i in range(n)]
+
+
+def _ctr_state(pt, main):
+    return [v.name for v in main.list_vars()
+            if v.persistable and not v.is_data]
+
+
+def _ctr_checks(torch, pt, exe, scope, main, cost, name, names, snap, feeds,
+                warmup, steps, slots, rows, place):
+    """After a leg's timed run: rows no batch fed keep their bits (and fed
+    rows moved), a second run from the same state gives the same bits, and
+    3 captured steps from it equal 3 eager ones bit for bit."""
+    first = {n: scope.find(n).clone() for n in names}
+    for i in range(slots):
+        fed = torch.zeros(rows, dtype=torch.bool)
+        for f in feeds:
+            fed[torch.from_numpy(f['C%d' % i][:, 0])] = True
+        fed = fed.to(place.device())
+        for n in ('emb_slot_%d' % i, 'wide_slot_%d' % i):
+            t = scope.find(n)
+            require(torch.equal(t[~fed], snap[n][~fed]),
+                    'ctr %s: %s changed on rows no batch fed' % (name, n))
+            require(not torch.equal(t[fed], snap[n][fed]),
+                    'ctr %s: %s did not move on fed rows' % (name, n))
+    for n in names:
+        scope.find(n).copy_(snap[n])
+    exe.set_step(1)
+    _ctr_steps(pt, exe, main, cost, feeds[:warmup], warmup)
+    _ctr_steps(pt, exe, main, cost, feeds[warmup:], steps)
+    require(all(torch.equal(scope.find(n), first[n]) for n in names),
+            'ctr %s: a second run from the same state differs' % name)
+    del first
+    ends = []
+    for cache in (False, True):
+        for n in names:
+            scope.find(n).copy_(snap[n])
+        exe.set_step(1)
+        _ctr_steps(pt, exe, main, cost, feeds, 3, cache=cache)
+        ends.append({n: scope.find(n).clone() for n in names})
+    require(all(torch.equal(ends[0][n], ends[1][n]) for n in names),
+            'ctr %s: 3 captured steps differ from 3 eager ones' % name)
+
+
+def _ctr_leg(torch, pt, card, on_card, name, opt, slots, rows, batch,
+             feeds, warmup, steps, sparse=True, profile=False):
+    """One leg: Wide&Deep at (slots, rows, batch) under ``opt``, captured:
+    ``warmup`` then ``steps`` timed steps (``feeds``, one each) with every
+    launch count at 0 just before. Checks the marker (every table sparse,
+    or none), the sparse_rows launches a step and the peak memory above
+    the resident state; a sparse leg also runs _ctr_checks. Returns
+    (launch counts, numbers, a --profile job or None: with ``profile`` the
+    job keeps the leg's executor and scope)."""
+    main, startup, cost = _ctr_program(pt, slots, rows, opt, sparse)
+    marker = [op for op in main.global_block().ops
+              if op.type == 'backward_marker'][0]
+    n_sparse = len(marker.attrs['sparse_grads'])
+    require(n_sparse == (2 * slots if sparse else 0),
+            'ctr %s: %d tables take row-sparse gradients, want %d'
+            % (name, n_sparse, 2 * slots if sparse else 0))
+    place = pt.CUDAPlace(0) if on_card else pt.CPUPlace()
+    exe, scope = pt.Executor(place), pt.Scope()
+    names = _ctr_state(pt, main)
+    t0 = time.perf_counter()
+    with pt.scope_guard(scope):
+        exe.run(startup)
+        snap = {n: scope.find(n).clone() for n in names}
+        if on_card:
+            torch.cuda.synchronize()
+        setup = time.perf_counter() - t0
+        resident = sum(t.numel() * t.element_size() for t in snap.values())
+        step_peak = leg_peak = None
+        if on_card:
+            # one eager step's peak above what is resident before it (a
+            # first eager step has set up cuBLAS on this stream), then the
+            # state goes back to the startup's
+            _ctr_steps(pt, exe, main, cost, feeds, 1, cache=False)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            _ctr_steps(pt, exe, main, cost, feeds, 1, cache=False)
+            torch.cuda.synchronize()
+            step_peak = torch.cuda.max_memory_allocated() - base
+            for n in names:
+                scope.find(n).copy_(snap[n])
+            exe.set_step(1)
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        _ctr_steps(pt, exe, main, cost, feeds[:warmup], warmup)
+        if on_card:
+            torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        losses = _ctr_steps(pt, exe, main, cost, feeds[warmup:], steps)
+        if on_card:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        counts = read_launches()
+        if on_card:
+            leg_peak = torch.cuda.max_memory_allocated() - base
+        losses = [float(v.float()) for v in losses]
+        require(all(np.isfinite(losses)), 'ctr %s: a loss is not finite'
+                % name)
+        if on_card:
+            require(exe.last_captured, 'ctr %s: the timed steps ran eagerly'
+                    % name)
+        if sparse:
+            _ctr_checks(torch, pt, exe, scope, main, cost, name, names,
+                        snap, feeds, warmup, steps, slots, rows, place)
+        del snap
+    ms = wall / steps * 1e3
+    per_step = counts['sparse_rows'] / float(warmup + steps)
+    res = dict(ms_per_step=ms, examples_per_s=batch * steps / wall,
+               step_peak_bytes=step_peak, leg_peak_bytes=leg_peak,
+               resident_bytes=resident, sparse_rows_per_step=per_step,
+               setup_s=setup, first_loss=losses[0], last_loss=losses[-1])
+
+    def mb(v):
+        return '%.3f MB' % (v / 1e6) if v is not None else \
+            'not measured (host)'
+    print('phase 15 ctr %s (%s): %d slots x %d rows, batch %d, fp32, %d '
+          'tables row-sparse: %.3f ms/step, %.1f examples/s; resident '
+          'state %.3f GB; above it, an eager step peaks %s, the leg '
+          '(warm-up, capture, cuBLAS workspaces, timed steps) %s; '
+          'sparse_rows %.2f launches a step; loss %.5f -> %.5f;%s startup '
+          '%.2f s [%s]'
+          % (name, 'sparse' if sparse else 'dense gradients', slots, rows,
+             batch, n_sparse, ms, res['examples_per_s'], resident / 1e9,
+             mb(step_peak), mb(leg_peak), per_step, losses[0], losses[-1],
+             ' unfed rows unchanged, a second run and 3 eager = 3 captured '
+             'steps bit for bit;' if sparse else '', setup, card))
+    if on_card and sparse:
+        require(per_step == 2 * slots, 'ctr %s: %.2f sparse_rows launches '
+                'a step, want %d' % (name, per_step, 2 * slots))
+        limit = rows * 16 * 4
+        require(step_peak < limit, 'ctr %s: a step peaks %.1f MB above the '
+                'resident state, over one deep table (%.1f MB)'
+                % (name, step_peak / 1e6, limit / 1e6))
+    job = None
+    if profile:
+        def step():
+            with pt.scope_guard(scope):
+                _ctr_steps(pt, exe, main, cost, feeds, 1)
+        job = ('Wide&Deep %s step, %d slots x %d rows, batch %d, captured'
+               % (name, slots, rows, batch), step, 5, lambda: None)
+    return counts, res, job
+
+
+def _ctr_compare(torch, pt, sides, feeds, atol, label, steps=3):
+    """Each side, a (place, build) with build() giving a fresh (main,
+    startup, cost) of the same persistables, trains ``steps`` steps from
+    the first build's startup weights (drawn on the host): losses within
+    rtol 1e-5 and every persistable within rtol 1e-5 / ``atol``."""
+    got = []
+    init = None
+    for place, build in sides:
+        main, startup, cost = build()
+        names = _ctr_state(pt, main)
+        if init is None:
+            init = pt.Scope()
+            with pt.scope_guard(init):
+                pt.Executor(pt.CPUPlace()).run(startup)
+        scope, exe = pt.Scope(), pt.Executor(place)
+        for n in names:
+            scope.set(n, init.find(n).clone().to(place.device()))
+        with pt.scope_guard(scope):
+            losses = [float(np.asarray(exe.run(
+                main, feed=feeds[i % len(feeds)], fetch_list=[cost])[0])
+                .reshape(())) for i in range(steps)]
+        got.append((losses, {n: scope.find(n).cpu() for n in names}))
+    (la, ta), (lb, tb) = got
+    require(sorted(ta) == sorted(tb), 'phase 15 %s: the two programs hold '
+            'other persistables' % label)
+    err = max(float((ta[n] - tb[n]).abs().max()) for n in ta)
+    ok = np.allclose(la, lb, rtol=1e-5) and all(
+        torch.allclose(ta[n], tb[n], rtol=1e-5, atol=atol) for n in ta)
+    print('phase 15 %s: %d steps, losses %s vs %s, max |diff| over every '
+          'persistable %.3g (rtol 1e-5, atol %.3g): %s'
+          % (label, steps, ['%.7f' % v for v in la],
+             ['%.7f' % v for v in lb], err, atol,
+             'ok' if ok else 'MISMATCH'))
+    require(ok, 'phase 15 %s disagrees' % label)
+
+
+def _recommender_program(pt):
+    from paddle_tpu_torch.models import recommender as R
+    pt.reset_default_programs()
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed = 15
+    with pt.program_guard(main, startup):
+        cost = R.recommender()[1]
+        pt.optimizer.SGD(0.2).minimize(cost)
+    return main, startup, cost
+
+
+def recommender_feeds(n, batch, seed):
+    rng = np.random.RandomState(seed)
+    vocab = {'uid': 944, 'gender': 2, 'age': 7, 'job': 21, 'mov_id': 1683,
+             'category': 19}
+    out = []
+    for _ in range(n):
+        f = {k: rng.randint(0, v, (batch, 1)).astype('int64')
+             for k, v in vocab.items()}
+        f['score'] = (5.0 * rng.rand(batch, 1)).astype('float32')
+        out.append(f)
+    return out
+
+
+def phase_ctr(torch, pt, card, on_card, slots=CTR_SLOTS, rows=CTR_ROWS,
+              batch=CTR_BATCH, warmup=3, steps=20, profile=False):
+    """Phase 15: Wide&Deep CTR training at full width, one captured leg a
+    optimizer (SGD, Adagrad, lazy Adam, lazy Momentum) and SGD with dense
+    gradients (the path before row-sparse gradients), then the card
+    against the host at 4 slots x 1,000 rows and batch 256 (each
+    optimizer, sparse SGD against dense SGD) and the recommender at its
+    defaults. Returns ({leg: launch counts}, numbers, --profile jobs:
+    the SGD leg's step, sparse and dense, with ``profile``)."""
+    feeds = ctr_feeds(warmup + steps, slots, rows, batch, seed=15)
+    runs, legs, jobs = {}, {}, []
+    for name, opt, _ in CTR_OPTS:
+        runs[name], legs[name], job = _ctr_leg(
+            torch, pt, card, on_card, name, opt, slots, rows, batch, feeds,
+            warmup, steps, profile=profile and name == 'sgd')
+        jobs += [job] if job else []
+        if on_card:
+            torch.cuda.empty_cache()
+    _, legs['sgd_dense'], job = _ctr_leg(
+        torch, pt, card, on_card, 'sgd_dense', CTR_OPTS[0][1], slots, rows,
+        batch, feeds, warmup, steps, sparse=False, profile=profile)
+    jobs += [job] if job else []
+    if on_card:
+        torch.cuda.empty_cache()
+    card_place = pt.CUDAPlace(0) if on_card else pt.CPUPlace()
+    host = pt.CPUPlace()
+    small = ctr_feeds(3, 4, 1000, 256, seed=16)
+    for name, opt, atol in CTR_OPTS:
+        build = lambda opt=opt: _ctr_program(pt, 4, 1000, opt)  # noqa: E731
+        _ctr_compare(torch, pt, ((card_place, build), (host, build)), small,
+                     atol, 'ctr %s, card vs host (4 slots x 1,000 rows, '
+                     'batch 256)' % name)
+    sgd = CTR_OPTS[0][1]
+    _ctr_compare(torch, pt, (
+        (card_place, lambda: _ctr_program(pt, 4, 1000, sgd)),
+        (card_place, lambda: _ctr_program(pt, 4, 1000, sgd, sparse=False))),
+        small, 1e-6, 'ctr SGD, sparse vs dense gradients on the card')
+    _ctr_compare(torch, pt, ((card_place, lambda: _recommender_program(pt)),
+                             (host, lambda: _recommender_program(pt))),
+                 recommender_feeds(3, 256, seed=17), 1e-6,
+                 'recommender (emb 32, fc 200, batch 256, SGD), card vs '
+                 'host')
+    return runs, legs, jobs
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--cpu-rehearsal', action='store_true',
@@ -4014,6 +4448,8 @@ def main():
                                        num_blocks=512, pages_per_seq=32),
                      pt.CPUPlace(), host, False, sys_len=8,
                      long_prompt=(40, 48), short_prompt=(4, 12))
+        phase_ctr(torch, pt, host, False, slots=4, rows=1000, batch=256,
+                  steps=5)
         print('cpu rehearsal ok in %.1f s' % (time.perf_counter() - t_start))
         return
 
@@ -4029,7 +4465,8 @@ def main():
     fa_fwd, fa_bwd = phase_flash_kernels(torch, card)
     bn, bn_bwd = phase_bn_kernels(torch, card)
     kvw, mask = phase_step_kernels(torch, card)
-    done('3 (K2, K3, K5, KV write, keep mask)')
+    sparse = phase_sparse_kernels(torch, card)
+    done('3 (K2, K3, K5, KV write, keep mask, sparse rows)')
     if args.kernels_only:
         print('kernels only: K1, K4 (and its quantized variant), K2, K3 and '
               'K5 and the K1 and K5 backward kernels agree with their plain '
@@ -4165,15 +4602,23 @@ def main():
                                        card, True, repeats=3)
     torch.cuda.empty_cache()
     done('14 (disaggregated serving)')
+    # phase 15: Wide&Deep CTR training with row-sparse gradients
+    ctr_runs, ctr, ctr_jobs = phase_ctr(torch, pt, card, True,
+                                        profile=args.profile)
+    done('15 (Wide&Deep CTR)')
+    if args.profile:
+        profile_steps(torch, card, ctr_jobs)
+    del ctr_jobs
 
     # launches: the sum over the main paths' runs (the engine runs: plain,
     # extras plain and with cache + speculation, int8 and fp8; the timed
     # Transformer (unrolled and scan_layers), masked Transformer and
     # ResNet-50 training steps; phase 12's timed decode calls; phase 13a's
-    # timed Trainer epoch at depth 1; phase 14's six legs), each read after
-    # its counts were set to 0
+    # timed Trainer epoch at depth 1; phase 14's six legs; phase 15's four
+    # row-sparse legs), each read after its counts were set to 0
     main_runs = [launches] + extras + list(quant.values()) + \
-        [train, scan_train, masked, resnet, nmt, trainer] + disagg_runs
+        [train, scan_train, masked, resnet, nmt, trainer] + disagg_runs + \
+        list(ctr_runs.values())
 
     def runs(key):
         return sum(r.get(key, 0) for r in main_runs)
@@ -4227,10 +4672,16 @@ def main():
              source='paddle_tpu_torch/csrc/random_bits.cu',
              replaces='paddle_tpu/ops/nn_ops.py:163',
              launches=runs('keep_mask'), **mask),
+        dict(name='sparse_rows', route='cuda',
+             source='paddle_tpu_torch/csrc/sparse_rows.cu',
+             replaces='paddle_tpu/ops/optimizer_ops.py:58',
+             launches=runs('sparse_rows'), **sparse[('sgd', 16)]),
     ]
+    ctr.update(kernel={'%s_dim%d' % k: dict(ms=v['ms'], bound_ms=v['bound_ms'])
+                       for k, v in sparse.items()})
     print('total %.1f s' % (time.perf_counter() - t_start))
     print(json.dumps({'kernels': kernels, 'lifecycle': lifecycle,
-                      'disagg': disagg}))
+                      'disagg': disagg, 'ctr': ctr}))
     print(card)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu',
                                              'kind': name,

@@ -12,8 +12,8 @@ host with the plain versions. Files written by ``io`` (persistables,
 checkpoints, inference models) use the JAX package's format.
 """
 
-from . import (clip, fault, initializer, io, layers, learning_rate_decay,
-               optimizer, reader, regularizer, trainer)
+from . import (clip, dataset, fault, initializer, io, layers,
+               learning_rate_decay, optimizer, reader, regularizer, trainer)
 from .core.executor import Executor
 from .core.place import CPUPlace, CUDAPlace
 from .core.program import (Program, default_main_program,
@@ -27,7 +27,7 @@ from .param_attr import ParamAttr
 from .trainer import (BeginEpochEvent, BeginStepEvent, EndEpochEvent,
                       EndStepEvent, Trainer)
 
-__all__ = ['clip', 'fault', 'initializer', 'io', 'layers',
+__all__ = ['clip', 'dataset', 'fault', 'initializer', 'io', 'layers',
            'learning_rate_decay', 'optimizer', 'reader', 'regularizer',
            'trainer', 'Executor', 'CPUPlace', 'CUDAPlace', 'Program',
            'default_main_program', 'default_startup_program',

@@ -40,10 +40,13 @@ tensors, ``torch.autograd.grad`` of the summed loss gives every ``p@GRAD``
 (zero where the loss does not reach a parameter, as jax.value_and_grad
 gives), and the ops after it run under ``torch.no_grad()`` once the
 gradients exist, so no tensor saved for the backward aliases a parameter
-being updated. Everything else runs under ``torch.no_grad()``. In the
-forward, a var with an ``error_clip`` (clip.ErrorClipByValue) is wrapped
-in an identity whose backward clamps its gradient, as the reference's
-custom_vjp does.
+being updated. A table with row-sparse gradients (the marker's
+``sparse_grads``) is no leaf: its lookup's zero row seed is, and its
+``p@GRAD`` is the [n_ids, dim] rows (reference: paddle_tpu
+core/executor.py step_fn). Everything else runs under
+``torch.no_grad()``. In the forward, a var with an ``error_clip``
+(clip.ErrorClipByValue) is wrapped in an identity whose backward clamps
+its gradient, as the reference's custom_vjp does.
 
 With ``observe`` on, every call counts ``executor.cache_miss_total`` (a key
 seen for the first time, or a graph (re)captured: on the card a capture
@@ -64,6 +67,7 @@ import torch
 
 from .. import observe as _obs
 from ..clip import ErrorClipByValue, error_clip_grad
+from .backward import SPARSE_SEED_PREFIX
 from .dtypes import to_torch_dtype
 from .place import CUDAPlace
 from .program import Variable, default_main_program
@@ -265,10 +269,23 @@ class _Plan(object):
             block, ops if self.marker is None else ops[:self.marker])
         self.reads = consumed | set(fetch_names)
         keep = set(fetch_names) | set(self.scope_out)
+        # a row-sparse gradient's Ids are read by the update ops through
+        # the gradient var's sparse_ids (core/backward.py), not through an
+        # input slot: they count as read by every op after the marker that
+        # reads that gradient
+        sparse_ids = {}
+        if self.marker is not None:
+            marker_op = ops[self.marker]
+            info = marker_op.attrs.get('sparse_grads') or {}
+            grads = dict(zip(marker_op.attrs['param_names'],
+                             marker_op.attrs['grad_names']))
+            sparse_ids = {grads[p]: i['ids'] for p, i in info.items()}
         last = {}
         for i, op in enumerate(ops):
             for name in op.output_names() + op.input_names():
                 last[name] = i
+                if name in sparse_ids and i > self.marker:
+                    last[sparse_ids[name]] = i
         # the scope's inputs, and the loss, live to the end of the forward:
         # in a training step that is the marker, whose frees the step
         # releases after the backward
@@ -699,20 +716,39 @@ class Executor(object):
 
     def _train_step(self, env, plan, run_ops):
         """Forward with the trainable parameters as leaves, gradients of
-        the summed loss, then the update ops under no_grad."""
+        the summed loss, then the update ops under no_grad.
+
+        A table with row-sparse gradients (the marker's ``sparse_grads``)
+        is no leaf: a zero row seed shaped like its lookup's output is,
+        and the lookup (ops/nn_ops.py) adds it to the gathered rows, so
+        ``p@GRAD`` is the seed's gradient, [n_ids, dim]. No [vocab, dim]
+        tensor is made for such a table."""
         marker = plan.ops[plan.marker]
         param_names = marker.attrs['param_names']
         grad_names = marker.attrs['grad_names']
         loss_name = marker.attrs['loss_name']
+        sparse = marker.attrs.get('sparse_grads') or {}
         stored = {n: env[n] for n in param_names}
+        seeds = {}
         # the forward and the update are named for torch.profiler (one range
         # each a step): the device time by section reads them; the backward
         # runs on autograd's device thread, outside any range of this one
         with torch.enable_grad():
             leaves = []
             for n in param_names:
-                env[n] = stored[n].detach().requires_grad_()
-                leaves.append(env[n])
+                if n in sparse:
+                    # [n_ids, dim]; the lookup reshapes it to its output
+                    table = stored[n]
+                    seed = torch.zeros(
+                        (env[sparse[n]['ids']].numel(), table.shape[-1]),
+                        dtype=table.dtype, device=table.device,
+                        requires_grad=True)
+                    seeds[n] = SPARSE_SEED_PREFIX + sparse[n]['out']
+                    env[seeds[n]] = seed
+                    leaves.append(seed)
+                else:
+                    env[n] = stored[n].detach().requires_grad_()
+                    leaves.append(env[n])
             with torch.profiler.record_function('forward'):
                 run_ops(plan.ops[:plan.marker], 0)
             loss = env[loss_name]
@@ -725,7 +761,9 @@ class Executor(object):
         for n in plan.frees.get(plan.marker, ()):
             env.pop(n, None)
         env.update(stored)
-        for pn, gn, g in zip(param_names, grad_names, grads):
-            env[gn] = torch.zeros_like(stored[pn]) if g is None else g
+        for pn, gn, g, leaf in zip(param_names, grad_names, grads, leaves):
+            env[gn] = torch.zeros_like(leaf) if g is None else g
+            if pn in seeds:
+                del env[seeds[pn]]
         with torch.no_grad(), torch.profiler.record_function('optimizer'):
             run_ops(plan.ops[plan.marker + 1:], plan.marker + 1)

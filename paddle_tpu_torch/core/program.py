@@ -254,6 +254,11 @@ class Program(object):
                                   stop_gradient=v.stop_gradient,
                                   is_data=v.is_data, trainable=v.trainable)
                 nv._error_clip = v._error_clip
+                # the row-sparse annotations: an is_sparse table's flag
+                # and its gradient's Ids (core/backward.py)
+                for extra in ('sparse_grad', 'sparse_ids'):
+                    if hasattr(v, extra):
+                        setattr(nv, extra, getattr(v, extra))
                 nb.vars[name] = nv
             for op in b.ops:
                 if for_test and op.type == 'backward_marker':

@@ -10,7 +10,7 @@ __all__ = ['fc', 'embedding', 'conv2d', 'pool2d', 'batch_norm',
            'layer_norm', 'dropout', 'cross_entropy',
            'label_smoothed_cross_entropy', 'softmax_with_cross_entropy',
            'accuracy', 'topk', 'reduce_sum', 'transpose', 'one_hot',
-           'square_error_cost', 'autoincreased_step_counter']
+           'square_error_cost', 'cos_sim', 'autoincreased_step_counter']
 
 
 def _prod(xs):
@@ -58,12 +58,19 @@ def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
 
 def embedding(input, size, is_sparse=False, is_distributed=False,
               padding_idx=None, param_attr=None, dtype='float32'):
-    """Embedding lookup (lookup_table op). Its gradient is dense:
-    ``is_sparse`` and ``is_distributed`` are recorded in the op's attrs
-    but select no other path."""
+    """Embedding lookup (lookup_table op).
+
+    ``is_sparse`` / ``is_distributed`` flag the table for row-sparse
+    gradients (``w.sparse_grad``): under an optimizer whose update takes
+    them (SGD, Adagrad, lazy Adam and Momentum) and where the table is
+    eligible (core/backward.py), its gradient is the [n_ids, dim] rows of
+    this lookup, merged and applied by the sparse_rows kernel, never a
+    dense [vocab, dim] gradient. Otherwise the gradient is dense."""
     helper = LayerHelper('embedding', **locals())
     w = helper.create_parameter(attr=helper.param_attr, shape=size,
                                 dtype=dtype)
+    if is_sparse or is_distributed:
+        w.sparse_grad = True
     out = helper.create_variable_for_type_inference(dtype)
     in_shape = input.shape
     if in_shape is not None:
@@ -368,6 +375,21 @@ def square_error_cost(input, label):
     helper.append_op(type='square_error_cost',
                      inputs={'X': [input], 'Y': [label]},
                      outputs={'Out': [out]})
+    return out
+
+
+def cos_sim(X, Y):
+    """Row-wise cosine similarity [..., 1] of X and Y (reference:
+    paddle_tpu layers/nn.py cos_sim); XNorm and YNorm are its side
+    outputs."""
+    helper = LayerHelper('cos_sim')
+    out = helper.create_variable_for_type_inference(X.dtype)
+    xn = helper.create_variable_for_type_inference(X.dtype)
+    yn = helper.create_variable_for_type_inference(X.dtype)
+    if X.shape is not None:
+        out.shape = tuple(X.shape[:-1]) + (1,)
+    helper.append_op(type='cos_sim', inputs={'X': [X], 'Y': [Y]},
+                     outputs={'Out': [out], 'XNorm': [xn], 'YNorm': [yn]})
     return out
 
 

@@ -15,6 +15,7 @@ def launch_counters():
     from .layer_norm import fused_layer_norm
     from .paged_attention import paged_attention
     from .random_bits import keep_mask
+    from .sparse_rows import sparse_rows
     res = [('layer_norm', fused_layer_norm, 'launches'),
            ('layer_norm_bwd', fused_layer_norm, 'bwd_launches'),
            ('paged_attention', paged_attention, 'launches'),
@@ -26,7 +27,8 @@ def launch_counters():
            ('batch_norm_bwd_gy_copies', fused_batch_norm_train,
             'bwd_gy_copies'),
            ('kv_write', kv_write, 'launches'),
-           ('keep_mask', keep_mask, 'launches')]
+           ('keep_mask', keep_mask, 'launches'),
+           ('sparse_rows', sparse_rows, 'launches')]
     for name, fn in (('flash_attention_fwd', fa.flash_fwd_cuda),
                      ('flash_attention_bwd_dkv', fa.flash_bwd_dkv_cuda),
                      ('flash_attention_bwd_dq', fa.flash_bwd_dq_cuda)):

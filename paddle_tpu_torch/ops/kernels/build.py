@@ -22,7 +22,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.dirname(
 CSRC = os.path.join(_PKG, 'csrc')
 BUILD_DIR = os.path.join(_PKG, '_build')
 SOURCES = ('layer_norm.cu', 'paged_attention.cu', 'flash_attention.cu',
-           'batch_norm.cu', 'kv_write.cu', 'random_bits.cu')
+           'batch_norm.cu', 'kv_write.cu', 'random_bits.cu',
+           'sparse_rows.cu')
 HEADERS = ('common.cuh', 'flash_tiles.cuh')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
@@ -162,6 +163,9 @@ def library():
             lib.ptt_keep_mask.argtypes = [p, ll, i, ctypes.c_uint, p,
                                           ctypes.c_ulonglong, p]
             lib.ptt_keep_mask.restype = i
+            lib.ptt_sparse_rows.argtypes = [i, i] + [p] * 9 + [
+                ll, ll, i, f, f, i, f, f, f, f, p]
+            lib.ptt_sparse_rows.restype = i
             _loaded['lib'] = lib
         return lib
 

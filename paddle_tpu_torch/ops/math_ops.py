@@ -1,7 +1,7 @@
 """Math ops the training and inference paths run: mul, matmul,
-elementwise, scale, reduce_sum, mean and the comparisons equal and
-less_than (reference: paddle_tpu ops/math_ops.py; fluid's mul_op,
-matmul_op, elementwise_*_op, scale_op, reduce_op, mean_op,
+elementwise, scale, reduce_sum, mean, cos_sim and the comparisons equal
+and less_than (reference: paddle_tpu ops/math_ops.py; fluid's mul_op,
+matmul_op, elementwise_*_op, scale_op, reduce_op, mean_op, cos_sim_op,
 compare_op).
 
 A plain matrix product goes to ``torch.matmul``, as the JAX package leaves
@@ -113,6 +113,21 @@ def _scale(ctx):
     else:
         out = (x + bias) * scale
     ctx.set_output('Out', out.to(x.dtype))
+
+
+@register('cos_sim')
+def _cos_sim(ctx):
+    """Row-wise cosine similarity over the last axis, with the reference's
+    1e-12 in the denominator (paddle_tpu ops/math_ops.py cos_sim); XNorm
+    and YNorm are the rows' L2 norms."""
+    x = ctx.input('X')
+    y = ctx.input('Y')
+    xn = torch.sqrt(torch.sum(x * x, dim=-1, keepdim=True))
+    yn = torch.sqrt(torch.sum(y * y, dim=-1, keepdim=True))
+    out = torch.sum(x * y, dim=-1, keepdim=True) / (xn * yn + 1e-12)
+    ctx.set_output('Out', out)
+    ctx.set_output('XNorm', xn)
+    ctx.set_output('YNorm', yn)
 
 
 def _register_compare(name, fn):

@@ -6,20 +6,33 @@ cross_entropy_op, accuracy_op, square_error_cost)."""
 
 import torch
 
+from ..core.backward import SPARSE_SEED_PREFIX
 from ..core.registry import op_key, register
 from .kernels import random_bits
 
 
 @register('lookup_table')
 def _lookup_table(ctx):
-    """Dense embedding lookup; its gradient is a dense [vocab, dim] table
-    gradient. Rows looked up at padding_idx give 0 and pass no gradient,
-    as in the reference (the output is masked after the gather)."""
+    """Embedding lookup (lookup_table_op.cc). Rows looked up at
+    padding_idx give 0 and pass no gradient, as in the reference (the
+    output is masked after the gather).
+
+    Row-sparse gradients (reference: paddle_tpu ops/nn_ops.py
+    lookup_table): when the executor planted a zero row seed for this
+    lookup's output (an is_sparse table under an update that takes row
+    gradients, core/backward.py), the table is no autograd leaf and the
+    seed, [n_ids, dim], is added to the gathered rows: the seed's gradient
+    is the row gradient, and no [vocab, dim] gradient is made. The padding
+    mask applies after the seed, so padding rows' row gradients are 0 as
+    the dense gradient's rows are."""
     w = ctx.input('W')
     ids = ctx.input('Ids')
     if ids.dim() >= 2 and ids.shape[-1] == 1:
         ids = ids.squeeze(-1)
+    seed = ctx.env.get(SPARSE_SEED_PREFIX + ctx.op.output('Out'))
     out = torch.nn.functional.embedding(ids.long(), w)
+    if seed is not None:
+        out = out + seed.reshape(out.shape)
     padding_idx = ctx.attr('padding_idx', -1)
     if padding_idx is not None and padding_idx >= 0:
         out = out * (ids != padding_idx).unsqueeze(-1).to(out.dtype)

@@ -1,5 +1,6 @@
 """Optimizers (reference: paddle_tpu optimizer.py;
-python/paddle/fluid/optimizer.py): Optimizer, SGD, Momentum and Adam.
+python/paddle/fluid/optimizer.py): SGD, Momentum, Adagrad, Adam, Adamax,
+DecayedAdagrad, Adadelta, RMSProp, Ftrl and ProximalAdagrad.
 
 minimize() appends, in the reference's order, the backward marker, the
 gradient clips (clip.py: a parameter's ``gradient_clip_attr`` or the
@@ -8,7 +9,13 @@ parameter's ``regularizer`` or the optimizer's ``regularization``) and
 one update op per parameter; the Executor runs the ops after the marker
 in place once the gradients exist. The learning rate is a float or a
 Variable (a learning_rate_decay schedule), read as a device tensor.
-Row-sparse updates (``lazy_mode``) are not ported and raise.
+
+Row-sparse embedding gradients: SGD and Adagrad take them (exact against
+the dense update), and Momentum and Adam with ``lazy_mode=True`` (touched
+rows only); an ``is_sparse`` table that is eligible (core/backward.py) then
+gets [n_ids, dim] row gradients, unless the optimizer has a
+``regularization``. Accumulator names are the reference's, so checkpoints
+cross between the packages both ways.
 """
 
 from .clip import append_gradient_clip_ops
@@ -20,11 +27,13 @@ from .initializer import Constant
 from .layers.helper import LayerHelper
 from .regularizer import append_regularization_ops
 
-__all__ = ['SGD', 'Momentum', 'Adam', 'SGDOptimizer', 'MomentumOptimizer',
-           'AdamOptimizer', 'Optimizer']
-
 
 class Optimizer(object):
+    # True on optimizers whose update op consumes row-sparse embedding
+    # gradients (ops/optimizer_ops.py's sparse branches): SGD and Adagrad,
+    # and Momentum and Adam with lazy_mode
+    _supports_sparse_update = False
+
     def __init__(self, learning_rate, regularization=None, name=None):
         if not isinstance(learning_rate, (float, Variable)):
             raise TypeError('learning_rate must be float or Variable')
@@ -109,27 +118,44 @@ class Optimizer(object):
         self._finish_update(block)
         return optimize_ops
 
-    def minimize(self, loss, startup_program=None, parameter_list=None,
-                 no_grad_set=None):
-        """Append backward + update ops to the loss's program (and their
-        initializers to its startup program). Returns (optimize_ops,
-        params_grads)."""
+    def _minimize_prologue(self, loss, startup_program, parameter_list,
+                           no_grad_set):
+        """The front half of minimize: resolve the programs, append the
+        backward, clip and regularization ops. Returns (main_program,
+        startup_program, params_grads)."""
         main_program = loss.block.program
         if startup_program is None:
             startup_program = main_program._startup_ref or \
                 default_startup_program()
         with program_guard(main_program, startup_program):
-            params_grads = append_backward(loss, parameter_list,
-                                           no_grad_set)
+            # optimizer-level regularization applies to every parameter
+            # and is written against the dense gradient: sparse goes off
+            params_grads = append_backward(
+                loss, parameter_list, no_grad_set,
+                sparse_supported=(self._supports_sparse_update and
+                                  self.regularization is None))
             params_grads = append_gradient_clip_ops(params_grads)
             params_grads = append_regularization_ops(params_grads,
                                                      self.regularization)
+        return main_program, startup_program, params_grads
+
+    def minimize(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None):
+        """Append backward + update ops to the loss's program (and their
+        initializers to its startup program). Returns (optimize_ops,
+        params_grads)."""
+        main_program, startup_program, params_grads = \
+            self._minimize_prologue(loss, startup_program, parameter_list,
+                                    no_grad_set)
+        with program_guard(main_program, startup_program):
             optimize_ops = self._create_optimization_pass(
                 params_grads, loss, startup_program)
         return optimize_ops, params_grads
 
 
 class SGDOptimizer(Optimizer):
+    _supports_sparse_update = True
+
     def _append_optimize_op(self, block, param_and_grad):
         param, grad = param_and_grad
         return block.append_op(
@@ -144,16 +170,16 @@ class MomentumOptimizer(Optimizer):
 
     def __init__(self, learning_rate, momentum, use_nesterov=False,
                  lazy_mode=False, **kwargs):
-        """Dense momentum, one velocity accumulator a parameter set to 0 by
-        the startup program. ``lazy_mode`` (the JAX package's row-sparse
-        update) is not ported and raises."""
-        if lazy_mode:
-            raise NotImplementedError(
-                'MomentumOptimizer(lazy_mode=True) needs row-sparse '
-                'gradients, which paddle_tpu_torch does not port')
+        """One velocity accumulator a parameter, set to 0 by the startup
+        program. ``lazy_mode=True``: row-sparse embedding gradients update
+        the parameter and velocity only on the rows touched this step
+        (untouched rows skip the mu-decay dense momentum applies), as the
+        reference's lazy mode does."""
         super(MomentumOptimizer, self).__init__(learning_rate, **kwargs)
         self._momentum = momentum
         self._use_nesterov = use_nesterov
+        if lazy_mode:
+            self._supports_sparse_update = True
 
     def _create_accumulators(self, block, parameters):
         for p in parameters:
@@ -172,38 +198,41 @@ class MomentumOptimizer(Optimizer):
                    'use_nesterov': self._use_nesterov})
 
 
+def _beta_pow_var(name, beta):
+    """A persistable [1] float32 beta-power accumulator starting at beta."""
+    var = default_main_program().global_block().create_var(
+        name=unique_name.generate(name), shape=(1,),
+        dtype='float32', persistable=True)
+    var.stop_gradient = True
+    Constant(beta)(var)
+    return var
+
+
 class AdamOptimizer(Optimizer):
     _moment1_acc_str = 'moment1'
     _moment2_acc_str = 'moment2'
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, lazy_mode=False, **kwargs):
-        """Dense Adam. ``lazy_mode`` (the JAX package's row-sparse
-        embedding update) is not ported and raises."""
-        if lazy_mode:
-            raise NotImplementedError(
-                'AdamOptimizer(lazy_mode=True) needs row-sparse gradients, '
-                'which paddle_tpu_torch does not port')
+        """``lazy_mode=True``: row-sparse embedding gradients take the
+        lazy-Adam path, moments decaying and the parameter moving only on
+        the rows touched this step (the reference's lazy mode; dense Adam
+        decays every row every step)."""
         super(AdamOptimizer, self).__init__(learning_rate, **kwargs)
         self._beta1 = beta1
         self._beta2 = beta2
         self._epsilon = epsilon
         self._beta1_pow = None
         self._beta2_pow = None
+        if lazy_mode:
+            self._supports_sparse_update = True
 
     def _create_accumulators(self, block, parameters):
         for p in parameters:
             self._add_accumulator(self._moment1_acc_str, p)
             self._add_accumulator(self._moment2_acc_str, p)
-        main = default_main_program().global_block()
-        for attr, beta in (('_beta1_pow', self._beta1),
-                           ('_beta2_pow', self._beta2)):
-            var = main.create_var(
-                name=unique_name.generate(attr[1:] + '_acc'), shape=(1,),
-                dtype='float32', persistable=True)
-            var.stop_gradient = True
-            Constant(beta)(var)
-            setattr(self, attr, var)
+        self._beta1_pow = _beta_pow_var('beta1_pow_acc', self._beta1)
+        self._beta2_pow = _beta_pow_var('beta2_pow_acc', self._beta2)
 
     def _append_optimize_op(self, block, param_and_grad):
         param, grad = param_and_grad
@@ -231,6 +260,217 @@ class AdamOptimizer(Optimizer):
             attrs={'beta1': self._beta1, 'beta2': self._beta2})
 
 
+class AdagradOptimizer(Optimizer):
+    """m += g²; p -= lr·g / (sqrt(m) + eps). Takes row-sparse gradients
+    exactly (duplicate ids merged first)."""
+    _supports_sparse_update = True
+    _moment_acc_str = 'moment'
+
+    def __init__(self, learning_rate, epsilon=1e-6, **kwargs):
+        super(AdagradOptimizer, self).__init__(learning_rate, **kwargs)
+        self._epsilon = epsilon
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator(self._moment_acc_str, p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        param, grad = param_and_grad
+        moment = self._get_accumulator(self._moment_acc_str, param)
+        return block.append_op(
+            type='adagrad',
+            inputs={'Param': [param], 'Grad': [grad], 'Moment': [moment],
+                    'LearningRate': [self._create_param_lr(param_and_grad)]},
+            outputs={'ParamOut': [param], 'MomentOut': [moment]},
+            attrs={'epsilon': self._epsilon})
+
+
+class AdamaxOptimizer(Optimizer):
+    _moment_acc_str = 'moment'
+    _inf_norm_acc_str = 'inf_norm'
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, **kwargs):
+        super(AdamaxOptimizer, self).__init__(learning_rate, **kwargs)
+        self._beta1 = beta1
+        self._beta2 = beta2
+        self._epsilon = epsilon
+        self._beta1_pow = None
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator(self._moment_acc_str, p)
+            self._add_accumulator(self._inf_norm_acc_str, p)
+        self._beta1_pow = _beta_pow_var('beta1_pow_acc', self._beta1)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        param, grad = param_and_grad
+        moment = self._get_accumulator(self._moment_acc_str, param)
+        inf_norm = self._get_accumulator(self._inf_norm_acc_str, param)
+        return block.append_op(
+            type='adamax',
+            inputs={'Param': [param], 'Grad': [grad], 'Moment': [moment],
+                    'InfNorm': [inf_norm],
+                    'Beta1Pow': [self._beta1_pow],
+                    'LearningRate': [self._create_param_lr(param_and_grad)]},
+            outputs={'ParamOut': [param], 'MomentOut': [moment],
+                     'InfNormOut': [inf_norm]},
+            attrs={'beta1': self._beta1, 'beta2': self._beta2,
+                   'epsilon': self._epsilon})
+
+    def _finish_update(self, block):
+        block.append_op(type='beta_pow_update',
+                        inputs={'BetaPow': [self._beta1_pow]},
+                        outputs={'BetaPowOut': [self._beta1_pow]},
+                        attrs={'beta': self._beta1})
+
+
+class DecayedAdagradOptimizer(Optimizer):
+    _moment_acc_str = 'moment'
+
+    def __init__(self, learning_rate, decay=0.95, epsilon=1e-6, **kwargs):
+        super(DecayedAdagradOptimizer, self).__init__(learning_rate,
+                                                      **kwargs)
+        self._decay = decay
+        self._epsilon = epsilon
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator(self._moment_acc_str, p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        param, grad = param_and_grad
+        moment = self._get_accumulator(self._moment_acc_str, param)
+        return block.append_op(
+            type='decayed_adagrad',
+            inputs={'Param': [param], 'Grad': [grad], 'Moment': [moment],
+                    'LearningRate': [self._create_param_lr(param_and_grad)]},
+            outputs={'ParamOut': [param], 'MomentOut': [moment]},
+            attrs={'decay': self._decay, 'epsilon': self._epsilon})
+
+
+class AdadeltaOptimizer(Optimizer):
+    _avg_squared_grad_acc_str = '_avg_squared_grad'
+    _avg_squared_update_acc_str = '_avg_squared_update'
+
+    def __init__(self, learning_rate, epsilon=1e-6, rho=0.95, **kwargs):
+        super(AdadeltaOptimizer, self).__init__(learning_rate, **kwargs)
+        self._epsilon = epsilon
+        self._rho = rho
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator(self._avg_squared_grad_acc_str, p)
+            self._add_accumulator(self._avg_squared_update_acc_str, p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        param, grad = param_and_grad
+        asg = self._get_accumulator(self._avg_squared_grad_acc_str, param)
+        asu = self._get_accumulator(self._avg_squared_update_acc_str, param)
+        return block.append_op(
+            type='adadelta',
+            inputs={'Param': [param], 'Grad': [grad],
+                    'AvgSquaredGrad': [asg], 'AvgSquaredUpdate': [asu]},
+            outputs={'ParamOut': [param], 'AvgSquaredGradOut': [asg],
+                     'AvgSquaredUpdateOut': [asu]},
+            attrs={'epsilon': self._epsilon, 'rho': self._rho})
+
+
+class RMSPropOptimizer(Optimizer):
+    _momentum_acc_str = 'momentum'
+    _mean_square_acc_str = 'mean_square'
+
+    def __init__(self, learning_rate, rho=0.95, epsilon=1e-6, momentum=0.0,
+                 **kwargs):
+        super(RMSPropOptimizer, self).__init__(learning_rate, **kwargs)
+        self._rho = rho
+        self._epsilon = epsilon
+        self._momentum = momentum
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator(self._momentum_acc_str, p)
+            self._add_accumulator(self._mean_square_acc_str, p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        param, grad = param_and_grad
+        momentum = self._get_accumulator(self._momentum_acc_str, param)
+        mean_square = self._get_accumulator(self._mean_square_acc_str, param)
+        return block.append_op(
+            type='rmsprop',
+            inputs={'Param': [param], 'Grad': [grad],
+                    'Moment': [momentum], 'MeanSquare': [mean_square],
+                    'LearningRate': [self._create_param_lr(param_and_grad)]},
+            outputs={'ParamOut': [param], 'MomentOut': [momentum],
+                     'MeanSquareOut': [mean_square]},
+            attrs={'epsilon': self._epsilon, 'decay': self._rho,
+                   'momentum': self._momentum})
+
+
+class FtrlOptimizer(Optimizer):
+    _squared_acc_str = 'squared'
+    _linear_acc_str = 'linear'
+
+    def __init__(self, learning_rate, l1=0.0, l2=0.0, lr_power=-0.5,
+                 **kwargs):
+        super(FtrlOptimizer, self).__init__(learning_rate, **kwargs)
+        self._l1 = l1
+        self._l2 = l2
+        self._lr_power = lr_power
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator(self._squared_acc_str, p)
+            self._add_accumulator(self._linear_acc_str, p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        param, grad = param_and_grad
+        sq = self._get_accumulator(self._squared_acc_str, param)
+        lin = self._get_accumulator(self._linear_acc_str, param)
+        return block.append_op(
+            type='ftrl',
+            inputs={'Param': [param], 'Grad': [grad],
+                    'SquaredAccumulator': [sq], 'LinearAccumulator': [lin],
+                    'LearningRate': [self._create_param_lr(param_and_grad)]},
+            outputs={'ParamOut': [param], 'SquaredAccumOut': [sq],
+                     'LinearAccumOut': [lin]},
+            attrs={'l1': self._l1, 'l2': self._l2,
+                   'lr_power': self._lr_power})
+
+
+class ProximalAdagradOptimizer(Optimizer):
+    """Adagrad with the proximal l1/l2 operator
+    (proximal_adagrad_op.{cc,h})."""
+    _moment_acc_str = 'moment'
+
+    def __init__(self, learning_rate, l1=0.0, l2=0.0, **kwargs):
+        super(ProximalAdagradOptimizer, self).__init__(learning_rate,
+                                                       **kwargs)
+        self._l1 = l1
+        self._l2 = l2
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator(self._moment_acc_str, p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        param, grad = param_and_grad
+        moment = self._get_accumulator(self._moment_acc_str, param)
+        return block.append_op(
+            type='proximal_adagrad',
+            inputs={'Param': [param], 'Grad': [grad], 'Moment': [moment],
+                    'LearningRate': [self._create_param_lr(param_and_grad)]},
+            outputs={'ParamOut': [param], 'MomentOut': [moment]},
+            attrs={'l1': self._l1, 'l2': self._l2})
+
+
 SGD = SGDOptimizer
 Momentum = MomentumOptimizer
+Adagrad = AdagradOptimizer
 Adam = AdamOptimizer
+Adamax = AdamaxOptimizer
+DecayedAdagrad = DecayedAdagradOptimizer
+Adadelta = AdadeltaOptimizer
+RMSProp = RMSPropOptimizer
+Ftrl = FtrlOptimizer
+ProximalAdagrad = ProximalAdagradOptimizer

@@ -1745,3 +1745,101 @@ def test_kv_packet_round_trip_on_the_card(cuda, kv_dtype):
     for eng in (src, dst, host):
         eng.shutdown()
         assert eng.free_pages() == eng.num_blocks
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('dim', [1, 16])
+@pytest.mark.parametrize('kind', ['sgd', 'adagrad', 'momentum', 'adam'])
+def test_sparse_rows_kernel_matches_plain(cuda, kind, dim, dtype):
+    """The row-sparse update kernel against its plain version on the card,
+    bit for bit: both sum a run's rows in sorted order and apply the same
+    correctly rounded fp32 operations. Zipf ids (long runs of one id), ids
+    past the table (dropped) and one launch a call."""
+    from paddle_tpu_torch.ops.kernels import sparse_rows as S
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    rng = np.random.RandomState(dim)
+    vocab, n = 5000, 2048
+    ids = (rng.zipf(1.1, n) - 1) % vocab
+    ids[:3] = vocab + 1
+    flat = torch.from_numpy(ids.astype('int64')).to(cuda)
+    rows = torch.randn(n, dim, generator=gen, device=cuda).to(dtype)
+    p = torch.randn(vocab, dim, generator=gen, device=cuda).to(dtype)
+    state = [torch.rand(vocab, dim, generator=gen, device=cuda).to(dtype)
+             for _ in range(S.N_STATE[kind])]
+    lr = torch.tensor([0.05], device=cuda)
+    pows = (torch.tensor([0.9 ** 4], device=cuda),
+            torch.tensor([0.999 ** 4], device=cuda)) if kind == 'adam' else ()
+    sids, order = S.sort_ids(flat)
+    outs = []
+    for fn in (S.sparse_rows_reference, S.sparse_rows):
+        pp, ss = p.clone(), [s.clone() for s in state]
+        before = S.sparse_rows.launches
+        fn(kind, pp, rows, sids, order, lr, ss, pows)
+        assert S.sparse_rows.launches - before == (fn is S.sparse_rows)
+        outs.append([pp] + ss)
+    torch.cuda.synchronize()
+    for got, want in zip(*outs):
+        assert torch.equal(got, want)
+    touched = torch.zeros(vocab, dtype=torch.bool, device=cuda)
+    touched[flat[flat < vocab]] = True
+    assert torch.equal(outs[1][0][~touched], p[~touched])
+    assert not torch.equal(outs[1][0][touched], p[touched])
+
+
+def test_captured_wide_deep_step_uses_the_kernel_and_equals_eager(cuda):
+    """Wide&Deep (4 slots x 1,000 rows, batch 256) under lazy Adam: every
+    table's update is one sparse_rows launch a step, captured steps equal
+    eager ones bit for bit, and the card agrees with the host."""
+    from paddle_tpu_torch.models import wide_deep as W
+    from paddle_tpu_torch.ops.kernels import sparse_rows as S
+
+    def build():
+        pt.reset_default_programs()
+        main, startup = pt.Program(), pt.Program()
+        with pt.program_guard(main, startup):
+            _, cost, _, _ = W.build(num_slots=4, vocab_size=1000)
+            pt.optimizer.Adam(1e-3, lazy_mode=True).minimize(cost)
+        return main, startup, cost
+
+    rng = np.random.RandomState(0)
+    feeds = []
+    for _ in range(3):
+        f = {'C%d' % i: ((rng.zipf(1.2, (256, 1)) - 1) % 1000)
+             .astype('int64') for i in range(4)}
+        f['dense'] = rng.rand(256, 13).astype('f')
+        f['label'] = rng.randint(0, 2, (256, 1)).astype('int64')
+        feeds.append(f)
+    main, startup, cost = build()
+    names = [v.name for v in main.list_vars()
+             if v.persistable and not v.is_data]
+    host_scope = pt.Scope()
+    with pt.scope_guard(host_scope):
+        pt.Executor(pt.CPUPlace()).run(startup)
+    results = {}
+    for mode in ('eager', 'captured', 'host'):
+        scope = pt.Scope()
+        place = pt.CPUPlace() if mode == 'host' else pt.CUDAPlace(0)
+        exe = pt.Executor(place)
+        dev = place.device()
+        for n in names:
+            scope.set(n, host_scope.find(n).clone().to(dev))
+        before = S.sparse_rows.launches
+        losses = []
+        with pt.scope_guard(scope):
+            for f in feeds:
+                loss, = exe.run(main, feed=f, fetch_list=[cost],
+                                use_program_cache=mode == 'captured')
+                losses.append(float(loss.reshape(())))
+        if mode == 'captured':
+            assert exe.last_captured
+        if mode != 'host':
+            assert S.sparse_rows.launches - before == 3 * 8
+        results[mode] = (losses, {n: scope.find(n).cpu() for n in names})
+    assert results['eager'][0] == results['captured'][0]
+    for n in names:
+        assert torch.equal(results['eager'][1][n], results['captured'][1][n])
+        torch.testing.assert_close(results['captured'][1][n],
+                                   results['host'][1][n], rtol=1e-5,
+                                   atol=2e-7)
+    np.testing.assert_allclose(results['captured'][0], results['host'][0],
+                               rtol=1e-5)

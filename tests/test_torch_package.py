@@ -50,8 +50,19 @@ SLICE_MODULES = ['observe', 'observe.registry', 'observe.flight',
                  'serving.decode.kv_pool']
 
 
-@pytest.mark.parametrize('module', SLICE_MODULES)
-def test_slice_modules_import_no_jax_and_no_reference(module):
+# the Wide&Deep CTR slice's modules (row-sparse gradients, the sparse_rows
+# kernel, the optimizer set, the embedding models and the CTR dataset)
+CTR_SLICE_MODULES = ['core.backward', 'core.executor', 'core.program',
+                     'layers.nn', 'ops.nn_ops', 'ops.math_ops',
+                     'ops.optimizer_ops', 'ops.kernels.sparse_rows',
+                     'optimizer', 'models.wide_deep', 'models.recommender',
+                     'models.word2vec', 'dataset', 'dataset.common',
+                     'dataset.ctr']
+
+
+def _forbidden_imports(module):
+    """The import statements of a port module (read with ast) that name
+    jax or paddle_tpu."""
     import ast
     import importlib
     mod = importlib.import_module('paddle_tpu_torch.' + module)
@@ -63,8 +74,19 @@ def test_slice_modules_import_no_jax_and_no_reference(module):
             names += [a.name for a in node.names]
         elif isinstance(node, ast.ImportFrom):
             names.append('.' * node.level + (node.module or ''))
-    bad = [n for n in names if n.split('.')[0] in ('jax', 'jaxlib',
-                                                   'paddle_tpu')]
+    return [n for n in names if n.split('.')[0] in ('jax', 'jaxlib',
+                                                    'paddle_tpu')]
+
+
+@pytest.mark.parametrize('module', SLICE_MODULES)
+def test_slice_modules_import_no_jax_and_no_reference(module):
+    bad = _forbidden_imports(module)
+    assert not bad, bad
+
+
+@pytest.mark.parametrize('module', CTR_SLICE_MODULES)
+def test_ctr_slice_modules_import_no_jax_and_no_reference(module):
+    bad = _forbidden_imports(module)
     assert not bad, bad
 
 
@@ -165,6 +187,21 @@ def test_non_cpu_tensor_never_takes_the_plain_version():
     with pytest.raises(RuntimeError):
         tln.fused_layer_norm(x, g, g)
     assert tln.fused_layer_norm.launches == before
+
+
+def test_sparse_rows_never_takes_the_plain_version_off_the_host():
+    """The row-sparse update's wrapper on a non-CPU tensor goes to the
+    kernel, which raises without a card; no launch is counted and the
+    table is not updated through the plain version."""
+    _no_card()
+    from paddle_tpu_torch.ops.kernels import sparse_rows as S
+    p = torch.empty(10, 4, device='meta')
+    ids = torch.empty(6, dtype=torch.int64, device='meta')
+    before = S.sparse_rows.launches
+    with pytest.raises(RuntimeError):
+        S.sparse_rows('sgd', p, torch.empty(6, 4, device='meta'), ids, ids,
+                      torch.empty(1, device='meta'))
+    assert S.sparse_rows.launches == before
 
 
 def test_feeds_and_fetches_cross_the_host_boundary():

@@ -327,7 +327,8 @@ def _run_pair(build, feed, steps, startup_feed):
 def test_momentum_cross_entropy_and_accuracy_match_reference(nesterov):
     """fc + softmax + cross_entropy under Momentum for 3 steps from the
     same weights: the loss, top-2 accuracy with its counts, the weights
-    and the velocity agree (fp32, 1e-5). lazy_mode raises."""
+    and the velocity agree (fp32, 1e-5). lazy_mode turns the row-sparse
+    update on, as the reference's does."""
     rng = np.random.RandomState(2)
     w0 = rng.randn(6, 5).astype('float32')
 
@@ -351,9 +352,12 @@ def test_momentum_cross_entropy_and_accuracy_match_reference(nesterov):
         np.testing.assert_allclose(g.astype('float32'), r.astype('float32'),
                                    rtol=1e-5, atol=1e-6)
     assert np.abs(ref[3] - w0).min() > 1e-4          # every weight moved
-    with pytest.raises(NotImplementedError):          # row-sparse: not ported
-        pt.optimizer.Momentum(learning_rate=0.1, momentum=0.9,
-                              lazy_mode=True)
+    for pkg in (fluid, pt):                           # row-sparse updates
+        lazy = pkg.optimizer.Momentum(learning_rate=0.1, momentum=0.9,
+                                      lazy_mode=True)
+        dense = pkg.optimizer.Momentum(learning_rate=0.1, momentum=0.9)
+        assert lazy._supports_sparse_update
+        assert not dense._supports_sparse_update
 
 
 class _FakeOp(object):
