@@ -68,10 +68,13 @@ Phases (any fault exits non-zero; no phase is skipped over):
    head-split views): causal Tq = Tk = t and cross-attention Tq = t
    against Tk = 64 with kv_len 16-64, t in {1, 7, 16, 31}, fp32 and bf16,
    against both plain versions, beside SDPA and the bound. The
-   row-sparse update (sparse_rows) at Wide&Deep's width: one table of
-   1,000,000 rows, 4,096 ids from a Zipf(1.1) law, dim 16 and dim 1, for
-   SGD, Adagrad, lazy Momentum and lazy Adam, bit for bit with its plain
-   version; index_add_ (one atomic scatter-add) beside SGD's.
+   row-sparse update (sparse_rows, grouped) at Wide&Deep's width for SGD,
+   Adagrad, lazy Momentum and lazy Adam, bit for bit with its plain
+   version: one table of 1,000,000 rows, 4,096 ids from a Zipf(1.1) law,
+   at dim 16 and dim 1 (and on the host); the step's 52 tables (26 of
+   each width) in one launch; the large-n variant (two tables of 65,536
+   ids: sorted on the device, then the presorted launch); index_add_ on
+   each table (atomic scatter-adds) beside SGD's.
 4. Engine: DecodeEngine at the documented serving configuration
    (docs/serving.md: vocab 32000, 12 layers, 8 heads, d_model 512,
    d_inner 2048; max_batch 16, block 32, 4096 pages, 64 pages a
@@ -222,7 +225,8 @@ Phases (any fault exits non-zero; no phase is skipped over):
    and 20 timed steps with every launch count at 0 before: ms a step,
    examples/s, one eager step's peak memory above the resident state
    (checked under one deep table's bytes, 64 MB: no table-sized
-   gradient) and the leg's, sparse_rows launches a step (checked: 52).
+   gradient) and the leg's, sparse_rows launches and tables a step
+   (checked: 1 launch for the 52 tables).
    Checks: all 52 tables row-sparse, rows never fed unchanged bit for
    bit, a second run from the same state and 3 captured against 3 eager
    steps bit for bit. Then SGD again with every table's sparse_grad off
@@ -249,7 +253,9 @@ verify steps (k = 3), Transformer (unrolled and scan_layers) and
 ResNet-50 training steps (captured and eager): wall, device busy time and
 share, host launches (kernels and graphs) a step; then phase 12's calls
 (captured; eager at fp32 for the one-query attention's spans) by family;
-then phase 15's Wide&Deep SGD step, row-sparse and dense (captured).
+then each phase-15 Wide&Deep leg's step: the four row-sparse legs
+(checked: no sort kernel in them) and SGD with dense gradients
+(captured).
 --kernels-only stops after phase 3 (no verdict line). kernel_times.py
 times K1, K4, K2, K3 and K5 and the backward kernels of any checkout of
 this repository at phase 3's shapes.
@@ -411,7 +417,7 @@ def phase_build():
                    'flash_bwd_dq_wide_kernel', 'bn_train_kernel',
                    'bn_bwd_kernel', 'ln_warp_kernel', 'ln_bwd_rows_kernel',
                    'ln_bwd_cols_kernel', 'kv_write_kernel',
-                   'keep_mask_kernel', 'sparse_rows_kernel'):
+                   'keep_mask_kernel', 'sparse_rows_group_kernel'):
         require(kernel in res.log, 'ptxas\'s log does not show %s' % kernel)
     print('  flash attention dynamic shared memory at D=64: tensor-core '
           'forward %d B, SIMT forward %d B, SIMT dK/dV %d B, SIMT dQ %d B, '
@@ -1549,84 +1555,142 @@ def zipf_ids(rng, shape, rows, a=1.1):
     return ((rng.zipf(a, shape) - 1) % rows).astype('int64')
 
 
-def _sparse_case(torch, card, kind, dim, gen, rng, rows=CTR_ROWS,
-                 n=CTR_BATCH):
-    """The sparse_rows kernel against sparse_rows_reference, bit for bit,
-    at one full-width table's step (Zipf ids), and its times beside its
-    bound; for sgd also index_add_ (the same update as one atomic
-    scatter-add) as the library call."""
+def _sparse_tables(torch, S, kind, shapes, gen, rng):
+    """SparseTables on the card, one a (rows, dim, n) of ``shapes``: a
+    table, its accumulators, n Zipf ids (each table its own draw) and
+    gradient rows."""
+    dev = torch.device('cuda', 0)
+    out = []
+    for rows, dim, n in shapes:
+        out.append(S.SparseTable(
+            torch.randn(rows, dim, generator=gen, device=dev),
+            torch.randn(n, dim, generator=gen, device=dev),
+            torch.from_numpy(zipf_ids(rng, n, rows)).to(dev),
+            [torch.rand(rows, dim, generator=gen, device=dev)
+             for _ in range(S.N_STATE[kind])],
+            [torch.tensor([0.9 ** 5], device=dev),
+             torch.tensor([0.999 ** 5], device=dev)] if kind == 'adam'
+            else []))
+    return out
+
+
+def _copies(tables):
+    return [t._replace(param=t.param.clone(),
+                       state=tuple(s.clone() for s in t.state))
+            for t in tables]
+
+
+def _sparse_case(torch, card, label, kind, shapes, launches, gen, rng,
+                 host=False):
+    """The grouped row-sparse kernel against its plain version, bit for
+    bit, on ``shapes`` (Zipf ids), in ``launches`` launches, and its times
+    beside its bound; for sgd also index_add_ on each table (the same
+    update as atomic scatter-adds) as the library's time; with ``host``
+    the plain version on the host too."""
     from paddle_tpu_torch.ops.kernels import sparse_rows as S
     dev = torch.device('cuda', 0)
-    flat = torch.from_numpy(zipf_ids(rng, n, rows)).to(dev)
-    grad = torch.randn(n, dim, generator=gen, device=dev)
-    table = torch.randn(rows, dim, generator=gen, device=dev)
-    state = [torch.rand(rows, dim, generator=gen, device=dev)
-             for _ in range(S.N_STATE[kind])]
+    tables = _sparse_tables(torch, S, kind, shapes, gen, rng)
     lr = torch.tensor([0.05], device=dev)
-    pows = (torch.tensor([0.9 ** 5], device=dev),
-            torch.tensor([0.999 ** 5], device=dev)) if kind == 'adam' else ()
-    sids, order = S.sort_ids(flat)
-    outs = []
-    for fn in (S.sparse_rows_reference, S.sparse_rows):
-        t, st = table.clone(), [s.clone() for s in state]
-        fn(kind, t, grad, sids, order, lr, st, pows)
-        outs.append([t] + st)
-    # the plain version on the host too: every operation correctly
-    # rounded on both sides, so the same bits
-    t, st = table.cpu(), [s.cpu() for s in state]
-    S.sparse_rows_reference(kind, t, grad.cpu(), sids.cpu(), order.cpu(),
-                            lr.cpu(), st, tuple(p.cpu() for p in pows))
-    torch.cuda.synchronize()
-    ok = all(torch.equal(a, b) for a, b in zip(*outs))
-    host_ok = all(torch.equal(a.cpu(), b) for a, b in zip(outs[1], [t] + st))
-    err = max(float((a - b).abs().max()) for a, b in zip(*outs))
-    del outs, t, st
-    uniq = int(torch.unique(flat).numel())
-    longest = int(torch.bincount(flat).max())
-    # each input read once, each output written once: the sorted ids and
-    # the order, the rows, and the touched rows of the table and of each
-    # accumulator read and written
-    n_bytes = 16 * n + 4 * n * dim + 2 * 4 * uniq * dim * (1 + len(state))
-    n_ops = n * dim * 3 + uniq * dim * 12
+    outs, plain = [], None
+    for fn in (S.sparse_rows_grouped_reference, S.sparse_rows_grouped):
+        got = _copies(tables)
+        before = (S.sparse_rows.launches, S.sparse_rows.tables)
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        fn(kind, got, lr)
+        t1.record()
+        torch.cuda.synchronize()
+        if fn is S.sparse_rows_grouped_reference:
+            # one call, timed with events (it reads each run's length on
+            # the host)
+            plain = t0.elapsed_time(t1)
+        else:
+            require((S.sparse_rows.launches - before[0],
+                     S.sparse_rows.tables - before[1]) ==
+                    (launches, len(shapes)), '%s: %d launches for %d '
+                    'tables, want %d' % (label, S.sparse_rows.launches -
+                                         before[0], len(shapes), launches))
+        outs.append(got)
+    ok = all(torch.equal(a.param, b.param) and
+             all(torch.equal(x, y) for x, y in zip(a.state, b.state))
+             for a, b in zip(*outs))
+    err = max(float((a.param - b.param).abs().max()) for a, b in zip(*outs))
+    host_ok = None
+    if host:
+        # every operation correctly rounded on both sides: the same bits
+        cpu = [t._replace(param=t.param.cpu(), rows=t.rows.cpu(),
+                          ids=t.ids.cpu(),
+                          state=tuple(x.cpu() for x in t.state),
+                          beta_pows=tuple(x.cpu() for x in t.beta_pows))
+               for t in tables]
+        S.sparse_rows_grouped_reference(kind, cpu, lr.cpu())
+        host_ok = all(torch.equal(a.param.cpu(), b.param) and
+                      all(torch.equal(x.cpu(), y)
+                          for x, y in zip(a.state, b.state))
+                      for a, b in zip(outs[1], cpu))
+        del cpu
+    del outs
+    uniq = [int(torch.unique(t.ids).numel()) for t in tables]
+    longest = max(int(torch.bincount(t.ids).max()) for t in tables)
+    # each input read once, each output written once: the ids, the rows,
+    # and the touched rows of each table and of its accumulators read and
+    # written
+    n_bytes = sum(8 * n + 4 * n * dim + 2 * 4 * u * dim *
+                  (1 + S.N_STATE[kind])
+                  for (_, dim, n), u in zip(shapes, uniq))
+    n_ops = sum(n * dim * 3 + u * dim * 12
+                for (_, dim, n), u in zip(shapes, uniq))
     lo, by = bound_ms(n_bytes, n_ops)
-    args = (kind, table, grad, sids, order, lr, state, pows)
-    ms = device_ms(torch, lambda: S.sparse_rows(*args))
-    eager = eager_ms(torch, lambda: S.sparse_rows(*args))
-    # the plain version finds each run's length with a host read: timed
-    # eagerly
-    plain = eager_ms(torch, lambda: S.sparse_rows_reference(*args), iters=3,
-                     warmup=1)
+    ms = device_ms(torch, lambda: S.sparse_rows_grouped(kind, tables, lr))
+    eager = eager_ms(torch, lambda: S.sparse_rows_grouped(kind, tables,
+                                                          lr))
     lib = None
     if kind == 'sgd':
-        lib = device_ms(torch, lambda: table.index_add_(0, flat, grad,
-                                                        alpha=-0.05))
-    print('sparse_rows %s dim %d: table [%d, %d] fp32, %d ids (%d distinct, '
-          'longest run %d): bit for bit with its plain version %s, '
-          'max_abs_err %.3g; device ms: kernel %.5f, plain %.5f (eager: host '
-          'reads), bound %.6f (%s), %s; kernel eager %.5f ms; the plain '
-          'version on the host: bit for bit %s [%s]'
-          % (kind, dim, rows, dim, n, uniq, longest,
-             'ok' if ok else 'MISMATCH', err, ms, plain, lo, by,
-             'index_add_ %.5f' % lib if lib is not None else
+        def index_add():
+            for t in tables:
+                t.param.index_add_(0, t.ids, t.rows, alpha=-0.05)
+        lib = device_ms(torch, index_add)
+    print('sparse_rows %s %s: %d table(s) (%s) fp32, %d ids (%d-%d '
+          'distinct a table, longest run %d), %d launch(es): bit for bit '
+          'with its plain version %s, max_abs_err %.3g; device ms: kernel '
+          '%.5f, plain %.5f (one eager call: host reads), bound %.6f (%s), '
+          '%s; kernel eager %.5f ms%s [%s]'
+          % (label, kind, len(shapes),
+             ', '.join(sorted({'[%d, %d]' % (r, d) for r, d, _ in shapes})),
+             sum(n for _, _, n in shapes), min(uniq), max(uniq), longest,
+             launches, 'ok' if ok else 'MISMATCH', err, ms, plain, lo, by,
+             'index_add_ on each table %.5f' % lib if lib is not None else
              'no single PyTorch call', eager,
-             'ok' if host_ok else 'MISMATCH', card))
-    require(ok and host_ok, 'sparse_rows %s dim %d disagrees with its '
-            'plain version' % (kind, dim))
+             '' if host_ok is None else '; the plain version on the host: '
+             'bit for bit %s' % ('ok' if host_ok else 'MISMATCH'), card))
+    require(ok and host_ok is not False, 'sparse_rows %s %s disagrees with '
+            'its plain version' % (label, kind))
     return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=lo,
                 bound_by=by, library_ms=lib, eager_ms=eager)
 
 
 def phase_sparse_kernels(torch, card):
-    """The row-sparse update kernel at Wide&Deep's full width (one table of
-    1,000,000 rows, 4,096 Zipf ids) for each optimizer at dim 16 and dim 1;
-    returns {(kind, dim): numbers}, the kernels line's entry under
-    ('sgd', 16)."""
+    """The row-sparse update kernel at Wide&Deep's full width for each
+    optimizer: one table of 1,000,000 rows at dim 16 and at dim 1 (4,096
+    Zipf ids; checked on the host too), the step's group of 52 tables (26
+    of each width, one launch) and the large-n variant (two tables of
+    65,536 ids: a sort on the device, then the presorted launch). Returns
+    {(label, kind): numbers}; the kernels line's entry is ('group', 'sgd')."""
     gen = torch.Generator(device='cuda').manual_seed(15)
     rng = np.random.RandomState(15)
+    group = [(CTR_ROWS, dim, CTR_BATCH) for dim in CTR_DIMS] * CTR_SLOTS
+    cases = [('one table dim %d' % dim, [(CTR_ROWS, dim, CTR_BATCH)], 1,
+              True) for dim in CTR_DIMS]
+    cases += [('group', group, 1, False),
+              ('large-n', [(CTR_ROWS, dim, 16 * CTR_BATCH)
+                           for dim in CTR_DIMS], 1, False)]
     res = {}
-    for dim in CTR_DIMS:
+    for label, shapes, launches, host in cases:
         for kind in SPARSE_KINDS:
-            res[(kind, dim)] = _sparse_case(torch, card, kind, dim, gen, rng)
+            res[(label, kind)] = _sparse_case(torch, card, label, kind,
+                                              shapes, launches, gen, rng,
+                                              host)
             torch.cuda.empty_cache()
     return res
 
@@ -1778,7 +1842,8 @@ def profile_steps(torch, card, jobs):
     starts, because CUPTI stays attached to the process afterwards and
     slows what follows — then, under torch.profiler, the device busy
     time and share, device time by kernel family and by kernel, and host
-    time by op, a step."""
+    time by op, a step. Returns each job's {family: (launches, us)} over
+    its profiled steps."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     walls = []
@@ -1791,6 +1856,7 @@ def profile_steps(torch, card, jobs):
             step()
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3 / steps)
+    out = []
     for (label, step, steps, release), wall_ms in zip(jobs, walls):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -1857,6 +1923,8 @@ def profile_steps(torch, card, jobs):
                   % (t / steps, c / steps, name[:90]))
         if release is not None:
             release()
+        out.append(families)
+    return out
 
 
 _WEIGHTS = {}
@@ -4219,9 +4287,11 @@ def _ctr_leg(torch, pt, card, on_card, name, opt, slots, rows, batch,
         del snap
     ms = wall / steps * 1e3
     per_step = counts['sparse_rows'] / float(warmup + steps)
+    tables_per_step = counts['sparse_rows_tables'] / float(warmup + steps)
     res = dict(ms_per_step=ms, examples_per_s=batch * steps / wall,
                step_peak_bytes=step_peak, leg_peak_bytes=leg_peak,
                resident_bytes=resident, sparse_rows_per_step=per_step,
+               sparse_rows_tables_per_step=tables_per_step,
                setup_s=setup, first_loss=losses[0], last_loss=losses[-1])
 
     def mb(v):
@@ -4231,16 +4301,19 @@ def _ctr_leg(torch, pt, card, on_card, name, opt, slots, rows, batch,
           'tables row-sparse: %.3f ms/step, %.1f examples/s; resident '
           'state %.3f GB; above it, an eager step peaks %s, the leg '
           '(warm-up, capture, cuBLAS workspaces, timed steps) %s; '
-          'sparse_rows %.2f launches a step; loss %.5f -> %.5f;%s startup '
-          '%.2f s [%s]'
+          'sparse_rows %.2f launches and %.2f tables a step; loss %.5f -> '
+          '%.5f;%s startup %.2f s [%s]'
           % (name, 'sparse' if sparse else 'dense gradients', slots, rows,
              batch, n_sparse, ms, res['examples_per_s'], resident / 1e9,
-             mb(step_peak), mb(leg_peak), per_step, losses[0], losses[-1],
+             mb(step_peak), mb(leg_peak), per_step, tables_per_step,
+             losses[0], losses[-1],
              ' unfed rows unchanged, a second run and 3 eager = 3 captured '
              'steps bit for bit;' if sparse else '', setup, card))
     if on_card and sparse:
-        require(per_step == 2 * slots, 'ctr %s: %.2f sparse_rows launches '
-                'a step, want %d' % (name, per_step, 2 * slots))
+        require(per_step == 1 and tables_per_step == 2 * slots,
+                'ctr %s: %.2f sparse_rows launches and %.2f tables a step, '
+                'want 1 and %d' % (name, per_step, tables_per_step,
+                                   2 * slots))
         limit = rows * 16 * 4
         require(step_peak < limit, 'ctr %s: a step peaks %.1f MB above the '
                 'resident state, over one deep table (%.1f MB)'
@@ -4323,13 +4396,14 @@ def phase_ctr(torch, pt, card, on_card, slots=CTR_SLOTS, rows=CTR_ROWS,
     against the host at 4 slots x 1,000 rows and batch 256 (each
     optimizer, sparse SGD against dense SGD) and the recommender at its
     defaults. Returns ({leg: launch counts}, numbers, --profile jobs:
-    the SGD leg's step, sparse and dense, with ``profile``)."""
+    each leg's step, the four row-sparse legs first, with
+    ``profile``)."""
     feeds = ctr_feeds(warmup + steps, slots, rows, batch, seed=15)
     runs, legs, jobs = {}, {}, []
     for name, opt, _ in CTR_OPTS:
         runs[name], legs[name], job = _ctr_leg(
             torch, pt, card, on_card, name, opt, slots, rows, batch, feeds,
-            warmup, steps, profile=profile and name == 'sgd')
+            warmup, steps, profile=profile)
         jobs += [job] if job else []
         if on_card:
             torch.cuda.empty_cache()
@@ -4607,7 +4681,14 @@ def main():
                                         profile=args.profile)
     done('15 (Wide&Deep CTR)')
     if args.profile:
-        profile_steps(torch, card, ctr_jobs)
+        families = profile_steps(torch, card, ctr_jobs)
+        sorts = [f.get('top-k and sort', (0, 0.0))[0]
+                 for f in families[:len(CTR_OPTS)]]
+        print('profile: Wide&Deep row-sparse steps (%s): %s sort kernels'
+              % (', '.join(n for n, _, _ in CTR_OPTS),
+                 ', '.join(str(c) for c in sorts)))
+        require(not any(sorts), 'a row-sparse CTR step still sorts outside '
+                'the sparse_rows kernel')
     del ctr_jobs
 
     # launches: the sum over the main paths' runs (the engine runs: plain,
@@ -4675,9 +4756,10 @@ def main():
         dict(name='sparse_rows', route='cuda',
              source='paddle_tpu_torch/csrc/sparse_rows.cu',
              replaces='paddle_tpu/ops/optimizer_ops.py:58',
-             launches=runs('sparse_rows'), **sparse[('sgd', 16)]),
+             launches=runs('sparse_rows'), **sparse[('group', 'sgd')]),
     ]
-    ctr.update(kernel={'%s_dim%d' % k: dict(ms=v['ms'], bound_ms=v['bound_ms'])
+    ctr.update(kernel={'%s %s' % k: dict(ms=v['ms'], bound_ms=v['bound_ms'],
+                                         library_ms=v['library_ms'])
                        for k, v in sparse.items()})
     print('total %.1f s' % (time.perf_counter() - t_start))
     print(json.dumps({'kernels': kernels, 'lifecycle': lifecycle,

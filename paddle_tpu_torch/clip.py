@@ -15,7 +15,7 @@ from .layers.helper import LayerHelper
 
 __all__ = ['ErrorClipByValue', 'GradientClipByValue', 'GradientClipByNorm',
            'GradientClipByGlobalNorm', 'append_gradient_clip_ops',
-           'set_gradient_clip', 'error_clip_grad']
+           'set_gradient_clip', 'error_clip_callback', 'error_clip_grad']
 
 
 class ErrorClipByValue(object):
@@ -42,6 +42,12 @@ class _ErrorClipGrad(torch.autograd.Function):
         return torch.clamp(g, lo, hi), None, None
 
 
+def error_clip_callback(block, op_desc):
+    """A no-op, kept for the reference's API: fluid appends clip ops to
+    each gradient op here; in this package the executor applies a var's
+    ``error_clip`` as the clamp of ``error_clip_grad`` instead."""
+
+
 def error_clip_grad(x, lo, hi):
     """x, with the gradient that flows back through it clamped to
     [lo, hi] (reference: paddle_tpu core/executor.py _error_clip_grad)."""
@@ -51,6 +57,13 @@ def error_clip_grad(x, lo, hi):
 class BaseGradientClipAttr(object):
     def create_operators(self, param, grad, helper):
         raise NotImplementedError
+
+
+class NullGradientClipAttr(BaseGradientClipAttr):
+    """No clip: the gradient as it is."""
+
+    def create_operators(self, param, grad, helper):
+        return param, grad
 
 
 def _clipped_like(helper, grad):

@@ -43,7 +43,11 @@ gradients exist, so no tensor saved for the backward aliases a parameter
 being updated. A table with row-sparse gradients (the marker's
 ``sparse_grads``) is no leaf: its lookup's zero row seed is, and its
 ``p@GRAD`` is the [n_ids, dim] rows (reference: paddle_tpu
-core/executor.py step_fn). Everything else runs under
+core/executor.py step_fn). The sparse update ops of a run are held and
+applied together (ops/optimizer_ops.SparseUpdates): one grouped
+sparse_rows call per (kind, dtype, lr tensor, hyperparameters), made before
+any op that depends on them and at the end of each section, so the
+results equal the per-op order bit for bit. Everything else runs under
 ``torch.no_grad()``. In the forward, a var with an ``error_clip``
 (clip.ErrorClipByValue) is wrapped in an identity whose backward clamps
 its gradient, as the reference's custom_vjp does.
@@ -642,11 +646,15 @@ class Executor(object):
             env[name] = value
 
         clips = plan.error_clips
+        from ..ops.optimizer_ops import SparseUpdates
+        pending = SparseUpdates()
 
         def run_ops(ops, start):
             for i, op in enumerate(ops):
+                if pending.conflicts(op):
+                    pending.flush()
                 self._run_op(env, op, block, start + i, seed, step,
-                             program.amp, plan.reads)
+                             program.amp, plan.reads, pending)
                 if clips and torch.is_grad_enabled():
                     # the reference's error clip: the gradient flowing
                     # back through the var is clamped
@@ -656,6 +664,7 @@ class Executor(object):
                                                         *clips[name])
                 for name in plan.frees.get(start + i, ()):
                     env.pop(name, None)
+            pending.flush()
 
         if plan.marker is None:
             with torch.no_grad():
@@ -695,11 +704,13 @@ class Executor(object):
                    (tuple(value.shape), value.dtype)))
         scope.set(name, value)
 
-    def _run_op(self, env, op, block, index, seed, step, amp, reads):
+    def _run_op(self, env, op, block, index, seed, step, amp, reads,
+                sparse_updates):
         ctx = LoweringContext(env, op, block, index, self.device, seed,
                               step, is_test=bool(op.attrs.get('is_test',
                                                               False)),
-                              amp=amp, reads=reads)
+                              amp=amp, reads=reads,
+                              sparse_updates=sparse_updates)
         try:
             get_lowering(op.type)(ctx)
         except KeyError as e:

@@ -114,10 +114,13 @@ class LoweringContext(object):
     is_test  : the op's own is_test attr
     amp      : None or 'bf16' — input() casts per the policy above
     reads    : names read by a later op or fetched (None: all of them)
+    sparse_updates : the run's held row-sparse updates
+               (ops/optimizer_ops.SparseUpdates), or None: a sparse
+               update op then applies its table at once
     """
 
     def __init__(self, env, op, block, op_index, device, seed=0, step=0,
-                 is_test=False, amp=None, reads=None):
+                 is_test=False, amp=None, reads=None, sparse_updates=None):
         self.env = env
         self.op = op
         self.block = block
@@ -128,6 +131,7 @@ class LoweringContext(object):
         self.is_test = is_test
         self.amp = amp
         self._reads = reads
+        self.sparse_updates = sparse_updates
 
     def _autocast(self, value):
         if self.amp != 'bf16' or value is None:

@@ -6,9 +6,10 @@ each beside its plain PyTorch version. Counterpart of paddle_tpu's
 def launch_counters():
     """[(name, wrapper, attribute)]: every kernel launch count of the port
     (each wrapper adds one where it launches its kernel, and nowhere else),
-    and the batch norm backward's count of gradients copied into x's
-    layout. The executor moves them by a captured graph's launches at each
-    replay; chip_smoke.py reads them."""
+    the batch norm backward's count of gradients copied into x's layout,
+    and the row-sparse update's count of tables updated. The executor
+    moves them by a captured graph's launches at each replay;
+    chip_smoke.py reads them."""
     from . import flash_attention as fa
     from .batch_norm import fused_batch_norm_train
     from .kv_write import kv_write
@@ -28,7 +29,8 @@ def launch_counters():
             'bwd_gy_copies'),
            ('kv_write', kv_write, 'launches'),
            ('keep_mask', keep_mask, 'launches'),
-           ('sparse_rows', sparse_rows, 'launches')]
+           ('sparse_rows', sparse_rows, 'launches'),
+           ('sparse_rows_tables', sparse_rows, 'tables')]
     for name, fn in (('flash_attention_fwd', fa.flash_fwd_cuda),
                      ('flash_attention_bwd_dkv', fa.flash_bwd_dkv_cuda),
                      ('flash_attention_bwd_dq', fa.flash_bwd_dq_cuda)):

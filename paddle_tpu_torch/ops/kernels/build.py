@@ -163,9 +163,11 @@ def library():
             lib.ptt_keep_mask.argtypes = [p, ll, i, ctypes.c_uint, p,
                                           ctypes.c_ulonglong, p]
             lib.ptt_keep_mask.restype = i
-            lib.ptt_sparse_rows.argtypes = [i, i] + [p] * 9 + [
-                ll, ll, i, f, f, i, f, f, f, f, p]
-            lib.ptt_sparse_rows.restype = i
+            lib.ptt_sparse_rows_limits.argtypes = [i]
+            lib.ptt_sparse_rows_limits.restype = i
+            lib.ptt_sparse_rows_group.argtypes = [i, i, i, p, i, p, f, f, i,
+                                                  f, f, f, f, p]
+            lib.ptt_sparse_rows_group.restype = i
             _loaded['lib'] = lib
         return lib
 

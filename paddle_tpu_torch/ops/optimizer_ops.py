@@ -10,18 +10,63 @@ copy of the parameters or moments.
 
 A row-sparse gradient (the Grad var carries ``sparse_ids``,
 core/backward.py) takes the sparse branch of sgd, adagrad, momentum and
-adam: the flat ids are stably sorted on the device (``torch.sort``, no host
-read, so the step stays capturable) and the sparse_rows kernel merges the
-rows by id and updates the touched rows in place (ops/kernels/
-sparse_rows.py), where the reference sorts, segment-sums and scatters with
-XLA. Momentum and Adam update lazily there: untouched rows keep their
-state, as the reference's ``lazy_mode`` does.
+adam: the sparse_rows kernel merges the rows by id and updates the touched
+rows in place (ops/kernels/sparse_rows.py), where the reference sorts,
+segment-sums and scatters with XLA. Momentum and Adam update lazily there:
+untouched rows keep their state, as the reference's ``lazy_mode`` does.
+Inside an executor's run the branch does not launch: it hands its table to
+the run's ``SparseUpdates`` (``ctx.sparse_updates``), which applies every
+held table in one grouped call per (kind, dtype, lr tensor,
+hyperparameters) when the executor flushes it; called with no
+``SparseUpdates`` it applies its table at once.
 """
 
 import torch
 
 from ..core.registry import register
-from .kernels.sparse_rows import sort_ids, sparse_rows
+from .kernels.sparse_rows import SparseTable, sparse_rows_grouped
+
+
+class SparseUpdates(object):
+    """One run's row-sparse updates, held until a flush: the executor
+    flushes before any op that writes what a held update reads (its table,
+    accumulators, gradient rows, ids, lr or beta pows) or reads or writes
+    what it writes (the table and accumulators), at the end of each
+    section of the run, so every op sees the values the per-op order gives,
+    bit for bit (the tables are disjoint). A flush makes one
+    ``sparse_rows_grouped`` call per (kind, dtype, lr tensor,
+    hyperparameters)."""
+
+    def __init__(self):
+        self._groups = {}
+        self._reads = set()
+        self._writes = set()
+
+    def add(self, op, ids_name, kind, table, lr, hyper):
+        key = (kind, table.param.dtype, id(lr), tuple(sorted(hyper.items())))
+        group = self._groups.get(key)
+        if group is None:
+            group = self._groups[key] = (kind, lr, hyper, [])
+        group[3].append(table)
+        self._reads.update(op.input_names())
+        self._reads.add(ids_name)
+        self._writes.update(op.output_names())
+
+    def conflicts(self, op):
+        """Whether ``op`` must wait for the held updates."""
+        if not self._groups:
+            return False
+        return any(n in self._writes or n in self._reads
+                   for n in op.output_names()) or \
+            any(n in self._writes for n in op.input_names())
+
+    def flush(self):
+        groups = list(self._groups.values())
+        self._groups.clear()
+        self._reads.clear()
+        self._writes.clear()
+        for kind, lr, hyper, tables in groups:
+            sparse_rows_grouped(kind, tables, lr, **hyper)
 
 
 def _lr(ctx):
@@ -37,29 +82,35 @@ def _inplace(ctx, in_slot, out_slot):
 
 
 def _sparse_rows(ctx):
-    """(flat ids, rows) when this op's Grad is a row-sparse embedding
-    gradient (the grad var's ``sparse_ids``), else None. rows: [n_ids,
-    dim], one gradient row an id occurrence; duplicates are legal."""
+    """(flat ids, rows, the ids var's name) when this op's Grad is a
+    row-sparse embedding gradient (the grad var's ``sparse_ids``), else
+    None. rows: [n_ids, dim], one gradient row an id occurrence; duplicates
+    are legal."""
     gvar = ctx.block._find_var_recursive(ctx.op.input('Grad'))
     ids_name = getattr(gvar, 'sparse_ids', None) if gvar is not None \
         else None
     if ids_name is None:
         return None
     flat = ctx.env[ids_name].reshape(-1).long()
-    return flat, ctx.input('Grad').reshape(flat.shape[0], -1)
+    return flat, ctx.input('Grad').reshape(flat.shape[0], -1), ids_name
 
 
 def _sparse_update(ctx, kind, sparse, state_slots=(), beta_pows=(),
                    **hyper):
     """The sparse branch: Param and the accumulators in ``state_slots``
-    ((in, out) pairs) updated in place by the sparse_rows kernel."""
-    flat, rows = sparse
+    ((in, out) pairs) updated in place by the sparse_rows kernel, at the
+    run's next flush (at once without ``ctx.sparse_updates``)."""
+    flat, rows, ids_name = sparse
     p = _inplace(ctx, 'Param', 'ParamOut')
     state = [_inplace(ctx, i, o) for i, o in state_slots]
-    sids, order = sort_ids(flat)
-    sparse_rows(kind, p, rows.contiguous(), sids, order,
-                ctx.input('LearningRate'), state,
-                tuple(ctx.input(b) for b in beta_pows), **hyper)
+    table = SparseTable(p, rows.contiguous(), flat.contiguous(), state,
+                        [ctx.input(b) for b in beta_pows])
+    lr = ctx.input('LearningRate')
+    pending = ctx.sparse_updates
+    if pending is None:
+        sparse_rows_grouped(kind, [table], lr, **hyper)
+    else:
+        pending.add(ctx.op, ids_name, kind, table, lr, hyper)
     ctx.set_output('ParamOut', p)
     for (_, o), t in zip(state_slots, state):
         ctx.set_output(o, t)

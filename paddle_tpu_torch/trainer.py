@@ -119,6 +119,8 @@ class Trainer(object):
         self.checkpoint_config = checkpoint_config
         self._ckpt = (CheckpointManager(checkpoint_config)
                       if checkpoint_config is not None else None)
+        self.checkpoint_dir = (checkpoint_config.dirname
+                               if checkpoint_config is not None else None)
         self._guard = None
         if checkpoint_config is not None and checkpoint_config.nan_policy:
             self._guard = BadStepGuard(

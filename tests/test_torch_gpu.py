@@ -1786,9 +1786,132 @@ def test_sparse_rows_kernel_matches_plain(cuda, kind, dim, dtype):
     assert not torch.equal(outs[1][0][touched], p[touched])
 
 
+def _sparse_group(cuda, kind, dtype, shapes, seed, head=1.1):
+    """SparseTables on the card, one a (vocab, dim, n) of ``shapes``: Zipf
+    ids (long runs of one id) and ids past the table."""
+    from paddle_tpu_torch.ops.kernels import sparse_rows as S
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    rng = np.random.RandomState(seed)
+    out = []
+    for vocab, dim, n in shapes:
+        ids = (rng.zipf(head, n) - 1) % vocab
+        ids[:3] = vocab + np.arange(3)
+        out.append(S.SparseTable(
+            torch.randn(vocab, dim, generator=gen, device=cuda).to(dtype),
+            torch.randn(n, dim, generator=gen, device=cuda).to(dtype),
+            torch.from_numpy(ids.astype('int64')).to(cuda),
+            [torch.rand(vocab, dim, generator=gen, device=cuda).to(dtype)
+             for _ in range(S.N_STATE[kind])],
+            [torch.tensor([0.9 ** 4], device=cuda),
+             torch.tensor([0.999 ** 4], device=cuda)] if kind == 'adam'
+            else []))
+    return out
+
+
+def _grouped_both(kind, tables, lr, hyper, launches):
+    """The grouped kernel and its plain version on copies of ``tables``,
+    checked bit for bit; the kernel launches ``launches`` times."""
+    from paddle_tpu_torch.ops.kernels import sparse_rows as S
+    outs = []
+    for fn in (S.sparse_rows_grouped_reference, S.sparse_rows_grouped):
+        copies = [t._replace(param=t.param.clone(),
+                             state=tuple(s.clone() for s in t.state))
+                  for t in tables]
+        before = (S.sparse_rows.launches, S.sparse_rows.tables)
+        fn(kind, copies, lr, **hyper)
+        moved = (S.sparse_rows.launches - before[0],
+                 S.sparse_rows.tables - before[1])
+        assert moved == ((launches, len(tables))
+                         if fn is S.sparse_rows_grouped else (0, 0))
+        outs.append(copies)
+    torch.cuda.synchronize()
+    for got, want, start in zip(outs[1], outs[0], tables):
+        assert torch.equal(got.param, want.param)
+        for a, b in zip(got.state, want.state):
+            assert torch.equal(a, b)
+        touched = torch.zeros(start.param.shape[0], dtype=torch.bool,
+                              device=start.param.device)
+        touched[start.ids[start.ids < start.param.shape[0]]] = True
+        assert torch.equal(got.param[~touched], start.param[~touched])
+        assert not torch.equal(got.param[touched], start.param[touched])
+
+
+@pytest.mark.parametrize('count', [1, 52])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('kind', ['sgd', 'adagrad', 'momentum',
+                                  'momentum_nesterov', 'adam'])
+def test_sparse_rows_grouped_kernel_matches_plain(cuda, kind, dtype, count):
+    """The grouped kernel (each table's ids sorted in its block) against
+    its plain version, bit for bit, in one launch: one table, and 52
+    tables of Wide&Deep's two widths (dims 16 and 1, 4,096 Zipf ids each;
+    one table at 8,192 ids, one at 100, and dims 10 and 2,052: a column
+    a thread, and more columns than threads)."""
+    nesterov = kind == 'momentum_nesterov'
+    kind = 'momentum' if nesterov else kind
+    shapes = [(20000, 16 if i % 2 == 0 else 1, 4096) for i in range(count)]
+    if count > 1:
+        shapes[1] = (20000, 1, 8192)
+        shapes[2] = (300, 16, 100)
+        shapes[3] = (500, 10, 300)
+        shapes[4] = (64, 2052, 40)
+    tables = _sparse_group(cuda, kind, dtype, shapes, seed=count)
+    lr = torch.tensor([0.05], device=cuda)
+    hyper = dict(epsilon=1e-8 if kind == 'adam' else 1e-6,
+                 use_nesterov=nesterov)
+    _grouped_both(kind, tables, lr, hyper, launches=1)
+
+
+@pytest.mark.parametrize('kind', ['sgd', 'adagrad', 'momentum', 'adam'])
+def test_sparse_rows_large_tables_take_the_presorted_variant(cuda, kind):
+    """Tables above 8,192 ids (65,536 Zipf ids; 20,000 ids of one value,
+    one run across five blocks' chunks) take the presorted variant in a
+    second launch beside the small table's, fp32 and bf16, bit for bit
+    with the plain version."""
+    for dtype in (torch.float32, torch.bfloat16):
+        tables = _sparse_group(cuda, kind, dtype, [
+            (100000, 16, 65536), (5000, 1, 4096), (100000, 1, 65536)],
+            seed=11)
+        same = tables[2].ids.clone()
+        same[3:20003] = 77
+        tables[2] = tables[2]._replace(ids=same)
+        _grouped_both(kind, tables, torch.tensor([0.05], device=cuda),
+                      dict(epsilon=1e-8 if kind == 'adam' else 1e-6),
+                      launches=2)
+
+
+def test_sparse_rows_grouped_captured_equals_eager(cuda):
+    """A grouped launch captured in a CUDA graph and replayed gives the
+    eager launch's bits; the descriptors come with the launch (nothing is
+    read on the host at replay)."""
+    from paddle_tpu_torch.ops.kernels import sparse_rows as S
+    tables = _sparse_group(cuda, 'adam', torch.float32,
+                           [(20000, 16, 4096), (20000, 1, 4096)] * 8, 21)
+    lr = torch.tensor([0.01], device=cuda)
+    eager = [t._replace(param=t.param.clone(),
+                        state=tuple(s.clone() for s in t.state))
+             for t in tables]
+    captured = [t._replace(param=t.param.clone(),
+                           state=tuple(s.clone() for s in t.state))
+                for t in tables]
+    S.sparse_rows_grouped('adam', eager, lr, epsilon=1e-8)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        S.sparse_rows_grouped('adam', captured, lr, epsilon=1e-8)
+    for t, s in zip(captured, tables):
+        assert torch.equal(t.param, s.param)      # capture ran nothing
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(captured, eager):
+        assert torch.equal(a.param, b.param)
+        for x, y in zip(a.state, b.state):
+            assert torch.equal(x, y)
+
+
 def test_captured_wide_deep_step_uses_the_kernel_and_equals_eager(cuda):
-    """Wide&Deep (4 slots x 1,000 rows, batch 256) under lazy Adam: every
-    table's update is one sparse_rows launch a step, captured steps equal
+    """Wide&Deep (4 slots x 1,000 rows, batch 256) under lazy Adam: the
+    step's 8 table updates are one sparse_rows launch, captured steps equal
     eager ones bit for bit, and the card agrees with the host."""
     from paddle_tpu_torch.models import wide_deep as W
     from paddle_tpu_torch.ops.kernels import sparse_rows as S
@@ -1823,7 +1946,7 @@ def test_captured_wide_deep_step_uses_the_kernel_and_equals_eager(cuda):
         dev = place.device()
         for n in names:
             scope.set(n, host_scope.find(n).clone().to(dev))
-        before = S.sparse_rows.launches
+        before = (S.sparse_rows.launches, S.sparse_rows.tables)
         losses = []
         with pt.scope_guard(scope):
             for f in feeds:
@@ -1833,7 +1956,8 @@ def test_captured_wide_deep_step_uses_the_kernel_and_equals_eager(cuda):
         if mode == 'captured':
             assert exe.last_captured
         if mode != 'host':
-            assert S.sparse_rows.launches - before == 3 * 8
+            assert (S.sparse_rows.launches - before[0],
+                    S.sparse_rows.tables - before[1]) == (3, 3 * 8)
         results[mode] = (losses, {n: scope.find(n).cpu() for n in names})
     assert results['eager'][0] == results['captured'][0]
     for n in names:

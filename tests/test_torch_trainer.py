@@ -595,3 +595,65 @@ def test_environment_injections_kill_and_truncate(tmp_path):
             plan.corrupt_checkpoint_at_step is None
     finally:
         inject.clear()
+
+
+def test_error_clip_callback_is_the_references_no_op():
+    """clip.error_clip_callback is exported by both packages and does
+    nothing in either: it returns None and appends no op."""
+    assert 'error_clip_callback' in fluid.clip.__all__
+    assert 'error_clip_callback' in pt.clip.__all__
+    for pkg in (fluid, pt):
+        pkg.reset_default_programs()
+        block = pkg.default_main_program().global_block()
+        n = len(block.ops)
+        assert pkg.clip.error_clip_callback(block, None) is None
+        assert len(block.ops) == n
+
+
+def test_null_gradient_clip_attr_matches_reference():
+    """clip.NullGradientClipAttr hands each (param, grad) back unchanged,
+    and a program with it as its clip trains as the reference does: the
+    same op types after minimize and the same final weight."""
+    ops, weights = [], []
+    for pkg in (fluid, pt):
+        null = pkg.clip.NullGradientClipAttr()
+        assert isinstance(null, pkg.clip.BaseGradientClipAttr)
+        assert null.create_operators('p', 'g', None) == ('p', 'g')
+
+        def train_func(pkg=pkg, null=null):
+            cost = _line_train_func(pkg)()
+            pkg.clip.set_gradient_clip(null)
+            return cost
+        with pkg.scope_guard(pkg.Scope()):
+            pkg.reset_default_programs()
+            trainer = pkg.Trainer(
+                train_func=train_func,
+                optimizer_func=lambda pkg=pkg: pkg.optimizer.SGD(0.1),
+                place=pkg.CPUPlace())
+            batches = _line_batches(3)
+            trainer.train(num_epochs=1, reader=lambda: iter(batches))
+            ops.append([op.type for op in trainer.program.global_block().ops])
+            weights.append(np.array(np.asarray(
+                pkg.global_scope().find('fw')) if pkg is fluid else
+                pkg.global_scope().numpy('fw')))
+    assert ops[0] == ops[1]
+    assert not [t for t in ops[1] if 'clip' in t]
+    np.testing.assert_allclose(weights[1], weights[0], rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize('cfg', ['none', 'dirname', 'config'])
+def test_trainer_checkpoint_dir_matches_reference(tmp_path, cfg):
+    """Trainer.checkpoint_dir is the checkpoint config's dirname (a bare
+    dirname given as the config too) or None, as the reference's."""
+    for pkg in (fluid, pt):
+        root = str(tmp_path / pkg.__name__)
+        config = {'none': None, 'dirname': root,
+                  'config': pkg.fault.CheckpointConfig(
+                      root, save_every_steps=2)}[cfg]
+        with pkg.scope_guard(pkg.Scope()):
+            pkg.reset_default_programs()
+            trainer = pkg.Trainer(
+                train_func=_line_train_func(pkg),
+                optimizer_func=lambda pkg=pkg: pkg.optimizer.SGD(0.1),
+                place=pkg.CPUPlace(), checkpoint_config=config)
+        assert trainer.checkpoint_dir == (None if cfg == 'none' else root)
