@@ -62,8 +62,11 @@ Phases (any fault exits non-zero; no phase is skipped over):
    causal and bf16 with kv_len-0 rows) and K4's any-width kernel at
    D = Dv = 320 (fp32, bf16). The captured step's kernels, bit for bit
    with their plain versions: the KV write at a decode step's rows (16,
-   13 kept) into fp32, bf16, int8 and e4m3 arenas, and the keep mask at
-   the Transformer's dropout shapes. K2 at the NMT decode's shapes (phase
+   13 kept) into fp32, bf16, int8 and e4m3 arenas, the keep mask at
+   the Transformer's dropout shapes, and the fused dropout at [64, 64,
+   2048] and [64, 64, 512] in bf16 and fp32, each mode (mul, mul_div,
+   where_div) forward and backward, beside F.dropout (forward, its own
+   bits) and dy * mask (backward). K2 at the NMT decode's shapes (phase
    12's unrolled decoder: B = 64 x beam 4 = 256, H = 8, D = 64, on
    head-split views): causal Tq = Tk = t and cross-attention Tq = t
    against Tk = 64 with kv_len 16-64, t in {1, 7, 16, 31}, fp32 and bf16,
@@ -112,7 +115,8 @@ Phases (any fault exits non-zero; no phase is skipped over):
    TFLOP/s, the first and last loss (finite, falling), peak memory, and
    the launch counts of the timed steps (K2, both K3 kernels 18 a step,
    K1 30 a step and its backward 60; every flash launch through its
-   tensor-core variant).
+   tensor-core variant; the fused dropout and its backward 62 a step,
+   the keep mask none).
 6b. The same training with transformer_base(..., scan_layers=True) (one
    transformer_layer_stack op a side): ms a step, tokens/s, MFU beside
    phase 6's, the same launch counts. Then phase 8's program with
@@ -122,7 +126,12 @@ Phases (any fault exits non-zero; no phase is skipped over):
    steps bit for bit.
 7. Masked training: 3 + 10 steps at bench_transformer_masked's shape
    (batch 8, seq 512, src_length uniform in [256, 512], lbl_weight
-   masking the same positions): padded and real tokens/s.
+   masking the same positions): padded and real tokens/s, the phase-6
+   launch counts.
+7b. The dropout op's Mask read: the Transformer's FFN (x [4096, 512] ->
+   fc(2048, relu) -> dropout(0.1) -> fc(512) -> mean, Adam, bf16 AMP)
+   with Mask fetched each step: one keep-mask, one dropout and one
+   dropout_bwd launch a step, the Mask equal to its step's keep bits.
 8. Training card vs CPU: the same Program at batch 2 x seq 64, fp32,
    dropout 0, no amp; 3 Adam steps on CUDAPlace(0) and on CPUPlace()
    from the same weights: each loss within 1e-4 relative, every
@@ -417,7 +426,8 @@ def phase_build():
                    'flash_bwd_dq_wide_kernel', 'bn_train_kernel',
                    'bn_bwd_kernel', 'ln_warp_kernel', 'ln_bwd_rows_kernel',
                    'ln_bwd_cols_kernel', 'kv_write_kernel',
-                   'keep_mask_kernel', 'sparse_rows_group_kernel'):
+                   'keep_mask_kernel', 'dropout_kernel',
+                   'sparse_rows_group_kernel'):
         require(kernel in res.log, 'ptxas\'s log does not show %s' % kernel)
     print('  flash attention dynamic shared memory at D=64: tensor-core '
           'forward %d B, SIMT forward %d B, SIMT dK/dV %d B, SIMT dQ %d B, '
@@ -1523,11 +1533,76 @@ def _keep_mask_case(torch, card, shape, dtype):
                 bound_by=by, library_ms=None, eager_ms=eager)
 
 
+def _raw_bits(torch, t):
+    return t.contiguous().view(torch.int32 if t.dtype == torch.float32
+                               else torch.int16)
+
+
+def _dropout_case(torch, card, shape, dtype, mode, backward, gen):
+    """The fused dropout kernel (one direction of one mode) against its
+    plain version, bit for bit, at a dropout of the Transformer's training
+    step (±0, ±inf and NaN among the inputs), and its times beside its
+    bound; the library's: F.dropout for the forward (its own bits, time
+    only), and for the backward dy * mask, the product the backward ran
+    before on the mask autograd saved."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.kernels import random_bits as K
+    dev = torch.device('cuda', 0)
+    step = torch.tensor(7, dtype=torch.int64, device=dev)
+    n = int(np.prod(shape))
+    x = torch.randn(n, generator=gen, device=dev)
+    x[:5] = torch.tensor([0.0, -0.0, float('inf'), -float('inf'),
+                          float('nan')], device=dev)
+    x = x.to(dtype).reshape(shape)
+    key = 0x2468ace
+    before = (K.fused_dropout.launches, K.fused_dropout.bwd_launches)
+    got = K.fused_dropout(x, mode, 0.9, key, step, backward)
+    require((K.fused_dropout.launches - before[0],
+             K.fused_dropout.bwd_launches - before[1]) ==
+            ((0, 1) if backward else (1, 0)),
+            'dropout: one call did not launch its kernel once')
+    want = K.dropout_reference(x, mode, 0.9, key, step, backward)
+    torch.cuda.synchronize()
+    ok = torch.equal(_raw_bits(torch, got), _raw_bits(torch, want))
+    fin = torch.isfinite(got) & torch.isfinite(want)
+    err = float((got.float() - want.float())[fin].abs().max())
+    kept = float((got != 0)[..., 8:].float().mean())
+    item = x.element_size()
+    lo, by = bound_ms(2 * n * item + 8, 14 * n)
+    ms = device_ms(torch, lambda: K.fused_dropout(x, mode, 0.9, key, step,
+                                                  backward))
+    eager = eager_ms(torch, lambda: K.fused_dropout(x, mode, 0.9, key, step,
+                                                    backward))
+    plain = device_ms(torch, lambda: K.dropout_reference(
+        x, mode, 0.9, key, step, backward), iters=20)
+    if backward:
+        mask = K.keep_mask_reference(shape, 0.9, key, step, dev, dtype)
+        lib = device_ms(torch, lambda: x * mask)
+        lib_name = 'dy * mask'
+    else:
+        lib = device_ms(torch, lambda: F.dropout(x, 0.1, training=True))
+        lib_name = 'F.dropout (its own bits)'
+    label = 'dropout %s %s %s %s' % ('bwd' if backward else 'fwd', mode,
+                                     list(shape), str(dtype)[6:])
+    print('%s: bit for bit with its plain version %s (max_abs_err %.3g over '
+          'finite values; nonzero share %.5f at keep 0.9); device ms: kernel '
+          '%.5f, plain %.5f, %s %.5f, bound %.6f (%s, %.0f %% of it); '
+          'kernel eager %.5f ms [%s]'
+          % (label, 'ok' if ok else 'MISMATCH', err, kept, ms, plain,
+             lib_name, lib, lo, by, 100.0 * lo / ms, eager, card))
+    require(ok, '%s disagrees with its plain version' % label)
+    require(abs(kept - 0.9) < 2e-3, '%s keeps %.4f, want ~0.9'
+            % (label, kept))
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=lo,
+                bound_by=by, library_ms=lib, eager_ms=eager)
+
+
 def phase_step_kernels(torch, card):
     """The captured step's kernels: the KV write at the engine's decode
-    rows (fp32, bf16, int8 and e4m3 arenas) and the keep mask at the
-    Transformer's dropout shapes; returns the kernels line's (fp32 KV
-    write, the FFN's bf16 mask)."""
+    rows (fp32, bf16, int8 and e4m3 arenas), the keep mask and the fused
+    dropout (each mode, forward and backward) at the Transformer's dropout
+    shapes; returns the kernels line's (fp32 KV write, the FFN's bf16
+    mask, the FFN's bf16 dropout forward and backward, mode 'mul')."""
     gen = torch.Generator(device='cuda').manual_seed(5)
     kv = {}
     for kv_dtype in ('float32', 'bfloat16', 'int8', 'float8_e4m3fn'):
@@ -1537,7 +1612,20 @@ def phase_step_kernels(torch, card):
     _keep_mask_case(torch, card, (64, 64, 512), torch.bfloat16)
     mask = _keep_mask_case(torch, card, (64, 64, 2048), torch.bfloat16)
     _keep_mask_case(torch, card, (64, 64, 512), torch.bool)
-    return kv['float32'], mask
+    drop = {}
+    # the step's sites: the FFN hidden in bf16 (scan_layers) and fp32 (the
+    # unrolled program's bias add), the rest in bf16 and fp32
+    for shape, dtype in (((64, 64, 2048), torch.bfloat16),
+                         ((64, 64, 2048), torch.float32),
+                         ((64, 64, 512), torch.bfloat16),
+                         ((64, 64, 512), torch.float32)):
+        for mode in ('mul', 'mul_div', 'where_div'):
+            for backward in (False, True):
+                drop[shape, dtype, mode, backward] = _dropout_case(
+                    torch, card, shape, dtype, mode, backward, gen)
+        torch.cuda.empty_cache()
+    ffn = ((64, 64, 2048), torch.bfloat16, 'mul')
+    return kv['float32'], mask, drop[ffn + (False,)], drop[ffn + (True,)]
 
 
 # ------------------------------------------------------ phase 3: sparse_rows
@@ -2285,6 +2373,21 @@ def flash_want(layers, steps):
     return want
 
 
+def train_want(layers, steps):
+    """The kernels' launches in ``steps`` Transformer training steps at
+    dropout > 0: the flash kernels' (flash_want), 5 layer norms a layer
+    and their backward (2 kernels each), and the fused dropout forward
+    and backward at every site (4 an encoder layer, 6 a decoder layer and
+    the 2 embeddings), with no keep mask written."""
+    want = flash_want(layers, steps)
+    want['layer_norm'] = 5 * layers * steps
+    want['layer_norm_bwd'] = 2 * 5 * layers * steps
+    sites = (4 + 6) * layers + 2
+    want.update(dropout=sites * steps, dropout_bwd=sites * steps,
+                keep_mask=0)
+    return want
+
+
 def phase_train(torch, pt, place, card, on_card, batch, seq, vocab, dims,
                 warmup=3, steps=20, label='train'):
     """Phase 6 (and 6b, with scan_layers in ``dims``): bench_transformer
@@ -2330,9 +2433,7 @@ def phase_train(torch, pt, place, card, on_card, batch, seq, vocab, dims,
                                d_model=dims.get('d_model', 512),
                                d_inner=dims.get('d_inner', 2048))
     layers = dims.get('n_layer', 6)
-    want = flash_want(layers, steps)
-    want['layer_norm'] = 5 * layers * steps
-    want['layer_norm_bwd'] = 2 * 5 * layers * steps
+    want = train_want(layers, steps)
     mfu = flops / (ms / 1e3) / BF16_FLOPS
     print('%s: transformer_base vocab %d, %d params, batch %d x seq %d, '
           'amp bf16, dropout 0.1, Adam(1e-4), scan_layers %s; build + '
@@ -2347,7 +2448,10 @@ def phase_train(torch, pt, place, card, on_card, batch, seq, vocab, dims,
     print('%s: launches in the %d timed steps: %s (want %s: per layer '
           'and step, 3 of each flash kernel, every one through its '
           'tensor-core variant, 5 layer norms and their backward, 2 kernels '
-          'each)' % (label, steps, {k: launches[k] for k in want}, want))
+          'each; per step, a fused dropout forward and backward at each of '
+          'the %d sites and no keep mask)'
+          % (label, steps, {k: launches[k] for k in want}, want,
+             10 * layers + 2))
     require(np.isfinite(losses).all(), 'training loss not finite: %s'
             % losses)
     require(losses[-1] < losses[0], 'training loss did not fall: %s'
@@ -2393,13 +2497,75 @@ def phase_train_masked(torch, pt, place, card, on_card, batch, seq, vocab,
              float(lens.sum()) * steps / secs, losses[0], losses[-1], card))
     require(np.isfinite(losses).all(), 'masked loss not finite: %s' % losses)
     if on_card:
-        layers = dims.get('n_layer', 6)
-        want = flash_want(layers, steps)
-        want['layer_norm'] = 5 * layers * steps
-        want['layer_norm_bwd'] = 2 * 5 * layers * steps
+        want = train_want(dims.get('n_layer', 6), steps)
         require(all(launches[k] == n for k, n in want.items()),
                 'masked training launch counts %s, want %s'
                 % (launches, want))
+    return launches
+
+
+def phase_dropout_mask(torch, pt, place, card, on_card, batch=4096,
+                       d_model=512, d_inner=2048, steps=5):
+    """Phase 7b: a program that reads the dropout op's Mask (the one path
+    that still writes a mask): the Transformer's FFN at its width, x
+    [batch, d_model] -> fc(d_inner, relu) -> dropout(0.1) -> fc(d_model)
+    -> mean under Adam, bf16 AMP, Mask fetched each step. Checks, over
+    ``steps`` steps after 3 warm-up, one keep_mask, one dropout and one
+    dropout_bwd launch a step, and the last step's Mask: the keep bits of
+    (seed, step, op) at the step set by exe.set_step, about 0.9 kept.
+    Returns the launch counts of the timed steps."""
+    from paddle_tpu_torch.core.registry import op_key
+    from paddle_tpu_torch.ops.kernels import random_bits as K
+    pt.reset_default_programs()
+    main = pt.default_main_program()
+    main.random_seed = 11
+    x = pt.layers.data(name='x', shape=[d_model], dtype='float32')
+    h = pt.layers.fc(input=x, size=d_inner, act='relu')
+    h = pt.layers.dropout(h, dropout_prob=0.1)
+    op = main.global_block().ops[-1]
+    cost = pt.layers.mean(pt.layers.fc(input=h, size=d_model))
+    pt.optimizer.Adam(learning_rate=1e-4).minimize(cost)
+    main.amp = 'bf16'
+    index = main.global_block().ops.index(op)
+    exe = pt.Executor(place)
+    feed = {'x': torch.from_numpy(np.random.RandomState(0).randn(
+        batch, d_model).astype('f')).to(exe.device)}
+    fetch = [cost, op.output('Mask')]
+    with pt.scope_guard(pt.Scope()):
+        exe.run(pt.default_startup_program())
+        for _ in range(3):
+            exe.run(main, feed=feed, fetch_list=fetch, return_numpy=False)
+        reset_launches()
+        _sync(torch, on_card)
+        t0 = time.perf_counter()
+        for _ in range(steps - 1):
+            exe.run(main, feed=feed, fetch_list=fetch, return_numpy=False)
+        exe.set_step(100)
+        loss, mask = exe.run(main, feed=feed, fetch_list=fetch,
+                             return_numpy=False)
+        _sync(torch, on_card)
+        secs = time.perf_counter() - t0
+        launches = read_launches()
+    want = K.keep_mask_reference((batch, d_inner), 0.9,
+                                 op_key(main.random_seed, index),
+                                 torch.tensor(100), torch.device('cpu'),
+                                 torch.float32)
+    same = torch.equal(mask.float().cpu(), want)
+    share = float(mask.float().mean())
+    per_step = {k: launches[k] / steps for k in ('keep_mask', 'dropout',
+                                                 'dropout_bwd')}
+    print('phase 7b dropout with its Mask read: FFN [%d, %d], amp bf16, '
+          'Adam, %d steps: %.3f ms/step; launches a step %s; the Mask of '
+          'step 100 (%s) equals its keep bits %s, kept share %.5f; loss '
+          '%.5f [%s]'
+          % (batch, d_inner, steps, secs * 1e3 / steps, per_step,
+             str(mask.dtype)[6:], same, share, float(loss.float()), card))
+    require(same and abs(share - 0.9) < (2e-3 if on_card else 0.05),
+            'phase 7b: the fetched Mask is not the keep bits of its step')
+    require(np.isfinite(float(loss.float())), 'phase 7b: loss not finite')
+    if on_card:
+        require(per_step == {'keep_mask': 1, 'dropout': 1, 'dropout_bwd': 1},
+                'phase 7b launches a step %s, want 1 each' % per_step)
     return launches
 
 
@@ -3011,7 +3177,7 @@ def nmt_want(n_layer, t_out, incremental):
         0 if incremental else 2 * n_layer * (t_out - 1)),
         'layer_norm': 2 * n_layer + 3 * n_layer * (t_out - 1),
         'flash_attention_bwd_dq': 0, 'flash_attention_bwd_dkv': 0,
-        'layer_norm_bwd': 0, 'keep_mask': 0}
+        'layer_norm_bwd': 0, 'keep_mask': 0, 'dropout': 0, 'dropout_bwd': 0}
 
 
 def _nmt_time(torch, pt, exe, scope, prog, fetch, feed, on_card, warmup=3,
@@ -3328,7 +3494,8 @@ def phase_trainer(torch, pt, place, card, on_card, batch, seq, vocab, dims,
     bf16, 2 epochs of ``steps`` make_fake_batch feeds, epoch 1 timed, at
     each pipeline depth (host_prefetch 2 above depth 1). Checks the timed
     launches (K2 and each K3 kernel 3 a layer and step, K1 5 and its
-    backward 10) and that every depth ends on depth 1's parameters and
+    backward 10, the fused dropout and its backward 10 a layer and 2 a
+    step, no keep mask) and that every depth ends on depth 1's parameters and
     losses, bit for bit. Returns (the depth-1 timed launches, {depth:
     tokens/s}, {kernel: launches a step})."""
     from paddle_tpu_torch.models import transformer as T
@@ -3374,9 +3541,7 @@ def phase_trainer(torch, pt, place, card, on_card, batch, seq, vocab, dims,
         secs = state['t1'] - state['t0']
         tok_s[d] = batch * seq * steps / secs
         launches = state['launches']
-        want = flash_want(layers, steps)
-        want['layer_norm'] = 5 * layers * steps
-        want['layer_norm_bwd'] = 2 * 5 * layers * steps
+        want = train_want(layers, steps)
         per_step = {k: launches[k] / steps for k in want
                     if not k.endswith('_simt') and not k.endswith('_mma')}
         print('phase 13a Trainer.train depth %d (host_prefetch %d): epoch 1 '
@@ -4487,6 +4652,8 @@ def main():
         phase_scan_compare(torch, pt, pt.CPUPlace(), host, 64, tiny)
         phase_train_masked(torch, pt, pt.CPUPlace(), host, False, 4, 16, 64,
                            tiny, steps=3)
+        phase_dropout_mask(torch, pt, pt.CPUPlace(), host, False, batch=8,
+                           d_model=16, d_inner=32)
         phase_train_compare(torch, pt, (pt.CPUPlace(), pt.CPUPlace()), 64,
                             tiny)
         phase_resnet(torch, pt, pt.CPUPlace(), host, False, 8, 16, 10,
@@ -4538,9 +4705,9 @@ def main():
     done('3 (K1, K4)')
     fa_fwd, fa_bwd = phase_flash_kernels(torch, card)
     bn, bn_bwd = phase_bn_kernels(torch, card)
-    kvw, mask = phase_step_kernels(torch, card)
+    kvw, mask, drop_fwd, drop_bwd = phase_step_kernels(torch, card)
     sparse = phase_sparse_kernels(torch, card)
-    done('3 (K2, K3, K5, KV write, keep mask, sparse rows)')
+    done('3 (K2, K3, K5, KV write, keep mask, dropout, sparse rows)')
     if args.kernels_only:
         print('kernels only: K1, K4 (and its quantized variant), K2, K3 and '
               'K5 and the K1 and K5 backward kernels agree with their plain '
@@ -4600,6 +4767,8 @@ def main():
     done('6, 6b (training, scan_layers)')
     masked = phase_train_masked(torch, pt, pt.CUDAPlace(0), card, True, 8,
                                 512, VOCAB, base)
+    torch.cuda.empty_cache()
+    mask_read = phase_dropout_mask(torch, pt, pt.CUDAPlace(0), card, True)
     torch.cuda.empty_cache()
     phase_train_compare(torch, pt, (pt.CUDAPlace(0), pt.CPUPlace()), VOCAB,
                         base)
@@ -4693,13 +4862,14 @@ def main():
 
     # launches: the sum over the main paths' runs (the engine runs: plain,
     # extras plain and with cache + speculation, int8 and fp8; the timed
-    # Transformer (unrolled and scan_layers), masked Transformer and
-    # ResNet-50 training steps; phase 12's timed decode calls; phase 13a's
-    # timed Trainer epoch at depth 1; phase 14's six legs; phase 15's four
-    # row-sparse legs), each read after its counts were set to 0
+    # Transformer (unrolled and scan_layers), masked Transformer, phase
+    # 7b's (the dropout Mask read) and ResNet-50 training steps; phase 12's
+    # timed decode calls; phase 13a's timed Trainer epoch at depth 1; phase
+    # 14's six legs; phase 15's four row-sparse legs), each read after its
+    # counts were set to 0
     main_runs = [launches] + extras + list(quant.values()) + \
-        [train, scan_train, masked, resnet, nmt, trainer] + disagg_runs + \
-        list(ctr_runs.values())
+        [train, scan_train, masked, mask_read, resnet, nmt, trainer] + \
+        disagg_runs + list(ctr_runs.values())
 
     def runs(key):
         return sum(r.get(key, 0) for r in main_runs)
@@ -4753,6 +4923,14 @@ def main():
              source='paddle_tpu_torch/csrc/random_bits.cu',
              replaces='paddle_tpu/ops/nn_ops.py:163',
              launches=runs('keep_mask'), **mask),
+        dict(name='dropout', route='cuda',
+             source='paddle_tpu_torch/csrc/random_bits.cu',
+             replaces='paddle_tpu/ops/nn_ops.py:163',
+             launches=runs('dropout'), **drop_fwd),
+        dict(name='dropout_bwd', route='cuda',
+             source='paddle_tpu_torch/csrc/random_bits.cu',
+             replaces='paddle_tpu/ops/nn_ops.py:163',
+             launches=runs('dropout_bwd'), **drop_bwd),
         dict(name='sparse_rows', route='cuda',
              source='paddle_tpu_torch/csrc/sparse_rows.cu',
              replaces='paddle_tpu/ops/optimizer_ops.py:58',

@@ -9,6 +9,7 @@ have (a backward kernel before it was written) is reported as such.
 
     python3 kernel_times.py [DIR]           # on a machine with one CUDA card
     python3 kernel_times.py [DIR] --decode  # the decode step instead
+    python3 kernel_times.py [DIR] --train   # the Transformer's steps instead
 
 DIR (default: this checkout) holds the ``paddle_tpu_torch`` package to
 time; the shapes, the inputs and the timer (CUDA-graph replay, CUDA events)
@@ -20,6 +21,15 @@ With --decode, it builds DIR's DecodeEngine at chip_smoke.py's full width
 (fp32 arenas) and profiles 20 decode steps with every slot busy, as
 chip_smoke.py --profile does (wall, device busy, launches a step), in
 place of the kernel cases.
+
+With --train, it runs DIR's Transformer training at chip_smoke.py's
+widths (bf16 AMP, dropout 0.1, Adam): the unrolled step and scan_layers
+at batch 64 x seq 64 (phases 6, 6b) and the masked cell at batch 8 x seq
+512 (phase 7), each 3 warm-up and 20 timed steps captured (ms a step on
+the host clock, peak memory above what was allocated before the first
+step), then profiles 5 steps of each as chip_smoke.py --profile does
+(device busy time a step, by kernel family), and times DIR's keep-mask
+kernel at the Transformer's two dropout shapes.
 
 Nothing is checked here: chip_smoke.py holds each kernel against its plain
 versions. Prints one line a case, then nvidia-smi's name and power limit,
@@ -47,8 +57,69 @@ def decode_step(torch, smoke, card):
     smoke.profile_steps(torch, card, [smoke._decode_job(eng, spec)])
 
 
+def train_steps(torch, smoke, card, steps=20):
+    """--train: DIR's Transformer training cells; returns {label: ms}."""
+    import numpy as np
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import transformer as T
+    from paddle_tpu_torch.ops.kernels import random_bits as rb
+    dev = torch.device('cuda', 0)
+    ms = {}
+    for shape in ((64, 64, 2048), (64, 64, 512)):
+        step = torch.tensor(7, dtype=torch.int64, device=dev)
+        label = 'keep_mask %s bfloat16' % list(shape)
+        ms[label] = smoke.device_ms(torch, lambda: rb.keep_mask(
+            shape, 0.9, 0x1234567, step, dev, torch.bfloat16))
+        print('%s: kernel %.5f ms [%s]' % (label, ms[label], card))
+    base = dict(n_layer=6, n_head=8, d_key=64, d_value=64, d_model=512,
+                d_inner=2048)
+    jobs = []
+    for label, dims, batch, seq in (
+            ('unrolled', base, 64, 64),
+            ('scan_layers', dict(base, scan_layers=True), 64, 64),
+            ('masked', base, 8, 512)):
+        avg_cost = smoke._build_train(pt, smoke.VOCAB, seq, 0.1, 'bf16',
+                                      **dims)
+        program = pt.default_main_program()
+        feed = T.make_fake_batch(batch, seq, seq, smoke.VOCAB, smoke.VOCAB,
+                                 seed=0)
+        if label == 'masked':
+            lens = np.random.RandomState(0).randint(
+                seq // 2, seq + 1, (batch,)).astype('int64')
+            feed['src_length'] = lens
+            feed['lbl_weight'] = (np.arange(seq)[None, :] <
+                                  lens[:, None]).astype('float32')
+        exe = pt.Executor(pt.CUDAPlace(0))
+        scope = pt.Scope()
+        with pt.scope_guard(scope):
+            exe.run(pt.default_startup_program())
+            feed = {n: torch.as_tensor(v).to(dev) for n, v in feed.items()}
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            smoke._train_steps(torch, exe, feed, avg_cost, 3, True)
+            secs, losses = smoke._train_steps(torch, exe, feed, avg_cost,
+                                              steps, True)
+            peak = torch.cuda.max_memory_allocated() - before
+        ms['train ' + label] = secs * 1e3 / steps
+        print('train %s: batch %d x seq %d, %d steps after 3 warm-up: %.3f '
+              'ms/step, peak memory %.4f GB above what was allocated before '
+              'the first step; loss first %.5f last %.5f [%s]'
+              % (label, batch, seq, steps, ms['train ' + label], peak / 1e9,
+                 losses[0], losses[-1], card))
+
+        def step(exe=exe, scope=scope, program=program, feed=feed,
+                 avg_cost=avg_cost):
+            with pt.scope_guard(scope):
+                exe.run(program, feed=feed, fetch_list=[avg_cost],
+                        return_numpy=False)
+        jobs.append(('5 train %s steps' % label, step, 5, None))
+    smoke.profile_steps(torch, card, jobs)
+    return ms
+
+
 def main():
-    args = [a for a in sys.argv[1:] if a != '--decode']
+    args = [a for a in sys.argv[1:] if a not in ('--decode', '--train')]
     port = os.path.abspath(args[0]) if args else REPO
     sys.path.insert(0, REPO)
     import chip_smoke as smoke
@@ -71,6 +142,11 @@ def main():
     if '--decode' in sys.argv:
         decode_step(torch, smoke, card)
         print(card)
+        return
+    if '--train' in sys.argv:
+        ms = train_steps(torch, smoke, card)
+        print(card)
+        print(json.dumps({'port': port, 'card': card, 'ms': ms}))
         return
     dev = torch.device('cuda', 0)
     ms = {}

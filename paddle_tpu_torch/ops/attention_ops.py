@@ -14,9 +14,9 @@ ported.
 
 import torch
 
-from ..core.registry import register
+from ..core.registry import op_key, register
 from .kernels.flash_attention import flash_attention
-from .nn_ops import keep_mask
+from .kernels.random_bits import DropoutApply
 
 _NEG_INF = -1e9
 
@@ -84,9 +84,9 @@ def _fused_attention(ctx):
                           query_length=optional('QueryLength'))
     rate = ctx.attr('dropout_rate', 0.0)
     if rate and not ctx.is_test:
-        # dropout on the attention output, as the reference op does
-        keep = 1.0 - rate
-        mask = keep_mask(ctx, out.shape, keep, out.device)
-        out = torch.where(mask, out / keep, torch.zeros((), dtype=out.dtype,
-                                                        device=out.device))
+        # dropout on the attention output, as the reference op does:
+        # where(mask, out / keep, 0), in one fused pass
+        out = DropoutApply.apply(out, 'where_div', 1.0 - rate,
+                                 op_key(ctx.seed, ctx.op_index),
+                                 ctx.step_tensor())
     ctx.set_output('Out', out)

@@ -15,7 +15,7 @@ def launch_counters():
     from .kv_write import kv_write
     from .layer_norm import fused_layer_norm
     from .paged_attention import paged_attention
-    from .random_bits import keep_mask
+    from .random_bits import fused_dropout, keep_mask
     from .sparse_rows import sparse_rows
     res = [('layer_norm', fused_layer_norm, 'launches'),
            ('layer_norm_bwd', fused_layer_norm, 'bwd_launches'),
@@ -29,6 +29,8 @@ def launch_counters():
             'bwd_gy_copies'),
            ('kv_write', kv_write, 'launches'),
            ('keep_mask', keep_mask, 'launches'),
+           ('dropout', fused_dropout, 'launches'),
+           ('dropout_bwd', fused_dropout, 'bwd_launches'),
            ('sparse_rows', sparse_rows, 'launches'),
            ('sparse_rows_tables', sparse_rows, 'tables')]
     for name, fn in (('flash_attention_fwd', fa.flash_fwd_cuda),

@@ -163,6 +163,9 @@ def library():
             lib.ptt_keep_mask.argtypes = [p, ll, i, ctypes.c_uint, p,
                                           ctypes.c_ulonglong, p]
             lib.ptt_keep_mask.restype = i
+            lib.ptt_dropout.argtypes = [p, p, ll, i, i, ctypes.c_uint, p,
+                                        ctypes.c_ulonglong, f, p]
+            lib.ptt_dropout.restype = i
             lib.ptt_sparse_rows_limits.argtypes = [i]
             lib.ptt_sparse_rows_limits.restype = i
             lib.ptt_sparse_rows_group.argtypes = [i, i, i, p, i, p, f, f, i,

@@ -39,33 +39,32 @@ def _lookup_table(ctx):
     ctx.set_output('Out', out)
 
 
-def keep_mask(ctx, shape, keep, device, dtype=torch.bool):
-    """Bernoulli(keep) mask in ``dtype``, a pure function of (program
-    seed, step, op index, element index): the counter-based bits of
-    kernels/random_bits.py, the step read on the device."""
-    return random_bits.keep_mask(shape, keep, op_key(ctx.seed, ctx.op_index),
-                                 ctx.step_tensor(), device, dtype)
-
-
 @register('dropout')
 def _dropout(ctx):
     """dropout_op.cc semantics. downgrade_in_infer (the default): train
     out = x * mask, test out = x * (1 - p); upscale_in_train: train
-    out = x * mask / (1 - p), test out = x. The mask is written by hand:
-    torch's dropout always scales in training."""
+    out = x * mask / (1 - p), test out = x. In training the keep bits are
+    the counter-based ones of kernels/random_bits.py, a pure function of
+    (program seed, step, op index, element index), the step read on the
+    device: one fused pass draws and applies them, and the backward draws
+    them again, so no mask is made. The Mask output is written only where
+    something reads it (a later op, a fetch or the scope), with the same
+    bits, in x's dtype."""
     x = ctx.input('X')
     p = ctx.attr('dropout_prob', 0.5)
     impl = ctx.attr('dropout_implementation', 'downgrade_in_infer')
     if ctx.attr('is_test', False) or ctx.is_test:
         out = x * (1.0 - p) if impl == 'downgrade_in_infer' else x
-        mask = torch.ones_like(x)
-    else:
-        mask = keep_mask(ctx, x.shape, 1.0 - p, x.device, x.dtype)
-        out = x * mask
-        if impl == 'upscale_in_train' and p < 1.0:
-            out = out / (1.0 - p)
-    ctx.set_output('Mask', mask)
-    ctx.set_output('Out', out)
+        ctx.set_output('Mask', torch.ones_like(x))
+        ctx.set_output('Out', out)
+        return
+    key, step = op_key(ctx.seed, ctx.op_index), ctx.step_tensor()
+    mode = 'mul_div' if impl == 'upscale_in_train' and p < 1.0 else 'mul'
+    ctx.set_output('Out', random_bits.DropoutApply.apply(x, mode, 1.0 - p,
+                                                         key, step))
+    if ctx.output_read('Mask'):
+        ctx.set_output('Mask', random_bits.keep_mask(
+            x.shape, 1.0 - p, key, step, x.device, x.dtype))
 
 
 def _ls_ce_rows(logits, label):

@@ -10,8 +10,9 @@ attention Function (K2 forward, K3 backward on the card) and every layer
 norm is K1 and its backward. Each layer has 4 dropout sites in the encoder
 and 6 in the decoder; site s of layer l keeps where the counter-based bits
 of key ``mix32(op_key(seed, op) ^ (l * n_sites + s))`` at the executor's
-step say so (kernels/random_bits.py), computed on the device, so a
-captured step, an eager one and run_steps draw the same masks.
+step say so (kernels/random_bits.py), drawn on the device inside one fused
+dropout pass forward and again in the backward, so a captured step, an
+eager one and run_steps draw the same bits and no mask is made.
 
 ``transformer_greedy_decode`` and ``transformer_beam_decode`` decode with
 per-layer key/value caches: a Python loop over output positions, each
@@ -75,10 +76,12 @@ class _Sites(object):
         self.key = op_key(ctx.seed, ctx.op_index)
         self.step = ctx.step_tensor()
 
-    def mask(self, layer, site, like, dtype):
+    def drop(self, x, layer, site, mode):
+        """Site s of layer l's dropout of x in ``mode`` (kernels/
+        random_bits.py DropoutApply): one fused pass, no mask made."""
         key = mix32(self.key ^ (layer * self.n_sites + site))
-        return random_bits.keep_mask(like.shape, 1.0 - self.rate, key,
-                                     self.step, like.device, dtype)
+        return random_bits.DropoutApply.apply(x, mode, 1.0 - self.rate, key,
+                                              self.step)
 
 
 def _dropout(x, sites, layer, site, is_test):
@@ -88,7 +91,7 @@ def _dropout(x, sites, layer, site, is_test):
         return x
     if is_test:
         return x * (1.0 - sites.rate)
-    return x * sites.mask(layer, site, x, x.dtype)
+    return sites.drop(x, layer, site, 'mul')
 
 
 def _post_process(prev, out, p, sites, layer, site, is_test, ln_slot):
@@ -105,10 +108,7 @@ def _attn(x, mem, p, pre, n_head, causal, key_length, sites, layer, site,
     if sites is not None and not is_test:
         # the attention output's dropout scales by 1 / keep, as the
         # fused_attention op's does
-        keep = 1.0 - sites.rate
-        mask = sites.mask(layer, site, out, torch.bool)
-        out = torch.where(mask, out / keep, torch.zeros((), dtype=out.dtype,
-                                                        device=out.device))
+        out = sites.drop(out, layer, site, 'where_div')
     return out @ p[pre + '_o']
 
 

@@ -1204,6 +1204,131 @@ def test_keep_mask_kernel_matches_plain(cuda, dtype):
             assert abs(share - 0.9) < 1e-3
 
 
+def _raw_bits(t):
+    return t.contiguous().view(torch.int32 if t.dtype == torch.float32
+                               else torch.int16)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('mode', ['mul', 'mul_div', 'where_div'])
+def test_dropout_kernel_matches_plain(cuda, mode, dtype):
+    """The fused dropout kernel against its plain version on the card
+    (torch's own expression, its keep bits from keep_bits_reference), bit
+    for bit forward and backward, at the Transformer's dropout shapes, a
+    ragged size and a copy one element into its storage (not 16-byte
+    aligned: the scalar path), with ±0, ±inf and NaN among the inputs, at
+    two steps; each call one launch of its direction, no mask written."""
+    from paddle_tpu_torch.ops.kernels import random_bits as rb
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    special = torch.tensor([0.0, -0.0, float('inf'), -float('inf'),
+                            float('nan'), 1e-30, -3.5], device=cuda)
+    for shape in [(64, 64, 2048), (64, 64, 512), (3, 5, 7)]:
+        n = int(np.prod(shape))
+        for step_value in (0, 9):
+            step = torch.tensor(step_value, dtype=torch.int64, device=cuda)
+            x = torch.randn(n, generator=gen, device=cuda)
+            x[:7] = special
+            x = x.to(dtype).reshape(shape)
+            for backward in (False, True):
+                before = (rb.fused_dropout.launches,
+                          rb.fused_dropout.bwd_launches,
+                          rb.keep_mask.launches)
+                got = rb.fused_dropout(x, mode, 0.9, 0x2468ace, step,
+                                       backward=backward)
+                assert (rb.fused_dropout.launches,
+                        rb.fused_dropout.bwd_launches,
+                        rb.keep_mask.launches) == (
+                    before[0] + (not backward), before[1] + backward,
+                    before[2])
+                want = rb.dropout_reference(x, mode, 0.9, 0x2468ace, step,
+                                            backward=backward)
+                assert got.dtype == dtype and got.shape == x.shape
+                assert torch.equal(_raw_bits(got), _raw_bits(want)), \
+                    (shape, step_value, backward)
+        buf = torch.randn(n + 1, generator=gen, device=cuda).to(dtype)
+        odd = buf[1:].view(shape)
+        assert odd.data_ptr() % 16 != 0
+        for backward in (False, True):
+            got = rb.fused_dropout(odd, mode, 0.9, 5, step, backward)
+            want = rb.dropout_reference(odd, mode, 0.9, 5, step, backward)
+            assert torch.equal(_raw_bits(got), _raw_bits(want))
+    with pytest.raises(TypeError):
+        rb.fused_dropout(x.half(), mode, 0.9, 1, step)
+    with pytest.raises(TypeError):
+        rb.fused_dropout(x.transpose(0, 1), mode, 0.9, 1, step)
+
+
+def test_dropout_kernel_captured_equals_eager(cuda):
+    """The fused dropout launched inside a CUDA graph reads the step on
+    the device: each replay after a step change equals an eager launch at
+    that step, forward and backward, bf16."""
+    from paddle_tpu_torch.ops.kernels import random_bits as rb
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn(64, 64, 512, generator=gen, device=cuda).to(
+        torch.bfloat16)
+    step = torch.tensor(0, dtype=torch.int64, device=cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        rb.fused_dropout(x, 'mul_div', 0.9, 77, step)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fwd = rb.fused_dropout(x, 'mul_div', 0.9, 77, step)
+        bwd = rb.fused_dropout(x, 'mul_div', 0.9, 77, step, backward=True)
+    outs = []
+    for s in (3, 4):
+        step.fill_(s)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(fwd, rb.fused_dropout(x, 'mul_div', 0.9, 77,
+                                                 step))
+        assert torch.equal(bwd, rb.fused_dropout(x, 'mul_div', 0.9, 77, step,
+                                                 backward=True))
+        outs.append(fwd.clone())
+    assert not torch.equal(outs[0], outs[1])
+
+
+def test_dropout_training_on_card_equals_host(cuda):
+    """A 2-layer Transformer at fp32 and dropout 0.1, 3 Adam steps from
+    the same weights on the card and on the host: the same keep bits on
+    both (losses to 1e-5 relative, parameters within Adam's
+    2·lr·steps, as at dropout 0); the card's steps ran the fused dropout
+    (forward and backward, 2 · 4 + 2 · 6 + 2 sites a step) and drew no
+    mask."""
+    from paddle_tpu_torch.ops.kernels import random_bits as rb
+    from paddle_tpu_torch.weights import load_into_scope
+    avg_cost, feed = _small_transformer(0.1)
+    main = pt.default_main_program()
+    host = pt.Scope()
+    with pt.scope_guard(host):
+        pt.Executor(pt.CPUPlace()).run(pt.default_startup_program())
+    weights = {n: host.numpy(n) for n in host.keys()}
+    losses, scopes = [], []
+    for place in (pt.CUDAPlace(0), pt.CPUPlace()):
+        scope = pt.Scope()
+        load_into_scope(weights, scope, place)
+        before = (rb.fused_dropout.launches, rb.fused_dropout.bwd_launches,
+                  rb.keep_mask.launches)
+        with pt.scope_guard(scope):
+            exe = pt.Executor(place)
+            losses.append([float(exe.run(main, feed=feed,
+                                         fetch_list=[avg_cost])[0])
+                           for _ in range(3)])
+        if isinstance(place, pt.CUDAPlace):
+            sites = 2 * 4 + 2 * 6 + 2
+            assert (rb.fused_dropout.launches - before[0],
+                    rb.fused_dropout.bwd_launches - before[1],
+                    rb.keep_mask.launches - before[2]) == (
+                3 * sites, 3 * sites, 0)
+        scopes.append(scope)
+    np.testing.assert_allclose(losses[0], losses[1], rtol=1e-5)
+    for p in main.all_parameters():
+        if p.trainable:
+            gap = np.abs(scopes[0].numpy(p.name) - scopes[1].numpy(p.name))
+            assert gap.max() <= 2 * 1e-3 * 3, p.name
+
+
 def _snapshot(scope):
     return {n: scope.find(n).detach().clone() for n in scope.keys()}
 

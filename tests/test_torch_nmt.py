@@ -334,14 +334,15 @@ def test_scan_layers_dropout_invariants():
     ctx = types.SimpleNamespace(seed=3, op_index=5,
                                 step_tensor=lambda: torch.tensor(2))
     sites = tto._Sites(ctx, 0.25, 6)
-    like = torch.empty(64, 256)
-    masks = [sites.mask(layer, site, like, torch.float32)
+    # a site's dropout of ones is its mask
+    ones = torch.ones(64, 256)
+    masks = [sites.drop(ones, layer, site, 'mul')
              for layer in range(2) for site in range(6)]
     for i in range(len(masks)):
         assert abs(float(masks[i].mean()) - 0.75) < 0.01
         for j in range(i):
             assert not torch.equal(masks[i], masks[j])
-    again = tto._Sites(ctx, 0.25, 6).mask(1, 4, like, torch.float32)
+    again = tto._Sites(ctx, 0.25, 6).drop(ones, 1, 4, 'mul')
     assert torch.equal(again, masks[6 + 4])
 
 
