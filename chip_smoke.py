@@ -61,8 +61,15 @@ Phases (any fault exits non-zero; no phase is skipped over):
    Head dims above 256: K2 and K3 at D = 320 (the wide SIMT kernels, fp32
    causal and bf16 with kv_len-0 rows) and K4's any-width kernel at
    D = Dv = 320 (fp32, bf16). The captured step's kernels, bit for bit
-   with their plain versions: the KV write at a decode step's rows (16,
-   13 kept) into fp32, bf16, int8 and e4m3 arenas, the keep mask at
+   with their plain versions: the stand-alone KV write at a decode step's
+   rows (16, 13 kept) into fp32, bf16, int8 and e4m3 arenas and at the
+   512-row prefill (fp32, int8); the KV write folded into K4's launch
+   (the decode and verify steps on fp32 arenas) at the decode step's rows
+   into fp32 and bf16 arenas and the verify step's 64 rows (fp32): arenas
+   bit for bit with kv_write_reference, the rows that read only kept rows
+   bit for bit with the unfused K4 after it, within K4's tolerances of
+   both plain versions, timed beside K4 alone on the same inputs; the
+   keep mask at
    the Transformer's dropout shapes, and the fused dropout at [64, 64,
    2048] and [64, 64, 512] in bf16 and fp32, each mode (mul, mul_div,
    where_div) forward and backward, beside F.dropout (forward, its own
@@ -90,7 +97,10 @@ Phases (any fault exits non-zero; no phase is skipped over):
    completes, 4 greedy streams re-run alone equal their concurrent
    runs, pages return after drain, and the kernels' launch counters
    grew by 2*L (layer norm) and L (paged attention) per prefill and
-   decode step of the run.
+   decode step of the run: on fp32 arenas every decode and verify layer's
+   KV write folded into its paged-attention launch, every prefill layer's
+   a stand-alone KV-write launch (and every layer's on the arenas that
+   convert the rows: int8, fp8).
 5. Card vs CPU: the same port on CPUPlace() (plain versions), 2 prompts x
    16 greedy tokens, must give the card's token streams.
 5a. Decode extras at the same width: 32 requests from 16 clients, each
@@ -658,20 +668,9 @@ def _paged_case(torch, card, label, q, kp, vp, tables, lens, ks=None,
     err = max(errs)
     nb, h, bs, d = kp.shape
     n, p = tables.shape
-    lens_h = lens.cpu().numpy().astype(np.int64)
-    tab_h = tables.cpu().numpy()
-    npages = np.minimum(-(-lens_h // bs), p)
-    pages = set()
-    for i in range(n):
-        pages.update(np.clip(tab_h[i, :npages[i]], 0, nb - 1).tolist())
-    item = kp.element_size()
     dv = vp.shape[-1]
-    # the pages the rows touch (their K and V rows and, quantized, their
-    # row scales), q, the output, the table entries read and the lengths
-    n_bytes = (len(pages) * h * bs * ((d + dv) * item +
-                                      (8 if ks is not None else 0)) +
-               n * h * (d + dv) * 4 + int(npages.sum()) * 4 + n * 4)
-    n_ops = int(lens_h.sum()) * h * (2 * d + 2 * dv + 5)
+    n_bytes = _paged_bytes(kp, vp, tables, lens, ks is not None)
+    n_ops = int(lens.sum()) * h * (2 * d + 2 * dv + 5)
     lo, by = bound_ms(n_bytes, n_ops)
     ms = device_ms(torch, lambda: K.paged_attention(q, kp, vp, tables,
                                                     lens, **kw))
@@ -1132,7 +1131,8 @@ def phase_flash_kernels(torch, card):
 
 def paged_shapes(torch):
     """Phase 3's paged-attention cases: (key, label, page dtype, rows,
-    lengths, broadcast table, empty rows). 'engine' is the kernels line's."""
+    lengths, broadcast table, empty rows). 'prefill512 float32' is the
+    kernels line's."""
     decode_lens = [1, 2, 31, 32, 33, 64, 65, 200, 576, 1000, 1500, 2047,
                    2048, 1, 1, 1]
     cases = []
@@ -1255,8 +1255,10 @@ def phase_kernels(torch, card):
             torch.cuda.empty_cache()
     _paged_row_independence(torch, card, gen)
     _row_tile_check(torch, card, gen)
+    # the fp32 K4 launches without the write on the main path are the
+    # prefills' (the steps fold the write in)
     return (ln[(16, 512, torch.float32)], ln_bwd[(4096, 512, torch.float32)],
-            pa['engine'], q8)
+            pa['prefill512 float32'], q8)
 
 
 def _bn_case(torch, card, label, x, layout, gen):
@@ -1431,6 +1433,99 @@ def _bn_grad_check(torch, card, gen):
             'version')
 
 
+def write_inputs(torch, gen, kind, kv_dtype, src=None, h=8, d=64, bs=32,
+                 p=64, nb=4096):
+    """A decode layer's KV write and attention inputs on the card, as the
+    decode ops make them (``kind``): 'decode' (16 rows at the engine run's
+    positions 64..576, the last 3 empty slots: length 0, every entry >= NB,
+    their writes dropped), 'verify' (16 sequences x k+1 = 4 rows at
+    64..579) or 'prefill512' (512 rows of one broadcast table row, nothing
+    cached: every key a row reads is one this call writes). New rows in
+    ``src`` (fp32 by default, the engine's); random arenas (int8 / e4m3
+    ones quantized row by row, with their scales); phys, off and keep as
+    ops/paged_decode_ops.write_slots computes them (here by hand, so that
+    a checkout without it, a parent, takes the same inputs). Returns a
+    dict of the tensors."""
+    from paddle_tpu_torch.quant.core import quantize_rows
+    dev = torch.device('cuda', 0)
+    src = torch.float32 if src is None else src
+    engine = np.linspace(64, 576, 16).astype(int).tolist()
+    perm = torch.randperm(nb, generator=gen, device=dev).to(torch.int32)
+    if kind == 'prefill512':
+        s = 512
+        row = perm[:p].clone()
+        row[-(-s // bs):] = nb          # "no page" past the owned pages
+        tables = row.expand(s, p)
+        pos = torch.arange(s, dtype=torch.int32, device=dev)
+        live = torch.ones_like(pos, dtype=torch.bool)
+        fresh_lo, fresh_src = torch.zeros_like(pos), torch.zeros_like(pos)
+    else:
+        k1 = 4 if kind == 'verify' else 1
+        tables = perm[:16 * p].reshape(16, p).clone()
+        for i, ln in enumerate(engine):
+            tables[i, -(-(ln + k1) // bs):] = nb + 7
+        lens = list(engine)
+        if kind == 'decode':
+            for i in (13, 14, 15):
+                tables[i], lens[i] = nb, 0
+        rep = torch.arange(16, device=dev).repeat_interleave(k1)
+        fresh_lo = torch.tensor(lens, dtype=torch.int32, device=dev)[rep]
+        pos = fresh_lo + torch.arange(k1, dtype=torch.int32,
+                                      device=dev).repeat(16)
+        tables = tables[rep].contiguous()
+        live = torch.ones_like(pos, dtype=torch.bool)
+        fresh_src = (rep * k1).to(torch.int32)
+    n = pos.shape[0]
+    logical = torch.clamp(pos // bs, 0, p - 1)
+    phys = torch.gather(tables, 1, logical[:, None].long())[:, 0] \
+        .to(torch.int32).contiguous()
+    keep = ((pos < p * bs) & live & (phys >= 0) & (phys < nb)).contiguous()
+    t = dict(q=torch.randn(n, h, d, generator=gen, device=dev),
+             k_new=(3 * torch.randn(n, h, d, generator=gen,
+                                    device=dev)).to(src),
+             v_new=torch.randn(n, h, d, generator=gen, device=dev).to(src),
+             tables=tables, lens=(pos + 1).contiguous(), phys=phys,
+             off=(pos % bs).to(torch.int32).contiguous(), keep=keep,
+             fresh_lo=fresh_lo.contiguous(),
+             fresh_src=fresh_src.contiguous())
+    kf = torch.randn(nb, h, bs, d, generator=gen, device=dev)
+    vf = torch.randn(nb, h, bs, d, generator=gen, device=dev)
+    if kv_dtype in ('int8', 'float8_e4m3fn'):
+        t['kp'], t['ks'] = quantize_rows(kf, kv_dtype)
+        t['vp'], t['vs'] = quantize_rows(vf, kv_dtype)
+    else:
+        dt = getattr(torch, kv_dtype)
+        t['kp'], t['vp'], t['ks'], t['vs'] = kf.to(dt), vf.to(dt), None, None
+    return t
+
+
+def _write_args(t, kp=None, vp=None):
+    """paged_attention_write's arguments over the given arenas (t's by
+    default)."""
+    kp = t['kp'] if kp is None else kp
+    vp = t['vp'] if vp is None else vp
+    return (t['q'], t['k_new'], t['v_new'], kp, vp, t['tables'], t['lens'],
+            t['phys'], t['off'], t['keep'], t['fresh_lo'], t['fresh_src'])
+
+
+def _paged_bytes(kp, vp, tables, lens, quant):
+    """K4's least bytes: the pages its rows touch (K and V rows and,
+    quantized, their row scales), q, the output, the table entries read
+    and the lengths."""
+    nb, h, bs, d = kp.shape
+    dv = vp.shape[-1]
+    n, p = tables.shape
+    lens_h = lens.cpu().numpy().astype(np.int64)
+    tab_h = tables.cpu().numpy()
+    npages = np.minimum(-(-lens_h // bs), p)
+    pages = set()
+    for i in range(n):
+        pages.update(np.clip(tab_h[i, :npages[i]], 0, nb - 1).tolist())
+    item = kp.element_size()
+    return (len(pages) * h * bs * ((d + dv) * item + (8 if quant else 0)) +
+            n * h * (d + dv) * 4 + int(npages.sum()) * 4 + n * 4)
+
+
 def _kv_write_case(torch, card, label, kv_dtype, gen, n=16, h=8, d=64,
                    nb=4096, bs=32):
     """The KV-write kernel against its plain version, bit for bit, at a
@@ -1498,6 +1593,99 @@ def _kv_write_case(torch, card, label, kv_dtype, gen, n=16, h=8, d=64,
                     eager, card))
     require(ok, 'kv_write %s disagrees with its plain version' % label)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=lo,
+                bound_by=by, library_ms=None, eager_ms=eager)
+
+
+def _paged_write_case(torch, card, label, kind, kv_dtype, gen):
+    """The KV write folded into K4's split launch against its plain
+    versions on one row set, new rows of the arena's dtype: the arenas bit
+    for bit with kv_write_reference, the rows that read only kept rows bit
+    for bit with the unfused K4 run after that write and within K4's
+    tolerances of both plain versions of the whole function
+    (kv_write_reference then paged_attention_reference, and the
+    kernel-order one); its time beside K4 alone on the same inputs, and
+    its bound (K4's bytes and the write's) and the write's own."""
+    from paddle_tpu_torch.ops.kernels import paged_attention as K
+    t = write_inputs(torch, gen, kind, kv_dtype, src=getattr(torch,
+                                                             kv_dtype))
+
+    def arenas():
+        return [t['kp'].clone(), t['vp'].clone()]
+    want = arenas()
+    K.kv_write_reference(t['k_new'], t['v_new'], want[0], want[1],
+                         t['phys'], t['off'], t['keep'])
+    unfused = K.paged_attention(t['q'], want[0], want[1], t['tables'],
+                                t['lens'])
+    one_pass = K.paged_attention_reference(
+        t['q'], want[0], want[1], t['tables'], t['lens']).float()
+    got = arenas()
+    f = K.paged_attention
+    before = (f.launches, f.launches_write)
+    out = K.paged_attention_write(*_write_args(t, *got))
+    require((f.launches - before[0], f.launches_write - before[1]) == (1, 1),
+            '%s: not one launch that wrote' % label)
+    split = K.paged_attention_write_split_reference(
+        *_write_args(t, *arenas()))
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    # rows whose every fresh position is a kept write (all but the empty
+    # slots, whose output no caller reads)
+    ok = t['keep'].clone()
+    if kind == 'verify':
+        ok &= t['keep'].reshape(-1, 4).cumprod(dim=1).bool().reshape(-1)
+    bits = bool(torch.equal(out[ok], unfused[ok]))
+    errs = [float((out[ok] - r[ok]).abs().max()) for r in (one_pass, split)]
+    if kv_dtype == 'float32':
+        tol = '5e-5 (fp32)'
+        close = all(e <= 5e-5 for e in errs)
+    else:
+        tol = '2e-2 + 2e-2*|plain| (bf16)'
+        close = all(bool(((out[ok] - r[ok]).abs() <=
+                          2e-2 + 2e-2 * r[ok].abs()).all())
+                    for r in (one_pass, split))
+    del want, got, unfused, one_pass, split
+    n, h, d = t['q'].shape
+    kept = int(t['keep'].sum())
+    item = t['kp'].element_size()
+    # the write alone: each kept row's K and V read once and written once,
+    # and phys, off, keep, fresh_lo and fresh_src read
+    w_bytes = kept * h * 2 * d * 2 * item + n * 17
+    w_ops = kept * h * 2 * d
+    w_lo, _ = bound_ms(w_bytes, w_ops)
+    k4_bytes = _paged_bytes(t['kp'], t['vp'], t['tables'], t['lens'], False)
+    k4_ops = int(t['lens'].sum()) * h * (4 * d + 5)
+    lo, by = bound_ms(k4_bytes + w_bytes, k4_ops + w_ops)
+    args = _write_args(t)
+    ms = device_ms(torch, lambda: K.paged_attention_write(*args))
+    k4 = device_ms(torch, lambda: K.paged_attention(
+        t['q'], t['kp'], t['vp'], t['tables'], t['lens']))
+    eager = eager_ms(torch, lambda: K.paged_attention_write(*args))
+    # the plain version picks the kept rows with torch.nonzero, a host
+    # read: it cannot be captured, so it is timed eagerly (CUDA events
+    # over back-to-back calls)
+
+    def plain_fn():
+        K.kv_write_reference(t['k_new'], t['v_new'], t['kp'], t['vp'],
+                             t['phys'], t['off'], t['keep'])
+        K.paged_attention_reference(t['q'], t['kp'], t['vp'], t['tables'],
+                                    t['lens'])
+    plain = eager_ms(torch, plain_fn, iters=20, warmup=2)
+    print('paged_attention_write %s: %d rows (%d kept) x H=%d x D=%d, %s '
+          'arenas and rows: arenas bit for bit with kv_write_reference %s; '
+          'the %d rows that read only kept rows bit for bit with the unfused '
+          'K4 after that write %s, max_abs_err %s vs write-then-attend and '
+          'the kernel-order plain version (%s) %s; device ms: fused %.5f, K4 '
+          'alone %.5f (the write: %+.5f), bound %.6f (%s; the write\'s own '
+          '%.6f), plain %.5f (eager: a host read); fused eager %.5f ms; no '
+          'single PyTorch call [%s]'
+          % (label, n, kept, h, d, kv_dtype, 'ok' if same else 'MISMATCH',
+             int(ok.sum()), 'ok' if bits else 'MISMATCH',
+             ' / '.join('%.3g' % e for e in errs), tol,
+             'ok' if close else 'MISMATCH', ms, k4, ms - k4, lo, by, w_lo,
+             plain, eager, card))
+    require(same and bits and close,
+            '%s disagrees with its plain versions' % label)
+    return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain, bound_ms=lo,
                 bound_by=by, library_ms=None, eager_ms=eager)
 
 
@@ -1598,16 +1786,28 @@ def _dropout_case(torch, card, shape, dtype, mode, backward, gen):
 
 
 def phase_step_kernels(torch, card):
-    """The captured step's kernels: the KV write at the engine's decode
-    rows (fp32, bf16, int8 and e4m3 arenas), the keep mask and the fused
-    dropout (each mode, forward and backward) at the Transformer's dropout
-    shapes; returns the kernels line's (fp32 KV write, the FFN's bf16
-    mask, the FFN's bf16 dropout forward and backward, mode 'mul')."""
+    """The captured step's kernels: the stand-alone KV write at the
+    decode step's rows (fp32, bf16, int8 and e4m3 arenas) and the 512-row
+    prefill's (fp32, int8); the KV write folded into K4's launch at the
+    decode step's rows (fp32 and bf16 arenas, rows of their dtype) and the
+    verify step's (fp32); the keep mask and the fused dropout (each mode,
+    forward and backward) at the Transformer's dropout shapes; returns the
+    kernels line's (the int8 decode step's stand-alone write, the fp32
+    decode step's folded launch, the FFN's bf16 mask, the FFN's bf16
+    dropout forward and backward, mode 'mul')."""
     gen = torch.Generator(device='cuda').manual_seed(5)
-    kv = {}
+    kvw = {}
     for kv_dtype in ('float32', 'bfloat16', 'int8', 'float8_e4m3fn'):
-        kv[kv_dtype] = _kv_write_case(torch, card, 'decode step', kv_dtype,
-                                      gen)
+        kvw[kv_dtype] = _kv_write_case(torch, card, 'decode step', kv_dtype,
+                                       gen)
+    for kv_dtype in ('float32', 'int8'):
+        _kv_write_case(torch, card, 'prefill', kv_dtype, gen, n=512)
+        torch.cuda.empty_cache()
+    fused = {}
+    for kind, kv_dtype in (('decode', 'float32'), ('decode', 'bfloat16'),
+                           ('verify', 'float32')):
+        fused[kind, kv_dtype] = _paged_write_case(
+            torch, card, '%s %s' % (kind, kv_dtype), kind, kv_dtype, gen)
         torch.cuda.empty_cache()
     _keep_mask_case(torch, card, (64, 64, 512), torch.bfloat16)
     mask = _keep_mask_case(torch, card, (64, 64, 2048), torch.bfloat16)
@@ -1625,7 +1825,8 @@ def phase_step_kernels(torch, card):
                     torch, card, shape, dtype, mode, backward, gen)
         torch.cuda.empty_cache()
     ffn = ((64, 64, 2048), torch.bfloat16, 'mul')
-    return kv['float32'], mask, drop[ffn + (False,)], drop[ffn + (True,)]
+    return (kvw['int8'], fused['decode', 'float32'], mask,
+            drop[ffn + (False,)], drop[ffn + (True,)])
 
 
 # ------------------------------------------------------ phase 3: sparse_rows
@@ -2192,12 +2393,20 @@ def phase_engine(torch, spec, engine_kw, reqs, place, card, on_card,
                  eng.spec_drafted, eng.spec_accepted,
                  stats['mean_accepted']))
     q8 = launches['paged_attention_q8']
+    wrote = launches['paged_attention_write']
+    # the decode and verify steps fold the write into K4's launch on fp32
+    # arenas (the LM's rows are fp32); the prefills, and every op on the
+    # arenas that convert, launch the stand-alone write
+    folds = layers * (steps[1] + steps[2]) if eng.kv_dtype == 'float32' \
+        else 0
     print('launches in the run: layer_norm %d (= 2*%d*%d runs: %s), '
-          'paged_attention %d (= %d*%d runs: %s), quantized %d'
+          'paged_attention %d (= %d*%d runs: %s), quantized %d, with the KV '
+          'write folded in %d (want %d), stand-alone KV write %d (want %d)'
           % (launches['layer_norm'], layers, runs,
              launches['layer_norm'] == 2 * layers * runs,
              launches['paged_attention'], layers, runs,
-             launches['paged_attention'] == layers * runs, q8))
+             launches['paged_attention'] == layers * runs, q8, wrote, folds,
+             launches['kv_write'], layers * runs - folds))
     if on_card:
         print('max_memory_allocated: %.3f GB [%s]'
               % (torch.cuda.max_memory_allocated() / 1e9, card))
@@ -2206,9 +2415,14 @@ def phase_engine(torch, spec, engine_kw, reqs, place, card, on_card,
                 '%s: a kernel of the path was never launched: %s'
                 % (label, launches))
         require(launches['layer_norm'] == 2 * layers * runs and
-                launches['paged_attention'] == layers * runs,
+                launches['paged_attention'] == layers * runs and
+                wrote == folds and
+                launches['kv_write'] == layers * runs - folds,
                 '%s: launch counts %s do not match %d prefills + decode '
-                'and verify steps' % (label, launches, runs))
+                'and verify steps, each layer\'s KV write folded into its '
+                'paged-attention launch on the %d decode and verify layers '
+                'that fold and stand-alone on the others'
+                % (label, launches, runs, folds))
         quantized = eng.kv_dtype in ('int8', 'float8_e4m3fn')
         require(q8 == (layers * runs if quantized else 0),
                 '%s: %d quantized paged-attention launches, want %d'
@@ -4026,11 +4240,19 @@ def _disagg_leg(torch, spec, geom, reqs, want, place, card, on_card,
             require(n_dec > 0, 'phase 14 %s: decode replica %s ran no '
                     'decode step' % (tag, e.name))
     layers = spec.n_layer
+    # decode steps on fp32 arenas fold the KV write into K4's launch;
+    # prefills launch the stand-alone write
+    folds = layers * sum(b for e, (_, b) in zip(engines, steps)
+                         if e.kv_dtype == 'float32')
     if on_card:
         require(launches['layer_norm'] == 2 * layers * runs and
-                launches['paged_attention'] == layers * runs,
+                launches['paged_attention'] == layers * runs and
+                launches['paged_attention_write'] == folds and
+                launches['kv_write'] == layers * runs - folds,
                 'phase 14 %s: launches %s do not match %d prefills and '
-                'steps of the three engines' % (tag, launches, runs))
+                'steps of the three engines, %d of them with the KV write '
+                'folded into K4\'s launch, the others with the stand-alone '
+                'write' % (tag, launches, runs, folds))
     n_tok = sum(len(r) for r in results)
     stats_out = dict(
         tokens_per_s=n_tok / wall, wall_s=wall, ready_s=t_ready,
@@ -4705,7 +4927,8 @@ def main():
     done('3 (K1, K4)')
     fa_fwd, fa_bwd = phase_flash_kernels(torch, card)
     bn, bn_bwd = phase_bn_kernels(torch, card)
-    kvw, mask, drop_fwd, drop_bwd = phase_step_kernels(torch, card)
+    kvw, pa_write, mask, drop_fwd, drop_bwd = phase_step_kernels(torch,
+                                                                  card)
     sparse = phase_sparse_kernels(torch, card)
     done('3 (K2, K3, K5, KV write, keep mask, dropout, sparse rows)')
     if args.kernels_only:
@@ -4886,8 +5109,12 @@ def main():
         dict(name='paged_attention', route='cuda',
              source='paddle_tpu_torch/csrc/paged_attention.cu',
              replaces='paddle_tpu/ops/pallas/paged_attention.py:86',
-             launches=runs('paged_attention') - runs('paged_attention_q8'),
-             **pa),
+             launches=runs('paged_attention') - runs('paged_attention_q8') -
+             runs('paged_attention_write'), **pa),
+        dict(name='paged_attention_write', route='cuda',
+             source='paddle_tpu_torch/csrc/paged_attention.cu',
+             replaces='paddle_tpu/ops/pallas/paged_attention.py:86',
+             launches=runs('paged_attention_write'), **pa_write),
         dict(name='paged_attention_int8', route='cuda',
              source='paddle_tpu_torch/csrc/paged_attention.cu',
              replaces='paddle_tpu/ops/pallas/paged_attention.py:50',

@@ -10,6 +10,8 @@ have (a backward kernel before it was written) is reported as such.
     python3 kernel_times.py [DIR]           # on a machine with one CUDA card
     python3 kernel_times.py [DIR] --decode  # the decode step instead
     python3 kernel_times.py [DIR] --train   # the Transformer's steps instead
+    python3 kernel_times.py [DIR] --write   # a layer's KV write and K4
+    python3 kernel_times.py [DIR] --serve   # the engine's tokens/s, TTFT
 
 DIR (default: this checkout) holds the ``paddle_tpu_torch`` package to
 time; the shapes, the inputs and the timer (CUDA-graph replay, CUDA events)
@@ -18,7 +20,8 @@ earlier one (``git archive <commit> | tar -x -C DIR``) and run both back to
 back on the same card, each twice: earlier, this, this, earlier.
 
 With --decode, it builds DIR's DecodeEngine at chip_smoke.py's full width
-(fp32 arenas) and profiles 20 decode steps with every slot busy, as
+and profiles 20 decode steps with every slot busy on fp32 arenas, 20
+verify steps (spec_k = 3) and 20 decode steps on int8 arenas, as
 chip_smoke.py --profile does (wall, device busy, launches a step), in
 place of the kernel cases.
 
@@ -30,6 +33,23 @@ the host clock, peak memory above what was allocated before the first
 step), then profiles 5 steps of each as chip_smoke.py --profile does
 (device busy time a step, by kernel family), and times DIR's keep-mask
 kernel at the Transformer's two dropout shapes.
+
+With --write, it times one decode layer's KV write and paged attention
+on chip_smoke.py's write_inputs (the decode step's 16 rows at fp32, bf16,
+int8 and e4m3 arenas, bf16 rows into the bf16 one, fp32 rows into the
+others; the verify step's 64 rows and the 512-row prefill at fp32 and
+int8) as DIR's decode op runs them: through its write_attend where it has
+one (the write folded into K4's launch where the op folds it, else
+kv_write then paged_attention), else kv_write then paged_attention; K4
+alone on the same inputs; and, where DIR has paged_attention_write, that
+launch on every case whose rows have the arena's dtype, the prefill's
+among them.
+
+With --serve, it builds DIR's DecodeEngine at chip_smoke.py's full width
+on fp32 and on int8 arenas and serves chip_smoke.py's phase-4 requests
+(32 prompts of 64-512 tokens, 64 new tokens) from 16 threads, as that
+phase does, three times an engine: tokens/s and TTFT p50 and p99 on the
+host's clock.
 
 Nothing is checked here: chip_smoke.py holds each kernel against its plain
 versions. Prints one line a case, then nvidia-smi's name and power limit,
@@ -45,16 +65,23 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 
 
 def decode_step(torch, smoke, card):
-    """Profile DIR's decode step at chip_smoke.py's engine width."""
+    """Profile DIR's decode step at chip_smoke.py's engine width (fp32
+    arenas), its verify step (spec_k = 3) and its decode step on int8
+    arenas, one engine at a time."""
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.serving.decode import DecodeEngine, LMSpec
     spec = LMSpec(vocab_size=32000, n_layer=12, n_head=8, d_key=64,
                   d_value=64, d_model=512, d_inner=2048)
-    eng = DecodeEngine(spec, max_batch=16, block_size=32, num_blocks=4096,
-                       pages_per_seq=64, place=pt.CUDAPlace(0),
-                       weights=smoke.lm_weights(spec))
-    eng.warmup()
-    smoke.profile_steps(torch, card, [smoke._decode_job(eng, spec)])
+    weights = smoke.lm_weights(spec)
+    for kw, k in ((dict(), 0), (dict(spec_k=3), 3),
+                  (dict(kv_dtype='int8'), 0)):
+        eng = DecodeEngine(spec, max_batch=16, block_size=32,
+                           num_blocks=4096, pages_per_seq=64,
+                           place=pt.CUDAPlace(0), weights=weights, **kw)
+        eng.warmup()
+        smoke.profile_steps(torch, card, [smoke._decode_job(eng, spec, k=k)])
+        del eng
+        torch.cuda.empty_cache()
 
 
 def train_steps(torch, smoke, card, steps=20):
@@ -118,8 +145,130 @@ def train_steps(torch, smoke, card, steps=20):
     return ms
 
 
+def write_layers(torch, smoke, card):
+    """--write: DIR's KV write and attention of one layer; {label: ms}."""
+    from paddle_tpu_torch.ops import paged_decode_ops as ops
+    from paddle_tpu_torch.ops.kernels import paged_attention as pa
+    from paddle_tpu_torch.ops.kernels.kv_write import kv_write
+    fold = getattr(pa, 'paged_attention_write', None)
+    gen = torch.Generator(device='cuda').manual_seed(5)
+    ms = {}
+    for kind, dtypes in (('decode', ('float32', 'bfloat16', 'int8',
+                                     'float8_e4m3fn')),
+                         ('verify', ('float32', 'int8')),
+                         ('prefill512', ('float32', 'int8'))):
+        for kv_dtype in dtypes:
+            src = torch.bfloat16 if kv_dtype == 'bfloat16' else None
+            t = smoke.write_inputs(torch, gen, kind, kv_dtype, src=src)
+            kw = dict(k_scales=t['ks'], v_scales=t['vs'])
+            direct = t['k_new'].dtype == t['kp'].dtype
+
+            def k4():
+                return pa.paged_attention(t['q'], t['kp'], t['vp'],
+                                          t['tables'], t['lens'], **kw)
+            if hasattr(ops, 'write_attend'):
+                fresh = (t['fresh_lo'], t['fresh_src']) \
+                    if kind != 'prefill512' and direct else None
+
+                def layer():
+                    return ops.write_attend(
+                        t['q'], t['k_new'], t['v_new'], t['kp'], t['vp'],
+                        t['tables'], t['lens'], t['phys'], t['off'],
+                        t['keep'], fresh, t['ks'], t['vs'])
+                how = 'one launch, the write folded in' if fresh \
+                    else 'kv_write, then K4'
+            else:
+                def layer():
+                    kv_write(t['k_new'], t['v_new'], t['kp'], t['vp'],
+                             t['phys'], t['off'], t['keep'], t['ks'],
+                             t['vs'])
+                    return k4()
+                how = 'kv_write, then K4'
+            case = '%s %s' % (kind, kv_dtype)
+            ms['layer ' + case] = smoke.device_ms(torch, layer)
+            ms['K4 ' + case] = smoke.device_ms(torch, k4)
+            line = ('layer %s (%s): %.5f ms; K4 alone %.5f ms; the write '
+                    '%+.5f ms' % (case, how, ms['layer ' + case],
+                                  ms['K4 ' + case],
+                                  ms['layer ' + case] - ms['K4 ' + case]))
+            if fold is not None and direct:
+                args = smoke._write_args(t)
+                ms['fused ' + case] = smoke.device_ms(
+                    torch, lambda: fold(*args))
+                line += '; paged_attention_write %.5f ms (%+.5f)' % (
+                    ms['fused ' + case], ms['fused ' + case] -
+                    ms['K4 ' + case])
+            print('%s [%s]' % (line, card))
+            del t
+            torch.cuda.empty_cache()
+    return ms
+
+
+def serve(torch, smoke, card, rounds=3):
+    """--serve: DIR's engine at chip_smoke.py's width, fp32 and int8
+    arenas, phase 4's requests from 16 threads, ``rounds`` times an
+    engine; {label: number}."""
+    import threading
+    import time
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.serving.decode import DecodeEngine, LMSpec
+    spec = LMSpec(vocab_size=32000, n_layer=12, n_head=8, d_key=64,
+                  d_value=64, d_model=512, d_inner=2048)
+    weights = smoke.lm_weights(spec)
+    reqs = smoke._requests(spec, 32, 64, 512, 64)
+    out = {}
+    for kv_dtype in ('float32', 'int8'):
+        eng = DecodeEngine(spec, max_batch=16, block_size=32,
+                           num_blocks=4096, pages_per_seq=64,
+                           place=pt.CUDAPlace(0), weights=weights,
+                           kv_dtype=kv_dtype)
+        eng.warmup()
+        eng.start()
+        for rnd in range(rounds):
+            ttft, n_tok, mu = [], [0], threading.Lock()
+            steps0 = (eng.prefills, eng.decode_steps)
+
+            def client(k):
+                for i in range(k, len(reqs), 16):
+                    t_sub = time.perf_counter()
+                    first = None
+                    toks = 0
+                    for _ in eng.submit(**reqs[i]):
+                        if first is None:
+                            first = time.perf_counter() - t_sub
+                        toks += 1
+                    with mu:
+                        ttft.append(first)
+                        n_tok[0] += toks
+            threads = [threading.Thread(target=client, args=(k,))
+                       for k in range(16)]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(600)
+            eng.drain(60)
+            wall = time.perf_counter() - t0
+            key = '%s %d' % (kv_dtype, rnd)
+            out['tokens_per_s ' + key] = n_tok[0] / wall
+            out['ttft_p50_ms ' + key] = 1e3 * smoke._pct(ttft, 50)
+            out['ttft_p99_ms ' + key] = 1e3 * smoke._pct(ttft, 99)
+            print('serve %s arenas, round %d: %d requests, %d tokens in '
+                  '%.3f s: %.1f tokens/s; TTFT p50 %.1f ms, p99 %.1f ms; %d '
+                  'prefills, %d decode steps [%s]'
+                  % (kv_dtype, rnd, len(reqs), n_tok[0], wall,
+                     out['tokens_per_s ' + key], out['ttft_p50_ms ' + key],
+                     out['ttft_p99_ms ' + key], eng.prefills - steps0[0],
+                     eng.decode_steps - steps0[1], card))
+        eng.shutdown()
+        del eng
+        torch.cuda.empty_cache()
+    return out
+
+
 def main():
-    args = [a for a in sys.argv[1:] if a not in ('--decode', '--train')]
+    args = [a for a in sys.argv[1:]
+            if a not in ('--decode', '--train', '--write', '--serve')]
     port = os.path.abspath(args[0]) if args else REPO
     sys.path.insert(0, REPO)
     import chip_smoke as smoke
@@ -143,11 +292,13 @@ def main():
         decode_step(torch, smoke, card)
         print(card)
         return
-    if '--train' in sys.argv:
-        ms = train_steps(torch, smoke, card)
-        print(card)
-        print(json.dumps({'port': port, 'card': card, 'ms': ms}))
-        return
+    for flag, run in (('--train', train_steps), ('--write', write_layers),
+                      ('--serve', serve)):
+        if flag in sys.argv:
+            ms = run(torch, smoke, card)
+            print(card)
+            print(json.dumps({'port': port, 'card': card, 'ms': ms}))
+            return
     dev = torch.device('cuda', 0)
     ms = {}
 

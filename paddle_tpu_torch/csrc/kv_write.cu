@@ -9,6 +9,11 @@
 // host never reads which rows write: the launch is the same for every
 // step and can be captured in a CUDA graph.
 //
+// The decode and verify steps whose new rows have the arena's type (fp32
+// rows into fp32 pages) fold the write into paged attention's split launch
+// instead (paged_attention.cu, note 5); this kernel serves the prefill and
+// the arenas that convert the rows (bf16 under fp32 rows, int8, e4m3).
+//
 // Quantized arenas (int8, or e4m3 fp8, each with an fp32 scale arena
 // [NB, H, bs]): the same pass quantizes each (token, head) row on its own,
 // bit for bit as quant/core.py quantize_rows (the reference's

@@ -88,10 +88,64 @@
 //    kernel's tile of 8 loads then spans 64 keys, so a 32-token page fills
 //    half of it; the loads past the page are skipped.
 //
+// 5. The KV write, folded into the split launch where the new rows come in
+//    the arena's own type: fp32 rows into an fp32 arena, bf16 into bf16
+//    (the engine's decode and verify steps on fp32 arenas). Both split
+//    kernels; a template flag, so the launch without it is the kernel above
+//    unchanged. It replaces the reference's dropping scatter,
+//    paddle_tpu/ops/paged_decode_ops.py _write_positions
+//    (`.at[phys, head, off].set(new, mode='drop')`, no Pallas kernel), which
+//    the decode ops run on each layer's arenas before K4 reads them. A
+//    stand-alone write moves 128 KB at the decode shape and costs a whole
+//    launch; folded in, it costs a few stores of blocks that run anyway.
+//    The decode ops keep the stand-alone kernel (kv_write.cu) for the
+//    prefill and for rows that must be converted (a bf16, int8 or e4m3
+//    arena under fp32 rows): every block that reads a fresh key would read
+//    (and convert) it again, ~256 a block in a 512-row prefill, and there
+//    the fold measured slower than the two launches (PERF.md).
+//    - Who writes: row r's new K and V rows (k_new[r], v_new[r]) go to
+//      (phys[r], head, off[r]) where keep[r] is set, written by one split
+//      block of the row: its last, where that split is dead (it reads no
+//      page, so the write rides on a block with nothing else to do: every
+//      row shorter than the table's last chunk, the engine's decode rows
+//      among them), else the block whose chunk holds the row's last
+//      position; before the page walk. In the 16-byte kernel its last two
+//      warps (the smallest page share of a partial chunk) write K and V;
+//      in the any-width kernel warps 0 and 1, the first value chunk's block
+//      K, each value chunk's block its own V columns.
+//    - Fresh keys come from the input, never from the arena: for row r every
+//      position t in [fresh_lo[r], len) is read from input row
+//      fresh_src[r] + t - fresh_lo[r] (clamped to the n rows): the same
+//      bytes the arena read would give, so a row's output equals
+//      write-then-attend bit for bit wherever the rows it reads were kept.
+//      In the 16-byte kernel a tile takes one of three ways, decided for
+//      the whole warp: no fresh key (every tile of a decode step but its
+//      last): the page loads; all keys fresh: the same 16-byte loads from
+//      the input rows, another base and stride; both (one tile of a row):
+//      each key from its own source. The any-width kernel picks each key's
+//      row where it reads it.
+//    - Why it is legal: the split kernels read pages through
+//      const __restrict__ pointers with ld.global.nc, which is undefined for
+//      an address the same grid writes. The writes go through separate
+//      non-const pointers, and no block reads a slot the launch writes:
+//      (a) a row's write lies at its position len - 1 >= fresh_lo of every
+//      row of its sequence that reads it, and those rows take it from the
+//      input; (b) the decode ops write only at or past a sequence's cached
+//      span, inside its own pages, never into a page another sequence
+//      shares (ops/paged_decode_ops.py _extend_rows, the prefix cache), so
+//      no other row reads the slot through its table. Dropped rows (empty
+//      decode slots with lens 0 and all-NB tables clamped onto page NB - 1)
+//      read their fresh positions from the input too, so they never race
+//      with a live row writing that page; their output then differs from
+//      the stale-arena read of write-then-attend, and no caller reads it.
+//
 // Numerics are the Pallas kernel's: scale applied to q; masked columns at
 // -1e9 with p = 0; fp32 m, l and acc; p rounded to the page dtype before
 // p.v (not for quantized pages, as above); fp32 output. No atomics on floats
-// anywhere.
+// anywhere. The split kernels' running sums are explicit fused multiply-adds
+// (__fmaf_rn): a product and sum left to the compiler may be fused in one
+// instantiation and not in another, and the launch that writes must give
+// the bits of the one that does not.
 //
 // Still left: several heads a block to share the table walk, the tensor
 // cores for the prefill's many rows against one table, and fusing the merge
@@ -218,8 +272,50 @@ __device__ __forceinline__ float round_p(float v) {
   }
 }
 
+// ------------------------------------------------------ the folded write
+// What a split launch that also writes the new K/V rows takes (passed by
+// value; unused when the kernel's W flag is off). The new rows have the
+// arena's type.
+struct PagedWrite {
+  const void* k_new;          // [n, h, d]
+  const void* v_new;          // [n, h, dv]
+  void* k_dst;                // the arenas the split reads through its
+  void* v_dst;                // const pages, written through these only
+  const int* phys;            // [n] page and slot of row r's write
+  const int* off;
+  const unsigned char* keep;  // [n] row r writes
+  const int* fresh_lo;        // [n] first position read from the input
+  const int* fresh_src;       // [n] the input row of that position
+};
+
+// The split block that writes row r (of nz): the last, where that split is
+// dead (it reads no page: the write rides on a block with nothing else to
+// do, as it does for every row shorter than the table's last chunk), else
+// the one whose chunk holds the page of position len - 1
+__device__ __forceinline__ int write_split(int len, int bs, int p, int nz) {
+  const int cpages = chunk_pages(bs);
+  int npages = len > 0 ? (len + bs - 1) / bs : 0;
+  if (npages > p) npages = p;
+  if ((nz - 1) * cpages >= npages) return nz - 1;
+  return (npages - 1) / cpages;
+}
+
+// One warp copies columns [c0, c1) of row r's new K (is_v false) or V row
+// of `head` into its arena slot
+template <typename T>
+__device__ void write_new_row(const PagedWrite& w, bool is_v, int row,
+                              int head, int h, int bs, int width, int c0,
+                              int c1, int lane) {
+  const T* src = static_cast<const T*>(is_v ? w.v_new : w.k_new) +
+                 ((size_t)row * h + head) * width;
+  const size_t slot = ((size_t)w.phys[row] * h + head) * bs + w.off[row];
+  T* dst = static_cast<T*>(is_v ? w.v_dst : w.k_dst) + slot * width;
+  for (int c = c0 + lane; c < c1; c += 32) dst[c] = src[c];
+}
+
 // One tile of one page into registers: load i covers keys off + i * kpi + g
-// (g the lane's key group), elements [j * E, j * E + E) of each. Keys at or
+// (g the lane's key group), elements [j * E, j * E + E) of each; key k's
+// row starts at page + k * stride (stride = width for a page). Keys at or
 // past `live` (the page's live keys) and lanes past the row's width load
 // nothing and hold zeros.
 // For quantized pages `scl` holds the key's row scales: scl[i] is the scale
@@ -229,8 +325,9 @@ __device__ __forceinline__ void load_tile_regs(uint4 (&buf)[kTileLoads],
                                                float (&scl)[kTileLoads],
                                                const T* __restrict__ page,
                                                const float* __restrict__ rs,
-                                               int width, int off, int live,
-                                               int kpi, int g, int j) {
+                                               int width, size_t stride,
+                                               int off, int live, int kpi,
+                                               int g, int j) {
   constexpr int E = Vec16<T>::E;
   const bool lane_on = j * E < width;
 #pragma unroll
@@ -238,7 +335,7 @@ __device__ __forceinline__ void load_tile_regs(uint4 (&buf)[kTileLoads],
     const int key = off + i * kpi + g;
     if (lane_on && key < live) {
       buf[i] = __ldg(reinterpret_cast<const uint4*>(
-          page + (size_t)key * width + j * E));
+          page + (size_t)key * stride + j * E));
     } else {
       buf[i] = make_uint4(0u, 0u, 0u, 0u);
     }
@@ -247,33 +344,78 @@ __device__ __forceinline__ void load_tile_regs(uint4 (&buf)[kTileLoads],
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kPagedThreads)
-    paged_split_kernel(const float* __restrict__ q,
-                       const T* __restrict__ k_pages,
-                       const T* __restrict__ v_pages,
-                       const float* __restrict__ k_scales,
-                       const float* __restrict__ v_scales,
-                       const int* __restrict__ tables, long long table_stride,
-                       const int* __restrict__ lens, float* __restrict__ ws,
-                       int h, int nb, int bs, int d, int dv, int p, int lanes,
-                       float scale) {
+// A row's fresh keys: positions from flo on are input row src0 + position
+struct FreshKeys {
+  int flo;
+  int src0;
+};
+
+// A K or V tile of a page (keys from position pos0) into registers, as
+// load_tile_regs, with the fresh keys (W) from the input rows. The whole
+// warp takes one of three ways: a tile with no fresh key (every tile of a
+// decode step but its last) loads the page; a tile of fresh keys only loads
+// them as a page with another base and stride; the one tile of a row that
+// holds both (or a tile whose rows fall outside the input: a caller's
+// fault) picks each key's source on its own.
+template <typename T, bool W>
+__device__ __forceinline__ void load_tile(
+    uint4 (&buf)[kTileLoads], float (&scl)[kTileLoads],
+    const T* __restrict__ page, const float* __restrict__ rs, int width,
+    int off, int live, int kpi, int g, int j, int pos0, bool is_v,
+    const FreshKeys& fr, const PagedWrite& w, int n, int h, int head) {
+  if constexpr (!W) {
+    load_tile_regs<T>(buf, scl, page, rs, width, width, off, live, kpi, g, j);
+  } else {
+    constexpr int E = Vec16<T>::E;
+    const int tk = kTileLoads * kpi;
+    const int fk = fr.flo - pos0;  // the page's first fresh key
+    if (off + tk <= fk || fk >= live) {
+      load_tile_regs<T>(buf, scl, page, rs, width, width, off, live, kpi, g,
+                        j);
+      return;
+    }
+    const T* src = static_cast<const T*>(is_v ? w.v_new : w.k_new);
+    const int r = fr.src0 + pos0;  // input row of key 0
+    if (fk <= off && r + off >= 0 && r + min(off + tk, live) - 1 < n) {
+      load_tile_regs<T>(buf, scl, src + ((ptrdiff_t)r * h + head) * width,
+                        rs, width, (size_t)h * width, off, live, kpi, g, j);
+      return;
+    }
+    const bool lane_on = j * E < width;
+#pragma unroll
+    for (int i = 0; i < kTileLoads; ++i) {
+      const int key = off + i * kpi + g;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (key < live && lane_on) {
+        if (key < fk) {
+          v = __ldg(reinterpret_cast<const uint4*>(
+              page + (size_t)key * width + j * E));
+        } else {
+          const int sr = max(0, min(r + key, n - 1));
+          v = __ldg(reinterpret_cast<const uint4*>(
+              src + ((size_t)sr * h + head) * width + j * E));
+        }
+      }
+      buf[i] = v;
+    }
+  }
+}
+
+// The page walk of one split block (pages first .. last - 1 of row `row`):
+// its partial (acc[Dv], m, l) into the workspace
+template <typename T, bool W>
+__device__ __forceinline__ void split_pages(
+    const float* __restrict__ q, const T* __restrict__ k_pages,
+    const T* __restrict__ v_pages, const float* __restrict__ k_scales,
+    const float* __restrict__ v_scales, const int* __restrict__ trow,
+    float* __restrict__ ws, int row, int head, int z, int len, int first,
+    int last, int n, int h, int nb, int bs, int d, int dv, int lanes,
+    float scale, const FreshKeys& fr, const PagedWrite& w) {
   constexpr int E = Vec16<T>::E;
   constexpr bool Q = Quantized<T>::value;
   __shared__ float sm_m[kPagedWarps];
   __shared__ float sm_l[kPagedWarps];
   __shared__ float sm_acc[kPagedWarps][kMaxDv];
-  const int head = blockIdx.x;
-  const int row = blockIdx.y;
-  const int z = blockIdx.z;
-  const int len = lens[row];
-  int npages = len > 0 ? (len + bs - 1) / bs : 0;
-  if (npages > p) npages = p;
-  const int cpages = chunk_pages(bs);
-  const int first = z * cpages;
-  if (first >= npages) return;  // dead split: nothing written, nothing read
-  const int last = min(first + cpages, npages);
-
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int g = lane / lanes;        // key group of this lane
@@ -301,7 +443,6 @@ __global__ void __launch_bounds__(kPagedThreads)
     const int c = j * E + e;
     qs[e] = c < d ? q[qrow * d + c] * scale : 0.f;
   }
-  const int* trow = tables + (size_t)row * table_stride;
 
   float m = kPagedMasked;  // running max
   float l = 0.f;           // running sum of exp
@@ -319,10 +460,12 @@ __global__ void __launch_bounds__(kPagedThreads)
     phys = phys < 0 ? 0 : (phys > nb - 1 ? nb - 1 : phys);
     const size_t base = ((size_t)phys * h + head) * bs;
     const int live = min(bs, len - page * bs);
-    load_tile_regs<T>(kbuf, ksc, k_pages + base * d, Q ? k_scales + base : 0,
-                      d, 0, live, kpi, g, j);
-    load_tile_regs<T>(vbuf, vsc, v_pages + base * dv,
-                      Q ? v_scales + base : 0, dv, 0, live, kpi, g, j);
+    load_tile<T, W>(kbuf, ksc, k_pages + base * d, Q ? k_scales + base : 0,
+                    d, 0, live, kpi, g, j, page * bs, false, fr, w, n, h,
+                    head);
+    load_tile<T, W>(vbuf, vsc, v_pages + base * dv, Q ? v_scales + base : 0,
+                    dv, 0, live, kpi, g, j, page * bs, true, fr, w, n, h,
+                    head);
   }
   for (int t = 0; t < n_items; ++t) {
     const int off = tile * tk;
@@ -361,9 +504,9 @@ __global__ void __launch_bounds__(kPagedThreads)
       mx = fmaxf(mx, sc[i]);
     }
     if (more)
-      load_tile_regs<T>(kbuf, ksc, k_pages + nbase * d,
-                        Q ? k_scales + nbase : 0, d, ntile * tk, nlive, kpi,
-                        g, j);
+      load_tile<T, W>(kbuf, ksc, k_pages + nbase * d,
+                      Q ? k_scales + nbase : 0, d, ntile * tk, nlive, kpi, g,
+                      j, npage * bs, false, fr, w, n, h, head);
     for (int o = 16; o >= lanes; o >>= 1)
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
     const float mnext = fmaxf(m, mx);
@@ -379,7 +522,7 @@ __global__ void __launch_bounds__(kPagedThreads)
     // every lane of a key holds its p: count each key once
     for (int o = 16; o >= lanes; o >>= 1)
       lsum += __shfl_xor_sync(0xffffffffu, lsum, o);
-    l = alpha * l + lsum;
+    l = __fmaf_rn(alpha, l, lsum);
     m = mnext;
 #pragma unroll
     for (int e = 0; e < E; ++e) acc[e] *= alpha;
@@ -395,9 +538,9 @@ __global__ void __launch_bounds__(kPagedThreads)
       for (int e = 0; e < E; ++e) acc[e] = fmaf(sc[i], vf[e], acc[e]);
     }
     if (more)
-      load_tile_regs<T>(vbuf, vsc, v_pages + nbase * dv,
-                        Q ? v_scales + nbase : 0, dv, ntile * tk, nlive, kpi,
-                        g, j);
+      load_tile<T, W>(vbuf, vsc, v_pages + nbase * dv,
+                      Q ? v_scales + nbase : 0, dv, ntile * tk, nlive, kpi,
+                      g, j, npage * bs, true, fr, w, n, h, head);
     page = npage;
     tile = ntile;
     phys = nphys;
@@ -425,13 +568,13 @@ __global__ void __launch_bounds__(kPagedThreads)
   if (tid < dv) {
     float mm = sm_m[0];
 #pragma unroll
-    for (int w = 1; w < kPagedWarps; ++w) mm = fmaxf(mm, sm_m[w]);
+    for (int w2 = 1; w2 < kPagedWarps; ++w2) mm = fmaxf(mm, sm_m[w2]);
     float ll = 0.f, aa = 0.f;
 #pragma unroll
-    for (int w = 0; w < kPagedWarps; ++w) {
-      const float f = expf(sm_m[w] - mm);
-      ll += sm_l[w] * f;
-      aa += sm_acc[w][tid] * f;
+    for (int w2 = 0; w2 < kPagedWarps; ++w2) {
+      const float f = expf(sm_m[w2] - mm);
+      ll = __fmaf_rn(sm_l[w2], f, ll);
+      aa = __fmaf_rn(sm_acc[w2][tid], f, aa);
     }
     float* part = ws + ((qrow * gridDim.z) + z) * (size_t)(dv + 2);
     part[tid] = aa;
@@ -442,7 +585,68 @@ __global__ void __launch_bounds__(kPagedThreads)
   }
 }
 
+template <typename T, bool W>
+__global__ void __launch_bounds__(kPagedThreads)
+    paged_split_kernel(const float* __restrict__ q,
+                       const T* __restrict__ k_pages,
+                       const T* __restrict__ v_pages,
+                       const float* __restrict__ k_scales,
+                       const float* __restrict__ v_scales,
+                       const int* __restrict__ tables, long long table_stride,
+                       const int* __restrict__ lens, float* __restrict__ ws,
+                       int n, int h, int nb, int bs, int d, int dv, int p,
+                       int lanes, float scale, PagedWrite w) {
+  const int head = blockIdx.x;
+  const int row = blockIdx.y;
+  const int z = blockIdx.z;
+  const int len = lens[row];
+  FreshKeys fr{0, 0};
+  bool keep = false;
+  if constexpr (W) {  // loaded beside the length, not after it
+    keep = w.keep[row] != 0;
+    fr.flo = w.fresh_lo[row];
+    fr.src0 = w.fresh_src[row] - fr.flo;
+  }
+  int npages = len > 0 ? (len + bs - 1) / bs : 0;
+  if (npages > p) npages = p;
+  const int cpages = chunk_pages(bs);
+  const int first = z * cpages;
+  const int last = min(first + cpages, npages);
+  // the block that writes the row (header note 5): its last two warps,
+  // whose page share of a partial chunk is the smallest, the new K row
+  // and the new V row
+  if constexpr (W) {
+    const int warp = threadIdx.x >> 5;
+    const bool wv = warp == kPagedWarps - 1;
+    if (keep && z == write_split(len, bs, p, gridDim.z) &&
+        warp >= kPagedWarps - 2)
+      write_new_row<T>(w, wv, row, head, h, bs, wv ? dv : d, 0,
+                       wv ? dv : d, threadIdx.x & 31);
+  }
+  if (first < last)  // a live split
+    split_pages<T, W>(q, k_pages, v_pages, k_scales, v_scales,
+                      tables + (size_t)row * table_stride, ws, row, head, z,
+                      len, first, last, n, h, nb, bs, d, dv, lanes, scale, fr,
+                      w);
+}
+
 // ---------------------------------------------- rows of any width
+// The writes of one split block of the any-width kernel: the kept row's K
+// and V when this block is the row's writer (write_split). dv0/dvc: the
+// value columns of the block
+template <typename T>
+__device__ __forceinline__ void write_if_mine(const PagedWrite& w, int row,
+                                              int head, int h, int bs, int d,
+                                              int dv, int dv0, int dvc,
+                                              int len, int p, int z, int nz,
+                                              int warp, int lane) {
+  if (z != write_split(len, bs, p, nz) || !w.keep[row]) return;
+  if (warp == 0 && dv0 == 0)
+    write_new_row<T>(w, false, row, head, h, bs, d, 0, d, lane);
+  else if (warp == 1)
+    write_new_row<T>(w, true, row, head, h, bs, dv, dv0, dv0 + dvc, lane);
+}
+
 // One load of U (8, 4, 2 or 1 bytes) as E fp32 values
 template <typename T, typename U>
 __device__ __forceinline__ void unpack_any(const U& u, float* f) {
@@ -452,7 +656,7 @@ __device__ __forceinline__ void unpack_any(const U& u, float* f) {
   for (int i = 0; i < E; ++i) f[i] = to_f32(e[i]);
 }
 
-template <typename T, typename U>
+template <typename T, typename U, bool W>
 __global__ void __launch_bounds__(kPagedThreads)
     paged_split_any_kernel(const float* __restrict__ q,
                            const T* __restrict__ k_pages,
@@ -462,8 +666,9 @@ __global__ void __launch_bounds__(kPagedThreads)
                            const int* __restrict__ tables,
                            long long table_stride,
                            const int* __restrict__ lens,
-                           float* __restrict__ ws, int h, int nb, int bs,
-                           int d, int dv, int p, int ndc, float scale) {
+                           float* __restrict__ ws, int n, int h, int nb,
+                           int bs, int d, int dv, int p, int ndc,
+                           float scale, PagedWrite w) {
   constexpr int E = sizeof(U) / sizeof(T);       // elements a load
   constexpr int NC = kMaxAnyDim / (32 * E);      // loads a lane, at most
   constexpr bool Q = Quantized<T>::value;
@@ -477,14 +682,21 @@ __global__ void __launch_bounds__(kPagedThreads)
   const int dv0 = (blockIdx.z - z * ndc) * kMaxAnyDim;
   const int dvc = min(kMaxAnyDim, dv - dv0);
   const int len = lens[row];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
   int npages = len > 0 ? (len + bs - 1) / bs : 0;
   if (npages > p) npages = p;
   const int cpages = chunk_pages(bs);
   const int first = z * cpages;
-  if (first >= npages) return;  // dead split: nothing written, nothing read
+  int flo = 0, fsrc = 0;
+  if constexpr (W) {
+    write_if_mine<T>(w, row, head, h, bs, d, dv, dv0, dvc, len, p, z,
+                     gridDim.z / ndc, warp, lane);
+    flo = w.fresh_lo[row];
+    fsrc = w.fresh_src[row];
+  }
+  if (first >= npages) return;  // dead split: nothing read
   const int last = min(first + cpages, npages);
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
 
   // lane's elements: (32 ch + lane) E + e, ch < NC
   const size_t qrow = (size_t)row * h + head;
@@ -505,6 +717,11 @@ __global__ void __launch_bounds__(kPagedThreads)
     phys = phys < 0 ? 0 : (phys > nb - 1 ? nb - 1 : phys);
     const size_t base = ((size_t)phys * h + head) * bs;
     const int live = min(bs, len - page * bs);
+    // keys at or past fk are fresh: input row sr + key (W only)
+    const int fk = W ? flo - page * bs : bs;
+    const int sr = fsrc - flo + page * bs;
+    const T* k_src = static_cast<const T*>(w.k_new);
+    const T* v_src = static_cast<const T*>(w.v_new);
     for (int k0 = 0; k0 < live; k0 += kAnyKeys) {
       float sc[kAnyKeys];
       float mx = kPagedMasked;
@@ -513,8 +730,12 @@ __global__ void __launch_bounds__(kPagedThreads)
         const int key = k0 + i;  // the same for the whole warp
         float sv = 0.f;
         if (key < live) {
-          const T* kr = k_pages + (base + key) * d;
-          const float ks = Q ? __ldg(k_scales + base + key) : 1.f;
+          const T* kr = W && key >= fk
+                            ? k_src + ((size_t)min(max(sr + key, 0), n - 1) *
+                                           h + head) * d
+                            : k_pages + (base + key) * d;
+          float ks = 1.f;
+          if constexpr (Q) ks = __ldg(k_scales + base + key);
           // the key row in chunks of kMaxAnyDim columns: q of the first
           // from registers, of the others from device memory
           for (int cb = 0; cb < d; cb += kMaxAnyDim) {
@@ -523,8 +744,8 @@ __global__ void __launch_bounds__(kPagedThreads)
               const int c0 = cb + (32 * ch + lane) * E;
               if (c0 < d) {
                 float kf[E];
-                unpack_any<T, U>(__ldg(reinterpret_cast<const U*>(kr + c0)),
-                                 kf);
+                unpack_any<T, U>(
+                    __ldg(reinterpret_cast<const U*>(kr + c0)), kf);
                 if constexpr (Q) {
 #pragma unroll
                   for (int e = 0; e < E; ++e) kf[e] = __fmul_rn(kf[e], ks);
@@ -552,7 +773,7 @@ __global__ void __launch_bounds__(kPagedThreads)
         lsum += pr;
         sc[i] = round_p<T>(pr);
       }
-      l = alpha * l + lsum;
+      l = __fmaf_rn(alpha, l, lsum);
       m = mnext;
 #pragma unroll
       for (int ch = 0; ch < NC; ++ch)
@@ -560,9 +781,14 @@ __global__ void __launch_bounds__(kPagedThreads)
         for (int e = 0; e < E; ++e) acc[ch][e] *= alpha;
 #pragma unroll
       for (int i = 0; i < kAnyKeys; ++i) {
-        if (k0 + i < live) {
-          const T* vr = v_pages + (base + k0 + i) * dv + dv0;
-          const float vs = Q ? __ldg(v_scales + base + k0 + i) : 1.f;
+        const int key = k0 + i;
+        if (key < live) {
+          const T* vr = (W && key >= fk
+                             ? v_src + ((size_t)min(max(sr + key, 0), n - 1) *
+                                            h + head) * dv
+                             : v_pages + (base + key) * dv) + dv0;
+          float vs = 1.f;
+          if constexpr (Q) vs = __ldg(v_scales + base + key);
 #pragma unroll
           for (int ch = 0; ch < NC; ++ch) {
             const int c0 = (32 * ch + lane) * E;
@@ -605,13 +831,14 @@ __global__ void __launch_bounds__(kPagedThreads)
     float aa = 0.f;
 #pragma unroll
     for (int w = 0; w < kPagedWarps; ++w)
-      aa += sm_acc[w][c] * expf(sm_m[w] - mm);
+      aa = __fmaf_rn(sm_acc[w][c], expf(sm_m[w] - mm), aa);
     part[dv0 + c] = aa;
   }
   if (threadIdx.x == 0 && dv0 == 0) {
     float ll = 0.f;
 #pragma unroll
-    for (int w = 0; w < kPagedWarps; ++w) ll += sm_l[w] * expf(sm_m[w] - mm);
+    for (int w = 0; w < kPagedWarps; ++w)
+      ll = __fmaf_rn(sm_l[w], expf(sm_m[w] - mm), ll);
     part[dv] = mm;
     part[dv + 1] = ll;
   }
@@ -656,49 +883,66 @@ inline int pow2_ceil(int v) {
 }
 
 // the widest load, in bytes (8, 4 or 2, at least one element), that divides
-// both row widths and both arenas' addresses
+// both row widths and the addresses of both arenas (and of the new rows,
+// when the launch writes)
 inline int any_load_bytes(int d, int dv, int item, const void* kp,
-                          const void* vp) {
+                          const void* vp, const void* kn, const void* vn) {
   const size_t a = reinterpret_cast<size_t>(kp) |
-                   reinterpret_cast<size_t>(vp);
+                   reinterpret_cast<size_t>(vp) |
+                   reinterpret_cast<size_t>(kn) |
+                   reinterpret_cast<size_t>(vn);
   for (int w = 8; w > item; w >>= 1)
     if ((d * item) % w == 0 && (dv * item) % w == 0 && a % w == 0) return w;
   return item;
 }
 
+// The launches below take the write through `w`: nullptr launches the
+// kernels without it (W off). Only fp32 and bf16 pages take a write (the
+// caller checks).
 template <typename T, typename U>
 void launch_any(const float* q, const void* kp, const void* vp,
                 const float* ks, const float* vs, const int* tables,
                 long long table_stride, const int* lens, float* ws, int n,
                 int h, int nb, int bs, int d, int dv, int p, int nz,
-                float scale, cudaStream_t s) {
+                float scale, const PagedWrite* w, cudaStream_t s) {
   const int ndc = (dv + kMaxAnyDim - 1) / kMaxAnyDim;
-  paged_split_any_kernel<T, U>
-      <<<dim3(h, n, nz * ndc), kPagedThreads, 0, s>>>(
-          q, static_cast<const T*>(kp), static_cast<const T*>(vp), ks, vs,
-          tables, table_stride, lens, ws, h, nb, bs, d, dv, p, ndc, scale);
+  const dim3 grid(h, n, nz * ndc);
+  const T* k = static_cast<const T*>(kp);
+  const T* v = static_cast<const T*>(vp);
+  if constexpr (!Quantized<T>::value) {
+    if (w != nullptr) {
+      paged_split_any_kernel<T, U, true><<<grid, kPagedThreads, 0, s>>>(
+          q, k, v, ks, vs, tables, table_stride, lens, ws, n, h, nb, bs, d,
+          dv, p, ndc, scale, *w);
+      return;
+    }
+  }
+  paged_split_any_kernel<T, U, false><<<grid, kPagedThreads, 0, s>>>(
+      q, k, v, ks, vs, tables, table_stride, lens, ws, n, h, nb, bs, d, dv,
+      p, ndc, scale, PagedWrite{});
 }
 
-// the any-width kernel of storage type T at the widest load of w bytes
+// the any-width kernel of storage type T at the widest load of lw bytes
 template <typename T>
-void launch_any_width(int w, const float* q, const void* kp, const void* vp,
+void launch_any_width(int lw, const float* q, const void* kp, const void* vp,
                       const float* ks, const float* vs, const int* tables,
                       long long table_stride, const int* lens, float* ws,
                       int n, int h, int nb, int bs, int d, int dv, int p,
-                      int nz, float scale, cudaStream_t s) {
+                      int nz, float scale, const PagedWrite* w,
+                      cudaStream_t s) {
 #define PTT_ANY(U)                                                          \
   launch_any<T, U>(q, kp, vp, ks, vs, tables, table_stride, lens, ws, n, h, \
-                   nb, bs, d, dv, p, nz, scale, s)
+                   nb, bs, d, dv, p, nz, scale, w, s)
   // a load of U holds whole elements: no U narrower than T is instantiated
-  if (w == 8) {
+  if (lw == 8) {
     PTT_ANY(uint2);
   } else if constexpr (sizeof(T) == 4) {
     PTT_ANY(unsigned);
-  } else if (w == 4) {
+  } else if (lw == 4) {
     PTT_ANY(unsigned);
   } else if constexpr (sizeof(T) == 2) {
     PTT_ANY(unsigned short);
-  } else if (w == 2) {
+  } else if (lw == 2) {
     PTT_ANY(unsigned short);
   } else {
     PTT_ANY(unsigned char);
@@ -711,10 +955,21 @@ void launch_v16(const float* q, const void* kp, const void* vp,
                 const float* ks, const float* vs, const int* tables,
                 long long table_stride, const int* lens, float* ws, int n,
                 int h, int nb, int bs, int d, int dv, int p, int nz,
-                int lanes, float scale, cudaStream_t s) {
-  paged_split_kernel<T><<<dim3(h, n, nz), kPagedThreads, 0, s>>>(
-      q, static_cast<const T*>(kp), static_cast<const T*>(vp), ks, vs,
-      tables, table_stride, lens, ws, h, nb, bs, d, dv, p, lanes, scale);
+                int lanes, float scale, const PagedWrite* w, cudaStream_t s) {
+  const dim3 grid(h, n, nz);
+  const T* k = static_cast<const T*>(kp);
+  const T* v = static_cast<const T*>(vp);
+  if constexpr (!Quantized<T>::value) {
+    if (w != nullptr) {
+      paged_split_kernel<T, true><<<grid, kPagedThreads, 0, s>>>(
+          q, k, v, ks, vs, tables, table_stride, lens, ws, n, h, nb, bs, d,
+          dv, p, lanes, scale, *w);
+      return;
+    }
+  }
+  paged_split_kernel<T, false><<<grid, kPagedThreads, 0, s>>>(
+      q, k, v, ks, vs, tables, table_stride, lens, ws, n, h, nb, bs, d, dv,
+      p, lanes, scale, PagedWrite{});
 }
 
 }  // namespace ptt
@@ -728,26 +983,41 @@ void launch_v16(const float* q, const void* kp, const void* vp,
 // it with the same constant; another nz is refused), never read where not
 // written; out: [n, h, dv] fp32; n <= 65535. The 16-byte kernel takes rows
 // that are multiples of 16 bytes, at most 512 bytes, dv <= 128, in 16-byte
-// aligned arenas; every other row takes the any-width kernel. Sets
-// *launched to 1 (16-byte split kernel) or 2 (any-width split kernel), plus
-// 2 for quantized pages (3, 4), and 0 where nothing was launched. Returns
-// cudaGetLastError(), or cudaErrorInvalidValue for what no kernel takes.
-extern "C" int ptt_paged_attention(const void* q, const void* k_pages,
-                                   const void* v_pages, const void* k_scales,
-                                   const void* v_scales, const void* tables,
-                                   long long table_stride, const void* lens,
-                                   void* workspace, void* out, int n, int h,
-                                   int nb, int bs, int d, int dv, int p,
-                                   int nz, float scale, int dtype,
-                                   int* launched, void* stream) {
+// aligned arenas (and new rows, when writing); every other row takes the
+// any-width kernel.
+// The write (k_new not null; header note 5), fp32 and bf16 pages only:
+// k_new [n, h, d] and v_new [n, h, dv] contiguous, of the pages' dtype;
+// phys, off, fresh_lo, fresh_src: [n] int32; keep: [n] one byte a row. Row
+// r's new rows go to (phys[r], :, off[r]) of the arenas where keep[r] is
+// set, and then 0 <= phys < nb, 0 <= off < bs, phys * bs + off the page
+// slot of position lens[r] - 1 in row r's table; positions [fresh_lo[r],
+// lens[r]) are read from input rows fresh_src[r] + position - fresh_lo[r].
+// The arenas are written, though the pointers are const here.
+// Sets *launched to 1 (16-byte split kernel) or 2 (any-width split kernel),
+// plus 2 for quantized pages (3, 4), plus 8 where the launch wrote, and 0
+// where nothing was launched. Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for what no kernel takes.
+extern "C" int ptt_paged_attention(
+    const void* q, const void* k_pages, const void* v_pages,
+    const void* k_scales, const void* v_scales, const void* tables,
+    long long table_stride, const void* lens, void* workspace, void* out,
+    int n, int h, int nb, int bs, int d, int dv, int p, int nz, float scale,
+    int dtype, const void* k_new, const void* v_new, const void* phys,
+    const void* off, const void* keep, const void* fresh_lo,
+    const void* fresh_src, int* launched, void* stream) {
   *launched = 0;
   if (dtype < ptt::kFloat32 || dtype > ptt::kFloat8E4M3)
     return static_cast<int>(cudaErrorInvalidValue);
   const bool quant = dtype == ptt::kInt8 || dtype == ptt::kFloat8E4M3;
+  const bool write = k_new != nullptr;
   const int item = dtype == ptt::kFloat32 ? 4 : (quant ? 1 : 2);
   const int wide = (d > dv ? d : dv) * item;
   if (n < 1 || h < 1 || nb < 1 || bs < 1 || d < 1 || dv < 1 || p < 1 ||
       n > 65535 || (quant && (k_scales == nullptr || v_scales == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (write && (quant || v_new == nullptr || phys == nullptr ||
+                off == nullptr || keep == nullptr || fresh_lo == nullptr ||
+                fresh_src == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const int cpages = ptt::chunk_pages(bs);
   const int ndc = (dv + ptt::kMaxAnyDim - 1) / ptt::kMaxAnyDim;
@@ -760,19 +1030,35 @@ extern "C" int ptt_paged_attention(const void* q, const void* k_pages,
   const int* tb = static_cast<const int*>(tables);
   const int* ln = static_cast<const int*>(lens);
   float* ws = static_cast<float*>(workspace);
+  ptt::PagedWrite pw{};
+  if (write) {
+    pw.k_new = k_new;
+    pw.v_new = v_new;
+    pw.k_dst = const_cast<void*>(k_pages);
+    pw.v_dst = const_cast<void*>(v_pages);
+    pw.phys = static_cast<const int*>(phys);
+    pw.off = static_cast<const int*>(off);
+    pw.keep = static_cast<const unsigned char*>(keep);
+    pw.fresh_lo = static_cast<const int*>(fresh_lo);
+    pw.fresh_src = static_cast<const int*>(fresh_src);
+  }
+  const ptt::PagedWrite* w = write ? &pw : nullptr;
+  const size_t align = reinterpret_cast<size_t>(k_pages) |
+                       reinterpret_cast<size_t>(v_pages) |
+                       reinterpret_cast<size_t>(k_new) |
+                       reinterpret_cast<size_t>(v_new);
   const bool v16 = dv <= ptt::kMaxDv && (d * item) % 16 == 0 &&
-                   (dv * item) % 16 == 0 && wide <= 512 &&
-                   reinterpret_cast<size_t>(k_pages) % 16 == 0 &&
-                   reinterpret_cast<size_t>(v_pages) % 16 == 0;
+                   (dv * item) % 16 == 0 && wide <= 512 && align % 16 == 0;
   const int lanes = ptt::pow2_ceil(wide / 16);  // the 16-byte kernel's
   using B = __nv_bfloat16;
   using F8 = __nv_fp8_e4m3;
   if (!v16) {
-    const int w = ptt::any_load_bytes(d, dv, item, k_pages, v_pages);
+    const int lw =
+        ptt::any_load_bytes(d, dv, item, k_pages, v_pages, k_new, v_new);
 #define PTT_ANY(T)                                                        \
-  ptt::launch_any_width<T>(w, qf, k_pages, v_pages, ks, vs, tb,           \
+  ptt::launch_any_width<T>(lw, qf, k_pages, v_pages, ks, vs, tb,          \
                            table_stride, ln, ws, n, h, nb, bs, d, dv, p,  \
-                           nz, scale, s)
+                           nz, scale, w, s)
     if (dtype == ptt::kFloat32) PTT_ANY(float);
     else if (dtype == ptt::kBFloat16) PTT_ANY(B);
     else if (dtype == ptt::kInt8) PTT_ANY(int8_t);
@@ -781,16 +1067,16 @@ extern "C" int ptt_paged_attention(const void* q, const void* k_pages,
   } else {
 #define PTT_V16(T)                                                         \
   ptt::launch_v16<T>(qf, k_pages, v_pages, ks, vs, tb, table_stride, ln,  \
-                     ws, n, h, nb, bs, d, dv, p, nz, lanes, scale, s)
+                     ws, n, h, nb, bs, d, dv, p, nz, lanes, scale, w, s)
     if (dtype == ptt::kFloat32) PTT_V16(float);
     else if (dtype == ptt::kBFloat16) PTT_V16(B);
     else if (dtype == ptt::kInt8) PTT_V16(int8_t);
     else PTT_V16(F8);
 #undef PTT_V16
   }
-  *launched = (v16 ? 1 : 2) + (quant ? 2 : 0);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
+  *launched = (v16 ? 1 : 2) + (quant ? 2 : 0) + (write ? 8 : 0);
   const int merge_threads = dv < 256 ? 32 * ((dv + 31) / 32) : 256;
   ptt::paged_merge_kernel<<<dim3(h, n), merge_threads, 0, s>>>(
       ws, ln, static_cast<float*>(out), h, bs, dv, p, nz);

@@ -23,6 +23,7 @@ def launch_counters():
            ('paged_attention_v16', paged_attention, 'launches_v16'),
            ('paged_attention_any', paged_attention, 'launches_any'),
            ('paged_attention_q8', paged_attention, 'launches_q8'),
+           ('paged_attention_write', paged_attention, 'launches_write'),
            ('batch_norm', fused_batch_norm_train, 'launches'),
            ('batch_norm_bwd', fused_batch_norm_train, 'bwd_launches'),
            ('batch_norm_bwd_gy_copies', fused_batch_norm_train,

@@ -132,7 +132,8 @@ def library():
             lib.ptt_layer_norm_bwd.restype = i
             lib.ptt_paged_attention.argtypes = [
                 p, p, p, p, p, p, ctypes.c_longlong, p, p, p,
-                i, i, i, i, i, i, i, i, f, i, ctypes.POINTER(i), p]
+                i, i, i, i, i, i, i, i, f, i, p, p, p, p, p, p, p,
+                ctypes.POINTER(i), p]
             lib.ptt_paged_attention.restype = i
             dims = [i, i, i, i, i, i, f, i, p]   # b h tq tk d causal scale
             # ... dtype, then the launched kernel's code (out), then stream

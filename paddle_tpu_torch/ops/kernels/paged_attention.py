@@ -30,11 +30,25 @@ e4m3 pages; a quantized page is dequantized in registers (float(v) *
 scale[row]), its p.v in fp32. The launcher chooses and reports which it
 launched.
 
-``paged_attention`` launches the kernels for CUDA tensors and takes the
-plain version only for CPU tensors; on a CUDA tensor it launches or
-raises. ``paged_attention.launches`` counts calls that launched,
-``launches_v16`` and ``launches_any`` each variant and ``launches_q8``
-those on quantized pages.
+``paged_attention_write`` is the same launch with the decode ops' KV write
+folded in (the reference's dropping scatter ``_write_positions`` of
+paddle_tpu/ops/paged_decode_ops.py, then K4), for new rows of the arena's
+own dtype (float32 into float32 pages, bfloat16 into bfloat16): each kept
+row's new K and V rows are written into the arenas by the split block that
+attends over the row's last position, and every position at or past a
+row's ``fresh_lo`` is read from the input rows, never from the arena the
+launch writes. Its plain version is the composition
+``kv_write_reference`` then ``paged_attention_reference``;
+``paged_attention_write_split_reference`` models the kernel's own order
+(fresh keys from the input). Rows that must be converted (quantized or
+rounded into the arena) take the stand-alone write, ``kv_write``.
+
+``paged_attention`` and ``paged_attention_write`` launch the kernels for
+CUDA tensors and take the plain versions only for CPU tensors; on a CUDA
+tensor they launch or raise. ``paged_attention.launches`` counts calls
+that launched (both functions), ``launches_v16`` and ``launches_any`` each
+variant, ``launches_q8`` those on quantized pages and ``launches_write``
+those that wrote.
 """
 
 import ctypes
@@ -43,13 +57,14 @@ import torch
 
 from ...quant.core import kv_quantized
 from . import build
+from .kv_write import kv_write_reference
 
 _NEG_INF = -1e9
 # tokens one split block of the kernel covers (kChunkTokens of the source)
 CHUNK_TOKENS = 256
 # the launcher's report: 1 the 16-byte kernel, 2 the any-width one, +2 for
-# quantized pages
-_LAUNCHED_V16, _LAUNCHED_ANY, _LAUNCHED_Q8 = 1, 2, 2
+# quantized pages, +8 where the launch wrote the new rows
+_LAUNCHED_V16, _LAUNCHED_ANY, _LAUNCHED_Q8, _LAUNCHED_WRITE = 1, 2, 2, 8
 
 
 def chunk_pages(block_size):
@@ -121,23 +136,41 @@ def paged_attention_split_reference(q, k_pages, v_pages, block_tables,
     no live chunk gives 0). Dot products are elementwise products summed
     per row, so a row's bits do not depend on the rows around it. Returns
     [B, H, Dv] fp32."""
+    k, v, lens = _split_rows(k_pages, v_pages, block_tables, seq_lens,
+                             k_scales, v_scales)
+    return _split_attend(q, k, v, lens, k_pages.shape[2], sm_scale)
+
+
+def _split_rows(k_pages, v_pages, block_tables, seq_lens, k_scales,
+                v_scales):
+    """Each row's keys and values [B, H, Z*ct, D*] through its table padded
+    to whole chunks (dequantized to fp32 for quantized pages), and its
+    length [B, 1, 1, 1] clamped to the table's capacity."""
     nb, h, bs, d = k_pages.shape
     dv = v_pages.shape[-1]
     b, p = block_tables.shape
-    scale = sm_scale if sm_scale is not None else d ** -0.5
     cp = chunk_pages(bs)
     nz = -(-p // cp)
-    ct = cp * bs
     tables = block_tables.long().clamp(0, nb - 1)
     if nz * cp > p:          # pad the table to whole chunks (never live)
         pad = tables.new_zeros(b, nz * cp - p)
         tables = torch.cat([tables, pad], dim=1)
-    # [B, Z*cp, H, bs, D] -> [B, H, Z, ct, D]
-    k = _gather_rows(k_pages, k_scales, tables, b, h, nz * ct, d) \
-        .reshape(b, h, nz, ct, d)
-    v = _gather_rows(v_pages, v_scales, tables, b, h, nz * ct, dv) \
-        .reshape(b, h, nz, ct, dv)
+    k = _gather_rows(k_pages, k_scales, tables, b, h, nz * cp * bs, d)
+    v = _gather_rows(v_pages, v_scales, tables, b, h, nz * cp * bs, dv)
     lens = seq_lens.reshape(b, 1, 1, 1).long().clamp(max=p * bs)
+    return k, v, lens
+
+
+def _split_attend(q, k, v, lens, bs, sm_scale):
+    """The split order's math over gathered rows (``_split_rows``)."""
+    b, h, keys, d = k.shape
+    dv = v.shape[-1]
+    scale = sm_scale if sm_scale is not None else d ** -0.5
+    cp = chunk_pages(bs)
+    ct = cp * bs
+    nz = keys // ct
+    k = k.reshape(b, h, nz, ct, d)
+    v = v.reshape(b, h, nz, ct, dv)
     qs = (q.float() * scale)[:, :, None, None, :]
     s = (qs * k.float()).sum(dim=-1)                      # [B, H, Z, ct]
     pos = torch.arange(nz * ct, device=q.device).reshape(1, 1, nz, ct)
@@ -165,10 +198,75 @@ def paged_attention_split_reference(q, k_pages, v_pages, block_tables,
                              l_sum)[..., None]
 
 
+# ------------------------------------------------- the KV write folded in
+def paged_attention_write_split_reference(q, k_new, v_new, k_pages, v_pages,
+                                          block_tables, seq_lens, phys, off,
+                                          keep, fresh_lo, fresh_src,
+                                          sm_scale=None):
+    """Plain version in the fused kernel's order, for tests and the chip
+    smoke: writes the arenas as ``kv_write_reference`` does, and attends
+    as ``paged_attention_split_reference`` with every position t in
+    [fresh_lo[r], seq_lens[r]) of row r taken from input row fresh_src[r] +
+    t - fresh_lo[r] (clamped to the N rows) instead of from the arena.
+    Returns [B, H, Dv] fp32."""
+    _check_direct(k_new, v_new, k_pages, v_pages)
+    n = k_new.shape[0]
+    kv_write_reference(k_new, v_new, k_pages, v_pages, phys, off, keep)
+    k, v, lens = _split_rows(k_pages, v_pages, block_tables, seq_lens, None,
+                             None)
+    pos = torch.arange(k.shape[2], device=q.device)[None, :]
+    lo = fresh_lo.reshape(-1, 1).long()
+    fresh = (pos >= lo) & (pos < lens.reshape(-1, 1))         # [B, keys]
+    src = (fresh_src.reshape(-1, 1).long() + pos - lo).clamp(0, n - 1)
+    k = torch.where(fresh[:, None, :, None], k_new[src].transpose(1, 2), k)
+    v = torch.where(fresh[:, None, :, None], v_new[src].transpose(1, 2), v)
+    return _split_attend(q, k, v, lens, k_pages.shape[2], sm_scale)
+
+
+def _check_direct(k_new, v_new, k_pages, v_pages):
+    """The fold takes new rows of the arenas' own dtype, float32 or
+    bfloat16 (anything to convert takes ``kv_write``)."""
+    dt = k_pages.dtype
+    if dt not in (torch.float32, torch.bfloat16) or \
+            not k_new.dtype == v_new.dtype == v_pages.dtype == dt:
+        raise ValueError('paged_attention_write: new rows must have the '
+                         'arenas\' dtype, float32 or bfloat16; got %s and %s '
+                         'rows into %s and %s pages (converting writes take '
+                         'kv_write)' % (k_new.dtype, v_new.dtype, dt,
+                                        v_pages.dtype))
+
+
+def _check_write(write, n, h, d, dv, dev):
+    """The folded write's tensors: new rows [n, h, d] and [n, h, dv]
+    (their dtype checked by ``_check_direct``), phys, off, fresh_lo and
+    fresh_src [n] int32 and keep [n] bool, contiguous, on ``dev``."""
+    k_new, v_new, phys, off, keep, fresh_lo, fresh_src = write
+    if tuple(k_new.shape) != (n, h, d) or tuple(v_new.shape) != (n, h, dv) \
+            or not (k_new.is_contiguous() and v_new.is_contiguous()):
+        raise ValueError('paged_attention_write kernel: new rows must be '
+                         'contiguous [%d, %d, %d] and [%d, %d, %d]; got %s %s'
+                         % (n, h, d, n, h, dv, tuple(k_new.shape),
+                            tuple(v_new.shape)))
+    for t, dt in ((phys, torch.int32), (off, torch.int32),
+                  (keep, torch.bool), (fresh_lo, torch.int32),
+                  (fresh_src, torch.int32)):
+        if t.dtype != dt or tuple(t.shape) != (n,) or not t.is_contiguous():
+            raise ValueError('paged_attention_write kernel: phys, off, '
+                             'keep, fresh_lo and fresh_src must be '
+                             'contiguous [%d] int32, int32, bool, int32 and '
+                             'int32' % n)
+    for t in write:
+        if t.device != dev:
+            raise ValueError('paged_attention_write kernel: all inputs must '
+                             'be on %s, got %s' % (dev, t.device))
+
+
 def _paged_cuda(q, k_pages, v_pages, block_tables, seq_lens, scale,
-                workspace=None, k_scales=None, v_scales=None):
+                workspace=None, k_scales=None, v_scales=None, write=None):
     """Launch K4. ``workspace`` (tests only) replaces the fp32
-    [n, h, splits, dv + 2] scratch the call would allocate."""
+    [n, h, splits, dv + 2] scratch the call would allocate. ``write``:
+    (k_new, v_new, phys, off, keep, fresh_lo, fresh_src), the folded KV
+    write (``paged_attention_write``), or None."""
     nb, h, bs, d = k_pages.shape
     dv = v_pages.shape[-1]
     n, p = block_tables.shape
@@ -212,6 +310,8 @@ def _paged_cuda(q, k_pages, v_pages, block_tables, seq_lens, scale,
     if n > 65535:
         raise ValueError('paged_attention kernel: needs <= 65535 rows, got '
                          '%d' % n)
+    if write is not None:
+        _check_write(write, n, h, d, dv, dev)
     code = build.dtype_code(k_pages.dtype, quantized=True)
     out = torch.empty((n, h, dv), dtype=torch.float32, device=dev)
     if n == 0 or h == 0 or p == 0:
@@ -227,6 +327,7 @@ def _paged_cuda(q, k_pages, v_pages, block_tables, seq_lens, scale,
         raise ValueError('paged_attention kernel: workspace must be a '
                          'contiguous float32 [%d, %d, %d, %d] tensor'
                          % (n, h, nz, dv + 2))
+    ptrs = [None] * 7 if write is None else [t.data_ptr() for t in write]
     launched = ctypes.c_int(0)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -236,11 +337,14 @@ def _paged_cuda(q, k_pages, v_pages, block_tables, seq_lens, scale,
             v_scales.data_ptr() if quantized else None,
             block_tables.data_ptr(), block_tables.stride(0),
             seq_lens.data_ptr(), workspace.data_ptr(), out.data_ptr(), n, h,
-            nb, bs, d, dv, p, nz, float(scale), code,
+            nb, bs, d, dv, p, nz, float(scale), code, *ptrs,
             ctypes.byref(launched), stream)
     build.check(rc, 'ptt_paged_attention')
     paged_attention.launches += 1
     variant = launched.value
+    if variant & _LAUNCHED_WRITE:
+        paged_attention.launches_write += 1
+        variant -= _LAUNCHED_WRITE
     if variant > _LAUNCHED_ANY:
         paged_attention.launches_q8 += 1
         variant -= _LAUNCHED_Q8
@@ -272,7 +376,43 @@ def paged_attention(q, k_pages, v_pages, block_tables, seq_lens,
                        k_scales=k_scales, v_scales=v_scales)
 
 
+def paged_attention_write(q, k_new, v_new, k_pages, v_pages, block_tables,
+                          seq_lens, phys, off, keep, fresh_lo, fresh_src,
+                          sm_scale=None):
+    """The decode ops' KV write and ragged paged attention in one launch.
+    Writes the kept rows of ``k_new`` [B, H, D] and ``v_new`` [B, H, Dv]
+    into the arenas at (phys, :, off), in place (``kv_write_reference``);
+    the rows have the arenas' dtype, float32 or bfloat16 (a write that
+    converts takes ``kv_write``: ValueError here); ``phys``, ``off`` [B]
+    int32 and ``keep`` [B] bool, where row r's write is position
+    seq_lens[r] - 1 of its table. Returns each row's attention over
+    [0, seq_lens[r]) as ``paged_attention`` does, the positions from
+    ``fresh_lo[r]`` on read from input rows ``fresh_src[r] + t -
+    fresh_lo[r]`` ([B] int32 each).
+
+    The caller promises the positions at or past a row's fresh_lo are
+    exactly the rows this call writes for its sequence, and that no row
+    reads, below its fresh_lo, a slot the call writes (the decode ops
+    write only past a sequence's cached span, inside its own pages). A
+    row then equals write-then-attend wherever every row it takes from
+    the input is kept; the output of a row that reads a dropped row's
+    position (an empty decode slot, a prefill row past its length)
+    differs from the plain version's stale read, and no caller reads
+    it."""
+    _check_direct(k_new, v_new, k_pages, v_pages)
+    d = k_pages.shape[-1]
+    scale = sm_scale if sm_scale is not None else d ** -0.5
+    if q.device.type == 'cpu':
+        kv_write_reference(k_new, v_new, k_pages, v_pages, phys, off, keep)
+        return paged_attention_reference(q, k_pages, v_pages, block_tables,
+                                         seq_lens, sm_scale=scale)
+    return _paged_cuda(q, k_pages, v_pages, block_tables, seq_lens, scale,
+                       write=(k_new, v_new, phys, off, keep, fresh_lo,
+                              fresh_src))
+
+
 paged_attention.launches = 0
 paged_attention.launches_v16 = 0   # the 16-byte split kernel
 paged_attention.launches_any = 0   # the any-width split kernel
 paged_attention.launches_q8 = 0    # either, on int8 or fp8 pages
+paged_attention.launches_write = 0  # either, with the KV write folded in

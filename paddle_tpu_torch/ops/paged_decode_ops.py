@@ -22,8 +22,14 @@ lives in a paged pool ([L, NB, H, bs, d] arenas):
   positions; the engine's acceptance rule decides how many become real
   (the rest lie above the advanced cache_len and are overwritten).
 
-All three go through ``_extend_rows``, which per layer runs the paged
-attention kernel once and the layer-norm kernel twice. Every per-row
+All three go through ``_extend_rows``, which per layer runs the layer's
+KV write and the paged attention kernel (``write_attend``) and the
+layer-norm kernel twice. The decode and verify steps fold the write into
+the attention's launch (``paged_attention_write``) where the new rows have
+the arena's dtype (fp32 rows into fp32 arenas); the prefill, and arenas
+that convert the rows (bf16, int8, fp8), launch the stand-alone write
+(``kv_write``) before the attention: there the fold measured slower.
+Every per-row
 computation is independent of the other rows, so a sequence's stream does
 not depend on what else is in the batch, on a cache hit, or on
 speculation. The matrix products keep that too: they run in fixed tiles
@@ -32,10 +38,17 @@ of ``ROW_TILE`` rows (``_mm``), because cuBLAS chooses its fp32 algorithm
 batch (chip_smoke.py phase 3 shows it on the card).
 
 Quantized arenas (int8 / fp8, with fp32 scale arenas [L, NB, H, bs]): each
-written K/V row is quantized on its own (quant.core.quantize_rows, one
-scale a (token, head) row) and the paged attention kernel dequantizes in
-registers through the same tables, so every invariant above holds at the
-quantized dtypes too.
+written K/V row is quantized on its own (quant.core.quantize_rows' bits,
+one scale a (token, head) row) and the paged attention kernel dequantizes
+in registers through the same tables, so every invariant above holds at
+the quantized dtypes too.
+
+The decode and verify steps name, for every row, the positions it writes
+in this call: from ``fresh_lo`` up to the row's own, whose K/V are input
+row ``fresh_src + position - fresh_lo`` (decode: the row's own position
+and row; verify: row (b, j) from lens[b], rows b*(k+1) ...). The folded
+launch reads those positions from the input, never from the arena it
+writes.
 
 Sampling: the token at position i is greedy at temp == 0, else the
 Gumbel-max draw argmax(logits / temp - log(E)) with E ~ Exp(1) from the
@@ -46,9 +59,9 @@ from jax.random's: the two packages agree at temperature 0 only.
 
 Nothing here reads a device value on the host or copies from the host, so
 the executor can capture each op in a CUDA graph: the rows that write
-their K/V are chosen on the device (the KV-write kernel drops the others),
-the prefill's length and cached span stay device tensors, and its last
-row is picked with a device index.
+their K/V are chosen on the device (the paged-attention launch drops the
+others), the prefill's length and cached span stay device tensors, and
+its last row is picked with a device index.
 """
 
 import torch
@@ -57,7 +70,7 @@ from ..core.registry import register
 from ..quant.core import kv_quantized
 from .kernels.kv_write import kv_write
 from .kernels.layer_norm import fused_layer_norm
-from .kernels.paged_attention import paged_attention
+from .kernels.paged_attention import paged_attention, paged_attention_write
 from .kernels.random_bits import gumbel_noise
 from .transformer_ops import ENC_SLOTS, _slot_to_input
 
@@ -128,21 +141,58 @@ def _lm_inputs(ctx):
     return emb, pos_enc, wout, params, kc, vc, ks, vs
 
 
+def write_slots(tables, pos, live, nb, bs):
+    """Where each row writes its K/V: (phys, off, keep), [N] int32, int32
+    and bool, the reference's scatter mode='drop' decided on the device. A
+    row writes only inside its table's capacity, when ``live``, through a
+    table entry inside the pool [0, ``nb``)."""
+    p_cap = tables.shape[1]
+    logical = torch.clamp(pos // bs, 0, p_cap - 1)
+    phys = torch.gather(tables, 1, logical[:, None].long())[:, 0] \
+        .to(torch.int32).contiguous()
+    keep = ((pos < p_cap * bs) & live & (phys >= 0) & (phys < nb)) \
+        .contiguous()
+    off = (pos % bs).to(torch.int32).contiguous()
+    return phys, off, keep
+
+
+def write_attend(q, k_new, v_new, kc, vc, tables, lens, phys, off, keep,
+                 fresh=None, ksc=None, vsc=None):
+    """One layer's KV write (``write_slots``' rows) and paged attention at
+    ``lens``: one launch, the write folded in (``paged_attention_write``),
+    where ``fresh`` = (fresh_lo, fresh_src) names the rows' fresh positions
+    (the decode and verify steps, new rows of the arena's dtype); else the
+    stand-alone write, then the attention."""
+    if fresh is not None:
+        return paged_attention_write(q, k_new, v_new, kc, vc, tables, lens,
+                                     phys, off, keep, *fresh)
+    kv_write(k_new, v_new, kc, vc, phys, off, keep, ksc, vsc)
+    return paged_attention(q, kc, vc, tables, lens, k_scales=ksc,
+                           v_scales=vsc)
+
+
 def _extend_rows(emb, pos_enc, wout, params, kcs, vcs, n_head,
-                 tokens, pos, live, tables, kscales=None, vscales=None,
-                 out_rows=None):
+                 tokens, pos, live, tables, fresh=None, kscales=None,
+                 vscales=None, out_rows=None):
     """Shared core of the three ops: write N new tokens' K/V at absolute
     positions ``pos`` through per-row block ``tables`` [N, P], attend each
     row at its own ragged length (``pos + 1``), and return fp32 logits for
     ``h[out_rows]`` (all rows when None; else ``out_rows`` is a [1] device
     index). Rows that are not ``live``, sit past the table's capacity, or
     hit a table entry outside [0, NB) write nothing (padded tails / empty
-    batch slots).
+    batch slots). Each layer's write and attention go through
+    ``write_attend``. ``fresh`` (decode and verify): a function giving
+    (fresh_lo, fresh_src), int32 [N] device tensors: row r's positions
+    [``fresh_lo[r]``, ``pos[r]``] are this call's rows ``fresh_src[r]`` ...
+    It is called, and the write folded into the attention's launch, where
+    the new rows have the arena's dtype (fp32 rows into fp32 arenas); the
+    folded launch reads those positions from the input rather than from
+    the arena.
 
     Quantized arenas (``kscales``/``vscales`` [L, NB, H, bs] given): each
     new K/V row is quantized on its own (one fp32 scale a (token, head)
-    row) and written with its scale, in the same KV-write launch; the
-    attention dequantizes through the same tables.
+    row) and written with its scale; the attention dequantizes through the
+    same tables.
 
     The arenas are the scope's tensors and are updated IN PLACE: the
     reference rebuilds them functionally and relies on buffer donation; a
@@ -150,27 +200,24 @@ def _extend_rows(emb, pos_enc, wout, params, kcs, vcs, n_head,
     width, fp32) on every layer of every step. So a page that another
     sequence shares (a published prefix-cache page) must never be a
     target: the engine writes only positions at or past a sequence's
-    cached span, which lie in its own pages."""
+    cached span, which lie in its own pages. That also keeps the folded
+    launch free of races: no row reads from the arena a slot it writes."""
     n_layer, nb, _, bs, _ = kcs.shape
     d_model = emb.shape[-1]
-    n, p_cap = tables.shape
-    kv_q = str(kcs.dtype)[6:]
-    quantized = kv_quantized(kv_q)
+    n = tables.shape[0]
+    quantized = kv_quantized(str(kcs.dtype)[6:])
     m = -(-n // ROW_TILE) * ROW_TILE         # rows of every product
 
-    logical = torch.clamp(pos // bs, 0, p_cap - 1)
-    phys = torch.gather(tables, 1, logical[:, None].long())[:, 0] \
-        .to(torch.int32).contiguous()
-    # the reference's scatter mode='drop', decided on the device: a row
-    # writes only inside its table's capacity, when live, through a table
-    # entry inside the pool (phys, off and keep are the same every layer)
-    keep = ((pos < p_cap * bs) & live & (phys >= 0) & (phys < nb)) \
-        .contiguous()
-    off = (pos % bs).to(torch.int32).contiguous()
+    # the same every layer
+    phys, off, keep = write_slots(tables, pos, live, nb, bs)
 
     tok = tokens.long().clamp(0, emb.shape[0] - 1)
     x = emb[tok] * (d_model ** 0.5) + \
         pos_enc[pos.long().clamp(0, pos_enc.shape[0] - 1)]
+    if fresh is not None and x.dtype == kcs.dtype:
+        fresh = tuple(t.to(torch.int32).contiguous() for t in fresh())
+    else:
+        fresh = None
     att_lens = (pos + 1).to(torch.int32)
 
     h = _pad_rows(x, m)
@@ -182,10 +229,9 @@ def _extend_rows(emb, pos_enc, wout, params, kcs, vcs, n_head,
         ksc = vsc = None
         if quantized:
             ksc, vsc = kscales[layer], vscales[layer]
-        kv_write(k_new, v_new, kc, vc, phys, off, keep, ksc, vsc)
         q = _split_heads(_mm(h, p['slf_q'])[:n], n_head)
-        attn = paged_attention(q, kc, vc, tables, att_lens,
-                               k_scales=ksc, v_scales=vsc)
+        attn = write_attend(q, k_new, v_new, kc, vc, tables, att_lens, phys,
+                            off, keep, fresh, ksc, vsc)
         attn = _pad_rows(attn.reshape(n, -1).to(h.dtype), m)
         h = _ln(h + _mm(attn, p['slf_o']), p, 'ln1')
         h = _ln(h + _ffn(h, p), p, 'ln2')
@@ -219,10 +265,16 @@ def _paged_decode_step(ctx):
     tokens, lens, tables, temps, seeds = _batch_inputs(ctx)
 
     # one new token per row at position lens (empty slots feed all-NB
-    # tables, so every write of theirs is dropped)
+    # tables, so every write of theirs is dropped); each row's only fresh
+    # position is its own
     live = torch.ones_like(lens, dtype=torch.bool)
+
+    def fresh():
+        return lens, torch.arange(lens.shape[0], dtype=torch.int32,
+                                  device=lens.device)
     logits = _extend_rows(emb, pos_enc, wout, params, kcs, vcs, n_head,
-                          tokens.reshape(-1), lens, live, tables, kss, vss)
+                          tokens.reshape(-1), lens, live, tables, fresh,
+                          kss, vss)
     nxt = _sample_tokens(logits, seeds, lens + 1, temps)
     ctx.set_output('NextTokens', nxt.to(ctx.out_dtype('NextTokens',
                                                       'int64')))
@@ -252,8 +304,8 @@ def _paged_prefill(ctx):
     tables = table.expand(s, table.shape[0])
     last = torch.clamp(length - 1, min=0).long()
     logits = _extend_rows(emb, pos_enc, wout, params, kcs, vcs, n_head,
-                          ids, pos, t_idx < length, tables, kss, vss,
-                          out_rows=last)
+                          ids, pos, t_idx < length, tables,
+                          kscales=kss, vscales=vss, out_rows=last)
     nxt = _sample_tokens(logits, seed, cached + length, temp)
     ctx.set_output('NextToken',
                    nxt.reshape(1).to(ctx.out_dtype('NextToken', 'int64')))
@@ -274,12 +326,18 @@ def _paged_spec_verify(ctx):
         return x[:, None].expand((b, k1) + tuple(x.shape[1:])) \
             .reshape((b * k1,) + tuple(x.shape[1:]))
 
+    # Row (b, j)'s positions from lens[b] on are rows b*K1 ... b*K1 + j:
+    # its own and its sequence's earlier drafts.
     j = torch.arange(k1, dtype=torch.int32, device=lens.device)
     pos = (lens[:, None] + j[None, :]).reshape(-1)              # [B*K1]
     live = torch.ones_like(pos, dtype=torch.bool)
+
+    def fresh():
+        return rep(lens), rep(torch.arange(0, b * k1, k1, dtype=torch.int32,
+                                           device=lens.device))
     logits = _extend_rows(emb, pos_enc, wout, params, kcs, vcs, n_head,
-                          tokens.reshape(-1), pos, live, rep(tables), kss,
-                          vss)
+                          tokens.reshape(-1), pos, live, rep(tables), fresh,
+                          kss, vss)
     nxt = _sample_tokens(logits, rep(seeds), pos + 1, rep(temps))
     ctx.set_output('NextTokens', nxt.reshape(b, k1).to(
         ctx.out_dtype('NextTokens', 'int64')))

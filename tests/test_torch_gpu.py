@@ -1120,7 +1120,8 @@ def test_engine_extras_on_card_equal_host(cuda):
     assert out['CUDAPlace'] == out['CPUPlace']
 
 
-# ---- the captured step: KV write, keep mask, and the executor's graphs
+# ---- the KV write: the stand-alone kernel, and the write folded into K4's
+# launch
 
 
 @pytest.mark.parametrize('src', [torch.float32, torch.bfloat16])
@@ -1178,6 +1179,246 @@ def test_kv_write_kernel_matches_plain(cuda, kv_dtype, src):
                            if quant else outs[1][0][p, :, o],
                            ka.view(torch.uint8)[p, :, o]
                            if quant else ka[p, :, o])
+
+
+# the arenas the fold takes, each with new rows of its own dtype
+WRITE_KV = ['float32', 'bfloat16']
+# (D, Dv) of each split variant: the 16-byte kernel, the any-width kernel
+# (rows of 30 elements fit no 16-byte load) and the any-width kernel with
+# two 256-column value chunks (a split taken by two blocks)
+WRITE_VARIANTS = {'v16': (64, 64), 'any': (30, 30), 'any_dv320': (64, 320)}
+
+
+def _write_rows(kind, nb, bs, p, gen, cuda):
+    """A row set of the decode ops on the card, with rows that drop:
+    (tables, pos, live, fresh_lo, fresh_src) as the ops make them."""
+    perm = torch.randperm(nb, generator=gen, device=cuda).to(torch.int32)
+    cap = p * bs
+
+    def own(lens_top):
+        tables = perm[:len(lens_top) * p].reshape(len(lens_top), p).clone()
+        for i, top in enumerate(lens_top):
+            tables[i, -(-(top + 1) // bs):] = nb + 3
+        return tables
+    if kind == 'decode':
+        # an empty slot (length 0, every entry >= NB), lengths at page and
+        # 256-token chunk edges, and one row at the table's capacity
+        lens = [0, 1, 15, 16, 17, 255, 256, 257, 511, cap]
+        tables = own([min(x, cap - 1) for x in lens])
+        tables[0] = nb
+        pos = torch.tensor(lens, dtype=torch.int32, device=cuda)
+        rows = torch.arange(len(lens), dtype=torch.int32, device=cuda)
+        return tables, pos, torch.ones_like(pos, dtype=torch.bool), pos, rows
+    if kind == 'verify':
+        k1, lens = 4, [3, 254, cap - 3, 0]   # the third's last row drops
+        tables = own([min(x + k1 - 1, cap - 1) for x in lens])
+        tables[3] = nb
+        rep = torch.arange(len(lens), device=cuda).repeat_interleave(k1)
+        base = torch.tensor(lens, dtype=torch.int32, device=cuda)[rep]
+        pos = base + torch.arange(k1, dtype=torch.int32,
+                                  device=cuda).repeat(len(lens))
+        return (tables[rep].contiguous(), pos,
+                torch.ones_like(pos, dtype=torch.bool), base,
+                (rep * k1).to(torch.int32))
+    # prefill: 64 padded rows after 230 cached tokens (across the first
+    # chunk's end), Len 50, one broadcast table row
+    s, cached, length = 64, 230, 50
+    row = own([cached + s - 1])[0]
+    t = torch.arange(s, dtype=torch.int32, device=cuda)
+    return (row.expand(s, p), cached + t, t < length,
+            torch.full_like(t, cached), torch.zeros_like(t))
+
+
+def _write_case(cuda, kind, kv_dtype, src, d, dv, seed, h=4, nb=320, bs=16,
+                p=32):
+    """Inputs of the fused launch for a row set (`kind`, or the tuple of
+    `_write_rows`): random arenas (quantized row by row), new rows with an
+    all-zero one, the write slots, and `ok`, the rows that read only kept
+    rows."""
+    from paddle_tpu_torch.ops.paged_decode_ops import write_slots
+    from paddle_tpu_torch.quant.core import kv_quantized, quantize_rows
+    src = getattr(torch, kv_dtype) if src is None else src
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    rows = _write_rows(kind, nb, bs, p, gen, cuda) \
+        if isinstance(kind, str) else kind
+    tables, pos, live, fresh_lo, fresh_src = rows
+    n = pos.shape[0]
+    kf = torch.randn(nb, h, bs, d, generator=gen, device=cuda)
+    vf = torch.randn(nb, h, bs, dv, generator=gen, device=cuda)
+    t = dict(q=torch.randn(n, h, d, generator=gen, device=cuda),
+             k_new=(3 * torch.randn(n, h, d, generator=gen,
+                                    device=cuda)).to(src),
+             v_new=torch.randn(n, h, dv, generator=gen, device=cuda).to(src),
+             tables=tables, lens=pos + 1, fresh_lo=fresh_lo,
+             fresh_src=fresh_src)
+    t['k_new'][1, 0] = 0                  # an all-zero row: scale 1e-30/q
+    if kv_quantized(kv_dtype):
+        t['kp'], t['ks'] = quantize_rows(kf, kv_dtype)
+        t['vp'], t['vs'] = quantize_rows(vf, kv_dtype)
+    else:
+        dt = getattr(torch, kv_dtype)
+        t['kp'], t['vp'], t['ks'], t['vs'] = kf.to(dt), vf.to(dt), None, None
+    t['phys'], t['off'], t['keep'] = write_slots(tables, pos, live, nb, bs)
+    keep = t['keep'].tolist()
+    lo, src_rows, top = fresh_lo.tolist(), fresh_src.tolist(), pos.tolist()
+    t['ok'] = torch.tensor(
+        [keep[r] and all(keep[src_rows[r] + x - lo[r]]
+                         for x in range(lo[r], min(top[r] + 1, p * bs)))
+         for r in range(n)], device=cuda)
+    return t
+
+
+def _write_arenas(t):
+    return [x.clone() if x is not None else None
+            for x in (t['kp'], t['vp'], t['ks'], t['vs'])]
+
+
+def _write_args(t, arenas):
+    kp, vp = arenas[:2]
+    return (t['q'], t['k_new'], t['v_new'], kp, vp, t['tables'], t['lens'],
+            t['phys'], t['off'], t['keep'], t['fresh_lo'], t['fresh_src'])
+
+
+def _raw8(x):
+    return x.view(torch.uint8) if x.element_size() == 1 else x
+
+
+def _check_write(t, kv_dtype):
+    """The fused launch against its plain versions: the arenas bit for bit
+    with kv_write_reference; the rows that read only kept rows bit for bit
+    with the unfused K4 kernel run after that write, and within K4's
+    tolerances of the kernel-order plain version. Returns the counter
+    deltas of the fused call: (launches, wrote, 16-byte, any-width,
+    quantized)."""
+    want = _write_arenas(t)
+    tpa.kv_write_reference(t['k_new'], t['v_new'], want[0], want[1],
+                           t['phys'], t['off'], t['keep'])
+    unfused = tpa.paged_attention(t['q'], want[0], want[1], t['tables'],
+                                  t['lens'])
+    got = _write_arenas(t)
+    f = tpa.paged_attention
+
+    def counts():
+        return (f.launches, f.launches_write, f.launches_v16,
+                f.launches_any, f.launches_q8)
+    before = counts()
+    out = tpa.paged_attention_write(*_write_args(t, got))
+    moved = tuple(a - b for a, b in zip(counts(), before))
+    plain = tpa.paged_attention_write_split_reference(
+        *_write_args(t, _write_arenas(t)))
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        if a is not None:
+            assert torch.equal(_raw8(a), _raw8(b))
+    ok = t['ok']
+    assert ok.any() and not ok.all()
+    assert torch.equal(out[ok], unfused[ok])
+    gap = (out[ok] - plain[ok]).abs()
+    if kv_dtype == 'float32':
+        assert float(gap.max()) <= 5e-5
+    else:
+        assert bool((gap <= 2e-2 + 2e-2 * plain[ok].abs()).all())
+    return moved
+
+
+@pytest.mark.parametrize('variant', sorted(WRITE_VARIANTS))
+@pytest.mark.parametrize('kind', ['decode', 'verify', 'prefill'])
+@pytest.mark.parametrize('kv_dtype', WRITE_KV)
+def test_paged_attention_write_kernel_matches_plain(cuda, kv_dtype, kind,
+                                                    variant):
+    """The KV write folded into K4's split launch, both split variants,
+    fp32 and bf16 arenas under new rows of their dtype, the decode, verify
+    (k + 1 = 4) and broadcast prefill row sets with dropped rows: arenas
+    bit for bit with the plain write, kept rows bit for bit with write-
+    then-attend through the unfused kernel; one launch that wrote, on the
+    variant the shape asks for."""
+    d, dv = WRITE_VARIANTS[variant]
+    t = _write_case(cuda, kind, kv_dtype, None, d, dv,
+                    seed=100 * WRITE_KV.index(kv_dtype) + 10 * len(kind) +
+                    len(variant))
+    launches, wrote, v16, any_, q8 = _check_write(t, kv_dtype)
+    assert (launches, wrote, q8) == (1, 1, 0)
+    assert (v16, any_) == ((1, 0) if variant == 'v16' else (0, 1))
+
+
+@pytest.mark.parametrize('kv_dtype', WRITE_KV)
+def test_paged_attention_write_prefill_512_rows(cuda, kv_dtype):
+    """The prefill's 512 broadcast rows at the decode configuration's
+    width (8 heads, head dim 64, pages of 32), nothing cached, so every
+    key a row reads comes from the input; Len 500, so the last 12 rows
+    drop: the same checks."""
+    s, nb, bs, p = 512, 128, 32, 64
+    row = torch.randperm(nb, device=cuda)[:p].to(torch.int32)
+    row[s // bs:] = nb + 3
+    pos = torch.arange(s, dtype=torch.int32, device=cuda)
+    rows = (row.expand(s, p), pos, pos < 500, torch.zeros_like(pos),
+            torch.zeros_like(pos))
+    t = _write_case(cuda, rows, kv_dtype, None, 64, 64, seed=9, h=8, nb=nb,
+                    bs=bs, p=p)
+    assert _check_write(t, kv_dtype)[:2] == (1, 1)
+
+
+@pytest.mark.parametrize('kv_dtype', WRITE_KV)
+def test_paged_attention_write_captured(cuda, kv_dtype):
+    """The fused launch captured in a CUDA graph and replayed: the output
+    and the arenas equal the eager call's, bit for bit, and each replay
+    counts nothing on the host (the executor adds a graph's recorded
+    launches itself)."""
+    t = _write_case(cuda, 'verify', kv_dtype, None, 64, 64, seed=12)
+    eager_arenas = _write_arenas(t)
+    eager = tpa.paged_attention_write(*_write_args(t, eager_arenas))
+    arenas = _write_arenas(t)
+    args = _write_args(t, arenas)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tpa.paged_attention_write(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    for a, b in zip(arenas, _write_arenas(t)):   # back to the old arenas
+        if a is not None:
+            a.copy_(b)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tpa.paged_attention_write(*args)
+    before = tpa.paged_attention.launches_write
+    for _ in range(2):
+        graph.replay()
+    torch.cuda.synchronize()
+    assert tpa.paged_attention.launches_write == before
+    assert torch.equal(out, eager)
+    for a, b in zip(arenas, eager_arenas):
+        if a is not None:
+            assert torch.equal(_raw8(a), _raw8(b))
+
+
+def test_paged_attention_write_wrapper_rejects_bad_inputs(cuda):
+    """The fused wrapper names what it needs: new rows of the arena's
+    head count, width and dtype (fp32 or bf16 arenas; a write that
+    converts is kv_write's), int32 vectors of one length, a bool keep,
+    every tensor on the card."""
+    t = _write_case(cuda, 'decode', 'float32', None, 64, 64, seed=13)
+    q8 = _write_case(cuda, 'decode', 'int8', torch.float32, 64, 64, seed=13)
+
+    def call(**swap):
+        u = dict(t, **swap)
+        return tpa.paged_attention_write(*_write_args(u, _write_arenas(u)))
+    call()
+    for bad in (dict(k_new=t['k_new'][:, :, :32].contiguous()),
+                dict(v_new=t['v_new'].half()),
+                dict(k_new=t['k_new'].half(), v_new=t['v_new'].half()),
+                dict(k_new=t['k_new'].bfloat16(),
+                     v_new=t['v_new'].bfloat16()),
+                dict(kp=t['kp'].bfloat16(), vp=t['vp'].bfloat16()),
+                dict(kp=q8['kp'], vp=q8['vp']),
+                dict(phys=t['phys'].long()),
+                dict(keep=t['keep'].to(torch.int32)),
+                dict(fresh_lo=t['fresh_lo'][:3]),
+                dict(fresh_src=t['fresh_src'].cpu())):
+        with pytest.raises(ValueError):
+            call(**bad)
+
+
+# ---- the captured step: keep mask and the executor's graphs
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16,
