@@ -2,11 +2,12 @@
 """Chip smoke for paddle_tpu_torch: decode serving, Transformer training,
 ResNet-50 training, NMT inference, the training lifecycle (Trainer,
 checkpoints and resume, inference-model export), disaggregated decode
-serving (the KV page handoff, PhaseRouter) and Wide&Deep CTR training
-with row-sparse embedding gradients on one CUDA card.
+serving (the KV page handoff, PhaseRouter), Wide&Deep CTR training
+with row-sparse embedding gradients and the public layers (an encoder
+layer built from them, every new and repaired op) on one CUDA card.
 
     python3 chip_smoke.py                  # on a machine with one H100
-    python3 chip_smoke.py --cpu-rehearsal  # phases 4-15 on the host, tiny
+    python3 chip_smoke.py --cpu-rehearsal  # phases 4-16 on the host, tiny
 
 Every path runs through the executor's CUDA graphs (one a key, captured on
 its second call; core/executor.py), and phase 11 holds each against the
@@ -258,13 +259,34 @@ Phases (any fault exits non-zero; no phase is skipped over):
    sparse against dense SGD on the
    card, and the recommender at its defaults (emb 32, fc 200, cos_sim)
    card against host.
+16. The public layers. (a) A Transformer-base encoder layer written by
+   hand from public layers only at bench_transformer's width (batch 64 x
+   seq 64, d_model 512, 8 heads, d_inner 2048): Q, K, V by
+   fc(num_flatten_dims=2), nets.scaled_dot_product_attention, an output
+   fc, the residual and layer_norm (K1); fc to 2 x 2048, nets.glu, fc
+   back, the residual and layer_norm; loss reduce_mean(square(y -
+   label)) under SGD. Captured at fp32 (TF32 off) and under bf16 AMP, 3
+   warm-up and 20 timed steps each: ms a step, tokens/s, K1's launches
+   checked exactly (2 forward and 4 backward kernels a step); card
+   against host over 3 steps from the same weights at batch 4 (losses
+   rtol 1e-4 fp32, 2e-2 bf16); captured against eager bit for bit under
+   bf16 at dropout 0 and 0.1 (the attention weights' dropout: one fused
+   dropout forward and backward launch a step). (b) Every op type the
+   slice added and every repaired op (sign, gelu, cast, pow, clip, brelu,
+   relu6, leaky_relu) in one captured program at [4096, 512], fp32 and
+   bf16 AMP, the edge values of tests/test_torch_harness.py at the feed's
+   head; each output and each op's gradient (through reduce_sum) card
+   against the CPU place at the harness's tolerances, the repaired
+   faults exactly where they were; then the two *_batch_size_like draws
+   eagerly (host-bound ops): shape, range, moments, same-seed
+   repeatability.
 
 The last line is {"ok": true, "device": {...}}; before it come one JSON
 line with every kernel's numbers (and phase 13's under "lifecycle":
 tokens/s a depth, launches a step, checkpoint bytes, save, restore and
-export seconds; phase 14's under "disagg"; phase 15's under "ctr") and
-nvidia-smi's name and power limit.
---cpu-rehearsal runs phases 4-15 at tiny sizes with the plain versions
+export seconds; phase 14's under "disagg"; phase 15's under "ctr";
+phase 16's under "layers") and nvidia-smi's name and power limit.
+--cpu-rehearsal runs phases 4-16 at tiny sizes with the plain versions
 (phases 8, 10, 11, 13d and 15 then compare the host with itself) and
 never prints that last line. --profile adds, after every other phase, a torch.profiler
 breakdown of decode steps (fp32 and int8 arenas, captured and eager),
@@ -4821,10 +4843,645 @@ def phase_ctr(torch, pt, card, on_card, slots=CTR_SLOTS, rows=CTR_ROWS,
     return runs, legs, jobs
 
 
+# ------------------------------------------------------------ phase 16
+# the public layers: a Transformer-base encoder layer written by hand from
+# public layers (16a) and every new and repaired op on the card (16b)
+ENC_DIMS = dict(d_model=512, n_head=8, d_inner=2048)
+
+
+def _encoder_program(pt, batch, seq, d_model, n_head, d_inner, dropout,
+                     amp, lr=1e-3):
+    """One Transformer-base encoder layer from public layers only: Q, K, V
+    by fc(num_flatten_dims=2), nets.scaled_dot_product_attention, an
+    output fc, the residual and layer_norm (K1); fc to 2 x d_inner,
+    nets.glu, fc back, the residual and layer_norm; the loss
+    reduce_mean(square(y - label)) under SGD(lr). Returns (main, startup,
+    loss)."""
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed = 16
+    with pt.program_guard(main, startup):
+        L = pt.layers
+        x = L.data(name='x', shape=[batch, seq, d_model], dtype='float32',
+                   append_batch_size=False)
+        label = L.data(name='label', shape=[batch, seq, d_model],
+                       dtype='float32', append_batch_size=False)
+        q, k, v = [L.fc(x, size=d_model, num_flatten_dims=2)
+                   for _ in range(3)]
+        att = pt.nets.scaled_dot_product_attention(
+            q, k, v, num_heads=n_head, dropout_rate=dropout)
+        h = L.layer_norm(L.elementwise_add(
+            x, L.fc(att, size=d_model, num_flatten_dims=2)),
+            begin_norm_axis=2)
+        g = pt.nets.glu(L.fc(h, size=2 * d_inner, num_flatten_dims=2),
+                        dim=-1)
+        y = L.layer_norm(L.elementwise_add(
+            h, L.fc(g, size=d_model, num_flatten_dims=2)), begin_norm_axis=2)
+        loss = L.reduce_mean(L.square(L.elementwise_sub(y, label)))
+        pt.optimizer.SGD(learning_rate=lr).minimize(loss)
+    main.amp = amp
+    return main, startup, loss
+
+
+def _encoder_feed(batch, seq, d_model, seed=16):
+    rng = np.random.RandomState(seed)
+    return {'x': rng.randn(batch, seq, d_model).astype('f'),
+            'label': rng.randn(batch, seq, d_model).astype('f')}
+
+
+def _encoder_weights(pt, startup):
+    """The startup's values on the host: {name: numpy}."""
+    scope = pt.Scope()
+    with pt.scope_guard(scope):
+        pt.Executor(pt.CPUPlace()).run(startup)
+    return {n: scope.numpy(n) for n in scope.keys()}
+
+
+def encoder_want(steps, dropout):
+    """K1's launches in ``steps`` encoder steps: 2 layer norms a step, and
+    their backward, 2 kernels each; with dropout one fused dropout
+    forward and backward a step (the attention weights')."""
+    n = steps * (1 if dropout else 0)
+    return dict(layer_norm=2 * steps, layer_norm_bwd=4 * steps,
+                dropout=n, dropout_bwd=n, keep_mask=0)
+
+
+def _encoder_timed(torch, pt, place, card, on_card, dims, batch, seq, amp,
+                   warmup, steps):
+    """The encoder layer at dropout 0, captured: ``warmup`` then ``steps``
+    timed steps with every launch count at 0 before. Returns (ms a step,
+    tokens/s, launches, losses)."""
+    main, startup, loss = _encoder_program(pt, batch, seq, dropout=0.0,
+                                           amp=amp, **dims)
+    exe = pt.Executor(place)
+    scope = pt.Scope()
+    with pt.scope_guard(scope):
+        exe.run(startup)
+    feed = {n: torch.as_tensor(v).to(exe.device) for n, v in
+            _encoder_feed(batch, seq, dims['d_model']).items()}
+    _mode_steps(torch, pt, exe, main, scope, feed, loss, True, warmup, 0,
+                on_card)
+    reset_launches()
+    secs, losses = _mode_steps(torch, pt, exe, main, scope, feed, loss,
+                               True, 0, steps, on_card)
+    launches = read_launches()
+    ms = secs * 1e3 / steps
+    return ms, batch * seq * steps / secs, launches, losses
+
+
+def _encoder_compare(torch, pt, places, dims, batch, seq, amp, steps=3):
+    """3 steps of the encoder layer from the same weights on each place;
+    returns the losses of each."""
+    main, startup, loss = _encoder_program(pt, batch, seq, dropout=0.0,
+                                           amp=amp, **dims)
+    weights = _encoder_weights(pt, startup)
+    feed = _encoder_feed(batch, seq, dims['d_model'])
+    from paddle_tpu_torch.weights import load_into_scope
+    out = []
+    for place in places:
+        scope, exe = pt.Scope(), pt.Executor(place)
+        load_into_scope(weights, scope, place)
+        with pt.scope_guard(scope):
+            out.append([float(exe.run(main, feed=feed, fetch_list=[loss])[0]
+                              .reshape(())) for _ in range(steps)])
+    return out
+
+
+def _encoder_modes(torch, pt, place, dims, batch, seq, dropout, steps=3):
+    """The encoder layer under bf16 AMP at ``dropout``: ``steps`` captured
+    steps (graph replays) and ``steps`` eager ones (use_program_cache=
+    False) from the same weights at the same step indices (each executor
+    first runs two steps, the eager warm-up and the capture, and takes
+    its state back). Returns {mode: (losses, {var: numpy}, launches of
+    the ``steps`` steps)}."""
+    from paddle_tpu_torch.weights import load_into_scope
+    main, startup, loss = _encoder_program(pt, batch, seq, dropout=dropout,
+                                           amp='bf16', **dims)
+    weights = _encoder_weights(pt, startup)
+    feed = _encoder_feed(batch, seq, dims['d_model'])
+    res = {}
+    for mode in ('captured', 'eager'):
+        scope, exe = pt.Scope(), pt.Executor(place)
+        load_into_scope(weights, scope, place)
+        cache = mode == 'captured'
+        snap = _snapshot(scope)
+        with pt.scope_guard(scope):
+            for _ in range(2):
+                exe.run(main, feed=feed, fetch_list=[loss],
+                        use_program_cache=cache)
+            _restore(scope, snap)
+            reset_launches()
+            losses = np.array([float(exe.run(
+                main, feed=feed, fetch_list=[loss],
+                use_program_cache=cache)[0].reshape(()))
+                for _ in range(steps)])
+            launches = read_launches()
+        res[mode] = (losses, {n: scope.numpy(n) for n in scope.keys()},
+                     launches)
+    return res
+
+
+def phase_layers_encoder(torch, pt, place, card, on_card, dims=ENC_DIMS,
+                         batch=64, seq=64, cmp_batch=4, warmup=3, steps=20):
+    """Phase 16a: the encoder layer from public layers at fp32 (TF32 off)
+    and under bf16 AMP, captured, timed, K1's launches checked exactly;
+    card against host (3 steps, batch ``cmp_batch``); captured against
+    eager bit for bit at dropout 0 and 0.1, dropout's launches checked at
+    0.1. Returns (launch counts of the timed runs, numbers)."""
+    t0 = time.perf_counter()
+    runs, numbers = [], {}
+    host = pt.CPUPlace()
+    for amp, rtol in ((None, 1e-4), ('bf16', 2e-2)):
+        label = 'bf16' if amp else 'fp32'
+        ms, tok_s, launches, losses = _encoder_timed(
+            torch, pt, place, card, on_card, dims, batch, seq, amp, warmup,
+            steps)
+        want = encoder_want(steps, 0.0)
+        got = {k: launches[k] for k in want}
+        print('phase 16a encoder layer from public layers (batch %d x seq '
+              '%d, d_model %d, %d heads, d_inner %d, SGD), %s: %d timed '
+              'steps after %d warm-up: %.3f ms/step, %.1f tokens/s; loss '
+              'first %.5f last %.5f; launches %s (want %s) [%s]'
+              % (batch, seq, dims['d_model'], dims['n_head'],
+                 dims['d_inner'], label, steps, warmup, ms, tok_s,
+                 losses[0], losses[-1], got, want, card))
+        require(np.isfinite(losses).all(), 'phase 16a %s: loss not finite'
+                % label)
+        if on_card:
+            require(got == want, 'phase 16a %s launches %s, want %s'
+                    % (label, got, want))
+        runs.append(launches)
+        card_l, host_l = _encoder_compare(torch, pt, (place, host), dims,
+                                          cmp_batch, seq, amp)
+        err = float(np.max(np.abs(np.array(card_l) - host_l) /
+                           np.abs(host_l)))
+        print('phase 16a %s, card vs host (3 steps, batch %d x seq %d): '
+              'card %s host %s, largest relative difference %.3g (rtol '
+              '%g) [%s]' % (label, cmp_batch, seq, card_l, host_l, err,
+                            rtol, card))
+        require(err <= rtol, 'phase 16a %s: card and host losses %s, %s'
+                % (label, card_l, host_l))
+        numbers[label] = dict(ms=ms, tokens_per_s=tok_s, card_vs_host=err)
+    for dropout in (0.0, 0.1):
+        res = _encoder_modes(torch, pt, place, dims, cmp_batch, seq, dropout)
+        (lc, sc, nc), (le, se, ne) = res['captured'], res['eager']
+        same = np.array_equal(lc, le) and all(
+            np.array_equal(sc[n].view(np.uint8), se[n].view(np.uint8))
+            for n in sc)
+        want = encoder_want(3, dropout)
+        print('phase 16a bf16, dropout %.1f, batch %d x seq %d: 3 captured '
+              'steps against 3 eager from the same state and step: losses '
+              '%s / %s, every persistable bit for bit: %s; launches '
+              'captured %s, eager %s (want %s) [%s]'
+              % (dropout, cmp_batch, seq, list(lc), list(le), same,
+                 {k: nc[k] for k in want}, {k: ne[k] for k in want}, want,
+                 card))
+        require(same, 'phase 16a: captured and eager differ at dropout %g'
+                % dropout)
+        if on_card:
+            require(all(nc[k] == ne[k] == v for k, v in want.items()),
+                    'phase 16a dropout %g launches %s / %s, want %s'
+                    % (dropout, nc, ne, want))
+    numbers['seconds'] = time.perf_counter() - t0
+    return runs, numbers
+
+
+# ---- parity: the edge values, the repaired faults and the tolerance
+# rule of phase 16b, shared with tests/test_torch_harness.py (the port
+# against the JAX package) and tests/test_torch_gpu.py (card against host)
+PARITY_RTOL = 1e-6          # fp32
+PARITY_FTZ = 1.2e-38        # fp32's smallest normal number, 2^-126
+# NaN, +-inf, +-0, ties and halves, the clips' bounds (-1.5, 2.5, 0, 6,
+# 24), leaky_relu's 0, soft_relu's 40, beyond int32 (+-3e9)
+LAYERS_EDGE = np.array([
+    [np.nan, np.inf, -np.inf, 0.0, -0.0, 0.5, -0.5, 1.0],
+    [-1.0, 1.5, -1.5, 2.5, -2.5, 6.0, 24.0, 40.0],
+    [-40.0, 100.0, -100.0, 3e9, -3e9, 3.0, 3.0, 3.0],
+    [1.0, 3.0, 3.0, -2.0, -2.0, 0.0, -0.0, 0.75]], np.float32)
+# an input beyond this, subnormal or not finite is extreme: the
+# tolerance's scale comes from the other elements (the random feeds lie
+# in [-2, 2))
+ORDINARY = 2.5
+# where each repaired fault was, by the value of x: compared exactly
+LAYERS_FAULTS = {
+    'sign': lambda x: np.isnan(x),
+    'gelu': lambda x: np.isinf(x),
+    'cast': lambda x: ~np.isfinite(x) | (np.abs(x) > 2 ** 31),
+    'pow': lambda x: np.isinf(x),
+    'clip': lambda x: (x == -1.5) | (x == 2.5),
+    'brelu': lambda x: (x == 0) | (x == 24),
+    'relu6': lambda x: (x == 0) | (x == 6),
+    'leaky_relu': lambda x: x == 0,
+}
+
+
+def bf16_ulp(a):
+    """One bf16 ulp at |a| (8 significant bits), float64."""
+    return 2.0 ** (np.floor(np.log2(np.maximum(np.abs(a), 2.0 ** -126)))
+                   - 7)
+
+
+def ordinary(shape, *inputs):
+    """The elements of an output of ``shape`` where every float input of
+    that shape is 0 or a normal number at most ORDINARY in magnitude
+    (every element where no input has the shape)."""
+    mask = np.ones(shape, bool)
+    for v in inputs:
+        v = np.asarray(v)
+        if v.shape == tuple(shape) and v.dtype.kind == 'f':
+            a = np.abs(v.astype(np.float64))
+            with np.errstate(invalid='ignore'):
+                mask &= (a <= ORDINARY) & ((a == 0) | (a >= 2.0 ** -126))
+    return mask
+
+
+def prod_others(a, axis=None):
+    """For each element of ``a``, the product of the others along
+    ``axis`` (None: of every other element), from exclusive products
+    left and right (float64)."""
+    a = np.asarray(a, np.float64)
+    flat = a.reshape(-1) if axis is None else np.moveaxis(a, axis, -1)
+    one = np.ones(flat.shape[:-1] + (1,))
+    with np.errstate(over='ignore', invalid='ignore'):
+        left = np.cumprod(np.concatenate([one, flat[..., :-1]], -1), -1)
+        right = np.cumprod(np.concatenate(
+            [one, flat[..., ::-1][..., :-1]], -1), -1)[..., ::-1]
+        out = left * right
+    return out.reshape(a.shape) if axis is None else \
+        np.moveaxis(out, -1, axis)
+
+
+def parity_difference(got, want, exact=False, bf16=False, grad=False,
+                      where=None, terms=0, sums=None, skip_nan=False):
+    """None if ``got`` matches ``want``, else the largest difference
+    outside the tolerance (inf for a NaN or an infinity placed apart or
+    another shape). ``exact``: equal. An op that sums each element from
+    ``terms`` terms whose magnitudes add up to ``sums`` (per element; a
+    product: its magnitude): PARITY_RTOL * (|want| + terms * sums) +
+    PARITY_FTZ at fp32, one bf16 ulp (of the larger of |want| and |got|)
+    + PARITY_RTOL * terms * sums for a ``bf16`` value (the terms of bf16
+    inputs are exact in fp32, summed there). A pointwise op:
+    PARITY_RTOL * (|want| + M) + PARITY_FTZ at fp32, one bf16 ulp + 2^-8
+    M in bf16 (2^-6 M for a gradient), M the largest finite |want| over
+    the elements ``where`` (a mask; default all): a formula's own
+    cancellation at the ordinary inputs' scale, so an extreme input's
+    value (3e9) is held to its own magnitude and widens no other
+    element's bound. PARITY_FTZ is for results XLA's CPU backend flushes
+    to zero where torch keeps the subnormal. ``skip_nan``: an element
+    NaN in ``want`` is not compared."""
+    r = np.asarray(want).astype(np.float64)
+    g = np.asarray(got).astype(np.float64)
+    if r.shape != g.shape:
+        return float('inf')
+    keep = np.ones(r.shape, bool)
+    if skip_nan:
+        keep = ~np.isnan(r)
+    special = keep & (~np.isfinite(r) | ~np.isfinite(g))
+    if not np.array_equal(r[special], g[special], equal_nan=True):
+        return float('inf')
+    fin = keep & ~special
+    err = np.abs(g[fin] - r[fin])
+    if exact:
+        bound = 0.0
+    elif sums is not None:
+        s = np.asarray(sums, np.float64)
+        s = s.reshape(r.shape) if s.size == r.size else \
+            np.broadcast_to(s, r.shape)
+        s = np.where(np.isfinite(s), s, 0.0)[fin]
+        if bf16:
+            bound = bf16_ulp(np.maximum(np.abs(r[fin]), np.abs(g[fin]))) + \
+                PARITY_RTOL * terms * s
+        else:
+            bound = PARITY_RTOL * (np.abs(r[fin]) + terms * s) + PARITY_FTZ
+    else:
+        pick = fin if where is None else fin & np.broadcast_to(where, r.shape)
+        m = float(np.abs(r[pick]).max()) if pick.any() else 0.0
+        if bf16:
+            bound = bf16_ulp(np.maximum(np.abs(r[fin]), np.abs(g[fin]))) + \
+                2.0 ** -8 * (4.0 if grad else 1.0) * m
+        else:
+            bound = PARITY_RTOL * (np.abs(r[fin]) + m) + PARITY_FTZ
+    bad = err > bound
+    return float(err[bad].max()) if bad.any() else None
+
+
+def _op_helper(pt, op_type, inputs, out_dtype=None, slots=('Out',)):
+    from paddle_tpu_torch.layers.helper import LayerHelper
+    helper = LayerHelper(op_type)
+    first = next(iter(inputs.values()))
+    outs = {s: [helper.create_variable_for_type_inference(
+        out_dtype or first.dtype)] for s in slots}
+    helper.append_op(type=op_type, inputs={k: [v] for k, v in
+                                           inputs.items()},
+                     outputs=outs, attrs={})
+    return [outs[s][0] for s in slots]
+
+
+def _sums_mean(f):
+    a = np.abs(f['x'].astype(np.float64))
+    n, d = a.shape
+    return [a.mean(), a.mean(1, keepdims=True)], \
+        {'x': np.full(a.shape, 1.0 / (n * d) + 1.0 / d)}
+
+
+def _sums_prod(f):
+    z = np.abs(0.25 * f['x'].astype(np.float64) + 1.0)
+    with np.errstate(over='ignore', invalid='ignore'):
+        return [z.prod(1)], {'x': 0.25 * prod_others(z, 1)}
+
+
+def _sums_dot(f):
+    a, b = (np.abs(f[k].astype(np.float64)) for k in ('x', 'y'))
+    return [(a * b).sum(1, keepdims=True)], {'x': b, 'y': a}
+
+
+def _sums_distance(f):
+    d = np.abs(f['x'].astype(np.float64) - f['y'])
+    # sub_result, x - y, is pointwise
+    return [(d * d).sum(1, keepdims=True), None], {'x': 2 * d, 'y': 2 * d}
+
+
+def layers_ops(pt):
+    """[(name, build(L, v) -> outputs, exact, terms, sums)] of every op
+    type this slice adds (but the two random fills) and every repaired
+    op; v(k) is input k ('x', 'y', 'label' or the bools 'a', 'b');
+    ``terms``: how many terms an element sums (0: pointwise); ``sums``
+    (None: pointwise): a function of the feed giving the magnitudes of
+    those terms, per element, as ([one array an output], {input: one
+    array for its gradient}) (parity_difference)."""
+    def h(op, out_dtype=None, **kw):
+        return lambda L, v: _op_helper(pt, op, {'X': v('x'), 'Y': v('y')},
+                                       out_dtype=out_dtype, **kw)
+
+    def u(layer, **attrs):
+        return lambda L, v: getattr(L, layer)(v('x'), **attrs)
+    return [
+        ('elementwise_max', lambda L, v: L.elementwise_max(v('x'), v('y')),
+         True, 0, None),
+        ('elementwise_min', lambda L, v: L.elementwise_min(v('x'), v('y')),
+         True, 0, None),
+        ('elementwise_pow', lambda L, v: L.elementwise_pow(
+            L.abs(v('x')), v('y')), False, 0, None),
+        ('elementwise_mod', h('elementwise_mod'), True, 0, None),
+        ('elementwise_floordiv', h('elementwise_floordiv'), True, 0, None),
+        ('reduce_mean', lambda L, v: [L.reduce_mean(v('x')), L.reduce_mean(
+            v('x'), dim=1, keep_dim=True)], False, 512, _sums_mean),
+        ('reduce_max', lambda L, v: [L.reduce_max(v('x'), dim=1),
+                                     L.reduce_max(v('x'))], True, 0, None),
+        ('reduce_min', lambda L, v: L.reduce_min(v('x'), dim=0,
+                                                 keep_dim=True), True, 0,
+         None),
+        ('reduce_prod', lambda L, v: L.reduce_prod(
+            L.scale(v('x'), scale=0.25, bias=1.0), dim=1), False, 512,
+         _sums_prod),
+        ('greater_than', h('greater_than', 'bool'), True, 0, None),
+        ('greater_equal', h('greater_equal', 'bool'), True, 0, None),
+        ('less_equal', h('less_equal', 'bool'), True, 0, None),
+        ('not_equal', h('not_equal', 'bool'), True, 0, None),
+        ('logical_and', lambda L, v: L.logical_and(v('a'), v('b')), True,
+         0, None),
+        ('logical_or', lambda L, v: L.logical_or(v('a'), v('b')), True, 0,
+         None),
+        ('logical_xor', lambda L, v: L.logical_xor(v('a'), v('b')), True,
+         0, None),
+        ('logical_not', lambda L, v: L.logical_not(v('a')), True, 0, None),
+        ('dot', lambda L, v: L.dot(v('x'), v('y')), False, 512, _sums_dot),
+        ('minus', h('minus'), True, 0, None),
+        ('l1_norm', u('l1_norm'), False, 512, lambda f: (
+            [np.abs(f['x']).sum()], {'x': np.ones(f['x'].shape)})),
+        ('squared_l2_norm', u('squared_l2_norm'), False, 512, lambda f: (
+            [np.square(f['x'].astype(np.float64)).sum()],
+            {'x': 2 * np.abs(f['x'])})),
+        ('squared_l2_distance', h('squared_l2_distance',
+                                  slots=('Out', 'sub_result')), False, 512,
+         _sums_distance),
+        ('prelu', lambda L, v: [L.prelu(v('x'), mode='all'),
+                                L.prelu(v('x'), mode='element')], False, 0,
+         None),
+        ('mish', u('mish'), False, 0, None),
+        ('stanh', u('stanh'), False, 0, None),
+        ('hard_shrink', u('hard_shrink'), True, 0, None),
+        ('softshrink', u('softshrink'), True, 0, None),
+        ('hard_sigmoid', u('hard_sigmoid'), False, 0, None),
+        ('soft_relu', u('soft_relu'), False, 0, None),
+        ('thresholded_relu', u('thresholded_relu'), True, 0, None),
+        ('sigmoid_cross_entropy_with_logits', lambda L, v:
+         L.sigmoid_cross_entropy_with_logits(v('x'), v('label')), False, 0,
+         None),
+        ('split', lambda L, v: L.split(v('x'), 2, dim=1) + L.split(
+            v('x'), [16, v('x').shape[1] - 16], dim=-1), True, 0, None),
+        ('sign', u('sign'), True, 0, None),
+        ('gelu', u('gelu'), False, 0, None),
+        ('cast', lambda L, v: [L.cast(v('x'), d) for d in (
+            'int32', 'int16', 'int8', 'uint8', 'bool')], True, 0, None),
+        ('pow', u('pow', factor=0.5), False, 0, None),
+        ('clip', lambda L, v: L.clip(v('x'), -1.5, 2.5), True, 0, None),
+        ('brelu', u('brelu', t_min=0.0, t_max=24.0), True, 0, None),
+        ('relu6', u('relu6'), True, 0, None),
+        ('leaky_relu', u('leaky_relu'), False, 0, None),
+    ]
+
+
+def _layers_ops_program(pt, n, d, amp):
+    """Every op of layers_ops on [n, d] in one program: each float input
+    through its own -0.0 probe (x + -0.0 is x bit for bit; the probe's
+    gradient is the op's at x), cast to bf16 under amp; the loss sums
+    reduce_sum of every float output. Returns (main, startup, [(name,
+    exact, terms, sums, fetch names, [(input, gradient name)])])."""
+    main, startup = pt.Program(), pt.Program()
+    cases = []
+    with pt.program_guard(main, startup):
+        L = pt.layers
+
+        def data(name, dtype='float32'):
+            return L.data(name=name, shape=[n, d], dtype=dtype,
+                          append_batch_size=False)
+        xs = {k: data(k) for k in ('x', 'y', 'label')}
+        xs.update(a=data('a', 'bool'), b=data('b', 'bool'))
+        sums = []
+        for name, build, exact, terms, sums_of in layers_ops(pt):
+            probed, grads = {}, []
+
+            def v(k, name=name, probed=probed, grads=grads):
+                if k in ('a', 'b'):
+                    return xs[k]
+                if k not in probed:
+                    probe = L.create_parameter(
+                        shape=[n, d], dtype='float32',
+                        name='%s_%s_probe' % (name, k),
+                        default_initializer=pt.initializer.Constant(-0.0))
+                    val = L.elementwise_add(xs[k], probe)
+                    probed[k] = L.cast(val, 'bfloat16') if amp else val
+                    grads.append((k, probe.name + '@GRAD'))
+                return probed[k]
+            outs = build(L, v)
+            outs = outs if isinstance(outs, list) else [outs]
+            floats = [o for o in outs if o.dtype in ('float32', 'bfloat16')]
+            sums += [L.reduce_sum(L.cast(o, 'float32')) for o in floats]
+            cases.append((name, exact, terms, sums_of,
+                          [o.name for o in outs], grads if floats else []))
+        loss = L.sums(sums)
+        grads = pt.backward.append_backward(loss)
+    used = {g.name for _, g in grads}
+    cases = [c[:5] + ([(k, g) for k, g in c[5] if g in used],)
+             for c in cases]
+    main.amp = amp
+    return main, startup, cases
+
+
+def layers_ops_feed(n, d, seed=16):
+    """x, y, label and two bool inputs of [n, d]: x and y uniform in
+    [-2, 2) with the edge values and two subnormals (+-1e-40) at x's head
+    (and y holding x's values at a quarter of the positions: ties), label
+    in [0, 1]."""
+    rng = np.random.RandomState(seed)
+    x = rng.uniform(-2.0, 2.0, (n, d)).astype('f')
+    head = np.concatenate([LAYERS_EDGE.ravel(), [1e-40, -1e-40]])
+    x.reshape(-1)[:head.size] = head
+    y = np.roll(x, 3, axis=1)
+    y[:, ::4] = x[:, ::4]
+    return {'x': x, 'y': y, 'label': rng.rand(n, d).astype('f'),
+            'a': rng.rand(n, d) > 0.5, 'b': rng.rand(n, d) > 0.5}
+
+
+def _where_apart(got, want, feed, k=4):
+    """The first ``k`` elements where got and want differ, with x and y
+    there when they have the output's shape."""
+    g, w = got.astype(np.float64), want.astype(np.float64)
+    apart = ~((g == w) | (np.isnan(g) & np.isnan(w)))
+    out = []
+    for i in np.argwhere(apart)[:k]:
+        i = tuple(i)
+        xy = ['%s=%r' % (n, feed[n][i]) for n in ('x', 'y')
+              if feed[n].shape == g.shape]
+        out.append('at %s %s card %r host %r' % (i, ' '.join(xy), g[i],
+                                                 w[i]))
+    return ('; ' + '; '.join(out)) if out else ''
+
+
+def _numpy_all(torch, values):
+    return [v.float().cpu().numpy() if v.is_floating_point() else
+            v.cpu().numpy() for v in values]
+
+
+def phase_layers_ops(torch, pt, place, card, on_card, n=4096, d=512):
+    """Phase 16b: every new op and every repaired op in one captured
+    program at [n, d], fp32 and bf16 AMP, on the card against the CPU
+    place (forward and each op's gradient through reduce_sum, at the
+    harness's tolerances, parity_difference, whose scale comes from the
+    ordinary elements: the edge values' outputs are held to their own
+    magnitude; the repaired faults exactly where they were),
+    then the two *_batch_size_like draws eagerly (shape, range, moments,
+    same-seed repeatability). Returns its numbers."""
+    t0 = time.perf_counter()
+    feed = layers_ops_feed(n, d)
+    x = feed['x']
+    worst, total, faults = {}, 0, []
+    for amp in (None, 'bf16'):
+        label = 'bf16' if amp else 'fp32'
+        compared = 0
+        main, startup, cases = _layers_ops_program(pt, n, d, amp)
+        fetch = [f for c in cases for f in c[4] + [g for _, g in c[5]]]
+        res = {}
+        for mode, pl in (('card', place), ('host', pt.CPUPlace())):
+            exe = pt.Executor(pl)
+            with pt.scope_guard(pt.Scope()):
+                exe.run(startup)
+                for _ in range(2 if mode == 'card' else 1):
+                    out = exe.run(main, feed=feed, fetch_list=fetch,
+                                  return_numpy=False)
+                if mode == 'card' and on_card:
+                    require(exe.last_captured, 'phase 16b %s: the ops '
+                            'program did not run captured' % label)
+            res[mode] = dict(zip(fetch, _numpy_all(torch, out)))
+        for name, exact, terms, sums_of, outs, grads in cases:
+            s_outs, s_grads = sums_of(feed) if sums_of else ([], {})
+            for i, f in enumerate(outs + [g for _, g in grads]):
+                g, w = res['card'][f], res['host'][f]
+                grad = i >= len(outs)
+                sums = None
+                if sums_of:
+                    sums = s_grads[grads[i - len(outs)][0]] if grad else \
+                        s_outs[i] if i < len(s_outs) else None
+                bf16 = amp is not None and w.dtype == np.float32
+                # mod's gradient for y is -trunc(x / y): exact only where
+                # the two quotients round alike
+                ex = exact and not (grad and name == 'elementwise_mod')
+                diff = parity_difference(
+                    g, w, ex, bf16, grad, terms=terms, sums=sums,
+                    where=ordinary(w.shape, feed['x'], feed['y']))
+                if diff is not None:
+                    faults.append('%s %s %s: card and host differ by %r%s'
+                                  % (label, name, f, diff,
+                                     _where_apart(g, w, feed)))
+                if name in LAYERS_FAULTS and g.shape == x.shape:
+                    at = LAYERS_FAULTS[name](x)
+                    if not np.array_equal(g[at], w[at], equal_nan=True):
+                        faults.append('%s %s %s: card %s host %s at %s'
+                                      % (label, name, f, g[at], w[at],
+                                         x[at]))
+                # relative where |host| >= 1, absolute below
+                with np.errstate(invalid='ignore'):
+                    err = np.abs(g.astype(np.float64) - w) / np.maximum(
+                        np.abs(w.astype(np.float64)), 1.0)
+                fin = np.isfinite(err)
+                worst[name] = max(worst.get(name, 0.0),
+                                  float(err[fin].max()) if fin.any()
+                                  else 0.0)
+                compared += 1
+        print('phase 16b %s: %d op types in one captured program at [%d, '
+              '%d] with the edge values: %d outputs and gradients card '
+              'against host, %d outside the harness tolerances or, for a '
+              'repaired fault, not exact [%s]'
+              % (label, len(cases), n, d, compared, len(faults), card))
+        total += compared
+    require(not faults, 'phase 16b: %d differences:\n  %s'
+            % (len(faults), '\n  '.join(faults)))
+    # the random fills: host-bound, so eager; bits diverge by design
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed = 16
+    with pt.program_guard(main, startup):
+        L = pt.layers
+        xv = L.data(name='x', shape=[n, d], dtype='float32',
+                    append_batch_size=False)
+        u = L.uniform_random_batch_size_like(xv, [1, 256], min=-0.5,
+                                             max=2.0)
+        gs = L.gaussian_random_batch_size_like(xv, [1, 256], mean=1.0,
+                                               std=2.0)
+    draws = []
+    for _ in range(2):
+        exe = pt.Executor(place)
+        with pt.scope_guard(pt.Scope()):
+            exe.run(startup)
+            draws.append([_numpy_all(torch, exe.run(
+                main, feed={'x': x}, fetch_list=[u, gs],
+                return_numpy=False)) for _ in range(2)])
+    (u0, g0), (u1, g1) = draws[0]
+    # within 5 standard errors of the law's mean and std
+    m = float(u0.size)
+    ok = (u0.shape == g0.shape == (n, 256) and u0.min() >= -0.5 and
+          u0.max() < 2.0 and
+          abs(u0.mean() - 0.75) < 5 * 2.5 / np.sqrt(12 * m) and
+          abs(g0.mean() - 1.0) < 5 * 2.0 / np.sqrt(m) and
+          abs(g0.std() - 2.0) < 5 * 2.0 / np.sqrt(2 * m) and
+          all(np.array_equal(p, q) for p, q in zip(draws[0][0],
+                                                   draws[1][0])) and
+          all(np.array_equal(p, q) for p, q in zip(draws[0][1],
+                                                   draws[1][1])) and
+          not np.array_equal(u0, u1) and not np.array_equal(g0, g1))
+    print('phase 16b *_batch_size_like on the card: shape %s, uniform in '
+          '[%.4f, %.4f] mean %.4f, gaussian mean %.4f std %.4f; the same '
+          'draws from a second executor at the same steps, new ones at the '
+          'next step: %s [%s]' % (u0.shape, u0.min(), u0.max(), u0.mean(),
+                                  g0.mean(), g0.std(), ok, card))
+    require(ok, 'phase 16b: the *_batch_size_like draws')
+    return dict(ops_compared=total, seconds=time.perf_counter() - t0,
+                largest_card_host_difference=worst)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--cpu-rehearsal', action='store_true',
-                    help='run phases 4-14 on the host at tiny sizes with '
+                    help='run phases 4-16 on the host at tiny sizes with '
                          'the plain versions')
     ap.add_argument('--profile', action='store_true',
                     help='after every other phase, profile 20 decode '
@@ -4913,6 +5570,10 @@ def main():
                      long_prompt=(40, 48), short_prompt=(4, 12))
         phase_ctr(torch, pt, host, False, slots=4, rows=1000, batch=256,
                   steps=5)
+        phase_layers_encoder(torch, pt, pt.CPUPlace(), host, False,
+                             dims=dict(d_model=32, n_head=4, d_inner=64),
+                             batch=4, seq=8, cmp_batch=2, steps=3)
+        phase_layers_ops(torch, pt, pt.CPUPlace(), host, False, n=64, d=48)
         print('cpu rehearsal ok in %.1f s' % (time.perf_counter() - t_start))
         return
 
@@ -5082,17 +5743,27 @@ def main():
         require(not any(sorts), 'a row-sparse CTR step still sorts outside '
                 'the sparse_rows kernel')
     del ctr_jobs
+    torch.cuda.empty_cache()
+    # phase 16: the public layers
+    layers_runs, layers = phase_layers_encoder(torch, pt, pt.CUDAPlace(0),
+                                               card, True)
+    torch.cuda.empty_cache()
+    layers.update(ops=phase_layers_ops(torch, pt, pt.CUDAPlace(0), card,
+                                       True))
+    torch.cuda.empty_cache()
+    done('16 (the public layers)')
 
     # launches: the sum over the main paths' runs (the engine runs: plain,
     # extras plain and with cache + speculation, int8 and fp8; the timed
     # Transformer (unrolled and scan_layers), masked Transformer, phase
     # 7b's (the dropout Mask read) and ResNet-50 training steps; phase 12's
     # timed decode calls; phase 13a's timed Trainer epoch at depth 1; phase
-    # 14's six legs; phase 15's four row-sparse legs), each read after its
-    # counts were set to 0
+    # 14's six legs; phase 15's four row-sparse legs; phase 16a's timed
+    # encoder steps, fp32 and bf16), each read after its counts were set
+    # to 0
     main_runs = [launches] + extras + list(quant.values()) + \
         [train, scan_train, masked, mask_read, resnet, nmt, trainer] + \
-        disagg_runs + list(ctr_runs.values())
+        disagg_runs + list(ctr_runs.values()) + layers_runs
 
     def runs(key):
         return sum(r.get(key, 0) for r in main_runs)
@@ -5168,7 +5839,7 @@ def main():
                        for k, v in sparse.items()})
     print('total %.1f s' % (time.perf_counter() - t_start))
     print(json.dumps({'kernels': kernels, 'lifecycle': lifecycle,
-                      'disagg': disagg, 'ctr': ctr}))
+                      'disagg': disagg, 'ctr': ctr, 'layers': layers}))
     print(card)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu',
                                              'kind': name,

@@ -12,6 +12,7 @@ have (a backward kernel before it was written) is reported as such.
     python3 kernel_times.py [DIR] --train   # the Transformer's steps instead
     python3 kernel_times.py [DIR] --write   # a layer's KV write and K4
     python3 kernel_times.py [DIR] --serve   # the engine's tokens/s, TTFT
+    python3 kernel_times.py [DIR] --encoder # phase 16a's encoder layer
 
 DIR (default: this checkout) holds the ``paddle_tpu_torch`` package to
 time; the shapes, the inputs and the timer (CUDA-graph replay, CUDA events)
@@ -51,6 +52,13 @@ on fp32 and on int8 arenas and serves chip_smoke.py's phase-4 requests
 phase does, three times an engine: tokens/s and TTFT p50 and p99 on the
 host's clock.
 
+With --encoder, it runs DIR's encoder layer of public layers at
+chip_smoke.py's phase-16a width (batch 64 x seq 64, d_model 512, 8
+heads, d_inner 2048, SGD) at fp32 and under bf16 AMP: 3 warm-up and 20
+timed steps captured (ms a step on the host clock), then profiles 5
+steps of each as chip_smoke.py --profile does (device busy time a step,
+by kernel family and by kernel).
+
 Nothing is checked here: chip_smoke.py holds each kernel against its plain
 versions. Prints one line a case, then nvidia-smi's name and power limit,
 then one JSON object {"port": DIR, "card": ..., "ms": {case: ms}}.
@@ -62,6 +70,37 @@ import subprocess
 import sys
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+
+
+def encoder_steps(torch, smoke, card, steps=20):
+    """--encoder: DIR's phase-16a encoder layer; returns {label: ms}."""
+    import paddle_tpu_torch as pt
+    dev = torch.device('cuda', 0)
+    ms, jobs = {}, []
+    for amp in (None, 'bf16'):
+        label = 'encoder %s' % (amp or 'fp32')
+        ms[label], tok_s, _, losses = smoke._encoder_timed(
+            torch, pt, pt.CUDAPlace(0), card, True, smoke.ENC_DIMS, 64, 64,
+            amp, 3, steps)
+        print('%s: batch 64 x seq 64, %d steps after 3 warm-up: %.3f '
+              'ms/step, %.1f tokens/s; loss first %.5f last %.5f [%s]'
+              % (label, steps, ms[label], tok_s, losses[0], losses[-1],
+                 card))
+        main, startup, loss = smoke._encoder_program(
+            pt, 64, 64, dropout=0.0, amp=amp, **smoke.ENC_DIMS)
+        exe, scope = pt.Executor(pt.CUDAPlace(0)), pt.Scope()
+        with pt.scope_guard(scope):
+            exe.run(startup)
+        feed = {n: torch.as_tensor(v).to(dev) for n, v in
+                smoke._encoder_feed(64, 64, 512).items()}
+
+        def step(exe=exe, scope=scope, main=main, feed=feed, loss=loss):
+            with pt.scope_guard(scope):
+                exe.run(main, feed=feed, fetch_list=[loss],
+                        return_numpy=False)
+        jobs.append(('5 %s steps' % label, step, 5, None))
+    smoke.profile_steps(torch, card, jobs)
+    return ms
 
 
 def decode_step(torch, smoke, card):
@@ -268,7 +307,8 @@ def serve(torch, smoke, card, rounds=3):
 
 def main():
     args = [a for a in sys.argv[1:]
-            if a not in ('--decode', '--train', '--write', '--serve')]
+            if a not in ('--decode', '--train', '--write', '--serve',
+                         '--encoder')]
     port = os.path.abspath(args[0]) if args else REPO
     sys.path.insert(0, REPO)
     import chip_smoke as smoke
@@ -293,7 +333,7 @@ def main():
         print(card)
         return
     for flag, run in (('--train', train_steps), ('--write', write_layers),
-                      ('--serve', serve)):
+                      ('--serve', serve), ('--encoder', encoder_steps)):
         if flag in sys.argv:
             ms = run(torch, smoke, card)
             print(card)

@@ -12,13 +12,19 @@ host with the plain versions. Files written by ``io`` (persistables,
 checkpoints, inference models) use the JAX package's format.
 """
 
-from . import (clip, dataset, fault, initializer, io, layers,
-               learning_rate_decay, optimizer, reader, regularizer, trainer)
+from . import (backward, clip, dataset, fault, initializer, io, layers,
+               learning_rate_decay, nets, optimizer, reader, regularizer,
+               trainer)
+from .core.backward import append_backward
+from .core.errors import EnforceError, enforce
 from .core.executor import Executor
+from .core.flags import init_flags
+from .core.lod import create_lod_tensor, pad_sequences
 from .core.place import CPUPlace, CUDAPlace
 from .core.program import (Program, default_main_program,
                            default_startup_program, program_guard,
-                           reset_default_programs)
+                           reset_default_programs, switch_main_program,
+                           switch_startup_program)
 from .core.scope import Scope, global_scope, scope_guard
 from .data_feeder import DataFeeder
 from .fault import CheckpointConfig
@@ -27,11 +33,14 @@ from .param_attr import ParamAttr
 from .trainer import (BeginEpochEvent, BeginStepEvent, EndEpochEvent,
                       EndStepEvent, Trainer)
 
-__all__ = ['clip', 'dataset', 'fault', 'initializer', 'io', 'layers',
-           'learning_rate_decay', 'optimizer', 'reader', 'regularizer',
-           'trainer', 'Executor', 'CPUPlace', 'CUDAPlace', 'Program',
+__all__ = ['backward', 'clip', 'dataset', 'fault', 'initializer', 'io',
+           'layers', 'learning_rate_decay', 'nets', 'optimizer', 'reader',
+           'regularizer', 'trainer', 'append_backward', 'EnforceError',
+           'enforce', 'init_flags', 'create_lod_tensor', 'pad_sequences',
+           'Executor', 'CPUPlace', 'CUDAPlace', 'Program',
            'default_main_program', 'default_startup_program',
-           'program_guard', 'reset_default_programs', 'Scope',
+           'program_guard', 'reset_default_programs', 'switch_main_program',
+           'switch_startup_program', 'Scope',
            'global_scope', 'scope_guard', 'DataFeeder', 'CheckpointConfig',
            'ParamAttr', 'memory_optimize', 'Trainer', 'BeginEpochEvent',
            'EndEpochEvent', 'BeginStepEvent', 'EndStepEvent']

@@ -10,9 +10,37 @@ invalidate.
 """
 
 import contextlib
+import os
+import sys
 
 from . import unique_name
 from .dtypes import canonical_dtype
+
+# Root of the package: frames under it are framework machinery, frames
+# outside it are the user code an op's provenance points at
+# (core/program.py -> core -> paddle_tpu_torch).
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__))) + os.sep
+
+
+def _capture_provenance():
+    """'file.py:line' of the nearest frame outside the package on the
+    stack: the user statement that (through any layers) appended the op.
+    One short frame walk an append_op; PADDLE_TPU_PROVENANCE=0 turns it
+    off (None is stored). None too where the whole stack is the
+    package's own (programs built by clone and serialize keep the
+    original op's provenance instead)."""
+    if os.environ.get('PADDLE_TPU_PROVENANCE') == '0':
+        return None
+    f = sys._getframe(2)   # skip this function and append/prepend_op
+    depth = 0
+    while f is not None and depth < 40:
+        filename = f.f_code.co_filename
+        if not filename.startswith(_PKG_DIR) and \
+                not filename.startswith('<'):
+            return '%s:%d' % (filename, f.f_lineno)
+        f = f.f_back
+        depth += 1
+    return None
 
 
 class Variable(object):
@@ -59,6 +87,48 @@ class Variable(object):
             self.name, self.shape, self.dtype,
             ', persistable' if self.persistable else '')
 
+    # Arithmetic sugar (reference: fluid/layers/math_op_patch.py
+    # monkey_patch_variable), through the layers, imported late: they
+    # import this module. A number becomes a [1] fill_constant of this
+    # var's dtype. == and < keep their identity meaning (use
+    # layers.equal / layers.less_than), so vars stay usable in sets and
+    # dicts.
+    def _binary(self, other, op, reverse=False):
+        from ..layers import tensor as _tensor
+        if not isinstance(other, Variable):
+            other = _tensor.fill_constant(
+                shape=[1], dtype=self.dtype, value=float(other))
+        a, b = (other, self) if reverse else (self, other)
+        return op(a, b)
+
+    def __add__(self, other):
+        from ..layers import ops as _ops
+        return self._binary(other, _ops.elementwise_add)
+
+    __radd__ = __add__
+
+    def __sub__(self, other):
+        from ..layers import ops as _ops
+        return self._binary(other, _ops.elementwise_sub)
+
+    def __rsub__(self, other):
+        from ..layers import ops as _ops
+        return self._binary(other, _ops.elementwise_sub, reverse=True)
+
+    def __mul__(self, other):
+        from ..layers import ops as _ops
+        return self._binary(other, _ops.elementwise_mul)
+
+    __rmul__ = __mul__
+
+    def __truediv__(self, other):
+        from ..layers import ops as _ops
+        return self._binary(other, _ops.elementwise_div)
+
+    def astype(self, dtype):
+        from ..layers import tensor as _tensor
+        return _tensor.cast(self, dtype)
+
 
 class Parameter(Variable):
     """A trainable persistable Variable (reference: framework.py Parameter).
@@ -78,14 +148,21 @@ class Parameter(Variable):
 
 
 class Operator(object):
-    """One op invocation. inputs/outputs map slot name -> list of var names."""
+    """One op invocation. inputs/outputs map slot name -> list of var names.
 
-    def __init__(self, block, type, inputs=None, outputs=None, attrs=None):
+    ``provenance`` is the 'file.py:line' of the user statement that built
+    the op (captured by Block.append_op; None with
+    PADDLE_TPU_PROVENANCE=0 or for ops the package built on its own).
+    """
+
+    def __init__(self, block, type, inputs=None, outputs=None, attrs=None,
+                 provenance=None):
         self.block = block
         self.type = type
         self.inputs = {k: list(v) for k, v in (inputs or {}).items()}
         self.outputs = {k: list(v) for k, v in (outputs or {}).items()}
         self.attrs = dict(attrs or {})
+        self.provenance = provenance
 
     def input(self, slot):
         names = self.inputs.get(slot, [])
@@ -105,8 +182,9 @@ class Operator(object):
         return self.attrs.get(name, default)
 
     def __repr__(self):
-        return 'Op(%s, in=%s, out=%s)' % (self.type, self.inputs,
-                                          self.outputs)
+        where = ' @ %s' % self.provenance if self.provenance else ''
+        return 'Op(%s, in=%s, out=%s%s)' % (self.type, self.inputs,
+                                            self.outputs, where)
 
 
 def _to_name_list(value):
@@ -169,8 +247,18 @@ class Block(object):
     def append_op(self, type, inputs=None, outputs=None, attrs=None):
         inputs = {k: _to_name_list(v) for k, v in (inputs or {}).items()}
         outputs = {k: _to_name_list(v) for k, v in (outputs or {}).items()}
-        op = Operator(self, type, inputs, outputs, attrs)
+        op = Operator(self, type, inputs, outputs, attrs,
+                      provenance=_capture_provenance())
         self.ops.append(op)
+        self.program._bump_version()
+        return op
+
+    def prepend_op(self, type, inputs=None, outputs=None, attrs=None):
+        inputs = {k: _to_name_list(v) for k, v in (inputs or {}).items()}
+        outputs = {k: _to_name_list(v) for k, v in (outputs or {}).items()}
+        op = Operator(self, type, inputs, outputs, attrs,
+                      provenance=_capture_provenance())
+        self.ops.insert(0, op)
         self.program._bump_version()
         return op
 
@@ -204,6 +292,21 @@ class Program(object):
 
     def current_block(self):
         return self.blocks[self.current_block_idx]
+
+    def create_block(self, parent_idx=None):
+        """A new block (child of ``parent_idx``, by default of the current
+        block), made the current one."""
+        parent_idx = self.current_block_idx if parent_idx is None \
+            else parent_idx
+        block = Block(self, len(self.blocks), parent_idx)
+        self.blocks.append(block)
+        self.current_block_idx = block.idx
+        self._bump_version()
+        return block
+
+    def rollback(self):
+        """Make the current block's parent the current block again."""
+        self.current_block_idx = max(self.current_block().parent_idx, 0)
 
     def block(self, idx):
         return self.blocks[idx]
@@ -267,7 +370,9 @@ class Program(object):
                 if for_test and ('is_test' in attrs or
                                  op.type in ('dropout', 'batch_norm')):
                     attrs['is_test'] = True
-                nb.append_op(op.type, op.inputs, op.outputs, attrs)
+                # the original construction site, not the clone call
+                nb.append_op(op.type, op.inputs, op.outputs,
+                             attrs).provenance = op.provenance
         p.current_block_idx = 0
         return p
 

@@ -197,14 +197,20 @@ class LoweringContext(object):
         return to_torch_dtype(var.dtype if var is not None else default)
 
     # ---- randomness ----
-    def generator(self, seed=0):
+    def generator(self, seed=0, step=False):
         """A CPU torch.Generator for this op: seeded by ``seed`` when it is
         nonzero (an initializer's explicit seed), else by the program seed
-        and the op's index. Random values are drawn on the host and then
-        moved, so a CPU and a CUDA run of one startup program give the
-        same parameters."""
+        and the op's index, and with ``step`` by the step index too (a
+        host read: only host-bound ops draw). Random values are drawn on
+        the host and then moved, so a CPU and a CUDA run of one program
+        give the same values."""
         g = torch.Generator(device='cpu')
-        g.manual_seed(int(seed) if seed else _mix(self.seed, self.op_index))
+        if seed:
+            g.manual_seed(int(seed))
+        elif step:
+            g.manual_seed(_mix(self.seed, self.op_index, int(self.step)))
+        else:
+            g.manual_seed(_mix(self.seed, self.op_index))
         return g
 
     def step_tensor(self):

@@ -2,8 +2,7 @@
 core/serialize.py; the reference framework's ProgramDesc protobuf).
 
 The same JSON keys as the JAX package, so a Program serialized by either
-package loads into the other. The port records no op provenance: it
-writes ``provenance`` as None and ignores the key on load.
+package loads into the other, each op with its provenance.
 """
 
 from .program import Block, Parameter, Program, Variable
@@ -32,7 +31,7 @@ def program_to_dict(program):
             'vars': [_var_to_dict(v) for v in b.vars.values()],
             'ops': [{'type': op.type, 'inputs': op.inputs,
                      'outputs': op.outputs, 'attrs': op.attrs,
-                     'provenance': None}
+                     'provenance': op.provenance}
                     for op in b.ops],
         })
     return {'blocks': blocks, 'random_seed': program.random_seed}
@@ -60,6 +59,9 @@ def program_from_dict(data):
             v.stop_gradient = vd['stop_gradient']
             b.vars[vd['name']] = v
         for od in bd['ops']:
-            b.append_op(od['type'], od['inputs'], od['outputs'], od['attrs'])
+            # the recorded construction site (absent from dicts written
+            # without one), not this call's
+            b.append_op(od['type'], od['inputs'], od['outputs'],
+                        od['attrs']).provenance = od.get('provenance')
     p.current_block_idx = 0
     return p

@@ -42,7 +42,10 @@ class Initializer(object):
 
 
 class ConstantInitializer(Initializer):
-    def __init__(self, value=0.0):
+    """Fills the var with ``value``; ``force_cpu`` is accepted and ignored,
+    as in the reference."""
+
+    def __init__(self, value=0.0, force_cpu=False):
         self.value = value
 
     def __call__(self, var, block=None):

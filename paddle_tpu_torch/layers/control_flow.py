@@ -1,11 +1,25 @@
-"""Comparison layers (reference: paddle_tpu layers/control_flow.py;
-fluid/layers/control_flow.py): equal and less_than, the two the
-unrolled greedy decode builds. The loop constructs (While, StaticRNN,
-DynamicRNN, IfElse, Switch) are not ported."""
+"""Control-flow layers (reference: paddle_tpu layers/control_flow.py;
+fluid/layers/control_flow.py): increment, and equal and less_than, the
+two comparisons the unrolled greedy decode builds. The loop constructs
+(While, StaticRNN, DynamicRNN, IfElse, Switch), Print, is_empty and the
+array layers are not ported."""
 
 from .helper import LayerHelper
 
-__all__ = ['less_than', 'equal']
+__all__ = ['increment', 'less_than', 'equal']
+
+
+def increment(x, value=1.0, in_place=True):
+    """x + value, written into x itself with ``in_place``."""
+    helper = LayerHelper('increment')
+    if in_place:
+        out = x
+    else:
+        out = helper.create_variable_for_type_inference(x.dtype)
+        out.shape = x.shape
+    helper.append_op(type='increment', inputs={'X': [x]},
+                     outputs={'Out': [out]}, attrs={'step': float(value)})
+    return out
 
 
 def _compare(op_type, x, y, cond):

@@ -46,6 +46,13 @@ class LayerHelper(object):
             inputs = [inputs]
         return list(inputs)
 
+    def input(self, input_param_name='input'):
+        inputs = self.multiple_input(input_param_name)
+        if len(inputs) != 1:
+            raise ValueError('%s layer needs exactly one input' %
+                             self.layer_type)
+        return inputs[0]
+
     @property
     def param_attr(self):
         return ParamAttr.to_attr(self.kwargs.get('param_attr', None))
@@ -93,6 +100,21 @@ class LayerHelper(object):
         return self.block.create_var(
             name=unique_name.generate('.'.join([self.name, 'tmp'])),
             dtype=dtype)
+
+    create_tmp_variable = create_variable_for_type_inference
+
+    def create_variable(self, *args, **kwargs):
+        return self.block.create_var(*args, **kwargs)
+
+    def create_global_variable(self, persistable=False, *args, **kwargs):
+        block = self.main_program.global_block()
+        return block.create_var(
+            *args, persistable=persistable,
+            name=kwargs.pop('name', unique_name.generate('.'.join(
+                [self.name, 'tmp']))), **kwargs)
+
+    def set_variable_initializer(self, var, initializer):
+        initializer(var)
 
     def append_bias_op(self, input_var, size, axis=1):
         """input + bias (a new [size] parameter from bias_attr), or input

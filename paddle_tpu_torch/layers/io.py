@@ -7,7 +7,10 @@ __all__ = ['data']
 
 
 def data(name, shape, dtype='float32', lod_level=0, append_batch_size=True,
-         stop_gradient=True):
+         type=None, stop_gradient=True):
+    """A feed slot: a global var of ``shape`` (behind a -1 batch dim with
+    ``append_batch_size``). ``type`` is accepted and ignored, as in the
+    reference."""
     helper = LayerHelper('data', name=name)
     shape = list(shape)
     if append_batch_size:

@@ -1,10 +1,11 @@
 """Tensor-manipulation layers the training and inference paths build
-(reference: paddle_tpu layers/manip.py): slice, unsqueeze, expand, stack
-and log_softmax."""
+(reference: paddle_tpu layers/manip.py): slice, unsqueeze, expand, stack,
+log_softmax and prelu."""
 
+from ..initializer import Constant
 from .helper import LayerHelper
 
-__all__ = ['slice', 'unsqueeze', 'expand', 'stack', 'log_softmax']
+__all__ = ['slice', 'unsqueeze', 'expand', 'stack', 'log_softmax', 'prelu']
 
 
 def slice(input, axes, starts, ends, name=None):
@@ -70,4 +71,25 @@ def log_softmax(x, axis=-1, name=None):
     out.shape = x.shape
     helper.append_op(type='log_softmax', inputs={'X': [x]},
                      outputs={'Out': [out]}, attrs={'axis': axis})
+    return out
+
+
+def prelu(x, mode='all', param_attr=None, name=None):
+    """where(x > 0, x, alpha * x) with a learnt alpha (0.25 at first): one
+    value ('all'), one a channel of an NC... layout ('channel') or one an
+    element of a row ('element')."""
+    helper = LayerHelper('prelu', **locals())
+    if mode == 'all':
+        alpha_shape = [1]
+    elif mode == 'channel':
+        alpha_shape = [x.shape[1]]
+    else:
+        alpha_shape = list(x.shape[1:])
+    alpha = helper.create_parameter(attr=helper.param_attr,
+                                    shape=alpha_shape, dtype=x.dtype,
+                                    default_initializer=Constant(0.25))
+    out = helper.create_variable_for_type_inference(x.dtype)
+    out.shape = x.shape
+    helper.append_op(type='prelu', inputs={'X': [x], 'Alpha': [alpha]},
+                     outputs={'Out': [out]}, attrs={'mode': mode})
     return out

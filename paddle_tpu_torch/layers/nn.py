@@ -9,8 +9,11 @@ from .helper import LayerHelper
 __all__ = ['fc', 'embedding', 'conv2d', 'pool2d', 'batch_norm',
            'layer_norm', 'dropout', 'cross_entropy',
            'label_smoothed_cross_entropy', 'softmax_with_cross_entropy',
-           'accuracy', 'topk', 'reduce_sum', 'transpose', 'one_hot',
-           'square_error_cost', 'cos_sim', 'autoincreased_step_counter']
+           'accuracy', 'topk', 'matmul', 'reduce_sum', 'reduce_mean',
+           'reduce_max', 'reduce_min', 'reduce_prod', 'split', 'transpose',
+           'one_hot', 'square_error_cost', 'cos_sim', 'relu_layer', 'dot',
+           'sign', 'l1_norm', 'squared_l2_norm', 'squared_l2_distance',
+           'autoincreased_step_counter']
 
 
 def _prod(xs):
@@ -21,9 +24,10 @@ def _prod(xs):
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
-       act=None, is_test=False, name=None):
+       act=None, is_test=False, use_mkldnn=False, name=None):
     """Fully-connected layer: one mul op per input, their sum, a bias and
-    an activation (reference fluid/layers/nn.py:fc)."""
+    an activation (reference fluid/layers/nn.py:fc). ``use_mkldnn`` is
+    accepted and ignored, as in the reference."""
     helper = LayerHelper('fc', **locals())
     dtype = helper.input_dtype()
     inputs = input if isinstance(input, (list, tuple)) else [input]
@@ -289,8 +293,29 @@ def label_smoothed_cross_entropy(logits, label, epsilon=0.1, name=None):
     return out
 
 
-def reduce_sum(input, dim=None, keep_dim=False, name=None):
-    helper = LayerHelper('reduce_sum', name=name)
+def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None):
+    helper = LayerHelper('matmul', name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    if x.shape is not None and y.shape is not None:
+        xs = list(x.shape)
+        ys = list(y.shape)
+        if transpose_x and len(xs) > 1:
+            xs[-1], xs[-2] = xs[-2], xs[-1]
+        if transpose_y and len(ys) > 1:
+            ys[-1], ys[-2] = ys[-2], ys[-1]
+        if len(xs) >= 2 and len(ys) >= 2:
+            out.shape = tuple(xs[:-1] + ys[-1:])
+    helper.append_op(type='matmul', inputs={'X': [x], 'Y': [y]},
+                     outputs={'Out': [out]},
+                     attrs={'transpose_X': transpose_x,
+                            'transpose_Y': transpose_y, 'alpha': alpha})
+    return out
+
+
+def _reduce(op_type, input, dim, keep_dim, name):
+    """One reduce op over ``dim`` (an int or a list), or over every axis
+    where dim is None (``reduce_all``)."""
+    helper = LayerHelper(op_type, name=name)
     out = helper.create_variable_for_type_inference(input.dtype)
     reduce_all = dim is None
     dims = dim if isinstance(dim, (list, tuple)) else \
@@ -306,11 +331,63 @@ def reduce_sum(input, dim=None, keep_dim=False, name=None):
                 else:
                     s.pop(ax)
             out.shape = tuple(s)
-    helper.append_op(type='reduce_sum', inputs={'X': [input]},
+    helper.append_op(type=op_type, inputs={'X': [input]},
                      outputs={'Out': [out]},
                      attrs={'dim': list(dims), 'keep_dim': keep_dim,
                             'reduce_all': reduce_all})
     return out
+
+
+def reduce_sum(input, dim=None, keep_dim=False, name=None):
+    return _reduce('reduce_sum', input, dim, keep_dim, name)
+
+
+def reduce_mean(input, dim=None, keep_dim=False, name=None):
+    return _reduce('reduce_mean', input, dim, keep_dim, name)
+
+
+def reduce_max(input, dim=None, keep_dim=False, name=None):
+    return _reduce('reduce_max', input, dim, keep_dim, name)
+
+
+def reduce_min(input, dim=None, keep_dim=False, name=None):
+    return _reduce('reduce_min', input, dim, keep_dim, name)
+
+
+def reduce_prod(input, dim=None, keep_dim=False, name=None):
+    return _reduce('reduce_prod', input, dim, keep_dim, name)
+
+
+def split(input, num_or_sections, dim=-1, name=None):
+    """The pieces of ``input`` along ``dim``: ``num_or_sections`` equal
+    ones (an int) or ones of the listed sizes."""
+    helper = LayerHelper('split', name=name)
+    in_shape = input.shape
+    axis = dim % len(in_shape) if in_shape is not None else dim
+    if isinstance(num_or_sections, int):
+        num = num_or_sections
+        sections = None
+        sizes = [in_shape[axis] // num] * num if in_shape else None
+    else:
+        sections = list(num_or_sections)
+        num = len(sections)
+        sizes = sections
+    outs = []
+    for i in range(num):
+        v = helper.create_variable_for_type_inference(input.dtype)
+        if in_shape is not None and sizes is not None:
+            s = list(in_shape)
+            s[axis] = sizes[i]
+            v.shape = tuple(s)
+        outs.append(v)
+    attrs = {'axis': axis}
+    if sections is not None:
+        attrs['sections'] = sections
+    else:
+        attrs['num'] = num
+    helper.append_op(type='split', inputs={'X': [input]},
+                     outputs={'Out': outs}, attrs=attrs)
+    return outs
 
 
 def accuracy(input, label, k=1, correct=None, total=None):
@@ -390,6 +467,59 @@ def cos_sim(X, Y):
         out.shape = tuple(X.shape[:-1]) + (1,)
     helper.append_op(type='cos_sim', inputs={'X': [X], 'Y': [Y]},
                      outputs={'Out': [out], 'XNorm': [xn], 'YNorm': [yn]})
+    return out
+
+
+def relu_layer(x, name=None):
+    from .ops import relu as _relu
+    return _relu(x, name=name)
+
+
+def dot(x, y, name=None):
+    """Row-wise dot product over the last axis, [..., 1]."""
+    helper = LayerHelper(name or 'dot')
+    out = helper.create_variable_for_type_inference(x.dtype)
+    if x.shape is not None:
+        out.shape = tuple(x.shape[:-1]) + (1,)
+    helper.append_op(type='dot', inputs={'X': [x], 'Y': [y]},
+                     outputs={'Out': [out]}, attrs={})
+    return out
+
+
+def _one_op(op_type, x, shape):
+    helper = LayerHelper(op_type)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    out.shape = shape
+    helper.append_op(type=op_type, inputs={'X': [x]},
+                     outputs={'Out': [out]})
+    return out
+
+
+def sign(x):
+    """Elementwise sign (sign_op.cc); NaN stays NaN."""
+    return _one_op('sign', x, x.shape)
+
+
+def l1_norm(x):
+    """sum(|x|) over every element, [1] (l1_norm_op.cc)."""
+    return _one_op('l1_norm', x, (1,))
+
+
+def squared_l2_norm(x):
+    """sum(x^2) over every element, [1] (squared_l2_norm_op.cc)."""
+    return _one_op('squared_l2_norm', x, (1,))
+
+
+def squared_l2_distance(x, y):
+    """Row-wise sum((x - y)^2), [N, 1] (squared_l2_distance_op.cc)."""
+    helper = LayerHelper('squared_l2_distance')
+    out = helper.create_variable_for_type_inference(x.dtype)
+    sub = helper.create_variable_for_type_inference(x.dtype)
+    if x.shape is not None:
+        out.shape = (x.shape[0], 1)
+    helper.append_op(type='squared_l2_distance',
+                     inputs={'X': [x], 'Y': [y]},
+                     outputs={'Out': [out], 'sub_result': [sub]})
     return out
 
 

@@ -2,11 +2,20 @@
 python/paddle/fluid/layers/tensor.py)."""
 
 from ..core.dtypes import canonical_dtype
+from ..initializer import Constant
 from ..param_attr import ParamAttr
 from .helper import LayerHelper
 
-__all__ = ['create_parameter', 'cast', 'concat', 'fill_constant',
-           'fill_constant_batch_size_like', 'argmax']
+__all__ = ['create_tensor', 'create_parameter', 'create_global_var', 'cast',
+           'concat', 'sums', 'fill_constant_batch_size_like',
+           'fill_constant', 'ones', 'zeros', 'argmax', 'zeros_like',
+           'ones_like']
+
+
+def create_tensor(dtype, name=None, persistable=False):
+    helper = LayerHelper('create_tensor', name=name)
+    return helper.create_variable(name=helper.name, dtype=dtype,
+                                  persistable=persistable)
 
 
 def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
@@ -16,6 +25,17 @@ def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
         attr = ParamAttr(name=name)
     return helper.create_parameter(attr, shape, dtype, is_bias,
                                    default_initializer)
+
+
+def create_global_var(shape, value, dtype, persistable=False,
+                      force_cpu=False, name=None):
+    """A global var filled with ``value`` by the startup program;
+    ``force_cpu`` is accepted and ignored, as in the reference."""
+    helper = LayerHelper('global_var', name=name)
+    var = helper.create_global_variable(
+        dtype=dtype, shape=shape, persistable=persistable, name=name)
+    helper.set_variable_initializer(var, Constant(value=float(value)))
+    return var
 
 
 def cast(x, dtype):
@@ -41,6 +61,17 @@ def concat(input, axis=0, name=None):
         out.shape = tuple(shape)
     helper.append_op(type='concat', inputs={'X': input},
                      outputs={'Out': [out]}, attrs={'axis': axis})
+    return out
+
+
+def sums(input, out=None):
+    """The elementwise sum of the vars in ``input`` (one sum op)."""
+    helper = LayerHelper('sum')
+    if out is None:
+        out = helper.create_variable_for_type_inference(
+            dtype=input[0].dtype)
+        out.shape = input[0].shape
+    helper.append_op(type='sum', inputs={'X': input}, outputs={'Out': [out]})
     return out
 
 
@@ -84,3 +115,35 @@ def argmax(x, axis=-1):
     helper.append_op(type='argmax', inputs={'X': [x]},
                      outputs={'Out': [out]}, attrs={'axis': axis})
     return out
+
+
+def ones(shape, dtype, force_cpu=False):
+    return fill_constant(shape=shape, dtype=dtype, value=1.0)
+
+
+def zeros(shape, dtype, force_cpu=False):
+    return fill_constant(shape=shape, dtype=dtype, value=0.0)
+
+
+def _filled_like(layer_type, x, value, out):
+    """x's shape filled with ``value`` at run time (the batch dim read from
+    x by fill_constant_batch_size_like)."""
+    helper = LayerHelper(layer_type)
+    if out is None:
+        out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    out.shape = x.shape
+    helper.append_op(type='fill_constant_batch_size_like',
+                     inputs={'Input': [x]}, outputs={'Out': [out]},
+                     attrs={'shape': [int(s) if s and s > 0 else 1
+                                      for s in (x.shape or [1])],
+                            'value': value, 'input_dim_idx': 0,
+                            'output_dim_idx': 0})
+    return out
+
+
+def zeros_like(x, out=None):
+    return _filled_like('zeros_like', x, 0.0, out)
+
+
+def ones_like(x, out=None):
+    return _filled_like('ones_like', x, 1.0, out)

@@ -27,8 +27,9 @@ with::
 
 Not ported yet (ROADMAP Queue 1 item 11), and absent: MFU and goodput
 accounting (`mfu.py`), anomaly detection, the diagnostics HTTP server
-(``serve``), the fleet view, SLO tracking, and the SIGTERM postmortem
-handler.
+(``serve``), the fleet view, SLO tracking, ``enable_from_env``, the
+periodic ``maybe_flush`` (``enable(every_secs=)`` is stored for it), and
+the SIGTERM postmortem handler.
 """
 
 import atexit
@@ -42,7 +43,7 @@ from .registry import Registry
 from .spans import SpanRecorder
 
 __all__ = ['enabled', 'enable', 'disable', 'reset', 'registry', 'spans',
-           'inc', 'set_gauge', 'add_gauge', 'record', 'get_gauge',
+           'counter', 'gauge', 'histogram', 'inc', 'set_gauge', 'add_gauge', 'record', 'get_gauge',
            'get_counter', 'snapshot', 'span', 'key_id', 'flush',
            'export_trace', 'register_health_check',
            'unregister_health_check', 'run_health_checks',
@@ -52,7 +53,7 @@ _enabled = False          # THE gate: helpers read this module global
 _REG = Registry()
 _SPANS = SpanRecorder()
 _FLIGHT = FlightRecorder()
-_SINK = {'path': None, 'trace_path': None}
+_SINK = {'path': None, 'trace_path': None, 'every_secs': 30.0}
 _atexit_armed = []
 
 # flight recording has its own gate so a forensics-only run (arm_flight,
@@ -78,11 +79,13 @@ def enabled():
     return _enabled
 
 
-def enable(jsonl=None, trace=None):
+def enable(jsonl=None, trace=None, every_secs=30.0):
     """Turn telemetry on. ``jsonl`` appends metric snapshots (one JSON
     object a line: ``flush()``, and a ``kind: "summary"`` line on
     disable() / exit); ``trace`` writes a Chrome-trace JSON of the
-    recorded spans at the same points."""
+    recorded spans at the same points. ``every_secs`` is kept for the
+    periodic flush that throttles by it, ``maybe_flush``, which is not
+    ported yet (ROADMAP Queue 1 item 11)."""
     global _enabled, _flight_on
     _enabled = True
     _flight_on = True
@@ -90,6 +93,7 @@ def enable(jsonl=None, trace=None):
         _SINK['path'] = jsonl
     if trace is not None:
         _SINK['trace_path'] = trace
+    _SINK['every_secs'] = every_secs
     if not _atexit_armed:
         _atexit_armed.append(True)
         atexit.register(_atexit_flush)
@@ -130,6 +134,18 @@ def registry():
 
 def spans():
     return _SPANS
+
+
+def counter(name, help=''):
+    return _REG.counter(name, help)
+
+
+def gauge(name, help=''):
+    return _REG.gauge(name, help)
+
+
+def histogram(name, help=''):
+    return _REG.histogram(name, help)
 
 
 # ------------------------------------------------- gated helper facade

@@ -1,8 +1,9 @@
-"""Math ops the training and inference paths run: mul, matmul,
-elementwise, scale, reduce_sum, mean, cos_sim and the comparisons equal
-and less_than (reference: paddle_tpu ops/math_ops.py; fluid's mul_op,
-matmul_op, elementwise_*_op, scale_op, reduce_op, mean_op, cos_sim_op,
-compare_op).
+"""Math ops: mul, matmul, elementwise, reductions, scale, mean, the
+comparisons and logical ops, cos_sim, dot, minus and the norms
+(reference: paddle_tpu ops/math_ops.py; fluid's mul_op, matmul_op,
+elementwise_*_op, reduce_op, scale_op, mean_op, compare_op, logical_op,
+cos_sim_op, dot_op, minus_op, l1_norm_op, squared_l2_norm_op,
+squared_l2_distance_op).
 
 A plain matrix product goes to ``torch.matmul``, as the JAX package leaves
 it to XLA.
@@ -11,6 +12,7 @@ it to XLA.
 import torch
 
 from ..core.registry import register
+from . import pointwise
 
 
 def _flatten_2d(x, num_col_dims):
@@ -79,22 +81,48 @@ _register_elementwise('add', torch.add)
 _register_elementwise('sub', torch.sub)
 _register_elementwise('mul', torch.mul)
 _register_elementwise('div', torch.div)
+# jnp's gradients: a tie's split in halves, none where the result is NaN
+_register_elementwise('max', pointwise.maximum)
+_register_elementwise('min', pointwise.minimum)
+_register_elementwise('pow', pointwise.pow)
+# jnp.mod is the floor modulo (the result takes the divisor's sign)
+_register_elementwise('mod', pointwise.remainder)
+_register_elementwise('floordiv', pointwise.floor_divide)
 
 
-@register('reduce_sum')
-def _reduce_sum(ctx):
-    x = ctx.input('X')
-    keep = ctx.attr('keep_dim', False)
-    if ctx.attr('reduce_all', False):
-        out = x.sum()
-        if keep:
-            out = out.reshape((1,) * x.dim())
-    else:
-        dim = ctx.attr('dim', [0])
-        if isinstance(dim, int):
-            dim = [dim]
-        out = x.sum(dim=tuple(d % x.dim() for d in dim), keepdim=keep)
-    ctx.set_output('Out', out)
+def _register_reduce(name, fn):
+    """reduce_<name> over ``dim`` (an int or a list; default [0]) or, with
+    ``reduce_all``, over every axis; ``keep_dim`` keeps the reduced axes
+    as 1s. ``fn(x, dim, keepdim)`` reduces every axis where dim is
+    None."""
+    @register('reduce_' + name)
+    def _op(ctx, fn=fn):
+        x = ctx.input('X')
+        keep = ctx.attr('keep_dim', False)
+        if ctx.attr('reduce_all', False):
+            out = fn(x, None, False)
+            if keep:
+                out = out.reshape((1,) * x.dim())
+        else:
+            dim = ctx.attr('dim', [0])
+            if isinstance(dim, int):
+                dim = [dim]
+            out = fn(x, tuple(d % x.dim() for d in dim), keep)
+        ctx.set_output('Out', out)
+
+
+def _reducer(fn):
+    return lambda x, dim, keep: fn(x) if dim is None else \
+        fn(x, dim=dim, keepdim=keep)
+
+
+_register_reduce('sum', _reducer(torch.sum))
+_register_reduce('mean', _reducer(torch.mean))
+# a tie's gradient shared evenly among the ties, as jax.grad of jnp.max
+# does (torch.max(dim) gives all of it to one index)
+_register_reduce('max', pointwise.amax)
+_register_reduce('min', pointwise.amin)
+_register_reduce('prod', pointwise.prod)
 
 
 @register('mean')
@@ -137,4 +165,55 @@ def _register_compare(name, fn):
 
 
 _register_compare('less_than', torch.lt)
+_register_compare('less_equal', torch.le)
+_register_compare('greater_than', torch.gt)
+_register_compare('greater_equal', torch.ge)
 _register_compare('equal', torch.eq)
+_register_compare('not_equal', torch.ne)
+
+
+def _register_logical(name, fn, unary=False):
+    @register('logical_' + name)
+    def _op(ctx, fn=fn, unary=unary):
+        x = ctx.input('X')
+        ctx.set_output('Out', fn(x) if unary else fn(x, ctx.input('Y')))
+
+
+_register_logical('and', torch.logical_and)
+_register_logical('or', torch.logical_or)
+_register_logical('xor', torch.logical_xor)
+_register_logical('not', torch.logical_not, unary=True)
+
+
+@register('dot')
+def _dot(ctx):
+    """Row-wise dot product over the last axis, kept as a size-1 axis."""
+    x = ctx.input('X')
+    y = ctx.input('Y')
+    ctx.set_output('Out', torch.sum(x * y, dim=-1, keepdim=True))
+
+
+@register('l1_norm')
+def _l1_norm(ctx):
+    """sum(|x|) over every element, shaped [1]."""
+    ctx.set_output('Out', pointwise.abs(ctx.input('X')).sum().reshape(1))
+
+
+@register('squared_l2_norm')
+def _squared_l2_norm(ctx):
+    """sum(x^2) over every element, shaped [1]."""
+    ctx.set_output('Out', torch.square(ctx.input('X')).sum().reshape(1))
+
+
+@register('squared_l2_distance')
+def _squared_l2_distance(ctx):
+    """Row-wise sum((x - y)^2), kept as a size-1 axis; Y may be one row
+    broadcast over X's batch. sub_result is x - y."""
+    sub = ctx.input('X') - ctx.input('Y')
+    ctx.set_output('sub_result', sub)
+    ctx.set_output('Out', torch.square(sub).sum(-1, keepdim=True))
+
+
+@register('minus')
+def _minus(ctx):
+    ctx.set_output('Out', ctx.input('X') - ctx.input('Y'))

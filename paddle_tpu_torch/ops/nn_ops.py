@@ -1,14 +1,16 @@
 """NN ops the training paths run: embedding lookup, dropout, the two
-softmax cross-entropy losses, cross_entropy over probabilities, accuracy
-and square_error_cost (reference: paddle_tpu ops/nn_ops.py; fluid's
-lookup_table_op, dropout_op, softmax_with_cross_entropy_op,
-cross_entropy_op, accuracy_op, square_error_cost)."""
+softmax cross-entropy losses, cross_entropy over probabilities, accuracy,
+square_error_cost and sigmoid_cross_entropy_with_logits (reference:
+paddle_tpu ops/nn_ops.py; fluid's lookup_table_op, dropout_op,
+softmax_with_cross_entropy_op, cross_entropy_op, accuracy_op,
+square_error_cost, sigmoid_cross_entropy_with_logits_op)."""
 
 import torch
 
 from ..core.backward import SPARSE_SEED_PREFIX
 from ..core.registry import op_key, register
 from .kernels import random_bits
+from . import pointwise
 
 
 @register('lookup_table')
@@ -181,3 +183,15 @@ def _accuracy(ctx):
 def _square_error_cost(ctx):
     """(x - y)², element by element (fit_a_line's loss)."""
     ctx.set_output('Out', torch.square(ctx.input('X') - ctx.input('Y')))
+
+
+@register('sigmoid_cross_entropy_with_logits')
+def _sigmoid_xent(ctx):
+    """max(x, 0) - x * label + log1p(exp(-|x|)), element by element, with
+    jax's gradients of the maximum (halves at x = 0) and of |x| (+1 at
+    0)."""
+    x = ctx.input('X')
+    label = ctx.input('Label')
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    ctx.set_output('Out', pointwise.maximum(x, zero) - x * label +
+                   torch.log1p(torch.exp(-pointwise.abs(x))))

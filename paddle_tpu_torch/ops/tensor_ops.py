@@ -1,5 +1,5 @@
 """Tensor ops (reference: paddle_tpu ops/tensor_ops.py): the startup
-fills, fill_constant_batch_size_like, sum, concat, reshape, slice,
+fills, fill_constant_batch_size_like, sum, concat, split, reshape, slice,
 unsqueeze, cast, transpose, one_hot, top_k, cumsum, expand, stack,
 increment and the clips (clip, clip_by_norm, global_norm_clip)."""
 
@@ -8,6 +8,7 @@ import torch
 
 from ..core.dtypes import to_torch_dtype
 from ..core.registry import register
+from .pointwise import maximum, minimum
 
 
 @register('fill_constant')
@@ -61,6 +62,18 @@ def _concat(ctx):
                                     dim=ctx.attr('axis', 0)))
 
 
+@register('split')
+def _split(ctx):
+    """Out: the pieces along ``axis``, of the sizes in ``sections`` or
+    ``num`` equal pieces."""
+    x = ctx.input('X')
+    axis = ctx.attr('axis', 0)
+    sections = ctx.attr('sections', None)
+    size = list(sections) if sections else \
+        x.shape[axis] // ctx.attr('num', 0)
+    ctx.set_output_list('Out', torch.split(x, size, dim=axis))
+
+
 @register('reshape')
 def _reshape(ctx):
     """fluid semantics: 0 copies the input's dim, -1 is inferred."""
@@ -89,10 +102,24 @@ def _unsqueeze(ctx):
     ctx.set_output('Out', x)
 
 
+def cast(x, dtype):
+    """``x`` in ``dtype`` as XLA converts: a float to an integer type
+    saturates at the type's bounds and NaN becomes 0, on the host as on
+    the card (a plain ``.to()`` wraps on the host)."""
+    if not x.is_floating_point() or dtype.is_floating_point or \
+            dtype == torch.bool:
+        return x.to(dtype)
+    info = torch.iinfo(dtype)
+    x = torch.where(torch.isnan(x), torch.zeros_like(x), x.detach())
+    inside = x.clamp(info.min, info.max).to(dtype)
+    return torch.where(x >= float(info.max), info.max,
+                       torch.where(x <= float(info.min), info.min, inside))
+
+
 @register('cast')
 def _cast(ctx):
-    ctx.set_output('Out', ctx.input('X').to(
-        to_torch_dtype(ctx.attr('out_dtype'))))
+    ctx.set_output('Out', cast(ctx.input('X'),
+                               to_torch_dtype(ctx.attr('out_dtype'))))
 
 
 @register('transpose')
@@ -171,10 +198,19 @@ def _increment(ctx):
     ctx.set_output('Out', x + step)
 
 
+def clip(x, lo, hi):
+    """jnp.clip: minimum(maximum(x, lo), hi), the bounds in x's dtype, so
+    a value at a bound takes half the gradient as in jax (torch.clamp
+    gives all of it)."""
+    def bound(v):
+        return torch.full((), v, dtype=x.dtype, device=x.device)
+    return minimum(maximum(x, bound(lo)), bound(hi))
+
+
 @register('clip')
 def _clip(ctx):
-    ctx.set_output('Out', torch.clamp(ctx.input('X'), ctx.attr('min'),
-                                      ctx.attr('max')))
+    ctx.set_output('Out', clip(ctx.input('X'), ctx.attr('min'),
+                               ctx.attr('max')))
 
 
 @register('clip_by_norm')

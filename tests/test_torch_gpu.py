@@ -20,6 +20,7 @@ import pytest
 import torch
 
 import paddle_tpu_torch as pt
+from chip_smoke import LAYERS_EDGE, LAYERS_FAULTS, ordinary, parity_difference
 from paddle_tpu_torch.ops.kernels import batch_norm as tbn
 from paddle_tpu_torch.ops.kernels import flash_attention as tfa
 from paddle_tpu_torch.ops.kernels import layer_norm as tln
@@ -2333,3 +2334,83 @@ def test_captured_wide_deep_step_uses_the_kernel_and_equals_eager(cuda):
                                    atol=2e-7)
     np.testing.assert_allclose(results['captured'][0], results['host'][0],
                                rtol=1e-5)
+
+
+# ------------------------------------------ the repaired faults on the card
+# the edge values (NaN, +-inf, +-0, the clips' bounds, beyond int32), the
+# places of the repaired faults and the tolerance rule are chip_smoke.py's,
+# as tests/test_torch_harness.py and phase 16b hold them
+FAULT_EDGE = LAYERS_EDGE
+# each repaired fault's op, and whether its values are exact
+CARD_FAULTS = {
+    'sign': (lambda L, x: L.sign(x), True),
+    'gelu': (lambda L, x: L.gelu(x), False),
+    'cast': (lambda L, x: [L.cast(x, d) for d in
+                           ('int32', 'int16', 'int8', 'uint8', 'bool')],
+             True),
+    'pow': (lambda L, x: L.pow(x, factor=0.5), False),
+    'clip': (lambda L, x: L.clip(x, -1.5, 2.5), True),
+    'brelu': (lambda L, x: L.brelu(x, t_min=0.0, t_max=24.0), True),
+    'relu6': (lambda L, x: L.relu6(x), True),
+    'leaky_relu': (lambda L, x: L.leaky_relu(x), False),
+}
+
+
+def _fault_program(fault, amp):
+    """x + a -0.0 probe (so the probe's gradient is the gradient at x),
+    cast to bf16 under amp, then the op; the loss sums its float outputs.
+    Returns (main, startup, fetch names)."""
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        L = pt.layers
+        x = L.data(name='x', shape=[4, 8], dtype='float32',
+                   append_batch_size=False)
+        probe = L.create_parameter(
+            shape=[4, 8], dtype='float32', name='probe',
+            default_initializer=pt.initializer.Constant(-0.0))
+        xin = L.elementwise_add(x, probe)
+        if amp:
+            xin = L.cast(xin, 'bfloat16')
+        outs = CARD_FAULTS[fault][0](L, xin)
+        outs = outs if isinstance(outs, list) else [outs]
+        fetch = [o.name for o in outs]
+        floats = [o for o in outs if o.dtype in ('float32', 'bfloat16')]
+        if floats:
+            loss = L.reduce_sum(L.cast(floats[0], 'float32'))
+            pt.backward.append_backward(loss)
+            fetch.append('probe@GRAD')
+    main.amp = amp
+    return main, startup, fetch
+
+
+@pytest.mark.parametrize('amp', [None, 'bf16'], ids=['fp32', 'bf16'])
+@pytest.mark.parametrize('fault', sorted(CARD_FAULTS))
+def test_repaired_fault_on_card_equals_host(cuda, fault, amp):
+    """Each repaired fault on the edge values: on the card (eager, then
+    captured) the value and gradient equal the host's exactly where the
+    fault was (NaN, +-inf, beyond int32, a clip's bounds, 0), and within
+    chip_smoke.py's parity_difference elsewhere (exact for an exact op);
+    the host's equal the JAX package's (tests/test_torch_harness.py)."""
+    main, startup, fetch = _fault_program(fault, amp)
+    where = LAYERS_FAULTS[fault](FAULT_EDGE)
+    exact = CARD_FAULTS[fault][1]
+    got = {}
+    for mode in ('eager', 'captured', 'host'):
+        place = pt.CPUPlace() if mode == 'host' else pt.CUDAPlace(0)
+        exe = pt.Executor(place)
+        with pt.scope_guard(pt.Scope()):
+            exe.run(startup)
+            for _ in range(2 if mode == 'captured' else 1):
+                out = exe.run(main, feed={'x': FAULT_EDGE}, fetch_list=fetch,
+                              use_program_cache=mode == 'captured')
+            if mode == 'captured':
+                assert exe.last_captured
+        got[mode] = [np.asarray(v).astype(np.float64) for v in out]
+    for i, (e, c, h) in enumerate(zip(got['eager'], got['captured'],
+                                      got['host'])):
+        np.testing.assert_array_equal(c, e)
+        np.testing.assert_array_equal(c[where], h[where])
+        grad = fetch[i] == 'probe@GRAD'
+        assert parity_difference(
+            c, h, exact, amp is not None, grad,
+            where=ordinary(h.shape, FAULT_EDGE)) is None, (fetch[i], c, h)
