@@ -7,7 +7,7 @@ with row-sparse embedding gradients and the public layers (an encoder
 layer built from them, every new and repaired op) on one CUDA card.
 
     python3 chip_smoke.py                  # on a machine with one H100
-    python3 chip_smoke.py --cpu-rehearsal  # phases 4-16 on the host, tiny
+    python3 chip_smoke.py --cpu-rehearsal  # phases 4-17 on the host, tiny
 
 Every path runs through the executor's CUDA graphs (one a key, captured on
 its second call; core/executor.py), and phase 11 holds each against the
@@ -280,13 +280,35 @@ Phases (any fault exits non-zero; no phase is skipped over):
    faults exactly where they were; then the two *_batch_size_like draws
    eagerly (host-bound ops): shape, range, moments, same-seed
    repeatability.
+17. The staging ring and the rest of the op modules. (a) Phase 13a's
+   Trainer for 2 epochs of 24 batches from the same weights, epoch 1
+   timed, fed three ways: host stacking (steps_per_dispatch=4), the
+   staging ring (reader.staged_superbatch(reader, 4) into
+   train(stacked_windows=True)) and reader.prefetch_to_device at
+   pipeline depth 2 over a reader that overwrites its buffer after every
+   yield: ms a step each, the same parameters and losses bit for bit,
+   K1/K2/K3/dropout launches a step exactly, every ring slot
+   page-locked before its first copy, the ring's gauges at 0 occupancy.
+   (c) The 38 op types the slice adds, through their layers, in one
+   captured program at [4096, 512] (random feed) and in one at [4, 8]
+   on the edge values, fp32 and bf16 AMP, card against host at the
+   harness's tolerances (scatter's repeated ids exactly); the host-bound
+   ops (truncated_gaussian_random, randint, shuffle_batch, nce, print)
+   eagerly on shape, range, moments and repeatability; a fc with
+   WeightNormParamAttr 3 SGD steps card against host (rtol 1e-5). (b)
+   Phase 15's Wide&Deep SGD step, 48 steps step by step, as windows of
+   4 through the ring and run_steps, and as the same windows already on
+   the card, from the same state, bit for bit: wall and (last, under
+   torch.profiler) device busy ms a step, no host copy for the windows
+   on the card.
 
 The last line is {"ok": true, "device": {...}}; before it come one JSON
 line with every kernel's numbers (and phase 13's under "lifecycle":
 tokens/s a depth, launches a step, checkpoint bytes, save, restore and
 export seconds; phase 14's under "disagg"; phase 15's under "ctr";
-phase 16's under "layers") and nvidia-smi's name and power limit.
---cpu-rehearsal runs phases 4-16 at tiny sizes with the plain versions
+phase 16's under "layers"; phase 17's under "staging") and nvidia-smi's
+name and power limit.
+--cpu-rehearsal runs phases 4-17 at tiny sizes with the plain versions
 (phases 8, 10, 11, 13d and 15 then compare the host with itself) and
 never prints that last line. --profile adds, after every other phase, a torch.profiler
 breakdown of decode steps (fp32 and int8 arenas, captured and eager),
@@ -5281,28 +5303,31 @@ def layers_ops(pt):
     ]
 
 
-def _layers_ops_program(pt, n, d, amp):
-    """Every op of layers_ops on [n, d] in one program: each float input
-    through its own -0.0 probe (x + -0.0 is x bit for bit; the probe's
-    gradient is the op's at x), cast to bf16 under amp; the loss sums
-    reduce_sum of every float output. Returns (main, startup, [(name,
-    exact, terms, sums, fetch names, [(input, gradient name)])])."""
+def _layers_ops_program(pt, n, d, amp, cases_of=layers_ops, extra=()):
+    """Every op of ``cases_of(pt)`` (layers_ops: phase 16b's) on [n, d] in
+    one program: each float input through its own -0.0 probe (x + -0.0 is
+    x bit for bit; the probe's gradient is the op's at x), cast to bf16
+    under amp; the loss sums reduce_sum of every float output. ``extra``:
+    (name, shape, dtype) of further data inputs, read unprobed. Returns
+    (main, startup, [(name, exact, terms, sums, fetch names, [(input,
+    gradient name)])])."""
     main, startup = pt.Program(), pt.Program()
     cases = []
     with pt.program_guard(main, startup):
         L = pt.layers
 
-        def data(name, dtype='float32'):
-            return L.data(name=name, shape=[n, d], dtype=dtype,
+        def data(name, dtype='float32', shape=(n, d)):
+            return L.data(name=name, shape=list(shape), dtype=dtype,
                           append_batch_size=False)
         xs = {k: data(k) for k in ('x', 'y', 'label')}
         xs.update(a=data('a', 'bool'), b=data('b', 'bool'))
+        xs.update({k: data(k, dtype, shape) for k, shape, dtype in extra})
         sums = []
-        for name, build, exact, terms, sums_of in layers_ops(pt):
+        for name, build, exact, terms, sums_of in cases_of(pt):
             probed, grads = {}, []
 
             def v(k, name=name, probed=probed, grads=grads):
-                if k in ('a', 'b'):
+                if k not in ('x', 'y', 'label'):
                     return xs[k]
                 if k not in probed:
                     probe = L.create_parameter(
@@ -5363,6 +5388,70 @@ def _numpy_all(torch, values):
             v.cpu().numpy() for v in values]
 
 
+def _ops_card_vs_host(torch, pt, place, on_card, n, d, amp, feed, worst,
+                      faults, label, cases_of=layers_ops, extra=(),
+                      faults_at=None, phase='16b'):
+    """The program of ``cases_of`` (_layers_ops_program) run on ``place``
+    (twice: captured on the card) and on the CPU place; every output and
+    probe gradient held card against host by parity_difference (its
+    scale from the ordinary elements of x and y), a repaired fault's
+    elements (LAYERS_FAULTS, by ``faults_at``'s values) exactly. Appends
+    to ``faults``, raises ``worst`` (an op's largest relative difference,
+    absolute below 1). Returns (outputs and gradients compared, cases)."""
+    compared = 0
+    main, startup, cases = _layers_ops_program(pt, n, d, amp, cases_of,
+                                               extra)
+    fetch = [f for c in cases for f in c[4] + [g for _, g in c[5]]]
+    res = {}
+    for mode, pl in (('card', place), ('host', pt.CPUPlace())):
+        exe = pt.Executor(pl)
+        with pt.scope_guard(pt.Scope()):
+            exe.run(startup)
+            for _ in range(2 if mode == 'card' else 1):
+                out = exe.run(main, feed=feed, fetch_list=fetch,
+                              return_numpy=False)
+            if mode == 'card' and on_card:
+                require(exe.last_captured, 'phase %s %s: the ops program '
+                        'did not run captured' % (phase, label))
+        res[mode] = dict(zip(fetch, _numpy_all(torch, out)))
+    for name, exact, terms, sums_of, outs, grads in cases:
+        s_outs, s_grads = sums_of(feed) if sums_of else ([], {})
+        for i, f in enumerate(outs + [g for _, g in grads]):
+            g, w = res['card'][f], res['host'][f]
+            grad = i >= len(outs)
+            sums = None
+            if sums_of:
+                sums = s_grads.get(grads[i - len(outs)][0]) if grad else \
+                    s_outs[i] if i < len(s_outs) else None
+            bf16 = amp is not None and w.dtype == np.float32
+            # mod's gradient for y is -trunc(x / y): exact only where the
+            # two quotients round alike
+            ex = exact and not (grad and name == 'elementwise_mod')
+            diff = parity_difference(
+                g, w, ex, bf16, grad, terms=terms, sums=sums,
+                where=ordinary(w.shape, feed['x'], feed['y']))
+            if diff is not None:
+                faults.append('%s %s %s: card and host differ by %r%s'
+                              % (label, name, f, diff,
+                                 _where_apart(g, w, feed)))
+            if faults_at is not None and name in LAYERS_FAULTS and \
+                    g.shape == faults_at.shape:
+                at = LAYERS_FAULTS[name](faults_at)
+                if not np.array_equal(g[at], w[at], equal_nan=True):
+                    faults.append('%s %s %s: card %s host %s at %s'
+                                  % (label, name, f, g[at], w[at],
+                                     faults_at[at]))
+            # relative where |host| >= 1, absolute below
+            with np.errstate(invalid='ignore'):
+                err = np.abs(g.astype(np.float64) - w) / np.maximum(
+                    np.abs(w.astype(np.float64)), 1.0)
+            fin = np.isfinite(err)
+            worst[name] = max(worst.get(name, 0.0),
+                              float(err[fin].max()) if fin.any() else 0.0)
+            compared += 1
+    return compared, len(cases)
+
+
 def phase_layers_ops(torch, pt, place, card, on_card, n=4096, d=512):
     """Phase 16b: every new op and every repaired op in one captured
     program at [n, d], fp32 and bf16 AMP, on the card against the CPU
@@ -5378,61 +5467,14 @@ def phase_layers_ops(torch, pt, place, card, on_card, n=4096, d=512):
     worst, total, faults = {}, 0, []
     for amp in (None, 'bf16'):
         label = 'bf16' if amp else 'fp32'
-        compared = 0
-        main, startup, cases = _layers_ops_program(pt, n, d, amp)
-        fetch = [f for c in cases for f in c[4] + [g for _, g in c[5]]]
-        res = {}
-        for mode, pl in (('card', place), ('host', pt.CPUPlace())):
-            exe = pt.Executor(pl)
-            with pt.scope_guard(pt.Scope()):
-                exe.run(startup)
-                for _ in range(2 if mode == 'card' else 1):
-                    out = exe.run(main, feed=feed, fetch_list=fetch,
-                                  return_numpy=False)
-                if mode == 'card' and on_card:
-                    require(exe.last_captured, 'phase 16b %s: the ops '
-                            'program did not run captured' % label)
-            res[mode] = dict(zip(fetch, _numpy_all(torch, out)))
-        for name, exact, terms, sums_of, outs, grads in cases:
-            s_outs, s_grads = sums_of(feed) if sums_of else ([], {})
-            for i, f in enumerate(outs + [g for _, g in grads]):
-                g, w = res['card'][f], res['host'][f]
-                grad = i >= len(outs)
-                sums = None
-                if sums_of:
-                    sums = s_grads[grads[i - len(outs)][0]] if grad else \
-                        s_outs[i] if i < len(s_outs) else None
-                bf16 = amp is not None and w.dtype == np.float32
-                # mod's gradient for y is -trunc(x / y): exact only where
-                # the two quotients round alike
-                ex = exact and not (grad and name == 'elementwise_mod')
-                diff = parity_difference(
-                    g, w, ex, bf16, grad, terms=terms, sums=sums,
-                    where=ordinary(w.shape, feed['x'], feed['y']))
-                if diff is not None:
-                    faults.append('%s %s %s: card and host differ by %r%s'
-                                  % (label, name, f, diff,
-                                     _where_apart(g, w, feed)))
-                if name in LAYERS_FAULTS and g.shape == x.shape:
-                    at = LAYERS_FAULTS[name](x)
-                    if not np.array_equal(g[at], w[at], equal_nan=True):
-                        faults.append('%s %s %s: card %s host %s at %s'
-                                      % (label, name, f, g[at], w[at],
-                                         x[at]))
-                # relative where |host| >= 1, absolute below
-                with np.errstate(invalid='ignore'):
-                    err = np.abs(g.astype(np.float64) - w) / np.maximum(
-                        np.abs(w.astype(np.float64)), 1.0)
-                fin = np.isfinite(err)
-                worst[name] = max(worst.get(name, 0.0),
-                                  float(err[fin].max()) if fin.any()
-                                  else 0.0)
-                compared += 1
+        compared, cases = _ops_card_vs_host(
+            torch, pt, place, on_card, n, d, amp, feed, worst, faults,
+            label, faults_at=x)
         print('phase 16b %s: %d op types in one captured program at [%d, '
               '%d] with the edge values: %d outputs and gradients card '
               'against host, %d outside the harness tolerances or, for a '
               'repaired fault, not exact [%s]'
-              % (label, len(cases), n, d, compared, len(faults), card))
+              % (label, cases, n, d, compared, len(faults), card))
         total += compared
     require(not faults, 'phase 16b: %d differences:\n  %s'
             % (len(faults), '\n  '.join(faults)))
@@ -5477,11 +5519,588 @@ def phase_layers_ops(torch, pt, place, card, on_card, n=4096, d=512):
     return dict(ops_compared=total, seconds=time.perf_counter() - t0,
                 largest_card_host_difference=worst)
 
+# ------------------------------------------------------------ phase 17
+# the staging ring (17a: the Transformer's Trainer, 17b: the CTR step) and
+# the rest of the tensor, nn, random and misc op modules (17c)
+STAGE_W = 4             # the staging ring's window, in steps
+
+
+def _reusing(reader):
+    """``reader`` whose items land in one buffer a feed, overwritten at
+    every yield (as a reader over recordio slots does)."""
+    def out():
+        bufs = None
+        for item in reader():
+            if bufs is None:
+                bufs = {k: np.empty_like(v) for k, v in item.items()}
+            for k, v in item.items():
+                bufs[k][...] = v
+            yield bufs
+    return out
+
+
+def phase_staging_trainer(torch, pt, place, card, on_card, batch, seq,
+                          vocab, dims, steps=24):
+    """Phase 17a: phase 13a's Trainer (transformer_base, dropout 0.1,
+    Adam(1e-4), bf16 AMP, the _bench_reader batches), 2 epochs of
+    ``steps`` batches from the same weights, epoch 1 timed, fed three
+    ways: host stacking (steps_per_dispatch=4), the staging ring
+    (reader.staged_superbatch(reader, 4) into train(stacked_windows=True))
+    and reader.prefetch_to_device at pipeline depth 2 over a reader that
+    overwrites its output buffer after every yield. Checks that the three
+    end on the same parameters and losses bit for bit, the launches of
+    K1, K2, K3 and the fused dropout a step (train_want), that every ring
+    slot was page-locked before its first copy and that the ring's gauges
+    end at 0 occupancy. Returns (the ring leg's timed launches,
+    numbers)."""
+    from paddle_tpu_torch import observe
+    from paddle_tpu_torch.models import transformer as T
+    t_phase = time.perf_counter()
+    layers = dims.get('n_layer', 6)
+    reader = _bench_reader(batch, seq, vocab, steps)
+    staged = pt.reader.staged_superbatch(reader, STAGE_W, place=place)
+    legs = (('host stacking', reader, dict(steps_per_dispatch=STAGE_W)),
+            ('staging ring', staged, dict(steps_per_dispatch=STAGE_W,
+                                          stacked_windows=True)),
+            ('prefetch_to_device', pt.reader.prefetch_to_device(
+                _reusing(reader), place=place), dict(pipeline_depth=2)))
+
+    def train_func():
+        avg_cost, _ = T.transformer_base(
+            src_vocab_size=vocab, trg_vocab_size=vocab, src_seq_len=seq,
+            trg_seq_len=seq, max_length=max(256, seq), **dims)
+        return [avg_cost]
+
+    numbers, first, ring_launches = {}, None, None
+    for leg, leg_reader, kw in legs:
+        pt.reset_default_programs()
+        state, losses = {}, []
+
+        def handler(e):
+            if isinstance(e, pt.BeginEpochEvent) and e.epoch == 1:
+                _sync(torch, on_card)
+                reset_launches()
+                state['t0'] = time.perf_counter()
+            elif isinstance(e, pt.EndEpochEvent) and e.epoch == 1:
+                _sync(torch, on_card)
+                state['t1'] = time.perf_counter()
+                state['launches'] = read_launches()
+            elif isinstance(e, pt.EndStepEvent):
+                losses.append(np.asarray(e.metrics[0]).copy())
+
+        scope = pt.Scope()
+        with pt.scope_guard(scope):
+            trainer = pt.Trainer(
+                train_func=train_func,
+                optimizer_func=lambda: pt.optimizer.Adam(learning_rate=1e-4),
+                place=place)
+            trainer.program.amp = 'bf16'
+            trainer.train(num_epochs=2, event_handler=handler,
+                          reader=leg_reader, **kw)
+            params = _host_copy(torch, scope, _persistable_names(
+                trainer.program))
+        ms = (state['t1'] - state['t0']) * 1e3 / steps
+        numbers[leg] = ms
+        launches = state['launches']
+        want = train_want(layers, steps)
+        per_step = {k: launches[k] / steps for k in want
+                    if not k.endswith('_simt') and not k.endswith('_mma')}
+        print('phase 17a %s: epoch 1, %d steps: %.3f ms/step; launches a '
+              'step %s [%s]' % (leg, steps, ms, per_step, card))
+        require(len(losses) == 2 * steps and
+                all(np.isfinite(v).all() for v in losses),
+                'phase 17a %s: %d losses, not all finite' % (leg,
+                                                             len(losses)))
+        if on_card:
+            require(all(launches[k] == n for k, n in want.items()),
+                    'phase 17a %s launches %s, want %s'
+                    % (leg, {k: launches[k] for k in want}, want))
+        if leg == 'staging ring':
+            ring_launches = launches
+        if first is None:
+            first, first_losses = params, losses
+        else:
+            bad = _same_bits(torch, params, first)
+            same = all(np.array_equal(a, b)
+                       for a, b in zip(losses, first_losses))
+            print('phase 17a %s vs host stacking: %d persistables, %d '
+                  'differ; %d losses equal bit for bit: %s'
+                  % (leg, len(first), len(bad), len(losses), same))
+            require(not bad and same, 'phase 17a: %s ends elsewhere than '
+                    'host stacking (%s)' % (leg, bad[:5]))
+        del trainer, scope, params
+        if on_card:
+            torch.cuda.empty_cache()
+    # one more pass of the ring with telemetry on: its gauges and counters
+    observe.reset()
+    observe.enable()
+    try:
+        windows = sum(1 for _ in staged())
+        gauges = (observe.get_gauge('reader.staging_ring_occupancy'),
+                  observe.get_gauge('reader.staging_ring_slots'),
+                  observe.get_counter('reader.staging_windows_produced_total'),
+                  observe.get_counter('reader.staging_windows_consumed_total'))
+    finally:
+        observe.disable()
+        observe.reset()
+    stats = staged.stats
+    pinned_ok = stats['slots_pinned'] == (
+        stats['rings'] * min(3, steps // STAGE_W) if on_card else 0)
+    print('phase 17a ring: %d rings of 3 slots, %d slots page-locked before '
+          'their first copy (%.3f ms each), %d windows; with telemetry: '
+          'occupancy %s at the end, slots %s, windows produced %s consumed '
+          '%s' % (stats['rings'], stats['slots_pinned'],
+                  stats['pin_seconds'] * 1e3 / max(stats['slots_pinned'], 1),
+                  stats['windows'], gauges[0], gauges[1], gauges[2],
+                  gauges[3]))
+    require(pinned_ok and gauges == (0, 3, windows, windows) and
+            windows == steps // STAGE_W,
+            'phase 17a: the ring %s, gauges %s' % (stats, gauges))
+    numbers.update(ring=dict(stats), seconds=time.perf_counter() - t_phase)
+    return ring_launches, numbers
+
+
+def _busy_ms(torch, run, steps):
+    """Under torch.profiler, ``run()`` (``steps`` steps): the device busy
+    ms a step (its kernels' and copies' summed durations), the host's ms
+    a step inside cudaGraphLaunch, and the host-to-device and
+    device-to-host copies a step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.time_range.end - e.time_range.start for e in device)
+    launch = sum(a.self_cpu_time_total for a in prof.key_averages()
+                 if a.key.startswith('cudaGraphLaunch'))
+    h2d = sum(1 for e in device if e.name.startswith('Memcpy HtoD'))
+    d2h = sum(1 for e in device if e.name.startswith('Memcpy DtoH'))
+    return (busy / steps / 1e3, launch / steps / 1e3, h2d / float(steps),
+            d2h / float(steps))
+
+
+def phase_staging_ctr(torch, pt, card, on_card, slots=CTR_SLOTS,
+                      rows=CTR_ROWS, batch=CTR_BATCH, steps=48, warmup=3):
+    """Phase 17b: phase 15's Wide&Deep step under SGD (26 slots x 10^6
+    rows, batch 4,096, captured), ``steps`` batches from the same state
+    three ways: step by step (Executor.run, each feed from the host), as
+    windows of 4 from reader.staged_superbatch through
+    Executor.run_steps(stacked_feed=True), and as the same windows
+    already on the card (taken from the ring first) through run_steps
+    alone. The three end on the same parameters and losses bit for bit.
+    Wall ms a step of each (the ring's with its 3 slots page-locked at
+    its start, each a cudaHostRegister of 4.4 MB, and split into the host
+    ms a step spent getting windows from the ring and in run_steps), the
+    sparse_rows launches a step and, last, under torch.profiler, the
+    device busy ms a step, the host ms a step in cudaGraphLaunch and the
+    copies to and from the host a step (none for the windows on the
+    card: a window already there adds no host round trip). Returns
+    (numbers, the ring leg's launch counts)."""
+    t_phase = time.perf_counter()
+    main, startup, cost = _ctr_program(pt, slots, rows, CTR_OPTS[0][1])
+    place = pt.CUDAPlace(0) if on_card else pt.CPUPlace()
+    feeds = ctr_feeds(warmup + steps, slots, rows, batch, seed=17)
+    warm, timed = feeds[:warmup], feeds[warmup:]
+    exe, scope = pt.Executor(place), pt.Scope()
+    names = _ctr_state(pt, main)
+    staged = pt.reader.staged_superbatch(lambda: iter(timed), STAGE_W,
+                                         place=place)
+    split = {}
+
+    def by_step():
+        return [exe.run(main, feed=f, fetch_list=[cost],
+                        return_numpy=False)[0] for f in timed]
+
+    def windows(source):
+        out, it = [], iter(source)
+        split.update(next=0.0, run_steps=0.0)
+        while True:
+            t0 = time.perf_counter()
+            w = next(it, None)
+            t1 = time.perf_counter()
+            if w is None:
+                return out
+            out += list(exe.run_steps(STAGE_W, main, feed=w,
+                                      fetch_list=[cost], return_numpy=False,
+                                      stacked_feed=True)[0])
+            split['next'] += t1 - t0
+            split['run_steps'] += time.perf_counter() - t1
+
+    res, numbers = {}, {}
+    with pt.scope_guard(scope):
+        exe.run(startup)
+        snap = {n: scope.find(n).clone() for n in names}
+        _ctr_steps(pt, exe, main, cost, warm, warmup)
+        on_device = list(staged())
+        legs = (('step by step', by_step),
+                ('staging ring', lambda: windows(staged())),
+                ('windows on the card', lambda: windows(on_device)))
+
+        def from_snapshot():
+            for n in names:
+                scope.find(n).copy_(snap[n])
+            exe.set_step(1 + warmup)
+        for leg, run in legs:
+            from_snapshot()
+            _sync(torch, on_card)
+            reset_launches()
+            t0 = time.perf_counter()
+            losses = run()
+            _sync(torch, on_card)
+            wall = (time.perf_counter() - t0) * 1e3 / steps
+            launches = read_launches()
+            if leg == 'staging ring':
+                counts = launches
+            if on_card:
+                require(exe.last_captured, 'phase 17b %s: the steps ran '
+                        'eagerly' % leg)
+            # compared where they are: a host copy of 1.8 GB a leg costs
+            # seconds
+            res[leg] = (torch.stack(losses),
+                        {n: scope.find(n).clone() for n in names})
+            numbers[leg] = dict(wall_ms=wall, sparse_rows_per_step=(
+                launches['sparse_rows'] / float(steps)))
+            if leg != 'step by step':
+                numbers[leg].update({'host_%s_ms' % k: v * 1e3 / steps
+                                     for k, v in split.items()})
+        la, pa = res['step by step']
+        for leg in ('staging ring', 'windows on the card'):
+            lb, pb = res[leg]
+            bad = _same_bits(torch, pb, pa)
+            require(not bad and torch.equal(la, lb) and len(lb) == steps,
+                    'phase 17b: %s ends elsewhere than step by step (%s)'
+                    % (leg, bad[:5]))
+        n_state = len(pa)
+        del res, la, pa, lb, pb
+        if on_card:
+            for leg, run in legs:
+                from_snapshot()
+                busy, launch, h2d, d2h = _busy_ms(torch, run, steps)
+                numbers[leg].update(busy_ms=busy, graph_launch_ms=launch,
+                                    h2d_per_step=h2d, d2h_per_step=d2h)
+            v = numbers['windows on the card']
+            require(v['h2d_per_step'] == v['d2h_per_step'] == 0,
+                    'phase 17b: run_steps over windows on the card copied '
+                    'to or from the host (%s)' % v)
+        for leg, _ in legs:
+            v = numbers[leg]
+            busy = 'device busy not measured (host)' if 'busy_ms' not in v \
+                else 'device busy %.3f ms/step (busy share %.3f), host in ' \
+                'cudaGraphLaunch %.3f ms/step, %.2f host-to-device and %.2f ' \
+                'device-to-host copies a step (profiled)' % (
+                    v['busy_ms'], v['busy_ms'] / v['wall_ms'],
+                    v['graph_launch_ms'], v['h2d_per_step'],
+                    v['d2h_per_step'])
+            host = '' if 'host_next_ms' not in v else \
+                '; host getting windows %.3f, in run_steps %.3f ms/step' % (
+                    v['host_next_ms'], v['host_run_steps_ms'])
+            print('phase 17b ctr sgd %s: %d slots x %d rows, batch %d, %d '
+                  'steps: wall %.3f ms/step, %s%s; sparse_rows %.2f '
+                  'launches a step [%s]'
+                  % (leg, slots, rows, batch, steps, v['wall_ms'], busy,
+                     host, v['sparse_rows_per_step'], card))
+            if on_card:
+                require(v['sparse_rows_per_step'] == 1, 'phase 17b %s: '
+                        '%.2f sparse_rows launches a step' % (
+                            leg, v['sparse_rows_per_step']))
+        st = staged.stats
+        numbers['pin_ms'] = st['pin_seconds'] * 1e3 / max(
+            st['slots_pinned'], 1)
+        print('phase 17b: the ring, the windows on the card and step by step '
+              'end on the same %d persistables and %d losses bit for bit; the '
+              'ring page-locked %d slots of %.1f MB in %d rings, %.3f ms each'
+              % (n_state, steps, st['slots_pinned'],
+                 sum(v.nbytes for v in timed[0].values()) * STAGE_W / 1e6,
+                 st['rings'], numbers['pin_ms']))
+        del snap, on_device
+    numbers['seconds'] = time.perf_counter() - t_phase
+    return numbers, counts
+
+
+def _sl(L, v, rows, cols):
+    """The top-left [rows, cols] of x (at most its own shape)."""
+    n, d = v.shape
+    return L.slice(v, axes=[0, 1], starts=[0, 0],
+                   ends=[min(rows, n), min(cols, d)])
+
+
+def _sums_l2(f):
+    x = f['x'].astype(np.float64)
+    with np.errstate(invalid='ignore', over='ignore', divide='ignore'):
+        return [np.abs(x) / np.sqrt((x * x).sum(1, keepdims=True))], {}
+
+
+def _sums_smooth_l1(f):
+    a = np.abs(f['x'].astype(np.float64) - f['y'])
+    with np.errstate(invalid='ignore', over='ignore'):
+        return [(a * a + a).sum(1, keepdims=True)], {}
+
+
+def _sums_btp(f):
+    x, y = (np.abs(f[k][:, :16].astype(np.float64)) for k in ('x', 'y'))
+    gx, gy = np.zeros(f['x'].shape), np.zeros(f['y'].shape)
+    with np.errstate(invalid='ignore', over='ignore'):
+        gx[:, :16] = 0.42 * y.sum(1, keepdims=True)
+        gy[:, :16] = 0.42 * x.sum(1, keepdims=True)
+        return [np.broadcast_to(0.14 * (x.sum(1) * y.sum(1))[:, None],
+                                (x.shape[0], 3))], {'x': gx, 'y': gy}
+
+
+def module_ops(pt):
+    """[(name, build(L, v), exact, terms, sums)] of the tensor, nn and
+    misc op modules' op types the port adds (the format of layers_ops;
+    the host-bound ones are phase 17c's eager checks). v(k): 'x', 'y',
+    'label' ([n, d] floats, probed), 'a' (bool), 'ids' (int64 [n, 1] in
+    [0, n / 4), so ids repeat) and 'sel' (int32 [n, 1] of {0, 1}). The
+    images are x as [n d / 32, 2, 4, 4] (and [n d / 16, 4, 2, 2] for
+    maxout and pixel_shuffle); the auc and the bilinear product read a
+    corner of x (64 x 8, n x 16)."""
+    def img(L, v, c=2, hw=4):
+        x = v('x')
+        n, d = x.shape
+        return L.reshape(x, [n * d // (c * hw * hw), c, hw, hw])
+
+    def f32(L, t):
+        return L.cast(t, 'float32')
+    return [
+        ('assign', lambda L, v: L.assign(v('x')), True, 0, None),
+        ('squeeze', lambda L, v: L.squeeze(L.unsqueeze(v('x'), [1]), [1]),
+         True, 0, None),
+        ('gather', lambda L, v: L.gather(v('x'), v('ids')), True, 0, None),
+        ('scatter', lambda L, v: L.scatter(v('x'), v('ids'), v('y')), True,
+         0, None),
+        ('shape', lambda L, v: L.shape(v('x')), True, 0, None),
+        ('pad', lambda L, v: L.pad(v('x'), [1, 2, 0, 3], pad_value=0.5),
+         True, 0, None),
+        ('reverse', lambda L, v: L.reverse(v('x'), [0, 1]), True, 0, None),
+        ('multiplex', lambda L, v: L.multiplex([v('x'), v('y')], v('sel')),
+         True, 0, None),
+        ('smooth_l1_loss', lambda L, v: L.smooth_l1(v('x'), v('y')), False,
+         512, _sums_smooth_l1),
+        ('auc', lambda L, v: L.auc(_sl(L, v('x'), 64, 8),
+                                   L.cast(_sl(L, v('a'), 64, 8), 'int64')),
+         True, 0, None),
+        ('l2_normalize', lambda L, v: L.l2_normalize(v('x'), axis=1), False,
+         512, _sums_l2),
+        ('maxout', lambda L, v: L.maxout(img(L, v, 4, 2), 2), True, 0,
+         None),
+        ('im2sequence', lambda L, v: L.im2sequence(
+            img(L, v), filter_size=[2, 3], stride=[1, 2],
+            padding=[1, 0, 0, 1]), True, 0, None),
+        ('label_smooth', lambda L, v: L.label_smooth(v('x'), epsilon=0.2),
+         False, 0, None),
+        ('huber_loss', lambda L, v: L.huber_loss(v('x'), v('y'), delta=0.5),
+         False, 0, None),
+        ('rank_loss', lambda L, v: L.rank_loss(v('label'), v('x'), v('y')),
+         False, 0, None),
+        ('margin_rank_loss', lambda L, v: L.margin_rank_loss(
+            v('label'), v('x'), v('y'), margin=0.5), False, 0, None),
+        ('hinge_loss', lambda L, v: L.hinge_loss(v('x'), f32(L, v('a'))),
+         False, 0, None),
+        ('log_loss', lambda L, v: L.log_loss(v('label'), f32(L, v('a'))),
+         False, 0, None),
+        ('bilinear_tensor_product', lambda L, v: L.bilinear_tensor_product(
+            _sl(L, v('x'), 1 << 30, 16), _sl(L, v('y'), 1 << 30, 16), 3),
+         False, 256, _sums_btp),
+        ('pixel_shuffle', lambda L, v: L.pixel_shuffle(img(L, v, 4, 2), 2),
+         True, 0, None),
+        ('modified_huber_loss', lambda L, v: L.modified_huber_loss(
+            v('x'), f32(L, v('a'))), False, 0, None),
+        ('argmin', lambda L, v: L.argmin(v('x'), axis=1), True, 0, None),
+        ('argsort', lambda L, v: list(L.argsort(v('x'), axis=1)), True, 0,
+         None),
+        ('bilinear_interp', lambda L, v: [L.resize_bilinear(img(L, v), s)
+                                          for s in ((5, 3), (9, 11))],
+         False, 0, None),
+        ('nearest_interp', lambda L, v: [L.resize_nearest(img(L, v), s)
+                                         for s in ((5, 3), (9, 11))],
+         True, 0, None),
+        ('isfinite', lambda L, v: L.isfinite(v('x')), True, 0, None),
+        ('lod_reset', lambda L, v: _op_helper(pt, 'lod_reset',
+                                              {'X': v('x')}), True, 0,
+         None),
+        ('where', lambda L, v: L.where(v('x'), v('x'), v('y')), True, 0,
+         None),
+        ('linspace', lambda L, v: [L.linspace(-3.5, 2.25, 37),
+                                   L.linspace(2, 9, 5, 'int32')], True, 0,
+         None),
+        ('range', lambda L, v: [L.range(0, 10, 3),
+                                L.range(0.1, 1.0, 0.1, 'float32')], True, 0,
+         None),
+        ('weight_norm', lambda L, v: L.elementwise_mul(
+            v('x'), L.create_parameter(
+                list(v('x').shape), 'float32',
+                attr=pt.WeightNormParamAttr(dim=0))), False, 0, None),
+    ]
+
+
+def _ops_inputs(n, seed=17):
+    """The int inputs of module_ops at [n, ...] (ids in [0, n / 4), so
+    they repeat, and a 0/1 selector), and their (name, shape, dtype)."""
+    rng = np.random.RandomState(seed)
+    feed = {'ids': rng.randint(0, max(n // 4, 1), (n, 1)).astype('int64'),
+            'sel': rng.randint(0, 2, (n, 1)).astype('int32')}
+    return feed, [(k, v.shape, str(v.dtype)) for k, v in feed.items()]
+
+
+def _eager_draws(torch, pt, place, n, d):
+    """The host-bound ops on ``place``, eagerly: truncated_gaussian_random
+    and randint (shape, range, moments), shuffle_batch (a permutation of
+    x's rows, Out = X[ShuffleIdx]), nce (shape, finite) and Print (Out is
+    In), twice from two executors of one program seed (the same draws)
+    and at the next step (new ones). Returns a list of faults."""
+    from paddle_tpu_torch.layers.helper import LayerHelper
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed = 17
+    with pt.program_guard(main, startup):
+        L = pt.layers
+        x = L.data(name='x', shape=[n, d], dtype='float32',
+                   append_batch_size=False)
+        lbl = L.data(name='lbl', shape=[n, 1], dtype='int64',
+                     append_batch_size=False)
+        outs = []
+        for op, attrs, dtype in (
+                ('truncated_gaussian_random',
+                 {'shape': [n, d], 'mean': 1.0, 'std': 2.0}, 'float32'),
+                ('randint', {'shape': [n, d], 'low': -3, 'high': 7},
+                 'int64')):
+            h = LayerHelper(op)
+            o = h.create_variable_for_type_inference(dtype)
+            h.append_op(type=op, inputs={}, outputs={'Out': [o]},
+                        attrs=attrs)
+            outs.append(o)
+        h = LayerHelper('shuffle_batch')
+        sh, idx = (h.create_variable_for_type_inference(t)
+                   for t in ('float32', 'int64'))
+        h.append_op(type='shuffle_batch', inputs={'X': [x]},
+                    outputs={'Out': [sh], 'ShuffleIdx': [idx]})
+        cost = L.nce(_sl(L, x, n, 64), lbl, num_total_classes=1000,
+                     num_neg_samples=16)
+        shown = L.Print(_sl(L, x, 2, 4), message='phase 17c Print: ')
+        outs += [sh, idx, cost, shown]
+    rng = np.random.RandomState(18)
+    feed = {'x': rng.randn(n, d).astype('f'),
+            'lbl': rng.randint(0, 1000, (n, 1)).astype('int64')}
+    runs = []
+    for _ in range(2):
+        exe = pt.Executor(place)
+        with pt.scope_guard(pt.Scope()):
+            exe.run(startup)
+            runs.append([exe.run(main, feed=feed, fetch_list=outs)
+                         for _ in range(2)])
+    (r0, r1), (s0, _) = runs
+    t, ri, sh, idx, cost, shown = r0
+    faults = []
+    m = float(t.size)
+    checks = {
+        'repeat': all(np.array_equal(a, b) for a, b in zip(r0, s0)),
+        'next step': not np.array_equal(r0[0], r1[0]) and
+        not np.array_equal(r0[1], r1[1]) and not np.array_equal(r0[3],
+                                                                r1[3]),
+        'truncated': t.shape == (n, d) and t.min() >= -3.0 and
+        t.max() <= 5.0 and abs(t.mean() - 1.0) < 5 * 1.76 / np.sqrt(m) and
+        abs(t.std() - 2.0 * 0.8796) < 5 * 1.76 / np.sqrt(2 * m),
+        'randint': ri.shape == (n, d) and ri.dtype == np.int64 and
+        ri.min() == -3 and ri.max() == 6 and
+        abs(ri.mean() - 1.5) < 5 * np.sqrt(8.25 / m),
+        'shuffle_batch': np.array_equal(np.sort(idx), np.arange(n)) and
+        np.array_equal(sh, feed['x'][idx]),
+        'nce': cost.shape == (n, 1) and np.isfinite(cost).all(),
+        'print': np.array_equal(shown, feed['x'][:2, :4]),
+    }
+    for k, ok in checks.items():
+        if not ok:
+            faults.append('host-bound ops: %s' % k)
+    return faults, checks
+
+
+def _weight_norm_compare(torch, pt, places, steps=3):
+    """An fc with WeightNormParamAttr (dim 0), SGD, 3 steps on each place
+    from the host startup's weights: the losses."""
+    rng = np.random.RandomState(19)
+    feed = {'x': rng.randn(256, 128).astype('f'),
+            'y': rng.randn(256, 64).astype('f')}
+
+    def build():
+        L = pt.layers
+        x = L.data(name='x', shape=[256, 128], dtype='float32',
+                   append_batch_size=False)
+        y = L.data(name='y', shape=[256, 64], dtype='float32',
+                   append_batch_size=False)
+        pred = L.fc(x, size=64, param_attr=pt.WeightNormParamAttr(
+            dim=0, name='wn_fc'))
+        loss = L.mean(L.square_error_cost(pred, y))
+        pt.optimizer.SGD(learning_rate=0.5).minimize(loss)
+        return loss
+    return _compare_places(torch, pt, places, build, feed, steps)
+
+
+def phase_module_ops(torch, pt, place, card, on_card, n=4096, d=512):
+    """Phase 17c: the op types of the tensor, nn and misc op modules the
+    port adds, through their layers (module_ops), in one captured
+    program at [n, d] with a random feed, fp32 and bf16 AMP, and again in
+    a small program on the edge values: the card against the CPU place at
+    the harness's tolerances (parity_difference; exact for the exact ops,
+    scatter's repeated ids included). Then the host-bound ops eagerly
+    (_eager_draws) and a weight-normalized fc trained 3 steps on the card
+    and on the host from the same weights (losses within rtol 1e-5).
+    Returns its numbers."""
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(17)
+    big = {'x': rng.uniform(-2.0, 2.0, (n, d)).astype('f'),
+           'y': rng.uniform(-2.0, 2.0, (n, d)).astype('f'),
+           'label': rng.rand(n, d).astype('f'), 'a': rng.rand(n, d) > 0.5,
+           'b': rng.rand(n, d) > 0.5}
+    ints, extra = _ops_inputs(n)
+    big.update(ints)
+    edge_y = np.roll(LAYERS_EDGE, 3, axis=1)
+    edge_y[:, ::4] = LAYERS_EDGE[:, ::4]
+    en, ed = LAYERS_EDGE.shape
+    edge = {'x': LAYERS_EDGE, 'y': edge_y,
+            'label': np.clip(np.nan_to_num(np.abs(edge_y)), 0, 1)
+            .astype('f'), 'a': LAYERS_EDGE > 0, 'b': edge_y > 0}
+    ints, edge_extra = _ops_inputs(en)
+    edge.update(ints)
+    worst, faults, total = {}, [], 0
+    for feed, (rows, cols), kind, ex in (
+            (big, (n, d), 'random', extra),
+            (edge, (en, ed), 'edge', edge_extra)):
+        for amp in (None, 'bf16'):
+            label = '%s %s' % (kind, 'bf16' if amp else 'fp32')
+            compared, cases = _ops_card_vs_host(
+                torch, pt, place, on_card, rows, cols, amp, feed, worst,
+                faults, label, cases_of=module_ops, extra=ex,
+                phase='17c')
+            print('phase 17c %s: %d op types in one captured program at '
+                  '[%d, %d]: %d outputs and gradients card against host, '
+                  '%d outside the harness tolerances [%s]'
+                  % (label, cases, rows, cols, compared, len(faults), card))
+            total += compared
+    draw_faults, checks = _eager_draws(torch, pt, place, n, d)
+    print('phase 17c host-bound ops on the card (eager): %s [%s]'
+          % (', '.join('%s %s' % (k, 'ok' if v else 'FAILED')
+                       for k, v in checks.items()), card))
+    faults += draw_faults
+    (lc, lh) = _weight_norm_compare(torch, pt, (place, pt.CPUPlace()))
+    wn_ok = np.allclose(lc, lh, rtol=1e-5)
+    print('phase 17c WeightNormParamAttr fc, SGD, 3 steps: card %s, host %s '
+          '(rtol 1e-5): %s' % (['%.7f' % v for v in lc],
+                               ['%.7f' % v for v in lh],
+                               'ok' if wn_ok else 'MISMATCH'))
+    if not wn_ok:
+        faults.append('weight norm: card %s host %s' % (lc, lh))
+    require(not faults, 'phase 17c: %d differences:\n  %s'
+            % (len(faults), '\n  '.join(faults)))
+    return dict(ops_compared=total, seconds=time.perf_counter() - t0,
+                largest_card_host_difference=worst)
+
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--cpu-rehearsal', action='store_true',
-                    help='run phases 4-16 on the host at tiny sizes with '
+                    help='run phases 4-17 on the host at tiny sizes with '
                          'the plain versions')
     ap.add_argument('--profile', action='store_true',
                     help='after every other phase, profile 20 decode '
@@ -5574,6 +6193,11 @@ def main():
                              dims=dict(d_model=32, n_head=4, d_inner=64),
                              batch=4, seq=8, cmp_batch=2, steps=3)
         phase_layers_ops(torch, pt, pt.CPUPlace(), host, False, n=64, d=48)
+        phase_staging_trainer(torch, pt, pt.CPUPlace(), host, False, 4, 8,
+                              64, tiny, steps=4)
+        phase_module_ops(torch, pt, pt.CPUPlace(), host, False, n=64, d=48)
+        phase_staging_ctr(torch, pt, host, False, slots=4, rows=1000,
+                          batch=256, steps=8)
         print('cpu rehearsal ok in %.1f s' % (time.perf_counter() - t_start))
         return
 
@@ -5752,6 +6376,17 @@ def main():
                                        True))
     torch.cuda.empty_cache()
     done('16 (the public layers)')
+    # phase 17: the staging ring and the rest of the op modules (17b, with
+    # its profiled busy times, last)
+    ring_runs, staging = phase_staging_trainer(
+        torch, pt, pt.CUDAPlace(0), card, True, 64, 64, VOCAB, base)
+    torch.cuda.empty_cache()
+    staging.update(ops=phase_module_ops(torch, pt, pt.CUDAPlace(0), card,
+                                        True))
+    torch.cuda.empty_cache()
+    staging['ctr'], ctr_ring_runs = phase_staging_ctr(torch, pt, card, True)
+    torch.cuda.empty_cache()
+    done('17 (the staging ring and the rest of the op modules)')
 
     # launches: the sum over the main paths' runs (the engine runs: plain,
     # extras plain and with cache + speculation, int8 and fp8; the timed
@@ -5759,11 +6394,13 @@ def main():
     # 7b's (the dropout Mask read) and ResNet-50 training steps; phase 12's
     # timed decode calls; phase 13a's timed Trainer epoch at depth 1; phase
     # 14's six legs; phase 15's four row-sparse legs; phase 16a's timed
-    # encoder steps, fp32 and bf16), each read after its counts were set
-    # to 0
+    # encoder steps, fp32 and bf16; phase 17's staging-ring legs: the
+    # Transformer's timed epoch and the CTR's steps), each read after its
+    # counts were set to 0
     main_runs = [launches] + extras + list(quant.values()) + \
         [train, scan_train, masked, mask_read, resnet, nmt, trainer] + \
-        disagg_runs + list(ctr_runs.values()) + layers_runs
+        disagg_runs + list(ctr_runs.values()) + layers_runs + \
+        [ring_runs, ctr_ring_runs]
 
     def runs(key):
         return sum(r.get(key, 0) for r in main_runs)
@@ -5839,7 +6476,8 @@ def main():
                        for k, v in sparse.items()})
     print('total %.1f s' % (time.perf_counter() - t_start))
     print(json.dumps({'kernels': kernels, 'lifecycle': lifecycle,
-                      'disagg': disagg, 'ctr': ctr, 'layers': layers}))
+                      'disagg': disagg, 'ctr': ctr, 'layers': layers,
+                      'staging': staging}))
     print(card)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu',
                                              'kind': name,

@@ -29,7 +29,7 @@ from .core.scope import Scope, global_scope, scope_guard
 from .data_feeder import DataFeeder
 from .fault import CheckpointConfig
 from .memory_optimize import memory_optimize
-from .param_attr import ParamAttr
+from .param_attr import ParamAttr, WeightNormParamAttr
 from .trainer import (BeginEpochEvent, BeginStepEvent, EndEpochEvent,
                       EndStepEvent, Trainer)
 
@@ -42,5 +42,6 @@ __all__ = ['backward', 'clip', 'dataset', 'fault', 'initializer', 'io',
            'program_guard', 'reset_default_programs', 'switch_main_program',
            'switch_startup_program', 'Scope',
            'global_scope', 'scope_guard', 'DataFeeder', 'CheckpointConfig',
-           'ParamAttr', 'memory_optimize', 'Trainer', 'BeginEpochEvent',
-           'EndEpochEvent', 'BeginStepEvent', 'EndStepEvent']
+           'ParamAttr', 'WeightNormParamAttr', 'memory_optimize', 'Trainer',
+           'BeginEpochEvent', 'EndEpochEvent', 'BeginStepEvent',
+           'EndStepEvent']

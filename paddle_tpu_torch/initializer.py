@@ -5,6 +5,7 @@ parameter value; the Executor runs the startup program once, on the
 place's device.
 """
 
+import contextlib
 import math
 
 import numpy as np
@@ -73,6 +74,19 @@ class NormalInitializer(Initializer):
                       'std': self.scale, 'seed': self.seed})
 
 
+class TruncatedNormalInitializer(Initializer):
+    """A normal truncated to [loc - 2 scale, loc + 2 scale]; ``seed`` is
+    accepted and, as in the reference, not read."""
+
+    def __init__(self, loc=0.0, scale=1.0, seed=0):
+        self.loc, self.scale, self.seed = loc, scale, seed
+
+    def __call__(self, var, block=None):
+        self._append(var, block, 'truncated_gaussian_random',
+                     {'shape': list(var.shape), 'mean': self.loc,
+                      'std': self.scale, 'seed': self.seed})
+
+
 class XavierInitializer(Initializer):
     def __init__(self, uniform=True, fan_in=None, fan_out=None, seed=0):
         self.uniform = uniform
@@ -88,6 +102,44 @@ class XavierInitializer(Initializer):
         else:
             std = math.sqrt(2.0 / (fan_in + fan_out))
             NormalInitializer(0.0, std, self.seed)(var, block)
+
+
+class MSRAInitializer(Initializer):
+    """He initialization: uniform in +-sqrt(6 / fan_in), or a normal of std
+    sqrt(2 / fan_in)."""
+
+    def __init__(self, uniform=True, fan_in=None, seed=0):
+        self.uniform, self.fan_in, self.seed = uniform, fan_in, seed
+
+    def __call__(self, var, block=None):
+        fan_in, _ = self._fan_in_out(var)
+        fan_in = self.fan_in if self.fan_in is not None else fan_in
+        if self.uniform:
+            limit = math.sqrt(6.0 / fan_in)
+            UniformInitializer(-limit, limit, self.seed)(var, block)
+        else:
+            std = math.sqrt(2.0 / fan_in)
+            NormalInitializer(0.0, std, self.seed)(var, block)
+
+
+class BilinearInitializer(Initializer):
+    """The bilinear upsampling filter for a conv_transpose weight [c_out,
+    c_in, h, w], on the diagonal channels, as an assign_value op."""
+
+    def __call__(self, var, block=None):
+        shape = var.shape
+        if len(shape) != 4:
+            raise ValueError('Bilinear initializer needs a 4-D weight')
+        c_out, c_in, h, w = shape
+        f = np.ceil(w / 2.0)
+        c = (2 * f - 1 - f % 2) / (2.0 * f)
+        weight = np.zeros(shape, dtype='float32')
+        og = np.ogrid[:h, :w]
+        filt = (1 - abs(og[0] / f - c)) * (1 - abs(og[1] / f - c))
+        diag = range(min(c_out, c_in))
+        weight[diag, diag, :, :] = filt
+        self._append(var, block, 'assign_value',
+                     {'values': weight.tolist(), 'shape': list(shape)})
 
 
 class NumpyArrayInitializer(Initializer):
@@ -106,4 +158,19 @@ class NumpyArrayInitializer(Initializer):
 Constant = ConstantInitializer
 Uniform = UniformInitializer
 Normal = NormalInitializer
+TruncatedNormal = TruncatedNormalInitializer
 Xavier = XavierInitializer
+MSRA = MSRAInitializer
+Bilinear = BilinearInitializer
+
+
+def force_init_on_cpu():
+    """False: the startup program runs on the executor's place."""
+    return False
+
+
+@contextlib.contextmanager
+def init_on_cpu():
+    """Accepted for the reference's scripts; the initializers run where
+    the startup program runs."""
+    yield

@@ -1,10 +1,10 @@
-"""The layers the port's model code uses (a subset of paddle_tpu.layers, at
-the same names, slots and attributes): data and parameters, the
-Transformer training graph's fc, embedding, layer_norm, dropout, losses,
-reductions, elementwise and reshaping layers, ResNet's conv2d, pool2d,
-batch_norm, cross_entropy, accuracy, topk and transpose, and the NMT
-inference graphs' fills, concat, argmax, comparisons, cumsum, expand,
-stack, one_hot, log_softmax and beam search layers."""
+"""The public layers (145 of paddle_tpu.layers' 200 names, at the same
+names, slots and attributes): data and parameters, fills, the
+elementwise, activation, reduction, reshaping and indexing layers, the
+losses and metrics, fc, embedding, conv2d, pool2d, the norms, dropout,
+resizes, Print, and the NMT inference graphs' beam search layers. The
+loop constructs, the sequence, RNN and detection layers and the conv
+path's rest are not ported (ROADMAP Queue 1 items 5-7)."""
 
 from . import helper  # noqa: F401
 from .io import *  # noqa: F401,F403

@@ -8,7 +8,7 @@ from ..core import unique_name
 from ..core.dtypes import canonical_dtype
 from ..core.program import default_main_program, default_startup_program
 from ..initializer import Constant, Xavier
-from ..param_attr import ParamAttr
+from ..param_attr import ParamAttr, WeightNormParamAttr
 
 
 def _startup_has(name):
@@ -82,6 +82,8 @@ class LayerHelper(object):
         name = attr.name if attr.name is not None else \
             unique_name.generate('%s.w' % self.name if not is_bias
                                  else '%s.b' % self.name)
+        if isinstance(attr, WeightNormParamAttr):
+            return self._create_weight_normalized(attr, name, shape, dtype)
         block = self.main_program.global_block()
         kwargs = attr.to_kwargs(with_initializer=True)
         kwargs.pop('name', None)
@@ -93,6 +95,49 @@ class LayerHelper(object):
             attr.initializer(param)
         self.main_program._startup_ref = self.startup_program
         return param
+
+    def _create_weight_normalized(self, attr, name, shape, dtype):
+        """w = g * v / ||v||, the norm over every axis but attr.dim (one
+        weight_norm op; g set to ||v|| by a startup weight_norm_g_init op,
+        so training starts at v). v and g are the trainable parameters;
+        the returned w is computed in the graph at every step."""
+        dim = attr.dim
+        shape = [int(s) for s in shape]
+        if dim is not None:
+            if not -len(shape) <= dim < len(shape):
+                raise ValueError(
+                    'WeightNormParamAttr: dim=%d out of range for a '
+                    '%d-D weight' % (dim, len(shape)))
+            dim = dim % len(shape)  # -1 on the wire means every axis
+        block = self.main_program.global_block()
+        v_kwargs = attr.to_kwargs(with_initializer=True)
+        v_kwargs.pop('name', None)
+        v = block.create_parameter(name + '.wn_v', shape=shape,
+                                   dtype=dtype, **v_kwargs)
+        if not _startup_has(v.name):    # the first init wins
+            attr.initializer(v)
+        g_shape = [1] if dim is None else [shape[dim]]
+        # g takes every training attr of the ParamAttr but its initializer
+        g_kwargs = attr.to_kwargs()
+        g_kwargs.pop('name', None)
+        g = block.create_parameter(name + '.wn_g', shape=g_shape,
+                                   dtype=dtype, **g_kwargs)
+        sb = self.startup_program.global_block()
+        if g.name not in sb.vars:       # the first init wins
+            sb.create_var(name=g.name, shape=tuple(g_shape), dtype=dtype,
+                          persistable=True)
+            sb.append_op(type='weight_norm_g_init', inputs={'V': [v]},
+                         outputs={'G': [g]},
+                         attrs={'dim': -1 if dim is None else int(dim)})
+        self.main_program._startup_ref = self.startup_program
+        w = self.block.create_var(name=name, dtype=dtype)
+        w.shape = tuple(shape)
+        w.stop_gradient = False
+        self.block.append_op(
+            type='weight_norm', inputs={'V': [v], 'G': [g]},
+            outputs={'W': [w]},
+            attrs={'dim': -1 if dim is None else int(dim)})
+        return w
 
     def create_variable_for_type_inference(self, dtype=None):
         if dtype is None:

@@ -1,11 +1,13 @@
-"""Tensor-manipulation layers the training and inference paths build
-(reference: paddle_tpu layers/manip.py): slice, unsqueeze, expand, stack,
-log_softmax and prelu."""
+"""Tensor-manipulation layers (reference: paddle_tpu layers/manip.py):
+slice, unsqueeze, expand, stack, log_softmax, prelu, gather, scatter,
+squeeze, where, shape, range, isfinite and pixel_shuffle."""
 
 from ..initializer import Constant
 from .helper import LayerHelper
 
-__all__ = ['slice', 'unsqueeze', 'expand', 'stack', 'log_softmax', 'prelu']
+__all__ = ['slice', 'unsqueeze', 'expand', 'stack', 'log_softmax', 'prelu',
+           'gather', 'scatter', 'squeeze', 'where', 'shape', 'range',
+           'isfinite', 'pixel_shuffle']
 
 
 def slice(input, axes, starts, ends, name=None):
@@ -92,4 +94,95 @@ def prelu(x, mode='all', param_attr=None, name=None):
     out.shape = x.shape
     helper.append_op(type='prelu', inputs={'X': [x], 'Alpha': [alpha]},
                      outputs={'Out': [out]}, attrs={'mode': mode})
+    return out
+
+
+def gather(input, index, name=None):
+    helper = LayerHelper('gather', name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    if input.shape is not None and index.shape is not None:
+        out.shape = (index.shape[0],) + tuple(input.shape[1:])
+    helper.append_op(type='gather', inputs={'X': [input], 'Index': [index]},
+                     outputs={'Out': [out]})
+    return out
+
+
+def scatter(input, index, updates, name=None):
+    helper = LayerHelper('scatter', name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    out.shape = input.shape
+    helper.append_op(type='scatter',
+                     inputs={'X': [input], 'Ids': [index],
+                             'Updates': [updates]},
+                     outputs={'Out': [out]})
+    return out
+
+
+def squeeze(input, axes, name=None):
+    helper = LayerHelper('squeeze', name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    if input.shape is not None:
+        if axes:
+            drop = set(a % len(input.shape) for a in axes)
+            s = [d for i, d in enumerate(input.shape) if i not in drop]
+        else:
+            # empty axes squeezes every unit dim (matches the lowering)
+            s = [d for d in input.shape if d != 1]
+        out.shape = tuple(s)
+    helper.append_op(type='squeeze', inputs={'X': [input]},
+                     outputs={'Out': [out]}, attrs={'axes': list(axes)})
+    return out
+
+
+def where(condition, x, y, name=None):
+    helper = LayerHelper('where', name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    out.shape = x.shape
+    helper.append_op(type='where',
+                     inputs={'Condition': [condition], 'X': [x], 'Y': [y]},
+                     outputs={'Out': [out]})
+    return out
+
+
+def shape(input, name=None):
+    helper = LayerHelper('shape', name=name)
+    out = helper.create_variable_for_type_inference('int32')
+    if input.shape is not None:
+        out.shape = (len(input.shape),)
+    helper.append_op(type='shape', inputs={'X': [input]},
+                     outputs={'Out': [out]})
+    return out
+
+
+def range(start, end, step, dtype='int64', name=None):
+    helper = LayerHelper('range', name=name)
+    out = helper.create_variable_for_type_inference(dtype)
+    if all(isinstance(v, (int, float)) for v in (start, end, step)):
+        import math
+        out.shape = (max(int(math.ceil((end - start) / step)), 0),)
+    helper.append_op(type='range', inputs={},
+                     outputs={'Out': [out]},
+                     attrs={'start': start, 'end': end, 'step': step})
+    return out
+
+
+def isfinite(x, name=None):
+    helper = LayerHelper('isfinite', name=name)
+    out = helper.create_variable_for_type_inference('bool')
+    out.shape = (1,)
+    helper.append_op(type='isfinite', inputs={'X': [x]},
+                     outputs={'Out': [out]})
+    return out
+
+
+def pixel_shuffle(x, upscale_factor, name=None):
+    helper = LayerHelper('pixel_shuffle', name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    if x.shape is not None:
+        n, c, h, w = x.shape
+        r = upscale_factor
+        out.shape = (n, c // (r * r), h * r, w * r)
+    helper.append_op(type='pixel_shuffle', inputs={'X': [x]},
+                     outputs={'Out': [out]},
+                     attrs={'upscale_factor': upscale_factor})
     return out

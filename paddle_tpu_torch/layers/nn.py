@@ -1,4 +1,4 @@
-"""Neural-net layers the training paths build (reference: paddle_tpu
+"""Neural-net layers (reference: paddle_tpu
 layers/nn.py; python/paddle/fluid/layers/nn.py). Same ops, slots,
 attributes, parameter names, shapes and initializers as the JAX package's
 layer functions."""
@@ -6,14 +6,18 @@ layer functions."""
 from ..initializer import Constant, Normal
 from .helper import LayerHelper
 
-__all__ = ['fc', 'embedding', 'conv2d', 'pool2d', 'batch_norm',
-           'layer_norm', 'dropout', 'cross_entropy',
-           'label_smoothed_cross_entropy', 'softmax_with_cross_entropy',
-           'accuracy', 'topk', 'matmul', 'reduce_sum', 'reduce_mean',
-           'reduce_max', 'reduce_min', 'reduce_prod', 'split', 'transpose',
-           'one_hot', 'square_error_cost', 'cos_sim', 'relu_layer', 'dot',
-           'sign', 'l1_norm', 'squared_l2_norm', 'squared_l2_distance',
-           'autoincreased_step_counter']
+__all__ = ['fc', 'embedding', 'conv2d', 'pool2d', 'batch_norm', 'layer_norm',
+           'dropout', 'cross_entropy', 'label_smoothed_cross_entropy',
+           'softmax_with_cross_entropy', 'accuracy', 'topk', 'matmul',
+           'reduce_sum', 'reduce_mean', 'reduce_max', 'reduce_min',
+           'reduce_prod', 'split', 'transpose', 'one_hot', 'square_error_cost',
+           'cos_sim', 'relu_layer', 'dot', 'sign', 'l1_norm',
+           'squared_l2_norm', 'squared_l2_distance',
+           'autoincreased_step_counter', 'auc', 'l2_normalize', 'smooth_l1',
+           'im2sequence', 'multiplex', 'label_smooth', 'pad', 'maxout',
+           'bilinear_tensor_product', 'nce', 'huber_loss', 'rank_loss',
+           'margin_rank_loss', 'hinge_loss', 'log_loss', 'resize_bilinear',
+           'resize_nearest', 'modified_huber_loss']
 
 
 def _prod(xs):
@@ -539,3 +543,249 @@ def autoincreased_step_counter(counter_name=None, begin=1, step=1):
     block.append_op(type='increment', inputs={'X': [counter]},
                     outputs={'Out': [counter]}, attrs={'step': float(step)})
     return counter
+
+
+def auc(input, label, curve='ROC', num_thresholds=200, topk=1):
+    helper = LayerHelper('auc')
+    out = helper.create_variable_for_type_inference('float32')
+    out.shape = (1,)
+    helper.append_op(type='auc',
+                     inputs={'Predict': [input], 'Label': [label]},
+                     outputs={'AUC': [out]})
+    return out
+
+
+def l2_normalize(x, axis, epsilon=1e-12, name=None):
+    helper = LayerHelper('l2_normalize', name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    norm = helper.create_variable_for_type_inference(x.dtype)
+    out.shape = x.shape
+    helper.append_op(type='l2_normalize', inputs={'X': [x]},
+                     outputs={'Out': [out], 'Norm': [norm]},
+                     attrs={'axis': axis, 'epsilon': epsilon})
+    return out
+
+
+def smooth_l1(x, y, inside_weight=None, outside_weight=None, sigma=None,
+              last_dim_only=False):
+    """last_dim_only=True sums over only the trailing axis (per-box loss
+    for [B, N, 4] detection targets) instead of all non-batch axes."""
+    helper = LayerHelper('smooth_l1_loss')
+    diff = helper.create_variable_for_type_inference(x.dtype)
+    loss = helper.create_variable_for_type_inference(x.dtype)
+    if x.shape is not None:
+        loss.shape = tuple(x.shape[:-1]) if last_dim_only \
+            else (x.shape[0], 1)
+    inputs = {'X': [x], 'Y': [y]}
+    if inside_weight is not None:
+        inputs['InsideWeight'] = [inside_weight]
+    if outside_weight is not None:
+        inputs['OutsideWeight'] = [outside_weight]
+    helper.append_op(type='smooth_l1_loss', inputs=inputs,
+                     outputs={'Diff': [diff], 'Out': [loss]},
+                     attrs={'sigma': sigma if sigma is not None else 1.0,
+                            'last_dim_only': last_dim_only})
+    return loss
+
+
+def im2sequence(input, filter_size=1, stride=1, padding=0, name=None):
+    helper = LayerHelper('im2sequence', name=name)
+    kh, kw = _pair(filter_size)
+    sh, sw = _pair(stride)
+    pads = padding if isinstance(padding, (list, tuple)) and \
+        len(padding) == 4 else _pair(padding) * 2
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type='im2sequence', inputs={'X': [input]},
+                     outputs={'Out': [out]},
+                     attrs={'kernels': [kh, kw], 'strides': [sh, sw],
+                            'paddings': list(pads)})
+    return out
+
+
+def multiplex(inputs, index):
+    helper = LayerHelper('multiplex')
+    out = helper.create_variable_for_type_inference(inputs[0].dtype)
+    out.shape = inputs[0].shape
+    helper.append_op(type='multiplex',
+                     inputs={'X': inputs, 'Ids': [index]},
+                     outputs={'Out': [out]})
+    return out
+
+
+def label_smooth(label, prior_dist=None, epsilon=0.1, dtype='float32',
+                 name=None):
+    helper = LayerHelper('label_smooth', name=name)
+    out = helper.create_variable_for_type_inference(dtype)
+    out.shape = label.shape
+    inputs = {'X': [label]}
+    if prior_dist is not None:
+        inputs['PriorDist'] = [prior_dist]
+    helper.append_op(type='label_smooth', inputs=inputs,
+                     outputs={'Out': [out]}, attrs={'epsilon': epsilon})
+    return out
+
+
+def pad(x, paddings, pad_value=0.0, name=None):
+    helper = LayerHelper('pad', name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    if x.shape is not None:
+        s = list(x.shape)
+        for i in range(len(s)):
+            if s[i] is not None and s[i] >= 0:
+                s[i] += paddings[2 * i] + paddings[2 * i + 1]
+        out.shape = tuple(s)
+    helper.append_op(type='pad', inputs={'X': [x]}, outputs={'Out': [out]},
+                     attrs={'paddings': list(paddings),
+                            'pad_value': float(pad_value)})
+    return out
+
+
+def maxout(x, groups, name=None):
+    helper = LayerHelper('maxout', name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    if x.shape is not None:
+        n, c, h, w = x.shape
+        out.shape = (n, c // groups, h, w)
+    helper.append_op(type='maxout', inputs={'X': [x]},
+                     outputs={'Out': [out]}, attrs={'groups': groups})
+    return out
+
+
+def bilinear_tensor_product(x, y, size, act=None, name=None,
+                            param_attr=None, bias_attr=None):
+    helper = LayerHelper('bilinear_tensor_product', **locals())
+    dtype = x.dtype
+    w = helper.create_parameter(attr=helper.param_attr,
+                                shape=[size, x.shape[-1], y.shape[-1]],
+                                dtype=dtype)
+    out = helper.create_variable_for_type_inference(dtype)
+    out.shape = (x.shape[0], size)
+    inputs = {'X': [x], 'Y': [y], 'Weight': [w]}
+    if bias_attr is not False:
+        b = helper.create_parameter(attr=helper.bias_attr, shape=[1, size],
+                                    dtype=dtype, is_bias=True)
+        inputs['Bias'] = [b]
+    helper.append_op(type='bilinear_tensor_product', inputs=inputs,
+                     outputs={'Out': [out]})
+    return helper.append_activation(out)
+
+
+def nce(input, label, num_total_classes, sample_weight=None,
+        param_attr=None, bias_attr=None, num_neg_samples=None, name=None):
+    """NCE loss (reference nce_op.cc). TPU-native: sampled softmax using
+    stateless uniform negative sampling fused into one XLA computation."""
+    helper = LayerHelper('nce', **locals())
+    dim = input.shape[-1]
+    num_neg = num_neg_samples if num_neg_samples is not None else 10
+    w = helper.create_parameter(attr=helper.param_attr,
+                                shape=[num_total_classes, dim],
+                                dtype=input.dtype)
+    b = helper.create_parameter(attr=helper.bias_attr,
+                                shape=[num_total_classes, 1],
+                                dtype=input.dtype, is_bias=True)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    out.shape = (input.shape[0], 1)
+    helper.append_op(type='nce',
+                     inputs={'Input': [input], 'Label': [label],
+                             'Weight': [w], 'Bias': [b]},
+                     outputs={'Cost': [out]},
+                     attrs={'num_total_classes': num_total_classes,
+                            'num_neg_samples': num_neg})
+    return out
+
+
+def huber_loss(input, label, delta=1.0):
+    helper = LayerHelper('huber_loss')
+    residual = helper.create_variable_for_type_inference(input.dtype)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    if input.shape is not None:
+        out.shape = tuple(input.shape)
+    helper.append_op(type='huber_loss',
+                     inputs={'X': [input], 'Y': [label]},
+                     outputs={'Out': [out], 'Residual': [residual]},
+                     attrs={'delta': delta})
+    return out
+
+
+def rank_loss(label, left, right, name=None):
+    """RankNet pairwise loss (rank_loss_op.cc)."""
+    helper = LayerHelper(name or 'rank_loss')
+    out = helper.create_variable_for_type_inference(left.dtype)
+    if left.shape is not None:
+        out.shape = tuple(left.shape)
+    helper.append_op(type='rank_loss',
+                     inputs={'Label': [label], 'Left': [left],
+                             'Right': [right]},
+                     outputs={'Out': [out]}, attrs={})
+    return out
+
+
+def margin_rank_loss(label, left, right, margin=0.1, name=None):
+    helper = LayerHelper(name or 'margin_rank_loss')
+    out = helper.create_variable_for_type_inference(left.dtype)
+    act = helper.create_variable_for_type_inference(left.dtype)
+    if left.shape is not None:
+        out.shape = tuple(left.shape)
+    helper.append_op(type='margin_rank_loss',
+                     inputs={'Label': [label], 'X1': [left],
+                             'X2': [right]},
+                     outputs={'Out': [out], 'Activated': [act]},
+                     attrs={'margin': margin})
+    return out
+
+
+def hinge_loss(input, label, name=None):
+    helper = LayerHelper(name or 'hinge_loss')
+    out = helper.create_variable_for_type_inference(input.dtype)
+    if input.shape is not None:
+        out.shape = tuple(input.shape)
+    helper.append_op(type='hinge_loss',
+                     inputs={'Logits': [input], 'Labels': [label]},
+                     outputs={'Loss': [out]}, attrs={})
+    return out
+
+
+def log_loss(input, label, epsilon=1e-4, name=None):
+    helper = LayerHelper(name or 'log_loss')
+    out = helper.create_variable_for_type_inference(input.dtype)
+    if input.shape is not None:
+        out.shape = tuple(input.shape)
+    helper.append_op(type='log_loss',
+                     inputs={'Predicted': [input], 'Labels': [label]},
+                     outputs={'Loss': [out]}, attrs={'epsilon': epsilon})
+    return out
+
+
+def resize_bilinear(input, out_shape, name=None):
+    helper = LayerHelper(name or 'bilinear_interp')
+    out = helper.create_variable_for_type_inference(input.dtype)
+    if input.shape is not None:
+        out.shape = (input.shape[0], input.shape[1]) + tuple(out_shape)
+    helper.append_op(type='bilinear_interp', inputs={'X': [input]},
+                     outputs={'Out': [out]},
+                     attrs={'out_h': out_shape[0], 'out_w': out_shape[1]})
+    return out
+
+
+def resize_nearest(input, out_shape, name=None):
+    helper = LayerHelper(name or 'nearest_interp')
+    out = helper.create_variable_for_type_inference(input.dtype)
+    if input.shape is not None:
+        out.shape = (input.shape[0], input.shape[1]) + tuple(out_shape)
+    helper.append_op(type='nearest_interp', inputs={'X': [input]},
+                     outputs={'Out': [out]},
+                     attrs={'out_h': out_shape[0], 'out_w': out_shape[1]})
+    return out
+
+
+def modified_huber_loss(x, y):
+    """Binary-classification modified Huber loss
+    (modified_huber_loss_op.h:37-72); y in {0, 1}."""
+    helper = LayerHelper('modified_huber_loss', **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    inter = helper.create_variable_for_type_inference(x.dtype)
+    out.shape = x.shape
+    helper.append_op(type='modified_huber_loss',
+                     inputs={'X': [x], 'Y': [y]},
+                     outputs={'Out': [out], 'IntermediateVal': [inter]})
+    return out

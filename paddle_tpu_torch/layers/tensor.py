@@ -1,15 +1,17 @@
 """Tensor layers (reference: paddle_tpu layers/tensor.py;
 python/paddle/fluid/layers/tensor.py)."""
 
+import numpy as np
+
 from ..core.dtypes import canonical_dtype
 from ..initializer import Constant
 from ..param_attr import ParamAttr
 from .helper import LayerHelper
 
 __all__ = ['create_tensor', 'create_parameter', 'create_global_var', 'cast',
-           'concat', 'sums', 'fill_constant_batch_size_like',
-           'fill_constant', 'ones', 'zeros', 'argmax', 'zeros_like',
-           'ones_like']
+           'concat', 'sums', 'fill_constant_batch_size_like', 'fill_constant',
+           'ones', 'zeros', 'argmax', 'zeros_like', 'ones_like', 'assign',
+           'argmin', 'argsort', 'reverse', 'linspace']
 
 
 def create_tensor(dtype, name=None, persistable=False):
@@ -147,3 +149,70 @@ def zeros_like(x, out=None):
 
 def ones_like(x, out=None):
     return _filled_like('ones_like', x, 1.0, out)
+
+
+def assign(input, output=None):
+    helper = LayerHelper('assign')
+    if isinstance(input, np.ndarray) or isinstance(input, (list, tuple)):
+        arr = np.asarray(input)
+        if output is None:
+            output = helper.create_variable_for_type_inference(
+                dtype=str(arr.dtype))
+        output.shape = arr.shape
+        helper.append_op(type='assign_value', outputs={'Out': [output]},
+                         attrs={'values': arr.tolist(),
+                                'shape': list(arr.shape)})
+    else:
+        if output is None:
+            output = helper.create_variable_for_type_inference(
+                dtype=input.dtype)
+        output.shape = input.shape
+        helper.append_op(type='assign', inputs={'X': [input]},
+                         outputs={'Out': [output]})
+    return output
+
+
+def argmin(x, axis=-1):
+    helper = LayerHelper('argmin')
+    out = helper.create_variable_for_type_inference(dtype='int64')
+    if x.shape is not None:
+        s = list(x.shape)
+        s.pop(axis % len(s))
+        out.shape = tuple(s)
+    helper.append_op(type='argmin', inputs={'X': [x]},
+                     outputs={'Out': [out]}, attrs={'axis': axis})
+    return out
+
+
+def argsort(x, axis=-1):
+    helper = LayerHelper('argsort')
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    ids = helper.create_variable_for_type_inference(dtype='int64')
+    out.shape = x.shape
+    ids.shape = x.shape
+    helper.append_op(type='argsort', inputs={'X': [x]},
+                     outputs={'Out': [out], 'Indices': [ids]},
+                     attrs={'axis': axis})
+    return out, ids
+
+
+def reverse(x, axis):
+    helper = LayerHelper('reverse')
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    out.shape = x.shape
+    helper.append_op(type='reverse', inputs={'X': [x]},
+                     outputs={'Out': [out]},
+                     attrs={'axis': axis if isinstance(axis, (list, tuple))
+                            else [axis]})
+    return out
+
+
+def linspace(start, stop, num, dtype='float32'):
+    helper = LayerHelper('linspace')
+    out = helper.create_variable_for_type_inference(
+        dtype=canonical_dtype(dtype))
+    out.shape = (int(num),)
+    helper.append_op(type='linspace', outputs={'Out': [out]},
+                     attrs={'start': float(start), 'stop': float(stop),
+                            'num': int(num)})
+    return out

@@ -1,7 +1,8 @@
 """Tensor ops (reference: paddle_tpu ops/tensor_ops.py): the startup
-fills, fill_constant_batch_size_like, sum, concat, split, reshape, slice,
-unsqueeze, cast, transpose, one_hot, top_k, cumsum, expand, stack,
-increment and the clips (clip, clip_by_norm, global_norm_clip)."""
+fills, fill_constant_batch_size_like, assign, sum, concat, split, reshape,
+slice, squeeze, unsqueeze, cast, transpose, one_hot, top_k, cumsum,
+expand, stack, increment, the clips (clip, clip_by_norm,
+global_norm_clip), gather, scatter, shape, pad, reverse and multiplex."""
 
 import numpy as np
 import torch
@@ -29,22 +30,30 @@ def _fill_constant_bsl(ctx):
                                      device=ctx.device))
 
 
+def device_constant(ctx, key, make):
+    """A tensor that the op's attrs and ``key`` alone fix: made on the host
+    by ``make()`` once, moved to the device once and kept by the op, so a
+    captured graph holds no host-to-device copy. An op that outputs it
+    hands out a copy."""
+    cache = ctx.op.__dict__.setdefault('_device_values', {})
+    key = (str(ctx.device),) + tuple(key)
+    if key not in cache:
+        cache[key] = make().to(ctx.device)
+    return cache[key]
+
+
 @register('assign_value')
 def _assign_value(ctx):
-    """The op's values moved to the device once (the op keeps that tensor)
-    and copied on the device at every run, so a captured graph holds no
-    host-to-device copy."""
+    """The op's values, copied on the device at every run."""
     dtype = ctx.out_dtype('Out')
-    cache = ctx.op.__dict__.setdefault('_device_values', {})
-    key = (str(ctx.device), dtype)
-    if key not in cache:
+
+    def make():
         values = np.asarray(ctx.attr('values'))
         shape = ctx.attr('shape', None)
         if shape:
             values = values.reshape(shape)
-        cache[key] = torch.as_tensor(values).to(device=ctx.device,
-                                                dtype=dtype)
-    ctx.set_output('Out', cache[key].clone())
+        return torch.as_tensor(values).to(dtype)
+    ctx.set_output('Out', device_constant(ctx, (dtype,), make).clone())
 
 
 @register('sum')
@@ -246,3 +255,92 @@ def _global_norm_clip(ctx):
     grads = ctx.input_list('X')
     scale = global_norm_scale(grads, ctx.attr('max_global_norm'))
     ctx.set_output_list('Out', [g * scale.to(g.dtype) for g in grads])
+
+
+@register('assign')
+def _assign(ctx):
+    ctx.set_output('Out', ctx.input('X'))
+
+
+@register('squeeze')
+def _squeeze(ctx):
+    """The listed axes dropped (every unit axis when none are listed)."""
+    x = ctx.input('X')
+    axes = ctx.attr('axes', None)
+    ctx.set_output('Out', x.squeeze(tuple(axes)) if axes else x.squeeze())
+
+
+def _rows(index):
+    """An index of ids as int64 [n] (a [n, 1] index squeezed)."""
+    if index.dim() == 2 and index.shape[1] == 1:
+        index = index.squeeze(-1)
+    return index.long()
+
+
+@register('gather')
+def _gather(ctx):
+    """Rows ``Index`` of X (jnp.take along axis 0); the gradient sums into
+    a row taken more than once."""
+    x = ctx.input('X')
+    ctx.set_output('Out', x[_rows(ctx.input('Index'))])
+
+
+def scatter_rows(x, index, updates):
+    """x with row index[i] replaced by updates[i]; where an id repeats, its
+    last occurrence wins (what the reference gives on the host). One
+    deterministic rule on the host and the card: each row's last update
+    position is found by an amax scatter of the positions, then every row
+    is a select between x and that update. The gradient, as jax's scatter
+    rule gives it: x's rows that were replaced get none, and of the
+    updates only the winning ones get their row's."""
+    n_rows = x.shape[0]
+    index = torch.where(index < 0, index + n_rows, index)
+    pos = torch.arange(index.shape[0], device=x.device)
+    last = torch.full((n_rows,), -1, dtype=torch.int64, device=x.device)
+    last.scatter_reduce_(0, index, pos, reduce='amax')
+    hit = (last >= 0).reshape((n_rows,) + (1,) * (x.dim() - 1))
+    return torch.where(hit, updates.to(x.dtype)[last.clamp(min=0)], x)
+
+
+@register('scatter')
+def _scatter(ctx):
+    ctx.set_output('Out', scatter_rows(ctx.input('X'),
+                                       _rows(ctx.input('Ids')),
+                                       ctx.input('Updates')))
+
+
+@register('shape')
+def _shape(ctx):
+    """X's shape as int32."""
+    shape = tuple(ctx.input('X').shape)
+    ctx.set_output('Out', device_constant(ctx, shape, lambda: torch.tensor(
+        shape, dtype=torch.int32)).clone())
+
+
+@register('pad')
+def _pad(ctx):
+    """Constant padding from fluid's flat ``paddings`` (before, after for
+    each axis in order)."""
+    x = ctx.input('X')
+    p = ctx.attr('paddings')
+    flat = []
+    for i in reversed(range(x.dim())):
+        flat += [p[2 * i], p[2 * i + 1]]
+    ctx.set_output('Out', torch.nn.functional.pad(
+        x, flat, value=ctx.attr('pad_value', 0.0)))
+
+
+@register('reverse')
+def _reverse(ctx):
+    axes = ctx.attr('axis')
+    ctx.set_output('Out', ctx.input('X').flip(
+        [axes] if isinstance(axes, int) else list(axes)))
+
+
+@register('multiplex')
+def _multiplex(ctx):
+    """Row i of Out is row i of X[Ids[i]]."""
+    stacked = torch.stack(ctx.input_list('X'))
+    ids = ctx.input('Ids').reshape(-1).long()
+    rows = torch.arange(ids.shape[0], device=ids.device)
+    ctx.set_output('Out', stacked[ids, rows])

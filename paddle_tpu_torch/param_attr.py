@@ -48,3 +48,17 @@ class ParamAttr(object):
         if with_initializer:
             kwargs['initializer'] = self.initializer
         return kwargs
+
+
+class WeightNormParamAttr(ParamAttr):
+    """Weight normalization (reference: param_attr.py
+    WeightNormParamAttr): the layer's weight is w = g * v / ||v||, the norm
+    over every axis but ``dim`` (None: every axis, one scalar g). The
+    helper makes ``<name>.wn_v`` (the direction, under the layer's
+    initializer) and ``<name>.wn_g`` (the magnitude, set to ||v|| at
+    startup, so training starts at v) and one weight_norm op; the
+    gradients reach v and g."""
+
+    def __init__(self, dim=None, **kwargs):
+        super(WeightNormParamAttr, self).__init__(**kwargs)
+        self.dim = dim

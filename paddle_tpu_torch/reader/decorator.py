@@ -1,11 +1,13 @@
 """Reader decorators (reference: paddle_tpu reader/decorator.py;
-python/paddle/v2/reader/decorator.py). ``prefetch_to_device`` is not
-ported: it comes with ``reader/staging.py`` (ROADMAP Queue 1 item 2)."""
+python/paddle/v2/reader/decorator.py)."""
 
 import itertools
 import random
 from queue import Queue
 from threading import Thread
+
+import numpy as np
+import torch
 
 __all__ = ['map_readers', 'buffered', 'compose', 'chain', 'shuffle',
            'prefetch_to_device',
@@ -238,13 +240,91 @@ def retry(reader, tries=3, backoff=0.1, exceptions=(OSError,)):
     return data_reader
 
 
+def resolve_device(place):
+    """A place (or a torch.device) -> torch.device; None is
+    CUDAPlace(0)'s."""
+    if place is None:
+        from ..core.place import CUDAPlace
+        place = CUDAPlace(0)
+    if hasattr(place, 'device_id'):     # a paddle_tpu_torch Place
+        return place.device()
+    return torch.device(place)
+
+
+def feed_normalizer(first, feed_names):
+    """Returns item -> feed-dict fn for readers yielding dicts or tuples."""
+    if feed_names is not None and not isinstance(first, dict):
+        return lambda item: dict(zip(feed_names, item))
+    return lambda item: item
+
+
 def prefetch_to_device(reader, feed_names=None, buffer_size=2, place=None):
-    """Not ported: the device prefetch comes with the native staging ring
-    (ROADMAP Queue 1 item 2). The executor moves host feeds to the card
-    through its own pinned buffers."""
-    raise NotImplementedError(
-        'reader.prefetch_to_device is not ported to paddle_tpu_torch '
-        '(ROADMAP Queue 1 item 2, with reader/staging.py)')
+    """Overlap the host-to-device copy with compute: the next batch(es) are
+    moved to the card while the current one trains (the reference's
+    pinned-memory double buffering).
+
+    ``reader`` yields dicts (or tuples zipped with ``feed_names``); the
+    result yields dicts of tensors on ``place``'s device (CUDAPlace(0) when
+    None). On the card each value is copied into a page-locked host
+    buffer, then to the device on a side stream with no host wait; the
+    stream that is current when a batch is yielded waits for that copy on
+    the card.
+
+    Mutation safety: a reader that reuses its output buffers is safe to
+    prefetch. On the card a value is copied out of the reader's buffer
+    before the next item is pulled; on the host it is copied
+    (staging.host_alias_safe, the same invariant as the staging ring), so
+    the producer overwriting its buffer cannot change a prefetched
+    batch."""
+    from .staging import _copy_stream, host_alias_safe
+
+    device = resolve_device(place)
+
+    def put(value):
+        if isinstance(value, torch.Tensor):
+            if value.device == device:
+                return value, None
+            value = value.cpu().numpy()
+        value = host_alias_safe(np.asarray(value), device)
+        if device.type != 'cuda':
+            return torch.from_numpy(value), None
+        pinned = torch.from_numpy(np.ascontiguousarray(value)).pin_memory()
+        with torch.cuda.stream(_copy_stream(device)):
+            out = pinned.to(device, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+        return out, done
+
+    def device_reader():
+        import collections
+        pending = collections.deque()
+        norm = [None]
+
+        def enqueue(item):
+            if norm[0] is None:
+                norm[0] = feed_normalizer(item, feed_names)
+            pending.append({k: put(v) for k, v in norm[0](item).items()})
+
+        def deliver(entry):
+            if device.type == 'cuda':
+                consumer = torch.cuda.current_stream(device)
+                for t, done in entry.values():
+                    if done is not None:
+                        consumer.wait_event(done)
+                        t.record_stream(consumer)
+            return {k: t for k, (t, _) in entry.items()}
+
+        it = iter(reader())
+        for item in itertools.islice(it, buffer_size):
+            enqueue(item)
+        for item in it:
+            out = pending.popleft()
+            enqueue(item)   # the NEXT batch's copy is now in flight
+            yield deliver(out)
+        while pending:
+            yield deliver(pending.popleft())
+
+    return device_reader
 
 
 def shard(reader, num_shards, shard_id, drop_uneven=True):

@@ -18,12 +18,12 @@ on the same state, so parameters and events are the same at any depth.
 ``host_prefetch=N`` moves reader iteration, feed conversion and window
 stacking onto a worker thread behind a bounded queue;
 ``steps_per_dispatch=w`` runs windows of w steps through
-``Executor.run_steps``.
+``Executor.run_steps``; with ``stacked_windows=True`` the reader yields
+those windows itself, device-resident (``reader.staged_superbatch``).
 
 The scope is the caller's ``global_scope()`` (use ``scope_guard`` for
 another). The JAX package's telemetry (the observe calls) and its static
-program verification are not ported (ROADMAP Queue 1 item 11);
-``stacked_windows`` waits for the staging ring (Queue 1 item 2).
+program verification are not ported (ROADMAP Queue 1 item 11).
 """
 
 import collections
@@ -179,12 +179,13 @@ class Trainer(object):
         steps late and skip_step undoes a whole drain group.
 
         ``host_prefetch`` N > 0 prepares feeds on a worker thread behind
-        a queue of at most N."""
-        if stacked_windows:
-            raise NotImplementedError(
-                'Trainer.train(stacked_windows=True) reads device-resident '
-                'superbatches from the staging ring, not ported to '
-                'paddle_tpu_torch (ROADMAP Queue 1 item 2)')
+        a queue of at most N.
+
+        ``stacked_windows=True`` declares that the reader yields
+        device-resident [steps_per_dispatch, ...] superbatches
+        (``reader.staged_superbatch``): each yield goes straight to
+        ``Executor.run_steps(stacked_feed=True)`` with no feed conversion
+        and no host stack, and counts as one reader item."""
         event_handler = event_handler or (lambda e: None)
         self._event_handler = event_handler
         _inject.install_from_env()
@@ -234,7 +235,8 @@ class Trainer(object):
             # untrained remainder; step ids go on where they left off
             step = resume_step
             resume_step = 0
-            units = self._feed_units(reader, feeder, feed_order, w)
+            units = self._feed_units(reader, feeder, feed_order, w,
+                                     stacked_windows)
             if host_prefetch and int(host_prefetch) > 0:
                 units = self._prefetch_units(units, int(host_prefetch))
             for feed, n_steps, n_items in units:
@@ -276,7 +278,7 @@ class Trainer(object):
                 vals[0], torch.Tensor) else np.stack(vals)
         return out
 
-    def _feed_units(self, reader, feeder, feed_order, w):
+    def _feed_units(self, reader, feeder, feed_order, w, stacked_windows):
         """One epoch of prepared dispatch units (feed, n_steps, n_items):
         reader pulls, feed conversion and window stacking, so that
         _prefetch_units can move the whole generator onto a worker
@@ -291,6 +293,10 @@ class Trainer(object):
                 except StopIteration:
                     break
                 self._pulled += 1
+            if stacked_windows:
+                # already a device-resident [w, ...] superbatch
+                yield data, w, 1
+                continue
             feed = self._to_feed(data, feeder, feed_order)
             if w <= 1:
                 yield feed, 1, 1

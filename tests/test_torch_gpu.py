@@ -2414,3 +2414,101 @@ def test_repaired_fault_on_card_equals_host(cuda, fault, amp):
         assert parity_difference(
             c, h, exact, amp is not None, grad,
             where=ordinary(h.shape, FAULT_EDGE)) is None, (fetch[i], c, h)
+
+
+# ------------------------------------------ the staging ring on the card
+def test_staging_ring_pinned_slots_round_trip(cuda):
+    """staged_superbatch on the card: every slot page-locked once before
+    its first copy, each window on the card equal to np.stack of its
+    batches bit for bit, and a pageable array refused by
+    fields_to_device."""
+    from paddle_tpu_torch.reader import staging
+    rng = np.random.RandomState(0)
+    data = [{'x': rng.randn(64, 512).astype('f'),
+             'i': rng.randint(0, 1000, (64, 1)).astype('int64')}
+            for _ in range(13)]
+    reader = staging.staged_superbatch(lambda: iter(data), 4, n_buffers=3,
+                                       place=pt.CUDAPlace(0))
+    windows = list(reader())
+    assert len(windows) == 3
+    stats = reader.stats
+    assert (stats['rings'], stats['slots_pinned'], stats['windows']) == \
+        (1, 3, 3) and stats['pin_seconds'] > 0
+    for k, w in enumerate(windows):
+        for n in ('x', 'i'):
+            assert w[n].device == cuda
+            want = np.stack([data[4 * k + j][n] for j in range(4)])
+            np.testing.assert_array_equal(w[n].cpu().numpy(), want)
+    with pytest.raises(RuntimeError, match='pageable'):
+        staging.fields_to_device({'x': data[0]['x']}, cuda)
+
+
+def test_prefetch_to_device_on_card_is_mutation_safe(cuda):
+    """A reader that overwrites its buffer after every yield: each batch
+    prefetched to the card keeps the value it had when it was read."""
+    from paddle_tpu_torch.reader import decorator
+    buf = np.zeros((256, 128), dtype='float32')
+
+    def reuse_reader():
+        for i in range(6):
+            buf[:] = i
+            yield {'x': buf}
+    got = [b['x'] for b in decorator.prefetch_to_device(
+        reuse_reader, buffer_size=2, place=pt.CUDAPlace(0))()]
+    assert len(got) == 6
+    for i, t in enumerate(got):
+        assert t.device == cuda
+        assert torch.equal(t.cpu(), torch.full((256, 128), float(i)))
+
+
+def _scatter_program():
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        L = pt.layers
+        x = L.data(name='x', shape=[512, 64], dtype='float32',
+                   append_batch_size=False)
+        u = L.data(name='u', shape=[4096, 64], dtype='float32',
+                   append_batch_size=False)
+        ids = L.data(name='ids', shape=[4096, 1], dtype='int64',
+                     append_batch_size=False)
+        px = L.create_parameter([512, 64], 'float32', name='px',
+                                default_initializer=pt.initializer.Constant(
+                                    -0.0))
+        pu = L.create_parameter([4096, 64], 'float32', name='pu',
+                                default_initializer=pt.initializer.Constant(
+                                    -0.0))
+        out = L.scatter(L.elementwise_add(x, px), ids,
+                        L.elementwise_add(u, pu))
+        loss = L.reduce_sum(L.elementwise_mul(out, out))
+        pt.backward.append_backward(loss)
+    return main, startup, [out.name, 'px@GRAD', 'pu@GRAD']
+
+
+def test_scatter_repeated_ids_card_equals_host(cuda):
+    """scatter with every id repeated 8 times in a shuffled order: on the
+    card (eager, then captured) the last update of each id wins, as on
+    the host, and the values and both gradients equal the host's bit for
+    bit."""
+    rng = np.random.RandomState(1)
+    ids = rng.permutation(np.repeat(np.arange(512), 8))[:, None]
+    feed = {'x': rng.randn(512, 64).astype('f'),
+            'u': rng.randn(4096, 64).astype('f'), 'ids': ids}
+    main, startup, fetch = _scatter_program()
+    got = {}
+    for mode in ('eager', 'captured', 'host'):
+        place = pt.CPUPlace() if mode == 'host' else pt.CUDAPlace(0)
+        exe = pt.Executor(place)
+        with pt.scope_guard(pt.Scope()):
+            exe.run(startup)
+            for _ in range(2 if mode == 'captured' else 1):
+                out = exe.run(main, feed=feed, fetch_list=fetch,
+                              use_program_cache=mode == 'captured')
+            if mode == 'captured':
+                assert exe.last_captured
+        got[mode] = out
+    last = {int(i): k for k, i in enumerate(ids[:, 0])}
+    want = feed['u'][[last[r] for r in range(512)]]
+    np.testing.assert_array_equal(got['host'][0], want)
+    for mode in ('eager', 'captured'):
+        for a, b in zip(got[mode], got['host']):
+            np.testing.assert_array_equal(a, b)

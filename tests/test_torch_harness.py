@@ -75,14 +75,21 @@ EXACT = {
     'split', 'abs', 'relu', 'relu6', 'brelu', 'clip', 'leaky_relu',
     'hard_shrink', 'thresholded_relu', 'minus', 'elementwise_floordiv',
     'elementwise_mod', 'increment', 'softshrink',
+    # the tensor, nn and misc op modules' ops whose result is one of their
+    # inputs' elements, a constant or a comparison
+    'assign', 'squeeze', 'unsqueeze', 'reshape', 'gather', 'scatter',
+    'shape', 'pad', 'reverse', 'multiplex', 'maxout', 'pixel_shuffle',
+    'im2sequence', 'argmin', 'argsort', 'nearest_interp', 'isfinite',
+    'lod_reset', 'where', 'linspace', 'range',
 }
 
 
-# reduce_max / reduce_min over a NaN: the reference's gradient there is 0
+# reduce_max / reduce_min (and maxout, a max over channel groups) over a
+# NaN: the reference's gradient there is 0
 # in its fp32 program (XLA rewrites jax's (g / count) * indicator into a
 # select) and NaN under bf16 AMP (it does not); the port gives 0, and the
 # elements the reference gives NaN are not compared
-NAN_OR_ZERO_GRAD = {'reduce_max', 'reduce_min'}
+NAN_OR_ZERO_GRAD = {'reduce_max', 'reduce_min', 'maxout'}
 
 
 def tolerance(op_type):
@@ -410,7 +417,106 @@ LAYERS = [(n, unary(n), 'x', n in ('sqrt', 'rsqrt', 'log', 'reciprocal'))
      'x', False),
 ]
 
-CASES = {c[0]: c for c in NEW_OPS + LAYERS}
+
+
+def _nchw(v, shape):
+    return lambda L: L.reshape(v, shape)
+
+
+# the op types of the tensor, nn and misc op modules the port adds next,
+# through their layers where the reference has one; inputs as above and
+# 'x_index' (int64 [5, 1] ids with a repeat), 'scatter' (x, three ids with
+# a repeat, two update rows), 'x_ids' (int32 [4, 1] ids of {0, 1}),
+# 'x_01' (a 0/1 float label of x's shape), 'p_01' (x in [0, 1] beside
+# it: in [0.1, 0.9) at random, |x| / 3 clipped), 'image' (NCHW: [2, 3, 9, 7] at
+# random, x as [1, 2, 4, 4] on the edge and subnormal feeds)
+MODULE_OPS = [
+    ('assign', unary('assign'), 'x', False),
+    ('squeeze', lambda L, v: [
+        L.squeeze(L.unsqueeze(v['x'], [0, 2]), [0, 2]),
+        L.squeeze(L.unsqueeze(v['x'], [1]), [])], 'x', False),
+    ('gather', lambda L, v: L.gather(v['x'], v['index']), 'x_index', False),
+    ('scatter', lambda L, v: L.scatter(v['x'], v['index'], v['updates']),
+     'scatter', False),
+    ('shape', lambda L, v: [L.shape(v['x']),
+                            L.shape(L.unsqueeze(v['x'], [0]))], 'x', False),
+    ('pad', lambda L, v: [L.pad(v['x'], [1, 2, 0, 3], pad_value=0.5),
+                          L.pad(v['x'], [0, 0, 2, 0])], 'x', False),
+    ('reverse', lambda L, v: [L.reverse(v['x'], 1),
+                              L.reverse(v['x'], [0, 1])], 'x', False),
+    ('multiplex', lambda L, v: L.multiplex([v['x'], v['y']], v['ids']),
+     'x_ids', False),
+    ('smooth_l1_loss', lambda L, v: [
+        L.smooth_l1(v['x'], v['y']),
+        L.smooth_l1(v['x'], v['y'], sigma=2.0, last_dim_only=True),
+        L.smooth_l1(v['x'], v['y'], inside_weight=v['w'],
+                    outside_weight=v['w'], sigma=0.5)], 'xyw', False),
+    ('auc', lambda L, v: L.auc(v['x'], v['label']), 'x_01', False),
+    ('l2_normalize', lambda L, v: [L.l2_normalize(v['x'], axis=1),
+                                   L.l2_normalize(v['x'], axis=0,
+                                                  epsilon=1e-3)], 'x',
+     False),
+    ('maxout', lambda L, v: L.maxout(L.reshape(v['x'], [2, 4, 2, 2]), 2),
+     'x', False),
+    ('im2sequence', lambda L, v: [
+        L.im2sequence(L.reshape(v['x'], [2, 1, 4, 4]), filter_size=[2, 3],
+                      stride=[1, 2], padding=[1, 0, 0, 1]),
+        L.im2sequence(L.reshape(v['x'], [1, 2, 4, 4]), filter_size=2,
+                      stride=2)], 'x', False),
+    ('label_smooth', lambda L, v: [
+        L.label_smooth(v['x'], epsilon=0.2),
+        L.label_smooth(v['x'], prior_dist=v['y'], epsilon=0.1)], 'x_row',
+     False),
+    ('huber_loss', lambda L, v: [L.huber_loss(v['x'], v['y']),
+                                 L.huber_loss(v['x'], v['y'], delta=0.5)],
+     'xy', False),
+    ('rank_loss', lambda L, v: L.rank_loss(v['label'], v['x'], v['y']),
+     'xy_01', False),
+    ('margin_rank_loss', lambda L, v: [
+        L.margin_rank_loss(v['label'], v['x'], v['y'], margin=0.5),
+        L.margin_rank_loss(v['label'], v['x'], v['y'], margin=0.0)],
+     'xy_01', False),
+    ('hinge_loss', lambda L, v: L.hinge_loss(v['x'], v['label']), 'x_01',
+     False),
+    ('log_loss', lambda L, v: L.log_loss(v['x'], v['label']), 'p_01',
+     False),
+    ('bilinear_tensor_product', lambda L, v: L.bilinear_tensor_product(
+        v['x'], v['y'], 3), 'xy', False),
+    ('pixel_shuffle', lambda L, v: L.pixel_shuffle(
+        L.reshape(v['x'], [2, 4, 2, 2]), 2), 'x', False),
+    ('modified_huber_loss', lambda L, v: L.modified_huber_loss(
+        v['x'], v['label']), 'x_01', False),
+    ('argmin', lambda L, v: [L.argmin(v['x'], axis=1),
+                             L.argmin(v['x'], axis=0)], 'x', False),
+    ('argsort', lambda L, v: list(L.argsort(v['x'], axis=1)) +
+     list(L.argsort(v['x'], axis=0)), 'x', False),
+    ('bilinear_interp', lambda L, v: [
+        L.resize_bilinear(v['x'], s) for s in ((11, 9), (5, 3), (3, 2),
+                                               (4, 12))], 'image', False),
+    ('nearest_interp', lambda L, v: [
+        L.resize_nearest(v['x'], s) for s in ((11, 9), (5, 3), (3, 2),
+                                              (4, 12))], 'image', False),
+    ('isfinite', lambda L, v: [L.isfinite(v['x']),
+                               L.isfinite(L.reshape(v['x'], [2, 16]))], 'x',
+     False),
+    ('lod_reset', lambda L, v: _op(L, 'lod_reset', {'X': v['x']}), 'x',
+     False),
+    ('where', lambda L, v: L.where(v['x'], v['x'], v['y']), 'xy', False),
+    ('linspace', lambda L, v: [
+        L.elementwise_add(v['x'], L.linspace(-3.5, 2.25, 8)),
+        L.linspace(0.0, 1.0, 100), L.linspace(2, 9, 5, 'int32'),
+        L.linspace(1.5, 1.5, 1)], 'x', False),
+    ('range', lambda L, v: [
+        L.elementwise_add(v['x'], L.range(-1.5, 2.5, 0.5, 'float32')),
+        L.range(0, 10, 3, 'int64'), L.range(0.1, 1.0, 0.1, 'float32')],
+     'x', False),
+    ('weight_norm', lambda L, v: [
+        L.elementwise_mul(v['x'], L.create_parameter(
+            [4, 8], 'float32', attr=fluid.WeightNormParamAttr(dim=d)))
+        for d in (0, 1, None)], 'x', False),
+]
+
+CASES = {c[0]: c for c in NEW_OPS + LAYERS + MODULE_OPS}
 
 
 def _softmax(x):
@@ -431,6 +537,17 @@ def _sums_distance(f):
     d = np.abs(f['x'] - f['y'])
     return [(d * d).sum(1, keepdims=True), None], \
         {'x': 2 * d, 'y': 2 * d.sum(0, keepdims=True)}
+
+
+# the bilinear product's weight is Xavier-uniform, |W| < 0.27 ([3, 8, 8]:
+# sqrt(6 / (64 + 24)))
+def _sums_bilinear(f):
+    a, b = np.abs(f['x']), np.abs(f['y'])
+    with np.errstate(invalid='ignore', over='ignore'):
+        return [np.broadcast_to(0.27 * (a.sum(1) * b.sum(1))[:, None],
+                                (4, 3))], \
+            {'x': np.broadcast_to(0.27 * 3 * b.sum(1, keepdims=True), a.shape),
+             'y': np.broadcast_to(0.27 * 3 * a.sum(1, keepdims=True), b.shape)}
 
 
 # the cases that sum an element from terms: how many, and the magnitudes
@@ -459,20 +576,45 @@ SUMS = {
                                                 f['y'].shape)})),
     'softmax': (8, lambda f: ([np.abs(_softmax(f['x']))],
                               {'x': np.abs(_softmax(f['x']))})),
+    'bilinear_tensor_product': (64, _sums_bilinear),
 }
 
 
 def case_feed(inputs, kind, positive):
     x, y = feed_for(kind, positive)
+    ids = np.random.RandomState(5 if kind == 'random' else 6)
+    label01 = (ids.rand(*x.shape) > 0.5).astype(np.float32)
     if inputs == 'x':
         return {'x': x}
     if inputs == 'xy':
         return {'x': x, 'y': y}
+    if inputs == 'xyw':
+        return {'x': x, 'y': y, 'w': np.abs(_random(7))}
     if inputs == 'x_row':
         return {'x': x, 'y': y[1:2]}
     if inputs == 'x_label':
         return {'x': x, 'label': np.clip(np.nan_to_num(np.abs(y)), 0, 1)
                 .astype(np.float32)}
+    if inputs == 'x_01':
+        return {'x': x, 'label': label01}
+    if inputs == 'p_01':
+        p = _random(9, shape=x.shape) * 0.2 + 0.5 if kind == 'random' \
+            else np.clip(np.abs(x) / 3.0, 0.0, 1.0)
+        return {'x': p.astype(np.float32), 'label': label01}
+    if inputs == 'xy_01':
+        return {'x': x, 'y': y, 'label': label01}
+    if inputs == 'x_index':
+        return {'x': x, 'index': np.array([[3], [0], [3], [1], [2]],
+                                          np.int64)}
+    if inputs == 'scatter':
+        return {'x': x, 'index': np.array([[1], [3], [1]], np.int64),
+                'updates': y[:3]}
+    if inputs == 'x_ids':
+        return {'x': x, 'y': y, 'ids': np.array([[1], [0], [1], [1]],
+                                                np.int32)}
+    if inputs == 'image':
+        return {'x': _random(8, shape=(2, 3, 9, 7)) if kind == 'random'
+                else x.reshape(1, 2, 4, 4)}
     rng = np.random.RandomState(3 if kind == 'random' else 4)
     return {'a': rng.rand(4, 8) > 0.5, 'b': rng.rand(4, 8) > 0.5}
 
@@ -667,3 +809,157 @@ def test_an_extreme_element_widens_no_other_bound():
     assert parity_difference(got, want, where=ordinary(x.shape, x)) == \
         pytest.approx(1e-3)
     assert parity_difference(got, want) is None
+
+
+# ----------------------------------- the random op module's new op types
+def _no_input_op(L, op_type, attrs, dtype='float32'):
+    helper = JHelper(op_type)
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(type=op_type, inputs={}, outputs={'Out': [out]},
+                     attrs=attrs)
+    return [out]
+
+
+RANDOM_OPS = {
+    'truncated_gaussian_random': lambda L, v: _no_input_op(
+        L, 'truncated_gaussian_random',
+        {'shape': [256, 64], 'mean': 1.0, 'std': 2.0}),
+    'randint': lambda L, v: _no_input_op(
+        L, 'randint', {'shape': [256, 64], 'low': -3, 'high': 7}, 'int64'),
+    'shuffle_batch': lambda L, v: _op(L, 'shuffle_batch', {'X': v['x']},
+                                      out_slots=('Out',)),
+}
+
+
+@pytest.mark.parametrize('op', sorted(RANDOM_OPS))
+def test_random_op(op):
+    """truncated_gaussian_random, randint and shuffle_batch: the
+    reference's shape, their range and moments (16,384 draws; the
+    truncated normal's std is 0.8796 of its std), the same draws from a
+    second executor of the program seed at the same step and new ones at
+    the next step."""
+    x = np.repeat(np.arange(256, dtype=np.float32)[:, None], 3, axis=1)
+    ref, ((a0, a1), (b0, b1)) = _random_runs(RANDOM_OPS[op], {'x': x},
+                                             seed=17)
+    assert a0.shape == ref.shape
+    assert np.array_equal(a0, b0) and np.array_equal(a1, b1)
+    assert not np.array_equal(a0, a1)
+    if op == 'truncated_gaussian_random':
+        assert a0.dtype == ref.dtype == np.float32
+        for v in (a0, ref):
+            assert v.min() >= -3.0 and v.max() <= 5.0
+        assert abs(a0.mean() - 1.0) < 4 * 1.76 / np.sqrt(a0.size)
+        assert abs(a0.std() - 2.0 * 0.8796) < 0.05
+    elif op == 'randint':
+        assert a0.dtype == np.int64
+        assert a0.min() == ref.min() == -3 and a0.max() == ref.max() == 6
+        assert set(np.unique(a0)) == set(range(-3, 7))
+        assert abs(a0.mean() - 1.5) < 4 * np.sqrt(8.25 / a0.size)
+    else:
+        assert a0.dtype == ref.dtype == np.float32
+        for v in (a0, ref):
+            np.testing.assert_array_equal(np.sort(v[:, 0]), x[:, 0])
+            assert (v == v[:, :1]).all()
+
+
+def test_shuffle_batch_index_and_gradient():
+    """Out is X[ShuffleIdx], ShuffleIdx an int64 permutation, and X's
+    gradient through the gather is the upstream gradient sent back to
+    each row's place."""
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed = 3
+    with pt.program_guard(main, startup):
+        L = pt.layers
+        x = L.elementwise_add(
+            L.data(name='x', shape=[64, 3], dtype='float32',
+                   append_batch_size=False),
+            L.create_parameter([64, 3], 'float32', name='x_probe',
+                               default_initializer=pt.initializer.Constant(
+                                   -0.0)))
+        c = L.data(name='c', shape=[64, 3], dtype='float32',
+                   append_batch_size=False)
+        from paddle_tpu_torch.layers.helper import LayerHelper
+        helper = LayerHelper('shuffle_batch')
+        out = helper.create_variable_for_type_inference('float32')
+        idx = helper.create_variable_for_type_inference('int64')
+        helper.append_op(type='shuffle_batch', inputs={'X': [x]},
+                         outputs={'Out': [out], 'ShuffleIdx': [idx]})
+        loss = L.reduce_sum(L.elementwise_mul(out, c))
+        pt.backward.append_backward(loss)
+    rng = np.random.RandomState(0)
+    xv, cv = rng.randn(64, 3).astype('f'), rng.randn(64, 3).astype('f')
+    exe = pt.Executor(pt.CPUPlace())
+    with pt.scope_guard(pt.Scope()):
+        exe.run(startup)
+        o, i, g = exe.run(main, feed={'x': xv, 'c': cv},
+                          fetch_list=[out, idx, 'x_probe@GRAD'])
+    assert i.dtype == np.int64
+    np.testing.assert_array_equal(np.sort(i), np.arange(64))
+    np.testing.assert_array_equal(o, xv[i])
+    want = np.zeros_like(cv)
+    want[i] = cv
+    np.testing.assert_array_equal(g, want)
+
+
+def test_nce_closed_form():
+    """nce's Cost equals -log sigmoid(s_pos) - sum log sigmoid(-s_neg)
+    computed in numpy from the port's weights and the negatives it drew
+    (the op's generator: program seed, op index and step), and the
+    reference's program builds the same op."""
+    from paddle_tpu_torch.core.registry import _mix
+    feed = {'x': _random(11, shape=(6, 5)),
+            'label': np.array([[0], [3], [7], [3], [9], [1]], np.int64)}
+
+    def build(L, v):
+        return L.nce(v['x'], v['label'], num_total_classes=10,
+                     num_neg_samples=4)
+    main, startup, outs, _ = build_reference(build, feed, None,
+                                             backward=False)
+    main.random_seed = 5
+    pmain = program_from_dict(json.loads(json.dumps(jax_to_dict(main))))
+    pstart = program_from_dict(json.loads(json.dumps(jax_to_dict(startup))))
+    scope, exe = pt.Scope(), pt.Executor(pt.CPUPlace())
+    with pt.scope_guard(scope):
+        exe.run(pstart)
+        runs = [exe.run(pmain, feed=feed, fetch_list=[outs[0].name])[0]
+                for _ in range(2)]
+    ops = pmain.global_block().ops
+    k = next(i for i, op in enumerate(ops) if op.type == 'nce')
+    w_name, b_name = ops[k].input('Weight'), ops[k].input('Bias')
+    w = scope.find(w_name).numpy().astype(np.float64)
+    b = scope.find(b_name).numpy().astype(np.float64).reshape(-1)
+    x = scope.find('x_probe').numpy() + feed['x']
+    lbl = feed['label'][:, 0]
+    for step, got in enumerate(runs, start=1):
+        g = torch.Generator().manual_seed(_mix(5, k, step))
+        neg = torch.randint(0, 10, (4,), generator=g).numpy()
+        s_pos = (x * w[lbl]).sum(1) + b[lbl]
+        s_neg = x @ w[neg].T + b[neg]
+        want = np.log1p(np.exp(-s_pos)) + np.log1p(np.exp(s_neg)).sum(1)
+        assert got.shape == (6, 1)
+        np.testing.assert_allclose(got[:, 0], want, rtol=1e-5)
+    assert not np.array_equal(runs[0], runs[1])
+
+
+def test_print_writes_and_passes(capsys):
+    """Print writes its message and the value at every run, as
+    jax.debug.print does inside the reference's program, and Out is In
+    bit for bit."""
+    x = _random(12)
+
+    def build(L, v):
+        return L.Print(v['x'], message='the value: ')
+    main, startup, outs, _ = build_reference(build, {'x': x}, None,
+                                             backward=False)
+    pmain = program_from_dict(json.loads(json.dumps(jax_to_dict(main))))
+    pstart = program_from_dict(json.loads(json.dumps(jax_to_dict(startup))))
+    exe = pt.Executor(pt.CPUPlace())
+    with pt.scope_guard(pt.Scope()):
+        exe.run(pstart)
+        capsys.readouterr()
+        got = [exe.run(pmain, feed={'x': x}, fetch_list=[outs[0].name])[0]
+               for _ in range(2)]
+    written = capsys.readouterr().out
+    assert written.count('the value: ' + '{}'.format(x)) == 2
+    for g in got:
+        np.testing.assert_array_equal(g, x)

@@ -514,7 +514,235 @@ def _op_types(pkg):
 
 
 def test_coverage_count():
-    """132 of the reference's 241 op types have a lowering in the port,
+    """170 of the reference's 241 op types have a lowering in the port,
     every one of them a reference op type."""
     ref, got = _op_types(fluid), _op_types(pt)
-    assert len(ref) == 241 and len(got) == 132 and got <= ref
+    assert len(ref) == 241 and len(got) == 170 and got <= ref
+
+
+# ------------------------- the op modules' layers, weight norm, initializers
+MODULE_LAYERS = {
+    'tensor': ['assign', 'argmin', 'argsort', 'reverse', 'linspace'],
+    'manip': ['gather', 'scatter', 'squeeze', 'where', 'shape', 'range',
+              'isfinite', 'pixel_shuffle'],
+    'nn': ['auc', 'l2_normalize', 'smooth_l1', 'im2sequence', 'multiplex',
+           'label_smooth', 'pad', 'maxout', 'bilinear_tensor_product', 'nce',
+           'huber_loss', 'rank_loss', 'margin_rank_loss', 'hinge_loss',
+           'log_loss', 'resize_bilinear', 'resize_nearest',
+           'modified_huber_loss'],
+    'control_flow': ['Print'],
+}
+
+
+@pytest.mark.parametrize('module', sorted(MODULE_LAYERS))
+def test_module_layers_have_the_reference_signatures(module):
+    """The 32 layers over the tensor, nn, random and misc op modules' op
+    types take the reference's arguments, ignored ones included (auc's
+    curve, num_thresholds and topk, Print's first_n, summarize, ...), and
+    are reachable as layers.<name>."""
+    jmod = importlib.import_module('paddle_tpu.layers.' + module)
+    pmod = importlib.import_module('paddle_tpu_torch.layers.' + module)
+    for name in MODULE_LAYERS[module]:
+        assert _signature(getattr(pmod, name)) == \
+            _signature(getattr(jmod, name)), name
+        assert getattr(pt.layers, name) is getattr(pmod, name), name
+        assert name in pmod.__all__, name
+
+
+def _build_module_layers(pkg, h):
+    """Every one of the 32 layers once or more, over data of the shapes
+    and dtypes it takes."""
+    L = pkg.layers
+    x, y = _x(pkg), _x(pkg, name='y')
+    img = _x(pkg, (2, 4, 4, 4), name='img')
+    ids = _x(pkg, (3, 1), name='ids', dtype='int64')
+    lbl = _x(pkg, (4, 1), name='lbl', dtype='int64')
+    L.assign(x)
+    L.assign(np.arange(6, dtype='float32').reshape(2, 3))
+    L.argmin(x, axis=0)
+    L.argsort(x)
+    L.reverse(x, 1)
+    L.reverse(x, [0, 1])
+    L.linspace(0, 1, 5)
+    L.linspace(2, 9, 4, dtype='int32')
+    L.gather(x, ids)
+    L.scatter(x, ids, L.gather(y, ids))
+    L.squeeze(L.unsqueeze(x, [1]), [1])
+    L.squeeze(L.unsqueeze(x, [0]), [])
+    L.where(x, x, y)
+    L.shape(x)
+    L.range(0, 10, 3)
+    L.range(0.5, 2.0, 0.25, dtype='float32')
+    L.isfinite(x)
+    L.pixel_shuffle(img, 2)
+    L.auc(x, lbl, curve='PR', num_thresholds=10, topk=2)
+    L.l2_normalize(x, axis=1, epsilon=1e-6)
+    L.smooth_l1(x, y, inside_weight=y, outside_weight=y, sigma=2.0)
+    L.smooth_l1(x, y, last_dim_only=True)
+    L.im2sequence(img, filter_size=[2, 3], stride=[1, 2],
+                  padding=[1, 0, 0, 1])
+    L.im2sequence(img, filter_size=2, stride=2, padding=1)
+    L.multiplex([x, y], _x(pkg, (4, 1), name='mid', dtype='int32'))
+    L.label_smooth(x, epsilon=0.2)
+    L.label_smooth(x, prior_dist=_x(pkg, (1, 8), name='prior'))
+    L.pad(x, [1, 0, 2, 3], pad_value=0.5)
+    L.maxout(img, 2)
+    L.bilinear_tensor_product(x, y, 3, act='tanh')
+    L.bilinear_tensor_product(x, y, 2, bias_attr=False,
+                              param_attr=pkg.ParamAttr(name='btp_w'))
+    L.nce(x, lbl, num_total_classes=20, num_neg_samples=5)
+    L.nce(x, lbl, 7)
+    L.huber_loss(x, y, delta=0.5)
+    L.rank_loss(y, x, y)
+    L.margin_rank_loss(y, x, y, margin=0.2)
+    L.hinge_loss(x, y)
+    L.log_loss(x, y, epsilon=1e-3)
+    L.resize_bilinear(img, [7, 5])
+    L.resize_nearest(img, [3, 2])
+    L.modified_huber_loss(x, y)
+    L.Print(x, first_n=3, message='x is', summarize=2)
+    L.Print(y)
+
+
+def test_module_layers_build_the_reference_program():
+    """The same ops, slots, attributes, vars, shapes, parameters and
+    initializers as the reference, for every one of the 32 layers."""
+    _same_program(_build_module_layers)
+
+
+def _wn_build(pkg, h, dim):
+    x = _x(pkg, (4, 6))
+    return pkg.layers.fc(x, size=3, param_attr=pkg.WeightNormParamAttr(
+        dim=dim, name='wn_fc', initializer=pkg.initializer.Normal(0.0, 0.5)))
+
+
+@pytest.mark.parametrize('dim', [None, 0, 1, -1])
+def test_weight_norm_param_attr_builds_the_reference_program(dim):
+    """fc with a WeightNormParamAttr: the parameters <name>.wn_v and
+    <name>.wn_g, the startup weight_norm_g_init op and the weight_norm op,
+    as the reference builds them."""
+    _same_program(lambda pkg, h: _wn_build(pkg, h, dim))
+    pt.reset_default_programs()
+    _wn_build(pt, PHelper, dim)
+    names = {p.name for p in pt.default_main_program().all_parameters()}
+    assert {'wn_fc.wn_v', 'wn_fc.wn_g'} <= names and 'wn_fc' not in names
+
+
+@pytest.mark.parametrize('dim', [2, -3])
+def test_weight_norm_dim_out_of_range_raises(dim):
+    for pkg in (fluid, pt):
+        pkg.reset_default_programs()
+        with pytest.raises(ValueError, match='out of range'):
+            _wn_build(pkg, None, dim)
+
+
+def _wn_train(pkg, dim, scope_from=None):
+    """3 SGD steps of a weight-normalized fc (startup run, or the given
+    scope's v and g copied in); returns (g after startup, v after startup,
+    losses, final v and g)."""
+    pkg.reset_default_programs()
+    main, startup = pkg.Program(), pkg.Program()
+    with pkg.program_guard(main, startup):
+        x = _x(pkg, (4, 6))
+        y = _x(pkg, (4, 3), name='y')
+        pred = pkg.layers.fc(x, size=3, bias_attr=False,
+                             param_attr=pkg.WeightNormParamAttr(
+                                 dim=dim, name='wn_fc'))
+        loss = pkg.layers.mean(pkg.layers.square_error_cost(pred, y))
+        pkg.optimizer.SGD(learning_rate=0.5).minimize(loss)
+    scope, exe = pkg.Scope(), pkg.Executor(pkg.CPUPlace())
+    rng = np.random.RandomState(2)
+    feed = {'x': rng.randn(4, 6).astype('f'), 'y': rng.randn(4, 3)
+            .astype('f')}
+
+    def read(n):
+        v = scope.find(n)
+        return np.array(np.asarray(v) if pkg is fluid else v.numpy())
+    with pkg.scope_guard(scope):
+        exe.run(startup)
+        g0, v0 = read('wn_fc.wn_g'), read('wn_fc.wn_v')
+        if scope_from is not None:
+            for n, val in scope_from.items():
+                scope.set(n, torch.from_numpy(val.copy()))
+        losses = [float(np.asarray(exe.run(main, feed=feed,
+                                           fetch_list=[loss])[0])
+                        .reshape(())) for _ in range(3)]
+        return g0, v0, losses, read('wn_fc.wn_v'), read('wn_fc.wn_g')
+
+
+@pytest.mark.parametrize('dim', [None, 0, 1])
+def test_weight_norm_trains_as_the_reference(dim):
+    """g starts at ||v|| (over every axis but dim) in both packages, and 3
+    SGD steps from the reference's v and g give its losses, v and g within
+    1e-5."""
+    jg0, jv0, jl, jv, jg = _wn_train(fluid, dim)
+    pg0, pv0, _, _, _ = _wn_train(pt, dim)
+    for g0, v0 in ((jg0, jv0), (pg0, pv0)):
+        axes = tuple(i for i in range(2) if i != dim) if dim is not None \
+            else (0, 1)
+        want = np.sqrt(np.sum(np.square(v0.astype(np.float64)), axis=axes)
+                       + 1e-12).reshape(-1)
+        np.testing.assert_allclose(g0, want, rtol=1e-6)
+    _, _, pl, pv, pg = _wn_train(pt, dim, {'wn_fc.wn_v': jv0,
+                                           'wn_fc.wn_g': jg0})
+    np.testing.assert_allclose(pl, jl, rtol=1e-5)
+    np.testing.assert_allclose(pv, jv, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(pg, jg, rtol=1e-5, atol=1e-6)
+
+
+INITIALIZERS = {
+    'truncated_normal': lambda m: m.TruncatedNormal(0.5, 0.2, seed=3),
+    'msra_uniform': lambda m: m.MSRA(),
+    'msra_normal': lambda m: m.MSRAInitializer(uniform=False, fan_in=20),
+    'bilinear': lambda m: m.Bilinear(),
+}
+
+
+@pytest.mark.parametrize('name', sorted(INITIALIZERS))
+def test_initializers_build_the_reference_startup(name):
+    """TruncatedNormal, MSRA (both laws) and Bilinear append the
+    reference's startup op with its attributes, and the names and aliases
+    are the reference's."""
+    def build(pkg, h):
+        pkg.layers.create_parameter(
+            [4, 4, 3, 3], 'float32', name='w',
+            default_initializer=INITIALIZERS[name](pkg.initializer))
+    _same_program(build)
+
+
+def test_initializer_values_and_helpers():
+    """Bilinear's filter equals the reference's startup value exactly;
+    TruncatedNormal's draws stay within 2 std; MSRA's uniform limit is
+    sqrt(6 / fan_in); force_init_on_cpu and init_on_cpu are the
+    reference's no-ops."""
+    got = {}
+    for pkg in (fluid, pt):
+        pkg.reset_default_programs()
+        main, startup = pkg.Program(), pkg.Program()
+        with pkg.program_guard(main, startup):
+            for name, make in INITIALIZERS.items():
+                shape = [64, 64, 3, 3] if name != 'bilinear' else [3, 3, 4, 4]
+                pkg.layers.create_parameter(
+                    shape, 'float32', name=name,
+                    default_initializer=make(pkg.initializer))
+        scope = pkg.Scope()
+        with pkg.scope_guard(scope):
+            pkg.Executor(pkg.CPUPlace()).run(startup)
+        got[pkg] = {n: np.asarray(scope.find(n)) if pkg is fluid else
+                    scope.numpy(n) for n in INITIALIZERS}
+        assert pkg.initializer.force_init_on_cpu() is False
+        with pkg.initializer.init_on_cpu():
+            pass
+    ref, mine = got[fluid], got[pt]
+    np.testing.assert_array_equal(mine['bilinear'], ref['bilinear'])
+    t = mine['truncated_normal']
+    assert t.min() >= 0.5 - 0.4 and t.max() <= 0.5 + 0.4
+    assert abs(t.mean() - 0.5) < 4 * 0.2 / np.sqrt(t.size)
+    lim = np.sqrt(6.0 / (64 * 9))
+    assert np.abs(mine['msra_uniform']).max() <= lim
+    assert abs(mine['msra_normal'].std() - np.sqrt(2.0 / 20)) < 0.01
+    for alias, cls in (('TruncatedNormal', 'TruncatedNormalInitializer'),
+                       ('MSRA', 'MSRAInitializer'),
+                       ('Bilinear', 'BilinearInitializer')):
+        assert getattr(pt.initializer, alias) is \
+            getattr(pt.initializer, cls)

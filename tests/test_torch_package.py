@@ -79,6 +79,42 @@ def _forbidden_imports(module):
                                                     'paddle_tpu')]
 
 
+# the staging ring's slice: the native ring's loader, the staging feeder,
+# the readers, the Trainer, the op modules it completes and the front end
+STAGING_SLICE_MODULES = ['native', 'reader', 'reader.staging',
+                         'reader.decorator', 'trainer', 'ops.tensor_ops',
+                         'ops.nn_ops', 'ops.random_ops', 'ops.misc_ops',
+                         'param_attr', 'initializer', 'layers.helper',
+                         'layers.tensor', 'layers.manip',
+                         'layers.control_flow']
+
+
+@pytest.mark.parametrize('module', STAGING_SLICE_MODULES)
+def test_staging_slice_modules_import_no_jax_and_no_reference(module):
+    bad = _forbidden_imports(module)
+    assert not bad, bad
+
+
+def test_the_port_keeps_its_own_staging_ring():
+    """native/staging.cpp is the port's own file (the reference's ring,
+    its C ABI unchanged), and importing the port builds nothing."""
+    with open(os.path.join(REPO, 'paddle_tpu_torch', 'native',
+                           'staging.cpp')) as f:
+        mine = f.read()
+    with open(os.path.join(REPO, 'paddle_tpu', 'native',
+                           'staging.cpp')) as f:
+        ref = f.read()
+    body = mine[mine.index('#include <cstdint>'):]
+    assert body == ref[ref.index('#include <cstdint>'):]
+    code = ('import os, paddle_tpu_torch, paddle_tpu_torch.native as n, '
+            'paddle_tpu_torch.reader.staging; '
+            'print(n._STAGING is None)')
+    r = subprocess.run([sys.executable, '-c', code], cwd=REPO,
+                       env=dict(os.environ, PYTHONPATH=REPO),
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0 and r.stdout.strip() == 'True', r.stderr
+
+
 @pytest.mark.parametrize('module', SLICE_MODULES)
 def test_slice_modules_import_no_jax_and_no_reference(module):
     bad = _forbidden_imports(module)

@@ -528,8 +528,17 @@ def test_shuffle_and_retry_keep_the_items():
     flaky = inject.flaky(_items(), fail_times=2, fail_after=3)
     assert list(preader.retry(flaky, tries=3, backoff=0)()) == \
         list(range(10))
-    with pytest.raises(NotImplementedError, match='Queue 1 item 2'):
-        preader.prefetch_to_device(_items())
+    # prefetch_to_device on the host: the reference's batches, in order
+    def feeds():
+        for i in range(5):
+            yield {'x': np.full((2, 3), i, 'float32'), 'i': np.int64(i)}
+    want = list(jreader.prefetch_to_device(feeds, place=fluid.CPUPlace())())
+    got = list(preader.prefetch_to_device(feeds, place=pt.CPUPlace())())
+    assert len(got) == len(want) == 5
+    for g, w in zip(got, want):
+        assert sorted(g) == sorted(w)
+        for k in w:
+            np.testing.assert_array_equal(g[k].numpy(), np.asarray(w[k]))
 
 
 def test_data_feeder_matches_reference():
