@@ -3,11 +3,12 @@
 ResNet-50 training, NMT inference, the training lifecycle (Trainer,
 checkpoints and resume, inference-model export), disaggregated decode
 serving (the KV page handoff, PhaseRouter), Wide&Deep CTR training
-with row-sparse embedding gradients and the public layers (an encoder
-layer built from them, every new and repaired op) on one CUDA card.
+with row-sparse embedding gradients, the public layers (an encoder
+layer built from them, every new and repaired op), the staging ring and
+the Switch-MoE LM, remat and gradient accumulation on one CUDA card.
 
     python3 chip_smoke.py                  # on a machine with one H100
-    python3 chip_smoke.py --cpu-rehearsal  # phases 4-17 on the host, tiny
+    python3 chip_smoke.py --cpu-rehearsal  # phases 4-18 on the host, tiny
 
 Every path runs through the executor's CUDA graphs (one a key, captured on
 its second call; core/executor.py), and phase 11 holds each against the
@@ -302,13 +303,38 @@ Phases (any fault exits non-zero; no phase is skipped over):
    torch.profiler) device busy ms a step, no host copy for the windows
    on the card.
 
+18. The rest of the training path. (a) bench.py's bench_moe (vocab
+   32000, batch 32 x seq 64, 4 layers, 8 heads, d_model 512, d_inner
+   2048, 8 experts, capacity factor 1.25, top-1, dropout 0.1, Adam(1e-4),
+   bf16 AMP) through models/moe.py, scan_layers (moe_layer_stack) and
+   unrolled, captured, 3 warm-up and 20 timed steps: ms a step, tokens/s,
+   MFU, the share of tokens over capacity a layer (one more eager step
+   with the slots read), peak memory, and K1 / K2 / K3 / dropout launches
+   checked exactly against the count worked out from the program; at that
+   width 3 captured steps against 3 eager ones and a second captured run
+   from the same state, bit for bit; at a small width (2 layers, d_model
+   64, 4 experts, top-1 and top-2, unrolled and scan) the card against
+   the host over 3 Adam steps (losses rtol 1e-4 fp32, 2e-2 bf16), and
+   scan against unrolled through stack_moe_trained_weights (1e-5). (b)
+   memory_optimize level 0 and level 1 against no remat on phase 6's
+   Transformer-base (unrolled and scan_layers), (a)'s LM (scan) and phase
+   9's ResNet-50 (its batch norms move running statistics in the
+   forward): ms a step, the step's peak memory (level 1's below no
+   remat's), the losses of 3 steps and every trainable parameter and
+   running statistic after them bit for bit, one CUDA graph. (c)
+   GradientAccumulator(Adam(1e-4), 4) on Transformer-base, fp32 at
+   micro-batch 16: the gated steps bit for bit, the mean gradient equal
+   to the micro-batches' summed in its order, the parameters after 8
+   micro steps against 2 Adam steps at batch 64 beside a permuted-batch
+   control, captured == eager and run_steps(4) == 4 runs bit for bit.
+
 The last line is {"ok": true, "device": {...}}; before it come one JSON
 line with every kernel's numbers (and phase 13's under "lifecycle":
 tokens/s a depth, launches a step, checkpoint bytes, save, restore and
 export seconds; phase 14's under "disagg"; phase 15's under "ctr";
-phase 16's under "layers"; phase 17's under "staging") and nvidia-smi's
-name and power limit.
---cpu-rehearsal runs phases 4-17 at tiny sizes with the plain versions
+phase 16's under "layers"; phase 17's under "staging"; phase 18's under
+"moe") and nvidia-smi's name and power limit.
+--cpu-rehearsal runs phases 4-18 at tiny sizes with the plain versions
 (phases 8, 10, 11, 13d and 15 then compare the host with itself) and
 never prints that last line. --profile adds, after every other phase, a torch.profiler
 breakdown of decode steps (fp32 and int8 arenas, captured and eager),
@@ -6097,17 +6123,608 @@ def phase_module_ops(torch, pt, place, card, on_card, n=4096, d=512):
                 largest_card_host_difference=worst)
 
 
+# ------------------------------------------------------------- phase 18
+# bench_moe's Switch-MoE LM (bench.py:308-333)
+MOE_DIMS = dict(n_layer=4, n_head=8, d_model=512, d_inner=2048,
+                num_experts=8, capacity_factor=1.25, top_k=1)
+MOE_SMALL = dict(n_layer=2, n_head=4, d_model=64, d_inner=128,
+                 num_experts=4, capacity_factor=1.25)
+
+
+def _build_moe(pt, vocab, seq, dropout, amp, lr=1e-4, scan=False, **dims):
+    """bench_moe's graph through the port's user API, on the default
+    programs: switch_transformer_lm + Adam(lr).minimize, amp set on the
+    main program."""
+    from paddle_tpu_torch.models import moe
+    pt.reset_default_programs()
+    avg_cost, _ = moe.switch_transformer_lm(
+        vocab_size=vocab, seq_len=seq, dropout_rate=dropout,
+        max_length=max(512, seq), scan_layers=scan, **dims)
+    pt.optimizer.Adam(learning_rate=lr).minimize(avg_cost)
+    pt.default_main_program().amp = amp
+    return avg_cost
+
+
+def moe_feed(batch, seq, vocab, seed=0):
+    """bench_moe's feed: random words in [1, vocab), labels the next
+    word."""
+    rng = np.random.RandomState(seed)
+    words = rng.randint(1, vocab, (batch, seq)).astype('int64')
+    return {'word': words, 'label': np.roll(words, -1, axis=1)}
+
+
+def moe_want(layers, steps):
+    """K1/K2/K3/dropout launches in ``steps`` MoE LM training steps at
+    dropout > 0: a layer's causal attention (one forward and one of each
+    backward kernel, on their tensor-core variants), its 2 layer norms and
+    their backward (2 kernels each) and one fused dropout forward and
+    backward (the attention output's), no keep mask."""
+    n = layers * steps
+    want = {}
+    for name in VARIANTS:
+        want.update({name: n, name + '_mma': n, name + '_simt': 0})
+    want.update(layer_norm=2 * n, layer_norm_bwd=4 * n, dropout=n,
+                dropout_bwd=n, keep_mask=0)
+    return want
+
+
+def moe_step_flops(batch, seq, vocab, n_layer, n_head, d_model, d_inner,
+                   num_experts, capacity_factor, top_k):
+    """Analytic FLOPs of one training step (3x the forward's matmuls): per
+    layer the q, k, v, o projections, the attention's two products, the
+    router and the experts' FFN over all E * C slots; the logits."""
+    from paddle_tpu_torch.ops.moe_ops import moe_capacity
+    t = batch * seq
+    slots = num_experts * moe_capacity(capacity_factor, top_k, t,
+                                       num_experts)
+    layer = (4 * 2.0 * t * d_model * d_model
+             + 2 * 2.0 * batch * seq * seq * d_model
+             + 2.0 * t * d_model * num_experts
+             + 2 * 2.0 * slots * d_model * d_inner)
+    return 3.0 * (n_layer * layer + 2.0 * t * d_model * vocab)
+
+
+def _moe_drop_share(torch, pt, exe, program, feed, fetch):
+    """One eager step (use_program_cache=False) with every layer's slots
+    recorded: the share of (token, choice) assignments over capacity, a
+    layer (routing is read where the step computes it; nothing on the
+    timed path records it)."""
+    from paddle_tpu_torch.ops import moe_ops, transformer_ops
+    seen = []
+    orig = moe_ops.switch_moe_slots
+
+    def spy(*args, **kwargs):
+        res = orig(*args, **kwargs)
+        # the spare slot E * C: (x2, gate_w, ..., capacity, k)
+        seen.append((res[3], args[1].shape[-1] * args[6]))
+        return res
+    moe_ops.switch_moe_slots = transformer_ops.switch_moe_slots = spy
+    try:
+        exe.run(program, feed=feed, fetch_list=[fetch],
+                use_program_cache=False)
+    finally:
+        moe_ops.switch_moe_slots = transformer_ops.switch_moe_slots = orig
+    return [float((slots == spare).float().mean()) for slots, spare in seen]
+
+
+def _moe_timed(torch, pt, place, card, on_card, batch, seq, vocab, dims,
+               scan, warmup, steps):
+    """bench_moe captured: ``warmup`` then ``steps`` timed steps; returns
+    (launches of the timed steps, row of numbers, a --profile job of 5
+    more steps)."""
+    t0 = time.perf_counter()
+    avg = _build_moe(pt, vocab, seq, 0.1, 'bf16', scan=scan, **dims)
+    program = pt.default_main_program()
+    n_params = sum(int(np.prod(p.shape)) for p in program.all_parameters())
+    exe = pt.Executor(place)
+    scope = pt.Scope()
+    with pt.scope_guard(scope):
+        exe.run(pt.default_startup_program())
+        feed = {n: torch.as_tensor(v).to(exe.device)
+                for n, v in moe_feed(batch, seq, vocab).items()}
+        base = 0
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        t1 = time.perf_counter()
+        _, first = _train_steps(torch, exe, feed, avg, warmup, on_card)
+        reset_launches()
+        secs, losses = _train_steps(torch, exe, feed, avg, steps, on_card)
+        launches = read_launches()
+        captured = exe.last_captured
+        peak = torch.cuda.max_memory_allocated() if on_card else 0
+        drops = _moe_drop_share(torch, pt, exe, program, feed, avg)
+    losses = first + losses
+    ms = secs * 1e3 / steps
+    flops = moe_step_flops(batch, seq, vocab, **dims)
+    row = dict(ms=ms, tokens_per_s=batch * seq * steps / secs,
+               mfu=flops / (ms / 1e3) / BF16_FLOPS,
+               drop_share=float(np.mean(drops)),
+               drop_share_by_layer=drops, peak_gb=peak / 1e9,
+               above_resident_gb=(peak - base) / 1e9, params=n_params,
+               loss_first=losses[0], loss_last=losses[-1])
+    label = 'moe scan_layers' if scan else 'moe unrolled'
+    want = moe_want(dims['n_layer'], steps)
+    print('phase 18a %s: vocab %d, %d params, batch %d x seq %d, %d layers, '
+          '%d experts, capacity factor %g, top-%d, amp bf16, dropout 0.1, '
+          'Adam(1e-4); build + startup %.2f s; %d timed steps after %d '
+          'warm-up: %.3f ms/step, %.1f tokens/s, analytic %.4g TFLOP/step, '
+          'MFU %.4f; tokens over capacity %.5f (by layer %s); '
+          'max_memory_allocated %.3f GB, %.3f GB above the resident state; '
+          'loss first %.5f last %.5f [%s]'
+          % (label, vocab, n_params, batch, seq, dims['n_layer'],
+             dims['num_experts'], dims['capacity_factor'], dims['top_k'],
+             t1 - t0, steps, warmup, ms, row['tokens_per_s'], flops / 1e12,
+             row['mfu'], row['drop_share'],
+             ['%.5f' % d for d in drops], row['peak_gb'],
+             row['above_resident_gb'], losses[0], losses[-1], card))
+    print('phase 18a %s: launches in the %d timed steps %s (want %s: per '
+          'layer and step one causal attention through the tensor-core '
+          'flash kernels, 2 layer norms and their backward, 2 kernels each, '
+          'one fused dropout forward and backward)'
+          % (label, steps, {k: launches[k] for k in want}, want))
+    require(np.isfinite(losses).all(), '%s: loss not finite' % label)
+    require(losses[-1] < losses[0], '%s: loss did not fall: %s'
+            % (label, losses))
+    if on_card:
+        require(captured, '%s: the timed steps did not replay a graph'
+                % label)
+        require(exe.captures == 1, '%s: %d captures, want 1'
+                % (label, exe.captures))
+        require(all(launches[k] == n for k, n in want.items()),
+                '%s launch counts %s, want %s' % (label, launches, want))
+
+    def profile_step():
+        with pt.scope_guard(scope):
+            exe.run(program, feed=feed, fetch_list=[avg],
+                    return_numpy=False)
+    return launches, row, ('5 %s steps' % label, profile_step, 5, None)
+
+
+def _moe_same_bits(res, a, b):
+    return bool(np.array_equal(res[a][0], res[b][0])) and all(
+        np.array_equal(res[b][1][n], v) for n, v in res[a][1].items())
+
+
+def _moe_compare_width(torch, pt, place, card, batch, seq, vocab, dims,
+                       scan):
+    """At bench_moe's width, bf16 AMP and dropout 0.1 as timed: 3 captured
+    steps against 3 eager steps from the same state, and a second captured
+    run from that state (_three_ways)."""
+    avg = _build_moe(pt, vocab, seq, 0.1, 'bf16', scan=scan, **dims)
+    host = pt.Scope()
+    with pt.scope_guard(host):
+        pt.Executor(pt.CPUPlace()).run(pt.default_startup_program())
+    weights = {n: host.numpy(n) for n in host.keys()}
+    del host
+    feed = moe_feed(batch, seq, vocab, seed=1)
+    res = _three_ways(torch, pt, place, pt.default_main_program(), avg,
+                      weights, feed, modes=('captured', 'eager'))
+    again = _three_ways(torch, pt, place, pt.default_main_program(), avg,
+                        weights, feed, modes=('captured',))
+    res['again'] = again['captured']
+    return res
+
+
+def _moe_small(torch, pt, places, vocab=256, seq=16, batch=8, steps=3):
+    """At the small width (2 layers, d_model 64, 4 experts), top-1 and
+    top-2: the card against the host over 3 Adam steps from the same
+    weights, fp32 (rtol 1e-4) and bf16 AMP (rtol 2e-2), unrolled and
+    scan; then scan against unrolled at dropout 0 through
+    stack_moe_trained_weights on the card (3 SGD steps, rtol 1e-5)."""
+    from paddle_tpu_torch.models import moe
+    from paddle_tpu_torch.weights import load_into_scope
+    feed = moe_feed(batch, seq, vocab, seed=2)
+    out = {}
+    for top_k in (1, 2):
+        for scan in (False, True):
+            for amp, rtol in ((None, 1e-4), ('bf16', 2e-2)):
+                dims = dict(MOE_SMALL, top_k=top_k)
+                avg = _build_moe(pt, vocab, seq, 0.0, amp, lr=1e-3,
+                                 scan=scan, **dims)
+                main = pt.default_main_program()
+                host = pt.Scope()
+                with pt.scope_guard(host):
+                    pt.Executor(pt.CPUPlace()).run(
+                        pt.default_startup_program())
+                weights = {n: host.numpy(n) for n in host.keys()}
+                losses = []
+                for place in places:
+                    scope = pt.Scope()
+                    load_into_scope(weights, scope, place)
+                    exe = pt.Executor(place)
+                    with pt.scope_guard(scope):
+                        losses.append([float(exe.run(
+                            main, feed=feed, fetch_list=[avg])[0])
+                            for _ in range(steps)])
+                rel = max(abs(a - b) / abs(b) for a, b in zip(*losses))
+                key = 'top%d %s %s' % (top_k, 'scan' if scan else 'unrolled',
+                                       amp or 'fp32')
+                out[key] = (rel, rtol, losses)
+                require(rel <= rtol, 'phase 18a small %s: card %s, host %s '
+                        '(rel %.3g > %g)' % (key, losses[0], losses[1],
+                                             rel, rtol))
+    # scan against unrolled on the card, from the unrolled startup stacked
+    dims = dict(MOE_SMALL, top_k=2)
+    progs = {}
+    for scan in (True, False):
+        pt.reset_default_programs()
+        avg, _ = moe.switch_transformer_lm(vocab, seq, scan_layers=scan,
+                                           **dims)
+        pt.optimizer.SGD(learning_rate=0.3).minimize(avg)
+        progs[scan] = (pt.default_main_program(), avg,
+                       pt.default_startup_program())
+    host = pt.Scope()
+    with pt.scope_guard(host):
+        hexe = pt.Executor(pt.CPUPlace())
+        hexe.run(progs[True][2])
+        hexe.run(progs[False][2])
+    stacked = moe.stack_moe_trained_weights(host, dims['n_layer'])
+    weights = {n: host.numpy(n) for n in host.keys()}
+    scan_losses = {}
+    for scan, (main, avg, _) in progs.items():
+        scope = pt.Scope()
+        load_into_scope(weights, scope, places[0])
+        exe = pt.Executor(places[0])
+        with pt.scope_guard(scope):
+            scan_losses[scan] = [float(exe.run(main, feed=feed,
+                                               fetch_list=[avg])[0])
+                                 for _ in range(steps)]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(scan_losses[True],
+                                                  scan_losses[False]))
+    require(rel <= 1e-5, 'phase 18a: scan %s against unrolled %s (rel %.3g)'
+            % (scan_losses[True], scan_losses[False], rel))
+    return out, (rel, len(stacked), scan_losses)
+
+
+def phase_moe(torch, pt, place, card, on_card, batch=32, seq=64,
+              vocab=VOCAB, dims=MOE_DIMS, warmup=3, steps=20,
+              host_place=None, cmp_batch=None, profile=False):
+    """Phase 18a: bench_moe's Switch-MoE LM, scan_layers and unrolled,
+    captured; captured against eager and a second run bit for bit; the
+    small width card against host and scan against unrolled. Returns
+    (the timed runs' launch counts, summary, --profile jobs: with
+    ``profile`` their executors and graphs stay alive)."""
+    t0 = time.perf_counter()
+    runs, rows, jobs = [], {}, []
+    for scan in (True, False):
+        launches, row, job = _moe_timed(torch, pt, place, card, on_card,
+                                        batch, seq, vocab, dims, scan,
+                                        warmup, steps)
+        runs.append(launches)
+        rows['scan' if scan else 'unrolled'] = row
+        if profile:
+            jobs.append(job)
+        del job
+        if on_card:
+            torch.cuda.empty_cache()
+    bits = {}
+    for scan in (True, False):
+        res = _moe_compare_width(torch, pt, place, card, cmp_batch or batch,
+                                 seq, vocab, dims, scan)
+        label = 'scan' if scan else 'unrolled'
+        bits[label] = dict(eager=_moe_same_bits(res, 'captured', 'eager'),
+                           again=_moe_same_bits(res, 'captured', 'again'))
+        print('phase 18a %s compare (batch %d x seq %d, bf16, dropout 0.1, '
+              '3 Adam steps from one state): losses captured %s, eager %s, '
+              'again %s; captured == eager bit for bit (losses and %d scope '
+              'variables): %s; a second captured run: %s [%s]'
+              % (label, cmp_batch or batch, seq,
+                 ['%.7f' % v for v in res['captured'][0]],
+                 ['%.7f' % v for v in res['eager'][0]],
+                 ['%.7f' % v for v in res['again'][0]],
+                 len(res['captured'][1]), bits[label]['eager'],
+                 bits[label]['again'], card))
+        require(bits[label]['eager'], 'phase 18a %s: captured differs from '
+                'eager' % label)
+        require(bits[label]['again'], 'phase 18a %s: a second run from the '
+                'same state differs' % label)
+        del res
+        if on_card:
+            torch.cuda.empty_cache()
+    small, scan_cmp = _moe_small(torch, pt, (place, host_place or
+                                             pt.CPUPlace()))
+    for key, (rel, rtol, losses) in small.items():
+        print('phase 18a small %s: card %s, host %s (max rel %.3g, limit '
+              '%g)' % (key, ['%.6f' % v for v in losses[0]],
+                       ['%.6f' % v for v in losses[1]], rel, rtol))
+    print('phase 18a small scan against unrolled (top-2, dropout 0, %d '
+          'names stacked, 3 SGD steps): %s against %s (max rel %.3g, limit '
+          '1e-5); phase 18a %.1f s'
+          % (scan_cmp[1], scan_cmp[2][True], scan_cmp[2][False],
+             scan_cmp[0], time.perf_counter() - t0))
+    return runs, dict(rows, bits=bits,
+                      small={k: v[0] for k, v in small.items()},
+                      scan_vs_unrolled=scan_cmp[0]), jobs
+
+
+REMAT_LEVELS = ((None, 'none'), (0, 'level 0 (dots_saveable)'),
+                (1, 'level 1 (full)'))
+
+
+def _remat_leg(torch, pt, place, on_card, build, feed, warmup, steps,
+               level, check_steps=3):
+    """One program under memory_optimize(level) (None: no remat): the
+    losses of the first ``check_steps`` steps and the trainable parameters
+    after them, then ms a step over ``steps`` more and the step's peak
+    memory (max_memory_allocated above what was allocated before the
+    first step) and the graphs captured."""
+    avg = build()
+    program = pt.default_main_program()
+    if level is not None:
+        pt.memory_optimize(program, level=level)
+    names = [p.name for p in program.all_parameters() if p.trainable] + \
+        _running_stats(program)
+    exe = pt.Executor(place)
+    scope = pt.Scope()
+    with pt.scope_guard(scope):
+        exe.run(pt.default_startup_program())
+        feed = {n: torch.as_tensor(v).to(exe.device) for n, v in feed.items()}
+        base = 0
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        _, losses = _train_steps(torch, exe, feed, avg, check_steps, on_card)
+        params = {n: scope.numpy(n) for n in names}
+        _train_steps(torch, exe, feed, avg, warmup, on_card)
+        secs, _ = _train_steps(torch, exe, feed, avg, steps, on_card)
+        peak = torch.cuda.max_memory_allocated() - base if on_card else 0
+        captured = exe.last_captured
+    captures = exe.captures
+    del exe, scope
+    if on_card:
+        torch.cuda.empty_cache()
+    return dict(ms=secs * 1e3 / steps, peak_gb=peak / 1e9,
+                captures=captures, captured=captured), losses, params
+
+
+def phase_remat(torch, pt, place, card, on_card, batch=64, seq=64,
+                vocab=VOCAB, base=None, moe_batch=32, moe_dims=MOE_DIMS,
+                resnet=(64, 224, 1000, False), warmup=2, steps=10,
+                require_drop=True):
+    """Phase 18b: memory_optimize on phase 6's Transformer-base (batch 64
+    x seq 64, bf16, dropout 0.1, Adam; unrolled and scan_layers), on 18a's
+    MoE LM (scan_layers) and on phase 9's ResNet-50 (batch 64, 224 x 224,
+    NHWC, bf16, Momentum: its batch norms move their running statistics in
+    the forward), level 0 and level 1 against no remat: ms a step, the
+    step's peak memory (level 1's below no remat's), the losses of 3 steps
+    and every trainable parameter and running statistic after them bit for
+    bit equal to no remat, one CUDA graph. ``resnet``: (batch, image,
+    classes, the rehearsal's small net); ``require_drop`` False: the
+    peak is printed and not held (a tiny width). Returns {model: {level:
+    row}}."""
+    from paddle_tpu_torch.models import resnet as R
+    from paddle_tpu_torch.models import transformer as T
+    base = base or dict(n_layer=6, n_head=8, d_key=64, d_value=64,
+                        d_model=512, d_inner=2048)
+    t0 = time.perf_counter()
+    models = {
+        'transformer unrolled': (
+            lambda: _build_train(pt, vocab, seq, 0.1, 'bf16', **base),
+            T.make_fake_batch(batch, seq, seq, vocab, vocab, seed=0)),
+        'transformer scan_layers': (
+            lambda: _build_train(pt, vocab, seq, 0.1, 'bf16',
+                                 scan_layers=True, **base),
+            T.make_fake_batch(batch, seq, seq, vocab, vocab, seed=0)),
+        'moe scan_layers': (
+            lambda: _build_moe(pt, vocab, seq, 0.1, 'bf16', scan=True,
+                               **moe_dims),
+            moe_feed(moe_batch, seq, vocab)),
+        'resnet': (
+            lambda: _build_resnet(pt, resnet[1], resnet[2], 'NHWC', 'bf16',
+                                  0.1, small=resnet[3]),
+            R.make_fake_batch(resnet[0], resnet[1], resnet[2], seed=0)),
+    }
+    out = {}
+    for model, (build, feed) in models.items():
+        rows, ref = {}, None
+        for level, label in REMAT_LEVELS:
+            row, losses, params = _remat_leg(torch, pt, place, on_card,
+                                             build, feed, warmup, steps,
+                                             level)
+            if ref is None:
+                ref = (losses, params)
+            row['same_bits'] = losses == ref[0] and all(
+                np.array_equal(v, ref[1][n]) for n, v in params.items())
+            rows[label] = row
+            print('phase 18b %s, %s: %.3f ms/step, step peak %.3f GB above '
+                  'the resident state, %d graph(s) captured, last step '
+                  'replayed %s; losses %s; losses and %d parameters and '
+                  'running statistics after 3 '
+                  'steps bit for bit equal to no remat: %s [%s]'
+                  % (model, label, row['ms'], row['peak_gb'],
+                     row['captures'], row['captured'],
+                     ['%.7f' % v for v in losses], len(params),
+                     row['same_bits'], card))
+            require(row['same_bits'], 'phase 18b %s %s: not bit for bit '
+                    'equal to no remat' % (model, label))
+            if on_card:
+                require(row['captures'] == 1 and row['captured'],
+                        'phase 18b %s %s: %d captures, last replayed %s'
+                        % (model, label, row['captures'], row['captured']))
+        none, full = rows['none'], rows[REMAT_LEVELS[2][1]]
+        if on_card:
+            print('phase 18b %s: level 1 holds %.4f of no remat\'s step '
+                  'peak at %.4f of its time [%s]'
+                  % (model, full['peak_gb'] / none['peak_gb'],
+                     full['ms'] / none['ms'], card))
+        if on_card and require_drop:
+            require(full['peak_gb'] < none['peak_gb'],
+                    'phase 18b %s: level 1 peak %.3f GB, no remat %.3f'
+                    % (model, full['peak_gb'], none['peak_gb']))
+        out[model] = rows
+    print('phase 18b %.1f s' % (time.perf_counter() - t0))
+    return out
+
+
+def phase_accum(torch, pt, place, card, on_card, seq=64, vocab=VOCAB,
+                base=None, micro=16, k=4):
+    """Phase 18c: GradientAccumulator(Adam(1e-4), 4) on Transformer-base
+    (fp32, dropout 0, TF32 off) at micro-batch 16 from the same weights
+    as the plain Adam program: every parameter bit for bit unchanged on
+    the 3 gated micro steps of each round; the mean gradient the update
+    reads on the 4th micro step against the plain program's gradients of
+    the 4 micro-batches, summed in the accumulator's order (within 1e-6
+    of each tensor's largest; bit for bit reported) and against batch
+    64's; after 8 micro steps, against 2 plain Adam steps at batch 64
+    (the 4 slices): the share of parameter elements within rtol 1e-4 and
+    the largest gap in lr, beside a control (batch 64 with its sentences
+    permuted: the same math, the sums in another order). The card's
+    GEMMs round a row by the batch it is in, so a pre-activation near 0
+    can take the ReLU's other side at batch 16 than at 64, and Adam
+    divides each gradient by its own magnitude: the last check is held
+    to 98 % and 2 lr, the gradient ones exactly. At dropout 0.1, 3
+    captured micro steps equal 3 eager ones and run_steps(4) equals 4
+    run calls, bit for bit (losses and every scope variable)."""
+    from paddle_tpu_torch.models import transformer as T
+    from paddle_tpu_torch.weights import load_into_scope
+    base = base or dict(n_layer=6, n_head=8, d_key=64, d_value=64,
+                        d_model=512, d_inner=2048)
+    lr = 1e-4
+    t0 = time.perf_counter()
+
+    def build(accum, dropout=0.0):
+        pt.reset_default_programs()
+        avg, _ = T.transformer_base(
+            src_vocab_size=vocab, trg_vocab_size=vocab, src_seq_len=seq,
+            trg_seq_len=seq, max_length=max(256, seq),
+            dropout_rate=dropout, **base)
+        opt = pt.optimizer.Adam(learning_rate=lr)
+        if accum:
+            opt = pt.optimizer.GradientAccumulator(opt, k)
+        opt.minimize(avg)
+        return pt.default_main_program(), avg
+
+    big = T.make_fake_batch(micro * k, seq, seq, vocab, vocab, seed=0)
+    micros = [{n: v[i * micro:(i + 1) * micro] for n, v in big.items()}
+              for i in range(k)]
+    main, avg = build(False)
+    host = pt.Scope()
+    with pt.scope_guard(host):
+        pt.Executor(pt.CPUPlace()).run(pt.default_startup_program())
+    weights = {n: host.numpy(n) for n in host.keys()}
+    names = [p.name for p in main.all_parameters() if p.trainable]
+    grads = [n + '@GRAD' for n in names]
+    # the plain program: 2 steps at batch 64, the same permuted (the
+    # control), and each micro-batch's gradient from the start
+    perm = np.random.RandomState(1).permutation(micro * k)
+    params = []
+    for feed in (big, {n: v[perm] for n, v in big.items()}):
+        scope, exe = pt.Scope(), pt.Executor(place)
+        load_into_scope(weights, scope, place)
+        with pt.scope_guard(scope):
+            for _ in range(2):
+                exe.run(main, feed=feed, fetch_list=[avg])
+            params.append({n: scope.numpy(n) for n in names})
+        del scope, exe
+    want, control = params
+    summed = None
+    scope, exe = pt.Scope(), pt.Executor(place)
+    with pt.scope_guard(scope):
+        for m in micros:
+            load_into_scope(weights, scope, place)
+            g = exe.run(main, feed=m, fetch_list=grads)
+            summed = g if summed is None else [a + b for a, b in
+                                               zip(summed, g)]
+        load_into_scope(weights, scope, place)
+        big_g = exe.run(main, feed=big, fetch_list=grads)
+    del scope, exe
+    micro_mean = [a * np.float32(1.0 / k) for a in summed]
+
+    amain, aavg = build(True)
+    astart = pt.default_startup_program()
+    scope, exe = pt.Scope(), pt.Executor(place)
+    with pt.scope_guard(scope):
+        exe.run(astart)         # the accumulators and the phase
+        load_into_scope(weights, scope, place)
+        prev = {n: scope.numpy(n) for n in names}
+        gated_same = []
+        for i in range(2 * k):
+            got_g = exe.run(amain, feed=micros[i % k], fetch_list=grads)
+            now = {n: scope.numpy(n) for n in names}
+            if i % k != k - 1:
+                gated_same.append(all(np.array_equal(now[n], prev[n])
+                                      for n in names))
+            elif i == k - 1:
+                acc_g = got_g
+            prev = now
+    del scope, exe
+
+    def rel_gap(got, ref):
+        return max(float(np.max(np.abs(a - b)) / np.max(np.abs(b)))
+                   for a, b in zip(got, ref))
+    g_gap = rel_gap(acc_g, micro_mean)
+    g_same = all(np.array_equal(a, b) for a, b in zip(acc_g, micro_mean))
+    big_gap = rel_gap(acc_g, big_g)
+
+    def within(p):
+        return sum(int(np.sum(np.abs(p[n] - want[n]) <=
+                              1e-4 * np.abs(want[n]))) for n in names)
+
+    def largest_gap(p):
+        return max(float(np.max(np.abs(p[n] - want[n]))) for n in names)
+    n_all = sum(want[n].size for n in names)
+    share, gap = within(prev) / n_all, largest_gap(prev)
+    c_share, c_gap = within(control) / n_all, largest_gap(control)
+    # captured against eager and run_steps against run, dropout 0.1
+    amain, aavg = build(True, dropout=0.1)
+    astart = pt.default_startup_program()
+    host = pt.Scope()
+    with pt.scope_guard(host):
+        pt.Executor(pt.CPUPlace()).run(astart)
+    load_into_scope(weights, host, pt.CPUPlace())
+    aweights = {n: host.numpy(n) for n in host.keys()}
+    res = _three_ways(torch, pt, place, amain, aavg, aweights, micros[0],
+                      steps=k)
+    same = {m: _moe_same_bits(res, 'captured', m)
+            for m in ('eager', 'run_steps')}
+    print('phase 18c GradientAccumulator(Adam(1e-4), %d), Transformer-base '
+          'fp32 at micro-batch %d x seq %d: the %d gated micro steps leave '
+          'the %d parameters bit for bit: %s; the mean gradient of the 4th '
+          'micro step against the plain program\'s micro-batch gradients '
+          'summed in its order: max gap %.3g of each tensor\'s largest '
+          '(limit 1e-6), bit for bit %s; against batch %d\'s gradient: '
+          '%.3g; after %d micro steps against 2 Adam steps at batch %d: '
+          '%.5f of %d parameter elements within rtol 1e-4, the largest gap '
+          '%.3g lr (limits 0.98, 2 lr); the control (batch %d permuted) '
+          '%.5f, %.3g lr; dropout 0.1: captured == eager %s, run_steps(%d) '
+          '== %d run calls %s (losses and %d scope variables) (%.1f s) [%s]'
+          % (k, micro, seq, len(gated_same), len(names), all(gated_same),
+             g_gap, g_same, micro * k, big_gap, 2 * k, micro * k, share,
+             n_all, gap / lr, micro * k, c_share, c_gap / lr,
+             same['eager'], k, k, same['run_steps'],
+             len(res['captured'][1]), time.perf_counter() - t0, card))
+    require(all(gated_same), 'phase 18c: a gated micro step moved a '
+            'parameter')
+    require(g_gap <= 1e-6, 'phase 18c: the accumulated gradient is not '
+            'the mean of the micro-batch gradients (%.3g)' % g_gap)
+    require(share >= 0.98 and gap <= 2 * lr, 'phase 18c: %.5f of the '
+            'parameters within rtol 1e-4 of the big-batch steps, the '
+            'largest gap %.3g lr' % (share, gap / lr))
+    require(same['eager'], 'phase 18c: captured differs from eager')
+    require(same['run_steps'], 'phase 18c: run_steps differs from run')
+    return dict(gated_same=all(gated_same), grad_gap=g_gap,
+                grad_bits=g_same, big_grad_gap=big_gap,
+                within_rtol_share=share, gap_lr=gap / lr,
+                control_within_share=c_share, control_gap_lr=c_gap / lr,
+                captured_eq_eager=same['eager'],
+                run_steps_eq_run=same['run_steps'])
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--cpu-rehearsal', action='store_true',
-                    help='run phases 4-17 on the host at tiny sizes with '
+                    help='run phases 4-18 on the host at tiny sizes with '
                          'the plain versions')
     ap.add_argument('--profile', action='store_true',
                     help='after every other phase, profile 20 decode '
                          'steps with every slot busy (fp32 and int8 '
                          'arenas), 20 verify steps (k = 3), 5 Transformer '
                          'and 5 ResNet-50 training steps (torch.profiler) '
-                         'and print where the time goes')
+                         'and, after phase 18, 5 MoE LM steps (scan and '
+                         'unrolled), and print where the time goes')
     ap.add_argument('--kernels-only', action='store_true',
                     help='stop after phase 3 (kernels against their plain '
                          'versions, and their times); prints no verdict')
@@ -6198,6 +6815,15 @@ def main():
         phase_module_ops(torch, pt, pt.CPUPlace(), host, False, n=64, d=48)
         phase_staging_ctr(torch, pt, host, False, slots=4, rows=1000,
                           batch=256, steps=8)
+        tiny_moe = dict(MOE_SMALL, n_layer=2, d_model=16, d_inner=32,
+                        n_head=2, top_k=1)
+        phase_moe(torch, pt, pt.CPUPlace(), host, False, batch=4, seq=8,
+                  vocab=64, dims=tiny_moe)
+        phase_remat(torch, pt, pt.CPUPlace(), host, False, batch=4, seq=8,
+                    vocab=64, base=tiny, moe_batch=4, moe_dims=tiny_moe,
+                    resnet=(4, 16, 10, True), steps=2)
+        phase_accum(torch, pt, pt.CPUPlace(), host, False, seq=8, vocab=64,
+                    base=tiny, micro=2)
         print('cpu rehearsal ok in %.1f s' % (time.perf_counter() - t_start))
         return
 
@@ -6387,6 +7013,18 @@ def main():
     staging['ctr'], ctr_ring_runs = phase_staging_ctr(torch, pt, card, True)
     torch.cuda.empty_cache()
     done('17 (the staging ring and the rest of the op modules)')
+    # phase 18: the Switch-MoE LM, remat and gradient accumulation
+    moe_runs, moe, moe_jobs = phase_moe(torch, pt, pt.CUDAPlace(0), card,
+                                        True, host_place=pt.CPUPlace(),
+                                        profile=args.profile)
+    torch.cuda.empty_cache()
+    moe['remat'] = phase_remat(torch, pt, pt.CUDAPlace(0), card, True)
+    moe['accum'] = phase_accum(torch, pt, pt.CUDAPlace(0), card, True)
+    torch.cuda.empty_cache()
+    done('18 (the Switch-MoE LM, remat, gradient accumulation)')
+    if args.profile:
+        profile_steps(torch, card, moe_jobs)
+    del moe_jobs
 
     # launches: the sum over the main paths' runs (the engine runs: plain,
     # extras plain and with cache + speculation, int8 and fp8; the timed
@@ -6395,12 +7033,13 @@ def main():
     # timed decode calls; phase 13a's timed Trainer epoch at depth 1; phase
     # 14's six legs; phase 15's four row-sparse legs; phase 16a's timed
     # encoder steps, fp32 and bf16; phase 17's staging-ring legs: the
-    # Transformer's timed epoch and the CTR's steps), each read after its
-    # counts were set to 0
+    # Transformer's timed epoch and the CTR's steps; phase 18a's timed MoE
+    # steps, scan_layers and unrolled), each read after its counts were
+    # set to 0
     main_runs = [launches] + extras + list(quant.values()) + \
         [train, scan_train, masked, mask_read, resnet, nmt, trainer] + \
         disagg_runs + list(ctr_runs.values()) + layers_runs + \
-        [ring_runs, ctr_ring_runs]
+        [ring_runs, ctr_ring_runs] + moe_runs
 
     def runs(key):
         return sum(r.get(key, 0) for r in main_runs)
@@ -6477,7 +7116,7 @@ def main():
     print('total %.1f s' % (time.perf_counter() - t_start))
     print(json.dumps({'kernels': kernels, 'lifecycle': lifecycle,
                       'disagg': disagg, 'ctr': ctr, 'layers': layers,
-                      'staging': staging}))
+                      'staging': staging, 'moe': moe}))
     print(card)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu',
                                              'kind': name,

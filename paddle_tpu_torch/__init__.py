@@ -28,7 +28,7 @@ from .core.program import (Program, default_main_program,
 from .core.scope import Scope, global_scope, scope_guard
 from .data_feeder import DataFeeder
 from .fault import CheckpointConfig
-from .memory_optimize import memory_optimize
+from .memory_optimize import memory_optimize, release_memory
 from .param_attr import ParamAttr, WeightNormParamAttr
 from .trainer import (BeginEpochEvent, BeginStepEvent, EndEpochEvent,
                       EndStepEvent, Trainer)
@@ -42,6 +42,7 @@ __all__ = ['backward', 'clip', 'dataset', 'fault', 'initializer', 'io',
            'program_guard', 'reset_default_programs', 'switch_main_program',
            'switch_startup_program', 'Scope',
            'global_scope', 'scope_guard', 'DataFeeder', 'CheckpointConfig',
-           'ParamAttr', 'WeightNormParamAttr', 'memory_optimize', 'Trainer',
+           'ParamAttr', 'WeightNormParamAttr', 'memory_optimize',
+           'release_memory', 'Trainer',
            'BeginEpochEvent', 'EndEpochEvent', 'BeginStepEvent',
            'EndStepEvent']

@@ -50,7 +50,18 @@ any op that depends on them and at the end of each section, so the
 results equal the per-op order bit for bit. Everything else runs under
 ``torch.no_grad()``. In the forward, a var with an ``error_clip``
 (clip.ErrorClipByValue) is wrapped in an identity whose backward clamps
-its gradient, as the reference's custom_vjp does.
+its gradient, as the reference's custom_vjp does. With a
+``program.remat_policy`` (memory_optimize) the forward section is cut
+into segments of about sqrt(n) ops, each cut where the fewest values
+cross it, and each segment is one ``torch.utils.checkpoint`` function
+that returns only the values read after it; the backward runs one
+segment again at a time, so it holds one segment's activations and the
+values at the cuts (no RNG state is saved: the dropout bits are keyed on
+the step tensor). A layer stack op is a segment of its own that
+checkpoints each of its layers. Under a policy no op writes a persistable
+in place (the recompute would write it again): the step copies the new
+values into the scope's tensors. The policy is part of the plan and graph
+keys.
 
 With ``observe`` on, every call counts ``executor.cache_miss_total`` (a key
 seen for the first time, or a graph (re)captured: on the card a capture
@@ -63,6 +74,7 @@ where its checkpoint left off, so the captured graphs, which read that
 tensor, draw the uninterrupted run's masks.
 """
 
+import math
 import threading
 import time
 
@@ -76,7 +88,7 @@ from .dtypes import to_torch_dtype
 from .place import CUDAPlace
 from .program import Variable, default_main_program
 from .registry import (AMP_BF16_OUT_SLOTS, HOST_BOUND, LoweringContext,
-                       get_lowering)
+                       checkpointed, get_lowering)
 from .scope import global_scope, tensor_to_numpy
 
 # eager runs of a key on the CUDA place before it is captured
@@ -251,7 +263,8 @@ class _Plan(object):
     op, so a step holds only its live values; autograd keeps what the
     backward saved)."""
 
-    def __init__(self, block, ops, feed_names, fetch_names):
+    def __init__(self, block, ops, feed_names, fetch_names,
+                 remat_policy=None):
         self.ops = ops
         consumed = set()
         for op in ops:
@@ -303,6 +316,13 @@ class _Plan(object):
         for name, i in last.items():
             if name not in keep:
                 self.frees.setdefault(i, []).append(name)
+        self.remat_segments = []
+        if remat_policy and self.marker is not None:
+            after = keep | set(sparse_ids.values())
+            after.add(ops[self.marker].attrs['loss_name'])
+            for op in ops[self.marker + 1:]:
+                after.update(op.input_names())
+            self.remat_segments = _remat_segments(ops[:self.marker], after)
 
 
 class Executor(object):
@@ -357,12 +377,13 @@ class Executor(object):
 
     def _plan(self, program, feed_names, fetch_names):
         key = (id(program), program._version, tuple(sorted(feed_names)),
-               tuple(fetch_names))
+               tuple(fetch_names), program.remat_policy)
         plan = self._plans.get(key)
         if plan is None:
             block = program.global_block()
             ops = _prune_ops(block, list(block.ops), fetch_names)
-            plan = _Plan(block, ops, feed_names, fetch_names)
+            plan = _Plan(block, ops, feed_names, fetch_names,
+                         program.remat_policy)
             self._plans[key] = plan
         return plan
 
@@ -483,8 +504,8 @@ class Executor(object):
     def _key(program, feeds, fetch_names):
         sig = tuple(sorted((n, tuple(v.shape), str(v.dtype))
                            for n, v in feeds.items()))
-        return (id(program), program._version, program.amp, sig,
-                tuple(fetch_names))
+        return (id(program), program._version, program.amp,
+                program.remat_policy, sig, tuple(fetch_names))
 
     def _copy_out(self, fetches):
         """A handle's fetches: on the card, pinned host copies enqueued
@@ -649,12 +670,12 @@ class Executor(object):
         from ..ops.optimizer_ops import SparseUpdates
         pending = SparseUpdates()
 
-        def run_ops(ops, start):
+        def run_ops(ops, start, env, remat=None):
             for i, op in enumerate(ops):
                 if pending.conflicts(op):
                     pending.flush()
                 self._run_op(env, op, block, start + i, seed, step,
-                             program.amp, plan.reads, pending)
+                             program.amp, plan.reads, pending, remat)
                 if clips and torch.is_grad_enabled():
                     # the reference's error clip: the gradient flowing
                     # back through the var is clamped
@@ -668,9 +689,9 @@ class Executor(object):
 
         if plan.marker is None:
             with torch.no_grad():
-                run_ops(plan.ops, 0)
+                run_ops(plan.ops, 0, env)
         else:
-            self._train_step(env, plan, run_ops)
+            self._train_step(env, plan, run_ops, program.remat_policy)
         with torch.no_grad():
             for name in plan.scope_out:
                 self._write_scope(scope, name, _detached(env[name]),
@@ -705,12 +726,12 @@ class Executor(object):
         scope.set(name, value)
 
     def _run_op(self, env, op, block, index, seed, step, amp, reads,
-                sparse_updates):
+                sparse_updates, remat=None):
         ctx = LoweringContext(env, op, block, index, self.device, seed,
                               step, is_test=bool(op.attrs.get('is_test',
                                                               False)),
                               amp=amp, reads=reads,
-                              sparse_updates=sparse_updates)
+                              sparse_updates=sparse_updates, remat=remat)
         try:
             get_lowering(op.type)(ctx)
         except KeyError as e:
@@ -725,7 +746,7 @@ class Executor(object):
                 if name in env and env[name].dtype == torch.float32:
                     env[name] = env[name].to(torch.bfloat16)
 
-    def _train_step(self, env, plan, run_ops):
+    def _train_step(self, env, plan, run_ops, remat_policy):
         """Forward with the trainable parameters as leaves, gradients of
         the summed loss, then the update ops under no_grad.
 
@@ -733,7 +754,10 @@ class Executor(object):
         is no leaf: a zero row seed shaped like its lookup's output is,
         and the lookup (ops/nn_ops.py) adds it to the gathered rows, so
         ``p@GRAD`` is the seed's gradient, [n_ids, dim]. No [vocab, dim]
-        tensor is made for such a table."""
+        tensor is made for such a table.
+
+        With a ``remat_policy`` (memory_optimize) the forward section runs
+        as checkpointed segments (``_remat_forward``)."""
         marker = plan.ops[plan.marker]
         param_names = marker.attrs['param_names']
         grad_names = marker.attrs['grad_names']
@@ -745,7 +769,7 @@ class Executor(object):
         # each a step): the device time by section reads them; the backward
         # runs on autograd's device thread, outside any range of this one
         with torch.enable_grad():
-            leaves = []
+            leaves, leaf_names = [], []
             for n in param_names:
                 if n in sparse:
                     # [n_ids, dim]; the lookup reshapes it to its output
@@ -757,11 +781,17 @@ class Executor(object):
                     seeds[n] = SPARSE_SEED_PREFIX + sparse[n]['out']
                     env[seeds[n]] = seed
                     leaves.append(seed)
+                    leaf_names.append(seeds[n])
                 else:
                     env[n] = stored[n].detach().requires_grad_()
                     leaves.append(env[n])
+                    leaf_names.append(n)
             with torch.profiler.record_function('forward'):
-                run_ops(plan.ops[:plan.marker], 0)
+                if plan.remat_segments:
+                    _remat_forward(env, plan, run_ops, leaf_names,
+                                   remat_policy)
+                else:
+                    run_ops(plan.ops[:plan.marker], 0, env)
             loss = env[loss_name]
             grads = [None] * len(leaves)
             if loss.requires_grad:
@@ -777,4 +807,90 @@ class Executor(object):
             if pn in seeds:
                 del env[seeds[pn]]
         with torch.no_grad(), torch.profiler.record_function('optimizer'):
-            run_ops(plan.ops[plan.marker + 1:], plan.marker + 1)
+            run_ops(plan.ops[plan.marker + 1:], plan.marker + 1, env)
+
+
+# op types that checkpoint each of their layers under a remat policy
+# (ops/transformer_ops.py): each is a segment of its own, run outside the
+# segments' checkpoints
+SELF_REMAT = frozenset(('transformer_layer_stack', 'moe_layer_stack'))
+
+
+def _remat_segments(ops, after):
+    """The forward ``ops`` cut for checkpointing: [(start, end, inputs,
+    outputs)], inputs None for a layer stack op (it checkpoints its own
+    layers). A segment holds about sqrt(n) ops; each cut is placed, within
+    half to twice that from the segment's start, where the fewest values
+    made before it are read after it (between two layers, where the
+    residual stream crosses). ``after``: the names read after the forward
+    (by the backward's update ops, fetched, persistable, the loss). A
+    segment's outputs are its values read by a later segment or after."""
+    n = len(ops)
+    made, last = {}, {}
+    for i, op in enumerate(ops):
+        for name in op.input_names():
+            last[name] = i
+        for name in op.output_names():
+            made.setdefault(name, i)
+    for name in after:
+        last[name] = n
+    # crossing[i]: the values made before op i and read at or after it
+    delta = [0] * (n + 2)
+    for name, i in made.items():
+        if last.get(name, -1) > i:
+            delta[i + 1] += 1
+            delta[last[name] + 1] -= 1
+    crossing, total = [], 0
+    for d in delta:
+        total += d
+        crossing.append(total)
+    size = max(1, int(round(math.sqrt(n))))
+    cuts, s = [], 0
+    while s < n:
+        if ops[s].type in SELF_REMAT:
+            cuts.append((s, s + 1, False))
+            s += 1
+            continue
+        stop = next((i for i in range(s, n) if ops[i].type in SELF_REMAT), n)
+        end = stop
+        if stop - s > 2 * size:
+            end = min(range(s + (size + 1) // 2, s + 2 * size + 1),
+                      key=lambda i: (crossing[i], abs(i - s - size)))
+        cuts.append((s, end, True))
+        s = end
+    segments = []
+    for a, b, wrapped in cuts:
+        ins = outs = None
+        if wrapped:
+            ins = sorted({name for op in ops[a:b]
+                          for name in op.input_names()})
+            outs = sorted({name for op in ops[a:b]
+                           for name in op.output_names()
+                           if last.get(name, -1) >= b})
+        segments.append((a, b, ins, outs))
+    return segments
+
+
+def _remat_forward(env, plan, run_ops, leaf_names, policy):
+    """The forward section as checkpointed segments (reference:
+    paddle_tpu core/executor.py's jax.checkpoint of the forward, which
+    XLA schedules): each segment runs on its own dict of the values it
+    reads and the leaves, and hands back only its outputs, so autograd
+    keeps nothing else of it and the backward runs it again when it
+    reaches it. A layer stack op runs on ``env`` itself with the policy
+    and checkpoints its layers."""
+    for a, b, ins, outs in plan.remat_segments:
+        if ins is None:
+            run_ops(plan.ops[a:b], a, env, policy)
+            continue
+        base = {n: env[n] for n in ins + leaf_names if n in env}
+
+        def forward(base=base, a=a, b=b, outs=outs):
+            e = dict(base)
+            run_ops(plan.ops[a:b], a, e, policy)
+            return {n: e[n] for n in outs if n in e}
+
+        env.update(checkpointed(policy, forward))
+        for i in range(a, b):
+            for n in plan.frees.get(i, ()):
+                env.pop(n, None)

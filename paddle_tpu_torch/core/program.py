@@ -283,6 +283,10 @@ class Program(object):
         # their inputs to bfloat16 while parameters, gradients, optimizer
         # state and loss-class ops stay fp32 (registry.AMP_*)
         self.amp = None
+        # rematerialisation policy set by memory_optimize(): None, 'full',
+        # 'dots_saveable' or 'nothing_saveable' (the executor runs the
+        # forward section under torch.utils.checkpoint)
+        self.remat_policy = None
 
     def _bump_version(self):
         self._version += 1
@@ -357,9 +361,11 @@ class Program(object):
                                   stop_gradient=v.stop_gradient,
                                   is_data=v.is_data, trainable=v.trainable)
                 nv._error_clip = v._error_clip
-                # the row-sparse annotations: an is_sparse table's flag
-                # and its gradient's Ids (core/backward.py)
-                for extra in ('sparse_grad', 'sparse_ids'):
+                # the row-sparse annotations (an is_sparse table's flag and
+                # its gradient's Ids, core/backward.py) and the expert
+                # weights' marks (layers.switch_moe, models/moe.py)
+                for extra in ('sparse_grad', 'sparse_ids', 'expert_shard',
+                              'expert_shard_axis'):
                     if hasattr(v, extra):
                         setattr(nv, extra, getattr(v, extra))
                 nb.vars[name] = nv

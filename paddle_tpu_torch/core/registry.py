@@ -12,6 +12,8 @@ that must (``register(..., host_bound=True)``: the startup ops that draw
 initial values on the host) keep every plan that holds them eager.
 """
 
+import functools
+
 import numpy as np
 import torch
 
@@ -100,6 +102,47 @@ def op_key(seed, op_index):
     return mix32(mix32(int(seed) & MASK32) ^ (int(op_index) & MASK32))
 
 
+def check_no_mesh(ctx):
+    """The expert-parallel and pipelined schedules need a mesh, which the
+    port does not have yet."""
+    program = ctx.block.program
+    if getattr(program, 'pipeline', None) or \
+            getattr(program, 'mesh', None) is not None:
+        raise NotImplementedError(
+            '%s: programs on a mesh (expert parallelism, the pipelined '
+            'stack, ring attention) are not ported; ROADMAP Queue 1 item 9'
+            % ctx.op.type)
+
+
+# aten ops whose outputs the 'dots_saveable' remat policy keeps (what
+# jax.checkpoint_policies.dots_saveable keeps: the dot products and the
+# convolutions)
+_DOTS = ('mm', 'addmm', 'bmm', 'baddbmm', 'matmul', 'convolution')
+
+
+def checkpointed(policy, fn, *args):
+    """fn(*args) under torch.utils.checkpoint (non-reentrant) with a remat
+    policy (memory_optimize): 'full' and 'nothing_saveable' save nothing,
+    'dots_saveable' keeps the matmul-class and convolution outputs through
+    selective checkpointing. The kernels launched through ctypes are no aten ops:
+    their autograd Functions run again in the recompute under every
+    policy. No RNG state is saved: the dropout bits are keyed on the step
+    tensor, and reading the CUDA generator would break a capture."""
+    from torch.utils import checkpoint as ckpt
+    context = ckpt.noop_context_fn
+    if policy == 'dots_saveable':
+        dots = {getattr(torch.ops.aten, n) for n in _DOTS}
+
+        def save_dots(ctx, op, *a, **kw):
+            return ckpt.CheckpointPolicy.MUST_SAVE \
+                if getattr(op, 'overloadpacket', op) in dots \
+                else ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+        context = functools.partial(ckpt.create_selective_checkpoint_contexts,
+                                    save_dots)
+    return ckpt.checkpoint(fn, *args, use_reentrant=False,
+                           preserve_rng_state=False, context_fn=context)
+
+
 class LoweringContext(object):
     """Execution context handed to each op lowering.
 
@@ -117,10 +160,16 @@ class LoweringContext(object):
     sparse_updates : the run's held row-sparse updates
                (ops/optimizer_ops.SparseUpdates), or None: a sparse
                update op then applies its table at once
+    remat    : the program's remat policy while the forward of a training
+               step runs under it (memory_optimize), else None: an op
+               writes no persistable in place (the backward's recompute
+               would write it again), and a layer stack checkpoints each
+               layer (``checkpointed``)
     """
 
     def __init__(self, env, op, block, op_index, device, seed=0, step=0,
-                 is_test=False, amp=None, reads=None, sparse_updates=None):
+                 is_test=False, amp=None, reads=None, sparse_updates=None,
+                 remat=None):
         self.env = env
         self.op = op
         self.block = block
@@ -132,6 +181,7 @@ class LoweringContext(object):
         self.amp = amp
         self._reads = reads
         self.sparse_updates = sparse_updates
+        self.remat = remat
 
     def _autocast(self, value):
         if self.amp != 'bf16' or value is None:
@@ -195,6 +245,13 @@ class LoweringContext(object):
     def out_dtype(self, slot, default='float32'):
         var = self.out_var(slot)
         return to_torch_dtype(var.dtype if var is not None else default)
+
+    def checkpointed(self, fn, *args):
+        """fn(*args), under the remat policy's checkpoint when there is
+        one."""
+        if self.remat is None:
+            return fn(*args)
+        return checkpointed(self.remat, fn, *args)
 
     # ---- randomness ----
     def generator(self, seed=0, step=False):

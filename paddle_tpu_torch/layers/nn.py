@@ -3,7 +3,7 @@ layers/nn.py; python/paddle/fluid/layers/nn.py). Same ops, slots,
 attributes, parameter names, shapes and initializers as the JAX package's
 layer functions."""
 
-from ..initializer import Constant, Normal
+from ..initializer import Constant, Normal, Xavier
 from .helper import LayerHelper
 
 __all__ = ['fc', 'embedding', 'conv2d', 'pool2d', 'batch_norm', 'layer_norm',
@@ -17,7 +17,7 @@ __all__ = ['fc', 'embedding', 'conv2d', 'pool2d', 'batch_norm', 'layer_norm',
            'im2sequence', 'multiplex', 'label_smooth', 'pad', 'maxout',
            'bilinear_tensor_product', 'nce', 'huber_loss', 'rank_loss',
            'margin_rank_loss', 'hinge_loss', 'log_loss', 'resize_bilinear',
-           'resize_nearest', 'modified_huber_loss']
+           'resize_nearest', 'modified_huber_loss', 'switch_moe']
 
 
 def _prod(xs):
@@ -789,3 +789,66 @@ def modified_huber_loss(x, y):
                      inputs={'X': [x], 'Y': [y]},
                      outputs={'Out': [out], 'IntermediateVal': [inter]})
     return out
+
+
+def switch_moe(input, num_experts, d_inner, capacity_factor=1.25,
+               top_k=1, param_attr=None, name=None):
+    """Mixture-of-experts FFN with a capacity limit and a load-balancing
+    aux loss (ops/moe_ops.py): top_k=1 is Switch routing (the raw router
+    probability as the gate), top_k >= 2 GShard's (renormalised gates,
+    capacity filled choice-major). The expert weights are stacked
+    [E, ...] and marked ``expert_shard`` as the reference marks them for
+    its 'ep' mesh axis. Returns (out, aux_loss); add ``aux_weight *
+    aux_loss`` (Switch uses 1e-2) to the training loss."""
+    import copy
+    from ..param_attr import ParamAttr
+    if not 1 <= top_k <= num_experts:
+        raise ValueError('switch_moe: top_k=%d must be in [1, '
+                         'num_experts=%d]' % (top_k, num_experts))
+    helper = LayerHelper('switch_moe', **locals())
+    dtype = input.dtype
+    d_model = input.shape[-1]
+    weight_attr = ParamAttr.to_attr(param_attr) if param_attr is not None \
+        else None
+    base = (weight_attr.name if weight_attr is not None and
+            weight_attr.name else name)
+
+    def _attr(suffix, bias=False):
+        # five parameters: a shared explicit name becomes a prefix; weight
+        # attrs keep the caller's other fields, biases stay default
+        a = ParamAttr() if (bias or weight_attr is None) \
+            else copy.copy(weight_attr)
+        a.name = '%s_%s' % (base, suffix) if base is not None else None
+        return a
+
+    gate_w = helper.create_parameter(
+        attr=_attr('gate.w'), shape=[d_model, num_experts], dtype=dtype)
+    w1 = helper.create_parameter(
+        attr=_attr('1.w'), shape=[num_experts, d_model, d_inner],
+        dtype=dtype,
+        default_initializer=Xavier(uniform=True, fan_in=d_model,
+                                   fan_out=d_inner))
+    b1 = helper.create_parameter(attr=_attr('1.b', bias=True),
+                                 shape=[num_experts, d_inner],
+                                 dtype=dtype, is_bias=True)
+    w2 = helper.create_parameter(
+        attr=_attr('2.w'), shape=[num_experts, d_inner, d_model],
+        dtype=dtype,
+        default_initializer=Xavier(uniform=True, fan_in=d_inner,
+                                   fan_out=d_model))
+    b2 = helper.create_parameter(attr=_attr('2.b', bias=True),
+                                 shape=[num_experts, d_model],
+                                 dtype=dtype, is_bias=True)
+    for p in (w1, b1, w2, b2):
+        p.expert_shard = True
+    out = helper.create_variable_for_type_inference(dtype)
+    out.shape = input.shape
+    aux = helper.create_variable_for_type_inference('float32')
+    aux.shape = ()
+    helper.append_op(
+        type='switch_moe',
+        inputs={'X': [input], 'GateW': [gate_w], 'W1': [w1], 'B1': [b1],
+                'W2': [w2], 'B2': [b2]},
+        outputs={'Out': [out], 'AuxLoss': [aux]},
+        attrs={'capacity_factor': capacity_factor, 'top_k': top_k})
+    return out, aux

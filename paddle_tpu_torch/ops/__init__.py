@@ -9,6 +9,7 @@ from . import decode_ops  # noqa: F401
 from . import lr_ops  # noqa: F401
 from . import math_ops  # noqa: F401
 from . import misc_ops  # noqa: F401
+from . import moe_ops  # noqa: F401
 from . import nn_ops  # noqa: F401
 from . import norm_ops  # noqa: F401
 from . import optimizer_ops  # noqa: F401

@@ -12,8 +12,9 @@ from .kernels.layer_norm import fused_layer_norm
 def _batch_norm(ctx):
     """Training: every shape goes through K5's autograd Function (kernel
     forward on the card); the running statistics move by ``momentum`` in
-    fp32, in place. is_test: the running statistics in plain torch, as the
-    JAX package does. Under bf16 AMP the op reads its raw bf16 X (ctx.input
+    fp32, in place (under a remat policy into new tensors). is_test: the
+    running statistics in plain torch, as the JAX package does. Under
+    bf16 AMP the op reads its raw bf16 X (ctx.input
     would up-cast it: batch_norm is blacklisted) and normalizes in bf16,
     y = x·a + b with a and b rounded to bf16, as the JAX package does."""
     raw_x = ctx.env[ctx.op.input('X')]
@@ -31,13 +32,17 @@ def _batch_norm(ctx):
             x, scale, bias, eps, layout=layout if x.dim() == 4 else 'NC')
         # the running statistics move in place where MeanOut / VarianceOut
         # name the Mean / Variance vars (the layer's layout): the scope's
-        # tensors keep their address, as a captured graph needs
+        # tensors keep their address, as a captured graph needs. Under a
+        # remat policy they are new tensors, which the executor copies
+        # into the scope's after the step: the backward's recompute of
+        # this op must not move them a second time
         for in_slot, out_slot, run, cur in (('Mean', 'MeanOut', mean,
                                              use_mean),
                                             ('Variance', 'VarianceOut',
                                              variance, use_var)):
             a, b = momentum * run, (1.0 - momentum) * cur.detach()
             if ctx.op.output(out_slot) == ctx.op.input(in_slot) and \
+                    ctx.remat is None and \
                     torch.result_type(a, b) == run.dtype:
                 new = torch.add(a, b, out=run)
             else:

@@ -120,8 +120,9 @@ def rsqrt(x):
 
 
 class _Relu(torch.autograd.Function):
-    """torch.relu with jax.nn.relu's gradient, g where x > 0 and 0 else,
-    NaN included (torch passes g at NaN); one kernel each way, only the
+    """torch.relu with jax.nn.relu's gradient, select(x > 0, g, 0): 0 at
+    x <= 0 and at a NaN x even where g is NaN or inf (torch's backward
+    passes g at a NaN x, a product g * 0 would be NaN there); only the
     result saved."""
 
     @staticmethod
@@ -133,7 +134,7 @@ class _Relu(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         out, = ctx.saved_tensors
-        return torch.ops.aten.leaky_relu_backward(g, out, 0.0, True)
+        return torch.where(out > 0, g, 0.0)
 
 
 def relu(x):

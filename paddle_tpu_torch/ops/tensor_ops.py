@@ -259,7 +259,10 @@ def _global_norm_clip(ctx):
 
 @register('assign')
 def _assign(ctx):
-    ctx.set_output('Out', ctx.input('X'))
+    """A copy, as the reference's immutable arrays give: the optimizer ops
+    update their parameters and moments in place, so a value assigned
+    from one before its update must not share its storage."""
+    ctx.set_output('Out', ctx.input('X').clone())
 
 
 @register('squeeze')

@@ -23,17 +23,32 @@ each step. The one-query attention over a cache (``_mha_one_step``) is
 plain torch, as it is an einsum outside any Pallas kernel in the JAX
 package; the layer norms are K1.
 
+``moe_layer_stack`` runs n_layer Switch-MoE blocks over weights stacked
+the same way (expert weights [n_layer, E, ...]): a Python loop over the
+layers, each the math of models/moe.py's unrolled block: causal fused
+attention (K2 / K3), residual + layer norm (K1), the slot-form MoE FFN
+(moe_ops.switch_moe_slots), residual + layer norm. Its one dropout site a
+layer is the attention output's, as the reference's; the layers' aux
+losses are summed in fp32.
+
+Under a remat policy (memory_optimize) both stacks run each layer as its
+own checkpoint (``ctx.checkpointed``), so the backward recomputes one
+layer at a time and holds one layer's activations.
+
 Not ported: the pipelined stack (the JAX package's GPipe schedule over a
-'pp' mesh axis), ring attention inside the stack, and moe_layer_stack.
+'pp' mesh axis) and ring attention inside the stack (ROADMAP Queue 1
+item 9).
 """
 
 import torch
 
-from ..core.registry import mix32, op_key, register
+from ..core.registry import check_no_mesh, mix32, op_key, register
 from .attention_ops import fused_attention
 from .decode_ops import beam_backtrack, beam_search_step
 from .kernels import random_bits
 from .kernels.layer_norm import fused_layer_norm
+from .moe_ops import moe_capacity, switch_moe_slots
+from .pointwise import relu
 from .tensor_ops import top_k
 
 ENC_SLOTS = ('slf_q', 'slf_k', 'slf_v', 'slf_o', 'ln1_w', 'ln1_b',
@@ -113,23 +128,14 @@ def _attn(x, mem, p, pre, n_head, causal, key_length, sites, layer, site,
 
 
 def _ffn(x, p, sites, layer, site, is_test):
-    h = torch.relu(x @ p['ffn_w1'] + p['ffn_b1'])
+    h = relu(x @ p['ffn_w1'] + p['ffn_b1'])
     h = _dropout(h, sites, layer, site, is_test)
     return h @ p['ffn_w2'] + p['ffn_b2']
 
 
-def _check_no_mesh(ctx):
-    program = ctx.block.program
-    if getattr(program, 'pipeline', None) or \
-            getattr(program, 'mesh', None) is not None:
-        raise NotImplementedError(
-            '%s: the pipelined stack and ring attention on a mesh are not '
-            'ported' % ctx.op.type)
-
-
 @register('transformer_layer_stack')
 def _transformer_layer_stack(ctx):
-    _check_no_mesh(ctx)
+    check_no_mesh(ctx)
     x = ctx.input('X')
     is_decoder = ctx.has_input('EncOut')
     enc_out = ctx.input('EncOut') if is_decoder else None
@@ -147,8 +153,7 @@ def _transformer_layer_stack(ctx):
             enc_out = enc_out.to(torch.bfloat16)
     sites = _Sites(ctx, rate, 6 if is_decoder else 4) if rate else None
 
-    h = x
-    for i, p in enumerate(_per_layer(params)):
+    def layer(h, i, p):
         slf = _attn(h, h, p, 'slf', n_head, is_decoder,
                     None if is_decoder else key_length, sites, i, 0,
                     is_test)
@@ -158,9 +163,58 @@ def _transformer_layer_stack(ctx):
                           sites, i, 4, is_test)
             h = _post_process(h, cross, p, sites, i, 5, is_test, 'ln2')
         ffn = _ffn(h, p, sites, i, 2, is_test)
-        h = _post_process(h, ffn, p, sites, i, 3, is_test,
-                          'ln3' if is_decoder else 'ln2')
+        return _post_process(h, ffn, p, sites, i, 3, is_test,
+                             'ln3' if is_decoder else 'ln2')
+
+    h = x
+    for i, p in enumerate(_per_layer(params)):
+        h = ctx.checkpointed(layer, h, i, p)
     ctx.set_output('Out', h)
+
+
+MOE_SLOTS = ('slf_q', 'slf_k', 'slf_v', 'slf_o', 'ln1_w', 'ln1_b',
+             'gate_w', 'moe_w1', 'moe_b1', 'moe_w2', 'moe_b2',
+             'ln2_w', 'ln2_b')
+
+
+@register('moe_layer_stack')
+def _moe_layer_stack(ctx):
+    """n_layer MoE blocks over [n_layer, ...] stacked weights; Out and the
+    layers' summed AuxLoss. Under bf16 AMP the router weight and the layer
+    norms' parameters stay fp32. Capacity is that of b * t tokens."""
+    check_no_mesh(ctx)
+    n_head = ctx.attr('n_head', 1)
+    rate = ctx.attr('dropout_rate', 0.0)
+    k = ctx.attr('top_k', 1)
+    is_test = ctx.attr('is_test', False) or ctx.is_test
+    params = {s: ctx.env[ctx.op.input(_slot_to_input(s))]
+              for s in MOE_SLOTS}
+    x = ctx.input('X')
+    if ctx.amp == 'bf16':
+        x = x.to(torch.bfloat16)
+        params = {s: v if s.startswith('ln') or s == 'gate_w'
+                  else v.to(torch.bfloat16) for s, v in params.items()}
+    b, t, d = x.shape
+    capacity = moe_capacity(ctx.attr('capacity_factor', 1.25), k, b * t,
+                            params['gate_w'].shape[-1])
+    sites = _Sites(ctx, rate, 1) if rate else None
+    def layer(h, i, p):
+        slf = _attn(h, h, p, 'slf', n_head, True, None, sites, i, 0,
+                    is_test)
+        h = _post_process(h, slf, p, None, i, 0, is_test, 'ln1')
+        out, aux, _, _ = switch_moe_slots(
+            h.reshape(b * t, d), p['gate_w'], p['moe_w1'], p['moe_b1'],
+            p['moe_w2'], p['moe_b2'], capacity, k)
+        return _post_process(h, out.reshape(b, t, d), p, None, i, 0,
+                             is_test, 'ln2'), aux
+
+    h = x
+    aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, p in enumerate(_per_layer(params)):
+        h, aux = ctx.checkpointed(layer, h, i, p)
+        aux_sum = aux_sum + aux
+    ctx.set_output('Out', h)
+    ctx.set_output('AuxLoss', aux_sum)
 
 
 # --------------------------------------------------------- incremental decode

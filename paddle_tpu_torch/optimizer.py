@@ -1,6 +1,7 @@
 """Optimizers (reference: paddle_tpu optimizer.py;
 python/paddle/fluid/optimizer.py): SGD, Momentum, Adagrad, Adam, Adamax,
-DecayedAdagrad, Adadelta, RMSProp, Ftrl and ProximalAdagrad.
+DecayedAdagrad, Adadelta, RMSProp, Ftrl and ProximalAdagrad, and the
+GradientAccumulator wrapper.
 
 minimize() appends, in the reference's order, the backward marker, the
 gradient clips (clip.py: a parameter's ``gradient_clip_attr`` or the
@@ -474,3 +475,126 @@ Adadelta = AdadeltaOptimizer
 RMSProp = RMSPropOptimizer
 Ftrl = FtrlOptimizer
 ProximalAdagrad = ProximalAdagradOptimizer
+
+
+class GradientAccumulator(object):
+    """Gradient accumulation (reference: paddle_tpu optimizer.py
+    GradientAccumulator): wraps any optimizer so that its update applies
+    every ``accum_steps`` executor steps, with the mean of the gradients
+    accumulated over them: the effective batch is accum_steps x the
+    micro-batch without the memory of the large batch.
+
+    No host branch: every step runs the same ops (one CUDA graph on the
+    card, and ``run_steps`` chains it). For each (param, grad), acc +=
+    grad and the inner update reads acc / accum_steps; every persistable
+    var the inner update writes (parameters, moments, beta pows) is copied
+    before the update ops (``assign``, a copy: the update works in place)
+    and blended back as ``snap + (new - snap) * flag``, flag = [phase ==
+    accum_steps - 1]; the accumulators and the phase reset on the apply
+    step. Row-sparse gradients cannot accumulate (each step's rows index
+    other ids), so the wrapped region takes dense gradients.
+
+    As in the reference: a clip or regularizer of the inner optimizer
+    applies to each micro gradient; a learning-rate schedule's counter
+    advances every micro step, while a ``global_step`` counter written
+    inside the inner update counts applied updates."""
+
+    def __init__(self, optimizer, accum_steps):
+        if int(accum_steps) != accum_steps or accum_steps < 1:
+            raise ValueError('accum_steps must be a positive integer, '
+                             'got %r' % (accum_steps,))
+        self._inner = optimizer
+        self._k = int(accum_steps)
+
+    def minimize(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None):
+        from . import layers as _layers
+        inner = self._inner
+        k = self._k
+        if k == 1:
+            return inner.minimize(loss, startup_program, parameter_list,
+                                  no_grad_set)
+        # the dense path for the gated region: an instance-level value
+        # (lazy_mode sets one) is saved and restored, not popped
+        had = '_supports_sparse_update' in inner.__dict__
+        saved = inner.__dict__.get('_supports_sparse_update')
+        inner.__dict__['_supports_sparse_update'] = False
+        try:
+            main_program, startup_program, params_grads = \
+                inner._minimize_prologue(loss, startup_program,
+                                         parameter_list, no_grad_set)
+        finally:
+            if had:
+                inner.__dict__['_supports_sparse_update'] = saved
+            else:
+                inner.__dict__.pop('_supports_sparse_update', None)
+        block = main_program.global_block()
+        with program_guard(main_program, startup_program):
+            helper = LayerHelper('grad_accum')
+            phase = block.create_var(name=unique_name.generate(
+                'grad_accum_phase'), shape=(1,), dtype='float32',
+                persistable=True)
+            phase.stop_gradient = True
+            Constant(0.0)(phase)
+            boundary = _layers.fill_constant(shape=[1], dtype='float32',
+                                             value=float(k - 1))
+            flag = _layers.cast(_layers.equal(x=phase, y=boundary),
+                                'float32')            # 1.0 on apply steps
+            keep = _layers.scale(flag, scale=-1.0, bias=1.0)
+
+            # acc += grad; the inner update reads the mean gradient
+            accs = []
+            for p, g in params_grads:
+                acc = block.create_var(
+                    name=unique_name.generate(p.name + '_grad_acc'),
+                    shape=p.shape, dtype=p.dtype, persistable=True)
+                acc.stop_gradient = True
+                Constant(0.0)(acc)
+                helper.append_op(type='elementwise_add',
+                                 inputs={'X': [acc], 'Y': [g]},
+                                 outputs={'Out': [acc]})
+                helper.append_op(type='scale', inputs={'X': [acc]},
+                                 outputs={'Out': [g]},
+                                 attrs={'scale': 1.0 / k})
+                accs.append(acc)
+
+            mark = len(block.ops)
+            optimize_ops = inner._create_optimization_pass(
+                params_grads, loss, startup_program)
+
+            # every persistable var the inner update wrote: a copy before
+            # the update ops, the blend after them
+            written, seen = [], set()
+            for op in block.ops[mark:]:
+                for n in op.output_names():
+                    v = block._find_var_recursive(n)
+                    if v is not None and v.persistable and n not in seen:
+                        seen.add(n)
+                        written.append(v)
+            insert_at = mark
+            snaps = {}
+            for v in written:
+                snap = helper.create_variable_for_type_inference(v.dtype)
+                snap.shape = v.shape
+                helper.append_op(type='assign', inputs={'X': [v]},
+                                 outputs={'Out': [snap]})
+                block.ops.insert(insert_at, block.ops.pop())
+                insert_at += 1
+                snaps[v.name] = snap
+            for v in written:
+                snap = snaps[v.name]
+                delta = _layers.elementwise_sub(x=v, y=snap)
+                gated = _layers.elementwise_mul(x=delta, y=flag)
+                helper.append_op(type='elementwise_add',
+                                 inputs={'X': [snap], 'Y': [gated]},
+                                 outputs={'Out': [v]})
+            for acc in accs:  # reset on apply steps
+                helper.append_op(type='elementwise_mul',
+                                 inputs={'X': [acc], 'Y': [keep]},
+                                 outputs={'Out': [acc]})
+            bumped = _layers.scale(phase, scale=1.0, bias=1.0)
+            gated_phase = _layers.elementwise_mul(x=bumped, y=keep)
+            helper.append_op(type='assign',
+                             inputs={'X': [gated_phase]},
+                             outputs={'Out': [phase]})
+        return optimize_ops, params_grads

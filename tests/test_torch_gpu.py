@@ -5,7 +5,9 @@ against the same step on the host, the NMT inference graphs (greedy
 and beam, unrolled and incremental) on the card against the host, and
 the training lifecycle: a captured step with an LR schedule, a
 global-norm clip and L2 decay against eager, a checkpoint restored into
-a live executor (a replay), and a Trainer's resume, bit for bit.
+a live executor (a replay), and a Trainer's resume, bit for bit; the
+Switch-MoE slot form against its plain copy, the MoE LM, remat and
+gradient accumulation at tiny widths.
 
 Marked ``gpu``; each test decides inside itself whether a card exists and
 skips without one. This file imports no jax, so it also runs on a machine
@@ -2512,3 +2514,147 @@ def test_scatter_repeated_ids_card_equals_host(cuda):
     for mode in ('eager', 'captured'):
         for a, b in zip(got[mode], got['host']):
             np.testing.assert_array_equal(a, b)
+
+
+# ------------------------------------------------- the Switch-MoE slice
+TINY = dict(n_layer=2, n_head=2, d_key=8, d_value=8, d_model=16, d_inner=32)
+
+
+@pytest.mark.parametrize('k', [1, 2])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_moe_slots_on_card_match_plain(cuda, k, dtype):
+    """The slot form on the card against the port's plain copy of the
+    reference's dense einsums on the same card inputs: fp32 (TF32 off)
+    within rtol 1e-5, atol 1e-6 for the output, the aux loss and the
+    gradients of x and the experts' weights, and the router weight's
+    gradient within 1e-5 of |plain| plus its largest magnitude (it sums
+    512 tokens' terms in another order; one element was 5.4e-6 off
+    against atol 1e-6); bf16 4 bf16 ulps of the largest magnitude; the
+    expert ids
+    equal; and two runs bit for bit (no float atomics)."""
+    from paddle_tpu_torch.ops import moe_ops as M
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    s, d, e, h = 512, 64, 8, 128
+    cap = M.moe_capacity(1.25, k, s, e)
+    x = torch.randn(s, d, generator=gen, device=cuda).to(dtype)
+    gw = torch.randn(d, e, generator=gen, device=cuda)
+    ws = [(torch.randn(*shape, generator=gen, device=cuda) * 0.1).to(dtype)
+          for shape in ((e, d, h), (e, h), (e, h, d), (e, d))]
+    runs = []
+    for fn in (M.switch_moe_slots, M.switch_moe_slots,
+               M.switch_moe_reference):
+        ins = [t.clone().requires_grad_() for t in [x, gw] + ws]
+        res = fn(*ins, cap, k)
+        grads = torch.autograd.grad(res[0].float().sum() + res[1], ins)
+        runs.append([res[0], res[1], res[2]] + list(grads))
+    for a, b in zip(runs[0], runs[1]):
+        assert torch.equal(a, b)
+    assert torch.equal(runs[0][2], runs[2][2])
+    names = ['out', 'aux', None, 'x', 'gate_w', 'w1', 'b1', 'w2', 'b2']
+    for name, a, b in zip(names, runs[0], runs[2]):
+        if name is None:
+            continue
+        a, b = a.float(), b.float()
+        if dtype == torch.float32 and name == 'gate_w':
+            assert ((a - b).abs() <= 1e-5 * (b.abs() + b.abs().max())).all()
+        elif dtype == torch.float32:
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6, msg=name)
+        else:
+            bound = 4 * 2.0 ** -8 * b.abs().max()
+            assert (a - b).abs().max() <= bound
+
+
+def test_moe_lm_card_equals_host_and_replays(cuda):
+    """chip_smoke phase 18a's small width (2 layers, d_model 64, 4
+    experts, top-1 and top-2, unrolled and scan_layers): the card against
+    the host over 3 Adam steps from the same weights (fp32 rtol 1e-4, bf16
+    2e-2), and scan against unrolled through stack_moe_trained_weights
+    (rtol 1e-5)."""
+    import chip_smoke
+    small, (rel, stacked, _) = chip_smoke._moe_small(
+        torch, pt, (pt.CUDAPlace(0), pt.CPUPlace()))
+    assert len(small) == 8 and rel <= 1e-5 and stacked == 13
+
+
+def test_moe_lm_captured_counts_and_bits(cuda):
+    """The MoE LM at a tiny width on the card (bf16, dropout 0.1): the
+    timed captured steps launch K2, K3, K1 and the fused dropout the
+    counts worked out from the program, and 3 captured steps equal 3 eager
+    ones and a second captured run bit for bit (chip_smoke phase 18a)."""
+    import chip_smoke
+    dims = dict(chip_smoke.MOE_SMALL, top_k=2)
+    runs, out, _ = chip_smoke.phase_moe(
+        torch, pt, pt.CUDAPlace(0), 'card', True, batch=8, seq=32,
+        vocab=256, dims=dims, steps=20)
+    assert len(runs) == 2
+    assert all(v for b in out['bits'].values() for v in b.values())
+
+
+def test_remat_on_card_is_bit_for_bit_in_one_graph(cuda):
+    """memory_optimize level 0 and 1 on the card at a tiny width: the
+    Transformer (unrolled and scan_layers), the MoE LM and a small
+    bottleneck ResNet (batch norms) equal no remat bit for bit after 3
+    steps, parameters and running statistics, each run one CUDA graph
+    (chip_smoke phase 18b; the peak drop is its check at full width)."""
+    import chip_smoke
+    tiny_moe = dict(chip_smoke.MOE_SMALL, n_layer=2, d_model=16,
+                    d_inner=32, n_head=2, top_k=1)
+    out = chip_smoke.phase_remat(
+        torch, pt, pt.CUDAPlace(0), 'card', True, batch=4, seq=8, vocab=64,
+        base=TINY, moe_batch=4, moe_dims=tiny_moe, resnet=(4, 16, 10, True),
+        steps=2, require_drop=False)
+    assert all(r['same_bits'] and r['captures'] == 1
+               for rows in out.values() for r in rows.values())
+
+
+def test_grad_accumulator_on_card(cuda):
+    """GradientAccumulator(Adam, 4) at a tiny width on the card: the gated
+    steps leave the parameters, the mean gradient equals the big batch's,
+    8 micro steps against 2 big-batch steps, captured == eager and
+    run_steps == run bit for bit (chip_smoke phase 18c)."""
+    import chip_smoke
+    out = chip_smoke.phase_accum(torch, pt, pt.CUDAPlace(0), 'card', True,
+                                 seq=8, vocab=64, base=TINY, micro=2)
+    assert out['gated_same'] and out['captured_eq_eager'] and \
+        out['run_steps_eq_run']
+
+
+@pytest.mark.parametrize('level', [0, 1])
+def test_remat_recompute_gives_k2_bits(cuda, level, monkeypatch):
+    """Under memory_optimize(level) the backward runs each K2 forward
+    again (the kernel is launched through ctypes, no aten op: selective
+    checkpointing recomputes it under both levels); each recomputed
+    output and log-sum-exp equals one first forward's bit for bit (the
+    backward recomputes the segments last first)."""
+    from paddle_tpu_torch.models import transformer as T
+    calls = []
+    orig = tfa.flash_attention_fwd
+
+    def recorded(*args, **kwargs):
+        out, lse = orig(*args, **kwargs)
+        calls.append((out.detach().clone(), lse.detach().clone()))
+        return out, lse
+    monkeypatch.setattr(tfa, 'flash_attention_fwd', recorded)
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        avg, _ = T.transformer_base(
+            src_vocab_size=64, trg_vocab_size=64, src_seq_len=16,
+            trg_seq_len=16, dropout_rate=0.1, **TINY)
+        pt.optimizer.Adam(learning_rate=1e-3).minimize(avg)
+    main.amp = 'bf16'
+    pt.memory_optimize(main, level=level)
+    exe = pt.Executor(pt.CUDAPlace(0))
+    with pt.scope_guard(pt.Scope()):
+        exe.run(startup)
+        del calls[:]
+        exe.run(main, feed=T.make_fake_batch(4, 16, 16, 64, 64),
+                fetch_list=[avg], use_program_cache=False)
+    n = len(calls) // 2
+    assert n == 3 * TINY['n_layer'] and len(calls) == 2 * n
+    first = calls[:n]
+    for o2, l2 in calls[n:]:
+        same = [i for i, (o1, l1) in enumerate(first)
+                if o1.shape == o2.shape and torch.equal(o1, o2) and
+                torch.equal(l1, l2)]
+        assert same, 'a recomputed attention differs from every first one'
+        del first[same[0]]
