@@ -4,11 +4,13 @@ ResNet-50 training, NMT inference, the training lifecycle (Trainer,
 checkpoints and resume, inference-model export), disaggregated decode
 serving (the KV page handoff, PhaseRouter), Wide&Deep CTR training
 with row-sparse embedding gradients, the public layers (an encoder
-layer built from them, every new and repaired op), the staging ring and
-the Switch-MoE LM, remat and gradient accumulation on one CUDA card.
+layer built from them, every new and repaired op), the staging ring,
+the Switch-MoE LM, remat and gradient accumulation, and the recurrent
+and sequence path (bench_rnn_lstm, the LSTM and GRU cell kernels, the
+sequence models) on one CUDA card.
 
     python3 chip_smoke.py                  # on a machine with one H100
-    python3 chip_smoke.py --cpu-rehearsal  # phases 4-18 on the host, tiny
+    python3 chip_smoke.py --cpu-rehearsal  # phases 4-19 on the host, tiny
 
 Every path runs through the executor's CUDA graphs (one a key, captured on
 its second call; core/executor.py), and phase 11 holds each against the
@@ -327,14 +329,38 @@ Phases (any fault exits non-zero; no phase is skipped over):
    to the micro-batches' summed in its order, the parameters after 8
    micro steps against 2 Adam steps at batch 64 beside a permuted-batch
    control, captured == eager and run_steps(4) == 4 runs bit for bit.
+19. The recurrent and sequence path. (a) bench.py's bench_rnn_lstm
+   (benchmark/paddle/rnn: vocab 30000, batch 128 x seq 100, embedding
+   128, one LSTM of hidden 128, Adam(2e-3) with L2Decay(8e-4) and
+   element-wise clipping at 25, bf16) built by
+   models/seq_models.lstm_text_classifier, the fluid layers the
+   reference's v1 shim lowers it to: 3 warm-up and 20 timed captured
+   steps (ms a step, tokens/s, MFU, peak memory), exactly 100 LSTM cell
+   launches forward and 100 backward a step; at batch 8 x seq 16 with
+   ragged lengths 3 fp32 steps card against host (losses rtol 1e-5); at
+   width 3 captured steps against 3
+   eager ones and one run_steps(3), bit for bit. (b) stacked_lstm_net at
+   its defaults, stacked_gru_tagger, convolution_net and srl_tagger with
+   srl_decode at batch 64 x seq 100 (lengths 1-100, vocab 5147, SGD):
+   ms a step captured (one graph), cell launches, 3 steps card against
+   host (rtol 1e-4). (c) each cell kernel (csrc/rnn_cell.cu: LSTM
+   forward, backward; GRU forward, backward, two launches a step each)
+   against its plain version at fp32 and bf16, at the bench step, ragged
+   lengths, all padding and every activation, each twice for equal bits;
+   timed at the bench step beside its bound and, for the LSTM, torch's
+   fused LSTM cell and its backward; the whole recurrences card against
+   host at fp32 (ragged, reverse, length 0), and the LSTM recurrence
+   beside torch.nn.LSTM (cuDNN at fp16 and fp32). (d) the 22 op types of
+   the slice in one captured program (B 16, T 24, lengths 0-24), fp32
+   and bf16 AMP, card against host (exact, or recurrence_difference).
 
 The last line is {"ok": true, "device": {...}}; before it come one JSON
 line with every kernel's numbers (and phase 13's under "lifecycle":
 tokens/s a depth, launches a step, checkpoint bytes, save, restore and
 export seconds; phase 14's under "disagg"; phase 15's under "ctr";
 phase 16's under "layers"; phase 17's under "staging"; phase 18's under
-"moe") and nvidia-smi's name and power limit.
---cpu-rehearsal runs phases 4-18 at tiny sizes with the plain versions
+"moe"; phase 19's under "rnn") and nvidia-smi's name and power limit.
+--cpu-rehearsal runs phases 4-19 at tiny sizes with the plain versions
 (phases 8, 10, 11, 13d and 15 then compare the host with itself) and
 never prints that last line. --profile adds, after every other phase, a torch.profiler
 breakdown of decode steps (fp32 and int8 arenas, captured and eager),
@@ -507,7 +533,9 @@ def phase_build():
                    'bn_bwd_kernel', 'ln_warp_kernel', 'ln_bwd_rows_kernel',
                    'ln_bwd_cols_kernel', 'kv_write_kernel',
                    'keep_mask_kernel', 'dropout_kernel',
-                   'sparse_rows_group_kernel'):
+                   'sparse_rows_group_kernel', 'lstm_cell_fwd_kernel',
+                   'lstm_cell_bwd_kernel', 'gru_cell_fwd_kernel',
+                   'gru_cell_bwd_kernel'):
         require(kernel in res.log, 'ptxas\'s log does not show %s' % kernel)
     print('  flash attention dynamic shared memory at D=64: tensor-core '
           'forward %d B, SIMT forward %d B, SIMT dK/dV %d B, SIMT dQ %d B, '
@@ -6713,10 +6741,853 @@ def phase_accum(torch, pt, place, card, on_card, seq=64, vocab=VOCAB,
                 run_steps_eq_run=same['run_steps'])
 
 
+# ------------------------------------------------------------- phase 19
+# the recurrent and sequence path: bench.py's bench_rnn_lstm
+# (benchmark/paddle/rnn: IMDB stacked-LSTM sentiment) at its width, the
+# sequence models, the LSTM and GRU cell kernels, the new op types
+RNN_BENCH = dict(batch=128, seq=100, vocab=30000, hidden=128)
+# the IMDB word dictionary of the book's understand_sentiment chapter
+IMDB_VOCAB = 5147
+RNN_CELL_TOL = ('fp32: |kernel - plain| <= 1e-6 * max(1, max|plain|) (the '
+                'fp32 carries 1e-5); bf16: within 1 bf16 ulp of max(|kernel|, '
+                '|plain|) + 1e-6 (each value rounded once, on either side of '
+                'a rounding boundary)')
+
+
+def _build_rnn_lstm(pt, vocab, hidden, amp):
+    """bench_rnn_lstm's program through the port's layers
+    (models/seq_models.lstm_text_classifier: the v1 shim's lowering), on
+    the default programs, amp set on the main program."""
+    from paddle_tpu_torch.models import seq_models
+    pt.reset_default_programs()
+    _, avg = seq_models.lstm_text_classifier(vocab, hidden_dim=hidden)
+    pt.default_main_program().amp = amp
+    return avg
+
+
+def rnn_lstm_feed(batch, seq, vocab, lens=None, seed=0):
+    """bench_rnn_lstm's feed: random words in [1, vocab), every length
+    ``seq`` (or ``lens``), random labels."""
+    rng = np.random.RandomState(seed)
+    lens = np.full(batch, seq) if lens is None else np.asarray(lens)
+    return {'data': rng.randint(1, vocab, (batch, seq)).astype('int64'),
+            'data_len': lens.astype('int32'),
+            'label': rng.randint(0, 2, (batch, 1)).astype('int64')}
+
+
+def rnn_want(lstm_steps=0, gru_steps=0):
+    """The cell launches of ``lstm_steps`` LSTM and ``gru_steps`` GRU
+    positions run forward and backward (a GRU position: two launches each
+    way)."""
+    return dict(lstm_cell_fwd=lstm_steps, lstm_cell_bwd=lstm_steps,
+                gru_cell_fwd=2 * gru_steps, gru_cell_bwd=2 * gru_steps)
+
+
+def rnn_lstm_flops(batch, seq, vocab, hidden, emb=128):
+    """Analytic FLOPs of one training step (3x the forward's matmuls): the
+    input projection, the recurrent product a position, the classifier."""
+    t = batch * seq
+    fwd = 2.0 * t * emb * 4 * hidden + 2.0 * t * hidden * 4 * hidden + \
+        2.0 * batch * hidden * 2
+    return 3.0 * fwd
+
+
+def _rnn_timed(torch, pt, place, card, on_card, batch, seq, vocab, hidden,
+               warmup, steps):
+    """19a: bench_rnn_lstm captured, bf16: ``warmup`` then ``steps`` timed
+    steps; returns (launches of the timed steps, row)."""
+    t0 = time.perf_counter()
+    avg = _build_rnn_lstm(pt, vocab, hidden, 'bf16')
+    program = pt.default_main_program()
+    n_params = sum(int(np.prod(p.shape)) for p in program.all_parameters())
+    exe = pt.Executor(place)
+    with pt.scope_guard(pt.Scope()):
+        exe.run(pt.default_startup_program())
+        feed = {n: torch.as_tensor(v).to(exe.device)
+                for n, v in rnn_lstm_feed(batch, seq, vocab).items()}
+        base = 0
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        t1 = time.perf_counter()
+        _, first = _train_steps(torch, exe, feed, avg, warmup, on_card)
+        reset_launches()
+        secs, losses = _train_steps(torch, exe, feed, avg, steps, on_card)
+        launches = read_launches()
+        captured = exe.last_captured
+        peak = torch.cuda.max_memory_allocated() if on_card else 0
+    losses = first + losses
+    ms = secs * 1e3 / steps
+    flops = rnn_lstm_flops(batch, seq, vocab, hidden)
+    row = dict(ms=ms, tokens_per_s=batch * seq * steps / secs,
+               mfu=flops / (ms / 1e3) / BF16_FLOPS, peak_gb=peak / 1e9,
+               above_resident_gb=(peak - base) / 1e9, params=n_params,
+               loss_first=losses[0], loss_last=losses[-1])
+    want = rnn_want(lstm_steps=seq * steps)
+    print('phase 19a bench_rnn_lstm: vocab %d, %d params, batch %d x seq %d, '
+          'emb 128, hidden %d, Adam(2e-3) + L2Decay(8e-4) + value clip 25, '
+          'amp bf16; build + startup %.2f s; %d timed steps after %d '
+          'warm-up: %.3f ms/step, %.1f tokens/s, analytic %.4g GFLOP/step, '
+          'MFU %.5f; max_memory_allocated %.3f GB, %.3f GB above the '
+          'resident state; loss first %.5f last %.5f; cell launches %s '
+          '(want %s: one LSTM cell a position, forward and backward) [%s]'
+          % (vocab, n_params, batch, seq, hidden, t1 - t0, steps, warmup, ms,
+             row['tokens_per_s'], flops / 1e9, row['mfu'], row['peak_gb'],
+             row['above_resident_gb'], losses[0], losses[-1],
+             {k: launches[k] for k in want}, want, card))
+    require(np.isfinite(losses).all(), 'bench_rnn_lstm: loss not finite')
+    require(losses[-1] < losses[0], 'bench_rnn_lstm: loss did not fall: %s'
+            % losses)
+    if on_card:
+        require(captured and exe.captures == 1, 'bench_rnn_lstm: the timed '
+                'steps did not replay one graph (%d captures)'
+                % exe.captures)
+        require(all(launches[k] == n for k, n in want.items()),
+                'bench_rnn_lstm launch counts %s, want %s'
+                % ({k: launches[k] for k in want}, want))
+    return launches, row
+
+
+def _rnn_small(torch, pt, places, vocab, hidden, batch=8, seq=16,
+               steps=3):
+    """19a at batch 8 x seq 16 with ragged lengths (0 and seq among them),
+    fp32 (TF32 off): (the card's losses, the host's, the largest relative
+    difference; held to 1e-5)."""
+    lens = np.array([seq, 0, 5, 1, seq, 9, 3, 12][:batch])
+    feed = rnn_lstm_feed(batch, seq, vocab, lens=lens, seed=5)
+    card, host = _compare_places(
+        torch, pt, places, lambda: _build_rnn_lstm(pt, vocab, hidden, None),
+        feed, steps)
+    return card, host, max(abs(a - b) / abs(b) for a, b in zip(card, host))
+
+
+def seq_model_builds(pt, seq, vocab=IMDB_VOCAB, small=False):
+    """{name: build} of the sequence models at their defaults (``small``:
+    narrow): each appends its layers and SGD(0.05) to the default programs
+    and returns the loss. Feeds: seq_model_feed."""
+    from paddle_tpu_torch.models import seq_models, srl
+
+    def data():
+        L = pt.layers
+        return (L.data(name='words', shape=[seq], dtype='int64'),
+                L.data(name='label', shape=[1], dtype='int64'),
+                L.data(name='length', shape=[], dtype='int64'))
+
+    def lstm_net():
+        w, lab, ln = data()
+        kw = dict(emb_dim=16, hid_dim=32) if small else {}
+        return seq_models.stacked_lstm_net(w, lab, vocab, length=ln,
+                                           **kw)[1]
+
+    def conv_net():
+        w, lab, ln = data()
+        kw = dict(emb_dim=8, hid_dim=8) if small else {}
+        return seq_models.convolution_net(w, lab, vocab, length=ln, **kw)[1]
+
+    def gru_tagger():
+        L = pt.layers
+        w = L.data(name='words', shape=[seq], dtype='int64')
+        target = L.data(name='target', shape=[seq, 1], dtype='int64')
+        ln = L.data(name='length', shape=[], dtype='int64')
+        kw = dict(emb_dim=8, hidden_dim=16) if small else {}
+        return seq_models.stacked_gru_tagger(w, target, vocab, 9, length=ln,
+                                             **kw)[1]
+
+    def srl_tagger():
+        L = pt.layers
+        word, mark, target = (L.data(name=n, shape=[seq], dtype='int64')
+                              for n in ('word', 'mark', 'target'))
+        ln = L.data(name='length', shape=[], dtype='int64')
+        kw = dict(emb_dim=8, hidden_dim=16) if small else {}
+        emission, _, avg = srl.srl_tagger(word, mark, target, vocab, 9,
+                                          length=ln, **kw)
+        srl.srl_decode(emission, length=ln)
+        return avg
+
+    def with_sgd(build):
+        def run():
+            pt.reset_default_programs()
+            loss = build()
+            pt.optimizer.SGD(learning_rate=0.05).minimize(loss)
+            return loss
+        return run
+    return {k: with_sgd(v) for k, v in (
+        ('stacked_lstm_net', lstm_net), ('stacked_gru_tagger', gru_tagger),
+        ('convolution_net', conv_net), ('srl_tagger', srl_tagger))}
+
+
+def seq_model_feed(name, batch, seq, vocab=IMDB_VOCAB, seed=19):
+    """A model's feed: lengths drawn from 1..seq, words in [1, vocab)."""
+    rng = np.random.RandomState(seed)
+    lens = rng.randint(1, seq + 1, batch).astype('int64')
+    if name == 'srl_tagger':
+        words = rng.randint(1, vocab, (batch, seq)).astype('int64')
+        marks = (rng.rand(batch, seq) < 0.2).astype('int64')
+        return {'word': words, 'mark': marks,
+                'target': ((words + marks) % 9).astype('int64'),
+                'length': lens}
+    feed = {'words': rng.randint(1, vocab, (batch, seq)).astype('int64'),
+            'length': lens}
+    if name == 'stacked_gru_tagger':
+        feed['target'] = rng.randint(0, 9, (batch, seq, 1)).astype('int64')
+    else:
+        feed['label'] = rng.randint(0, 2, (batch, 1)).astype('int64')
+    return feed
+
+
+def _seq_model_timed(torch, pt, place, on_card, build, feed, steps):
+    """``steps`` captured steps of ``build()``'s program after 2 warm-up:
+    (launches of the timed steps, ms a step, captured)."""
+    loss = build()
+    exe = pt.Executor(place)
+    with pt.scope_guard(pt.Scope()):
+        exe.run(pt.default_startup_program())
+        dfeed = {n: torch.as_tensor(v).to(exe.device)
+                 for n, v in feed.items()}
+        _train_steps(torch, exe, dfeed, loss, 2, on_card)
+        reset_launches()
+        secs, losses = _train_steps(torch, exe, dfeed, loss, steps, on_card)
+        launches = read_launches()
+    require(np.isfinite(losses).all(), 'a sequence model: loss not finite')
+    return launches, secs * 1e3 / steps, exe.last_captured and \
+        exe.captures == 1
+
+
+def _rnn_cell_inputs(torch, kind, b, t, d, dtype, gen, lens):
+    """Sequence tensors of one cell call at position t // 2 (the views the
+    recurrence hands the kernels), random in the ranges a step sees."""
+    dev = torch.device('cuda', 0)
+    g = 4 if kind == 'lstm' else 3
+
+    def r(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, generator=gen, device=dev)).to(
+            dtype)
+    return dict(
+        x=r(b, t, g * d, scale=0.5), mm=r(b, g * d if kind == 'lstm' else
+                                         2 * d, scale=0.5),
+        mm_c=r(b, d, scale=0.5), bias=r(g * d, scale=0.1),
+        seq=r(b, t, d, scale=0.5), cell=r(b, t, d), gates=torch.sigmoid(
+            r(b, t, g * d)).to(dtype), dh=r(b, t, d), dc=r(b, t, d),
+        dmm=r(b, d), carry=torch.randn(b, d, generator=gen, device=dev),
+        carry2=torch.randn(b, d, generator=gen, device=dev),
+        length=torch.as_tensor(lens, dtype=torch.int32, device=dev),
+        pos=t // 2)
+
+
+def _rnn_close(torch, got, want, dtype, fp32_carry=False):
+    """(largest difference, within RNN_CELL_TOL)."""
+    g, w = (np.asarray(v.float().cpu(), np.float64) for v in (got, want))
+    err = float(np.abs(g - w).max()) if g.size else 0.0
+    if dtype == torch.float32 or fp32_carry:
+        tol = (1e-5 if fp32_carry else 1e-6) * max(1.0, np.abs(w).max())
+        return err, bool(np.all(np.abs(g - w) <= tol))
+    return err, bool(np.all(np.abs(g - w) <= bf16_ulp(
+        np.maximum(np.abs(g), np.abs(w))) + 1e-6))
+
+
+def _rnn_cell_case(torch, card, kind, direction, dtype, b, t, d, lens, acts,
+                   gen, timed=False):
+    """One cell kernel (kind: 'lstm' or 'gru'; direction 'fwd' or 'bwd')
+    against its plain version on the same card tensors (the views of the
+    sequence tensors the recurrence hands it), each output within
+    RNN_CELL_TOL, run twice for equal bits; with ``timed``, its device ms
+    (graph replay of a step's launches: one for the LSTM, the two phases
+    for the GRU), the plain version's, the bound and the library call's
+    (torch's fused LSTM cell and its backward, the same gate order; the
+    GRU has none: torch's applies its reset gate after the product).
+    Returns the row."""
+    from paddle_tpu_torch.ops.kernels import rnn_cell as K
+    v = _rnn_cell_inputs(torch, kind, b, t, d, dtype, gen, lens)
+    p = v['pos']
+    x, bias, length = v['x'][:, p], v['bias'], v['length']
+    hp, cp = v['seq'][:, p - 1], v['cell'][:, p - 1]
+    if timed and kind == 'lstm':
+        # torch's fused cell on contiguous copies of the same inputs (its
+        # second bias zero: it adds both); its backward on its own
+        # forward's workspace
+        lib_in = (x.contiguous(), v['mm'], cp.contiguous(), bias,
+                  torch.zeros_like(bias))
+        _, cy, ws = torch.ops.aten._thnn_fused_lstm_cell(*lib_in)
+        lib_bwd = (v['dh'][:, p].contiguous(), cy, ws)
+    m = K.step_mask(length, p, b, x.device)
+    elt = x.element_size()
+    carries = [v['carry'].clone(), v['carry2'].clone()]
+    library, fp32 = None, ()
+    if kind == 'lstm' and direction == 'fwd':
+        outs = [torch.empty_like(v[k])[:, p] for k in ('seq', 'cell',
+                                                       'gates')]
+
+        def launch():
+            K.lstm_cell_fwd(x, v['mm'], bias, hp, cp, length, p, *outs, acts)
+
+        def plain():
+            return K.lstm_cell_reference(x, v['mm'], bias, hp, cp, m, acts,
+                                         dtype)
+        n_bytes = elt * (b * 10 * d + 4 * d + b * 6 * d) + 4 * b
+
+        def library():
+            return torch.ops.aten._thnn_fused_lstm_cell(*lib_in)
+    elif kind == 'lstm':
+        dh_out, gates, cell = v['dh'][:, p], v['gates'][:, p], \
+            v['cell'][:, p]
+        outs = [torch.empty_like(v['gates'])[:, p]] + carries
+
+        def launch():
+            K.lstm_cell_bwd(dh_out, None, v['dmm'], carries[0], carries[1],
+                            gates, cell, cp, length, p, outs[0], acts)
+
+        def plain():
+            return K.lstm_cell_reference_bwd(
+                dh_out, None, v['dmm'], v['carry'], v['carry2'], gates, cell,
+                cp, m, acts, dtype)
+        n_bytes = elt * b * 12 * d + 16 * b * d + 4 * b
+        fp32 = (1, 2)
+
+        def library():
+            return torch.ops.aten._thnn_fused_lstm_cell_backward_impl(
+                lib_bwd[0], None, lib_in[2], lib_bwd[1], lib_bwd[2], True)
+    elif direction == 'fwd':
+        gates = torch.empty_like(v['gates'])[:, p]
+        outs = [gates, torch.empty_like(v['seq'])[:, p],
+                torch.empty_like(v['seq'])[:, p]]
+
+        def launch():
+            K.gru_cell_fwd(0, x, bias, v['mm'], hp, length, p, gates,
+                           outs[1], acts)
+            K.gru_cell_fwd(1, x, bias, v['mm_c'], hp, length, p, gates,
+                           outs[2], acts)
+
+        def plain():
+            ur, rh = K.gru_cell_reference(0, x, bias, v['mm'], hp, None, m,
+                                          acts, dtype)
+            c, h = K.gru_cell_reference(1, x, bias, v['mm_c'], hp, ur, m,
+                                        acts, dtype)
+            return torch.cat([ur, c], -1), rh, h
+        n_bytes = elt * (b * 12 * d + 3 * d) + 4 * b
+    else:
+        dh_out, gates = v['dh'][:, p], v['gates'][:, p]
+        outs = [torch.empty_like(v['gates'])[:, p], carries[0]]
+
+        def launch():
+            K.gru_cell_bwd(0, dh_out, v['dmm'], carries[0], gates, hp,
+                           length, p, outs[0], acts)
+            K.gru_cell_bwd(1, None, v['mm_c'], carries[0], gates, hp,
+                           length, p, outs[0], acts)
+
+        def plain():
+            (du, dc), carry = K.gru_cell_reference_bwd(
+                0, dh_out, v['dmm'], v['carry'], gates, hp, m, acts, dtype)
+            dr, carry = K.gru_cell_reference_bwd(1, None, v['mm_c'], carry,
+                                                 gates, hp, m, acts, dtype)
+            return torch.cat([du, dr, dc], -1), carry
+        n_bytes = elt * b * 10 * d + 8 * b * d + 4 * b
+        fp32 = (1,)
+
+    def check():
+        carries[0].copy_(v['carry'])
+        carries[1].copy_(v['carry2'])
+        launch()
+        return [o.clone() for o in outs]
+    first, again = check(), check()
+    want = plain()
+    torch.cuda.synchronize()
+    errs, ok = [], True
+    for i, (a, w) in enumerate(zip(first, want)):
+        e, good = _rnn_close(torch, a, w, dtype, fp32_carry=i in fp32)
+        errs.append(e)
+        ok = ok and good
+    same = all(torch.equal(a, c) for a, c in zip(first, again))
+    label = '%s_cell_%s %s B=%d D=%d pos %d lengths %s acts %s' % (
+        kind, direction, str(dtype)[6:], b, d, p,
+        'all 0' if not np.any(lens) else 'ragged' if len(set(
+            np.asarray(lens).tolist())) > 1 else 'full', acts)
+    row = dict(max_abs_err=max(errs))
+    note = ''
+    if timed:
+        launches = 1 if kind == 'lstm' else 2
+        lo, by = bound_ms(n_bytes, 40 * b * d * launches)
+        ms = device_ms(torch, launch)
+        plain_ms = device_ms(torch, plain)
+        lib = device_ms(torch, library) if library is not None else None
+        row.update(ms=ms, plain_ms=plain_ms, bound_ms=lo, bound_by=by,
+                   library_ms=lib)
+        note = ('; device ms a step (%d launch%s): kernel %.5f, plain %.5f, '
+                '%s, bound %.6f (%s)'
+                % (launches, '' if launches == 1 else 'es', ms, plain_ms,
+                   'library %.5f' % lib if lib is not None else
+                   'no single PyTorch call', lo, by))
+    print('%s: max_abs_err %s (%s) %s, second run bit for bit %s%s [%s]'
+          % (label, ['%.3g' % e for e in errs], RNN_CELL_TOL,
+             'ok' if ok else 'MISMATCH', same, note, card))
+    require(ok, '%s disagrees with its plain version' % label)
+    require(same, '%s: a second run gave other bits' % label)
+    return row
+
+
+def _recurrence_places(torch, kind, b, t, d, lens, reverse, acts, gen_seed):
+    """The whole recurrence, forward and backward, at fp32 on the card
+    (the kernels) and on the host (the plain cells) from the same inputs:
+    the largest difference relative to each array's largest magnitude."""
+    from paddle_tpu_torch.ops.kernels import rnn_cell as K
+    rng = np.random.RandomState(gen_seed)
+    g = 4 if kind == 'lstm' else 3
+    arrays = [rng.randn(b, t, g * d) * 0.5, rng.randn(d, g * d) * 0.3 /
+              np.sqrt(d / 8.0), rng.randn(g * d) * 0.1, rng.randn(b, d) * 0.5,
+              rng.randn(b, d) * 0.5][:5 if kind == 'lstm' else 4]
+    cots = [rng.randn(b, t, d) for _ in range(2 if kind == 'lstm' else 1)]
+    res = {}
+    for dev in ('cuda', 'cpu'):
+        ts = [torch.tensor(a, dtype=torch.float32, device=dev)
+              .requires_grad_() for a in arrays]
+        lt = torch.tensor(lens, dtype=torch.int32, device=dev)
+        if kind == 'lstm':
+            out = K.LstmRecurrence.apply(*ts, lt, acts, reverse)
+        else:
+            out = (K.GruRecurrence.apply(*ts, lt, acts, reverse),)
+        grads = torch.autograd.grad(out, ts, [torch.tensor(
+            c, dtype=torch.float32, device=dev) for c in cots])
+        res[dev] = [a.detach().cpu().numpy() for a in list(out) + list(grads)]
+    torch.cuda.synchronize()
+    return max(float(np.abs(a - w).max() / max(np.abs(w).max(), 1e-30))
+               for a, w in zip(res['cuda'], res['cpu']))
+
+
+def phase_rnn_kernels(torch, card, b=128, t=100, d=128):
+    """19c: each cell kernel against its plain version on the card, fp32
+    and bf16, forward and backward, at bench_rnn_lstm's step (B 128, hidden
+    128, full lengths; timed in bf16), at ragged lengths, at all padding
+    (length 0) and at every activation; twice each for equal bits. Then the
+    whole recurrences card against host at fp32 with ragged, reverse and
+    length-0 rows, and the LSTM recurrence beside torch.nn.LSTM at full
+    lengths. Returns {kernel: row}."""
+    gen = torch.Generator(device='cuda').manual_seed(19)
+    rows = {}
+    ragged = np.array([100, 0, 37, 1, 50, 99, 51, 12])
+    for kind in ('lstm', 'gru'):
+        base = (0, 1, 1) if kind == 'lstm' else (0, 1)
+        every = [(1, 2, 3), (2, 3, 0), (3, 0, 2)] if kind == 'lstm' else \
+            [(1, 2), (2, 3), (3, 0)]
+        for direction in ('fwd', 'bwd'):
+            for dtype in (torch.float32, torch.bfloat16):
+                bf16 = dtype == torch.bfloat16
+                row = _rnn_cell_case(torch, card, kind, direction, dtype, b,
+                                     t, d, np.full(b, t), base, gen,
+                                     timed=bf16)
+                if bf16:
+                    rows['%s_cell_%s' % (kind, direction)] = row
+                _rnn_cell_case(torch, card, kind, direction, dtype, 8, t, 24,
+                               ragged, base, gen)
+                _rnn_cell_case(torch, card, kind, direction, dtype, 8, t, 20,
+                               np.zeros(8, int), base, gen)
+                for acts in every:
+                    _rnn_cell_case(torch, card, kind, direction, dtype, 8, t,
+                                   32, ragged, acts, gen)
+    for kind in ('lstm', 'gru'):
+        acts = (0, 1, 1) if kind == 'lstm' else (0, 1)
+        for reverse in (False, True):
+            rel = _recurrence_places(torch, kind, 8, 40, 32,
+                                     np.array([40, 0, 17, 1, 40, 9, 3, 33]),
+                                     reverse, acts, 7)
+            print('phase 19c %s recurrence %s, fp32, B 8 T 40 D 32, lengths '
+                  '40, 0, 17, 1, 40, 9, 3, 33: card (kernels) against host '
+                  '(plain cells), forward and every gradient: largest '
+                  'difference %.3g of the array\'s largest magnitude (limit '
+                  '1e-5) [%s]' % (kind, 'reverse' if reverse else 'forward',
+                                  rel, card))
+            require(rel <= 1e-5, 'phase 19c: the %s recurrence on the card '
+                    'differs from the host by %.3g' % (kind, rel))
+    rows['recurrence'] = _recurrence_vs_cudnn(torch, card, b, t, d)
+    return rows
+
+
+def _recurrence_vs_cudnn(torch, card, b, t, d):
+    """The LSTM recurrence (LstmRecurrence: T products and cells forward,
+    T backward) at bench_rnn_lstm's shape, full lengths, forward and
+    backward, beside torch.nn.LSTM over the same [B, T, D] -> [B, T, D]
+    (which also projects its input: one GEMM more): bf16 (cuDNN declines
+    bf16, so nn.LSTM runs torch's own cells) beside nn.LSTM in bf16 and
+    in fp16 (cuDNN), and fp32 beside cuDNN in fp32. Eager, CUDA events
+    over 20 calls; the recurrence also by graph replay. Returns the bf16
+    row and the others' times."""
+    from paddle_tpu_torch.ops.kernels import rnn_cell as K
+    dev = torch.device('cuda', 0)
+    gen = torch.Generator(device=dev).manual_seed(23)
+    row = {}
+    for dt in (torch.bfloat16, torch.float32):
+        x = (0.5 * torch.randn(b, t, 4 * d, generator=gen, device=dev)).to(dt)
+        w = (0.1 * torch.randn(d, 4 * d, generator=gen, device=dev)).to(dt)
+        bias = torch.zeros(4 * d, device=dev, dtype=dt)
+        h0 = torch.zeros(b, d, device=dev, dtype=dt)
+        leaves = [a.requires_grad_() for a in (x, w, bias)]
+        dy = torch.randn(b, t, d, generator=gen, device=dev).to(dt)
+
+        def ours():
+            h, _ = K.LstmRecurrence.apply(leaves[0], leaves[1], leaves[2],
+                                          h0, h0, None, (0, 1, 1), False)
+            torch.autograd.grad(h, leaves, dy)
+        libs = {}
+        for lt in ((torch.bfloat16, torch.float16) if dt == torch.bfloat16
+                   else (torch.float32,)):
+            lstm = torch.nn.LSTM(d, d, batch_first=True).to(dev).to(lt)
+            lstm.flatten_parameters()
+            xin = torch.randn(b, t, d, generator=gen, device=dev).to(lt) \
+                .requires_grad_()
+            params = [xin] + list(lstm.parameters())
+            dyl = dy.to(lt)
+
+            def lib(lstm=lstm, xin=xin, params=params, dyl=dyl):
+                y, _ = lstm(xin)
+                torch.autograd.grad(y, params, dyl)
+            key = '%s%s' % (str(lt)[6:], ' cuDNN' if
+                            torch.backends.cudnn.is_acceptable(xin) else
+                            ' (no cuDNN)')
+            libs[key] = eager_ms(torch, lib, iters=20, warmup=3)
+        eager = eager_ms(torch, ours, iters=20, warmup=3)
+        graph = device_ms(torch, ours, iters=5)
+        flops = 3 * 2.0 * b * t * d * 4 * d
+        elt = x.element_size()
+        lo, by = bound_ms(elt * (2 * (b * t * 4 * d + d * 4 * d) +
+                                 2 * b * t * d),
+                          flops, BF16_FLOPS if dt == torch.bfloat16 else
+                          FP32_FLOPS)
+        name = str(dt)[6:]
+        print('phase 19c LSTM recurrence forward + backward, B %d T %d '
+              'hidden %d %s, full lengths: eager %.4f ms, graph replay %.4f '
+              'ms, bound %.5f ms (%s); torch.nn.LSTM eager (its input GEMM '
+              'too; all rows full, so its zeroed padding does not differ): '
+              '%s [%s]' % (b, t, d, name, eager, graph, lo, by,
+                           ', '.join('%s %.4f ms' % kv for kv in
+                                     libs.items()), card))
+        if dt == torch.bfloat16:
+            row = dict(eager_ms=eager, ms=graph, bound_ms=lo, bound_by=by,
+                       library_ms=libs)
+        else:
+            row['fp32'] = dict(eager_ms=eager, ms=graph, bound_ms=lo,
+                               bound_by=by, library_ms=libs)
+    return row
+
+
+def seq_ops_cases(pt):
+    """[(name, build(L, v), rule)] of the 22 op types this slice adds
+    through their layers (one op where there is none); rule: 'exact', or
+    'sums' (recurrence_difference)."""
+    from paddle_tpu_torch.param_attr import ParamAttr
+
+    def pool(t):
+        return lambda L, v: L.sequence_pool(v('x3'), t, length=v('len'))
+
+    def op(op_type, inputs, out_dtype=None, attrs=None, slots=('Out',)):
+        from paddle_tpu_torch.layers.helper import LayerHelper
+        helper = LayerHelper(op_type)
+        first = next(iter(inputs.values()))
+        outs = {s: [helper.create_variable_for_type_inference(
+            out_dtype or first.dtype)] for s in slots}
+        helper.append_op(type=op_type, inputs={k: [x] for k, x in
+                                               inputs.items()},
+                         outputs=outs, attrs=attrs or {})
+        return [outs[s][0] for s in slots]
+    return [
+        ('sequence_pool', lambda L, v: [pool(t)(L, v) for t in (
+            'average', 'sum', 'sqrt')], 'sums'),
+        ('sequence_pool_pick', lambda L, v: [pool(t)(L, v) for t in (
+            'max', 'first', 'last')], 'exact'),
+        ('sequence_softmax', lambda L, v: L.elementwise_mul(
+            L.sequence_softmax(v('x2'), v('len')), v('w2')), 'sums'),
+        ('sequence_expand', lambda L, v: L.sequence_expand(v('row'), v('x3')),
+         'exact'),
+        ('sequence_reshape', lambda L, v: L.sequence_reshape(v('x3'), 16),
+         'exact'),
+        ('sequence_concat', lambda L, v: L.sequence_concat([v('x3'),
+                                                            v('x3')]),
+         'exact'),
+        ('sequence_slice', lambda L, v: L.sequence_slice(v('x3'), 3, 7),
+         'exact'),
+        ('sequence_conv', lambda L, v: L.sequence_conv(v('x3'), 24,
+                                                       filter_size=3,
+                                                       act='tanh'), 'sums'),
+        ('sequence_erase', lambda L, v: op('sequence_erase', {'X': v('ids')},
+                                           attrs={'tokens': [2, 5]}),
+         'exact'),
+        ('kmax_seq_score', lambda L, v: op(
+            'kmax_seq_score', {'X': v('x2'), 'Length': v('len')}, 'int64',
+            {'beam_size': 3}), 'exact'),
+        ('lstm', lambda L, v: list(L.dynamic_lstm(
+            v('x4'), 4 * 32, h_0=v('h0'), c_0=v('h0'), is_reverse=True,
+            length=v('len'))), 'sums'),
+        ('gru', lambda L, v: L.dynamic_gru(v('x3g'), 32, h_0=v('h0'),
+                                           length=v('len')), 'sums'),
+        ('lstmp', lambda L, v: list(L.dynamic_lstmp(v('x4'), 4 * 32, 16,
+                                                    length=v('len'))),
+         'sums'),
+        ('simple_rnn', lambda L, v: L.simple_rnn(v('x3'), length=v('len')),
+         'sums'),
+        ('lstm_unit', lambda L, v: list(L.lstm_unit(v('row'), v('h0'),
+                                                    v('h0'))), 'sums'),
+        ('gru_unit', lambda L, v: list(L.gru_unit(v('row3'), v('h0'),
+                                                  3 * 32)), 'sums'),
+        ('warpctc', lambda L, v: L.warpctc(v('logits'), v('label'),
+                                           input_length=v('len'),
+                                           label_length=v('l_len')), 'sums'),
+        ('ctc_align', lambda L, v: list(L.ctc_greedy_decoder(
+            v('logits'), 0, v('len'))), 'exact'),
+        ('linear_chain_crf', lambda L, v: L.linear_chain_crf(
+            v('logits'), v('tags'), length=v('len'),
+            param_attr=ParamAttr(name='p19_crf')), 'sums'),
+        ('crf_decoding', lambda L, v: [L.crf_decoding(
+            v('logits'), ParamAttr(name='p19_crf'), length=v('len')),
+            L.crf_decoding(v('logits'), ParamAttr(name='p19_crf'),
+                           label=v('tags'), length=v('len'))], 'exact'),
+        ('precision_recall', lambda L, v: list(L.precision_recall(
+            v('idx'), v('lab'), 6, weights=v('wt'))), 'sums'),
+        ('positive_negative_pair', lambda L, v: list(
+            L.positive_negative_pair(v('score'), v('lab_f'), v('qid'),
+                                     weight=v('wt'))), 'sums'),
+        ('edit_distance', lambda L, v: list(L.edit_distance(
+            v('ids'), v('ids2'), input_length=v('len'),
+            label_length=v('len2'))), 'exact'),
+    ]
+
+
+def seq_ops_feed(b=16, t=24, d=32, c=6, seed=19):
+    """The inputs of seq_ops_cases: floats in [-2, 2) with the edge values
+    at the head of x3, lengths from 0 to t."""
+    rng = np.random.RandomState(seed)
+
+    def f(*shape):
+        return rng.uniform(-2.0, 2.0, shape).astype('f')
+    x3 = f(b, t, d)
+    x3.reshape(-1)[:LAYERS_EDGE.size] = LAYERS_EDGE.ravel()
+    lens = rng.randint(0, t + 1, b)
+    lens[:3] = (0, t, 1)
+    n = 40
+    return {
+        'x3': x3, 'x2': f(b, t), 'w2': f(b, t), 'row': f(b, d),
+        'row3': f(b, 3 * d), 'x4': f(b, t, 4 * d) * 0.5,
+        'x3g': f(b, t, 3 * d) * 0.5, 'h0': f(b, d) * 0.5,
+        'logits': f(b, t, c), 'len': lens.astype('int64'),
+        'label': rng.randint(1, c, (b, 5)).astype('int64'),
+        'l_len': np.minimum(rng.randint(0, 6, b), lens).astype('int64'),
+        'tags': rng.randint(0, c, (b, t)).astype('int64'),
+        'ids': rng.randint(0, 7, (b, t)).astype('int64'),
+        'ids2': rng.randint(0, 7, (b, t - 4)).astype('int64'),
+        'len2': rng.randint(0, t - 3, b).astype('int64'),
+        'idx': rng.randint(0, 6, (n, 1)).astype('int64'),
+        'lab': rng.randint(0, 6, (n, 1)).astype('int64'),
+        'lab_f': rng.randint(0, 3, (n, 1)).astype('f'),
+        'wt': np.abs(f(n, 1)), 'score': f(n, 2),
+        'qid': rng.randint(0, 4, (n, 1)).astype('int64')}
+
+
+def recurrence_difference(got, want, bf16=False, grad=False):
+    """None if ``got`` is within the tolerance of a recurrence, a product
+    or a sum over T (tests/test_torch_sequence.py's rule): 1e-5 of the
+    array's largest finite magnitude M (at least 1), and for a bf16 array
+    (or a gradient under bf16 AMP) 2^-8 of its own magnitude and 2^-8 M
+    (2^-6 M for a gradient) more; NaN and inf placed alike; integers
+    exactly. Else the largest difference."""
+    if np.asarray(want).dtype.name == 'bfloat16':
+        bf16 = True
+    r = np.asarray(want).astype(np.float64)
+    g = np.asarray(got).astype(np.float64)
+    if r.shape != g.shape:
+        return float('inf')
+    if np.asarray(want).dtype.kind in 'biu':
+        return None if np.array_equal(r, g) else float('inf')
+    special = ~np.isfinite(r) | ~np.isfinite(g)
+    if not np.array_equal(r[special], g[special], equal_nan=True):
+        return float('inf')
+    fin = ~special
+    if not fin.any():
+        return None
+    err = np.abs(g[fin] - r[fin])
+    m = max(np.abs(r[fin]).max(), 1.0)
+    bound = 1e-5 * m
+    if bf16:
+        bound = bound + 2.0 ** -8 * np.abs(r[fin]) + \
+            2.0 ** (-6 if grad else -8) * m
+    bad = err > bound
+    return float(err[bad].max()) if bad.any() else None
+
+
+def _seq_ops_program(pt, feed, amp):
+    """Every case of seq_ops_cases in one program, each float input
+    through its own -0.0 probe (cast to bf16 under amp); the loss sums
+    reduce_sum of every float output. Returns (main, startup, [(name,
+    rule, fetch names, gradient names)])."""
+    main, startup = pt.Program(), pt.Program()
+    cases = []
+    with pt.program_guard(main, startup):
+        L = pt.layers
+        data = {k: L.data(name=k, shape=list(a.shape), dtype=str(a.dtype),
+                          append_batch_size=False) for k, a in feed.items()}
+        sums = []
+        for name, build, rule in seq_ops_cases(pt):
+            probed, grads = {}, []
+
+            def v(k, name=name, probed=probed, grads=grads):
+                if feed[k].dtype.kind != 'f':
+                    return data[k]
+                if k not in probed:
+                    probe = L.create_parameter(
+                        shape=list(feed[k].shape), dtype='float32',
+                        name='%s_%s_probe' % (name, k),
+                        default_initializer=pt.initializer.Constant(-0.0))
+                    val = L.elementwise_add(data[k], probe)
+                    probed[k] = L.cast(val, 'bfloat16') if amp else val
+                    grads.append(probe.name + '@GRAD')
+                return probed[k]
+            outs = build(L, v)
+            outs = outs if isinstance(outs, list) else [outs]
+            floats = [o for o in outs if o.dtype in ('float32', 'bfloat16')]
+            sums += [L.reduce_sum(L.cast(o, 'float32')) for o in floats]
+            cases.append((name, rule, [o.name for o in outs],
+                          grads if floats else []))
+        loss = L.sums(sums)
+        used = {g.name for _, g in pt.backward.append_backward(loss)}
+    main.amp = amp
+    return main, startup, [c[:3] + ([g for g in c[3] if g in used],)
+                           for c in cases]
+
+
+def phase_seq_ops(torch, pt, place, card, on_card):
+    """19d: the 22 op types this slice adds in one captured program (B 16,
+    T 24, lengths 0..24, the edge values at x's head), fp32 and bf16 AMP:
+    every output and every probe's gradient on the card against the CPU
+    place, exact where the op is (paths, indices, lengths, picks and
+    moves), else recurrence_difference. Returns its numbers."""
+    t0 = time.perf_counter()
+    feed = seq_ops_feed()
+    faults, total = [], 0
+    for amp in (None, 'bf16'):
+        compared = 0
+        main, startup, cases = _seq_ops_program(pt, feed, amp)
+        fetch = [f for _, _, outs, grads in cases for f in outs + grads]
+        res = {}
+        for mode, pl in (('card', place), ('host', pt.CPUPlace())):
+            exe = pt.Executor(pl)
+            with pt.scope_guard(pt.Scope()):
+                # the startup draws its values on the host: both places
+                # start from the same parameters
+                exe.run(startup)
+                for _ in range(2 if mode == 'card' else 1):
+                    out = exe.run(main, feed=feed, fetch_list=fetch,
+                                  return_numpy=False)
+                if mode == 'card' and on_card:
+                    require(exe.last_captured, 'phase 19d: the ops program '
+                            'did not run captured')
+            res[mode] = dict(zip(fetch, _numpy_all(torch, out)))
+        for name, rule, outs, grads in cases:
+            for f in outs + grads:
+                grad = f in grads
+                g, w = res['card'][f], res['host'][f]
+                if rule == 'exact' and not grad:
+                    diff = None if np.array_equal(g, w, equal_nan=True) \
+                        else float('inf')
+                else:
+                    # the fetches arrive as fp32 arrays: under AMP every
+                    # float array takes the bf16 rule
+                    diff = recurrence_difference(g, w, bf16=amp is not None,
+                                                 grad=grad)
+                if diff is not None:
+                    faults.append('%s %s %s: card and host differ by %r'
+                                  % ('bf16' if amp else 'fp32', name, f,
+                                     diff))
+                compared += 1
+        print('phase 19d %s: %d op types (%d cases) in one captured program '
+              '(B 16, T 24, lengths 0..24): %d outputs and gradients card '
+              'against host, %d outside the tolerance [%s]'
+              % ('bf16' if amp else 'fp32', 22, len(cases), compared,
+                 len(faults), card))
+        total += compared
+    require(not faults, 'phase 19d: %d differences:\n  %s'
+            % (len(faults), '\n  '.join(faults)))
+    return dict(ops_compared=total, seconds=time.perf_counter() - t0)
+
+
+def phase_rnn(torch, pt, place, card, on_card, batch=128, seq=100,
+              vocab=30000, hidden=128, warmup=3, steps=20, model_batch=64,
+              model_seq=100, model_steps=3, small=False, host_place=None):
+    """Phase 19 (a, b, d; 19c is phase_rnn_kernels): bench_rnn_lstm timed
+    and checked, card against host at fp32, captured == eager == run_steps;
+    the sequence models timed and card against host; every new op type
+    card against host. Returns (the timed runs' launch counts, summary)."""
+    t0 = time.perf_counter()
+    host_place = host_place or pt.CPUPlace()
+    runs, out = [], {}
+    launches, out['bench_rnn_lstm'] = _rnn_timed(
+        torch, pt, place, card, on_card, batch, seq, vocab, hidden, warmup,
+        steps)
+    runs.append(launches)
+    if on_card:
+        torch.cuda.empty_cache()
+    cbatch, cseq = (8, 16) if not small else (4, 8)
+    lc, lh, rel = _rnn_small(torch, pt, (place, host_place), vocab, hidden,
+                             cbatch, cseq)
+    print('phase 19a card against host, fp32, batch %d x seq %d, lengths %s, '
+          '3 steps: losses card %s, host %s (max rel %.3g, limit 1e-5) [%s]'
+          % (cbatch, cseq, [cseq, 0, 5, 1, cseq, 9, 3, 12][:cbatch],
+             ['%.7f' % v for v in lc], ['%.7f' % v for v in lh], rel, card))
+    require(rel <= 1e-5, 'phase 19a: the card differs from the host')
+    avg = _build_rnn_lstm(pt, vocab, hidden, 'bf16')
+    host = pt.Scope()
+    with pt.scope_guard(host):
+        pt.Executor(pt.CPUPlace()).run(pt.default_startup_program())
+    weights = {n: host.numpy(n) for n in host.keys()}
+    del host
+    res = _three_ways(torch, pt, place, pt.default_main_program(), avg,
+                      weights, rnn_lstm_feed(batch, seq, vocab, seed=1))
+    bits = dict(eager=_moe_same_bits(res, 'captured', 'eager'),
+                run_steps=_moe_same_bits(res, 'captured', 'run_steps'))
+    print('phase 19a at width, bf16, 3 steps from one state: losses captured '
+          '%s, eager %s, run_steps %s; captured == eager bit for bit (losses '
+          'and %d scope variables): %s; run_steps == run: %s [%s]'
+          % (['%.7f' % v for v in res['captured'][0]],
+             ['%.7f' % v for v in res['eager'][0]],
+             ['%.7f' % v for v in res['run_steps'][0]],
+             len(res['captured'][1]), bits['eager'], bits['run_steps'], card))
+    require(bits['eager'] and bits['run_steps'], 'phase 19a: captured, '
+            'eager and run_steps differ')
+    out['bits'] = bits
+    out['card_vs_host'] = dict(loss_rel=rel)
+    del res
+    if on_card:
+        torch.cuda.empty_cache()
+    models = {}
+    for name, build in seq_model_builds(pt, model_seq, small=small).items():
+        feed = seq_model_feed(name, model_batch, model_seq)
+        launches, ms, one_graph = _seq_model_timed(torch, pt, place, on_card,
+                                                   build, feed, 5)
+        runs.append(launches)
+        lcard, lhost = _compare_places(torch, pt, (place, host_place),
+                                       build, feed, model_steps)
+        rel = max(abs(a - b) / abs(b) for a, b in zip(lcard, lhost))
+        cells = {k: launches[k] for k in ('lstm_cell_fwd', 'lstm_cell_bwd',
+                                          'gru_cell_fwd', 'gru_cell_bwd')}
+        models[name] = dict(ms=ms, loss_rel=rel, launches=cells)
+        print('phase 19b %s: batch %d x seq %d, lengths 1..%d, fp32, '
+              'SGD(0.05): %.3f ms/step captured (%s), cell launches in 5 '
+              'steps %s; %d '
+              'steps card %s, host %s (max rel %.3g, limit 1e-4) [%s]'
+              % (name, model_batch, model_seq, model_seq, ms,
+                 'one graph' if one_graph else 'NOT one graph', cells,
+                 model_steps, ['%.6f' % v for v in lcard],
+                 ['%.6f' % v for v in lhost], rel, card))
+        require(rel <= 1e-4, 'phase 19b %s: card and host differ' % name)
+        if on_card:
+            require(one_graph, 'phase 19b %s: not one captured graph' % name)
+            torch.cuda.empty_cache()
+    out['models'] = models
+    out['ops'] = phase_seq_ops(torch, pt, place, card, on_card)
+    out['seconds'] = time.perf_counter() - t0
+    print('phase 19 (a, b, d) %.1f s' % out['seconds'])
+    return runs, out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--cpu-rehearsal', action='store_true',
-                    help='run phases 4-18 on the host at tiny sizes with '
+                    help='run phases 4-19 on the host at tiny sizes with '
                          'the plain versions')
     ap.add_argument('--profile', action='store_true',
                     help='after every other phase, profile 20 decode '
@@ -6824,6 +7695,9 @@ def main():
                     resnet=(4, 16, 10, True), steps=2)
         phase_accum(torch, pt, pt.CPUPlace(), host, False, seq=8, vocab=64,
                     base=tiny, micro=2)
+        phase_rnn(torch, pt, pt.CPUPlace(), host, False, batch=4, seq=8,
+                  vocab=64, hidden=8, steps=4, model_batch=4, model_seq=8,
+                  small=True)
         print('cpu rehearsal ok in %.1f s' % (time.perf_counter() - t_start))
         return
 
@@ -7025,6 +7899,13 @@ def main():
     if args.profile:
         profile_steps(torch, card, moe_jobs)
     del moe_jobs
+    torch.cuda.empty_cache()
+    # phase 19: the recurrent and sequence path
+    rnn_kernels = phase_rnn_kernels(torch, card)
+    rnn_runs, rnn = phase_rnn(torch, pt, pt.CUDAPlace(0), card, True)
+    rnn['recurrence'] = rnn_kernels.pop('recurrence')
+    torch.cuda.empty_cache()
+    done('19 (the recurrent and sequence path)')
 
     # launches: the sum over the main paths' runs (the engine runs: plain,
     # extras plain and with cache + speculation, int8 and fp8; the timed
@@ -7034,12 +7915,13 @@ def main():
     # 14's six legs; phase 15's four row-sparse legs; phase 16a's timed
     # encoder steps, fp32 and bf16; phase 17's staging-ring legs: the
     # Transformer's timed epoch and the CTR's steps; phase 18a's timed MoE
-    # steps, scan_layers and unrolled), each read after its counts were
-    # set to 0
+    # steps, scan_layers and unrolled; phase 19's timed bench_rnn_lstm
+    # steps and each sequence model's timed steps), each read after its
+    # counts were set to 0
     main_runs = [launches] + extras + list(quant.values()) + \
         [train, scan_train, masked, mask_read, resnet, nmt, trainer] + \
         disagg_runs + list(ctr_runs.values()) + layers_runs + \
-        [ring_runs, ctr_ring_runs] + moe_runs
+        [ring_runs, ctr_ring_runs] + moe_runs + rnn_runs
 
     def runs(key):
         return sum(r.get(key, 0) for r in main_runs)
@@ -7109,14 +7991,19 @@ def main():
              source='paddle_tpu_torch/csrc/sparse_rows.cu',
              replaces='paddle_tpu/ops/optimizer_ops.py:58',
              launches=runs('sparse_rows'), **sparse[('group', 'sgd')]),
-    ]
+    ] + [dict(name=name, route='cuda',
+              source='paddle_tpu_torch/csrc/rnn_cell.cu',
+              replaces='paddle_tpu/ops/rnn_ops.py:%d' % line,
+              launches=runs(name), **rnn_kernels[name])
+         for name, line in (('lstm_cell_fwd', 30), ('lstm_cell_bwd', 30),
+                            ('gru_cell_fwd', 407), ('gru_cell_bwd', 407))]
     ctr.update(kernel={'%s %s' % k: dict(ms=v['ms'], bound_ms=v['bound_ms'],
                                          library_ms=v['library_ms'])
                        for k, v in sparse.items()})
     print('total %.1f s' % (time.perf_counter() - t_start))
     print(json.dumps({'kernels': kernels, 'lifecycle': lifecycle,
                       'disagg': disagg, 'ctr': ctr, 'layers': layers,
-                      'staging': staging, 'moe': moe}))
+                      'staging': staging, 'moe': moe, 'rnn': rnn}))
     print(card)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu',
                                              'kind': name,

@@ -13,6 +13,8 @@ have (a backward kernel before it was written) is reported as such.
     python3 kernel_times.py [DIR] --write   # a layer's KV write and K4
     python3 kernel_times.py [DIR] --serve   # the engine's tokens/s, TTFT
     python3 kernel_times.py [DIR] --encoder # phase 16a's encoder layer
+    python3 kernel_times.py [DIR] --rnn     # bench_rnn_lstm and its cells
+    python3 kernel_times.py [DIR] --moe     # phase 18a's bench_moe steps
 
 DIR (default: this checkout) holds the ``paddle_tpu_torch`` package to
 time; the shapes, the inputs and the timer (CUDA-graph replay, CUDA events)
@@ -58,6 +60,24 @@ heads, d_inner 2048, SGD) at fp32 and under bf16 AMP: 3 warm-up and 20
 timed steps captured (ms a step on the host clock), then profiles 5
 steps of each as chip_smoke.py --profile does (device busy time a step,
 by kernel family and by kernel).
+
+With --rnn, it runs DIR's bench_rnn_lstm program at chip_smoke.py's
+phase-19 width (batch 128 x seq 100, vocab 30000, hidden 128, bf16 AMP,
+Adam with L2 decay and value clipping): 3 warm-up and 20 timed steps
+captured (ms a step on the host clock, peak memory above what was
+allocated before the first step), then profiles 5 steps as
+chip_smoke.py --profile does (device busy time and kernels a step, by
+family), then times the four cell kernels at its step (B 128, hidden
+128, bf16, full lengths; a GRU step's two launches together) by graph
+replay. A checkout without the recurrent ops or the
+cell kernels is reported as such.
+
+With --moe, it runs DIR's bench_moe Switch-MoE LM at chip_smoke.py's
+phase-18a width (batch 32 x seq 64, vocab 32000, 4 layers, 8 experts,
+bf16 AMP, dropout 0.1, Adam), scan_layers and unrolled, each 3 warm-up
+and 20 timed steps captured (ms a step on the host clock), then profiles
+5 steps of each as chip_smoke.py --profile does (device busy time and
+kernels a step, by family).
 
 Nothing is checked here: chip_smoke.py holds each kernel against its plain
 versions. Prints one line a case, then nvidia-smi's name and power limit,
@@ -305,10 +325,112 @@ def serve(torch, smoke, card, rounds=3):
     return out
 
 
+def rnn_steps(torch, smoke, card, steps=20):
+    """--rnn: DIR's bench_rnn_lstm step and its cell kernels; returns
+    {label: ms}."""
+    import importlib
+    import paddle_tpu_torch as pt
+    ms = {}
+    try:
+        K = importlib.import_module('paddle_tpu_torch.ops.kernels.rnn_cell')
+        from paddle_tpu_torch.models import seq_models
+    except ImportError:
+        print('no recurrent ops or cell kernels in this checkout')
+        return ms
+    dev = torch.device('cuda', 0)
+    cfg = smoke.RNN_BENCH
+    pt.reset_default_programs()
+    _, avg = seq_models.lstm_text_classifier(cfg['vocab'],
+                                             hidden_dim=cfg['hidden'])
+    pt.default_main_program().amp = 'bf16'
+    program = pt.default_main_program()
+    exe = pt.Executor(pt.CUDAPlace(0))
+    scope = pt.Scope()
+    with pt.scope_guard(scope):
+        exe.run(pt.default_startup_program())
+        feed = {n: torch.as_tensor(v).to(dev) for n, v in
+                smoke.rnn_lstm_feed(cfg['batch'], cfg['seq'],
+                                    cfg['vocab']).items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        smoke._train_steps(torch, exe, feed, avg, 3, True)
+        secs, losses = smoke._train_steps(torch, exe, feed, avg, steps, True)
+        peak = torch.cuda.max_memory_allocated() - before
+    ms['bench_rnn_lstm step'] = secs * 1e3 / steps
+    print('bench_rnn_lstm: batch %d x seq %d, %d steps after 3 warm-up: '
+          '%.3f ms/step, %.1f tokens/s, peak memory %.4f GB above what was '
+          'allocated before the first step; loss first %.5f last %.5f [%s]'
+          % (cfg['batch'], cfg['seq'], steps, ms['bench_rnn_lstm step'],
+             cfg['batch'] * cfg['seq'] * steps / secs, peak / 1e9, losses[0],
+             losses[-1], card))
+    def step():
+        with pt.scope_guard(scope):
+            exe.run(program, feed=feed, fetch_list=[avg],
+                    return_numpy=False)
+    smoke.profile_steps(torch, card, [('5 bench_rnn_lstm steps', step, 5,
+                                       None)])
+    b, t, d = cfg['batch'], cfg['seq'], cfg['hidden']
+    gen = torch.Generator(device='cuda').manual_seed(19)
+    full = [t] * b
+    for kind in ('lstm', 'gru'):
+        v = smoke._rnn_cell_inputs(torch, kind, b, t, d, torch.bfloat16, gen,
+                                   full)
+        p, acts = v['pos'], (0, 1, 1) if kind == 'lstm' else (0, 1)
+        x, hp, cp = v['x'][:, p], v['seq'][:, p - 1], v['cell'][:, p - 1]
+        out = [torch.empty_like(v[k])[:, p] for k in ('seq', 'cell',
+                                                      'gates')]
+        if kind == 'lstm':
+            def fwd():
+                K.lstm_cell_fwd(x, v['mm'], v['bias'], hp, cp, v['length'],
+                                p, *out, acts)
+
+            def bwd():
+                K.lstm_cell_bwd(v['dh'][:, p], None, v['dmm'], v['carry'],
+                                v['carry2'], v['gates'][:, p],
+                                v['cell'][:, p], cp, v['length'], p, out[2],
+                                acts)
+        else:
+            def fwd():
+                for phase, mm, dst in ((0, v['mm'], out[0]),
+                                       (1, v['mm_c'], out[1])):
+                    K.gru_cell_fwd(phase, x, v['bias'], mm, hp, v['length'],
+                                   p, out[2], dst, acts)
+
+            def bwd():
+                for phase, dh, mm in ((0, v['dh'][:, p], v['dmm']),
+                                      (1, None, v['mm_c'])):
+                    K.gru_cell_bwd(phase, dh, mm, v['carry'],
+                                   v['gates'][:, p], hp, v['length'], p,
+                                   out[2], acts)
+        for direction, fn in (('fwd', fwd), ('bwd', bwd)):
+            label = '%s_cell_%s [%d, %d] bfloat16' % (kind, direction, b, d)
+            ms[label] = smoke.device_ms(torch, fn)
+            print('%s: kernel %.5f ms a step (%d launch%s) [%s]'
+                  % (label, ms[label], 1 if kind == 'lstm' else 2,
+                     '' if kind == 'lstm' else 'es', card))
+    return ms
+
+
+def moe_steps(torch, smoke, card, steps=20):
+    """--moe: DIR's phase-18a bench_moe steps; returns {label: ms}."""
+    import paddle_tpu_torch as pt
+    ms, jobs = {}, []
+    for scan in (True, False):
+        _, row, job = smoke._moe_timed(
+            torch, pt, pt.CUDAPlace(0), card, True, 32, 64, smoke.VOCAB,
+            smoke.MOE_DIMS, scan, 3, steps)
+        ms['moe %s step' % ('scan_layers' if scan else 'unrolled')] = \
+            row['ms']
+        jobs.append(job)
+    smoke.profile_steps(torch, card, jobs)
+    return ms
+
+
 def main():
     args = [a for a in sys.argv[1:]
             if a not in ('--decode', '--train', '--write', '--serve',
-                         '--encoder')]
+                         '--encoder', '--rnn', '--moe')]
     port = os.path.abspath(args[0]) if args else REPO
     sys.path.insert(0, REPO)
     import chip_smoke as smoke
@@ -333,7 +455,8 @@ def main():
         print(card)
         return
     for flag, run in (('--train', train_steps), ('--write', write_layers),
-                      ('--serve', serve), ('--encoder', encoder_steps)):
+                      ('--serve', serve), ('--encoder', encoder_steps),
+                      ('--rnn', rnn_steps), ('--moe', moe_steps)):
         if flag in sys.argv:
             ms = run(torch, smoke, card)
             print(card)

@@ -12,9 +12,9 @@ host with the plain versions. Files written by ``io`` (persistables,
 checkpoints, inference models) use the JAX package's format.
 """
 
-from . import (backward, clip, dataset, fault, initializer, io, layers,
-               learning_rate_decay, nets, optimizer, reader, regularizer,
-               trainer)
+from . import (backward, clip, dataset, evaluator, fault, initializer, io,
+               layers, learning_rate_decay, metrics, nets, optimizer, reader,
+               regularizer, trainer)
 from .core.backward import append_backward
 from .core.errors import EnforceError, enforce
 from .core.executor import Executor

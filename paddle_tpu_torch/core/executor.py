@@ -285,6 +285,7 @@ class _Plan(object):
         self.error_clips = collect_error_clips(
             block, ops if self.marker is None else ops[:self.marker])
         self.reads = consumed | set(fetch_names)
+        self.fetch_names = list(fetch_names)
         keep = set(fetch_names) | set(self.scope_out)
         # a row-sparse gradient's Ids are read by the update ops through
         # the gradient var's sparse_ids (core/backward.py), not through an
@@ -802,12 +803,30 @@ class Executor(object):
         for n in plan.frees.get(plan.marker, ()):
             env.pop(n, None)
         env.update(stored)
+        _copy_written_views(env, plan)
         for pn, gn, g, leaf in zip(param_names, grad_names, grads, leaves):
             env[gn] = torch.zeros_like(leaf) if g is None else g
             if pn in seeds:
                 del env[seeds[pn]]
         with torch.no_grad(), torch.profiler.record_function('optimizer'):
             run_ops(plan.ops[plan.marker + 1:], plan.marker + 1, env)
+
+
+def _copy_written_views(env, plan):
+    """A fetch that shares storage with a persistable the update ops write
+    in place (a reshape, transpose or squeeze of a parameter returns a
+    view) is copied before they run, so it shows the value the forward
+    read, as the reference's arrays do. The storages compare on the host
+    from the tensors' metadata, so a captured step holds the copy only
+    where a fetch aliases one; a program that fetches no such view
+    launches nothing more."""
+    written = {env[n].untyped_storage().data_ptr() for n in plan.scope_out
+               if isinstance(env.get(n), torch.Tensor)}
+    for name in plan.fetch_names:
+        value = env.get(name)
+        if name not in plan.scope_out and isinstance(value, torch.Tensor) \
+                and value.untyped_storage().data_ptr() in written:
+            env[name] = value.detach().clone()
 
 
 # op types that checkpoint each of their layers under a remat policy

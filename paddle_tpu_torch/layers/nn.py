@@ -17,7 +17,9 @@ __all__ = ['fc', 'embedding', 'conv2d', 'pool2d', 'batch_norm', 'layer_norm',
            'im2sequence', 'multiplex', 'label_smooth', 'pad', 'maxout',
            'bilinear_tensor_product', 'nce', 'huber_loss', 'rank_loss',
            'margin_rank_loss', 'hinge_loss', 'log_loss', 'resize_bilinear',
-           'resize_nearest', 'modified_huber_loss', 'switch_moe']
+           'resize_nearest', 'modified_huber_loss', 'switch_moe',
+           'chunk_eval', 'precision_recall', 'positive_negative_pair',
+           'edit_distance']
 
 
 def _prod(xs):
@@ -789,6 +791,86 @@ def modified_huber_loss(x, y):
                      inputs={'X': [x], 'Y': [y]},
                      outputs={'Out': [out], 'IntermediateVal': [inter]})
     return out
+
+
+def chunk_eval(input, label, chunk_scheme, num_chunk_types,
+               excluded_chunk_types=None):
+    """Chunk (NER) evaluation: computed on the host by
+    evaluator.ChunkEvaluator, as the reference's layer says (it raises)."""
+    raise NotImplementedError(
+        'chunk_eval is computed by evaluator.ChunkEvaluator on host; '
+        'see paddle_tpu_torch/evaluator.py')
+
+
+def precision_recall(indices, labels, class_number, weights=None,
+                     states_info=None):
+    """Multi-class precision/recall/F1 metrics + TP/FP/TN/FN states
+    (precision_recall_op.cc:95-140). Returns (batch_metrics [6],
+    accum_metrics [6], accum_states [class_number, 4])."""
+    helper = LayerHelper('precision_recall', **locals())
+    batch = helper.create_variable_for_type_inference('float32')
+    accum = helper.create_variable_for_type_inference('float32')
+    states = helper.create_variable_for_type_inference('float32')
+    batch.shape = accum.shape = (6,)
+    states.shape = (class_number, 4)
+    inputs = {'Indices': [indices], 'Labels': [labels]}
+    if weights is not None:
+        inputs['Weights'] = [weights]
+    if states_info is not None:
+        inputs['StatesInfo'] = [states_info]
+    helper.append_op(
+        type='precision_recall', inputs=inputs,
+        outputs={'BatchMetrics': [batch], 'AccumMetrics': [accum],
+                 'AccumStatesInfo': [states]},
+        attrs={'class_number': class_number})
+    return batch, accum, states
+
+
+def positive_negative_pair(score, label, qid, weight=None, column=0,
+                           accum=None):
+    """Ranking pair counts per query (positive_negative_pair_op.cc:100-150).
+    Returns (positive, negative, neutral) [1] each; pass accum=(p, n, u)
+    to accumulate across batches."""
+    helper = LayerHelper('positive_negative_pair', **locals())
+    pos = helper.create_variable_for_type_inference('float32')
+    neg = helper.create_variable_for_type_inference('float32')
+    neu = helper.create_variable_for_type_inference('float32')
+    pos.shape = neg.shape = neu.shape = (1,)
+    inputs = {'Score': [score], 'Label': [label], 'QueryID': [qid]}
+    if weight is not None:
+        inputs['Weight'] = [weight]
+    if accum is not None:
+        inputs['AccumulatePositivePair'] = [accum[0]]
+        inputs['AccumulateNegativePair'] = [accum[1]]
+        inputs['AccumulateNeutralPair'] = [accum[2]]
+    helper.append_op(
+        type='positive_negative_pair', inputs=inputs,
+        outputs={'PositivePair': [pos], 'NegativePair': [neg],
+                 'NeutralPair': [neu]},
+        attrs={'column': column})
+    return pos, neg, neu
+
+
+def edit_distance(input, label, normalized=True, ignored_tokens=None,
+                  input_length=None, label_length=None):
+    """Batched Levenshtein distance between padded hyp/ref id sequences
+    (edit_distance_op.cc; lengths per the LoD pad+mask stance). Returns
+    (distance [B, 1], sequence_num [1])."""
+    helper = LayerHelper('edit_distance', **locals())
+    out = helper.create_variable_for_type_inference('float32')
+    seq_num = helper.create_variable_for_type_inference('int64')
+    if input.shape is not None:
+        out.shape = (input.shape[0], 1)
+    seq_num.shape = (1,)
+    inputs = {'Hyps': [input], 'Refs': [label]}
+    if input_length is not None:
+        inputs['HypsLength'] = [input_length]
+    if label_length is not None:
+        inputs['RefsLength'] = [label_length]
+    helper.append_op(type='edit_distance', inputs=inputs,
+                     outputs={'Out': [out], 'SequenceNum': [seq_num]},
+                     attrs={'normalized': normalized})
+    return out, seq_num
 
 
 def switch_moe(input, num_experts, d_inner, capacity_factor=1.25,

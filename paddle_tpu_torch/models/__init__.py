@@ -1,5 +1,7 @@
 """Model builders: the Transformer (training graph and the decode LM's
 pieces, models/transformer.py), the Switch-MoE LM (models/moe.py), the
-ResNet family (models/resnet.py), and the embedding models Wide&Deep CTR
+ResNet family (models/resnet.py), the embedding models Wide&Deep CTR
 (models/wide_deep.py), the recommender (models/recommender.py) and
-word2vec (models/word2vec.py)."""
+word2vec (models/word2vec.py), fit_a_line (models/linear.py), the
+sentiment and tagging sequence models (models/seq_models.py) and semantic
+role labeling (models/srl.py)."""

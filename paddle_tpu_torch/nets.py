@@ -57,9 +57,13 @@ def img_conv_group(input, conv_num_filter, pool_size, conv_padding=1,
 
 def sequence_conv_pool(input, num_filters, filter_size, param_attr=None,
                        act='sigmoid', pool_type='max', length=None):
-    raise NotImplementedError(
-        'nets.sequence_conv_pool needs sequence_conv and sequence_pool, '
-        'which are not ported yet (ROADMAP Queue 1 item 7, sequence ops)')
+    """sequence_conv (a context window of ``filter_size``, then ``act``)
+    and sequence_pool of ``pool_type`` over each row's ``length``."""
+    conv_out = layers.sequence_conv(input=input, num_filters=num_filters,
+                                    filter_size=filter_size,
+                                    param_attr=param_attr, act=act)
+    return layers.sequence_pool(input=conv_out, pool_type=pool_type,
+                                length=length)
 
 
 def glu(input, dim=-1):

@@ -16,6 +16,8 @@ def launch_counters():
     from .layer_norm import fused_layer_norm
     from .paged_attention import paged_attention
     from .random_bits import fused_dropout, keep_mask
+    from .rnn_cell import gru_cell_bwd, gru_cell_fwd, lstm_cell_bwd, \
+        lstm_cell_fwd
     from .sparse_rows import sparse_rows
     res = [('layer_norm', fused_layer_norm, 'launches'),
            ('layer_norm_bwd', fused_layer_norm, 'bwd_launches'),
@@ -33,7 +35,11 @@ def launch_counters():
            ('dropout', fused_dropout, 'launches'),
            ('dropout_bwd', fused_dropout, 'bwd_launches'),
            ('sparse_rows', sparse_rows, 'launches'),
-           ('sparse_rows_tables', sparse_rows, 'tables')]
+           ('sparse_rows_tables', sparse_rows, 'tables'),
+           ('lstm_cell_fwd', lstm_cell_fwd, 'launches'),
+           ('lstm_cell_bwd', lstm_cell_bwd, 'launches'),
+           ('gru_cell_fwd', gru_cell_fwd, 'launches'),
+           ('gru_cell_bwd', gru_cell_bwd, 'launches')]
     for name, fn in (('flash_attention_fwd', fa.flash_fwd_cuda),
                      ('flash_attention_bwd_dkv', fa.flash_bwd_dkv_cuda),
                      ('flash_attention_bwd_dq', fa.flash_bwd_dq_cuda)):

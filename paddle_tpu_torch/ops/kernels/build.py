@@ -23,7 +23,7 @@ CSRC = os.path.join(_PKG, 'csrc')
 BUILD_DIR = os.path.join(_PKG, '_build')
 SOURCES = ('layer_norm.cu', 'paged_attention.cu', 'flash_attention.cu',
            'batch_norm.cu', 'kv_write.cu', 'random_bits.cu',
-           'sparse_rows.cu')
+           'sparse_rows.cu', 'rnn_cell.cu')
 HEADERS = ('common.cuh', 'flash_tiles.cuh')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
@@ -172,6 +172,20 @@ def library():
             lib.ptt_sparse_rows_group.argtypes = [i, i, i, p, i, p, f, f, i,
                                                   f, f, f, f, p]
             lib.ptt_sparse_rows_group.restype = i
+            lib.ptt_lstm_cell_fwd.argtypes = [p, ll, p, p, p, ll, p, ll, p, i,
+                                              p, p, ll, p, ll, i, i, i, i, i,
+                                              i, p]
+            lib.ptt_lstm_cell_fwd.restype = i
+            lib.ptt_lstm_cell_bwd.argtypes = [p, ll, p, ll, p, p, p, p, ll, p,
+                                              ll, p, ll, p, i, p, ll, i, i, i,
+                                              i, i, i, p]
+            lib.ptt_lstm_cell_bwd.restype = i
+            lib.ptt_gru_cell_fwd.argtypes = [i, p, ll, p, p, p, ll, p, i, p,
+                                             ll, p, ll, i, i, i, i, i, p]
+            lib.ptt_gru_cell_fwd.restype = i
+            lib.ptt_gru_cell_bwd.argtypes = [i, p, ll, p, p, p, ll, p, ll, p,
+                                             i, p, ll, i, i, i, i, i, p]
+            lib.ptt_gru_cell_bwd.restype = i
             _loaded['lib'] = lib
         return lib
 

@@ -1,0 +1,498 @@
+"""The LSTM and GRU cells: the CUDA kernels of ``csrc/rnn_cell.cu`` beside
+their plain PyTorch versions, and the recurrences built on them.
+
+The kernels replace no Pallas kernel: the JAX package runs each
+recurrence as one ``lax.scan`` (paddle_tpu/ops/rnn_ops.py ``lstm_scan``,
+``gru_scan`` with ``gru_step``), which XLA compiles into one loop fusion a
+step around the recurrent product. Here the product stays a ``torch.mm``
+and a step's elementwise work is one launch (the GRU's two, on each side
+of its second product), forward and backward.
+
+``lstm_cell_fwd`` / ``lstm_cell_bwd`` / ``gru_cell_fwd`` / ``gru_cell_bwd``
+write one step into views of the sequence tensors: for CUDA tensors they
+launch the kernel (and count it in ``.launches``), for CPU tensors they
+take the plain version (``*_reference``); on a CUDA tensor they launch or
+raise. ``LstmRecurrence`` and ``GruRecurrence`` are one
+torch.autograd.Function each over the whole sequence: the forward runs T
+(product, cell) steps, the backward the cells in reverse with the
+product dh_prev = dgates @ W^T a step, then dW as one product over all
+steps, dbias as a sum, and the input's gradient is the cells' dgates.
+
+Semantics are the reference's (rnn_ops.py): gate layouts [i, f, g, o] and
+[u, r, c], a position past a row's length carries h (and c) unchanged,
+reverse walks positions T-1 .. 0 over the padded axis, and every carry is
+in the input's dtype. The arithmetic is fp32; the values the reference
+holds in the carry's dtype and the backward reads again (the activated
+gates, the cell, r * h_prev) are rounded to it where they are made.
+"""
+
+import torch
+
+from . import build
+
+# rnn_ops.py's _ACTS, as the kernels' codes
+ACTS = {'sigmoid': 0, 'tanh': 1, 'relu': 2, 'identity': 3}
+
+
+def _act(code, x):
+    if code == 0:
+        return torch.sigmoid(x)
+    if code == 1:
+        return torch.tanh(x)
+    if code == 2:
+        # jnp.maximum(x, 0): a NaN stays NaN
+        return torch.where(x < 0, torch.zeros_like(x), x)
+    return x
+
+
+def _dact(code, y):
+    """The activation's derivative from its output."""
+    if code == 0:
+        return y * (1.0 - y)
+    if code == 1:
+        return 1.0 - y * y
+    if code == 2:
+        return (y > 0).to(y.dtype)
+    return torch.ones_like(y)
+
+
+def _rnd(v, dtype):
+    """v rounded to ``dtype`` and widened back to fp32."""
+    return v.to(dtype).float()
+
+
+def step_mask(length, pos, batch, device):
+    """[B, 1] fp32: 1 where ``pos`` is below the row's length (all 1 with
+    no lengths)."""
+    if length is None:
+        return torch.ones((batch, 1), dtype=torch.float32, device=device)
+    return (pos < length).to(torch.float32).reshape(batch, 1)
+
+
+# ------------------------------------------------------------ plain versions
+def lstm_cell_reference(x, hw, bias, hp, cp, m, acts, dtype):
+    """One LSTM step, the kernel's arithmetic: x [B, 4D] the projected
+    input, hw = hp @ W, bias [4D] or None, hp / cp the carries, m [B, 1].
+    Returns (h, c, gates [i, f, g, o]) in ``dtype``."""
+    ga, ca, na = acts
+    d = hp.shape[-1]
+    a = x.float() + hw.float()
+    if bias is not None:
+        a = a + bias.float().reshape(1, -1)
+    ai, af, ag, ao = a.split(d, dim=-1)
+    i, f, o = (_rnd(_act(ga, v), dtype) for v in (ai, af, ao))
+    g = _rnd(_act(na, ag), dtype)
+    hpf, cpf = hp.float(), cp.float()
+    cn = _rnd(f * cpf + i * g, dtype)
+    hn = o * _act(ca, cn)
+    h = m * hn + (1.0 - m) * hpf
+    c = m * cn + (1.0 - m) * cpf
+    return h.to(dtype), c.to(dtype), torch.cat([i, f, g, o], -1).to(dtype)
+
+
+def lstm_cell_reference_bwd(dh_out, dc_out, dh_mm, dh_pass, dc_carry, gates,
+                            c, cp, m, acts, dtype):
+    """One LSTM step's backward, the kernel's arithmetic. dh_out / dc_out:
+    the outputs' gradients (None: zero); dh_mm: the later step's
+    dgates @ W^T (None: zero); dh_pass, dc_carry: the fp32 carries.
+    Returns (dgates in ``dtype``, dh_pass, dc_carry) with the new fp32
+    carries."""
+    ga, ca, na = acts
+    d = c.shape[-1]
+    zero = torch.zeros_like(dh_pass)
+    dh = (zero if dh_out is None else dh_out.float()) + \
+        (zero if dh_mm is None else dh_mm.float()) + dh_pass
+    dc = (zero if dc_out is None else dc_out.float()) + dc_carry
+    gi, gf, gg, go = gates.float().split(d, dim=-1)
+    dhn = m * dh
+    ac = _act(ca, c.float())
+    dcn = m * dc + dhn * go * _dact(ca, ac)
+    dcp = dcn * gf + (1.0 - m) * dc
+    da = torch.cat([dcn * gg * _dact(ga, gi), dcn * cp.float() * _dact(ga, gf),
+                    dcn * gi * _dact(na, gg), dhn * ac * _dact(ga, go)], -1)
+    return da.to(dtype), (1.0 - m) * dh, dcp
+
+
+def gru_cell_reference(phase, x, bias, mm, hp, gates, m, acts, dtype):
+    """One GRU step's phase, the kernel's arithmetic. Phase 0: mm = hp @
+    W[:, :2D]; returns (u and r [B, 2D], r * hp). Phase 1: mm = (r * hp) @
+    W[:, 2D:], gates holds u; returns (c, h). All in ``dtype``."""
+    ga, na = acts
+    d = hp.shape[-1]
+    xb = x.float()
+    if bias is not None:
+        xb = xb + bias.float().reshape(1, -1)
+    hpf = hp.float()
+    if phase == 0:
+        ur = _rnd(_act(ga, xb[:, :2 * d] + mm.float()), dtype)
+        return ur.to(dtype), (ur[:, d:] * hpf).to(dtype)
+    c = _rnd(_act(na, xb[:, 2 * d:] + mm.float()), dtype)
+    u = gates[:, :d].float()
+    h = m * (u * hpf + (1.0 - u) * c) + (1.0 - m) * hpf
+    return c.to(dtype), h.to(dtype)
+
+
+def gru_cell_reference_bwd(phase, dh_out, mm, dhc, gates, hp, m, acts,
+                           dtype):
+    """One GRU step's backward phase, the kernel's arithmetic. Phase 0:
+    dh_out (None: zero), mm = the later step's (da_u, da_r) @ W[:, :2D]^T
+    (None: zero); returns ((da_u, da_c) in ``dtype``, the fp32 carry).
+    Phase 1: mm = drh; returns (da_r, the carry)."""
+    ga, na = acts
+    d = hp.shape[-1]
+    hpf = hp.float()
+    g = gates.float()
+    zero = torch.zeros_like(dhc)
+    dmm = zero if mm is None else mm.float()
+    if phase == 0:
+        u, c = g[:, :d], g[:, 2 * d:]
+        dh = (zero if dh_out is None else dh_out.float()) + dmm + dhc
+        dhn = m * dh
+        du = dhn * (hpf - c) * _dact(ga, u)
+        dc = dhn * (1.0 - u) * _dact(na, c)
+        return (du.to(dtype), dc.to(dtype)), (1.0 - m) * dh + dhn * u
+    r = g[:, d:2 * d]
+    return (dmm * hpf * _dact(ga, r)).to(dtype), dhc + dmm * r
+
+
+# ------------------------------------------------------------- the wrappers
+def _check(what, dtype, device, rows, tensors):
+    """Each tensor (None allowed): on ``device``, of ``dtype``, ``rows``
+    rows and its last dim contiguous."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError('%s kernel: float32 or bfloat16, got %s'
+                        % (what, dtype))
+    for name, t in tensors:
+        if t is None:
+            continue
+        if t.device != device or t.dtype != dtype or t.shape[0] != rows or \
+                t.stride(-1) != 1:
+            raise ValueError(
+                '%s kernel: %s must be a %s tensor on %s with %d rows and a '
+                'contiguous last dim, got %s %s on %s strides %s'
+                % (what, name, dtype, device, rows, t.dtype, tuple(t.shape),
+                   t.device, tuple(t.stride())))
+
+
+def _stride(t):
+    return 0 if t is None else t.stride(0)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _lengths(length, device, rows):
+    if length is None:
+        return None
+    if length.device != device or length.dtype != torch.int32 or \
+            length.numel() != rows or not length.is_contiguous():
+        raise ValueError('rnn cell kernel: lengths must be a contiguous int32 '
+                         '[%d] tensor on %s, got %s %s on %s'
+                         % (rows, device, length.dtype,
+                            tuple(length.shape), length.device))
+    return length
+
+
+def _fp32(what, device, rows, d, tensors):
+    for name, t in tensors:
+        if t.device != device or t.dtype != torch.float32 or \
+                tuple(t.shape) != (rows, d) or not t.is_contiguous():
+            raise ValueError('%s kernel: %s must be a contiguous float32 '
+                             '[%d, %d] tensor on %s' % (what, name, rows, d,
+                                                        device))
+
+
+def lstm_cell_fwd(x, hw, bias, hp, cp, length, pos, h, c, gates, acts):
+    """One LSTM step at position ``pos``: writes h, c and the activated
+    gates (views [B, D], [B, D], [B, 4D] of the sequence tensors). x:
+    the projected input at pos [B, 4D]; hw = hp @ W; bias [4D] or None;
+    length int32 [B] or None; acts the (gate, cell, candidate) codes."""
+    b, d = hp.shape
+    if x.device.type == 'cpu':
+        m = step_mask(length, pos, b, x.device)
+        outs = lstm_cell_reference(x, hw, bias, hp, cp, m, acts, x.dtype)
+        for out, v in zip((h, c, gates), outs):
+            out.copy_(v)
+        return
+    _check('lstm_cell', x.dtype, x.device, b,
+           [('x', x), ('hw', hw), ('hp', hp), ('cp', cp), ('h', h),
+            ('c', c), ('gates', gates)])
+    if hw.stride(0) != 4 * d or h.stride(0) != c.stride(0) or \
+            (bias is not None and not bias.is_contiguous()):
+        raise ValueError('lstm_cell kernel: hw [B, 4D] and bias must be '
+                         'contiguous, h and c share a row stride')
+    length = _lengths(length, x.device, b)
+    if b == 0 or d == 0:
+        return
+    lib = build.library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.ptt_lstm_cell_fwd(
+            x.data_ptr(), x.stride(0), hw.data_ptr(), _ptr(bias),
+            hp.data_ptr(), hp.stride(0), cp.data_ptr(), cp.stride(0),
+            _ptr(length), int(pos), h.data_ptr(), c.data_ptr(),
+            h.stride(0), gates.data_ptr(), gates.stride(0), b, d,
+            build.dtype_code(x.dtype), *acts, stream)
+    build.check(rc, 'ptt_lstm_cell_fwd')
+    lstm_cell_fwd.launches += 1
+
+
+def lstm_cell_bwd(dh_out, dc_out, dh_mm, dh_pass, dc_carry, gates, c, cp,
+                  length, pos, dg, acts):
+    """One LSTM step's backward at ``pos``: writes dg (the pre-activations'
+    gradient, a [B, 4D] view) and updates the fp32 carries dh_pass and
+    dc_carry [B, D] in place. dh_out / dc_out: the outputs' gradients at
+    pos (None: zero); dh_mm: the later step's dgates @ W^T (None: zero)."""
+    b, d = c.shape
+    if c.device.type == 'cpu':
+        m = step_mask(length, pos, b, c.device)
+        da, hp_new, cc_new = lstm_cell_reference_bwd(
+            dh_out, dc_out, dh_mm, dh_pass, dc_carry, gates, c, cp, m, acts,
+            c.dtype)
+        dg.copy_(da)
+        dh_pass.copy_(hp_new)
+        dc_carry.copy_(cc_new)
+        return
+    _check('lstm_cell_bwd', c.dtype, c.device, b,
+           [('dh_out', dh_out), ('dc_out', dc_out), ('dh_mm', dh_mm),
+            ('gates', gates), ('c', c), ('cp', cp), ('dg', dg)])
+    _fp32('lstm_cell_bwd', c.device, b, d, [('dh_pass', dh_pass),
+                                            ('dc_carry', dc_carry)])
+    if dh_mm is not None and not dh_mm.is_contiguous():
+        raise ValueError('lstm_cell_bwd kernel: dh_mm must be contiguous')
+    length = _lengths(length, c.device, b)
+    if b == 0 or d == 0:
+        return
+    lib = build.library()
+    with torch.cuda.device(c.device):
+        stream = torch.cuda.current_stream(c.device).cuda_stream
+        rc = lib.ptt_lstm_cell_bwd(
+            _ptr(dh_out), _stride(dh_out), _ptr(dc_out), _stride(dc_out),
+            _ptr(dh_mm), dh_pass.data_ptr(), dc_carry.data_ptr(),
+            gates.data_ptr(), gates.stride(0), c.data_ptr(), c.stride(0),
+            cp.data_ptr(), cp.stride(0), _ptr(length), int(pos),
+            dg.data_ptr(), dg.stride(0), b, d, build.dtype_code(c.dtype),
+            *acts, stream)
+    build.check(rc, 'ptt_lstm_cell_bwd')
+    lstm_cell_bwd.launches += 1
+
+
+def gru_cell_fwd(phase, x, bias, mm, hp, length, pos, gates, out, acts):
+    """One GRU step's phase at ``pos``. Phase 0: mm = hp @ W[:, :2D]
+    ([B, 2D]); writes u, r into gates and r * hp into out. Phase 1: mm =
+    (r * hp) @ W[:, 2D:] ([B, D]); writes c into gates and h into out. x:
+    the projected input at pos [B, 3D]; gates: a [B, 3D] view; acts the
+    (gate, candidate) codes."""
+    b, d = hp.shape
+    if x.device.type == 'cpu':
+        m = step_mask(length, pos, b, x.device)
+        first, second = gru_cell_reference(phase, x, bias, mm, hp, gates, m,
+                                           acts, x.dtype)
+        if phase == 0:
+            gates[:, :2 * d].copy_(first)
+        else:
+            gates[:, 2 * d:].copy_(first)
+        out.copy_(second)
+        return
+    _check('gru_cell', x.dtype, x.device, b,
+           [('x', x), ('mm', mm), ('hp', hp), ('gates', gates),
+            ('out', out)])
+    if not mm.is_contiguous() or (bias is not None and
+                                  not bias.is_contiguous()):
+        raise ValueError('gru_cell kernel: mm and bias must be contiguous')
+    length = _lengths(length, x.device, b)
+    if b == 0 or d == 0:
+        return
+    lib = build.library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.ptt_gru_cell_fwd(
+            int(phase), x.data_ptr(), x.stride(0), _ptr(bias), mm.data_ptr(),
+            hp.data_ptr(), hp.stride(0), _ptr(length), int(pos),
+            gates.data_ptr(), gates.stride(0), out.data_ptr(), out.stride(0),
+            b, d, build.dtype_code(x.dtype), *acts, stream)
+    build.check(rc, 'ptt_gru_cell_fwd')
+    gru_cell_fwd.launches += 1
+
+
+def gru_cell_bwd(phase, dh_out, mm, dhc, gates, hp, length, pos, dg, acts):
+    """One GRU step's backward phase at ``pos``: phase 0 writes da_u and
+    da_c into dg (a [B, 3D] view) and sets the fp32 carry dhc [B, D];
+    phase 1 (mm = drh) writes da_r and adds to dhc. dh_out: the output's
+    gradient at pos (phase 0; None: zero); mm None: zero."""
+    b, d = hp.shape
+    if hp.device.type == 'cpu':
+        m = step_mask(length, pos, b, hp.device)
+        da, carry = gru_cell_reference_bwd(phase, dh_out, mm, dhc, gates, hp,
+                                           m, acts, hp.dtype)
+        if phase == 0:
+            dg[:, :d].copy_(da[0])
+            dg[:, 2 * d:].copy_(da[1])
+        else:
+            dg[:, d:2 * d].copy_(da)
+        dhc.copy_(carry)
+        return
+    _check('gru_cell_bwd', hp.dtype, hp.device, b,
+           [('dh_out', dh_out), ('mm', mm), ('gates', gates), ('hp', hp),
+            ('dg', dg)])
+    _fp32('gru_cell_bwd', hp.device, b, d, [('dhc', dhc)])
+    if mm is not None and not mm.is_contiguous():
+        raise ValueError('gru_cell_bwd kernel: mm must be contiguous')
+    length = _lengths(length, hp.device, b)
+    if b == 0 or d == 0:
+        return
+    lib = build.library()
+    with torch.cuda.device(hp.device):
+        stream = torch.cuda.current_stream(hp.device).cuda_stream
+        rc = lib.ptt_gru_cell_bwd(
+            int(phase), _ptr(dh_out), _stride(dh_out), _ptr(mm),
+            dhc.data_ptr(), gates.data_ptr(), gates.stride(0), hp.data_ptr(),
+            hp.stride(0), _ptr(length), int(pos), dg.data_ptr(),
+            dg.stride(0), b, d, build.dtype_code(hp.dtype), *acts, stream)
+    build.check(rc, 'ptt_gru_cell_bwd')
+    gru_cell_bwd.launches += 1
+
+
+lstm_cell_fwd.launches = 0
+lstm_cell_bwd.launches = 0
+gru_cell_fwd.launches = 0    # two a step: phase 0 and phase 1
+gru_cell_bwd.launches = 0    # two a step
+
+
+# ------------------------------------------------------------ recurrences
+def positions(t, reverse):
+    """The positions in the order the recurrence visits them."""
+    return list(range(t - 1, -1, -1)) if reverse else list(range(t))
+
+
+def _previous(h0, seq, reverse):
+    """[B, T, D]: the carry each position read, h0 at the first."""
+    if seq.shape[1] == 0:
+        return seq
+    if reverse:
+        return torch.cat([seq[:, 1:], h0[:, None]], 1)
+    return torch.cat([h0[:, None], seq[:, :-1]], 1)
+
+
+class LstmRecurrence(torch.autograd.Function):
+    """(hidden, cell) [B, T, D] of an LSTM over x [B, T, 4D] (projected),
+    w [D, 4D], bias [4D] or None, h0 and c0 [B, D], length int32 [B] or
+    None; every float tensor in one dtype. ``acts``: the (gate, cell,
+    candidate) codes."""
+
+    @staticmethod
+    def forward(ctx, x, w, bias, h0, c0, length, acts, reverse):
+        b, t, d4 = x.shape
+        d = d4 // 4
+        hidden = x.new_empty((b, t, d))
+        cell = x.new_empty((b, t, d))
+        gates = x.new_empty((b, t, d4))
+        hw = x.new_empty((b, d4))
+        hp, cp = h0, c0
+        for p in positions(t, reverse):
+            torch.mm(hp, w, out=hw)
+            lstm_cell_fwd(x[:, p], hw, bias, hp, cp, length, p, hidden[:, p],
+                          cell[:, p], gates[:, p], acts)
+            hp, cp = hidden[:, p], cell[:, p]
+        ctx.save_for_backward(w, h0, c0, hidden, cell, gates, length)
+        ctx.acts, ctx.reverse, ctx.has_bias = acts, reverse, bias is not None
+        return hidden, cell
+
+    @staticmethod
+    def backward(ctx, dhidden, dcell):
+        w, h0, c0, hidden, cell, gates, length = ctx.saved_tensors
+        b, t, d = hidden.shape
+        dx = torch.empty_like(gates)
+        dh_pass = torch.zeros((b, d), dtype=torch.float32,
+                              device=hidden.device)
+        dc_carry = torch.zeros_like(dh_pass)
+        dhidden = None if dhidden is None else dhidden.contiguous()
+        dcell = None if dcell is None else dcell.contiguous()
+        order = positions(t, ctx.reverse)
+        wt = w.t()
+        buf = hidden.new_empty((b, d))
+        dh_mm = None
+        for k in range(t - 1, -1, -1):
+            p = order[k]
+            cp = c0 if k == 0 else cell[:, order[k - 1]]
+            lstm_cell_bwd(None if dhidden is None else dhidden[:, p],
+                          None if dcell is None else dcell[:, p], dh_mm,
+                          dh_pass, dc_carry, gates[:, p], cell[:, p], cp,
+                          length, p, dx[:, p], ctx.acts)
+            torch.mm(dx[:, p], wt, out=buf)
+            dh_mm = buf
+        need = ctx.needs_input_grad
+        dw = dbias = None
+        if need[1]:
+            prev = _previous(h0, hidden, ctx.reverse)
+            dw = torch.mm(prev.reshape(-1, d).t(), dx.reshape(-1, 4 * d))
+        if ctx.has_bias and need[2]:
+            dbias = dx.sum((0, 1))
+        dh0 = dh_pass if dh_mm is None else dh_mm.float() + dh_pass
+        return (dx, dw, dbias, dh0.to(h0.dtype), dc_carry.to(c0.dtype),
+                None, None, None)
+
+
+class GruRecurrence(torch.autograd.Function):
+    """hidden [B, T, D] of a GRU over x [B, T, 3D] (projected), w [D, 3D],
+    bias [3D] or None, h0 [B, D], length int32 [B] or None; every float
+    tensor in one dtype. ``acts``: the (gate, candidate) codes."""
+
+    @staticmethod
+    def forward(ctx, x, w, bias, h0, length, acts, reverse):
+        b, t, d3 = x.shape
+        d = d3 // 3
+        hidden = x.new_empty((b, t, d))
+        gates = x.new_empty((b, t, d3))
+        rh = x.new_empty((b, t, d))
+        w_ur, w_c = w[:, :2 * d], w[:, 2 * d:]
+        mm_ur = x.new_empty((b, 2 * d))
+        mm_c = x.new_empty((b, d))
+        hp = h0
+        for p in positions(t, reverse):
+            torch.mm(hp, w_ur, out=mm_ur)
+            gru_cell_fwd(0, x[:, p], bias, mm_ur, hp, length, p, gates[:, p],
+                         rh[:, p], acts)
+            torch.mm(rh[:, p], w_c, out=mm_c)
+            gru_cell_fwd(1, x[:, p], bias, mm_c, hp, length, p, gates[:, p],
+                         hidden[:, p], acts)
+            hp = hidden[:, p]
+        ctx.save_for_backward(w, h0, hidden, gates, rh, length)
+        ctx.acts, ctx.reverse, ctx.has_bias = acts, reverse, bias is not None
+        return hidden
+
+    @staticmethod
+    def backward(ctx, dhidden):
+        w, h0, hidden, gates, rh, length = ctx.saved_tensors
+        b, t, d = hidden.shape
+        dx = torch.empty_like(gates)
+        dhc = torch.zeros((b, d), dtype=torch.float32, device=hidden.device)
+        dhidden = None if dhidden is None else dhidden.contiguous()
+        order = positions(t, ctx.reverse)
+        wt_ur, wt_c = w[:, :2 * d].t(), w[:, 2 * d:].t()
+        drh = hidden.new_empty((b, d))
+        buf = hidden.new_empty((b, d))
+        g1 = None
+        for k in range(t - 1, -1, -1):
+            p = order[k]
+            hp = h0 if k == 0 else hidden[:, order[k - 1]]
+            gru_cell_bwd(0, None if dhidden is None else dhidden[:, p], g1,
+                         dhc, gates[:, p], hp, length, p, dx[:, p], ctx.acts)
+            torch.mm(dx[:, p, 2 * d:], wt_c, out=drh)
+            gru_cell_bwd(1, None, drh, dhc, gates[:, p], hp, length, p,
+                         dx[:, p], ctx.acts)
+            torch.mm(dx[:, p, :2 * d], wt_ur, out=buf)
+            g1 = buf
+        need = ctx.needs_input_grad
+        dw = dbias = None
+        if need[1]:
+            prev = _previous(h0, hidden, ctx.reverse).reshape(-1, d)
+            dx2 = dx.reshape(-1, 3 * d)
+            dw = torch.cat([torch.mm(prev.t(), dx2[:, :2 * d]),
+                            torch.mm(rh.reshape(-1, d).t(), dx2[:, 2 * d:])],
+                           1)
+        if ctx.has_bias and need[2]:
+            dbias = dx.sum((0, 1))
+        dh0 = dhc if g1 is None else g1.float() + dhc
+        return dx, dw, dbias, dh0.to(h0.dtype), None, None, None

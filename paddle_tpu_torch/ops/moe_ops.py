@@ -124,6 +124,55 @@ class _SlotGather(torch.autograd.Function):
         return out, None
 
 
+class _Dispatch(torch.autograd.Function):
+    """The dense dispatch einsum 'sec,sd->ecd' by slots: the expert
+    buffer [E * C, D] with each kept token in its slot, and its NaN
+    places. A slot of the dense form is its own token (1 * x) plus every
+    other token times 0, so a column turns NaN where another token is
+    inf or NaN there, and an inf token's own slot stays inf. The
+    backward is the same sum the other way: a token's gradient is its
+    slots' rows plus 0 times every other slot's row."""
+
+    @staticmethod
+    def forward(ctx, x2, slots, n_rows):
+        s, k = slots.shape
+        d = x2.shape[1]
+        flat = slots.reshape(-1)
+        src = x2 if k == 1 else x2.unsqueeze(1).expand(s, k, d).reshape(-1, d)
+        buf = x2.new_zeros((n_rows + 1, d)).index_copy(0, flat, src)[:-1]
+        ctx.save_for_backward(slots)
+        # a slot's own token is the value in it
+        return _other_nan(buf, _nonfinite(x2).sum(0), _nonfinite(buf))
+
+    @staticmethod
+    def backward(ctx, g):
+        slots, = ctx.saved_tensors
+        s, k = slots.shape
+        d = g.shape[1]
+        flat = slots.reshape(-1)
+        rows = torch.cat([g, g.new_zeros((1, d))])
+        bad = _nonfinite(rows)
+        dx = rows.index_select(0, flat)
+        own = bad.index_select(0, flat)
+        if k > 1:
+            dx = dx.view(s, k, d).sum(1)
+            own = own.view(s, k, d).sum(1)
+        return _other_nan(dx, bad.sum(0), own), None, None
+
+
+def _nonfinite(x):
+    """1 where x is inf or NaN: 0 * x is NaN exactly there."""
+    z = x * 0
+    return z != z
+
+
+def _other_nan(v, count, own):
+    """v + 0 (the dense form's sum of zeros turns a -0 into +0), NaN in
+    each column where ``count`` (the column's non-finite terms) exceeds
+    ``own`` (those of the row's own term)."""
+    return (v + 0).masked_fill_(count > own, float('nan'))
+
+
 def switch_moe_slots(x2, gate_w, w1, b1, w2, b2, capacity, k=1):
     """The slot form on flattened tokens x2 [S, D] (fp32, or bf16 with
     bf16 expert weights under AMP; gate_w fp32). Returns (out [S, D] in
@@ -133,9 +182,7 @@ def switch_moe_slots(x2, gate_w, w1, b1, w2, b2, capacity, k=1):
     probs, gates, idx = _router(x2, gate_w, k)
     slots = route(idx, e, capacity)
     flat = slots.reshape(-1)
-    src = x2 if k == 1 else x2.unsqueeze(1).expand(s, k, d).reshape(-1, d)
-    buf = x2.new_zeros((e * capacity + 1, d)).index_copy(0, flat, src)
-    expert_in = buf[:-1].view(e, capacity, d) + (0 * x2).sum(0)
+    expert_in = _Dispatch.apply(x2, slots, e * capacity).view(e, capacity, d)
     h = relu(torch.bmm(expert_in, w1) + b1.unsqueeze(1))
     expert_out = torch.bmm(h, w2) + b2.unsqueeze(1)
     rows = torch.cat([expert_out.reshape(e * capacity, d),

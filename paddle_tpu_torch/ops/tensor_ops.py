@@ -152,8 +152,11 @@ def top_k(x, k):
     lower index first (torch.topk fixes no order among ties). One
     torch.topk over an exact int64 key: the value's fp32 bits mapped to
     an order-preserving int32 (-0.0 taken as +0.0) in the high half, the
-    index reversed in the low half, so no two keys are equal."""
+    index reversed in the low half, so no two keys are equal. Every NaN
+    counts as the positive NaN, above +inf, as the reference's do (torch's
+    cast to bfloat16 gives NaN the sign bit)."""
     f = x.float() + 0.0
+    f.masked_fill_(torch.isnan(f), float('nan'))
     bits = f.view(torch.int32)
     ordered = torch.where(bits < 0, bits ^ 0x7fffffff, bits).to(torch.int64)
     n = x.shape[-1]

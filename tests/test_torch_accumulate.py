@@ -105,6 +105,52 @@ def test_assign_is_a_copy_before_an_in_place_update(opt):
         assert not np.array_equal(got[2], got[3])
 
 
+def _view_run(pkg, opt, w0):
+    """reshape(w) and transpose(w) fetched from two steps of opt's update
+    of w, from ``w0``: returns the second step's fetches
+    and w before it."""
+    main, startup = pkg.Program(), pkg.Program()
+    with pkg.program_guard(main, startup):
+        x = pkg.layers.data(name='x', shape=[4], dtype='float32')
+        pred = pkg.layers.fc(input=x, size=3, bias_attr=False,
+                             param_attr=pkg.ParamAttr(name='vw_w'))
+        loss = pkg.layers.mean(pred)
+        w = main.global_block().var('vw_w')
+        flat = pkg.layers.reshape(w, [12])
+        wt = pkg.layers.transpose(w, [1, 0])
+        getattr(pkg.optimizer, opt)(learning_rate=0.5).minimize(loss)
+    feed = {'x': np.random.RandomState(4).randn(2, 4).astype('f')}
+    if pkg is fluid:
+        scope, exe = fluid.Scope(), fluid.Executor(fluid.CPUPlace())
+    else:
+        scope, exe = pt.Scope(), pt.Executor(pt.CPUPlace())
+    with pkg.scope_guard(scope):
+        exe.run(startup)
+        scope.set('vw_w', torch.tensor(w0) if pkg is pt else
+                  jax.numpy.asarray(w0))
+        exe.run(main, feed=feed, fetch_list=[flat, wt])
+        w1 = np.array(scope.find('vw_w'))
+        got = [np.asarray(v) for v in exe.run(main, feed=feed,
+                                               fetch_list=[flat, wt])]
+    return got, w1
+
+
+@pytest.mark.parametrize('opt', ['SGD', 'Adam'])
+def test_fetched_view_of_a_parameter_is_its_pre_update_value(opt):
+    """reshape and transpose return views of the parameter, which the
+    update then writes in place: the executor copies such a fetch before
+    the update ops run, so it is the pre-update w, as the reference's
+    arrays are (its fetches equal the port's), and w moved."""
+    w0 = np.random.RandomState(5).randn(4, 3).astype('f')
+    ref, rw1 = _view_run(fluid, opt, w0)
+    got, w1 = _view_run(pt, opt, w0)
+    np.testing.assert_allclose(w1, rw1, rtol=1e-6, atol=1e-7)
+    np.testing.assert_array_equal(got[0], w1.reshape(12))
+    np.testing.assert_array_equal(got[1], w1.T)
+    for r, g in zip(ref, got):
+        np.testing.assert_allclose(g, r, rtol=1e-6, atol=1e-7)
+
+
 def test_assign_output_owns_its_storage():
     """The lowering copies: its output equals its input and never shares
     its storage."""

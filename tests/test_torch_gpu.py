@@ -2658,3 +2658,106 @@ def test_remat_recompute_gives_k2_bits(cuda, level, monkeypatch):
                 torch.equal(l1, l2)]
         assert same, 'a recomputed attention differs from every first one'
         del first[same[0]]
+
+
+# ------------------------------------------ the recurrent and sequence path
+RNN_CELL_CASES = {
+    # (B, D, lengths, activations of the LSTM / of the GRU)
+    'bench': (128, 128, np.full(128, 100), (0, 1, 1), (0, 1)),
+    'ragged': (8, 24, np.array([100, 0, 37, 1, 50, 99, 51, 12]), (0, 1, 1),
+               (0, 1)),
+    'all_padding': (8, 32, np.zeros(8, int), (0, 1, 1), (0, 1)),
+    'every_activation': (8, 32, np.array([100, 0, 37, 1, 50, 99, 51, 12]),
+                         (2, 3, 0), (3, 2)),
+}
+
+
+@pytest.mark.parametrize('case', sorted(RNN_CELL_CASES))
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['fp32', 'bf16'])
+@pytest.mark.parametrize('kernel', ['lstm_fwd', 'lstm_bwd', 'gru_fwd',
+                                    'gru_bwd'])
+def test_rnn_cell_kernel_matches_plain(cuda, kernel, dtype, case):
+    """Each cell kernel against its plain version on the same card tensors
+    (chip_smoke.py's RNN_CELL_TOL), and a second run bit for bit."""
+    from chip_smoke import _rnn_cell_case
+    kind, direction = kernel.split('_')
+    b, d, lens, lstm_acts, gru_acts = RNN_CELL_CASES[case]
+    gen = torch.Generator(device=cuda).manual_seed(19)
+    _rnn_cell_case(torch, 'card test', kind, direction, dtype, b, 100, d,
+                   lens, lstm_acts if kind == 'lstm' else gru_acts, gen)
+
+
+@pytest.mark.parametrize('reverse', [False, True], ids=['forward', 'reverse'])
+@pytest.mark.parametrize('kind', ['lstm', 'gru'])
+def test_rnn_recurrence_on_card_equals_host(cuda, kind, reverse):
+    """The whole recurrence through the kernels against the plain cells on
+    the host, forward and every gradient, fp32, ragged lengths with 0 and
+    T: within 1e-5 of each array's largest magnitude."""
+    from chip_smoke import _recurrence_places
+    acts = (0, 1, 1) if kind == 'lstm' else (0, 1)
+    rel = _recurrence_places(torch, kind, 8, 24, 32,
+                             np.array([24, 0, 11, 1, 24, 9, 3, 20]), reverse,
+                             acts, 3)
+    assert rel <= 1e-5
+
+
+def test_rnn_lstm_step_is_captured_with_its_cell_launches(cuda):
+    """bench_rnn_lstm's program at a small width under bf16 AMP: one CUDA
+    graph, T cell launches forward and T backward a step; 3 captured steps
+    equal 3 eager ones and one run_steps(3), bit for bit."""
+    from chip_smoke import (_build_rnn_lstm, _moe_same_bits, _three_ways,
+                            read_launches, reset_launches, rnn_lstm_feed)
+    avg = _build_rnn_lstm(pt, 512, 32, 'bf16')
+    program = pt.default_main_program()
+    host = pt.Scope()
+    with pt.scope_guard(host):
+        pt.Executor(pt.CPUPlace()).run(pt.default_startup_program())
+    weights = {n: host.numpy(n) for n in host.keys()}
+    feed = rnn_lstm_feed(8, 16, 512, lens=[16, 0, 5, 1, 16, 9, 3, 12])
+    exe = pt.Executor(pt.CUDAPlace(0))
+    from paddle_tpu_torch.weights import load_into_scope
+    scope = pt.Scope()
+    load_into_scope(weights, scope, pt.CUDAPlace(0))
+    with pt.scope_guard(scope):
+        for _ in range(2):
+            exe.run(program, feed=feed, fetch_list=[avg])
+        reset_launches()
+        for _ in range(3):
+            exe.run(program, feed=feed, fetch_list=[avg])
+        got = read_launches()
+    assert exe.last_captured and exe.captures == 1
+    assert (got['lstm_cell_fwd'], got['lstm_cell_bwd']) == (48, 48)
+    res = _three_ways(torch, pt, pt.CUDAPlace(0), program, avg, weights,
+                      feed)
+    assert _moe_same_bits(res, 'captured', 'eager')
+    assert _moe_same_bits(res, 'captured', 'run_steps')
+
+
+@pytest.mark.parametrize('opt', ['SGD', 'Adam'])
+def test_fetched_view_of_a_parameter_captured_is_pre_update(cuda, opt):
+    """reshape(w) and transpose(w) fetched from captured steps are the
+    values w had before each step's in-place update, as in the eager
+    steps and in the reference."""
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        x = pt.layers.data(name='x', shape=[4], dtype='float32')
+        pred = pt.layers.fc(input=x, size=3, bias_attr=False,
+                            param_attr=pt.ParamAttr(name='gv_w'))
+        loss = pt.layers.mean(pred)
+        w = main.global_block().var('gv_w')
+        flat = pt.layers.reshape(w, [12])
+        wt = pt.layers.transpose(w, [1, 0])
+        getattr(pt.optimizer, opt)(learning_rate=0.5).minimize(loss)
+    feed = {'x': np.random.RandomState(4).randn(2, 4).astype('f')}
+    exe = pt.Executor(pt.CUDAPlace(0))
+    scope = pt.Scope()
+    with pt.scope_guard(scope):
+        exe.run(startup)
+        for step in range(4):
+            before = scope.numpy('gv_w').copy()
+            got = exe.run(main, feed=feed, fetch_list=[flat, wt])
+            np.testing.assert_array_equal(got[0], before.reshape(12))
+            np.testing.assert_array_equal(got[1], before.T)
+            assert not np.array_equal(scope.numpy('gv_w'), before)
+        assert exe.last_captured

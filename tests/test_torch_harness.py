@@ -84,12 +84,12 @@ EXACT = {
 }
 
 
-# reduce_max / reduce_min (and maxout, a max over channel groups) over a
-# NaN: the reference's gradient there is 0
+# reduce_max / reduce_min (and maxout, a max over channel groups, and
+# sequence_pool's MAX) over a NaN: the reference's gradient there is 0
 # in its fp32 program (XLA rewrites jax's (g / count) * indicator into a
 # select) and NaN under bf16 AMP (it does not); the port gives 0, and the
 # elements the reference gives NaN are not compared
-NAN_OR_ZERO_GRAD = {'reduce_max', 'reduce_min', 'maxout'}
+NAN_OR_ZERO_GRAD = {'reduce_max', 'reduce_min', 'maxout', 'sequence_pool'}
 
 
 def tolerance(op_type):

@@ -353,8 +353,15 @@ def test_scaled_dot_product_attention_runs_as_written():
 
 
 def test_sequence_conv_pool_waits_for_the_sequence_ops():
-    with pytest.raises(NotImplementedError, match='Queue 1 item 7'):
-        pt.nets.sequence_conv_pool(None, 4, 3)
+    """The sequence ops have come: nets.sequence_conv_pool builds the
+    reference's program (sequence_conv, its bias and act, sequence_pool
+    over the lengths)."""
+    def build(pkg, h):
+        x = _x(pkg, (2, 5, 3))
+        length = _x(pkg, (2,), name='len', dtype='int64')
+        pkg.nets.sequence_conv_pool(x, 4, 3, act='tanh', pool_type='sqrt',
+                                    length=length)
+    _same_program(build)
 
 
 # ------------------------------------------------- Variable, Program, core
@@ -514,10 +521,10 @@ def _op_types(pkg):
 
 
 def test_coverage_count():
-    """172 of the reference's 241 op types have a lowering in the port,
+    """194 of the reference's 241 op types have a lowering in the port,
     every one of them a reference op type."""
     ref, got = _op_types(fluid), _op_types(pt)
-    assert len(ref) == 241 and len(got) == 172 and got <= ref
+    assert len(ref) == 241 and len(got) == 194 and got <= ref
 
 
 # ------------------------- the op modules' layers, weight norm, initializers
@@ -543,6 +550,34 @@ def test_module_layers_have_the_reference_signatures(module):
     jmod = importlib.import_module('paddle_tpu.layers.' + module)
     pmod = importlib.import_module('paddle_tpu_torch.layers.' + module)
     for name in MODULE_LAYERS[module]:
+        assert _signature(getattr(pmod, name)) == \
+            _signature(getattr(jmod, name)), name
+        assert getattr(pt.layers, name) is getattr(pmod, name), name
+        assert name in pmod.__all__, name
+
+
+# the sequence, recurrent, CTC / CRF and metric layers this slice adds
+SEQUENCE_LAYERS = {
+    'sequence': ['sequence_pool', 'sequence_softmax', 'sequence_expand',
+                 'sequence_conv', 'sequence_first_step', 'sequence_last_step',
+                 'sequence_reshape', 'sequence_concat', 'sequence_slice'],
+    'rnn': ['dynamic_lstm', 'dynamic_lstmp', 'dynamic_gru', 'gru_unit',
+            'lstm_unit', 'simple_rnn'],
+    'decode': ['warpctc', 'ctc_greedy_decoder', 'linear_chain_crf',
+               'crf_decoding'],
+    'nn': ['chunk_eval', 'precision_recall', 'positive_negative_pair',
+           'edit_distance'],
+}
+
+
+@pytest.mark.parametrize('module', sorted(SEQUENCE_LAYERS))
+def test_sequence_layers_have_the_reference_signatures(module):
+    """The 23 sequence, recurrent, CTC / CRF and metric layers take the
+    reference's arguments (dynamic_lstm's use_peepholes, edit_distance's
+    ignored_tokens included) and are reachable as layers.<name>."""
+    jmod = importlib.import_module('paddle_tpu.layers.' + module)
+    pmod = importlib.import_module('paddle_tpu_torch.layers.' + module)
+    for name in SEQUENCE_LAYERS[module]:
         assert _signature(getattr(pmod, name)) == \
             _signature(getattr(jmod, name)), name
         assert getattr(pt.layers, name) is getattr(pmod, name), name

@@ -167,28 +167,19 @@ def test_nan_feed_spreads_as_the_dense_form(k):
 @pytest.mark.parametrize('k', [1, 2])
 def test_inf_feed(k):
     """An inf token (and no NaN): the output, the aux loss and the
-    gradients of x and gate_w have the reference's NaN and inf places.
-    The expert weights' gradients do not, an open fault (ROADMAP Queue 3):
-    the dense dispatch gives the inf token's own slot inf (1 * inf plus
-    the other tokens' 0 * x) where the slot form's zero-weighted column
-    sum (0 * inf = NaN) makes it NaN, and the ReLU's gradient then passes
-    at one more place. Both counts are shown."""
+    gradients of x, gate_w, w1, b1, w2 and b2 have the reference's NaN
+    and inf places. The dense dispatch gives the inf token's own slot inf
+    (1 * inf plus the other tokens' 0 * x) and every other slot of its
+    column NaN; the slot form counts a column's non-finite tokens other
+    than the slot's own, forward and backward."""
     arrays = _inputs(2)
     arrays[0][5, 1] = np.inf
     (rout, raux, _), rgrads = _jax_run(arrays, k, False)
     (out, aux, _), grads = _port_run(M.switch_moe_slots, arrays, k, False)
     _close(out, rout, False, what='out')
     _close(aux, raux, False, what='aux')
-    for name in ('x', 'gate_w', 'w2', 'b2'):
-        i = NAMES.index(name)
-        _close(grads[i], rgrads[i], False, what=name)
-    for name in ('w1', 'b1'):
-        i = NAMES.index(name)
-        print('%s@GRAD NaN elements: port %d, reference %d'
-              % (name, np.isnan(grads[i]).sum(), np.isnan(rgrads[i]).sum()))
-        fin = np.isfinite(grads[i]) & np.isfinite(rgrads[i])
-        np.testing.assert_allclose(grads[i][fin], rgrads[i][fin], rtol=1e-5,
-                                   atol=1e-6)
+    for name, g, r in zip(NAMES, grads, rgrads):
+        _close(g, r, False, what=name)
 
 
 def test_relu_gradient_is_a_select():
