@@ -6,8 +6,8 @@ serving (the KV page handoff, PhaseRouter), Wide&Deep CTR training
 with row-sparse embedding gradients, the public layers (an encoder
 layer built from them, every new and repaired op), the staging ring,
 the Switch-MoE LM, remat and gradient accumulation, and the recurrent
-and sequence path (bench_rnn_lstm, the LSTM and GRU cell kernels, the
-sequence models) on one CUDA card.
+and sequence path (bench_rnn_lstm, the LSTM sequence kernels, the LSTM
+and GRU cell kernels, the sequence models) on one CUDA card.
 
     python3 chip_smoke.py                  # on a machine with one H100
     python3 chip_smoke.py --cpu-rehearsal  # phases 4-19 on the host, tiny
@@ -335,8 +335,11 @@ Phases (any fault exits non-zero; no phase is skipped over):
    element-wise clipping at 25, bf16) built by
    models/seq_models.lstm_text_classifier, the fluid layers the
    reference's v1 shim lowers it to: 3 warm-up and 20 timed captured
-   steps (ms a step, tokens/s, MFU, peak memory), exactly 100 LSTM cell
-   launches forward and 100 backward a step; at batch 8 x seq 16 with
+   steps (ms a step, tokens/s, MFU, peak memory), exactly one LSTM
+   sequence launch forward and one backward a step and no cell launch;
+   then at hidden 512 (bench.py's hidden argument), past the sequence
+   kernels' plan, 5 timed steps with exactly 100 cell launches each way a
+   step and no sequence launch; at batch 8 x seq 16 with
    ragged lengths 3 fp32 steps card against host (losses rtol 1e-5); at
    width 3 captured steps against 3
    eager ones and one run_steps(3), bit for bit. (b) stacked_lstm_net at
@@ -348,9 +351,18 @@ Phases (any fault exits non-zero; no phase is skipped over):
    against its plain version at fp32 and bf16, at the bench step, ragged
    lengths, all padding and every activation, each twice for equal bits;
    timed at the bench step beside its bound and, for the LSTM, torch's
-   fused LSTM cell and its backward; the whole recurrences card against
-   host at fp32 (ragged, reverse, length 0), and the LSTM recurrence
-   beside torch.nn.LSTM (cuDNN at fp16 and fp32). (d) the 22 op types of
+   fused LSTM cell and its backward; the LSTM sequence kernels
+   (csrc/lstm_seq.cu) against their plain versions (the per-position loop
+   with plain cells) at fp32 and bf16 on the bench recurrence, ragged
+   lengths, all padding, every activation, B 37 x hidden 20 and reverse,
+   with and without bias, dhidden and dcell, each twice for equal bits,
+   timed at the bench recurrence beside their bound, their floor (T
+   steps of the cluster's exchange alone, the same launch) and cuDNN's
+   nn.LSTM at fp16; the
+   whole recurrences card against host at fp32 (ragged, reverse, length
+   0; the LSTM also at hidden 256, where fp32 has no plan and the cells
+   run), and the LSTM recurrence beside the per-position path and
+   torch.nn.LSTM (cuDNN at fp16 and fp32). (d) the 22 op types of
    the slice in one captured program (B 16, T 24, lengths 0-24), fp32
    and bf16 AMP, card against host (exact, or recurrence_difference).
 
@@ -535,7 +547,8 @@ def phase_build():
                    'keep_mask_kernel', 'dropout_kernel',
                    'sparse_rows_group_kernel', 'lstm_cell_fwd_kernel',
                    'lstm_cell_bwd_kernel', 'gru_cell_fwd_kernel',
-                   'gru_cell_bwd_kernel'):
+                   'gru_cell_bwd_kernel', 'lstm_seq_fwd_kernel',
+                   'lstm_seq_bwd_kernel'):
         require(kernel in res.log, 'ptxas\'s log does not show %s' % kernel)
     print('  flash attention dynamic shared memory at D=64: tensor-core '
           'forward %d B, SIMT forward %d B, SIMT dK/dV %d B, SIMT dQ %d B, '
@@ -6775,12 +6788,24 @@ def rnn_lstm_feed(batch, seq, vocab, lens=None, seed=0):
             'label': rng.randint(0, 2, (batch, 1)).astype('int64')}
 
 
-def rnn_want(lstm_steps=0, gru_steps=0):
-    """The cell launches of ``lstm_steps`` LSTM and ``gru_steps`` GRU
-    positions run forward and backward (a GRU position: two launches each
-    way)."""
+def rnn_want(lstm_steps=0, gru_steps=0, lstm_seqs=0):
+    """The recurrences' launches: ``lstm_steps`` LSTM and ``gru_steps`` GRU
+    positions run forward and backward by the cells (a GRU position: two
+    launches each way), and ``lstm_seqs`` LSTM sequences by the sequence
+    kernels (one launch each way)."""
     return dict(lstm_cell_fwd=lstm_steps, lstm_cell_bwd=lstm_steps,
-                gru_cell_fwd=2 * gru_steps, gru_cell_bwd=2 * gru_steps)
+                gru_cell_fwd=2 * gru_steps, gru_cell_bwd=2 * gru_steps,
+                lstm_seq_fwd=lstm_seqs, lstm_seq_bwd=lstm_seqs)
+
+
+def rnn_lstm_want(batch, seq, hidden, dtype, steps):
+    """The launches of ``steps`` steps of one LSTM layer: one sequence
+    launch each way a step where lstm_seq_plan has a launch, else a cell
+    launch each way a position."""
+    from paddle_tpu_torch.ops.kernels.rnn_cell import lstm_seq_plan
+    if lstm_seq_plan(batch, hidden, dtype) is None:
+        return rnn_want(lstm_steps=seq * steps)
+    return rnn_want(lstm_seqs=steps)
 
 
 def rnn_lstm_flops(batch, seq, vocab, hidden, emb=128):
@@ -6824,18 +6849,21 @@ def _rnn_timed(torch, pt, place, card, on_card, batch, seq, vocab, hidden,
                mfu=flops / (ms / 1e3) / BF16_FLOPS, peak_gb=peak / 1e9,
                above_resident_gb=(peak - base) / 1e9, params=n_params,
                loss_first=losses[0], loss_last=losses[-1])
-    want = rnn_want(lstm_steps=seq * steps)
+    want = rnn_lstm_want(batch, seq, hidden, torch.bfloat16, steps)
+    path = ('the sequence kernels, one launch each way a step'
+            if want['lstm_seq_fwd'] else 'no sequence-kernel plan at this '
+            'width: one LSTM cell a position, forward and backward')
     print('phase 19a bench_rnn_lstm: vocab %d, %d params, batch %d x seq %d, '
           'emb 128, hidden %d, Adam(2e-3) + L2Decay(8e-4) + value clip 25, '
           'amp bf16; build + startup %.2f s; %d timed steps after %d '
           'warm-up: %.3f ms/step, %.1f tokens/s, analytic %.4g GFLOP/step, '
           'MFU %.5f; max_memory_allocated %.3f GB, %.3f GB above the '
-          'resident state; loss first %.5f last %.5f; cell launches %s '
-          '(want %s: one LSTM cell a position, forward and backward) [%s]'
+          'resident state; loss first %.5f last %.5f; recurrence launches %s '
+          '(want %s: %s) [%s]'
           % (vocab, n_params, batch, seq, hidden, t1 - t0, steps, warmup, ms,
              row['tokens_per_s'], flops / 1e9, row['mfu'], row['peak_gb'],
              row['above_resident_gb'], losses[0], losses[-1],
-             {k: launches[k] for k in want}, want, card))
+             {k: launches[k] for k in want}, want, path, card))
     require(np.isfinite(losses).all(), 'bench_rnn_lstm: loss not finite')
     require(losses[-1] < losses[0], 'bench_rnn_lstm: loss did not fall: %s'
             % losses)
@@ -7153,14 +7181,201 @@ def _recurrence_places(torch, kind, b, t, d, lens, reverse, acts, gen_seed):
                for a, w in zip(res['cuda'], res['cpu']))
 
 
+RNN_SEQ_RAGGED = [100, 0, 37, 1, 50, 99, 51, 12]
+RNN_SEQ_CASES = {
+    # (B, T, D, lengths, activation codes (gate, cell, candidate), reverse,
+    #  with bias, with dhidden, with dcell)
+    'bench': (128, 100, 128, [100] * 128, [(0, 1, 1)], False, True, True,
+              True),
+    'ragged': (8, 100, 24, RNN_SEQ_RAGGED, [(0, 1, 1)], False, True, True,
+               True),
+    'all_padding': (8, 100, 32, [0] * 8, [(0, 1, 1)], False, True, True,
+                    False),
+    'every_activation': (8, 100, 32, RNN_SEQ_RAGGED,
+                         [(1, 2, 3), (2, 3, 0), (3, 0, 2)], False, True, True,
+                         True),
+    'odd': (37, 100, 20, [100, 0] + [7 * i % 101 for i in range(1, 36)],
+            [(0, 1, 1)], False, False, True, False),
+    'reverse': (8, 100, 32, RNN_SEQ_RAGGED, [(0, 1, 1)], True, True, False,
+                True),
+}
+# bf16: the kernel's recurrent products and cuBLAS's round to bf16 from
+# sums in other orders, and a one-ulp difference in a step's product
+# carries through the earlier steps (the backward's worst measured on an
+# H100 0.0040 of an array's largest magnitude, the forward's 0)
+RNN_SEQ_BF16_TOL = 2.0 ** -7
+RNN_SEQ_TOL = ('fp32: |kernel - plain| <= 1e-5 x the array\'s largest '
+               'magnitude; bf16: <= %.4g x it' % RNN_SEQ_BF16_TOL)
+
+
+def _lstm_seq_inputs(torch, case, dtype, seed=20):
+    """RNN_SEQ_CASES[case]'s tensors on the card, from numpy (seed)."""
+    b, t, d, lens, acts, reverse, bias, dh, dc = RNN_SEQ_CASES[case]
+    rng = np.random.RandomState(seed)
+    dev = torch.device('cuda', 0)
+
+    def r(*shape, scale=1.0):
+        return torch.tensor(rng.randn(*shape) * scale, dtype=torch.float32,
+                            device=dev).to(dtype)
+    return dict(
+        x=r(b, t, 4 * d, scale=0.5),
+        w=r(d, 4 * d, scale=0.3 / np.sqrt(max(d / 8.0, 1.0))),
+        bias=r(4 * d, scale=0.1) if bias else None, h0=r(b, d, scale=0.5),
+        c0=r(b, d, scale=0.5),
+        length=torch.tensor(lens, dtype=torch.int32, device=dev),
+        dh=r(b, t, d) if dh else None, dc=r(b, t, d) if dc else None,
+        acts=acts, reverse=reverse)
+
+
+def _lstm_seq_bytes_ops(b, t, d, elt, direction):
+    """The bytes a sequence kernel must move (each input once, each output
+    once) and its products' operations."""
+    if direction == 'fwd':
+        n = elt * (b * t * 4 * d + d * 4 * d + 4 * d + 2 * b * d +
+                   2 * b * t * d + b * t * 4 * d) + 4 * b
+    else:
+        n = elt * (2 * b * t * d + d * 4 * d + b * t * 4 * d + b * t * d +
+                   b * d + b * t * 4 * d + b * d) + 8 * b * d + 4 * b
+    return n, 2.0 * b * t * d * 4 * d
+
+
+def _lstm_seq_case(torch, card, direction, dtype, case, timed=False):
+    """One sequence kernel (direction 'fwd' or 'bwd') against its plain
+    version (the per-position loop of torch.mm and plain cells) on the same
+    card tensors, every output within RNN_SEQ_TOL, run twice for equal bits
+    and counted once a launch; the backward's inputs are the plain
+    forward's gates and cells. With ``timed``: device ms (graph replay)
+    beside the plain version's, the bound, the floor (T steps of the
+    cluster's exchange alone at the same launch geometry) and the library call (cuDNN's nn.LSTM at
+    fp16, forward without grad, or its backward alone). Returns the row."""
+    from paddle_tpu_torch.ops.kernels import build
+    from paddle_tpu_torch.ops.kernels import rnn_cell as K
+    v = _lstm_seq_inputs(torch, case, dtype)
+    b, t, d = v['x'].shape[0], v['x'].shape[1], v['w'].shape[0]
+    counter = K.lstm_seq_fwd if direction == 'fwd' else K.lstm_seq_bwd
+    worst, rel_worst = 0.0, 0.0
+    tol = 1e-5 if dtype == torch.float32 else RNN_SEQ_BF16_TOL
+    for acts in v['acts']:
+        fargs = (v['x'], v['w'], v['bias'], v['h0'], v['c0'], v['length'],
+                 acts, v['reverse'])
+        if direction == 'fwd':
+            def launch(fargs=fargs):
+                return K.lstm_seq_fwd(*fargs)
+
+            def plain(fargs=fargs):
+                return K.lstm_seq_fwd_reference(*fargs)
+            names = ('hidden', 'cell', 'gates')
+        else:
+            _, cell, gates = K.lstm_seq_fwd_reference(*fargs)
+            bargs = (v['dh'], v['dc'], v['w'], gates, cell, v['c0'],
+                     v['length'], acts, v['reverse'])
+
+            def launch(bargs=bargs):
+                return K.lstm_seq_bwd(*bargs)
+
+            def plain(bargs=bargs):
+                return K.lstm_seq_bwd_reference(*bargs)
+            names = ('dx', 'dh0', 'dc0')
+        before = counter.launches
+        first, again = launch(), launch()
+        want = plain()
+        torch.cuda.synchronize()
+        require(counter.launches == before + 2, 'lstm_seq_%s: %d launches '
+                'counted for 2 calls' % (direction, counter.launches - before))
+        errs = []
+        for name, got, ref in zip(names, first, want):
+            g, r = (np.asarray(a.float().cpu(), np.float64) for a in (got, ref))
+            require(np.isfinite(r).all(), 'lstm_seq %s case %s: the plain '
+                    '%s is not finite' % (direction, case, name))
+            err = float(np.abs(g - r).max()) if g.size else 0.0
+            scale = float(np.abs(r).max()) if r.size else 0.0
+            errs.append((name, err, err / max(scale, 1e-30)))
+            require(err <= tol * scale, 'lstm_seq_%s %s case %s acts %s: %s '
+                    'differs from the plain version by %.3g (largest '
+                    'magnitude %.3g; %s)' % (direction, str(dtype)[6:], case,
+                                             acts, name, err, scale,
+                                             RNN_SEQ_TOL))
+        same = all(torch.equal(a, c) for a, c in zip(first, again))
+        require(same, 'lstm_seq_%s %s case %s: a second run gave other bits'
+                % (direction, str(dtype)[6:], case))
+        worst = max([worst] + [e for _, e, _ in errs])
+        rel_worst = max([rel_worst] + [r for _, _, r in errs])
+        print('lstm_seq_%s %s case %s (B %d T %d D %d, acts %s%s%s%s%s): '
+              'max abs err %s (%s): ok, second run bit for bit [%s]'
+              % (direction, str(dtype)[6:], case, b, t, d, acts,
+                 ', reverse' if v['reverse'] else '',
+                 '' if v['bias'] is not None else ', no bias',
+                 '' if v['dh'] is not None else ', no dhidden',
+                 '' if v['dc'] is not None else ', no dcell',
+                 ', '.join('%s %.3g (%.3g of its largest)' % e for e in errs),
+                 RNN_SEQ_TOL, card))
+    row = dict(max_abs_err=worst, max_rel_err=rel_worst)
+    if not timed:
+        return row
+    plan = K.lstm_seq_plan(b, d, dtype)
+    lib = build.library()
+    code = build.dtype_code(dtype)
+    bwd = int(direction == 'bwd')
+    require(lib.ptt_lstm_seq_smem(d, plan['units'], code, bwd) ==
+            plan['smem_%s' % direction], 'lstm_seq_plan\'s shared memory '
+            'differs from csrc/lstm_seq.cu\'s layout')
+
+    def floor_run():
+        build.check(lib.ptt_lstm_seq_floor(
+            b, t, d, plan['cluster'], plan['units'], code, bwd,
+            torch.cuda.current_stream().cuda_stream), 'ptt_lstm_seq_floor')
+    ms = device_ms(torch, launch, iters=20)
+    plain_ms = device_ms(torch, plain, iters=3)
+    floor = device_ms(torch, floor_run, iters=20)
+    n_bytes, n_ops = _lstm_seq_bytes_ops(b, t, d, v['x'].element_size(),
+                                         direction)
+    lo, by = bound_ms(n_bytes, n_ops, BF16_FLOPS if dtype == torch.bfloat16
+                      else FP32_FLOPS)
+    dev = torch.device('cuda', 0)
+    lstm = torch.nn.LSTM(d, d, batch_first=True).to(dev).half()
+    lstm.flatten_parameters()
+    xin = torch.randn(b, t, d, device=dev).half().requires_grad_()
+    if direction == 'fwd':
+        def library():
+            with torch.no_grad():
+                lstm(xin)
+    else:
+        y, _ = lstm(xin)
+        dy = torch.randn_like(y)
+        params = [xin] + list(lstm.parameters())
+
+        def library():
+            torch.autograd.grad(y, params, dy, retain_graph=True)
+    lib_ms = eager_ms(torch, library, iters=20, warmup=3)
+    row.update(ms=ms, plain_ms=plain_ms, bound_ms=lo, bound_by=by,
+               library_ms=lib_ms, floor_ms=floor, us_per_step=ms * 1e3 / t,
+               cluster=plan['cluster'], units=plan['units'],
+               smem=plan['smem_%s' % direction], grid=plan['grid'])
+    print('lstm_seq_%s %s at bench_rnn_lstm\'s recurrence (B %d T %d hidden '
+          '%d; %d clusters of %d CTAs, %d threads, %d B shared memory a CTA): '
+          'device ms %.5f (%.3f us a step), plain (T torch.mm + plain cells) '
+          '%.5f, bound %.6f (%s), floor (T exchanges alone, same launch) '
+          '%.5f (%.3f us a step), cuDNN nn.LSTM fp16 %s %.5f (eager) [%s]'
+          % (direction, str(dtype)[6:], b, t, d, plan['grid'] //
+             plan['cluster'], plan['cluster'], plan['threads'],
+             plan['smem_%s' % direction], ms, ms * 1e3 / t, plain_ms, lo, by,
+             floor, floor * 1e3 / t, 'forward (no grad)' if direction ==
+             'fwd' else 'backward alone', lib_ms, card))
+    return row
+
+
 def phase_rnn_kernels(torch, card, b=128, t=100, d=128):
     """19c: each cell kernel against its plain version on the card, fp32
     and bf16, forward and backward, at bench_rnn_lstm's step (B 128, hidden
     128, full lengths; timed in bf16), at ragged lengths, at all padding
     (length 0) and at every activation; twice each for equal bits. Then the
+    LSTM sequence kernels against their plain versions on RNN_SEQ_CASES
+    (timed at the bench case in bf16, beside their floor and cuDNN), the
     whole recurrences card against host at fp32 with ragged, reverse and
-    length-0 rows, and the LSTM recurrence beside torch.nn.LSTM at full
-    lengths. Returns {kernel: row}."""
+    length-0 rows (the LSTM through the sequence kernels, and at a width
+    with no plan through the cells), and the LSTM recurrence beside the
+    cells' path and torch.nn.LSTM at full lengths. Returns {kernel: row}."""
+    from paddle_tpu_torch.ops.kernels import rnn_cell as K
     gen = torch.Generator(device='cuda').manual_seed(19)
     rows = {}
     ragged = np.array([100, 0, 37, 1, 50, 99, 51, 12])
@@ -7183,28 +7398,51 @@ def phase_rnn_kernels(torch, card, b=128, t=100, d=128):
                 for acts in every:
                     _rnn_cell_case(torch, card, kind, direction, dtype, 8, t,
                                    32, ragged, acts, gen)
-    for kind in ('lstm', 'gru'):
+    for direction in ('fwd', 'bwd'):
+        for dtype in (torch.float32, torch.bfloat16):
+            for case in RNN_SEQ_CASES:
+                timed = case == 'bench' and dtype == torch.bfloat16
+                row = _lstm_seq_case(torch, card, direction, dtype, case,
+                                     timed=timed)
+                if timed:
+                    rows['lstm_seq_%s' % direction] = row
+    cases = [('lstm', 32), ('gru', 32), ('lstm', 256)]
+    for kind, width in cases:
         acts = (0, 1, 1) if kind == 'lstm' else (0, 1)
         for reverse in (False, True):
-            rel = _recurrence_places(torch, kind, 8, 40, 32,
+            before = read_launches()
+            rel = _recurrence_places(torch, kind, 8, 40, width,
                                      np.array([40, 0, 17, 1, 40, 9, 3, 33]),
                                      reverse, acts, 7)
-            print('phase 19c %s recurrence %s, fp32, B 8 T 40 D 32, lengths '
+            moved = {k: read_launches()[k] - before[k]
+                     for k in ('lstm_seq_fwd', 'lstm_seq_bwd',
+                               'lstm_cell_fwd', 'lstm_cell_bwd')}
+            print('phase 19c %s recurrence %s, fp32, B 8 T 40 D %d, lengths '
                   '40, 0, 17, 1, 40, 9, 3, 33: card (kernels) against host '
                   '(plain cells), forward and every gradient: largest '
                   'difference %.3g of the array\'s largest magnitude (limit '
-                  '1e-5) [%s]' % (kind, 'reverse' if reverse else 'forward',
-                                  rel, card))
+                  '1e-5); launches %s [%s]'
+                  % (kind, 'reverse' if reverse else 'forward', width, rel,
+                     moved, card))
             require(rel <= 1e-5, 'phase 19c: the %s recurrence on the card '
                     'differs from the host by %.3g' % (kind, rel))
+            if kind == 'lstm':
+                seq = K.lstm_seq_plan(8, width, torch.float32) is not None
+                want = dict(lstm_seq_fwd=int(seq), lstm_seq_bwd=int(seq),
+                            lstm_cell_fwd=0 if seq else 40,
+                            lstm_cell_bwd=0 if seq else 40)
+                require(moved == want, 'phase 19c: the LSTM recurrence at '
+                        'hidden %d launched %s, want %s' % (width, moved,
+                                                            want))
     rows['recurrence'] = _recurrence_vs_cudnn(torch, card, b, t, d)
     return rows
 
 
 def _recurrence_vs_cudnn(torch, card, b, t, d):
-    """The LSTM recurrence (LstmRecurrence: T products and cells forward,
-    T backward) at bench_rnn_lstm's shape, full lengths, forward and
-    backward, beside torch.nn.LSTM over the same [B, T, D] -> [B, T, D]
+    """The LSTM recurrence (LstmRecurrence: the sequence kernels, one launch
+    each way) at bench_rnn_lstm's shape, full lengths, forward and
+    backward, beside the per-position path (T products and cells each way)
+    and torch.nn.LSTM over the same [B, T, D] -> [B, T, D]
     (which also projects its input: one GEMM more): bf16 (cuDNN declines
     bf16, so nn.LSTM runs torch's own cells) beside nn.LSTM in bf16 and
     in fp16 (cuDNN), and fp32 beside cuDNN in fp32. Eager, CUDA events
@@ -7226,6 +7464,20 @@ def _recurrence_vs_cudnn(torch, card, b, t, d):
             h, _ = K.LstmRecurrence.apply(leaves[0], leaves[1], leaves[2],
                                           h0, h0, None, (0, 1, 1), False)
             torch.autograd.grad(h, leaves, dy)
+
+        xd, wd, bd = (t.detach() for t in leaves)
+
+        def cells():
+            # the per-position path: a torch.mm and a cell launch a
+            # position each way, dW and dbias as LstmRecurrence takes them
+            hid, cel, gat = K.lstm_positions_fwd(xd, wd, bd, h0, h0, None,
+                                                 (0, 1, 1), False)
+            dx, _, _ = K.lstm_positions_bwd(dy, torch.zeros_like(dy), wd,
+                                            gat, cel, h0, None, (0, 1, 1),
+                                            False)
+            prev = K._previous(h0, hid, False)
+            torch.mm(prev.reshape(-1, d).t(), dx.reshape(-1, 4 * d))
+            dx.sum((0, 1))
         libs = {}
         for lt in ((torch.bfloat16, torch.float16) if dt == torch.bfloat16
                    else (torch.float32,)):
@@ -7245,6 +7497,7 @@ def _recurrence_vs_cudnn(torch, card, b, t, d):
             libs[key] = eager_ms(torch, lib, iters=20, warmup=3)
         eager = eager_ms(torch, ours, iters=20, warmup=3)
         graph = device_ms(torch, ours, iters=5)
+        cells_ms = device_ms(torch, cells, iters=5)
         flops = 3 * 2.0 * b * t * d * 4 * d
         elt = x.element_size()
         lo, by = bound_ms(elt * (2 * (b * t * 4 * d + d * 4 * d) +
@@ -7253,18 +7506,19 @@ def _recurrence_vs_cudnn(torch, card, b, t, d):
                           FP32_FLOPS)
         name = str(dt)[6:]
         print('phase 19c LSTM recurrence forward + backward, B %d T %d '
-              'hidden %d %s, full lengths: eager %.4f ms, graph replay %.4f '
-              'ms, bound %.5f ms (%s); torch.nn.LSTM eager (its input GEMM '
-              'too; all rows full, so its zeroed padding does not differ): '
-              '%s [%s]' % (b, t, d, name, eager, graph, lo, by,
-                           ', '.join('%s %.4f ms' % kv for kv in
-                                     libs.items()), card))
+              'hidden %d %s, full lengths: the sequence kernels eager %.4f '
+              'ms, graph replay %.4f ms; the per-position path (T torch.mm '
+              '+ cell launches each way) graph replay %.4f ms; bound %.5f ms '
+              '(%s); torch.nn.LSTM eager (its input GEMM too; all rows full, '
+              'so its zeroed padding does not differ): %s [%s]'
+              % (b, t, d, name, eager, graph, cells_ms, lo, by,
+                 ', '.join('%s %.4f ms' % kv for kv in libs.items()), card))
+        res = dict(eager_ms=eager, ms=graph, cells_ms=cells_ms, bound_ms=lo,
+                   bound_by=by, library_ms=libs)
         if dt == torch.bfloat16:
-            row = dict(eager_ms=eager, ms=graph, bound_ms=lo, bound_by=by,
-                       library_ms=libs)
+            row = res
         else:
-            row['fp32'] = dict(eager_ms=eager, ms=graph, bound_ms=lo,
-                               bound_by=by, library_ms=libs)
+            row['fp32'] = res
     return row
 
 
@@ -7507,9 +7761,11 @@ def phase_seq_ops(torch, pt, place, card, on_card):
 
 def phase_rnn(torch, pt, place, card, on_card, batch=128, seq=100,
               vocab=30000, hidden=128, warmup=3, steps=20, model_batch=64,
-              model_seq=100, model_steps=3, small=False, host_place=None):
+              model_seq=100, model_steps=3, small=False, host_place=None,
+              wide_hidden=512):
     """Phase 19 (a, b, d; 19c is phase_rnn_kernels): bench_rnn_lstm timed
-    and checked, card against host at fp32, captured == eager == run_steps;
+    and checked (and at hidden ``wide_hidden``, past the sequence kernels'
+    plan), card against host at fp32, captured == eager == run_steps;
     the sequence models timed and card against host; every new op type
     card against host. Returns (the timed runs' launch counts, summary)."""
     t0 = time.perf_counter()
@@ -7518,6 +7774,12 @@ def phase_rnn(torch, pt, place, card, on_card, batch=128, seq=100,
     launches, out['bench_rnn_lstm'] = _rnn_timed(
         torch, pt, place, card, on_card, batch, seq, vocab, hidden, warmup,
         steps)
+    runs.append(launches)
+    # bench.py's hidden argument at a width past the sequence kernels'
+    # plan: the per-position path (cells and products)
+    launches, out['bench_rnn_lstm_wide'] = _rnn_timed(
+        torch, pt, place, card, on_card, batch, seq, vocab, wide_hidden, 2,
+        5)
     runs.append(launches)
     if on_card:
         torch.cuda.empty_cache()
@@ -7562,12 +7824,11 @@ def phase_rnn(torch, pt, place, card, on_card, batch=128, seq=100,
         lcard, lhost = _compare_places(torch, pt, (place, host_place),
                                        build, feed, model_steps)
         rel = max(abs(a - b) / abs(b) for a, b in zip(lcard, lhost))
-        cells = {k: launches[k] for k in ('lstm_cell_fwd', 'lstm_cell_bwd',
-                                          'gru_cell_fwd', 'gru_cell_bwd')}
+        cells = {k: launches[k] for k in rnn_want()}
         models[name] = dict(ms=ms, loss_rel=rel, launches=cells)
         print('phase 19b %s: batch %d x seq %d, lengths 1..%d, fp32, '
-              'SGD(0.05): %.3f ms/step captured (%s), cell launches in 5 '
-              'steps %s; %d '
+              'SGD(0.05): %.3f ms/step captured (%s), recurrence launches '
+              'in 5 steps %s; %d '
               'steps card %s, host %s (max rel %.3g, limit 1e-4) [%s]'
               % (name, model_batch, model_seq, model_seq, ms,
                  'one graph' if one_graph else 'NOT one graph', cells,
@@ -7697,7 +7958,7 @@ def main():
                     base=tiny, micro=2)
         phase_rnn(torch, pt, pt.CPUPlace(), host, False, batch=4, seq=8,
                   vocab=64, hidden=8, steps=4, model_batch=4, model_seq=8,
-                  small=True)
+                  small=True, wide_hidden=16)
         print('cpu rehearsal ok in %.1f s' % (time.perf_counter() - t_start))
         return
 
@@ -7996,7 +8257,12 @@ def main():
               replaces='paddle_tpu/ops/rnn_ops.py:%d' % line,
               launches=runs(name), **rnn_kernels[name])
          for name, line in (('lstm_cell_fwd', 30), ('lstm_cell_bwd', 30),
-                            ('gru_cell_fwd', 407), ('gru_cell_bwd', 407))]
+                            ('gru_cell_fwd', 407), ('gru_cell_bwd', 407))] + \
+        [dict(name=name, route='cuda',
+              source='paddle_tpu_torch/csrc/lstm_seq.cu',
+              replaces='paddle_tpu/ops/rnn_ops.py:30', launches=runs(name),
+              **rnn_kernels[name])
+         for name in ('lstm_seq_fwd', 'lstm_seq_bwd')]
     ctr.update(kernel={'%s %s' % k: dict(ms=v['ms'], bound_ms=v['bound_ms'],
                                          library_ms=v['library_ms'])
                        for k, v in sparse.items()})

@@ -69,8 +69,12 @@ allocated before the first step), then profiles 5 steps as
 chip_smoke.py --profile does (device busy time and kernels a step, by
 family), then times the four cell kernels at its step (B 128, hidden
 128, bf16, full lengths; a GRU step's two launches together) by graph
-replay. A checkout without the recurrent ops or the
-cell kernels is reported as such.
+replay, the whole LSTM recurrence forward and backward (LstmRecurrence)
+at that shape, and, where DIR has them, the two LSTM sequence kernels at
+that recurrence beside their plain versions, their floor (T cluster
+barriers at the same launch) and cuDNN's nn.LSTM at fp16 (chip_smoke.py's
+_lstm_seq_case). A checkout without the recurrent ops, the cell kernels
+or the sequence kernels is reported as such.
 
 With --moe, it runs DIR's bench_moe Switch-MoE LM at chip_smoke.py's
 phase-18a width (batch 32 x seq 64, vocab 32000, 4 layers, 8 experts,
@@ -409,6 +413,30 @@ def rnn_steps(torch, smoke, card, steps=20):
             print('%s: kernel %.5f ms a step (%d launch%s) [%s]'
                   % (label, ms[label], 1 if kind == 'lstm' else 2,
                      '' if kind == 'lstm' else 'es', card))
+    # the whole LSTM recurrence, forward and backward, as DIR's
+    # LstmRecurrence runs it at this shape
+    x = (0.5 * torch.randn(b, t, 4 * d, generator=gen, device=dev)).to(
+        torch.bfloat16).requires_grad_()
+    w = (0.1 * torch.randn(d, 4 * d, generator=gen, device=dev)).to(
+        torch.bfloat16).requires_grad_()
+    h0 = torch.zeros(b, d, device=dev, dtype=torch.bfloat16)
+    dy = torch.randn(b, t, d, generator=gen, device=dev).to(torch.bfloat16)
+
+    def recurrence():
+        h, _ = K.LstmRecurrence.apply(x, w, None, h0, h0, None, (0, 1, 1),
+                                      False)
+        torch.autograd.grad(h, (x, w), dy)
+    label = 'LstmRecurrence fwd + bwd [%d, %d, %d] bfloat16' % (b, t, d)
+    ms[label] = smoke.device_ms(torch, recurrence, iters=5)
+    print('%s: %.5f ms by graph replay [%s]' % (label, ms[label], card))
+    if not hasattr(K, 'lstm_seq_fwd'):
+        print('no LSTM sequence kernels in this checkout')
+        return ms
+    for direction in ('fwd', 'bwd'):
+        row = smoke._lstm_seq_case(torch, card, direction, torch.bfloat16,
+                                   'bench', timed=True)
+        for key in ('ms', 'floor_ms', 'plain_ms', 'library_ms'):
+            ms['lstm_seq_%s %s' % (direction, key)] = row[key]
     return ms
 
 

@@ -1,6 +1,8 @@
 // The LSTM and GRU cells of the recurrent ops, forward and backward: one
 // time step's elementwise work around the recurrent product h_prev @ W,
-// which stays a torch.matmul (the JAX package leaves it to XLA too).
+// which stays a torch.matmul (the JAX package leaves it to XLA too). The
+// GRU runs on them always; the LSTM where lstm_seq.cu has no launch plan
+// (wider recurrences), the sequence kernels taking the rest.
 //
 // They replace no Pallas kernel: in paddle_tpu/ops/rnn_ops.py each
 // recurrence is one lax.scan (lstm_scan :31, gru_scan :81 with gru_step
@@ -55,38 +57,11 @@
 // hidden 128) that is 16,384 threads. The fp32 carries of the backward are
 // read and written in place by the thread that owns them.
 
-#include "common.cuh"
+#include "rnn_math.cuh"  // the step arithmetic, shared with lstm_seq.cu
 
 namespace ptt {
 
 constexpr int kRnnThreads = 128;
-
-__device__ __forceinline__ float rnn_act(int kind, float x) {
-  switch (kind) {
-    case 0:
-      return 1.f / (1.f + expf(-x));
-    case 1:
-      return tanhf(x);
-    case 2:
-      return x < 0.f ? 0.f : x;  // a NaN stays NaN, as jnp.maximum's does
-    default:
-      return x;
-  }
-}
-
-// the activation's derivative from its output y
-__device__ __forceinline__ float rnn_dact(int kind, float y) {
-  switch (kind) {
-    case 0:
-      return y * (1.f - y);
-    case 1:
-      return 1.f - y * y;
-    case 2:
-      return y > 0.f ? 1.f : 0.f;
-    default:
-      return 1.f;
-  }
-}
 
 template <typename T>
 __device__ __forceinline__ float rnn_load_or_zero(const T* p, long long i) {
@@ -124,19 +99,12 @@ __global__ void __launch_bounds__(kRnnThreads) lstm_cell_fwd_kernel(
              rnn_load_or_zero(bias, q * D + j);
     const float hpv = to_f32(hp[b * hps + j]);
     const float cpv = to_f32(cp[b * cps + j]);
-    const float gi = round_as<T>(rnn_act(ga, a[0]));
-    const float gf = round_as<T>(rnn_act(ga, a[1]));
-    const float gg = round_as<T>(rnn_act(na, a[2]));
-    const float go = round_as<T>(rnn_act(ga, a[3]));
-    const float cn = round_as<T>(gf * cpv + gi * gg);
-    const float hn = go * rnn_act(ca, cn);
+    const LstmStep st = lstm_step<T>(a, hpv, cpv, m, RnnActs{ga, ca, na});
     T* g = gates + b * gs + j;
-    g[0] = from_f32<T>(gi);
-    g[D] = from_f32<T>(gf);
-    g[2 * D] = from_f32<T>(gg);
-    g[3 * D] = from_f32<T>(go);
-    h[b * hcs + j] = from_f32<T>(m * hn + (1.f - m) * hpv);
-    c[b * hcs + j] = from_f32<T>(m * cn + (1.f - m) * cpv);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) g[q * D] = from_f32<T>(st.g[q]);
+    h[b * hcs + j] = from_f32<T>(st.h);
+    c[b * hcs + j] = from_f32<T>(st.c);
   }
 }
 
@@ -166,22 +134,17 @@ __global__ void __launch_bounds__(kRnnThreads) lstm_cell_bwd_kernel(
                      rnn_load_or_zero(dh_mm, t) + dh_pass[t];
     const float dc = rnn_load_or_zero(dc_out, b * dcs + j) + dc_carry[t];
     const T* g = gates + b * gs + j;
-    const float gi = to_f32(g[0]);
-    const float gf = to_f32(g[D]);
-    const float gg = to_f32(g[2 * D]);
-    const float go = to_f32(g[3 * D]);
-    const float cv = to_f32(c[b * cs + j]);
-    const float cpv = to_f32(cp[b * cps + j]);
-    const float dhn = m * dh;
-    const float ac = rnn_act(ca, cv);
-    const float dcn = m * dc + dhn * go * rnn_dact(ca, ac);
+    float gv[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) gv[q] = to_f32(g[q * D]);
+    const LstmGrad r =
+        lstm_step_bwd(dh, dc, gv, to_f32(c[b * cs + j]),
+                      to_f32(cp[b * cps + j]), m, RnnActs{ga, ca, na});
     T* o = dg + b * dgs + j;
-    o[0] = from_f32<T>(dcn * gg * rnn_dact(ga, gi));
-    o[D] = from_f32<T>(dcn * cpv * rnn_dact(ga, gf));
-    o[2 * D] = from_f32<T>(dcn * gi * rnn_dact(na, gg));
-    o[3 * D] = from_f32<T>(dhn * ac * rnn_dact(ga, go));
-    dh_pass[t] = (1.f - m) * dh;
-    dc_carry[t] = dcn * gf + (1.f - m) * dc;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) o[q * D] = from_f32<T>(r.da[q]);
+    dh_pass[t] = r.dh_pass;
+    dc_carry[t] = r.dc_carry;
   }
 }
 
@@ -277,10 +240,6 @@ inline int rnn_grid(long long n) {
   long long blocks = (n + kRnnThreads - 1) / kRnnThreads;
   const long long cap = 132LL * 16;
   return static_cast<int>(blocks < 1 ? 1 : (blocks > cap ? cap : blocks));
-}
-
-inline bool rnn_acts_ok(int a, int b, int c) {
-  return a >= 0 && a <= 3 && b >= 0 && b <= 3 && c >= 0 && c <= 3;
 }
 
 template <typename T>

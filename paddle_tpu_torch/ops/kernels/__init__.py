@@ -17,7 +17,7 @@ def launch_counters():
     from .paged_attention import paged_attention
     from .random_bits import fused_dropout, keep_mask
     from .rnn_cell import gru_cell_bwd, gru_cell_fwd, lstm_cell_bwd, \
-        lstm_cell_fwd
+        lstm_cell_fwd, lstm_seq_bwd, lstm_seq_fwd
     from .sparse_rows import sparse_rows
     res = [('layer_norm', fused_layer_norm, 'launches'),
            ('layer_norm_bwd', fused_layer_norm, 'bwd_launches'),
@@ -38,6 +38,8 @@ def launch_counters():
            ('sparse_rows_tables', sparse_rows, 'tables'),
            ('lstm_cell_fwd', lstm_cell_fwd, 'launches'),
            ('lstm_cell_bwd', lstm_cell_bwd, 'launches'),
+           ('lstm_seq_fwd', lstm_seq_fwd, 'launches'),
+           ('lstm_seq_bwd', lstm_seq_bwd, 'launches'),
            ('gru_cell_fwd', gru_cell_fwd, 'launches'),
            ('gru_cell_bwd', gru_cell_bwd, 'launches')]
     for name, fn in (('flash_attention_fwd', fa.flash_fwd_cuda),

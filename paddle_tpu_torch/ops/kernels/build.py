@@ -23,8 +23,8 @@ CSRC = os.path.join(_PKG, 'csrc')
 BUILD_DIR = os.path.join(_PKG, '_build')
 SOURCES = ('layer_norm.cu', 'paged_attention.cu', 'flash_attention.cu',
            'batch_norm.cu', 'kv_write.cu', 'random_bits.cu',
-           'sparse_rows.cu', 'rnn_cell.cu')
-HEADERS = ('common.cuh', 'flash_tiles.cuh')
+           'sparse_rows.cu', 'rnn_cell.cu', 'lstm_seq.cu')
+HEADERS = ('common.cuh', 'flash_tiles.cuh', 'rnn_math.cuh')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
@@ -186,6 +186,16 @@ def library():
             lib.ptt_gru_cell_bwd.argtypes = [i, p, ll, p, p, p, ll, p, ll, p,
                                              i, p, ll, i, i, i, i, i, p]
             lib.ptt_gru_cell_bwd.restype = i
+            lib.ptt_lstm_seq_smem.argtypes = [i, i, i, i]
+            lib.ptt_lstm_seq_smem.restype = i
+            lib.ptt_lstm_seq_fwd.argtypes = [p, ll, ll, p, p, p, ll, p, ll, p,
+                                             p, p, p] + [i] * 10 + [p]
+            lib.ptt_lstm_seq_fwd.restype = i
+            lib.ptt_lstm_seq_bwd.argtypes = [p] * 6 + [ll] + [p] * 5 + \
+                [i] * 10 + [p]
+            lib.ptt_lstm_seq_bwd.restype = i
+            lib.ptt_lstm_seq_floor.argtypes = [i] * 7 + [p]
+            lib.ptt_lstm_seq_floor.restype = i
             _loaded['lib'] = lib
         return lib
 

@@ -1,29 +1,35 @@
-"""The LSTM and GRU cells: the CUDA kernels of ``csrc/rnn_cell.cu`` beside
-their plain PyTorch versions, and the recurrences built on them.
+"""The LSTM and GRU cells and the LSTM sequence kernels: the CUDA kernels of
+``csrc/rnn_cell.cu`` and ``csrc/lstm_seq.cu`` beside their plain PyTorch
+versions, and the recurrences built on them.
 
 The kernels replace no Pallas kernel: the JAX package runs each
 recurrence as one ``lax.scan`` (paddle_tpu/ops/rnn_ops.py ``lstm_scan``,
 ``gru_scan`` with ``gru_step``), which XLA compiles into one loop fusion a
-step around the recurrent product. Here the product stays a ``torch.mm``
-and a step's elementwise work is one launch (the GRU's two, on each side
-of its second product), forward and backward.
+step around the recurrent product.
 
-``lstm_cell_fwd`` / ``lstm_cell_bwd`` / ``gru_cell_fwd`` / ``gru_cell_bwd``
-write one step into views of the sequence tensors: for CUDA tensors they
-launch the kernel (and count it in ``.launches``), for CPU tensors they
-take the plain version (``*_reference``); on a CUDA tensor they launch or
-raise. ``LstmRecurrence`` and ``GruRecurrence`` are one
-torch.autograd.Function each over the whole sequence: the forward runs T
-(product, cell) steps, the backward the cells in reverse with the
-product dh_prev = dgates @ W^T a step, then dW as one product over all
-steps, dbias as a sum, and the input's gradient is the cells' dgates.
+``lstm_seq_fwd`` / ``lstm_seq_bwd`` run a whole LSTM recurrence in one
+launch each way (W's slices resident in a thread-block cluster's shared
+memory, h and the gates' gradients exchanged between its CTAs), on every
+shape ``lstm_seq_plan`` finds room for. Wider recurrences take the
+per-position path: a ``torch.mm`` and a cell launch (``lstm_cell_fwd`` /
+``lstm_cell_bwd``) a position each way. The GRU always runs per position
+(``gru_cell_fwd`` / ``gru_cell_bwd``, two launches a step each way, around
+its second product).
+
+Every wrapper launches its kernel for CUDA tensors (and counts it in
+``.launches``) and takes its plain version (``*_reference``) for CPU
+tensors; on a CUDA tensor it launches or raises. ``LstmRecurrence`` and
+``GruRecurrence`` are one torch.autograd.Function each over the whole
+sequence; their backward takes dW as one product over all steps, dbias as
+a sum, and the input's gradient is the cells' dgates.
 
 Semantics are the reference's (rnn_ops.py): gate layouts [i, f, g, o] and
 [u, r, c], a position past a row's length carries h (and c) unchanged,
 reverse walks positions T-1 .. 0 over the padded axis, and every carry is
 in the input's dtype. The arithmetic is fp32; the values the reference
 holds in the carry's dtype and the backward reads again (the activated
-gates, the cell, r * h_prev) are rounded to it where they are made.
+gates, the cell, r * h_prev, the recurrent products) are rounded to it
+where they are made.
 """
 
 import torch
@@ -203,6 +209,25 @@ def _fp32(what, device, rows, d, tensors):
                                                         device))
 
 
+def _lstm_cell_fwd_plain(x, hw, bias, hp, cp, length, pos, h, c, gates,
+                         acts):
+    m = step_mask(length, pos, hp.shape[0], x.device)
+    outs = lstm_cell_reference(x, hw, bias, hp, cp, m, acts, x.dtype)
+    for out, v in zip((h, c, gates), outs):
+        out.copy_(v)
+
+
+def _lstm_cell_bwd_plain(dh_out, dc_out, dh_mm, dh_pass, dc_carry, gates, c,
+                         cp, length, pos, dg, acts):
+    m = step_mask(length, pos, c.shape[0], c.device)
+    da, hp_new, cc_new = lstm_cell_reference_bwd(
+        dh_out, dc_out, dh_mm, dh_pass, dc_carry, gates, c, cp, m, acts,
+        c.dtype)
+    dg.copy_(da)
+    dh_pass.copy_(hp_new)
+    dc_carry.copy_(cc_new)
+
+
 def lstm_cell_fwd(x, hw, bias, hp, cp, length, pos, h, c, gates, acts):
     """One LSTM step at position ``pos``: writes h, c and the activated
     gates (views [B, D], [B, D], [B, 4D] of the sequence tensors). x:
@@ -210,10 +235,8 @@ def lstm_cell_fwd(x, hw, bias, hp, cp, length, pos, h, c, gates, acts):
     length int32 [B] or None; acts the (gate, cell, candidate) codes."""
     b, d = hp.shape
     if x.device.type == 'cpu':
-        m = step_mask(length, pos, b, x.device)
-        outs = lstm_cell_reference(x, hw, bias, hp, cp, m, acts, x.dtype)
-        for out, v in zip((h, c, gates), outs):
-            out.copy_(v)
+        _lstm_cell_fwd_plain(x, hw, bias, hp, cp, length, pos, h, c, gates,
+                             acts)
         return
     _check('lstm_cell', x.dtype, x.device, b,
            [('x', x), ('hw', hw), ('hp', hp), ('cp', cp), ('h', h),
@@ -246,13 +269,8 @@ def lstm_cell_bwd(dh_out, dc_out, dh_mm, dh_pass, dc_carry, gates, c, cp,
     pos (None: zero); dh_mm: the later step's dgates @ W^T (None: zero)."""
     b, d = c.shape
     if c.device.type == 'cpu':
-        m = step_mask(length, pos, b, c.device)
-        da, hp_new, cc_new = lstm_cell_reference_bwd(
-            dh_out, dc_out, dh_mm, dh_pass, dc_carry, gates, c, cp, m, acts,
-            c.dtype)
-        dg.copy_(da)
-        dh_pass.copy_(hp_new)
-        dc_carry.copy_(cc_new)
+        _lstm_cell_bwd_plain(dh_out, dc_out, dh_mm, dh_pass, dc_carry, gates,
+                             c, cp, length, pos, dg, acts)
         return
     _check('lstm_cell_bwd', c.dtype, c.device, b,
            [('dh_out', dh_out), ('dc_out', dc_out), ('dh_mm', dh_mm),
@@ -375,26 +393,241 @@ def _previous(h0, seq, reverse):
     return torch.cat([h0[:, None], seq[:, :-1]], 1)
 
 
+def lstm_positions_fwd(x, w, bias, h0, c0, length, acts, reverse,
+                       plain=False):
+    """The LSTM forward a position at a time: ``torch.mm(hp, w)`` then a
+    cell, T times. ``plain``: the plain cell (``lstm_cell_reference``),
+    else ``lstm_cell_fwd`` (its kernel on a CUDA tensor). Returns (hidden,
+    cell, gates) [B, T, D], [B, T, D], [B, T, 4D] in x's dtype."""
+    b, t, d4 = x.shape
+    step = _lstm_cell_fwd_plain if plain else lstm_cell_fwd
+    hidden = x.new_empty((b, t, d4 // 4))
+    cell = x.new_empty((b, t, d4 // 4))
+    gates = x.new_empty((b, t, d4))
+    hw = x.new_empty((b, d4))
+    hp, cp = h0, c0
+    for p in positions(t, reverse):
+        torch.mm(hp, w, out=hw)
+        step(x[:, p], hw, bias, hp, cp, length, p, hidden[:, p], cell[:, p],
+             gates[:, p], acts)
+        hp, cp = hidden[:, p], cell[:, p]
+    return hidden, cell, gates
+
+
+def lstm_positions_bwd(dhidden, dcell, w, gates, cell, c0, length, acts,
+                       reverse, plain=False):
+    """The LSTM backward a position at a time, in reverse order: a cell then
+    ``torch.mm(dgates, w.t())`` for the earlier position. dhidden / dcell
+    [B, T, D] or None (zero); gates and cell the forward's. Returns (dx
+    [B, T, 4D], dh0, dc0) in the dtype, dh0 = the first position's dgates
+    @ W^T + the fp32 carry."""
+    b, t, d = cell.shape
+    step = _lstm_cell_bwd_plain if plain else lstm_cell_bwd
+    dx = torch.empty_like(gates)
+    dh_pass = torch.zeros((b, d), dtype=torch.float32, device=cell.device)
+    dc_carry = torch.zeros_like(dh_pass)
+    order = positions(t, reverse)
+    wt = w.t()
+    buf = cell.new_empty((b, d))
+    dh_mm = None
+    for k in range(t - 1, -1, -1):
+        p = order[k]
+        cp = c0 if k == 0 else cell[:, order[k - 1]]
+        step(None if dhidden is None else dhidden[:, p],
+             None if dcell is None else dcell[:, p], dh_mm, dh_pass,
+             dc_carry, gates[:, p], cell[:, p], cp, length, p, dx[:, p],
+             acts)
+        torch.mm(dx[:, p], wt, out=buf)
+        dh_mm = buf
+    dh0 = dh_pass if dh_mm is None else dh_mm.float() + dh_pass
+    return dx, dh0.to(cell.dtype), dc_carry.to(cell.dtype)
+
+
+def lstm_seq_fwd_reference(x, w, bias, h0, c0, length, acts, reverse):
+    """``lstm_seq_fwd``'s plain version: the positions with plain cells."""
+    return lstm_positions_fwd(x, w, bias, h0, c0, length, acts, reverse,
+                              plain=True)
+
+
+def lstm_seq_bwd_reference(dhidden, dcell, w, gates, cell, c0, length, acts,
+                           reverse):
+    """``lstm_seq_bwd``'s plain version: the positions with plain cells."""
+    return lstm_positions_bwd(dhidden, dcell, w, gates, cell, c0, length,
+                              acts, reverse, plain=True)
+
+
+SEQ_ROWS = 16             # batch rows a cluster (an mma's m16)
+SEQ_THREADS = 256         # a CTA
+SEQ_MAX_UNITS = 64        # a CTA's cells, 16 x units, 4 a thread at most
+SEQ_MAX_CLUSTER = 8       # the portable cluster size
+SEQ_SMEM_LIMIT = 232448   # 227 KB of shared memory a block on the H100
+
+
+def _up(v, m):
+    return -(-v // m) * m
+
+
+def lstm_seq_plan(batch, d, dtype):
+    """The sequence kernels' launch for a [batch, T, 4d] recurrence in
+    ``dtype``, or None where W's slices do not fit a cluster's shared memory
+    (or the dtype is neither float32 nor bfloat16): {'rows', 'cluster',
+    'units', 'threads', 'smem_fwd', 'smem_bwd', 'grid'}. A cluster of
+    ``cluster`` CTAs (at most 8) owns 16 rows; a CTA of 256 threads owns
+    ``units`` hidden units (a multiple of 8, at most 64), a warp the
+    product of 8 of them, every thread the cells of one (row, unit) (four
+    at 64 units). The bytes are csrc/lstm_seq.cu's layout: forward W's
+    gate columns of the CTA's units and two h buffers [16, D]; backward W's
+    rows of its units and two dgates buffers [16, 4D] (each gate block
+    rounded up to an even width); bf16 rows padded by 8 elements, fp32 by
+    4; the product staged in fp32 for the cells ([16, 4 units] forward,
+    [16, units] backward); the buffers' two mbarriers."""
+    if d < 1 or dtype not in (torch.float32, torch.bfloat16):
+        return None
+    units = _up(-(-d // SEQ_MAX_CLUSTER), 8)
+    if units > SEQ_MAX_UNITS:
+        return None
+    cluster = -(-d // units)
+    kf, kb = _up(d, 16), _up(4 * _up(d, 2), 64)
+    stage_fwd, stage_bwd = 4 * SEQ_ROWS * 4 * units, 4 * SEQ_ROWS * units
+    if dtype == torch.bfloat16:
+        fwd = (4 * units + 2 * SEQ_ROWS) * (kf + 8) * 2
+        bwd = (units + 2 * SEQ_ROWS) * (kb + 8) * 2
+    else:
+        fwd = (kf * 4 * units + 2 * SEQ_ROWS * (kf + 4)) * 4
+        bwd = (kb * units + 2 * SEQ_ROWS * (kb + 4)) * 4
+    fwd, bwd = fwd + stage_fwd + 16, bwd + stage_bwd + 16
+    if max(fwd, bwd) > SEQ_SMEM_LIMIT:
+        return None
+    return dict(rows=SEQ_ROWS, cluster=cluster, units=units,
+                threads=SEQ_THREADS, smem_fwd=fwd, smem_bwd=bwd,
+                grid=cluster * -(-batch // SEQ_ROWS))
+
+
+def _seq_plan(what, dtype, b, d):
+    plan = lstm_seq_plan(b, d, dtype)
+    if plan is None:
+        raise ValueError('%s kernel: no launch plan for hidden %d in %s (W\'s '
+                         'slices exceed a cluster\'s shared memory); the '
+                         'per-position path takes it' % (what, d, dtype))
+    return plan
+
+
+def _contiguous(what, dtype, device, tensors):
+    for name, t, shape in tensors:
+        if t is None:
+            continue
+        if t.device != device or t.dtype != dtype or \
+                tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError('%s kernel: %s must be a contiguous %s %s tensor '
+                             'on %s, got %s %s on %s'
+                             % (what, name, dtype, shape, device, t.dtype,
+                                tuple(t.shape), t.device))
+
+
+def lstm_seq_fwd(x, w, bias, h0, c0, length, acts, reverse):
+    """The whole LSTM forward in one launch: x [B, T, 4D] (projected, last
+    dim contiguous), w [D, 4D], bias [4D] or None, h0 / c0 [B, D], length
+    int32 [B] or None, acts the (gate, cell, candidate) codes, reverse.
+    Returns (hidden, cell, gates) as ``lstm_seq_fwd_reference``. A CUDA
+    tensor needs ``lstm_seq_plan``'s launch, else this raises."""
+    if x.device.type == 'cpu':
+        return lstm_seq_fwd_reference(x, w, bias, h0, c0, length, acts,
+                                      reverse)
+    b, t, d4 = x.shape
+    d = d4 // 4
+    _check('lstm_seq', x.dtype, x.device, b, [('x', x), ('h0', h0),
+                                               ('c0', c0)])
+    plan = _seq_plan('lstm_seq', x.dtype, b, d)
+    _contiguous('lstm_seq', x.dtype, x.device,
+                [('w', w, (d, d4)), ('bias', bias, (d4,))])
+    length = _lengths(length, x.device, b)
+    hidden = x.new_empty((b, t, d))
+    cell = x.new_empty((b, t, d))
+    gates = x.new_empty((b, t, d4))
+    if b == 0 or t == 0:
+        return hidden, cell, gates
+    lib = build.library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.ptt_lstm_seq_fwd(
+            x.data_ptr(), x.stride(0), x.stride(1), w.data_ptr(), _ptr(bias),
+            h0.data_ptr(), h0.stride(0), c0.data_ptr(), c0.stride(0),
+            _ptr(length), hidden.data_ptr(), cell.data_ptr(),
+            gates.data_ptr(), b, t, d, plan['cluster'], plan['units'],
+            int(bool(reverse)), build.dtype_code(x.dtype), *acts, stream)
+    build.check(rc, 'ptt_lstm_seq_fwd')
+    lstm_seq_fwd.launches += 1
+    return hidden, cell, gates
+
+
+def lstm_seq_bwd(dhidden, dcell, w, gates, cell, c0, length, acts, reverse):
+    """The whole LSTM backward in one launch, positions in reverse order:
+    dhidden / dcell [B, T, D] or None (zero), w [D, 4D], gates [B, T, 4D]
+    and cell [B, T, D] the forward's, c0 [B, D]. Returns (dx [B, T, 4D],
+    dh0, dc0) as ``lstm_seq_bwd_reference``; dh0 is the kernel's dh_mm of
+    the first position plus its fp32 carry, as there. A CUDA tensor needs
+    ``lstm_seq_plan``'s launch, else this raises."""
+    if cell.device.type == 'cpu':
+        return lstm_seq_bwd_reference(dhidden, dcell, w, gates, cell, c0,
+                                      length, acts, reverse)
+    b, t, d = cell.shape
+    dt, dev = cell.dtype, cell.device
+    _check('lstm_seq_bwd', dt, dev, b, [('c0', c0)])
+    plan = _seq_plan('lstm_seq_bwd', dt, b, d)
+    _contiguous('lstm_seq_bwd', dt, dev,
+                [('dhidden', dhidden, (b, t, d)), ('dcell', dcell, (b, t, d)),
+                 ('w', w, (d, 4 * d)), ('gates', gates, (b, t, 4 * d)),
+                 ('cell', cell, (b, t, d))])
+    length = _lengths(length, dev, b)
+    dx = torch.empty_like(gates)
+    dh_mm = cell.new_zeros((b, d))
+    dh_pass = torch.zeros((b, d), dtype=torch.float32, device=dev)
+    dc_carry = torch.zeros_like(dh_pass)
+    if b > 0 and t > 0:
+        lib = build.library()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = lib.ptt_lstm_seq_bwd(
+                _ptr(dhidden), _ptr(dcell), w.data_ptr(), gates.data_ptr(),
+                cell.data_ptr(), c0.data_ptr(), c0.stride(0), _ptr(length),
+                dx.data_ptr(), dh_mm.data_ptr(), dh_pass.data_ptr(),
+                dc_carry.data_ptr(), b, t, d, plan['cluster'],
+                plan['units'], int(bool(reverse)), build.dtype_code(dt),
+                *acts, stream)
+        build.check(rc, 'ptt_lstm_seq_bwd')
+        lstm_seq_bwd.launches += 1
+        dh0 = dh_mm.float() + dh_pass
+    else:
+        dh0 = dh_pass
+    return dx, dh0.to(dt), dc_carry.to(dt)
+
+
+lstm_seq_fwd.launches = 0
+lstm_seq_bwd.launches = 0
+
+
+def _per_position(h0):
+    """True where a CUDA recurrence (h0 its [B, D] carry) has no
+    sequence-kernel plan."""
+    return h0.device.type != 'cpu' and \
+        lstm_seq_plan(h0.shape[0], h0.shape[1], h0.dtype) is None
+
+
 class LstmRecurrence(torch.autograd.Function):
     """(hidden, cell) [B, T, D] of an LSTM over x [B, T, 4D] (projected),
     w [D, 4D], bias [4D] or None, h0 and c0 [B, D], length int32 [B] or
     None; every float tensor in one dtype. ``acts``: the (gate, cell,
-    candidate) codes."""
+    candidate) codes. On the card the sequence kernels run it where
+    ``lstm_seq_plan`` has a launch, else the per-position path."""
 
     @staticmethod
     def forward(ctx, x, w, bias, h0, c0, length, acts, reverse):
-        b, t, d4 = x.shape
-        d = d4 // 4
-        hidden = x.new_empty((b, t, d))
-        cell = x.new_empty((b, t, d))
-        gates = x.new_empty((b, t, d4))
-        hw = x.new_empty((b, d4))
-        hp, cp = h0, c0
-        for p in positions(t, reverse):
-            torch.mm(hp, w, out=hw)
-            lstm_cell_fwd(x[:, p], hw, bias, hp, cp, length, p, hidden[:, p],
-                          cell[:, p], gates[:, p], acts)
-            hp, cp = hidden[:, p], cell[:, p]
+        w = w.contiguous()
+        args = (x, w, bias, h0, c0, length, acts, reverse)
+        if _per_position(h0):
+            hidden, cell, gates = lstm_positions_fwd(*args)
+        else:
+            hidden, cell, gates = lstm_seq_fwd(*args)
         ctx.save_for_backward(w, h0, c0, hidden, cell, gates, length)
         ctx.acts, ctx.reverse, ctx.has_bias = acts, reverse, bias is not None
         return hidden, cell
@@ -403,25 +636,14 @@ class LstmRecurrence(torch.autograd.Function):
     def backward(ctx, dhidden, dcell):
         w, h0, c0, hidden, cell, gates, length = ctx.saved_tensors
         b, t, d = hidden.shape
-        dx = torch.empty_like(gates)
-        dh_pass = torch.zeros((b, d), dtype=torch.float32,
-                              device=hidden.device)
-        dc_carry = torch.zeros_like(dh_pass)
         dhidden = None if dhidden is None else dhidden.contiguous()
         dcell = None if dcell is None else dcell.contiguous()
-        order = positions(t, ctx.reverse)
-        wt = w.t()
-        buf = hidden.new_empty((b, d))
-        dh_mm = None
-        for k in range(t - 1, -1, -1):
-            p = order[k]
-            cp = c0 if k == 0 else cell[:, order[k - 1]]
-            lstm_cell_bwd(None if dhidden is None else dhidden[:, p],
-                          None if dcell is None else dcell[:, p], dh_mm,
-                          dh_pass, dc_carry, gates[:, p], cell[:, p], cp,
-                          length, p, dx[:, p], ctx.acts)
-            torch.mm(dx[:, p], wt, out=buf)
-            dh_mm = buf
+        args = (dhidden, dcell, w, gates, cell, c0, length, ctx.acts,
+                ctx.reverse)
+        if _per_position(h0):
+            dx, dh0, dc0 = lstm_positions_bwd(*args)
+        else:
+            dx, dh0, dc0 = lstm_seq_bwd(*args)
         need = ctx.needs_input_grad
         dw = dbias = None
         if need[1]:
@@ -429,9 +651,7 @@ class LstmRecurrence(torch.autograd.Function):
             dw = torch.mm(prev.reshape(-1, d).t(), dx.reshape(-1, 4 * d))
         if ctx.has_bias and need[2]:
             dbias = dx.sum((0, 1))
-        dh0 = dh_pass if dh_mm is None else dh_mm.float() + dh_pass
-        return (dx, dw, dbias, dh0.to(h0.dtype), dc_carry.to(c0.dtype),
-                None, None, None)
+        return dx, dw, dbias, dh0, dc0, None, None, None
 
 
 class GruRecurrence(torch.autograd.Function):

@@ -22,7 +22,8 @@ import pytest
 import torch
 
 import paddle_tpu_torch as pt
-from chip_smoke import LAYERS_EDGE, LAYERS_FAULTS, ordinary, parity_difference
+from chip_smoke import (LAYERS_EDGE, LAYERS_FAULTS, RNN_SEQ_CASES, ordinary,
+                        parity_difference)
 from paddle_tpu_torch.ops.kernels import batch_norm as tbn
 from paddle_tpu_torch.ops.kernels import flash_attention as tfa
 from paddle_tpu_torch.ops.kernels import layer_norm as tln
@@ -2688,24 +2689,51 @@ def test_rnn_cell_kernel_matches_plain(cuda, kernel, dtype, case):
                    lens, lstm_acts if kind == 'lstm' else gru_acts, gen)
 
 
+@pytest.mark.parametrize('case', sorted(RNN_SEQ_CASES))
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['fp32', 'bf16'])
+@pytest.mark.parametrize('direction', ['fwd', 'bwd'])
+def test_lstm_seq_kernel_matches_plain(cuda, direction, dtype, case):
+    """Each LSTM sequence kernel against its plain version (the
+    per-position loop with plain cells) on the same card tensors
+    (chip_smoke.py's RNN_SEQ_TOL), a second run bit for bit, one launch
+    counted a call."""
+    from chip_smoke import _lstm_seq_case
+    _lstm_seq_case(torch, 'card test', direction, dtype, case)
+
+
 @pytest.mark.parametrize('reverse', [False, True], ids=['forward', 'reverse'])
-@pytest.mark.parametrize('kind', ['lstm', 'gru'])
+@pytest.mark.parametrize('kind', ['lstm', 'gru', 'lstm_no_plan'])
 def test_rnn_recurrence_on_card_equals_host(cuda, kind, reverse):
     """The whole recurrence through the kernels against the plain cells on
     the host, forward and every gradient, fp32, ragged lengths with 0 and
-    T: within 1e-5 of each array's largest magnitude."""
-    from chip_smoke import _recurrence_places
-    acts = (0, 1, 1) if kind == 'lstm' else (0, 1)
-    rel = _recurrence_places(torch, kind, 8, 24, 32,
+    T: within 1e-5 of each array's largest magnitude. The LSTM at hidden 32
+    runs the sequence kernels; at hidden 256 (lstm_no_plan), where fp32
+    has no plan, the cells, a launch each way a position."""
+    from chip_smoke import _recurrence_places, read_launches
+    from paddle_tpu_torch.ops.kernels.rnn_cell import lstm_seq_plan
+    acts = (0, 1) if kind == 'gru' else (0, 1, 1)
+    width = 256 if kind == 'lstm_no_plan' else 32
+    before = read_launches()
+    rel = _recurrence_places(torch, kind[:4], 8, 24, width,
                              np.array([24, 0, 11, 1, 24, 9, 3, 20]), reverse,
                              acts, 3)
     assert rel <= 1e-5
+    moved = {k: read_launches()[k] - before[k] for k in (
+        'lstm_seq_fwd', 'lstm_seq_bwd', 'lstm_cell_fwd', 'lstm_cell_bwd')}
+    if kind != 'gru':
+        seq = lstm_seq_plan(8, width, torch.float32) is not None
+        assert seq == (kind == 'lstm')
+        assert moved == dict(lstm_seq_fwd=int(seq), lstm_seq_bwd=int(seq),
+                             lstm_cell_fwd=0 if seq else 24,
+                             lstm_cell_bwd=0 if seq else 24)
 
 
 def test_rnn_lstm_step_is_captured_with_its_cell_launches(cuda):
     """bench_rnn_lstm's program at a small width under bf16 AMP: one CUDA
-    graph, T cell launches forward and T backward a step; 3 captured steps
-    equal 3 eager ones and one run_steps(3), bit for bit."""
+    graph, one LSTM sequence launch forward and one backward a step and no
+    cell launch; 3 captured steps equal 3 eager ones and one run_steps(3),
+    bit for bit."""
     from chip_smoke import (_build_rnn_lstm, _moe_same_bits, _three_ways,
                             read_launches, reset_launches, rnn_lstm_feed)
     avg = _build_rnn_lstm(pt, 512, 32, 'bf16')
@@ -2727,7 +2755,8 @@ def test_rnn_lstm_step_is_captured_with_its_cell_launches(cuda):
             exe.run(program, feed=feed, fetch_list=[avg])
         got = read_launches()
     assert exe.last_captured and exe.captures == 1
-    assert (got['lstm_cell_fwd'], got['lstm_cell_bwd']) == (48, 48)
+    assert (got['lstm_seq_fwd'], got['lstm_seq_bwd']) == (3, 3)
+    assert (got['lstm_cell_fwd'], got['lstm_cell_bwd']) == (0, 0)
     res = _three_ways(torch, pt, pt.CUDAPlace(0), program, avg, weights,
                       feed)
     assert _moe_same_bits(res, 'captured', 'eager')
