@@ -345,8 +345,12 @@ Phases (any fault exits non-zero; no phase is skipped over):
    eager ones and one run_steps(3), bit for bit. (b) stacked_lstm_net at
    its defaults, stacked_gru_tagger, convolution_net and srl_tagger with
    srl_decode at batch 64 x seq 100 (lengths 1-100, vocab 5147, SGD):
-   ms a step captured (one graph), cell launches, 3 steps card against
-   host (rtol 1e-4). (c) each cell kernel (csrc/rnn_cell.cu: LSTM
+   ms a step captured (one graph), exactly one sequence launch each way
+   a recurrent layer and step and no cell launch, 3 steps card against
+   host (rtol 1e-4); stacked_gru_tagger at hidden 512, past the GRU
+   sequence kernels' plan, 3 timed steps with exactly 2 x 100 cell
+   launches each way a layer and step. (c) each cell kernel
+   (csrc/rnn_cell.cu: LSTM
    forward, backward; GRU forward, backward, two launches a step each)
    against its plain version at fp32 and bf16, at the bench step, ragged
    lengths, all padding and every activation, each twice for equal bits;
@@ -357,12 +361,16 @@ Phases (any fault exits non-zero; no phase is skipped over):
    lengths, all padding, every activation, B 37 x hidden 20 and reverse,
    with and without bias, dhidden and dcell, each twice for equal bits,
    timed at the bench recurrence beside their bound, their floor (T
-   steps of the cluster's exchange alone, the same launch) and cuDNN's
-   nn.LSTM at fp16; the
+   steps of the cluster's exchange alone, the same launch), the
+   per-position path and cuDNN's nn.LSTM at fp16; the GRU sequence
+   kernels (csrc/gru_seq.cu) likewise on the same cases (their floor two
+   exchanges a step; no PyTorch call computes the GRU's function); the
    whole recurrences card against host at fp32 (ragged, reverse, length
-   0; the LSTM also at hidden 256, where fp32 has no plan and the cells
-   run), and the LSTM recurrence beside the per-position path and
-   torch.nn.LSTM (cuDNN at fp16 and fp32). (d) the 22 op types of
+   0; the LSTM also at hidden 256 and the GRU at hidden 512, where fp32
+   has no plan and the cells run), and each recurrence beside the
+   per-position path and torch.nn.LSTM / nn.GRU (cuDNN at fp16 and fp32;
+   nn.GRU applies its reset gate after the product, a yardstick for
+   another function). (d) the 22 op types of
    the slice in one captured program (B 16, T 24, lengths 0-24), fp32
    and bf16 AMP, card against host (exact, or recurrence_difference).
 
@@ -548,7 +556,8 @@ def phase_build():
                    'sparse_rows_group_kernel', 'lstm_cell_fwd_kernel',
                    'lstm_cell_bwd_kernel', 'gru_cell_fwd_kernel',
                    'gru_cell_bwd_kernel', 'lstm_seq_fwd_kernel',
-                   'lstm_seq_bwd_kernel'):
+                   'lstm_seq_bwd_kernel', 'gru_seq_fwd_kernel',
+                   'gru_seq_bwd_kernel'):
         require(kernel in res.log, 'ptxas\'s log does not show %s' % kernel)
     print('  flash attention dynamic shared memory at D=64: tensor-core '
           'forward %d B, SIMT forward %d B, SIMT dK/dV %d B, SIMT dQ %d B, '
@@ -6788,24 +6797,26 @@ def rnn_lstm_feed(batch, seq, vocab, lens=None, seed=0):
             'label': rng.randint(0, 2, (batch, 1)).astype('int64')}
 
 
-def rnn_want(lstm_steps=0, gru_steps=0, lstm_seqs=0):
+def rnn_want(lstm_steps=0, gru_steps=0, lstm_seqs=0, gru_seqs=0):
     """The recurrences' launches: ``lstm_steps`` LSTM and ``gru_steps`` GRU
     positions run forward and backward by the cells (a GRU position: two
-    launches each way), and ``lstm_seqs`` LSTM sequences by the sequence
-    kernels (one launch each way)."""
+    launches each way), and ``lstm_seqs`` LSTM and ``gru_seqs`` GRU
+    sequences by the sequence kernels (one launch each way)."""
     return dict(lstm_cell_fwd=lstm_steps, lstm_cell_bwd=lstm_steps,
                 gru_cell_fwd=2 * gru_steps, gru_cell_bwd=2 * gru_steps,
-                lstm_seq_fwd=lstm_seqs, lstm_seq_bwd=lstm_seqs)
+                lstm_seq_fwd=lstm_seqs, lstm_seq_bwd=lstm_seqs,
+                gru_seq_fwd=gru_seqs, gru_seq_bwd=gru_seqs)
 
 
-def rnn_lstm_want(batch, seq, hidden, dtype, steps):
-    """The launches of ``steps`` steps of one LSTM layer: one sequence
-    launch each way a step where lstm_seq_plan has a launch, else a cell
-    launch each way a position."""
-    from paddle_tpu_torch.ops.kernels.rnn_cell import lstm_seq_plan
-    if lstm_seq_plan(batch, hidden, dtype) is None:
-        return rnn_want(lstm_steps=seq * steps)
-    return rnn_want(lstm_seqs=steps)
+def recurrence_want(torch, kind, batch, seq, width, dtype=None, times=1):
+    """The launches (rnn_want) of ``times`` runs of one recurrence ('lstm'
+    or 'gru'), forward and backward: one sequence launch each way a run
+    where its plan has a launch, else the cells a position."""
+    from paddle_tpu_torch.ops.kernels import rnn_cell as K
+    plan_of = K.lstm_seq_plan if kind == 'lstm' else K.gru_seq_plan
+    if plan_of(batch, width, dtype or torch.float32) is None:
+        return rnn_want(**{'%s_steps' % kind: seq * times})
+    return rnn_want(**{'%s_seqs' % kind: times})
 
 
 def rnn_lstm_flops(batch, seq, vocab, hidden, emb=128):
@@ -6849,7 +6860,8 @@ def _rnn_timed(torch, pt, place, card, on_card, batch, seq, vocab, hidden,
                mfu=flops / (ms / 1e3) / BF16_FLOPS, peak_gb=peak / 1e9,
                above_resident_gb=(peak - base) / 1e9, params=n_params,
                loss_first=losses[0], loss_last=losses[-1])
-    want = rnn_lstm_want(batch, seq, hidden, torch.bfloat16, steps)
+    want = recurrence_want(torch, 'lstm', batch, seq, hidden, torch.bfloat16,
+                           steps)
     path = ('the sequence kernels, one launch each way a step'
             if want['lstm_seq_fwd'] else 'no sequence-kernel plan at this '
             'width: one LSTM cell a position, forward and backward')
@@ -6890,10 +6902,12 @@ def _rnn_small(torch, pt, places, vocab, hidden, batch=8, seq=16,
     return card, host, max(abs(a - b) / abs(b) for a, b in zip(card, host))
 
 
-def seq_model_builds(pt, seq, vocab=IMDB_VOCAB, small=False):
+def seq_model_builds(pt, seq, vocab=IMDB_VOCAB, small=False,
+                     gru_hidden=None):
     """{name: build} of the sequence models at their defaults (``small``:
-    narrow): each appends its layers and SGD(0.05) to the default programs
-    and returns the loss. Feeds: seq_model_feed."""
+    narrow; ``gru_hidden``: stacked_gru_tagger's width): each appends its
+    layers and SGD(0.05) to the default programs and returns the loss.
+    Feeds: seq_model_feed."""
     from paddle_tpu_torch.models import seq_models, srl
 
     def data():
@@ -6919,6 +6933,8 @@ def seq_model_builds(pt, seq, vocab=IMDB_VOCAB, small=False):
         target = L.data(name='target', shape=[seq, 1], dtype='int64')
         ln = L.data(name='length', shape=[], dtype='int64')
         kw = dict(emb_dim=8, hidden_dim=16) if small else {}
+        if gru_hidden:
+            kw['hidden_dim'] = gru_hidden
         return seq_models.stacked_gru_tagger(w, target, vocab, 9, length=ln,
                                              **kw)[1]
 
@@ -6943,6 +6959,13 @@ def seq_model_builds(pt, seq, vocab=IMDB_VOCAB, small=False):
     return {k: with_sgd(v) for k, v in (
         ('stacked_lstm_net', lstm_net), ('stacked_gru_tagger', gru_tagger),
         ('convolution_net', conv_net), ('srl_tagger', srl_tagger))}
+
+
+def seq_model_recurrences(small=False):
+    """{model: (kind, hidden, layers)} of seq_model_builds' recurrences."""
+    return {'stacked_lstm_net': ('lstm', 8 if small else 128, 3),
+            'stacked_gru_tagger': ('gru', 16 if small else 128, 2),
+            'srl_tagger': ('gru', 16 if small else 64, 2)}
 
 
 def seq_model_feed(name, batch, seq, vocab=IMDB_VOCAB, seed=19):
@@ -7199,18 +7222,30 @@ RNN_SEQ_CASES = {
     'reverse': (8, 100, 32, RNN_SEQ_RAGGED, [(0, 1, 1)], True, True, False,
                 True),
 }
+# the GRU's counterpart: the same shapes, lengths and switches (no cell
+# state, so no dcell), activation codes (gate, candidate); every code as
+# gate and as candidate in pairs that stay finite over 100 steps (a relu
+# gate with an identity candidate, or identity with identity, grows to
+# inf)
+GRU_SEQ_CASES = {
+    name: (b, t, d, lens, [(0, 1)] if acts == [(0, 1, 1)] else
+           [(1, 2), (2, 0), (3, 0), (0, 3)], rev, bias, dh, False)
+    for name, (b, t, d, lens, acts, rev, bias, dh, _) in
+    RNN_SEQ_CASES.items()}
+SEQ_CASES = {'lstm': RNN_SEQ_CASES, 'gru': GRU_SEQ_CASES}
 # bf16: the kernel's recurrent products and cuBLAS's round to bf16 from
 # sums in other orders, and a one-ulp difference in a step's product
-# carries through the earlier steps (the backward's worst measured on an
-# H100 0.0040 of an array's largest magnitude, the forward's 0)
+# carries through the earlier steps (the LSTM backward's worst measured
+# on an H100 0.0040 of an array's largest magnitude, the forward's 0)
 RNN_SEQ_BF16_TOL = 2.0 ** -7
 RNN_SEQ_TOL = ('fp32: |kernel - plain| <= 1e-5 x the array\'s largest '
                'magnitude; bf16: <= %.4g x it' % RNN_SEQ_BF16_TOL)
 
 
-def _lstm_seq_inputs(torch, case, dtype, seed=20):
-    """RNN_SEQ_CASES[case]'s tensors on the card, from numpy (seed)."""
-    b, t, d, lens, acts, reverse, bias, dh, dc = RNN_SEQ_CASES[case]
+def _seq_inputs(torch, kind, case, dtype, seed=20):
+    """SEQ_CASES[kind][case]'s tensors on the card, from numpy (seed)."""
+    b, t, d, lens, acts, reverse, bias, dh, dc = SEQ_CASES[kind][case]
+    g = 4 if kind == 'lstm' else 3
     rng = np.random.RandomState(seed)
     dev = torch.device('cuda', 0)
 
@@ -7218,18 +7253,26 @@ def _lstm_seq_inputs(torch, case, dtype, seed=20):
         return torch.tensor(rng.randn(*shape) * scale, dtype=torch.float32,
                             device=dev).to(dtype)
     return dict(
-        x=r(b, t, 4 * d, scale=0.5),
-        w=r(d, 4 * d, scale=0.3 / np.sqrt(max(d / 8.0, 1.0))),
-        bias=r(4 * d, scale=0.1) if bias else None, h0=r(b, d, scale=0.5),
+        x=r(b, t, g * d, scale=0.5),
+        w=r(d, g * d, scale=0.3 / np.sqrt(max(d / 8.0, 1.0))),
+        bias=r(g * d, scale=0.1) if bias else None, h0=r(b, d, scale=0.5),
         c0=r(b, d, scale=0.5),
         length=torch.tensor(lens, dtype=torch.int32, device=dev),
         dh=r(b, t, d) if dh else None, dc=r(b, t, d) if dc else None,
         acts=acts, reverse=reverse)
 
 
-def _lstm_seq_bytes_ops(b, t, d, elt, direction):
+def _seq_bytes_ops(kind, b, t, d, elt, direction):
     """The bytes a sequence kernel must move (each input once, each output
     once) and its products' operations."""
+    if kind == 'gru':
+        if direction == 'fwd':
+            n = elt * (b * t * 3 * d + d * 3 * d + 3 * d + b * d +
+                       2 * b * t * d + b * t * 3 * d) + 4 * b
+        else:
+            n = elt * (2 * b * t * d + d * 3 * d + 2 * b * t * 3 * d +
+                       2 * b * d) + 4 * b * d + 4 * b
+        return n, 2.0 * b * t * d * 3 * d
     if direction == 'fwd':
         n = elt * (b * t * 4 * d + d * 4 * d + 4 * d + 2 * b * d +
                    2 * b * t * d + b * t * 4 * d) + 4 * b
@@ -7239,128 +7282,169 @@ def _lstm_seq_bytes_ops(b, t, d, elt, direction):
     return n, 2.0 * b * t * d * 4 * d
 
 
-def _lstm_seq_case(torch, card, direction, dtype, case, timed=False):
-    """One sequence kernel (direction 'fwd' or 'bwd') against its plain
-    version (the per-position loop of torch.mm and plain cells) on the same
-    card tensors, every output within RNN_SEQ_TOL, run twice for equal bits
-    and counted once a launch; the backward's inputs are the plain
-    forward's gates and cells. With ``timed``: device ms (graph replay)
-    beside the plain version's, the bound, the floor (T steps of the
-    cluster's exchange alone at the same launch geometry) and the library call (cuDNN's nn.LSTM at
-    fp16, forward without grad, or its backward alone). Returns the row."""
+def _rnn_seq_case(torch, card, kind, direction, dtype, case, timed=False):
+    """One sequence kernel (kind 'lstm' or 'gru', direction 'fwd' or 'bwd')
+    against its plain version (the per-position loop of torch.mm and plain
+    cells) on the same card tensors, every output within RNN_SEQ_TOL, run
+    twice for equal bits and counted once a launch; the backward's inputs
+    are the plain forward's. With ``timed``: device ms (graph replay)
+    beside the plain version's, the per-position path's (torch.mm and the
+    cell kernels), the bound, the floor (T steps of the cluster's
+    exchanges alone at the same launch geometry: one a step for the LSTM,
+    two for the GRU) and the library call (the LSTM: cuDNN's nn.LSTM at
+    fp16, forward without grad, or its backward alone; the GRU: none, no
+    PyTorch call computes its function). Returns the row."""
     from paddle_tpu_torch.ops.kernels import build
     from paddle_tpu_torch.ops.kernels import rnn_cell as K
-    v = _lstm_seq_inputs(torch, case, dtype)
+    lstm = kind == 'lstm'
+    v = _seq_inputs(torch, kind, case, dtype)
     b, t, d = v['x'].shape[0], v['x'].shape[1], v['w'].shape[0]
-    counter = K.lstm_seq_fwd if direction == 'fwd' else K.lstm_seq_bwd
+    name = '%s_seq_%s' % (kind, direction)
+    counter = getattr(K, name)
     worst, rel_worst = 0.0, 0.0
     tol = 1e-5 if dtype == torch.float32 else RNN_SEQ_BF16_TOL
     for acts in v['acts']:
-        fargs = (v['x'], v['w'], v['bias'], v['h0'], v['c0'], v['length'],
-                 acts, v['reverse'])
-        if direction == 'fwd':
-            def launch(fargs=fargs):
-                return K.lstm_seq_fwd(*fargs)
-
-            def plain(fargs=fargs):
-                return K.lstm_seq_fwd_reference(*fargs)
-            names = ('hidden', 'cell', 'gates')
-        else:
-            _, cell, gates = K.lstm_seq_fwd_reference(*fargs)
-            bargs = (v['dh'], v['dc'], v['w'], gates, cell, v['c0'],
+        if lstm:
+            fargs = (v['x'], v['w'], v['bias'], v['h0'], v['c0'],
                      v['length'], acts, v['reverse'])
+            fwd, fwd_plain = K.lstm_seq_fwd, K.lstm_seq_fwd_reference
+            pos_fwd, pos_bwd = K.lstm_positions_fwd, K.lstm_positions_bwd
+        else:
+            fargs = (v['x'], v['w'], v['bias'], v['h0'], v['length'], acts,
+                     v['reverse'])
+            fwd, fwd_plain = K.gru_seq_fwd, K.gru_seq_fwd_reference
+            pos_fwd, pos_bwd = K.gru_positions_fwd, K.gru_positions_bwd
+        if direction == 'fwd':
+            def launch(fargs=fargs, fwd=fwd):
+                return fwd(*fargs)
 
-            def launch(bargs=bargs):
-                return K.lstm_seq_bwd(*bargs)
+            def plain(fargs=fargs, fwd_plain=fwd_plain):
+                return fwd_plain(*fargs)
 
-            def plain(bargs=bargs):
-                return K.lstm_seq_bwd_reference(*bargs)
-            names = ('dx', 'dh0', 'dc0')
+            def positions(fargs=fargs, pos_fwd=pos_fwd):
+                return pos_fwd(*fargs)
+            names = ('hidden', 'cell', 'gates') if lstm else \
+                ('hidden', 'gates', 'rh')
+        else:
+            outs = fwd_plain(*fargs)
+            if lstm:
+                _, cell, gates = outs
+                bargs = (v['dh'], v['dc'], v['w'], gates, cell, v['c0'],
+                         v['length'], acts, v['reverse'])
+                bwd, bwd_plain = K.lstm_seq_bwd, K.lstm_seq_bwd_reference
+                names = ('dx', 'dh0', 'dc0')
+            else:
+                hidden, gates, _ = outs
+                bargs = (v['dh'], v['w'], gates, hidden, v['h0'],
+                         v['length'], acts, v['reverse'])
+                bwd, bwd_plain = K.gru_seq_bwd, K.gru_seq_bwd_reference
+                names = ('dx', 'dh0')
+
+            def launch(bargs=bargs, bwd=bwd):
+                return bwd(*bargs)
+
+            def plain(bargs=bargs, bwd_plain=bwd_plain):
+                return bwd_plain(*bargs)
+
+            def positions(bargs=bargs, pos_bwd=pos_bwd):
+                return pos_bwd(*bargs)
         before = counter.launches
         first, again = launch(), launch()
         want = plain()
         torch.cuda.synchronize()
-        require(counter.launches == before + 2, 'lstm_seq_%s: %d launches '
-                'counted for 2 calls' % (direction, counter.launches - before))
+        require(counter.launches == before + 2, '%s: %d launches counted '
+                'for 2 calls' % (name, counter.launches - before))
         errs = []
-        for name, got, ref in zip(names, first, want):
+        for out, got, ref in zip(names, first, want):
             g, r = (np.asarray(a.float().cpu(), np.float64) for a in (got, ref))
-            require(np.isfinite(r).all(), 'lstm_seq %s case %s: the plain '
-                    '%s is not finite' % (direction, case, name))
+            require(np.isfinite(r).all(), '%s case %s: the plain %s is not '
+                    'finite' % (name, case, out))
             err = float(np.abs(g - r).max()) if g.size else 0.0
             scale = float(np.abs(r).max()) if r.size else 0.0
-            errs.append((name, err, err / max(scale, 1e-30)))
-            require(err <= tol * scale, 'lstm_seq_%s %s case %s acts %s: %s '
-                    'differs from the plain version by %.3g (largest '
-                    'magnitude %.3g; %s)' % (direction, str(dtype)[6:], case,
-                                             acts, name, err, scale,
-                                             RNN_SEQ_TOL))
+            errs.append((out, err, err / max(scale, 1e-30)))
+            require(err <= tol * scale, '%s %s case %s acts %s: %s differs '
+                    'from the plain version by %.3g (largest magnitude %.3g; '
+                    '%s)' % (name, str(dtype)[6:], case, acts, out, err,
+                             scale, RNN_SEQ_TOL))
         same = all(torch.equal(a, c) for a, c in zip(first, again))
-        require(same, 'lstm_seq_%s %s case %s: a second run gave other bits'
-                % (direction, str(dtype)[6:], case))
+        require(same, '%s %s case %s: a second run gave other bits'
+                % (name, str(dtype)[6:], case))
         worst = max([worst] + [e for _, e, _ in errs])
         rel_worst = max([rel_worst] + [r for _, _, r in errs])
-        print('lstm_seq_%s %s case %s (B %d T %d D %d, acts %s%s%s%s%s): '
-              'max abs err %s (%s): ok, second run bit for bit [%s]'
-              % (direction, str(dtype)[6:], case, b, t, d, acts,
+        print('%s %s case %s (B %d T %d D %d, acts %s%s%s%s%s): max abs err '
+              '%s (%s): ok, second run bit for bit [%s]'
+              % (name, str(dtype)[6:], case, b, t, d, acts,
                  ', reverse' if v['reverse'] else '',
                  '' if v['bias'] is not None else ', no bias',
                  '' if v['dh'] is not None else ', no dhidden',
-                 '' if v['dc'] is not None else ', no dcell',
+                 '' if v['dc'] is not None or not lstm else ', no dcell',
                  ', '.join('%s %.3g (%.3g of its largest)' % e for e in errs),
                  RNN_SEQ_TOL, card))
     row = dict(max_abs_err=worst, max_rel_err=rel_worst)
     if not timed:
         return row
-    plan = K.lstm_seq_plan(b, d, dtype)
+    plan_of = K.lstm_seq_plan if lstm else K.gru_seq_plan
+    plan = plan_of(b, d, dtype)
     lib = build.library()
     code = build.dtype_code(dtype)
-    bwd = int(direction == 'bwd')
-    require(lib.ptt_lstm_seq_smem(d, plan['units'], code, bwd) ==
-            plan['smem_%s' % direction], 'lstm_seq_plan\'s shared memory '
-            'differs from csrc/lstm_seq.cu\'s layout')
+    bwd_code = int(direction == 'bwd')
+    require(getattr(lib, 'ptt_%s_seq_smem' % kind)(
+        d, plan['units'], code, bwd_code) == plan['smem_%s' % direction],
+        '%s_seq_plan\'s shared memory differs from csrc/%s_seq.cu\'s layout'
+        % (kind, kind))
 
     def floor_run():
-        build.check(lib.ptt_lstm_seq_floor(
-            b, t, d, plan['cluster'], plan['units'], code, bwd,
-            torch.cuda.current_stream().cuda_stream), 'ptt_lstm_seq_floor')
+        build.check(getattr(lib, 'ptt_%s_seq_floor' % kind)(
+            b, t, d, plan['cluster'], plan['units'], code, bwd_code,
+            torch.cuda.current_stream().cuda_stream),
+            'ptt_%s_seq_floor' % kind)
     ms = device_ms(torch, launch, iters=20)
     plain_ms = device_ms(torch, plain, iters=3)
+    positions_ms = device_ms(torch, positions, iters=3)
     floor = device_ms(torch, floor_run, iters=20)
-    n_bytes, n_ops = _lstm_seq_bytes_ops(b, t, d, v['x'].element_size(),
-                                         direction)
+    n_bytes, n_ops = _seq_bytes_ops(kind, b, t, d, v['x'].element_size(),
+                                    direction)
     lo, by = bound_ms(n_bytes, n_ops, BF16_FLOPS if dtype == torch.bfloat16
                       else FP32_FLOPS)
-    dev = torch.device('cuda', 0)
-    lstm = torch.nn.LSTM(d, d, batch_first=True).to(dev).half()
-    lstm.flatten_parameters()
-    xin = torch.randn(b, t, d, device=dev).half().requires_grad_()
-    if direction == 'fwd':
-        def library():
-            with torch.no_grad():
-                lstm(xin)
-    else:
-        y, _ = lstm(xin)
-        dy = torch.randn_like(y)
-        params = [xin] + list(lstm.parameters())
+    lib_ms = None
+    if lstm:
+        dev = torch.device('cuda', 0)
+        net = torch.nn.LSTM(d, d, batch_first=True).to(dev).half()
+        net.flatten_parameters()
+        xin = torch.randn(b, t, d, device=dev).half().requires_grad_()
+        if direction == 'fwd':
+            def library():
+                with torch.no_grad():
+                    net(xin)
+        else:
+            y, _ = net(xin)
+            dy = torch.randn_like(y)
+            params = [xin] + list(net.parameters())
 
-        def library():
-            torch.autograd.grad(y, params, dy, retain_graph=True)
-    lib_ms = eager_ms(torch, library, iters=20, warmup=3)
-    row.update(ms=ms, plain_ms=plain_ms, bound_ms=lo, bound_by=by,
-               library_ms=lib_ms, floor_ms=floor, us_per_step=ms * 1e3 / t,
-               cluster=plan['cluster'], units=plan['units'],
-               smem=plan['smem_%s' % direction], grid=plan['grid'])
-    print('lstm_seq_%s %s at bench_rnn_lstm\'s recurrence (B %d T %d hidden '
-          '%d; %d clusters of %d CTAs, %d threads, %d B shared memory a CTA): '
-          'device ms %.5f (%.3f us a step), plain (T torch.mm + plain cells) '
-          '%.5f, bound %.6f (%s), floor (T exchanges alone, same launch) '
-          '%.5f (%.3f us a step), cuDNN nn.LSTM fp16 %s %.5f (eager) [%s]'
-          % (direction, str(dtype)[6:], b, t, d, plan['grid'] //
-             plan['cluster'], plan['cluster'], plan['threads'],
-             plan['smem_%s' % direction], ms, ms * 1e3 / t, plain_ms, lo, by,
-             floor, floor * 1e3 / t, 'forward (no grad)' if direction ==
-             'fwd' else 'backward alone', lib_ms, card))
+            def library():
+                torch.autograd.grad(y, params, dy, retain_graph=True)
+        lib_ms = eager_ms(torch, library, iters=20, warmup=3)
+    row.update(ms=ms, plain_ms=plain_ms, positions_ms=positions_ms,
+               bound_ms=lo, bound_by=by, library_ms=lib_ms, floor_ms=floor,
+               us_per_step=ms * 1e3 / t, cluster=plan['cluster'],
+               units=plan['units'], smem=plan['smem_%s' % direction],
+               grid=plan['grid'])
+    print('%s %s at the bench recurrence (B %d T %d hidden %d; %d clusters '
+          'of %d CTAs, %d threads, %d B shared memory a CTA): device ms %.5f '
+          '(%.3f us a step), plain (T torch.mm + plain cells) %.5f, the '
+          'per-position path (torch.mm + cell kernels) %.5f, bound %.6f '
+          '(%s), floor (T steps of %s alone, same launch) %.5f (%.3f us a '
+          'step), %s [%s]'
+          % (name, str(dtype)[6:], b, t, d, plan['grid'] // plan['cluster'],
+             plan['cluster'], plan['threads'], plan['smem_%s' % direction],
+             ms, ms * 1e3 / t, plain_ms, positions_ms, lo, by,
+             'one exchange' if lstm else 'two exchanges', floor,
+             floor * 1e3 / t,
+             'cuDNN nn.LSTM fp16 %s %.5f (eager)'
+             % ('forward (no grad)' if direction == 'fwd' else
+                'backward alone', lib_ms) if lstm else
+             'no single PyTorch call (nn.GRU applies its reset gate after '
+             'the product)', card))
     return row
 
 
@@ -7369,12 +7453,13 @@ def phase_rnn_kernels(torch, card, b=128, t=100, d=128):
     and bf16, forward and backward, at bench_rnn_lstm's step (B 128, hidden
     128, full lengths; timed in bf16), at ragged lengths, at all padding
     (length 0) and at every activation; twice each for equal bits. Then the
-    LSTM sequence kernels against their plain versions on RNN_SEQ_CASES
-    (timed at the bench case in bf16, beside their floor and cuDNN), the
+    LSTM and GRU sequence kernels against their plain versions on
+    RNN_SEQ_CASES / GRU_SEQ_CASES (timed at the bench case in bf16, beside
+    their floor, the per-position path and, for the LSTM, cuDNN), the
     whole recurrences card against host at fp32 with ragged, reverse and
-    length-0 rows (the LSTM through the sequence kernels, and at a width
-    with no plan through the cells), and the LSTM recurrence beside the
-    cells' path and torch.nn.LSTM at full lengths. Returns {kernel: row}."""
+    length-0 rows (through the sequence kernels, and at a width with no
+    plan through the cells), and each recurrence beside the cells' path
+    and torch.nn.LSTM / nn.GRU at full lengths. Returns {kernel: row}."""
     from paddle_tpu_torch.ops.kernels import rnn_cell as K
     gen = torch.Generator(device='cuda').manual_seed(19)
     rows = {}
@@ -7398,25 +7483,23 @@ def phase_rnn_kernels(torch, card, b=128, t=100, d=128):
                 for acts in every:
                     _rnn_cell_case(torch, card, kind, direction, dtype, 8, t,
                                    32, ragged, acts, gen)
-    for direction in ('fwd', 'bwd'):
-        for dtype in (torch.float32, torch.bfloat16):
-            for case in RNN_SEQ_CASES:
-                timed = case == 'bench' and dtype == torch.bfloat16
-                row = _lstm_seq_case(torch, card, direction, dtype, case,
-                                     timed=timed)
-                if timed:
-                    rows['lstm_seq_%s' % direction] = row
-    cases = [('lstm', 32), ('gru', 32), ('lstm', 256)]
-    for kind, width in cases:
-        acts = (0, 1, 1) if kind == 'lstm' else (0, 1)
+    for kind in ('lstm', 'gru'):
+        for direction in ('fwd', 'bwd'):
+            for dtype in (torch.float32, torch.bfloat16):
+                for case in SEQ_CASES[kind]:
+                    timed = case == 'bench' and dtype == torch.bfloat16
+                    row = _rnn_seq_case(torch, card, kind, direction, dtype,
+                                        case, timed=timed)
+                    if timed:
+                        rows['%s_seq_%s' % (kind, direction)] = row
+    # the LSTM at hidden 256 and the GRU at 512: fp32 has no plan there
+    for kind, width in RECURRENCE_WIDTHS:
         for reverse in (False, True):
             before = read_launches()
             rel = _recurrence_places(torch, kind, 8, 40, width,
                                      np.array([40, 0, 17, 1, 40, 9, 3, 33]),
-                                     reverse, acts, 7)
-            moved = {k: read_launches()[k] - before[k]
-                     for k in ('lstm_seq_fwd', 'lstm_seq_bwd',
-                               'lstm_cell_fwd', 'lstm_cell_bwd')}
+                                     reverse, ACTS_OF[kind], 7)
+            moved = {k: read_launches()[k] - before[k] for k in rnn_want()}
             print('phase 19c %s recurrence %s, fp32, B 8 T 40 D %d, lengths '
                   '40, 0, 17, 1, 40, 9, 3, 33: card (kernels) against host '
                   '(plain cells), forward and every gradient: largest '
@@ -7426,70 +7509,93 @@ def phase_rnn_kernels(torch, card, b=128, t=100, d=128):
                      moved, card))
             require(rel <= 1e-5, 'phase 19c: the %s recurrence on the card '
                     'differs from the host by %.3g' % (kind, rel))
-            if kind == 'lstm':
-                seq = K.lstm_seq_plan(8, width, torch.float32) is not None
-                want = dict(lstm_seq_fwd=int(seq), lstm_seq_bwd=int(seq),
-                            lstm_cell_fwd=0 if seq else 40,
-                            lstm_cell_bwd=0 if seq else 40)
-                require(moved == want, 'phase 19c: the LSTM recurrence at '
-                        'hidden %d launched %s, want %s' % (width, moved,
-                                                            want))
+            want = recurrence_want(torch, kind, 8, 40, width)
+            require(moved == want, 'phase 19c: the %s recurrence at hidden '
+                    '%d launched %s, want %s' % (kind, width, moved, want))
     rows['recurrence'] = _recurrence_vs_cudnn(torch, card, b, t, d)
+    rows['gru_recurrence'] = _recurrence_vs_cudnn(torch, card, b, t, d,
+                                                  'gru')
     return rows
 
 
-def _recurrence_vs_cudnn(torch, card, b, t, d):
-    """The LSTM recurrence (LstmRecurrence: the sequence kernels, one launch
-    each way) at bench_rnn_lstm's shape, full lengths, forward and
-    backward, beside the per-position path (T products and cells each way)
-    and torch.nn.LSTM over the same [B, T, D] -> [B, T, D]
-    (which also projects its input: one GEMM more): bf16 (cuDNN declines
-    bf16, so nn.LSTM runs torch's own cells) beside nn.LSTM in bf16 and
+# the recurrences held card against host: each kind through its sequence
+# kernels and at a width where fp32 has no plan, through the cells
+RECURRENCE_WIDTHS = [('lstm', 32), ('gru', 32), ('lstm', 256), ('gru', 512)]
+ACTS_OF = {'lstm': (0, 1, 1), 'gru': (0, 1)}
+
+
+
+def _recurrence_vs_cudnn(torch, card, b, t, d, kind='lstm'):
+    """One recurrence (LstmRecurrence or GruRecurrence: the sequence
+    kernels, one launch each way) at bench_rnn_lstm's shape, full lengths,
+    forward and backward with dW and dbias, beside the per-position path
+    (the products and cells a position each way) and torch.nn.LSTM /
+    nn.GRU over the same [B, T, D] -> [B, T, D] (which also project their
+    input: one GEMM more; nn.GRU applies its reset gate after the
+    product, so it is a yardstick for another function): bf16 (cuDNN
+    declines bf16, so torch runs its own cells) beside torch in bf16 and
     in fp16 (cuDNN), and fp32 beside cuDNN in fp32. Eager, CUDA events
     over 20 calls; the recurrence also by graph replay. Returns the bf16
     row and the others' times."""
     from paddle_tpu_torch.ops.kernels import rnn_cell as K
     dev = torch.device('cuda', 0)
     gen = torch.Generator(device=dev).manual_seed(23)
+    lstm = kind == 'lstm'
+    g = 4 if lstm else 3
+    acts = ACTS_OF[kind]
     row = {}
     for dt in (torch.bfloat16, torch.float32):
-        x = (0.5 * torch.randn(b, t, 4 * d, generator=gen, device=dev)).to(dt)
-        w = (0.1 * torch.randn(d, 4 * d, generator=gen, device=dev)).to(dt)
-        bias = torch.zeros(4 * d, device=dev, dtype=dt)
+        x = (0.5 * torch.randn(b, t, g * d, generator=gen, device=dev)).to(dt)
+        w = (0.1 * torch.randn(d, g * d, generator=gen, device=dev)).to(dt)
+        bias = torch.zeros(g * d, device=dev, dtype=dt)
         h0 = torch.zeros(b, d, device=dev, dtype=dt)
         leaves = [a.requires_grad_() for a in (x, w, bias)]
         dy = torch.randn(b, t, d, generator=gen, device=dev).to(dt)
 
         def ours():
-            h, _ = K.LstmRecurrence.apply(leaves[0], leaves[1], leaves[2],
-                                          h0, h0, None, (0, 1, 1), False)
+            if lstm:
+                h, _ = K.LstmRecurrence.apply(*leaves, h0, h0, None, acts,
+                                              False)
+            else:
+                h = K.GruRecurrence.apply(*leaves, h0, None, acts, False)
             torch.autograd.grad(h, leaves, dy)
 
-        xd, wd, bd = (t.detach() for t in leaves)
+        xd, wd, bd = (a.detach() for a in leaves)
 
         def cells():
-            # the per-position path: a torch.mm and a cell launch a
-            # position each way, dW and dbias as LstmRecurrence takes them
-            hid, cel, gat = K.lstm_positions_fwd(xd, wd, bd, h0, h0, None,
-                                                 (0, 1, 1), False)
-            dx, _, _ = K.lstm_positions_bwd(dy, torch.zeros_like(dy), wd,
-                                            gat, cel, h0, None, (0, 1, 1),
+            # the per-position path: the products and the cell launches a
+            # position each way, dW and dbias as the recurrence takes them
+            if lstm:
+                hid, cel, gat = K.lstm_positions_fwd(xd, wd, bd, h0, h0, None,
+                                                     acts, False)
+                dx, _, _ = K.lstm_positions_bwd(dy, torch.zeros_like(dy), wd,
+                                                gat, cel, h0, None, acts,
+                                                False)
+                prev = K._previous(h0, hid, False)
+                torch.mm(prev.reshape(-1, d).t(), dx.reshape(-1, 4 * d))
+            else:
+                hid, gat, rh = K.gru_positions_fwd(xd, wd, bd, h0, None, acts,
+                                                   False)
+                dx, _ = K.gru_positions_bwd(dy, wd, gat, hid, h0, None, acts,
                                             False)
-            prev = K._previous(h0, hid, False)
-            torch.mm(prev.reshape(-1, d).t(), dx.reshape(-1, 4 * d))
+                prev = K._previous(h0, hid, False).reshape(-1, d)
+                dx2 = dx.reshape(-1, 3 * d)
+                torch.mm(prev.t(), dx2[:, :2 * d])
+                torch.mm(rh.reshape(-1, d).t(), dx2[:, 2 * d:])
             dx.sum((0, 1))
         libs = {}
         for lt in ((torch.bfloat16, torch.float16) if dt == torch.bfloat16
                    else (torch.float32,)):
-            lstm = torch.nn.LSTM(d, d, batch_first=True).to(dev).to(lt)
-            lstm.flatten_parameters()
+            net = (torch.nn.LSTM if lstm else torch.nn.GRU)(
+                d, d, batch_first=True).to(dev).to(lt)
+            net.flatten_parameters()
             xin = torch.randn(b, t, d, generator=gen, device=dev).to(lt) \
                 .requires_grad_()
-            params = [xin] + list(lstm.parameters())
+            params = [xin] + list(net.parameters())
             dyl = dy.to(lt)
 
-            def lib(lstm=lstm, xin=xin, params=params, dyl=dyl):
-                y, _ = lstm(xin)
+            def lib(net=net, xin=xin, params=params, dyl=dyl):
+                y, _ = net(xin)
                 torch.autograd.grad(y, params, dyl)
             key = '%s%s' % (str(lt)[6:], ' cuDNN' if
                             torch.backends.cudnn.is_acceptable(xin) else
@@ -7498,20 +7604,22 @@ def _recurrence_vs_cudnn(torch, card, b, t, d):
         eager = eager_ms(torch, ours, iters=20, warmup=3)
         graph = device_ms(torch, ours, iters=5)
         cells_ms = device_ms(torch, cells, iters=5)
-        flops = 3 * 2.0 * b * t * d * 4 * d
+        flops = 3 * 2.0 * b * t * d * g * d
         elt = x.element_size()
-        lo, by = bound_ms(elt * (2 * (b * t * 4 * d + d * 4 * d) +
+        lo, by = bound_ms(elt * (2 * (b * t * g * d + d * g * d) +
                                  2 * b * t * d),
                           flops, BF16_FLOPS if dt == torch.bfloat16 else
                           FP32_FLOPS)
         name = str(dt)[6:]
-        print('phase 19c LSTM recurrence forward + backward, B %d T %d '
-              'hidden %d %s, full lengths: the sequence kernels eager %.4f '
-              'ms, graph replay %.4f ms; the per-position path (T torch.mm '
-              '+ cell launches each way) graph replay %.4f ms; bound %.5f ms '
-              '(%s); torch.nn.LSTM eager (its input GEMM too; all rows full, '
-              'so its zeroed padding does not differ): %s [%s]'
-              % (b, t, d, name, eager, graph, cells_ms, lo, by,
+        print('phase 19c %s recurrence forward + backward, B %d T %d hidden '
+              '%d %s, full lengths: the sequence kernels eager %.4f ms, '
+              'graph replay %.4f ms; the per-position path (torch.mm + cell '
+              'launches each way) graph replay %.4f ms; bound %.5f ms (%s); '
+              'torch.nn.%s eager (its input GEMM too; all rows full, so its '
+              'zeroed padding does not differ%s): %s [%s]'
+              % (kind.upper(), b, t, d, name, eager, graph, cells_ms, lo, by,
+                 kind.upper(), '' if lstm else '; its reset gate applied '
+                 'after the product: a yardstick for another function',
                  ', '.join('%s %.4f ms' % kv for kv in libs.items()), card))
         res = dict(eager_ms=eager, ms=graph, cells_ms=cells_ms, bound_ms=lo,
                    bound_by=by, library_ms=libs)
@@ -7766,7 +7874,9 @@ def phase_rnn(torch, pt, place, card, on_card, batch=128, seq=100,
     """Phase 19 (a, b, d; 19c is phase_rnn_kernels): bench_rnn_lstm timed
     and checked (and at hidden ``wide_hidden``, past the sequence kernels'
     plan), card against host at fp32, captured == eager == run_steps;
-    the sequence models timed and card against host; every new op type
+    the sequence models timed (their recurrences' launches exact) and card
+    against host, and stacked_gru_tagger at hidden ``wide_hidden``, past
+    the GRU sequence kernels' plan in fp32 (the cells); every new op type
     card against host. Returns (the timed runs' launch counts, summary)."""
     t0 = time.perf_counter()
     host_place = host_place or pt.CPUPlace()
@@ -7816,6 +7926,7 @@ def phase_rnn(torch, pt, place, card, on_card, batch=128, seq=100,
     if on_card:
         torch.cuda.empty_cache()
     models = {}
+    recurrences = seq_model_recurrences(small)
     for name, build in seq_model_builds(pt, model_seq, small=small).items():
         feed = seq_model_feed(name, model_batch, model_seq)
         launches, ms, one_graph = _seq_model_timed(torch, pt, place, on_card,
@@ -7825,19 +7936,53 @@ def phase_rnn(torch, pt, place, card, on_card, batch=128, seq=100,
                                        build, feed, model_steps)
         rel = max(abs(a - b) / abs(b) for a, b in zip(lcard, lhost))
         cells = {k: launches[k] for k in rnn_want()}
+        want = rnn_want()
+        if name in recurrences:
+            kind, width, layers = recurrences[name]
+            want = recurrence_want(torch, kind, model_batch, model_seq,
+                                   width, times=layers * 5)
         models[name] = dict(ms=ms, loss_rel=rel, launches=cells)
         print('phase 19b %s: batch %d x seq %d, lengths 1..%d, fp32, '
               'SGD(0.05): %.3f ms/step captured (%s), recurrence launches '
-              'in 5 steps %s; %d '
+              'in 5 steps %s (want %s); %d '
               'steps card %s, host %s (max rel %.3g, limit 1e-4) [%s]'
               % (name, model_batch, model_seq, model_seq, ms,
-                 'one graph' if one_graph else 'NOT one graph', cells,
+                 'one graph' if one_graph else 'NOT one graph', cells, want,
                  model_steps, ['%.6f' % v for v in lcard],
                  ['%.6f' % v for v in lhost], rel, card))
         require(rel <= 1e-4, 'phase 19b %s: card and host differ' % name)
         if on_card:
             require(one_graph, 'phase 19b %s: not one captured graph' % name)
+            require(cells == want, 'phase 19b %s: recurrence launches %s, '
+                    'want %s' % (name, cells, want))
             torch.cuda.empty_cache()
+    # stacked_gru_tagger past the GRU sequence kernels' plan: the GRU
+    # cells and products on the main path
+    build = seq_model_builds(pt, model_seq, small=small,
+                             gru_hidden=wide_hidden)['stacked_gru_tagger']
+    feed = seq_model_feed('stacked_gru_tagger', model_batch, model_seq)
+    launches, ms, one_graph = _seq_model_timed(torch, pt, place, on_card,
+                                               build, feed, 3)
+    runs.append(launches)
+    cells = {k: launches[k] for k in rnn_want()}
+    want = recurrence_want(torch, 'gru', model_batch, model_seq,
+                           wide_hidden, times=2 * 3)
+    models['stacked_gru_tagger_wide'] = dict(ms=ms, launches=cells,
+                                             hidden=wide_hidden)
+    print('phase 19b stacked_gru_tagger at hidden %d (%s): batch %d x seq '
+          '%d, %.3f ms/step captured (%s), recurrence launches in 3 steps '
+          '%s (want %s) [%s]'
+          % (wide_hidden, 'no GRU sequence plan in fp32: the cells'
+             if want['gru_cell_fwd'] else 'a GRU sequence plan',
+             model_batch, model_seq, ms,
+             'one graph' if one_graph else 'NOT one graph', cells, want,
+             card))
+    if on_card:
+        require(one_graph, 'phase 19b: the wide GRU tagger is not one '
+                'captured graph')
+        require(cells == want, 'phase 19b: the wide GRU tagger launched %s, '
+                'want %s' % (cells, want))
+        torch.cuda.empty_cache()
     out['models'] = models
     out['ops'] = phase_seq_ops(torch, pt, place, card, on_card)
     out['seconds'] = time.perf_counter() - t0
@@ -8165,6 +8310,7 @@ def main():
     rnn_kernels = phase_rnn_kernels(torch, card)
     rnn_runs, rnn = phase_rnn(torch, pt, pt.CUDAPlace(0), card, True)
     rnn['recurrence'] = rnn_kernels.pop('recurrence')
+    rnn['gru_recurrence'] = rnn_kernels.pop('gru_recurrence')
     torch.cuda.empty_cache()
     done('19 (the recurrent and sequence path)')
 
@@ -8177,8 +8323,8 @@ def main():
     # encoder steps, fp32 and bf16; phase 17's staging-ring legs: the
     # Transformer's timed epoch and the CTR's steps; phase 18a's timed MoE
     # steps, scan_layers and unrolled; phase 19's timed bench_rnn_lstm
-    # steps and each sequence model's timed steps), each read after its
-    # counts were set to 0
+    # steps (at hidden 128 and 512), each sequence model's timed steps and
+    # the wide GRU tagger's), each read after its counts were set to 0
     main_runs = [launches] + extras + list(quant.values()) + \
         [train, scan_train, masked, mask_read, resnet, nmt, trainer] + \
         disagg_runs + list(ctr_runs.values()) + layers_runs + \
@@ -8258,11 +8404,13 @@ def main():
               launches=runs(name), **rnn_kernels[name])
          for name, line in (('lstm_cell_fwd', 30), ('lstm_cell_bwd', 30),
                             ('gru_cell_fwd', 407), ('gru_cell_bwd', 407))] + \
-        [dict(name=name, route='cuda',
-              source='paddle_tpu_torch/csrc/lstm_seq.cu',
-              replaces='paddle_tpu/ops/rnn_ops.py:30', launches=runs(name),
-              **rnn_kernels[name])
-         for name in ('lstm_seq_fwd', 'lstm_seq_bwd')]
+        [dict(name='%s_seq_%s' % (kind, way), route='cuda',
+              source='paddle_tpu_torch/csrc/%s_seq.cu' % kind,
+              replaces='paddle_tpu/ops/rnn_ops.py:%d' % line,
+              launches=runs('%s_seq_%s' % (kind, way)),
+              **rnn_kernels['%s_seq_%s' % (kind, way)])
+         for kind, line in (('lstm', 30), ('gru', 78))
+         for way in ('fwd', 'bwd')]
     ctr.update(kernel={'%s %s' % k: dict(ms=v['ms'], bound_ms=v['bound_ms'],
                                          library_ms=v['library_ms'])
                        for k, v in sparse.items()})

@@ -69,12 +69,17 @@ allocated before the first step), then profiles 5 steps as
 chip_smoke.py --profile does (device busy time and kernels a step, by
 family), then times the four cell kernels at its step (B 128, hidden
 128, bf16, full lengths; a GRU step's two launches together) by graph
-replay, the whole LSTM recurrence forward and backward (LstmRecurrence)
-at that shape, and, where DIR has them, the two LSTM sequence kernels at
-that recurrence beside their plain versions, their floor (T cluster
-barriers at the same launch) and cuDNN's nn.LSTM at fp16 (chip_smoke.py's
-_lstm_seq_case). A checkout without the recurrent ops, the cell kernels
-or the sequence kernels is reported as such.
+replay, the whole LSTM and GRU recurrences forward and backward
+(LstmRecurrence, GruRecurrence) at that shape, and, where DIR has them,
+the LSTM and GRU sequence kernels at that recurrence beside their plain
+versions, the per-position path, their floor (T steps of the cluster's
+exchanges alone at the same launch) and, for the LSTM, cuDNN's nn.LSTM at
+fp16 (chip_smoke.py's _rnn_seq_case), then the sequence models of
+chip_smoke.py's phase 19b that run a recurrence (stacked_lstm_net,
+stacked_gru_tagger, srl_tagger at batch 64 x seq 100, fp32, SGD): 2
+warm-up and 20 timed steps captured, ms a step on the host clock and
+their recurrence launches. A checkout without the recurrent ops, the
+cell kernels or the sequence kernels is reported as such.
 
 With --moe, it runs DIR's bench_moe Switch-MoE LM at chip_smoke.py's
 phase-18a width (batch 32 x seq 64, vocab 32000, 4 layers, 8 experts,
@@ -413,30 +418,50 @@ def rnn_steps(torch, smoke, card, steps=20):
             print('%s: kernel %.5f ms a step (%d launch%s) [%s]'
                   % (label, ms[label], 1 if kind == 'lstm' else 2,
                      '' if kind == 'lstm' else 'es', card))
-    # the whole LSTM recurrence, forward and backward, as DIR's
-    # LstmRecurrence runs it at this shape
-    x = (0.5 * torch.randn(b, t, 4 * d, generator=gen, device=dev)).to(
-        torch.bfloat16).requires_grad_()
-    w = (0.1 * torch.randn(d, 4 * d, generator=gen, device=dev)).to(
-        torch.bfloat16).requires_grad_()
-    h0 = torch.zeros(b, d, device=dev, dtype=torch.bfloat16)
-    dy = torch.randn(b, t, d, generator=gen, device=dev).to(torch.bfloat16)
+    # the whole LSTM and GRU recurrences, forward and backward, as DIR's
+    # LstmRecurrence and GruRecurrence run them at this shape
+    for kind, g in (('lstm', 4), ('gru', 3)):
+        x = (0.5 * torch.randn(b, t, g * d, generator=gen, device=dev)).to(
+            torch.bfloat16).requires_grad_()
+        w = (0.1 * torch.randn(d, g * d, generator=gen, device=dev)).to(
+            torch.bfloat16).requires_grad_()
+        h0 = torch.zeros(b, d, device=dev, dtype=torch.bfloat16)
+        dy = torch.randn(b, t, d, generator=gen, device=dev).to(
+            torch.bfloat16)
 
-    def recurrence():
-        h, _ = K.LstmRecurrence.apply(x, w, None, h0, h0, None, (0, 1, 1),
-                                      False)
-        torch.autograd.grad(h, (x, w), dy)
-    label = 'LstmRecurrence fwd + bwd [%d, %d, %d] bfloat16' % (b, t, d)
-    ms[label] = smoke.device_ms(torch, recurrence, iters=5)
-    print('%s: %.5f ms by graph replay [%s]' % (label, ms[label], card))
-    if not hasattr(K, 'lstm_seq_fwd'):
-        print('no LSTM sequence kernels in this checkout')
-        return ms
-    for direction in ('fwd', 'bwd'):
-        row = smoke._lstm_seq_case(torch, card, direction, torch.bfloat16,
-                                   'bench', timed=True)
-        for key in ('ms', 'floor_ms', 'plain_ms', 'library_ms'):
-            ms['lstm_seq_%s %s' % (direction, key)] = row[key]
+        def recurrence(kind=kind, x=x, w=w, h0=h0, dy=dy):
+            if kind == 'lstm':
+                h, _ = K.LstmRecurrence.apply(x, w, None, h0, h0, None,
+                                              (0, 1, 1), False)
+            else:
+                h = K.GruRecurrence.apply(x, w, None, h0, None, (0, 1),
+                                          False)
+            torch.autograd.grad(h, (x, w), dy)
+        label = '%sRecurrence fwd + bwd [%d, %d, %d] bfloat16' % (
+            kind.capitalize(), b, t, d)
+        ms[label] = smoke.device_ms(torch, recurrence, iters=5)
+        print('%s: %.5f ms by graph replay [%s]' % (label, ms[label], card))
+    for kind in ('lstm', 'gru'):
+        if not hasattr(K, '%s_seq_fwd' % kind):
+            print('no %s sequence kernels in this checkout' % kind.upper())
+            continue
+        for direction in ('fwd', 'bwd'):
+            row = smoke._rnn_seq_case(torch, card, kind, direction,
+                                      torch.bfloat16, 'bench', timed=True)
+            for key in ('ms', 'floor_ms', 'plain_ms', 'positions_ms',
+                        'library_ms'):
+                ms['%s_seq_%s %s' % (kind, direction, key)] = row[key]
+    builds = smoke.seq_model_builds(pt, 100)
+    for model in smoke.seq_model_recurrences():
+        feed = smoke.seq_model_feed(model, 64, 100)
+        launches, ms[model], one = smoke._seq_model_timed(
+            torch, pt, pt.CUDAPlace(0), True, builds[model], feed, steps)
+        print('%s: batch 64 x seq 100, fp32, %d steps after 2 warm-up: '
+              '%.4f ms a step (%s), recurrence launches %s [%s]'
+              % (model, steps, ms[model], 'one graph' if one else
+                 'NOT one graph', {k: v for k, v in launches.items()
+                                   if 'lstm' in k or 'gru' in k}, card))
+        torch.cuda.empty_cache()
     return ms
 
 

@@ -50,36 +50,15 @@
 //   loaded into registers one step ahead; the outputs are stored as they
 //   are made.
 
-#include <cooperative_groups.h>
-
-#include "flash_tiles.cuh"
-#include "rnn_math.cuh"
-
-namespace cg = cooperative_groups;
+#include "seq_cluster.cuh"
 
 namespace ptt {
 
-constexpr int kSeqRows = 16;            // batch rows a cluster
-constexpr int kSeqThreads = 256;        // a CTA
-constexpr int kSeqSlots = 4;            // cells a thread: 16 U <= 4 x 256
-constexpr int kSeqMaxCluster = 8;       // the portable cluster size
-constexpr int kSeqSmemLimit = 232448;   // 227 KB a block
-
-__host__ __device__ inline int seq_round_up(int v, int m) {
-  return (v + m - 1) / m * m;
-}
 // the forward's product depth (D) and the backward's (the four gate blocks
 // of D rounded up to even, so a pair of units is one aligned store)
 __host__ __device__ inline int seq_kf(int D) { return seq_round_up(D, 16); }
-__host__ __device__ inline int seq_dp(int D) { return seq_round_up(D, 2); }
 __host__ __device__ inline int seq_kb(int D) {
   return seq_round_up(4 * seq_dp(D), 64);
-}
-// a row of a 16-row buffer: bf16 rows 16 bytes longer than a multiple of
-// 32 (ldmatrix without bank conflicts), fp32 rows 4 words longer (float4
-// reads of rows gid and gid + 8 on different banks)
-__host__ __device__ inline int seq_ld(int k, bool bf16) {
-  return k + (bf16 ? 8 : 4);
 }
 // Shared memory: W's slice and two buffers of 16 rows (h_prev forward,
 // dgates backward) in the dtype, the product staged in fp32 for the cells,
@@ -136,105 +115,7 @@ struct SeqArgs {
   int B, T, D, C, U, reverse, ga, ca, na;
 };
 
-__device__ __forceinline__ void seq_zero(unsigned char* smem, int bytes) {
-  const uint4 z = make_uint4(0u, 0u, 0u, 0u);
-  for (int i = threadIdx.x * 16; i < bytes; i += blockDim.x * 16)
-    *reinterpret_cast<uint4*>(smem + i) = z;
-}
-
-// ------------------------------------- the exchange between a cluster's CTAs
-// A buffer's mbarrier completes a phase when this CTA's thread 0 has armed
-// it (one arrival, with the bytes the cluster's CTAs will write) and every
-// one of those bytes has landed: the writers use st.async, whose
-// complete-tx on the destination's mbarrier releases the data at cluster
-// scope, so no step fences the global memory traffic.
-__device__ __forceinline__ unsigned seq_smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// this CTA's shared address `addr` in the shared memory of CTA `rank`
-__device__ __forceinline__ unsigned seq_map(unsigned addr, int rank) {
-  unsigned r;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(r)
-               : "r"(addr), "r"(rank));
-  return r;
-}
-
-__device__ __forceinline__ void seq_bar_init(unsigned bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ void seq_bar_arm(unsigned bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-// until the phase of parity `parity` has completed
-__device__ __forceinline__ void seq_bar_wait(unsigned bar, unsigned parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred done;\n"
-      "SEQ_WAIT_%=:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-      "@!done bra SEQ_WAIT_%=;\n"
-      "}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-// units j, j + 1 of one row (v1 = 0 where j + 1 is past D: a padding
-// column) into every CTA's buffer at this CTA's shared address `addr`,
-// completing that CTA's mbarrier `bar`: 4 bytes in bf16, 8 in fp32
-template <typename T>
-__device__ __forceinline__ void seq_send(unsigned addr, unsigned bar,
-                                        float v0, float v1, int C) {
-  for (int r = 0; r < C; ++r) {
-    const unsigned a = seq_map(addr, r), b = seq_map(bar, r);
-    if constexpr (sizeof(T) == 2) {
-      asm volatile(
-          "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], "
-          "%1, [%2];\n" ::"r"(a),
-          "r"(pack_bf16(v0, v1)), "r"(b)
-          : "memory");
-    } else {
-      asm volatile(
-          "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.b32 "
-          "[%0], {%1, %2}, [%3];\n" ::"r"(a),
-          "r"(__float_as_uint(v0)), "r"(__float_as_uint(v1)), "r"(b)
-          : "memory");
-    }
-  }
-}
-
 // ----------------------------------------------------------- the kernels
-// The thread's cells: slot s is cell i = threadIdx.x + 256 s of the
-// cluster's 16 x U, row i / U and unit j0 + i % U. `in`: the slot is one
-// of them (the same for a whole warp, as 16 U is a multiple of 128); `on`:
-// its row is in the batch and its unit in the hidden width.
-struct SeqCells {
-  int r[kSeqSlots], u[kSeqSlots], b[kSeqSlots], j[kSeqSlots],
-      len[kSeqSlots];
-  bool in[kSeqSlots], on[kSeqSlots];
-
-  __device__ __forceinline__ SeqCells(const SeqArgs& a, int row0, int j0) {
-#pragma unroll
-    for (int s = 0; s < kSeqSlots; ++s) {
-      const int i = threadIdx.x + kSeqThreads * s;
-      in[s] = i < kSeqRows * a.U;
-      r[s] = i / a.U;
-      u[s] = i % a.U;
-      b[s] = row0 + r[s];
-      j[s] = j0 + u[s];
-      on[s] = in[s] && b[s] < a.B && j[s] < a.D;
-      len[s] = (on[s] && a.len != nullptr) ? a.len[b[s]] : a.T;
-    }
-  }
-};
-
 template <typename T>
 __global__ void __launch_bounds__(kSeqThreads)
     lstm_seq_fwd_kernel(SeqArgs a) {
@@ -595,52 +476,15 @@ __global__ void __launch_bounds__(kSeqThreads)
     // dh_mm of the 16 rows and warp w's 8 units: dgates [16, 4 Dp] @
     // W[units, :]^T, four partial sums over the depth added in one order
     if (warp < U / 8) {
-      float acc[4][4];
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[c][i] = 0.f;
-      if constexpr (kBf16) {
-        const T* wrow = ws + (warp * 8 + (lane & 7)) * ld + (lane >> 3) * 8;
-#pragma unroll 2
-        for (int kk = 0; kk < kb; kk += 64) {
-          unsigned a0[4], a1[4], a2[4], a3[4], w0[4], w1[4];
-          ldmatrix_x4(a0, a_rows(db, ld, 0, kk, lane));
-          ldmatrix_x4(a1, a_rows(db, ld, 0, kk + 16, lane));
-          ldmatrix_x4(a2, a_rows(db, ld, 0, kk + 32, lane));
-          ldmatrix_x4(a3, a_rows(db, ld, 0, kk + 48, lane));
-          ldmatrix_x4(w0, wrow + kk);
-          ldmatrix_x4(w1, wrow + kk + 32);
-          mma_bf16(acc[0], a0, w0[0], w0[1]);
-          mma_bf16(acc[1], a1, w0[2], w0[3]);
-          mma_bf16(acc[2], a2, w1[0], w1[1]);
-          mma_bf16(acc[3], a3, w1[2], w1[3]);
-        }
-      } else {
-        const float* wl = ws + warp * 8 + 2 * tig;
-#pragma unroll 2
-        for (int kk = 0; kk < kb; kk += 4) {
-          const float4 r0 =
-              *reinterpret_cast<const float4*>(db + gid * ld + kk);
-          const float4 r1 =
-              *reinterpret_cast<const float4*>(db + (gid + 8) * ld + kk);
-          const float d0[4] = {r0.x, r0.y, r0.z, r0.w};
-          const float d1[4] = {r1.x, r1.y, r1.z, r1.w};
-#pragma unroll
-          for (int s = 0; s < 4; ++s) {
-            const float2 wv =
-                *reinterpret_cast<const float2*>(wl + (kk + s) * U);
-            acc[s][0] = fmaf(d0[s], wv.x, acc[s][0]);
-            acc[s][1] = fmaf(d0[s], wv.y, acc[s][1]);
-            acc[s][2] = fmaf(d1[s], wv.x, acc[s][2]);
-            acc[s][3] = fmaf(d1[s], wv.y, acc[s][3]);
-          }
-        }
-      }
+      float acc[4];
+      if constexpr (kBf16)
+        seq_product<4>(acc, db, ld, ws, ld, warp * 8, 0, kb, lane);
+      else
+        seq_product<4>(acc, db, ld, ws, U, warp * 8, 0, kb, lane);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
         mmv[(gid + 8 * (i >> 1)) * U + warp * 8 + 2 * tig + (i & 1)] =
-            round_as<T>((acc[0][i] + acc[1][i]) + (acc[2][i] + acc[3][i]));
+            round_as<T>(acc[i]);
     }
     __syncthreads();
     if (k > 0) {
@@ -662,82 +506,10 @@ __global__ void __launch_bounds__(kSeqThreads)
   cluster.sync();  // no CTA leaves while a peer may still address it
 }
 
-// The design's floor: T steps of the exchange alone, as the forward makes
-// it (its 8 U senders, at most a CTA's threads, each send 4 bytes to every
-// CTA of the cluster, which waits for all of them), at a plan's grid,
-// cluster, block and shared memory.
-__global__ void __launch_bounds__(kSeqThreads)
-    lstm_seq_floor_kernel(int steps, int U) {
-  cg::cluster_group cluster = cg::this_cluster();
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int C = static_cast<int>(cluster.num_blocks());
-  const int senders = min(8 * U, kSeqThreads);
-  const int n = C * senders;  // 4-byte slots a buffer
-  unsigned* slots = reinterpret_cast<unsigned*>(smem + 16);
-  const unsigned bar0 = seq_smem_u32(smem);
-  const unsigned bytes = 4u * n;
-  if (threadIdx.x == 0) {
-    seq_bar_init(bar0);
-    seq_bar_init(bar0 + 8);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    if (steps > 1) seq_bar_arm(bar0 + 8, bytes);
-    if (steps > 2) seq_bar_arm(bar0, bytes);
-  }
-  cluster.sync();
-  const int slot =
-      static_cast<int>(cluster.block_rank()) * senders + threadIdx.x;
-  for (int k = 0; k < steps; ++k) {
-    if (k > 0) {
-      seq_bar_wait(bar0 + 8 * (k & 1), ((k - 1) >> 1) & 1);
-      __syncthreads();
-      if (threadIdx.x == 0 && k + 2 < steps)
-        seq_bar_arm(bar0 + 8 * (k & 1), bytes);
-    }
-    if (k + 1 < steps && static_cast<int>(threadIdx.x) < senders) {
-      const int nb = (k + 1) & 1;
-      const unsigned addr = seq_smem_u32(slots + nb * n + slot);
-      for (int r = 0; r < C; ++r)
-        asm volatile(
-            "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 "
-            "[%0], %1, [%2];\n" ::"r"(seq_map(addr, r)),
-            "r"(static_cast<unsigned>(k)), "r"(seq_map(bar0 + 8 * nb, r))
-            : "memory");
-    }
-  }
-  cluster.sync();
-}
-
-template <typename... Args>
-inline cudaError_t seq_launch(void (*kernel)(Args...), int C, int B,
-                              int smem, cudaStream_t s, Args... args) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(C * ((B + kSeqRows - 1) / kSeqRows));
-  cfg.blockDim = dim3(kSeqThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = s;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = C;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, args...);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
-}
-
 // the plan's geometry as lstm_seq_plan computes it; false where it is not
 // one this file launches
 inline bool seq_plan_ok(int B, int T, int D, int C, int U, int dtype) {
-  if (B < 1 || T < 1 || D < 1 || C < 1 || C > kSeqMaxCluster || U < 8 ||
-      U % 8 != 0 || kSeqRows * U > kSeqSlots * kSeqThreads || C * U < D ||
-      (C - 1) * U >= D)
-    return false;
-  if (dtype != kFloat32 && dtype != kBFloat16) return false;
+  if (!seq_geometry_ok(B, T, D, C, U, dtype)) return false;
   const bool bf16 = dtype == kBFloat16;
   return seq_smem_bytes(D, U, bf16, false) <= kSeqSmemLimit &&
          seq_smem_bytes(D, U, bf16, true) <= kSeqSmemLimit;
@@ -845,16 +617,16 @@ extern "C" int ptt_lstm_seq_bwd(const void* dh_out, const void* dc_out,
                              a));
 }
 
-// T steps of the exchange alone (lstm_seq_floor_kernel) at a plan's
-// launch geometry (the forward's or the backward's shared memory): the
-// floor of T dependent steps.
+// T steps of the exchange alone (seq_floor_kernel, one exchange a step)
+// at a plan's launch geometry (the forward's or the backward's shared
+// memory): the floor of T dependent steps.
 extern "C" int ptt_lstm_seq_floor(int B, int T, int D, int C, int U,
                                   int dtype, int backward, void* stream) {
   if (!ptt::seq_plan_ok(B, T, D, C, U, dtype))
     return static_cast<int>(cudaErrorInvalidValue);
   const int smem =
       ptt::seq_smem_bytes(D, U, dtype == ptt::kBFloat16, backward != 0);
-  return static_cast<int>(ptt::seq_launch(ptt::lstm_seq_floor_kernel, C, B,
+  return static_cast<int>(ptt::seq_launch(ptt::seq_floor_kernel<1>, C, B,
                                           smem,
                                           static_cast<cudaStream_t>(stream),
                                           T, U));

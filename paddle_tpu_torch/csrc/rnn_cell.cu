@@ -1,8 +1,9 @@
 // The LSTM and GRU cells of the recurrent ops, forward and backward: one
 // time step's elementwise work around the recurrent product h_prev @ W,
-// which stays a torch.matmul (the JAX package leaves it to XLA too). The
-// GRU runs on them always; the LSTM where lstm_seq.cu has no launch plan
-// (wider recurrences), the sequence kernels taking the rest.
+// which stays a torch.matmul (the JAX package leaves it to XLA too). Each
+// recurrence runs on them where its sequence kernels (lstm_seq.cu,
+// gru_seq.cu) have no launch plan (wider recurrences), the sequence
+// kernels taking the rest.
 //
 // They replace no Pallas kernel: in paddle_tpu/ops/rnn_ops.py each
 // recurrence is one lax.scan (lstm_scan :31, gru_scan :81 with gru_step
@@ -57,7 +58,7 @@
 // hidden 128) that is 16,384 threads. The fp32 carries of the backward are
 // read and written in place by the thread that owns them.
 
-#include "rnn_math.cuh"  // the step arithmetic, shared with lstm_seq.cu
+#include "rnn_math.cuh"  // the step arithmetic, shared with the sequence kernels
 
 namespace ptt {
 
@@ -170,26 +171,25 @@ __global__ void __launch_bounds__(kRnnThreads) gru_cell_fwd_kernel(
     const int j = static_cast<int>(t % D);
     const float hpv = to_f32(hp[b * hps + j]);
     T* g = gates + b * gs + j;
+    const RnnActs acts{ga, 0, na};
     if (phase == 0) {
-      float y[2];
+      float a[2];
 #pragma unroll
       for (int q = 0; q < 2; ++q)
-        y[q] = round_as<T>(rnn_act(
-            ga, to_f32(x[b * xs + q * D + j]) +
-                    rnn_load_or_zero(bias, q * D + j) +
-                    to_f32(mm[static_cast<long long>(b) * 2 * D + q * D + j])));
-      g[0] = from_f32<T>(y[0]);
-      g[D] = from_f32<T>(y[1]);
-      out[b * os + j] = from_f32<T>(y[1] * hpv);
+        a[q] = to_f32(x[b * xs + q * D + j]) +
+               rnn_load_or_zero(bias, q * D + j) +
+               to_f32(mm[static_cast<long long>(b) * 2 * D + q * D + j]);
+      const GruGates y = gru_step_gates<T>(a[0], a[1], hpv, acts);
+      g[0] = from_f32<T>(y.u);
+      g[D] = from_f32<T>(y.r);
+      out[b * os + j] = from_f32<T>(y.rh);
     } else {
-      const float m = rnn_mask(len, b, pos);
-      const float cv = round_as<T>(
-          rnn_act(na, to_f32(x[b * xs + 2 * D + j]) +
-                          rnn_load_or_zero(bias, 2 * D + j) + to_f32(mm[t])));
-      const float u = to_f32(g[0]);
-      const float hn = u * hpv + (1.f - u) * cv;
-      g[2 * D] = from_f32<T>(cv);
-      out[b * os + j] = from_f32<T>(m * hn + (1.f - m) * hpv);
+      const GruOut o = gru_step_out<T>(
+          to_f32(x[b * xs + 2 * D + j]) + rnn_load_or_zero(bias, 2 * D + j) +
+              to_f32(mm[t]),
+          to_f32(g[0]), hpv, rnn_mask(len, b, pos), acts);
+      g[2 * D] = from_f32<T>(o.c);
+      out[b * os + j] = from_f32<T>(o.h);
     }
   }
 }
@@ -219,19 +219,18 @@ __global__ void __launch_bounds__(kRnnThreads) gru_cell_bwd_kernel(
     const float hpv = to_f32(hp[b * hps + j]);
     const float dmm = rnn_load_or_zero(mm, t);
     T* o = dg + b * dgs + j;
+    const RnnActs acts{ga, 0, na};
     if (phase == 0) {
-      const float m = rnn_mask(len, b, pos);
-      const float u = to_f32(g[0]);
-      const float cv = to_f32(g[2 * D]);
       const float dh = rnn_load_or_zero(dh_out, b * dhs + j) + dmm + dhc[t];
-      const float dhn = m * dh;
-      o[0] = from_f32<T>(dhn * (hpv - cv) * rnn_dact(ga, u));
-      o[2 * D] = from_f32<T>(dhn * (1.f - u) * rnn_dact(na, cv));
-      dhc[t] = (1.f - m) * dh + dhn * u;
+      const GruGrad0 r = gru_step_bwd0(dh, to_f32(g[0]), to_f32(g[2 * D]),
+                                       hpv, rnn_mask(len, b, pos), acts);
+      o[0] = from_f32<T>(r.da_u);
+      o[2 * D] = from_f32<T>(r.da_c);
+      dhc[t] = r.carry;
     } else {
-      const float r = to_f32(g[D]);
-      o[D] = from_f32<T>(dmm * hpv * rnn_dact(ga, r));
-      dhc[t] += dmm * r;
+      const GruGrad1 r = gru_step_bwd1(dmm, to_f32(g[D]), hpv, dhc[t], acts);
+      o[D] = from_f32<T>(r.da_r);
+      dhc[t] = r.carry;
     }
   }
 }

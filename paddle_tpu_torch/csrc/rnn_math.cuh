@@ -1,7 +1,8 @@
-// One LSTM step's arithmetic, forward and backward, shared by the cell
-// kernels (rnn_cell.cu: one launch a position) and the sequence kernels
-// (lstm_seq.cu: one launch a sequence), so both compute the same function.
-// The activation codes and the step semantics are rnn_cell.cu's.
+// One LSTM step's and one GRU step's arithmetic, forward and backward,
+// shared by the cell kernels (rnn_cell.cu: one launch a position) and the
+// sequence kernels (lstm_seq.cu, gru_seq.cu: one launch a sequence), so
+// both compute the same function. The activation codes and the step
+// semantics are rnn_cell.cu's.
 #pragma once
 
 #include "common.cuh"
@@ -52,8 +53,10 @@ struct RnnActsOf {
   __device__ __forceinline__ constexpr int cand() const { return NA; }
 };
 
-// the LSTM's default activations: sigmoid gates, tanh cell and candidate
+// the LSTM's default activations: sigmoid gates, tanh cell and candidate;
+// the GRU's (sigmoid gates, tanh candidate) read the same codes
 using LstmDefaultActs = RnnActsOf<0, 1, 1>;
+using GruDefaultActs = LstmDefaultActs;
 
 // The forward step from the pre-activations a [i, f, g, o] (x + h_prev @ W
 // + bias), the carries and the mask m: the activated gates and the new
@@ -106,6 +109,77 @@ __device__ __forceinline__ LstmGrad lstm_step_bwd(float dh, float dc,
   r.dh_pass = (1.f - m) * dh;
   r.dc_carry = dcn * g[1] + (1.f - m) * dc;
   return r;
+}
+
+// The GRU forward step in two halves around its second product. The first
+// from the pre-activations of u and r ((x + b) + h_prev @ W[:, :2D]) and
+// h_prev: the activated gates and r h_prev, each rounded to T.
+struct GruGates {
+  float u, r, rh;
+};
+
+template <typename T, typename Acts>
+__device__ __forceinline__ GruGates gru_step_gates(float au, float ar,
+                                                   float hpv,
+                                                   const Acts& acts) {
+  GruGates g;
+  g.u = round_as<T>(rnn_act(acts.gate(), au));
+  g.r = round_as<T>(rnn_act(acts.gate(), ar));
+  g.rh = round_as<T>(g.r * hpv);
+  return g;
+}
+
+// The second from the candidate's pre-activation ((x + b) + (r h_prev) @
+// W[:, 2D:]), u, h_prev and the mask m: the candidate rounded to T and h
+// blended by m (in fp32; the caller rounds it where it stores it).
+struct GruOut {
+  float c, h;
+};
+
+template <typename T, typename Acts>
+__device__ __forceinline__ GruOut gru_step_out(float ac, float u, float hpv,
+                                               float m, const Acts& acts) {
+  GruOut o;
+  o.c = round_as<T>(rnn_act(acts.cand(), ac));
+  const float hn = u * hpv + (1.f - u) * o.c;
+  o.h = m * hn + (1.f - m) * hpv;
+  return o;
+}
+
+// The backward's first half: dh the gradient reaching h (the output's,
+// the later step's (da_u, da_r) @ W[:, :2D]^T and the fp32 carry), the
+// saved u and c, h_prev and m: da_u, da_c (the caller rounds them to T)
+// and the carry handed on, (1 - m) dh + m dh u.
+struct GruGrad0 {
+  float da_u, da_c, carry;
+};
+
+template <typename Acts>
+__device__ __forceinline__ GruGrad0 gru_step_bwd0(float dh, float u, float c,
+                                                  float hpv, float m,
+                                                  const Acts& acts) {
+  GruGrad0 g;
+  const float dhn = m * dh;
+  g.da_u = dhn * (hpv - c) * rnn_dact(acts.gate(), u);
+  g.da_c = dhn * (1.f - u) * rnn_dact(acts.cand(), c);
+  g.carry = (1.f - m) * dh + dhn * u;
+  return g;
+}
+
+// Its second half, from drh = da_c @ W[:, 2D:]^T (rounded to T), the
+// saved r, h_prev and the carry: da_r and the carry plus drh r.
+struct GruGrad1 {
+  float da_r, carry;
+};
+
+template <typename Acts>
+__device__ __forceinline__ GruGrad1 gru_step_bwd1(float drh, float r,
+                                                  float hpv, float carry,
+                                                  const Acts& acts) {
+  GruGrad1 g;
+  g.da_r = drh * hpv * rnn_dact(acts.gate(), r);
+  g.carry = carry + drh * r;
+  return g;
 }
 
 inline bool rnn_acts_ok(int a, int b, int c) {

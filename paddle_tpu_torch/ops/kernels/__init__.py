@@ -16,8 +16,8 @@ def launch_counters():
     from .layer_norm import fused_layer_norm
     from .paged_attention import paged_attention
     from .random_bits import fused_dropout, keep_mask
-    from .rnn_cell import gru_cell_bwd, gru_cell_fwd, lstm_cell_bwd, \
-        lstm_cell_fwd, lstm_seq_bwd, lstm_seq_fwd
+    from .rnn_cell import gru_cell_bwd, gru_cell_fwd, gru_seq_bwd, \
+        gru_seq_fwd, lstm_cell_bwd, lstm_cell_fwd, lstm_seq_bwd, lstm_seq_fwd
     from .sparse_rows import sparse_rows
     res = [('layer_norm', fused_layer_norm, 'launches'),
            ('layer_norm_bwd', fused_layer_norm, 'bwd_launches'),
@@ -41,7 +41,9 @@ def launch_counters():
            ('lstm_seq_fwd', lstm_seq_fwd, 'launches'),
            ('lstm_seq_bwd', lstm_seq_bwd, 'launches'),
            ('gru_cell_fwd', gru_cell_fwd, 'launches'),
-           ('gru_cell_bwd', gru_cell_bwd, 'launches')]
+           ('gru_cell_bwd', gru_cell_bwd, 'launches'),
+           ('gru_seq_fwd', gru_seq_fwd, 'launches'),
+           ('gru_seq_bwd', gru_seq_bwd, 'launches')]
     for name, fn in (('flash_attention_fwd', fa.flash_fwd_cuda),
                      ('flash_attention_bwd_dkv', fa.flash_bwd_dkv_cuda),
                      ('flash_attention_bwd_dq', fa.flash_bwd_dq_cuda)):

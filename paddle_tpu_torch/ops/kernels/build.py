@@ -23,8 +23,9 @@ CSRC = os.path.join(_PKG, 'csrc')
 BUILD_DIR = os.path.join(_PKG, '_build')
 SOURCES = ('layer_norm.cu', 'paged_attention.cu', 'flash_attention.cu',
            'batch_norm.cu', 'kv_write.cu', 'random_bits.cu',
-           'sparse_rows.cu', 'rnn_cell.cu', 'lstm_seq.cu')
-HEADERS = ('common.cuh', 'flash_tiles.cuh', 'rnn_math.cuh')
+           'sparse_rows.cu', 'rnn_cell.cu', 'lstm_seq.cu', 'gru_seq.cu')
+HEADERS = ('common.cuh', 'flash_tiles.cuh', 'rnn_math.cuh',
+           'seq_cluster.cuh')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
@@ -196,6 +197,16 @@ def library():
             lib.ptt_lstm_seq_bwd.restype = i
             lib.ptt_lstm_seq_floor.argtypes = [i] * 7 + [p]
             lib.ptt_lstm_seq_floor.restype = i
+            lib.ptt_gru_seq_smem.argtypes = [i, i, i, i]
+            lib.ptt_gru_seq_smem.restype = i
+            lib.ptt_gru_seq_fwd.argtypes = [p, ll, ll, p, p, p, ll, p, p, p,
+                                            p] + [i] * 9 + [p]
+            lib.ptt_gru_seq_fwd.restype = i
+            lib.ptt_gru_seq_bwd.argtypes = [p] * 5 + [ll] + [p] * 4 + \
+                [i] * 9 + [p]
+            lib.ptt_gru_seq_bwd.restype = i
+            lib.ptt_gru_seq_floor.argtypes = [i] * 7 + [p]
+            lib.ptt_gru_seq_floor.restype = i
             _loaded['lib'] = lib
         return lib
 

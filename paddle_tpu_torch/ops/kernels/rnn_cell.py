@@ -1,20 +1,21 @@
-"""The LSTM and GRU cells and the LSTM sequence kernels: the CUDA kernels of
-``csrc/rnn_cell.cu`` and ``csrc/lstm_seq.cu`` beside their plain PyTorch
-versions, and the recurrences built on them.
+"""The LSTM and GRU cells and sequence kernels: the CUDA kernels of
+``csrc/rnn_cell.cu``, ``csrc/lstm_seq.cu`` and ``csrc/gru_seq.cu`` beside
+their plain PyTorch versions, and the recurrences built on them.
 
 The kernels replace no Pallas kernel: the JAX package runs each
 recurrence as one ``lax.scan`` (paddle_tpu/ops/rnn_ops.py ``lstm_scan``,
 ``gru_scan`` with ``gru_step``), which XLA compiles into one loop fusion a
 step around the recurrent product.
 
-``lstm_seq_fwd`` / ``lstm_seq_bwd`` run a whole LSTM recurrence in one
-launch each way (W's slices resident in a thread-block cluster's shared
-memory, h and the gates' gradients exchanged between its CTAs), on every
-shape ``lstm_seq_plan`` finds room for. Wider recurrences take the
-per-position path: a ``torch.mm`` and a cell launch (``lstm_cell_fwd`` /
-``lstm_cell_bwd``) a position each way. The GRU always runs per position
-(``gru_cell_fwd`` / ``gru_cell_bwd``, two launches a step each way, around
-its second product).
+``lstm_seq_fwd`` / ``lstm_seq_bwd`` and ``gru_seq_fwd`` / ``gru_seq_bwd``
+run a whole recurrence in one launch each way (W's slices resident in a
+thread-block cluster's shared memory, h and the gates' gradients exchanged
+between its CTAs; the GRU's second product, (r * h_prev) @ W_c, inside the
+cluster too), on every shape ``lstm_seq_plan`` / ``gru_seq_plan`` finds
+room for. Wider recurrences take the per-position path: a ``torch.mm`` and
+a cell launch (``lstm_cell_fwd`` / ``lstm_cell_bwd``) a position each way,
+for the GRU two of each (``gru_cell_fwd`` / ``gru_cell_bwd``, around its
+second product).
 
 Every wrapper launches its kernel for CUDA tensors (and counts it in
 ``.launches``) and takes its plain version (``*_reference``) for CPU
@@ -296,6 +297,33 @@ def lstm_cell_bwd(dh_out, dc_out, dh_mm, dh_pass, dc_carry, gates, c, cp,
     lstm_cell_bwd.launches += 1
 
 
+def _gru_cell_fwd_plain(phase, x, bias, mm, hp, length, pos, gates, out,
+                        acts):
+    b, d = hp.shape
+    m = step_mask(length, pos, b, x.device)
+    first, second = gru_cell_reference(phase, x, bias, mm, hp, gates, m, acts,
+                                       x.dtype)
+    if phase == 0:
+        gates[:, :2 * d].copy_(first)
+    else:
+        gates[:, 2 * d:].copy_(first)
+    out.copy_(second)
+
+
+def _gru_cell_bwd_plain(phase, dh_out, mm, dhc, gates, hp, length, pos, dg,
+                        acts):
+    b, d = hp.shape
+    m = step_mask(length, pos, b, hp.device)
+    da, carry = gru_cell_reference_bwd(phase, dh_out, mm, dhc, gates, hp, m,
+                                       acts, hp.dtype)
+    if phase == 0:
+        dg[:, :d].copy_(da[0])
+        dg[:, 2 * d:].copy_(da[1])
+    else:
+        dg[:, d:2 * d].copy_(da)
+    dhc.copy_(carry)
+
+
 def gru_cell_fwd(phase, x, bias, mm, hp, length, pos, gates, out, acts):
     """One GRU step's phase at ``pos``. Phase 0: mm = hp @ W[:, :2D]
     ([B, 2D]); writes u, r into gates and r * hp into out. Phase 1: mm =
@@ -304,14 +332,8 @@ def gru_cell_fwd(phase, x, bias, mm, hp, length, pos, gates, out, acts):
     (gate, candidate) codes."""
     b, d = hp.shape
     if x.device.type == 'cpu':
-        m = step_mask(length, pos, b, x.device)
-        first, second = gru_cell_reference(phase, x, bias, mm, hp, gates, m,
-                                           acts, x.dtype)
-        if phase == 0:
-            gates[:, :2 * d].copy_(first)
-        else:
-            gates[:, 2 * d:].copy_(first)
-        out.copy_(second)
+        _gru_cell_fwd_plain(phase, x, bias, mm, hp, length, pos, gates, out,
+                            acts)
         return
     _check('gru_cell', x.dtype, x.device, b,
            [('x', x), ('mm', mm), ('hp', hp), ('gates', gates),
@@ -341,15 +363,8 @@ def gru_cell_bwd(phase, dh_out, mm, dhc, gates, hp, length, pos, dg, acts):
     gradient at pos (phase 0; None: zero); mm None: zero."""
     b, d = hp.shape
     if hp.device.type == 'cpu':
-        m = step_mask(length, pos, b, hp.device)
-        da, carry = gru_cell_reference_bwd(phase, dh_out, mm, dhc, gates, hp,
-                                           m, acts, hp.dtype)
-        if phase == 0:
-            dg[:, :d].copy_(da[0])
-            dg[:, 2 * d:].copy_(da[1])
-        else:
-            dg[:, d:2 * d].copy_(da)
-        dhc.copy_(carry)
+        _gru_cell_bwd_plain(phase, dh_out, mm, dhc, gates, hp, length, pos,
+                            dg, acts)
         return
     _check('gru_cell_bwd', hp.dtype, hp.device, b,
            [('dh_out', dh_out), ('mm', mm), ('gates', gates), ('hp', hp),
@@ -456,6 +471,76 @@ def lstm_seq_bwd_reference(dhidden, dcell, w, gates, cell, c0, length, acts,
                               acts, reverse, plain=True)
 
 
+def gru_positions_fwd(x, w, bias, h0, length, acts, reverse, plain=False):
+    """The GRU forward a position at a time: ``torch.mm(hp, w[:, :2D])``,
+    the cell's phase 0, ``torch.mm(r * hp, w[:, 2D:])``, its phase 1, T
+    times. ``plain``: the plain cell (``gru_cell_reference``), else
+    ``gru_cell_fwd`` (its kernel on a CUDA tensor). Returns (hidden, gates,
+    rh) [B, T, D], [B, T, 3D], [B, T, D] in x's dtype."""
+    b, t, d3 = x.shape
+    d = d3 // 3
+    step = _gru_cell_fwd_plain if plain else gru_cell_fwd
+    hidden = x.new_empty((b, t, d))
+    gates = x.new_empty((b, t, d3))
+    rh = x.new_empty((b, t, d))
+    w_ur, w_c = w[:, :2 * d], w[:, 2 * d:]
+    mm_ur = x.new_empty((b, 2 * d))
+    mm_c = x.new_empty((b, d))
+    hp = h0
+    for p in positions(t, reverse):
+        torch.mm(hp, w_ur, out=mm_ur)
+        step(0, x[:, p], bias, mm_ur, hp, length, p, gates[:, p], rh[:, p],
+             acts)
+        torch.mm(rh[:, p], w_c, out=mm_c)
+        step(1, x[:, p], bias, mm_c, hp, length, p, gates[:, p],
+             hidden[:, p], acts)
+        hp = hidden[:, p]
+    return hidden, gates, rh
+
+
+def gru_positions_bwd(dhidden, w, gates, hidden, h0, length, acts, reverse,
+                      plain=False):
+    """The GRU backward a position at a time, in reverse order: the cell's
+    phase 0, ``drh = torch.mm(da_c, w[:, 2D:].t())``, its phase 1, then
+    ``g1 = torch.mm((da_u, da_r), w[:, :2D].t())`` for the earlier
+    position. dhidden [B, T, D] or None (zero); gates and hidden the
+    forward's. Returns (dx [B, T, 3D], dh0) in the dtype, dh0 = the first
+    position's g1 + the fp32 carry."""
+    b, t, d = hidden.shape
+    step = _gru_cell_bwd_plain if plain else gru_cell_bwd
+    dx = torch.empty_like(gates)
+    dhc = torch.zeros((b, d), dtype=torch.float32, device=hidden.device)
+    order = positions(t, reverse)
+    wt_ur, wt_c = w[:, :2 * d].t(), w[:, 2 * d:].t()
+    drh = hidden.new_empty((b, d))
+    buf = hidden.new_empty((b, d))
+    g1 = None
+    for k in range(t - 1, -1, -1):
+        p = order[k]
+        hp = h0 if k == 0 else hidden[:, order[k - 1]]
+        step(0, None if dhidden is None else dhidden[:, p], g1, dhc,
+             gates[:, p], hp, length, p, dx[:, p], acts)
+        torch.mm(dx[:, p, 2 * d:], wt_c, out=drh)
+        step(1, None, drh, dhc, gates[:, p], hp, length, p, dx[:, p], acts)
+        torch.mm(dx[:, p, :2 * d], wt_ur, out=buf)
+        g1 = buf
+    dh0 = dhc if g1 is None else g1.float() + dhc
+    return dx, dh0.to(hidden.dtype)
+
+
+def gru_seq_fwd_reference(x, w, bias, h0, length, acts, reverse):
+    """``gru_seq_fwd``'s plain version: the positions with plain cells."""
+    return gru_positions_fwd(x, w, bias, h0, length, acts, reverse,
+                             plain=True)
+
+
+def gru_seq_bwd_reference(dhidden, w, gates, hidden, h0, length, acts,
+                          reverse):
+    """``gru_seq_bwd``'s plain version: the positions with plain cells."""
+    return gru_positions_bwd(dhidden, w, gates, hidden, h0, length, acts,
+                             reverse, plain=True)
+
+
 SEQ_ROWS = 16             # batch rows a cluster (an mma's m16)
 SEQ_THREADS = 256         # a CTA
 SEQ_MAX_UNITS = 64        # a CTA's cells, 16 x units, 4 a thread at most
@@ -467,8 +552,27 @@ def _up(v, m):
     return -(-v // m) * m
 
 
+def _seq_plan(batch, d, dtype, smem):
+    """A sequence kernel's launch for hidden ``d`` in ``dtype``, or None:
+    C <= 8 CTAs of ``units`` (a multiple of 8, at most 64) cover d;
+    ``smem(units, bf16)`` gives the forward's and backward's shared memory
+    bytes a CTA, which must fit 227 KB."""
+    if d < 1 or dtype not in (torch.float32, torch.bfloat16):
+        return None
+    units = _up(-(-d // SEQ_MAX_CLUSTER), 8)
+    if units > SEQ_MAX_UNITS:
+        return None
+    fwd, bwd = smem(units, dtype == torch.bfloat16)
+    if max(fwd, bwd) > SEQ_SMEM_LIMIT:
+        return None
+    cluster = -(-d // units)
+    return dict(rows=SEQ_ROWS, cluster=cluster, units=units,
+                threads=SEQ_THREADS, smem_fwd=fwd, smem_bwd=bwd,
+                grid=cluster * -(-batch // SEQ_ROWS))
+
+
 def lstm_seq_plan(batch, d, dtype):
-    """The sequence kernels' launch for a [batch, T, 4d] recurrence in
+    """The LSTM sequence kernels' launch for a [batch, T, 4d] recurrence in
     ``dtype``, or None where W's slices do not fit a cluster's shared memory
     (or the dtype is neither float32 nor bfloat16): {'rows', 'cluster',
     'units', 'threads', 'smem_fwd', 'smem_bwd', 'grid'}. A cluster of
@@ -481,30 +585,43 @@ def lstm_seq_plan(batch, d, dtype):
     rounded up to an even width); bf16 rows padded by 8 elements, fp32 by
     4; the product staged in fp32 for the cells ([16, 4 units] forward,
     [16, units] backward); the buffers' two mbarriers."""
-    if d < 1 or dtype not in (torch.float32, torch.bfloat16):
-        return None
-    units = _up(-(-d // SEQ_MAX_CLUSTER), 8)
-    if units > SEQ_MAX_UNITS:
-        return None
-    cluster = -(-d // units)
-    kf, kb = _up(d, 16), _up(4 * _up(d, 2), 64)
-    stage_fwd, stage_bwd = 4 * SEQ_ROWS * 4 * units, 4 * SEQ_ROWS * units
-    if dtype == torch.bfloat16:
-        fwd = (4 * units + 2 * SEQ_ROWS) * (kf + 8) * 2
-        bwd = (units + 2 * SEQ_ROWS) * (kb + 8) * 2
-    else:
-        fwd = (kf * 4 * units + 2 * SEQ_ROWS * (kf + 4)) * 4
-        bwd = (kb * units + 2 * SEQ_ROWS * (kb + 4)) * 4
-    fwd, bwd = fwd + stage_fwd + 16, bwd + stage_bwd + 16
-    if max(fwd, bwd) > SEQ_SMEM_LIMIT:
-        return None
-    return dict(rows=SEQ_ROWS, cluster=cluster, units=units,
-                threads=SEQ_THREADS, smem_fwd=fwd, smem_bwd=bwd,
-                grid=cluster * -(-batch // SEQ_ROWS))
+    def smem(units, bf16):
+        kf, kb = _up(d, 16), _up(4 * _up(d, 2), 64)
+        if bf16:
+            fwd = (4 * units + 2 * SEQ_ROWS) * (kf + 8) * 2
+            bwd = (units + 2 * SEQ_ROWS) * (kb + 8) * 2
+        else:
+            fwd = (kf * 4 * units + 2 * SEQ_ROWS * (kf + 4)) * 4
+            bwd = (kb * units + 2 * SEQ_ROWS * (kb + 4)) * 4
+        return (fwd + 4 * SEQ_ROWS * 4 * units + 16,
+                bwd + 4 * SEQ_ROWS * units + 16)
+    return _seq_plan(batch, d, dtype, smem)
 
 
-def _seq_plan(what, dtype, b, d):
-    plan = lstm_seq_plan(b, d, dtype)
+def gru_seq_plan(batch, d, dtype):
+    """The GRU sequence kernels' launch for a [batch, T, 3d] recurrence in
+    ``dtype``, or None, as ``lstm_seq_plan`` (the same geometry). The bytes
+    are csrc/gru_seq.cu's layout, each gate block d rounded up to 16:
+    forward W's u, r and c columns of the CTA's units and four buffers
+    [16, d] (h and r * h_prev, each double-buffered); backward W's rows of
+    its units and two buffers [16, 3d] (da_u, da_r, da_c); bf16 rows padded
+    by 8 elements, fp32 by 4; the products staged in fp32 ([16, 2 units]
+    forward, [16, units] backward); four mbarriers."""
+    def smem(units, bf16):
+        dk = _up(d, 16)
+        if bf16:
+            fwd = (3 * units + 4 * SEQ_ROWS) * (dk + 8) * 2
+            bwd = (units + 2 * SEQ_ROWS) * (3 * dk + 8) * 2
+        else:
+            fwd = (dk * 3 * units + 4 * SEQ_ROWS * (dk + 4)) * 4
+            bwd = (3 * dk * units + 2 * SEQ_ROWS * (3 * dk + 4)) * 4
+        return (fwd + 4 * SEQ_ROWS * 2 * units + 32,
+                bwd + 4 * SEQ_ROWS * units + 32)
+    return _seq_plan(batch, d, dtype, smem)
+
+
+def _need_plan(what, plan_of, dtype, b, d):
+    plan = plan_of(b, d, dtype)
     if plan is None:
         raise ValueError('%s kernel: no launch plan for hidden %d in %s (W\'s '
                          'slices exceed a cluster\'s shared memory); the '
@@ -537,7 +654,7 @@ def lstm_seq_fwd(x, w, bias, h0, c0, length, acts, reverse):
     d = d4 // 4
     _check('lstm_seq', x.dtype, x.device, b, [('x', x), ('h0', h0),
                                                ('c0', c0)])
-    plan = _seq_plan('lstm_seq', x.dtype, b, d)
+    plan = _need_plan('lstm_seq', lstm_seq_plan, x.dtype, b, d)
     _contiguous('lstm_seq', x.dtype, x.device,
                 [('w', w, (d, d4)), ('bias', bias, (d4,))])
     length = _lengths(length, x.device, b)
@@ -573,7 +690,7 @@ def lstm_seq_bwd(dhidden, dcell, w, gates, cell, c0, length, acts, reverse):
     b, t, d = cell.shape
     dt, dev = cell.dtype, cell.device
     _check('lstm_seq_bwd', dt, dev, b, [('c0', c0)])
-    plan = _seq_plan('lstm_seq_bwd', dt, b, d)
+    plan = _need_plan('lstm_seq_bwd', lstm_seq_plan, dt, b, d)
     _contiguous('lstm_seq_bwd', dt, dev,
                 [('dhidden', dhidden, (b, t, d)), ('dcell', dcell, (b, t, d)),
                  ('w', w, (d, 4 * d)), ('gates', gates, (b, t, 4 * d)),
@@ -606,11 +723,87 @@ lstm_seq_fwd.launches = 0
 lstm_seq_bwd.launches = 0
 
 
-def _per_position(h0):
+def gru_seq_fwd(x, w, bias, h0, length, acts, reverse):
+    """The whole GRU forward in one launch: x [B, T, 3D] (projected, last
+    dim contiguous), w [D, 3D], bias [3D] or None, h0 [B, D], length int32
+    [B] or None, acts the (gate, candidate) codes, reverse. Returns
+    (hidden, gates, rh) as ``gru_seq_fwd_reference``. A CUDA tensor needs
+    ``gru_seq_plan``'s launch, else this raises."""
+    if x.device.type == 'cpu':
+        return gru_seq_fwd_reference(x, w, bias, h0, length, acts, reverse)
+    b, t, d3 = x.shape
+    d = d3 // 3
+    _check('gru_seq', x.dtype, x.device, b, [('x', x), ('h0', h0)])
+    plan = _need_plan('gru_seq', gru_seq_plan, x.dtype, b, d)
+    _contiguous('gru_seq', x.dtype, x.device,
+                [('w', w, (d, d3)), ('bias', bias, (d3,))])
+    length = _lengths(length, x.device, b)
+    hidden = x.new_empty((b, t, d))
+    gates = x.new_empty((b, t, d3))
+    rh = x.new_empty((b, t, d))
+    if b == 0 or t == 0:
+        return hidden, gates, rh
+    lib = build.library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.ptt_gru_seq_fwd(
+            x.data_ptr(), x.stride(0), x.stride(1), w.data_ptr(), _ptr(bias),
+            h0.data_ptr(), h0.stride(0), _ptr(length), hidden.data_ptr(),
+            gates.data_ptr(), rh.data_ptr(), b, t, d, plan['cluster'],
+            plan['units'], int(bool(reverse)), build.dtype_code(x.dtype),
+            *acts, stream)
+    build.check(rc, 'ptt_gru_seq_fwd')
+    gru_seq_fwd.launches += 1
+    return hidden, gates, rh
+
+
+def gru_seq_bwd(dhidden, w, gates, hidden, h0, length, acts, reverse):
+    """The whole GRU backward in one launch, positions in reverse order:
+    dhidden [B, T, D] or None (zero), w [D, 3D], gates [B, T, 3D] and
+    hidden [B, T, D] the forward's, h0 [B, D]. Returns (dx [B, T, 3D],
+    dh0) as ``gru_seq_bwd_reference``; dh0 is the kernel's g1 of the first
+    position plus its fp32 carry, as there. A CUDA tensor needs
+    ``gru_seq_plan``'s launch, else this raises."""
+    if hidden.device.type == 'cpu':
+        return gru_seq_bwd_reference(dhidden, w, gates, hidden, h0, length,
+                                     acts, reverse)
+    b, t, d = hidden.shape
+    dt, dev = hidden.dtype, hidden.device
+    _check('gru_seq_bwd', dt, dev, b, [('h0', h0)])
+    plan = _need_plan('gru_seq_bwd', gru_seq_plan, dt, b, d)
+    _contiguous('gru_seq_bwd', dt, dev,
+                [('dhidden', dhidden, (b, t, d)), ('w', w, (d, 3 * d)),
+                 ('gates', gates, (b, t, 3 * d)),
+                 ('hidden', hidden, (b, t, d))])
+    length = _lengths(length, dev, b)
+    dx = torch.empty_like(gates)
+    dh_mm = hidden.new_zeros((b, d))
+    dhc = torch.zeros((b, d), dtype=torch.float32, device=dev)
+    if b == 0 or t == 0:
+        return dx, dhc.to(dt)
+    lib = build.library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.ptt_gru_seq_bwd(
+            _ptr(dhidden), w.data_ptr(), gates.data_ptr(), hidden.data_ptr(),
+            h0.data_ptr(), h0.stride(0), _ptr(length), dx.data_ptr(),
+            dh_mm.data_ptr(), dhc.data_ptr(), b, t, d, plan['cluster'],
+            plan['units'], int(bool(reverse)), build.dtype_code(dt), *acts,
+            stream)
+    build.check(rc, 'ptt_gru_seq_bwd')
+    gru_seq_bwd.launches += 1
+    return dx, (dh_mm.float() + dhc).to(dt)
+
+
+gru_seq_fwd.launches = 0
+gru_seq_bwd.launches = 0
+
+
+def _per_position(h0, plan_of):
     """True where a CUDA recurrence (h0 its [B, D] carry) has no
-    sequence-kernel plan."""
+    sequence-kernel plan (``plan_of``: lstm_seq_plan or gru_seq_plan)."""
     return h0.device.type != 'cpu' and \
-        lstm_seq_plan(h0.shape[0], h0.shape[1], h0.dtype) is None
+        plan_of(h0.shape[0], h0.shape[1], h0.dtype) is None
 
 
 class LstmRecurrence(torch.autograd.Function):
@@ -624,7 +817,7 @@ class LstmRecurrence(torch.autograd.Function):
     def forward(ctx, x, w, bias, h0, c0, length, acts, reverse):
         w = w.contiguous()
         args = (x, w, bias, h0, c0, length, acts, reverse)
-        if _per_position(h0):
+        if _per_position(h0, lstm_seq_plan):
             hidden, cell, gates = lstm_positions_fwd(*args)
         else:
             hidden, cell, gates = lstm_seq_fwd(*args)
@@ -640,7 +833,7 @@ class LstmRecurrence(torch.autograd.Function):
         dcell = None if dcell is None else dcell.contiguous()
         args = (dhidden, dcell, w, gates, cell, c0, length, ctx.acts,
                 ctx.reverse)
-        if _per_position(h0):
+        if _per_position(h0, lstm_seq_plan):
             dx, dh0, dc0 = lstm_positions_bwd(*args)
         else:
             dx, dh0, dc0 = lstm_seq_bwd(*args)
@@ -657,27 +850,18 @@ class LstmRecurrence(torch.autograd.Function):
 class GruRecurrence(torch.autograd.Function):
     """hidden [B, T, D] of a GRU over x [B, T, 3D] (projected), w [D, 3D],
     bias [3D] or None, h0 [B, D], length int32 [B] or None; every float
-    tensor in one dtype. ``acts``: the (gate, candidate) codes."""
+    tensor in one dtype. ``acts``: the (gate, candidate) codes. On the card
+    the sequence kernels run it where ``gru_seq_plan`` has a launch, else
+    the per-position path."""
 
     @staticmethod
     def forward(ctx, x, w, bias, h0, length, acts, reverse):
-        b, t, d3 = x.shape
-        d = d3 // 3
-        hidden = x.new_empty((b, t, d))
-        gates = x.new_empty((b, t, d3))
-        rh = x.new_empty((b, t, d))
-        w_ur, w_c = w[:, :2 * d], w[:, 2 * d:]
-        mm_ur = x.new_empty((b, 2 * d))
-        mm_c = x.new_empty((b, d))
-        hp = h0
-        for p in positions(t, reverse):
-            torch.mm(hp, w_ur, out=mm_ur)
-            gru_cell_fwd(0, x[:, p], bias, mm_ur, hp, length, p, gates[:, p],
-                         rh[:, p], acts)
-            torch.mm(rh[:, p], w_c, out=mm_c)
-            gru_cell_fwd(1, x[:, p], bias, mm_c, hp, length, p, gates[:, p],
-                         hidden[:, p], acts)
-            hp = hidden[:, p]
+        w = w.contiguous()
+        args = (x, w, bias, h0, length, acts, reverse)
+        if _per_position(h0, gru_seq_plan):
+            hidden, gates, rh = gru_positions_fwd(*args)
+        else:
+            hidden, gates, rh = gru_seq_fwd(*args)
         ctx.save_for_backward(w, h0, hidden, gates, rh, length)
         ctx.acts, ctx.reverse, ctx.has_bias = acts, reverse, bias is not None
         return hidden
@@ -686,24 +870,12 @@ class GruRecurrence(torch.autograd.Function):
     def backward(ctx, dhidden):
         w, h0, hidden, gates, rh, length = ctx.saved_tensors
         b, t, d = hidden.shape
-        dx = torch.empty_like(gates)
-        dhc = torch.zeros((b, d), dtype=torch.float32, device=hidden.device)
         dhidden = None if dhidden is None else dhidden.contiguous()
-        order = positions(t, ctx.reverse)
-        wt_ur, wt_c = w[:, :2 * d].t(), w[:, 2 * d:].t()
-        drh = hidden.new_empty((b, d))
-        buf = hidden.new_empty((b, d))
-        g1 = None
-        for k in range(t - 1, -1, -1):
-            p = order[k]
-            hp = h0 if k == 0 else hidden[:, order[k - 1]]
-            gru_cell_bwd(0, None if dhidden is None else dhidden[:, p], g1,
-                         dhc, gates[:, p], hp, length, p, dx[:, p], ctx.acts)
-            torch.mm(dx[:, p, 2 * d:], wt_c, out=drh)
-            gru_cell_bwd(1, None, drh, dhc, gates[:, p], hp, length, p,
-                         dx[:, p], ctx.acts)
-            torch.mm(dx[:, p, :2 * d], wt_ur, out=buf)
-            g1 = buf
+        args = (dhidden, w, gates, hidden, h0, length, ctx.acts, ctx.reverse)
+        if _per_position(h0, gru_seq_plan):
+            dx, dh0 = gru_positions_bwd(*args)
+        else:
+            dx, dh0 = gru_seq_bwd(*args)
         need = ctx.needs_input_grad
         dw = dbias = None
         if need[1]:
@@ -714,5 +886,4 @@ class GruRecurrence(torch.autograd.Function):
                            1)
         if ctx.has_bias and need[2]:
             dbias = dx.sum((0, 1))
-        dh0 = dhc if g1 is None else g1.float() + dhc
-        return dx, dw, dbias, dh0.to(h0.dtype), None, None, None
+        return dx, dw, dbias, dh0, None, None, None

@@ -22,7 +22,8 @@ import pytest
 import torch
 
 import paddle_tpu_torch as pt
-from chip_smoke import (LAYERS_EDGE, LAYERS_FAULTS, RNN_SEQ_CASES, ordinary,
+from chip_smoke import (GRU_SEQ_CASES, LAYERS_EDGE, LAYERS_FAULTS,
+                        RNN_SEQ_CASES, ordinary,
                         parity_difference)
 from paddle_tpu_torch.ops.kernels import batch_norm as tbn
 from paddle_tpu_torch.ops.kernels import flash_attention as tfa
@@ -2698,35 +2699,50 @@ def test_lstm_seq_kernel_matches_plain(cuda, direction, dtype, case):
     per-position loop with plain cells) on the same card tensors
     (chip_smoke.py's RNN_SEQ_TOL), a second run bit for bit, one launch
     counted a call."""
-    from chip_smoke import _lstm_seq_case
-    _lstm_seq_case(torch, 'card test', direction, dtype, case)
+    from chip_smoke import _rnn_seq_case
+    _rnn_seq_case(torch, 'card test', 'lstm', direction, dtype, case)
+
+
+@pytest.mark.parametrize('case', sorted(GRU_SEQ_CASES))
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['fp32', 'bf16'])
+@pytest.mark.parametrize('direction', ['fwd', 'bwd'])
+def test_gru_seq_kernel_matches_plain(cuda, direction, dtype, case):
+    """Each GRU sequence kernel against its plain version (the
+    per-position loop of two torch.mm and plain cells) on the same card
+    tensors (chip_smoke.py's RNN_SEQ_TOL), a second run bit for bit, one
+    launch counted a call."""
+    from chip_smoke import _rnn_seq_case
+    _rnn_seq_case(torch, 'card test', 'gru', direction, dtype, case)
 
 
 @pytest.mark.parametrize('reverse', [False, True], ids=['forward', 'reverse'])
-@pytest.mark.parametrize('kind', ['lstm', 'gru', 'lstm_no_plan'])
+@pytest.mark.parametrize('kind', ['lstm', 'gru', 'lstm_no_plan',
+                                  'gru_no_plan'])
 def test_rnn_recurrence_on_card_equals_host(cuda, kind, reverse):
     """The whole recurrence through the kernels against the plain cells on
     the host, forward and every gradient, fp32, ragged lengths with 0 and
-    T: within 1e-5 of each array's largest magnitude. The LSTM at hidden 32
-    runs the sequence kernels; at hidden 256 (lstm_no_plan), where fp32
-    has no plan, the cells, a launch each way a position."""
-    from chip_smoke import _recurrence_places, read_launches
-    from paddle_tpu_torch.ops.kernels.rnn_cell import lstm_seq_plan
-    acts = (0, 1) if kind == 'gru' else (0, 1, 1)
-    width = 256 if kind == 'lstm_no_plan' else 32
+    T: within 1e-5 of each array's largest magnitude. At hidden 32 each
+    kind runs its sequence kernels, one launch each way; where fp32 has no
+    plan (the LSTM at hidden 256, the GRU at 512) the cells, a launch (the
+    GRU: two) each way a position."""
+    from chip_smoke import (_recurrence_places, read_launches,
+                            recurrence_want, rnn_want)
+    from paddle_tpu_torch.ops.kernels.rnn_cell import (gru_seq_plan,
+                                                       lstm_seq_plan)
+    base = kind.split('_')[0]
+    acts = (0, 1) if base == 'gru' else (0, 1, 1)
+    width = {'lstm_no_plan': 256, 'gru_no_plan': 512}.get(kind, 32)
     before = read_launches()
-    rel = _recurrence_places(torch, kind[:4], 8, 24, width,
+    rel = _recurrence_places(torch, base, 8, 24, width,
                              np.array([24, 0, 11, 1, 24, 9, 3, 20]), reverse,
                              acts, 3)
     assert rel <= 1e-5
-    moved = {k: read_launches()[k] - before[k] for k in (
-        'lstm_seq_fwd', 'lstm_seq_bwd', 'lstm_cell_fwd', 'lstm_cell_bwd')}
-    if kind != 'gru':
-        seq = lstm_seq_plan(8, width, torch.float32) is not None
-        assert seq == (kind == 'lstm')
-        assert moved == dict(lstm_seq_fwd=int(seq), lstm_seq_bwd=int(seq),
-                             lstm_cell_fwd=0 if seq else 24,
-                             lstm_cell_bwd=0 if seq else 24)
+    moved = {k: read_launches()[k] - before[k] for k in rnn_want()}
+    plan_of = lstm_seq_plan if base == 'lstm' else gru_seq_plan
+    seq = plan_of(8, width, torch.float32) is not None
+    assert seq == (not kind.endswith('no_plan'))
+    assert moved == recurrence_want(torch, base, 8, 24, width)
 
 
 def test_rnn_lstm_step_is_captured_with_its_cell_launches(cuda):
