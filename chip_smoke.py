@@ -7,10 +7,11 @@ with row-sparse embedding gradients, the public layers (an encoder
 layer built from them, every new and repaired op), the staging ring,
 the Switch-MoE LM, remat and gradient accumulation, and the recurrent
 and sequence path (bench_rnn_lstm, the LSTM sequence kernels, the LSTM
-and GRU cell kernels, the sequence models) on one CUDA card.
+and GRU cell kernels, the sequence models), and control flow with the
+RNN-search seq2seq and SSD on one CUDA card.
 
     python3 chip_smoke.py                  # on a machine with one H100
-    python3 chip_smoke.py --cpu-rehearsal  # phases 4-19 on the host, tiny
+    python3 chip_smoke.py --cpu-rehearsal  # phases 4-20 on the host, tiny
 
 Every path runs through the executor's CUDA graphs (one a key, captured on
 its second call; core/executor.py), and phase 11 holds each against the
@@ -373,14 +374,38 @@ Phases (any fault exits non-zero; no phase is skipped over):
    another function). (d) the 22 op types of
    the slice in one captured program (B 16, T 24, lengths 0-24), fp32
    and bf16 AMP, card against host (exact, or recurrence_difference).
+20. Control flow, the RNN-search seq2seq and SSD. (a) models/rnn_search
+   at the v1 seqToseq demo's widths (word vectors, encoder and decoder
+   512, dictionaries of 30,000), batch 64 x 50 source and target tokens
+   (source lengths 20-50), Adam, fp32: 3 warm-up and 10 timed captured
+   steps (wall and device-busy ms a step, device kernels a step), the
+   encoder's GRU at hidden 512 on the cell kernels (no sequence plan):
+   exactly 2 x 100 launches each way a step; the 13 losses equal an
+   eager run's from the same start bit for bit; then 2 + 5 bf16 AMP
+   steps likewise; then greedy and beam-4 decoding of the batch at 50
+   positions from the trained scope, ms a batch captured, ids equal the
+   eager run's. (b) at hidden 128, vocab 1,000, batch 16 x 20: 3 Adam
+   steps card against host (rtol 1e-4), the encoder on the GRU sequence
+   kernels (one launch each way a direction and step), greedy ids equal.
+   (c) a While countdown over a tensor array (eager: host-bound), an
+   IfElse and a StaticRNN (captured), each card against host exactly.
+   (d) models/ssd at its defaults (3 x 128 x 128, 21 classes, max_gt 8),
+   batch 32, Adam, fp32: 3 warm-up and 10 timed captured steps with
+   exactly 5 K5 forward and 5 backward launches a step, then ssd_infer's
+   detection_output captured against eager; at 3 x 64 x 64, 4 classes,
+   batch 2: 3 steps card against host (rtol 1e-4), then the detections
+   (labels exact, scores and boxes within 1e-5). (e) generation_decode on
+   the v1 seq2seq of tests/fixtures/generation_decode_v1.json, beam 4,
+   captured on the card, ids equal the host's.
 
 The last line is {"ok": true, "device": {...}}; before it come one JSON
 line with every kernel's numbers (and phase 13's under "lifecycle":
 tokens/s a depth, launches a step, checkpoint bytes, save, restore and
 export seconds; phase 14's under "disagg"; phase 15's under "ctr";
 phase 16's under "layers"; phase 17's under "staging"; phase 18's under
-"moe"; phase 19's under "rnn") and nvidia-smi's name and power limit.
---cpu-rehearsal runs phases 4-19 at tiny sizes with the plain versions
+"moe"; phase 19's under "rnn"; phase 20's under "control_flow") and
+nvidia-smi's name and power limit.
+--cpu-rehearsal runs phases 4-20 at tiny sizes with the plain versions
 (phases 8, 10, 11, 13d and 15 then compare the host with itself) and
 never prints that last line. --profile adds, after every other phase, a torch.profiler
 breakdown of decode steps (fp32 and int8 arenas, captured and eager),
@@ -5739,8 +5764,8 @@ def phase_staging_trainer(torch, pt, place, card, on_card, batch, seq,
 def _busy_ms(torch, run, steps):
     """Under torch.profiler, ``run()`` (``steps`` steps): the device busy
     ms a step (its kernels' and copies' summed durations), the host's ms
-    a step inside cudaGraphLaunch, and the host-to-device and
-    device-to-host copies a step."""
+    a step inside cudaGraphLaunch, the host-to-device and device-to-host
+    copies a step, and the device kernels a step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -5753,8 +5778,10 @@ def _busy_ms(torch, run, steps):
                  if a.key.startswith('cudaGraphLaunch'))
     h2d = sum(1 for e in device if e.name.startswith('Memcpy HtoD'))
     d2h = sum(1 for e in device if e.name.startswith('Memcpy DtoH'))
+    kernels = sum(1 for e in device if not e.name.startswith('Memcpy') and
+                  not e.name.startswith('Memset'))
     return (busy / steps / 1e3, launch / steps / 1e3, h2d / float(steps),
-            d2h / float(steps))
+            d2h / float(steps), kernels / float(steps))
 
 
 def phase_staging_ctr(torch, pt, card, on_card, slots=CTR_SLOTS,
@@ -5853,7 +5880,7 @@ def phase_staging_ctr(torch, pt, card, on_card, slots=CTR_SLOTS,
         if on_card:
             for leg, run in legs:
                 from_snapshot()
-                busy, launch, h2d, d2h = _busy_ms(torch, run, steps)
+                busy, launch, h2d, d2h, _ = _busy_ms(torch, run, steps)
                 numbers[leg].update(busy_ms=busy, graph_launch_ms=launch,
                                     h2d_per_step=h2d, d2h_per_step=d2h)
             v = numbers['windows on the card']
@@ -7990,10 +8017,551 @@ def phase_rnn(torch, pt, place, card, on_card, batch=128, seq=100,
     return runs, out
 
 
+# ------------------------------------------------------------- phase 20
+# the v1 seqToseq demo's widths (demo/seqToseq/seqToseq_net.py, the
+# model models/rnn_search.py names as its source): word_vector_dim,
+# encoder_size and decoder_size 512, source and target dictionaries of
+# 30,000 words (wmt14)
+RNN_SEARCH_WIDTH = dict(src_vocab=30000, trg_vocab=30000, emb_dim=512,
+                        hidden_dim=512)
+# the v1 seq2seq generation program (built by the JAX package's
+# trainer_config_helpers shim) that tests/test_torch_rnn_search.py writes
+GENERATION_FIXTURE = os.path.join(REPO, 'tests', 'fixtures',
+                                  'generation_decode_v1.json')
+
+
+def rnn_search_feed(batch, seq, vocab, seed=20, min_len=20):
+    """A copy task at ``seq`` source and target tokens: source lengths
+    drawn from [min_len, seq], the target masked past the same length."""
+    rng = np.random.RandomState(seed)
+    src = rng.randint(2, vocab, (batch, seq)).astype('int64')
+    lens = rng.randint(min(min_len, seq), seq + 1, batch).astype('int32')
+    lbl = (src % (vocab - 2) + 2).astype('int64')
+    trg = np.concatenate([np.ones((batch, 1), 'int64'), lbl[:, :-1]], 1)
+    mask = (np.arange(seq)[None, :] < lens[:, None]).astype('float32')
+    return {'src_word': src, 'src_len': lens, 'trg_word': trg,
+            'lbl_word': lbl, 'lbl_mask': mask}
+
+
+def _build_rnn_search(pt, dims, amp=None):
+    """models/rnn_search.rnn_search with Adam(1e-3) in fresh default
+    programs; returns the loss."""
+    from paddle_tpu_torch.models import rnn_search as R
+    pt.reset_default_programs()
+    avg, _ = R.rnn_search(**dims)
+    pt.optimizer.Adam(learning_rate=1e-3).minimize(avg)
+    pt.default_main_program().amp = amp
+    return avg
+
+
+def rnn_search_decoders(pt, dims, max_out_len, beam):
+    """The greedy and the beam program over the training parameters
+    (shared by name): [(label, program, fetch names)]."""
+    from paddle_tpu_torch.models import rnn_search as R
+    gp, bp = pt.Program(), pt.Program()
+    with pt.program_guard(gp, pt.Program()):
+        ids, _ = R.rnn_search_greedy_infer(max_out_len=max_out_len, **dims)
+    out = [('greedy', gp, [ids.name])]
+    with pt.program_guard(bp, pt.Program()):
+        ids, scores, _ = R.rnn_search_beam_infer(
+            max_out_len=max_out_len, beam_size=beam, **dims)
+    return out + [('beam %d' % beam, bp, [ids.name, scores.name])]
+
+
+def _decode_timed(torch, pt, exe, scope, program, fetch, feed, calls,
+                  on_card):
+    """One eager run (use_program_cache=False), then the warm-up and the
+    capture and ``calls`` timed replays: (ms a call, captured, the
+    replay's fetches equal the eager run's, the fetches)."""
+    with pt.scope_guard(scope):
+        eager = exe.run(program, feed=feed, fetch_list=fetch,
+                        use_program_cache=False)
+        for _ in range(2):
+            exe.run(program, feed=feed, fetch_list=fetch)
+        if on_card:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            got = exe.run(program, feed=feed, fetch_list=fetch,
+                          return_numpy=False)
+        if on_card:
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / calls
+        captured = exe.last_captured
+    got = [v.cpu().numpy() for v in got]
+    same = all(np.array_equal(a, b) for a, b in zip(eager, got))
+    return ms, captured, same, got
+
+
+def _rnn_search_timed(torch, pt, place, card, on_card, batch, seq, dims,
+                      warmup, steps, amp=None, beam=4, calls=5,
+                      max_out_len=None):
+    """20a: models/rnn_search at ``dims``, Adam: ``warmup`` then ``steps``
+    timed captured steps (wall and busy ms a step, device kernels a step,
+    the encoder's recurrence launches); the same steps eager from the
+    same start, bit for bit; then (fp32) greedy and beam decoding of the
+    batch from the trained scope, each captured against its eager run.
+    Returns (the timed steps' launch counts, row)."""
+    t0 = time.perf_counter()
+    avg = _build_rnn_search(pt, dims, amp)
+    program = pt.default_main_program()
+    n_params = sum(int(np.prod(p.shape)) for p in program.all_parameters())
+    exe, scope = pt.Executor(place), pt.Scope()
+    feed_np = rnn_search_feed(batch, seq, dims['src_vocab'])
+    with pt.scope_guard(scope):
+        exe.run(pt.default_startup_program())
+        snap = _snapshot(scope)
+        feed = {n: torch.as_tensor(v).to(exe.device)
+                for n, v in feed_np.items()}
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        _, first = _train_steps(torch, exe, feed, avg, warmup, on_card)
+        reset_launches()
+        secs, losses = _train_steps(torch, exe, feed, avg, steps, on_card)
+        launches = read_launches()
+        one_graph = exe.last_captured and exe.captures == 1
+        peak = torch.cuda.max_memory_allocated() if on_card else 0
+        busy = kernels = None
+        if on_card:
+            busy, _, _, _, kernels = _busy_ms(torch, lambda: _train_steps(
+                torch, exe, feed, avg, 3, on_card), 3)
+    losses = first + losses
+    eager_exe, eager_scope = pt.Executor(place), pt.Scope()
+    for n, t in snap.items():
+        eager_scope.set(n, t.clone())
+    del snap
+    with pt.scope_guard(eager_scope):
+        eager = [float(eager_exe.run(feed=feed, fetch_list=[avg],
+                                     use_program_cache=False,
+                                     return_numpy=False)[0].float())
+                 for _ in range(warmup + steps)]
+    del eager_scope, eager_exe
+    bits = eager == losses
+    ms = secs * 1e3 / steps
+    hidden = dims['hidden_dim']
+    want = recurrence_want(torch, 'gru', batch, seq, hidden,
+                           torch.bfloat16 if amp else torch.float32,
+                           2 * steps)
+    row = dict(ms=ms, busy_ms=busy, kernels_per_step=kernels,
+               tokens_per_s=batch * seq * steps / secs, params=n_params,
+               peak_gb=peak / 1e9, loss_first=losses[0],
+               loss_last=losses[-1], captured_equals_eager=bits,
+               launches={k: launches[k] for k in want})
+    print('phase 20a rnn_search (%s): vocab %d/%d, emb %d, hidden %d, %d '
+          'params, batch %d x src %d x trg %d (source lengths %d..%d), '
+          'Adam(1e-3), amp %s; build + startup %.2f s; %d timed steps after '
+          '%d warm-up: %.3f ms/step wall, %s ms/step device busy, %s '
+          'device kernels/step, %.1f target tokens/s; max_memory_allocated '
+          '%.3f GB; loss first %.6f last %.6f; captured == eager bit for bit '
+          '(%d losses): %s; encoder recurrence launches %s (want %s) [%s]'
+          % ('one graph' if one_graph else 'NOT one graph',
+             dims['src_vocab'], dims['trg_vocab'], dims['emb_dim'], hidden,
+             n_params, batch, seq, seq, feed_np['src_len'].min(),
+             feed_np['src_len'].max(), amp, t1 - t0, steps, warmup, ms,
+             'n/a' if busy is None else '%.3f' % busy,
+             'n/a' if kernels is None else '%.1f' % kernels,
+             row['tokens_per_s'], row['peak_gb'], losses[0], losses[-1],
+             len(losses), bits, row['launches'], want, card))
+    require(np.isfinite(losses).all(), 'rnn_search: loss not finite')
+    require(losses[-1] < losses[0], 'rnn_search: loss did not fall: %s'
+            % losses)
+    require(bits, 'phase 20a: captured losses %s differ from eager %s'
+            % (losses, eager))
+    if on_card:
+        require(one_graph, 'phase 20a: rnn_search is not one captured graph '
+                '(%d captures)' % exe.captures)
+        require(row['launches'] == want, 'phase 20a: encoder recurrence '
+                'launches %s, want %s' % (row['launches'], want))
+    if amp is None:
+        src = {n: feed[n] for n in ('src_word', 'src_len')}
+        for label, prog, fetch in rnn_search_decoders(
+                pt, dims, max_out_len or seq, beam):
+            dms, captured, same, got = _decode_timed(
+                torch, pt, exe, scope, prog, fetch, src, calls, on_card)
+            row[label] = dict(ms=dms, captured=captured, equals_eager=same)
+            print('phase 20a rnn_search %s decode, batch %d, max_out_len '
+                  '%d: %.3f ms/batch (%s), ids %s; ids equal the eager '
+                  'run\'s: %s [%s]'
+                  % (label, batch, max_out_len or seq, dms,
+                     'captured' if captured else 'NOT captured',
+                     'x'.join(str(s) for s in got[0].shape), same, card))
+            require(same, 'phase 20a: the %s decode differs from its eager '
+                    'run' % label)
+            require(got[0].min() >= 0 and
+                    got[0].max() < dims['trg_vocab'],
+                    'phase 20a: %s ids out of the vocabulary' % label)
+            if on_card:
+                require(captured, 'phase 20a: the %s decode was not '
+                        'captured' % label)
+    del exe, scope
+    return launches, row
+
+
+def rnn_search_places(torch, pt, places, dims, batch, seq, steps=3):
+    """20b: ``steps`` Adam steps of rnn_search from the host startup's
+    weights on each place, then greedy decoding from each trained scope:
+    ([losses of each place], [ids of each place], the first place's
+    training launch counts)."""
+    from paddle_tpu_torch.weights import load_into_scope
+    avg = _build_rnn_search(pt, dims)
+    main, start = pt.default_main_program(), pt.default_startup_program()
+    host = pt.Scope()
+    with pt.scope_guard(host):
+        pt.Executor(pt.CPUPlace()).run(start)
+    weights = {n: host.numpy(n) for n in host.keys()}
+    feed = rnn_search_feed(batch, seq, dims['src_vocab'], seed=21,
+                           min_len=max(1, seq // 4))
+    _, greedy, fetch = rnn_search_decoders(pt, dims, seq, 2)[0]
+    losses, ids, launches = [], [], None
+    for i, place in enumerate(places):
+        scope, exe = pt.Scope(), pt.Executor(place)
+        load_into_scope(weights, scope, place)
+        with pt.scope_guard(scope):
+            if i == 0:
+                reset_launches()
+            losses.append([float(np.asarray(exe.run(
+                main, feed=feed, fetch_list=[avg])[0]).reshape(()))
+                for _ in range(steps)])
+            if i == 0:
+                launches = read_launches()
+            ids.append(exe.run(greedy, feed={n: feed[n] for n in (
+                'src_word', 'src_len')}, fetch_list=fetch)[0])
+    return losses, ids, launches
+
+
+def control_flow_builds(pkg):
+    """{name: (build, feed)}: a While countdown over a tensor array (each
+    turn writes twice the last entry one slot on), an IfElse and a
+    StaticRNN, each of exact IEEE operations (adds, products, scales by
+    powers of 2), so every place gives the same bits. ``pkg``: the
+    package whose layers build (the port, or in the tests the
+    reference)."""
+    L = pkg.layers
+    rng = np.random.RandomState(20)
+    x2 = rng.uniform(-2, 2, (8, 4)).astype('float32')
+    x3 = rng.uniform(-2, 2, (8, 6, 4)).astype('float32')
+
+    def countdown():
+        x = L.data(name='x', shape=[4], dtype='float32')
+        i = L.fill_constant(shape=[1], dtype='int64', value=0)
+        limit = L.fill_constant(shape=[1], dtype='int64', value=6)
+        arr = L.array_write(x, i)
+        cond = L.less_than(x=i, y=limit)
+        w = L.While(cond=cond)
+        with w.block():
+            prev = L.array_read(arr, i)
+            L.increment(x=i, value=1, in_place=True)
+            L.array_write(L.scale(prev, scale=2.0), i, array=arr)
+            L.less_than(x=i, y=limit, cond=cond)
+        return [L.array_read(arr, limit), i, L.array_length(arr)]
+
+    def if_else():
+        x = L.data(name='x', shape=[4], dtype='float32')
+        zeros = L.fill_constant_batch_size_like(x, shape=[1, 1],
+                                                dtype='float32', value=0.0)
+        cond = L.less_than(x=zeros, y=L.reduce_sum(x, dim=1, keep_dim=True))
+        ie = L.IfElse(cond)
+        with ie.true_block():
+            ie.output(L.scale(x, scale=2.0))
+        with ie.false_block():
+            ie.output(L.elementwise_mul(x, x))
+        return list(ie())
+
+    def static_rnn():
+        x = L.data(name='x', shape=[6, 4], dtype='float32')
+        rnn = L.StaticRNN()
+        with rnn.step():
+            xt = rnn.step_input(x)
+            mem = rnn.memory(batch_ref=x, shape=[4], value=0.0)
+            h = L.elementwise_add(L.scale(mem, scale=0.5), xt)
+            rnn.update_memory(mem, h)
+            rnn.step_output(h)
+        return [rnn()]
+    return {'while': (countdown, {'x': x2}), 'if_else': (if_else, {'x': x2}),
+            'static_rnn': (static_rnn, {'x': x3})}
+
+
+def control_flow_on_card(pt, place, card, on_card):
+    """20c: each control-flow program three times on ``place`` (the third
+    a replay where it is captured) against one run on the host, exact;
+    the While program runs eagerly every time."""
+    out = {}
+    for name, (build, feed) in sorted(control_flow_builds(pt).items()):
+        pt.reset_default_programs()
+        fetch = [v.name for v in build()]
+        exe = pt.Executor(place)
+        for _ in range(3):
+            got = exe.run(feed=feed, fetch_list=fetch)
+        captured = exe.last_captured
+        want = pt.Executor(pt.CPUPlace()).run(feed=feed, fetch_list=fetch)
+        same = all(np.array_equal(a, b) for a, b in zip(got, want))
+        out[name] = dict(captured=captured, equals_host=same)
+        print('phase 20c %s: %s on the third run; card == host exactly: %s '
+              '[%s]' % (name, 'captured' if captured else 'eager', same,
+                        card))
+        require(same, 'phase 20c: %s differs from the host' % name)
+        if on_card:
+            require(captured == (name != 'while'), 'phase 20c: %s ran %s'
+                    % (name, 'captured' if captured else 'eagerly'))
+    return out
+
+
+def ssd_feed(batch, size, max_gt, classes, seed=22):
+    rng = np.random.RandomState(seed)
+    gt = rng.uniform(0.05, 0.6, (batch, max_gt, 4)).astype('float32')
+    gt[:, :, 2:] = gt[:, :, :2] + rng.uniform(
+        0.1, 0.35, (batch, max_gt, 2)).astype('float32')
+    return {'image': rng.rand(batch, 3, size, size).astype('float32'),
+            'gt_box': gt,
+            'gt_label': rng.randint(1, classes, (batch, max_gt)).astype(
+                'int64')}
+
+
+def _build_ssd(pt, classes, size, max_gt):
+    from paddle_tpu_torch.models import ssd
+    pt.reset_default_programs()
+    avg, _ = ssd.ssd_train(num_classes=classes, image_shape=(3, size, size),
+                           max_gt=max_gt)
+    pt.optimizer.Adam(learning_rate=1e-3).minimize(avg)
+    return avg
+
+
+def _ssd_infer_program(pt, classes, size):
+    """ssd_infer in fresh default programs (its layers take the training
+    program's parameter names): (program, the detections' name)."""
+    from paddle_tpu_torch.models import ssd
+    pt.reset_default_programs()
+    out, _ = ssd.ssd_infer(num_classes=classes, image_shape=(3, size, size))
+    return pt.default_main_program(), out.name
+
+
+def _ssd_timed(torch, pt, place, card, on_card, batch, size, classes,
+               max_gt, warmup, steps, calls=5):
+    """20d: models/ssd.ssd_train, Adam, fp32: ``warmup`` then ``steps``
+    timed captured steps (K5's launches: 5 forward and 5 backward a step),
+    then ssd_infer's detection_output on the trained scope, captured
+    against eager. Returns (the timed steps' launch counts, row)."""
+    avg = _build_ssd(pt, classes, size, max_gt)
+    exe, scope = pt.Executor(place), pt.Scope()
+    feed_np = ssd_feed(batch, size, max_gt, classes)
+    with pt.scope_guard(scope):
+        exe.run(pt.default_startup_program())
+        feed = {n: torch.as_tensor(v).to(exe.device)
+                for n, v in feed_np.items()}
+        _, first = _train_steps(torch, exe, feed, avg, warmup, on_card)
+        reset_launches()
+        secs, losses = _train_steps(torch, exe, feed, avg, steps, on_card)
+        launches = read_launches()
+        one_graph = exe.last_captured and exe.captures == 1
+        busy = kernels = None
+        if on_card:
+            busy, _, _, _, kernels = _busy_ms(torch, lambda: _train_steps(
+                torch, exe, feed, avg, 3, on_card), 3)
+    losses = first + losses
+    ms = secs * 1e3 / steps
+    want = dict(batch_norm=5 * steps, batch_norm_bwd=5 * steps)
+    got = {k: launches[k] for k in want}
+    print('phase 20d ssd_train (%s): %d classes, 3 x %d x %d, max_gt %d, '
+          'batch %d, Adam(1e-3), fp32: %d timed steps after %d warm-up: '
+          '%.3f ms/step wall, %s ms/step device busy, %s device kernels/step; '
+          'loss first %.5f last %.5f; K5 launches %s (want %s) [%s]'
+          % ('one graph' if one_graph else 'NOT one graph', classes, size,
+             size, max_gt, batch, steps, warmup, ms,
+             'n/a' if busy is None else '%.3f' % busy,
+             'n/a' if kernels is None else '%.1f' % kernels, losses[0],
+             losses[-1], got, want, card))
+    require(np.isfinite(losses).all(), 'ssd: loss not finite')
+    require(losses[-1] < losses[0], 'ssd: loss did not fall: %s' % losses)
+    if on_card:
+        require(one_graph, 'phase 20d: ssd_train is not one captured graph')
+        require(got == want, 'phase 20d: K5 launches %s, want %s'
+                % (got, want))
+    program, name = _ssd_infer_program(pt, classes, size)
+    dms, captured, same, det = _decode_timed(
+        torch, pt, exe, scope, program, [name], {'image': feed['image']},
+        calls, on_card)
+    print('phase 20d ssd_infer detection_output, batch %d: %.3f ms/batch '
+          '(%s), detections %s, %d kept; equal to the eager run: %s [%s]'
+          % (batch, dms, 'captured' if captured else 'NOT captured',
+             'x'.join(str(s) for s in det[0].shape),
+             int((det[0][..., 0] >= 0).sum()), same, card))
+    require(same, 'phase 20d: detection_output differs from its eager run')
+    if on_card:
+        require(captured, 'phase 20d: detection_output was not captured')
+    row = dict(ms=ms, busy_ms=busy, kernels_per_step=kernels,
+               loss_first=losses[0], loss_last=losses[-1], launches=got,
+               infer_ms=dms)
+    return launches, row
+
+
+def ssd_places(torch, pt, places, batch=2, size=64, classes=4, max_gt=3,
+               steps=3):
+    """20d card against host: ``steps`` Adam steps of ssd_train from the
+    host startup's weights on each place, then ssd_infer's detections
+    from each trained scope: ([losses], [detections], the first place's
+    training launch counts)."""
+    from paddle_tpu_torch.weights import load_into_scope
+    avg = _build_ssd(pt, classes, size, max_gt)
+    main, start = pt.default_main_program(), pt.default_startup_program()
+    host = pt.Scope()
+    with pt.scope_guard(host):
+        pt.Executor(pt.CPUPlace()).run(start)
+    weights = {n: host.numpy(n) for n in host.keys()}
+    feed = ssd_feed(batch, size, max_gt, classes, seed=23)
+    infer, name = _ssd_infer_program(pt, classes, size)
+    losses, dets, launches = [], [], None
+    for i, place in enumerate(places):
+        scope, exe = pt.Scope(), pt.Executor(place)
+        load_into_scope(weights, scope, place)
+        with pt.scope_guard(scope):
+            if i == 0:
+                reset_launches()
+            losses.append([float(np.asarray(exe.run(
+                main, feed=feed, fetch_list=[avg])[0]).reshape(()))
+                for _ in range(steps)])
+            if i == 0:
+                launches = read_launches()
+            dets.append(exe.run(infer, feed={'image': feed['image']},
+                                fetch_list=[name])[0])
+    return losses, dets, launches
+
+
+def generation_places(torch, pt, places):
+    """20e: the fixture's v1 generation program (generation_decode, beam
+    4) from its own startup's weights on each place, run three times
+    (captured on the card): [(ids, scores, captured) of each place]."""
+    from paddle_tpu_torch.core.serialize import program_from_dict
+    from paddle_tpu_torch.weights import load_into_scope
+    with open(GENERATION_FIXTURE) as f:
+        fixture = json.load(f)
+    main = program_from_dict(fixture['main'])
+    start = program_from_dict(fixture['startup'])
+    v1 = fixture['v1']
+    rng = np.random.RandomState(24)
+    feed = {'src': rng.randint(2, v1['vocab'], (v1['batch'], v1['t']))
+            .astype('int64'),
+            'src_len': rng.randint(1, v1['t'] + 1, v1['batch'])
+            .astype('int32')}
+    host = pt.Scope()
+    with pt.scope_guard(host):
+        pt.Executor(pt.CPUPlace()).run(start)
+    weights = {n: host.numpy(n) for n in host.keys()}
+    out = []
+    for place in places:
+        scope, exe = pt.Scope(), pt.Executor(place)
+        load_into_scope(weights, scope, place)
+        with pt.scope_guard(scope):
+            for _ in range(3):
+                ids, scores = exe.run(main, feed=feed,
+                                      fetch_list=fixture['fetch'])
+        out.append((ids, scores, exe.last_captured))
+    return out, v1
+
+
+def phase_control_flow(torch, pt, place, card, on_card, small=False,
+                       host_place=None):
+    """Phase 20: (a) rnn_search at the seqToseq demo's widths, batch 64 x
+    50 tokens, fp32 then bf16 AMP, and its greedy and beam 4 decoding;
+    (b) rnn_search at hidden 128 card against host; (c) the control-flow
+    programs card against host, While eager and the others captured; (d)
+    SSD training and detection at the model's defaults, batch 32, and at
+    64 x 64 card against host; (e) generation_decode card against host.
+    Returns (the timed runs' launch counts, summary)."""
+    t0 = time.perf_counter()
+    host_place = host_place or pt.CPUPlace()
+    runs, out = [], {}
+    if small:
+        dims = dict(src_vocab=64, trg_vocab=64, emb_dim=16, hidden_dim=16)
+        batch, seq, warmup, steps, bf16_steps = 4, 8, 2, 2, 2
+    else:
+        dims, batch, seq = RNN_SEARCH_WIDTH, 64, 50
+        warmup, steps, bf16_steps = 3, 10, 5
+    launches, out['rnn_search'] = _rnn_search_timed(
+        torch, pt, place, card, on_card, batch, seq, dims, warmup, steps)
+    runs.append(launches)
+    if on_card:
+        torch.cuda.empty_cache()
+    launches, out['rnn_search_bf16'] = _rnn_search_timed(
+        torch, pt, place, card, on_card, batch, seq, dims, 2, bf16_steps,
+        amp='bf16')
+    runs.append(launches)
+    if on_card:
+        torch.cuda.empty_cache()
+    small_dims = dict(src_vocab=1000, trg_vocab=1000, emb_dim=128,
+                      hidden_dim=128)
+    cbatch, cseq = (16, 20) if not small else (4, 8)
+    losses, ids, launches = rnn_search_places(
+        torch, pt, (place, host_place), small_dims, cbatch, cseq)
+    runs.append(launches)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(*losses))
+    want = recurrence_want(torch, 'gru', cbatch, cseq, 128, times=2 * 3)
+    got = {k: launches[k] for k in want}
+    same = np.array_equal(ids[0], ids[1])
+    out['rnn_search_vs_host'] = dict(loss_rel=rel, greedy_equal=same,
+                                     launches=got)
+    print('phase 20b rnn_search hidden 128, vocab 1000, batch %d x %d: 3 '
+          'Adam steps card %s, host %s (max rel %.3g, limit 1e-4); encoder '
+          'recurrence launches %s (want %s); greedy ids card == host: %s '
+          '[%s]' % (cbatch, cseq, ['%.7f' % v for v in losses[0]],
+                    ['%.7f' % v for v in losses[1]], rel, got, want, same,
+                    card))
+    require(rel <= 1e-4, 'phase 20b: the card differs from the host')
+    require(same, 'phase 20b: greedy ids differ between card and host')
+    if on_card:
+        require(got == want, 'phase 20b: launches %s, want %s' % (got, want))
+    out['control_flow'] = control_flow_on_card(pt, place, card, on_card)
+    if small:
+        sbatch, ssize, sclasses, swarm, ssteps = 2, 64, 4, 2, 2
+    else:
+        sbatch, ssize, sclasses, swarm, ssteps = 32, 128, 21, 3, 10
+    launches, out['ssd'] = _ssd_timed(torch, pt, place, card, on_card,
+                                      sbatch, ssize, sclasses, 8, swarm,
+                                      ssteps)
+    runs.append(launches)
+    if on_card:
+        torch.cuda.empty_cache()
+    losses, dets, _ = ssd_places(torch, pt, (place, host_place))
+    rel = max(abs(a - b) / abs(b) for a, b in zip(*losses))
+    labels = np.array_equal(dets[0][..., 0], dets[1][..., 0])
+    box_err = float(np.abs(dets[0][..., 1:] - dets[1][..., 1:]).max())
+    out['ssd_vs_host'] = dict(loss_rel=rel, labels_equal=labels,
+                              box_score_err=box_err)
+    print('phase 20d ssd 3 x 64 x 64, 4 classes, batch 2: 3 Adam steps card '
+          '%s, host %s (max rel %.3g, limit 1e-4); detections %d kept, '
+          'labels card == host: %s, scores and boxes max |diff| %.3g (limit '
+          '1e-5) [%s]' % (['%.6f' % v for v in losses[0]],
+                         ['%.6f' % v for v in losses[1]], rel,
+                         int((dets[0][..., 0] >= 0).sum()), labels, box_err,
+                         card))
+    require(rel <= 1e-4, 'phase 20d: SSD losses differ between card and host')
+    require(labels and box_err <= 1e-5, 'phase 20d: detections differ '
+            'between card and host')
+    (ci, cs, ccap), (hi, hs, _) = generation_places(torch, pt,
+                                                    (place, host_place))[0]
+    same = np.array_equal(ci, hi)
+    err = float(np.abs(cs - hs).max())
+    out['generation_decode'] = dict(ids_equal=same, score_err=err,
+                                    captured=ccap)
+    print('phase 20e generation_decode (the v1 seq2seq of '
+          'tests/fixtures/generation_decode_v1.json, beam 4): sentences %s, '
+          '%s on the card; ids card == host: %s, scores max |diff| %.3g '
+          '[%s]' % ('x'.join(str(s) for s in ci.shape),
+                    'captured' if ccap else 'NOT captured', same, err, card))
+    require(same and err <= 1e-5, 'phase 20e: generation_decode differs '
+            'between card and host')
+    if on_card:
+        require(ccap, 'phase 20e: generation_decode was not captured')
+    out['seconds'] = time.perf_counter() - t0
+    print('phase 20 %.1f s' % out['seconds'])
+    return runs, out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--cpu-rehearsal', action='store_true',
-                    help='run phases 4-19 on the host at tiny sizes with '
+                    help='run phases 4-20 on the host at tiny sizes with '
                          'the plain versions')
     ap.add_argument('--profile', action='store_true',
                     help='after every other phase, profile 20 decode '
@@ -8104,6 +8672,7 @@ def main():
         phase_rnn(torch, pt, pt.CPUPlace(), host, False, batch=4, seq=8,
                   vocab=64, hidden=8, steps=4, model_batch=4, model_seq=8,
                   small=True, wide_hidden=16)
+        phase_control_flow(torch, pt, pt.CPUPlace(), host, False, small=True)
         print('cpu rehearsal ok in %.1f s' % (time.perf_counter() - t_start))
         return
 
@@ -8313,6 +8882,11 @@ def main():
     rnn['gru_recurrence'] = rnn_kernels.pop('gru_recurrence')
     torch.cuda.empty_cache()
     done('19 (the recurrent and sequence path)')
+    # phase 20: control flow, the RNN-search seq2seq and SSD
+    cf_runs, control_flow = phase_control_flow(torch, pt, pt.CUDAPlace(0),
+                                               card, True)
+    torch.cuda.empty_cache()
+    done('20 (control flow, rnn_search, SSD)')
 
     # launches: the sum over the main paths' runs (the engine runs: plain,
     # extras plain and with cache + speculation, int8 and fp8; the timed
@@ -8324,11 +8898,13 @@ def main():
     # Transformer's timed epoch and the CTR's steps; phase 18a's timed MoE
     # steps, scan_layers and unrolled; phase 19's timed bench_rnn_lstm
     # steps (at hidden 128 and 512), each sequence model's timed steps and
-    # the wide GRU tagger's), each read after its counts were set to 0
+    # the wide GRU tagger's; phase 20's timed rnn_search steps (fp32 and
+    # bf16), its hidden-128 card steps and the timed SSD steps), each read
+    # after its counts were set to 0
     main_runs = [launches] + extras + list(quant.values()) + \
         [train, scan_train, masked, mask_read, resnet, nmt, trainer] + \
         disagg_runs + list(ctr_runs.values()) + layers_runs + \
-        [ring_runs, ctr_ring_runs] + moe_runs + rnn_runs
+        [ring_runs, ctr_ring_runs] + moe_runs + rnn_runs + cf_runs
 
     def runs(key):
         return sum(r.get(key, 0) for r in main_runs)
@@ -8417,7 +8993,8 @@ def main():
     print('total %.1f s' % (time.perf_counter() - t_start))
     print(json.dumps({'kernels': kernels, 'lifecycle': lifecycle,
                       'disagg': disagg, 'ctr': ctr, 'layers': layers,
-                      'staging': staging, 'moe': moe, 'rnn': rnn}))
+                      'staging': staging, 'moe': moe, 'rnn': rnn,
+                      'control_flow': control_flow}))
     print(card)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu',
                                              'kind': name,

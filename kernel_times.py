@@ -15,6 +15,7 @@ have (a backward kernel before it was written) is reported as such.
     python3 kernel_times.py [DIR] --encoder # phase 16a's encoder layer
     python3 kernel_times.py [DIR] --rnn     # bench_rnn_lstm and its cells
     python3 kernel_times.py [DIR] --moe     # phase 18a's bench_moe steps
+    python3 kernel_times.py [DIR] --seq2seq # phase 20's rnn_search, SSD
 
 DIR (default: this checkout) holds the ``paddle_tpu_torch`` package to
 time; the shapes, the inputs and the timer (CUDA-graph replay, CUDA events)
@@ -88,6 +89,16 @@ and 20 timed steps captured (ms a step on the host clock), then profiles
 5 steps of each as chip_smoke.py --profile does (device busy time and
 kernels a step, by family).
 
+With --seq2seq, it runs DIR's models/rnn_search at chip_smoke.py's
+phase-20a width (the v1 seqToseq demo's 512 / 512 / 30,000, batch 64 x
+50, Adam, fp32), its greedy and beam-4 decoding of that batch at 50
+positions, and models/ssd's training step and ssd_infer at phase 20d's
+(3 x 128 x 128, 21 classes, max_gt 8, batch 32, Adam, fp32), each
+captured: 20 timed calls after 3 (ms a call on the host clock), then 5
+profiled as chip_smoke.py --profile does (wall, device busy time and
+kernels a call, by family and by kernel). A
+checkout without those models is reported as such.
+
 Nothing is checked here: chip_smoke.py holds each kernel against its plain
 versions. Prints one line a case, then nvidia-smi's name and power limit,
 then one JSON object {"port": DIR, "card": ..., "ms": {case: ms}}.
@@ -97,6 +108,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -480,10 +492,70 @@ def moe_steps(torch, smoke, card, steps=20):
     return ms
 
 
+def seq2seq_steps(torch, smoke, card, steps=5):
+    """--seq2seq: DIR's phase-20 rnn_search step, its two decoders and
+    the SSD step and detection; returns {label: wall ms a call}."""
+    import paddle_tpu_torch as pt
+    try:
+        from paddle_tpu_torch.models import rnn_search, ssd  # noqa: F401
+    except ImportError:
+        print('no rnn_search or ssd model in this checkout')
+        return {}
+    dev = torch.device('cuda', 0)
+    exe = pt.Executor(pt.CUDAPlace(0))
+    jobs = []
+
+    def job(label, program, scope, feed, fetch):
+        def step():
+            with pt.scope_guard(scope):
+                exe.run(program, feed=feed, fetch_list=fetch,
+                        return_numpy=False)
+        jobs.append((label, step, steps, None))
+
+    dims = smoke.RNN_SEARCH_WIDTH
+    avg = smoke._build_rnn_search(pt, dims)
+    main, scope = pt.default_main_program(), pt.Scope()
+    with pt.scope_guard(scope):
+        exe.run(pt.default_startup_program())
+    feed = {n: torch.as_tensor(v).to(dev) for n, v in
+            smoke.rnn_search_feed(64, 50, dims['src_vocab']).items()}
+    job('rnn_search training step, 64 x 50, fp32', main, scope, feed,
+        [avg])
+    src = {n: feed[n] for n in ('src_word', 'src_len')}
+    for label, program, fetch in smoke.rnn_search_decoders(pt, dims, 50, 4):
+        job('rnn_search %s decode, 64 x 50' % label, program, scope, src,
+            fetch)
+    avg = smoke._build_ssd(pt, 21, 128, 8)
+    main, sscope = pt.default_main_program(), pt.Scope()
+    with pt.scope_guard(sscope):
+        exe.run(pt.default_startup_program())
+    feed = {n: torch.as_tensor(v).to(dev) for n, v in
+            smoke.ssd_feed(32, 128, 8, 21).items()}
+    job('ssd training step, 32 x 3 x 128 x 128, fp32', main, sscope, feed,
+        [avg])
+    program, name = smoke._ssd_infer_program(pt, 21, 128)
+    job('ssd_infer detection_output, 32 x 3 x 128 x 128', program, sscope,
+        {'image': feed['image']}, [name])
+    ms = {}
+    for label, step, _, _ in jobs:
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            step()
+        torch.cuda.synchronize()
+        ms[label] = (time.perf_counter() - t0) * 1e3 / 20
+        print('%s: %.3f ms a call, 20 captured calls after 3 [%s]'
+              % (label, ms[label], card))
+    smoke.profile_steps(torch, card, jobs)
+    return ms
+
+
 def main():
     args = [a for a in sys.argv[1:]
             if a not in ('--decode', '--train', '--write', '--serve',
-                         '--encoder', '--rnn', '--moe')]
+                         '--encoder', '--rnn', '--moe', '--seq2seq')]
     port = os.path.abspath(args[0]) if args else REPO
     sys.path.insert(0, REPO)
     import chip_smoke as smoke
@@ -509,7 +581,8 @@ def main():
         return
     for flag, run in (('--train', train_steps), ('--write', write_layers),
                       ('--serve', serve), ('--encoder', encoder_steps),
-                      ('--rnn', rnn_steps), ('--moe', moe_steps)):
+                      ('--rnn', rnn_steps), ('--moe', moe_steps),
+                      ('--seq2seq', seq2seq_steps)):
         if flag in sys.argv:
             ms = run(torch, smoke, card)
             print(card)

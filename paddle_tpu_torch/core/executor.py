@@ -4,11 +4,12 @@ place as one CUDA graph per key.
 Reference: paddle/fluid/framework/executor.{h,cc} + python/fluid/executor.py,
 and the JAX package's compile-once / dispatch-many executor. The ops that
 contribute to the fetches or write persistable state are kept (the same
-pruning as the JAX package's executor), feeds become tensors on the
-place's device, each op's lowering runs in order, and persistable outputs
-are written into the scope's own tensors, in place (a lowering that
-returns a new tensor for one is copied into the tensor the scope holds),
-so a scope tensor keeps its address from step to step. Lowerings may
+pruning as the JAX package's executor; liveness walks into the
+sub-blocks of the control-flow ops, ``_op_reads``), feeds become tensors
+on the place's device, each op's lowering runs in order, and persistable
+outputs are written into the scope's own tensors, in place (a lowering
+that returns a new tensor for one is copied into the tensor the scope
+holds), so a scope tensor keeps its address from step to step. Lowerings may
 update scope tensors in place (the decode ops write their KV rows into the
 arenas, the optimizer ops their parameters and moments).
 
@@ -29,10 +30,12 @@ never run at once). Kernel launch counts (``ops.kernels.launch_counters``)
 move at each replay by what the capture recorded.
 
 A plan that holds a host-bound op (``registry.HOST_BOUND``: the startup
-ops that draw on the host) is never captured, and neither is a run on the
-CPU place or with ``use_program_cache=False``: those run eagerly, one
-launch per op. ``last_captured`` says which way this thread's last call
-went. A capture or replay that fails raises; nothing falls back.
+ops that draw on the host, and ``while``, whose condition is read on the
+host each turn), in its main block or in a sub-block, is never captured,
+and neither is a run on the CPU place or with ``use_program_cache=False``:
+those run eagerly, one launch per op. ``last_captured`` says which way
+this thread's last call went. A capture or replay that fails raises;
+nothing falls back.
 
 A program with a ``backward_marker`` (optimizer.minimize) is a training
 step: the ops before the marker run with the trainable parameters as leaf
@@ -99,16 +102,54 @@ def _ensure_ops_imported():
     from .. import ops as _ops  # noqa: F401  (registers lowerings)
 
 
-def _analyze(block, ops, feed_names):
-    """Scope inputs (values read before any op defines them) and scope
-    outputs (persistable vars written)."""
+# the attributes naming an op's sub-blocks (while and rnn bodies, if_else
+# branches, the generation step)
+_SUB_BLOCK_ATTRS = ('sub_block', 'true_block', 'false_block')
+
+
+def _op_reads(op, program, cache=None):
+    """Every name ``op`` reads, the outer names its sub-blocks read
+    included (reference: paddle_tpu core/executor.py _op_reads). A name an
+    earlier op of the same sub-block defines is internal and left out, so
+    the result is what the op needs from its surroundings. ``cache``: a
+    dict that keeps each op's walk across the passes of one plan."""
+    if cache is not None and id(op) in cache:
+        return cache[id(op)]
+    reads = list(op.input_names())
+    if program is not None:
+        for attr in _SUB_BLOCK_ATTRS:
+            idx = op.attrs.get(attr)
+            if idx is not None:
+                defined = set()
+                for sub_op in program.block(idx).ops:
+                    for n in _op_reads(sub_op, program, cache):
+                        if n not in defined:
+                            reads.append(n)
+                    defined.update(sub_op.output_names())
+    if cache is not None:
+        cache[id(op)] = reads
+    return reads
+
+
+def _holds_host_bound(op, program):
+    """Whether ``op`` or an op of its sub-blocks is host-bound."""
+    if op.type in HOST_BOUND:
+        return True
+    return any(_holds_host_bound(sub, program)
+               for attr in _SUB_BLOCK_ATTRS if op.attrs.get(attr) is not None
+               for sub in program.block(op.attrs[attr]).ops)
+
+
+def _analyze(block, ops, feed_names, reads_cache=None):
+    """Scope inputs (values read before any op defines them, sub-block
+    reads included) and scope outputs (persistable vars written)."""
     defined = set(feed_names)
     scope_in, scope_out = [], []
     for op in ops:
         if op.type == 'backward_marker':
             defined.update(op.attrs['grad_names'])
             continue
-        for name in op.input_names():
+        for name in _op_reads(op, block.program, reads_cache):
             if name in defined or name in scope_in:
                 continue
             scope_in.append(name)
@@ -142,8 +183,10 @@ def collect_error_clips(block, ops):
     return clips
 
 
-def _prune_ops(block, ops, fetch_names):
-    """Keep ops contributing to fetches or to persistable state updates."""
+def _prune_ops(block, ops, fetch_names, reads_cache=None):
+    """Keep ops contributing to fetches or to persistable state updates.
+    Liveness walks into sub-blocks (_op_reads): a var read only inside a
+    while or rnn body or an if_else branch keeps its producer."""
     needed = set(fetch_names)
     kept = []
     for op in reversed(ops):
@@ -154,7 +197,7 @@ def _prune_ops(block, ops, fetch_names):
         if op.type == 'backward_marker' or writes_state or \
                 (set(op.output_names()) & needed):
             kept.append(op)
-            needed.update(op.input_names())
+            needed.update(_op_reads(op, block.program, reads_cache))
             if op.type == 'backward_marker':
                 needed.add(op.attrs['loss_name'])
     kept.reverse()
@@ -264,16 +307,23 @@ class _Plan(object):
     backward saved)."""
 
     def __init__(self, block, ops, feed_names, fetch_names,
-                 remat_policy=None):
+                 remat_policy=None, reads_cache=None):
         self.ops = ops
+        program = block.program
+        cache = {} if reads_cache is None else reads_cache
+        reads = [_op_reads(op, program, cache) for op in ops]
         consumed = set()
-        for op in ops:
-            consumed.update(op.input_names())
+        for names in reads:
+            consumed.update(names)
         self.needed_feeds = sorted(
             n for n in consumed
             if (lambda v: v is not None and v.is_data)(
                 block._find_var_recursive(n)))
-        self.scope_in, self.scope_out = _analyze(block, ops, feed_names)
+        # a sub-block's own vars (step inputs, memories) are no scope input
+        local = {n for n in consumed if block._find_var_recursive(n) is None}
+        self.scope_in, self.scope_out = _analyze(
+            block, ops, set(feed_names) | local, cache)
+        self.host_bound = any(_holds_host_bound(op, program) for op in ops)
         markers = [i for i, op in enumerate(ops)
                    if op.type == 'backward_marker']
         if len(markers) > 1:
@@ -300,7 +350,7 @@ class _Plan(object):
             sparse_ids = {grads[p]: i['ids'] for p, i in info.items()}
         last = {}
         for i, op in enumerate(ops):
-            for name in op.output_names() + op.input_names():
+            for name in op.output_names() + reads[i]:
                 last[name] = i
                 if name in sparse_ids and i > self.marker:
                     last[sparse_ids[name]] = i
@@ -321,9 +371,10 @@ class _Plan(object):
         if remat_policy and self.marker is not None:
             after = keep | set(sparse_ids.values())
             after.add(ops[self.marker].attrs['loss_name'])
-            for op in ops[self.marker + 1:]:
-                after.update(op.input_names())
-            self.remat_segments = _remat_segments(ops[:self.marker], after)
+            for names in reads[self.marker + 1:]:
+                after.update(names)
+            self.remat_segments = _remat_segments(
+                ops[:self.marker], after, reads[:self.marker])
 
 
 class Executor(object):
@@ -382,9 +433,10 @@ class Executor(object):
         plan = self._plans.get(key)
         if plan is None:
             block = program.global_block()
-            ops = _prune_ops(block, list(block.ops), fetch_names)
+            cache = {}
+            ops = _prune_ops(block, list(block.ops), fetch_names, cache)
             plan = _Plan(block, ops, feed_names, fetch_names,
-                         program.remat_policy)
+                         program.remat_policy, cache)
             self._plans[key] = plan
         return plan
 
@@ -543,8 +595,7 @@ class Executor(object):
         state = self._keys.get(key) if use_cache else None
         missed = state is None
         if use_cache and state is None:
-            state = self._keys[key] = _KeyState(
-                any(op.type in HOST_BOUND for op in plan.ops))
+            state = self._keys[key] = _KeyState(plan.host_bound)
         self._step_tensor()     # made here, outside any capture
         if not use_cache or state.host_bound or self.device.type != 'cuda':
             fetches = self._eager(program, block, plan, feeds, fetch_names,
@@ -733,19 +784,7 @@ class Executor(object):
                                                               False)),
                               amp=amp, reads=reads,
                               sparse_updates=sparse_updates, remat=remat)
-        try:
-            get_lowering(op.type)(ctx)
-        except KeyError as e:
-            raise RuntimeError(
-                'While running op %r: missing input %s. Feed it or run '
-                'producers first.' % (op.type, e))
-        if amp == 'bf16' and op.type in AMP_BF16_OUT_SLOTS:
-            # fp32-statistics ops hand their activation back to the bf16
-            # stream (registry.AMP_BF16_OUT_SLOTS)
-            for slot in AMP_BF16_OUT_SLOTS[op.type]:
-                name = op.output(slot)
-                if name in env and env[name].dtype == torch.float32:
-                    env[name] = env[name].to(torch.bfloat16)
+        lower_op(ctx)
 
     def _train_step(self, env, plan, run_ops, remat_policy):
         """Forward with the trainable parameters as leaves, gradients of
@@ -812,6 +851,25 @@ class Executor(object):
             run_ops(plan.ops[plan.marker + 1:], plan.marker + 1, env)
 
 
+def lower_op(ctx):
+    """Run ``ctx.op``'s lowering over ``ctx.env`` (an op of the main block
+    or of a sub-block): a missing input names the op, and under bf16 AMP
+    an fp32-statistics op hands its activation back to the bf16 stream
+    (registry.AMP_BF16_OUT_SLOTS)."""
+    op, env = ctx.op, ctx.env
+    try:
+        get_lowering(op.type)(ctx)
+    except KeyError as e:
+        raise RuntimeError(
+            'While running op %r: missing input %s. Feed it or run '
+            'producers first.' % (op.type, e))
+    if ctx.amp == 'bf16' and op.type in AMP_BF16_OUT_SLOTS:
+        for slot in AMP_BF16_OUT_SLOTS[op.type]:
+            name = op.output(slot)
+            if name in env and env[name].dtype == torch.float32:
+                env[name] = env[name].to(torch.bfloat16)
+
+
 def _copy_written_views(env, plan):
     """A fetch that shares storage with a persistable the update ops write
     in place (a reshape, transpose or squeeze of a parameter returns a
@@ -835,7 +893,7 @@ def _copy_written_views(env, plan):
 SELF_REMAT = frozenset(('transformer_layer_stack', 'moe_layer_stack'))
 
 
-def _remat_segments(ops, after):
+def _remat_segments(ops, after, reads):
     """The forward ``ops`` cut for checkpointing: [(start, end, inputs,
     outputs)], inputs None for a layer stack op (it checkpoints its own
     layers). A segment holds about sqrt(n) ops; each cut is placed, within
@@ -843,11 +901,12 @@ def _remat_segments(ops, after):
     made before it are read after it (between two layers, where the
     residual stream crosses). ``after``: the names read after the forward
     (by the backward's update ops, fetched, persistable, the loss). A
-    segment's outputs are its values read by a later segment or after."""
+    segment's outputs are its values read by a later segment or after.
+    ``reads``: each op's reads, its sub-blocks' included (_op_reads)."""
     n = len(ops)
     made, last = {}, {}
     for i, op in enumerate(ops):
-        for name in op.input_names():
+        for name in reads[i]:
             last[name] = i
         for name in op.output_names():
             made.setdefault(name, i)
@@ -881,8 +940,7 @@ def _remat_segments(ops, after):
     for a, b, wrapped in cuts:
         ins = outs = None
         if wrapped:
-            ins = sorted({name for op in ops[a:b]
-                          for name in op.input_names()})
+            ins = sorted({name for names in reads[a:b] for name in names})
             outs = sorted({name for op in ops[a:b]
                            for name in op.output_names()
                            if last.get(name, -1) >= b})

@@ -384,7 +384,10 @@ class Program(object):
 
     def prune(self, targets):
         """A clone keeping only the ops the target vars need (reference:
-        paddle_tpu core/program.py Program.prune; framework/prune.cc)."""
+        paddle_tpu core/program.py Program.prune; framework/prune.cc).
+        Liveness descends into while / rnn / if_else sub-blocks, as the
+        executor's prune does."""
+        from .executor import _op_reads
         target_names = set(t.name if isinstance(t, Variable) else t
                            for t in targets)
         p = self.clone()
@@ -395,7 +398,7 @@ class Program(object):
             if set(op.output_names()) & needed or \
                     op.type == 'backward_marker':
                 kept.append(op)
-                needed.update(op.input_names())
+                needed.update(_op_reads(op, p))
         b.ops = list(reversed(kept))
         p._bump_version()
         return p

@@ -1,11 +1,12 @@
-"""The public layers (169 of paddle_tpu.layers' 200 names, at the same
+"""The public layers (189 of paddle_tpu.layers' 200 names, at the same
 names, slots and attributes): data and parameters, fills, the
 elementwise, activation, reduction, reshaping and indexing layers, the
 losses and metrics, fc, embedding, conv2d, pool2d, the norms, dropout,
 resizes, Print, switch_moe, the sequence and recurrent layers, CTC and
-the linear-chain CRF, and the NMT inference graphs' beam search layers.
-The loop constructs, the detection layers and the conv path's rest are
-not ported (ROADMAP Queue 1 items 5-7)."""
+the linear-chain CRF, the NMT inference graphs' beam search layers, the
+control flow (While, StaticRNN, DynamicRNN, IfElse, Switch, the tensor
+arrays) and the detection layers. The conv path's rest is not ported
+(ROADMAP Queue 1 item 6)."""
 
 from . import helper  # noqa: F401
 from .io import *  # noqa: F401,F403
@@ -15,8 +16,9 @@ from .nn import *  # noqa: F401,F403
 from .manip import *  # noqa: F401,F403
 from .control_flow import *  # noqa: F401,F403
 from .decode import *  # noqa: F401,F403
+from .detection import *  # noqa: F401,F403
 from .rnn import *  # noqa: F401,F403
 from .sequence import *  # noqa: F401,F403
 
-from . import control_flow, decode, io, manip, nn, ops, rnn, sequence, \
-    tensor  # noqa: F401
+from . import control_flow, decode, detection, io, manip, nn, ops, rnn, \
+    sequence, tensor  # noqa: F401

@@ -3,5 +3,6 @@ pieces, models/transformer.py), the Switch-MoE LM (models/moe.py), the
 ResNet family (models/resnet.py), the embedding models Wide&Deep CTR
 (models/wide_deep.py), the recommender (models/recommender.py) and
 word2vec (models/word2vec.py), fit_a_line (models/linear.py), the
-sentiment and tagging sequence models (models/seq_models.py) and semantic
-role labeling (models/srl.py)."""
+sentiment and tagging sequence models (models/seq_models.py), semantic
+role labeling (models/srl.py), the RNN-search seq2seq
+(models/rnn_search.py) and the SSD detector (models/ssd.py)."""

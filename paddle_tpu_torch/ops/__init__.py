@@ -1,11 +1,14 @@
 """Op lowerings. Importing this package registers every op the port runs:
 the startup ops, the paged decode ops, the training paths' ops, the NMT
-inference ops, and the sequence, recurrent, CTC / CRF and metric ops."""
+inference ops, the sequence, recurrent, CTC / CRF and metric ops, the
+control-flow ops and the detection ops."""
 
 from . import activation_ops  # noqa: F401
 from . import attention_ops  # noqa: F401
+from . import control_ops  # noqa: F401
 from . import conv_ops  # noqa: F401
 from . import decode_ops  # noqa: F401
+from . import detection_ops  # noqa: F401
 from . import lr_ops  # noqa: F401
 from . import math_ops  # noqa: F401
 from . import metric_ops  # noqa: F401

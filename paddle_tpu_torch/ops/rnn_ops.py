@@ -12,16 +12,20 @@ end.
 GRU's cell in two launches around its second product), the backward the
 cells in reverse. ``simple_rnn``, ``lstmp``'s recurrence (its projection
 sits inside the step) and the single-step ``lstm_unit`` and ``gru_unit``
-are plain torch ops: no main path runs them. Every float input is taken
-in the projected input's dtype, which is the carry's (the reference pins
-the carry to h0's, which is x's unless H0 is fed in another dtype).
-The rnn_search decode ops and generation_decode of the reference module
-are not ported (ROADMAP, the control-flow slice)."""
+are plain torch ops (``gru_unit`` runs a position at a time inside the
+RNN-search decoder's DynamicRNN step). Every float input is taken in the
+projected input's dtype, which is the carry's (the reference pins the
+carry to h0's, which is x's unless H0 is fed in another dtype).
+
+The decode ops ``rnn_search_greedy_decode``, ``rnn_search_beam_decode``
+and ``generation_decode`` loop over a static ``max_out_len`` with no host
+read, so a program that holds them is captured."""
 
 import torch
 
 from ..core.registry import register
 from . import pointwise
+from .tensor_ops import top_k
 from .kernels.rnn_cell import (ACTS, GruRecurrence, LstmRecurrence,
                                positions)
 
@@ -205,3 +209,193 @@ def _gru_unit(ctx):
     ctx.set_output('Gate', torch.cat([u, r, c], -1))
     ctx.set_output('ResetHiddenPrev', r * h_prev)
     ctx.set_output('Hidden', h)
+
+
+# ------------------------------------------------- the seq2seq decode ops
+def _rnn_search_params(ctx):
+    """The rnn_search decode ops' inputs (models/rnn_search.py)."""
+    return dict(
+        enc=ctx.input('EncOut'), proj=ctx.input('EncProj'),
+        state0=ctx.input('Boot'), src_len=_optional(ctx, 'SrcLen'),
+        emb=ctx.input('TrgEmb'), att_w=ctx.input('AttW'),
+        score_w=ctx.input('ScoreW'), step_w=ctx.input('StepW'),
+        gru_w=ctx.input('GruW'), gru_b=ctx.input('GruB'),
+        out_w=ctx.input('OutW'), out_b=ctx.input('OutB'))
+
+
+def _rnn_search_step(last_ids, state, enc, proj, kmask, p):
+    """One decoder step of models/rnn_search.py: the additive attention
+    over the source (masked past each row's length), gru_step over
+    [embedding, context] @ StepW, and the vocab projection. Returns
+    (new state, logits). The greedy and beam decode ops share it."""
+    dec = state @ p['att_w']
+    combined = torch.tanh(proj + dec[:, None, :])
+    scores = (combined @ p['score_w'])[..., 0]
+    if kmask is not None:
+        scores = torch.where(kmask, scores, torch.full(
+            (), -1e9, dtype=scores.dtype, device=scores.device))
+    weights = torch.softmax(scores, -1)
+    context = torch.einsum('bs,bsd->bd', weights, enc)
+    xt = torch.cat([p['emb'][last_ids], context], -1) @ p['step_w']
+    new_state = gru_step(xt, state, p['gru_w'], p['gru_b'])[0]
+    return new_state, new_state @ p['out_w'] + p['out_b']
+
+
+def _key_mask(src_len, ts, repeat=1):
+    """[B * repeat, Ts] True on each row's source positions, or None."""
+    if src_len is None:
+        return None
+    lens = src_len.reshape(-1)
+    if repeat > 1:
+        lens = lens.repeat_interleave(repeat)
+    return torch.arange(ts, device=lens.device)[None, :] < lens[:, None]
+
+
+@register('rnn_search_greedy_decode')
+def _rnn_search_greedy_decode(ctx):
+    """Greedy generation for the RNN-search seq2seq: max_out_len decoder
+    steps with argmax feedback (ties to the lower id) from BOS; every id
+    after a row's first EOS is EOS. A loop of static length with no host
+    read: captured."""
+    p = _rnn_search_params(ctx)
+    t_max = ctx.attr('max_out_len')
+    eos_id = ctx.attr('eos_id', 0)
+    enc, state = p['enc'], p['state0']
+    b, ts = enc.shape[0], enc.shape[1]
+    kmask = _key_mask(p['src_len'], ts)
+    ids = torch.full((b,), ctx.attr('bos_id', 1), dtype=torch.int64,
+                     device=enc.device)
+    steps = []
+    for _ in range(t_max):
+        state, logits = _rnn_search_step(ids, state, enc, p['proj'], kmask,
+                                         p)
+        ids = torch.argmax(logits, -1)
+        steps.append(ids)
+    ids = torch.stack(steps, 1)
+    is_eos = (ids == eos_id).to(torch.int32)
+    before = torch.cumsum(is_eos, 1) - is_eos
+    ids = torch.where(before > 0, torch.full((), eos_id, dtype=ids.dtype,
+                                             device=ids.device), ids)
+    ctx.set_output('Out', ids.to(ctx.out_dtype('Out', 'int64')))
+
+
+def _beam_loop(step, b, beam, t_max, bos_id, eos_id, device):
+    """The beam search both beam decoders run: ``step(last [B * beam],
+    parent [B, beam] or None)`` advances the beams' state and returns each
+    beam's log-probabilities [B * beam, V]; the top ``beam`` of each beam
+    become the candidates (decode_ops.beam_search_step), and the chosen
+    beams' parents reorder the state at the next step. Returns (sentences
+    [B, beam, T], final scores [B, beam])."""
+    from .decode_ops import beam_backtrack, beam_search_step
+    last = torch.full((b * beam,), bos_id, dtype=torch.int64, device=device)
+    pre_ids = torch.full((b, beam), bos_id, dtype=torch.int64, device=device)
+    # only slot 0 alive at first, so the first expansion draws each
+    # candidate once
+    pre_scores = torch.full((b, beam), -1e9, dtype=torch.float32,
+                            device=device)
+    pre_scores[:, 0] = 0.0
+    parent = None
+    step_ids, step_parents = [], []
+    for _ in range(t_max):
+        logp = step(last, parent)
+        k = min(beam, logp.shape[-1])
+        top_scores, top_ids = top_k(logp, k)
+        pre_ids, pre_scores, parent = beam_search_step(
+            pre_ids, pre_scores, top_ids.reshape(b, beam, k),
+            top_scores.reshape(b, beam, k), beam, eos_id)
+        last = pre_ids.reshape(-1)
+        step_ids.append(pre_ids)
+        step_parents.append(parent)
+    seq = beam_backtrack(torch.stack(step_ids), torch.stack(step_parents),
+                         eos_id)
+    return seq, pre_scores
+
+
+def _reorder(x, parent, b, beam):
+    """Rows [B * beam, ...] taken from each beam's parent."""
+    if parent is None:
+        return x
+    rest = tuple(x.shape[1:])
+    idx = parent.reshape((b, beam) + (1,) * len(rest)).expand(
+        (b, beam) + rest)
+    return x.reshape((b, beam) + rest).gather(1, idx).reshape(
+        (b * beam,) + rest)
+
+
+@register('rnn_search_beam_decode')
+def _rnn_search_beam_decode(ctx):
+    """Beam search for the RNN-search seq2seq (the seqToseq demo's
+    generation): the beams fold into the batch for the shared decoder
+    step, candidates are each beam's top beam_size by log-softmax
+    (tensor_ops.top_k, ties to the lower id), pruned by
+    decode_ops.beam_search_step and walked back by beam_backtrack.
+    SentenceIds [B, beam, max_out_len] best first, SentenceScores
+    [B, beam]. A loop of static length with no host read: captured."""
+    p = _rnn_search_params(ctx)
+    beam = ctx.attr('beam_size', 4)
+    enc = p['enc']
+    b, ts = enc.shape[0], enc.shape[1]
+    enc_b = enc.repeat_interleave(beam, 0)
+    proj_b = p['proj'].repeat_interleave(beam, 0)
+    kmask = _key_mask(p['src_len'], ts, beam)
+    state = [p['state0'].repeat_interleave(beam, 0)]
+
+    def step(last, parent):
+        cur = _reorder(state[0], parent, b, beam)
+        state[0], logits = _rnn_search_step(last, cur, enc_b, proj_b, kmask,
+                                            p)
+        return torch.log_softmax(logits.float(), -1)
+
+    seq, scores = _beam_loop(step, b, beam, ctx.attr('max_out_len'),
+                             ctx.attr('bos_id', 1), ctx.attr('eos_id', 0),
+                             enc.device)
+    ctx.set_output('SentenceIds',
+                   seq.to(ctx.out_dtype('SentenceIds', 'int64')))
+    ctx.set_output('SentenceScores', scores)
+
+
+@register('generation_decode')
+def _generation_decode(ctx):
+    """Step-function generation for the v1 recurrent_group / beam_search
+    (reference trainer_config_helpers/layers.py:4406): the step sub-block
+    runs once a position (control_ops._run_block_ops, is_test) with the
+    beams folded into the batch, fed the last ids and its memories; its
+    probabilities' log gives each beam's candidates, pruned and walked
+    back as in rnn_search_beam_decode. beam_size 1 is greedy. The
+    batch-shaped outer vars the step reads (attr batch_var_names) are
+    repeated for the beams once; parameters are read as they are."""
+    from .control_ops import _run_block_ops
+    block = ctx.block.program.block(ctx.attr('sub_block'))
+    memory_names = ctx.attr('memory_names')      # [(pre, cur), ...]
+    id_pre_name = ctx.attr('id_pre_name')
+    prob_name = ctx.attr('prob_name')
+    beam = ctx.attr('beam_size', 1)
+    n_results = ctx.attr('num_results', beam)
+    outer_env = dict(ctx.env)
+    for name in ctx.attr('batch_var_names'):
+        if name in outer_env:
+            outer_env[name] = outer_env[name].repeat_interleave(beam, 0)
+    b = ctx.input('BatchRef').shape[0]
+    mems = [m.repeat_interleave(beam, 0)
+            for m in ctx.input_list('BootMemories')]
+
+    def step(last, parent):
+        if parent is not None:
+            for i, m in enumerate(mems):
+                mems[i] = _reorder(m, parent, b, beam)
+        env = dict(outer_env)
+        env[id_pre_name] = last
+        for (pre, _), mem in zip(memory_names, mems):
+            env[pre] = mem
+        env = _run_block_ops(block, env, ctx, is_test=True)
+        for i, ((_, cur), mem) in enumerate(zip(memory_names, mems)):
+            mems[i] = env[cur].to(mem.dtype)
+        prob = env[prob_name].float()
+        return torch.log(torch.clamp(prob, min=1e-20))
+
+    seq, scores = _beam_loop(step, b, beam, ctx.attr('max_out_len'),
+                             ctx.attr('bos_id', 0), ctx.attr('eos_id', 1),
+                             ctx.device)
+    ctx.set_output('SentenceIds', seq[:, :n_results].to(
+        ctx.out_dtype('SentenceIds', 'int64')))
+    ctx.set_output('SentenceScores', scores[:, :n_results])

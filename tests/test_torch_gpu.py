@@ -7,7 +7,9 @@ the training lifecycle: a captured step with an LR schedule, a
 global-norm clip and L2 decay against eager, a checkpoint restored into
 a live executor (a replay), and a Trainer's resume, bit for bit; the
 Switch-MoE slot form against its plain copy, the MoE LM, remat and
-gradient accumulation at tiny widths.
+gradient accumulation at tiny widths; the RNN-search seq2seq (its encoder
+on the GRU sequence kernels), SSD (K5), the control-flow programs and
+generation_decode, card against host.
 
 Marked ``gpu``; each test decides inside itself whether a card exists and
 skips without one. This file imports no jax, so it also runs on a machine
@@ -2806,3 +2808,59 @@ def test_fetched_view_of_a_parameter_captured_is_pre_update(cuda, opt):
             np.testing.assert_array_equal(got[1], before.T)
             assert not np.array_equal(scope.numpy('gv_w'), before)
         assert exe.last_captured
+
+
+# ----------------------------- control flow, the RNN-search seq2seq, SSD
+def test_rnn_search_on_card_equals_host_on_gru_seq(cuda):
+    """models/rnn_search at hidden 64 (vocab 200, emb 32, batch 8 x 12,
+    ragged source lengths): 3 Adam steps on the card (the DynamicRNN
+    decoder captured) against the host within rtol 1e-4, the encoder on
+    the GRU sequence kernels (one launch each way a direction and step),
+    greedy ids equal."""
+    from chip_smoke import recurrence_want, rnn_search_places
+    dims = dict(src_vocab=200, trg_vocab=200, emb_dim=32, hidden_dim=64)
+    losses, ids, launches = rnn_search_places(
+        torch, pt, (pt.CUDAPlace(0), pt.CPUPlace()), dims, 8, 12)
+    np.testing.assert_allclose(losses[0], losses[1], rtol=1e-4)
+    want = recurrence_want(torch, 'gru', 8, 12, 64, times=2 * 3)
+    assert want['gru_seq_fwd'] == 6
+    assert {k: launches[k] for k in want} == want
+    np.testing.assert_array_equal(ids[0], ids[1])
+
+
+def test_ssd_step_on_card_uses_k5_and_equals_host(cuda):
+    """models/ssd at 3 x 64 x 64, 4 classes, batch 2: 3 Adam steps on the
+    card, each with 5 K5 forward and 5 backward launches, against the
+    host within rtol 1e-4; the detections' labels equal, scores and boxes
+    within 1e-5."""
+    from chip_smoke import ssd_places
+    losses, dets, launches = ssd_places(
+        torch, pt, (pt.CUDAPlace(0), pt.CPUPlace()))
+    np.testing.assert_allclose(losses[0], losses[1], rtol=1e-4)
+    assert launches['batch_norm'] == 15 and launches['batch_norm_bwd'] == 15
+    np.testing.assert_array_equal(dets[0][..., 0], dets[1][..., 0])
+    np.testing.assert_allclose(dets[0][..., 1:], dets[1][..., 1:], rtol=0,
+                               atol=1e-5)
+
+
+def test_control_flow_on_card_equals_host(cuda):
+    """The While countdown over a tensor array runs eagerly (host-bound),
+    the IfElse and StaticRNN programs are captured; each equals the host
+    exactly."""
+    from chip_smoke import control_flow_on_card
+    out = control_flow_on_card(pt, pt.CUDAPlace(0), 'card', True)
+    assert out['while']['captured'] is False
+    assert out['if_else']['captured'] and out['static_rnn']['captured']
+    assert all(v['equals_host'] for v in out.values())
+
+
+def test_generation_decode_on_card_equals_host(cuda):
+    """The v1 seq2seq generation program of
+    tests/fixtures/generation_decode_v1.json (beam 4), captured on the
+    card: ids equal the host's, scores within 1e-5."""
+    from chip_smoke import generation_places
+    (ci, cs, captured), (hi, hs, _) = generation_places(
+        torch, pt, (pt.CUDAPlace(0), pt.CPUPlace()))[0]
+    assert captured
+    np.testing.assert_array_equal(ci, hi)
+    np.testing.assert_allclose(cs, hs, rtol=0, atol=1e-5)
