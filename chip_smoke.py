@@ -8,10 +8,11 @@ layer built from them, every new and repaired op), the staging ring,
 the Switch-MoE LM, remat and gradient accumulation, and the recurrent
 and sequence path (bench_rnn_lstm, the LSTM sequence kernels, the LSTM
 and GRU cell kernels, the sequence models), and control flow with the
-RNN-search seq2seq and SSD on one CUDA card.
+RNN-search seq2seq and SSD, and the conv path's CNNs (MobileNet v1,
+SE-ResNeXt-50, VGG, AlexNet, GoogLeNet, LeNet-5) on one CUDA card.
 
     python3 chip_smoke.py                  # on a machine with one H100
-    python3 chip_smoke.py --cpu-rehearsal  # phases 4-20 on the host, tiny
+    python3 chip_smoke.py --cpu-rehearsal  # phases 4-21 on the host, tiny
 
 Every path runs through the executor's CUDA graphs (one a key, captured on
 its second call; core/executor.py), and phase 11 holds each against the
@@ -397,15 +398,36 @@ Phases (any fault exits non-zero; no phase is skipped over):
    (labels exact, scores and boxes within 1e-5). (e) generation_decode on
    the v1 seq2seq of tests/fixtures/generation_decode_v1.json, beam 4,
    captured on the card, ids equal the host's.
+21. The conv path's rest. (a) MobileNet v1 (scale 1.0, NHWC and NCHW,
+   batch 64) and SE-ResNeXt-50 32x4d (reduction 16, NCHW, batch 32) at
+   224 x 224, 1000 classes, bf16 AMP, Momentum(0.1, 0.9): 3 eager steps,
+   then 10 captured (wall, device-busy ms and kernels a step), exactly
+   27 + 27 and 53 + 53 K5 launches a step; then each at its tests' small
+   build, fp32: the first step captured against eager within 1e-6 under
+   cudnn.deterministic (the default algorithms' gap printed). (b)
+   VGG-16, AlexNet and GoogLeNet (224, batch 64, bf16), LeNet-5 (1 x 28 x
+   28, batch 64, fp32) and vgg_bn_drop (3 x 32 x 32, batch 128, fp32 and
+   bf16, 14 + 14 K5 launches a step, one of them the [128, 512] fc
+   output), Momentum(0.01, 0.9): 3 captured steps each, losses finite
+   and falling over a repeated batch. (c) the seven small builds card
+   against host from the same weights, 2 steps, fp32 and bf16: the first
+   loss within 1e-5 (bf16: 1e-2) relative, the second printed (a step
+   of these nets turns rounding into percents of the next loss). (d)
+   the 12 op types card against host at working sizes, forward and
+   gradient (roi_pool at Fast R-CNN's VGG-16 head, the pool / unpool
+   round trip at SegNet's first pooling, ...): exact ones bit for bit.
+   (e) K5 at MobileNet's and SE-ResNeXt's NCHW shapes and the 2-D
+   [128, 512] in bf16 and fp32, against its plain versions.
 
 The last line is {"ok": true, "device": {...}}; before it come one JSON
 line with every kernel's numbers (and phase 13's under "lifecycle":
 tokens/s a depth, launches a step, checkpoint bytes, save, restore and
 export seconds; phase 14's under "disagg"; phase 15's under "ctr";
 phase 16's under "layers"; phase 17's under "staging"; phase 18's under
-"moe"; phase 19's under "rnn"; phase 20's under "control_flow") and
+"moe"; phase 19's under "rnn"; phase 20's under "control_flow"; phase
+21's under "conv") and
 nvidia-smi's name and power limit.
---cpu-rehearsal runs phases 4-20 at tiny sizes with the plain versions
+--cpu-rehearsal runs phases 4-21 at tiny sizes with the plain versions
 (phases 8, 10, 11, 13d and 15 then compare the host with itself) and
 never prints that last line. --profile adds, after every other phase, a torch.profiler
 breakdown of decode steps (fp32 and int8 arenas, captured and eager),
@@ -582,7 +604,9 @@ def phase_build():
                    'lstm_cell_bwd_kernel', 'gru_cell_fwd_kernel',
                    'gru_cell_bwd_kernel', 'lstm_seq_fwd_kernel',
                    'lstm_seq_bwd_kernel', 'gru_seq_fwd_kernel',
-                   'gru_seq_bwd_kernel'):
+                   'gru_seq_bwd_kernel', 'max_pool_pick_kernel',
+                   'max_pool_grad_kernel', 'max_pool_pick_vec_kernel',
+                   'max_pool_grad_vec_kernel'):
         require(kernel in res.log, 'ptxas\'s log does not show %s' % kernel)
     print('  flash attention dynamic shared memory at D=64: tensor-core '
           'forward %d B, SIMT forward %d B, SIMT dK/dV %d B, SIMT dQ %d B, '
@@ -1972,6 +1996,102 @@ def phase_step_kernels(torch, card):
     ffn = ((64, 64, 2048), torch.bfloat16, 'mul')
     return (kvw['int8'], fused['decode', 'float32'], mask,
             drop[ffn + (False,)], drop[ffn + (True,)])
+
+
+# ----------------------------------------------------- phase 3: max_pool_bwd
+def pool_shapes(torch):
+    """The max pools of the main paths: (label, x shape, dtype,
+    channels-last, ksize, stride, padding, ceil_mode)."""
+    return [
+        ('ResNet-50 stem [64, 64, 112, 112] bf16 NHWC 3x3/2 pad 1',
+         (64, 64, 112, 112), torch.bfloat16, True, 3, 2, 1, False),
+        ('GoogLeNet stem [64, 64, 112, 112] bf16 3x3/2 ceil',
+         (64, 64, 112, 112), torch.bfloat16, False, 3, 2, 0, True),
+        ('GoogLeNet inception [64, 480, 14, 14] bf16 3x3/1 pad 1',
+         (64, 480, 14, 14), torch.bfloat16, False, 3, 1, 1, False),
+        ('VGG-16 [64, 64, 224, 224] bf16 2x2/2',
+         (64, 64, 224, 224), torch.bfloat16, False, 2, 2, 0, False),
+        ('vgg_bn_drop [128, 64, 32, 32] fp32 2x2/2',
+         (128, 64, 32, 32), torch.float32, False, 2, 2, 0, False),
+    ]
+
+
+def _max_pool_case(torch, card, case, gen):
+    """max_pool_bwd's kernels against their plain version on x with NaN,
+    ±inf and ties (values on a 1/8 grid): twice for equal bits; equal to
+    the plain version in x's dtype where windows do not overlap, within
+    one ulp of its fp32 sums where they do; times beside the bound and
+    torch's own max pooling backward (which sends a NaN window's gradient
+    to the NaN, on the same inputs)."""
+    from paddle_tpu_torch.ops.conv_ops import pool2d
+    from paddle_tpu_torch.ops.kernels import max_pool as K
+    label, shape, dtype, cl, k, s, p, ceil = case
+    dev = torch.device('cuda', 0)
+    x = torch.round(torch.randn(shape, generator=gen, device=dev) * 8) / 8
+    u = torch.rand(shape, generator=gen, device=dev)
+    x = torch.where(u < 0.01, float('nan'), x)
+    x = torch.where((u >= 0.01) & (u < 0.015), float('inf'), x)
+    x = torch.where((u >= 0.015) & (u < 0.02), float('-inf'), x).to(dtype)
+    if cl:
+        x = x.contiguous(memory_format=torch.channels_last)
+    out = pool2d(x, 'max', [k, k], [s, s], [p, p], False, ceil_mode=ceil)
+    h, w = shape[2:]
+    eh = -(h + 2 * p - k) % s if ceil else 0
+    ew = -(w + 2 * p - k) % s if ceil else 0
+    pad = (p, p + ew, p, p + eh)
+    dy = torch.randn(out.shape, generator=gen, device=dev).to(dtype)
+    geo = ((k, k), (s, s), pad)
+    before = K.max_pool_bwd.launches
+    got = K.max_pool_bwd(x, dy, *geo)
+    again = K.max_pool_bwd(x, dy, *geo)
+    require(K.max_pool_bwd.launches == before + 2,
+            '%s: the kernel was not counted' % label)
+    want = K.max_pool_bwd_reference(x, dy, *geo)
+    want32 = K.max_pool_bwd_reference(x.float(), dy.float(), *geo)
+    torch.cuda.synchronize()
+    same = torch.equal(got, again)
+    err = float((got.float() - want.float()).abs().max())
+    if s >= k:
+        ok = torch.equal(got, want)
+    else:
+        ulp = bf16_ulp_t(torch, want32.abs()) if dtype == torch.bfloat16 \
+            else want32.double().abs() * 2.0 ** -22
+        ok = bool(((got.double() - want32.double()).abs() <= ulp).all())
+    n_x, n_y = x.numel(), dy.numel()
+    lo, by = bound_ms((2 * n_x + n_y) * x.element_size(), k * k * n_y)
+    ms = device_ms(torch, lambda: K.max_pool_bwd(x, dy, *geo))
+    plain = device_ms(torch, lambda: K.max_pool_bwd_reference(x, dy, *geo),
+                      iters=10)
+    lib = None
+    if pad[0] == pad[1] <= k // 2 and pad[2] == pad[3] <= k // 2:
+        finite = torch.nan_to_num(x, nan=0.0)
+        _, idx = torch.nn.functional.max_pool2d(finite, k, s, p,
+                                                return_indices=True)
+        lib = device_ms(torch, lambda: torch.ops.aten.
+                        max_pool2d_with_indices_backward(
+                            dy, finite, [k, k], [s, s], [p, p], [1, 1],
+                            False, idx))
+    print('max_pool_bwd %s: twice bit for bit %s; %s its plain version '
+          '(largest difference %.3g) %s; device ms: kernels %.5f, plain '
+          '%.5f, bound %.5f (%s), torch\'s max_pool2d backward %s [%s]'
+          % (label, 'ok' if same else 'MISMATCH',
+             'equal to' if s >= k else 'within an ulp of the fp32 sums of',
+             err, 'ok' if ok else 'MISMATCH', ms, plain, lo, by,
+             '%.5f' % lib if lib is not None else 'n/a (padding past '
+             'torch\'s)', card))
+    require(same and ok, '%s: max_pool_bwd disagrees with its plain '
+            'version or with itself' % label)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=lo,
+                bound_by=by, library_ms=lib)
+
+
+def phase_pool_kernels(torch, card):
+    """max_pool_bwd at the main paths' pools; returns ResNet-50's stem
+    pool's numbers (the kernels line's)."""
+    gen = torch.Generator(device='cuda').manual_seed(23)
+    rows = [_max_pool_case(torch, card, c, gen) for c in pool_shapes(torch)]
+    torch.cuda.empty_cache()
+    return rows[0]
 
 
 # ------------------------------------------------------ phase 3: sparse_rows
@@ -5287,15 +5407,20 @@ def parity_difference(got, want, exact=False, bf16=False, grad=False,
     return float(err[bad].max()) if bad.any() else None
 
 
-def _op_helper(pt, op_type, inputs, out_dtype=None, slots=('Out',)):
+def _op_helper(pt, op_type, inputs, out_dtype=None, slots=('Out',),
+               attrs=None):
+    """One ``op_type`` op on ``inputs``; its ``slots``' outputs take
+    ``out_dtype`` (a dtype, or {slot: dtype} beside the first input's)."""
     from paddle_tpu_torch.layers.helper import LayerHelper
     helper = LayerHelper(op_type)
     first = next(iter(inputs.values()))
+    dtypes = out_dtype if isinstance(out_dtype, dict) else \
+        dict.fromkeys(slots, out_dtype)
     outs = {s: [helper.create_variable_for_type_inference(
-        out_dtype or first.dtype)] for s in slots}
+        dtypes.get(s) or first.dtype)] for s in slots}
     helper.append_op(type=op_type, inputs={k: [v] for k, v in
                                            inputs.items()},
-                     outputs=outs, attrs={})
+                     outputs=outs, attrs=attrs or {})
     return [outs[s][0] for s in slots]
 
 
@@ -5409,7 +5534,8 @@ def _layers_ops_program(pt, n, d, amp, cases_of=layers_ops, extra=()):
     one program: each float input through its own -0.0 probe (x + -0.0 is
     x bit for bit; the probe's gradient is the op's at x), cast to bf16
     under amp; the loss sums reduce_sum of every float output. ``extra``:
-    (name, shape, dtype) of further data inputs, read unprobed. Returns
+    (name, shape, dtype) of further data inputs, read unprobed, or (name,
+    shape, dtype, True): probed like x at their own shape. Returns
     (main, startup, [(name, exact, terms, sums, fetch names, [(input,
     gradient name)])])."""
     main, startup = pt.Program(), pt.Program()
@@ -5422,17 +5548,19 @@ def _layers_ops_program(pt, n, d, amp, cases_of=layers_ops, extra=()):
                           append_batch_size=False)
         xs = {k: data(k) for k in ('x', 'y', 'label')}
         xs.update(a=data('a', 'bool'), b=data('b', 'bool'))
-        xs.update({k: data(k, dtype, shape) for k, shape, dtype in extra})
+        xs.update({e[0]: data(e[0], e[2], e[1]) for e in extra})
+        shapes = dict.fromkeys(('x', 'y', 'label'), (n, d))
+        shapes.update({e[0]: e[1] for e in extra if e[3:] == (True,)})
         sums = []
         for name, build, exact, terms, sums_of in cases_of(pt):
             probed, grads = {}, []
 
             def v(k, name=name, probed=probed, grads=grads):
-                if k not in ('x', 'y', 'label'):
+                if k not in shapes:
                     return xs[k]
                 if k not in probed:
                     probe = L.create_parameter(
-                        shape=[n, d], dtype='float32',
+                        shape=list(shapes[k]), dtype='float32',
                         name='%s_%s_probe' % (name, k),
                         default_initializer=pt.initializer.Constant(-0.0))
                     val = L.elementwise_add(xs[k], probe)
@@ -5478,7 +5606,7 @@ def _where_apart(got, want, feed, k=4):
     for i in np.argwhere(apart)[:k]:
         i = tuple(i)
         xy = ['%s=%r' % (n, feed[n][i]) for n in ('x', 'y')
-              if feed[n].shape == g.shape]
+              if n in feed and feed[n].shape == g.shape]
         out.append('at %s %s card %r host %r' % (i, ' '.join(xy), g[i],
                                                  w[i]))
     return ('; ' + '; '.join(out)) if out else ''
@@ -5491,14 +5619,16 @@ def _numpy_all(torch, values):
 
 def _ops_card_vs_host(torch, pt, place, on_card, n, d, amp, feed, worst,
                       faults, label, cases_of=layers_ops, extra=(),
-                      faults_at=None, phase='16b'):
+                      faults_at=None, phase='16b', times=None):
     """The program of ``cases_of`` (_layers_ops_program) run on ``place``
     (twice: captured on the card) and on the CPU place; every output and
     probe gradient held card against host by parity_difference (its
     scale from the ordinary elements of x and y), a repaired fault's
     elements (LAYERS_FAULTS, by ``faults_at``'s values) exactly. Appends
     to ``faults``, raises ``worst`` (an op's largest relative difference,
-    absolute below 1). Returns (outputs and gradients compared, cases)."""
+    absolute below 1); with ``times``, sets times[label] to the card's ms
+    a replay of the captured program (its feed on the card). Returns
+    (outputs and gradients compared, cases)."""
     compared = 0
     main, startup, cases = _layers_ops_program(pt, n, d, amp, cases_of,
                                                extra)
@@ -5514,6 +5644,14 @@ def _ops_card_vs_host(torch, pt, place, on_card, n, d, amp, feed, worst,
             if mode == 'card' and on_card:
                 require(exe.last_captured, 'phase %s %s: the ops program '
                         'did not run captured' % (phase, label))
+                if times is not None:
+                    on = {k: torch.as_tensor(v).to(exe.device)
+                          for k, v in feed.items()}
+                    exe.run(main, feed=on, fetch_list=fetch,
+                            return_numpy=False)
+                    times[label] = _events_ms(torch, lambda: [
+                        exe.run(main, feed=on, fetch_list=fetch,
+                                return_numpy=False) for _ in range(3)], 3)
         res[mode] = dict(zip(fetch, _numpy_all(torch, out)))
     for name, exact, terms, sums_of, outs, grads in cases:
         s_outs, s_grads = sums_of(feed) if sums_of else ([], {})
@@ -5530,7 +5668,8 @@ def _ops_card_vs_host(torch, pt, place, on_card, n, d, amp, feed, worst,
             ex = exact and not (grad and name == 'elementwise_mod')
             diff = parity_difference(
                 g, w, ex, bf16, grad, terms=terms, sums=sums,
-                where=ordinary(w.shape, feed['x'], feed['y']))
+                where=ordinary(w.shape, *[feed[k] for k in ('x', 'y')
+                                          if k in feed]))
             if diff is not None:
                 faults.append('%s %s %s: card and host differ by %r%s'
                               % (label, name, f, diff,
@@ -8558,10 +8697,557 @@ def phase_control_flow(torch, pt, place, card, on_card, small=False,
     return runs, out
 
 
+# ------------------------------------------------------------ phase 21
+def _conv_program(pt, builder, image, chans, class_dim, amp, lr, **kw):
+    """One of the conv path's classifiers through the port's user API on
+    the default programs: data 'image' [chans, image, image] (the MNIST
+    nets' own 'img'), an int64 'label', the model's softmax output, mean
+    cross-entropy, Momentum(lr, 0.9).minimize, amp on the main program.
+    Returns the loss var."""
+    from paddle_tpu_torch.models import (alexnet, googlenet, lenet,
+                                         mobilenet, resnext, vgg)
+    pt.reset_default_programs()
+    if builder == 'lenet':
+        _, avg, _ = lenet.convolutional_neural_network()
+    else:
+        img = pt.layers.data(name='image', shape=[chans, image, image],
+                             dtype='float32')
+        label = pt.layers.data(name='label', shape=[1], dtype='int64')
+        fn = {'mobile_net': mobilenet.mobile_net,
+              'se_resnext': resnext.se_resnext, 'vgg16': vgg.vgg16,
+              'vgg_bn_drop': vgg.vgg_bn_drop, 'alexnet': alexnet.alexnet,
+              'googlenet': googlenet.googlenet}[builder]
+        avg = pt.layers.mean(pt.layers.cross_entropy(
+            fn(img, class_dim=class_dim, **kw), label))
+    pt.optimizer.Momentum(learning_rate=lr, momentum=0.9).minimize(avg)
+    pt.default_main_program().amp = amp
+    return avg
+
+
+def conv_feed(builder, batch, image, chans=3, class_dim=1000, seed=0):
+    rng = np.random.RandomState(seed)
+    name = 'img' if builder == 'lenet' else 'image'
+    return {name: rng.rand(batch, chans, image, image).astype('float32'),
+            'label': rng.randint(0, class_dim, (batch, 1)).astype('int64')}
+
+
+# the full-width paths (21a) and the other models at their published
+# inputs (21b): (label, builder, image, channels, batch, amp, builder
+# arguments, K5 launches a step each way)
+CONV_WIDE = [
+    ('MobileNet v1 NHWC', 'mobile_net', 224, 3, 64, 'bf16',
+     dict(scale=1.0, data_format='NHWC'), 27),
+    ('MobileNet v1 NCHW', 'mobile_net', 224, 3, 64, 'bf16',
+     dict(scale=1.0, data_format='NCHW'), 27),
+    ('SE-ResNeXt-50 32x4d', 'se_resnext', 224, 3, 32, 'bf16',
+     dict(depth=50, cardinality=32, reduction_ratio=16), 53),
+]
+CONV_OTHERS = [
+    ('VGG-16', 'vgg16', 224, 3, 64, 'bf16', {}, 0),
+    ('AlexNet', 'alexnet', 224, 3, 64, 'bf16', {}, 0),
+    ('GoogLeNet', 'googlenet', 224, 3, 64, 'bf16', {}, 0),
+    ('LeNet-5', 'lenet', 28, 1, 64, None, {}, 0),
+    ('vgg_bn_drop fp32', 'vgg_bn_drop', 32, 3, 128, None, {}, 14),
+    ('vgg_bn_drop bf16', 'vgg_bn_drop', 32, 3, 128, 'bf16', {}, 14),
+]
+
+
+def _conv_timed(torch, pt, place, card, on_card, case, lr, warmup, steps,
+                eager_steps=0, class_dim=1000, busy=False):
+    """``case`` trained on ``place``: ``eager_steps`` steps with
+    use_program_cache=False, then ``warmup`` steps (the eager run and the
+    capture) and ``steps`` timed captured steps, whose launch counts are
+    returned with the numbers: ms a step captured and eager, images/s,
+    with ``busy`` the device-busy ms and kernels a step (torch.profiler
+    over 3 more steps), losses."""
+    label, builder, image, chans, batch, amp, kw, n_bn = case
+    classes = 10 if builder in ('vgg_bn_drop', 'lenet') else class_dim
+    avg = _conv_program(pt, builder, image, chans, classes, amp, lr, **kw)
+    program = pt.default_main_program()
+    exe = pt.Executor(place)
+    scope = pt.Scope()
+    feed = conv_feed(builder, batch, image, chans, classes)
+    out = dict(batch=batch, image=image, amp=amp or 'fp32')
+    with pt.scope_guard(scope):
+        exe.run(pt.default_startup_program())
+        feed = {n: torch.as_tensor(v).to(exe.device) for n, v in feed.items()}
+
+        def run(n, cache=True):
+            return [exe.run(program, feed=feed, fetch_list=[avg],
+                            return_numpy=False, use_program_cache=cache)[0]
+                    for _ in range(n)]
+        losses = []
+        if eager_steps:
+            run(1, cache=False)
+            _sync(torch, on_card)
+            t0 = time.perf_counter()
+            losses += run(eager_steps, cache=False)
+            _sync(torch, on_card)
+            out['eager_ms'] = (time.perf_counter() - t0) * 1e3 / eager_steps
+        losses += run(warmup)
+        reset_launches()
+        _sync(torch, on_card)
+        t0 = time.perf_counter()
+        losses += run(steps)
+        _sync(torch, on_card)
+        secs = time.perf_counter() - t0
+        launches = read_launches()
+        if on_card:
+            require(exe.last_captured, '%s: the timed steps ran eagerly'
+                    % label)
+        if busy and on_card:
+            b, _, _, _, kernels = _busy_ms(torch, lambda: run(3), 3)
+            out.update(busy_ms=b, kernels_per_step=kernels)
+    losses = [float(v.float()) for v in losses]
+    ms = secs * 1e3 / steps
+    out.update(ms=ms, images_per_s=batch * steps / secs,
+               loss_first=losses[0], loss_last=losses[-1],
+               bn_per_step=(launches['batch_norm'] / steps,
+                            launches['batch_norm_bwd'] / steps))
+    if 'busy_ms' in out:
+        out['busy_share'] = out['busy_ms'] / ms
+    print('phase 21 %s: batch %d x %d x %d x %d, %s, Momentum(%g, 0.9); '
+          '%d timed captured steps after %d: %.3f ms/step, %.1f images/s%s%s'
+          '; loss %.5f -> %.5f; K5 a step: forward %g, backward %g (want %d '
+          'each) [%s]'
+          % (label, batch, chans, image, image, out['amp'], lr, steps,
+             warmup + eager_steps, ms, out['images_per_s'],
+             '; eager %.3f ms/step' % out['eager_ms'] if eager_steps else '',
+             '; device busy %.3f ms/step (%.3f of the wall), %.0f kernels a '
+             'step' % (out['busy_ms'], out['busy_share'],
+                       out['kernels_per_step']) if 'busy_ms' in out else '',
+             losses[0], losses[-1], out['bn_per_step'][0],
+             out['bn_per_step'][1], n_bn, card))
+    require(np.isfinite(losses).all(), '%s: loss not finite: %s'
+            % (label, losses))
+    require(losses[-1] < losses[0], '%s: loss did not fall over a repeated '
+            'batch: %s' % (label, losses))
+    if on_card:
+        require(out['bn_per_step'] == (n_bn, n_bn),
+                '%s: K5 launches a step %s, want %d each'
+                % (label, out['bn_per_step'], n_bn))
+    return launches, out
+
+
+# the small builds card against host (21c) and captured against eager
+# (21a): (label, builder, image, batch, builder arguments, fp32 limit of
+# the first step's gradient gap, conv_grad_gaps' norm over all
+# parameters); the sizes of tests/test_torch_cnn_models.py and its
+# companions, but SE-ResNeXt's: at 32^2 x 4 its last stage normalizes 4
+# values a channel, and a one-ulp nudge of the images moves its first
+# loss by 8e-5 on the host alone (tests/torch_cnn_conditioning.py). The
+# limits: 2x the gaps that the nudge or another order of the host's
+# convolution sums gives there (BN nets), 1e-3 for the others. Under bf16
+# AMP the limit is twice the gap between the host's own bf16 and fp32
+# gradients: bf16 rounding alone moves them by 1.6 % (LeNet-5) to 133 %
+# (MobileNet) of their norm at these builds
+CONV_SMALL = [
+    ('MobileNet NHWC', 'mobile_net', 32, 16,
+     dict(scale=0.25, data_format='NHWC'), 0.1),
+    ('MobileNet NCHW', 'mobile_net', 32, 16,
+     dict(scale=0.25, data_format='NCHW'), 0.1),
+    ('SE-ResNeXt-50', 'se_resnext', 64, 8, dict(depth=50, cardinality=8),
+     0.1),
+    ('vgg_bn_drop', 'vgg_bn_drop', 32, 16, {}, 0.05),
+    ('AlexNet', 'alexnet', 67, 4, {}, 1e-3),
+    ('GoogLeNet', 'googlenet', 64, 4, {}, 1e-3),
+    ('LeNet-5', 'lenet', 28, 8, {}, 1e-3),
+]
+
+def _conv_small_program(pt, case, amp):
+    _, builder, image, _, kw = case[:5]
+    return _conv_program(pt, builder, image, 1 if builder == 'lenet' else 3,
+                         10, amp, 0.01, **kw)
+
+
+def _conv_weights(pt):
+    host = pt.Scope()
+    with pt.scope_guard(host):
+        pt.Executor(pt.CPUPlace()).run(pt.default_startup_program())
+    return {n: host.numpy(n) for n in host.keys()}
+
+
+def conv_places(torch, pt, places, case, amp, steps=2):
+    """2 Momentum(0.01) steps of a small build on each place from the same
+    weights (dropout at its published rate: the port's bits do not depend
+    on the device). Returns, a place, (losses, the first step's gradient
+    of each parameter)."""
+    from paddle_tpu_torch.weights import load_into_scope
+    builder, image, batch = case[1:4]
+    avg = _conv_small_program(pt, case, amp)
+    main = pt.default_main_program()
+    grads = [p.name + '@GRAD' for p in main.all_parameters()]
+    weights = _conv_weights(pt)
+    feed = conv_feed(builder, batch, image, 1 if builder == 'lenet' else 3,
+                     10, seed=1)
+    runs = []
+    for place in places:
+        scope = pt.Scope()
+        load_into_scope(weights, scope, place)
+        exe = pt.Executor(place)
+        losses = []
+        with pt.scope_guard(scope):
+            for i in range(steps):
+                out = exe.run(main, feed=feed,
+                              fetch_list=[avg] + (grads if i == 0 else []))
+                losses.append(out[0].item())
+                if i == 0:
+                    first = {g: np.asarray(v, 'float64')
+                             for g, v in zip(grads, out[1:])}
+        runs.append((losses, first))
+    return runs
+
+
+def conv_grad_gaps(card, host):
+    """(largest ||card - host|| / ||host|| of a parameter's gradient, its
+    norm floored at 1e-3 of the largest parameter's (a conv bias before a
+    batch norm has gradient 0 up to rounding); the same over all
+    parameters together)."""
+    norms = {n: float(np.linalg.norm(h)) for n, h in host.items()}
+    top = max(norms.values())
+    each = max(float(np.linalg.norm(card[n] - h)) /
+               max(norms[n], 1e-3 * top, 1e-30) for n, h in host.items())
+    whole = (sum(float(np.square(card[n] - h).sum())
+                 for n, h in host.items()) /
+             sum(v * v for v in norms.values())) ** 0.5
+    return each, whole
+
+
+def conv_captured_vs_eager(torch, pt, place, card, case):
+    """Phase 11(b)'s check on a small fp32 build: the first step captured
+    against eager, with cuDNN's default algorithms (printed) and under
+    cudnn.deterministic (within 1e-6 relative: the loss, and every scope
+    variable against its largest entry)."""
+    builder, image, batch = case[1:4]
+    avg = _conv_small_program(pt, case, None)
+    weights = _conv_weights(pt)
+    feed = conv_feed(builder, batch, image, 1 if builder == 'lenet' else 3,
+                     10, seed=2)
+
+    def gap(a, b):
+        rel = float(np.max(np.abs(a[0] - b[0]) / np.abs(b[0])))
+        return max([rel] + [float(np.abs(a[1][n] - v).max()) /
+                            max(float(np.abs(v).max()), 1e-30)
+                            for n, v in b[1].items()])
+    found = {}
+    for deterministic in (False, True):
+        torch.backends.cudnn.deterministic = deterministic
+        try:
+            res = _three_ways(torch, pt, place, pt.default_main_program(),
+                              avg, weights, feed, steps=1,
+                              modes=('captured', 'eager'))
+        finally:
+            torch.backends.cudnn.deterministic = False
+        found[deterministic] = gap(res['captured'], res['eager'])
+    print('phase 21a %s %dx%d batch %d fp32: the first step captured vs '
+          'eager within %.3g relative with cuDNN\'s default algorithms, '
+          '%.3g under cudnn.deterministic (limit 1e-6) [%s]'
+          % (case[0], image, image, batch, found[False], found[True], card))
+    require(found[True] <= 1e-6, 'phase 21a %s: captured differs from '
+            'eager' % case[0])
+    return found
+
+
+def _conv_sums(torch, device, fn, inputs, terms):
+    """A convolution case's ``sums`` (parity_difference's, given with
+    terms 1): ``fn`` of the |inputs| (feed names) and the gradient of its
+    sum, each element's magnitude of terms times its count of terms
+    (``terms``: the output's, then each input's), fp32 on ``device``."""
+    def sums_of(feed):
+        a = [torch.as_tensor(np.abs(feed[k])).to(device).requires_grad_()
+             for k in inputs]
+        out = fn(*a)
+        out.backward(torch.ones_like(out))
+
+        def scaled(t, count):
+            return t.detach().double().cpu().numpy() * count
+        return [scaled(out, terms[0])], {
+            k: scaled(t.grad, c) for k, t, c in zip(inputs, a, terms[1:])}
+    return sums_of
+
+
+def conv_op_cases(torch, pt, device, rng, small=False):
+    """21d at working sizes (``small``: the rehearsal's): (label, x, extra,
+    case). x is the op's first input, fed as [n, d] (its leading
+    dimensions flattened) and reshaped in the program; extra: {name:
+    (array, probed)} of its other inputs, a probed one held for its
+    gradient; case: _layers_ops_program's (name, build, exact, terms,
+    sums), the convolutions' sums from _conv_sums on ``device``. The loss
+    sums every float output (group_norm's Y times a fixed random tensor:
+    under a cotangent of ones its gradients are sums that cancel)."""
+    F = torch.nn.functional
+    f = np.float32
+    rois = np.zeros((128, 5), 'int64')
+    rois[:, 0] = rng.randint(0, 2, 128)
+    x1 = rng.randint(0, 700, 128)
+    y1 = rng.randint(0, 500, 128)
+    rois[:, 1], rois[:, 2] = x1, y1
+    rois[:, 3] = np.minimum(x1 + rng.randint(16, 400, 128), 799)
+    rois[:, 4] = np.minimum(y1 + rng.randint(16, 300, 128), 607)
+    # [N, C, H, W] (or [N, C, D, H, W], [N, T, D]) of each op's input
+    shapes = dict(
+        roi=(2, 512, 38, 50), pool=(32, 64, 224, 224),
+        lrn=(64, 96, 54, 54), convt=(32, 256, 14, 14),
+        conv3d=(8, 64, 16, 56, 56), gn=(32, 256, 56, 56), row=(64, 5, 4),
+        shift=(64, 6), spp=(64, 2, 8, 8), crop=(64, 5, 6),
+        norm=(64, 8, 16, 16))
+    if small:
+        shapes.update(roi=(2, 3, 38, 50), pool=(2, 3, 8, 8),
+                      lrn=(2, 7, 5, 5), convt=(2, 6, 5, 5),
+                      conv3d=(1, 3, 4, 5, 5), gn=(2, 64, 3, 3),
+                      row=(4, 5, 4), shift=(4, 6), spp=(4, 2, 8, 8),
+                      crop=(64, 5, 6), norm=(4, 8, 3, 3))
+
+    def img(*shape):
+        return rng.randn(*shape).astype(f)
+    x = {k: img(*v) for k, v in shapes.items()}
+    n, cin, h, w = shapes['convt']
+    convt_w = (0.05 * rng.randn(cin, cin // 2, 4, 4)).astype(f)
+    nd, c3 = shapes['conv3d'][:2]
+    conv3d_w = (0.05 * rng.randn(c3, c3, 3, 3, 3)).astype(f)
+    gn_c = shapes['gn'][1]
+    nb = shapes['shift'][0]
+
+    def x_as(L, v, key):
+        return L.reshape(v('x'), list(shapes[key]))
+
+    def op(op_type, inputs, slots, attrs, dtypes=None):
+        return _op_helper(pt, op_type, inputs, out_dtype=dtypes,
+                          slots=slots, attrs=attrs)
+
+    def pool_unpool(L, x4):
+        out, mask = L.max_pool2d_with_index(x4, [2, 2], strides=[2, 2])
+        return [out, mask, L.unpool(out, mask, [2, 2], strides=[2, 2])]
+    one = [1, 1]
+    return [
+        ('roi_pool %s, 128 ROIs, 7x7, 1/16' % list(shapes['roi']),
+         x['roi'], {'rois': (rois, False)},
+         ('roi_pool', lambda L, v: op(
+             'roi_pool', {'X': x_as(L, v, 'roi'), 'ROIs': v('rois')},
+             ('Out', 'Argmax'), dict(pooled_height=7, pooled_width=7,
+                                     spatial_scale=1.0 / 16),
+             {'Argmax': 'int64'}), True, 0, None)),
+        ('max_pool2d_with_index + unpool %s 2x2/2' % list(shapes['pool']),
+         x['pool'], {},
+         ('max_pool2d_with_index', lambda L, v: pool_unpool(
+             L, x_as(L, v, 'pool')), True, 0, None)),
+        ('lrn %s' % list(shapes['lrn']), x['lrn'], {},
+         ('lrn', lambda L, v: op('lrn', {'X': x_as(L, v, 'lrn')},
+                                 ('Out', 'MidOut'),
+                                 dict(n=5, k=2.0, alpha=1e-4, beta=0.75)),
+          False, 0, None)),
+        ('conv2d_transpose %s -> %dx%d, k4 s2' % (list(shapes['convt']),
+                                                  2 * h, 2 * w),
+         x['convt'], {'filter': (convt_w, True)},
+         ('conv2d_transpose', lambda L, v: op(
+             'conv2d_transpose', {'Input': x_as(L, v, 'convt'),
+                                  'Filter': v('filter')}, ('Output',),
+             dict(strides=[2, 2], paddings=one, dilations=one)), False, 1,
+          _conv_sums(torch, device, lambda a, k: F.conv_transpose2d(
+              a.reshape(shapes['convt']), k, stride=2, padding=1),
+              ('x', 'filter'), (cin * 4, cin // 2 * 16, n * h * w)))),
+        ('conv3d %s k3' % list(shapes['conv3d']), x['conv3d'],
+         {'filter': (conv3d_w, True)},
+         ('conv3d', lambda L, v: op(
+             'conv3d', {'Input': x_as(L, v, 'conv3d'),
+                        'Filter': v('filter')}, ('Output',),
+             dict(strides=[1, 1, 1], paddings=[1, 1, 1],
+                  dilations=[1, 1, 1])), False, 1,
+          _conv_sums(torch, device, lambda a, k: F.conv3d(
+              a.reshape(shapes['conv3d']), k, padding=1), ('x', 'filter'),
+              (c3 * 27, c3 * 27,
+               nd * int(np.prod(shapes['conv3d'][2:])))))),
+        ('group_norm %s, 32 groups' % list(shapes['gn']), x['gn'],
+         {'scale': (img(gn_c), True), 'bias': (img(gn_c), True),
+          'weight': (img(*shapes['gn']), False)},
+         ('group_norm', lambda L, v: L.elementwise_mul(op(
+             'group_norm', {'X': x_as(L, v, 'gn'), 'Scale': v('scale'),
+                            'Bias': v('bias')}, ('Y',),
+             dict(groups=32, epsilon=1e-5))[0], v('weight')), False, 0,
+          None)),
+        ('row_conv %s, 3 taps' % list(shapes['row']), x['row'],
+         {'filter': (img(3, 4), True)},
+         ('row_conv', lambda L, v: op(
+             'row_conv', {'X': x_as(L, v, 'row'), 'Filter': v('filter')},
+             ('Out',), {}), False, 0, None)),
+        ('conv_shift [%d, 6] * [%d, 3]' % (nb, nb), x['shift'],
+         {'shift': (img(nb, 3), True)},
+         ('conv_shift', lambda L, v: op(
+             'conv_shift', {'X': v('x'), 'Y': v('shift')}, ('Out',), {}),
+          False, 0, None)),
+        ('spp %s, height 2' % list(shapes['spp']), x['spp'], {},
+         ('spp', lambda L, v: L.spp(x_as(L, v, 'spp'), 2), True, 0, None)),
+        ('crop [64, 5, 6] -> [32, 3, 4] at Offsets (clamped)', x['crop'],
+         {'off': (np.array([40, 2, 5], 'int32'), False)},
+         ('crop', lambda L, v: op(
+             'crop', {'X': x_as(L, v, 'crop'), 'Offsets': v('off')},
+             ('Out',), dict(shape=[32, 3, 4])), True, 0, None)),
+        ('norm %s axis 1' % list(shapes['norm']), x['norm'], {},
+         ('norm', lambda L, v: op('norm', {'X': x_as(L, v, 'norm')},
+                                  ('Out', 'Norm'),
+                                  dict(axis=1, epsilon=1e-10)), False, 0,
+          None)),
+    ]
+
+
+def phase_conv_ops(torch, pt, place, card, on_card, small=False):
+    """21d: the 12 op types on the card against the port on the host at
+    working sizes (``small``: the rehearsal's), fp32 with TF32 off, each in its own program, captured
+    on the card (_ops_card_vs_host: every output and the gradient of
+    every float input at the harness's tolerances, parity_difference; the
+    exact ops, max_pool2d_with_index's round trip through unpool among
+    them, bit for bit). Returns {op: card ms of its captured program,
+    forward and backward}."""
+    rng = np.random.RandomState(21)
+    device = torch.device('cuda', 0) if on_card else torch.device('cpu')
+    cases = conv_op_cases(torch, pt, device, rng, small)
+    worst, faults, times = {}, [], {}
+    for label, x, extra, case in cases:
+        t0 = time.perf_counter()
+        feed = {'x': x.reshape(-1, x.shape[-1])}
+        feed.update({k: v for k, (v, _) in extra.items()})
+        before = len(faults)
+        compared, _ = _ops_card_vs_host(
+            torch, pt, place, on_card, feed['x'].shape[0], x.shape[-1], None,
+            feed, worst, faults, label, cases_of=lambda pt, c=case: [c],
+            extra=[(k, v.shape, str(v.dtype), probed)
+                   for k, (v, probed) in extra.items()],
+            phase='21d', times=times)
+        ms = times.get(label)
+        print('phase 21d %s: %d outputs and gradients card against host, '
+              '%s; largest difference %.3g (relative where |host| >= 1); '
+              'card %s ms a replay of its captured program; %.1f s [%s]'
+              % (label, compared, 'bit for bit' if case[2] else
+                 'within the harness tolerances', worst[case[0]],
+                 '%.3f' % ms if ms is not None else 'n/a',
+                 time.perf_counter() - t0, card))
+        require(len(faults) == before, 'phase 21d: %s' % '; '.join(
+            faults[before:]))
+        if on_card:
+            torch.cuda.empty_cache()
+    return {c[3][0]: times.get(c[0]) for c in cases}
+
+
+def conv_bn_shapes(torch):
+    """21e: K5 at the slice's new shapes: (label, shape, dtype, layout)."""
+    return [
+        ('batch_norm [64, 32, 112, 112] bf16 NCHW (MobileNet stem)',
+         (64, 32, 112, 112), torch.bfloat16, 'NCHW'),
+        ('batch_norm [64, 1024, 7, 7] bf16 NCHW (MobileNet last stage)',
+         (64, 1024, 7, 7), torch.bfloat16, 'NCHW'),
+        ('batch_norm [32, 1024, 14, 14] bf16 NCHW (SE-ResNeXt stage 3)',
+         (32, 1024, 14, 14), torch.bfloat16, 'NCHW'),
+        ('batch_norm [32, 2048, 7, 7] bf16 NCHW (SE-ResNeXt stage 4)',
+         (32, 2048, 7, 7), torch.bfloat16, 'NCHW'),
+        ('batch_norm [128, 512] bf16 (vgg_bn_drop fc)', (128, 512),
+         torch.bfloat16, 'NC'),
+        ('batch_norm [128, 512] fp32 (vgg_bn_drop fc)', (128, 512),
+         torch.float32, 'NC'),
+    ]
+
+
+def phase_conv_bn(torch, card):
+    """21e: K5 and its backward kernel at each new shape (_bn_case: twice
+    for equal bits, against the plain versions, times beside F.batch_norm
+    and the bound)."""
+    gen = torch.Generator(device='cuda').manual_seed(21)
+    dev = torch.device('cuda', 0)
+    rows = {}
+    for label, shape, dtype, layout in conv_bn_shapes(torch):
+        x = (1.0 + 2.0 * torch.randn(shape, generator=gen, device=dev)) \
+            .to(dtype)
+        fwd, bwd = _bn_case(torch, card, label, x, layout, gen)
+        fwd.pop('on_chip')
+        rows[label] = dict(forward=fwd, backward=bwd)
+        del x
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_conv(torch, pt, place, card, on_card, small=False,
+               host_place=None):
+    """Phase 21: (a) MobileNet v1 (NHWC and NCHW, batch 64) and
+    SE-ResNeXt-50 (batch 32, NCHW) at 224 x 224 under bf16 AMP,
+    Momentum(0.1, 0.9): 3 eager steps, then 10 captured, exactly 27 + 27
+    and 53 + 53 K5 launches a step, and their small builds captured
+    against eager; (b) VGG-16, AlexNet, GoogLeNet (224, batch 64, bf16),
+    LeNet-5 (28, batch 64, fp32) and vgg_bn_drop (32, batch 128, fp32 and
+    bf16, 14 + 14 K5 launches a step) 3 steps captured each,
+    Momentum(0.01, 0.9); (c) the small builds card against host; (d) the
+    12 op types card against host; (e) K5 at the new shapes. Returns (the
+    timed runs' launch counts, summary)."""
+    t0 = time.perf_counter()
+    host_place = host_place or pt.CPUPlace()
+    runs, out = [], {}
+    for case in CONV_WIDE + CONV_OTHERS:
+        wide = case in CONV_WIDE
+        if small:
+            label, builder, _, chans, _, amp, kw, n_bn = case
+            image = {'lenet': 28, 'alexnet': 67,
+                     'vgg_bn_drop': 32}.get(builder, 64)
+            kw = dict(kw, scale=0.25) if builder == 'mobile_net' else \
+                (dict(kw, cardinality=8) if builder == 'se_resnext' else kw)
+            case = (label, builder, image, chans, 4, amp, kw, n_bn)
+            args = dict(warmup=2, steps=2, eager_steps=1 if wide else 0,
+                        class_dim=10)
+        else:
+            args = dict(warmup=3, steps=10, eager_steps=3, busy=True) \
+                if wide else dict(warmup=2, steps=3, busy=True)
+        launches, out[case[0]] = _conv_timed(
+            torch, pt, place, card, on_card, case,
+            0.1 if wide and not small else 0.01, **args)
+        runs.append(launches)
+        if on_card:
+            torch.cuda.empty_cache()
+    out['captured_vs_eager'] = {
+        c[0]: conv_captured_vs_eager(torch, pt, place, card, c)
+        for c in CONV_SMALL[:3]} if on_card else {}
+    gaps = {}
+    for case in CONV_SMALL:
+        for amp in (None, 'bf16'):
+            (card_l, card_g), (host_l, host_g) = conv_places(
+                torch, pt, (place, host_place), case, amp)
+            rel = [abs(a - b) / abs(b) for a, b in zip(card_l, host_l)]
+            each, whole = conv_grad_gaps(card_g, host_g)
+            tol = 1e-5 if amp is None else 1e-2
+            if amp is None:
+                grad_tol, host_fp32, rounding = case[5], host_g, ''
+            else:
+                own = conv_grad_gaps(host_g, host_fp32)[1]
+                grad_tol = 2 * own
+                rounding = ' (the host\'s bf16 against its fp32: %.3g)' % own
+            gaps['%s %s' % (case[0], amp or 'fp32')] = dict(
+                losses=rel, grad_each=each, grad_whole=whole,
+                grad_limit=grad_tol)
+            print('phase 21c %s %s: 2 Momentum steps card %s, host %s; '
+                  'relative gaps %s (first step limit %g); the first '
+                  'step\'s gradients: a parameter\'s relative gap up to %.3g, '
+                  'all together %.3g (limit %.3g%s) [%s]'
+                  % (case[0], amp or 'fp32', ['%.6f' % v for v in card_l],
+                     ['%.6f' % v for v in host_l],
+                     ['%.3g' % v for v in rel], tol, each, whole, grad_tol,
+                     rounding, card))
+            require(np.isfinite(card_l + host_l).all(),
+                    'phase 21c %s: loss not finite' % case[0])
+            require(rel[0] <= tol and whole <= grad_tol,
+                    'phase 21c %s %s: the card differs from the host'
+                    % (case[0], amp or 'fp32'))
+            if on_card:
+                torch.cuda.empty_cache()
+    out['card_vs_host'] = gaps
+    out['ops_ms'] = phase_conv_ops(torch, pt, place, card, on_card,
+                                   small=small)
+    if on_card:
+        out['batch_norm'] = phase_conv_bn(torch, card)
+    out['seconds'] = time.perf_counter() - t0
+    print('phase 21 %.1f s' % out['seconds'])
+    return runs, out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--cpu-rehearsal', action='store_true',
-                    help='run phases 4-20 on the host at tiny sizes with '
+                    help='run phases 4-21 on the host at tiny sizes with '
                          'the plain versions')
     ap.add_argument('--profile', action='store_true',
                     help='after every other phase, profile 20 decode '
@@ -8673,6 +9359,7 @@ def main():
                   vocab=64, hidden=8, steps=4, model_batch=4, model_seq=8,
                   small=True, wide_hidden=16)
         phase_control_flow(torch, pt, pt.CPUPlace(), host, False, small=True)
+        phase_conv(torch, pt, pt.CPUPlace(), host, False, small=True)
         print('cpu rehearsal ok in %.1f s' % (time.perf_counter() - t_start))
         return
 
@@ -8690,7 +9377,9 @@ def main():
     kvw, pa_write, mask, drop_fwd, drop_bwd = phase_step_kernels(torch,
                                                                   card)
     sparse = phase_sparse_kernels(torch, card)
-    done('3 (K2, K3, K5, KV write, keep mask, dropout, sparse rows)')
+    pool = phase_pool_kernels(torch, card)
+    done('3 (K2, K3, K5, KV write, keep mask, dropout, sparse rows, max '
+         'pool backward)')
     if args.kernels_only:
         print('kernels only: K1, K4 (and its quantized variant), K2, K3 and '
               'K5 and the K1 and K5 backward kernels agree with their plain '
@@ -8887,6 +9576,10 @@ def main():
                                                card, True)
     torch.cuda.empty_cache()
     done('20 (control flow, rnn_search, SSD)')
+    # phase 21: the conv path's rest
+    conv_runs, conv = phase_conv(torch, pt, pt.CUDAPlace(0), card, True)
+    torch.cuda.empty_cache()
+    done('21 (MobileNet, SE-ResNeXt, the other CNNs, the conv path\'s ops)')
 
     # launches: the sum over the main paths' runs (the engine runs: plain,
     # extras plain and with cache + speculation, int8 and fp8; the timed
@@ -8899,15 +9592,19 @@ def main():
     # steps, scan_layers and unrolled; phase 19's timed bench_rnn_lstm
     # steps (at hidden 128 and 512), each sequence model's timed steps and
     # the wide GRU tagger's; phase 20's timed rnn_search steps (fp32 and
-    # bf16), its hidden-128 card steps and the timed SSD steps), each read
-    # after its counts were set to 0
+    # bf16), its hidden-128 card steps and the timed SSD steps; phase 21's
+    # timed captured steps of the nine CNN runs), each read after its
+    # counts were set to 0
     main_runs = [launches] + extras + list(quant.values()) + \
         [train, scan_train, masked, mask_read, resnet, nmt, trainer] + \
         disagg_runs + list(ctr_runs.values()) + layers_runs + \
-        [ring_runs, ctr_ring_runs] + moe_runs + rnn_runs + cf_runs
+        [ring_runs, ctr_ring_runs] + moe_runs + rnn_runs + cf_runs + \
+        conv_runs
 
     def runs(key):
         return sum(r.get(key, 0) for r in main_runs)
+    require(runs('max_pool_bwd') > 0, 'the max pooling backward kernel was '
+            'never launched on the main paths')
 
     kernels = [
         dict(name='layer_norm', route='cuda',
@@ -8974,6 +9671,10 @@ def main():
              source='paddle_tpu_torch/csrc/sparse_rows.cu',
              replaces='paddle_tpu/ops/optimizer_ops.py:58',
              launches=runs('sparse_rows'), **sparse[('group', 'sgd')]),
+        dict(name='max_pool_bwd', route='cuda',
+             source='paddle_tpu_torch/csrc/max_pool.cu',
+             replaces='paddle_tpu/ops/conv_ops.py:186',
+             launches=runs('max_pool_bwd'), **pool),
     ] + [dict(name=name, route='cuda',
               source='paddle_tpu_torch/csrc/rnn_cell.cu',
               replaces='paddle_tpu/ops/rnn_ops.py:%d' % line,
@@ -8994,7 +9695,7 @@ def main():
     print(json.dumps({'kernels': kernels, 'lifecycle': lifecycle,
                       'disagg': disagg, 'ctr': ctr, 'layers': layers,
                       'staging': staging, 'moe': moe, 'rnn': rnn,
-                      'control_flow': control_flow}))
+                      'control_flow': control_flow, 'conv': conv}))
     print(card)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu',
                                              'kind': name,

@@ -19,7 +19,9 @@ __all__ = ['fc', 'embedding', 'conv2d', 'pool2d', 'batch_norm', 'layer_norm',
            'margin_rank_loss', 'hinge_loss', 'log_loss', 'resize_bilinear',
            'resize_nearest', 'modified_huber_loss', 'switch_moe',
            'chunk_eval', 'precision_recall', 'positive_negative_pair',
-           'edit_distance']
+           'edit_distance', 'conv3d', 'conv2d_transpose', 'group_norm',
+           'row_conv', 'conv_shift', 'spp', 'lrn', 'crop', 'roi_pool',
+           'max_pool2d_with_index', 'unpool']
 
 
 def _prod(xs):
@@ -142,6 +144,85 @@ def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
     return helper.append_activation(pre_act)
 
 
+
+def conv3d(input, num_filters, filter_size, stride=1, padding=0,
+           dilation=1, groups=None, param_attr=None, bias_attr=None,
+           act=None, name=None):
+    """3-D convolution of an NCDHW input (conv3d op); the filter is OIDHW,
+    initialised N(0, sqrt(2 / (fd·fh·fw·C_in)))."""
+    def _triple(v):
+        return (v, v, v) if isinstance(v, int) else tuple(v)
+
+    helper = LayerHelper('conv3d', **locals())
+    dtype = input.dtype
+    groups = groups or 1
+    num_channels = input.shape[1]
+    fd, fh, fw = _triple(filter_size)
+    sd, sh, sw = _triple(stride)
+    pd, ph, pw = _triple(padding)
+    dd, dh, dw = _triple(dilation)
+    filter_shape = [num_filters, num_channels // groups, fd, fh, fw]
+    std = (2.0 / (fd * fh * fw * num_channels)) ** 0.5
+    w = helper.create_parameter(attr=helper.param_attr, shape=filter_shape,
+                                dtype=dtype,
+                                default_initializer=Normal(0.0, std))
+    out = helper.create_variable_for_type_inference(dtype)
+
+    def _od(sz, p, d, f, s):
+        return (sz + 2 * p - (d * (f - 1) + 1)) // s + 1 \
+            if sz and sz > 0 else sz
+
+    n, _, dep, h, w_in = input.shape
+    out.shape = (n, num_filters, _od(dep, pd, dd, fd, sd),
+                 _od(h, ph, dh, fh, sh), _od(w_in, pw, dw, fw, sw))
+    helper.append_op(
+        type='conv3d', inputs={'Input': [input], 'Filter': [w]},
+        outputs={'Output': [out]},
+        attrs={'strides': [sd, sh, sw], 'paddings': [pd, ph, pw],
+               'dilations': [dd, dh, dw], 'groups': groups})
+    pre_act = helper.append_bias_op(out, [num_filters], axis=1)
+    return helper.append_activation(pre_act)
+
+
+def conv2d_transpose(input, num_filters, output_size=None, filter_size=None,
+                     padding=0, stride=1, dilation=1, param_attr=None,
+                     bias_attr=None, use_cudnn=True, act=None, name=None):
+    """Transposed 2-D convolution of an NCHW input (conv2d_transpose op);
+    the filter is [C_in, num_filters, fh, fw]. Without filter_size it is
+    the size that maps the input to output_size: out - (in - 1)·stride +
+    2·pad."""
+    helper = LayerHelper('conv2d_transpose', **locals())
+    dtype = input.dtype
+    num_channels = input.shape[1]
+    sh, sw = _pair(stride)
+    ph, pw = _pair(padding)
+    dh, dw = _pair(dilation)
+    if filter_size is None:
+        if output_size is None:
+            raise ValueError('output_size or filter_size must be set')
+        oh, ow = _pair(output_size)
+        h, w_in = input.shape[2], input.shape[3]
+        fh = oh - (h - 1) * sh + 2 * ph
+        fw = ow - (w_in - 1) * sw + 2 * pw
+    else:
+        fh, fw = _pair(filter_size)
+    filter_shape = [num_channels, num_filters, fh, fw]
+    w = helper.create_parameter(attr=helper.param_attr, shape=filter_shape,
+                                dtype=dtype)
+    pre_bias = helper.create_variable_for_type_inference(dtype)
+    n, _, h, w_in = input.shape
+    oh = (h - 1) * sh - 2 * ph + dh * (fh - 1) + 1 if h and h > 0 else h
+    ow = (w_in - 1) * sw - 2 * pw + dw * (fw - 1) + 1 \
+        if w_in and w_in > 0 else w_in
+    pre_bias.shape = (n, num_filters, oh, ow)
+    helper.append_op(
+        type='conv2d_transpose', inputs={'Input': [input], 'Filter': [w]},
+        outputs={'Output': [pre_bias]},
+        attrs={'strides': [sh, sw], 'paddings': [ph, pw],
+               'dilations': [dh, dw]})
+    pre_act = helper.append_bias_op(pre_bias, [num_filters], axis=1)
+    return helper.append_activation(pre_act)
+
 def pool2d(input, pool_size=-1, pool_type='max', pool_stride=1,
            pool_padding=0, global_pooling=False, use_cudnn=True,
            ceil_mode=False, use_mkldnn=False, name=None, exclusive=True,
@@ -240,6 +321,29 @@ def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
                             'epsilon': epsilon})
     return helper.append_activation(out)
 
+
+
+def group_norm(input, groups, epsilon=1e-5, param_attr=None, bias_attr=None,
+               act=None, name=None):
+    """Group normalization of an NCHW input (group_norm op): scale (1.0)
+    and bias (0.0) of [C] unless param_attr / bias_attr is False."""
+    helper = LayerHelper('group_norm', **locals())
+    dtype = input.dtype
+    c = input.shape[1]
+    inputs = {'X': [input]}
+    if param_attr is not False:
+        inputs['Scale'] = [helper.create_parameter(
+            attr=helper.param_attr, shape=[c], dtype=dtype,
+            default_initializer=Constant(1.0))]
+    if bias_attr is not False:
+        inputs['Bias'] = [helper.create_parameter(
+            attr=helper.bias_attr, shape=[c], dtype=dtype, is_bias=True)]
+    out = helper.create_variable_for_type_inference(dtype)
+    out.shape = input.shape
+    helper.append_op(type='group_norm', inputs=inputs,
+                     outputs={'Y': [out]},
+                     attrs={'groups': groups, 'epsilon': epsilon})
+    return helper.append_activation(out)
 
 def dropout(x, dropout_prob, is_test=False, seed=None, name=None,
             dropout_implementation='downgrade_in_infer'):
@@ -934,3 +1038,122 @@ def switch_moe(input, num_experts, d_inner, capacity_factor=1.25,
         outputs={'Out': [out], 'AuxLoss': [aux]},
         attrs={'capacity_factor': capacity_factor, 'top_k': top_k})
     return out, aux
+
+
+def row_conv(input, future_context_size, param_attr=None, act=None):
+    """Lookahead row convolution of a padded [B, T, D] input (row_conv op;
+    DeepSpeech2's streaming layer): a [future_context_size + 1, D]
+    filter."""
+    helper = LayerHelper('row_conv', **locals())
+    dtype = input.dtype
+    w = helper.create_parameter(
+        attr=helper.param_attr,
+        shape=[future_context_size + 1, input.shape[-1]], dtype=dtype)
+    out = helper.create_variable_for_type_inference(dtype)
+    if input.shape is not None:
+        out.shape = tuple(input.shape)
+    helper.append_op(type='row_conv', inputs={'X': [input], 'Filter': [w]},
+                     outputs={'Out': [out]}, attrs={})
+    return helper.append_activation(out)
+
+
+def conv_shift(x, y, name=None):
+    """Circular convolution of x [b, m] with y [b, n] (conv_shift op; NTM
+    addressing)."""
+    helper = LayerHelper(name or 'conv_shift')
+    out = helper.create_variable_for_type_inference(x.dtype)
+    if x.shape is not None:
+        out.shape = tuple(x.shape)
+    helper.append_op(type='conv_shift', inputs={'X': [x], 'Y': [y]},
+                     outputs={'Out': [out]}, attrs={})
+    return out
+
+
+def spp(input, pyramid_height=2, pool_type='max', name=None):
+    """Spatial pyramid pooling (spp op)."""
+    helper = LayerHelper(name or 'spp')
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type='spp', inputs={'X': [input]},
+                     outputs={'Out': [out]},
+                     attrs={'pyramid_height': pyramid_height,
+                            'pooling_type': pool_type})
+    return out
+
+
+def lrn(input, n=5, k=2.0, alpha=1e-4, beta=0.75, name=None):
+    """Local response normalization across channels (lrn op)."""
+    helper = LayerHelper('lrn', **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    mid = helper.create_variable_for_type_inference(input.dtype)
+    out.shape = input.shape
+    helper.append_op(type='lrn', inputs={'X': [input]},
+                     outputs={'Out': [out], 'MidOut': [mid]},
+                     attrs={'n': n, 'k': k, 'alpha': alpha, 'beta': beta})
+    return out
+
+
+def crop(x, shape=None, offsets=None, name=None):
+    """x cropped to ``shape`` at ``offsets`` (crop op); ``shape`` may be a
+    Variable whose shape is the target."""
+    helper = LayerHelper('crop', **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    inputs = {'X': [x]}
+    attrs = {}
+    if hasattr(shape, 'name'):
+        inputs['Y'] = [shape]
+        out.shape = shape.shape
+    else:
+        attrs['shape'] = list(shape)
+        out.shape = tuple(shape)
+    attrs['offsets'] = list(offsets) if offsets is not None else None
+    helper.append_op(type='crop', inputs=inputs, outputs={'Out': [out]},
+                     attrs=attrs)
+    return out
+
+
+def roi_pool(input, rois, pooled_height=1, pooled_width=1,
+             spatial_scale=1.0):
+    """Max pool of each ROI to a fixed grid (roi_pool op); rois: [R, 5]
+    rows of (batch_id, x1, y1, x2, y2). Returns Out; Argmax is its second
+    output."""
+    helper = LayerHelper('roi_pool', **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    argmax = helper.create_variable_for_type_inference('int64')
+    if rois.shape is not None and input.shape is not None:
+        out.shape = (rois.shape[0], input.shape[1], pooled_height,
+                     pooled_width)
+    helper.append_op(
+        type='roi_pool', inputs={'X': [input], 'ROIs': [rois]},
+        outputs={'Out': [out], 'Argmax': [argmax]},
+        attrs={'pooled_height': pooled_height, 'pooled_width': pooled_width,
+               'spatial_scale': spatial_scale})
+    return out
+
+
+def max_pool2d_with_index(input, ksize, strides=None, paddings=None):
+    """Max pool returning (out, the flattened h·W + w of each max)
+    (max_pool2d_with_index op); the mask feeds unpool."""
+    helper = LayerHelper('max_pool2d_with_index', **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    mask = helper.create_variable_for_type_inference('int32')
+    helper.append_op(
+        type='max_pool2d_with_index', inputs={'X': [input]},
+        outputs={'Out': [out], 'Mask': [mask]},
+        attrs={'ksize': list(ksize),
+               'strides': list(strides or [1, 1]),
+               'paddings': list(paddings or [0, 0])})
+    return out, mask
+
+
+def unpool(input, indices, ksize, strides=None, paddings=None):
+    """Max-unpool: each value scattered to its recorded position (unpool
+    op)."""
+    helper = LayerHelper('unpool', **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type='unpool', inputs={'X': [input], 'Indices': [indices]},
+        outputs={'Out': [out]},
+        attrs={'ksize': list(ksize),
+               'strides': list(strides or [1, 1]),
+               'paddings': list(paddings or [0, 0])})
+    return out

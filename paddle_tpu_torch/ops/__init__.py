@@ -1,7 +1,8 @@
 """Op lowerings. Importing this package registers every op the port runs:
 the startup ops, the paged decode ops, the training paths' ops, the NMT
 inference ops, the sequence, recurrent, CTC / CRF and metric ops, the
-control-flow ops and the detection ops."""
+control-flow ops, the detection ops and the conv path's convolution,
+normalization and vision ops."""
 
 from . import activation_ops  # noqa: F401
 from . import attention_ops  # noqa: F401
@@ -23,3 +24,4 @@ from . import rnn_ops  # noqa: F401
 from . import sequence_ops  # noqa: F401
 from . import tensor_ops  # noqa: F401
 from . import transformer_ops  # noqa: F401
+from . import vision_ops  # noqa: F401

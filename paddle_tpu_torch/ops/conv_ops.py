@@ -1,8 +1,11 @@
-"""Convolution and pooling ops: conv2d and pool2d (reference: paddle_tpu
-ops/conv_ops.py; fluid's conv_op.cc, pool_op.cc).
+"""Convolution and pooling ops: conv2d, conv2d_transpose, conv3d, pool2d,
+row_conv, conv_shift and spp (reference: paddle_tpu ops/conv_ops.py;
+fluid's conv_op.cc, conv_transpose_op.cc, pool_op.cc, row_conv_op.cc,
+conv_shift_op.cc, spp_op.cc).
 
-A convolution goes to ``torch.nn.functional.conv2d`` (cuDNN on the card),
-as the JAX package leaves it to XLA's ``conv_general_dilated``. In NHWC the
+A convolution goes to ``torch.nn.functional.conv2d`` / ``conv_transpose2d``
+/ ``conv3d`` (cuDNN on the card), as the JAX package leaves it to XLA's
+``conv_general_dilated``. In NHWC the
 IR tensor is [N, H, W, C]: the op hands cuDNN its [N, C, H, W] view, which
 has channels-last strides, with the filter laid out channels-last too, and
 permutes the output back, so a channels-last network moves no activation
@@ -13,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.registry import register
+from .kernels.max_pool import max_pool_bwd
 
 
 def _operand(ctx, value, memory_format):
@@ -46,6 +50,103 @@ def _conv2d(ctx):
     ctx.set_output('Output', out.permute(0, 2, 3, 1) if nhwc else out)
 
 
+@register('conv2d_transpose')
+def _conv2d_transpose(ctx):
+    """The fractionally strided convolution of an NCHW Input; the filter
+    is [Cin, Cout/groups, kh, kw], F.conv_transpose2d's own layout, and
+    the output extent (in - 1)·stride - 2·pad + dilation·(k - 1) + 1
+    (no output padding). Whitelisted under AMP, as conv2d."""
+    x = _operand(ctx, ctx.env[ctx.op.input('Input')], torch.contiguous_format)
+    w = _operand(ctx, ctx.env[ctx.op.input('Filter')],
+                 torch.contiguous_format)
+    out = F.conv_transpose2d(x, w, None, tuple(ctx.attr('strides', [1, 1])),
+                             tuple(ctx.attr('paddings', [0, 0])), 0,
+                             ctx.attr('groups', 1),
+                             tuple(ctx.attr('dilations', [1, 1])))
+    ctx.set_output('Output', out)
+
+
+@register('conv3d')
+def _conv3d(ctx):
+    """NCDHW Input, OIDHW Filter (conv3d is on no AMP list: it runs in the
+    dtype it is given)."""
+    out = F.conv3d(ctx.input('Input'), ctx.input('Filter'), None,
+                   tuple(ctx.attr('strides', [1, 1, 1])),
+                   tuple(ctx.attr('paddings', [0, 0, 0])),
+                   tuple(ctx.attr('dilations', [1, 1, 1])),
+                   ctx.attr('groups', 1))
+    ctx.set_output('Output', out)
+
+
+@register('row_conv')
+def _row_conv(ctx):
+    """The lookahead convolution of a padded [batch, seq, dim] X:
+    out[t] = sum over i = 0..k-1 of w[i]·x[t + i] (x is 0 past the end),
+    the taps summed in that order from 0, as the JAX package sums them.
+    Whitelisted under AMP."""
+    x = ctx.input('X')
+    w = ctx.input('Filter')           # [k, dim]
+    k, t = w.shape[0], x.shape[1]
+    xp = F.pad(x, (0, 0, 0, k - 1))
+    out = torch.zeros_like(x)
+    for i in range(k):
+        out = out + xp[:, i:i + t, :] * w[i]
+    ctx.set_output('Out', out)
+
+
+@register('conv_shift')
+def _conv_shift(ctx):
+    """Circular convolution of X [b, m] with Y [b, n] (n odd, n <= m):
+    out[i] = sum over j of x[(i + j - n//2) mod m]·y[j]."""
+    x = ctx.input('X')
+    y = ctx.input('Y')
+    m, n = x.shape[1], y.shape[1]
+    idx = (torch.arange(m, device=x.device)[:, None] +
+           torch.arange(-(n // 2), n // 2 + 1, device=x.device)[None]) % m
+    ctx.set_output('Out', torch.einsum('bmn,bn->bm', x[:, idx], y))
+
+
+@register('spp')
+def _spp(ctx):
+    """Spatial pyramid pooling of an NCHW X: at level l the map pooled
+    into 2^l x 2^l bins of ceil(H / 2^l) x ceil(W / 2^l) (ceil_mode), each
+    level flattened, the levels concatenated."""
+    x = ctx.input('X')
+    pooling_type = ctx.attr('pooling_type', 'max')
+    n, _, h, w = x.shape
+    outs = []
+    for lv in range(ctx.attr('pyramid_height', 2)):
+        bins = 2 ** lv
+        kh, kw = -(-h // bins), -(-w // bins)
+        outs.append(pool2d(x, pooling_type, [kh, kw], [kh, kw], [0, 0],
+                           False, ceil_mode=True).reshape(n, -1))
+    ctx.set_output('Out', torch.cat(outs, dim=1))
+
+
+class _MaxPool(torch.autograd.Function):
+    """Max pooling of an [N, C, H, W] x over -inf padding ``pad`` (left,
+    right, top, bottom) whose gradient goes where the JAX package's
+    (select_and_scatter's) does: kernels.max_pool.max_pool_bwd, in a
+    window holding a NaN to the first largest element after its last NaN
+    rather than to the NaN."""
+
+    @staticmethod
+    def forward(ctx, x, ksize, strides, pad):
+        ctx.save_for_backward(x)
+        ctx.geometry = ksize, strides, pad
+        (kh, kw), (left, right, top, bottom) = ksize, pad
+        if left == right <= kw // 2 and top == bottom <= kh // 2:
+            # torch's own padding is the same -inf
+            return F.max_pool2d(x, ksize, strides, (top, left))
+        return F.max_pool2d(F.pad(x, pad, value=float('-inf')), ksize,
+                            strides)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, = ctx.saved_tensors
+        return (max_pool_bwd(x, g, *ctx.geometry), None, None, None)
+
+
 def pool2d(x4, pooling_type, ksize, strides, pads, global_pooling,
            ceil_mode=False, exclusive=True):
     """Pooling of an [N, C, H, W] tensor with the JAX package's semantics:
@@ -62,17 +163,14 @@ def pool2d(x4, pooling_type, ksize, strides, pads, global_pooling,
     h, w = x4.shape[2:]
     eh = -(h + 2 * ph - kh) % sh if ceil_mode else 0
     ew = -(w + 2 * pw - kw) % sw if ceil_mode else 0
-    if not (eh or ew or ph > kh // 2 or pw > kw // 2):
-        # torch's own padding is the same: -inf for max; for avg,
-        # count_include_pad=False counts the real elements
-        if pooling_type == 'max':
-            return F.max_pool2d(x4, (kh, kw), (sh, sw), (ph, pw))
-        return F.avg_pool2d(x4, (kh, kw), (sh, sw), (ph, pw),
-                            count_include_pad=not exclusive)
     pad = (pw, pw + ew, ph, ph + eh)
     if pooling_type == 'max':
-        return F.max_pool2d(F.pad(x4, pad, value=float('-inf')), (kh, kw),
-                            (sh, sw))
+        return _MaxPool.apply(x4, (kh, kw), (sh, sw), pad)
+    if not (eh or ew or ph > kh // 2 or pw > kw // 2):
+        # torch's own padding is the same: count_include_pad=False counts
+        # the real elements
+        return F.avg_pool2d(x4, (kh, kw), (sh, sw), (ph, pw),
+                            count_include_pad=not exclusive)
     summed = F.avg_pool2d(F.pad(x4, pad), (kh, kw), (sh, sw),
                           divisor_override=1)
     if exclusive and (ph or pw or ceil_mode):

@@ -23,7 +23,8 @@ CSRC = os.path.join(_PKG, 'csrc')
 BUILD_DIR = os.path.join(_PKG, '_build')
 SOURCES = ('layer_norm.cu', 'paged_attention.cu', 'flash_attention.cu',
            'batch_norm.cu', 'kv_write.cu', 'random_bits.cu',
-           'sparse_rows.cu', 'rnn_cell.cu', 'lstm_seq.cu', 'gru_seq.cu')
+           'sparse_rows.cu', 'rnn_cell.cu', 'lstm_seq.cu', 'gru_seq.cu',
+           'max_pool.cu')
 HEADERS = ('common.cuh', 'flash_tiles.cuh', 'rnn_math.cuh',
            'seq_cluster.cuh')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
@@ -207,6 +208,9 @@ def library():
             lib.ptt_gru_seq_bwd.restype = i
             lib.ptt_gru_seq_floor.argtypes = [i] * 7 + [p]
             lib.ptt_gru_seq_floor.restype = i
+            lib.ptt_max_pool_bwd.argtypes = [p] * 4 + [ll] * 6 + [i] * 8 + \
+                [p]
+            lib.ptt_max_pool_bwd.restype = i
             _loaded['lib'] = lib
         return lib
 

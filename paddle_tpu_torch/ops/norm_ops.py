@@ -1,5 +1,6 @@
-"""The batch_norm and layer_norm ops (reference: paddle_tpu
-ops/norm_ops.py; fluid's batch_norm_op.cc, layer_norm_op.cc)."""
+"""The batch_norm, layer_norm, group_norm and norm ops (reference:
+paddle_tpu ops/norm_ops.py; fluid's batch_norm_op.cc, layer_norm_op.cc,
+group_norm_op.cc, norm_op.cc)."""
 
 import torch
 
@@ -93,3 +94,55 @@ def _layer_norm(ctx):
     if ctx.output_read('Variance'):
         ctx.set_output('Variance', x.var(dim=axes, unbiased=False))
     ctx.set_output('Y', out)
+
+
+def _rounded(v, dtype):
+    """v's value rounded to ``dtype``, its gradient passed on in v's own
+    dtype, unrounded."""
+    if dtype == v.dtype:
+        return v
+    return v + (v.to(dtype).to(v.dtype) - v).detach()
+
+
+@register('group_norm')
+def _group_norm(ctx):
+    """Normalization over groups of channels of an NCHW X. group_norm is
+    on neither AMP list: a bf16 X is normalized at the JAX package's bf16
+    rounding points (the mean and the two-pass variance from fp32 sums,
+    each rounded to bf16; x - mean, var + eps, its rsqrt and the product
+    each rounded to bf16), then scaled and shifted by the fp32
+    parameters; the executor hands Y back to the bf16 stream. The
+    gradient runs in fp32 and is rounded once, to X's dtype (the
+    reference rounds its bf16 cotangents op by op: the two differ by a
+    few bf16 ulps of the terms the gradient cancels)."""
+    x = ctx.input('X')
+    groups = ctx.attr('groups', 32)
+    eps = ctx.attr('epsilon', 1e-5)
+    n, c = x.shape[:2]
+    spatial = tuple(x.shape[2:])
+    xf = x.float().reshape((n, groups, c // groups) + spatial)
+    axes = tuple(range(2, xf.dim()))
+    mean32 = xf.mean(dim=axes, keepdim=True)
+    var32 = (xf - mean32).square().mean(dim=axes, keepdim=True)
+    mean, var = _rounded(mean32, x.dtype), _rounded(var32, x.dtype)
+    inv = _rounded(torch.rsqrt(_rounded(var + eps, x.dtype)), x.dtype)
+    out = _rounded(_rounded(xf - mean, x.dtype) * inv, x.dtype)
+    out = out.reshape(x.shape)
+    bshape = (1, c) + (1,) * len(spatial)
+    if ctx.has_input('Scale'):
+        out = out * ctx.input('Scale').reshape(bshape)
+    if ctx.has_input('Bias'):
+        out = out + ctx.input('Bias').reshape(bshape)
+    ctx.set_output('Y', out if ctx.has_input('Scale') or
+                   ctx.has_input('Bias') else out.to(x.dtype))
+
+
+@register('norm')
+def _norm(ctx):
+    """x / sqrt(sum(x², axis) + epsilon), and that norm (norm_op.cc)."""
+    x = ctx.input('X')
+    axis = ctx.attr('axis', 1)
+    eps = ctx.attr('epsilon', 1e-10)
+    norm = torch.sqrt(x.square().sum(dim=axis, keepdim=True) + eps)
+    ctx.set_output('Norm', norm)
+    ctx.set_output('Out', x / norm)

@@ -25,7 +25,7 @@ import torch
 
 import paddle_tpu_torch as pt
 from chip_smoke import (GRU_SEQ_CASES, LAYERS_EDGE, LAYERS_FAULTS,
-                        RNN_SEQ_CASES, ordinary,
+                        RNN_SEQ_CASES, grads_ok, ordinary,
                         parity_difference)
 from paddle_tpu_torch.ops.kernels import batch_norm as tbn
 from paddle_tpu_torch.ops.kernels import flash_attention as tfa
@@ -772,6 +772,72 @@ def test_batch_norm_one_launch_on_and_off_chip_repeats(cuda, case):
     torch.cuda.synchronize()
     for r0, r1 in zip(*runs):
         assert torch.equal(r0, r1)
+
+
+# ---- K5 at the conv path's shapes (chip_smoke.py phase 21e): MobileNet's
+# stem and last stage and SE-ResNeXt-50's stages 3 and 4 in NCHW bf16
+# (planes of 12,544, 49, 196 and 49 elements), and vgg_bn_drop's 2-D fc
+# normalization in bf16 and fp32
+CONV_BN_CASES = [
+    ('NCHW', (64, 32, 112, 112), torch.bfloat16),
+    ('NCHW', (64, 1024, 7, 7), torch.bfloat16),
+    ('NCHW', (32, 1024, 14, 14), torch.bfloat16),
+    ('NCHW', (32, 2048, 7, 7), torch.bfloat16),
+    ('NC', (128, 512), torch.bfloat16),
+    ('NC', (128, 512), torch.float32),
+]
+
+
+@pytest.mark.parametrize('case', CONV_BN_CASES)
+def test_batch_norm_at_the_conv_path_shapes(cuda, case):
+    """One launch a call within the plain version's tolerances, the same
+    bits twice, and the backward kernel against batch_norm_reference_bwd
+    (chip_smoke.py's grads_ok: GRAD_TOL), also twice for equal bits."""
+    layout, shape, dtype = case
+    gen = torch.Generator(device=cuda).manual_seed(21)
+    x = (1.0 + 2.0 * torch.randn(shape, generator=gen, device=cuda)).to(dtype)
+    _bn_check(x, layout, gen)
+    c = shape[1]
+    s = 0.5 + torch.rand(c, generator=gen, device=cuda)
+    b = torch.randn(c, generator=gen, device=cuda)
+    runs = [tbn.fused_batch_norm_train(x, s, b, 1e-5, layout=layout)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for r0, r1 in zip(*runs):
+        assert torch.equal(r0, r1)
+    x3 = x.reshape(shape[0], c, -1) if x.dim() == 4 else x.unsqueeze(-1)
+    _, m, v = runs[0]
+    gy = torch.randn(x3.shape, generator=gen, device=cuda).to(dtype)
+    before = tbn.fused_batch_norm_train.bwd_launches
+    got = [tbn._bn_bwd_cuda(x3, gy, s, m, v, 1e-5) for _ in range(2)]
+    assert tbn.fused_batch_norm_train.bwd_launches == before + 2
+    for a, r in zip(*got):
+        assert torch.equal(a, r)
+    errs, ok = grads_ok(torch, got[0], tbn.batch_norm_reference_bwd(
+        x3, gy, s, m, v, 1e-5), dtype)
+    assert ok, errs
+
+
+def test_roi_pool_bins_on_card_equal_host(cuda):
+    """roi_pool's bin edges on the card are the host's (and the
+    reference's fp32 arithmetic): ROIs whose extents are multiples of the
+    grid (21 rows into 7 bins) put an edge exactly on an integer, where a
+    division taken as a product with the reciprocal lands one ulp below
+    it. Out, Argmax and the gradient card = host."""
+    from paddle_tpu_torch.ops.vision_ops import _RoiPool
+    rng = np.random.RandomState(23)
+    x = torch.tensor(rng.randn(2, 4, 40, 40).astype('float32'))
+    rois = torch.tensor([[0, 0, 0, 20, 20], [1, 3, 2, 23, 29],
+                         [0, 5, 5, 11, 11], [1, 0, 0, 39, 34]])
+    gy = torch.tensor(rng.randn(4, 4, 7, 7).astype('float32'))
+    res = []
+    for dev in (cuda, torch.device('cpu')):
+        xd = x.to(dev).requires_grad_()
+        out, arg = _RoiPool.apply(xd, rois.to(dev), 7, 7, 1.0)
+        out.backward(gy.to(dev))
+        res.append([t.detach().cpu() for t in (out, arg, xd.grad)])
+    for got, want in zip(*res):
+        assert torch.equal(got, want)
 
 
 def test_batch_norm_cooperative_launch_captures_into_a_graph(cuda):
@@ -2864,3 +2930,53 @@ def test_generation_decode_on_card_equals_host(cuda):
     assert captured
     np.testing.assert_array_equal(ci, hi)
     np.testing.assert_allclose(cs, hs, rtol=0, atol=1e-5)
+
+
+# (x shape, channels-last, ksize, stride, padding, ceil_mode)
+MAX_POOLS = [((4, 16, 28, 28), True, 3, 2, 1, False),
+             ((4, 16, 28, 28), False, 3, 2, 0, True),
+             ((4, 32, 14, 14), False, 3, 1, 1, False),
+             ((4, 8, 32, 32), False, 2, 2, 0, False),
+             ((2, 3, 9, 7), False, 2, 1, 2, False),
+             ((2, 3, 9, 7), True, 3, 2, 1, True)]
+
+
+@pytest.mark.parametrize('case', MAX_POOLS)
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_max_pool_bwd_kernel_matches_plain(cuda, case, dtype):
+    """csrc/max_pool.cu (channels-last in 16-byte channel groups, and
+    not) on x with NaN, ±inf, -inf-only windows and ties: twice bit for
+    bit, counted once a call, equal to its plain version
+    where windows do not overlap and within one ulp of the plain
+    version's fp32 sums where they do."""
+    from paddle_tpu_torch.ops.conv_ops import pool2d
+    from paddle_tpu_torch.ops.kernels import max_pool as K
+    shape, cl, k, s, p, ceil = case
+    gen = torch.Generator(device='cuda').manual_seed(k * 10 + s + p)
+    x = torch.round(torch.randn(shape, generator=gen, device=cuda) * 4) / 4
+    u = torch.rand(shape, generator=gen, device=cuda)
+    x = torch.where(u < 0.1, float('nan'), x)
+    x = torch.where((u >= 0.1) & (u < 0.13), float('inf'), x)
+    x = torch.where((u >= 0.13) & (u < 0.16), float('-inf'), x)
+    x[0, 0, :3, :3] = float('-inf')
+    x = x.to(dtype)
+    if cl:
+        x = x.contiguous(memory_format=torch.channels_last)
+    out = pool2d(x, 'max', [k, k], [s, s], [p, p], False, ceil_mode=ceil)
+    h, w = shape[2:]
+    eh = -(h + 2 * p - k) % s if ceil else 0
+    ew = -(w + 2 * p - k) % s if ceil else 0
+    geo = ((k, k), (s, s), (p, p + ew, p, p + eh))
+    dy = torch.randn(out.shape, generator=gen, device=cuda).to(dtype)
+    before = K.max_pool_bwd.launches
+    got = K.max_pool_bwd(x, dy, *geo)
+    assert torch.equal(got, K.max_pool_bwd(x, dy, *geo))
+    assert K.max_pool_bwd.launches == before + 2
+    if s >= k:
+        assert torch.equal(got, K.max_pool_bwd_reference(x, dy, *geo))
+    else:
+        want = K.max_pool_bwd_reference(x.float(), dy.float(), *geo).double()
+        a = want.abs().clamp_min(2.0 ** -126)
+        ulp = torch.exp2(torch.floor(torch.log2(a)) - (
+            7 if dtype == torch.bfloat16 else 22))
+        assert bool(((got.double() - want).abs() <= ulp).all())

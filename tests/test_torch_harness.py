@@ -81,6 +81,9 @@ EXACT = {
     'shape', 'pad', 'reverse', 'multiplex', 'maxout', 'pixel_shuffle',
     'im2sequence', 'argmin', 'argsort', 'nearest_interp', 'isfinite',
     'lod_reset', 'where', 'linspace', 'range',
+    # the conv path's ops whose outputs and gradients are elements of
+    # their input: crop, the non-overlapping max pool and its unpool
+    'crop', 'max_pool2d_with_index', 'unpool',
 }
 
 
@@ -89,7 +92,8 @@ EXACT = {
 # in its fp32 program (XLA rewrites jax's (g / count) * indicator into a
 # select) and NaN under bf16 AMP (it does not); the port gives 0, and the
 # elements the reference gives NaN are not compared
-NAN_OR_ZERO_GRAD = {'reduce_max', 'reduce_min', 'maxout', 'sequence_pool'}
+NAN_OR_ZERO_GRAD = {'reduce_max', 'reduce_min', 'maxout', 'sequence_pool',
+                    'roi_pool', 'max_pool2d_with_index', 'unpool'}
 
 
 def tolerance(op_type):
@@ -540,6 +544,84 @@ MODULE_OPS = [
         for d in (0, 1, None)], 'x', False),
 ]
 
+# the conv path's 12 op types (their filters drawn from Uniform(-1, 1), so
+# SUMS can bound their terms; no bias, so each case's output is the op's
+# own): 'image' as above, 'image_rois' (with three ROIs, one past the
+# map), 'x_shift' (y's first 3 columns), 'x_offsets' (an Offsets input
+# that must be clamped). The 2-D and 3-D convolutions' filters
+# are not trained here: a filter's gradient sums every position's x, and
+# on the edge feed (±3e9, ±inf, NaN) its value and NaN placement depend
+# on the summation order; tests/test_torch_conv_rest.py holds those
+# gradients on random feeds
+def _uniform(trainable=True):
+    return fluid.ParamAttr(initializer=fluid.initializer.Uniform(-1.0, 1.0),
+                           trainable=trainable)
+
+
+def _as5d(L, v):
+    """The 'image' feed as NCDHW: [2, 3, 3, 3, 7] or [1, 2, 2, 2, 4]."""
+    return L.reshape(v['x'], [2, 3, 3, 3, 7] if v['x'].shape[0] == 2
+                     else [1, 2, 2, 2, 4])
+
+
+def _pool_unpool(L, v):
+    out, mask = L.max_pool2d_with_index(v['x'], [2, 2], strides=[2, 2])
+    return [out, mask, L.unpool(out, mask, [2, 2], strides=[2, 2])]
+
+
+CONV_OPS = [
+    ('conv2d_transpose', lambda L, v: [
+        L.conv2d_transpose(v['x'], 2, filter_size=3, stride=2, padding=1,
+                           param_attr=_uniform(False), bias_attr=False),
+        L.conv2d_transpose(v['x'], 2, filter_size=2,
+                           param_attr=_uniform(False), bias_attr=False)],
+     'image', False),
+    ('conv3d', lambda L, v: L.conv3d(_as5d(L, v), 2, 2, padding=1,
+                                     param_attr=_uniform(False),
+                                     bias_attr=False), 'image', False),
+    ('row_conv', lambda L, v: L.row_conv(
+        L.reshape(v['x'], [2, 4, 4]), 2, param_attr=_uniform()), 'x',
+     False),
+    ('conv_shift', lambda L, v: L.conv_shift(v['x'], v['y']), 'x_shift',
+     False),
+    ('spp', lambda L, v: [L.spp(v['x'], 2),
+                          L.spp(v['x'], 2, pool_type='avg')],
+     'image', False),
+    # cubed: under a loss linear in Y (or in Y²), x's gradient through the
+    # normalization cancels to 0, and the two packages' bf16 roundings of
+    # the cancelling terms are all that is left to compare
+    ('group_norm', lambda L, v: L.pow(L.group_norm(
+        v['x'], 1, param_attr=_uniform()), factor=3.0), 'image', False),
+    ('norm', lambda L, v: _op(L, 'norm', {'X': v['x']},
+                              attrs={'axis': 1, 'epsilon': 1e-10},
+                              out_slots=('Out', 'Norm')), 'x', False),
+    ('lrn', lambda L, v: L.lrn(v['x'], n=3, alpha=1e-2), 'image', False),
+    ('roi_pool', lambda L, v: L.roi_pool(v['x'], v['rois'], 2, 2),
+     'image_rois', False),
+    ('crop', lambda L, v: [
+        L.crop(v['x'], shape=[2, 5], offsets=[1, 2]),
+        _op(L, 'crop', {'X': v['x'], 'Offsets': v['off']},
+            attrs={'shape': [3, 4]})[0]], 'x_offsets', False),
+    ('max_pool2d_with_index', _pool_unpool, 'image', False),
+]
+# a conv output element sums (kernel taps x input channels) terms of
+# |x|·|w| with |w| <= 1: n terms of the feed's largest ordinary magnitude
+# (its gradients alike)
+CONV_TERMS = {'conv2d_transpose': 27, 'conv3d': 24, 'row_conv': 3,
+              'conv_shift': 3}
+
+
+def _sums_conv(name):
+    n = CONV_TERMS[name]
+
+    def fn(f):
+        a = np.abs(f['x'])
+        top = float(a[np.isfinite(a)].max())
+        # each output sums n terms |x|·|w| <= top; x's gradient n terms
+        # |w|·1; conv_shift's y's gradient the 8 |x| of its row
+        return [n * top, n * top], {'x': float(n), 'y': 8 * top}
+    return n, fn
+
 # the Switch-MoE FFN (its parameters take the input's dtype, bf16 under
 # AMP, as the reference's layer makes them): capacity 2 of 4 tokens at
 # top_k 1 and 3 at top_k 2, so an expert's capacity can bind
@@ -558,7 +640,8 @@ MOE_OPS = [
 # by about one ulp of the terms it sums into)
 CHAINED = {'switch_moe': 4, 'switch_moe_top2': 4}
 
-CASES = {c[0]: c for c in NEW_OPS + LAYERS + MODULE_OPS + MOE_OPS}
+CASES = {c[0]: c for c in NEW_OPS + LAYERS + MODULE_OPS + MOE_OPS +
+         CONV_OPS}
 
 
 def _softmax(x):
@@ -620,6 +703,7 @@ SUMS = {
                               {'x': np.abs(_softmax(f['x']))})),
     'bilinear_tensor_product': (64, _sums_bilinear),
 }
+SUMS.update({name: _sums_conv(name) for name in CONV_TERMS})
 
 
 def case_feed(inputs, kind, positive):
@@ -657,6 +741,15 @@ def case_feed(inputs, kind, positive):
     if inputs == 'image':
         return {'x': _random(8, shape=(2, 3, 9, 7)) if kind == 'random'
                 else x.reshape(1, 2, 4, 4)}
+    if inputs == 'image_rois':
+        img = case_feed('image', kind, positive)['x']
+        return {'x': img, 'rois': np.array(
+            [[0, 1, 1, 5, 6], [img.shape[0] - 1, 0, 0, 3, 2],
+             [0, 20, 20, 30, 30]], np.int64)}
+    if inputs == 'x_shift':
+        return {'x': x, 'y': np.ascontiguousarray(y[:, :3])}
+    if inputs == 'x_offsets':
+        return {'x': x, 'off': np.array([3, 7], np.int32)}
     rng = np.random.RandomState(3 if kind == 'random' else 4)
     return {'a': rng.rand(4, 8) > 0.5, 'b': rng.rand(4, 8) > 0.5}
 
