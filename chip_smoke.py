@@ -90,7 +90,14 @@ Phases (any fault exits non-zero; no phase is skipped over):
    at dim 16 and dim 1 (and on the host); the step's 52 tables (26 of
    each width) in one launch; the large-n variant (two tables of 65,536
    ids: sorted on the device, then the presorted launch); index_add_ on
-   each table (atomic scatter-adds) beside SGD's.
+   each table (atomic scatter-adds) beside SGD's. The max pool at the
+   main paths' pools (pool_shapes: ResNet-50's NHWC stem, a ceil / spp
+   shape, GoogLeNet's stem and inception pools, VGG-16's 224² and
+   vgg_bn_drop's fp32): max_pool_fwd's y bit for bit and picks equal to
+   its plain version's (and y to F.max_pool2d's), max_pool_bwd from the picks twice
+   bit for bit and equal to (or within an ulp of the fp32 sums of) its
+   plain version, each half beside its bound, the pair's bound,
+   F.max_pool2d and torch's max_pool2d_with_indices_backward.
 4. Engine: DecodeEngine at the documented serving configuration
    (docs/serving.md: vocab 32000, 12 layers, 8 heads, d_model 512,
    d_inner 2048; max_batch 16, block 32, 4096 pages, 64 pages a
@@ -158,8 +165,9 @@ Phases (any fault exits non-zero; no phase is skipped over):
    1000 classes, on bench.py's RandomState(0) feed: 3 warm-up and 20
    timed steps. ms a step, images/s, MFU of the conv and fc FLOPs, the
    first and last loss (finite, falling), peak memory, K5 launches and
-   its backward's (53 a step each), every running mean and variance
-   moved and finite.
+   its backward's (53 a step each), one max_pool_fwd and one
+   max_pool_bwd launch a step, every running mean and variance moved and
+   finite.
 10. ResNet card vs CPU: ResNet-50 at 32x32, batch 8, 10 classes, NCHW,
    fp32, Momentum(0.01), 3 steps from the same weights on each place:
    the first loss within 1e-3 relative, the running statistics and
@@ -409,7 +417,9 @@ Phases (any fault exits non-zero; no phase is skipped over):
    28, batch 64, fp32) and vgg_bn_drop (3 x 32 x 32, batch 128, fp32 and
    bf16, 14 + 14 K5 launches a step, one of them the [128, 512] fc
    output), Momentum(0.01, 0.9): 3 captured steps each, losses finite
-   and falling over a repeated batch. (c) the seven small builds card
+   and falling over a repeated batch; every model of (a) and (b) counts
+   one max_pool_fwd and one max_pool_bwd launch a max pool a step
+   (MAX_POOLS_A_STEP). (c) the seven small builds card
    against host from the same weights, 2 steps, fp32 and bf16: the first
    loss within 1e-5 (bf16: 1e-2) relative, the second printed (a step
    of these nets turns rounding into percents of the next loss). (d)
@@ -604,9 +614,8 @@ def phase_build():
                    'lstm_cell_bwd_kernel', 'gru_cell_fwd_kernel',
                    'gru_cell_bwd_kernel', 'lstm_seq_fwd_kernel',
                    'lstm_seq_bwd_kernel', 'gru_seq_fwd_kernel',
-                   'gru_seq_bwd_kernel', 'max_pool_pick_kernel',
-                   'max_pool_grad_kernel', 'max_pool_pick_vec_kernel',
-                   'max_pool_grad_vec_kernel'):
+                   'gru_seq_bwd_kernel', 'max_pool_fwd_kernel',
+                   'max_pool_bwd_kernel'):
         require(kernel in res.log, 'ptxas\'s log does not show %s' % kernel)
     print('  flash attention dynamic shared memory at D=64: tensor-core '
           'forward %d B, SIMT forward %d B, SIMT dK/dV %d B, SIMT dQ %d B, '
@@ -1998,15 +2007,17 @@ def phase_step_kernels(torch, card):
             drop[ffn + (False,)], drop[ffn + (True,)])
 
 
-# ----------------------------------------------------- phase 3: max_pool_bwd
+# ------------------------------------------------ phase 3: the max pool
 def pool_shapes(torch):
     """The max pools of the main paths: (label, x shape, dtype,
     channels-last, ksize, stride, padding, ceil_mode)."""
     return [
         ('ResNet-50 stem [64, 64, 112, 112] bf16 NHWC 3x3/2 pad 1',
          (64, 64, 112, 112), torch.bfloat16, True, 3, 2, 1, False),
-        ('GoogLeNet stem [64, 64, 112, 112] bf16 3x3/2 ceil',
+        ('ceil / spp-style [64, 64, 112, 112] bf16 3x3/2 ceil',
          (64, 64, 112, 112), torch.bfloat16, False, 3, 2, 0, True),
+        ('GoogLeNet stem [64, 64, 112, 112] bf16 3x3/2 -> 55',
+         (64, 64, 112, 112), torch.bfloat16, False, 3, 2, 0, False),
         ('GoogLeNet inception [64, 480, 14, 14] bf16 3x3/1 pad 1',
          (64, 480, 14, 14), torch.bfloat16, False, 3, 1, 1, False),
         ('VGG-16 [64, 64, 224, 224] bf16 2x2/2',
@@ -2016,16 +2027,10 @@ def pool_shapes(torch):
     ]
 
 
-def _max_pool_case(torch, card, case, gen):
-    """max_pool_bwd's kernels against their plain version on x with NaN,
-    ±inf and ties (values on a 1/8 grid): twice for equal bits; equal to
-    the plain version in x's dtype where windows do not overlap, within
-    one ulp of its fp32 sums where they do; times beside the bound and
-    torch's own max pooling backward (which sends a NaN window's gradient
-    to the NaN, on the same inputs)."""
-    from paddle_tpu_torch.ops.conv_ops import pool2d
-    from paddle_tpu_torch.ops.kernels import max_pool as K
-    label, shape, dtype, cl, k, s, p, ceil = case
+def pool_case_inputs(torch, case, gen):
+    """x of a pool_shapes case with NaN, ±inf and ties (values on a 1/8
+    grid) in its layout, and its geometry ((k, k), (s, s), pad)."""
+    _, shape, dtype, cl, k, s, p, ceil = case
     dev = torch.device('cuda', 0)
     x = torch.round(torch.randn(shape, generator=gen, device=dev) * 8) / 8
     u = torch.rand(shape, generator=gen, device=dev)
@@ -2034,63 +2039,174 @@ def _max_pool_case(torch, card, case, gen):
     x = torch.where((u >= 0.015) & (u < 0.02), float('-inf'), x).to(dtype)
     if cl:
         x = x.contiguous(memory_format=torch.channels_last)
-    out = pool2d(x, 'max', [k, k], [s, s], [p, p], False, ceil_mode=ceil)
     h, w = shape[2:]
     eh = -(h + 2 * p - k) % s if ceil else 0
     ew = -(w + 2 * p - k) % s if ceil else 0
-    pad = (p, p + ew, p, p + eh)
-    dy = torch.randn(out.shape, generator=gen, device=dev).to(dtype)
-    geo = ((k, k), (s, s), pad)
-    before = K.max_pool_bwd.launches
-    got = K.max_pool_bwd(x, dy, *geo)
-    again = K.max_pool_bwd(x, dy, *geo)
-    require(K.max_pool_bwd.launches == before + 2,
-            '%s: the kernel was not counted' % label)
-    want = K.max_pool_bwd_reference(x, dy, *geo)
-    want32 = K.max_pool_bwd_reference(x.float(), dy.float(), *geo)
+    return x, ((k, k), (s, s), (p, p + ew, p, p + eh))
+
+
+def torch_pool_args(geo, size):
+    """(padding, ceil_mode) with which one F.max_pool2d call computes the
+    pool of an x of ``size`` (h, w) with geometry ``geo``, else None: the
+    same top and left padding within torch's k // 2, and torch's output
+    extents (ceil_mode's included) the pool's, so the right and bottom
+    padding the windows reach is torch's too."""
+    (kh, kw), (sh, sw), (left, right, top, bottom) = geo
+    if top > kh // 2 or left > kw // 2:
+        return None
+
+    def torch_out(n, k, s, p, ceil):
+        # torch's pooling_output_shape at dilation 1
+        out = (n + 2 * p - k + (s - 1 if ceil else 0)) // s + 1
+        if ceil and (out - 1) * s >= n + p:
+            out -= 1
+        return out
+    want = ((size[0] + top + bottom - kh) // sh + 1,
+            (size[1] + left + right - kw) // sw + 1)
+    for ceil in (False, True):
+        if (torch_out(size[0], kh, sh, top, ceil),
+                torch_out(size[1], kw, sw, left, ceil)) == want:
+            return (top, left), ceil
+    return None
+
+
+def torch_pool_fwd(torch, x, geo):
+    """torch's own forward of the same pool: one F.max_pool2d call where
+    torch's padding reaches (torch_pool_args), else F.max_pool2d after
+    F.pad (the port's forward before the max pool had a kernel of its
+    own)."""
+    F = torch.nn.functional
+    (k, _), (s, _), pad = geo
+    args = torch_pool_args(geo, tuple(x.shape[2:]))
+    if args is not None:
+        return F.max_pool2d(x, k, s, args[0], ceil_mode=args[1])
+    return F.max_pool2d(F.pad(x, pad, value=float('-inf')), k, s)
+
+
+def same_bits(torch, a, b):
+    """a and b NaN at the same places and bit for bit elsewhere (the sign
+    of a zero included)."""
+    iv = torch.int16 if a.element_size() == 2 else torch.int32
+    return (a.shape == b.shape and a.dtype == b.dtype and
+            torch.equal(a.isnan(), b.isnan()) and
+            torch.equal(torch.where(a.isnan(), 0, a).view(iv),
+                        torch.where(b.isnan(), 0, b).view(iv)))
+
+
+def _nan_err(torch, a, b):
+    """The largest |a - b|, 0 where both are NaN or equal (±inf)."""
+    d = (a.float() - b.float()).abs()
+    d = torch.where((a.isnan() & b.isnan()) | (a == b), 0.0, d)
+    return float(d.max())
+
+
+def _max_pool_case(torch, card, case, gen):
+    """max_pool_fwd and max_pool_bwd against their plain versions on x
+    with NaN, ±inf, ±0 and ties: y bit for bit (NaN at the same places,
+    the sign of a zero max the reference's), equal to F.max_pool2d's (by
+    value: torch keeps the first of -0 and +0), the picks equal; dx from
+    the kernel's picks twice bit for bit, equal to the plain version in
+    x's dtype where windows do not overlap, within one ulp of its fp32
+    sums where they do; each half's time beside its bound and torch's
+    call (one F.max_pool2d, ceil_mode where it gives the pool, else after
+    F.pad; max_pool2d_with_indices_backward, which sends a NaN window's
+    gradient to the NaN, on the same inputs made finite)."""
+    from paddle_tpu_torch.ops.kernels import max_pool as K
+    label, shape = case[:2]
+    x, geo = pool_case_inputs(torch, case, gen)
+    (k, _), (s, _), pad = geo
+    size = tuple(shape[2:])
+    f0, b0 = K.max_pool_fwd.launches, K.max_pool_bwd.launches
+    y, pick = K.max_pool_fwd(x, *geo)
+    y2, pick2 = K.max_pool_fwd(x, *geo)
+    y3, none = K.max_pool_fwd(x, *geo, picks=False)
+    want_y, want_pick = K.max_pool_fwd_reference(x, *geo)
+    y_err = max(_nan_err(torch, y, want_y), _nan_err(torch, y2, want_y),
+                _nan_err(torch, y3, want_y))
+    y_bits = all(same_bits(torch, a, want_y) for a in (y, y2, y3))
+    lib_y = torch_pool_fwd(torch, x, geo)
+    fwd_ok = (y_err == 0.0 and y_bits and none is None and
+              torch.equal(pick, want_pick) and torch.equal(pick, pick2) and
+              _nan_err(torch, y, lib_y) == 0.0)
+    dy = torch.randn(y.shape, generator=gen, device=x.device) \
+        .to(x.dtype).contiguous(memory_format=K.memory_format(x))
+    fmt = K.memory_format(x)
+    got = K.max_pool_bwd(pick, dy, *geo, size, fmt)
+    again = K.max_pool_bwd(pick, dy, *geo, size, fmt)
+    require(K.max_pool_fwd.launches == f0 + 3 and
+            K.max_pool_bwd.launches == b0 + 2,
+            '%s: the kernels were not counted once a call' % label)
+    want = K.max_pool_bwd_reference(want_pick, dy, *geo, size)
+    want32 = K.max_pool_bwd_reference(want_pick, dy.float(), *geo, size)
     torch.cuda.synchronize()
     same = torch.equal(got, again)
     err = float((got.float() - want.float()).abs().max())
     if s >= k:
-        ok = torch.equal(got, want)
+        bwd_ok = torch.equal(got, want)
     else:
-        ulp = bf16_ulp_t(torch, want32.abs()) if dtype == torch.bfloat16 \
+        ulp = bf16_ulp_t(torch, want32.abs()) if x.dtype == torch.bfloat16 \
             else want32.double().abs() * 2.0 ** -22
-        ok = bool(((got.double() - want32.double()).abs() <= ulp).all())
-    n_x, n_y = x.numel(), dy.numel()
-    lo, by = bound_ms((2 * n_x + n_y) * x.element_size(), k * k * n_y)
-    ms = device_ms(torch, lambda: K.max_pool_bwd(x, dy, *geo))
-    plain = device_ms(torch, lambda: K.max_pool_bwd_reference(x, dy, *geo),
-                      iters=10)
-    lib = None
-    if pad[0] == pad[1] <= k // 2 and pad[2] == pad[3] <= k // 2:
+        bwd_ok = bool(((got.double() - want32.double()).abs() <= ulp).all())
+    e, b = x.element_size(), pick.element_size()
+    n_x, n_y = x.numel(), y.numel()
+    f_lo, f_by = bound_ms(n_x * e + n_y * (e + b), k * k * n_y)
+    b_lo, b_by = bound_ms(n_y * (b + e) + n_x * e, k * k * n_y)
+    pair_lo, _ = bound_ms(2 * (n_x + n_y) * e, 2 * k * k * n_y)
+    f_ms = device_ms(torch, lambda: K.max_pool_fwd(x, *geo))
+    b_ms = device_ms(torch, lambda: K.max_pool_bwd(pick, dy, *geo, size,
+                                                   fmt))
+    f_plain = device_ms(torch, lambda: K.max_pool_fwd_reference(x, *geo),
+                        iters=10)
+    b_plain = device_ms(torch, lambda: K.max_pool_bwd_reference(
+        want_pick, dy, *geo, size), iters=10)
+    f_lib = device_ms(torch, lambda: torch_pool_fwd(torch, x, geo))
+    b_lib = None
+    args = torch_pool_args(geo, size)
+    if args is not None:
         finite = torch.nan_to_num(x, nan=0.0)
-        _, idx = torch.nn.functional.max_pool2d(finite, k, s, p,
-                                                return_indices=True)
-        lib = device_ms(torch, lambda: torch.ops.aten.
-                        max_pool2d_with_indices_backward(
-                            dy, finite, [k, k], [s, s], [p, p], [1, 1],
-                            False, idx))
-    print('max_pool_bwd %s: twice bit for bit %s; %s its plain version '
-          '(largest difference %.3g) %s; device ms: kernels %.5f, plain '
-          '%.5f, bound %.5f (%s), torch\'s max_pool2d backward %s [%s]'
+        _, idx = torch.nn.functional.max_pool2d(
+            finite, k, s, args[0], ceil_mode=args[1], return_indices=True)
+        b_lib = device_ms(torch, lambda: torch.ops.aten.
+                          max_pool2d_with_indices_backward(
+                              dy, finite, [k, k], [s, s], list(args[0]),
+                              [1, 1], args[1], idx))
+    print('max_pool %s: forward: y %s its plain version (bit for bit %s) '
+          'and torch\'s, the picks %s; device ms: kernel %.5f, bound %.5f '
+          '(%s), plain %.5f, F.max_pool2d%s %.5f [%s]'
+          % (label, 'equal to' if y_err == 0.0 else 'MISMATCHES',
+             'ok' if y_bits else 'MISMATCH', 'equal'
+             if fwd_ok else 'MISMATCH', f_ms, f_lo, f_by, f_plain,
+             ' + F.pad' if args is None else
+             ' (ceil_mode)' if args[1] else '', f_lib, card))
+    print('max_pool %s: backward from the picks: twice bit for bit %s; %s '
+          'its plain version (largest difference %.3g) %s; device ms: '
+          'kernel %.5f, bound %.5f (%s), plain %.5f, torch\'s '
+          'max_pool2d backward %s; the pair %.5f against its bound %.5f '
+          '(x + y + dy + dx) and torch\'s %s [%s]'
           % (label, 'ok' if same else 'MISMATCH',
              'equal to' if s >= k else 'within an ulp of the fp32 sums of',
-             err, 'ok' if ok else 'MISMATCH', ms, plain, lo, by,
-             '%.5f' % lib if lib is not None else 'n/a (padding past '
-             'torch\'s)', card))
-    require(same and ok, '%s: max_pool_bwd disagrees with its plain '
+             err, 'ok' if bwd_ok else 'MISMATCH', b_ms, b_lo, b_by, b_plain,
+             '%.5f' % b_lib if b_lib is not None else 'n/a (padding past '
+             'torch\'s)', f_ms + b_ms, pair_lo,
+             '%.5f' % (f_lib + b_lib) if b_lib is not None else 'n/a', card))
+    require(fwd_ok, '%s: max_pool_fwd disagrees with its plain version, '
+            'with itself or with F.max_pool2d' % label)
+    require(same and bwd_ok, '%s: max_pool_bwd disagrees with its plain '
             'version or with itself' % label)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=lo,
-                bound_by=by, library_ms=lib)
+    return (dict(max_abs_err=y_err, ms=f_ms, plain_ms=f_plain, bound_ms=f_lo,
+                 bound_by=f_by, library_ms=f_lib),
+            dict(max_abs_err=err, ms=b_ms, plain_ms=b_plain, bound_ms=b_lo,
+                 bound_by=b_by, library_ms=b_lib))
 
 
 def phase_pool_kernels(torch, card):
-    """max_pool_bwd at the main paths' pools; returns ResNet-50's stem
-    pool's numbers (the kernels line's)."""
+    """max_pool_fwd and max_pool_bwd at the main paths' pools; returns
+    ResNet-50's stem pool's numbers of each (the kernels line's)."""
     gen = torch.Generator(device='cuda').manual_seed(23)
-    rows = [_max_pool_case(torch, card, c, gen) for c in pool_shapes(torch)]
-    torch.cuda.empty_cache()
+    rows = []
+    for case in pool_shapes(torch):
+        rows.append(_max_pool_case(torch, card, case, gen))
+        torch.cuda.empty_cache()
     return rows[0]
 
 
@@ -3242,9 +3358,12 @@ def phase_resnet(torch, pt, place, card, on_card, batch, image, class_dim,
              losses[-1], moved, len(stats), finite, card))
     print('resnet: batch_norm launches in the %d timed steps: forward %d, '
           'backward %d (want %d each = %d a step); gradients copied into '
-          'x\'s layout first: %d'
+          'x\'s layout first: %d; max pool forward %d, backward %d (want %d '
+          'each)'
           % (steps, launches['batch_norm'], launches['batch_norm_bwd'],
-             n_bn * steps, n_bn, launches['batch_norm_bwd_gy_copies']))
+             n_bn * steps, n_bn, launches['batch_norm_bwd_gy_copies'],
+             launches['max_pool_fwd'], launches['max_pool_bwd'],
+             MAX_POOLS_A_STEP['resnet'] * steps))
     require(np.isfinite(losses).all(), 'resnet loss not finite: %s' % losses)
     require(losses[-1] < losses[0], 'resnet loss did not fall: %s' % losses)
     require(finite and moved == len(stats),
@@ -3260,6 +3379,11 @@ def phase_resnet(torch, pt, place, card, on_card, batch, image, class_dim,
                 'resnet batch_norm launches %d forward, %d backward, want %d'
                 % (launches['batch_norm'], launches['batch_norm_bwd'],
                    n_bn * steps))
+        if not small:
+            require(max_pools(program) == MAX_POOLS_A_STEP['resnet'],
+                    'resnet: %d max pools' % max_pools(program))
+            require_pools(launches, steps, MAX_POOLS_A_STEP['resnet'],
+                          'resnet')
     return launches, ('5 ResNet-50 training steps', profile_step, 5, None)
 
 
@@ -8752,6 +8876,29 @@ CONV_OTHERS = [
 ]
 
 
+# max pools a step of each model (pool2d max, not global), one
+# max_pool_fwd and one max_pool_bwd launch each
+MAX_POOLS_A_STEP = {'resnet': 1, 'mobile_net': 0, 'se_resnext': 1,
+                    'vgg16': 5, 'alexnet': 3, 'googlenet': 13, 'lenet': 2,
+                    'vgg_bn_drop': 5}
+
+
+def max_pools(program):
+    """The max pool2d ops (not global) of ``program``."""
+    return sum(op.type == 'pool2d' and
+               op.attrs.get('pooling_type', 'max') == 'max' and
+               not op.attrs.get('global_pooling', False)
+               for op in program.global_block().ops)
+
+
+def require_pools(launches, steps, want, label):
+    """One max_pool_fwd and one max_pool_bwd launch a max pool a step."""
+    got = (launches['max_pool_fwd'] / steps, launches['max_pool_bwd'] / steps)
+    require(got == (want, want), '%s: max pool launches a step %s, want %d '
+            'each' % (label, got, want))
+    return got
+
+
 def _conv_timed(torch, pt, place, card, on_card, case, lr, warmup, steps,
                 eager_steps=0, class_dim=1000, busy=False):
     """``case`` trained on ``place``: ``eager_steps`` steps with
@@ -8764,6 +8911,9 @@ def _conv_timed(torch, pt, place, card, on_card, case, lr, warmup, steps,
     classes = 10 if builder in ('vgg_bn_drop', 'lenet') else class_dim
     avg = _conv_program(pt, builder, image, chans, classes, amp, lr, **kw)
     program = pt.default_main_program()
+    require(max_pools(program) == MAX_POOLS_A_STEP[builder],
+            '%s: %d max pools, want %d' % (label, max_pools(program),
+                                           MAX_POOLS_A_STEP[builder]))
     exe = pt.Executor(place)
     scope = pt.Scope()
     feed = conv_feed(builder, batch, image, chans, classes)
@@ -8809,7 +8959,8 @@ def _conv_timed(torch, pt, place, card, on_card, case, lr, warmup, steps,
     print('phase 21 %s: batch %d x %d x %d x %d, %s, Momentum(%g, 0.9); '
           '%d timed captured steps after %d: %.3f ms/step, %.1f images/s%s%s'
           '; loss %.5f -> %.5f; K5 a step: forward %g, backward %g (want %d '
-          'each) [%s]'
+          'each); max pool a step: forward %g, backward %g (want %d each) '
+          '[%s]'
           % (label, batch, chans, image, image, out['amp'], lr, steps,
              warmup + eager_steps, ms, out['images_per_s'],
              '; eager %.3f ms/step' % out['eager_ms'] if eager_steps else '',
@@ -8817,7 +8968,9 @@ def _conv_timed(torch, pt, place, card, on_card, case, lr, warmup, steps,
              'step' % (out['busy_ms'], out['busy_share'],
                        out['kernels_per_step']) if 'busy_ms' in out else '',
              losses[0], losses[-1], out['bn_per_step'][0],
-             out['bn_per_step'][1], n_bn, card))
+             out['bn_per_step'][1], n_bn, launches['max_pool_fwd'] / steps,
+             launches['max_pool_bwd'] / steps, MAX_POOLS_A_STEP[builder],
+             card))
     require(np.isfinite(losses).all(), '%s: loss not finite: %s'
             % (label, losses))
     require(losses[-1] < losses[0], '%s: loss did not fall over a repeated '
@@ -8826,6 +8979,8 @@ def _conv_timed(torch, pt, place, card, on_card, case, lr, warmup, steps,
         require(out['bn_per_step'] == (n_bn, n_bn),
                 '%s: K5 launches a step %s, want %d each'
                 % (label, out['bn_per_step'], n_bn))
+        out['pools_per_step'] = require_pools(
+            launches, steps, MAX_POOLS_A_STEP[builder], label)
     return launches, out
 
 
@@ -9377,9 +9532,9 @@ def main():
     kvw, pa_write, mask, drop_fwd, drop_bwd = phase_step_kernels(torch,
                                                                   card)
     sparse = phase_sparse_kernels(torch, card)
-    pool = phase_pool_kernels(torch, card)
+    pool_fwd, pool_bwd = phase_pool_kernels(torch, card)
     done('3 (K2, K3, K5, KV write, keep mask, dropout, sparse rows, max '
-         'pool backward)')
+         'pool forward and backward)')
     if args.kernels_only:
         print('kernels only: K1, K4 (and its quantized variant), K2, K3 and '
               'K5 and the K1 and K5 backward kernels agree with their plain '
@@ -9603,8 +9758,9 @@ def main():
 
     def runs(key):
         return sum(r.get(key, 0) for r in main_runs)
-    require(runs('max_pool_bwd') > 0, 'the max pooling backward kernel was '
-            'never launched on the main paths')
+    for key in ('max_pool_fwd', 'max_pool_bwd'):
+        require(runs(key) > 0, '%s was never launched on the main paths'
+                % key)
 
     kernels = [
         dict(name='layer_norm', route='cuda',
@@ -9671,10 +9827,14 @@ def main():
              source='paddle_tpu_torch/csrc/sparse_rows.cu',
              replaces='paddle_tpu/ops/optimizer_ops.py:58',
              launches=runs('sparse_rows'), **sparse[('group', 'sgd')]),
+        dict(name='max_pool_fwd', route='cuda',
+             source='paddle_tpu_torch/csrc/max_pool.cu',
+             replaces='paddle_tpu/ops/conv_ops.py:186',
+             launches=runs('max_pool_fwd'), **pool_fwd),
         dict(name='max_pool_bwd', route='cuda',
              source='paddle_tpu_torch/csrc/max_pool.cu',
              replaces='paddle_tpu/ops/conv_ops.py:186',
-             launches=runs('max_pool_bwd'), **pool),
+             launches=runs('max_pool_bwd'), **pool_bwd),
     ] + [dict(name=name, route='cuda',
               source='paddle_tpu_torch/csrc/rnn_cell.cu',
               replaces='paddle_tpu/ops/rnn_ops.py:%d' % line,

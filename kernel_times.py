@@ -16,6 +16,8 @@ have (a backward kernel before it was written) is reported as such.
     python3 kernel_times.py [DIR] --rnn     # bench_rnn_lstm and its cells
     python3 kernel_times.py [DIR] --moe     # phase 18a's bench_moe steps
     python3 kernel_times.py [DIR] --seq2seq # phase 20's rnn_search, SSD
+    python3 kernel_times.py [DIR] --pool    # the max pool and CNN steps
+    python3 kernel_times.py [DIR] --cells   # the RNN cells at hidden 512
 
 DIR (default: this checkout) holds the ``paddle_tpu_torch`` package to
 time; the shapes, the inputs and the timer (CUDA-graph replay, CUDA events)
@@ -98,6 +100,27 @@ captured: 20 timed calls after 3 (ms a call on the host clock), then 5
 profiled as chip_smoke.py --profile does (wall, device busy time and
 kernels a call, by family and by kernel). A
 checkout without those models is reported as such.
+
+With --pool, it times DIR's max pool through its ops/conv_ops.pool2d at
+chip_smoke.py's pool_shapes and at ResNet-50's stem pool over 640² images
+in fp32 NHWC (rows too wide to stage whole), so every checkout runs the
+same calls: the
+forward alone and the forward + backward under autograd (x needing a
+gradient; torch.autograd.grad of one cotangent), each by CUDA-graph
+replay, beside torch's F.max_pool2d forward + backward on the same x where
+one F.max_pool2d call gives the pool (its ceil_mode included); then DIR's captured training steps of ResNet-50
+(bench_resnet50: batch 64, NHWC, bf16, Momentum 0.1) and of VGG-16,
+GoogLeNet and AlexNet (chip_smoke.py's phase 21b: batch 64 x 224², bf16,
+Momentum 0.01): 3 warm-up and 20 timed steps each, ms a step on the host
+clock and peak memory above what was allocated before the first step.
+
+With --cells, it times DIR's LSTM and GRU cell kernels at the widths where
+the cells run (the sequence kernels have no plan there): bench_rnn_lstm's
+LSTM at hidden 512 (B 128, bf16), rnn_search's encoder GRU (B 64, hidden
+512, fp32 and bf16) and stacked_gru_tagger's GRU (B 64, hidden 512,
+fp32), forward and backward, each against its plain version and beside
+its bound and torch's fused LSTM cell (chip_smoke.py's _rnn_cell_case,
+timed).
 
 Nothing is checked here: chip_smoke.py holds each kernel against its plain
 versions. Prints one line a case, then nvidia-smi's name and power limit,
@@ -552,10 +575,121 @@ def seq2seq_steps(torch, smoke, card, steps=5):
     return ms
 
 
+def pool_steps(torch, smoke, card, steps=20):
+    """--pool: DIR's max pool at pool_shapes and its CNN steps; returns
+    {label: ms}."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops.conv_ops import pool2d
+    F = torch.nn.functional
+    dev = torch.device('cuda', 0)
+    gen = torch.Generator(device='cuda').manual_seed(23)
+    ms = {}
+    # past pool_shapes: ResNet-50's stem pool at 640² images in fp32 NHWC,
+    # whose rows of 64 channels are too wide to stage whole
+    wide = ('ResNet-50 stem at 640² [16, 64, 320, 320] fp32 NHWC 3x3/2 '
+            'pad 1', (16, 64, 320, 320), torch.float32, True, 3, 2, 1,
+            False)
+    for case in smoke.pool_shapes(torch) + [wide]:
+        label, _, dtype, _, k, s, p, ceil = case
+        x, geo = smoke.pool_case_inputs(torch, case, gen)
+        x = x.detach().requires_grad_()
+        dy = torch.randn(pool2d(x, 'max', [k, k], [s, s], [p, p], False,
+                                ceil_mode=ceil).shape, generator=gen,
+                         device=dev).to(dtype)
+
+        def fwd(x=x, k=k, s=s, p=p, ceil=ceil):
+            pool2d(x, 'max', [k, k], [s, s], [p, p], False, ceil_mode=ceil)
+
+        def pair(x=x, k=k, s=s, p=p, ceil=ceil, dy=dy):
+            torch.autograd.grad(pool2d(x, 'max', [k, k], [s, s], [p, p],
+                                       False, ceil_mode=ceil), x, dy)
+        ms[label + ' forward'] = smoke.device_ms(torch, fwd)
+        ms[label + ' forward + backward'] = smoke.device_ms(torch, pair)
+        note = 'torch n/a (padding past torch\'s)'
+        args = smoke.torch_pool_args(geo, tuple(x.shape[2:]))
+        if args is not None:
+            def torch_pair(x=x, k=k, s=s, args=args, dy=dy):
+                torch.autograd.grad(F.max_pool2d(x, k, s, args[0],
+                                                 ceil_mode=args[1]), x, dy)
+            ms[label + ' torch forward + backward'] = smoke.device_ms(
+                torch, torch_pair)
+            note = 'torch\'s F.max_pool2d forward + backward %.5f' % (
+                ms[label + ' torch forward + backward'])
+        print('max pool %s: forward %.5f ms, forward + backward %.5f ms '
+              '(graph replay); %s [%s]'
+              % (label, ms[label + ' forward'],
+                 ms[label + ' forward + backward'], note, card))
+        del x, dy
+        torch.cuda.empty_cache()
+    for label, builder, batch in (('ResNet-50', 'resnet', 64),
+                                  ('VGG-16', 'vgg16', 64),
+                                  ('GoogLeNet', 'googlenet', 64),
+                                  ('AlexNet', 'alexnet', 64)):
+        if builder == 'resnet':
+            from paddle_tpu_torch.models import resnet as R
+            avg = smoke._build_resnet(pt, 224, 1000, 'NHWC', 'bf16', 0.1)
+            feed = R.make_fake_batch(batch, 224, 1000, seed=0)
+        else:
+            avg = smoke._conv_program(pt, builder, 224, 3, 1000, 'bf16',
+                                      0.01)
+            feed = smoke.conv_feed(builder, batch, 224, 3, 1000)
+        exe = pt.Executor(pt.CUDAPlace(0))
+        scope = pt.Scope()
+        with pt.scope_guard(scope):
+            exe.run(pt.default_startup_program())
+            feed = {n: torch.as_tensor(v).to(dev) for n, v in feed.items()}
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            smoke._train_steps(torch, exe, feed, avg, 3, True)
+            secs, losses = smoke._train_steps(torch, exe, feed, avg, steps,
+                                              True)
+            peak = torch.cuda.max_memory_allocated() - before
+        ms[label + ' step'] = secs * 1e3 / steps
+        ms[label + ' peak GB'] = peak / 1e9
+        print('%s: batch %d x 224 x 224, bf16, %d captured steps after 3: '
+              '%.3f ms/step, peak memory %.4f GB above what was allocated '
+              'before the first step; loss first %.5f last %.5f [%s]'
+              % (label, batch, steps, ms[label + ' step'], peak / 1e9,
+                 losses[0], losses[-1], card))
+        del exe, scope, feed
+        torch.cuda.empty_cache()
+    return ms
+
+
+def cell_steps(torch, smoke, card):
+    """--cells: DIR's LSTM and GRU cell kernels at the widths where the
+    cells run; returns {label: ms}."""
+    import numpy as np
+    gen = torch.Generator(device='cuda').manual_seed(19)
+    ms = {}
+    for what, kind, b, t, d, dtype in (
+            ('bench_rnn_lstm', 'lstm', 128, 100, 512, torch.bfloat16),
+            ('rnn_search encoder', 'gru', 64, 50, 512, torch.float32),
+            ('rnn_search encoder', 'gru', 64, 50, 512, torch.bfloat16),
+            ('stacked_gru_tagger', 'gru', 64, 100, 512, torch.float32)):
+        for direction in ('fwd', 'bwd'):
+            row = smoke._rnn_cell_case(
+                torch, card, kind, direction, dtype, b, t, d, np.full(b, t),
+                smoke.ACTS_OF[kind], gen, timed=True)
+            key = '%s %s_cell_%s [%d, %d] %s' % (what, kind, direction, b, d,
+                                                 str(dtype)[6:])
+            for name in ('ms', 'plain_ms', 'bound_ms', 'library_ms'):
+                ms['%s %s' % (key, name)] = row[name]
+            print('%s: kernel %.5f ms a step, plain %.5f, bound %.6f (%s), '
+                  'library %s [%s]'
+                  % (key, row['ms'], row['plain_ms'], row['bound_ms'],
+                     row['bound_by'], '%.5f' % row['library_ms']
+                     if row['library_ms'] is not None else 'none', card))
+        torch.cuda.empty_cache()
+    return ms
+
+
 def main():
     args = [a for a in sys.argv[1:]
             if a not in ('--decode', '--train', '--write', '--serve',
-                         '--encoder', '--rnn', '--moe', '--seq2seq')]
+                         '--encoder', '--rnn', '--moe', '--seq2seq',
+                         '--pool', '--cells')]
     port = os.path.abspath(args[0]) if args else REPO
     sys.path.insert(0, REPO)
     import chip_smoke as smoke
@@ -582,7 +716,8 @@ def main():
     for flag, run in (('--train', train_steps), ('--write', write_layers),
                       ('--serve', serve), ('--encoder', encoder_steps),
                       ('--rnn', rnn_steps), ('--moe', moe_steps),
-                      ('--seq2seq', seq2seq_steps)):
+                      ('--seq2seq', seq2seq_steps), ('--pool', pool_steps),
+                      ('--cells', cell_steps)):
         if flag in sys.argv:
             ms = run(torch, smoke, card)
             print(card)

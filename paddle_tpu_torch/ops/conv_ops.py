@@ -16,7 +16,8 @@ import torch
 import torch.nn.functional as F
 
 from ..core.registry import register
-from .kernels.max_pool import max_pool_bwd
+from .kernels.max_pool import max_pool_bwd, max_pool_fwd
+from .kernels.max_pool import memory_format as layout_of
 
 
 def _operand(ctx, value, memory_format):
@@ -125,26 +126,25 @@ def _spp(ctx):
 
 class _MaxPool(torch.autograd.Function):
     """Max pooling of an [N, C, H, W] x over -inf padding ``pad`` (left,
-    right, top, bottom) whose gradient goes where the JAX package's
-    (select_and_scatter's) does: kernels.max_pool.max_pool_bwd, in a
-    window holding a NaN to the first largest element after its last NaN
-    rather than to the NaN."""
+    right, top, bottom) with the JAX package's picks: kernels.max_pool's
+    forward writes y and, where x needs a gradient, the picks, which the
+    backward reads in place of x; in a window holding a NaN the gradient
+    goes to the first largest element after its last NaN, as
+    select_and_scatter sends it, rather than to the NaN."""
 
     @staticmethod
     def forward(ctx, x, ksize, strides, pad):
-        ctx.save_for_backward(x)
-        ctx.geometry = ksize, strides, pad
-        (kh, kw), (left, right, top, bottom) = ksize, pad
-        if left == right <= kw // 2 and top == bottom <= kh // 2:
-            # torch's own padding is the same -inf
-            return F.max_pool2d(x, ksize, strides, (top, left))
-        return F.max_pool2d(F.pad(x, pad, value=float('-inf')), ksize,
-                            strides)
+        y, pick = max_pool_fwd(x, ksize, strides, pad,
+                               picks=ctx.needs_input_grad[0])
+        ctx.geometry = ksize, strides, pad, tuple(x.shape[2:]), layout_of(x)
+        if pick is not None:
+            ctx.save_for_backward(pick)
+        return y
 
     @staticmethod
     def backward(ctx, g):
-        x, = ctx.saved_tensors
-        return (max_pool_bwd(x, g, *ctx.geometry), None, None, None)
+        pick, = ctx.saved_tensors
+        return (max_pool_bwd(pick, g, *ctx.geometry), None, None, None)
 
 
 def pool2d(x4, pooling_type, ksize, strides, pads, global_pooling,

@@ -14,7 +14,7 @@ def launch_counters():
     from .batch_norm import fused_batch_norm_train
     from .kv_write import kv_write
     from .layer_norm import fused_layer_norm
-    from .max_pool import max_pool_bwd
+    from .max_pool import max_pool_bwd, max_pool_fwd
     from .paged_attention import paged_attention
     from .random_bits import fused_dropout, keep_mask
     from .rnn_cell import gru_cell_bwd, gru_cell_fwd, gru_seq_bwd, \
@@ -45,6 +45,7 @@ def launch_counters():
            ('gru_cell_bwd', gru_cell_bwd, 'launches'),
            ('gru_seq_fwd', gru_seq_fwd, 'launches'),
            ('gru_seq_bwd', gru_seq_bwd, 'launches'),
+           ('max_pool_fwd', max_pool_fwd, 'launches'),
            ('max_pool_bwd', max_pool_bwd, 'launches')]
     for name, fn in (('flash_attention_fwd', fa.flash_fwd_cuda),
                      ('flash_attention_bwd_dkv', fa.flash_bwd_dkv_cuda),

@@ -208,9 +208,9 @@ def library():
             lib.ptt_gru_seq_bwd.restype = i
             lib.ptt_gru_seq_floor.argtypes = [i] * 7 + [p]
             lib.ptt_gru_seq_floor.restype = i
-            lib.ptt_max_pool_bwd.argtypes = [p] * 4 + [ll] * 6 + [i] * 8 + \
-                [p]
-            lib.ptt_max_pool_bwd.restype = i
+            for fn in (lib.ptt_max_pool_fwd, lib.ptt_max_pool_bwd):
+                fn.argtypes = [p] * 3 + [ll] * 6 + [i] * 8 + [p]
+                fn.restype = i
             _loaded['lib'] = lib
         return lib
 

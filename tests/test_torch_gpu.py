@@ -26,7 +26,7 @@ import torch
 import paddle_tpu_torch as pt
 from chip_smoke import (GRU_SEQ_CASES, LAYERS_EDGE, LAYERS_FAULTS,
                         RNN_SEQ_CASES, grads_ok, ordinary,
-                        parity_difference)
+                        parity_difference, same_bits, torch_pool_args)
 from paddle_tpu_torch.ops.kernels import batch_norm as tbn
 from paddle_tpu_torch.ops.kernels import flash_attention as tfa
 from paddle_tpu_torch.ops.kernels import layer_norm as tln
@@ -2932,25 +2932,36 @@ def test_generation_decode_on_card_equals_host(cuda):
     np.testing.assert_allclose(cs, hs, rtol=0, atol=1e-5)
 
 
-# (x shape, channels-last, ksize, stride, padding, ceil_mode)
+# (x shape, channels-last, ksize, stride, padding, ceil_mode): whole
+# planes a CTA (the first four), bands of rows (the 112 x 112 planes), NCHW
+# rows whose first element is an odd padded column (pad 1, stride 2), the
+# scalar channels-last path (c = 3), windows of nothing but padding, the
+# int32 picks (16 x 16 windows), channels-last rows too wide for whole rows
+# of c (slices of the channels: 400 and 700 pixels of 64), and tiles too
+# large to stage (read from global memory: 1,200 pixels of 32 channels in
+# fp32, NCHW rows of 42,000, one 128 x 128 window of int32 picks)
 MAX_POOLS = [((4, 16, 28, 28), True, 3, 2, 1, False),
              ((4, 16, 28, 28), False, 3, 2, 0, True),
              ((4, 32, 14, 14), False, 3, 1, 1, False),
              ((4, 8, 32, 32), False, 2, 2, 0, False),
              ((2, 3, 9, 7), False, 2, 1, 2, False),
-             ((2, 3, 9, 7), True, 3, 2, 1, True)]
+             ((2, 3, 9, 7), True, 3, 2, 1, True),
+             ((2, 64, 112, 112), True, 3, 2, 1, False),
+             ((2, 8, 112, 112), False, 3, 2, 0, True),
+             ((2, 8, 30, 26), False, 3, 2, 1, False),
+             ((2, 16, 9, 11), True, 3, 2, 3, True),
+             ((2, 3, 20, 22), False, 16, 4, 3, False),
+             ((2, 8, 16, 16), True, 16, 16, 0, True),
+             ((2, 64, 8, 400), True, 3, 2, 1, False),
+             ((2, 64, 8, 700), True, 3, 2, 1, False),
+             ((1, 32, 40, 1200), True, 3, 2, 1, False),
+             ((1, 1, 5, 42000), False, 3, 2, 1, False),
+             ((1, 8, 128, 128), True, 128, 128, 0, False)]
 
 
-@pytest.mark.parametrize('case', MAX_POOLS)
-@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
-def test_max_pool_bwd_kernel_matches_plain(cuda, case, dtype):
-    """csrc/max_pool.cu (channels-last in 16-byte channel groups, and
-    not) on x with NaN, ±inf, -inf-only windows and ties: twice bit for
-    bit, counted once a call, equal to its plain version
-    where windows do not overlap and within one ulp of the plain
-    version's fp32 sums where they do."""
-    from paddle_tpu_torch.ops.conv_ops import pool2d
-    from paddle_tpu_torch.ops.kernels import max_pool as K
+def _max_pool_inputs(cuda, case, dtype):
+    """x with NaN, ±inf, a -inf corner and ties (values on a 1/4 grid) in
+    the case's layout, and the pool's geometry ((k, k), (s, s), pad)."""
     shape, cl, k, s, p, ceil = case
     gen = torch.Generator(device='cuda').manual_seed(k * 10 + s + p)
     x = torch.round(torch.randn(shape, generator=gen, device=cuda) * 4) / 4
@@ -2962,21 +2973,94 @@ def test_max_pool_bwd_kernel_matches_plain(cuda, case, dtype):
     x = x.to(dtype)
     if cl:
         x = x.contiguous(memory_format=torch.channels_last)
-    out = pool2d(x, 'max', [k, k], [s, s], [p, p], False, ceil_mode=ceil)
     h, w = shape[2:]
     eh = -(h + 2 * p - k) % s if ceil else 0
     ew = -(w + 2 * p - k) % s if ceil else 0
-    geo = ((k, k), (s, s), (p, p + ew, p, p + eh))
-    dy = torch.randn(out.shape, generator=gen, device=cuda).to(dtype)
+    return x, gen, ((k, k), (s, s), (p, p + ew, p, p + eh))
+
+
+def _same_with_nan(a, b):
+    """Equal by value, NaN at the same places (torch keeps the first of
+    -0 and +0)."""
+    return torch.equal(a.isnan(), b.isnan()) and \
+        torch.equal(a.nan_to_num(0.0), b.nan_to_num(0.0))
+
+
+@pytest.mark.parametrize('case', MAX_POOLS)
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_max_pool_fwd_kernel_matches_plain(cuda, case, dtype):
+    """csrc/max_pool.cu's forward: y bit for bit its plain version's (NaN
+    at the same places, the sign of a zero max the reference's) and equal
+    to F.max_pool2d's where one call of it gives the pool, the picks equal
+    to the plain ones (byte or int32), in x's layout, no picks when none
+    are asked for; counted once a call."""
+    from paddle_tpu_torch.ops.kernels import max_pool as K
+    x, _, geo = _max_pool_inputs(cuda, case, dtype)
+    before = K.max_pool_fwd.launches
+    y, pick = K.max_pool_fwd(x, *geo)
+    y2, none = K.max_pool_fwd(x, *geo, picks=False)
+    assert K.max_pool_fwd.launches == before + 2 and none is None
+    want, want_pick = K.max_pool_fwd_reference(x, *geo)
+    assert y.shape == want.shape and pick.dtype == K.pick_dtype(geo[0])
+    assert same_bits(torch, y, want) and same_bits(torch, y2, want)
+    assert torch.equal(pick, want_pick)
+    assert K.memory_format(y) == K.memory_format(x) or y.shape[2:] == (1, 1)
+    (k, _), (s, _), _ = geo
+    args = torch_pool_args(geo, tuple(x.shape[2:]))
+    if args is not None:
+        assert _same_with_nan(y, torch.nn.functional.max_pool2d(
+            x, k, s, args[0], ceil_mode=args[1]))
+
+
+@pytest.mark.parametrize('case', MAX_POOLS)
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_max_pool_bwd_kernel_matches_plain(cuda, case, dtype):
+    """csrc/max_pool.cu's gradient from the picks and dy (never x): twice
+    bit for bit, counted once a call, equal to its plain version where
+    windows do not overlap and within one ulp of the plain version's fp32
+    sums where they do."""
+    from paddle_tpu_torch.ops.kernels import max_pool as K
+    x, gen, geo = _max_pool_inputs(cuda, case, dtype)
+    _, pick = K.max_pool_fwd(x, *geo)
+    size = tuple(x.shape[2:])
+    dy = torch.randn(pick.shape, generator=gen, device=cuda).to(dtype) \
+        .contiguous(memory_format=K.memory_format(x))
+    fmt = K.memory_format(x)
     before = K.max_pool_bwd.launches
-    got = K.max_pool_bwd(x, dy, *geo)
-    assert torch.equal(got, K.max_pool_bwd(x, dy, *geo))
+    got = K.max_pool_bwd(pick, dy, *geo, size, fmt)
+    assert torch.equal(got, K.max_pool_bwd(pick, dy, *geo, size, fmt))
     assert K.max_pool_bwd.launches == before + 2
+    (k, _), (s, _), _ = geo
     if s >= k:
-        assert torch.equal(got, K.max_pool_bwd_reference(x, dy, *geo))
+        assert torch.equal(got, K.max_pool_bwd_reference(pick, dy, *geo,
+                                                         size))
     else:
-        want = K.max_pool_bwd_reference(x.float(), dy.float(), *geo).double()
+        want = K.max_pool_bwd_reference(pick, dy.float(), *geo,
+                                        size).double()
         a = want.abs().clamp_min(2.0 ** -126)
         ulp = torch.exp2(torch.floor(torch.log2(a)) - (
             7 if dtype == torch.bfloat16 else 22))
         assert bool(((got.double() - want).abs() <= ulp).all())
+
+
+def test_max_pool_autograd_on_card(cuda):
+    """pool2d on the card: one forward and one backward launch, the
+    gradient taken from the picks; no picks (and no backward) where x
+    needs no gradient; a dtype the kernels do not take raises."""
+    from paddle_tpu_torch.ops.conv_ops import pool2d
+    from paddle_tpu_torch.ops.kernels import max_pool as K
+    x, gen, geo = _max_pool_inputs(cuda, MAX_POOLS[0], torch.bfloat16)
+    xg = x.clone().requires_grad_()
+    f0, b0 = K.max_pool_fwd.launches, K.max_pool_bwd.launches
+    y = pool2d(xg, 'max', [3, 3], [2, 2], [1, 1], False)
+    dy = torch.randn(y.shape, generator=gen, device=cuda).to(y.dtype)
+    dx, = torch.autograd.grad(y, xg, dy)
+    assert (K.max_pool_fwd.launches, K.max_pool_bwd.launches) == \
+        (f0 + 1, b0 + 1)
+    _, pick = K.max_pool_fwd_reference(x, *geo)
+    assert torch.equal(dx, K.max_pool_bwd(pick, dy, *geo, (28, 28),
+                                          torch.channels_last))
+    y0 = pool2d(x, 'max', [3, 3], [2, 2], [1, 1], False)
+    assert _same_with_nan(y0, y.detach())
+    with pytest.raises(TypeError):
+        pool2d(x.half(), 'max', [3, 3], [2, 2], [1, 1], False)
