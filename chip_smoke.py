@@ -358,8 +358,10 @@ Phases (any fault exits non-zero; no phase is skipped over):
    ms a step captured (one graph), exactly one sequence launch each way
    a recurrent layer and step and no cell launch, 3 steps card against
    host (rtol 1e-4); stacked_gru_tagger at hidden 512, past the GRU
-   sequence kernels' plan, 3 timed steps with exactly 2 x 100 cell
-   launches each way a layer and step. (c) each cell kernel
+   cluster's plan, 3 timed steps with exactly one wide GRU launch each
+   way a layer and step, and at hidden 1024, past every GRU plan, 3 with
+   exactly 2 x 100 cell launches each way a layer and step. (c) each
+   cell kernel
    (csrc/rnn_cell.cu: LSTM
    forward, backward; GRU forward, backward, two launches a step each)
    against its plain version at fp32 and bf16, at the bench step, ragged
@@ -375,12 +377,17 @@ Phases (any fault exits non-zero; no phase is skipped over):
    per-position path and cuDNN's nn.LSTM at fp16; the GRU sequence
    kernels (csrc/gru_seq.cu) likewise on the same cases (their floor two
    exchanges a step; no PyTorch call computes the GRU's function); the
-   whole recurrences card against host at fp32 (ragged, reverse, length
-   0; the LSTM also at hidden 256 and the GRU at hidden 512, where fp32
-   has no plan and the cells run), and each recurrence beside the
+   wide GRU kernels (csrc/gru_wide.cu: W over the card, the exchanges
+   through L2) likewise at hidden 512 (GRU_WIDE_CASES), timed at 64 x
+   100 x 512 in fp32 and bf16 beside their bound, their exchange floor,
+   the plain version and the per-position path; the whole recurrences
+   card against host at fp32 (ragged, reverse, length 0; the GRU at 512
+   on the wide kernels, and past every plan, the LSTM at hidden 256 and
+   the GRU at 1024, on the cells), and each recurrence beside the
    per-position path and torch.nn.LSTM / nn.GRU (cuDNN at fp16 and fp32;
    nn.GRU applies its reset gate after the product, a yardstick for
-   another function). (d) the 22 op types of
+   another function), the GRU also at 64 x 100 x 512. (d) the 22 op
+   types of
    the slice in one captured program (B 16, T 24, lengths 0-24), fp32
    and bf16 AMP, card against host (exact, or recurrence_difference).
 20. Control flow, the RNN-search seq2seq and SSD. (a) models/rnn_search
@@ -388,8 +395,8 @@ Phases (any fault exits non-zero; no phase is skipped over):
    512, dictionaries of 30,000), batch 64 x 50 source and target tokens
    (source lengths 20-50), Adam, fp32: 3 warm-up and 10 timed captured
    steps (wall and device-busy ms a step, device kernels a step), the
-   encoder's GRU at hidden 512 on the cell kernels (no sequence plan):
-   exactly 2 x 100 launches each way a step; the 13 losses equal an
+   encoder's GRU at hidden 512 on the wide GRU kernels (no cluster holds
+   W): exactly 2 launches each way a step; the 13 losses equal an
    eager run's from the same start bit for bit; then 2 + 5 bf16 AMP
    steps likewise; then greedy and beam-4 decoding of the batch at 50
    positions from the trained scope, ms a batch captured, ids equal the
@@ -614,7 +621,8 @@ def phase_build():
                    'lstm_cell_bwd_kernel', 'gru_cell_fwd_kernel',
                    'gru_cell_bwd_kernel', 'lstm_seq_fwd_kernel',
                    'lstm_seq_bwd_kernel', 'gru_seq_fwd_kernel',
-                   'gru_seq_bwd_kernel', 'max_pool_fwd_kernel',
+                   'gru_seq_bwd_kernel', 'gru_wide_fwd_kernel',
+                   'gru_wide_bwd_kernel', 'max_pool_fwd_kernel',
                    'max_pool_bwd_kernel'):
         require(kernel in res.log, 'ptxas\'s log does not show %s' % kernel)
     print('  flash attention dynamic shared memory at D=64: tensor-core '
@@ -7087,25 +7095,36 @@ def rnn_lstm_feed(batch, seq, vocab, lens=None, seed=0):
             'label': rng.randint(0, 2, (batch, 1)).astype('int64')}
 
 
-def rnn_want(lstm_steps=0, gru_steps=0, lstm_seqs=0, gru_seqs=0):
+def rnn_want(lstm_steps=0, gru_steps=0, lstm_seqs=0, gru_seqs=0,
+             gru_wides=0):
     """The recurrences' launches: ``lstm_steps`` LSTM and ``gru_steps`` GRU
     positions run forward and backward by the cells (a GRU position: two
-    launches each way), and ``lstm_seqs`` LSTM and ``gru_seqs`` GRU
-    sequences by the sequence kernels (one launch each way)."""
+    launches each way), ``lstm_seqs`` LSTM and ``gru_seqs`` GRU sequences
+    by the cluster's sequence kernels and ``gru_wides`` GRU sequences by
+    the wide ones (one launch each way)."""
     return dict(lstm_cell_fwd=lstm_steps, lstm_cell_bwd=lstm_steps,
                 gru_cell_fwd=2 * gru_steps, gru_cell_bwd=2 * gru_steps,
                 lstm_seq_fwd=lstm_seqs, lstm_seq_bwd=lstm_seqs,
-                gru_seq_fwd=gru_seqs, gru_seq_bwd=gru_seqs)
+                gru_seq_fwd=gru_seqs, gru_seq_bwd=gru_seqs,
+                gru_wide_fwd=gru_wides, gru_wide_bwd=gru_wides)
 
 
 def recurrence_want(torch, kind, batch, seq, width, dtype=None, times=1):
     """The launches (rnn_want) of ``times`` runs of one recurrence ('lstm'
     or 'gru'), forward and backward: one sequence launch each way a run
-    where its plan has a launch, else the cells a position."""
+    where a plan has a launch (the GRU: the cluster's, else the wide
+    one), else the cells a position."""
     from paddle_tpu_torch.ops.kernels import rnn_cell as K
-    plan_of = K.lstm_seq_plan if kind == 'lstm' else K.gru_seq_plan
-    if plan_of(batch, width, dtype or torch.float32) is None:
+    dtype = dtype or torch.float32
+    if kind == 'lstm':
+        path = 'cells' if K.lstm_seq_plan(batch, width, dtype) is None \
+            else 'seq'
+    else:
+        path = K.gru_path(batch, width, dtype)
+    if path == 'cells':
         return rnn_want(**{'%s_steps' % kind: seq * times})
+    if path == 'wide':
+        return rnn_want(gru_wides=times)
     return rnn_want(**{'%s_seqs' % kind: times})
 
 
@@ -7522,7 +7541,21 @@ GRU_SEQ_CASES = {
            [(1, 2), (2, 0), (3, 0), (0, 3)], rev, bias, dh, False)
     for name, (b, t, d, lens, acts, rev, bias, dh, _) in
     RNN_SEQ_CASES.items()}
-SEQ_CASES = {'lstm': RNN_SEQ_CASES, 'gru': GRU_SEQ_CASES}
+# the wide GRU kernels' cases: the same at hidden 512 (the odd case at 500,
+# neither a multiple of 16 nor of 8), the bench case at 64 rows (the GRU
+# models' batch), where no cluster holds W. At 512 with these draws an
+# identity gate (u unbounded) and a relu gate with a sigmoid candidate
+# reach inf within the 100 steps in the plain version itself, so every
+# other code is a gate and every code a candidate
+GRU_WIDE_CASES = {
+    name: (64 if name == 'bench' else b, t, 500 if name == 'odd' else 512,
+           [t] * 64 if name == 'bench' else lens,
+           [(1, 2), (2, 3), (1, 0), (0, 3)] if len(acts) > 1 else acts, rev,
+           bias, dh, dc)
+    for name, (b, t, d, lens, acts, rev, bias, dh, dc) in
+    GRU_SEQ_CASES.items()}
+SEQ_CASES = {'lstm': RNN_SEQ_CASES, 'gru': GRU_SEQ_CASES,
+             'gru_wide': GRU_WIDE_CASES}
 # bf16: the kernel's recurrent products and cuBLAS's round to bf16 from
 # sums in other orders, and a one-ulp difference in a step's product
 # carries through the earlier steps (the LSTM backward's worst measured
@@ -7530,6 +7563,18 @@ SEQ_CASES = {'lstm': RNN_SEQ_CASES, 'gru': GRU_SEQ_CASES}
 RNN_SEQ_BF16_TOL = 2.0 ** -7
 RNN_SEQ_TOL = ('fp32: |kernel - plain| <= 1e-5 x the array\'s largest '
                'magnitude; bf16: <= %.4g x it' % RNN_SEQ_BF16_TOL)
+# the wide kernels in bf16: at hidden 512 each product sums 512 (backward
+# 1,024) terms before it rounds to bf16, and a one-ulp difference from
+# cuBLAS's order carries through the 100 steps; with an unbounded
+# activation (a relu gate, an identity or relu candidate) it grows with
+# h, as bf16's own rounding does (on an H100: 2 ulps of the largest
+# magnitude with a relu candidate, 4 with a relu gate and an identity
+# candidate). So bf16 is held as phase 21c holds it, to twice the plain
+# version's own distance from fp32 on the same inputs, or 2^-7 of the
+# largest magnitude where that is larger
+RNN_WIDE_TOL = ('fp32: |kernel - plain| <= 1e-5 x the array\'s largest '
+                'magnitude; bf16: <= max(%.4g x it, 2 x |plain bf16 - plain '
+                'fp32|) on the same inputs' % RNN_SEQ_BF16_TOL)
 
 
 def _seq_inputs(torch, kind, case, dtype, seed=20):
@@ -7555,7 +7600,7 @@ def _seq_inputs(torch, kind, case, dtype, seed=20):
 def _seq_bytes_ops(kind, b, t, d, elt, direction):
     """The bytes a sequence kernel must move (each input once, each output
     once) and its products' operations."""
-    if kind == 'gru':
+    if kind != 'lstm':
         if direction == 'fwd':
             n = elt * (b * t * 3 * d + d * 3 * d + 3 * d + b * d +
                        2 * b * t * d + b * t * 3 * d) + 4 * b
@@ -7573,26 +7618,29 @@ def _seq_bytes_ops(kind, b, t, d, elt, direction):
 
 
 def _rnn_seq_case(torch, card, kind, direction, dtype, case, timed=False):
-    """One sequence kernel (kind 'lstm' or 'gru', direction 'fwd' or 'bwd')
-    against its plain version (the per-position loop of torch.mm and plain
-    cells) on the same card tensors, every output within RNN_SEQ_TOL, run
-    twice for equal bits and counted once a launch; the backward's inputs
-    are the plain forward's. With ``timed``: device ms (graph replay)
-    beside the plain version's, the per-position path's (torch.mm and the
-    cell kernels), the bound, the floor (T steps of the cluster's
+    """One sequence kernel (kind 'lstm', 'gru' or 'gru_wide', direction
+    'fwd' or 'bwd') against its plain version (the per-position loop of
+    torch.mm and plain cells) on the same card tensors, every output within
+    RNN_SEQ_TOL (the wide kernels' RNN_WIDE_TOL), run twice for equal bits
+    and counted once a launch; the backward's inputs are the plain
+    forward's. With ``timed``: device ms
+    (graph replay) beside the plain version's, the per-position path's
+    (torch.mm and the cell kernels), the bound, the floor (T steps of the
     exchanges alone at the same launch geometry: one a step for the LSTM,
     two for the GRU) and the library call (the LSTM: cuDNN's nn.LSTM at
     fp16, forward without grad, or its backward alone; the GRU: none, no
     PyTorch call computes its function). Returns the row."""
     from paddle_tpu_torch.ops.kernels import build
     from paddle_tpu_torch.ops.kernels import rnn_cell as K
-    lstm = kind == 'lstm'
+    lstm, wide = kind == 'lstm', kind == 'gru_wide'
+    stem = 'gru_wide' if wide else '%s_seq' % kind
     v = _seq_inputs(torch, kind, case, dtype)
     b, t, d = v['x'].shape[0], v['x'].shape[1], v['w'].shape[0]
-    name = '%s_seq_%s' % (kind, direction)
+    name = '%s_%s' % (stem, direction)
     counter = getattr(K, name)
     worst, rel_worst = 0.0, 0.0
     tol = 1e-5 if dtype == torch.float32 else RNN_SEQ_BF16_TOL
+    tol_text = RNN_WIDE_TOL if wide else RNN_SEQ_TOL
     for acts in v['acts']:
         if lstm:
             fargs = (v['x'], v['w'], v['bias'], v['h0'], v['c0'],
@@ -7602,7 +7650,8 @@ def _rnn_seq_case(torch, card, kind, direction, dtype, case, timed=False):
         else:
             fargs = (v['x'], v['w'], v['bias'], v['h0'], v['length'], acts,
                      v['reverse'])
-            fwd, fwd_plain = K.gru_seq_fwd, K.gru_seq_fwd_reference
+            fwd = getattr(K, stem + '_fwd')
+            fwd_plain = K.gru_seq_fwd_reference
             pos_fwd, pos_bwd = K.gru_positions_fwd, K.gru_positions_bwd
         if direction == 'fwd':
             def launch(fargs=fargs, fwd=fwd):
@@ -7627,7 +7676,8 @@ def _rnn_seq_case(torch, card, kind, direction, dtype, case, timed=False):
                 hidden, gates, _ = outs
                 bargs = (v['dh'], v['w'], gates, hidden, v['h0'],
                          v['length'], acts, v['reverse'])
-                bwd, bwd_plain = K.gru_seq_bwd, K.gru_seq_bwd_reference
+                bwd = getattr(K, stem + '_bwd')
+                bwd_plain = K.gru_seq_bwd_reference
                 names = ('dx', 'dh0')
 
             def launch(bargs=bargs, bwd=bwd):
@@ -7641,53 +7691,84 @@ def _rnn_seq_case(torch, card, kind, direction, dtype, case, timed=False):
         before = counter.launches
         first, again = launch(), launch()
         want = plain()
+        # the wide kernels in bf16: the plain version's own bf16 gap, its
+        # fp32 run on the same inputs
+        gaps = [0.0] * len(names)
+        if wide and dtype == torch.bfloat16:
+            args = fargs if direction == 'fwd' else bargs
+            wide32 = (fwd_plain if direction == 'fwd' else bwd_plain)(*[
+                a.float() if torch.is_tensor(a) and a.is_floating_point()
+                else a for a in args])
+            gaps = [float((a.float() - c).abs().max()) if a.numel() else 0.0
+                    for a, c in zip(want, wide32)]
         torch.cuda.synchronize()
         require(counter.launches == before + 2, '%s: %d launches counted '
                 'for 2 calls' % (name, counter.launches - before))
         errs = []
-        for out, got, ref in zip(names, first, want):
+        for out, got, ref, gap in zip(names, first, want, gaps):
             g, r = (np.asarray(a.float().cpu(), np.float64) for a in (got, ref))
             require(np.isfinite(r).all(), '%s case %s: the plain %s is not '
                     'finite' % (name, case, out))
             err = float(np.abs(g - r).max()) if g.size else 0.0
             scale = float(np.abs(r).max()) if r.size else 0.0
             errs.append((out, err, err / max(scale, 1e-30)))
-            require(err <= tol * scale, '%s %s case %s acts %s: %s differs '
-                    'from the plain version by %.3g (largest magnitude %.3g; '
-                    '%s)' % (name, str(dtype)[6:], case, acts, out, err,
-                             scale, RNN_SEQ_TOL))
+            require(err <= max(tol * scale, 2.0 * gap), '%s %s case %s acts '
+                    '%s: %s differs from the plain version by %.3g (largest '
+                    'magnitude %.3g, the plain bf16 gap %.3g; %s)'
+                    % (name, str(dtype)[6:], case, acts, out, err, scale, gap,
+                       tol_text))
         same = all(torch.equal(a, c) for a, c in zip(first, again))
         require(same, '%s %s case %s: a second run gave other bits'
                 % (name, str(dtype)[6:], case))
         worst = max([worst] + [e for _, e, _ in errs])
         rel_worst = max([rel_worst] + [r for _, _, r in errs])
         print('%s %s case %s (B %d T %d D %d, acts %s%s%s%s%s): max abs err '
-              '%s (%s): ok, second run bit for bit [%s]'
+              '%s%s (%s): ok, second run bit for bit [%s]'
               % (name, str(dtype)[6:], case, b, t, d, acts,
                  ', reverse' if v['reverse'] else '',
                  '' if v['bias'] is not None else ', no bias',
                  '' if v['dh'] is not None else ', no dhidden',
                  '' if v['dc'] is not None or not lstm else ', no dcell',
                  ', '.join('%s %.3g (%.3g of its largest)' % e for e in errs),
-                 RNN_SEQ_TOL, card))
+                 '; the plain bf16 gaps %s' % ', '.join(
+                     '%.3g' % g for g in gaps) if any(gaps) else '',
+                 tol_text, card))
     row = dict(max_abs_err=worst, max_rel_err=rel_worst)
     if not timed:
         return row
-    plan_of = K.lstm_seq_plan if lstm else K.gru_seq_plan
-    plan = plan_of(b, d, dtype)
+    plan = getattr(K, '%s_plan' % stem)(b, d, dtype)
     lib = build.library()
     code = build.dtype_code(dtype)
     bwd_code = int(direction == 'bwd')
-    require(getattr(lib, 'ptt_%s_seq_smem' % kind)(
+    require(getattr(lib, 'ptt_%s_smem' % stem)(
         d, plan['units'], code, bwd_code) == plan['smem_%s' % direction],
-        '%s_seq_plan\'s shared memory differs from csrc/%s_seq.cu\'s layout'
-        % (kind, kind))
+        '%s_plan\'s shared memory differs from csrc/%s.cu\'s layout'
+        % (stem, stem))
+    if wide:
+        # the floor stages its rows from a [B, T, 3D] buffer, its counters
+        # zeroed before each launch as the wrapper's are
+        buf = torch.zeros(b, t, 3 * d, dtype=dtype, device=v['x'].device)
+        count = torch.zeros(plan['groups'], dtype=torch.int32,
+                            device=v['x'].device)
 
-    def floor_run():
-        build.check(getattr(lib, 'ptt_%s_seq_floor' % kind)(
-            b, t, d, plan['cluster'], plan['units'], code, bwd_code,
-            torch.cuda.current_stream().cuda_stream),
-            'ptt_%s_seq_floor' % kind)
+        def floor_run():
+            count.zero_()
+            build.check(lib.ptt_gru_wide_floor(
+                buf.data_ptr(), count.data_ptr(), b, t, d, plan['units'],
+                plan['cluster'], code, bwd_code,
+                torch.cuda.current_stream().cuda_stream),
+                'ptt_gru_wide_floor')
+        geometry = ('%d row groups x %d CTAs of %d units, clusters of %d, '
+                    'cooperative' % (plan['groups'], plan['slices'],
+                                     plan['units'], plan['cluster']))
+    else:
+        def floor_run():
+            build.check(getattr(lib, 'ptt_%s_floor' % stem)(
+                b, t, d, plan['cluster'], plan['units'], code, bwd_code,
+                torch.cuda.current_stream().cuda_stream),
+                'ptt_%s_floor' % stem)
+        geometry = '%d clusters of %d CTAs' % (
+            plan['grid'] // plan['cluster'], plan['cluster'])
     ms = device_ms(torch, launch, iters=20)
     plain_ms = device_ms(torch, plain, iters=3)
     positions_ms = device_ms(torch, positions, iters=3)
@@ -7716,18 +7797,17 @@ def _rnn_seq_case(torch, card, kind, direction, dtype, case, timed=False):
         lib_ms = eager_ms(torch, library, iters=20, warmup=3)
     row.update(ms=ms, plain_ms=plain_ms, positions_ms=positions_ms,
                bound_ms=lo, bound_by=by, library_ms=lib_ms, floor_ms=floor,
-               us_per_step=ms * 1e3 / t, cluster=plan['cluster'],
+               us_per_step=ms * 1e3 / t, cluster=plan.get('cluster'),
                units=plan['units'], smem=plan['smem_%s' % direction],
                grid=plan['grid'])
-    print('%s %s at the bench recurrence (B %d T %d hidden %d; %d clusters '
-          'of %d CTAs, %d threads, %d B shared memory a CTA): device ms %.5f '
-          '(%.3f us a step), plain (T torch.mm + plain cells) %.5f, the '
-          'per-position path (torch.mm + cell kernels) %.5f, bound %.6f '
-          '(%s), floor (T steps of %s alone, same launch) %.5f (%.3f us a '
-          'step), %s [%s]'
-          % (name, str(dtype)[6:], b, t, d, plan['grid'] // plan['cluster'],
-             plan['cluster'], plan['threads'], plan['smem_%s' % direction],
-             ms, ms * 1e3 / t, plain_ms, positions_ms, lo, by,
+    print('%s %s at the bench recurrence (B %d T %d hidden %d; %s, %d '
+          'threads, %d B shared memory a CTA): device ms %.5f (%.3f us a '
+          'step), plain (T torch.mm + plain cells) %.5f, the per-position '
+          'path (torch.mm + cell kernels) %.5f, bound %.6f (%s), floor (T '
+          'steps of %s alone, same launch) %.5f (%.3f us a step), %s [%s]'
+          % (name, str(dtype)[6:], b, t, d, geometry, plan['threads'],
+             plan['smem_%s' % direction], ms, ms * 1e3 / t, plain_ms,
+             positions_ms, lo, by,
              'one exchange' if lstm else 'two exchanges', floor,
              floor * 1e3 / t,
              'cuDNN nn.LSTM fp16 %s %.5f (eager)'
@@ -7745,11 +7825,13 @@ def phase_rnn_kernels(torch, card, b=128, t=100, d=128):
     (length 0) and at every activation; twice each for equal bits. Then the
     LSTM and GRU sequence kernels against their plain versions on
     RNN_SEQ_CASES / GRU_SEQ_CASES (timed at the bench case in bf16, beside
-    their floor, the per-position path and, for the LSTM, cuDNN), the
-    whole recurrences card against host at fp32 with ragged, reverse and
-    length-0 rows (through the sequence kernels, and at a width with no
-    plan through the cells), and each recurrence beside the cells' path
-    and torch.nn.LSTM / nn.GRU at full lengths. Returns {kernel: row}."""
+    their floor, the per-position path and, for the LSTM, cuDNN) and the
+    wide GRU kernels on GRU_WIDE_CASES (timed at 64 x 100 x 512 in fp32
+    and bf16 likewise), the whole recurrences card against host at fp32
+    with ragged, reverse and length-0 rows (through each path:
+    RECURRENCE_WIDTHS), and each recurrence beside the cells' path and
+    torch.nn.LSTM / nn.GRU at full lengths (the GRU also at 64 x 100 x
+    512, on the wide kernels). Returns {kernel: row}."""
     from paddle_tpu_torch.ops.kernels import rnn_cell as K
     gen = torch.Generator(device='cuda').manual_seed(19)
     rows = {}
@@ -7773,16 +7855,22 @@ def phase_rnn_kernels(torch, card, b=128, t=100, d=128):
                 for acts in every:
                     _rnn_cell_case(torch, card, kind, direction, dtype, 8, t,
                                    32, ragged, acts, gen)
-    for kind in ('lstm', 'gru'):
+    for kind in ('lstm', 'gru', 'gru_wide'):
+        wide = kind == 'gru_wide'
         for direction in ('fwd', 'bwd'):
+            key = '%s_%s' % ('gru_wide' if wide else kind + '_seq', direction)
             for dtype in (torch.float32, torch.bfloat16):
+                bf16 = dtype == torch.bfloat16
                 for case in SEQ_CASES[kind]:
-                    timed = case == 'bench' and dtype == torch.bfloat16
+                    timed = case == 'bench' and (bf16 or wide)
                     row = _rnn_seq_case(torch, card, kind, direction, dtype,
                                         case, timed=timed)
-                    if timed:
-                        rows['%s_seq_%s' % (kind, direction)] = row
-    # the LSTM at hidden 256 and the GRU at 512: fp32 has no plan there
+                    # the wide kernels' row is fp32's (the GRU models'
+                    # dtype), with bf16's beside it
+                    if timed and wide and bf16:
+                        rows[key]['bf16'] = row
+                    elif timed:
+                        rows[key] = row
     for kind, width in RECURRENCE_WIDTHS:
         for reverse in (False, True):
             before = read_launches()
@@ -7805,12 +7893,17 @@ def phase_rnn_kernels(torch, card, b=128, t=100, d=128):
     rows['recurrence'] = _recurrence_vs_cudnn(torch, card, b, t, d)
     rows['gru_recurrence'] = _recurrence_vs_cudnn(torch, card, b, t, d,
                                                   'gru')
+    rows['gru_wide_recurrence'] = _recurrence_vs_cudnn(torch, card, 64, t,
+                                                       512, 'gru')
     return rows
 
 
-# the recurrences held card against host: each kind through its sequence
-# kernels and at a width where fp32 has no plan, through the cells
-RECURRENCE_WIDTHS = [('lstm', 32), ('gru', 32), ('lstm', 256), ('gru', 512)]
+# the recurrences held card against host at B 8, fp32: each kind through
+# its sequence kernels (hidden 32), the GRU through the wide ones (512),
+# and each at a width past every plan, through the cells (the LSTM at 256,
+# the GRU at 1024)
+RECURRENCE_WIDTHS = [('lstm', 32), ('gru', 32), ('lstm', 256), ('gru', 512),
+                     ('gru', 1024)]
 ACTS_OF = {'lstm': (0, 1, 1), 'gru': (0, 1)}
 
 
@@ -8160,14 +8253,15 @@ def phase_seq_ops(torch, pt, place, card, on_card):
 def phase_rnn(torch, pt, place, card, on_card, batch=128, seq=100,
               vocab=30000, hidden=128, warmup=3, steps=20, model_batch=64,
               model_seq=100, model_steps=3, small=False, host_place=None,
-              wide_hidden=512):
+              wide_hidden=512, cells_hidden=1024):
     """Phase 19 (a, b, d; 19c is phase_rnn_kernels): bench_rnn_lstm timed
     and checked (and at hidden ``wide_hidden``, past the sequence kernels'
     plan), card against host at fp32, captured == eager == run_steps;
     the sequence models timed (their recurrences' launches exact) and card
-    against host, and stacked_gru_tagger at hidden ``wide_hidden``, past
-    the GRU sequence kernels' plan in fp32 (the cells); every new op type
-    card against host. Returns (the timed runs' launch counts, summary)."""
+    against host, and stacked_gru_tagger at hidden ``wide_hidden`` (past
+    the GRU cluster's plan in fp32: the wide kernels) and ``cells_hidden``
+    (past every GRU plan: the cells); every new op type card against host.
+    Returns (the timed runs' launch counts, summary)."""
     t0 = time.perf_counter()
     host_place = host_place or pt.CPUPlace()
     runs, out = [], {}
@@ -8246,33 +8340,35 @@ def phase_rnn(torch, pt, place, card, on_card, batch=128, seq=100,
             require(cells == want, 'phase 19b %s: recurrence launches %s, '
                     'want %s' % (name, cells, want))
             torch.cuda.empty_cache()
-    # stacked_gru_tagger past the GRU sequence kernels' plan: the GRU
-    # cells and products on the main path
-    build = seq_model_builds(pt, model_seq, small=small,
-                             gru_hidden=wide_hidden)['stacked_gru_tagger']
-    feed = seq_model_feed('stacked_gru_tagger', model_batch, model_seq)
-    launches, ms, one_graph = _seq_model_timed(torch, pt, place, on_card,
-                                               build, feed, 3)
-    runs.append(launches)
-    cells = {k: launches[k] for k in rnn_want()}
-    want = recurrence_want(torch, 'gru', model_batch, model_seq,
-                           wide_hidden, times=2 * 3)
-    models['stacked_gru_tagger_wide'] = dict(ms=ms, launches=cells,
-                                             hidden=wide_hidden)
-    print('phase 19b stacked_gru_tagger at hidden %d (%s): batch %d x seq '
-          '%d, %.3f ms/step captured (%s), recurrence launches in 3 steps '
-          '%s (want %s) [%s]'
-          % (wide_hidden, 'no GRU sequence plan in fp32: the cells'
-             if want['gru_cell_fwd'] else 'a GRU sequence plan',
-             model_batch, model_seq, ms,
-             'one graph' if one_graph else 'NOT one graph', cells, want,
-             card))
-    if on_card:
-        require(one_graph, 'phase 19b: the wide GRU tagger is not one '
-                'captured graph')
-        require(cells == want, 'phase 19b: the wide GRU tagger launched %s, '
-                'want %s' % (cells, want))
-        torch.cuda.empty_cache()
+    # stacked_gru_tagger past the GRU cluster's plan (the wide kernels)
+    # and past every GRU plan (the cells and products), each on the main
+    # path
+    from paddle_tpu_torch.ops.kernels import rnn_cell as K
+    for hidden_ in (wide_hidden, cells_hidden):
+        build = seq_model_builds(pt, model_seq, small=small,
+                                 gru_hidden=hidden_)['stacked_gru_tagger']
+        feed = seq_model_feed('stacked_gru_tagger', model_batch, model_seq)
+        launches, ms, one_graph = _seq_model_timed(torch, pt, place, on_card,
+                                                   build, feed, 3)
+        runs.append(launches)
+        cells = {k: launches[k] for k in rnn_want()}
+        want = recurrence_want(torch, 'gru', model_batch, model_seq, hidden_,
+                               times=2 * 3)
+        path = K.gru_path(model_batch, hidden_, torch.float32)
+        models['stacked_gru_tagger_%d' % hidden_] = dict(
+            ms=ms, launches=cells, hidden=hidden_, path=path)
+        print('phase 19b stacked_gru_tagger at hidden %d (the GRU\'s path '
+              'in fp32: %s): batch %d x seq %d, %.3f ms/step captured (%s), '
+              'recurrence launches in 3 steps %s (want %s) [%s]'
+              % (hidden_, path, model_batch, model_seq, ms,
+                 'one graph' if one_graph else 'NOT one graph', cells, want,
+                 card))
+        if on_card:
+            require(one_graph, 'phase 19b: the GRU tagger at hidden %d is '
+                    'not one captured graph' % hidden_)
+            require(cells == want, 'phase 19b: the GRU tagger at hidden %d '
+                    'launched %s, want %s' % (hidden_, cells, want))
+            torch.cuda.empty_cache()
     out['models'] = models
     out['ops'] = phase_seq_ops(torch, pt, place, card, on_card)
     out['seconds'] = time.perf_counter() - t0
@@ -9512,7 +9608,7 @@ def main():
                     base=tiny, micro=2)
         phase_rnn(torch, pt, pt.CPUPlace(), host, False, batch=4, seq=8,
                   vocab=64, hidden=8, steps=4, model_batch=4, model_seq=8,
-                  small=True, wide_hidden=16)
+                  small=True, wide_hidden=16, cells_hidden=24)
         phase_control_flow(torch, pt, pt.CPUPlace(), host, False, small=True)
         phase_conv(torch, pt, pt.CPUPlace(), host, False, small=True)
         print('cpu rehearsal ok in %.1f s' % (time.perf_counter() - t_start))
@@ -9724,6 +9820,7 @@ def main():
     rnn_runs, rnn = phase_rnn(torch, pt, pt.CUDAPlace(0), card, True)
     rnn['recurrence'] = rnn_kernels.pop('recurrence')
     rnn['gru_recurrence'] = rnn_kernels.pop('gru_recurrence')
+    rnn['gru_wide_recurrence'] = rnn_kernels.pop('gru_wide_recurrence')
     torch.cuda.empty_cache()
     done('19 (the recurrent and sequence path)')
     # phase 20: control flow, the RNN-search seq2seq and SSD
@@ -9847,6 +9944,12 @@ def main():
               launches=runs('%s_seq_%s' % (kind, way)),
               **rnn_kernels['%s_seq_%s' % (kind, way)])
          for kind, line in (('lstm', 30), ('gru', 78))
+         for way in ('fwd', 'bwd')] + \
+        [dict(name='gru_wide_%s' % way, route='cuda',
+              source='paddle_tpu_torch/csrc/gru_wide.cu',
+              replaces='paddle_tpu/ops/rnn_ops.py:78',
+              launches=runs('gru_wide_%s' % way),
+              **rnn_kernels['gru_wide_%s' % way])
          for way in ('fwd', 'bwd')]
     ctr.update(kernel={'%s %s' % k: dict(ms=v['ms'], bound_ms=v['bound_ms'],
                                          library_ms=v['library_ms'])

@@ -18,6 +18,7 @@ have (a backward kernel before it was written) is reported as such.
     python3 kernel_times.py [DIR] --seq2seq # phase 20's rnn_search, SSD
     python3 kernel_times.py [DIR] --pool    # the max pool and CNN steps
     python3 kernel_times.py [DIR] --cells   # the RNN cells at hidden 512
+    python3 kernel_times.py [DIR] --gru     # the GRU at hidden 512, models
 
 DIR (default: this checkout) holds the ``paddle_tpu_torch`` package to
 time; the shapes, the inputs and the timer (CUDA-graph replay, CUDA events)
@@ -121,6 +122,18 @@ LSTM at hidden 512 (B 128, bf16), rnn_search's encoder GRU (B 64, hidden
 fp32), forward and backward, each against its plain version and beside
 its bound and torch's fused LSTM cell (chip_smoke.py's _rnn_cell_case,
 timed).
+
+With --gru, it times DIR's GRU at hidden 512, wherever DIR routes it
+(the per-position cells before the wide kernels existed): GruRecurrence
+forward and backward with dW and dbias at B 64 x T 100 x hidden 512 in
+fp32 and bf16 by graph replay (chip_smoke.py's inputs of
+_recurrence_vs_cudnn, full lengths), then captured training steps of
+stacked_gru_tagger at hidden 512 (batch 64 x seq 100, fp32, SGD; 20 timed
+after 2) and of models/rnn_search at phase 20a's width (the v1 seqToseq
+demo's 512 / 512 / 30,000, batch 64 x 50, Adam) in fp32 and under bf16
+AMP (20 timed after 3), ms a step on the host clock, each with the GRU
+launches of its timed runs. Run it on the parent and on this tree in
+turns (parent, this, this, parent) to compare them.
 
 Nothing is checked here: chip_smoke.py holds each kernel against its plain
 versions. Prints one line a case, then nvidia-smi's name and power limit,
@@ -685,11 +698,82 @@ def cell_steps(torch, smoke, card):
     return ms
 
 
+def gru_steps(torch, smoke, card, steps=20):
+    """--gru: DIR's GRU recurrence, stacked_gru_tagger and rnn_search at
+    hidden 512; returns {label: ms}."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops.kernels import rnn_cell as K
+    dev = torch.device('cuda', 0)
+    gen = torch.Generator(device=dev).manual_seed(23)
+    b, t, d = 64, 100, 512
+    ms = {}
+
+    def gru_launches(before):
+        now = smoke.read_launches()
+        return {k: now[k] - before[k] for k in now
+                if k.startswith('gru_') and now[k] != before[k]}
+    for dt in (torch.float32, torch.bfloat16):
+        x = (0.5 * torch.randn(b, t, 3 * d, generator=gen, device=dev)).to(dt)
+        w = (0.1 * torch.randn(d, 3 * d, generator=gen, device=dev)).to(dt)
+        leaves = [a.requires_grad_() for a in
+                  (x, w, torch.zeros(3 * d, device=dev, dtype=dt))]
+        h0 = torch.zeros(b, d, device=dev, dtype=dt)
+        dy = torch.randn(b, t, d, generator=gen, device=dev).to(dt)
+
+        def recurrence(leaves=leaves, h0=h0, dy=dy):
+            h = K.GruRecurrence.apply(*leaves, h0, None, (0, 1), False)
+            torch.autograd.grad(h, leaves, dy)
+        before = smoke.read_launches()
+        recurrence()
+        torch.cuda.synchronize()
+        moved = gru_launches(before)
+        label = 'GruRecurrence fwd + bwd [%d, %d, %d] %s' % (b, t, d,
+                                                          str(dt)[6:])
+        ms[label] = smoke.device_ms(torch, recurrence, iters=5)
+        print('%s: %.4f ms by graph replay, launches a call %s [%s]'
+              % (label, ms[label], moved, card))
+        del x, w, leaves, h0, dy
+        torch.cuda.empty_cache()
+    build = smoke.seq_model_builds(pt, t, gru_hidden=d)['stacked_gru_tagger']
+    feed = smoke.seq_model_feed('stacked_gru_tagger', b, t)
+    launches, step_ms, one_graph = smoke._seq_model_timed(
+        torch, pt, pt.CUDAPlace(0), True, build, feed, steps)
+    label = 'stacked_gru_tagger hidden %d, %d x %d fp32 step' % (d, b, t)
+    ms[label] = step_ms
+    print('%s: %.3f ms a step, %d captured after 2 (%s), GRU launches %s '
+          '[%s]' % (label, step_ms, steps, 'one graph' if one_graph else
+                    'NOT one graph', {k: v for k, v in launches.items()
+                                      if k.startswith('gru_') and v}, card))
+    torch.cuda.empty_cache()
+    dims = smoke.RNN_SEARCH_WIDTH
+    for amp in (None, 'bf16'):
+        avg = smoke._build_rnn_search(pt, dims, amp)
+        exe, scope = pt.Executor(pt.CUDAPlace(0)), pt.Scope()
+        with pt.scope_guard(scope):
+            exe.run(pt.default_startup_program())
+            feed = {n: torch.as_tensor(v).to(dev) for n, v in
+                    smoke.rnn_search_feed(64, 50, dims['src_vocab']).items()}
+            smoke._train_steps(torch, exe, feed, avg, 3, True)
+            before = smoke.read_launches()
+            secs, _ = smoke._train_steps(torch, exe, feed, avg, steps, True)
+            moved = gru_launches(before)
+        label = 'rnn_search 512 / 512 / 30,000, 64 x 50 %s step' % (
+            amp or 'fp32')
+        ms[label] = secs * 1e3 / steps
+        print('%s: %.3f ms a step, %d captured after 3 (%s), GRU launches '
+              '%s [%s]' % (label, ms[label], steps, 'one graph' if
+                           exe.last_captured and exe.captures == 1 else
+                           'NOT one graph', moved, card))
+        del exe, scope, feed
+        torch.cuda.empty_cache()
+    return ms
+
+
 def main():
     args = [a for a in sys.argv[1:]
             if a not in ('--decode', '--train', '--write', '--serve',
                          '--encoder', '--rnn', '--moe', '--seq2seq',
-                         '--pool', '--cells')]
+                         '--pool', '--cells', '--gru')]
     port = os.path.abspath(args[0]) if args else REPO
     sys.path.insert(0, REPO)
     import chip_smoke as smoke
@@ -717,7 +801,7 @@ def main():
                       ('--serve', serve), ('--encoder', encoder_steps),
                       ('--rnn', rnn_steps), ('--moe', moe_steps),
                       ('--seq2seq', seq2seq_steps), ('--pool', pool_steps),
-                      ('--cells', cell_steps)):
+                      ('--cells', cell_steps), ('--gru', gru_steps)):
         if flag in sys.argv:
             ms = run(torch, smoke, card)
             print(card)

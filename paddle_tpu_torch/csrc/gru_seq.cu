@@ -50,30 +50,18 @@
 // - Exchanges are st.async onto the receiver's mbarrier (seq_cluster.cuh):
 //   no global fence and no cluster barrier a step.
 
-#include "seq_cluster.cuh"
+#include "gru_layout.cuh"
 
 namespace ptt {
 
-// A gate block's depth: D rounded up to 16 (an mma's k), so the products
-// over the u and r blocks and over the c block start on a k step.
-__host__ __device__ inline int gru_dk(int D) { return seq_round_up(D, 16); }
-// Shared memory: W's slice in the dtype, the exchange buffers of 16 rows in
-// the dtype, the products staged in fp32, then four mbarriers (32 bytes).
-//   forward bf16: W [3U][dk + 8], row q U + u holding column q D + j0 + u
-//     over k (the mma's B operand, n-major); fp32: W [dk][3U], column
-//     q U + u; buffers: h (two) then rh (two), [16][dk + pad];
-//     staging [16][2U]; mbarriers h0, h1, rh0, rh1;
-//   backward bf16: W [U][3 dk + 8], row u holding W[j0 + u, q D + j] at
-//     column q dk + j; fp32: W [3 dk][U], the same columns as rows;
-//     buffers: two of [16][3 dk + pad] holding (da_u, da_r, da_c) at the
-//     same columns; staging [16][U]; mbarriers (exchange 1, buffer 0, 1),
-//     (exchange 2, buffer 0, 1).
-__host__ __device__ inline int gru_w_elems(int D, int U, bool bf16,
-                                           bool bwd) {
-  const int dk = gru_dk(D);
-  if (!bwd) return bf16 ? 3 * U * seq_ld(dk, true) : dk * 3 * U;
-  return bf16 ? U * seq_ld(3 * dk, true) : 3 * dk * U;
-}
+// Shared memory: W's slice in the dtype (gru_layout.cuh), the exchange
+// buffers of 16 rows in the dtype, the products staged in fp32, then four
+// mbarriers (32 bytes).
+//   forward: buffers h (two) then rh (two), [16][dk + pad]; staging
+//     [16][2U]; mbarriers h0, h1, rh0, rh1;
+//   backward: buffers two of [16][3 dk + pad] holding (da_u, da_r, da_c)
+//     at W's columns; staging [16][U]; mbarriers (exchange 1, buffer 0,
+//     1), (exchange 2, buffer 0, 1).
 __host__ __device__ inline int gru_buf_elems(int D, bool bf16, bool bwd) {
   return kSeqRows * seq_ld(bwd ? 3 * gru_dk(D) : gru_dk(D), bf16);
 }
@@ -120,7 +108,6 @@ template <typename T>
 __global__ void __launch_bounds__(kSeqThreads)
     gru_seq_fwd_kernel(GruSeqArgs a) {
   constexpr bool kBf16 = sizeof(T) == 2;
-  constexpr int kVec = 16 / sizeof(T);  // elements a 16-byte load
   cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ __align__(16) unsigned char smem[];
   const int D = a.D, U = a.U, nT = a.T, D3 = 3 * a.D, C = a.C;
@@ -150,31 +137,7 @@ __global__ void __launch_bounds__(kSeqThreads)
 
   seq_zero(smem, gru_smem_bytes(D, U, kBf16, false));
   __syncthreads();
-  // W's u, r and c columns of this CTA's units: 16-byte loads where every
-  // run of units starts aligned
-  auto put_w = [&](int k, int q, int u, T v) {
-    ws[kBf16 ? (q * U + u) * ld + k : k * ldw + q * U + u] = v;
-  };
-  if (D % kVec == 0) {
-    const int runs = U / kVec;
-#pragma unroll 4
-    for (int i = threadIdx.x; i < D * 3 * runs; i += kSeqThreads) {
-      const int u = (i % runs) * kVec, q = (i / runs) % 3,
-                k = i / (3 * runs);
-      if (j0 + u >= D) continue;
-      const uint4 v = *reinterpret_cast<const uint4*>(
-          w + static_cast<long long>(k) * D3 + q * D + j0 + u);
-      const T* e = reinterpret_cast<const T*>(&v);
-#pragma unroll
-      for (int t = 0; t < kVec; ++t) put_w(k, q, u + t, e[t]);
-    }
-  } else {
-    for (int i = threadIdx.x; i < D * 3 * U; i += kSeqThreads) {
-      const int u = i % U, q = (i / U) % 3, k = i / (3 * U);
-      if (j0 + u < D)
-        put_w(k, q, u, w[static_cast<long long>(k) * D3 + q * D + j0 + u]);
-    }
-  }
+  gru_load_w_fwd(ws, w, D, U, j0);
   for (int i = threadIdx.x; i < kSeqRows * D; i += kSeqThreads) {
     const int r = i / D, k = i % D;
     if (row0 + r < a.B) hs[r * ld + k] = h0[(row0 + r) * a.h0s + k];
@@ -322,7 +285,6 @@ template <typename T>
 __global__ void __launch_bounds__(kSeqThreads)
     gru_seq_bwd_kernel(GruSeqArgs a) {
   constexpr bool kBf16 = sizeof(T) == 2;
-  constexpr int kVec = 16 / sizeof(T);
   cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ __align__(16) unsigned char smem[];
   const int D = a.D, U = a.U, nT = a.T, D3 = 3 * a.D, C = a.C;
@@ -350,30 +312,7 @@ __global__ void __launch_bounds__(kSeqThreads)
 
   seq_zero(smem, gru_smem_bytes(D, U, kBf16, true));
   __syncthreads();
-  // W's rows of this CTA's units, gate block q at column q dk
-  auto put_w = [&](int u, int c, T v) {
-    const int col = (c / D) * dk + c % D;
-    ws[kBf16 ? u * ld + col : col * U + u] = v;
-  };
-  if (D % kVec == 0) {
-    const int runs = D3 / kVec;
-#pragma unroll 4
-    for (int i = threadIdx.x; i < U * runs; i += kSeqThreads) {
-      const int u = i / runs, c = (i % runs) * kVec;
-      if (j0 + u >= D) continue;
-      const uint4 v = *reinterpret_cast<const uint4*>(
-          w + static_cast<long long>(j0 + u) * D3 + c);
-      const T* e = reinterpret_cast<const T*>(&v);
-#pragma unroll
-      for (int t = 0; t < kVec; ++t) put_w(u, c + t, e[t]);
-    }
-  } else {
-    for (int i = threadIdx.x; i < U * D3; i += kSeqThreads) {
-      const int u = i / D3, c = i % D3;
-      if (j0 + u < D)
-        put_w(u, c, w[static_cast<long long>(j0 + u) * D3 + c]);
-    }
-  }
+  gru_load_w_bwd(ws, w, D, U, j0);
   if (threadIdx.x == 0) {
     for (int i = 0; i < 4; ++i) seq_bar_init(bar1 + 8 * i);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");

@@ -18,7 +18,8 @@ def launch_counters():
     from .paged_attention import paged_attention
     from .random_bits import fused_dropout, keep_mask
     from .rnn_cell import gru_cell_bwd, gru_cell_fwd, gru_seq_bwd, \
-        gru_seq_fwd, lstm_cell_bwd, lstm_cell_fwd, lstm_seq_bwd, lstm_seq_fwd
+        gru_seq_fwd, gru_wide_bwd, gru_wide_fwd, lstm_cell_bwd, \
+        lstm_cell_fwd, lstm_seq_bwd, lstm_seq_fwd
     from .sparse_rows import sparse_rows
     res = [('layer_norm', fused_layer_norm, 'launches'),
            ('layer_norm_bwd', fused_layer_norm, 'bwd_launches'),
@@ -45,6 +46,8 @@ def launch_counters():
            ('gru_cell_bwd', gru_cell_bwd, 'launches'),
            ('gru_seq_fwd', gru_seq_fwd, 'launches'),
            ('gru_seq_bwd', gru_seq_bwd, 'launches'),
+           ('gru_wide_fwd', gru_wide_fwd, 'launches'),
+           ('gru_wide_bwd', gru_wide_bwd, 'launches'),
            ('max_pool_fwd', max_pool_fwd, 'launches'),
            ('max_pool_bwd', max_pool_bwd, 'launches')]
     for name, fn in (('flash_attention_fwd', fa.flash_fwd_cuda),

@@ -24,9 +24,9 @@ BUILD_DIR = os.path.join(_PKG, '_build')
 SOURCES = ('layer_norm.cu', 'paged_attention.cu', 'flash_attention.cu',
            'batch_norm.cu', 'kv_write.cu', 'random_bits.cu',
            'sparse_rows.cu', 'rnn_cell.cu', 'lstm_seq.cu', 'gru_seq.cu',
-           'max_pool.cu')
+           'gru_wide.cu', 'max_pool.cu')
 HEADERS = ('common.cuh', 'flash_tiles.cuh', 'rnn_math.cuh',
-           'seq_cluster.cuh')
+           'seq_cluster.cuh', 'gru_layout.cuh')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
@@ -208,6 +208,16 @@ def library():
             lib.ptt_gru_seq_bwd.restype = i
             lib.ptt_gru_seq_floor.argtypes = [i] * 7 + [p]
             lib.ptt_gru_seq_floor.restype = i
+            lib.ptt_gru_wide_smem.argtypes = [i, i, i, i]
+            lib.ptt_gru_wide_smem.restype = i
+            lib.ptt_gru_wide_fwd.argtypes = [p, ll, ll, p, p, p, ll] + \
+                [p] * 5 + [i] * 9 + [p]
+            lib.ptt_gru_wide_fwd.restype = i
+            lib.ptt_gru_wide_bwd.argtypes = [p] * 5 + [ll] + [p] * 5 + \
+                [i] * 9 + [p]
+            lib.ptt_gru_wide_bwd.restype = i
+            lib.ptt_gru_wide_floor.argtypes = [p, p] + [i] * 7 + [p]
+            lib.ptt_gru_wide_floor.restype = i
             for fn in (lib.ptt_max_pool_fwd, lib.ptt_max_pool_bwd):
                 fn.argtypes = [p] * 3 + [ll] * 6 + [i] * 8 + [p]
                 fn.restype = i

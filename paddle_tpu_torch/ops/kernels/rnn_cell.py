@@ -1,6 +1,7 @@
 """The LSTM and GRU cells and sequence kernels: the CUDA kernels of
-``csrc/rnn_cell.cu``, ``csrc/lstm_seq.cu`` and ``csrc/gru_seq.cu`` beside
-their plain PyTorch versions, and the recurrences built on them.
+``csrc/rnn_cell.cu``, ``csrc/lstm_seq.cu``, ``csrc/gru_seq.cu`` and
+``csrc/gru_wide.cu`` beside their plain PyTorch versions, and the
+recurrences built on them.
 
 The kernels replace no Pallas kernel: the JAX package runs each
 recurrence as one ``lax.scan`` (paddle_tpu/ops/rnn_ops.py ``lstm_scan``,
@@ -12,10 +13,13 @@ run a whole recurrence in one launch each way (W's slices resident in a
 thread-block cluster's shared memory, h and the gates' gradients exchanged
 between its CTAs; the GRU's second product, (r * h_prev) @ W_c, inside the
 cluster too), on every shape ``lstm_seq_plan`` / ``gru_seq_plan`` finds
-room for. Wider recurrences take the per-position path: a ``torch.mm`` and
-a cell launch (``lstm_cell_fwd`` / ``lstm_cell_bwd``) a position each way,
-for the GRU two of each (``gru_cell_fwd`` / ``gru_cell_bwd``, around its
-second product).
+room for. A GRU too wide for a cluster runs ``gru_wide_fwd`` /
+``gru_wide_bwd`` where ``gru_wide_plan`` has a launch: one launch each way
+too, W's slices over (almost) every SM and each step's values exchanged
+through L2. Wider recurrences take the per-position path: a ``torch.mm``
+and a cell launch (``lstm_cell_fwd`` / ``lstm_cell_bwd``) a position each
+way, for the GRU two of each (``gru_cell_fwd`` / ``gru_cell_bwd``, around
+its second product).
 
 Every wrapper launches its kernel for CUDA tensors (and counts it in
 ``.launches``) and takes its plain version (``*_reference``) for CPU
@@ -620,12 +624,69 @@ def gru_seq_plan(batch, d, dtype):
     return _seq_plan(batch, d, dtype, smem)
 
 
+WIDE_UNITS = (8, 16, 32, 64)  # a CTA's units on the wide plan
+WIDE_MAX_GRID = 132           # the H100 SXM's SMs: at most one CTA an SM
+
+
+def gru_wide_plan(batch, d, dtype):
+    """The wide GRU kernels' launch (csrc/gru_wide.cu) for a [batch, T, 3d]
+    recurrence in ``dtype``, or None: {'rows', 'groups', 'units',
+    'slices', 'cluster', 'threads', 'smem_fwd', 'smem_bwd', 'grid'}. A CTA
+    of 256 threads owns 16 rows (one of ``groups`` row groups) and
+    ``units`` hidden units (the fewest of 8, 16, 32 or 64 with which the
+    grid of ``groups`` x ``slices`` CTAs, slices = ceil(d / units), stays
+    within one CTA an SM), launched cooperatively in clusters of
+    ``cluster`` CTAs: 2 where slices is even and a row of d is 16-byte
+    aligned (each CTA of the pair copies half the staged rows into both),
+    else 1. The bytes a CTA are csrc/gru_wide.cu's layout, each gate block
+    d rounded up to dk = d rounded up to 16: forward W's u, r and c
+    columns of its units (bf16 [3 units][dk + 8], fp32 [dk][3 units]) and
+    one staging buffer [16, dk] (bf16 rows padded by 8 elements, fp32 by
+    4); backward W's rows of its units (bf16 [units][3 dk + 8], fp32 [3
+    dk][units]) and one buffer [16, 2 dk] padded alike; then the widest
+    product's fp32 pieces [slice][16][n] (n = 2 units forward, units
+    backward; max(8, n / 8) slices x 8 columns) and one mbarrier (16
+    bytes). None where either direction exceeds 227
+    KB, no unit count keeps the grid within 132 CTAs, or the dtype is
+    neither float32 nor bfloat16."""
+    if batch < 1 or d < 1 or dtype not in (torch.float32, torch.bfloat16):
+        return None
+    groups = -(-batch // SEQ_ROWS)
+    for units in WIDE_UNITS:
+        slices = -(-d // units)
+        if groups * slices <= WIDE_MAX_GRID:
+            break
+    else:
+        return None
+    bf16 = dtype == torch.bfloat16
+    dk = _up(d, 16)
+
+    def parts(n):
+        return 4 * SEQ_ROWS * 8 * max(8, n // 8)
+    if bf16:
+        fwd = (3 * units + SEQ_ROWS) * (dk + 8) * 2
+        bwd = (units * (3 * dk + 8) + SEQ_ROWS * (2 * dk + 8)) * 2
+    else:
+        fwd = (dk * 3 * units + SEQ_ROWS * (dk + 4)) * 4
+        bwd = (3 * dk * units + SEQ_ROWS * (2 * dk + 4)) * 4
+    fwd += parts(2 * units) + 16
+    bwd += parts(units) + 16
+    if max(fwd, bwd) > SEQ_SMEM_LIMIT:
+        return None
+    cluster = 2 if slices % 2 == 0 and d * (2 if bf16 else 4) % 16 == 0 \
+        else 1
+    return dict(rows=SEQ_ROWS, groups=groups, units=units, slices=slices,
+                cluster=cluster, threads=SEQ_THREADS, smem_fwd=fwd,
+                smem_bwd=bwd, grid=groups * slices)
+
+
 def _need_plan(what, plan_of, dtype, b, d):
     plan = plan_of(b, d, dtype)
     if plan is None:
-        raise ValueError('%s kernel: no launch plan for hidden %d in %s (W\'s '
-                         'slices exceed a cluster\'s shared memory); the '
-                         'per-position path takes it' % (what, d, dtype))
+        raise ValueError('%s kernel: no launch plan for batch %d, hidden %d '
+                         'in %s (W\'s slices and the staged rows exceed '
+                         'the shared memory it spreads them over); another '
+                         'path takes it' % (what, b, d, dtype))
     return plan
 
 
@@ -799,11 +860,111 @@ gru_seq_fwd.launches = 0
 gru_seq_bwd.launches = 0
 
 
-def _per_position(h0, plan_of):
-    """True where a CUDA recurrence (h0 its [B, D] carry) has no
-    sequence-kernel plan (``plan_of``: lstm_seq_plan or gru_seq_plan)."""
+def gru_wide_fwd(x, w, bias, h0, length, acts, reverse):
+    """The whole GRU forward in one launch spread over the card (W's slices
+    on every CTA of ``gru_wide_plan``, h and r * h_prev exchanged through
+    L2): arguments and results as ``gru_seq_fwd``. A CUDA tensor needs
+    ``gru_wide_plan``'s launch, else this raises."""
+    if x.device.type == 'cpu':
+        return gru_seq_fwd_reference(x, w, bias, h0, length, acts, reverse)
+    b, t, d3 = x.shape
+    d = d3 // 3
+    _check('gru_wide', x.dtype, x.device, b, [('x', x), ('h0', h0)])
+    plan = _need_plan('gru_wide', gru_wide_plan, x.dtype, b, d)
+    _contiguous('gru_wide', x.dtype, x.device,
+                [('w', w, (d, d3)), ('bias', bias, (d3,))])
+    length = _lengths(length, x.device, b)
+    hidden = x.new_empty((b, t, d))
+    gates = x.new_empty((b, t, d3))
+    rh = x.new_empty((b, t, d))
+    if t == 0:
+        return hidden, gates, rh
+    # the row groups' arrival counters, zeroed on the stream (a memset in a
+    # captured graph) before every launch
+    count = torch.zeros(plan['groups'], dtype=torch.int32, device=x.device)
+    lib = build.library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.ptt_gru_wide_fwd(
+            x.data_ptr(), x.stride(0), x.stride(1), w.data_ptr(), _ptr(bias),
+            h0.data_ptr(), h0.stride(0), _ptr(length), hidden.data_ptr(),
+            gates.data_ptr(), rh.data_ptr(), count.data_ptr(), b, t, d,
+            plan['units'], plan['cluster'], int(bool(reverse)),
+            build.dtype_code(x.dtype), *acts, stream)
+    build.check(rc, 'ptt_gru_wide_fwd')
+    gru_wide_fwd.launches += 1
+    return hidden, gates, rh
+
+
+def gru_wide_bwd(dhidden, w, gates, hidden, h0, length, acts, reverse):
+    """The whole GRU backward in one launch spread over the card, positions
+    in reverse order ((da_u, da_c), then da_r, exchanged through L2):
+    arguments and results as ``gru_seq_bwd``. A CUDA tensor needs
+    ``gru_wide_plan``'s launch, else this raises."""
+    if hidden.device.type == 'cpu':
+        return gru_seq_bwd_reference(dhidden, w, gates, hidden, h0, length,
+                                     acts, reverse)
+    b, t, d = hidden.shape
+    dt, dev = hidden.dtype, hidden.device
+    _check('gru_wide_bwd', dt, dev, b, [('h0', h0)])
+    plan = _need_plan('gru_wide_bwd', gru_wide_plan, dt, b, d)
+    _contiguous('gru_wide_bwd', dt, dev,
+                [('dhidden', dhidden, (b, t, d)), ('w', w, (d, 3 * d)),
+                 ('gates', gates, (b, t, 3 * d)),
+                 ('hidden', hidden, (b, t, d))])
+    length = _lengths(length, dev, b)
+    dx = torch.empty_like(gates)
+    dh_mm = hidden.new_zeros((b, d))
+    dhc = torch.zeros((b, d), dtype=torch.float32, device=dev)
+    if t == 0:
+        return dx, dhc.to(dt)
+    count = torch.zeros(plan['groups'], dtype=torch.int32, device=dev)
+    lib = build.library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.ptt_gru_wide_bwd(
+            _ptr(dhidden), w.data_ptr(), gates.data_ptr(), hidden.data_ptr(),
+            h0.data_ptr(), h0.stride(0), _ptr(length), dx.data_ptr(),
+            dh_mm.data_ptr(), dhc.data_ptr(), count.data_ptr(), b, t, d,
+            plan['units'], plan['cluster'], int(bool(reverse)),
+            build.dtype_code(dt), *acts, stream)
+    build.check(rc, 'ptt_gru_wide_bwd')
+    gru_wide_bwd.launches += 1
+    return dx, (dh_mm.float() + dhc).to(dt)
+
+
+gru_wide_fwd.launches = 0
+gru_wide_bwd.launches = 0
+
+
+def gru_path(batch, d, dtype):
+    """The card's path for a [batch, T, 3d] GRU recurrence in ``dtype``:
+    'seq' where ``gru_seq_plan`` has a launch (W in one cluster), else
+    'wide' where ``gru_wide_plan`` has one (W over the card), else 'cells'
+    (the products and cell launches a position)."""
+    if gru_seq_plan(batch, d, dtype) is not None:
+        return 'seq'
+    if gru_wide_plan(batch, d, dtype) is not None:
+        return 'wide'
+    return 'cells'
+
+
+def _gru_path(h0):
+    # a CPU tensor runs the plain versions, which the 'seq' wrappers take
+    return 'seq' if h0.device.type == 'cpu' else gru_path(*h0.shape,
+                                                          h0.dtype)
+
+
+GRU_PATHS = {'seq': (gru_seq_fwd, gru_seq_bwd),
+             'wide': (gru_wide_fwd, gru_wide_bwd),
+             'cells': (gru_positions_fwd, gru_positions_bwd)}
+
+
+def _lstm_per_position(h0):
+    """True where a CUDA LSTM recurrence (h0 its [B, D] carry) has no
+    ``lstm_seq_plan``."""
     return h0.device.type != 'cpu' and \
-        plan_of(h0.shape[0], h0.shape[1], h0.dtype) is None
+        lstm_seq_plan(h0.shape[0], h0.shape[1], h0.dtype) is None
 
 
 class LstmRecurrence(torch.autograd.Function):
@@ -817,7 +978,7 @@ class LstmRecurrence(torch.autograd.Function):
     def forward(ctx, x, w, bias, h0, c0, length, acts, reverse):
         w = w.contiguous()
         args = (x, w, bias, h0, c0, length, acts, reverse)
-        if _per_position(h0, lstm_seq_plan):
+        if _lstm_per_position(h0):
             hidden, cell, gates = lstm_positions_fwd(*args)
         else:
             hidden, cell, gates = lstm_seq_fwd(*args)
@@ -833,7 +994,7 @@ class LstmRecurrence(torch.autograd.Function):
         dcell = None if dcell is None else dcell.contiguous()
         args = (dhidden, dcell, w, gates, cell, c0, length, ctx.acts,
                 ctx.reverse)
-        if _per_position(h0, lstm_seq_plan):
+        if _lstm_per_position(h0):
             dx, dh0, dc0 = lstm_positions_bwd(*args)
         else:
             dx, dh0, dc0 = lstm_seq_bwd(*args)
@@ -851,17 +1012,15 @@ class GruRecurrence(torch.autograd.Function):
     """hidden [B, T, D] of a GRU over x [B, T, 3D] (projected), w [D, 3D],
     bias [3D] or None, h0 [B, D], length int32 [B] or None; every float
     tensor in one dtype. ``acts``: the (gate, candidate) codes. On the card
-    the sequence kernels run it where ``gru_seq_plan`` has a launch, else
-    the per-position path."""
+    the path is ``gru_path``'s: the cluster's sequence kernels where
+    ``gru_seq_plan`` has a launch, else the wide ones where
+    ``gru_wide_plan`` has one, else the per-position path."""
 
     @staticmethod
     def forward(ctx, x, w, bias, h0, length, acts, reverse):
         w = w.contiguous()
         args = (x, w, bias, h0, length, acts, reverse)
-        if _per_position(h0, gru_seq_plan):
-            hidden, gates, rh = gru_positions_fwd(*args)
-        else:
-            hidden, gates, rh = gru_seq_fwd(*args)
+        hidden, gates, rh = GRU_PATHS[_gru_path(h0)][0](*args)
         ctx.save_for_backward(w, h0, hidden, gates, rh, length)
         ctx.acts, ctx.reverse, ctx.has_bias = acts, reverse, bias is not None
         return hidden
@@ -872,10 +1031,7 @@ class GruRecurrence(torch.autograd.Function):
         b, t, d = hidden.shape
         dhidden = None if dhidden is None else dhidden.contiguous()
         args = (dhidden, w, gates, hidden, h0, length, ctx.acts, ctx.reverse)
-        if _per_position(h0, gru_seq_plan):
-            dx, dh0 = gru_positions_bwd(*args)
-        else:
-            dx, dh0 = gru_seq_bwd(*args)
+        dx, dh0 = GRU_PATHS[_gru_path(h0)][1](*args)
         need = ctx.needs_input_grad
         dw = dbias = None
         if need[1]:

@@ -24,7 +24,8 @@ import pytest
 import torch
 
 import paddle_tpu_torch as pt
-from chip_smoke import (GRU_SEQ_CASES, LAYERS_EDGE, LAYERS_FAULTS,
+from chip_smoke import (GRU_SEQ_CASES, GRU_WIDE_CASES, LAYERS_EDGE,
+                        LAYERS_FAULTS,
                         RNN_SEQ_CASES, grads_ok, ordinary,
                         parity_difference, same_bits, torch_pool_args)
 from paddle_tpu_torch.ops.kernels import batch_norm as tbn
@@ -2784,32 +2785,50 @@ def test_gru_seq_kernel_matches_plain(cuda, direction, dtype, case):
     _rnn_seq_case(torch, 'card test', 'gru', direction, dtype, case)
 
 
+@pytest.mark.parametrize('case', sorted(GRU_WIDE_CASES))
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['fp32', 'bf16'])
+@pytest.mark.parametrize('direction', ['fwd', 'bwd'])
+def test_gru_wide_kernel_matches_plain(cuda, direction, dtype, case):
+    """Each wide GRU kernel (W spread over the card, the exchanges through
+    L2) against its plain version on the same card tensors at hidden 512
+    (chip_smoke.py's RNN_WIDE_TOL), a second run bit for bit, one launch
+    counted a call."""
+    from chip_smoke import _rnn_seq_case
+    _rnn_seq_case(torch, 'card test', 'gru_wide', direction, dtype, case)
+
+
 @pytest.mark.parametrize('reverse', [False, True], ids=['forward', 'reverse'])
-@pytest.mark.parametrize('kind', ['lstm', 'gru', 'lstm_no_plan',
+@pytest.mark.parametrize('kind', ['lstm', 'gru', 'gru_wide', 'lstm_no_plan',
                                   'gru_no_plan'])
 def test_rnn_recurrence_on_card_equals_host(cuda, kind, reverse):
     """The whole recurrence through the kernels against the plain cells on
     the host, forward and every gradient, fp32, ragged lengths with 0 and
     T: within 1e-5 of each array's largest magnitude. At hidden 32 each
-    kind runs its sequence kernels, one launch each way; where fp32 has no
-    plan (the LSTM at hidden 256, the GRU at 512) the cells, a launch (the
-    GRU: two) each way a position."""
+    kind runs its sequence kernels, one launch each way; the GRU at 512
+    its wide kernels, one launch each way; past every plan (the LSTM at
+    hidden 256, the GRU at 1024) the cells, a launch (the GRU: two) each
+    way a position."""
     from chip_smoke import (_recurrence_places, read_launches,
                             recurrence_want, rnn_want)
-    from paddle_tpu_torch.ops.kernels.rnn_cell import (gru_seq_plan,
+    from paddle_tpu_torch.ops.kernels.rnn_cell import (gru_path,
                                                        lstm_seq_plan)
     base = kind.split('_')[0]
     acts = (0, 1) if base == 'gru' else (0, 1, 1)
-    width = {'lstm_no_plan': 256, 'gru_no_plan': 512}.get(kind, 32)
+    width = {'lstm_no_plan': 256, 'gru_no_plan': 1024,
+             'gru_wide': 512}.get(kind, 32)
     before = read_launches()
     rel = _recurrence_places(torch, base, 8, 24, width,
                              np.array([24, 0, 11, 1, 24, 9, 3, 20]), reverse,
                              acts, 3)
     assert rel <= 1e-5
     moved = {k: read_launches()[k] - before[k] for k in rnn_want()}
-    plan_of = lstm_seq_plan if base == 'lstm' else gru_seq_plan
-    seq = plan_of(8, width, torch.float32) is not None
-    assert seq == (not kind.endswith('no_plan'))
+    if base == 'lstm':
+        path = 'seq' if lstm_seq_plan(8, width, torch.float32) else 'cells'
+    else:
+        path = gru_path(8, width, torch.float32)
+    assert path == {'gru_wide': 'wide', 'lstm_no_plan': 'cells',
+                    'gru_no_plan': 'cells'}.get(kind, 'seq')
     assert moved == recurrence_want(torch, base, 8, 24, width)
 
 
@@ -2890,6 +2909,23 @@ def test_rnn_search_on_card_equals_host_on_gru_seq(cuda):
     np.testing.assert_allclose(losses[0], losses[1], rtol=1e-4)
     want = recurrence_want(torch, 'gru', 8, 12, 64, times=2 * 3)
     assert want['gru_seq_fwd'] == 6
+    assert {k: launches[k] for k in want} == want
+    np.testing.assert_array_equal(ids[0], ids[1])
+
+
+def test_rnn_search_on_card_equals_host_on_gru_wide(cuda):
+    """models/rnn_search with the seqToseq demo's hidden 512 (vocab 200,
+    emb 32, batch 8 x 12, ragged source lengths): 3 Adam steps on the card
+    against the host within rtol 1e-4, the encoder on the wide GRU kernels
+    (one launch each way a direction and step, no cell launch), greedy ids
+    equal."""
+    from chip_smoke import recurrence_want, rnn_search_places
+    dims = dict(src_vocab=200, trg_vocab=200, emb_dim=32, hidden_dim=512)
+    losses, ids, launches = rnn_search_places(
+        torch, pt, (pt.CUDAPlace(0), pt.CPUPlace()), dims, 8, 12)
+    np.testing.assert_allclose(losses[0], losses[1], rtol=1e-4)
+    want = recurrence_want(torch, 'gru', 8, 12, 512, times=2 * 3)
+    assert want['gru_wide_fwd'] == 6 and want['gru_cell_fwd'] == 0
     assert {k: launches[k] for k in want} == want
     np.testing.assert_array_equal(ids[0], ids[1])
 
